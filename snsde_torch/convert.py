@@ -1,0 +1,95 @@
+"""Weights carried across from the JAX package, and gradients back.
+
+The JAX package's models are pytrees; a caller flattens one into numpy
+arrays keyed by the dotted path of each leaf (attribute names and tuple
+indices, e.g. `sde.func.linear_in.weight`, `sde.func.noise_t.1.bias`,
+`sde.readout.norm.running_var` — a BatchNorm buffer is keyed without its
+`.value`). `load_jax_arrays` fills a port model from such a dict;
+`grads_to_jax_layout` returns the port's gradients under the same keys and
+in the JAX layout, so tests compare the two packages leaf by leaf. The port
+never sees a JAX object.
+
+The layouts differ in three ways, all handled here:
+  * a JAX `Linear` weight is [in, out], torch's is [out, in];
+  * the JAX field keeps its noise nets as tuples of Linears, the port keeps
+    the reference's modules: a lone `Linear`, or `Sequential(Linear, ReLU,
+    Linear)` whose Linears sit at indices 0 and 2;
+  * JAX `BatchNorm.scale`/`offset` are torch's `weight`/`bias`.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+__all__ = ["load_jax_arrays", "grads_to_jax_layout"]
+
+_TUPLE_FIELDS = ("noise_t", "noise_y")
+
+
+def _name_map(model: nn.Module) -> Dict[str, Tuple[str, bool]]:
+    """port state_dict name -> (JAX leaf name, transpose?)."""
+    out = {}
+    for pname in model.state_dict():
+        if pname.endswith("num_batches_tracked"):     # torch-only counter
+            continue
+        parts = pname.split(".")
+        mod, jparts = model, []
+        for p in parts[:-1]:
+            child = mod[int(p)] if p.isdigit() else getattr(mod, p)
+            if isinstance(mod, nn.Sequential):
+                # the j-th Linear of the Sequential is tuple element j
+                jparts.append(str(sum(isinstance(m, nn.Linear)
+                                      for m in list(mod)[:int(p)])))
+            else:
+                jparts.append(p)
+            if p in _TUPLE_FIELDS and isinstance(child, nn.Linear):
+                jparts.append("0")                    # a 1-tuple in JAX
+            mod = child
+        leaf = parts[-1]
+        if isinstance(mod, nn.BatchNorm1d):
+            leaf = {"weight": "scale", "bias": "offset"}.get(leaf, leaf)
+        out[pname] = (".".join(jparts + [leaf]),
+                      isinstance(mod, nn.Linear) and leaf == "weight")
+    return out
+
+
+def load_jax_arrays(model: nn.Module, arrays: Dict[str, np.ndarray]) -> None:
+    """Fill `model`'s parameters and buffers from the JAX model's leaves.
+    Raises KeyError on any missing or extra key, ValueError on a shape
+    mismatch."""
+    by_jax = {j: (p, tr) for p, (j, tr) in _name_map(model).items()}
+    missing = sorted(set(by_jax) - set(arrays))
+    extra = sorted(set(arrays) - set(by_jax))
+    if missing or extra:
+        raise KeyError(f"JAX arrays do not match the model: missing "
+                       f"{missing}, extra {extra}")
+    state = model.state_dict()
+    with torch.no_grad():
+        for j, (p, tr) in by_jax.items():
+            v = torch.as_tensor(np.array(arrays[j]))
+            if tr:
+                v = v.T
+            if tuple(v.shape) != tuple(state[p].shape):
+                raise ValueError(f"{j}: shape {tuple(v.shape)} does not fit "
+                                 f"{p} {tuple(state[p].shape)}")
+            state[p].copy_(v)
+
+
+def grads_to_jax_layout(model: nn.Module) -> Dict[str, np.ndarray]:
+    """The gradient of every parameter, keyed and laid out as the JAX
+    model's leaves; a parameter without a gradient gives zeros (the JAX
+    gradient of an unused leaf)."""
+    params = dict(model.named_parameters())
+    out = {}
+    for p, (j, tr) in _name_map(model).items():
+        if p not in params:                           # a buffer
+            continue
+        g = params[p].grad
+        g = (torch.zeros_like(params[p]) if g is None else g).detach()
+        g = g.cpu().numpy()
+        out[j] = g.T if tr else g
+    return out
