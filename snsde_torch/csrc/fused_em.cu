@@ -17,6 +17,7 @@
 // The backward runs the steps in reverse, recomputes the activations from
 // the saved trajectory, and accumulates per-block weight gradients that
 // the wrapper sums in a fixed order (no atomics: runs are bit-reproducible).
+// The drift MLP's device code is shared with fused_srk.cu (sde_common.cuh).
 //
 // What bounds it on the H100: not bytes or FLOPs (at B=1024, L=72, H=49 the
 // forward moves ~43 MB and does ~1 GFLOP, ~15 us of either) but the chain
@@ -26,92 +27,19 @@
 // the state, the activations and the weights (and, in the backward, the
 // weight-gradient accumulators) stay in shared memory for all steps and
 // only the per-step streams touch device memory; exact fp32 FMA on the CUDA
-// cores (TF32/wgmma would leave the exact-fp32 regime). Shared-memory rows
-// use an odd stride so both row and column walks are free of bank
-// conflicts.
+// cores (TF32/wgmma would leave the exact-fp32 regime).
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stddef.h>
+#include "sde_common.cuh"
 
 namespace {
 
-constexpr int ROWS = 8;       // batch rows per thread block
-constexpr int THREADS = 256;  // threads per block
-
-struct Dims {
-  int M, B, H, HH, n_inner, mult_y, geometric;
-};
-
-__host__ __device__ inline int odd(int n) { return n | 1; }
-
-__host__ __device__ inline size_t weights_floats(const Dims& d) {
-  return (size_t)d.H * odd(d.HH) + (size_t)d.n_inner * d.HH * odd(d.HH) +
-         (size_t)d.n_inner * d.HH + (size_t)d.HH * odd(d.H) + d.H;
-}
-
 __host__ __device__ inline size_t fwd_floats(const Dims& d) {
-  return weights_floats(d) + (size_t)ROWS * odd(d.H) +
-         2 * (size_t)ROWS * odd(d.HH);
+  return weights_floats(d) + tile_h(d) + (d.n_inner + 1) * tile_hh(d);
 }
 
 __host__ __device__ inline size_t bwd_floats(const Dims& d) {
-  const size_t acc = (size_t)d.H * d.HH + (size_t)d.n_inner * d.HH * d.HH +
-                     (size_t)d.n_inner * d.HH + (size_t)d.HH * d.H + d.H;
-  return weights_floats(d) + acc + 4 * (size_t)ROWS * odd(d.H) +
-         (size_t)(d.n_inner + 3) * ROWS * odd(d.HH) + THREADS / 32;
-}
-
-struct Weights {
-  float *wy, *wi, *bi, *wo, *bo;
-};
-
-// Carve the weights out of shared memory and copy them in ([in, out]
-// layout in device memory, rows padded to an odd stride here).
-__device__ Weights load_weights(float* s, const Dims& d,
-                                const float* __restrict__ wy,
-                                const float* __restrict__ wi,
-                                const float* __restrict__ bi,
-                                const float* __restrict__ wo,
-                                const float* __restrict__ bo) {
-  const int H = d.H, HH = d.HH, sH = odd(H), sHH = odd(HH);
-  Weights w;
-  w.wy = s;
-  w.wi = w.wy + H * sHH;
-  w.bi = w.wi + d.n_inner * HH * sHH;
-  w.wo = w.bi + d.n_inner * HH;
-  w.bo = w.wo + HH * sH;
-  for (int i = threadIdx.x; i < H * HH; i += THREADS)
-    w.wy[(i / HH) * sHH + i % HH] = wy[i];
-  for (int i = threadIdx.x; i < d.n_inner * HH * HH; i += THREADS)
-    w.wi[(i / HH) * sHH + i % HH] = wi[i];  // rows of all layers stacked
-  for (int i = threadIdx.x; i < d.n_inner * HH; i += THREADS) w.bi[i] = bi[i];
-  for (int i = threadIdx.x; i < HH * H; i += THREADS)
-    w.wo[(i / H) * sH + i % H] = wo[i];
-  for (int i = threadIdx.x; i < H; i += THREADS) w.bo[i] = bo[i];
-  return w;
-}
-
-// sum_k act[k] * W[k][j]: a row of activations times column j of W
-__device__ __forceinline__ float dot_col(const float* act, const float* W,
-                                         int K, int ldw, int j) {
-  float acc = 0.f;
-#pragma unroll 4
-  for (int k = 0; k < K; ++k) acc = fmaf(act[k], W[k * ldw + j], acc);
-  return acc;
-}
-
-// sum_c d[c] * Wk[c]: a row of cotangents times row k of W (W^T product)
-__device__ __forceinline__ float dot_row(const float* dr, const float* Wk,
-                                         int N) {
-  float acc = 0.f;
-#pragma unroll 4
-  for (int c = 0; c < N; ++c) acc = fmaf(dr[c], Wk[c], acc);
-  return acc;
-}
-
-__device__ __forceinline__ float sigmoid(float x) {
-  return 1.f / (1.f + expf(-x));
+  return weights_floats(d) + grads_floats(d) + 4 * tile_h(d) +
+         (d.n_inner + 3) * tile_hh(d) + THREADS / 32;
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -126,8 +54,8 @@ fwd_kernel(Dims d, const float* __restrict__ y0, const float* __restrict__ xh,
   const int H = d.H, HH = d.HH, sH = odd(H), sHH = odd(HH);
   const Weights w = load_weights(smem, d, wy, wi, bi, wo, bo);
   float* sy = smem + weights_floats(d);  // state tile [ROWS][sH]
-  float* h0 = sy + ROWS * sH;            // activations, ping-pong
-  float* h1 = h0 + ROWS * sHH;
+  float* hl = sy + tile_h(d);            // activations [NI+1][ROWS][sHH]
+  const float* hlast = hl + d.n_inner * ROWS * sHH;
 
   const int row0 = blockIdx.x * ROWS;
   const int nr = min(ROWS, d.B - row0);
@@ -139,32 +67,13 @@ fwd_kernel(Dims d, const float* __restrict__ y0, const float* __restrict__ xh,
 
   for (int u = 0; u < d.M; ++u) {
     const float dt = dts[u];
-    const float* xh_u = xh + u * BHH + (size_t)row0 * HH;
-    for (int i = threadIdx.x; i < nr * HH; i += THREADS) {
-      const int r = i / HH, j = i % HH;
-      const float z = dot_col(sy + r * sH, w.wy, H, sHH, j) +
-                      a[(size_t)u * HH + j] + xh_u[i];
-      h0[r * sHH + j] = fmaxf(z, 0.f);
-    }
-    __syncthreads();
-    float* hin = h0;
-    float* hout = h1;
-    for (int l = 0; l < d.n_inner; ++l) {
-      const float* W = w.wi + l * HH * sHH;
-      for (int i = threadIdx.x; i < nr * HH; i += THREADS) {
-        const int r = i / HH, j = i % HH;
-        const float z = dot_col(hin + r * sHH, W, HH, sHH, j) +
-                        w.bi[l * HH + j];
-        hout[r * sHH + j] = fmaxf(z, 0.f);
-      }
-      __syncthreads();
-      float* t = hin; hin = hout; hout = t;
-    }
+    mlp_hidden(d, w, sy, a + (size_t)u * HH, xh + u * BHH + (size_t)row0 * HH,
+               hl, nr);
     const size_t off = u * BH + (size_t)row0 * H;
     for (int i = threadIdx.x; i < nr * H; i += THREADS) {
       const int r = i / H, j = i % H;
       const float y = sy[r * sH + j];
-      float z3 = dot_col(hin + r * sHH, w.wo, HH, sH, j) + w.bo[j];
+      float z3 = mlp_out(d, w, hlast, r, j);
       if (d.geometric) z3 *= tanhf(y);
       const float f = tanhf(z3);
       float graw = gk[(size_t)u * H + j];
@@ -195,31 +104,21 @@ bwd_kernel(Dims d, const float* __restrict__ y0, const float* __restrict__ ys,
   const int H = d.H, HH = d.HH, NI = d.n_inner, M = d.M;
   const int sH = odd(H), sHH = odd(HH);
   const Weights w = load_weights(smem, d, wy, wi, bi, wo, bo);
-  // gradient accumulators: entry e is owned by thread e % THREADS for the
-  // whole reverse loop, so no two threads ever add into one entry
-  float* g_wy = smem + weights_floats(d);  // [H][HH]
-  float* g_wi = g_wy + H * HH;             // [NI][HH][HH]
-  float* g_bi = g_wi + NI * HH * HH;       // [NI][HH]
-  float* g_wo = g_bi + NI * HH;            // [HH][H]
-  float* g_bo = g_wo + HH * H;             // [H]
-  float* sy = g_bo + H;                    // y before the step [ROWS][sH]
-  float* sg = sy + ROWS * sH;              // cotangent of y after the step
-  float* sd = sg + ROWS * sH;              // cotangent of z3 (pre-geometric)
-  float* sq = sd + ROWS * sH;              // cotangent of the gk row
-  float* hl = sq + ROWS * sH;              // h_0..h_NI [NI+1][ROWS][sHH]
-  float* e0 = hl + (NI + 1) * ROWS * sHH;  // MLP cotangents, ping-pong
-  float* e1 = e0 + ROWS * sHH;
-  float* red = e1 + ROWS * sHH;            // [THREADS / 32]
+  const Grads gr = zero_grads(smem + weights_floats(d), d);
+  float* sy = smem + weights_floats(d) + grads_floats(d);  // y before the step
+  float* sg = sy + tile_h(d);              // cotangent of y after the step
+  float* sd = sg + tile_h(d);              // cotangent of z3 (pre-geometric)
+  float* sq = sd + tile_h(d);              // cotangent of the gk row
+  float* hl = sq + tile_h(d);              // h_0..h_NI [NI+1][ROWS][sHH]
+  float* e0 = hl + (NI + 1) * tile_hh(d);  // MLP cotangents, ping-pong
+  float* e1 = e0 + tile_hh(d);
+  float* red = e1 + tile_hh(d);            // [THREADS / 32]
+  const float* hlast = hl + NI * ROWS * sHH;
 
   const int tid = threadIdx.x;
   const int row0 = blockIdx.x * ROWS;
   const int nr = min(ROWS, d.B - row0);
   const size_t BH = (size_t)d.B * H, BHH = (size_t)d.B * HH;
-  for (int e = tid; e < H * HH; e += THREADS) g_wy[e] = 0.f;
-  for (int e = tid; e < NI * HH * HH; e += THREADS) g_wi[e] = 0.f;
-  for (int e = tid; e < NI * HH; e += THREADS) g_bi[e] = 0.f;
-  for (int e = tid; e < HH * H; e += THREADS) g_wo[e] = 0.f;
-  for (int e = tid; e < H; e += THREADS) g_bo[e] = 0.f;
   for (int i = tid; i < ROWS * sH; i += THREADS) sg[i] = 0.f;
   const float sth = sigmoid(theta[0]);
   float th_acc = 0.f;
@@ -238,32 +137,13 @@ bwd_kernel(Dims d, const float* __restrict__ y0, const float* __restrict__ ys,
     __syncthreads();
 
     // recompute the drift MLP's activations
-    for (int i = tid; i < nr * HH; i += THREADS) {
-      const int r = i / HH, j = i % HH;
-      const float z = dot_col(sy + r * sH, w.wy, H, sHH, j) +
-                      a[(size_t)u * HH + j] + xh[offh + i];
-      hl[r * sHH + j] = fmaxf(z, 0.f);
-    }
-    __syncthreads();
-    for (int l = 0; l < NI; ++l) {
-      const float* hin = hl + l * ROWS * sHH;
-      float* hout = hl + (l + 1) * ROWS * sHH;
-      const float* W = w.wi + l * HH * sHH;
-      for (int i = tid; i < nr * HH; i += THREADS) {
-        const int r = i / HH, j = i % HH;
-        const float z = dot_col(hin + r * sHH, W, HH, sHH, j) +
-                        w.bi[l * HH + j];
-        hout[r * sHH + j] = fmaxf(z, 0.f);
-      }
-      __syncthreads();
-    }
+    mlp_hidden(d, w, sy, a + (size_t)u * HH, xh + offh, hl, nr);
 
     // back through the step: y' = y + f dt + g dW
-    const float* hlast = hl + NI * ROWS * sHH;
     for (int i = tid; i < nr * H; i += THREADS) {
       const int r = i / H, j = i % H, s = r * sH + j;
       const float y = sy[s], gb = sg[s];
-      const float z3l = dot_col(hlast + r * sHH, w.wo, HH, sH, j) + w.bo[j];
+      const float z3l = mlp_out(d, w, hlast, r, j);
       const float ty = tanhf(y);
       const float f = tanhf(d.geometric ? z3l * ty : z3l);
       const float graw0 = gk[(size_t)u * H + j];
@@ -290,99 +170,20 @@ bwd_kernel(Dims d, const float* __restrict__ y0, const float* __restrict__ ys,
     }
     __syncthreads();
 
-    // Wout, bo, the gk row; then back through Wout and the last relu
-    for (int e = tid; e < HH * H; e += THREADS) {
-      const int k = e / H, c = e % H;
-      float acc = 0.f;
-      for (int r = 0; r < nr; ++r)
-        acc = fmaf(hlast[r * sHH + k], sd[r * sH + c], acc);
-      g_wo[e] += acc;
-    }
-    for (int c = tid; c < H; c += THREADS) {
-      float sb = 0.f, sk = 0.f;
-      for (int r = 0; r < nr; ++r) {
-        sb += sd[r * sH + c];
-        sk += sq[r * sH + c];
-      }
-      g_bo[c] += sb;
-      p_gk[((size_t)blockIdx.x * M + u) * H + c] = sk;
-    }
-    for (int i = tid; i < nr * HH; i += THREADS) {
-      const int r = i / HH, k = i % HH;
-      const float dh = dot_row(sd + r * sH, w.wo + k * sH, H);
-      e0[r * sHH + k] = hlast[r * sHH + k] > 0.f ? dh : 0.f;
-    }
-    __syncthreads();
-
-    // inner layers in reverse
-    float* ein = e0;
-    float* eout = e1;
-    for (int l = NI - 1; l >= 0; --l) {
-      const float* hprev = hl + l * ROWS * sHH;
-      const float* W = w.wi + l * HH * sHH;
-      for (int e = tid; e < HH * HH; e += THREADS) {
-        const int k = e / HH, c = e % HH;
-        float acc = 0.f;
-        for (int r = 0; r < nr; ++r)
-          acc = fmaf(hprev[r * sHH + k], ein[r * sHH + c], acc);
-        g_wi[l * HH * HH + e] += acc;
-      }
-      for (int c = tid; c < HH; c += THREADS) {
-        float sb = 0.f;
-        for (int r = 0; r < nr; ++r) sb += ein[r * sHH + c];
-        g_bi[l * HH + c] += sb;
-      }
-      for (int i = tid; i < nr * HH; i += THREADS) {
-        const int r = i / HH, k = i % HH;
-        const float dh = dot_row(ein + r * sHH, W + k * sHH, HH);
-        eout[r * sHH + k] = hprev[r * sHH + k] > 0.f ? dh : 0.f;
-      }
-      __syncthreads();
-      float* t = ein; ein = eout; eout = t;
-    }
-
-    // ein = cotangent of z1: Wy', the a' row, the xh' stream, and y
-    for (int e = tid; e < H * HH; e += THREADS) {
-      const int k = e / HH, c = e % HH;
-      float acc = 0.f;
-      for (int r = 0; r < nr; ++r)
-        acc = fmaf(sy[r * sH + k], ein[r * sHH + c], acc);
-      g_wy[e] += acc;
-    }
-    for (int c = tid; c < HH; c += THREADS) {
-      float sa = 0.f;
-      for (int r = 0; r < nr; ++r) sa += ein[r * sHH + c];
-      p_a[((size_t)blockIdx.x * M + u) * HH + c] = sa;
-    }
-    for (int i = tid; i < nr * HH; i += THREADS)
-      dxh[offh + i] = ein[(i / HH) * sHH + i % HH];
-    for (int i = tid; i < nr * H; i += THREADS) {
-      const int r = i / H, k = i % H;
-      sg[r * sH + k] += dot_row(ein + r * sHH, w.wy + k * sHH, HH);
-    }
+    // the gk row; the MLP's weights; then a', xh' and y
+    column_sums(d, sq, p_gk + ((size_t)blockIdx.x * M + u) * H, nr);
+    const float* ein = mlp_backward(d, w, gr, sy, hl, sd, e0, e1, nr);
+    spread_dz1(d, w, ein, p_a + ((size_t)blockIdx.x * M + u) * HH,
+               dxh + offh, sg, nr);
     __syncthreads();
   }
 
   for (int i = tid; i < nr * H; i += THREADS)
     dy0[(size_t)row0 * H + i] = sg[(i / H) * sH + i % H];
-  const size_t b = blockIdx.x;
-  for (int e = tid; e < H * HH; e += THREADS) p_wy[b * H * HH + e] = g_wy[e];
-  for (int e = tid; e < NI * HH * HH; e += THREADS)
-    p_wi[b * NI * HH * HH + e] = g_wi[e];
-  for (int e = tid; e < NI * HH; e += THREADS) p_bi[b * NI * HH + e] = g_bi[e];
-  for (int e = tid; e < HH * H; e += THREADS) p_wo[b * HH * H + e] = g_wo[e];
-  for (int e = tid; e < H; e += THREADS) p_bo[b * H + e] = g_bo[e];
-
+  store_grads(d, gr, p_wy, p_wi, p_bi, p_wo, p_bo);
   // d theta: per-thread sums, one per block, through sigmoid'
-  float v = th_acc;
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  if ((tid & 31) == 0) red[tid >> 5] = v;
-  __syncthreads();
-  if (tid == 0) {
-    float s = 0.f;
-    for (int k = 0; k < THREADS / 32; ++k) s += red[k];
-    p_th[b] = s * sth * (1.f - sth);
-  }
+  const float s = block_sum(th_acc, red);
+  if (tid == 0) p_th[blockIdx.x] = s * sth * (1.f - sth);
 }
 
 }  // namespace
@@ -398,14 +199,7 @@ long long fused_em_smem_bytes(int H, int HH, int n_inner, int backward) {
 }
 
 // The most dynamic shared memory one block may opt in to on this device.
-int fused_em_max_smem() {
-  int dev = 0, v = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
-  if (cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                             dev) != cudaSuccess)
-    return 0;
-  return v;
-}
+int fused_em_max_smem() { return max_optin_smem(); }
 
 const char* fused_em_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);

@@ -1,9 +1,9 @@
 """Classification preprocessing (counterpart of snsde/data/common.py:42-155).
 
 Train-stats normalisation, the time and cumulative-intensity channels, the
-stratified 70/15/15 split and Hermite spline coefficients, on the host. The
-coefficients come from the port's own `ops.interp` (on the CPU); natural
-cubic splines are not ported yet.
+stratified 70/15/15 split, Hermite or natural cubic spline coefficients,
+and the seeded per-channel missingness of the robustness runs, on the
+host. The coefficients come from the port's own `ops.interp` (on the CPU).
 """
 
 from __future__ import annotations
@@ -13,10 +13,11 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from ..ops.interp import hermite_cubic_coeffs
+from ..ops.interp import hermite_cubic_coeffs, natural_cubic_coeffs
 
 __all__ = ["normalize_with_train_stats", "append_time_intensity",
-           "stratified_split", "preprocess_classification"]
+           "stratified_split", "inject_missingness",
+           "preprocess_classification"]
 
 
 def normalize_with_train_stats(X: np.ndarray, train_idx) -> np.ndarray:
@@ -62,6 +63,23 @@ def stratified_split(y: np.ndarray, fractions=(0.7, 0.15, 0.15),
     return tuple(np.sort(np.concatenate(g)) for g in groups)
 
 
+def inject_missingness(X: np.ndarray, missing_rate: float,
+                       seed: int = 56789) -> np.ndarray:
+    """Seeded per-channel random masking (generator seed 56789); never
+    masks the first observation of a channel."""
+    if missing_rate <= 0:
+        return X
+    X = np.array(X, np.float32, copy=True)
+    rng = np.random.default_rng(seed)
+    B, L, C = X.shape
+    for c in range(C):
+        n_drop = int(missing_rate * L)
+        for b in range(B):
+            drop = rng.permutation(L - 1)[:n_drop] + 1
+            X[b, drop, c] = np.nan
+    return X
+
+
 def preprocess_classification(X: np.ndarray, y: np.ndarray,
                               lengths: Optional[np.ndarray] = None,
                               use_intensity: bool = False,
@@ -71,10 +89,10 @@ def preprocess_classification(X: np.ndarray, y: np.ndarray,
 
     X: [B, L, C] raw series with NaN for missing; y: [B] int labels;
     lengths: per-sample observed length (final_index = lengths - 1)."""
-    if interpolation != "hermite":
-        raise NotImplementedError(
-            f"interpolation {interpolation!r} is not ported yet (ROADMAP "
-            "Queue 1 item 3: natural cubic splines); use 'hermite'")
+    splines = {"hermite": hermite_cubic_coeffs,
+               "natural": lambda t, x: natural_cubic_coeffs(t, x, pack=True)}
+    if interpolation not in splines:
+        raise ValueError(f"unknown interpolation {interpolation!r}")
     B, L, C = X.shape
     if times is None:
         times = np.arange(L, dtype=np.float32)
@@ -85,8 +103,9 @@ def preprocess_classification(X: np.ndarray, y: np.ndarray,
     tr, va, te = stratified_split(y, seed=seed)
     Xa = append_time_intensity(normalize_with_train_stats(X, tr), times,
                                use_intensity)
-    coeffs = hermite_cubic_coeffs(torch.as_tensor(times, dtype=torch.float32),
-                                  torch.as_tensor(Xa)).numpy()
+    coeffs = splines[interpolation](
+        torch.as_tensor(times, dtype=torch.float32),
+        torch.as_tensor(Xa)).numpy()
 
     def subset(idx):
         return {"coeffs": coeffs[idx], "y": np.asarray(y)[idx],

@@ -1,16 +1,17 @@
-"""Synthetic sepsis-shaped data (counterpart of snsde/data/synthetic.py:
-20-50, the port's own copy: the same arrays, bit for bit, from the same
-seed).
+"""Synthetic sepsis- and MuJoCo-shaped data (counterpart of
+snsde/data/synthetic.py:20-50, 86-100, the port's own copy: the same
+arrays, bit for bit, from the same seed).
 
-The sepsis archive is not downloaded here, so the harness runs on data with
-the same shapes, missingness and a learnable label.
+The sepsis archive and the MuJoCo trajectory bank are not downloaded here,
+so the harnesses run on data with the same shapes (and, for sepsis, the
+same missingness and a learnable label).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["synthetic_sepsis"]
+__all__ = ["synthetic_sepsis", "synthetic_mujoco"]
 
 
 def synthetic_sepsis(n: int = 4096, length: int = 72, channels: int = 34,
@@ -44,3 +45,19 @@ def synthetic_sepsis(n: int = 4096, length: int = 72, channels: int = 34,
     static = rng.normal(0, 1, (n, static_dim)).astype(np.float32)
     static[:, 0] += 0.5 * y
     return base, static, y, lengths.astype(np.int64), t.astype(np.float32)
+
+
+def synthetic_mujoco(n: int = 2048, length: int = 60, channels: int = 14,
+                     seed: int = 0):
+    """MuJoCo-shaped windows [n, 60, 14] (50 in + 10 out): smooth
+    pseudo-physical trajectories from coupled damped oscillators."""
+    rng = np.random.default_rng(seed)
+    t = np.linspace(0, 3, length, dtype=np.float32)
+    freqs = rng.uniform(0.5, 2.0, (n, channels)).astype(np.float32)
+    phases = rng.uniform(0, 2 * np.pi, (n, channels)).astype(np.float32)
+    amps = rng.uniform(0.5, 1.5, (n, channels)).astype(np.float32)
+    X = amps[:, None, :] * np.sin(
+        2 * np.pi * freqs[:, None, :] * t[None, :, None] + phases[:, None, :]
+    )
+    X += 0.02 * rng.normal(0, 1, X.shape).astype(np.float32)
+    return X.astype(np.float32), t

@@ -3,9 +3,10 @@
 Each source in snsde_torch/csrc/ is compiled with nvcc for sm_90a into a
 shared library with a plain C interface and loaded with ctypes — no
 PyTorch headers, so a build takes seconds. Libraries go to
-snsde_torch/_build/ (listed in .gitignore), named by a hash of the source
-and the flags, so an edited source is rebuilt at first use and an
-unchanged one is loaded as it is. Nothing here runs at import time.
+snsde_torch/_build/ (listed in .gitignore), named by a hash of the source,
+the shared headers (csrc/*.cuh) and the flags, so an edited source or
+header is rebuilt at first use and an unchanged one is loaded as it is.
+Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -43,9 +44,14 @@ def _nvcc() -> str:
     return path
 
 
-def _target(name: str) -> str:
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+def _target(name: str, csrc: str = CSRC) -> str:
+    """The library's path, named by a digest of csrc/<name>.cu, every
+    header in csrc/ (a source may include any of them) and the flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(csrc) if f.endswith(".cuh"))
+    for fname in [f"{name}.cu"] + headers:
+        with open(os.path.join(csrc, fname), "rb") as f:
+            digest.update(fname.encode() + b"\0" + f.read())
     return os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}.so")
 
 

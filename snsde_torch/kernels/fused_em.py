@@ -38,8 +38,6 @@ raise.
 
 from __future__ import annotations
 
-import ctypes
-import functools
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -47,6 +45,10 @@ import torch
 
 from ..ops.brownian import brownian_increments
 from ..ops.solve import make_grid
+from ._solver import (MAX_WIDTH, MULT_Y_NO, SolverLib, check_supported,
+                      check_tensors, kernel_dims, merged_drift_rows,
+                      merged_drift_weights, precomp_gk, stage_times,
+                      supports_fused)
 
 __all__ = ["fused_em_solve", "fused_em_inputs", "supports_fused", "FusedEM",
            "fused_em_forward", "fused_em_backward",
@@ -56,20 +58,6 @@ __all__ = ["fused_em_solve", "fused_em_inputs", "supports_fused", "FusedEM",
 # launches of each CUDA kernel since the count was last set to 0
 FWD_LAUNCHES = 0
 BWD_LAUNCHES = 0
-
-MAX_WIDTH = 128
-_EMB_IO = {2, 4, 6}
-_PRECOMP_NO = {0, 1, 2, 3, 4, 5, 6, 11, 12, 13, 16, 17}
-_MULT_Y_NO = {3, 6, 11, 13, 15, 17, 19}
-
-
-def supports_fused(field) -> bool:
-    """True when the CUDA kernels take the field's configuration: drift
-    mode 'embm' (input_option 2, 4, 6) with a t-only ('precomp')
-    diffusion."""
-    io = getattr(field, "input_option", None)
-    no = getattr(field, "noise_option", None)
-    return io in _EMB_IO and no in _PRECOMP_NO
 
 
 class FusedEMGrads(NamedTuple):
@@ -176,29 +164,8 @@ def fused_em_backward_reference(y0, ys, gys, xh, dw, a, gk, dts, theta, wy,
 # The CUDA kernels
 # ---------------------------------------------------------------------------
 
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-
-
-@functools.cache
-def _lib() -> ctypes.CDLL:
-    """The kernels' library, built at first use, with its C signatures."""
-    from ._build import load
-
-    lib = load("fused_em")
-    lib.fused_em_fwd.argtypes = [_P] * 13 + [_I] * 7 + [_P]
-    lib.fused_em_fwd.restype = _I
-    lib.fused_em_bwd.argtypes = [_P] * 24 + [_I] * 7 + [_P]
-    lib.fused_em_bwd.restype = _I
-    lib.fused_em_smem_bytes.argtypes = [_I] * 4
-    lib.fused_em_smem_bytes.restype = ctypes.c_longlong
-    lib.fused_em_max_smem.argtypes = []
-    lib.fused_em_max_smem.restype = _I
-    lib.fused_em_rows_per_block.argtypes = []
-    lib.fused_em_rows_per_block.restype = _I
-    lib.fused_em_error_string.argtypes = [_I]
-    lib.fused_em_error_string.restype = ctypes.c_char_p
-    return lib
+# built and loaded at first launch
+_LIB = SolverLib("fused_em", "fused EM", 13, 24)
 
 
 def check_kernel_inputs(y0, xh, dw, a, gk, dts, theta, wy, w_inner, b_inner,
@@ -207,16 +174,8 @@ def check_kernel_inputs(y0, xh, dw, a, gk, dts, theta, wy, w_inner, b_inner,
     than float32, tensors on different devices, a non-contiguous tensor,
     a shape that disagrees with y0/wy/w_inner/dts, or H, HH above
     MAX_WIDTH. Returns (M, B, H, HH, n_inner)."""
-    if y0.ndim != 2 or wy.ndim != 2 or w_inner.ndim != 3 or dts.ndim != 1:
-        raise ValueError("fused EM kernel: y0 [B,H], wy [H,HH], w_inner "
-                         "[n_inner,HH,HH] and dts [M] expected")
-    B, H = y0.shape
-    HH = wy.shape[1]
-    M = dts.shape[0]
-    n_inner = w_inner.shape[0]
-    if H > MAX_WIDTH or HH > MAX_WIDTH:
-        raise ValueError(f"fused EM kernel takes H and HH up to {MAX_WIDTH} "
-                         f"(got H={H}, HH={HH})")
+    M, B, H, HH, n_inner = dims = kernel_dims("fused EM", y0, wy, w_inner,
+                                              dts)
     want = {"y0": (B, H), "xh": (M, B, HH), "dw": (M, B, H), "a": (M, HH),
             "gk": (M, H), "dts": (M,), "theta": (1,), "wy": (H, HH),
             "w_inner": (n_inner, HH, HH), "b_inner": (n_inner, HH),
@@ -224,44 +183,8 @@ def check_kernel_inputs(y0, xh, dw, a, gk, dts, theta, wy, w_inner, b_inner,
     got = {"y0": y0, "xh": xh, "dw": dw, "a": a, "gk": gk, "dts": dts,
            "theta": theta, "wy": wy, "w_inner": w_inner, "b_inner": b_inner,
            "wout": wout, "bo": bo, "ys": ys, "gys": gys}
-    for name, t in got.items():
-        if t is None:
-            continue
-        if t.dtype != torch.float32:
-            raise ValueError(f"fused EM kernel takes float32 only: {name} "
-                             f"is {t.dtype}")
-        if t.device != y0.device:
-            raise ValueError(f"fused EM kernel: {name} is on {t.device}, "
-                             f"y0 on {y0.device}")
-        if tuple(t.shape) != want[name]:
-            raise ValueError(f"fused EM kernel: {name} has shape "
-                             f"{tuple(t.shape)}, expected {want[name]}")
-        if not t.is_contiguous():
-            raise ValueError(f"fused EM kernel: {name} is not contiguous")
-    return M, B, H, HH, n_inner
-
-
-def _prepare_launch(y0, dims, backward: bool):
-    if y0.device.type != "cuda":
-        raise ValueError(f"the fused EM kernels take CUDA tensors; got "
-                         f"{y0.device}")
-    lib = _lib()
-    _, _, H, HH, n_inner = dims
-    need = lib.fused_em_smem_bytes(H, HH, n_inner, int(backward))
-    limit = lib.fused_em_max_smem()
-    if need > limit:
-        raise ValueError(
-            f"fused EM {'backward' if backward else 'forward'} kernel keeps "
-            f"weights{' and gradient accumulators' if backward else ''} in "
-            f"shared memory: H={H}, HH={HH}, n_inner={n_inner} needs {need} "
-            f"bytes, above this device's {limit}-byte limit per block")
-    return lib, torch.cuda.current_stream(y0.device).cuda_stream
-
-
-def _raise_on(lib, err: int, which: str):
-    if err != 0:
-        msg = lib.fused_em_error_string(err).decode()
-        raise RuntimeError(f"fused EM {which} kernel launch failed: {msg}")
+    check_tensors("fused EM", want, got, y0.device)
+    return dims
 
 
 def fused_em_forward(y0, xh, dw, a, gk, dts, theta, wy, w_inner, b_inner,
@@ -276,14 +199,11 @@ def fused_em_forward(y0, xh, dw, a, gk, dts, theta, wy, w_inner, b_inner,
             mult_y=mult_y, geometric=geometric)
     dims = check_kernel_inputs(y0, xh, dw, a, gk, dts, theta, wy, w_inner,
                                b_inner, wout, bo)
-    lib, stream = _prepare_launch(y0, dims, backward=False)
-    M, B, H, HH, n_inner = dims
+    stream = _LIB.stream(y0, dims, backward=False)
+    M, B, H, _, _ = dims
     ys = torch.empty((M, B, H), dtype=torch.float32, device=y0.device)
-    ptrs = [t.data_ptr() for t in (y0, xh, dw, a, gk, dts, theta, wy,
-                                   w_inner, b_inner, wout, bo, ys)]
-    err = lib.fused_em_fwd(*ptrs, M, B, H, HH, n_inner, int(mult_y),
-                           int(geometric), stream)
-    _raise_on(lib, err, "forward")
+    _LIB.launch("fwd", (y0, xh, dw, a, gk, dts, theta, wy, w_inner, b_inner,
+                        wout, bo, ys), dims, mult_y, geometric, stream)
     FWD_LAUNCHES += 1
     return ys
 
@@ -301,9 +221,9 @@ def fused_em_backward(y0, ys, gys, xh, dw, a, gk, dts, theta, wy, w_inner,
             wout, bo, mult_y=mult_y, geometric=geometric)
     dims = check_kernel_inputs(y0, xh, dw, a, gk, dts, theta, wy, w_inner,
                                b_inner, wout, bo, ys=ys, gys=gys)
-    lib, stream = _prepare_launch(y0, dims, backward=True)
+    stream = _LIB.stream(y0, dims, backward=True)
     M, B, H, HH, n_inner = dims
-    nb = -(-B // lib.fused_em_rows_per_block())
+    nb = -(-B // _LIB.rows_per_block())
     empty = lambda *shape: torch.empty(shape, dtype=torch.float32,
                                        device=y0.device)
     dxh, dy0 = empty(M, B, HH), empty(B, H)
@@ -311,13 +231,10 @@ def fused_em_backward(y0, ys, gys, xh, dw, a, gk, dts, theta, wy, w_inner,
                         empty(nb, n_inner, HH))
     p_wo, p_bo = empty(nb, HH, H), empty(nb, H)
     p_a, p_gk, p_th = empty(nb, M, HH), empty(nb, M, H), empty(nb)
-    ptrs = [t.data_ptr() for t in (y0, ys, gys, xh, dw, a, gk, dts, theta,
-                                   wy, w_inner, b_inner, wout, bo, dxh, dy0,
-                                   p_wy, p_wi, p_bi, p_wo, p_bo, p_a, p_gk,
-                                   p_th)]
-    err = lib.fused_em_bwd(*ptrs, M, B, H, HH, n_inner, int(mult_y),
-                           int(geometric), stream)
-    _raise_on(lib, err, "backward")
+    _LIB.launch("bwd", (y0, ys, gys, xh, dw, a, gk, dts, theta, wy, w_inner,
+                        b_inner, wout, bo, dxh, dy0, p_wy, p_wi, p_bi, p_wo,
+                        p_bo, p_a, p_gk, p_th), dims, mult_y, geometric,
+                stream)
     BWD_LAUNCHES += 1
     return FusedEMGrads(dy0, dxh, p_a.sum(0), p_gk.sum(0),
                         p_th.sum(0, keepdim=True), p_wy.sum(0), p_wi.sum(0),
@@ -357,76 +274,22 @@ class FusedEM(torch.autograd.Function):
 # Public entry: solve a DiffusionField SDE with the fused kernels
 # ---------------------------------------------------------------------------
 
-def precomp_gk(field, t_lo: torch.Tensor) -> torch.Tensor:
-    """Diffusion magnitude gk(t) [M, H] of the t-only noise families
-    (`snsde/kernels/fused_em.py:131-157`); mult_y is applied in-kernel."""
-    no = field.noise_option
-    M, H = t_lo.shape[0], field.hidden_channels
-    tcol = t_lo[:, None]
-    tf = torch.stack([torch.sin(t_lo), torch.cos(t_lo)], dim=-1)
-    if no == 0:
-        return torch.zeros((M, H), dtype=t_lo.dtype, device=t_lo.device)
-    if no in (1, 2, 3):
-        gk = torch.exp(field.sigma).expand(M, H)
-        return gk * tcol if no == 2 else gk
-    if no in (4, 5, 6):
-        gk = torch.exp(field.sigma_diag).expand(M, H)
-        return gk * tcol if no == 5 else gk
-    if no == 11:
-        return tcol.expand(M, H)
-    if no in (12, 13):
-        return field.noise_t(tf)
-    return torch.relu(field.noise_t(tf))           # 16, 17
-
-
 def fused_em_inputs(field, path, grid: np.ndarray, y0: torch.Tensor,
                     dW: torch.Tensor) -> dict:
     """The kernels' inputs for a supported field on a host step grid: the
     hoisted and merged precomputes (differentiable through autograd), the
     stacked weights in [in, out] layout, and the mult_y/geometric flags."""
-    if not supports_fused(field):
-        raise ValueError(
-            f"fused EM kernels take input_option in {sorted(_EMB_IO)} with "
-            f"noise_option in {sorted(_PRECOMP_NO)}; got "
-            f"({getattr(field, 'input_option', None)}, "
-            f"{getattr(field, 'noise_option', None)})")
-    M = grid.shape[0] - 1
-    H = field.hidden_channels
+    check_supported(field, "fused EM")
     io, no = field.input_option, field.noise_option
     dev, f32 = y0.device, torch.float32
-    t_lo = torch.as_tensor(grid[:-1], dtype=f32, device=dev)
-    dts = torch.as_tensor(np.diff(grid), dtype=f32, device=dev)
-    tf = torch.stack([torch.sin(t_lo), torch.cos(t_lo)], dim=-1)   # [M, 2]
-
-    # hoist: xh' = (X(t) W_init + b_init) We2, one [M*B, C] product
-    we = field.emb.weight                         # [H, 2H] (torch layout)
-    we1, we2 = we[:, :H].t(), we[:, H:].t()       # [in, out]
-    xh = field.initial_network(path.evaluate_grid(grid[:-1])) @ we2
-    # merge: Wy' = Wy We1, a' = (tf Wt + b_in) We1 + be
-    w_in = field.linear_in.weight                 # [HH, 2 + H] or [HH, H]
-    if io in (4, 6):
-        wy = w_in[:, 2:].t()
-        a = tf @ w_in[:, :2].t() + field.linear_in.bias
-    else:
-        wy = w_in.t()
-        a = field.linear_in.bias.expand(M, -1)
-    wy = wy @ we1
-    a = a @ we1 + field.emb.bias
-    HH = wy.shape[1]
-    if len(field.linears):
-        w_inner = torch.stack([l.weight.t() for l in field.linears])
-        b_inner = torch.stack([l.bias for l in field.linears])
-    else:
-        w_inner = torch.zeros((0, HH, HH), dtype=f32, device=dev)
-        b_inner = torch.zeros((0, HH), dtype=f32, device=dev)
-    return {"y0": y0.contiguous(), "xh": xh.contiguous(),
-            "dw": dW.to(device=dev, dtype=f32).contiguous(),
-            "a": a.contiguous(), "gk": precomp_gk(field, t_lo).contiguous(),
-            "dts": dts, "theta": field.theta.reshape(1),
-            "wy": wy.contiguous(), "w_inner": w_inner, "b_inner": b_inner,
-            "wout": field.linear_out.weight.t().contiguous(),
-            "bo": field.linear_out.bias,
-            "mult_y": no in _MULT_Y_NO, "geometric": io in (5, 6)}
+    t_lo, dts = stage_times(dev, grid[:-1], np.diff(grid))
+    xh, a = merged_drift_rows(field, path, grid[:-1], t_lo)
+    return {"y0": y0.contiguous(), "xh": xh,
+            "dw": dW.to(device=dev, dtype=f32).contiguous(), "a": a,
+            "gk": precomp_gk(field, t_lo).contiguous(), "dts": dts,
+            "theta": field.theta.reshape(1),
+            **merged_drift_weights(field, dev),
+            "mult_y": no in MULT_Y_NO, "geometric": io in (5, 6)}
 
 
 _ARG_ORDER = ("y0", "xh", "dw", "a", "gk", "dts", "theta", "wy", "w_inner",

@@ -1,3 +1,5 @@
-from .neuralsde import NeuralSDE, ReadoutHead, resolve_dt, solve_dispatch
+from .neuralsde import (NeuralSDE, NeuralSDEForecasting, ReadoutHead,
+                        resolve_dt, solve_dispatch)
 
-__all__ = ["NeuralSDE", "ReadoutHead", "resolve_dt", "solve_dispatch"]
+__all__ = ["NeuralSDE", "NeuralSDEForecasting", "ReadoutHead", "resolve_dt",
+           "solve_dispatch"]

@@ -1,6 +1,6 @@
-"""NeuralSDE classification model (counterpart of
-snsde/models/neuralsde.py:44-172): the terminal-readout head. The stream,
-forecasting and tutorial heads are not ported yet.
+"""NeuralSDE models (counterpart of snsde/models/neuralsde.py:44-172,
+217-256): the terminal-readout head for classification and the forecasting
+head. The stream and tutorial heads are not ported yet.
 
 Train/eval mode is torch's (`model.train()` / `model.eval()`): BatchNorm
 uses batch statistics and dropout is live only in train mode. The solve is
@@ -17,12 +17,14 @@ import torch
 from torch import nn
 
 from ..kernels.fused_em import fused_em_solve, supports_fused
+from ..kernels.fused_srk import fused_srk_solve, supports_fused_srk
 from ..nn.layers import BatchNorm, Dropout, make_linear
 from ..ops.brownian import BrownianGrid
 from ..ops.interp import CubicPath
 from ..ops.solve import sdeint
 
-__all__ = ["resolve_dt", "solve_dispatch", "ReadoutHead", "NeuralSDE"]
+__all__ = ["resolve_dt", "solve_dispatch", "ReadoutHead", "NeuralSDE",
+           "NeuralSDEForecasting"]
 
 
 def resolve_dt(times, floor: float = 1e-3) -> float:
@@ -36,14 +38,18 @@ def resolve_dt(times, floor: float = 1e-3) -> float:
 def solve_dispatch(func, path, times, y0, *, generator, dt, method,
                    bm: Optional[BrownianGrid] = None,
                    use_fused: bool = True):
-    """The fused CUDA kernels when y0 is on a CUDA device, the method is
-    euler, no Brownian grid is injected and the field's configuration is
-    one the kernels take (`supports_fused`); the eager `sdeint` on the
-    same device in every other case."""
-    if (use_fused and bm is None and y0.device.type == "cuda"
-            and method == "euler" and supports_fused(func)):
-        return fused_em_solve(func, path, times, y0, generator=generator,
-                              dt=dt)
+    """The fused CUDA kernels when y0 is on a CUDA device, no Brownian grid
+    is injected and the field's configuration is one the kernels take: the
+    EM kernels for euler (`supports_fused`), the SRK kernels for srk
+    (`supports_fused_srk`). The eager `sdeint` on the same device in every
+    other case."""
+    if use_fused and bm is None and y0.device.type == "cuda":
+        if method == "euler" and supports_fused(func):
+            return fused_em_solve(func, path, times, y0, generator=generator,
+                                  dt=dt)
+        if method == "srk" and supports_fused_srk(func):
+            return fused_srk_solve(func, path, times, y0,
+                                   generator=generator, dt=dt)
     return sdeint(func.f, func.g, y0, times, generator=generator, bm=bm,
                   dt=dt, method=method)
 
@@ -110,3 +116,36 @@ class NeuralSDE(nn.Module):
         idx = torch.as_tensor(final_index, device=zs.device).long()
         z = zs[idx, torch.arange(zs.shape[1], device=zs.device)]   # [B, H]
         return self.readout(z, generator=generator)
+
+
+class NeuralSDEForecasting(nn.Module):
+    """Forecasting head: solve on the full grid, keep the last
+    `output_time` states, then Linear -> ReLU -> Linear.
+
+    forward(times [L], coeffs [B, L-1, 4C]) -> [B, output_time, out]."""
+
+    def __init__(self, func, input_channels: int, hidden_channels: int,
+                 output_channels: int, output_time: int = 10,
+                 method: str = "euler", *,
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        lin = lambda i, o: make_linear(i, o, generator=generator,
+                                       device=device)
+        self.func = func
+        self.initial_network = lin(input_channels, hidden_channels)
+        self.linear1 = lin(hidden_channels, hidden_channels)
+        self.linear2 = lin(hidden_channels, output_channels)
+        self.output_time = output_time
+        self.method = method
+
+    def forward(self, times, coeffs, *, generator=None, dt=None, method=None,
+                bm=None, use_fused: bool = True):
+        path = CubicPath(coeffs, times)
+        func = self.func.bind(path)
+        y0 = self.initial_network(path.evaluate(path.times[0]))
+        dt = resolve_dt(times) if dt is None else dt
+        zs = solve_dispatch(func, path, times, y0, generator=generator,
+                            dt=dt, method=method or self.method, bm=bm,
+                            use_fused=use_fused)
+        z = zs.movedim(0, 1)[:, -self.output_time:, :]       # [B, T, H]
+        return self.linear2(torch.relu(self.linear1(z)))

@@ -148,6 +148,28 @@ def train_step(model, optimizer, loss_fn, batch, generator) -> torch.Tensor:
     return loss.detach()
 
 
+def iterate_batches(arrays: Dict[str, Any], batch_size: int,
+                    rng: Optional[np.random.Generator] = None,
+                    pad: bool = True):
+    """Yield (batch_dict, n_valid) over arrays (numpy arrays or tensors,
+    indexed by a numpy index vector), shuffled by `rng` when given. The
+    final batch is padded by wrap-around to the full batch size, so every
+    step sees the same shapes."""
+    n = next(iter(arrays.values())).shape[0]
+    idx = np.arange(n)
+    if rng is not None:
+        rng.shuffle(idx)
+    for start in range(0, n, batch_size):
+        sel = idx[start:start + batch_size]
+        n_valid = sel.shape[0]
+        if pad and n_valid < batch_size:
+            extra = idx[:batch_size - n_valid]
+            if extra.shape[0] < batch_size - n_valid:  # tiny dataset
+                extra = np.resize(idx, batch_size - n_valid)
+            sel = np.concatenate([sel, extra])
+        yield {k: v[sel] for k, v in arrays.items()}, n_valid
+
+
 def _padded_grid(idx: np.ndarray, batch_size: int):
     """Pad an index vector by wrap-around to whole batches; (perm [nb, B],
     mask [nb, B] with the padded tail zeroed)."""

@@ -198,11 +198,12 @@ def test_sdeint_with_injected_dw_matches_jax_scan():
     np.testing.assert_allclose(ours.numpy(), np.asarray(ref), atol=2e-5)
 
 
-def test_sdeint_other_methods_raise():
-    with pytest.raises(NotImplementedError, match="not ported"):
+@pytest.mark.parametrize("method", ["milstein", "heun", "reversible_heun"])
+def test_sdeint_other_methods_raise(method):
+    with pytest.raises(NotImplementedError, match="item 13"):
         sdeint(lambda t, y: y, lambda t, y: y, torch.zeros(2, 1),
                np.linspace(0, 1, 3), generator=torch.Generator(),
-               method="srk")
+               method=method)
 
 
 def test_brownian_sampler_ou_moments():
@@ -347,9 +348,18 @@ def test_preprocess_classification_matches_jax():
     for a, b in zip(tcommon.stratified_split(y, seed=4),
                     jcommon.stratified_split(y, seed=4)):
         np.testing.assert_array_equal(a, b)
-    with pytest.raises(NotImplementedError, match="natural"):
+    # natural cubic coefficients over the NaN-laden sepsis channels
+    ours = tcommon.preprocess_classification(X, y, lengths, times=times,
+                                             interpolation="natural")
+    ref = jcommon.preprocess_classification(X, y, lengths, times=times,
+                                            interpolation="natural")
+    for split in ("train", "val", "test"):
+        np.testing.assert_allclose(ours[split]["coeffs"],
+                                   ref[split]["coeffs"], atol=1e-5,
+                                   rtol=1e-6)
+    with pytest.raises(ValueError, match="unknown interpolation"):
         tcommon.preprocess_classification(X, y, lengths,
-                                          interpolation="natural")
+                                          interpolation="linear")
 
 
 def test_parse_model_name_matches_jax():

@@ -6,7 +6,7 @@ versions, which is what its wrapper takes for CPU tensors. Both sides get
 the same weights (through snsde_torch.convert), the same control path and
 the same Brownian increments, drawn with numpy. The CUDA kernels
 themselves are compared with the plain versions on the card by
-chip_smoke.py and by the `cuda`-marked test below.
+chip_smoke.py and by tests/test_torch_cuda.py.
 """
 
 import numpy as np
@@ -24,6 +24,7 @@ from snsde.ops.interp import hermite_cubic_coeffs as jax_hermite
 from snsde_torch.convert import grads_to_jax_layout, load_jax_arrays
 from snsde_torch.fields import DiffusionField
 from snsde_torch.kernels import fused_em as fe
+from snsde_torch.kernels._solver import MAX_WIDTH, MULT_Y_NO, PRECOMP_NO
 from snsde_torch.models.neuralsde import resolve_dt
 from snsde_torch.ops import (BrownianGrid, CubicPath, hermite_cubic_coeffs,
                              make_grid, sdeint)
@@ -120,7 +121,7 @@ def _kernel_inputs(io, no, n_inner, seed=0, Bk=6, M=5, Hk=4):
                   dts=torch.full((M,), 0.5), theta=t(1),
                   wy=0.5 * t(Hk, Hk), w_inner=0.5 * t(n_inner, Hk, Hk),
                   b_inner=t(n_inner, Hk), wout=0.5 * t(Hk, Hk), bo=t(Hk))
-    flags = dict(mult_y=no in fe._MULT_Y_NO, geometric=io in (5, 6))
+    flags = dict(mult_y=no in MULT_Y_NO, geometric=io in (5, 6))
     return inputs, flags, t(M, Bk, Hk)
 
 
@@ -147,7 +148,7 @@ def test_backward_reference_is_autograd_of_forward(io, no, n_inner):
         assert float((ours - auto).abs().max()) / denom < 1e-5, name
 
 
-SUPPORTED = [(io, no) for io in (2, 4, 6) for no in sorted(fe._PRECOMP_NO)]
+SUPPORTED = [(io, no) for io in (2, 4, 6) for no in sorted(PRECOMP_NO)]
 
 
 @pytest.mark.parametrize("io,no", SUPPORTED)
@@ -194,8 +195,8 @@ def test_kernel_input_checks_name_the_limit():
     with pytest.raises(ValueError, match="not contiguous"):
         fe.check_kernel_inputs(**{**inputs,
                                   "wout": inputs["wout"].t()})
-    wide = torch.zeros(4, fe.MAX_WIDTH + 1)
-    with pytest.raises(ValueError, match=f"up to {fe.MAX_WIDTH}"):
+    wide = torch.zeros(4, MAX_WIDTH + 1)
+    with pytest.raises(ValueError, match=f"up to {MAX_WIDTH}"):
         fe.check_kernel_inputs(**{**inputs, "wy": wide})
 
 
@@ -206,27 +207,3 @@ def test_wrapper_raises_on_a_device_without_the_kernel():
     meta = {k: v.to("meta") for k, v in inputs.items()}
     with pytest.raises(ValueError, match="CUDA tensors"):
         fe.fused_em_forward(**meta, **flags)
-
-
-@pytest.mark.cuda
-def test_cuda_kernels_match_plain_versions():
-    """On the card: both kernels against their plain versions on the same
-    inputs (trajectory atol 5e-5, cotangents 1e-5 relative, the tolerances
-    chip_smoke.py holds them to)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
-    for io, no, n_inner in [(4, 17, 1), (2, 16, 2), (6, 17, 0)]:
-        inputs, flags, gys = _kernel_inputs(io, no, n_inner, Bk=20, M=9,
-                                            Hk=49)
-        cu = {k: v.cuda() for k, v in inputs.items()}
-        ys_k = fe.fused_em_forward(**cu, **flags)
-        ys_p = fe.fused_em_forward_reference(**cu, **flags)
-        g_k = fe.fused_em_backward(ys=ys_p, gys=gys.cuda(), **cu, **flags)
-        g_p = fe.fused_em_backward_reference(ys=ys_p, gys=gys.cuda(), **cu,
-                                             **flags)
-        torch.cuda.synchronize()
-        assert float((ys_k - ys_p).abs().max()) < 5e-5
-        for a, b in zip(g_k, g_p):
-            if b.numel():
-                denom = max(float(b.abs().max()), 1e-6)
-                assert float((a - b).abs().max()) / denom < 1e-5

@@ -20,6 +20,7 @@ import torch
 import snsde_torch
 from snsde_torch.fields import DiffusionField
 from snsde_torch.harness.classification import HarnessConfig, run_sepsis
+from snsde_torch.harness.forecasting import ForecastConfig, run_mujoco
 from snsde_torch.kernels.fused_em import fused_em_solve, supports_fused
 from snsde_torch.ops import BrownianGrid, CubicPath, make_grid, sdeint
 
@@ -158,6 +159,8 @@ def test_entry_points_need_cuda_unless_told_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         run_sepsis(HarnessConfig(), n=64)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_mujoco(ForecastConfig(method="srk"), n=64)
     with pytest.raises(RuntimeError, match="CUDA"):
         snsde_torch.resolve_device()
     assert snsde_torch.resolve_device("cpu") == torch.device("cpu")
