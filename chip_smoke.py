@@ -3,19 +3,26 @@
 
     python3 chip_smoke.py
 
-Two main paths: the sepsis classification training path (Euler–Maruyama,
-the fused EM kernels) and the MuJoCo forecasting training path (SRIW1, the
-fused SRK kernels). Phases, each of which raises on failure:
+Three main paths: the sepsis classification training path (Euler–Maruyama,
+the fused EM kernels), the MuJoCo forecasting training path (SRIW1, the
+fused SRK kernels) and the robustness sweep with the Neural CDE
+(FinalTanh, natural cubic control, rk4: the fused CDE kernels). Phases,
+each of which raises on failure:
   1. card: name, and name and power limit from nvidia-smi;
-  2. build: nvcc builds every kernel of both paths from snsde_torch/csrc/
-     (sm_90a, one nvcc per source, all started together), with the build
-     seconds and ptxas report;
+  2. build: nvcc builds every kernel of the three paths from
+     snsde_torch/csrc/ (sm_90a, one nvcc per source, all started together),
+     with the build seconds and ptxas report;
   3. kernels vs their plain PyTorch versions on the card, on the same
      inputs: the EM pair at the sepsis shape (B=1024, L=72, C=69, H=HH=49,
      two hidden layers, neurallnsde (4,17)), then (2,16) and (6,17) at
      B=128; the SRK pair at the MuJoCo shape (B=1024, L=50, C=14, H=HH=32,
      two hidden layers, (4,17)), at (2,16) and (6,17) with B=128, and at
-     the sepsis width: the trajectory and every backward output, within
+     the sepsis width; the CDE pair at both CDE bench shapes of the JAX
+     package (tools/bench_cde.py:150-151: B=1024, L=72 (136 rk4 steps),
+     H=HH=32, FinalTanh with one inner layer, C=6 and C=35), at the sweep's
+     shape (B=64, L=60, C=6, H=16, no inner layer), and at B=128 for euler,
+     midpoint and heun, SingleHiddenLayer, and FinalTanh with zero and two
+     inner layers: the trajectory and every backward output, within
      stated tolerances of the float32 plain version, and no further from
      a float64 run of the plain version than a small multiple of the
      float32 plain version's own error;
@@ -25,19 +32,30 @@ fused SRK kernels). Phases, each of which raises on failure:
      must launch both EM kernels; the forecasting harness `run_mujoco`
      (neurallnsde, H=32, two hidden layers, batch 1024, srk) on 4000
      synthetic MuJoCo windows for 2 epochs, which must launch both SRK
-     kernels; the losses must be finite, and each trained model's fused
-     solve must match the eager solver on a small batch with the same
-     Brownian increments;
+     kernels; the robustness sweep `run_robustness_sweep` (neuralcde,
+     hidden 16, batch 64, missing rate 0.3, seed 0) on the shape of
+     tools/run_sweep_cd.py's uea_b_noisy set (320 series, L=60, 5
+     channels, 2 classes) for 2 epochs, which must launch both CDE kernels
+     and write records with an accuracy and no error; the losses must be
+     finite, and each trained model's fused solve must match the eager
+     solver on a small batch (the SDEs with the same Brownian increments);
   5. times: the natural cubic fit of the forecasting windows on the host
      by each of its two paths (host clock, median of 3); each kernel and
-     its plain version, and one full training step (forward + backward +
+     its plain version (the CDE pair at the sweep's shape and at both
+     bench shapes), and one full training step (forward + backward +
      Adam) of each path through the kernels and through the eager solver
-     (CUDA events, median of 30 after warm-up); a torch.profiler window of
-     each kernel step gives device time by kernel and the device's busy
+     (CUDA events, median of 30 after warm-up; the CDE step is the
+     uea_rk4 classifier at B=1024); a torch.profiler window of each
+     kernel step gives device time by kernel and the device's busy
      share.
 It prints one JSON line of the kernels, the card's name and power limit,
 and last `{"ok": true, "device": {...}}`. It exits non-zero, printing no
 result, without a CUDA device or outside the repository.
+
+    python3 chip_smoke.py --ab-steps PARENT_DIR [PAIRS [REPS]]
+
+runs none of the phases: it times the SDE paths' training steps of a
+parent checkout against this one, in alternating processes (`ab_steps`).
 """
 
 from __future__ import annotations
@@ -46,6 +64,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -57,12 +76,36 @@ PEAK_FP32 = 67e12
 MAIN = dict(B=1024, L=72, C=69, H=49, layers=2, model="neurallnsde")
 # the MuJoCo forecasting path (tools/run_real_mujoco.py:42-56, --method srk)
 SRK = dict(B=1024, L=50, C=14, H=32, layers=2, model="neurallnsde", T=10)
-# max abs error of the trajectory against the float32 plain version
-# (measured: EM 2.4e-5; SRK 2.1e-5 at the MuJoCo shape, 4.2e-5 at the
-# sepsis width). The float32 plain version's own largest error from
-# float64 at those shapes is 2.7e-5, 2.3e-5 and 1.3e-4 (max|ys| 70, 36
-# and 72): where this limit trips, read the float64 lines first.
-TOL_YS = 5e-5
+# the Neural CDE bench shapes (tools/bench_cde.py:150-151): FinalTanh with
+# num_hidden_layers=2 (one inner layer), rk4 on the knots of
+# linspace(0, 1, L) with dt their smallest gap (136 steps at L=72)
+CDE = {"uea_rk4": dict(B=1024, L=72, C=6, H=32, n_inner=1),
+       "sepsis_rk4": dict(B=1024, L=72, C=35, H=32, n_inner=1)}
+# the sweep cell (tools/run_sweep_cd.py: uea_b_noisy, neuralcde, hidden 16)
+SWEEP = dict(n=320, L=60, D=5, classes=2, seed=50, noise=0.8, H=16, B=64)
+# Largest error of a trajectory against the float32 plain version, over
+# the plain trajectory's largest entry: at most TOL_YS for the SDE pairs
+# (and a trained SDE field's fused solve against the eager one); for the
+# CDE pair, at most the larger of TOL_YS and YS_F64_FACTOR times the
+# float32 plain version's own largest error from float64 at the same shape
+# (both over max|ys|). (Before: 5e-5 absolute, which the plain version
+# itself missed at the sepsis width.) Readings on an H100 (PERF.md,
+# section 6), kernel vs plain / plain from float64:
+#   EM sepsis 3.4e-7 / 3.9e-7; SRK MuJoCo 5.8e-7 / 6.4e-7, sepsis width
+#   5.8e-7 / 1.8e-6 (max|ys| 70, 36, 72);
+#   CDE sweep shape 2.1e-5 / 2.4e-5, uea_rk4 1.2e-6 / 1.2e-6, sepsis_rk4
+#   4.8e-5 / 6.1e-5, the B=128 variants 7.5e-7-8.9e-6 / 7.1e-7-5.2e-6
+#   (max|ys| 4-61).
+# The CDE solves on a rough control amplify float32 rounding (~100x on
+# the sweep shape: a 1e-7 relative change of every input moves ys by
+# 1.1e-5 of max|ys|, in float64 on the CPU), so the floor alone would
+# fail a correct kernel there. Two float32 runs differ by at most the sum
+# of their errors from float64, and a run's largest error moves several-
+# fold with the order of summation alone (4.7x on the EM pair), so 8x;
+# the readings reach 1.8x. The SDE readings sit 8x or more under the
+# floor, so it holds them alone.
+TOL_YS = 5e-6
+YS_F64_FACTOR = 8.0
 # max abs error of a cotangent over its max (measured: EM 4.1e-7, SRK 4.6e-6)
 TOL_GRAD = 1e-5
 # every output against a float64 run of the plain version: the kernel's
@@ -92,7 +135,7 @@ def build():
     from snsde_torch.kernels import _build
 
     t0 = time.perf_counter()
-    _build.build(["fused_em", "fused_srk"])
+    _build.build(["fused_em", "fused_srk", "fused_cde"])
     print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
     for name, rec in _build.BUILD_LOG.items():
         for line in rec["log"].splitlines():
@@ -142,27 +185,28 @@ def levy_area(rng, dW, dt=1.0):
     return (0.5 * dt * (dW + dZ / np.sqrt(3.0))).astype(np.float32)
 
 
-def solver(srk):
-    """(module, names of the forward's tensor inputs) of one kernel pair."""
-    from snsde_torch.kernels import fused_em as fe
+def _split(inp, srk=False):
+    """(the forward's tensor inputs in order, flags) of an SDE pair."""
     from snsde_torch.kernels import fused_srk as fs
 
-    if srk:
-        return fs, fs._ARG_ORDER
-    return fe, ("y0", "xh", "dw", "a", "gk", "dts", "theta", "wy",
-                "w_inner", "b_inner", "wout", "bo")
-
-
-def _split(inp, srk=False):
+    names = fs._ARG_ORDER if srk else (
+        "y0", "xh", "dw", "a", "gk", "dts", "theta", "wy", "w_inner",
+        "b_inner", "wout", "bo")
     flags = dict(mult_y=inp["mult_y"], geometric=inp["geometric"])
-    return [inp[k] for k in solver(srk)[1]], flags
+    return [inp[k] for k in names], flags
 
 
-def kernel_fns(srk):
-    """(forward, plain forward, backward, plain backward) of one pair."""
-    mod, _ = solver(srk)
-    pre = "fused_srk" if srk else "fused_em"
-    return tuple(getattr(mod, f"{pre}_{n}") for n in (
+def _kernel_modules():
+    from snsde_torch.kernels import fused_cde, fused_em, fused_srk
+
+    return {"em": fused_em, "srk": fused_srk, "cde": fused_cde}
+
+
+def kernel_fns(key):
+    """(forward, plain forward, backward, plain backward) of the pair
+    'em', 'srk' or 'cde'."""
+    mod = _kernel_modules()[key]
+    return tuple(getattr(mod, f"fused_{key}_{n}") for n in (
         "forward", "forward_reference", "backward", "backward_reference"))
 
 
@@ -176,16 +220,17 @@ def _errs64(a, ref):
             float(d.square().mean().sqrt()) / scale)
 
 
-def compare(model_name, B, L, C, H, layers, srk=False):
+def check_pair(label, fns, fwd, flags, gys, ys_f64_factor=0.0):
     """Kernel vs plain version on the same inputs; returns max abs errors
-    of the forward and the backward (over all its outputs). Each output is
-    also held against a float64 run of the plain version: the kernel's
-    root-mean-square error from it may be at most F64_FACTOR times the
-    float32 plain version's own, plus F64_FLOOR (both over the largest
-    entry)."""
-    fwd_k, fwd_p, bwd_k, bwd_p = kernel_fns(srk)
-    inp, gys = kernel_inputs(model_name, B, L, C, H, layers, srk=srk)
-    fwd, flags = _split(inp, srk)
+    of the forward and the backward (over all its outputs). The trajectory
+    may differ by the larger of TOL_YS and ys_f64_factor times the float32
+    plain version's own largest error from float64, both over its largest
+    entry; each cotangent by TOL_GRAD of its largest entry. Each output is
+    also held against a float64 run
+    of the plain version: the kernel's root-mean-square error from it may
+    be at most F64_FACTOR times the float32 plain version's own, plus
+    F64_FLOOR (both over the largest entry)."""
+    fwd_k, fwd_p, bwd_k, bwd_p = fns
     ys_k = fwd_k(*fwd, **flags)
     ys_p = fwd_p(*fwd, **flags)
     bwd_args = [fwd[0], ys_p, gys] + fwd[1:]
@@ -197,21 +242,26 @@ def compare(model_name, B, L, C, H, layers, srk=False):
     torch.cuda.synchronize()
 
     def check64(name, k, p, ref):
+        """Print and check the errors of k and p from float64; return the
+        float32 plain version's largest error over the largest entry."""
         (k_max, k_rms), (p_max, p_rms) = _errs64(k, ref), _errs64(p, ref)
         print(f"      from float64 (max {float(ref.abs().max()):.3e}), "
               f"largest/rms: kernel {k_max:.3e}/{k_rms:.3e}, float32 plain "
               f"{p_max:.3e}/{p_rms:.3e} (tol rms {F64_FACTOR:g}x plain + "
               f"{F64_FLOOR:g})")
         if not k_rms <= F64_FACTOR * p_rms + F64_FLOOR:
-            raise AssertionError(f"{name}: kernel further from float64 than "
-                                 f"the float32 plain version allows")
+            raise AssertionError(f"{label} {name}: kernel further from "
+                                 f"float64 than the float32 plain version "
+                                 f"allows")
+        return p_max
 
     err_f = float((ys_k - ys_p).abs().max())
-    print(f"  {'SRK' if srk else 'EM'} {model_name} B={B} L={L} H={H}: ys "
-          f"max abs err {err_f:.3e} (tol {TOL_YS:g})")
-    if not err_f <= TOL_YS:
-        raise AssertionError(f"forward kernel disagrees: {err_f}")
-    check64("ys", ys_k, ys_p, ys_64)
+    rel_f = err_f / max(float(ys_p.abs().max()), 1e-30)
+    print(f"  {label}: ys max abs err {err_f:.3e} rel {rel_f:.3e}")
+    tol_f = max(TOL_YS, ys_f64_factor * check64("ys", ys_k, ys_p, ys_64))
+    print(f"      ys tol rel {tol_f:.3e}")
+    if not rel_f <= tol_f:
+        raise AssertionError(f"{label}: forward kernel disagrees: {rel_f}")
     err_b = 0.0
     for name, a, b, ref in zip(g_k._fields, g_k, g_p, g_64):
         if b.numel() == 0:
@@ -221,10 +271,61 @@ def compare(model_name, B, L, C, H, layers, srk=False):
         err_b = max(err_b, err)
         print(f"    d{name[1:]:9s} max abs err {err:.3e} rel {rel:.3e} "
               f"(tol rel {TOL_GRAD:g})")
-        if not rel <= TOL_GRAD:
-            raise AssertionError(f"backward kernel disagrees on {name}")
         check64(name, a, b, ref)
+        if not rel <= TOL_GRAD:
+            raise AssertionError(f"{label}: backward kernel disagrees on "
+                                 f"{name}")
     return err_f, err_b
+
+
+def compare(model_name, B, L, C, H, layers, srk=False):
+    """An SDE pair against its plain versions (check_pair)."""
+    inp, gys = kernel_inputs(model_name, B, L, C, H, layers, srk=srk)
+    fwd, flags = _split(inp, srk)
+    return check_pair(f"{'SRK' if srk else 'EM'} {model_name} B={B} L={L} "
+                      f"H={H}", kernel_fns("srk" if srk else "em"), fwd,
+                      flags, gys)
+
+
+def cde_kernel_inputs(B, L, C, H, n_inner, method="rk4", field="final_tanh",
+                      seed=0):
+    """Detached inputs of the CDE pair: a random field (FinalTanh with
+    n_inner inner layers, or SingleHiddenLayer) on the natural cubic path
+    of random series over linspace(0, 1, L), stepped with dt = the
+    smallest knot gap (the NeuralCDE default), and a cotangent gys of a
+    batch-mean loss; (tensors in the forward's order, flags, gys)."""
+    from snsde_torch.kernels import fused_cde as fc
+    from snsde_torch.models import (FinalTanh, SingleHiddenLayer,
+                                    resolve_dt)
+    from snsde_torch.ops import CubicPath, make_grid, natural_cubic_coeffs
+
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator().manual_seed(seed)
+    if field == "final_tanh":
+        func = FinalTanh(C, H, H, n_inner + 1, generator=gen)
+    else:
+        func = SingleHiddenLayer(C, H, H, generator=gen)
+    func = func.to(DEV)
+    times = np.linspace(0.0, 1.0, L).astype(np.float32)
+    x = torch.as_tensor(rng.normal(size=(B, L, C)).astype(np.float32))
+    coeffs = natural_cubic_coeffs(torch.as_tensor(times), x, pack=True)
+    path = CubicPath(coeffs.to(DEV), times)
+    grid, _ = make_grid(times, resolve_dt(times, floor=0.0))
+    z0 = torch.as_tensor(rng.normal(size=(B, H)).astype(np.float32)).to(DEV)
+    with torch.no_grad():
+        inp = fc.fused_cde_inputs(func, path, grid, z0, method)
+    fwd = [inp[k].detach().contiguous() for k in fc._ARG_ORDER]
+    M = len(grid) - 1
+    gys = torch.as_tensor(rng.normal(size=(M, B, H)).astype(np.float32) / B)
+    return fwd, dict(method=method, act=inp["act"]), gys.to(DEV)
+
+
+def compare_cde(B, L, C, H, n_inner, method="rk4", field="final_tanh"):
+    """The CDE pair against its plain versions (check_pair)."""
+    fwd, flags, gys = cde_kernel_inputs(B, L, C, H, n_inner, method, field)
+    return check_pair(f"CDE {field} {method} n_inner={n_inner} B={B} L={L} "
+                      f"(M={gys.shape[0]}) C={C} H={H}", kernel_fns("cde"),
+                      fwd, flags, gys, ys_f64_factor=YS_F64_FACTOR)
 
 
 def main_config():
@@ -238,16 +339,16 @@ def main_config():
 
 def zero_counts():
     """Set the launch count of every kernel to 0."""
-    for srk in (False, True):
-        mod, _ = solver(srk)
+    for mod in _kernel_modules().values():
         mod.FWD_LAUNCHES = mod.BWD_LAUNCHES = 0
 
 
 def read_counts():
-    fe, _ = solver(False)
-    fs, _ = solver(True)
-    return {"em_fwd": fe.FWD_LAUNCHES, "em_bwd": fe.BWD_LAUNCHES,
-            "srk_fwd": fs.FWD_LAUNCHES, "srk_bwd": fs.BWD_LAUNCHES}
+    out = {}
+    for key, mod in _kernel_modules().items():
+        out[f"{key}_fwd"], out[f"{key}_bwd"] = (mod.FWD_LAUNCHES,
+                                                mod.BWD_LAUNCHES)
+    return out
 
 
 def main_path():
@@ -313,6 +414,82 @@ def mujoco_path():
     return launches
 
 
+def uea_b_noisy(n=SWEEP["n"]):
+    """The uea_b_noisy set of tools/run_sweep_cd.py, built with the port's
+    own synthetic_uea: L=60, 5 channels, 2 classes, plus 0.8 N(0, 1)."""
+    from snsde_torch.data import synthetic_uea
+
+    X, y, t = synthetic_uea(n=n, length=SWEEP["L"], channels=SWEEP["D"],
+                            num_classes=SWEEP["classes"], seed=SWEEP["seed"])
+    rng = np.random.default_rng(SWEEP["seed"] + 1)
+    X = X + SWEEP["noise"] * rng.normal(size=X.shape).astype(np.float32)
+    return X, y, t
+
+
+def sweep_path(out_dir):
+    """The robustness sweep with the Neural CDE; returns the launch counts
+    of its run."""
+    from snsde_torch.harness.robustness import (SweepConfig, preprocess_ists,
+                                                run_robustness_sweep)
+
+    cfg = SweepConfig(models=("neuralcde",), missing_rates=(0.3,),
+                      seeds=(0,), hidden_dim=SWEEP["H"],
+                      batch_size=SWEEP["B"], max_epochs=2, out_dir=out_dir)
+    trained = {}
+    zero_counts()
+    t0 = time.perf_counter()
+    recs = run_robustness_sweep(cfg, n=SWEEP["n"], data_fn=uea_b_noisy,
+                                dataset_name="uea_b_noisy", verbose=False,
+                                device=DEV, models=trained)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    wall = time.perf_counter() - t0
+    print(f"main path 3: run_robustness_sweep (neuralcde, rk4) 2 epochs in "
+          f"{wall:.1f} s, records {recs}, launches {launches}", flush=True)
+    if not recs or any("error" in r or "accuracy" not in r for r in recs):
+        raise AssertionError(f"the sweep wrote a failed record: {recs}")
+    if not all(np.isfinite(r["accuracy"]) for r in recs):
+        raise AssertionError("non-finite accuracy on the sweep path")
+    if launches["cde_fwd"] <= 0 or launches["cde_bwd"] <= 0:
+        raise AssertionError(f"sweep path did not run the CDE kernels: "
+                             f"{launches}")
+    X, _, _ = uea_b_noisy()
+    data = preprocess_ists(X[:16], missing_rate=0.3, seed=0,
+                           interpolation="natural")
+    check_trained_cde_solve(trained[(0.3, "neuralcde", 0)], data)
+    return launches
+
+
+def check_trained_cde_solve(model, data):
+    """A trained classifier's CDE stream through the fused kernels vs the
+    eager cdeint, on the same coefficients. The two are different solvers
+    of one tableau (cdeint adds the rk4 update as (dt/6)(k1 + 2 k2 + 2 k3
+    + k4), the kernel as four scaled adds), so they are held to each other
+    as a kernel is to its plain version: within the larger of TOL_YS and
+    YS_F64_FACTOR times the float32 eager stream's own largest error from
+    a float64 run of it."""
+    import copy
+
+    inner = model.layer.inner
+    inner64 = copy.deepcopy(inner).double()
+    times = data["times"]
+    coeffs = torch.as_tensor(data["coeffs"], device=DEV)
+    with torch.no_grad():
+        _, z_f = inner(times, coeffs, use_fused=True)
+        _, z_e = inner(times, coeffs, use_fused=False)
+        _, z_64 = inner64(times, coeffs.double(), use_fused=False)
+    scale = float(z_64.abs().max())
+    rel = float((z_f - z_e).abs().max()) / scale
+    e_eager = float((z_e.double() - z_64).abs().max()) / scale
+    tol = max(TOL_YS, YS_F64_FACTOR * e_eager)
+    print(f"trained model: fused vs eager rk4 CDE solve, B={z_f.shape[0]}: "
+          f"shape {tuple(z_f.shape)}, largest err over max|z| {rel:.3e} "
+          f"(tol {tol:.3e}; the float32 eager solve from float64 "
+          f"{e_eager:.3e})")
+    if not (torch.isfinite(z_f).all() and rel <= tol):
+        raise AssertionError("trained CDE model's fused solve disagrees")
+
+
 def check_trained_solve(func, shape, srk=False, B=64):
     """A trained field's fused solve vs the eager solver, on the same dW
     (and, for srk, the same Lévy area)."""
@@ -345,10 +522,11 @@ def check_trained_solve(func, shape, srk=False, B=64):
             ys_e = sdeint(field.f, field.g, y0, times,
                           bm=BrownianGrid(grid, dW))
     err = float((ys_f - ys_e).abs().max())
+    rel = err / max(float(ys_e.abs().max()), 1e-30)
     print(f"trained model: fused vs eager {'srk' if srk else 'euler'} "
           f"solve, B={B}: shape {tuple(ys_f.shape)}, max abs err {err:.3e} "
-          f"(tol {TOL_YS:g})")
-    if not (torch.isfinite(ys_f).all() and err <= TOL_YS):
+          f"rel {rel:.3e} (tol rel {TOL_YS:g})")
+    if not (torch.isfinite(ys_f).all() and rel <= TOL_YS):
         raise AssertionError("trained model's fused solve disagrees")
 
 
@@ -414,7 +592,7 @@ def kernel_times(shape, srk=False):
     of the MLP products (one MLP evaluation per EM step, two per SRK step;
     the backward recomputes them and runs each evaluation's two products
     back: 3x)."""
-    fwd_k, fwd_p, bwd_k, bwd_p = kernel_fns(srk)
+    fwd_k, fwd_p, bwd_k, bwd_p = kernel_fns("srk" if srk else "em")
     inp, gys = kernel_inputs(shape["model"], shape["B"], shape["L"],
                              shape["C"], shape["H"], shape["layers"], srk=srk)
     fwd, flags = _split(inp, srk)
@@ -436,6 +614,78 @@ def kernel_times(shape, srk=False):
                                             + sum(g.numel() for g in grads)),
                            3 * products)}
     return ms, bounds
+
+
+def cde_kernel_times(shape, method="rk4"):
+    """Times of the CDE pair and its plain versions (fewer runs: the plain
+    backward at 136 rk4 steps takes a large part of a second), and its
+    bounds from the same inputs: the bytes of every input read once and
+    every output written once, and the fp32 operations of the field (per
+    stage and row: the MLP's products and the [H, C] contraction with
+    dX/dt; the backward recomputes each evaluation and runs its products
+    back: 3x)."""
+    from snsde_torch.kernels import fused_cde as fc
+
+    fwd_k, fwd_p, bwd_k, bwd_p = kernel_fns("cde")
+    fwd, flags, gys = cde_kernel_inputs(shape["B"], shape["L"], shape["C"],
+                                        shape["H"], shape["n_inner"], method)
+    ys = fwd_k(*fwd, **flags)
+    bwd_args = [fwd[0], ys, gys] + fwd[1:]
+    ms = {"fwd": timed(lambda: fwd_k(*fwd, **flags)),
+          "fwd_plain": timed(lambda: fwd_p(*fwd, **flags), reps=5, warmup=1),
+          "bwd": timed(lambda: bwd_k(*bwd_args, **flags)),
+          "bwd_plain": timed(lambda: bwd_p(*bwd_args, **flags), reps=5,
+                             warmup=1)}
+    M, B, H = ys.shape
+    HH, n_inner = fwd[3].shape[1], fwd[5].shape[0]
+    C = fwd[7].shape[1] // H
+    stages = len(fc._TABLEAUS[method][2])
+    per_eval = 2 * (H * HH + n_inner * HH * HH + HH * H * C) + 2 * H * C
+    flops = stages * M * B * per_eval
+    nbytes_in = 4 * sum(t.numel() for t in fwd)
+    grads = bwd_k(*bwd_args, **flags)
+    bounds = {"fwd": bound(nbytes_in + 4 * ys.numel(), flops),
+              "bwd": bound(nbytes_in + 4 * (ys.numel() + gys.numel()
+                                            + sum(g.numel() for g in grads)),
+                           3 * flops)}
+    print(f"CDE pair at B={B} M={M} C={C} H={H} n_inner={n_inner}: "
+          f"forward {flops / 1e9:.3f} GFLOP, bound "
+          f"{bounds['fwd'][0]:.5f} ms ({bounds['fwd'][1]}), backward bound "
+          f"{bounds['bwd'][0]:.5f} ms ({bounds['bwd'][1]})", flush=True)
+    return ms, bounds
+
+
+def cde_step_fns():
+    """One training step (cross-entropy, the 100x fc2 hook, the clip at
+    10, Adam) of ISTSClassifier("neuralcde") at the uea_rk4 width (B=1024,
+    L=72, 5 channels + time, H=32, FinalTanh with one inner layer, 4
+    classes): {label: step()} through the CDE kernels and through the
+    eager cdeint."""
+    from snsde_torch.data import synthetic_uea
+    from snsde_torch.harness.robustness import (ISTSClassifier,
+                                                ists_train_step,
+                                                preprocess_ists)
+    from snsde_torch.train.loop import readout_grad_hook
+
+    sh = CDE["uea_rk4"]
+    X, y, _ = synthetic_uea(n=sh["B"], length=sh["L"], channels=sh["C"] - 1,
+                            num_classes=4, seed=0)
+    data = preprocess_ists(X, interpolation="natural")
+    dev = torch.device(DEV)
+    batch = {"seq": torch.as_tensor(data["seq"], device=dev),
+             "coeffs": torch.as_tensor(data["coeffs"], device=dev),
+             "y": torch.as_tensor(y, device=dev)}
+    out = {}
+    for label, fused in (("train_step", True), ("train_step_eager", False)):
+        model = ISTSClassifier("neuralcde", sh["C"] - 1, sh["L"], sh["H"], 4,
+                               num_hidden_layers=sh["n_inner"] + 1,
+                               generator=torch.Generator().manual_seed(0))
+        model = model.to(dev)
+        readout_grad_hook("fc2")(model)
+        opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+        out[label] = (lambda model=model, opt=opt, fused=fused:
+                      ists_train_step(model, opt, batch, use_fused=fused))
+    return out
 
 
 def sepsis_step_fns():
@@ -519,12 +769,12 @@ def mujoco_step_fns():
     return out
 
 
-def step_times(label, steps):
+def step_times(label, steps, eager_reps=EAGER_REPS):
     """Median step time through the kernels and through the eager solver,
     and a profiler window of the kernel step."""
     ms = {"train_step": timed(steps["train_step"]),
           "train_step_eager": timed(steps["train_step_eager"],
-                                    reps=EAGER_REPS, warmup=1)}
+                                    reps=eager_reps, warmup=1)}
     profile_step(label, steps["train_step"])
     return ms
 
@@ -559,6 +809,59 @@ def profile_step(label, step, n=5):
         print(f"  {ms:8.4f} ms {100 * ms / wall:5.1f}%  {name[:100]}")
 
 
+_AB_CHILD = """
+import json, sys
+sys.path.insert(0, {root!r})
+import chip_smoke as c
+print("AB", json.dumps({{name: c.timed(make()["train_step"], reps={reps})
+                        for name, make in (("sepsis", c.sepsis_step_fns),
+                                           ("mujoco", c.mujoco_step_fns))}}),
+      flush=True)
+"""
+
+
+def ab_steps(parent: str, pairs: int = 16, reps: int = 100) -> int:
+    """A/B of the SDE paths' training steps through the kernels between a
+    parent checkout (the directory `parent`) and this one:
+
+        python3 chip_smoke.py --ab-steps PARENT_DIR [PAIRS [REPS]]
+
+    Each of `pairs` rounds runs one process per tree, in the order parent,
+    change, then change, parent in the next round; each process times
+    `reps` steps of the sepsis and of the MuJoCo step (`timed`, median)
+    with that tree's own chip_smoke.py and package. Prints every process's
+    medians, then per path the median and quartiles of each tree's
+    process medians, the median of the per-round differences (change minus
+    parent) and the rounds the change was faster in."""
+    import os
+
+    trees = {"parent": os.path.abspath(parent),
+             "change": os.path.dirname(os.path.abspath(__file__))}
+    got = {t: [] for t in trees}
+    for i in range(pairs):
+        for tree in (("parent", "change") if i % 2 == 0
+                     else ("change", "parent")):
+            code = _AB_CHILD.format(root=trees[tree], reps=reps)
+            out = subprocess.run([sys.executable, "-c", code],
+                                 cwd=trees[tree], capture_output=True,
+                                 text=True, timeout=600, check=True).stdout
+            ms = json.loads(out.split("AB ", 1)[1])
+            got[tree].append(ms)
+            print(f"AB round {i} {tree}: sepsis {ms['sepsis']:.4f} ms, "
+                  f"mujoco {ms['mujoco']:.4f} ms", flush=True)
+    for path in ("sepsis", "mujoco"):
+        per = {t: [m[path] for m in got[t]] for t in trees}
+        diff = [c - p for c, p in zip(per["change"], per["parent"])]
+        for t, v in per.items():
+            q1, q2, q3 = statistics.quantiles(v, n=4)
+            print(f"AB {path} {t}: median {statistics.median(v):.4f} ms, "
+                  f"quartiles {q1:.4f} / {q3:.4f} over {len(v)} processes")
+        print(f"AB {path}: change minus parent per round, median "
+              f"{statistics.median(diff):+.4f} ms; change faster in "
+              f"{sum(d < 0 for d in diff)} of {len(diff)} rounds")
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -579,20 +882,40 @@ def main() -> int:
                 srk=True)
     compare(MAIN["model"], MAIN["B"], MAIN["L"], MAIN["C"], MAIN["H"],
             MAIN["layers"], srk=True)
-    launches = {"em": main_path(), "srk": mujoco_path()}
+    sweep_shape = dict(B=SWEEP["B"], L=SWEEP["L"], C=SWEEP["D"] + 1,
+                       H=SWEEP["H"], n_inner=0)
+    err["cde"] = compare_cde(**sweep_shape)
+    for shape in CDE.values():
+        compare_cde(**shape)
+    sh = CDE["uea_rk4"]
+    for method in ("euler", "midpoint", "heun"):
+        compare_cde(128, sh["L"], sh["C"], sh["H"], 1, method)
+    compare_cde(128, sh["L"], sh["C"], sh["H"], 0, field="single")
+    for n_inner in (0, 2):
+        compare_cde(128, sh["L"], sh["C"], sh["H"], n_inner)
+    with tempfile.TemporaryDirectory() as out_dir:
+        launches = {"em": main_path(), "srk": mujoco_path(),
+                    "cde": sweep_path(out_dir)}
     spline_times()
     ms, bounds = {}, {}
     for key, shape, srk in (("em", MAIN, False), ("srk", SRK, True)):
         ms[key], bounds[key] = kernel_times(shape, srk=srk)
+    ms["cde"], bounds["cde"] = cde_kernel_times(sweep_shape)
+    for name, shape in CDE.items():
+        for k, v in cde_kernel_times(shape)[0].items():
+            ms["cde"][f"{name} {k}"] = v
     ms["em"].update(step_times("sepsis (euler)", sepsis_step_fns()))
     ms["srk"].update(step_times("mujoco (srk)", mujoco_step_fns()))
+    ms["cde"].update(step_times("uea_rk4 neuralcde (rk4)", cde_step_fns(),
+                                eager_reps=3))
     for key in ms:
         for k, v in ms[key].items():
             print(f"time {key} {k}: {v:.4f} ms  [{smi}]")
     kernels = []
     for key, pre, lines, src in (
             ("em", "fused_em", (688, 888), "fused_em"),
-            ("srk", "fused_srk", (295, 527), "fused_srk")):
+            ("srk", "fused_srk", (295, 527), "fused_srk"),
+            ("cde", "fused_cde", (364, 505), "fused_cde")):
         for part, line in zip(("fwd", "bwd"), lines):
             kernels.append({
                 "name": f"{pre}_{'forward' if part == 'fwd' else 'backward'}",
@@ -615,4 +938,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--ab-steps"]:
+        sys.exit(ab_steps(sys.argv[2], *map(int, sys.argv[3:5])))
     sys.exit(main())

@@ -4,7 +4,10 @@ The JAX package's models are pytrees; a caller flattens one into numpy
 arrays keyed by the dotted path of each leaf (attribute names and tuple
 indices, e.g. `sde.func.linear_in.weight`, `sde.func.noise_t.1.bias`,
 `sde.readout.norm.running_var` — a BatchNorm buffer is keyed without its
-`.value`). `load_jax_arrays` fills a port model from such a dict;
+`.value`; for the robustness classifier `layer.inner.func.linears.0.weight`,
+`layer.inner.initial_network.bias`, `norm.scale`, `fc2.weight`: a JAX tuple
+of Linears is a `ModuleList` here, with the same indices).
+`load_jax_arrays` fills a port model from such a dict;
 `grads_to_jax_layout` returns the port's gradients under the same keys and
 in the JAX layout, so tests compare the two packages leaf by leaf. The port
 never sees a JAX object.

@@ -1,5 +1,5 @@
-"""Synthetic sepsis- and MuJoCo-shaped data (counterpart of
-snsde/data/synthetic.py:20-50, 86-100, the port's own copy: the same
+"""Synthetic sepsis-, UEA- and MuJoCo-shaped data (counterpart of
+snsde/data/synthetic.py:20-50, 72-100, the port's own copy: the same
 arrays, bit for bit, from the same seed).
 
 The sepsis archive and the MuJoCo trajectory bank are not downloaded here,
@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["synthetic_sepsis", "synthetic_mujoco"]
+__all__ = ["synthetic_sepsis", "synthetic_uea", "synthetic_mujoco"]
 
 
 def synthetic_sepsis(n: int = 4096, length: int = 72, channels: int = 34,
@@ -45,6 +45,22 @@ def synthetic_sepsis(n: int = 4096, length: int = 72, channels: int = 34,
     static = rng.normal(0, 1, (n, static_dim)).astype(np.float32)
     static[:, 0] += 0.5 * y
     return base, static, y, lengths.astype(np.int64), t.astype(np.float32)
+
+
+def synthetic_uea(n: int = 512, length: int = 100, channels: int = 3,
+                  num_classes: int = 4, seed: int = 0):
+    """UEA-style equal-length multivariate classification set: class c adds
+    sin(6 pi t + c pi / num_classes) to every channel of 0.3 N(0, 1)
+    noise."""
+    rng = np.random.default_rng(seed)
+    y = rng.integers(0, num_classes, n)
+    t = np.linspace(0, 1, length, dtype=np.float32)
+    X = 0.3 * rng.normal(0, 1, (n, length, channels)).astype(np.float32)
+    for c in range(num_classes):
+        idx = np.flatnonzero(y == c)
+        phase = c * np.pi / num_classes
+        X[idx] += np.sin(2 * np.pi * 3 * t + phase)[None, :, None]
+    return X, y.astype(np.int64), t
 
 
 def synthetic_mujoco(n: int = 2048, length: int = 60, channels: int = 14,

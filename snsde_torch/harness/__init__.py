@@ -2,7 +2,11 @@ from .classification import (HarnessConfig, InitialValueModel,
                              make_sde_model, parse_model_name, run_sepsis)
 from .forecasting import (ForecastConfig, make_forecast_model,
                           resolve_sde_method, run_mujoco)
+from .robustness import (ISTSClassifier, SweepConfig, preprocess_ists,
+                         run_robustness_sweep, train_ists_model)
 
 __all__ = ["HarnessConfig", "InitialValueModel", "make_sde_model",
            "parse_model_name", "run_sepsis", "ForecastConfig",
-           "make_forecast_model", "resolve_sde_method", "run_mujoco"]
+           "make_forecast_model", "resolve_sde_method", "run_mujoco",
+           "ISTSClassifier", "SweepConfig", "preprocess_ists",
+           "run_robustness_sweep", "train_ists_model"]

@@ -1,8 +1,10 @@
 """Hand-written CUDA kernels for Hopper, each behind a
 `torch.autograd.Function` with a plain PyTorch version beside it."""
 
+from .fused_cde import FusedCDE, fused_cde_solve, supports_fused_cde
 from .fused_em import FusedEM, fused_em_solve, supports_fused
 from .fused_srk import FusedSRK, fused_srk_solve, supports_fused_srk
 
-__all__ = ["FusedEM", "fused_em_solve", "supports_fused", "FusedSRK",
-           "fused_srk_solve", "supports_fused_srk"]
+__all__ = ["FusedCDE", "fused_cde_solve", "supports_fused_cde", "FusedEM",
+           "fused_em_solve", "supports_fused", "FusedSRK", "fused_srk_solve",
+           "supports_fused_srk"]

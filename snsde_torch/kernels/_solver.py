@@ -81,16 +81,22 @@ _I = ctypes.c_int
 
 class SolverLib:
     """The library of one kernel pair, csrc/<name>.cu, built and loaded at
-    first use (never at construction). Every such library has the same C
-    interface: <name>_fwd and <name>_bwd (tensor pointers, then M, B, H, HH,
-    n_inner, mult_y, geometric, then the stream), <name>_smem_bytes,
-    <name>_max_smem, <name>_rows_per_block and <name>_error_string.
-    `label` names the pair in errors."""
+    first use (never at construction). Every such library has the same
+    shape of C interface: <name>_fwd and <name>_bwd (tensor pointers, then
+    the ints `int_names`, then the stream), <name>_smem_bytes (the ints
+    `shape_names`, then 1 for the backward), <name>_max_smem,
+    <name>_rows_per_block and <name>_error_string. `label` names the pair
+    in errors. The SDE pairs take (M, B, H, HH, n_inner, mult_y,
+    geometric) and size their shared memory by (H, HH, n_inner)."""
 
     def __init__(self, name: str, label: str, n_fwd_ptrs: int,
-                 n_bwd_ptrs: int):
+                 n_bwd_ptrs: int,
+                 int_names=("M", "B", "H", "HH", "n_inner", "mult_y",
+                            "geometric"),
+                 shape_names=("H", "HH", "n_inner")):
         self.name, self.label = name, label
         self._n_ptrs = {"fwd": n_fwd_ptrs, "bwd": n_bwd_ptrs}
+        self.int_names, self.shape_names = tuple(int_names), tuple(shape_names)
 
     @functools.cached_property
     def _lib(self) -> ctypes.CDLL:
@@ -99,9 +105,9 @@ class SolverLib:
         lib = load(self.name)
         fn = lambda suffix: getattr(lib, f"{self.name}_{suffix}")
         for which, n in self._n_ptrs.items():
-            fn(which).argtypes = [_P] * n + [_I] * 7 + [_P]
+            fn(which).argtypes = [_P] * n + [_I] * len(self.int_names) + [_P]
             fn(which).restype = _I
-        fn("smem_bytes").argtypes = [_I] * 4
+        fn("smem_bytes").argtypes = [_I] * (len(self.shape_names) + 1)
         fn("smem_bytes").restype = ctypes.c_longlong
         fn("error_string").argtypes = [_I]
         fn("error_string").restype = ctypes.c_char_p
@@ -116,31 +122,32 @@ class SolverLib:
     def rows_per_block(self) -> int:
         return self._fn("rows_per_block")()
 
-    def stream(self, y0, dims, backward: bool) -> int:
+    def stream(self, y0, shape, backward: bool) -> int:
         """The current CUDA stream's handle, after checking that y0 is on
         CUDA (before anything is built) and that the launch's shared memory
-        fits the device: ValueError otherwise."""
+        at `shape` (the ints `shape_names`) fits the device: ValueError
+        otherwise."""
         if y0.device.type != "cuda":
             raise ValueError(f"the {self.label} kernels take CUDA tensors; "
                              f"got {y0.device}")
-        _, _, H, HH, n_inner = dims
-        need = self._fn("smem_bytes")(H, HH, n_inner, int(backward))
+        need = self._fn("smem_bytes")(*shape, int(backward))
         limit = self._fn("max_smem")()
         if need > limit:
             what = ("backward kernel keeps weights and gradient accumulators"
                     if backward else "forward kernel keeps weights")
+            dims = ", ".join(f"{n}={v}" for n, v in zip(self.shape_names,
+                                                        shape))
             raise ValueError(
-                f"{self.label} {what} in shared memory: H={H}, HH={HH}, "
-                f"n_inner={n_inner} needs {need} bytes, above this device's "
-                f"{limit}-byte limit per block")
+                f"{self.label} {what} in shared memory: {dims} needs {need} "
+                f"bytes, above this device's {limit}-byte limit per block")
         return torch.cuda.current_stream(y0.device).cuda_stream
 
-    def launch(self, which: str, tensors, dims, mult_y: bool,
-               geometric: bool, stream: int) -> None:
-        """Run <name>_<which> ('fwd' or 'bwd') on the tensors' pointers;
-        RuntimeError with the CUDA error if the launch fails."""
-        err = self._fn(which)(*(t.data_ptr() for t in tensors), *dims,
-                              int(mult_y), int(geometric), stream)
+    def launch(self, which: str, tensors, ints, stream: int) -> None:
+        """Run <name>_<which> ('fwd' or 'bwd') on the tensors' pointers and
+        the ints `int_names`; RuntimeError with the CUDA error if the launch
+        fails."""
+        err = self._fn(which)(*(t.data_ptr() for t in tensors),
+                              *(int(v) for v in ints), stream)
         if err != 0:
             msg = self._fn("error_string")(err).decode()
             part = "forward" if which == "fwd" else "backward"

@@ -199,11 +199,11 @@ def fused_em_forward(y0, xh, dw, a, gk, dts, theta, wy, w_inner, b_inner,
             mult_y=mult_y, geometric=geometric)
     dims = check_kernel_inputs(y0, xh, dw, a, gk, dts, theta, wy, w_inner,
                                b_inner, wout, bo)
-    stream = _LIB.stream(y0, dims, backward=False)
+    stream = _LIB.stream(y0, dims[2:], backward=False)
     M, B, H, _, _ = dims
     ys = torch.empty((M, B, H), dtype=torch.float32, device=y0.device)
     _LIB.launch("fwd", (y0, xh, dw, a, gk, dts, theta, wy, w_inner, b_inner,
-                        wout, bo, ys), dims, mult_y, geometric, stream)
+                        wout, bo, ys), dims + (mult_y, geometric), stream)
     FWD_LAUNCHES += 1
     return ys
 
@@ -221,7 +221,7 @@ def fused_em_backward(y0, ys, gys, xh, dw, a, gk, dts, theta, wy, w_inner,
             wout, bo, mult_y=mult_y, geometric=geometric)
     dims = check_kernel_inputs(y0, xh, dw, a, gk, dts, theta, wy, w_inner,
                                b_inner, wout, bo, ys=ys, gys=gys)
-    stream = _LIB.stream(y0, dims, backward=True)
+    stream = _LIB.stream(y0, dims[2:], backward=True)
     M, B, H, HH, n_inner = dims
     nb = -(-B // _LIB.rows_per_block())
     empty = lambda *shape: torch.empty(shape, dtype=torch.float32,
@@ -233,7 +233,7 @@ def fused_em_backward(y0, ys, gys, xh, dw, a, gk, dts, theta, wy, w_inner,
     p_a, p_gk, p_th = empty(nb, M, HH), empty(nb, M, H), empty(nb)
     _LIB.launch("bwd", (y0, ys, gys, xh, dw, a, gk, dts, theta, wy, w_inner,
                         b_inner, wout, bo, dxh, dy0, p_wy, p_wi, p_bi, p_wo,
-                        p_bo, p_a, p_gk, p_th), dims, mult_y, geometric,
+                        p_bo, p_a, p_gk, p_th), dims + (mult_y, geometric),
                 stream)
     BWD_LAUNCHES += 1
     return FusedEMGrads(dy0, dxh, p_a.sum(0), p_gk.sum(0),

@@ -320,10 +320,10 @@ def fused_srk_forward(y0, xh0, xh1, dw, i10, a0, a1, gk0, gk1, gk2, dts,
         return fused_srk_forward_reference(*args, mult_y=mult_y,
                                            geometric=geometric)
     dims = check_kernel_inputs(*args)
-    stream = _LIB.stream(y0, dims, backward=False)
+    stream = _LIB.stream(y0, dims[2:], backward=False)
     M, B, H, _, _ = dims
     ys = torch.empty((M, B, H), dtype=torch.float32, device=y0.device)
-    _LIB.launch("fwd", args + (ys,), dims, mult_y, geometric, stream)
+    _LIB.launch("fwd", args + (ys,), dims + (mult_y, geometric), stream)
     FWD_LAUNCHES += 1
     return ys
 
@@ -342,7 +342,7 @@ def fused_srk_backward(y0, ys, gys, xh0, xh1, dw, i10, a0, a1, gk0, gk1, gk2,
                                             mult_y=mult_y,
                                             geometric=geometric)
     dims = check_kernel_inputs(y0, *args, ys=ys, gys=gys)
-    stream = _LIB.stream(y0, dims, backward=True)
+    stream = _LIB.stream(y0, dims[2:], backward=True)
     M, B, H, HH, n_inner = dims
     nb = -(-B // _LIB.rows_per_block())
     empty = lambda *shape: torch.empty(shape, dtype=torch.float32,
@@ -356,7 +356,7 @@ def fused_srk_backward(y0, ys, gys, xh0, xh1, dw, i10, a0, a1, gk0, gk1, gk2,
     p_th = empty(nb)
     _LIB.launch("bwd", (y0, ys, gys) + args + (
         dxh0, dxh1, dy0, p_wy, p_wi, p_bi, p_wo, p_bo, p_a0, p_a1, *p_gk,
-        p_th), dims, mult_y, geometric, stream)
+        p_th), dims + (mult_y, geometric), stream)
     BWD_LAUNCHES += 1
     return FusedSRKGrads(dy0, dxh0, dxh1, p_a0.sum(0), p_a1.sum(0),
                          *(p.sum(0) for p in p_gk), p_th.sum(0, keepdim=True),

@@ -5,7 +5,7 @@ The NaN-aware natural cubic spline (a masked Thomas solve over the observed
 knots of every series at once), linear fill of missing values, Hermite
 cubic coefficients with backward differences (torchcde semantics), the
 packed coefficient layout [..., L-1, 4C] = [a | b | 2c | 3d], and
-`CubicPath` evaluation.
+`CubicPath` evaluation and derivative.
 
 Bucket rule, as in the JAX package: the interval of time t is
 searchsorted(times, t, side="left") - 1, clipped to [0, L-2], so a knot
@@ -284,31 +284,58 @@ class CubicPath:
     def channels(self) -> int:
         return self.a.shape[-1]
 
-    def evaluate(self, t):
-        """X(t) for one time t -> [..., C]."""
+    def _bucket(self, t, coeffs):
+        """The rows of `coeffs` (each [..., L-1, C]) in the interval of one
+        time t on the device, each [..., C], and t's offset into it."""
         t = torch.as_tensor(t, dtype=self.a.dtype, device=self.a.device)
         idx = torch.searchsorted(self.times, t.reshape(1), side="left") - 1
         idx = idx.clamp(0, self.a.shape[-2] - 1)
-        frac = t - self.times[idx[0]]
-        take = lambda c: c.index_select(-2, idx).squeeze(-2)
-        a, b = take(self.a), take(self.b)
-        two_c, three_d = take(self.two_c), take(self.three_d)
-        inner = 0.5 * two_c + three_d * frac / 3.0
-        inner = b + inner * frac
-        return a + inner * frac
+        rows = [c.index_select(-2, idx).squeeze(-2) for c in coeffs]
+        return rows, t - self.times[idx[0]]
 
-    def evaluate_grid(self, ts) -> torch.Tensor:
-        """X at a host grid of times [M] -> [M, ..., C]."""
+    def _grid_bucket(self, ts, coeffs):
+        """The same for a host grid of times [M], the buckets resolved on
+        the host in float64 (rows [M, ..., C], offsets [M, 1.., 1] cast to
+        float32), as `snsde/ops/interp.py:493-561` does."""
         ts = np.asarray(ts, np.float64)
         times = self.times_np.astype(np.float64)
         idx = np.clip(np.searchsorted(times, ts, side="left") - 1,
                       0, self.a.shape[-2] - 1)
         idx_t = torch.as_tensor(idx, device=self.a.device)
-        take = lambda c: c.index_select(-2, idx_t).movedim(-2, 0)
-        a, b = take(self.a), take(self.b)
-        two_c, three_d = take(self.two_c), take(self.three_d)
+        rows = [c.index_select(-2, idx_t).movedim(-2, 0) for c in coeffs]
         frac = torch.as_tensor((ts - times[idx]).astype(np.float32),
                                device=self.a.device)
-        frac = frac.reshape((len(idx),) + (1,) * (a.ndim - 1))
+        return rows, frac.reshape((len(idx),) + (1,) * (self.a.ndim - 1))
+
+    @staticmethod
+    def _value(rows, frac):
+        a, b, two_c, three_d = rows
         inner = 0.5 * two_c + three_d * frac / 3.0
         return a + (b + inner * frac) * frac
+
+    @staticmethod
+    def _slope(rows, frac):
+        b, two_c, three_d = rows
+        return b + (two_c + three_d * frac) * frac
+
+    def evaluate(self, t):
+        """X(t) for one time t -> [..., C]."""
+        return self._value(*self._bucket(
+            t, (self.a, self.b, self.two_c, self.three_d)))
+
+    def evaluate_grid(self, ts) -> torch.Tensor:
+        """X at a host grid of times [M] -> [M, ..., C]."""
+        return self._value(*self._grid_bucket(
+            ts, (self.a, self.b, self.two_c, self.three_d)))
+
+    def derivative(self, t):
+        """dX/dt at one time t -> [..., C] (t on the device, bucketed in
+        the coefficients' precision, as `evaluate`)."""
+        return self._slope(*self._bucket(t, (self.b, self.two_c,
+                                             self.three_d)))
+
+    def derivative_grid(self, ts) -> torch.Tensor:
+        """dX/dt at a host grid of times [M] -> [M, ..., C] (the
+        control-derivative stream of the fused CDE solve)."""
+        return self._slope(*self._grid_bucket(ts, (self.b, self.two_c,
+                                                   self.three_d)))

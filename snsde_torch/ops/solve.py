@@ -1,5 +1,5 @@
-"""Fixed-grid SDE solver (counterpart of snsde/ops/solve.py:48-91,
-121-199, 249-332).
+"""Fixed-grid SDE, ODE and CDE solvers (counterpart of
+snsde/ops/solve.py:48-91, 121-199, 249-456).
 
 `make_grid` is host numpy, a copy of the JAX package's, both modes.
 `sdeint` is an eager loop differentiated by torch autograd, with the
@@ -8,6 +8,13 @@ for diagonal Ito noise, the scheme torchsde's 'srk' applies); the other
 methods of the JAX package (milstein, heun, reversible_heun) are not ported
 yet. The srk loop is the yardstick of the fused SRK kernels' plain
 versions.
+
+`odeint` is the fixed-grid ODE loop (euler, midpoint, heun = rk2, rk4) and
+`cdeint` reduces dz = f(z) dX(t) to it; both are eager loops differentiated
+by torch autograd, the yardstick of the fused CDE kernels' plain versions.
+Stage times are float32 scalars on the device, as the JAX scan computes
+them (t0 + 0.5 dt). The adaptive methods (dopri5, rk23, rk12, ode23s,
+sym12) are not ported yet.
 """
 
 from __future__ import annotations
@@ -19,7 +26,7 @@ import torch
 
 from .brownian import BrownianGrid, brownian_increments, space_time_levy_area
 
-__all__ = ["make_grid", "sdeint"]
+__all__ = ["make_grid", "sdeint", "odeint", "cdeint"]
 
 
 def make_grid(ts, dt: Optional[float],
@@ -194,3 +201,73 @@ def sdeint(f: Callable, g: Callable, y0: torch.Tensor, ts, *,
                     None if U is None else U[k])
         ys.append(y)
     return torch.stack(ys)[torch.as_tensor(out_idx, device=y0.device)]
+
+
+def _ode_euler(f, t0, dt, y):
+    return y + f(t0, y) * dt
+
+
+def _ode_midpoint(f, t0, dt, y):
+    k1 = f(t0, y)
+    return y + f(t0 + 0.5 * dt, y + 0.5 * dt * k1) * dt
+
+
+def _ode_heun(f, t0, dt, y):
+    k1 = f(t0, y)
+    k2 = f(t0 + dt, y + dt * k1)
+    return y + 0.5 * dt * (k1 + k2)
+
+
+def _ode_rk4(f, t0, dt, y):
+    k1 = f(t0, y)
+    k2 = f(t0 + 0.5 * dt, y + 0.5 * dt * k1)
+    k3 = f(t0 + 0.5 * dt, y + 0.5 * dt * k2)
+    k4 = f(t0 + dt, y + dt * k3)
+    return y + (dt / 6.0) * (k1 + 2 * k2 + 2 * k3 + k4)
+
+
+_ODE_STEPPERS = {
+    "euler": _ode_euler,
+    "midpoint": _ode_midpoint,
+    "heun": _ode_heun,
+    "rk2": _ode_heun,
+    "rk4": _ode_rk4,
+}
+
+_ADAPTIVE = ("dopri5", "rk23", "rk12", "ode23s", "sym12", "sym12async")
+
+
+def odeint(f: Callable, y0: torch.Tensor, ts, *, dt: Optional[float] = None,
+           method: str = "rk4") -> torch.Tensor:
+    """Fixed-grid ODE integration of dy/dt = f(t, y) over the output times
+    ts on make_grid(ts, dt); ys [T, ...y0.shape] (time-major)."""
+    if method in _ADAPTIVE:
+        raise NotImplementedError(
+            f"odeint method {method!r} is not ported yet (ROADMAP Queue 1 "
+            "item 16: the adaptive ODE solvers); euler, midpoint, heun, rk2 "
+            "and rk4 run")
+    if method not in _ODE_STEPPERS:
+        raise ValueError(f"unknown ODE method {method!r}")
+    stepper = _ODE_STEPPERS[method]
+    grid, out_idx = make_grid(ts, dt)
+    t_lo = torch.as_tensor(grid[:-1], dtype=y0.dtype, device=y0.device)
+    dts = torch.as_tensor(np.diff(grid), dtype=y0.dtype, device=y0.device)
+    ys = [y0]
+    y = y0
+    for k in range(dts.shape[0]):
+        y = stepper(f, t_lo[k], dts[k], y)
+        ys.append(y)
+    return torch.stack(ys)[torch.as_tensor(out_idx, device=y0.device)]
+
+
+def cdeint(X, func: Callable, z0: torch.Tensor, ts, *,
+           dt: Optional[float] = None, method: str = "rk4") -> torch.Tensor:
+    """Controlled differential equation dz = f(z) dX(t), reduced to the ODE
+    dz/dt = f(t, z) @ dX/dt. X has .derivative(t) -> [..., C] (CubicPath);
+    func(t, z) -> [..., H, C]. Returns zs [T, ...z0.shape]."""
+
+    def ode_f(t, z):
+        dX = X.derivative(t)                           # [..., C]
+        return torch.einsum("...hc,...c->...h", func(t, z), dX)
+
+    return odeint(ode_f, z0, ts, dt=dt, method=method)

@@ -1,6 +1,10 @@
 """Training loop and policy (counterpart of snsde/train/loop.py:48-110,
 195-598).
 
+Losses: BCE-with-logits for the binary heads, softmax cross-entropy for
+the multiclass ones (the robustness harness), and a global-norm gradient
+clip with optax's rule (`clip_by_global_norm`).
+
   * loss = BCE-with-logits (pos_weight) masked to the valid rows of the
     batch, plus 0.01 x the sum of L2 norms of the vector field's
     parameters;
@@ -38,6 +42,8 @@ from .metrics import ClassificationMetrics, classification_metrics
 from .schedule import ReduceLROnPlateau
 
 __all__ = ["bce_with_logits", "bce_with_logits_per_sample",
+           "softmax_cross_entropy", "softmax_cross_entropy_per_sample",
+           "clip_by_global_norm",
            "weight_regularization", "readout_grad_hook", "TrainConfig",
            "FitResult", "make_loss_fn", "make_optimizer", "train_step",
            "fit_classifier"]
@@ -52,6 +58,31 @@ def bce_with_logits_per_sample(logits, labels, pos_weight: float = 1.0):
 
 def bce_with_logits(logits, labels, pos_weight: float = 1.0):
     return bce_with_logits_per_sample(logits, labels, pos_weight).mean()
+
+
+def softmax_cross_entropy_per_sample(logits, labels):
+    """Per-sample cross entropy; labels are int class ids."""
+    logp = torch.log_softmax(logits, dim=-1)
+    return -torch.gather(logp, -1, labels.long()[:, None])[:, 0]
+
+
+def softmax_cross_entropy(logits, labels):
+    """Mean cross entropy; labels are int class ids."""
+    return softmax_cross_entropy_per_sample(logits, labels).mean()
+
+
+def clip_by_global_norm(params, max_norm: float) -> torch.Tensor:
+    """optax.clip_by_global_norm on the parameters' .grad, in place: when
+    the global L2 norm of all gradients is at least max_norm, every
+    gradient becomes g / norm * max_norm (torch's clip_grad_norm_ divides
+    by norm + 1e-6 instead). Runs on the device, with no host
+    synchronisation; returns the norm."""
+    grads = [p.grad for p in params if p.grad is not None]
+    norm = torch.sqrt(sum((g * g).sum() for g in grads))
+    keep = norm < max_norm
+    for g in grads:
+        g.copy_(torch.where(keep, g, g / norm * max_norm))
+    return norm
 
 
 def weight_regularization(module: torch.nn.Module, scaling: float = 0.01):
@@ -134,16 +165,21 @@ def make_optimizer(model: torch.nn.Module,
                             weight_decay=config.lr * config.weight_decay_ratio)
 
 
-def train_step(model, optimizer, loss_fn, batch, generator) -> torch.Tensor:
-    """One optimizer update in train mode; returns the loss (no host
-    synchronisation)."""
+def train_step(model, optimizer, loss_fn, batch, generator,
+               clip_norm: Optional[float] = None) -> torch.Tensor:
+    """One optimizer update in train mode, the gradients clipped to a
+    global norm of `clip_norm` (optax's rule) when it is given; returns the
+    loss (no host synchronisation)."""
     model.train()
     optimizer.zero_grad(set_to_none=True)
     loss, _ = loss_fn(model, batch, generator)
     loss.backward()
-    for p in model.parameters():
-        if p.requires_grad and p.grad is None:
+    params = [p for p in model.parameters() if p.requires_grad]
+    for p in params:
+        if p.grad is None:
             p.grad = torch.zeros_like(p)
+    if clip_norm is not None:
+        clip_by_global_norm(params, clip_norm)
     optimizer.step()
     return loss.detach()
 

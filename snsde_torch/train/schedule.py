@@ -1,10 +1,11 @@
-"""Host-side learning-rate schedule (counterpart of
-snsde/train/schedule.py:19-48).
+"""Host-side learning-rate schedules (counterpart of
+snsde/train/schedule.py:19-62).
 
 `ReduceLROnPlateau` is a copy of the JAX package's logic rather than
 `torch.optim.lr_scheduler.ReduceLROnPlateau`, so the two packages cut the
 rate on the same epochs; the training loop writes the rate it returns into
-the optimizer's parameter group.
+the optimizer's parameter group. `StepLR` (the robustness harness's)
+multiplies the rate by gamma every step_size calls of `step`.
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ from __future__ import annotations
 import math
 from dataclasses import dataclass, field
 
-__all__ = ["ReduceLROnPlateau"]
+__all__ = ["ReduceLROnPlateau", "StepLR"]
 
 
 @dataclass
@@ -44,4 +45,18 @@ class ReduceLROnPlateau:
         if self.num_bad > self.patience:
             self.lr = max(self.lr * self.factor, self.min_lr)
             self.num_bad = 0
+        return self.lr
+
+
+@dataclass
+class StepLR:
+    lr: float
+    step_size: int = 10
+    gamma: float = 0.5
+    epoch: int = 0
+
+    def step(self, metric: float = None) -> float:
+        self.epoch += 1
+        if self.epoch % self.step_size == 0:
+            self.lr *= self.gamma
         return self.lr
