@@ -3,13 +3,14 @@
 
     python3 chip_smoke.py
 
-Three main paths: the sepsis classification training path (Euler–Maruyama,
+Four main paths: the sepsis classification training path (Euler–Maruyama,
 the fused EM kernels), the MuJoCo forecasting training path (SRIW1, the
-fused SRK kernels) and the robustness sweep with the Neural CDE
-(FinalTanh, natural cubic control, rk4: the fused CDE kernels). Phases,
-each of which raises on failure:
+fused SRK kernels), the robustness sweep with the Neural CDE (FinalTanh,
+natural cubic control, rk4: the fused CDE kernels) and the sweep's
+recurrent baselines `gru`, `grud`, `lstm` and `bilstm` (the fused GRU and
+LSTM kernels). Phases, each of which raises on failure:
   1. card: name, and name and power limit from nvidia-smi;
-  2. build: nvcc builds every kernel of the three paths from
+  2. build: nvcc builds every kernel of the four paths from
      snsde_torch/csrc/ (sm_90a, one nvcc per source, all started together),
      with the build seconds and ptxas report;
   3. kernels vs their plain PyTorch versions on the card, on the same
@@ -22,10 +23,16 @@ each of which raises on failure:
      H=HH=32, FinalTanh with one inner layer, C=6 and C=35), at the sweep's
      shape (B=64, L=60, C=6, H=16, no inner layer), and at B=128 for euler,
      midpoint and heun, SingleHiddenLayer, and FinalTanh with zero and two
-     inner layers: the trajectory and every backward output, within
+     inner layers; the GRU pair (with and without the decay stream) and the
+     LSTM pair at the sweep's shape (B=64, L=60, H=16, and H=8 for the
+     bilstm's directions), at the JAX package's recurrent bench shapes
+     (tools/bench_cde.py:159-177: B=1024, L=72, C=6, H=32, 64, 128), at
+     H=512 with B=16 (weights and gradient partials in device memory) and
+     at a ragged B=100: the trajectory and every backward output, within
      stated tolerances of the float32 plain version, and no further from
      a float64 run of the plain version than a small multiple of the
-     float32 plain version's own error;
+     float32 plain version's own error; and the GRU and LSTM kernels at
+     the bench shapes against cuDNN (torch.nn.GRU/LSTM, same weights);
   4. main paths, each with every launch count set to 0 just before it and
      read just after: the sepsis harness `run_sepsis` (neurallnsde, H=49,
      batch 1024, C=69) on synthetic_sepsis(n=4096) for 2 epochs, which
@@ -39,15 +46,22 @@ each of which raises on failure:
      and write records with an accuracy and no error; the losses must be
      finite, and each trained model's fused solve must match the eager
      solver on a small batch (the SDEs with the same Brownian increments);
+     then the same sweep cell with `gru`, `grud`, `lstm` and `bilstm`, one
+     model a run with the counts set to 0 before each, each of which must
+     launch both kernels of its pair, write a record with an accuracy and
+     no error, and whose trained recurrence through the kernels must match
+     its eager loop on a small batch;
   5. times: the natural cubic fit of the forecasting windows on the host
      by each of its two paths (host clock, median of 3); each kernel and
      its plain version (the CDE pair at the sweep's shape and at both
-     bench shapes), and one full training step (forward + backward +
-     Adam) of each path through the kernels and through the eager solver
-     (CUDA events, median of 30 after warm-up; the CDE step is the
-     uea_rk4 classifier at B=1024); a torch.profiler window of each
-     kernel step gives device time by kernel and the device's busy
-     share.
+     bench shapes; the GRU and LSTM pairs, and cuDNN's forward, backward
+     and both, at the sweep's shape and the bench shapes), and one full
+     training step (forward + backward + Adam) of each path through the
+     kernels and through the eager solver (CUDA events, median of 30
+     after warm-up; the CDE step is the uea_rk4 classifier at B=1024, the
+     recurrent steps the gru and lstm classifiers at B=1024, L=72, H=32);
+     a torch.profiler window of each kernel step gives device time by
+     kernel and the device's busy share.
 It prints one JSON line of the kernels, the card's name and power limit,
 and last `{"ok": true, "device": {...}}`. It exits non-zero, printing no
 result, without a CUDA device or outside the repository.
@@ -83,6 +97,14 @@ CDE = {"uea_rk4": dict(B=1024, L=72, C=6, H=32, n_inner=1),
        "sepsis_rk4": dict(B=1024, L=72, C=35, H=32, n_inner=1)}
 # the sweep cell (tools/run_sweep_cd.py: uea_b_noisy, neuralcde, hidden 16)
 SWEEP = dict(n=320, L=60, D=5, classes=2, seed=50, noise=0.8, H=16, B=64)
+# the recurrent baselines of the sweep cell: each recurrence reads the
+# embedded stream (hidden 16); the bilstm runs 8 units per direction
+RNN_MODELS = ("gru", "grud", "lstm", "bilstm")
+RNN_SWEEP = dict(B=SWEEP["B"], L=SWEEP["L"], C=SWEEP["H"], H=SWEEP["H"])
+# the JAX package's recurrent bench shapes (tools/bench_cde.py:159-177)
+RNN_BENCH = {f"{kind}{sfx}": dict(kind=kind, B=1024, L=72, C=6, H=h)
+             for sfx, h in (("", 32), ("_h64", 64), ("_h128", 128))
+             for kind in ("gru", "lstm")}
 # Largest error of a trajectory against the float32 plain version, over
 # the plain trajectory's largest entry: at most TOL_YS for the SDE pairs
 # (and a trained SDE field's fused solve against the eager one); for the
@@ -135,7 +157,7 @@ def build():
     from snsde_torch.kernels import _build
 
     t0 = time.perf_counter()
-    _build.build(["fused_em", "fused_srk", "fused_cde"])
+    _build.build(["fused_em", "fused_srk", "fused_cde", "fused_rnn"])
     print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
     for name, rec in _build.BUILD_LOG.items():
         for line in rec["log"].splitlines():
@@ -337,18 +359,26 @@ def main_config():
                          batch_size=MAIN["B"])
 
 
+def _counters():
+    """(key, module, attribute) of every kernel's launch count."""
+    from snsde_torch.kernels import fused_rnn
+
+    out = [(f"{key}_{part}", mod, f"{part.upper()}_LAUNCHES")
+           for key, mod in _kernel_modules().items()
+           for part in ("fwd", "bwd")]
+    return out + [(f"{key}_{part}", fused_rnn,
+                   f"{key.upper()}_{part.upper()}_LAUNCHES")
+                  for key in ("gru", "lstm") for part in ("fwd", "bwd")]
+
+
 def zero_counts():
     """Set the launch count of every kernel to 0."""
-    for mod in _kernel_modules().values():
-        mod.FWD_LAUNCHES = mod.BWD_LAUNCHES = 0
+    for _, mod, attr in _counters():
+        setattr(mod, attr, 0)
 
 
 def read_counts():
-    out = {}
-    for key, mod in _kernel_modules().items():
-        out[f"{key}_fwd"], out[f"{key}_bwd"] = (mod.FWD_LAUNCHES,
-                                                mod.BWD_LAUNCHES)
-    return out
+    return {key: getattr(mod, attr) for key, mod, attr in _counters()}
 
 
 def main_path():
@@ -528,6 +558,319 @@ def check_trained_solve(func, shape, srk=False, B=64):
           f"rel {rel:.3e} (tol rel {TOL_YS:g})")
     if not (torch.isfinite(ys_f).all() and rel <= TOL_YS):
         raise AssertionError("trained model's fused solve disagrees")
+
+
+# ---------------------------------------------------------------------------
+# The recurrent baselines: the GRU and LSTM kernel pairs
+# ---------------------------------------------------------------------------
+
+def rnn_fns(kind):
+    """(forward, backward, plain forward, plain backward) of the pair
+    'gru' or 'lstm'."""
+    from snsde_torch.kernels import fused_rnn as fr
+
+    return tuple(getattr(fr, f"fused_{kind}_{n}") for n in (
+        "forward", "backward", "forward_reference", "backward_reference"))
+
+
+def rnn_kernel_inputs(kind, B, L, C, H, dec=False, seed=0):
+    """A random cell (the port's init, U(-1/sqrt(H), 1/sqrt(H))) on a
+    random sequence xs [L, B, C] ~ N(0, 1), and the pair's detached inputs:
+    gi, the cell's input projection of xs, W_hh, b_hh, for the GRU h0 ~
+    N(0, 1/4) and, with dec, a decay stream ~ U(0.2, 1); and the
+    cotangent ghs of a batch-mean loss. (cell, xs, inputs, ghs)."""
+    from snsde_torch.nn.layers import GRUCell, LSTMCell
+
+    rng = np.random.default_rng(seed)
+    cell = (GRUCell if kind == "gru" else LSTMCell)(
+        C, H, generator=torch.Generator().manual_seed(seed)).to(DEV)
+    t = lambda a: torch.as_tensor(a.astype(np.float32), device=DEV)
+    xs = t(rng.normal(size=(L, B, C)))
+    with torch.no_grad():
+        inp = {"gi": (xs @ cell.w_ih + cell.b_ih).contiguous(),
+               "whh": cell.w_hh.detach().clone(),
+               "bhh": cell.b_hh.detach().clone()}
+    if kind == "gru":
+        inp["h0"] = t(0.5 * rng.normal(size=(B, H)))
+        if dec:
+            inp["hdec"] = t(rng.uniform(0.2, 1.0, size=(L, B, H)))
+    return cell, xs, inp, t(rng.normal(size=(L, B, H)) / B)
+
+
+def rnn_run(kind, fwd, bwd, inp, ghs):
+    """{output name: tensor} of a pair's forward (hs, and cs for the LSTM)
+    and backward on the same inputs."""
+    if kind == "gru":
+        hs = fwd(**inp)
+        g = bwd(hs=hs, ghs=ghs, **inp)
+        return {"hs": hs, **{n: v for n, v in zip(g._fields, g)
+                             if v is not None}}
+    hs, cs = fwd(**inp)
+    g = bwd(hs=hs, cs=cs, ghs=ghs, **inp)
+    return {"hs": hs, "cs": cs, **dict(zip(g._fields, g))}
+
+
+def compare_rnn(kind, B, L, C, H, dec=False):
+    """The GRU or LSTM pair against its plain versions on the same inputs:
+    hs (and cs) within TOL_YS of its largest entry, every cotangent within
+    TOL_GRAD, and every output's rms error from a float64 run of the plain
+    version at most F64_FACTOR times the float32 plain version's, plus
+    F64_FLOOR (the recurrences are contractive: no float64 factor on the
+    trajectory). Returns the largest abs errors of the forward's and the
+    backward's outputs."""
+    _, _, inp, ghs = rnn_kernel_inputs(kind, B, L, C, H, dec)
+    fwd, bwd, fwd_p, bwd_p = rnn_fns(kind)
+    k = rnn_run(kind, fwd, bwd, inp, ghs)
+    p = rnn_run(kind, fwd_p, bwd_p, inp, ghs)
+    r = rnn_run(kind, fwd_p, bwd_p, {n: v.double() for n, v in inp.items()},
+                ghs.double())
+    torch.cuda.synchronize()
+    print(f"  {kind.upper()}{' + hdec' if dec else ''} B={B} L={L} C={C} "
+          f"H={H}:")
+    err = {"fwd": 0.0, "bwd": 0.0}
+    for name in k:
+        e = float((k[name] - p[name]).abs().max())
+        rel = e / max(float(p[name].abs().max()), 1e-30)
+        (k_max, k_rms), (p_max, p_rms) = (_errs64(k[name], r[name]),
+                                          _errs64(p[name], r[name]))
+        tol = TOL_YS if name in ("hs", "cs") else TOL_GRAD
+        print(f"    {name:6s} max abs err {e:.3e} rel {rel:.3e} (tol "
+              f"{tol:g}); from float64 largest/rms: kernel {k_max:.3e}/"
+              f"{k_rms:.3e}, float32 plain {p_max:.3e}/{p_rms:.3e}")
+        if not rel <= tol:
+            raise AssertionError(f"{kind} kernel disagrees on {name}")
+        if not k_rms <= F64_FACTOR * p_rms + F64_FLOOR:
+            raise AssertionError(f"{kind} {name}: kernel further from "
+                                 f"float64 than the plain version allows")
+        part = "fwd" if name in ("hs", "cs") else "bwd"
+        err[part] = max(err[part], e)
+    return err["fwd"], err["bwd"]
+
+
+def cudnn_module(kind, cell):
+    """torch.nn.GRU / nn.LSTM (cuDNN) holding the cell's weights."""
+    C, H = cell.w_ih.shape[0], cell.hidden_size
+    lib = (torch.nn.GRU if kind == "gru" else torch.nn.LSTM)(C, H).to(DEV)
+    with torch.no_grad():
+        lib.weight_ih_l0.copy_(cell.w_ih.T)
+        lib.weight_hh_l0.copy_(cell.w_hh.T)
+        lib.bias_ih_l0.copy_(cell.b_ih)
+        lib.bias_hh_l0.copy_(cell.b_hh)
+    return lib
+
+
+def _scan_grads(kind, cell, xs, w, h0, lib=None):
+    """hs and the gradients of sum(hs * w) w.r.t. w_ih, b_ih, w_hh, b_hh
+    (and h0 for the GRU): through the kernels (fused_*_scan) for float32,
+    the eager loop over the cell for float64, or cuDNN when lib is given."""
+    from snsde_torch.kernels import fused_rnn as fr
+    from snsde_torch.models.rnn import scan_cell
+
+    h0 = h0.clone().requires_grad_(True)
+    if lib is not None:
+        hs, _ = lib(xs, h0[None]) if kind == "gru" else lib(xs)
+        params = [lib.weight_ih_l0, lib.bias_ih_l0, lib.weight_hh_l0,
+                  lib.bias_hh_l0]
+    elif xs.dtype == torch.float64:
+        if kind == "gru":
+            h, hs = h0, []
+            for t in range(xs.shape[0]):
+                h = cell(xs[t], h)
+                hs.append(h)
+            hs = torch.stack(hs)
+        else:
+            hs = scan_cell(cell, xs)
+        params = [cell.w_ih, cell.b_ih, cell.w_hh, cell.b_hh]
+    else:
+        hs = (fr.fused_gru_scan(cell, xs, h0=h0) if kind == "gru"
+              else fr.fused_lstm_scan(cell, xs))
+        params = [cell.w_ih, cell.b_ih, cell.w_hh, cell.b_hh]
+    wrt = params + ([h0] if kind == "gru" else [])
+    grads = torch.autograd.grad((hs * w).sum(), wrt)
+    if lib is not None:          # torch's [out, in] layout
+        grads = (grads[0].T, grads[1], grads[2].T) + grads[3:]
+    return [hs.detach()] + list(grads)
+
+
+def compare_rnn_cudnn(kind, B, L, C, H):
+    """The kernel route (fused_*_scan) against cuDNN (torch.nn.GRU/LSTM,
+    TF32 off) with the same weights: hs and the gradients of w_ih, b_ih,
+    w_hh, b_hh (and h0). cuDNN rounds its sums and gate functions its own
+    way, so each output may differ by the larger of its kernel tolerance
+    and YS_F64_FACTOR times cuDNN's own largest error from a float64 run
+    of the eager loop, and the kernel's rms error from float64 may be at
+    most F64_FACTOR times cuDNN's, plus F64_FLOOR."""
+    import copy
+
+    torch.backends.cudnn.allow_tf32 = False
+    cell, xs, inp, _ = rnn_kernel_inputs(kind, B, L, C, H, seed=1)
+    rng = np.random.default_rng(2)
+    w = torch.as_tensor(rng.normal(size=(L, B, H)).astype(np.float32) / B,
+                        device=DEV)
+    h0 = inp.get("h0", torch.zeros(B, H, device=DEV))
+    k = _scan_grads(kind, cell, xs, w, h0)
+    lib = _scan_grads(kind, cell, xs, w, h0, lib=cudnn_module(kind, cell))
+    ref = _scan_grads(kind, copy.deepcopy(cell).double(), xs.double(),
+                      w.double(), h0.double())
+    torch.cuda.synchronize()
+    print(f"  {kind.upper()} B={B} L={L} C={C} H={H} vs cuDNN:")
+    for name, a, b, r in zip(("hs", "dw_ih", "db_ih", "dw_hh", "db_hh",
+                              "dh0"), k, lib, ref):
+        rel = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+        (k_max, k_rms), (l_max, l_rms) = _errs64(a, r), _errs64(b, r)
+        tol = max(TOL_YS if name == "hs" else TOL_GRAD, YS_F64_FACTOR * l_max)
+        print(f"    {name:6s} rel {rel:.3e} (tol {tol:.3e}); from float64 "
+              f"largest/rms: kernel {k_max:.3e}/{k_rms:.3e}, cuDNN "
+              f"{l_max:.3e}/{l_rms:.3e}")
+        if not (rel <= tol and k_rms <= F64_FACTOR * l_rms + F64_FLOOR):
+            raise AssertionError(f"{kind} kernels disagree with cuDNN on "
+                                 f"{name}")
+
+
+def rnn_sweep_path(out_dir):
+    """The robustness sweep's recurrent baselines on the sweep cell, one
+    model a run, the counts set to 0 just before each run and read just
+    after; returns the launch counts summed over the four runs."""
+    from snsde_torch.harness.robustness import (SweepConfig, preprocess_ists,
+                                                run_robustness_sweep)
+
+    X, _, _ = uea_b_noisy()
+    small = preprocess_ists(X[:16], missing_rate=0.3, seed=0)
+    total = {}
+    for name in RNN_MODELS:
+        cfg = SweepConfig(models=(name,), missing_rates=(0.3,), seeds=(0,),
+                          hidden_dim=SWEEP["H"], batch_size=SWEEP["B"],
+                          max_epochs=2, out_dir=out_dir)
+        trained = {}
+        zero_counts()
+        t0 = time.perf_counter()
+        recs = run_robustness_sweep(cfg, n=SWEEP["n"], data_fn=uea_b_noisy,
+                                    dataset_name="uea_b_noisy",
+                                    verbose=False, device=DEV,
+                                    models=trained)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        wall = time.perf_counter() - t0
+        pair = "gru" if name in ("gru", "grud") else "lstm"
+        print(f"main path 4 ({name}): run_robustness_sweep 2 epochs in "
+              f"{wall:.1f} s, records {recs}, launches {launches}",
+              flush=True)
+        if not recs or any("error" in r or "accuracy" not in r
+                           for r in recs):
+            raise AssertionError(f"the sweep wrote a failed record: {recs}")
+        if not all(np.isfinite(r["accuracy"]) for r in recs):
+            raise AssertionError(f"non-finite accuracy for {name}")
+        if launches[f"{pair}_fwd"] <= 0 or launches[f"{pair}_bwd"] <= 0:
+            raise AssertionError(f"{name} did not run the {pair} kernels: "
+                                 f"{launches}")
+        check_trained_rnn(name, trained[(0.3, name, 0)], small)
+        for key, v in launches.items():
+            total[key] = total.get(key, 0) + v
+    return total
+
+
+def check_trained_rnn(name, model, data):
+    """A trained classifier's recurrence through the kernels vs its eager
+    loop over the cell, on the same batch: the stream within TOL_YS of its
+    largest entry."""
+    inner = model.layer.inner
+    seq = torch.as_tensor(data["seq"], device=DEV)
+    x, mask, delta = seq[:, 0], seq[:, 1], seq[:, 2]
+    with torch.no_grad():
+        if name == "grud":
+            z_f, z_e = (inner(x, mask, delta, use_fused=f)
+                        for f in (True, False))
+        else:
+            z_f, z_e = (inner(x, use_fused=f)[1] for f in (True, False))
+    rel = float((z_f - z_e).abs().max()) / max(float(z_e.abs().max()), 1e-30)
+    print(f"trained {name}: recurrence through the kernels vs the eager "
+          f"loop, B={z_f.shape[0]}: shape {tuple(z_f.shape)}, largest err "
+          f"over max|z| {rel:.3e} (tol {TOL_YS:g})")
+    if not (torch.isfinite(z_f).all() and rel <= TOL_YS):
+        raise AssertionError(f"trained {name} model's kernels disagree")
+
+
+def rnn_kernel_times(kind, B, L, C, H):
+    """Times of one recurrent pair, its plain versions and cuDNN at one
+    shape, and the pair's bounds from the same inputs: the bytes of every
+    input read once and every output written once (the LSTM forward of a
+    training step writes cs too), and the fp32 operations of the recurrent
+    products, 2 L B H G H for G gates (the gate math adds ~2%; the
+    backward recomputes the product and runs two more: 3x). cuDNN is one
+    call of torch.nn.GRU/LSTM on xs (its input projection, over C
+    channels, included): the forward, the backward (autograd.grad of a
+    retained graph, for xs, h0 and the weights) and both."""
+    fwd, bwd, fwd_p, bwd_p = rnn_fns(kind)
+    cell, xs, inp, ghs = rnn_kernel_inputs(kind, B, L, C, H)
+    if kind == "gru":
+        hs = fwd(**inp)
+        bargs = dict(hs=hs, ghs=ghs, **inp)
+    else:
+        hs, cs = fwd(**inp)
+        bargs = dict(hs=hs, cs=cs, ghs=ghs, **inp)
+    ms = {"fwd": timed(lambda: fwd(**inp)),
+          "fwd_plain": timed(lambda: fwd_p(**inp), reps=5, warmup=1),
+          "bwd": timed(lambda: bwd(**bargs)),
+          "bwd_plain": timed(lambda: bwd_p(**bargs), reps=5, warmup=1)}
+    torch.backends.cudnn.allow_tf32 = False
+    lib = cudnn_module(kind, cell)
+    x = xs.clone().requires_grad_(True)
+    h0 = inp["h0"][None].clone().requires_grad_(True) if kind == "gru" \
+        else None
+    args = (x, h0) if kind == "gru" else (x,)
+    wrt = [x] + ([h0] if kind == "gru" else []) + list(lib.parameters())
+    ms["lib_fwd"] = timed(lambda: lib(*args))
+    out, _ = lib(*args)
+    ms["lib_bwd"] = timed(lambda: torch.autograd.grad(out, wrt, ghs,
+                                                      retain_graph=True))
+    ms["lib_fwd_bwd"] = timed(lambda: torch.autograd.grad(lib(*args)[0], wrt,
+                                                          ghs))
+    G = 3 if kind == "gru" else 4
+    prod = 2 * L * B * H * G * H
+    n_in = sum(t.numel() for t in inp.values())
+    n_fwd_out = L * B * H * (1 if kind == "gru" else 2)
+    grads = [g for g in bwd(**bargs) if g is not None]
+    n_bwd = sum(t.numel() for t in bargs.values()) + sum(
+        g.numel() for g in grads)
+    bounds = {"fwd": bound(4 * (n_in + n_fwd_out), prod),
+              "bwd": bound(4 * n_bwd, 3 * prod)}
+    print(f"{kind.upper()} pair at B={B} L={L} H={H}: forward "
+          f"{prod / 1e9:.4f} GFLOP, bound {bounds['fwd'][0]:.5f} ms "
+          f"({bounds['fwd'][1]}), backward bound {bounds['bwd'][0]:.5f} ms "
+          f"({bounds['bwd'][1]}); " + ", ".join(
+              f"{k} {v:.4f} ms" for k, v in ms.items()), flush=True)
+    return ms, bounds
+
+
+def rnn_step_fns(name):
+    """One training step (cross-entropy, the 100x fc2 hook, the clip at
+    10, Adam) of ISTSClassifier(name) at the recurrent bench width
+    (B=1024, L=72, 5 channels, H=32, 4 classes): {label: step()} through
+    the kernels and through the eager loop over the cell."""
+    from snsde_torch.data import synthetic_uea
+    from snsde_torch.harness.robustness import (ISTSClassifier,
+                                                ists_train_step,
+                                                preprocess_ists)
+    from snsde_torch.train.loop import readout_grad_hook
+
+    sh = RNN_BENCH[name]
+    X, y, _ = synthetic_uea(n=sh["B"], length=sh["L"], channels=sh["C"] - 1,
+                            num_classes=4, seed=0)
+    data = preprocess_ists(X)
+    dev = torch.device(DEV)
+    batch = {"seq": torch.as_tensor(data["seq"], device=dev),
+             "coeffs": torch.as_tensor(data["coeffs"], device=dev),
+             "y": torch.as_tensor(y, device=dev)}
+    out = {}
+    for label, fused in (("train_step", True), ("train_step_eager", False)):
+        model = ISTSClassifier(name, sh["C"] - 1, sh["L"], sh["H"], 4,
+                               generator=torch.Generator().manual_seed(0))
+        model = model.to(dev)
+        readout_grad_hook("fc2")(model)
+        opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+        out[label] = (lambda model=model, opt=opt, fused=fused:
+                      ists_train_step(model, opt, batch, use_fused=fused))
+    return out
 
 
 def spline_times(reps=3):
@@ -893,9 +1236,23 @@ def main() -> int:
     compare_cde(128, sh["L"], sh["C"], sh["H"], 0, field="single")
     for n_inner in (0, 2):
         compare_cde(128, sh["L"], sh["C"], sh["H"], n_inner)
+    rs = RNN_SWEEP
+    err["gru"] = compare_rnn("gru", **rs)
+    compare_rnn("gru", **rs, dec=True)
+    err["lstm"] = compare_rnn("lstm", **rs)
+    compare_rnn("lstm", rs["B"], rs["L"], rs["C"], rs["H"] // 2)
+    for shape in RNN_BENCH.values():
+        compare_rnn(**shape)
+    for kind in ("gru", "lstm"):
+        compare_rnn(kind, 16, 20, 6, 512, dec=kind == "gru")
+        compare_rnn(kind, 100, 30, 6, 32, dec=kind == "gru")
+    for shape in RNN_BENCH.values():
+        compare_rnn_cudnn(**shape)
     with tempfile.TemporaryDirectory() as out_dir:
         launches = {"em": main_path(), "srk": mujoco_path(),
                     "cde": sweep_path(out_dir)}
+        rnn_launches = rnn_sweep_path(out_dir)
+    launches["gru"] = launches["lstm"] = rnn_launches
     spline_times()
     ms, bounds = {}, {}
     for key, shape, srk in (("em", MAIN, False), ("srk", SRK, True)):
@@ -908,6 +1265,13 @@ def main() -> int:
     ms["srk"].update(step_times("mujoco (srk)", mujoco_step_fns()))
     ms["cde"].update(step_times("uea_rk4 neuralcde (rk4)", cde_step_fns(),
                                 eager_reps=3))
+    for kind in ("gru", "lstm"):
+        ms[kind], bounds[kind] = rnn_kernel_times(kind, **RNN_SWEEP)
+        for name, shape in RNN_BENCH.items():
+            if shape["kind"] == kind:
+                for k, v in rnn_kernel_times(**shape)[0].items():
+                    ms[kind][f"{name} {k}"] = v
+        ms[kind].update(step_times(f"{kind} classifier", rnn_step_fns(kind)))
     for key in ms:
         for k, v in ms[key].items():
             print(f"time {key} {k}: {v:.4f} ms  [{smi}]")
@@ -915,7 +1279,9 @@ def main() -> int:
     for key, pre, lines, src in (
             ("em", "fused_em", (688, 888), "fused_em"),
             ("srk", "fused_srk", (295, 527), "fused_srk"),
-            ("cde", "fused_cde", (364, 505), "fused_cde")):
+            ("cde", "fused_cde", (364, 505), "fused_cde"),
+            ("gru", "fused_gru", (312, 396), "fused_rnn"),
+            ("lstm", "fused_lstm", (837, 934), "fused_rnn")):
         for part, line in zip(("fwd", "bwd"), lines):
             kernels.append({
                 "name": f"{pre}_{'forward' if part == 'fwd' else 'backward'}",
@@ -927,7 +1293,9 @@ def main() -> int:
                 "ms": ms[key][part], "plain_ms": ms[key][f"{part}_plain"],
                 "bound_ms": bounds[key][part][0],
                 "bound_by": bounds[key][part][1],
-                "library_ms": None,
+                # cuDNN at the same shape (torch.nn.GRU/LSTM); no single
+                # PyTorch call computes a fused SDE or CDE solve
+                "library_ms": ms[key].get(f"lib_{part}"),
             })
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -6,7 +6,13 @@ indices, e.g. `sde.func.linear_in.weight`, `sde.func.noise_t.1.bias`,
 `sde.readout.norm.running_var` — a BatchNorm buffer is keyed without its
 `.value`; for the robustness classifier `layer.inner.func.linears.0.weight`,
 `layer.inner.initial_network.bias`, `norm.scale`, `fc2.weight`: a JAX tuple
-of Linears is a `ModuleList` here, with the same indices).
+of Linears is a `ModuleList` here, with the same indices; for the recurrent
+classifiers `layer.inner.cells.0.w_ih` and `layer.inner.cells_bwd.0.b_hh`
+(SeqRNN's cells, a `ModuleList` of cells), `layer.inner.embed.weight`, and
+GRUDFull's own `layer.inner.w_hh`, `layer.inner.gamma_x.weight` and
+`layer.inner.x_mean`). A cell's or GRUDFull's raw arrays (`w_ih`, `w_hh`,
+`b_ih`, `b_hh`, `x_mean`) have one layout on both sides and are copied as
+they are; only a `Linear`'s weight is transposed.
 `load_jax_arrays` fills a port model from such a dict;
 `grads_to_jax_layout` returns the port's gradients under the same keys and
 in the JAX layout, so tests compare the two packages leaf by leaf. The port

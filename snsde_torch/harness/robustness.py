@@ -1,8 +1,9 @@
 """Robustness-to-missingness sweep (counterpart of
 snsde/harness/robustness.py:48-446, the solo loop).
 
-  * `ISTSClassifier`: seq layer -> last step -> BatchNorm -> ReLU(fc1) ->
-    fc2, nan_to_num on the logits;
+  * `ISTSClassifier`: seq layer (any name `registry.PORTED_NAMES` holds:
+    the Neural CDEs and the plain recurrent baselines) -> last step ->
+    BatchNorm -> ReLU(fc1) -> fc2, nan_to_num on the logits;
   * `train_ists_model`: softmax cross-entropy, the 100x gradient hook on fc2
     before a global-norm clip at 10 (optax's rule), Adam without weight
     decay, StepLR(10, 0.5) stepped once per epoch, patience-10 early stop
@@ -111,8 +112,11 @@ class ISTSClassifier(nn.Module):
         self.fc2 = make_linear(hidden_dim, num_classes, generator=generator,
                                device=device)
 
-    def forward(self, seq, coeffs, *, use_fused: bool = True):
-        out = self.layer(seq, coeffs, use_fused=use_fused)[0][:, -1, :]
+    def forward(self, seq, coeffs, *,
+                generator: Optional[torch.Generator] = None,
+                use_fused: bool = True):
+        out = self.layer(seq, coeffs, generator=generator,
+                         use_fused=use_fused)[0][:, -1, :]
         h = torch.relu(self.fc1(self.norm(out)))
         return torch.nan_to_num(self.fc2(h))
 
@@ -148,16 +152,20 @@ class SweepConfig:
 
 
 def ists_train_step(model: ISTSClassifier, optimizer, batch,
-                    use_fused: bool = True) -> torch.Tensor:
+                    use_fused: bool = True,
+                    generator: Optional[torch.Generator] = None
+                    ) -> torch.Tensor:
     """One update: cross-entropy over the whole (padded) batch, backward
     (the fc2 hook, when registered, fires here), the global-norm clip at
-    CLIP_NORM, Adam. Returns the loss (no host synchronisation)."""
+    CLIP_NORM, Adam. `generator` draws the model's training-time noise (a
+    stacked SeqRNN's inter-layer dropout). Returns the loss (no host
+    synchronisation)."""
 
-    def loss_fn(m, b, generator):
-        logits = m(b["seq"], b["coeffs"], use_fused=use_fused)
+    def loss_fn(m, b, gen):
+        logits = m(b["seq"], b["coeffs"], generator=gen, use_fused=use_fused)
         return softmax_cross_entropy(logits, b["y"]), logits
 
-    return train_step(model, optimizer, loss_fn, batch, None,
+    return train_step(model, optimizer, loss_fn, batch, generator,
                       clip_norm=CLIP_NORM)
 
 
@@ -198,12 +206,13 @@ def train_ists_model(model: ISTSClassifier, data: Dict, y: np.ndarray,
 
     sched = StepLR(lr=lr, step_size=10, gamma=0.5)
     rng = np.random.default_rng(0)
+    gen = torch.Generator(device=device).manual_seed(0)
     best_val, stale = -np.inf, 0
     best_state = copy.deepcopy(model.state_dict())
     for epoch in range(max_epochs):
         for batch, _ in iterate_batches(split_data["train"], batch_size,
                                         rng=rng):
-            ists_train_step(model, optimizer, batch)
+            ists_train_step(model, optimizer, batch, generator=gen)
         for group in optimizer.param_groups:
             group["lr"] = sched.step()
         val_m = evaluate(split_data["val"])

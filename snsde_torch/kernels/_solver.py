@@ -1,5 +1,6 @@
 """What the fused solver kernel pairs (fused_em.py, fused_srk.py) share on
-the Python side, as csrc/sde_common.cuh holds what they share on the
+the Python side (fused_cde.py and fused_rnn.py use the input checks and the
+library), as csrc/sde_common.cuh holds what they share on the
 device: the modes they take, the input checks, the loaded library with its
 common C interface, and the precomputes outside the kernels (the merged
 drift's weights and rows, the diffusion magnitude gk(t), the stage times).
@@ -80,10 +81,11 @@ _I = ctypes.c_int
 
 
 class SolverLib:
-    """The library of one kernel pair, csrc/<name>.cu, built and loaded at
-    first use (never at construction). Every such library has the same
-    shape of C interface: <name>_fwd and <name>_bwd (tensor pointers, then
-    the ints `int_names`, then the stream), <name>_smem_bytes (the ints
+    """The library of one kernel pair, csrc/<source>.cu (source defaults to
+    name), built and loaded at first use (never at construction). Every
+    such pair has the same shape of C interface: <name>_fwd and <name>_bwd
+    (tensor pointers, null for a tensor given as None, then the ints
+    `int_names`, then the stream), <name>_smem_bytes (the ints
     `shape_names`, then 1 for the backward), <name>_max_smem,
     <name>_rows_per_block and <name>_error_string. `label` names the pair
     in errors. The SDE pairs take (M, B, H, HH, n_inner, mult_y,
@@ -93,8 +95,9 @@ class SolverLib:
                  n_bwd_ptrs: int,
                  int_names=("M", "B", "H", "HH", "n_inner", "mult_y",
                             "geometric"),
-                 shape_names=("H", "HH", "n_inner")):
+                 shape_names=("H", "HH", "n_inner"), source: str = ""):
         self.name, self.label = name, label
+        self.source = source or name
         self._n_ptrs = {"fwd": n_fwd_ptrs, "bwd": n_bwd_ptrs}
         self.int_names, self.shape_names = tuple(int_names), tuple(shape_names)
 
@@ -102,7 +105,7 @@ class SolverLib:
     def _lib(self) -> ctypes.CDLL:
         from ._build import load
 
-        lib = load(self.name)
+        lib = load(self.source)
         fn = lambda suffix: getattr(lib, f"{self.name}_{suffix}")
         for which, n in self._n_ptrs.items():
             fn(which).argtypes = [_P] * n + [_I] * len(self.int_names) + [_P]
@@ -146,7 +149,8 @@ class SolverLib:
         """Run <name>_<which> ('fwd' or 'bwd') on the tensors' pointers and
         the ints `int_names`; RuntimeError with the CUDA error if the launch
         fails."""
-        err = self._fn(which)(*(t.data_ptr() for t in tensors),
+        err = self._fn(which)(*(None if t is None else t.data_ptr()
+                                for t in tensors),
                               *(int(v) for v in ints), stream)
         if err != 0:
             msg = self._fn("error_string")(err).decode()

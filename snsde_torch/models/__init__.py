@@ -2,8 +2,10 @@ from .neuralcde import (FinalTanh, GRUODEField, NeuralCDE, NeuralCDEStream,
                         SingleHiddenLayer, cde_solve_dispatch)
 from .neuralsde import (NeuralSDE, NeuralSDEForecasting, ReadoutHead,
                         resolve_dt, solve_dispatch)
+from .rnn import SeqRNN, last_observation_excl
+from .time_rnn import GRUDFull
 
 __all__ = ["FinalTanh", "GRUODEField", "NeuralCDE", "NeuralCDEStream",
            "SingleHiddenLayer", "cde_solve_dispatch", "NeuralSDE",
            "NeuralSDEForecasting", "ReadoutHead", "resolve_dt",
-           "solve_dispatch"]
+           "solve_dispatch", "SeqRNN", "last_observation_excl", "GRUDFull"]

@@ -1,3 +1,5 @@
-from .layers import BatchNorm, Dropout, Linear, make_linear
+from .layers import (BatchNorm, Dropout, GRUCell, Linear, LSTMCell, RNNCell,
+                     make_linear)
 
-__all__ = ["BatchNorm", "Dropout", "Linear", "make_linear"]
+__all__ = ["BatchNorm", "Dropout", "GRUCell", "Linear", "LSTMCell", "RNNCell",
+           "make_linear"]

@@ -9,6 +9,12 @@ U(-1/sqrt(fan_in), 1/sqrt(fan_in)); here the draw comes from an explicit
 `BatchNorm` is `torch.nn.BatchNorm1d` (momentum 0.1, eps 1e-5): it keeps
 the unbiased variance in its running statistics and normalises with the
 biased batch variance, the semantics of `snsde/nn/layers.py:148-171`.
+
+The recurrent cells (`snsde/nn/layers.py:186-290`) keep the JAX parameter
+names and layout, `w_ih` [in, kH], `w_hh` [H, kH], `b_ih`, `b_hh` [kH],
+with the gates in torch's order, so weights carry across with no
+transpose: `GRUCell` (r, z, n), `LSTMCell` (i, f, g, o) and the tanh
+Elman `RNNCell`. Each draws every parameter from U(-1/sqrt(H), 1/sqrt(H)).
 """
 
 from __future__ import annotations
@@ -19,7 +25,8 @@ from typing import Optional
 import torch
 from torch import nn
 
-__all__ = ["Linear", "BatchNorm", "Dropout", "make_linear"]
+__all__ = ["Linear", "BatchNorm", "Dropout", "make_linear", "RNNCell",
+           "GRUCell", "LSTMCell"]
 
 Linear = nn.Linear
 BatchNorm = nn.BatchNorm1d
@@ -59,3 +66,70 @@ class Dropout(nn.Module):
 
     def extra_repr(self) -> str:
         return f"rate={self.rate}"
+
+
+class _Cell(nn.Module):
+    """w_ih [in, G*H], w_hh [H, G*H], b_ih, b_hh [G*H], each ~ U(-k, k)
+    with k = 1/sqrt(H), drawn from `generator` in that order."""
+
+    gates = 1
+
+    def __init__(self, input_size: int, hidden_size: int, *,
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        k = 1.0 / math.sqrt(hidden_size)
+        G = self.gates * hidden_size
+        shapes = {"w_ih": (input_size, G), "w_hh": (hidden_size, G),
+                  "b_ih": (G,), "b_hh": (G,)}
+        for name, shape in shapes.items():
+            p = torch.empty(shape, device=device)
+            with torch.no_grad():
+                nn.init.uniform_(p, -k, k, generator=generator)
+            setattr(self, name, nn.Parameter(p))
+
+    @property
+    def hidden_size(self) -> int:
+        return self.w_hh.shape[0]
+
+
+class RNNCell(_Cell):
+    """Tanh Elman cell, torch nn.RNN's parameterisation:
+    h' = tanh(x w_ih + b_ih + h w_hh + b_hh)."""
+
+    def forward(self, x, h):
+        return torch.tanh(x @ self.w_ih + self.b_ih + h @ self.w_hh
+                          + self.b_hh)
+
+
+class GRUCell(_Cell):
+    """GRU cell with torch's gate order (r, z, n)."""
+
+    gates = 3
+
+    def forward(self, x, h):
+        H = self.hidden_size
+        gi = x @ self.w_ih + self.b_ih
+        gh = h @ self.w_hh + self.b_hh
+        r = torch.sigmoid(gi[..., :H] + gh[..., :H])
+        z = torch.sigmoid(gi[..., H:2 * H] + gh[..., H:2 * H])
+        n = torch.tanh(gi[..., 2 * H:] + r * gh[..., 2 * H:])
+        return (1 - z) * n + z * h
+
+
+class LSTMCell(_Cell):
+    """LSTM cell with torch's gate order (i, f, g, o); state = (h, c),
+    returns (h', (h', c'))."""
+
+    gates = 4
+
+    def forward(self, x, state):
+        h, c = state
+        H = self.hidden_size
+        g = x @ self.w_ih + self.b_ih + h @ self.w_hh + self.b_hh
+        i = torch.sigmoid(g[..., :H])
+        f = torch.sigmoid(g[..., H:2 * H])
+        gg = torch.tanh(g[..., 2 * H:3 * H])
+        o = torch.sigmoid(g[..., 3 * H:])
+        c = f * c + i * gg
+        h = o * torch.tanh(c)
+        return h, (h, c)

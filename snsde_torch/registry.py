@@ -1,12 +1,15 @@
 """Unified model registry (counterpart of snsde/registry.py:58-83, 172-446),
-for the Neural CDE names.
+for the Neural CDE and the plain recurrent names.
 
 `SeqLayer` normalises a model to (out_stream [N, L, H], hidden_stream)
 from the stacked seq [N, 3, L, D] (values, mask, delta) and packed spline
 coefficients over (time ‖ values), with times linspace(0, 1, L). The port
 builds `neuralcde` (natural cubic control), `neuralcde-c` (cubic),
-`neuralcde-h` (Hermite) and `gru-ode`; every other registry name raises
-NotImplementedError naming its ROADMAP item.
+`neuralcde-h` (Hermite) and `gru-ode`, and the recurrent baselines `rnn`,
+`gru`, `lstm`, `bilstm` (SeqRNN over the values), `gru-simple` (SeqRNN
+over values ‖ mask ‖ delta) and `grud` (GRUDFull over (values, mask,
+delta)); every other registry name raises NotImplementedError naming its
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -18,6 +21,8 @@ import torch
 from torch import nn
 
 from .models.neuralcde import FinalTanh, GRUODEField, NeuralCDEStream
+from .models.rnn import SeqRNN
+from .models.time_rnn import GRUDFull
 
 __all__ = ["MODEL_NAMES", "PORTED_NAMES", "SeqLayer", "make_seq_layer"]
 
@@ -48,11 +53,12 @@ def _build_model_names():
 
 
 MODEL_NAMES = _build_model_names()
-PORTED_NAMES = ("neuralcde", "neuralcde-c", "neuralcde-h", "gru-ode")
+_SEQ_RNN = ("rnn", "gru", "lstm", "bilstm", "gru-simple")
+PORTED_NAMES = ("neuralcde", "neuralcde-c", "neuralcde-h", "gru-ode",
+                *_SEQ_RNN, "grud")
 
 # ROADMAP Queue 1 item of every registry name the port does not build yet
-_RECURRENT = ("rnn", "lstm", "gru", "gru-simple", "grud", "bilstm",
-              "tlstm", "plstm", "tglstm", "transformer", "gru-dt", "gru-d",
+_RECURRENT = ("tlstm", "plstm", "tglstm", "transformer", "gru-dt", "gru-d",
               "ode-rnn", "ode-lstm")
 
 
@@ -80,8 +86,21 @@ class SeqLayer(nn.Module):
         super().__init__()
         self.inner, self.model_name = inner, model_name
 
-    def forward(self, seq, coeffs, *, use_fused: bool = True):
-        # every ported name is a NeuralCDEStream over the cubic coefficients
+    def forward(self, seq, coeffs, *,
+                generator: Optional[torch.Generator] = None,
+                use_fused: bool = True):
+        """`generator` draws SeqRNN's inter-layer dropout in training."""
+        name = self.model_name
+        x, mask, delta = seq[:, 0], seq[:, 1], seq[:, 2]
+        if name in ("rnn", "gru", "lstm", "bilstm"):
+            return self.inner(x, generator=generator, use_fused=use_fused)
+        if name == "gru-simple":
+            return self.inner(torch.cat([x, mask, delta], dim=-1),
+                              generator=generator, use_fused=use_fused)
+        if name == "grud":
+            hn = self.inner(x, mask, delta, use_fused=use_fused)
+            return hn, hn
+        # the CDE names: a NeuralCDEStream over the cubic coefficients
         times = np.linspace(0.0, 1.0, seq.shape[2]).astype(np.float32)
         return self.inner(times, coeffs, use_fused=use_fused)
 
@@ -89,13 +108,16 @@ class SeqLayer(nn.Module):
 def make_seq_layer(model_name: str, input_dim: int, seq_len: int,
                    hidden_dim: int, hidden_hidden_dim: Optional[int] = None,
                    num_layers: int = 1, num_hidden_layers: int = 1,
-                   method: Optional[str] = None, *,
+                   method: Optional[str] = None, dropout: float = 0.1, *,
                    generator: Optional[torch.Generator] = None,
                    device=None) -> SeqLayer:
     """A SeqLayer for a registry name; coefficient channels = 1 + D (time
     ‖ values). `neuralcde` is NeuralCDEStream(FinalTanh, rk4 unless
     `method` says otherwise); `gru-ode` is NeuralCDEStream(GRUODEField,
-    rk4)."""
+    rk4); `rnn`/`gru`/`lstm` are SeqRNN of that kind, `bilstm` a
+    bidirectional LSTM of hidden // 2 per direction, `gru-simple` a GRU over
+    3D channels, each with `num_layers` layers and inter-layer `dropout`
+    (snsde/registry.py:307-320); `grud` is GRUDFull."""
     if model_name not in MODEL_NAMES:
         raise NotImplementedError(f"unknown model name {model_name!r}")
     if model_name not in PORTED_NAMES:
@@ -105,7 +127,18 @@ def make_seq_layer(model_name: str, input_dim: int, seq_len: int,
     hh = hidden_hidden_dim or hidden_dim
     coeff_dim = input_dim + 1
     kw = dict(generator=generator, device=device)
-    if model_name == "gru-ode":
+    rnn = dict(num_layers=num_layers, dropout=dropout, **kw)
+    if model_name in ("rnn", "gru", "lstm"):
+        inner = SeqRNN(input_dim, hidden_dim, hidden_dim, model_name, **rnn)
+    elif model_name == "bilstm":
+        inner = SeqRNN(input_dim, hidden_dim, hidden_dim, "lstm",
+                       bidirectional=True,
+                       hidden_per_dir=max(hidden_dim // 2, 1), **rnn)
+    elif model_name == "gru-simple":
+        inner = SeqRNN(3 * input_dim, hidden_dim, hidden_dim, "gru", **rnn)
+    elif model_name == "grud":
+        inner = GRUDFull(input_dim, hidden_dim, **kw)
+    elif model_name == "gru-ode":
         field = GRUODEField(coeff_dim, hidden_dim, **kw)
         inner = NeuralCDEStream(field, coeff_dim, hidden_dim, hidden_dim,
                                 **kw)

@@ -40,7 +40,19 @@ and a control of 35 channels), each at two scales of the weights:
   (on an H100; run with -s to see the readings).
 Both cases also pass that float64 check, and print its readings, largest
 and root-mean-square (run pytest with -s to see them).
+
+The GRU and LSTM pairs run at init-scale weights over H = 5 ... 512 (the
+LSTM's W_hh from H = 128 on and the GRU's from H = 256 on are read from
+device memory, and from H = 128 on the gradient partials stay there: the
+route for weights that do not fit a block's shared memory), a ragged
+batch, with and
+without the GRU's decay stream, under the same rules: hs within 5e-6 of
+its largest entry, every cotangent within 1e-5, the float64 rms rule on
+every output. The plain-mode pairs are also held against cuDNN
+(`torch.nn.GRU`/`torch.nn.LSTM` with TF32 off) on the same weights.
 """
+
+import copy
 
 import numpy as np
 import pytest
@@ -48,8 +60,11 @@ import torch
 
 from snsde_torch.kernels import fused_cde as fc
 from snsde_torch.kernels import fused_em as fe
+from snsde_torch.kernels import fused_rnn as fr
 from snsde_torch.kernels import fused_srk as fs
 from snsde_torch.kernels._solver import MULT_Y_NO
+from snsde_torch.models.rnn import scan_cell
+from snsde_torch.nn.layers import GRUCell, LSTMCell
 
 CASES = [(4, 17, 1), (2, 16, 2), (6, 17, 0)]
 # (method, activation, inner layers, control channels, H = HH) of the CDE
@@ -59,6 +74,7 @@ CDE_CASES = [("euler", "relu", 1, 6, 49), ("midpoint", "tanh", 0, 6, 49),
              ("heun", "relu", 2, 6, 49), ("rk4", "relu", 0, 6, 49),
              ("rk4", "tanh", 0, 6, 49), ("rk4", "relu", 1, 35, 32)]
 SCALES = ["init", "wide"]
+RNN_H = [5, 8, 16, 32, 128, 512]
 F64_FACTOR = 4.0
 F64_FLOOR = 1e-5
 TOL_YS = 5e-6           # chip_smoke.TOL_YS
@@ -224,3 +240,204 @@ def test_cde_kernels_raise_above_the_shared_memory_limit():
     inputs, flags, _ = _cde_inputs("rk4", "relu", 0, 64, "init", H=128)
     with pytest.raises(ValueError, match="limit per block"):
         fc.fused_cde_forward(**inputs, **flags)
+
+
+def _rnn_inputs(kind, H, B=13, L=9, dec=False, seed=0):
+    """Random inputs of the GRU or LSTM pair on the card at init-scale
+    weights (U(-1/sqrt(H), 1/sqrt(H))), gi ~ N(0, 1) (a projection of unit
+    inputs), and the cotangent of a batch-mean loss."""
+    rng = np.random.default_rng(seed)
+    G = 3 if kind == "gru" else 4
+    t = lambda a: torch.as_tensor(a.astype(np.float32), device="cuda")
+    k = 1.0 / np.sqrt(H)
+    inputs = dict(gi=t(rng.normal(size=(L, B, G * H))),
+                  whh=t(rng.uniform(-k, k, size=(H, G * H))),
+                  bhh=t(rng.uniform(-k, k, size=(G * H,))))
+    if kind == "gru":
+        inputs["h0"] = t(0.5 * rng.normal(size=(B, H)))
+        if dec:
+            inputs["hdec"] = t(rng.uniform(0.2, 1.0, size=(L, B, H)))
+    return inputs, t(rng.normal(size=(L, B, H)) / B)
+
+
+def _rnn_run(kind, fwd, bwd, inputs, ghs):
+    """(hs, the backward's outputs by name) of one pair's two functions."""
+    if kind == "gru":
+        hs = fwd(**inputs)
+        g = bwd(hs=hs, ghs=ghs, **inputs)
+        outs = {"hs": hs, **{n: v for n, v in zip(g._fields, g)
+                             if v is not None}}
+    else:
+        hs, cs = fwd(**inputs)
+        g = bwd(hs=hs, cs=cs, ghs=ghs, **inputs)
+        outs = {"hs": hs, "cs": cs, **dict(zip(g._fields, g))}
+    return outs
+
+
+def _check_rnn(kind, inputs, ghs):
+    mod = fr
+    k = _rnn_run(kind, getattr(mod, f"fused_{kind}_forward"),
+                 getattr(mod, f"fused_{kind}_backward"), inputs, ghs)
+    ref = lambda n: getattr(mod, f"fused_{kind}_{n}_reference")
+    p = _rnn_run(kind, ref("forward"), ref("backward"), inputs, ghs)
+    r64 = _rnn_run(kind, ref("forward"), ref("backward"),
+                   {n: v.double() for n, v in inputs.items()}, ghs.double())
+    torch.cuda.synchronize()
+    assert set(k) == set(p)
+    for name in k:
+        (k_max, k_rms), (p_max, p_rms) = (_errs(k[name], r64[name]),
+                                          _errs(p[name], r64[name]))
+        print(f"{kind} {name}: error from float64 over max (largest, rms): "
+              f"kernel {k_max:.2e} {k_rms:.2e}, float32 plain {p_max:.2e} "
+              f"{p_rms:.2e}")
+        assert k_rms <= F64_FACTOR * p_rms + F64_FLOOR, name
+        rel = float((k[name] - p[name]).abs().max()) / max(
+            float(p[name].abs().max()), 1e-30)
+        tol = TOL_YS if name in ("hs", "cs") else TOL_GRAD
+        assert rel < tol, f"{kind} {name}: rel err {rel:.2e}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H", RNN_H)
+@pytest.mark.parametrize("kind,dec", [("gru", False), ("gru", True),
+                                      ("lstm", False)])
+def test_rnn_kernels_match_plain_versions(kind, dec, H):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    inputs, ghs = _rnn_inputs(kind, H, dec=dec, B=13 if H < 512 else 16,
+                              L=9 if H < 512 else 5)
+    _check_rnn(kind, inputs, ghs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["gru", "lstm"])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_rnn_scan_on_the_card_matches_the_eager_loop(kind, reverse):
+    """fused_*_scan (projection, flips, the kernels) against the eager loop
+    over the cell, in both directions: hs and every gradient (xs and the
+    cell's four parameters)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    rng = np.random.default_rng(3)
+    L, B, C, H = 11, 21, 6, 16
+    cell = (GRUCell if kind == "gru" else LSTMCell)(
+        C, H, generator=torch.Generator().manual_seed(0)).cuda()
+    xs = torch.as_tensor(rng.normal(size=(L, B, C)).astype(np.float32),
+                         device="cuda")
+    w = torch.as_tensor(rng.normal(size=(L, B, H)).astype(np.float32),
+                        device="cuda")
+    scan = getattr(fr, f"fused_{kind}_scan")
+    outs = []
+    for f in (lambda x: scan(cell, x, reverse=reverse),
+              lambda x: scan_cell(cell, x, reverse)):
+        cell.zero_grad()
+        x = xs.clone().requires_grad_(True)
+        hs = f(x)
+        (hs * w).sum().backward()
+        outs.append([hs.detach(), x.grad] + [p.grad for p in
+                                             cell.parameters()])
+    for a, b in zip(*outs):
+        rel = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+        assert rel < TOL_GRAD, rel
+
+
+def _recurrence_grads(kind, cell, xs, w, h0):
+    """hs and the gradients (w_ih, b_ih, w_hh, b_hh, h0 for the GRU) of
+    sum(hs * w) through the fused scan (or, in float64, the eager loop)."""
+    h0 = h0.clone().requires_grad_(True)
+    if kind == "gru":
+        hs = (fr.fused_gru_scan(cell, xs, h0=h0) if xs.dtype == torch.float32
+              else _eager_gru(cell, xs, h0))
+    else:
+        hs = (fr.fused_lstm_scan(cell, xs) if xs.dtype == torch.float32
+              else scan_cell(cell, xs))
+    (hs * w).sum().backward()
+    out = [hs.detach()] + [p.grad for p in (cell.w_ih, cell.b_ih, cell.w_hh,
+                                            cell.b_hh)]
+    return out + ([h0.grad] if kind == "gru" else [])
+
+
+def _eager_gru(cell, xs, h):
+    hs = []
+    for t in range(xs.shape[0]):
+        h = cell(xs[t], h)
+        hs.append(h)
+    return torch.stack(hs)
+
+
+def _cudnn_grads(kind, cell, xs, w, h0):
+    """The same through torch.nn.GRU / nn.LSTM (cuDNN) with the cell's
+    weights."""
+    C, H = cell.w_ih.shape[0], cell.hidden_size
+    lib = (torch.nn.GRU if kind == "gru" else torch.nn.LSTM)(C, H).cuda()
+    with torch.no_grad():
+        lib.weight_ih_l0.copy_(cell.w_ih.T)
+        lib.weight_hh_l0.copy_(cell.w_hh.T)
+        lib.bias_ih_l0.copy_(cell.b_ih)
+        lib.bias_hh_l0.copy_(cell.b_hh)
+    h0 = h0.clone()[None].requires_grad_(True)
+    hs, _ = lib(xs, h0) if kind == "gru" else lib(xs)
+    (hs * w).sum().backward()
+    out = [hs.detach(), lib.weight_ih_l0.grad.T, lib.bias_ih_l0.grad,
+           lib.weight_hh_l0.grad.T, lib.bias_hh_l0.grad]
+    return out + ([h0.grad[0]] if kind == "gru" else [])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["gru", "lstm"])
+def test_rnn_kernels_match_cudnn(kind):
+    """The pairs in the plain mode against torch.nn.GRU / nn.LSTM (cuDNN,
+    TF32 off) with the same weights: hs and the gradients of the input
+    projection, W_hh, b_hh (and h0 for the GRU). cuDNN's sums and its
+    gate functions round differently (its LSTM hs is 9.5e-6 of the
+    largest entry from the kernel's at this shape, on an H100), so, as for
+    the CDE pair, each output may differ by the larger of the kernel
+    tolerance and YS_F64_FACTOR times cuDNN's own largest error from a
+    float64 run, and the kernel's rms error from float64 may be at most
+    F64_FACTOR times cuDNN's, plus F64_FLOOR."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(4)
+    L, B, C, H = 12, 37, 6, 32
+    mk = GRUCell if kind == "gru" else LSTMCell
+    cell = mk(C, H, generator=torch.Generator().manual_seed(1)).cuda()
+    t = lambda *s: torch.as_tensor(rng.normal(size=s).astype(np.float32),
+                                   device="cuda")
+    xs, w, h0 = t(L, B, C), t(L, B, H), t(B, H)
+    k = _recurrence_grads(kind, cell, xs, w, h0)
+    lib = _cudnn_grads(kind, cell, xs, w, h0)
+    ref = _recurrence_grads(kind, copy.deepcopy(cell).double(), xs.double(),
+                            w.double(), h0.double())
+    names = ["hs", "dw_ih", "db_ih", "dw_hh", "db_hh", "dh0"]
+    for name, a, b, r in zip(names, k, lib, ref):
+        (k_max, k_rms), (l_max, l_rms) = _errs(a, r), _errs(b, r)
+        rel = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+        tol = max(TOL_YS if name == "hs" else TOL_GRAD,
+                  YS_F64_FACTOR * l_max)
+        print(f"{kind} {name} vs cuDNN: rel {rel:.2e} (tol {tol:.2e}); from "
+              f"float64 (largest, rms): kernel {k_max:.2e} {k_rms:.2e}, "
+              f"cuDNN {l_max:.2e} {l_rms:.2e}")
+        assert rel < tol, name
+        assert k_rms <= F64_FACTOR * l_rms + F64_FLOOR, name
+
+
+@pytest.mark.cuda
+def test_lstm_forward_without_grad_writes_no_cell_states():
+    """With grad mode off the LSTM forward kernel runs with no cell-state
+    stream and gives the same hs as the training forward."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    inputs, _ = _rnn_inputs("lstm", 32)
+    hs, cs = fr.fused_lstm_forward(**inputs, save_cs=True)
+    hs2, cs2 = fr.fused_lstm_forward(**inputs, save_cs=False)
+    assert cs is not None and cs2 is None
+    assert torch.equal(hs, hs2)
+    cell = LSTMCell(6, 32, generator=torch.Generator().manual_seed(0)).cuda()
+    xs = torch.randn(9, 13, 6, device="cuda")
+    before = fr.LSTM_FWD_LAUNCHES
+    with torch.no_grad():
+        a = fr.fused_lstm_scan(cell, xs)
+    b = fr.fused_lstm_scan(cell, xs)
+    assert fr.LSTM_FWD_LAUNCHES == before + 2
+    assert torch.equal(a, b.detach())
