@@ -26,9 +26,12 @@ LSTM kernels). Phases, each of which raises on failure:
      inner layers; the GRU pair (with and without the decay stream) and the
      LSTM pair at the sweep's shape (B=64, L=60, H=16, and H=8 for the
      bilstm's directions), at the JAX package's recurrent bench shapes
-     (tools/bench_cde.py:159-177: B=1024, L=72, C=6, H=32, 64, 128), at
-     H=512 with B=16 (weights and gradient partials in device memory) and
-     at a ragged B=100: the trajectory and every backward output, within
+     (tools/bench_cde.py:159-177: B=1024, L=72, C=6, H=32, 64, 128), the
+     LSTM pair at its plan's boundaries (H=96: one CTA; 200: a cluster of
+     4; 256: of 8; each plan printed), at H=512 with B=16 (weights, and
+     the GRU's gradient partials, in device memory) and at a ragged B=100,
+     and the LSTM's weight-gradient kernel alone at the sweep's shape and
+     at H=128: the trajectory and every backward output, within
      stated tolerances of the float32 plain version, and no further from
      a float64 run of the plain version than a small multiple of the
      float32 plain version's own error; and the GRU and LSTM kernels at
@@ -55,7 +58,10 @@ LSTM kernels). Phases, each of which raises on failure:
      by each of its two paths (host clock, median of 3); each kernel and
      its plain version (the CDE pair at the sweep's shape and at both
      bench shapes; the GRU and LSTM pairs, and cuDNN's forward, backward
-     and both, at the sweep's shape and the bench shapes), and one full
+     and both, at the sweep's shape and the bench shapes; the LSTM
+     backward's recurrence and weight-gradient kernels apart, and
+     fused_lstm_scan forward + backward, projection included, beside
+     cuDNN's forward + backward), and one full
      training step (forward + backward + Adam) of each path through the
      kernels and through the eager solver (CUDA events, median of 30
      after warm-up; the CDE step is the uea_rk4 classifier at B=1024, the
@@ -67,9 +73,12 @@ and last `{"ok": true, "device": {...}}`. It exits non-zero, printing no
 result, without a CUDA device or outside the repository.
 
     python3 chip_smoke.py --ab-steps PARENT_DIR [PAIRS [REPS]]
+    python3 chip_smoke.py --ab-lstm PARENT_DIR [PAIRS [REPS]]
 
-runs none of the phases: it times the SDE paths' training steps of a
-parent checkout against this one, in alternating processes (`ab_steps`).
+run none of the phases: they time the SDE paths' training steps
+(`ab_steps`), or the LSTM kernels at the sweep's and the bench shapes
+(`ab_lstm`), of a parent checkout against this one, in alternating
+processes.
 """
 
 from __future__ import annotations
@@ -105,6 +114,9 @@ RNN_SWEEP = dict(B=SWEEP["B"], L=SWEEP["L"], C=SWEEP["H"], H=SWEEP["H"])
 RNN_BENCH = {f"{kind}{sfx}": dict(kind=kind, B=1024, L=72, C=6, H=h)
              for sfx, h in (("", 32), ("_h64", 64), ("_h128", 128))
              for kind in ("gru", "lstm")}
+# widths at the LSTM plan's boundaries (one CTA, clusters of 4 and 8), at
+# the bench batch and length
+LSTM_PLAN_H = (96, 200, 256)
 # Largest error of a trajectory against the float32 plain version, over
 # the plain trajectory's largest entry: at most TOL_YS for the SDE pairs
 # (and a trained SDE field's fused solve against the eager one); for the
@@ -368,7 +380,9 @@ def _counters():
            for part in ("fwd", "bwd")]
     return out + [(f"{key}_{part}", fused_rnn,
                    f"{key.upper()}_{part.upper()}_LAUNCHES")
-                  for key in ("gru", "lstm") for part in ("fwd", "bwd")]
+                  for key in ("gru", "lstm")
+                  for part in ("fwd", "bwd")] + [
+        ("lstm_wgrad", fused_rnn, "LSTM_WGRAD_LAUNCHES")]
 
 
 def zero_counts():
@@ -647,6 +661,60 @@ def compare_rnn(kind, B, L, C, H, dec=False):
     return err["fwd"], err["bwd"]
 
 
+def lstm_plans():
+    """Print the LSTM kernels' plan at every shape this script runs them
+    at: CTAs per cluster, batch rows per cluster, where the W_hh slices
+    live, shared bytes per CTA and cudaOccupancyMaxActiveClusters."""
+    from snsde_torch.kernels import fused_rnn as fr
+
+    rs = RNN_SWEEP
+    shapes = [(rs["B"], rs["H"]), (rs["B"], rs["H"] // 2), (100, 32),
+              (16, 512)] + [(1024, h) for h in (32, 64, 128) + LSTM_PLAN_H]
+    for B, H in shapes:
+        for backward in (False, True):
+            p = fr.fused_lstm_plan(H, B, backward)
+            print(f"  LSTM plan B={B} H={H} "
+                  f"{'backward' if backward else 'forward'}: CS={p['cluster']}"
+                  f", {p['rows']} rows a cluster, W_hh slices in "
+                  f"{'shared' if p['w_smem'] else 'device'} memory, "
+                  f"{p['rows_per_thread']} rows a thread, {p['smem_bytes']} "
+                  f"shared bytes a CTA, cudaOccupancyMaxActiveClusters "
+                  f"{p['active_clusters']}")
+            if p["active_clusters"] < 1:
+                raise AssertionError(f"LSTM plan at B={B} H={H} cannot be "
+                                     f"scheduled: {p}")
+
+
+def compare_lstm_wgrad(B, L, C, H):
+    """The LSTM weight-gradient kernel alone against its plain version on
+    the plain versions' hs and dgi: dW_hh and db_hh within TOL_GRAD of
+    their largest entries, and no further from a float64 run than the
+    F64 rule allows. Returns the largest abs error."""
+    from snsde_torch.kernels import fused_rnn as fr
+
+    _, _, inp, ghs = rnn_kernel_inputs("lstm", B, L, C, H)
+    hs, cs = fr.fused_lstm_forward_reference(**inp)
+    dgi = fr.fused_lstm_backward_reference(hs=hs, cs=cs, ghs=ghs, **inp).dgi
+    k = fr.fused_lstm_weight_grads(hs, dgi)
+    p = fr.fused_lstm_weight_grads_reference(hs, dgi)
+    r = fr.fused_lstm_weight_grads_reference(hs.double(), dgi.double())
+    torch.cuda.synchronize()
+    worst = 0.0
+    for name, a, b, ref in zip(("dwhh", "dbhh"), k, p, r):
+        e = float((a - b).abs().max())
+        rel = e / max(float(b.abs().max()), 1e-30)
+        (k_max, k_rms), (p_max, p_rms) = _errs64(a, ref), _errs64(b, ref)
+        print(f"  LSTM weight-gradient kernel B={B} L={L} H={H} {name}: max "
+              f"abs err {e:.3e} rel {rel:.3e} (tol {TOL_GRAD:g}); from "
+              f"float64 largest/rms: kernel {k_max:.3e}/{k_rms:.3e}, float32 "
+              f"plain {p_max:.3e}/{p_rms:.3e}")
+        if not (rel <= TOL_GRAD and k_rms <= F64_FACTOR * p_rms + F64_FLOOR):
+            raise AssertionError(f"LSTM weight-gradient kernel disagrees on "
+                                 f"{name}")
+        worst = max(worst, e)
+    return worst
+
+
 def cudnn_module(kind, cell):
     """torch.nn.GRU / nn.LSTM (cuDNN) holding the cell's weights."""
     C, H = cell.w_ih.shape[0], cell.hidden_size
@@ -763,6 +831,10 @@ def rnn_sweep_path(out_dir):
         if launches[f"{pair}_fwd"] <= 0 or launches[f"{pair}_bwd"] <= 0:
             raise AssertionError(f"{name} did not run the {pair} kernels: "
                                  f"{launches}")
+        if launches["lstm_wgrad"] != launches["lstm_bwd"]:
+            raise AssertionError(f"{name}: the LSTM weight-gradient kernel "
+                                 f"ran {launches['lstm_wgrad']} times, the "
+                                 f"recurrence {launches['lstm_bwd']}")
         check_trained_rnn(name, trained[(0.3, name, 0)], small)
         for key, v in launches.items():
             total[key] = total.get(key, 0) + v
@@ -812,6 +884,9 @@ def rnn_kernel_times(kind, B, L, C, H):
           "fwd_plain": timed(lambda: fwd_p(**inp), reps=5, warmup=1),
           "bwd": timed(lambda: bwd(**bargs)),
           "bwd_plain": timed(lambda: bwd_p(**bargs), reps=5, warmup=1)}
+    if kind == "lstm":
+        ms["bwd_call"] = ms["bwd"]
+        ms.update(lstm_backward_times(cell, xs, bargs, ghs))
     torch.backends.cudnn.allow_tf32 = False
     lib = cudnn_module(kind, cell)
     x = xs.clone().requires_grad_(True)
@@ -834,12 +909,45 @@ def rnn_kernel_times(kind, B, L, C, H):
         g.numel() for g in grads)
     bounds = {"fwd": bound(4 * (n_in + n_fwd_out), prod),
               "bwd": bound(4 * n_bwd, 3 * prod)}
+    if kind == "lstm":
+        # the weight gradient: hs and dgi read, dW_hh and db_hh written; a
+        # [H, L B] x [L B, 4H] product
+        bounds["wgrad"] = bound(4 * (L * B * 5 * H + H * 4 * H + 4 * H),
+                                2 * L * B * H * 4 * H)
     print(f"{kind.upper()} pair at B={B} L={L} H={H}: forward "
           f"{prod / 1e9:.4f} GFLOP, bound {bounds['fwd'][0]:.5f} ms "
           f"({bounds['fwd'][1]}), backward bound {bounds['bwd'][0]:.5f} ms "
           f"({bounds['bwd'][1]}); " + ", ".join(
               f"{k} {v:.4f} ms" for k, v in ms.items()), flush=True)
     return ms, bounds
+
+
+def lstm_backward_times(cell, xs, bargs, ghs):
+    """The LSTM backward's two kernels timed apart (the recurrence, and the
+    weight gradient with its plain version and torch.matmul of dW_hh's
+    product alone), "bwd" replaced by their sum ("bwd_call" keeps the
+    wrapper's time, which adds the sums of the split partials); and
+    fused_lstm_scan forward + backward, the input projection included,
+    which is what cuDNN's "lib_fwd_bwd" computes."""
+    from snsde_torch.kernels import fused_rnn as fr
+
+    hs, H = bargs["hs"], bargs["hs"].shape[-1]
+    dgi = fr.fused_lstm_backward_recurrence(**bargs)
+    ms = {"bwd_recurrence": timed(
+              lambda: fr.fused_lstm_backward_recurrence(**bargs)),
+          "bwd_wgrad": timed(lambda: fr.fused_lstm_weight_grads(hs, dgi)),
+          "wgrad_plain": timed(
+              lambda: fr.fused_lstm_weight_grads_reference(hs, dgi))}
+    hprev, d1 = hs[:-1].reshape(-1, H), dgi[1:].reshape(-1, 4 * H)
+    ms["wgrad_lib"] = timed(lambda: torch.matmul(hprev.T, d1))
+    x = xs.clone().requires_grad_(True)
+    wrt = [x, cell.w_ih, cell.b_ih, cell.w_hh, cell.b_hh]
+    ms["scan_fwd_bwd"] = timed(lambda: torch.autograd.grad(
+        fr.fused_lstm_scan(cell, x), wrt, ghs))
+    # the kernels line's LSTM backward: the recurrence and the weight
+    # gradient, each timed alone, summed
+    ms["bwd"] = ms["bwd_recurrence"] + ms["bwd_wgrad"]
+    return ms
 
 
 def rnn_step_fns(name):
@@ -1205,6 +1313,69 @@ def ab_steps(parent: str, pairs: int = 16, reps: int = 100) -> int:
     return 0
 
 
+_AB_LSTM_CHILD = """
+import json, sys
+sys.path.insert(0, {root!r})
+import chip_smoke as c
+from snsde_torch.kernels import fused_rnn as fr
+out = {{}}
+for name, (B, L, C, H) in {shapes!r}.items():
+    _, _, inp, ghs = c.rnn_kernel_inputs("lstm", B, L, C, H)
+    hs, cs = fr.fused_lstm_forward(**inp)
+    out[name + " fwd"] = c.timed(lambda: fr.fused_lstm_forward(**inp),
+                                 reps={reps})
+    out[name + " bwd"] = c.timed(lambda: fr.fused_lstm_backward(
+        hs=hs, cs=cs, ghs=ghs, **inp), reps={reps})
+print("AB", json.dumps(out), flush=True)
+"""
+
+
+def ab_lstm(parent: str, pairs: int = 4, reps: int = 30) -> int:
+    """A/B of the LSTM kernels between a parent checkout (the directory
+    `parent`) and this one:
+
+        python3 chip_smoke.py --ab-lstm PARENT_DIR [PAIRS [REPS]]
+
+    Each of `pairs` rounds runs one process per tree, in the order parent,
+    change, then change, parent; each times `fused_lstm_forward` and
+    `fused_lstm_backward` (the whole wrapper: the backward kernel or
+    kernels and the sums of their partials) with that tree's own package,
+    at the sweep's shape and the bench shapes (`timed`, median of `reps`).
+    Prints every process's medians, then per shape and tree the median
+    over processes and the rounds in which the change was faster."""
+    import os
+
+    shapes = {"sweep": (RNN_SWEEP["B"], RNN_SWEEP["L"], RNN_SWEEP["C"],
+                        RNN_SWEEP["H"])}
+    for name, sh in RNN_BENCH.items():
+        if sh["kind"] == "lstm":
+            shapes[f"bench H={sh['H']}"] = (sh["B"], sh["L"], sh["C"],
+                                            sh["H"])
+    trees = {"parent": os.path.abspath(parent),
+             "change": os.path.dirname(os.path.abspath(__file__))}
+    got = {t: [] for t in trees}
+    for i in range(pairs):
+        for tree in (("parent", "change") if i % 2 == 0
+                     else ("change", "parent")):
+            code = _AB_LSTM_CHILD.format(root=trees[tree], shapes=shapes,
+                                         reps=reps)
+            out = subprocess.run([sys.executable, "-c", code],
+                                 cwd=trees[tree], capture_output=True,
+                                 text=True, timeout=600, check=True).stdout
+            ms = json.loads(out.split("AB ", 1)[1])
+            got[tree].append(ms)
+            print(f"AB-LSTM round {i} {tree}: " + ", ".join(
+                f"{k} {v:.4f} ms" for k, v in ms.items()), flush=True)
+    for key in got["change"][0]:
+        per = {t: [m[key] for m in got[t]] for t in trees}
+        faster = sum(c < p for c, p in zip(per["change"], per["parent"]))
+        med = {t: statistics.median(v) for t, v in per.items()}
+        print(f"AB-LSTM {key}: parent median {med['parent']:.4f} ms, change "
+              f"{med['change']:.4f} ms, change faster in {faster} of {pairs} "
+              f"rounds")
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1246,6 +1417,12 @@ def main() -> int:
     for kind in ("gru", "lstm"):
         compare_rnn(kind, 16, 20, 6, 512, dec=kind == "gru")
         compare_rnn(kind, 100, 30, 6, 32, dec=kind == "gru")
+    for H in LSTM_PLAN_H:
+        compare_rnn("lstm", 1024, 72, 6, H)
+    lstm_plans()
+    err["lstm_wgrad"] = compare_lstm_wgrad(rs["B"], rs["L"], rs["C"],
+                                           rs["H"])
+    compare_lstm_wgrad(1024, 72, 6, 128)
     for shape in RNN_BENCH.values():
         compare_rnn_cudnn(**shape)
     with tempfile.TemporaryDirectory() as out_dir:
@@ -1283,6 +1460,8 @@ def main() -> int:
             ("gru", "fused_gru", (312, 396), "fused_rnn"),
             ("lstm", "fused_lstm", (837, 934), "fused_rnn")):
         for part, line in zip(("fwd", "bwd"), lines):
+            # the LSTM backward's "ms" is its two kernels' times summed:
+            # the recurrence and the weight gradient (lstm_backward_times)
             kernels.append({
                 "name": f"{pre}_{'forward' if part == 'fwd' else 'backward'}",
                 "route": "cuda",
@@ -1297,6 +1476,17 @@ def main() -> int:
                 # PyTorch call computes a fused SDE or CDE solve
                 "library_ms": ms[key].get(f"lib_{part}"),
             })
+    kernels.append({
+        "name": "fused_lstm_weight_grads", "route": "cuda",
+        "source": "snsde_torch/csrc/fused_rnn.cu",
+        "replaces": "snsde/kernels/fused_rnn.py:934",
+        "launches": launches["lstm"]["lstm_wgrad"],
+        "max_abs_err": err["lstm_wgrad"], "ms": ms["lstm"]["bwd_wgrad"],
+        "plain_ms": ms["lstm"]["wgrad_plain"],
+        "bound_ms": bounds["lstm"]["wgrad"][0],
+        "bound_by": bounds["lstm"]["wgrad"][1],
+        # torch.matmul of dW_hh's product alone (db_hh not included)
+        "library_ms": ms["lstm"]["wgrad_lib"]})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -1308,4 +1498,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--ab-steps"]:
         sys.exit(ab_steps(sys.argv[2], *map(int, sys.argv[3:5])))
+    if sys.argv[1:2] == ["--ab-lstm"]:
+        sys.exit(ab_lstm(sys.argv[2], *map(int, sys.argv[3:5])))
     sys.exit(main())

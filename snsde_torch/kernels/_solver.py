@@ -89,16 +89,22 @@ class SolverLib:
     `shape_names`, then 1 for the backward), <name>_max_smem,
     <name>_rows_per_block and <name>_error_string. `label` names the pair
     in errors. The SDE pairs take (M, B, H, HH, n_inner, mult_y,
-    geometric) and size their shared memory by (H, HH, n_inner)."""
+    geometric) and size their shared memory by (H, HH, n_inner). A library
+    may have further launch entries of the same shape (`launches`: suffix
+    -> number of tensor pointers) and entries that take ints and return an
+    int (`int_fns`: suffix -> number of ints; `call`)."""
 
     def __init__(self, name: str, label: str, n_fwd_ptrs: int,
                  n_bwd_ptrs: int,
                  int_names=("M", "B", "H", "HH", "n_inner", "mult_y",
                             "geometric"),
-                 shape_names=("H", "HH", "n_inner"), source: str = ""):
+                 shape_names=("H", "HH", "n_inner"), source: str = "",
+                 launches=None, int_fns=None):
         self.name, self.label = name, label
         self.source = source or name
-        self._n_ptrs = {"fwd": n_fwd_ptrs, "bwd": n_bwd_ptrs}
+        self._n_ptrs = {"fwd": n_fwd_ptrs, "bwd": n_bwd_ptrs,
+                        **(launches or {})}
+        self._int_fns = dict(int_fns or {})
         self.int_names, self.shape_names = tuple(int_names), tuple(shape_names)
 
     @functools.cached_property
@@ -117,6 +123,9 @@ class SolverLib:
         for suffix in ("max_smem", "rows_per_block"):
             fn(suffix).argtypes = []
             fn(suffix).restype = _I
+        for suffix, n in self._int_fns.items():
+            fn(suffix).argtypes = [_I] * n
+            fn(suffix).restype = _I
         return lib
 
     def _fn(self, suffix: str):
@@ -124,6 +133,10 @@ class SolverLib:
 
     def rows_per_block(self) -> int:
         return self._fn("rows_per_block")()
+
+    def call(self, suffix: str, *ints: int) -> int:
+        """<name>_<suffix>(*ints) of an entry named in `int_fns`."""
+        return self._fn(suffix)(*(int(v) for v in ints))
 
     def stream(self, y0, shape, backward: bool) -> int:
         """The current CUDA stream's handle, after checking that y0 is on
@@ -146,15 +159,15 @@ class SolverLib:
         return torch.cuda.current_stream(y0.device).cuda_stream
 
     def launch(self, which: str, tensors, ints, stream: int) -> None:
-        """Run <name>_<which> ('fwd' or 'bwd') on the tensors' pointers and
-        the ints `int_names`; RuntimeError with the CUDA error if the launch
-        fails."""
+        """Run <name>_<which> ('fwd', 'bwd' or an entry of `launches`) on
+        the tensors' pointers and the ints `int_names`; RuntimeError with
+        the CUDA error if the launch fails."""
         err = self._fn(which)(*(None if t is None else t.data_ptr()
                                 for t in tensors),
                               *(int(v) for v in ints), stream)
         if err != 0:
             msg = self._fn("error_string")(err).decode()
-            part = "forward" if which == "fwd" else "backward"
+            part = {"fwd": "forward", "bwd": "backward"}.get(which, which)
             raise RuntimeError(f"{self.label} {part} kernel launch failed: "
                                f"{msg}")
 

@@ -1,6 +1,7 @@
-"""Fused GRU and LSTM recurrences: four hand-written CUDA kernels for Hopper
-(snsde_torch/csrc/fused_rnn.cu), a pair behind each of two
-`torch.autograd.Function`s.
+"""Fused GRU and LSTM recurrences: hand-written CUDA kernels for Hopper
+(snsde_torch/csrc/fused_rnn.cu), a forward and a backward behind each of two
+`torch.autograd.Function`s; the LSTM's backward is two kernels, the reverse
+recurrence and the weight-gradient product after it.
 
 Replaces the Pallas TPU kernels of snsde/kernels/fused_rnn.py — the GRU's
 `_fused_gru` (pallas_call at :312) and `_fused_gru_bwd` (:396), the LSTM's
@@ -41,13 +42,16 @@ __all__ = ["fused_gru_scan", "fused_lstm_scan", "supports_fused_gru",
            "fused_gru_forward_reference", "fused_gru_backward_reference",
            "fused_lstm_forward", "fused_lstm_backward",
            "fused_lstm_forward_reference", "fused_lstm_backward_reference",
-           "FusedGRUGrads", "FusedLSTMGrads", "MAX_H"]
+           "fused_lstm_backward_recurrence", "fused_lstm_weight_grads",
+           "fused_lstm_weight_grads_reference",
+           "fused_lstm_plan", "FusedGRUGrads", "FusedLSTMGrads", "MAX_H"]
 
 # launches of each CUDA kernel since the count was last set to 0
 GRU_FWD_LAUNCHES = 0
 GRU_BWD_LAUNCHES = 0
 LSTM_FWD_LAUNCHES = 0
 LSTM_BWD_LAUNCHES = 0
+LSTM_WGRAD_LAUNCHES = 0
 
 # the JAX package's width limit (snsde/kernels/fused_rnn.py:46); the CUDA
 # kernels take every H up to it
@@ -83,7 +87,7 @@ class FusedGRUGrads(NamedTuple):
 
 
 class FusedLSTMGrads(NamedTuple):
-    """Cotangents of the fused LSTM's inputs (per-block partials summed)."""
+    """Cotangents of the fused LSTM's inputs (split partials summed)."""
     dgi: torch.Tensor                    # [L, B, 4H]
     dwhh: torch.Tensor                   # [H, 4H]
     dbhh: torch.Tensor                   # [4H]
@@ -173,12 +177,23 @@ def fused_lstm_forward_reference(gi, whh, bhh, save_cs: bool = True):
     return torch.stack(hs), (torch.stack(cs) if save_cs else None)
 
 
+def fused_lstm_weight_grads_reference(hs, dgi):
+    """(dW_hh [H, 4H], db_hh [4H]) from the hidden trajectory hs [L, B, H]
+    and the gate cotangents dgi [L, B, 4H]: the gate pre-activation is
+    gi + h W_hh + b_hh, so W_hh's cotangent is dgi itself, and dW_hh =
+    sum_t h_{t-1}^T dgi_t (h_{-1} = 0), db_hh = sum dgi. One product over
+    (step, row), as the weight-gradient kernel computes it."""
+    H, G = hs.shape[-1], dgi.shape[-1]
+    dwhh = hs[:-1].reshape(-1, H).T @ dgi[1:].reshape(-1, G)
+    return dwhh, dgi.reshape(-1, G).sum(0)
+
+
 def fused_lstm_backward_reference(gi, hs, cs, ghs, whh,
                                   bhh) -> FusedLSTMGrads:
-    """Eager reverse loop mirroring the backward kernel (and the JAX
+    """Eager reverse loop mirroring the backward kernels (and the JAX
     `_lstm_bwd_kernel`): recompute the gates from (h, c) before each step,
-    then back through the cell and W_hh."""
-    dwhh, dbhh = torch.zeros_like(whh), torch.zeros_like(bhh)
+    then back through the cell and W_hh to dgi; then the weight gradients
+    from hs and dgi (fused_lstm_weight_grads_reference)."""
     dgi = torch.empty_like(gi)
     zero = torch.zeros_like(hs[0])
     gh, gc = zero, zero
@@ -192,11 +207,9 @@ def fused_lstm_backward_reference(gi, hs, cs, ghs, whh,
                             dc * i * (1.0 - gg * gg),
                             gh * tc * o * (1.0 - o)], dim=-1)
         dgi[t] = dgates
-        dwhh += h.T @ dgates
-        dbhh += dgates.sum(0)
         gh = dgates @ whh.T
         gc = dc * f
-    return FusedLSTMGrads(dgi, dwhh, dbhh)
+    return FusedLSTMGrads(dgi, *fused_lstm_weight_grads_reference(hs, dgi))
 
 
 # ---------------------------------------------------------------------------
@@ -206,9 +219,12 @@ def fused_lstm_backward_reference(gi, hs, cs, ghs, whh,
 # built and loaded at first launch; one library, csrc/fused_rnn.cu
 _GRU = SolverLib("fused_gru", "fused GRU", 6, 12, int_names=("L", "B", "H"),
                  shape_names=("H",), source="fused_rnn")
-_LSTM = SolverLib("fused_lstm", "fused LSTM", 5, 9,
-                  int_names=("L", "B", "H"), shape_names=("H",),
-                  source="fused_rnn")
+_LSTM = SolverLib("fused_lstm", "fused LSTM", 5, 7,
+                  int_names=("L", "B", "H"), shape_names=("H", "B"),
+                  source="fused_rnn", launches={"wgrad": 4},
+                  int_fns={"plan": 4, "wgrad_splits": 3})
+_PLAN_FIELDS = ("cluster", "rows", "w_smem", "rows_per_thread",
+                "active_clusters", "smem_bytes")
 
 
 def _dims(label, gi, whh, gates):
@@ -295,7 +311,7 @@ def fused_lstm_forward(gi, whh, bhh, save_cs: bool = True):
     if gi.device.type == "cpu":
         return fused_lstm_forward_reference(gi, whh, bhh, save_cs)
     L, B, H = check_lstm_inputs(gi, whh, bhh)
-    stream = _LSTM.stream(gi, (H,), backward=False)
+    stream = _LSTM.stream(gi, (H, B), backward=False)
     hs = _empty(L, B, H, device=gi.device)
     cs = _empty(L, B, H, device=gi.device) if save_cs else None
     _LSTM.launch("fwd", (gi, whh, bhh, hs, cs), (L, B, H), stream)
@@ -304,23 +320,59 @@ def fused_lstm_forward(gi, whh, bhh, save_cs: bool = True):
 
 
 def fused_lstm_backward(gi, hs, cs, ghs, whh, bhh) -> FusedLSTMGrads:
-    """Cotangents of the LSTM's inputs given ghs = dL/dhs: the CUDA backward
-    kernel for CUDA tensors (per-block partials summed here), the plain
-    version for CPU tensors."""
-    global LSTM_BWD_LAUNCHES
+    """Cotangents of the LSTM's inputs given ghs = dL/dhs: for CUDA tensors
+    the reverse-recurrence kernel (dgi), then the weight-gradient kernel
+    (fused_lstm_weight_grads); the plain version for CPU tensors."""
     if gi.device.type == "cpu":
         return fused_lstm_backward_reference(gi, hs, cs, ghs, whh, bhh)
+    dgi = fused_lstm_backward_recurrence(gi, hs, cs, ghs, whh, bhh)
+    return FusedLSTMGrads(dgi, *fused_lstm_weight_grads(hs, dgi))
+
+
+def fused_lstm_backward_recurrence(gi, hs, cs, ghs, whh, bhh):
+    """dgi [L, B, 4H], the reverse recurrence alone: the CUDA kernel for
+    CUDA tensors, the plain reverse loop for CPU tensors."""
+    global LSTM_BWD_LAUNCHES
+    if gi.device.type == "cpu":
+        return fused_lstm_backward_reference(gi, hs, cs, ghs, whh, bhh).dgi
     L, B, H = check_lstm_inputs(gi, whh, bhh, hs, cs, ghs)
-    stream = _LSTM.stream(gi, (H,), backward=True)
-    nb = -(-B // _LSTM.rows_per_block())
-    dev = gi.device
-    dgi = _empty(L, B, 4 * H, device=dev)
-    p_whh, p_bhh = _empty(nb, H, 4 * H, device=dev), _empty(nb, 4 * H,
-                                                             device=dev)
-    _LSTM.launch("bwd", (gi, hs, cs, ghs, whh, bhh, dgi, p_whh, p_bhh),
-                 (L, B, H), stream)
+    stream = _LSTM.stream(gi, (H, B), backward=True)
+    dgi = _empty(L, B, 4 * H, device=gi.device)
+    _LSTM.launch("bwd", (gi, hs, cs, ghs, whh, bhh, dgi), (L, B, H), stream)
     LSTM_BWD_LAUNCHES += 1
-    return FusedLSTMGrads(dgi, p_whh.sum(0), p_bhh.sum(0))
+    return dgi
+
+
+def fused_lstm_weight_grads(hs, dgi):
+    """(dW_hh, db_hh) from hs [L, B, H] and dgi [L, B, 4H]: the CUDA
+    weight-gradient kernel for CUDA tensors (its split partials summed
+    here, in a fixed order), the plain version for CPU tensors."""
+    global LSTM_WGRAD_LAUNCHES
+    if hs.device.type == "cpu":
+        return fused_lstm_weight_grads_reference(hs, dgi)
+    if hs.ndim != 3 or dgi.shape[:2] != hs.shape[:2]:
+        raise ValueError("fused LSTM weight-gradient kernel: hs [L, B, H] "
+                         "and dgi [L, B, 4H] expected")
+    L, B, H = hs.shape
+    check_tensors("fused LSTM", {"hs": (L, B, H), "dgi": (L, B, 4 * H)},
+                  {"hs": hs, "dgi": dgi}, hs.device)
+    stream = _LSTM.stream(hs, (H, B), backward=True)
+    S = _LSTM.call("wgrad_splits", L, B, H)
+    p_whh = _empty(S, H, 4 * H, device=hs.device)
+    p_bhh = _empty(S, 4 * H, device=hs.device)
+    _LSTM.launch("wgrad", (hs, dgi, p_whh, p_bhh), (L, B, H), stream)
+    LSTM_WGRAD_LAUNCHES += 1
+    return p_whh.sum(0), p_bhh.sum(0)
+
+
+def fused_lstm_plan(H: int, B: int, backward: bool) -> dict:
+    """The CUDA library's plan of an LSTM launch at (H, B): CTAs per
+    cluster, batch rows per cluster, whether the W_hh slices sit in shared
+    memory, rows per thread, cudaOccupancyMaxActiveClusters (a negative
+    CUDA error when the plan cannot be scheduled) and the shared bytes per
+    CTA. Needs the card."""
+    return {name: _LSTM.call("plan", H, B, int(backward), i)
+            for i, name in enumerate(_PLAN_FIELDS)}
 
 
 class FusedGRU(torch.autograd.Function):

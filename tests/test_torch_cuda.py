@@ -42,13 +42,17 @@ Both cases also pass that float64 check, and print its readings, largest
 and root-mean-square (run pytest with -s to see them).
 
 The GRU and LSTM pairs run at init-scale weights over H = 5 ... 512 (the
-LSTM's W_hh from H = 128 on and the GRU's from H = 256 on are read from
-device memory, and from H = 128 on the gradient partials stay there: the
-route for weights that do not fit a block's shared memory), a ragged
-batch, with and
+GRU's W_hh from H = 256 on is read from device memory, and from H = 128 on
+its gradient partials stay there: the route for weights that do not fit a
+block's shared memory), a ragged batch, with and
 without the GRU's decay stream, under the same rules: hs within 5e-6 of
 its largest entry, every cotangent within 1e-5, the float64 rms rule on
-every output. The plain-mode pairs are also held against cuDNN
+every output. The LSTM pair splits W_hh over a thread-block cluster: it
+also runs at every kind of its plan (one CTA; clusters of 2, 4 and 8
+CTAs with the W_hh slices in shared memory, units split evenly and
+raggedly; the slices in device memory) at two batches, in both scan
+directions and as the inference primal, and its backward is
+bit-reproducible. The plain-mode pairs are also held against cuDNN
 (`torch.nn.GRU`/`torch.nn.LSTM` with TF32 off) on the same weights.
 """
 
@@ -75,6 +79,11 @@ CDE_CASES = [("euler", "relu", 1, 6, 49), ("midpoint", "tanh", 0, 6, 49),
              ("rk4", "tanh", 0, 6, 49), ("rk4", "relu", 1, 35, 32)]
 SCALES = ["init", "wide"]
 RNN_H = [5, 8, 16, 32, 128, 512]
+# LSTM widths at each kind of plan (at B = 13 and 100): one CTA (16, 64,
+# 96), clusters of 2 (128), 4 (200) and 8 CTAs (256; 250 leaves the last
+# CTA 26 units of 32) with the W_hh slices in shared memory, and the slices
+# in device memory (512)
+LSTM_PLAN_H = [16, 64, 96, 128, 200, 250, 256, 512]
 F64_FACTOR = 4.0
 F64_FLOOR = 1e-5
 TOL_YS = 5e-6           # chip_smoke.TOL_YS
@@ -441,3 +450,114 @@ def test_lstm_forward_without_grad_writes_no_cell_states():
     b = fr.fused_lstm_scan(cell, xs)
     assert fr.LSTM_FWD_LAUNCHES == before + 2
     assert torch.equal(a, b.detach())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [13, 100])
+@pytest.mark.parametrize("H", LSTM_PLAN_H)
+def test_lstm_cluster_plans_match_plain_versions(H, B):
+    """The LSTM pair against its plain versions at every kind of plan (the
+    tolerances of _check_rnn)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    plan = fr.fused_lstm_plan(H, B, backward=True)
+    print(f"H={H} B={B} backward plan {plan}")
+    assert plan["active_clusters"] >= 1
+    inputs, ghs = _rnn_inputs("lstm", H, B=B, L=9 if H < 512 else 5)
+    _check_rnn("lstm", inputs, ghs)
+
+
+@pytest.mark.cuda
+def test_lstm_plan_splits_w_hh_as_it_must():
+    """W_hh in one CTA up to H = 96; split over 2 CTAs at H = 128 (its
+    256 KB exceed a CTA's shared memory) and over 8 at H = 256, at the
+    bench batch; read from device memory at H = 512."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    for backward in (False, True):
+        got = {H: fr.fused_lstm_plan(H, 1024, backward)
+               for H in (32, 64, 96, 128, 256, 512)}
+        assert [got[H]["cluster"] for H in got] == [1, 1, 1, 2, 8, 8]
+        assert [got[H]["w_smem"] for H in got] == [1, 1, 1, 1, 1, 0]
+        assert got[128]["rows"] == 16
+        assert all(p["active_clusters"] >= 1 for p in got.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H", [128, 250])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_lstm_scan_at_cluster_widths_matches_the_eager_loop(H, reverse):
+    """fused_lstm_scan through the cluster kernels against the eager loop
+    over the cell, both directions: hs and every gradient."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    rng = np.random.default_rng(6)
+    L, B, C = 10, 37, 6
+    cell = LSTMCell(C, H, generator=torch.Generator().manual_seed(0)).cuda()
+    xs = torch.as_tensor(rng.normal(size=(L, B, C)).astype(np.float32),
+                         device="cuda")
+    w = torch.as_tensor(rng.normal(size=(L, B, H)).astype(np.float32) / B,
+                        device="cuda")
+    outs = []
+    for f in (lambda x: fr.fused_lstm_scan(cell, x, reverse=reverse),
+              lambda x: scan_cell(cell, x, reverse)):
+        cell.zero_grad()
+        x = xs.clone().requires_grad_(True)
+        hs = f(x)
+        (hs * w).sum().backward()
+        outs.append([hs.detach(), x.grad] + [p.grad for p in
+                                             cell.parameters()])
+    for a, b in zip(*outs):
+        rel = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+        assert rel < TOL_GRAD, rel
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H", [128, 512])
+def test_lstm_inference_primal_at_cluster_widths(H):
+    """Without a cell-state stream the cluster forward gives the same hs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    inputs, _ = _rnn_inputs("lstm", H, B=100)
+    hs, cs = fr.fused_lstm_forward(**inputs, save_cs=True)
+    hs2, cs2 = fr.fused_lstm_forward(**inputs, save_cs=False)
+    assert cs is not None and cs2 is None
+    assert torch.equal(hs, hs2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H", [16, 128, 250, 512])
+def test_lstm_backward_is_bit_reproducible(H):
+    """Two backward calls on the same inputs give bitwise-equal outputs:
+    no atomics, the cluster's partials and the weight gradient's split
+    partials summed in a fixed order."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    inputs, ghs = _rnn_inputs("lstm", H, B=100)
+    hs, cs = fr.fused_lstm_forward(**inputs)
+    a = fr.fused_lstm_backward(hs=hs, cs=cs, ghs=ghs, **inputs)
+    b = fr.fused_lstm_backward(hs=hs, cs=cs, ghs=ghs, **inputs)
+    torch.cuda.synchronize()
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_lstm_weight_grad_kernel_matches_its_plain_version():
+    """The weight-gradient kernel alone, at a width that is not a multiple
+    of 4 (its 4-byte copies) and one that is, against the plain product:
+    within TOL_GRAD of the largest entry."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    rng = np.random.default_rng(7)
+    for L, B, H in ((13, 37, 5), (72, 1024, 128), (3, 8, 250)):
+        t = lambda *s: torch.as_tensor(rng.normal(size=s).astype(np.float32),
+                                       device="cuda")
+        hs, dgi = t(L, B, H), t(L, B, 4 * H)
+        before = fr.LSTM_WGRAD_LAUNCHES
+        k = fr.fused_lstm_weight_grads(hs, dgi)
+        p = fr.fused_lstm_weight_grads_reference(hs, dgi)
+        assert fr.LSTM_WGRAD_LAUNCHES == before + 1
+        for a, b in zip(k, p):
+            rel = float((a - b).abs().max()) / float(b.abs().max())
+            assert rel < TOL_GRAD, (L, B, H, rel)

@@ -13,7 +13,9 @@ JAX kernel's valid-flag padding of the sequence to its unroll of 4.
 
 Tolerances: hs within 2e-6 absolute (both sides run the same recurrence in
 float32; the sums differ in order only); dgi, dW_hh, db_hh, dh0 and dhdec
-each within 1e-5 of its largest entry.
+each within 1e-5 of its largest entry. The LSTM's weight gradient, now a
+product after the reverse loop, is held to the loop's old step-by-step
+accumulation in float64 to 1e-12.
 """
 
 from types import SimpleNamespace
@@ -161,6 +163,50 @@ def test_lstm_backward_reference_is_autograd_of_forward():
                                    atol=1e-12)
 
 
+def _in_loop_weight_grads(hs, dgi):
+    """dW_hh and db_hh as the reverse loop accumulated them step by step
+    before the weight gradient left it: dW_hh += h_{t-1}^T dgi_t and
+    db_hh += the batch sum of dgi_t, from the last step down, h_{-1} = 0."""
+    L, B, H = hs.shape
+    dwhh = torch.zeros(H, dgi.shape[-1], dtype=hs.dtype)
+    dbhh = torch.zeros(dgi.shape[-1], dtype=hs.dtype)
+    for t in range(L - 1, -1, -1):
+        h = torch.zeros(B, H, dtype=hs.dtype) if t == 0 else hs[t - 1]
+        dwhh += h.T @ dgi[t]
+        dbhh += dgi[t].sum(0)
+    return dwhh, dbhh
+
+
+@pytest.mark.parametrize("batch", [8, 13])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("L", [1, 7])
+def test_lstm_weight_grads_reference_equals_in_loop_accumulation(L, reverse,
+                                                                 batch):
+    """In float64 the weight-gradient function (one product over (step,
+    row) after the reverse loop) equals the sums the loop accumulated step
+    by step, to 1e-12 (the order of summation only): one step and seven,
+    either direction (a reverse scan hands the kernels flipped streams),
+    and a batch that leaves an 8-row tile ragged (13). The plain backward
+    returns it, and on CPU tensors the wrapper is the plain version."""
+    inp, ghs = _inputs("lstm", L, seed=4)
+    t = _f64(inp)
+    t["gi"] = torch.as_tensor(
+        np.random.default_rng(5).normal(size=(L, batch, 4 * H)))
+    if reverse:
+        t["gi"] = torch.flip(t["gi"], (0,))
+    g = torch.as_tensor(np.random.default_rng(6).normal(size=(L, batch, H)))
+    hs, cs = fr.fused_lstm_forward_reference(**t)
+    grads = fr.fused_lstm_backward_reference(hs=hs, cs=cs, ghs=g, **t)
+    dwhh, dbhh = _in_loop_weight_grads(hs, grads.dgi)
+    torch.testing.assert_close(grads.dwhh, dwhh, rtol=1e-12, atol=1e-12)
+    torch.testing.assert_close(grads.dbhh, dbhh, rtol=1e-12, atol=1e-12)
+    k = fr.fused_lstm_weight_grads(hs, grads.dgi)
+    assert torch.equal(k[0], grads.dwhh) and torch.equal(k[1], grads.dbhh)
+    assert torch.equal(
+        fr.fused_lstm_backward_recurrence(hs=hs, cs=cs, ghs=g, **t),
+        grads.dgi)
+
+
 def test_lstm_inference_primal_skips_the_cell_states(monkeypatch):
     """With grad mode off, or with nothing that needs a gradient, the LSTM
     scan runs the forward alone with save_cs=False (the JAX
@@ -261,6 +307,8 @@ def test_wrappers_raise_on_a_device_without_the_kernels(tmp_path,
         fr.fused_lstm_forward(**lmeta)
     with pytest.raises(ValueError, match="CUDA tensors"):
         fr.fused_lstm_backward(hs=g, cs=g, ghs=g, **lmeta)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fr.fused_lstm_weight_grads(g, lmeta["gi"])
     from snsde_torch.kernels import _build
     from snsde_torch.kernels._solver import SolverLib
 
