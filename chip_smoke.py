@@ -23,15 +23,21 @@ LSTM kernels). Phases, each of which raises on failure:
      H=HH=32, FinalTanh with one inner layer, C=6 and C=35), at the sweep's
      shape (B=64, L=60, C=6, H=16, no inner layer), and at B=128 for euler,
      midpoint and heun, SingleHiddenLayer, and FinalTanh with zero and two
-     inner layers; the GRU pair (with and without the decay stream) and the
-     LSTM pair at the sweep's shape (B=64, L=60, H=16, and H=8 for the
-     bilstm's directions), at the JAX package's recurrent bench shapes
-     (tools/bench_cde.py:159-177: B=1024, L=72, C=6, H=32, 64, 128), the
-     LSTM pair at its plan's boundaries (H=96: one CTA; 200: a cluster of
-     4; 256: of 8; each plan printed), at H=512 with B=16 (weights, and
-     the GRU's gradient partials, in device memory) and at a ragged B=100,
-     and the LSTM's weight-gradient kernel alone at the sweep's shape and
-     at H=128: the trajectory and every backward output, within
+     inner layers; the EM, SRK and CDE pairs at H=HH=128 and 256 with one
+     inner layer (B=128, L=24: weights and accumulators past a block's
+     shared memory, each placement printed); the GRU pair (with and
+     without the decay stream) and the LSTM pair at the sweep's shape
+     (B=64, L=60, H=16, and H=8 for the bilstm's directions), at the JAX
+     package's recurrent bench shapes (tools/bench_cde.py:159-177:
+     B=1024, L=72, C=6, H=32, 64, 128), both pairs at their plans'
+     boundaries (the LSTM at H=96: one CTA; 200: a cluster of 4; 256: of
+     8; the GRU at H=96, 128, 200, 256, with and without its decay; each
+     plan printed), at H=512 with B=16 (the W_hh slices in device memory)
+     and at a ragged B=100; fused_gru_scan against the eager loop in both
+     directions, with and without the decay, at the sweep's shape and at
+     H=128; and the weight-gradient kernel alone (the GRU's, with and
+     without the decay, and the LSTM's) at the sweep's shape and at
+     H=128: the trajectory and every backward output, within
      stated tolerances of the float32 plain version, and no further from
      a float64 run of the plain version than a small multiple of the
      float32 plain version's own error; and the GRU and LSTM kernels at
@@ -53,15 +59,18 @@ LSTM kernels). Phases, each of which raises on failure:
      model a run with the counts set to 0 before each, each of which must
      launch both kernels of its pair, write a record with an accuracy and
      no error, and whose trained recurrence through the kernels must match
-     its eager loop on a small batch;
+     its eager loop on a small batch; and the sepsis harness at hidden
+     128 (the interpolation flagship encoder's width) for one epoch, which
+     must launch both EM kernels with finite losses;
   5. times: the natural cubic fit of the forecasting windows on the host
      by each of its two paths (host clock, median of 3); each kernel and
      its plain version (the CDE pair at the sweep's shape and at both
      bench shapes; the GRU and LSTM pairs, and cuDNN's forward, backward
-     and both, at the sweep's shape and the bench shapes; the LSTM
-     backward's recurrence and weight-gradient kernels apart, and
-     fused_lstm_scan forward + backward, projection included, beside
-     cuDNN's forward + backward), and one full
+     and both, at the sweep's shape and the bench shapes; each backward's
+     recurrence and weight-gradient kernels apart, and fused_*_scan
+     forward + backward, projection included, beside cuDNN's forward +
+     backward), the wide route (the EM and SRK pairs at the sepsis shape
+     and the CDE pair at uea_rk4, H=HH=128 and 256), and one full
      training step (forward + backward + Adam) of each path through the
      kernels and through the eager solver (CUDA events, median of 30
      after warm-up; the CDE step is the uea_rk4 classifier at B=1024, the
@@ -74,10 +83,13 @@ result, without a CUDA device or outside the repository.
 
     python3 chip_smoke.py --ab-steps PARENT_DIR [PAIRS [REPS]]
     python3 chip_smoke.py --ab-lstm PARENT_DIR [PAIRS [REPS]]
+    python3 chip_smoke.py --ab-gru PARENT_DIR [PAIRS [REPS]]
+    python3 chip_smoke.py --ab-kernels PARENT_DIR [PAIRS [REPS]]
 
 run none of the phases: they time the SDE paths' training steps
-(`ab_steps`), or the LSTM kernels at the sweep's and the bench shapes
-(`ab_lstm`), of a parent checkout against this one, in alternating
+(`ab_steps`), the LSTM or GRU kernels at the sweep's and the bench shapes
+(`ab_rnn`), or the EM, SRK and CDE kernels at the main paths' shapes
+(`ab_kernels`), of a parent checkout against this one, in alternating
 processes.
 """
 
@@ -117,6 +129,15 @@ RNN_BENCH = {f"{kind}{sfx}": dict(kind=kind, B=1024, L=72, C=6, H=h)
 # widths at the LSTM plan's boundaries (one CTA, clusters of 4 and 8), at
 # the bench batch and length
 LSTM_PLAN_H = (96, 200, 256)
+# and the GRU's (one CTA, clusters of 2, 4 and 8, W_hh in device memory)
+GRU_PLAN_H = (96, 128, 200, 256, 512)
+# the SDE and CDE pairs past a block's shared memory: H = HH, one inner
+# layer (the sepsis and CDE bench depth), at a cut batch and length
+WIDE_H = (128, 256)
+WIDE = dict(B=128, L=24)
+# the sepsis path at the interpolation flagship encoder's width
+# (RESULTS_interpolation_h128.json), one epoch
+SEPSIS_WIDE = dict(H=128, epochs=1)
 # Largest error of a trajectory against the float32 plain version, over
 # the plain trajectory's largest entry: at most TOL_YS for the SDE pairs
 # (and a trained SDE field's fused solve against the eager one); for the
@@ -362,11 +383,191 @@ def compare_cde(B, L, C, H, n_inner, method="rk4", field="final_tanh"):
                       fwd, flags, gys, ys_f64_factor=YS_F64_FACTOR)
 
 
-def main_config():
+def _placements(key, shape):
+    """(forward, backward) placements of an SDE or CDE launch at `shape`
+    (csrc/sde_common.cuh: 0 all in shared memory, 1 the accumulators in
+    device memory, 2 the weights too, 3-5 fewer rows a block)."""
+    lib = _kernel_modules()[key]._LIB
+    return [lib.placement(shape, b) for b in (False, True)]
+
+
+# the batch axis of each SDE and CDE pair's batch-indexed forward inputs,
+# by position, and of its batch-indexed cotangents, by name
+BATCH_AXES = {"em": {0: 0, 1: 1, 2: 1}, "srk": {0: 0, 1: 1, 2: 1, 3: 1, 4: 1},
+              "cde": {0: 0, 1: 1}}
+ROW_GRADS = {"em": {"dy0": 0, "dxh": 1},
+             "srk": {"dy0": 0, "dxh0": 1, "dxh1": 1},
+             "cde": {"dz0": 0, "ddx": 1}}
+
+
+class NearRelu:
+    """A relu for the plain versions' `relu=` argument that finds the
+    pre-activations float32 rounding may put on either side of 0: those
+    within `margin` times the largest |pre-activation| of their evaluation
+    (a sum of up to 256 products rounds to ~1e-7 of that scale). The
+    relu's derivative jumps at 0, so where the kernel and a plain version
+    round one to opposite sides, its row's cotangents differ by far more
+    than rounding. `found` holds, evaluation by evaluation, the (row,
+    unit) of each such pre-activation and its value over the scale; given
+    `at` (another NearRelu's `found`), the values at those entries
+    instead. With `flip` the near ones are taken on the other side of 0:
+    a negative z as -z, a positive one as 0 (the plain backwards read the
+    derivative from the output)."""
+
+    def __init__(self, margin=1e-7, flip=False, at=None):
+        self.margin, self.flip, self.at, self.found = margin, flip, at, []
+
+    def __call__(self, z):
+        a = z.abs()
+        scale = max(float(a.max()), 1e-300)
+        near = a < self.margin * scale
+        idx = (self.at[len(self.found)][0] if self.at is not None
+               else near.nonzero())
+        self.found.append((idx, z[idx[:, 0], idx[:, 1]] / scale))
+        h = torch.relu(z)
+        return torch.where(near, torch.where(z > 0, 0.0, -z), h) \
+            if self.flip else h
+
+    def rows(self):
+        """{row: [(evaluation, unit, pre-activation over its scale)]}."""
+        out = {}
+        for e, (idx, v) in enumerate(self.found):
+            for (r, u), x in zip(idx.tolist(), v.tolist()):
+                out.setdefault(r, []).append((e, u, x))
+        return out
+
+
+def check_near_rows(label, key, fwd, flags, gys, near, ys_f64_factor):
+    """The rows compare_wide sets aside (`near`: NearRelu.rows() of a
+    float64 run), each judged on the whole batch by its trajectory and
+    its batch-indexed cotangents (ROW_GRADS) from the kernel against two
+    float64 runs of the plain version: one that takes the near relus as
+    float64 does, one that takes them on the other side of 0 (NearRelu
+    flip). Each row must agree with one of the two: the trajectory within
+    check_pair's limit, each cotangent within TOL_GRAD, over the largest
+    entry of the batch. Prints for each row its near pre-activations in
+    float64 and in the float32 plain version, and the errors from both
+    runs."""
+    fwd_k, fwd_p, bwd_k, bwd_p = kernel_fns(key)
+    ys_p = fwd_p(*fwd, **flags)
+    probe32 = NearRelu(at=near.found)
+    fwd_p(*fwd, **flags, relu=probe32)
+    ys_k = fwd_k(*fwd, **flags)
+    g_k = bwd_k(fwd[0], ys_k, gys, *fwd[1:], **flags)
+    in64 = [t.double() for t in fwd]
+    refs = {}
+    for side, flip in (("as float64 rounds them", False),
+                       ("on the other side", True)):
+        ys64 = fwd_p(*in64, **flags, relu=NearRelu(flip=flip))
+        g64 = bwd_p(in64[0], ys64, gys.double(), *in64[1:], **flags,
+                    relu=NearRelu(flip=flip))
+        refs[side] = {"ys": (ys64, 1), **{n: (getattr(g64, n), ax)
+                                           for n, ax in ROW_GRADS[key].items()}}
+    outs = {"ys": ys_k, **{n: getattr(g_k, n) for n in ROW_GRADS[key]}}
+    ys64 = refs["as float64 rounds them"]["ys"][0]
+    tol = {"ys": max(TOL_YS, ys_f64_factor * _errs64(ys_p, ys64)[0]),
+           **{n: TOL_GRAD for n in ROW_GRADS[key]}}
+    z32 = probe32.rows()
+    for r, entries in sorted(near.rows().items()):
+        print(f"    {label} row {r}, near relus (evaluation, unit, float64 / "
+              f"float32 plain pre-activation over its scale): " + ", ".join(
+                  f"({e}, {u}, {x:.2e} / {x32:.2e})" for (e, u, x), (_, _, x32)
+                  in zip(entries, z32[r])))
+        worst = {}
+        for side, ref in refs.items():
+            errs = {n: float((outs[n].select(ax, r).double()
+                              - v.select(ax, r)).abs().max())
+                    / max(float(v.abs().max()), 1e-30)
+                    for n, (v, ax) in ref.items()}
+            worst[side] = max(errs[n] / tol[n] for n in errs)
+            print(f"      kernel from float64 with them {side}: " + ", ".join(
+                f"{n} {e:.3e}" for n, e in errs.items())
+                  + f" (worst {worst[side]:.3g}x its tolerance)")
+        if not min(worst.values()) <= 1.0:
+            raise AssertionError(f"{label} row {r}: the kernel agrees with "
+                                 f"neither side of its near relus")
+
+
+def compare_wide():
+    """The EM, SRK and CDE pairs at H = HH in WIDE_H with one inner layer
+    (their weights and accumulators past a block's shared memory), at a
+    cut batch and length, against their plain versions: check_pair on the
+    rows where float32 rounding cannot flip a relu (NearRelu), and
+    check_near_rows on the others."""
+    for H in WIDE_H:
+        print(f"  placements at H=HH={H}, one inner layer (forward, "
+              f"backward): EM {_placements('em', (H, H, 1))}, SRK "
+              f"{_placements('srk', (H, H, 1))}, CDE rk4 C=6 "
+              f"{_placements('cde', (H, H, 6, 1, 3))}")
+        for key in ("em", "srk", "cde"):
+            if key == "cde":
+                fwd, flags, gys = cde_kernel_inputs(WIDE["B"], WIDE["L"], 6,
+                                                    H, 1)
+            else:
+                sh = MAIN if key == "em" else SRK
+                inp, gys = kernel_inputs(sh["model"], WIDE["B"], WIDE["L"],
+                                         sh["C"], H, 2, srk=key == "srk")
+                fwd, flags = _split(inp, key == "srk")
+            near = NearRelu()
+            kernel_fns(key)[1](*(t.double() for t in fwd), **flags,
+                               relu=near)
+            aside = sorted(near.rows())
+            rows = torch.tensor([r for r in range(WIDE["B"])
+                                 if r not in aside], dtype=torch.long,
+                                device=gys.device)
+            label = f"{key.upper()} wide L={WIDE['L']} H=HH={H}"
+            factor = YS_F64_FACTOR if key == "cde" else 0.0
+            print(f"  {label}: rows {aside} of {WIDE['B']} set aside (a relu "
+                  f"within rounding of 0)")
+            ins = BATCH_AXES[key]
+            check_pair(f"{label} B={len(rows)}", kernel_fns(key),
+                       [t.index_select(ins[i], rows).contiguous()
+                        if i in ins else t for i, t in enumerate(fwd)],
+                       flags, gys.index_select(1, rows).contiguous(),
+                       ys_f64_factor=factor)
+            if aside:
+                check_near_rows(label, key, fwd, flags, gys, near, factor)
+
+
+def wide_kernel_times(reps=5):
+    """ms per launch of the wide route: the EM and SRK pairs at the
+    sepsis shape (B=1024, 71 steps, C=69) and the CDE pair at uea_rk4
+    (B=1024, 136 rk4 steps, C=6), each at H = HH in WIDE_H with one inner
+    layer (median of `reps`; kernels only)."""
+    ms = {}
+    for H in WIDE_H:
+        for key in ("em", "srk"):
+            fwd_k, _, bwd_k, _ = kernel_fns(key)
+            inp, gys = kernel_inputs(MAIN["model"], MAIN["B"], MAIN["L"],
+                                     MAIN["C"], H, 2, srk=key == "srk")
+            fwd, flags = _split(inp, key == "srk")
+            ys = fwd_k(*fwd, **flags)
+            args = [fwd[0], ys, gys] + fwd[1:]
+            ms[f"{key} H={H} fwd"] = timed(lambda: fwd_k(*fwd, **flags),
+                                           reps=reps, warmup=1)
+            ms[f"{key} H={H} bwd"] = timed(lambda: bwd_k(*args, **flags),
+                                           reps=reps, warmup=1)
+        fwd_k, _, bwd_k, _ = kernel_fns("cde")
+        sh = CDE["uea_rk4"]
+        fwd, flags, gys = cde_kernel_inputs(sh["B"], sh["L"], sh["C"], H, 1)
+        ys = fwd_k(*fwd, **flags)
+        args = [fwd[0], ys, gys] + fwd[1:]
+        ms[f"cde H={H} fwd"] = timed(lambda: fwd_k(*fwd, **flags),
+                                     reps=reps, warmup=1)
+        ms[f"cde H={H} bwd"] = timed(lambda: bwd_k(*args, **flags),
+                                     reps=reps, warmup=1)
+        print(f"wide route at H=HH={H}: " + ", ".join(
+            f"{k} {v:.3f} ms" for k, v in ms.items() if f"H={H} " in k),
+            flush=True)
+    return ms
+
+
+def main_config(H=None):
     from snsde_torch.harness.classification import HarnessConfig
 
-    return HarnessConfig(model_name=MAIN["model"], hidden_channels=MAIN["H"],
-                         hidden_hidden_channels=MAIN["H"],
+    H = H or MAIN["H"]
+    return HarnessConfig(model_name=MAIN["model"], hidden_channels=H,
+                         hidden_hidden_channels=H,
                          num_hidden_layers=MAIN["layers"],
                          batch_size=MAIN["B"])
 
@@ -381,8 +582,7 @@ def _counters():
     return out + [(f"{key}_{part}", fused_rnn,
                    f"{key.upper()}_{part.upper()}_LAUNCHES")
                   for key in ("gru", "lstm")
-                  for part in ("fwd", "bwd")] + [
-        ("lstm_wgrad", fused_rnn, "LSTM_WGRAD_LAUNCHES")]
+                  for part in ("fwd", "bwd", "wgrad")]
 
 
 def zero_counts():
@@ -419,6 +619,38 @@ def main_path():
         raise AssertionError(f"sepsis path did not run the kernels: "
                              f"{launches}")
     check_trained_solve(res.model.sde.func, MAIN)
+    return launches
+
+
+def wide_sepsis_path():
+    """The sepsis path at hidden SEPSIS_WIDE["H"] = 128 for one epoch: the
+    EM kernels take the field with their gradient accumulators in device
+    memory; the losses must be finite and both kernels launched."""
+    from snsde_torch.harness.classification import run_sepsis
+
+    H = SEPSIS_WIDE["H"]
+    cfg = main_config(H)
+    zero_counts()
+    t0 = time.perf_counter()
+    res = run_sepsis(cfg, n=N_SEPSIS, max_epochs=SEPSIS_WIDE["epochs"],
+                     device=DEV)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    wall = time.perf_counter() - t0
+    losses = [h[s]["loss"] for h in res.history for s in ("train", "val")]
+    losses += [res.train_metrics.loss, res.val_metrics.loss,
+               res.test_metrics.loss]
+    shape = (H, H, MAIN["layers"] - 1)
+    print(f"main path 1 at H={H}: run_sepsis {SEPSIS_WIDE['epochs']} epoch "
+          f"in {wall:.1f} s, losses {[round(v, 4) for v in losses]}, val "
+          f"AUROC {res.val_metrics.auroc:.4f}, placements (forward, "
+          f"backward) {_placements('em', shape)}, "
+          f"launches {launches}", flush=True)
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite loss on the sepsis path at H={H}")
+    if launches["em_fwd"] <= 0 or launches["em_bwd"] <= 0:
+        raise AssertionError(f"sepsis path at H={H} did not run the "
+                             f"kernels: {launches}")
     return launches
 
 
@@ -661,19 +893,17 @@ def compare_rnn(kind, B, L, C, H, dec=False):
     return err["fwd"], err["bwd"]
 
 
-def lstm_plans():
-    """Print the LSTM kernels' plan at every shape this script runs them
-    at: CTAs per cluster, batch rows per cluster, where the W_hh slices
-    live, shared bytes per CTA and cudaOccupancyMaxActiveClusters."""
+def _plans(kind, shapes):
+    """Print the GRU's or the LSTM's plan at each (B, H): CTAs per
+    cluster, batch rows per cluster, where the W_hh slices live, shared
+    bytes per CTA and cudaOccupancyMaxActiveClusters; raise if one cannot
+    be scheduled."""
     from snsde_torch.kernels import fused_rnn as fr
 
-    rs = RNN_SWEEP
-    shapes = [(rs["B"], rs["H"]), (rs["B"], rs["H"] // 2), (100, 32),
-              (16, 512)] + [(1024, h) for h in (32, 64, 128) + LSTM_PLAN_H]
     for B, H in shapes:
         for backward in (False, True):
-            p = fr.fused_lstm_plan(H, B, backward)
-            print(f"  LSTM plan B={B} H={H} "
+            p = getattr(fr, f"fused_{kind}_plan")(H, B, backward)
+            print(f"  {kind.upper()} plan B={B} H={H} "
                   f"{'backward' if backward else 'forward'}: CS={p['cluster']}"
                   f", {p['rows']} rows a cluster, W_hh slices in "
                   f"{'shared' if p['w_smem'] else 'device'} memory, "
@@ -681,38 +911,101 @@ def lstm_plans():
                   f"shared bytes a CTA, cudaOccupancyMaxActiveClusters "
                   f"{p['active_clusters']}")
             if p["active_clusters"] < 1:
-                raise AssertionError(f"LSTM plan at B={B} H={H} cannot be "
+                raise AssertionError(f"{kind} plan at B={B} H={H} cannot be "
                                      f"scheduled: {p}")
 
 
-def compare_lstm_wgrad(B, L, C, H):
-    """The LSTM weight-gradient kernel alone against its plain version on
-    the plain versions' hs and dgi: dW_hh and db_hh within TOL_GRAD of
-    their largest entries, and no further from a float64 run than the
-    F64 rule allows. Returns the largest abs error."""
+def lstm_plans():
+    """The LSTM kernels' plan at every shape this script runs them at."""
+    rs = RNN_SWEEP
+    _plans("lstm", [(rs["B"], rs["H"]), (rs["B"], rs["H"] // 2), (100, 32),
+                    (16, 512)] + [(1024, h) for h in (32, 64, 128)
+                                  + LSTM_PLAN_H])
+
+
+def gru_plans():
+    """The GRU kernels' plan at every shape this script runs them at."""
+    rs = RNN_SWEEP
+    _plans("gru", [(rs["B"], rs["H"]), (100, 32)] + [
+        (1024, h) for h in (32, 64) + GRU_PLAN_H])
+
+
+def compare_wgrad(kind, B, L, C, H, dec=False):
+    """The weight-gradient kernel alone against its plain version on the
+    plain versions' streams (the LSTM's hs and dgi; the GRU's h0, hs, decay
+    and dgh): dW_hh and db_hh within TOL_GRAD of their largest entries,
+    and no further from a float64 run than the F64 rule allows. Returns
+    the largest abs error."""
     from snsde_torch.kernels import fused_rnn as fr
 
-    _, _, inp, ghs = rnn_kernel_inputs("lstm", B, L, C, H)
-    hs, cs = fr.fused_lstm_forward_reference(**inp)
-    dgi = fr.fused_lstm_backward_reference(hs=hs, cs=cs, ghs=ghs, **inp).dgi
-    k = fr.fused_lstm_weight_grads(hs, dgi)
-    p = fr.fused_lstm_weight_grads_reference(hs, dgi)
-    r = fr.fused_lstm_weight_grads_reference(hs.double(), dgi.double())
+    _, _, inp, ghs = rnn_kernel_inputs(kind, B, L, C, H, dec)
+    if kind == "lstm":
+        hs, cs = fr.fused_lstm_forward_reference(**inp)
+        args = (hs, fr.fused_lstm_backward_reference(hs=hs, cs=cs, ghs=ghs,
+                                                     **inp).dgi)
+    else:
+        hs = fr.fused_gru_forward_reference(**inp)
+        dgh = fr._gru_backward_loop(inp["gi"], hs, ghs, inp["h0"],
+                                    inp["whh"], inp["bhh"],
+                                    inp.get("hdec"))[1]
+        args = (inp["h0"], hs, dgh, inp.get("hdec"))
+    k = getattr(fr, f"fused_{kind}_weight_grads")(*args)
+    plain = getattr(fr, f"fused_{kind}_weight_grads_reference")
+    p = plain(*args)
+    r = plain(*(None if a is None else a.double() for a in args))
     torch.cuda.synchronize()
     worst = 0.0
     for name, a, b, ref in zip(("dwhh", "dbhh"), k, p, r):
         e = float((a - b).abs().max())
         rel = e / max(float(b.abs().max()), 1e-30)
         (k_max, k_rms), (p_max, p_rms) = _errs64(a, ref), _errs64(b, ref)
-        print(f"  LSTM weight-gradient kernel B={B} L={L} H={H} {name}: max "
-              f"abs err {e:.3e} rel {rel:.3e} (tol {TOL_GRAD:g}); from "
-              f"float64 largest/rms: kernel {k_max:.3e}/{k_rms:.3e}, float32 "
-              f"plain {p_max:.3e}/{p_rms:.3e}")
+        print(f"  {kind.upper()} weight-gradient kernel B={B} L={L} H={H}"
+              f"{' + hdec' if dec else ''} {name}: max abs err {e:.3e} rel "
+              f"{rel:.3e} (tol {TOL_GRAD:g}); from float64 largest/rms: "
+              f"kernel {k_max:.3e}/{k_rms:.3e}, float32 plain {p_max:.3e}/"
+              f"{p_rms:.3e}")
         if not (rel <= TOL_GRAD and k_rms <= F64_FACTOR * p_rms + F64_FLOOR):
-            raise AssertionError(f"LSTM weight-gradient kernel disagrees on "
-                                 f"{name}")
+            raise AssertionError(f"{kind} weight-gradient kernel disagrees "
+                                 f"on {name}")
         worst = max(worst, e)
     return worst
+
+
+def compare_gru_scan(B, L, C, H, reverse, dec):
+    """fused_gru_scan (projection, flips, the kernels) from a nonzero h0,
+    with or without the decay stream, against the eager loop over the
+    cell in the given direction: hs and every gradient (xs, h0, the decay
+    and the cell's parameters) within TOL_GRAD of its largest entry."""
+    from snsde_torch.kernels import fused_rnn as fr
+
+    cell, xs, inp, w = rnn_kernel_inputs("gru", B, L, C, H, dec, seed=3)
+    flip = (lambda a: torch.flip(a, (0,))) if reverse else (lambda a: a)
+    outs = []
+    for fused in (True, False):
+        for p in cell.parameters():
+            p.grad = None
+        x = xs.clone().requires_grad_(True)
+        h = inp["h0"].clone().requires_grad_(True)
+        d = inp["hdec"].clone().requires_grad_(True) if dec else None
+        if fused:
+            hs = fr.fused_gru_scan(cell, x, h0=h, reverse=reverse, hdec=d)
+        else:
+            xr, dr, hh, out = flip(x), flip(d) if dec else None, h, []
+            for t in range(L):
+                hh = cell(xr[t], hh if dr is None else hh * dr[t])
+                out.append(hh)
+            hs = flip(torch.stack(out))
+        (hs * w).sum().backward()
+        outs.append([hs.detach(), x.grad, h.grad] + ([d.grad] if dec else [])
+                    + [p.grad for p in cell.parameters()])
+    torch.cuda.synchronize()
+    worst = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                for a, b in zip(*outs))
+    print(f"  GRU scan B={B} L={L} H={H}{' + hdec' if dec else ''}"
+          f"{' reverse' if reverse else ''} vs the eager loop: largest err "
+          f"over max {worst:.3e} (tol {TOL_GRAD:g})")
+    if not worst <= TOL_GRAD:
+        raise AssertionError("fused GRU scan disagrees with the eager loop")
 
 
 def cudnn_module(kind, cell):
@@ -831,10 +1124,11 @@ def rnn_sweep_path(out_dir):
         if launches[f"{pair}_fwd"] <= 0 or launches[f"{pair}_bwd"] <= 0:
             raise AssertionError(f"{name} did not run the {pair} kernels: "
                                  f"{launches}")
-        if launches["lstm_wgrad"] != launches["lstm_bwd"]:
-            raise AssertionError(f"{name}: the LSTM weight-gradient kernel "
-                                 f"ran {launches['lstm_wgrad']} times, the "
-                                 f"recurrence {launches['lstm_bwd']}")
+        if launches[f"{pair}_wgrad"] != launches[f"{pair}_bwd"]:
+            raise AssertionError(f"{name}: the {pair} weight-gradient "
+                                 f"kernel ran {launches[pair + '_wgrad']} "
+                                 f"times, the recurrence "
+                                 f"{launches[pair + '_bwd']}")
         check_trained_rnn(name, trained[(0.3, name, 0)], small)
         for key, v in launches.items():
             total[key] = total.get(key, 0) + v
@@ -884,9 +1178,8 @@ def rnn_kernel_times(kind, B, L, C, H):
           "fwd_plain": timed(lambda: fwd_p(**inp), reps=5, warmup=1),
           "bwd": timed(lambda: bwd(**bargs)),
           "bwd_plain": timed(lambda: bwd_p(**bargs), reps=5, warmup=1)}
-    if kind == "lstm":
-        ms["bwd_call"] = ms["bwd"]
-        ms.update(lstm_backward_times(cell, xs, bargs, ghs))
+    ms["bwd_call"] = ms["bwd"]
+    ms.update(backward_times(kind, cell, xs, bargs, ghs))
     torch.backends.cudnn.allow_tf32 = False
     lib = cudnn_module(kind, cell)
     x = xs.clone().requires_grad_(True)
@@ -907,13 +1200,17 @@ def rnn_kernel_times(kind, B, L, C, H):
     grads = [g for g in bwd(**bargs) if g is not None]
     n_bwd = sum(t.numel() for t in bargs.values()) + sum(
         g.numel() for g in grads)
+    # the weight gradient reads the cell's input states x_t (the GRU's h0
+    # and hs[:-1]; the LSTM's hs[:-1], its zero state read from nowhere),
+    # the decay where there is one, and W_hh's cotangent [L, B, G H], and
+    # writes dW_hh and db_hh: an [H, K] x [K, G H] product over the K rows
+    # of nonzero x
+    k_x = (L if kind == "gru" else L - 1) * B
+    n_wgrad = (k_x * H + (L * B * H if "hdec" in inp else 0)
+               + L * B * G * H + (H + 1) * G * H)
     bounds = {"fwd": bound(4 * (n_in + n_fwd_out), prod),
-              "bwd": bound(4 * n_bwd, 3 * prod)}
-    if kind == "lstm":
-        # the weight gradient: hs and dgi read, dW_hh and db_hh written; a
-        # [H, L B] x [L B, 4H] product
-        bounds["wgrad"] = bound(4 * (L * B * 5 * H + H * 4 * H + 4 * H),
-                                2 * L * B * H * 4 * H)
+              "bwd": bound(4 * n_bwd, 3 * prod),
+              "wgrad": bound(4 * n_wgrad, 2 * k_x * H * G * H)}
     print(f"{kind.upper()} pair at B={B} L={L} H={H}: forward "
           f"{prod / 1e9:.4f} GFLOP, bound {bounds['fwd'][0]:.5f} ms "
           f"({bounds['fwd'][1]}), backward bound {bounds['bwd'][0]:.5f} ms "
@@ -922,30 +1219,41 @@ def rnn_kernel_times(kind, B, L, C, H):
     return ms, bounds
 
 
-def lstm_backward_times(cell, xs, bargs, ghs):
-    """The LSTM backward's two kernels timed apart (the recurrence, and the
-    weight gradient with its plain version and torch.matmul of dW_hh's
+def backward_times(kind, cell, xs, bargs, ghs):
+    """A recurrent backward's two kernels timed apart (the recurrence, and
+    the weight gradient with its plain version and torch.matmul of dW_hh's
     product alone), "bwd" replaced by their sum ("bwd_call" keeps the
     wrapper's time, which adds the sums of the split partials); and
-    fused_lstm_scan forward + backward, the input projection included,
-    which is what cuDNN's "lib_fwd_bwd" computes."""
+    fused_*_scan forward + backward, the input projection included, which
+    is what cuDNN's "lib_fwd_bwd" computes."""
     from snsde_torch.kernels import fused_rnn as fr
 
     hs, H = bargs["hs"], bargs["hs"].shape[-1]
-    dgi = fr.fused_lstm_backward_recurrence(**bargs)
-    ms = {"bwd_recurrence": timed(
-              lambda: fr.fused_lstm_backward_recurrence(**bargs)),
-          "bwd_wgrad": timed(lambda: fr.fused_lstm_weight_grads(hs, dgi)),
-          "wgrad_plain": timed(
-              lambda: fr.fused_lstm_weight_grads_reference(hs, dgi))}
-    hprev, d1 = hs[:-1].reshape(-1, H), dgi[1:].reshape(-1, 4 * H)
-    ms["wgrad_lib"] = timed(lambda: torch.matmul(hprev.T, d1))
-    x = xs.clone().requires_grad_(True)
-    wrt = [x, cell.w_ih, cell.b_ih, cell.w_hh, cell.b_hh]
+    rec = getattr(fr, f"fused_{kind}_backward_recurrence")
+    wg = getattr(fr, f"fused_{kind}_weight_grads")
+    wg_p = getattr(fr, f"fused_{kind}_weight_grads_reference")
+    if kind == "lstm":
+        dg = rec(**bargs)
+        args = (hs, dg)
+        x = torch.cat([torch.zeros_like(hs[:1]), hs[:-1]])
+    else:
+        dg = rec(**bargs)[1]
+        args = (bargs["h0"], hs, dg, bargs.get("hdec"))
+        x = torch.cat([bargs["h0"][None], hs[:-1]])
+    G = dg.shape[-1] // H
+    ms = {"bwd_recurrence": timed(lambda: rec(**bargs)),
+          "bwd_wgrad": timed(lambda: wg(*args)),
+          "wgrad_plain": timed(lambda: wg_p(*args))}
+    xk, d1 = x.reshape(-1, H), dg.reshape(-1, G * H)
+    ms["wgrad_lib"] = timed(lambda: torch.matmul(xk.T, d1))
+    xs_ = xs.clone().requires_grad_(True)
+    wrt = [xs_, cell.w_ih, cell.b_ih, cell.w_hh, cell.b_hh]
+    scan = (fr.fused_lstm_scan if kind == "lstm" else
+            lambda c, v: fr.fused_gru_scan(c, v, h0=bargs["h0"]))
     ms["scan_fwd_bwd"] = timed(lambda: torch.autograd.grad(
-        fr.fused_lstm_scan(cell, x), wrt, ghs))
-    # the kernels line's LSTM backward: the recurrence and the weight
-    # gradient, each timed alone, summed
+        scan(cell, xs_), wrt, ghs))
+    # the kernels line's backward: the recurrence and the weight gradient,
+    # each timed alone, summed
     ms["bwd"] = ms["bwd_recurrence"] + ms["bwd_wgrad"]
     return ms
 
@@ -1313,67 +1621,125 @@ def ab_steps(parent: str, pairs: int = 16, reps: int = 100) -> int:
     return 0
 
 
-_AB_LSTM_CHILD = """
+_AB_RNN_CHILD = """
 import json, sys
 sys.path.insert(0, {root!r})
 import chip_smoke as c
 from snsde_torch.kernels import fused_rnn as fr
+kind = {kind!r}
+fwd = getattr(fr, "fused_" + kind + "_forward")
+bwd = getattr(fr, "fused_" + kind + "_backward")
 out = {{}}
-for name, (B, L, C, H) in {shapes!r}.items():
-    _, _, inp, ghs = c.rnn_kernel_inputs("lstm", B, L, C, H)
-    hs, cs = fr.fused_lstm_forward(**inp)
-    out[name + " fwd"] = c.timed(lambda: fr.fused_lstm_forward(**inp),
+for name, (B, L, C, H, dec) in {shapes!r}.items():
+    _, _, inp, ghs = c.rnn_kernel_inputs(kind, B, L, C, H, dec)
+    res = fwd(**inp)
+    extra = dict(hs=res[0], cs=res[1]) if kind == "lstm" else dict(hs=res)
+    out[name + " fwd"] = c.timed(lambda: fwd(**inp), reps={reps})
+    out[name + " bwd"] = c.timed(lambda: bwd(ghs=ghs, **extra, **inp),
                                  reps={reps})
-    out[name + " bwd"] = c.timed(lambda: fr.fused_lstm_backward(
-        hs=hs, cs=cs, ghs=ghs, **inp), reps={reps})
+    if kind == "lstm":  # its two backward kernels apart
+        rec, wg = fr.fused_lstm_backward_recurrence, fr.fused_lstm_weight_grads
+        dg = rec(ghs=ghs, **extra, **inp)
+        out[name + " bwd rec"] = c.timed(
+            lambda: rec(ghs=ghs, **extra, **inp), reps={reps})
+        out[name + " bwd wgrad"] = c.timed(lambda: wg(extra["hs"], dg),
+                                           reps={reps})
 print("AB", json.dumps(out), flush=True)
 """
 
 
-def ab_lstm(parent: str, pairs: int = 4, reps: int = 30) -> int:
-    """A/B of the LSTM kernels between a parent checkout (the directory
-    `parent`) and this one:
+_AB_SDE_CHILD = """
+import json, sys
+sys.path.insert(0, {root!r})
+import chip_smoke as c
+out = {{}}
+for key, shape in (("em", c.MAIN), ("srk", c.SRK)):
+    fwd_k, _, bwd_k, _ = c.kernel_fns(key)
+    inp, gys = c.kernel_inputs(shape["model"], shape["B"], shape["L"],
+                               shape["C"], shape["H"], shape["layers"],
+                               srk=key == "srk")
+    fwd, flags = c._split(inp, key == "srk")
+    ys = fwd_k(*fwd, **flags)
+    args = [fwd[0], ys, gys] + fwd[1:]
+    out[key + " fwd"] = c.timed(lambda: fwd_k(*fwd, **flags), reps={reps})
+    out[key + " bwd"] = c.timed(lambda: bwd_k(*args, **flags), reps={reps})
+fwd_k, _, bwd_k, _ = c.kernel_fns("cde")
+fwd, flags, gys = c.cde_kernel_inputs(c.SWEEP["B"], c.SWEEP["L"],
+                                      c.SWEEP["D"] + 1, c.SWEEP["H"], 0)
+ys = fwd_k(*fwd, **flags)
+args = [fwd[0], ys, gys] + fwd[1:]
+out["cde sweep fwd"] = c.timed(lambda: fwd_k(*fwd, **flags), reps={reps})
+out["cde sweep bwd"] = c.timed(lambda: bwd_k(*args, **flags), reps={reps})
+print("AB", json.dumps(out), flush=True)
+"""
 
-        python3 chip_smoke.py --ab-lstm PARENT_DIR [PAIRS [REPS]]
 
-    Each of `pairs` rounds runs one process per tree, in the order parent,
-    change, then change, parent; each times `fused_lstm_forward` and
-    `fused_lstm_backward` (the whole wrapper: the backward kernel or
-    kernels and the sums of their partials) with that tree's own package,
-    at the sweep's shape and the bench shapes (`timed`, median of `reps`).
-    Prints every process's medians, then per shape and tree the median
-    over processes and the rounds in which the change was faster."""
+def _ab_rounds(tag, child, parent, pairs):
+    """Run child(tree's root) (a program's code) in one process per tree
+    and round, in the order parent, change, then change, parent;
+    print every process's medians, then per key and tree the median over
+    processes and the rounds in which the change was faster."""
     import os
 
-    shapes = {"sweep": (RNN_SWEEP["B"], RNN_SWEEP["L"], RNN_SWEEP["C"],
-                        RNN_SWEEP["H"])}
-    for name, sh in RNN_BENCH.items():
-        if sh["kind"] == "lstm":
-            shapes[f"bench H={sh['H']}"] = (sh["B"], sh["L"], sh["C"],
-                                            sh["H"])
     trees = {"parent": os.path.abspath(parent),
              "change": os.path.dirname(os.path.abspath(__file__))}
     got = {t: [] for t in trees}
     for i in range(pairs):
         for tree in (("parent", "change") if i % 2 == 0
                      else ("change", "parent")):
-            code = _AB_LSTM_CHILD.format(root=trees[tree], shapes=shapes,
-                                         reps=reps)
-            out = subprocess.run([sys.executable, "-c", code],
+            out = subprocess.run([sys.executable, "-c", child(trees[tree])],
                                  cwd=trees[tree], capture_output=True,
                                  text=True, timeout=600, check=True).stdout
             ms = json.loads(out.split("AB ", 1)[1])
             got[tree].append(ms)
-            print(f"AB-LSTM round {i} {tree}: " + ", ".join(
+            print(f"{tag} round {i} {tree}: " + ", ".join(
                 f"{k} {v:.4f} ms" for k, v in ms.items()), flush=True)
     for key in got["change"][0]:
         per = {t: [m[key] for m in got[t]] for t in trees}
         faster = sum(c < p for c, p in zip(per["change"], per["parent"]))
         med = {t: statistics.median(v) for t, v in per.items()}
-        print(f"AB-LSTM {key}: parent median {med['parent']:.4f} ms, change "
-              f"{med['change']:.4f} ms, change faster in {faster} of {pairs} "
-              f"rounds")
+        print(f"{tag} {key}: parent median {med['parent']:.4f} ms (range "
+              f"{min(per['parent']):.4f}-{max(per['parent']):.4f}), change "
+              f"{med['change']:.4f} ms (range {min(per['change']):.4f}-"
+              f"{max(per['change']):.4f}), change faster in {faster} of "
+              f"{pairs} rounds")
     return 0
+
+
+def ab_rnn(kind: str, parent: str, pairs: int = 4, reps: int = 30) -> int:
+    """A/B of the GRU or LSTM kernels between a parent checkout (the
+    directory `parent`) and this one:
+
+        python3 chip_smoke.py --ab-gru PARENT_DIR [PAIRS [REPS]]
+        python3 chip_smoke.py --ab-lstm PARENT_DIR [PAIRS [REPS]]
+
+    Each of `pairs` rounds runs one process per tree, in the order parent,
+    change, then change, parent; each times `fused_*_forward` and
+    `fused_*_backward` (the whole wrapper: the backward kernel or kernels
+    and the sums of their partials; the LSTM's recurrence and weight
+    gradient also apart) with that tree's own package, at the sweep's
+    shape (the GRU with and without the decay stream) and the bench shapes
+    (`timed`, median of `reps`)."""
+    shapes = {"sweep": (RNN_SWEEP["B"], RNN_SWEEP["L"], RNN_SWEEP["C"],
+                        RNN_SWEEP["H"], False)}
+    if kind == "gru":
+        shapes["sweep hdec"] = shapes["sweep"][:4] + (True,)
+    for name, sh in RNN_BENCH.items():
+        if sh["kind"] == kind:
+            shapes[f"bench H={sh['H']}"] = (sh["B"], sh["L"], sh["C"],
+                                            sh["H"], False)
+    return _ab_rounds(f"AB-{kind.upper()}", lambda root: _AB_RNN_CHILD.format(
+        root=root, shapes=shapes, reps=reps, kind=kind), parent, pairs)
+
+
+def ab_kernels(parent: str, pairs: int = 4, reps: int = 30) -> int:
+    """A/B of the EM and SRK pairs at the sepsis and MuJoCo shapes and the
+    CDE pair at the sweep's shape (kernels only, `timed`, median of
+    `reps`) between a parent checkout and this one, as ab_rnn:
+
+        python3 chip_smoke.py --ab-kernels PARENT_DIR [PAIRS [REPS]]"""
+    return _ab_rounds("AB-SDE", lambda root: _AB_SDE_CHILD.format(
+        root=root, reps=reps), parent, pairs)
 
 
 def main() -> int:
@@ -1407,6 +1773,7 @@ def main() -> int:
     compare_cde(128, sh["L"], sh["C"], sh["H"], 0, field="single")
     for n_inner in (0, 2):
         compare_cde(128, sh["L"], sh["C"], sh["H"], n_inner)
+    compare_wide()
     rs = RNN_SWEEP
     err["gru"] = compare_rnn("gru", **rs)
     compare_rnn("gru", **rs, dec=True)
@@ -1419,10 +1786,23 @@ def main() -> int:
         compare_rnn(kind, 100, 30, 6, 32, dec=kind == "gru")
     for H in LSTM_PLAN_H:
         compare_rnn("lstm", 1024, 72, 6, H)
+    for H in GRU_PLAN_H[:-1]:
+        for dec in (False, True):
+            if dec or H != 128:          # H=128 without decay: a bench shape
+                compare_rnn("gru", 1024, 72, 6, H, dec=dec)
     lstm_plans()
-    err["lstm_wgrad"] = compare_lstm_wgrad(rs["B"], rs["L"], rs["C"],
-                                           rs["H"])
-    compare_lstm_wgrad(1024, 72, 6, 128)
+    gru_plans()
+    for reverse in (False, True):
+        for dec in (False, True):
+            compare_gru_scan(rs["B"], rs["L"], rs["C"], rs["H"], reverse, dec)
+            compare_gru_scan(256, 24, 6, 128, reverse, dec)
+    err["gru_wgrad"] = compare_wgrad("gru", rs["B"], rs["L"], rs["C"],
+                                     rs["H"])
+    compare_wgrad("gru", rs["B"], rs["L"], rs["C"], rs["H"], dec=True)
+    compare_wgrad("gru", 1024, 72, 6, 128, dec=True)
+    err["lstm_wgrad"] = compare_wgrad("lstm", rs["B"], rs["L"], rs["C"],
+                                      rs["H"])
+    compare_wgrad("lstm", 1024, 72, 6, 128)
     for shape in RNN_BENCH.values():
         compare_rnn_cudnn(**shape)
     with tempfile.TemporaryDirectory() as out_dir:
@@ -1430,6 +1810,7 @@ def main() -> int:
                     "cde": sweep_path(out_dir)}
         rnn_launches = rnn_sweep_path(out_dir)
     launches["gru"] = launches["lstm"] = rnn_launches
+    wide_sepsis_path()
     spline_times()
     ms, bounds = {}, {}
     for key, shape, srk in (("em", MAIN, False), ("srk", SRK, True)):
@@ -1449,6 +1830,7 @@ def main() -> int:
                 for k, v in rnn_kernel_times(**shape)[0].items():
                     ms[kind][f"{name} {k}"] = v
         ms[kind].update(step_times(f"{kind} classifier", rnn_step_fns(kind)))
+    ms["wide"] = wide_kernel_times()
     for key in ms:
         for k, v in ms[key].items():
             print(f"time {key} {k}: {v:.4f} ms  [{smi}]")
@@ -1460,8 +1842,8 @@ def main() -> int:
             ("gru", "fused_gru", (312, 396), "fused_rnn"),
             ("lstm", "fused_lstm", (837, 934), "fused_rnn")):
         for part, line in zip(("fwd", "bwd"), lines):
-            # the LSTM backward's "ms" is its two kernels' times summed:
-            # the recurrence and the weight gradient (lstm_backward_times)
+            # a recurrent backward's "ms" is its two kernels' times summed:
+            # the recurrence and the weight gradient (backward_times)
             kernels.append({
                 "name": f"{pre}_{'forward' if part == 'fwd' else 'backward'}",
                 "route": "cuda",
@@ -1476,17 +1858,18 @@ def main() -> int:
                 # PyTorch call computes a fused SDE or CDE solve
                 "library_ms": ms[key].get(f"lib_{part}"),
             })
-    kernels.append({
-        "name": "fused_lstm_weight_grads", "route": "cuda",
-        "source": "snsde_torch/csrc/fused_rnn.cu",
-        "replaces": "snsde/kernels/fused_rnn.py:934",
-        "launches": launches["lstm"]["lstm_wgrad"],
-        "max_abs_err": err["lstm_wgrad"], "ms": ms["lstm"]["bwd_wgrad"],
-        "plain_ms": ms["lstm"]["wgrad_plain"],
-        "bound_ms": bounds["lstm"]["wgrad"][0],
-        "bound_by": bounds["lstm"]["wgrad"][1],
-        # torch.matmul of dW_hh's product alone (db_hh not included)
-        "library_ms": ms["lstm"]["wgrad_lib"]})
+    for key, line in (("gru", 396), ("lstm", 934)):
+        kernels.append({
+            "name": f"fused_{key}_weight_grads", "route": "cuda",
+            "source": "snsde_torch/csrc/fused_rnn.cu",
+            "replaces": f"snsde/kernels/fused_rnn.py:{line}",
+            "launches": launches[key][f"{key}_wgrad"],
+            "max_abs_err": err[f"{key}_wgrad"],
+            "ms": ms[key]["bwd_wgrad"], "plain_ms": ms[key]["wgrad_plain"],
+            "bound_ms": bounds[key]["wgrad"][0],
+            "bound_by": bounds[key]["wgrad"][1],
+            # torch.matmul of dW_hh's product alone (db_hh not included)
+            "library_ms": ms[key]["wgrad_lib"]})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -1498,6 +1881,9 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--ab-steps"]:
         sys.exit(ab_steps(sys.argv[2], *map(int, sys.argv[3:5])))
-    if sys.argv[1:2] == ["--ab-lstm"]:
-        sys.exit(ab_lstm(sys.argv[2], *map(int, sys.argv[3:5])))
+    if sys.argv[1:2] in (["--ab-lstm"], ["--ab-gru"]):
+        sys.exit(ab_rnn(sys.argv[1][5:], sys.argv[2],
+                        *map(int, sys.argv[3:5])))
+    if sys.argv[1:2] == ["--ab-kernels"]:
+        sys.exit(ab_kernels(sys.argv[2], *map(int, sys.argv[3:5])))
     sys.exit(main())

@@ -42,6 +42,9 @@
 // shared memory and its gradient dWout (another 143 KB) in a per-block
 // partial in device memory, each entry read and written only by the thread
 // that owns its column (an L2-resident read-modify-write per stage).
+// Wider fields take sde_common.cuh's placements: the other accumulators
+// in device memory, then the weights, then fewer batch rows a block, so
+// every width the JAX package's gate takes (H*C up to 4096) runs.
 
 #include "sde_common.cuh"
 
@@ -49,6 +52,7 @@ namespace {
 
 struct CdeDims {
   int M, B, H, HH, C, NI;
+  int level, w_smem, g_smem, R;  // the placement (sde_common.cuh)
 };
 
 // Butcher tableaus (snsde/kernels/fused_cde.py:67-77): stage i evaluates
@@ -134,34 +138,54 @@ __host__ __device__ inline size_t cde_grads_floats(const CdeDims& d) {
          (size_t)d.NI * d.HH;
 }
 
-// the activations: (NI+1) hidden tiles and the [ROWS][H*C] field output
+// the activations: (NI+1) hidden tiles and the [R][H*C] field output
 __host__ __device__ inline size_t cde_act_floats(const CdeDims& d) {
-  return (size_t)(d.NI + 1) * ROWS * odd(d.HH) + (size_t)ROWS * d.H * d.C;
+  return (size_t)(d.NI + 1) * d.R * odd(d.HH) + (size_t)d.R * d.H * d.C;
 }
 
 __host__ __device__ inline size_t cde_fwd_floats(const CdeDims& d, int ns,
                                                  int nt) {
-  return cde_weights_floats(d) + cde_act_floats(d) +
-         (size_t)(2 + ns) * ROWS * odd(d.H) + (size_t)ROWS * nt * d.C;
+  return (d.w_smem ? cde_weights_floats(d) : 0) + cde_act_floats(d) +
+         (size_t)(2 + ns) * d.R * odd(d.H) + (size_t)d.R * nt * d.C;
 }
 
 __host__ __device__ inline size_t cde_bwd_floats(const CdeDims& d, int ns,
                                                  int nt) {
-  return cde_weights_floats(d) + cde_grads_floats(d) + cde_act_floats(d) +
-         (size_t)2 * ROWS * odd(d.HH) + (size_t)(2 + 3 * ns) * ROWS * odd(d.H) +
-         (size_t)2 * ROWS * nt * d.C;
+  return (d.w_smem ? cde_weights_floats(d) : 0) +
+         (d.g_smem ? cde_grads_floats(d) : 0) + cde_act_floats(d) +
+         (size_t)2 * d.R * odd(d.HH) + (size_t)(2 + 3 * ns) * d.R * odd(d.H) +
+         (size_t)2 * d.R * nt * d.C;
 }
 
+// the lowest placement the host may pick (fused_cde_force_placement)
+int g_first_placement = 0;
+
+// The placement of a launch of a tableau of ns stages at nt distinct
+// times; its shared bytes
+inline size_t cde_plan(CdeDims& d, int ns, int nt, int backward) {
+  const size_t limit = (size_t)max_optin_smem();
+  if (backward)
+    return place(d, [=](const CdeDims& e) { return cde_bwd_floats(e, ns, nt); },
+                 g_first_placement, limit);
+  return place(d, [=](const CdeDims& e) { return cde_fwd_floats(e, ns, nt); },
+               g_first_placement, limit);
+}
+
+// weights as the products read them (shared-memory copies at odd row
+// strides, or the tensors in device memory at their own): lh is the row
+// stride of Win and of each inner layer, lo that of Wout
 struct CdeWeights {
-  float *win, *bin, *wi, *bi, *wo, *bo;
+  const float *win, *bin, *wi, *bi, *wo, *bo;
+  int lh, lo;
 };
 
 struct CdeGrads {
   float *win, *bin, *wi, *bi;
 };
 
-// Carve the weights out of shared memory and copy them in ([in, out]
-// layout in device memory; rows padded to an odd stride here).
+// The weights: copied into shared memory at s ([in, out] layout in device
+// memory; rows padded to an odd stride here), or, without w_smem, read
+// where they are.
 __device__ __forceinline__
 CdeWeights load_cde_weights(float* s, const CdeDims& d,
                             const float* __restrict__ win,
@@ -171,56 +195,65 @@ CdeWeights load_cde_weights(float* s, const CdeDims& d,
                             const float* __restrict__ wo,
                             const float* __restrict__ bo) {
   const int H = d.H, HH = d.HH, sHH = odd(HH), HC = d.H * d.C, lo = ldo(d);
-  CdeWeights w;
-  w.win = s;
-  w.bin = w.win + H * sHH;
-  w.wi = w.bin + HH;
-  w.bi = w.wi + d.NI * HH * sHH;
-  w.wo = w.bi + d.NI * HH;
-  w.bo = w.wo + (size_t)HH * lo;
+  if (!d.w_smem) return CdeWeights{win, bin, wi, bi, wo, bo, HH, HC};
+  float* swin = s;
+  float* sbin = swin + H * sHH;
+  float* swi = sbin + HH;
+  float* sbi = swi + d.NI * HH * sHH;
+  float* swo = sbi + d.NI * HH;
+  float* sbo = swo + (size_t)HH * lo;
   for (int i = threadIdx.x; i < H * HH; i += THREADS)
-    w.win[(i / HH) * sHH + i % HH] = win[i];
-  for (int i = threadIdx.x; i < HH; i += THREADS) w.bin[i] = bin[i];
+    swin[(i / HH) * sHH + i % HH] = win[i];
+  for (int i = threadIdx.x; i < HH; i += THREADS) sbin[i] = bin[i];
   for (int i = threadIdx.x; i < d.NI * HH * HH; i += THREADS)
-    w.wi[(i / HH) * sHH + i % HH] = wi[i];  // rows of all layers stacked
-  for (int i = threadIdx.x; i < d.NI * HH; i += THREADS) w.bi[i] = bi[i];
+    swi[(i / HH) * sHH + i % HH] = wi[i];  // rows of all layers stacked
+  for (int i = threadIdx.x; i < d.NI * HH; i += THREADS) sbi[i] = bi[i];
   for (int i = threadIdx.x; i < HH * HC; i += THREADS)
-    w.wo[(size_t)(i / HC) * lo + i % HC] = wo[i];
-  for (int i = threadIdx.x; i < HC; i += THREADS) w.bo[i] = bo[i];
-  return w;
+    swo[(size_t)(i / HC) * lo + i % HC] = wo[i];
+  for (int i = threadIdx.x; i < HC; i += THREADS) sbo[i] = bo[i];
+  return CdeWeights{swin, sbin, swi, sbi, swo, sbo, sHH, lo};
 }
 
 // The field's hidden layers and its output O for the nr rows of a tile
-// whose stage state is y [ROWS][odd(H)]: hl [(NI+1)][ROWS][odd(HH)] and
-// ob [ROWS][H*C]. Ends after a barrier. Not inlined (nor are contract and
-// field_backward): each is compiled once per activation and called from
-// every tableau's kernel, which keeps the build of the sixteen kernels
-// short.
-template <bool RELU>
+// whose stage state is y [R][odd(H)]: hl [(NI+1)][R][odd(HH)] and
+// ob [R][H*C]. Ends after a barrier. Not inlined (nor are contract and
+// field_backward): each is compiled once per activation and placement
+// kind and called from every tableau's kernel, which keeps the build of
+// the 32 kernels (4 tableaus x 2 activations x forward and backward x the
+// main paths' placement and the wide one) short.
+template <bool RELU, bool WIDE>
 __device__ __noinline__
-void field_hidden(const CdeDims d, const CdeWeights w, const float* y,
+void field_hidden(const CdeDims dp, const CdeWeights w, const float* y,
                   float* hl, float* ob, int nr) {
+  const CdeDims d = placed<WIDE>(dp);
   const int H = d.H, HH = d.HH, sH = odd(H), sHH = odd(HH);
-  const int HC = d.H * d.C, lo = ldo(d);
+  const int HC = d.H * d.C, tile = d.R * sHH;
+  // the weights' row strides (constants of the main paths' placement)
+  const int lh = WIDE ? w.lh : sHH, lo = WIDE ? w.lo : ldo(d);
   for (int i = threadIdx.x; i < nr * HH; i += THREADS) {
     const int r = i / HH, j = i % HH;
-    hl[r * sHH + j] = act<RELU>(dot_col(y + r * sH, w.win, H, sHH, j) +
+    hl[r * sHH + j] = act<RELU>(dot_col(y + r * sH, w.win, H, lh, j) +
                                 w.bin[j]);
   }
   __syncthreads();
   for (int l = 0; l < d.NI; ++l) {
-    const float* hin = hl + l * ROWS * sHH;
-    float* hout = hl + (l + 1) * ROWS * sHH;
-    const float* W = w.wi + l * HH * sHH;
+    const float* hin = hl + l * tile;
+    float* hout = hl + (l + 1) * tile;
+    const float* W = w.wi + (size_t)l * HH * lh;
     for (int i = threadIdx.x; i < nr * HH; i += THREADS) {
       const int r = i / HH, j = i % HH;
-      hout[r * sHH + j] = act<RELU>(dot_col(hin + r * sHH, W, HH, sHH, j) +
+      hout[r * sHH + j] = act<RELU>(dot_col(hin + r * sHH, W, HH, lh, j) +
                                     w.bi[l * HH + j]);
     }
     __syncthreads();
   }
   // the output projection: one column q per thread, every row in registers
-  const float* hlast = hl + d.NI * ROWS * sHH;
+  // (rows past nr are not stored; with fewer than ROWS rows a block they
+  // read row nr - 1, inside the tile)
+  const float* hlast = hl + d.NI * tile;
+  int ro[ROWS];
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) ro[r] = (WIDE ? min(r, nr - 1) : r) * sHH;
   for (int q = threadIdx.x; q < HC; q += THREADS) {
     float acc[ROWS];
 #pragma unroll
@@ -229,7 +262,7 @@ void field_hidden(const CdeDims d, const CdeWeights w, const float* y,
       const float wk = w.wo[(size_t)k * lo + q];
 #pragma unroll
       for (int r = 0; r < ROWS; ++r)
-        acc[r] = fmaf(hlast[r * sHH + k], wk, acc[r]);
+        acc[r] = fmaf(hlast[ro[r] + k], wk, acc[r]);
     }
     // constant indices only, so acc stays in registers
 #pragma unroll
@@ -239,8 +272,8 @@ void field_hidden(const CdeDims d, const CdeWeights w, const float* y,
   __syncthreads();
 }
 
-// k [ROWS][odd(H)] = the contraction of O (ob) with the stage's row of the
-// control derivative, dxt [ROWS] rows of stride nt*C. Ends after a barrier.
+// k [R][odd(H)] = the contraction of O (ob) with the stage's row of the
+// control derivative, dxt [R] rows of stride nt*C. Ends after a barrier.
 __device__ __noinline__
 void contract(const CdeDims d, const float* ob, const float* dxt, int ntc,
               float* k, int nr) {
@@ -269,7 +302,7 @@ void stage_state(const CdeDims& d, int s, float dt, const float* z,
 #pragma unroll
     for (int j = 0; j < T::NS; ++j)
       if (j < s && T::a(s, j) != 0.f)
-        v = v + (T::a(s, j) * dt) * ks[j * ROWS * sH + e];
+        v = v + (T::a(s, j) * dt) * ks[j * d.R * sH + e];
     y[e] = v;
   }
 }
@@ -278,29 +311,31 @@ __device__ __forceinline__ void zero_smem(float* s, size_t n) {
   for (size_t i = threadIdx.x; i < n; i += THREADS) s[i] = 0.f;
 }
 
-template <class T, bool RELU>
+template <class T, bool RELU, bool WIDE>
 __global__ void __launch_bounds__(THREADS)
-cde_fwd_kernel(CdeDims d, const float* __restrict__ z0,
+cde_fwd_kernel(CdeDims dp, const float* __restrict__ z0,
                const float* __restrict__ dx, const float* __restrict__ dts,
                const float* __restrict__ win, const float* __restrict__ bin,
                const float* __restrict__ wi, const float* __restrict__ bi,
                const float* __restrict__ wo, const float* __restrict__ bo,
                float* __restrict__ ys) {
   extern __shared__ float smem[];
+  const CdeDims d = placed<WIDE>(dp);
   const int H = d.H, sH = odd(H), NTC = T::NT * d.C;
-  const size_t tile = (size_t)ROWS * sH;
+  const size_t tile = (size_t)d.R * sH;
+  const size_t wf = d.w_smem ? cde_weights_floats(d) : 0;
   const CdeWeights w = load_cde_weights(smem, d, win, bin, wi, bi, wo, bo);
-  float* hl = smem + cde_weights_floats(d);
-  float* ob = hl + (d.NI + 1) * ROWS * odd(d.HH);
-  float* sz = ob + ROWS * d.H * d.C;  // state before the step
+  float* hl = smem + wf;
+  float* ob = hl + (d.NI + 1) * d.R * odd(d.HH);
+  float* sz = ob + d.R * d.H * d.C;   // state before the step
   float* sy = sz + tile;              // the current stage's state
-  float* ks = sy + tile;              // stage increments [NS][ROWS][sH]
-  float* dxs = ks + T::NS * tile;     // the step's rows of dx [ROWS][NTC]
-  zero_smem(hl, cde_fwd_floats(d, T::NS, T::NT) - cde_weights_floats(d));
+  float* ks = sy + tile;              // stage increments [NS][R][sH]
+  float* dxs = ks + T::NS * tile;     // the step's rows of dx [R][NTC]
+  zero_smem(hl, cde_fwd_floats(d, T::NS, T::NT) - wf);
   __syncthreads();
 
-  const int row0 = blockIdx.x * ROWS;
-  const int nr = min(ROWS, d.B - row0);
+  const int row0 = blockIdx.x * d.R;
+  const int nr = min(d.R, d.B - row0);
   const size_t BH = (size_t)d.B * H;
   for (int i = threadIdx.x; i < nr * H; i += THREADS)
     sz[(i / H) * sH + i % H] = z0[(size_t)row0 * H + i];
@@ -313,7 +348,7 @@ cde_fwd_kernel(CdeDims d, const float* __restrict__ z0,
     for (int s = 0; s < T::NS; ++s) {
       stage_state<T>(d, s, dt, sz, ks, sy, nr);
       __syncthreads();
-      field_hidden<RELU>(d, w, sy, hl, ob, nr);
+      field_hidden<RELU, WIDE>(d, w, sy, hl, ob, nr);
       contract(d, ob, dxs + T::t(s) * d.C, NTC, ks + s * tile, nr);
     }
     const size_t off = u * BH + (size_t)row0 * H;
@@ -331,23 +366,26 @@ cde_fwd_kernel(CdeDims d, const float* __restrict__ z0,
 }
 
 // Back through one field evaluation (hl, ob as field_hidden left them for
-// the stage state y) given dk [ROWS][odd(H)], the cotangent of the stage's
+// the stage state y) given dk [R][odd(H)], the cotangent of the stage's
 // k: adds the stage's share of the control cotangent into ddt (rows of
 // stride ntc at the stage's time), the weight gradients into g (shared
-// memory) and into p_wo, p_bo (this block's partials in device memory), and
-// writes dy [ROWS][odd(H)], the cotangent of y. Overwrites ob and the
+// memory, or the block's partials) and into p_wo, p_bo (this block's
+// partials in device memory), and writes dy [R][odd(H)], the cotangent of
+// y. Overwrites ob and the
 // ping-pong tiles e0, e1. Ends after a barrier.
-template <bool RELU>
+template <bool RELU, bool WIDE>
 __device__ __noinline__
-void field_backward(const CdeDims d, const CdeWeights w, const CdeGrads g,
+void field_backward(const CdeDims dp, const CdeWeights w, const CdeGrads g,
                     const float* y, const float* dk, const float* dxt,
                     float* ddt, int ntc, const float* hl, float* ob,
                     float* e0, float* e1, float* dy,
                     float* __restrict__ p_wo, float* __restrict__ p_bo,
                     int nr) {
+  const CdeDims d = placed<WIDE>(dp);
   const int H = d.H, HH = d.HH, C = d.C, HC = d.H * d.C, NI = d.NI;
-  const int sH = odd(H), sHH = odd(HH), lo = ldo(d), tid = threadIdx.x;
-  const float* hlast = hl + NI * ROWS * sHH;
+  const int sH = odd(H), sHH = odd(HH), tid = threadIdx.x;
+  const int lh = WIDE ? w.lh : sHH, lo = WIDE ? w.lo : ldo(d);
+  const float* hlast = hl + NI * d.R * sHH;
 
   // the control: dd[c] += sum_h dk[h] O[h*C + c]
   for (int i = tid; i < nr * C; i += THREADS) {
@@ -360,7 +398,11 @@ void field_backward(const CdeDims d, const CdeWeights w, const CdeGrads g,
   __syncthreads();
 
   // dzout = dk dX/dt (1 - O^2), in place of O; then Wout's and bout's
-  // gradients from the column this thread owns
+  // gradients from the column this thread owns (rows past nr: dz 0, read
+  // against row nr - 1 of hlast, inside the tile)
+  int ro[ROWS];
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) ro[r] = (WIDE ? min(r, nr - 1) : r) * sHH;
   for (int q = tid; q < HC; q += THREADS) {
     const int h = q / C, c = q % C;
     float dz[ROWS];
@@ -380,7 +422,7 @@ void field_backward(const CdeDims d, const CdeWeights w, const CdeGrads g,
       float acc = 0.f;
 #pragma unroll
       for (int r = 0; r < ROWS; ++r)
-        acc = fmaf(hlast[r * sHH + k], dz[r], acc);
+        acc = fmaf(hlast[ro[r] + k], dz[r], acc);
       p_wo[(size_t)k * HC + q] += acc;
     }
   }
@@ -398,8 +440,8 @@ void field_backward(const CdeDims d, const CdeWeights w, const CdeGrads g,
   float* ein = e0;
   float* eout = e1;
   for (int l = NI - 1; l >= 0; --l) {
-    const float* hprev = hl + l * ROWS * sHH;
-    const float* W = w.wi + l * HH * sHH;
+    const float* hprev = hl + l * d.R * sHH;
+    const float* W = w.wi + (size_t)l * HH * lh;
     for (int e = tid; e < HH * HH; e += THREADS) {
       const int k = e / HH, c = e % HH;
       float acc = 0.f;
@@ -414,7 +456,7 @@ void field_backward(const CdeDims d, const CdeWeights w, const CdeGrads g,
     }
     for (int i = tid; i < nr * HH; i += THREADS) {
       const int r = i / HH, k = i % HH;
-      const float dh = dot_row(ein + r * sHH, W + k * sHH, HH);
+      const float dh = dot_row(ein + r * sHH, W + (size_t)k * lh, HH);
       eout[r * sHH + k] = dh * act_d<RELU>(hprev[r * sHH + k]);
     }
     __syncthreads();
@@ -436,14 +478,14 @@ void field_backward(const CdeDims d, const CdeWeights w, const CdeGrads g,
   }
   for (int i = tid; i < nr * H; i += THREADS) {
     const int r = i / H, k = i % H;
-    dy[r * sH + k] = dot_row(ein + r * sHH, w.win + k * sHH, HH);
+    dy[r * sH + k] = dot_row(ein + r * sHH, w.win + (size_t)k * lh, HH);
   }
   __syncthreads();
 }
 
-template <class T, bool RELU>
+template <class T, bool RELU, bool WIDE>
 __global__ void __launch_bounds__(THREADS)
-cde_bwd_kernel(CdeDims d, const float* __restrict__ z0,
+cde_bwd_kernel(CdeDims dp, const float* __restrict__ z0,
                const float* __restrict__ ys, const float* __restrict__ gys,
                const float* __restrict__ dx, const float* __restrict__ dts,
                const float* __restrict__ win, const float* __restrict__ bin,
@@ -454,32 +496,48 @@ cde_bwd_kernel(CdeDims d, const float* __restrict__ z0,
                float* __restrict__ p_wi, float* __restrict__ p_bi,
                float* __restrict__ p_wo, float* __restrict__ p_bo) {
   extern __shared__ float smem[];
+  const CdeDims d = placed<WIDE>(dp);
   const int H = d.H, HH = d.HH, NI = d.NI, HC = d.H * d.C;
   const int sH = odd(H), sHH = odd(HH), NTC = T::NT * d.C, tid = threadIdx.x;
-  const size_t tile = (size_t)ROWS * sH;
+  const size_t tile = (size_t)d.R * sH;
+  const size_t wf = d.w_smem ? cde_weights_floats(d) : 0;
   const CdeWeights w = load_cde_weights(smem, d, win, bin, wi, bi, wo, bo);
-  float* rest = smem + cde_weights_floats(d);
-  zero_smem(rest, cde_bwd_floats(d, T::NS, T::NT) - cde_weights_floats(d));
+  float* rest = smem + wf;
+  zero_smem(rest, cde_bwd_floats(d, T::NS, T::NT) - wf);
+  // the accumulators of Win, bin and the inner layers: in shared memory
+  // (stored to the partials after the loop), or the block's partials
+  const size_t blk = blockIdx.x;
   CdeGrads g;
-  g.win = rest;                       // [H][HH]
-  g.bin = g.win + H * HH;             // [HH]
-  g.wi = g.bin + HH;                  // [NI][HH][HH]
-  g.bi = g.wi + NI * HH * HH;         // [NI][HH]
-  float* hl = g.bi + NI * HH;         // [NI+1][ROWS][sHH]
-  float* ob = hl + (NI + 1) * ROWS * sHH;  // [ROWS][HC]
-  float* e0 = ob + ROWS * HC;         // [ROWS][sHH] each
-  float* e1 = e0 + ROWS * sHH;
-  float* gbar = e1 + ROWS * sHH;      // cotangent of the state [ROWS][sH]
+  if (d.g_smem) {
+    g.win = rest;                     // [H][HH]
+    g.bin = g.win + H * HH;           // [HH]
+    g.wi = g.bin + HH;                // [NI][HH][HH]
+    g.bi = g.wi + NI * HH * HH;       // [NI][HH]
+    rest = g.bi + NI * HH;
+  } else {
+    g.win = p_win + blk * H * HH;
+    g.bin = p_bin + blk * HH;
+    g.wi = p_wi + blk * NI * HH * HH;
+    g.bi = p_bi + blk * NI * HH;
+    for (int e = tid; e < H * HH; e += THREADS) g.win[e] = 0.f;
+    for (int e = tid; e < HH; e += THREADS) g.bin[e] = 0.f;
+    for (int e = tid; e < NI * HH * HH; e += THREADS) g.wi[e] = 0.f;
+    for (int e = tid; e < NI * HH; e += THREADS) g.bi[e] = 0.f;
+  }
+  float* hl = rest;                   // [NI+1][R][sHH]
+  float* ob = hl + (NI + 1) * d.R * sHH;  // [R][HC]
+  float* e0 = ob + d.R * HC;          // [R][sHH] each
+  float* e1 = e0 + d.R * sHH;
+  float* gbar = e1 + d.R * sHH;       // cotangent of the state [R][sH]
   float* dy = gbar + tile;            // a stage state's cotangent
-  float* yst = dy + tile;             // stage states [NS][ROWS][sH]
-  float* ks = yst + T::NS * tile;     // stage increments [NS][ROWS][sH]
-  float* dks = ks + T::NS * tile;     // their cotangents [NS][ROWS][sH]
-  float* dxs = dks + T::NS * tile;    // the step's rows of dx [ROWS][NTC]
-  float* dd = dxs + ROWS * NTC;       // their cotangent [ROWS][NTC]
+  float* yst = dy + tile;             // stage states [NS][R][sH]
+  float* ks = yst + T::NS * tile;     // stage increments [NS][R][sH]
+  float* dks = ks + T::NS * tile;     // their cotangents [NS][R][sH]
+  float* dxs = dks + T::NS * tile;    // the step's rows of dx [R][NTC]
+  float* dd = dxs + d.R * NTC;        // their cotangent [R][NTC]
 
   // this block's partials of dWout and dbout: entry (k, q) is owned by the
   // thread that owns column q in field_backward
-  const size_t blk = blockIdx.x;
   float* pwo = p_wo + blk * HH * HC;
   float* pbo = p_bo + blk * HC;
   for (int q = tid; q < HC; q += THREADS) {
@@ -488,8 +546,8 @@ cde_bwd_kernel(CdeDims d, const float* __restrict__ z0,
   }
   __syncthreads();
 
-  const int row0 = blockIdx.x * ROWS;
-  const int nr = min(ROWS, d.B - row0);
+  const int row0 = blockIdx.x * d.R;
+  const int nr = min(d.R, d.B - row0);
   const size_t BH = (size_t)d.B * H;
   for (int u = d.M - 1; u >= 0; --u) {
     const float dt = dts[u];
@@ -514,7 +572,7 @@ cde_bwd_kernel(CdeDims d, const float* __restrict__ z0,
         stage_state<T>(d, s, dt, yst, ks, yst + s * tile, nr);
         __syncthreads();
       }
-      field_hidden<RELU>(d, w, yst + s * tile, hl, ob, nr);
+      field_hidden<RELU, WIDE>(d, w, yst + s * tile, hl, ob, nr);
       contract(d, ob, dxs + T::t(s) * d.C, NTC, ks + s * tile, nr);
     }
 
@@ -529,8 +587,9 @@ cde_bwd_kernel(CdeDims d, const float* __restrict__ z0,
 #pragma unroll
     for (int s = T::NS - 1; s >= 0; --s) {
       // the last stage's activations are still in hl and ob
-      if (s != T::NS - 1) field_hidden<RELU>(d, w, yst + s * tile, hl, ob, nr);
-      field_backward<RELU>(d, w, g, yst + s * tile, dks + s * tile,
+      if (s != T::NS - 1)
+        field_hidden<RELU, WIDE>(d, w, yst + s * tile, hl, ob, nr);
+      field_backward<RELU, WIDE>(d, w, g, yst + s * tile, dks + s * tile,
                            dxs + T::t(s) * d.C, dd + T::t(s) * d.C, NTC, hl,
                            ob, e0, e1, dy, pwo, pbo, nr);
       for (int i = tid; i < nr * H; i += THREADS) {
@@ -549,6 +608,7 @@ cde_bwd_kernel(CdeDims d, const float* __restrict__ z0,
 
   for (int i = tid; i < nr * H; i += THREADS)
     dz0[(size_t)row0 * H + i] = gbar[(i / H) * sH + i % H];
+  if (!d.g_smem) return;
   for (int e = tid; e < H * HH; e += THREADS) p_win[blk * H * HH + e] = g.win[e];
   for (int e = tid; e < HH; e += THREADS) p_bin[blk * HH + e] = g.bin[e];
   for (int e = tid; e < NI * HH * HH; e += THREADS)
@@ -570,29 +630,32 @@ struct BwdArgs {
   cudaStream_t stream;
 };
 
+// the main paths' placement runs its own instance (sde_common.cuh: placed)
 template <class T, bool RELU>
 int run_fwd(const FwdArgs& a) {
-  const int smem = (int)(sizeof(float) * cde_fwd_floats(a.d, T::NS, T::NT));
+  CdeDims d = a.d;
+  const int smem = (int)cde_plan(d, T::NS, T::NT, 0);
+  auto k = d.level == 0 ? cde_fwd_kernel<T, RELU, false>
+                        : cde_fwd_kernel<T, RELU, true>;
   cudaError_t err = cudaFuncSetAttribute(
-      cde_fwd_kernel<T, RELU>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  cde_fwd_kernel<T, RELU><<<(a.d.B + ROWS - 1) / ROWS, THREADS, smem,
-                            a.stream>>>(a.d, a.z0, a.dx, a.dts, a.win, a.bin,
-                                        a.wi, a.bi, a.wo, a.bo, a.ys);
+  k<<<(d.B + d.R - 1) / d.R, THREADS, smem, a.stream>>>(
+      d, a.z0, a.dx, a.dts, a.win, a.bin, a.wi, a.bi, a.wo, a.bo, a.ys);
   return (int)cudaGetLastError();
 }
 
 template <class T, bool RELU>
 int run_bwd(const BwdArgs& a) {
-  const int smem = (int)(sizeof(float) * cde_bwd_floats(a.d, T::NS, T::NT));
+  CdeDims d = a.d;
+  const int smem = (int)cde_plan(d, T::NS, T::NT, 1);
+  auto k = d.level == 0 ? cde_bwd_kernel<T, RELU, false>
+                        : cde_bwd_kernel<T, RELU, true>;
   cudaError_t err = cudaFuncSetAttribute(
-      cde_bwd_kernel<T, RELU>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  cde_bwd_kernel<T, RELU><<<(a.d.B + ROWS - 1) / ROWS, THREADS, smem,
-                            a.stream>>>(
-      a.d, a.z0, a.ys, a.gys, a.dx, a.dts, a.win, a.bin, a.wi, a.bi, a.wo,
+  k<<<(d.B + d.R - 1) / d.R, THREADS, smem, a.stream>>>(
+      d, a.z0, a.ys, a.gys, a.dx, a.dts, a.win, a.bin, a.wi, a.bi, a.wo,
       a.bo, a.ddx, a.dz0, a.p_win, a.p_bin, a.p_wi, a.p_bi, a.p_wo, a.p_bo);
   return (int)cudaGetLastError();
 }
@@ -626,16 +689,35 @@ struct Bwd {
 
 extern "C" {
 
-int fused_cde_rows_per_block() { return ROWS; }
-
-// Dynamic shared memory a launch needs, in bytes (-1 for an unknown method).
+// Dynamic shared memory a launch needs, in bytes, at its placement (above
+// the device's limit when even one row a block with everything else in
+// device memory does not fit; -1 for an unknown method).
 long long fused_cde_smem_bytes(int H, int HH, int C, int n_inner, int method,
                                int backward) {
   int ns = 0, nt = 0;
   if (!stage_counts(method, &ns, &nt)) return -1;
-  const CdeDims d{0, 0, H, HH, C, n_inner};
-  return (long long)sizeof(float) *
-         (backward ? cde_bwd_floats(d, ns, nt) : cde_fwd_floats(d, ns, nt));
+  CdeDims d{0, 0, H, HH, C, n_inner};
+  return (long long)cde_plan(d, ns, nt, backward);
+}
+
+// One field of a launch's plan: 0 the placement (sde_common.cuh), 1 batch
+// rows a block (the leading dimension of the backward's partials is
+// ceil(B / rows)); -1 for an unknown method.
+int fused_cde_plan(int H, int HH, int C, int n_inner, int method,
+                   int backward, int field) {
+  int ns = 0, nt = 0;
+  if (!stage_counts(method, &ns, &nt)) return -1;
+  CdeDims d{0, 0, H, HH, C, n_inner};
+  cde_plan(d, ns, nt, backward);
+  return field == 0 ? d.level : d.R;
+}
+
+// Make later launches take placement `first` or a later one (0: the
+// host's own choice). For tests of each placement.
+int fused_cde_force_placement(int first) {
+  if (first < 0 || first >= PLACEMENTS) return (int)cudaErrorInvalidValue;
+  g_first_placement = first;
+  return 0;
 }
 
 int fused_cde_max_smem() { return max_optin_smem(); }

@@ -35,7 +35,9 @@
 // in the backward, the weight-gradient accumulators, each entry owned by
 // one thread) in shared memory; only the per-step streams touch device
 // memory; exact fp32 FMA on the CUDA cores; per-block partials summed by
-// the wrapper in a fixed order, so runs are bit-reproducible.
+// the wrapper in a fixed order, so runs are bit-reproducible. Wider fields
+// take the device-memory placement of sde_common.cuh (at H = HH with two
+// inner layers: the backward from 80 on, the forward from 128).
 
 #include "sde_common.cuh"
 
@@ -123,16 +125,27 @@ __device__ __forceinline__ float noise_bwd(const Stages& s, int i, float dg,
 }
 
 __host__ __device__ inline size_t fwd_floats(const Dims& d) {
-  return weights_floats(d) + 4 * tile_h(d) + (d.n_inner + 1) * tile_hh(d);
+  return smem_weights(d) + 4 * tile_h(d) + (d.n_inner + 1) * tile_hh(d);
 }
 
 __host__ __device__ inline size_t bwd_floats(const Dims& d) {
-  return weights_floats(d) + grads_floats(d) + 9 * tile_h(d) +
+  return smem_weights(d) + smem_grads(d) + 9 * tile_h(d) +
          (2 * d.n_inner + 4) * tile_hh(d) + THREADS / 32;
 }
 
+// the lowest placement the host may pick (fused_srk_force_placement)
+int g_first_placement = 0;
+
+// The placement of a launch at d's widths; its shared bytes
+inline size_t plan(Dims& d, int backward) {
+  const size_t limit = (size_t)max_optin_smem();
+  return backward ? place(d, bwd_floats, g_first_placement, limit)
+                  : place(d, fwd_floats, g_first_placement, limit);
+}
+
+template <bool WIDE>
 __global__ void __launch_bounds__(THREADS)
-fwd_kernel(Dims d, const float* __restrict__ y0,
+fwd_kernel(Dims dp, const float* __restrict__ y0,
            const float* __restrict__ xh0, const float* __restrict__ xh1,
            const float* __restrict__ dw, const float* __restrict__ i10,
            const float* __restrict__ a0, const float* __restrict__ a1,
@@ -143,17 +156,18 @@ fwd_kernel(Dims d, const float* __restrict__ y0,
            const float* __restrict__ wo, const float* __restrict__ bo,
            float* __restrict__ ys) {
   extern __shared__ float smem[];
-  const int H = d.H, HH = d.HH, sH = odd(H), sHH = odd(HH);
+  const Dims d = placed<WIDE>(dp);
+  const int H = d.H, HH = d.HH, sH = odd(H);
   const Weights w = load_weights(smem, d, wy, wi, bi, wo, bo);
-  float* sy = smem + weights_floats(d);  // y [ROWS][sH]
+  float* sy = smem + smem_weights(d);    // y [R][sH]
   float* s01 = sy + tile_h(d);           // H0_1, the state of f1
   float* sf0 = s01 + tile_h(d);          // f0
   float* sn = sf0 + tile_h(d);           // sum_i coeff_i g_i
-  float* hl = sn + tile_h(d);            // activations [NI+1][ROWS][sHH]
-  const float* hlast = hl + d.n_inner * ROWS * sHH;
+  float* hl = sn + tile_h(d);            // activations [NI+1][R][sHH]
+  const float* hlast = hl + d.n_inner * tile_hh(d);
 
-  const int row0 = blockIdx.x * ROWS;
-  const int nr = min(ROWS, d.B - row0);
+  const int row0 = blockIdx.x * d.R;
+  const int nr = min(d.R, d.B - row0);
   const size_t BH = (size_t)d.B * H, BHH = (size_t)d.B * HH;
   for (int i = threadIdx.x; i < nr * H; i += THREADS)
     sy[(i / H) * sH + i % H] = y0[(size_t)row0 * H + i];
@@ -202,8 +216,9 @@ fwd_kernel(Dims d, const float* __restrict__ y0,
   }
 }
 
+template <bool WIDE>
 __global__ void __launch_bounds__(THREADS)
-bwd_kernel(Dims d, const float* __restrict__ y0, const float* __restrict__ ys,
+bwd_kernel(Dims dp, const float* __restrict__ y0, const float* __restrict__ ys,
            const float* __restrict__ gys, const float* __restrict__ xh0,
            const float* __restrict__ xh1, const float* __restrict__ dw,
            const float* __restrict__ i10, const float* __restrict__ a0,
@@ -221,11 +236,13 @@ bwd_kernel(Dims d, const float* __restrict__ y0, const float* __restrict__ ys,
            float* __restrict__ p_gk1, float* __restrict__ p_gk2,
            float* __restrict__ p_th) {
   extern __shared__ float smem[];
+  const Dims d = placed<WIDE>(dp);
   const int H = d.H, HH = d.HH, NI = d.n_inner, M = d.M;
-  const int sH = odd(H), sHH = odd(HH);
+  const int sH = odd(H);
   const Weights w = load_weights(smem, d, wy, wi, bi, wo, bo);
-  const Grads gr = zero_grads(smem + weights_floats(d), d);
-  float* sy = smem + weights_floats(d) + grads_floats(d);  // y before the step
+  const Grads gr = zero_grads(smem + smem_weights(d), d, p_wy, p_wi, p_bi,
+                              p_wo, p_bo);
+  float* sy = smem + smem_weights(d) + smem_grads(d);  // y before the step
   float* sg = sy + tile_h(d);    // cotangent of y after the step, then before
   float* sz0 = sg + tile_h(d);   // z3 of f0 before the geometric factor
   float* s01 = sz0 + tile_h(d);  // H0_1
@@ -239,14 +256,14 @@ bwd_kernel(Dims d, const float* __restrict__ y0, const float* __restrict__ ys,
   float* e0 = hl1 + (NI + 1) * tile_hh(d);   // MLP cotangents, ping-pong
   float* e1 = e0 + tile_hh(d);
   float* red = e1 + tile_hh(d);              // [THREADS / 32]
-  const float* hlast0 = hl0 + NI * ROWS * sHH;
-  const float* hlast1 = hl1 + NI * ROWS * sHH;
+  const float* hlast0 = hl0 + NI * tile_hh(d);
+  const float* hlast1 = hl1 + NI * tile_hh(d);
 
   const int tid = threadIdx.x;
-  const int row0 = blockIdx.x * ROWS;
-  const int nr = min(ROWS, d.B - row0);
+  const int row0 = blockIdx.x * d.R;
+  const int nr = min(d.R, d.B - row0);
   const size_t BH = (size_t)d.B * H, BHH = (size_t)d.B * HH;
-  for (int i = tid; i < ROWS * sH; i += THREADS) sg[i] = 0.f;
+  for (int i = tid; i < (int)tile_h(d); i += THREADS) sg[i] = 0.f;
   const float sth = sigmoid(theta[0]);
   float th_acc = 0.f;
   __syncthreads();
@@ -373,12 +390,29 @@ bwd_kernel(Dims d, const float* __restrict__ y0, const float* __restrict__ ys,
 
 extern "C" {
 
-int fused_srk_rows_per_block() { return ROWS; }
-
-// Dynamic shared memory a launch needs, in bytes.
+// Dynamic shared memory a launch needs, in bytes, at its placement (above
+// the device's limit when even one row a block with everything else in
+// device memory does not fit).
 long long fused_srk_smem_bytes(int H, int HH, int n_inner, int backward) {
-  const Dims d{0, 0, H, HH, n_inner, 0, 0};
-  return (long long)sizeof(float) * (backward ? bwd_floats(d) : fwd_floats(d));
+  Dims d{0, 0, H, HH, n_inner, 0, 0};
+  return (long long)plan(d, backward);
+}
+
+// One field of a launch's plan: 0 the placement (sde_common.cuh), 1 batch
+// rows a block (the leading dimension of the backward's partials is
+// ceil(B / rows)).
+int fused_srk_plan(int H, int HH, int n_inner, int backward, int field) {
+  Dims d{0, 0, H, HH, n_inner, 0, 0};
+  plan(d, backward);
+  return field == 0 ? d.level : d.R;
+}
+
+// Make later launches take placement `first` or a later one (0: the
+// host's own choice). For tests of each placement.
+int fused_srk_force_placement(int first) {
+  if (first < 0 || first >= PLACEMENTS) return (int)cudaErrorInvalidValue;
+  g_first_placement = first;
+  return 0;
 }
 
 // The most dynamic shared memory one block may opt in to on this device.
@@ -396,12 +430,14 @@ int fused_srk_fwd(const float* y0, const float* xh0, const float* xh1,
                   const float* wo, const float* bo, float* ys, int M, int B,
                   int H, int HH, int n_inner, int mult_y, int geometric,
                   void* stream) {
-  const Dims d{M, B, H, HH, n_inner, mult_y, geometric};
-  const int smem = (int)(sizeof(float) * fwd_floats(d));
+  Dims d{M, B, H, HH, n_inner, mult_y, geometric};
+  const int smem = (int)plan(d, 0);
+  // the main paths' placement runs its own instance (sde_common.cuh: placed)
+  auto k = d.level == 0 ? fwd_kernel<false> : fwd_kernel<true>;
   cudaError_t err = cudaFuncSetAttribute(
-      fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  fwd_kernel<<<(B + ROWS - 1) / ROWS, THREADS, smem, (cudaStream_t)stream>>>(
+  k<<<(B + d.R - 1) / d.R, THREADS, smem, (cudaStream_t)stream>>>(
       d, y0, xh0, xh1, dw, i10, a0, a1, gk0, gk1, gk2, dts, theta, wy, wi, bi,
       wo, bo, ys);
   return (int)cudaGetLastError();
@@ -419,12 +455,14 @@ int fused_srk_bwd(const float* y0, const float* ys, const float* gys,
                   float* p_gk1, float* p_gk2, float* p_th, int M, int B,
                   int H, int HH, int n_inner, int mult_y, int geometric,
                   void* stream) {
-  const Dims d{M, B, H, HH, n_inner, mult_y, geometric};
-  const int smem = (int)(sizeof(float) * bwd_floats(d));
+  Dims d{M, B, H, HH, n_inner, mult_y, geometric};
+  const int smem = (int)plan(d, 1);
+  // the main paths' placement runs its own instance (sde_common.cuh: placed)
+  auto k = d.level == 0 ? bwd_kernel<false> : bwd_kernel<true>;
   cudaError_t err = cudaFuncSetAttribute(
-      bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  bwd_kernel<<<(B + ROWS - 1) / ROWS, THREADS, smem, (cudaStream_t)stream>>>(
+  k<<<(B + d.R - 1) / d.R, THREADS, smem, (cudaStream_t)stream>>>(
       d, y0, ys, gys, xh0, xh1, dw, i10, a0, a1, gk0, gk1, gk2, dts, theta,
       wy, wi, bi, wo, bo, dxh0, dxh1, dy0, p_wy, p_wi, p_bi, p_wo, p_bo, p_a0,
       p_a1, p_gk0, p_gk1, p_gk2, p_th);

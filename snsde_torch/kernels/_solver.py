@@ -14,12 +14,11 @@ import functools
 import numpy as np
 import torch
 
-__all__ = ["MAX_WIDTH", "EMB_IO", "PRECOMP_NO", "MULT_Y_NO", "SolverLib",
+__all__ = ["EMB_IO", "PRECOMP_NO", "MULT_Y_NO", "SolverLib",
            "supports_fused", "check_supported", "check_tensors",
            "kernel_dims", "precomp_gk", "merged_drift_weights",
            "merged_drift_rows", "stage_times"]
 
-MAX_WIDTH = 128
 EMB_IO = {2, 4, 6}
 PRECOMP_NO = {0, 1, 2, 3, 4, 5, 6, 11, 12, 13, 16, 17}
 MULT_Y_NO = {3, 6, 11, 13, 15, 17, 19}
@@ -64,15 +63,14 @@ def check_tensors(label: str, want: dict, got: dict, device) -> None:
 
 def kernel_dims(label: str, y0, wy, w_inner, dts):
     """(M, B, H, HH, n_inner) from the tensors that fix them; ValueError on
-    the wrong rank or on H, HH above MAX_WIDTH."""
+    the wrong rank. Any width is taken here: the kernels place what does
+    not fit shared memory in device memory (`SolverLib.stream` raises where
+    even that cannot launch)."""
     if y0.ndim != 2 or wy.ndim != 2 or w_inner.ndim != 3 or dts.ndim != 1:
         raise ValueError(f"{label} kernel: y0 [B,H], wy [H,HH], w_inner "
                          "[n_inner,HH,HH] and dts [M] expected")
     B, H = y0.shape
     HH = wy.shape[1]
-    if H > MAX_WIDTH or HH > MAX_WIDTH:
-        raise ValueError(f"{label} kernel takes H and HH up to {MAX_WIDTH} "
-                         f"(got H={H}, HH={HH})")
     return dts.shape[0], B, H, HH, w_inner.shape[0]
 
 
@@ -86,13 +84,17 @@ class SolverLib:
     such pair has the same shape of C interface: <name>_fwd and <name>_bwd
     (tensor pointers, null for a tensor given as None, then the ints
     `int_names`, then the stream), <name>_smem_bytes (the ints
-    `shape_names`, then 1 for the backward), <name>_max_smem,
-    <name>_rows_per_block and <name>_error_string. `label` names the pair
+    `shape_names`, then 1 for the backward), <name>_max_smem and
+    <name>_error_string. `label` names the pair
     in errors. The SDE pairs take (M, B, H, HH, n_inner, mult_y,
     geometric) and size their shared memory by (H, HH, n_inner). A library
     may have further launch entries of the same shape (`launches`: suffix
     -> number of tensor pointers) and entries that take ints and return an
-    int (`int_fns`: suffix -> number of ints; `call`)."""
+    int (`int_fns`: suffix -> number of ints; `call`). The SDE and CDE
+    pairs have <name>_plan (the ints `shape_names`, 1 for the backward,
+    then the field: 0 the placement, 1 batch rows a block; `rows`) and
+    <name>_force_placement (`force_placement`). The host-side queries that
+    depend only on the shapes are asked once per shape and kept."""
 
     def __init__(self, name: str, label: str, n_fwd_ptrs: int,
                  n_bwd_ptrs: int,
@@ -106,6 +108,7 @@ class SolverLib:
                         **(launches or {})}
         self._int_fns = dict(int_fns or {})
         self.int_names, self.shape_names = tuple(int_names), tuple(shape_names)
+        self._kept = {}
 
     @functools.cached_property
     def _lib(self) -> ctypes.CDLL:
@@ -120,9 +123,8 @@ class SolverLib:
         fn("smem_bytes").restype = ctypes.c_longlong
         fn("error_string").argtypes = [_I]
         fn("error_string").restype = ctypes.c_char_p
-        for suffix in ("max_smem", "rows_per_block"):
-            fn(suffix).argtypes = []
-            fn(suffix).restype = _I
+        fn("max_smem").argtypes = []
+        fn("max_smem").restype = _I
         for suffix, n in self._int_fns.items():
             fn(suffix).argtypes = [_I] * n
             fn(suffix).restype = _I
@@ -131,31 +133,58 @@ class SolverLib:
     def _fn(self, suffix: str):
         return getattr(self._lib, f"{self.name}_{suffix}")
 
-    def rows_per_block(self) -> int:
-        return self._fn("rows_per_block")()
-
     def call(self, suffix: str, *ints: int) -> int:
         """<name>_<suffix>(*ints) of an entry named in `int_fns`."""
         return self._fn(suffix)(*(int(v) for v in ints))
 
+    def kept(self, suffix: str, *ints: int) -> int:
+        """<name>_<suffix>(*ints), asked once per arguments: for the
+        queries that depend only on the shapes (and on the placement a test
+        forces)."""
+        key = (suffix,) + tuple(int(v) for v in ints)
+        if key not in self._kept:
+            self._kept[key] = self._fn(suffix)(*key[1:])
+        return self._kept[key]
+
+    def rows(self, shape, backward: bool) -> int:
+        """Batch rows a block of a launch at `shape` (the ints
+        `shape_names`): the leading dimension of the per-block partials is
+        ceil(B / rows)."""
+        return self.kept("plan", *shape, int(backward), 1)
+
+    def placement(self, shape, backward: bool) -> int:
+        """The placement of a launch at `shape`: 0 everything in shared
+        memory, 1 the gradient accumulators in device memory, 2 the weights
+        too, 3-5 as 2 with 4, 2, 1 batch rows a block
+        (csrc/sde_common.cuh)."""
+        return self.kept("plan", *shape, int(backward), 0)
+
+    def force_placement(self, first: int) -> None:
+        """Make later launches take placement `first` or a later one; 0
+        restores the host's own choice. For tests of each placement."""
+        if self.call("force_placement", first) != 0:
+            raise ValueError(f"no placement {first}")
+        self._kept.clear()
+
     def stream(self, y0, shape, backward: bool) -> int:
         """The current CUDA stream's handle, after checking that y0 is on
         CUDA (before anything is built) and that the launch's shared memory
-        at `shape` (the ints `shape_names`) fits the device: ValueError
-        otherwise."""
+        at `shape` (the ints `shape_names`), in the placement its plan
+        takes, fits the device: ValueError otherwise."""
         if y0.device.type != "cuda":
             raise ValueError(f"the {self.label} kernels take CUDA tensors; "
                              f"got {y0.device}")
-        need = self._fn("smem_bytes")(*shape, int(backward))
-        limit = self._fn("max_smem")()
+        need = self.kept("smem_bytes", *shape, int(backward))
+        limit = self.kept("max_smem")
         if need > limit:
-            what = ("backward kernel keeps weights and gradient accumulators"
-                    if backward else "forward kernel keeps weights")
+            part = "backward" if backward else "forward"
             dims = ", ".join(f"{n}={v}" for n, v in zip(self.shape_names,
                                                         shape))
             raise ValueError(
-                f"{self.label} {what} in shared memory: {dims} needs {need} "
-                f"bytes, above this device's {limit}-byte limit per block")
+                f"{self.label} {part} kernel: {dims} needs {need} bytes of "
+                f"shared memory a block even with the weights and gradient "
+                f"accumulators in device memory and its fewest rows, above "
+                f"this device's {limit}-byte limit per block")
         return torch.cuda.current_stream(y0.device).cuda_stream
 
     def launch(self, which: str, tensors, ints, stream: int) -> None:

@@ -94,8 +94,12 @@ def _stage_grid(grid, hs, ut):
 def supports_fused_cde(func, method: str = "rk4") -> bool:
     """True when the CUDA kernels take (field, method): a field with
     `fused_weights()` (FinalTanh, SingleHiddenLayer; not GRU-ODE) on any
-    tableau of _TABLEAUS. A shape whose weights do not fit the kernels'
-    shared memory raises ValueError at launch."""
+    tableau of _TABLEAUS, at any width: every field the JAX package's gate
+    takes (snsde/kernels/fused_cde.py:600-631, H*C up to 4096) and more.
+    Weights and accumulators that do not fit a block's shared memory are
+    read from device memory (csrc/sde_common.cuh's placements); only a
+    field whose tiles do not fit even at one batch row a block raises
+    ValueError at launch, never a quiet route to the eager solver."""
     return method in _TABLEAUS and hasattr(func, "fused_weights")
 
 
@@ -116,21 +120,17 @@ class FusedCDEGrads(NamedTuple):
 # Plain PyTorch versions (the CPU path, and the kernels' yardstick on the card)
 # ---------------------------------------------------------------------------
 
-def _act(act, z):
-    return torch.relu(z) if act == "relu" else torch.tanh(z)
-
-
 def _act_d(act, h):
     return (h > 0).to(h.dtype) if act == "relu" else 1.0 - h * h
 
 
 def _field(y, d, win, bin, w_inner, b_inner, wout, bout, act):
     """One field evaluation at stage state y [B, H] against the stage's
-    control derivative d [B, C]: (k [B, H], hidden activations, O
-    [B, H*C])."""
-    hs = [_act(act, y @ win + bin)]
+    control derivative d [B, C], `act` the hidden layers' activation
+    function: (k [B, H], hidden activations, O [B, H*C])."""
+    hs = [act(y @ win + bin)]
     for l in range(w_inner.shape[0]):
-        hs.append(_act(act, hs[-1] @ w_inner[l] + b_inner[l]))
+        hs.append(act(hs[-1] @ w_inner[l] + b_inner[l]))
     o = torch.tanh(hs[-1] @ wout + bout)
     B, H, C = y.shape[0], y.shape[1], d.shape[1]
     k = (o.reshape(B, H, C) * d[:, None, :]).sum(-1)
@@ -156,14 +156,16 @@ def _stage_states(z, h, ds, tidx, A, w):
 
 
 def fused_cde_forward_reference(z0, dx, dts, win, bin, w_inner, b_inner,
-                                wout, bout, *, method: str,
-                                act: str) -> torch.Tensor:
+                                wout, bout, *, method: str, act: str,
+                                relu=torch.relu) -> torch.Tensor:
     """Eager explicit-RK loop: ys [M, B, H] (z after each step). Weights in
-    [in, out] layout; dx [M, B, NT*C]."""
+    [in, out] layout; dx [M, B, NT*C]. With act "relu" every hidden
+    activation is `relu` (a stand-in may probe the pre-activations)."""
     _, A, btab = _TABLEAUS[method]
     _, tidx = _stage_times(method)
     NT = max(tidx) + 1
-    w = (win, bin, w_inner, b_inner, wout, bout, act)
+    w = (win, bin, w_inner, b_inner, wout, bout,
+         relu if act == "relu" else torch.tanh)
     z = z0
     ys = []
     for u in range(dts.shape[0]):
@@ -201,14 +203,18 @@ def _field_bwd(y, hs, o, d, dk, win, w_inner, wout, act, acc):
 
 def fused_cde_backward_reference(z0, ys, gys, dx, dts, win, bin, w_inner,
                                  b_inner, wout, bout, *, method: str,
-                                 act: str) -> FusedCDEGrads:
+                                 act: str,
+                                 relu=torch.relu) -> FusedCDEGrads:
     """Eager reverse loop mirroring the backward kernel (and the JAX
     `_bwd_kernel`): recompute the stage states from the state before the
-    step, then reverse the tableau from the last stage to the first."""
+    step, then reverse the tableau from the last stage to the first.
+    `relu` as in the forward; its derivative is read from its output
+    (> 0)."""
     _, A, btab = _TABLEAUS[method]
     _, tidx = _stage_times(method)
     NT = max(tidx) + 1
-    w = (win, bin, w_inner, b_inner, wout, bout, act)
+    w = (win, bin, w_inner, b_inner, wout, bout,
+         relu if act == "relu" else torch.tanh)
     acc = {"win": torch.zeros_like(win), "bin": torch.zeros_like(bin),
            "w_inner": torch.zeros_like(w_inner),
            "b_inner": torch.zeros_like(b_inner),
@@ -246,7 +252,8 @@ def fused_cde_backward_reference(z0, ys, gys, dx, dts, win, bin, w_inner,
 _LIB = SolverLib("fused_cde", "fused CDE", 10, 19,
                  int_names=("M", "B", "H", "HH", "C", "n_inner", "method",
                             "act"),
-                 shape_names=("H", "HH", "C", "n_inner", "method"))
+                 shape_names=("H", "HH", "C", "n_inner", "method"),
+                 int_fns={"plan": 7, "force_placement": 1})
 
 
 def check_kernel_inputs(z0, dx, dts, win, bin, w_inner, b_inner, wout, bout,
@@ -316,7 +323,7 @@ def fused_cde_backward(z0, ys, gys, dx, dts, win, bin, w_inner, b_inner,
     M, B, H, HH, C, n_inner = dims
     code = _METHOD_CODE[method]
     stream = _LIB.stream(z0, (H, HH, C, n_inner, code), backward=True)
-    nb = -(-B // _LIB.rows_per_block())
+    nb = -(-B // _LIB.rows((H, HH, C, n_inner, code), backward=True))
     empty = lambda *shape: torch.empty(shape, dtype=torch.float32,
                                        device=z0.device)
     ddx, dz0 = empty(*dx.shape), empty(B, H)

@@ -45,7 +45,7 @@ import torch
 
 from ..ops.brownian import brownian_increments
 from ..ops.solve import make_grid
-from ._solver import (MAX_WIDTH, MULT_Y_NO, SolverLib, check_supported,
+from ._solver import (MULT_Y_NO, SolverLib, check_supported,
                       check_tensors, kernel_dims, merged_drift_rows,
                       merged_drift_weights, precomp_gk, stage_times,
                       supports_fused)
@@ -53,7 +53,7 @@ from ._solver import (MAX_WIDTH, MULT_Y_NO, SolverLib, check_supported,
 __all__ = ["fused_em_solve", "fused_em_inputs", "supports_fused", "FusedEM",
            "fused_em_forward", "fused_em_backward",
            "fused_em_forward_reference", "fused_em_backward_reference",
-           "FusedEMGrads", "MAX_WIDTH"]
+           "FusedEMGrads"]
 
 # launches of each CUDA kernel since the count was last set to 0
 FWD_LAUNCHES = 0
@@ -80,16 +80,18 @@ class FusedEMGrads(NamedTuple):
 
 def fused_em_forward_reference(y0, xh, dw, a, gk, dts, theta, wy, w_inner,
                                b_inner, wout, bo, *, mult_y: bool,
-                               geometric: bool) -> torch.Tensor:
+                               geometric: bool,
+                               relu=torch.relu) -> torch.Tensor:
     """Eager EM loop over the merged drift: ys [M, B, H] (y after each
-    step). Weights in [in, out] layout; theta [1]."""
+    step). Weights in [in, out] layout; theta [1]. Every relu of the drift
+    MLP is `relu` (a stand-in may probe the pre-activations)."""
     sth = torch.sigmoid(theta.reshape(()))
     y = y0
     ys = []
     for u in range(dts.shape[0]):
-        h = torch.relu(y @ wy + a[u] + xh[u])
+        h = relu(y @ wy + a[u] + xh[u])
         for l in range(w_inner.shape[0]):
-            h = torch.relu(h @ w_inner[l] + b_inner[l])
+            h = relu(h @ w_inner[l] + b_inner[l])
         z3 = h @ wout + bo
         if geometric:
             z3 = z3 * torch.tanh(y)
@@ -103,11 +105,13 @@ def fused_em_forward_reference(y0, xh, dw, a, gk, dts, theta, wy, w_inner,
 
 def fused_em_backward_reference(y0, ys, gys, xh, dw, a, gk, dts, theta, wy,
                                 w_inner, b_inner, wout, bo, *, mult_y: bool,
-                                geometric: bool) -> FusedEMGrads:
+                                geometric: bool,
+                                relu=torch.relu) -> FusedEMGrads:
     """Eager reverse loop mirroring the backward kernel (and the JAX
     `_bwd_kernel`): recompute each step from the state before it, then
     back through the diffusion bound, mult_y, the drift MLP and the merged
-    drift input."""
+    drift input. `relu` as in the forward; its derivative is read from
+    its output (> 0)."""
     sth = torch.sigmoid(theta.reshape(()))
     n_inner = w_inner.shape[0]
     gbar = torch.zeros_like(y0)
@@ -120,9 +124,9 @@ def fused_em_backward_reference(y0, ys, gys, xh, dw, a, gk, dts, theta, wy,
     for u in range(dts.shape[0] - 1, -1, -1):
         gbar = gbar + gys[u]
         y = y0 if u == 0 else ys[u - 1]
-        hs = [torch.relu(y @ wy + a[u] + xh[u])]
+        hs = [relu(y @ wy + a[u] + xh[u])]
         for l in range(n_inner):
-            hs.append(torch.relu(hs[-1] @ w_inner[l] + b_inner[l]))
+            hs.append(relu(hs[-1] @ w_inner[l] + b_inner[l]))
         z3l = hs[-1] @ wout + bo
         ty = torch.tanh(y)
         f = torch.tanh(z3l * ty if geometric else z3l)
@@ -165,15 +169,17 @@ def fused_em_backward_reference(y0, ys, gys, xh, dw, a, gk, dts, theta, wy,
 # ---------------------------------------------------------------------------
 
 # built and loaded at first launch
-_LIB = SolverLib("fused_em", "fused EM", 13, 24)
+_LIB = SolverLib("fused_em", "fused EM", 13, 24,
+                 int_fns={"plan": 5, "force_placement": 1})
 
 
 def check_kernel_inputs(y0, xh, dw, a, gk, dts, theta, wy, w_inner, b_inner,
                         wout, bo, ys=None, gys=None):
     """Raise ValueError on what the kernels do not take: a dtype other
     than float32, tensors on different devices, a non-contiguous tensor,
-    a shape that disagrees with y0/wy/w_inner/dts, or H, HH above
-    MAX_WIDTH. Returns (M, B, H, HH, n_inner)."""
+    or a shape that disagrees with y0/wy/w_inner/dts. Every width is
+    taken (csrc/sde_common.cuh places what does not fit shared memory in
+    device memory). Returns (M, B, H, HH, n_inner)."""
     M, B, H, HH, n_inner = dims = kernel_dims("fused EM", y0, wy, w_inner,
                                               dts)
     want = {"y0": (B, H), "xh": (M, B, HH), "dw": (M, B, H), "a": (M, HH),
@@ -223,7 +229,7 @@ def fused_em_backward(y0, ys, gys, xh, dw, a, gk, dts, theta, wy, w_inner,
                                b_inner, wout, bo, ys=ys, gys=gys)
     stream = _LIB.stream(y0, dims[2:], backward=True)
     M, B, H, HH, n_inner = dims
-    nb = -(-B // _LIB.rows_per_block())
+    nb = -(-B // _LIB.rows(dims[2:], backward=True))
     empty = lambda *shape: torch.empty(shape, dtype=torch.float32,
                                        device=y0.device)
     dxh, dy0 = empty(M, B, HH), empty(B, H)

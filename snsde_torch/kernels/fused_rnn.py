@@ -1,7 +1,8 @@
 """Fused GRU and LSTM recurrences: hand-written CUDA kernels for Hopper
 (snsde_torch/csrc/fused_rnn.cu), a forward and a backward behind each of two
-`torch.autograd.Function`s; the LSTM's backward is two kernels, the reverse
-recurrence and the weight-gradient product after it.
+`torch.autograd.Function`s; each backward is two kernels, the reverse
+recurrence and the weight-gradient product after it (one product kernel,
+shared by both pairs).
 
 Replaces the Pallas TPU kernels of snsde/kernels/fused_rnn.py — the GRU's
 `_fused_gru` (pallas_call at :312) and `_fused_gru_bwd` (:396), the LSTM's
@@ -40,6 +41,8 @@ __all__ = ["fused_gru_scan", "fused_lstm_scan", "supports_fused_gru",
            "supports_fused_lstm", "FusedGRU", "FusedLSTM",
            "fused_gru_forward", "fused_gru_backward",
            "fused_gru_forward_reference", "fused_gru_backward_reference",
+           "fused_gru_backward_recurrence", "fused_gru_weight_grads",
+           "fused_gru_weight_grads_reference", "fused_gru_plan",
            "fused_lstm_forward", "fused_lstm_backward",
            "fused_lstm_forward_reference", "fused_lstm_backward_reference",
            "fused_lstm_backward_recurrence", "fused_lstm_weight_grads",
@@ -49,6 +52,7 @@ __all__ = ["fused_gru_scan", "fused_lstm_scan", "supports_fused_gru",
 # launches of each CUDA kernel since the count was last set to 0
 GRU_FWD_LAUNCHES = 0
 GRU_BWD_LAUNCHES = 0
+GRU_WGRAD_LAUNCHES = 0
 LSTM_FWD_LAUNCHES = 0
 LSTM_BWD_LAUNCHES = 0
 LSTM_WGRAD_LAUNCHES = 0
@@ -78,7 +82,7 @@ def supports_fused_lstm(cell) -> bool:
 
 
 class FusedGRUGrads(NamedTuple):
-    """Cotangents of the fused GRU's inputs (per-block partials summed)."""
+    """Cotangents of the fused GRU's inputs (split partials summed)."""
     dgi: torch.Tensor                    # [L, B, 3H]
     dh0: torch.Tensor                    # [B, H]
     dwhh: torch.Tensor                   # [H, 3H]
@@ -122,14 +126,13 @@ def fused_gru_forward_reference(gi, h0, whh, bhh, hdec=None) -> torch.Tensor:
     return torch.stack(hs)
 
 
-def fused_gru_backward_reference(gi, hs, ghs, h0, whh, bhh,
-                                 hdec=None) -> FusedGRUGrads:
-    """Eager reverse loop mirroring the backward kernel (and the JAX
-    `_bwd_kernel`): recompute the gates from the state before each step,
-    then back through the gates, W_hh and the decay."""
-    H = h0.shape[1]
-    dwhh, dbhh = torch.zeros_like(whh), torch.zeros_like(bhh)
-    dgi = torch.empty_like(gi)
+def _gru_backward_loop(gi, hs, ghs, h0, whh, bhh, hdec=None):
+    """The reverse loop of the GRU backward (the JAX `_bwd_kernel`'s):
+    recompute the gates from the cell's input state before each step, then
+    back through the gates, W_hh and the decay. (dgi [L, B, 3H] = [dr, dz,
+    dn], dgh [L, B, 3H] = [dr, dz, dn r] (W_hh's cotangent), dh0, dhdec or
+    None.)"""
+    dgi, dgh = torch.empty_like(gi), torch.empty_like(gi)
     dhdec = torch.empty_like(hdec) if hdec is not None else None
     gbar = torch.zeros_like(h0)
     for t in range(gi.shape[0] - 1, -1, -1):
@@ -140,16 +143,38 @@ def fused_gru_backward_reference(gi, hs, ghs, h0, whh, bhh,
         dn_pre = gbar * (1.0 - z) * (1.0 - n * n)
         dr_pre = dn_pre * ghn * r * (1.0 - r)
         dz_pre = gbar * (hin - n) * z * (1.0 - z)
-        dgh = torch.cat([dr_pre, dz_pre, dn_pre * r], dim=-1)
+        dgh[t] = torch.cat([dr_pre, dz_pre, dn_pre * r], dim=-1)
         dgi[t] = torch.cat([dr_pre, dz_pre, dn_pre], dim=-1)
-        dwhh += hin.T @ dgh
-        dbhh += dgh.sum(0)
-        dhin = gbar * z + dgh @ whh.T
+        dhin = gbar * z + dgh[t] @ whh.T
         if hdec is not None:
             dhdec[t] = dhin * h
             dhin = dhin * hdec[t]
         gbar = dhin
-    return FusedGRUGrads(dgi, gbar, dwhh, dbhh, dhdec)
+    return dgi, dgh, gbar, dhdec
+
+
+def fused_gru_weight_grads_reference(h0, hs, dgh, hdec=None):
+    """(dW_hh [H, 3H], db_hh [3H]) from the cell's input states and W_hh's
+    cotangent dgh [L, B, 3H]: the gates' h-part is x_t W_hh + b_hh with
+    x_t = h_{t-1} hdec_t (h_{-1} = h0; no decay without hdec), so dW_hh =
+    sum_t x_t^T dgh_t and db_hh = sum dgh. One product over (step, row),
+    as the weight-gradient kernel computes it."""
+    H, G = hs.shape[-1], dgh.shape[-1]
+    x = torch.cat([h0[None], hs[:-1]])
+    if hdec is not None:
+        x = x * hdec
+    return x.reshape(-1, H).T @ dgh.reshape(-1, G), dgh.reshape(-1, G).sum(0)
+
+
+def fused_gru_backward_reference(gi, hs, ghs, h0, whh, bhh,
+                                 hdec=None) -> FusedGRUGrads:
+    """Eager reverse loop mirroring the backward kernels (and the JAX
+    `_bwd_kernel`), then the weight gradients from the cell's input states
+    and dgh (fused_gru_weight_grads_reference)."""
+    dgi, dgh, dh0, dhdec = _gru_backward_loop(gi, hs, ghs, h0, whh, bhh,
+                                              hdec)
+    return FusedGRUGrads(dgi, dh0, *fused_gru_weight_grads_reference(
+        h0, hs, dgh, hdec), dhdec)
 
 
 def _lstm_cell(g, h, c, whh, bhh):
@@ -217,11 +242,13 @@ def fused_lstm_backward_reference(gi, hs, cs, ghs, whh,
 # ---------------------------------------------------------------------------
 
 # built and loaded at first launch; one library, csrc/fused_rnn.cu
-_GRU = SolverLib("fused_gru", "fused GRU", 6, 12, int_names=("L", "B", "H"),
-                 shape_names=("H",), source="fused_rnn")
+_GRU = SolverLib("fused_gru", "fused GRU", 6, 11, int_names=("L", "B", "H"),
+                 shape_names=("H", "B"), source="fused_rnn",
+                 launches={"wgrad": 5},
+                 int_fns={"plan": 4, "wgrad_splits": 3})
 _LSTM = SolverLib("fused_lstm", "fused LSTM", 5, 7,
                   int_names=("L", "B", "H"), shape_names=("H", "B"),
-                  source="fused_rnn", launches={"wgrad": 4},
+                  source="fused_rnn", launches={"wgrad": 3},
                   int_fns={"plan": 4, "wgrad_splits": 3})
 _PLAN_FIELDS = ("cluster", "rows", "w_smem", "rows_per_thread",
                 "active_clusters", "smem_bytes")
@@ -275,7 +302,7 @@ def fused_gru_forward(gi, h0, whh, bhh, hdec=None) -> torch.Tensor:
     if gi.device.type == "cpu":
         return fused_gru_forward_reference(gi, h0, whh, bhh, hdec)
     L, B, H = check_gru_inputs(gi, h0, whh, bhh, hdec)
-    stream = _GRU.stream(gi, (H,), backward=False)
+    stream = _GRU.stream(gi, (H, B), backward=False)
     hs = _empty(L, B, H, device=gi.device)
     _GRU.launch("fwd", (gi, h0, whh, bhh, hdec, hs), (L, B, H), stream)
     GRU_FWD_LAUNCHES += 1
@@ -283,24 +310,71 @@ def fused_gru_forward(gi, h0, whh, bhh, hdec=None) -> torch.Tensor:
 
 
 def fused_gru_backward(gi, hs, ghs, h0, whh, bhh, hdec=None) -> FusedGRUGrads:
-    """Cotangents of the GRU's inputs given ghs = dL/dhs: the CUDA backward
-    kernel for CUDA tensors (per-block partials summed here), the plain
-    version for CPU tensors."""
-    global GRU_BWD_LAUNCHES
+    """Cotangents of the GRU's inputs given ghs = dL/dhs: for CUDA tensors
+    the reverse-recurrence kernel (dgi, dh0, dhdec and W_hh's cotangent
+    dgh), then the weight-gradient kernel (fused_gru_weight_grads); the
+    plain version for CPU tensors."""
     if gi.device.type == "cpu":
         return fused_gru_backward_reference(gi, hs, ghs, h0, whh, bhh, hdec)
+    dgi, dgh, dh0, dhdec = fused_gru_backward_recurrence(gi, hs, ghs, h0,
+                                                         whh, bhh, hdec)
+    return FusedGRUGrads(dgi, dh0, *fused_gru_weight_grads(h0, hs, dgh,
+                                                           hdec), dhdec)
+
+
+def fused_gru_backward_recurrence(gi, hs, ghs, h0, whh, bhh, hdec=None):
+    """(dgi, dgh, dh0, dhdec), the reverse recurrence alone: dgi [L, B,
+    3H] = [dr, dz, dn], W_hh's cotangent dgh [L, B, 3H] = [dr, dz, dn r],
+    dh0 [B, H] and dhdec [L, B, H] (None without hdec). The CUDA kernel for
+    CUDA tensors, the plain reverse loop for CPU tensors."""
+    global GRU_BWD_LAUNCHES
+    if gi.device.type == "cpu":
+        return _gru_backward_loop(gi, hs, ghs, h0, whh, bhh, hdec)
     L, B, H = check_gru_inputs(gi, h0, whh, bhh, hdec, hs, ghs)
-    stream = _GRU.stream(gi, (H,), backward=True)
-    nb = -(-B // _GRU.rows_per_block())
+    stream = _GRU.stream(gi, (H, B), backward=True)
     dev = gi.device
-    dgi, dh0 = _empty(L, B, 3 * H, device=dev), _empty(B, H, device=dev)
-    p_whh, p_bhh = _empty(nb, H, 3 * H, device=dev), _empty(nb, 3 * H,
-                                                             device=dev)
+    dgi, dgh = _empty(L, B, 3 * H, device=dev), _empty(L, B, 3 * H,
+                                                       device=dev)
+    dh0 = _empty(B, H, device=dev)
     dhdec = _empty(L, B, H, device=dev) if hdec is not None else None
-    _GRU.launch("bwd", (gi, h0, hs, ghs, whh, bhh, hdec, dgi, dh0, p_whh,
-                        p_bhh, dhdec), (L, B, H), stream)
+    _GRU.launch("bwd", (gi, h0, hs, ghs, whh, bhh, hdec, dgi, dgh, dh0,
+                        dhdec), (L, B, H), stream)
     GRU_BWD_LAUNCHES += 1
-    return FusedGRUGrads(dgi, dh0, p_whh.sum(0), p_bhh.sum(0), dhdec)
+    return dgi, dgh, dh0, dhdec
+
+
+def _weight_grads(lib, label, gates, hs, dg, ptrs, others):
+    """(dW_hh, db_hh) of the weight-gradient kernel, launched on `ptrs`
+    (the library's order) after checking hs, dg and `others`: its split
+    partials [S, H + 1, G H] (dW_hh's rows, then db_hh) summed here in a
+    fixed order."""
+    if hs.ndim != 3 or dg.shape[:2] != hs.shape[:2]:
+        raise ValueError(f"{label} weight-gradient kernel: hs [L, B, H] and "
+                         f"a cotangent [L, B, {gates}H] expected")
+    L, B, H = hs.shape
+    want = {"h0": (B, H), "hs": (L, B, H), "hdec": (L, B, H),
+            "dg": (L, B, gates * H)}
+    check_tensors(label, want, {**others, "hs": hs, "dg": dg}, hs.device)
+    stream = lib.stream(hs, (H, B), backward=True)
+    S = lib.kept("wgrad_splits", L, B, H)
+    p = _empty(S, H + 1, gates * H, device=hs.device)
+    lib.launch("wgrad", ptrs + (p,), (L, B, H), stream)
+    s = p.sum(0)
+    return s[:H], s[H]
+
+
+def fused_gru_weight_grads(h0, hs, dgh, hdec=None):
+    """(dW_hh, db_hh) from the cell's input states (h0 [B, H], hs [L, B,
+    H], hdec [L, B, H] or None) and W_hh's cotangent dgh [L, B, 3H]: the
+    CUDA weight-gradient kernel for CUDA tensors (its split partials summed
+    here, in a fixed order), the plain version for CPU tensors."""
+    global GRU_WGRAD_LAUNCHES
+    if hs.device.type == "cpu":
+        return fused_gru_weight_grads_reference(h0, hs, dgh, hdec)
+    out = _weight_grads(_GRU, "fused GRU", 3, hs, dgh, (h0, hs, hdec, dgh),
+                        {"h0": h0, "hdec": hdec})
+    GRU_WGRAD_LAUNCHES += 1
+    return out
 
 
 def fused_lstm_forward(gi, whh, bhh, save_cs: bool = True):
@@ -350,29 +424,28 @@ def fused_lstm_weight_grads(hs, dgi):
     global LSTM_WGRAD_LAUNCHES
     if hs.device.type == "cpu":
         return fused_lstm_weight_grads_reference(hs, dgi)
-    if hs.ndim != 3 or dgi.shape[:2] != hs.shape[:2]:
-        raise ValueError("fused LSTM weight-gradient kernel: hs [L, B, H] "
-                         "and dgi [L, B, 4H] expected")
-    L, B, H = hs.shape
-    check_tensors("fused LSTM", {"hs": (L, B, H), "dgi": (L, B, 4 * H)},
-                  {"hs": hs, "dgi": dgi}, hs.device)
-    stream = _LSTM.stream(hs, (H, B), backward=True)
-    S = _LSTM.call("wgrad_splits", L, B, H)
-    p_whh = _empty(S, H, 4 * H, device=hs.device)
-    p_bhh = _empty(S, 4 * H, device=hs.device)
-    _LSTM.launch("wgrad", (hs, dgi, p_whh, p_bhh), (L, B, H), stream)
+    out = _weight_grads(_LSTM, "fused LSTM", 4, hs, dgi, (hs, dgi), {})
     LSTM_WGRAD_LAUNCHES += 1
-    return p_whh.sum(0), p_bhh.sum(0)
+    return out
 
 
-def fused_lstm_plan(H: int, B: int, backward: bool) -> dict:
-    """The CUDA library's plan of an LSTM launch at (H, B): CTAs per
+def _plan(lib, H, B, backward):
+    return {name: lib.call("plan", H, B, int(backward), i)
+            for i, name in enumerate(_PLAN_FIELDS)}
+
+
+def fused_gru_plan(H: int, B: int, backward: bool) -> dict:
+    """The CUDA library's plan of a GRU launch at (H, B): CTAs per
     cluster, batch rows per cluster, whether the W_hh slices sit in shared
     memory, rows per thread, cudaOccupancyMaxActiveClusters (a negative
     CUDA error when the plan cannot be scheduled) and the shared bytes per
     CTA. Needs the card."""
-    return {name: _LSTM.call("plan", H, B, int(backward), i)
-            for i, name in enumerate(_PLAN_FIELDS)}
+    return _plan(_GRU, H, B, backward)
+
+
+def fused_lstm_plan(H: int, B: int, backward: bool) -> dict:
+    """As fused_gru_plan, for an LSTM launch."""
+    return _plan(_LSTM, H, B, backward)
 
 
 class FusedGRU(torch.autograd.Function):

@@ -114,12 +114,12 @@ def _coeffs(dw, i10, dt, rdt, rsq):
             + _BETA4[i] * I111r for i in range(4)]
 
 
-def _drift(y, xh, a, wy, w_inner, b_inner, wout, bo, geometric):
+def _drift(y, xh, a, wy, w_inner, b_inner, wout, bo, geometric, relu):
     """The merged drift MLP: (f, hidden activations, z3 before the
     geometric factor)."""
-    hs = [torch.relu(y @ wy + a + xh)]
+    hs = [relu(y @ wy + a + xh)]
     for l in range(w_inner.shape[0]):
-        hs.append(torch.relu(hs[-1] @ w_inner[l] + b_inner[l]))
+        hs.append(relu(hs[-1] @ w_inner[l] + b_inner[l]))
     z3l = hs[-1] @ wout + bo
     return torch.tanh(z3l * torch.tanh(y) if geometric else z3l), hs, z3l
 
@@ -147,12 +147,13 @@ def _stages(y, f0, gks, i10, sth, dt, sq, rdt, mult_y):
 
 def fused_srk_forward_reference(y0, xh0, xh1, dw, i10, a0, a1, gk0, gk1, gk2,
                                 dts, theta, wy, w_inner, b_inner, wout, bo, *,
-                                mult_y: bool,
-                                geometric: bool) -> torch.Tensor:
+                                mult_y: bool, geometric: bool,
+                                relu=torch.relu) -> torch.Tensor:
     """Eager SRIW1 loop over the merged drift: ys [M, B, H] (y after each
-    step). Weights in [in, out] layout; theta [1]."""
+    step). Weights in [in, out] layout; theta [1]. Every relu of the drift
+    MLP is `relu` (a stand-in may probe the pre-activations)."""
     sth = torch.sigmoid(theta.reshape(()))
-    w = (wy, w_inner, b_inner, wout, bo, geometric)
+    w = (wy, w_inner, b_inner, wout, bo, geometric, relu)
     y = y0
     ys = []
     for u in range(dts.shape[0]):
@@ -194,13 +195,14 @@ def _drift_bwd(df, state, hs, z3l, wy, w_inner, wout, geometric, acc):
 
 def fused_srk_backward_reference(y0, ys, gys, xh0, xh1, dw, i10, a0, a1, gk0,
                                  gk1, gk2, dts, theta, wy, w_inner, b_inner,
-                                 wout, bo, *, mult_y: bool,
-                                 geometric: bool) -> FusedSRKGrads:
+                                 wout, bo, *, mult_y: bool, geometric: bool,
+                                 relu=torch.relu) -> FusedSRKGrads:
     """Eager reverse loop mirroring the backward kernel (and the JAX
     `_bwd_kernel`): recompute every stage from the state before the step,
-    then reverse the tableau in the order f1, g3, g2, g1, g0, f0."""
+    then reverse the tableau in the order f1, g3, g2, g1, g0, f0. `relu`
+    as in the forward; its derivative is read from its output (> 0)."""
     sth = torch.sigmoid(theta.reshape(()))
-    w = (wy, w_inner, b_inner, wout, bo, geometric)
+    w = (wy, w_inner, b_inner, wout, bo, geometric, relu)
     acc = {"wy": torch.zeros_like(wy), "w_inner": torch.zeros_like(w_inner),
            "b_inner": torch.zeros_like(b_inner),
            "wout": torch.zeros_like(wout), "bo": torch.zeros_like(bo)}
@@ -282,7 +284,8 @@ def fused_srk_backward_reference(y0, ys, gys, xh0, xh1, dw, i10, a0, a1, gk0,
 # ---------------------------------------------------------------------------
 
 # built and loaded at first launch
-_LIB = SolverLib("fused_srk", "fused SRK", 18, 33)
+_LIB = SolverLib("fused_srk", "fused SRK", 18, 33,
+                 int_fns={"plan": 5, "force_placement": 1})
 
 
 def check_kernel_inputs(y0, xh0, xh1, dw, i10, a0, a1, gk0, gk1, gk2, dts,
@@ -290,8 +293,9 @@ def check_kernel_inputs(y0, xh0, xh1, dw, i10, a0, a1, gk0, gk1, gk2, dts,
                         gys=None):
     """Raise ValueError on what the kernels do not take: a dtype other
     than float32, tensors on different devices, a non-contiguous tensor,
-    a shape that disagrees with y0/wy/w_inner/dts, or H, HH above
-    MAX_WIDTH. Returns (M, B, H, HH, n_inner)."""
+    or a shape that disagrees with y0/wy/w_inner/dts. Every width is
+    taken (csrc/sde_common.cuh places what does not fit shared memory in
+    device memory). Returns (M, B, H, HH, n_inner)."""
     M, B, H, HH, n_inner = dims = kernel_dims("fused SRK", y0, wy, w_inner,
                                               dts)
     s3, s3h, row, rowh = (M, B, H), (M, B, HH), (M, H), (M, HH)
@@ -344,7 +348,7 @@ def fused_srk_backward(y0, ys, gys, xh0, xh1, dw, i10, a0, a1, gk0, gk1, gk2,
     dims = check_kernel_inputs(y0, *args, ys=ys, gys=gys)
     stream = _LIB.stream(y0, dims[2:], backward=True)
     M, B, H, HH, n_inner = dims
-    nb = -(-B // _LIB.rows_per_block())
+    nb = -(-B // _LIB.rows(dims[2:], backward=True))
     empty = lambda *shape: torch.empty(shape, dtype=torch.float32,
                                        device=y0.device)
     dxh0, dxh1, dy0 = empty(M, B, HH), empty(M, B, HH), empty(B, H)

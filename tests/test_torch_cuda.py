@@ -41,19 +41,25 @@ and a control of 35 channels), each at two scales of the weights:
 Both cases also pass that float64 check, and print its readings, largest
 and root-mean-square (run pytest with -s to see them).
 
-The GRU and LSTM pairs run at init-scale weights over H = 5 ... 512 (the
-GRU's W_hh from H = 256 on is read from device memory, and from H = 128 on
-its gradient partials stay there: the route for weights that do not fit a
-block's shared memory), a ragged batch, with and
-without the GRU's decay stream, under the same rules: hs within 5e-6 of
-its largest entry, every cotangent within 1e-5, the float64 rms rule on
-every output. The LSTM pair splits W_hh over a thread-block cluster: it
-also runs at every kind of its plan (one CTA; clusters of 2, 4 and 8
-CTAs with the W_hh slices in shared memory, units split evenly and
-raggedly; the slices in device memory) at two batches, in both scan
-directions and as the inference primal, and its backward is
-bit-reproducible. The plain-mode pairs are also held against cuDNN
-(`torch.nn.GRU`/`torch.nn.LSTM` with TF32 off) on the same weights.
+The EM, SRK and CDE pairs also run at H = HH = 128 (one and two inner
+layers) and 256, where the weights and the gradient accumulators no
+longer fit a block's shared memory, in every placement of
+csrc/sde_common.cuh forced once (the accumulators in device memory, the
+weights too, then 4, 2 and 1 batch rows a block), under the init-scale
+rules.
+
+The GRU and LSTM pairs run at init-scale weights over H = 5 ... 512, a
+ragged batch, with and without the GRU's decay stream, under the same
+rules: hs within 5e-6 of its largest entry, every cotangent within 1e-5,
+the float64 rms rule on every output. Both pairs split W_hh over a
+thread-block cluster: each also runs at every kind of its plan (one CTA;
+clusters of 2, 4 and 8 CTAs with the W_hh slices in shared memory, units
+split evenly and raggedly; the slices in device memory) at two batches
+(the GRU with and without its decay), in both scan directions, and its
+backward is bit-reproducible; the LSTM also as the inference primal. The
+weight-gradient kernel they share runs alone against its plain version.
+The plain-mode pairs are also held against cuDNN (`torch.nn.GRU`/
+`torch.nn.LSTM` with TF32 off) on the same weights.
 """
 
 import copy
@@ -243,10 +249,20 @@ def test_cde_zero_step_is_identity_on_the_card():
 @pytest.mark.cuda
 def test_cde_kernels_raise_above_the_shared_memory_limit():
     """A field whose output weight does not fit one block's shared memory
-    raises ValueError naming the limit, before any launch."""
+    (H = 128, C = 64: Wout 4 MB) now runs, its weights read from device
+    memory; only a field whose field-output tile alone overflows a block
+    at one batch row (H C = 65536 floats, 256 KB) raises ValueError naming
+    the limit, before any launch."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
-    inputs, flags, _ = _cde_inputs("rk4", "relu", 0, 64, "init", H=128)
+    inputs, flags, gys = _cde_inputs("rk4", "relu", 0, 64, "init", H=128,
+                                     B=3, M=2)
+    shape = (128, 128, 64, 0, 3)
+    assert fc._LIB.placement(shape, backward=False) >= 2
+    _check(_fns(fc, "fused_cde"), inputs, flags, gys, "init",
+           ys_f64_factor=YS_F64_FACTOR)
+    inputs, flags, _ = _cde_inputs("rk4", "relu", 0, 16, "init", H=4096,
+                                   B=1, M=1)
     with pytest.raises(ValueError, match="limit per block"):
         fc.fused_cde_forward(**inputs, **flags)
 
@@ -366,10 +382,12 @@ def _recurrence_grads(kind, cell, xs, w, h0):
     return out + ([h0.grad] if kind == "gru" else [])
 
 
-def _eager_gru(cell, xs, h):
+def _eager_gru(cell, xs, h, hdec=None):
+    """The eager loop over the cell, the state decayed before each step
+    when hdec is given."""
     hs = []
     for t in range(xs.shape[0]):
-        h = cell(xs[t], h)
+        h = cell(xs[t], h if hdec is None else h * hdec[t])
         hs.append(h)
     return torch.stack(hs)
 
@@ -561,3 +579,193 @@ def test_lstm_weight_grad_kernel_matches_its_plain_version():
         for a, b in zip(k, p):
             rel = float((a - b).abs().max()) / float(b.abs().max())
             assert rel < TOL_GRAD, (L, B, H, rel)
+
+
+# (H = HH, inner layers) of the wide SDE and CDE cases: past the shared
+# memory of one block for the weights and their gradient accumulators
+WIDE = [(128, 1), (128, 2), (256, 1)]
+# placements of csrc/sde_common.cuh, each forced once at H = HH = 128 with
+# one inner layer: 0 the plan's own (the forward in shared memory, the
+# backward's accumulators in device memory), 1 the accumulators in device
+# memory, 2 the weights too, 3-5 as 2 with 4, 2 and 1 batch rows a block
+PLACEMENTS = [0, 1, 2, 3, 4, 5]
+
+
+def _wide_check(kind, H, n_inner, placement):
+    """One SDE or CDE pair at H = HH with `placement` forced (the lowest
+    the plan may take), against its plain versions: init-scale rules."""
+    mod, pre = {"em": (fe, "fused_em"), "srk": (fs, "fused_srk"),
+                "cde": (fc, "fused_cde")}[kind]
+    if kind == "cde":
+        inputs, flags, gys = _cde_inputs("rk4", "relu", n_inner, 6, "init",
+                                         B=13, M=4, H=H)
+        shape = (H, H, 6, n_inner, 3)
+    else:
+        inputs, flags, gys = _inputs(kind == "srk", 4, 17, n_inner, "init",
+                                     B=13, M=5, H=H)
+        shape = (H, H, n_inner)
+    mod._LIB.force_placement(placement)
+    try:
+        got = [mod._LIB.placement(shape, b) for b in (False, True)]
+        print(f"{kind} H={H} n_inner={n_inner} forced {placement}: "
+              f"placements (forward, backward) {got}, rows "
+              f"{[mod._LIB.rows(shape, b) for b in (False, True)]}")
+        assert min(got) >= placement
+        _check(_fns(mod, pre), inputs, flags, gys, "init",
+               ys_f64_factor=YS_F64_FACTOR if kind == "cde" else 0.0)
+    finally:
+        mod._LIB.force_placement(0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["em", "srk", "cde"])
+@pytest.mark.parametrize("H,n_inner", WIDE)
+def test_sde_and_cde_kernels_take_wide_fields(kind, H, n_inner):
+    """At H = HH = 128 and 256 the pairs run in the placement their plan
+    takes (weights and accumulators past a block's shared memory) and
+    match their plain versions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    _wide_check(kind, H, n_inner, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["em", "srk", "cde"])
+@pytest.mark.parametrize("placement", PLACEMENTS)
+def test_each_placement_matches_plain_versions(kind, placement):
+    """Every placement, forced once, gives the plain versions' results."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    _wide_check(kind, 128, 1, placement)
+
+
+@pytest.mark.cuda
+def test_wide_backward_is_bit_reproducible():
+    """The device-memory accumulators are owned by one thread each, and
+    their per-block partials summed in a fixed order: two backward calls
+    agree bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    inputs, flags, gys = _inputs(False, 4, 17, 2, "init", B=40, M=5, H=128)
+    ys = fe.fused_em_forward(**inputs, **flags)
+    a = fe.fused_em_backward(ys=ys, gys=gys, **inputs, **flags)
+    b = fe.fused_em_backward(ys=ys, gys=gys, **inputs, **flags)
+    torch.cuda.synchronize()
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+# GRU widths at each kind of its plan (at B = 13 and 100): one CTA (16, 96),
+# clusters of 2 (128), 4 (200) and 8 CTAs (256; 250 leaves the last CTA 26
+# units of 32) with the W_hh slices in shared memory, and the slices in
+# device memory (512); 120 has a forward of one CTA and a backward of two
+GRU_PLAN_H = [16, 96, 120, 128, 200, 250, 256, 512]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [13, 100])
+@pytest.mark.parametrize("dec", [False, True])
+@pytest.mark.parametrize("H", GRU_PLAN_H)
+def test_gru_cluster_plans_match_plain_versions(H, dec, B):
+    """The GRU pair against its plain versions at every kind of plan, with
+    and without the decay stream (the tolerances of _check_rnn)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    plan = fr.fused_gru_plan(H, B, backward=True)
+    print(f"H={H} B={B} backward plan {plan}")
+    assert plan["active_clusters"] >= 1
+    inputs, ghs = _rnn_inputs("gru", H, B=B, L=9 if H < 512 else 5, dec=dec)
+    _check_rnn("gru", inputs, ghs)
+
+
+@pytest.mark.cuda
+def test_gru_plan_splits_w_hh_as_it_must():
+    """W_hh (3 H^2 floats) in one CTA up to H = 112; split over 2 CTAs at
+    H = 128, 4 at 200 and 8 at 256, at the bench batch; read from device
+    memory at H = 512."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    for backward in (False, True):
+        got = {H: fr.fused_gru_plan(H, 1024, backward)
+               for H in (32, 64, 112, 128, 200, 256, 512)}
+        assert [got[H]["cluster"] for H in got] == [1, 1, 1, 2, 4, 8, 8]
+        assert [got[H]["w_smem"] for H in got] == [1, 1, 1, 1, 1, 1, 0]
+        assert got[128]["rows"] == 16
+        assert all(p["active_clusters"] >= 1 for p in got.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dec", [False, True])
+@pytest.mark.parametrize("H", [128, 250])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_gru_scan_at_cluster_widths_matches_the_eager_loop(H, reverse, dec):
+    """fused_gru_scan through the cluster kernels, from a nonzero h0 and
+    with or without the decay stream, against the eager loop over the
+    cell, both directions: hs and every gradient (xs, h0, the decay and
+    the cell's parameters)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    rng = np.random.default_rng(6)
+    L, B, C = 10, 37, 6
+    cell = GRUCell(C, H, generator=torch.Generator().manual_seed(0)).cuda()
+    t = lambda a: torch.as_tensor(a.astype(np.float32), device="cuda")
+    xs, w = t(rng.normal(size=(L, B, C))), t(rng.normal(size=(L, B, H)) / B)
+    h0 = t(0.5 * rng.normal(size=(B, H)))
+    hdec = t(rng.uniform(0.2, 1.0, size=(L, B, H))) if dec else None
+    flip = lambda a: torch.flip(a, (0,)) if reverse else a
+    outs = []
+    for fused in (True, False):
+        cell.zero_grad()
+        x, h = xs.clone().requires_grad_(True), h0.clone().requires_grad_(True)
+        d = hdec.clone().requires_grad_(True) if dec else None
+        if fused:
+            hs = fr.fused_gru_scan(cell, x, h0=h, reverse=reverse, hdec=d)
+        else:
+            hs = flip(_eager_gru(cell, flip(x), h, flip(d) if dec else None))
+        (hs * w).sum().backward()
+        outs.append([hs.detach(), x.grad, h.grad] + ([d.grad] if dec else [])
+                    + [p.grad for p in cell.parameters()])
+    for a, b in zip(*outs):
+        rel = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+        assert rel < TOL_GRAD, rel
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H", [16, 128, 250, 512])
+def test_gru_backward_is_bit_reproducible(H):
+    """Two backward calls on the same inputs (with the decay stream) give
+    bitwise-equal outputs: no atomics, the cluster's partials and the
+    weight gradient's split partials summed in a fixed order."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    inputs, ghs = _rnn_inputs("gru", H, B=100, dec=True)
+    hs = fr.fused_gru_forward(**inputs)
+    a = fr.fused_gru_backward(hs=hs, ghs=ghs, **inputs)
+    b = fr.fused_gru_backward(hs=hs, ghs=ghs, **inputs)
+    torch.cuda.synchronize()
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_gru_weight_grad_kernel_matches_its_plain_version():
+    """The weight-gradient kernel alone on the GRU's streams (h0, hs, the
+    decay, dgh), at widths that are not a multiple of 4 (4-byte copies; 3H
+    = 15 leaves dgh's rows unaligned) and ones that are, with and without
+    the decay: within TOL_GRAD of the largest entry."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    rng = np.random.default_rng(8)
+    t = lambda *s: torch.as_tensor(rng.normal(size=s).astype(np.float32),
+                                   device="cuda")
+    for L, B, H in ((13, 37, 5), (60, 64, 16), (72, 1024, 128), (3, 8, 250)):
+        for dec in (False, True):
+            h0, hs, dgh = t(B, H), t(L, B, H), t(L, B, 3 * H)
+            hdec = t(L, B, H).abs() if dec else None
+            before = fr.GRU_WGRAD_LAUNCHES
+            k = fr.fused_gru_weight_grads(h0, hs, dgh, hdec)
+            p = fr.fused_gru_weight_grads_reference(h0, hs, dgh, hdec)
+            assert fr.GRU_WGRAD_LAUNCHES == before + 1
+            for a, b in zip(k, p):
+                rel = float((a - b).abs().max()) / float(b.abs().max())
+                assert rel < TOL_GRAD, (L, B, H, dec, rel)

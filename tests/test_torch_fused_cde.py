@@ -55,26 +55,26 @@ def _interpret_mode(monkeypatch):
     monkeypatch.setenv("SNSDE_FUSED_STREAM", "f32")
 
 
-def _fields(kind, C, n_inner, seed=3):
+def _fields(kind, C, n_inner, seed=3, width=H, hwidth=HH):
     """(JAX field, port field) with the same weights."""
     key = jax.random.PRNGKey(seed)
     if kind == "final_tanh":
-        jf = JaxFinalTanh.create(key, C, H, HH, n_inner + 1)
-        tf = FinalTanh(C, H, HH, n_inner + 1)
+        jf = JaxFinalTanh.create(key, C, width, hwidth, n_inner + 1)
+        tf = FinalTanh(C, width, hwidth, n_inner + 1)
     else:
-        jf = JaxSingle.create(key, C, H, HH)
-        tf = SingleHiddenLayer(C, H, HH)
+        jf = JaxSingle.create(key, C, width, hwidth)
+        tf = SingleHiddenLayer(C, width, hwidth)
     load_jax_arrays(tf, jax_arrays(jf))
     return jf, tf
 
 
-def _setting(C, seed=0):
+def _setting(C, seed=0, Bn=B, Ln=L, width=H):
     rng = np.random.default_rng(seed)
-    times = np.linspace(0.0, 1.0, L).astype(np.float32)
-    x = rng.normal(size=(B, L, C)).astype(np.float32)
+    times = np.linspace(0.0, 1.0, Ln).astype(np.float32)
+    x = rng.normal(size=(Bn, Ln, C)).astype(np.float32)
     path = CubicPath(hermite_cubic_coeffs(torch.as_tensor(times),
                                           torch.as_tensor(x)), times)
-    z0 = rng.normal(size=(B, H)).astype(np.float32)
+    z0 = rng.normal(size=(Bn, width)).astype(np.float32)
     return rng, times, path, z0
 
 
@@ -90,15 +90,31 @@ def test_plain_versions_match_jax_kernel(method, kind, n_inner, C):
     """The trajectory and every cotangent (the field's weights, z0 and the
     control stream ddx) of the plain forward and backward against JAX
     `fused_cde_solve` and its custom VJP, on the same dx stream."""
+    _check_against_jax(method, kind, n_inner, C, _setting(C),
+                       _fields(kind, C, n_inner), L, B, H)
+
+
+def test_plain_versions_match_jax_kernel_at_width_128():
+    """The same at H = HH = 128 with one inner layer and rk4 (a field
+    whose weights and accumulators overflow a block's shared memory on the
+    card), at a small batch and few steps."""
+    C = 3
+    _check_against_jax("rk4", "final_tanh", 1, C,
+                       _setting(C, Bn=3, Ln=4, width=128),
+                       _fields("final_tanh", C, 1, width=128, hwidth=128),
+                       4, 3, 128, dt=0.25)
+
+
+def _check_against_jax(method, kind, n_inner, C, setting, fields, Ln, Bn,
+                       width, dt=0.1):
     from snsde.kernels.fused_cde import fused_cde_solve as jax_solve
 
-    rng, times, path, z0 = _setting(C)
-    jf, tf = _fields(kind, C, n_inner)
-    dt = 0.1
+    rng, times, path, z0 = setting
+    jf, tf = fields
     grid, out_idx = make_grid(times, dt)
     inp = fc.fused_cde_inputs(tf, path, grid, torch.as_tensor(z0), method)
     dx = inp["dx"].detach().numpy()
-    G = rng.normal(size=(L, B, H)).astype(np.float32)
+    G = rng.normal(size=(Ln, Bn, width)).astype(np.float32)
 
     def jax_loss(tree):
         fld, zz, dd = tree
@@ -193,6 +209,36 @@ def test_backward_reference_is_autograd_of_forward(method, act, n_inner):
         assert float((ours - auto).abs().max()) / denom < 1e-5, name
 
 
+@pytest.mark.parametrize("method,act,n_inner", [
+    ("rk4", "relu", 1), ("euler", "relu", 0), ("rk4", "tanh", 1)])
+def test_plain_versions_take_every_relu_from_their_argument(method, act,
+                                                            n_inner):
+    """With act "relu" every hidden activation of the plain forward and
+    backward (which re-evaluates each stage) goes through their `relu`
+    argument, with "tanh" none; torch.relu given there changes nothing."""
+    inputs, flags, gys = _kernel_inputs(method, act, n_inner)
+    seen = []
+
+    def relu(z):
+        seen.append(z.shape)
+        return torch.relu(z)
+
+    ys = fc.fused_cde_forward_reference(**inputs, **flags, relu=relu)
+    M, Bk = gys.shape[:2]
+    evals = M * len(fc._TABLEAUS[method][2]) * (1 + n_inner)
+    assert seen == ([(Bk, 5)] * evals if act == "relu" else [])
+    torch.testing.assert_close(
+        ys, fc.fused_cde_forward_reference(**inputs, **flags), rtol=0,
+        atol=0)
+    seen.clear()
+    g = fc.fused_cde_backward_reference(ys=ys, gys=gys, **inputs, **flags,
+                                        relu=relu)
+    assert len(seen) == (2 * evals if act == "relu" else 0)
+    for a, b in zip(g, fc.fused_cde_backward_reference(ys=ys, gys=gys,
+                                                       **inputs, **flags)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
 def test_zero_step_is_identity():
     """dt = 0 steps leave z exactly as it was, forward and backward: dz0 is
     exactly the summed cotangent and no weight moves."""
@@ -218,6 +264,26 @@ def test_supports_fused_cde_is_exactly_the_kernel_modes():
     with pytest.raises(ValueError, match="fused CDE kernels take"):
         fc.fused_cde_inputs(fields["gruode"], None, np.arange(3.0),
                             torch.zeros(2, H))
+
+
+@pytest.mark.parametrize("kind,C,width,hwidth", [
+    ("final_tanh", 8, 512, 256), ("final_tanh", 16, 256, 256),
+    ("single", 32, 128, 128), ("final_tanh", 6, 128, 128)])
+def test_supports_fused_cde_takes_every_width_the_jax_gate_takes(
+        kind, C, width, hwidth):
+    """Fields at the JAX gate's edges (H*C = 4096, H = 512, Wout at its
+    4 MB cap) are taken by both gates, and the kernel's input checks take
+    their shapes: no width sends a field the JAX package fuses to the
+    eager solver, or raises before the launch."""
+    from snsde.kernels.fused_cde import supports_fused_cde as jax_supports
+
+    jf, tf = _fields(kind, C, 1, width=width, hwidth=hwidth)
+    assert jax_supports(jf, "rk4") and fc.supports_fused_cde(tf, "rk4")
+    n_inner = 1 if kind == "final_tanh" else 0
+    inputs, flags, gys = _kernel_inputs("rk4", "relu", n_inner, Bk=2, M=1,
+                                        Hk=width, HHk=hwidth, C=C)
+    assert fc.check_kernel_inputs(**inputs, **flags, ys=gys, gys=gys) == (
+        1, 2, width, hwidth, C, n_inner)
 
 
 def test_kernel_input_checks():
@@ -260,4 +326,4 @@ def test_wrapper_raises_on_a_device_without_the_kernel(tmp_path,
                     int_names=fc._LIB.int_names,
                     shape_names=fc._LIB.shape_names)
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        lib.rows_per_block()
+        lib.kept("max_smem")

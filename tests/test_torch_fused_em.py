@@ -9,6 +9,8 @@ themselves are compared with the plain versions on the card by
 chip_smoke.py and by tests/test_torch_cuda.py.
 """
 
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
@@ -24,7 +26,7 @@ from snsde.ops.interp import hermite_cubic_coeffs as jax_hermite
 from snsde_torch.convert import grads_to_jax_layout, load_jax_arrays
 from snsde_torch.fields import DiffusionField
 from snsde_torch.kernels import fused_em as fe
-from snsde_torch.kernels._solver import MAX_WIDTH, MULT_Y_NO, PRECOMP_NO
+from snsde_torch.kernels._solver import MULT_Y_NO, PRECOMP_NO
 from snsde_torch.models.neuralsde import resolve_dt
 from snsde_torch.ops import (BrownianGrid, CubicPath, hermite_cubic_coeffs,
                              make_grid, sdeint)
@@ -50,20 +52,25 @@ def _interpret_mode(monkeypatch):
     monkeypatch.setenv("SNSDE_FUSED_STREAM", "f32")
 
 
-@pytest.fixture(scope="module")
-def setting():
+def _setting(Bn=B, Ln=L, width=H):
     rng = np.random.default_rng(0)
-    times = np.linspace(0.0, 1.0, L).astype(np.float32)
-    x = rng.normal(size=(B, L, C)).astype(np.float32)
-    y0 = rng.normal(size=(B, H)).astype(np.float32)
+    times = np.linspace(0.0, 1.0, Ln).astype(np.float32)
+    x = rng.normal(size=(Bn, Ln, C)).astype(np.float32)
+    y0 = rng.normal(size=(Bn, width)).astype(np.float32)
     grid, _ = make_grid(times, resolve_dt(times))
-    dW = (rng.normal(size=(len(grid) - 1, B, H))
+    dW = (rng.normal(size=(len(grid) - 1, Bn, width))
           * np.sqrt(np.diff(grid))[:, None, None]).astype(np.float32)
     return times, x, y0, dW
 
 
-def port_field(jfield, io, no, layers):
-    field = DiffusionField(C, H, H, layers, input_option=io, noise_option=no)
+@pytest.fixture(scope="module")
+def setting():
+    return _setting()
+
+
+def port_field(jfield, io, no, layers, width=H):
+    field = DiffusionField(C, width, width, layers, input_option=io,
+                           noise_option=no)
     load_jax_arrays(field, jax_arrays(jfield))
     return field
 
@@ -74,12 +81,23 @@ def test_fused_em_matches_jax_kernel(setting, io, no):
     5e-4 relative: the bar tests/test_fused_grid.py holds the JAX kernel to
     against its scan; the two sides merge the drift the same way and
     differ only in f32 summation order."""
+    _check_against_jax(setting, io, no, H)
+
+
+def test_fused_em_matches_jax_kernel_at_width_128():
+    """The same bar at H = HH = 128 with one inner layer (the width that
+    took the kernels past their former 128 limit on the backward's shared
+    memory), at a small batch and few steps."""
+    _check_against_jax(_setting(Bn=3, Ln=4, width=128), 4, 17, 128)
+
+
+def _check_against_jax(setting, io, no, width):
     from snsde.kernels.fused_em import fused_em_solve as jax_solve
 
     times, x, y0, dW = setting
     jpath = JaxPath(jax_hermite(jnp.asarray(times), jnp.asarray(x)), times)
-    jfield = JaxField.create(jax.random.PRNGKey(io * 20 + no), C, H, H, 2,
-                             input_option=io, noise_option=no)
+    jfield = JaxField.create(jax.random.PRNGKey(io * 20 + no), C, width,
+                             width, 2, input_option=io, noise_option=no)
     dt = resolve_dt(times)
     key = jax.random.PRNGKey(0)
 
@@ -92,7 +110,7 @@ def test_fused_em_matches_jax_kernel(setting, io, no):
     (_, ys_j), g_j = filter_value_and_grad(jax_loss, has_aux=True)(
         (jfield, jnp.asarray(y0)))
 
-    field = port_field(jfield, io, no, 2)
+    field = port_field(jfield, io, no, 2, width)
     path = CubicPath(hermite_cubic_coeffs(torch.as_tensor(times),
                                           torch.as_tensor(x)), times)
     y0_t = torch.as_tensor(y0).requires_grad_(True)
@@ -148,6 +166,32 @@ def test_backward_reference_is_autograd_of_forward(io, no, n_inner):
         assert float((ours - auto).abs().max()) / denom < 1e-5, name
 
 
+@pytest.mark.parametrize("n_inner", [0, 2])
+def test_plain_versions_take_every_relu_from_their_argument(n_inner):
+    """Every relu of the plain forward and backward goes through their
+    `relu` argument (a probe of the pre-activations sees all of them), and
+    torch.relu given there changes nothing."""
+    inputs, flags, gys = _kernel_inputs(4, 17, n_inner)
+    seen = []
+
+    def relu(z):
+        seen.append(z.shape)
+        return torch.relu(z)
+
+    ys = fe.fused_em_forward_reference(**inputs, **flags, relu=relu)
+    M, Bk = gys.shape[:2]
+    assert seen == [(Bk, 4)] * (M * (1 + n_inner))
+    torch.testing.assert_close(
+        ys, fe.fused_em_forward_reference(**inputs, **flags), rtol=0, atol=0)
+    seen.clear()
+    g = fe.fused_em_backward_reference(ys=ys, gys=gys, **inputs, **flags,
+                                       relu=relu)
+    assert len(seen) == M * (1 + n_inner)
+    for a, b in zip(g, fe.fused_em_backward_reference(ys=ys, gys=gys,
+                                                      **inputs, **flags)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
 SUPPORTED = [(io, no) for io in (2, 4, 6) for no in sorted(PRECOMP_NO)]
 
 
@@ -185,7 +229,13 @@ def test_supports_fused_is_exactly_the_kernel_modes():
                            torch.zeros(2, 2, H))
 
 
-def test_kernel_input_checks_name_the_limit():
+def test_kernel_input_checks_name_the_limit(monkeypatch):
+    """The input checks take any width (H = HH = 256 here); the one limit
+    left is a launch whose tiles do not fit a block's shared memory even
+    with the weights and accumulators in device memory and one row a
+    block, which the library reports and the wrapper raises on, naming the
+    bytes and the limit (a stand-in library here: the real one needs the
+    card)."""
     inputs, flags, gys = _kernel_inputs(4, 17, 1)
     assert fe.check_kernel_inputs(**inputs) == (5, 6, 4, 4, 1)
     with pytest.raises(ValueError, match="float32 only"):
@@ -195,9 +245,16 @@ def test_kernel_input_checks_name_the_limit():
     with pytest.raises(ValueError, match="not contiguous"):
         fe.check_kernel_inputs(**{**inputs,
                                   "wout": inputs["wout"].t()})
-    wide = torch.zeros(4, MAX_WIDTH + 1)
-    with pytest.raises(ValueError, match=f"up to {MAX_WIDTH}"):
-        fe.check_kernel_inputs(**{**inputs, "wy": wide})
+    wide, _, wide_gys = _kernel_inputs(4, 17, 1, Bk=2, M=2, Hk=256)
+    assert fe.check_kernel_inputs(**wide, ys=wide_gys, gys=wide_gys) == (
+        2, 2, 256, 256, 1)
+    limit = 232448
+    kept = {"smem_bytes": limit + 4, "max_smem": limit}
+    monkeypatch.setattr(fe._LIB, "kept", lambda fn, *ints: kept[fn])
+    cuda = SimpleNamespace(device=torch.device("cuda"))
+    with pytest.raises(ValueError, match=f"above this device's {limit}-byte "
+                                         f"limit per block"):
+        fe._LIB.stream(cuda, (4096, 4096, 1), backward=True)
 
 
 def test_wrapper_raises_on_a_device_without_the_kernel():

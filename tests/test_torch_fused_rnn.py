@@ -15,7 +15,9 @@ Tolerances: hs within 2e-6 absolute (both sides run the same recurrence in
 float32; the sums differ in order only); dgi, dW_hh, db_hh, dh0 and dhdec
 each within 1e-5 of its largest entry. The LSTM's weight gradient, now a
 product after the reverse loop, is held to the loop's old step-by-step
-accumulation in float64 to 1e-12.
+accumulation in float64 to 1e-12, and so is the GRU's (now the product
+of the cell's input states and W_hh's cotangent dgh); the GRU's is also
+held to the JAX kernel's dW_hh and db_hh.
 """
 
 from types import SimpleNamespace
@@ -207,6 +209,85 @@ def test_lstm_weight_grads_reference_equals_in_loop_accumulation(L, reverse,
         grads.dgi)
 
 
+def _kernel_streams(inp, ghs, reverse):
+    """The streams the kernels see: a reverse scan hands them gi, hdec and
+    the output cotangent flipped in time (h0 stays)."""
+    t = {n: torch.as_tensor(v) for n, v in inp.items()}
+    g = torch.as_tensor(ghs)
+    if reverse:
+        t.update({n: torch.flip(t[n], (0,)) for n in ("gi", "hdec") if n in t})
+        g = torch.flip(g, (0,))
+    return t, g
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("dec", [False, True])
+def test_gru_weight_grads_reference_matches_jax_kernel(dec, reverse):
+    """dW_hh and db_hh as one product of the cell's input states (h0,
+    then hs, times the decay) and W_hh's cotangent dgh, after the reverse
+    loop, against the JAX kernel's in-loop dwhh and dbhh (through jax.vjp
+    of its scan), with a nonzero h0, with and without the decay stream, in
+    both directions: within 1e-5 of the largest entry."""
+    inp, ghs = _inputs("gru", 7, h0=True, dec=dec, seed=8)
+    _, g_j = _jax_side("gru", inp, ghs, reverse)
+    t, g = _kernel_streams(inp, ghs, reverse)
+    hs = fr.fused_gru_forward_reference(**t)
+    dgi, dgh, dh0, dhdec = fr.fused_gru_backward_recurrence(hs=hs, ghs=g,
+                                                            **t)
+    k = fr.fused_gru_weight_grads(t["h0"], hs, dgh, t.get("hdec"))
+    ref = fr.fused_gru_weight_grads_reference(t["h0"], hs, dgh,
+                                              t.get("hdec"))
+    for name, ours, want in zip(("whh", "bhh"), ref, (g_j["whh"],
+                                                     g_j["bhh"])):
+        err = float(np.abs(ours.numpy() - want).max())
+        assert err <= TOL_GRAD * float(np.abs(want).max()), (name, err)
+    assert torch.equal(k[0], ref[0]) and torch.equal(k[1], ref[1])
+
+
+def _gru_in_loop_weight_grads(h0, hs, dgh, hdec):
+    """dW_hh and db_hh as the GRU's reverse loop accumulated them step by
+    step before the weight gradient left it: dW_hh += x_t^T dgh_t, x_t =
+    (h0 at t = 0, else hs[t - 1]) times hdec[t], and db_hh += the batch sum
+    of dgh_t, from the last step down."""
+    L, B, H = hs.shape
+    dwhh = torch.zeros(H, dgh.shape[-1], dtype=hs.dtype)
+    dbhh = torch.zeros(dgh.shape[-1], dtype=hs.dtype)
+    for t in range(L - 1, -1, -1):
+        x = h0 if t == 0 else hs[t - 1]
+        if hdec is not None:
+            x = x * hdec[t]
+        dwhh += x.T @ dgh[t]
+        dbhh += dgh[t].sum(0)
+    return dwhh, dbhh
+
+
+@pytest.mark.parametrize("batch", [8, 13])
+@pytest.mark.parametrize("dec", [False, True])
+@pytest.mark.parametrize("L", [1, 7])
+def test_gru_weight_grads_reference_equals_in_loop_accumulation(L, dec,
+                                                                batch):
+    """In float64 the GRU's weight-gradient function equals the sums the
+    reverse loop accumulated step by step, to 1e-12 (the order of
+    summation only): one step and seven, with and without the decay, and
+    a batch that leaves an 8-row tile ragged (13). The plain backward
+    returns it."""
+    rng = np.random.default_rng(9)
+    f = lambda *shape: torch.as_tensor(rng.normal(size=shape))
+    k = 1.0 / np.sqrt(H)
+    t = {"gi": f(L, batch, 3 * H), "h0": 0.5 * f(batch, H),
+         "whh": torch.as_tensor(rng.uniform(-k, k, size=(H, 3 * H))),
+         "bhh": torch.as_tensor(rng.uniform(-k, k, size=(3 * H,)))}
+    if dec:
+        t["hdec"] = torch.as_tensor(rng.uniform(0.2, 1.0, size=(L, batch, H)))
+    g = f(L, batch, H)
+    hs = fr.fused_gru_forward_reference(**t)
+    _, dgh, _, _ = fr.fused_gru_backward_recurrence(hs=hs, ghs=g, **t)
+    dwhh, dbhh = _gru_in_loop_weight_grads(t["h0"], hs, dgh, t.get("hdec"))
+    grads = fr.fused_gru_backward_reference(hs=hs, ghs=g, **t)
+    torch.testing.assert_close(grads.dwhh, dwhh, rtol=1e-12, atol=1e-12)
+    torch.testing.assert_close(grads.dbhh, dbhh, rtol=1e-12, atol=1e-12)
+
+
 def test_lstm_inference_primal_skips_the_cell_states(monkeypatch):
     """With grad mode off, or with nothing that needs a gradient, the LSTM
     scan runs the forward alone with save_cs=False (the JAX
@@ -282,6 +363,10 @@ def test_kernel_input_checks():
     with pytest.raises(ValueError, match="H <= 512"):
         fr.check_gru_inputs(big, torch.zeros(1, 513),
                             torch.zeros(513, 3 * 513), torch.zeros(3 * 513))
+    wide = {"gi": torch.zeros(2, 1, 3 * 256), "h0": torch.zeros(1, 256),
+            "whh": torch.zeros(256, 3 * 256), "bhh": torch.zeros(3 * 256),
+            "hdec": torch.zeros(2, 1, 256)}
+    assert fr.check_gru_inputs(**wide) == (2, 1, 256)
     lin, _ = _inputs("lstm", 7)
     tl = {n: torch.as_tensor(v) for n, v in lin.items()}
     assert fr.check_lstm_inputs(**tl) == (7, B, H)
@@ -301,6 +386,8 @@ def test_wrappers_raise_on_a_device_without_the_kernels(tmp_path,
         fr.fused_gru_forward(**meta)
     with pytest.raises(ValueError, match="CUDA tensors"):
         fr.fused_gru_backward(hs=g, ghs=g, **meta)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fr.fused_gru_weight_grads(meta["h0"], g, meta["gi"], meta["hdec"])
     lin, _ = _inputs("lstm", 7)
     lmeta = {n: torch.as_tensor(v).to("meta") for n, v in lin.items()}
     with pytest.raises(ValueError, match="CUDA tensors"):
@@ -315,8 +402,8 @@ def test_wrappers_raise_on_a_device_without_the_kernels(tmp_path,
     monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path))
     monkeypatch.setattr(_build.shutil, "which", lambda name: None)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
-    lib = SolverLib("fused_gru", "fused GRU", 6, 12,
+    lib = SolverLib("fused_gru", "fused GRU", 6, 11,
                     int_names=fr._GRU.int_names,
                     shape_names=fr._GRU.shape_names, source="fused_rnn")
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        lib.rows_per_block()
+        lib.kept("max_smem")

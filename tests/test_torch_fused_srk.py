@@ -10,6 +10,8 @@ compared with the plain versions on the card by chip_smoke.py and by
 tests/test_torch_cuda.py.
 """
 
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
@@ -25,7 +27,7 @@ from snsde.ops.interp import hermite_cubic_coeffs as jax_hermite
 from snsde_torch.convert import grads_to_jax_layout, load_jax_arrays
 from snsde_torch.fields import DiffusionField
 from snsde_torch.kernels import fused_srk as fs
-from snsde_torch.kernels._solver import MAX_WIDTH, MULT_Y_NO, PRECOMP_NO
+from snsde_torch.kernels._solver import MULT_Y_NO, PRECOMP_NO
 from snsde_torch.models.neuralsde import resolve_dt
 from snsde_torch.ops import (BrownianGrid, CubicPath, hermite_cubic_coeffs,
                              make_grid, sdeint)
@@ -195,6 +197,33 @@ def test_backward_reference_is_autograd_of_forward(io, no, n_inner):
         assert float((ours - auto).abs().max()) / denom < 1e-5, name
 
 
+@pytest.mark.parametrize("n_inner", [0, 2])
+def test_plain_versions_take_every_relu_from_their_argument(n_inner):
+    """Every relu of the plain forward and backward (two drift evaluations
+    a step) goes through their `relu` argument, and torch.relu given there
+    changes nothing."""
+    inputs, flags, gys = _kernel_inputs(4, 17, n_inner)
+    seen = []
+
+    def relu(z):
+        seen.append(z.shape)
+        return torch.relu(z)
+
+    ys = fs.fused_srk_forward_reference(**inputs, **flags, relu=relu)
+    M, Bk = gys.shape[:2]
+    assert seen == [(Bk, 4)] * (2 * M * (1 + n_inner))
+    torch.testing.assert_close(
+        ys, fs.fused_srk_forward_reference(**inputs, **flags), rtol=0,
+        atol=0)
+    seen.clear()
+    g = fs.fused_srk_backward_reference(ys=ys, gys=gys, **inputs, **flags,
+                                        relu=relu)
+    assert len(seen) == 2 * M * (1 + n_inner)
+    for a, b in zip(g, fs.fused_srk_backward_reference(ys=ys, gys=gys,
+                                                       **inputs, **flags)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
 def test_zero_step_is_identity():
     """dt = 0 steps (guarded 1/dt and 1/sqrt(dt)) leave y exactly as it
     was, forward and backward: dy0 is exactly the summed cotangent."""
@@ -221,7 +250,7 @@ def test_supports_fused_srk_is_exactly_the_kernel_modes():
                             torch.zeros(2, 2, H), torch.zeros(2, 2, H))
 
 
-def test_kernel_input_checks_name_the_limit():
+def test_kernel_input_checks_name_the_limit(monkeypatch):
     inputs, flags, gys = _kernel_inputs(4, 17, 1)
     assert fs.check_kernel_inputs(**inputs) == (5, 6, 4, 4, 1)
     with pytest.raises(ValueError, match="float32 only"):
@@ -232,9 +261,20 @@ def test_kernel_input_checks_name_the_limit():
         fs.check_kernel_inputs(**inputs, ys=gys[:, :3], gys=gys)
     with pytest.raises(ValueError, match="not contiguous"):
         fs.check_kernel_inputs(**{**inputs, "wout": inputs["wout"].t()})
-    wide = torch.zeros(4, MAX_WIDTH + 1)
-    with pytest.raises(ValueError, match=f"up to {MAX_WIDTH}"):
-        fs.check_kernel_inputs(**{**inputs, "wy": wide})
+    # any width passes the checks (csrc/sde_common.cuh places what does
+    # not fit shared memory in device memory); the launch that cannot fit
+    # even then raises naming the limit (stand-in library: the real one
+    # needs the card)
+    wide, _, wide_gys = _kernel_inputs(4, 17, 1, Bk=2, M=2, Hk=256)
+    assert fs.check_kernel_inputs(**wide, ys=wide_gys, gys=wide_gys) == (
+        2, 2, 256, 256, 1)
+    limit = 232448
+    kept = {"smem_bytes": limit + 4, "max_smem": limit}
+    monkeypatch.setattr(fs._LIB, "kept", lambda fn, *ints: kept[fn])
+    cuda = SimpleNamespace(device=torch.device("cuda"))
+    with pytest.raises(ValueError, match=f"above this device's {limit}-byte "
+                                         f"limit per block"):
+        fs._LIB.stream(cuda, (4096, 4096, 1), backward=False)
 
 
 def test_wrapper_raises_on_a_device_without_the_kernel():
