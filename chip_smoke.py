@@ -23,7 +23,9 @@ LSTM kernels). Phases, each of which raises on failure:
      H=HH=32, FinalTanh with one inner layer, C=6 and C=35), at the sweep's
      shape (B=64, L=60, C=6, H=16, no inner layer), and at B=128 for euler,
      midpoint and heun, SingleHiddenLayer, and FinalTanh with zero and two
-     inner layers; the EM, SRK and CDE pairs at H=HH=128 and 256 with one
+     inner layers (each CDE shape's cluster plan printed; rows whose relu
+     input lies within rounding of 0 judged apart, check_pair_rows); the
+     EM, SRK and CDE pairs at H=HH=128 and 256 with one
      inner layer (B=128, L=24: weights and accumulators past a block's
      shared memory, each placement printed); the GRU pair (with and
      without the decay stream) and the LSTM pair at the sweep's shape
@@ -85,12 +87,17 @@ result, without a CUDA device or outside the repository.
     python3 chip_smoke.py --ab-lstm PARENT_DIR [PAIRS [REPS]]
     python3 chip_smoke.py --ab-gru PARENT_DIR [PAIRS [REPS]]
     python3 chip_smoke.py --ab-kernels PARENT_DIR [PAIRS [REPS]]
+    python3 chip_smoke.py --ab-cde PARENT_DIR [PAIRS [REPS]]
+    python3 chip_smoke.py --phase-split TREE [TREE ...]
 
 run none of the phases: they time the SDE paths' training steps
-(`ab_steps`), the LSTM or GRU kernels at the sweep's and the bench shapes
-(`ab_rnn`), or the EM, SRK and CDE kernels at the main paths' shapes
-(`ab_kernels`), of a parent checkout against this one, in alternating
-processes.
+and the CDE classifier's (`ab_steps`), the LSTM or GRU kernels at the
+sweep's and the bench shapes
+(`ab_rnn`), the EM, SRK and CDE kernels at the main paths' shapes
+(`ab_kernels`), or the CDE pair at the sweep's shape, both bench shapes
+and H=HH=128 and 256 (`ab_cde`), of a parent checkout against this one,
+in alternating processes; or split one CDE launch of each tree by phase
+(`phase_split`).
 """
 
 from __future__ import annotations
@@ -376,19 +383,46 @@ def cde_kernel_inputs(B, L, C, H, n_inner, method="rk4", field="final_tanh",
 
 
 def compare_cde(B, L, C, H, n_inner, method="rk4", field="final_tanh"):
-    """The CDE pair against its plain versions (check_pair)."""
+    """The CDE pair's plan at the shape, and the pair against its plain
+    versions (check_pair_rows)."""
+    cde_plans([(B, H, C, n_inner)], method)
     fwd, flags, gys = cde_kernel_inputs(B, L, C, H, n_inner, method, field)
-    return check_pair(f"CDE {field} {method} n_inner={n_inner} B={B} L={L} "
-                      f"(M={gys.shape[0]}) C={C} H={H}", kernel_fns("cde"),
-                      fwd, flags, gys, ys_f64_factor=YS_F64_FACTOR)
+    return check_pair_rows(f"CDE {field} {method} n_inner={n_inner} B={B} "
+                           f"L={L} (M={gys.shape[0]}) C={C} H={H}", "cde",
+                           fwd, flags, gys)
 
 
 def _placements(key, shape):
-    """(forward, backward) placements of an SDE or CDE launch at `shape`
+    """(forward, backward) placements of an SDE launch at `shape`
     (csrc/sde_common.cuh: 0 all in shared memory, 1 the accumulators in
     device memory, 2 the weights too, 3-5 fewer rows a block)."""
     lib = _kernel_modules()[key]._LIB
     return [lib.placement(shape, b) for b in (False, True)]
+
+
+def cde_plans(shapes, method="rk4"):
+    """Print the CDE pair's plan at each (B, H, C, n_inner) (H = HH):
+    level (0 everything in shared memory, 1 the hidden weights in device
+    memory, 2 the hidden gradients too, 3 dWout too, 4 as 3 with the Wout
+    slice in device memory and the hidden weights in shared memory, 5 every
+    weight in device memory, 6 fewer rows), CTAs and batch rows a cluster,
+    whether the backward keeps the stage activations, shared bytes a CTA
+    and cudaOccupancyMaxActiveClusters; raise if one cannot be
+    scheduled."""
+    from snsde_torch.kernels import fused_cde as fc
+
+    for B, H, C, n_inner in shapes:
+        for backward in (False, True):
+            p = fc.fused_cde_plan(B, H, H, C, n_inner, method, backward)
+            print(f"  CDE plan B={B} H=HH={H} C={C} n_inner={n_inner} "
+                  f"{method} {'backward' if backward else 'forward'}: level "
+                  f"{p['level']}, CS={p['cluster']}, {p['rows']} rows a "
+                  f"cluster, stages {'kept' if p['keep'] else 'recomputed'}"
+                  f", {p['smem_bytes']} shared bytes a CTA, "
+                  f"cudaOccupancyMaxActiveClusters {p['active_clusters']}")
+            if p["active_clusters"] < 1:
+                raise AssertionError(f"CDE plan at B={B} H={H} C={C} cannot "
+                                     f"be scheduled: {p}")
 
 
 # the batch axis of each SDE and CDE pair's batch-indexed forward inputs,
@@ -438,16 +472,20 @@ class NearRelu:
 
 
 def check_near_rows(label, key, fwd, flags, gys, near, ys_f64_factor):
-    """The rows compare_wide sets aside (`near`: NearRelu.rows() of a
+    """The rows check_pair_rows sets aside (`near`: NearRelu.rows() of a
     float64 run), each judged on the whole batch by its trajectory and
-    its batch-indexed cotangents (ROW_GRADS) from the kernel against two
-    float64 runs of the plain version: one that takes the near relus as
-    float64 does, one that takes them on the other side of 0 (NearRelu
-    flip). Each row must agree with one of the two: the trajectory within
-    check_pair's limit, each cotangent within TOL_GRAD, over the largest
-    entry of the batch. Prints for each row its near pre-activations in
-    float64 and in the float32 plain version, and the errors from both
-    runs."""
+    its batch-indexed cotangents (ROW_GRADS) from the kernel against
+    float64 runs of the plain version, one that takes the near relus as
+    float64 does and one that takes them on the other side of 0 (NearRelu
+    flip), and float32 runs of the plain version, the yardstick of every
+    other row, taking its own near relus either way (at 136 rk4 steps on
+    a rough control a float32 run's cotangents sit up to 1e-2 of their
+    largest entry from float64's, so a float64 run cannot judge a row
+    there). Each row must agree with one of the four: the trajectory
+    within check_pair's limit, each cotangent within TOL_GRAD, over the
+    largest entry of the batch. Prints for each row its near
+    pre-activations in float64 and in the float32 plain version, and the
+    errors from every run."""
     fwd_k, fwd_p, bwd_k, bwd_p = kernel_fns(key)
     ys_p = fwd_p(*fwd, **flags)
     probe32 = NearRelu(at=near.found)
@@ -456,10 +494,13 @@ def check_near_rows(label, key, fwd, flags, gys, near, ys_f64_factor):
     g_k = bwd_k(fwd[0], ys_k, gys, *fwd[1:], **flags)
     in64 = [t.double() for t in fwd]
     refs = {}
-    for side, flip in (("as float64 rounds them", False),
-                       ("on the other side", True)):
-        ys64 = fwd_p(*in64, **flags, relu=NearRelu(flip=flip))
-        g64 = bwd_p(in64[0], ys64, gys.double(), *in64[1:], **flags,
+    for side, flip, ins in (("as float64 rounds them", False, in64),
+                            ("on the other side", True, in64),
+                            ("as float32 rounds them", False, fwd),
+                            ("on float32's other side", True, fwd)):
+        g = gys.double() if ins is in64 else gys
+        ys64 = fwd_p(*ins, **flags, relu=NearRelu(flip=flip))
+        g64 = bwd_p(ins[0], ys64, g, *ins[1:], **flags,
                     relu=NearRelu(flip=flip))
         refs[side] = {"ys": (ys64, 1), **{n: (getattr(g64, n), ax)
                                            for n, ax in ROW_GRADS[key].items()}}
@@ -488,17 +529,45 @@ def check_near_rows(label, key, fwd, flags, gys, near, ys_f64_factor):
                                  f"neither side of its near relus")
 
 
+def check_pair_rows(label, key, fwd, flags, gys):
+    """A pair against its plain versions: check_pair on the rows where
+    float32 rounding cannot flip a relu (NearRelu on a float64 run of the
+    plain forward; every row for a tanh field), and check_near_rows on
+    the others. Returns check_pair's errors."""
+    factor = YS_F64_FACTOR if key == "cde" else 0.0
+    near = NearRelu()
+    if flags.get("act", "relu") == "relu":
+        kernel_fns(key)[1](*(t.double() for t in fwd), **flags, relu=near)
+    aside = sorted(near.rows())
+    B = gys.shape[1]
+    if aside:
+        print(f"  {label}: rows {aside} of {B} set aside (a relu within "
+              f"rounding of 0)")
+    rows = torch.tensor([r for r in range(B) if r not in aside],
+                        dtype=torch.long, device=gys.device)
+    ins = BATCH_AXES[key]
+    err = check_pair(f"{label} B={len(rows)}" if aside else label,
+                     kernel_fns(key),
+                     [t.index_select(ins[i], rows).contiguous()
+                      if i in ins and aside else t
+                      for i, t in enumerate(fwd)],
+                     flags, gys.index_select(1, rows).contiguous()
+                     if aside else gys, ys_f64_factor=factor)
+    if aside:
+        check_near_rows(label, key, fwd, flags, gys, near, factor)
+    return err
+
+
 def compare_wide():
     """The EM, SRK and CDE pairs at H = HH in WIDE_H with one inner layer
     (their weights and accumulators past a block's shared memory), at a
-    cut batch and length, against their plain versions: check_pair on the
-    rows where float32 rounding cannot flip a relu (NearRelu), and
-    check_near_rows on the others."""
+    cut batch and length, against their plain versions
+    (check_pair_rows)."""
     for H in WIDE_H:
         print(f"  placements at H=HH={H}, one inner layer (forward, "
               f"backward): EM {_placements('em', (H, H, 1))}, SRK "
-              f"{_placements('srk', (H, H, 1))}, CDE rk4 C=6 "
-              f"{_placements('cde', (H, H, 6, 1, 3))}")
+              f"{_placements('srk', (H, H, 1))}")
+        cde_plans([(WIDE["B"], H, 6, 1), (CDE["uea_rk4"]["B"], H, 6, 1)])
         for key in ("em", "srk", "cde"):
             if key == "cde":
                 fwd, flags, gys = cde_kernel_inputs(WIDE["B"], WIDE["L"], 6,
@@ -508,25 +577,8 @@ def compare_wide():
                 inp, gys = kernel_inputs(sh["model"], WIDE["B"], WIDE["L"],
                                          sh["C"], H, 2, srk=key == "srk")
                 fwd, flags = _split(inp, key == "srk")
-            near = NearRelu()
-            kernel_fns(key)[1](*(t.double() for t in fwd), **flags,
-                               relu=near)
-            aside = sorted(near.rows())
-            rows = torch.tensor([r for r in range(WIDE["B"])
-                                 if r not in aside], dtype=torch.long,
-                                device=gys.device)
-            label = f"{key.upper()} wide L={WIDE['L']} H=HH={H}"
-            factor = YS_F64_FACTOR if key == "cde" else 0.0
-            print(f"  {label}: rows {aside} of {WIDE['B']} set aside (a relu "
-                  f"within rounding of 0)")
-            ins = BATCH_AXES[key]
-            check_pair(f"{label} B={len(rows)}", kernel_fns(key),
-                       [t.index_select(ins[i], rows).contiguous()
-                        if i in ins else t for i, t in enumerate(fwd)],
-                       flags, gys.index_select(1, rows).contiguous(),
-                       ys_f64_factor=factor)
-            if aside:
-                check_near_rows(label, key, fwd, flags, gys, near, factor)
+            check_pair_rows(f"{key.upper()} wide L={WIDE['L']} H=HH={H}",
+                            key, fwd, flags, gys)
 
 
 def wide_kernel_times(reps=5):
@@ -1574,20 +1626,23 @@ sys.path.insert(0, {root!r})
 import chip_smoke as c
 print("AB", json.dumps({{name: c.timed(make()["train_step"], reps={reps})
                         for name, make in (("sepsis", c.sepsis_step_fns),
-                                           ("mujoco", c.mujoco_step_fns))}}),
+                                           ("mujoco", c.mujoco_step_fns),
+                                           ("cde", c.cde_step_fns))}}),
       flush=True)
 """
 
 
 def ab_steps(parent: str, pairs: int = 16, reps: int = 100) -> int:
-    """A/B of the SDE paths' training steps through the kernels between a
-    parent checkout (the directory `parent`) and this one:
+    """A/B of the SDE paths' and the uea_rk4 Neural CDE classifier's
+    training steps through the kernels between a parent checkout (the
+    directory `parent`) and this one:
 
         python3 chip_smoke.py --ab-steps PARENT_DIR [PAIRS [REPS]]
 
     Each of `pairs` rounds runs one process per tree, in the order parent,
     change, then change, parent in the next round; each process times
-    `reps` steps of the sepsis and of the MuJoCo step (`timed`, median)
+    `reps` steps of the sepsis, the MuJoCo and the CDE step (`timed`,
+    median)
     with that tree's own chip_smoke.py and package. Prints every process's
     medians, then per path the median and quartiles of each tree's
     process medians, the median of the per-round differences (change minus
@@ -1606,9 +1661,9 @@ def ab_steps(parent: str, pairs: int = 16, reps: int = 100) -> int:
                                  text=True, timeout=600, check=True).stdout
             ms = json.loads(out.split("AB ", 1)[1])
             got[tree].append(ms)
-            print(f"AB round {i} {tree}: sepsis {ms['sepsis']:.4f} ms, "
-                  f"mujoco {ms['mujoco']:.4f} ms", flush=True)
-    for path in ("sepsis", "mujoco"):
+            print(f"AB round {i} {tree}: " + ", ".join(
+                f"{k} {v:.4f} ms" for k, v in ms.items()), flush=True)
+    for path in ("sepsis", "mujoco", "cde"):
         per = {t: [m[path] for m in got[t]] for t in trees}
         diff = [c - p for c, p in zip(per["change"], per["parent"])]
         for t, v in per.items():
@@ -1740,6 +1795,175 @@ def ab_kernels(parent: str, pairs: int = 4, reps: int = 30) -> int:
         python3 chip_smoke.py --ab-kernels PARENT_DIR [PAIRS [REPS]]"""
     return _ab_rounds("AB-SDE", lambda root: _AB_SDE_CHILD.format(
         root=root, reps=reps), parent, pairs)
+
+
+# the CDE pair's shapes of --ab-cde: (B, L, C, H, n_inner, reps)
+AB_CDE = {"sweep": (SWEEP["B"], SWEEP["L"], SWEEP["D"] + 1, SWEEP["H"], 0,
+                    REPS),
+          **{name: (sh["B"], sh["L"], sh["C"], sh["H"], sh["n_inner"], REPS)
+             for name, sh in CDE.items()},
+          **{f"uea_rk4 H=HH={H}": (CDE["uea_rk4"]["B"], CDE["uea_rk4"]["L"],
+                                   CDE["uea_rk4"]["C"], H, 1, 3)
+             for H in WIDE_H}}
+
+_AB_CDE_CHILD = """
+import json, sys
+sys.path.insert(0, {root!r})
+import chip_smoke as c
+fwd_k, _, bwd_k, _ = c.kernel_fns("cde")
+out = {{}}
+for name, (B, L, C, H, n_inner, reps) in {shapes!r}.items():
+    fwd, flags, gys = c.cde_kernel_inputs(B, L, C, H, n_inner)
+    ys = fwd_k(*fwd, **flags)
+    args = [fwd[0], ys, gys] + fwd[1:]
+    out[name + " fwd"] = c.timed(lambda: fwd_k(*fwd, **flags), reps=reps,
+                                 warmup=min(reps, 3))
+    out[name + " bwd"] = c.timed(lambda: bwd_k(*args, **flags), reps=reps,
+                                 warmup=min(reps, 3))
+print("AB", json.dumps(out), flush=True)
+"""
+
+
+def ab_cde(parent: str, pairs: int = 4, reps: int = REPS) -> int:
+    """A/B of the CDE pair (kernels only, `timed`, median of `reps`; 3 at
+    H=HH=128 and 256) at the sweep's shape, both bench shapes and
+    `uea_rk4` at H=HH=128 and 256, between a parent checkout and this one,
+    as ab_rnn:
+
+        python3 chip_smoke.py --ab-cde PARENT_DIR [PAIRS [REPS]]"""
+    shapes = {k: v[:5] + (reps if v[5] == REPS else v[5],)
+              for k, v in AB_CDE.items()}
+    return _ab_rounds("AB-CDE", lambda root: _AB_CDE_CHILD.format(
+        root=root, shapes=shapes), parent, pairs)
+
+
+# A source's barriers get a clock64() reading of block 0's thread 0 after
+# them; the cycles since the previous reading are charged to the barrier's
+# line (cde_ph), so each line's sum is the time of the phase it ends.
+_PHASE_HEAD = """
+__device__ unsigned long long cde_ph_cycles[8192];
+__device__ long long cde_ph_last;
+__device__ __forceinline__ void cde_ph(int line) {
+  if (threadIdx.x == 0 && blockIdx.x == 0) {
+    const long long t = clock64();
+    if (line >= 0) cde_ph_cycles[line] += t - cde_ph_last;
+    cde_ph_last = t;
+  }
+}
+"""
+_PHASE_TAIL = """
+extern "C" int cde_phase_read(unsigned long long* out) {
+  cudaError_t e = cudaDeviceSynchronize();
+  if (e == cudaSuccess)
+    e = cudaMemcpyFromSymbol(out, cde_ph_cycles, sizeof(cde_ph_cycles));
+  static unsigned long long zero[8192];
+  if (e == cudaSuccess)
+    e = cudaMemcpyToSymbol(cde_ph_cycles, zero, sizeof(zero));
+  return (int)e;
+}
+"""
+
+
+def instrument_cde(src: str):
+    """fused_cde.cu with a clock reading after every barrier (the block's
+    or the cluster's; not inside the helper that picks one) and at each
+    kernel's start; and {line: (function, the nearest comment above)}."""
+    import re
+
+    out, where, func, note, helper = [], {}, "", "", False
+    for i, line in enumerate(src.splitlines()):
+        m = re.match(r"^(?:[\w:<>,* ]+ )?(\w+)\(", line)
+        if m and not line.startswith((" ", "#", "//")):
+            func, note = m.group(1), ""
+        helper = helper or "void cluster_or_block_sync(" in line
+        if line.strip().startswith("//"):
+            note = line.strip()[3:]
+        barrier = ("__syncthreads();" in line or ".sync();" in line
+                   or "cluster_sync();" in line or re.search(r"cluster_or_block_sync\([^)]*\);", line))
+        if barrier and not helper:
+            line += f" cde_ph({i});"
+            where[i] = (func, note)
+        if "extern __shared__" in line:
+            line += " cde_ph(-1);"
+        if helper and line == "}":
+            helper = False
+        out.append(line)
+        if '#include "sde_common.cuh"' in line:
+            out.append(_PHASE_HEAD)
+    return "\n".join(out) + _PHASE_TAIL, where
+
+
+_PHASE_CHILD = """
+import ctypes, importlib.util, json, os, subprocess, sys, tempfile
+sys.path.insert(0, {root!r})
+import torch
+import chip_smoke as c
+from snsde_torch.kernels import _build, fused_cde as fc
+spec = importlib.util.spec_from_file_location(
+    "chip_smoke_here", os.path.join({here!r}, "chip_smoke.py"))
+here = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(here)
+src, where = here.instrument_cde(open(os.path.join(_build.CSRC,
+                                                   "fused_cde.cu")).read())
+tmp = tempfile.mkdtemp()
+for f in os.listdir(_build.CSRC):
+    if f.endswith(".cuh"):
+        subprocess.run(["cp", os.path.join(_build.CSRC, f), tmp], check=True)
+open(os.path.join(tmp, "fused_cde.cu"), "w").write(src)
+lib_path = os.path.join(tmp, "libphase.so")
+subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", lib_path,
+                os.path.join(tmp, "fused_cde.cu")], check=True,
+               capture_output=True)
+lib = ctypes.CDLL(lib_path)
+_build.load = lambda name: lib
+buf = (ctypes.c_ulonglong * 8192)()
+fwd_k, _, bwd_k, _ = c.kernel_fns("cde")
+out = {{}}
+for name, (B, L, C, H, n_inner) in {shapes!r}.items():
+    fwd, flags, gys = c.cde_kernel_inputs(B, L, C, H, n_inner)
+    ys = fwd_k(*fwd, **flags)
+    args = [fwd[0], ys, gys] + fwd[1:]
+    for part, fn in (("fwd", lambda: fwd_k(*fwd, **flags)),
+                     ("bwd", lambda: bwd_k(*args, **flags))):
+        fn()
+        assert lib.cde_phase_read(buf) == 0
+        fn()
+        assert lib.cde_phase_read(buf) == 0
+        out[name + " " + part] = {{i: [buf[i], *where[i]] for i in where
+                                  if buf[i]}}
+print("PHASES", json.dumps(out), flush=True)
+"""
+
+
+def phase_split(trees) -> int:
+    """Where one launch of the CDE pair spends block 0's cycles, by phase
+    (the barrier that ends it), at the sweep's shape and both bench
+    shapes, for each tree's fused_cde.cu (instrument_cde), one process a
+    tree:
+
+        python3 chip_smoke.py --phase-split TREE [TREE ...]"""
+    import os
+
+    shapes = {"sweep": AB_CDE["sweep"][:5],
+              **{n: AB_CDE[n][:5] for n in CDE}}
+    here = os.path.dirname(os.path.abspath(__file__))
+    for tree in trees:
+        root = os.path.abspath(tree)
+        code = _PHASE_CHILD.format(root=root, here=here, shapes=shapes)
+        res = subprocess.run([sys.executable, "-c", code], cwd=root,
+                             capture_output=True, text=True, timeout=900)
+        if res.returncode != 0:
+            print(res.stdout[-3000:], res.stderr[-6000:])
+            return 1
+        got = json.loads(res.stdout.split("PHASES ", 1)[1])
+        for launch, lines in got.items():
+            total = sum(v[0] for v in lines.values())
+            print(f"PHASES {tree} {launch}: block 0 {total} cycles")
+            for line, (cyc, func, note) in sorted(
+                    lines.items(), key=lambda kv: -kv[1][0]):
+                print(f"  {100 * cyc / total:5.1f}% {cyc:12d}  line "
+                      f"{int(line) + 1:4d} {func}: {note[:70]}")
+    return 0
 
 
 def main() -> int:
@@ -1886,4 +2110,8 @@ if __name__ == "__main__":
                         *map(int, sys.argv[3:5])))
     if sys.argv[1:2] == ["--ab-kernels"]:
         sys.exit(ab_kernels(sys.argv[2], *map(int, sys.argv[3:5])))
+    if sys.argv[1:2] == ["--ab-cde"]:
+        sys.exit(ab_cde(sys.argv[2], *map(int, sys.argv[3:5])))
+    if sys.argv[1:2] == ["--phase-split"]:
+        sys.exit(phase_split(sys.argv[2:]))
     sys.exit(main())

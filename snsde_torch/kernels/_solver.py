@@ -147,16 +147,17 @@ class SolverLib:
         return self._kept[key]
 
     def rows(self, shape, backward: bool) -> int:
-        """Batch rows a block of a launch at `shape` (the ints
-        `shape_names`): the leading dimension of the per-block partials is
-        ceil(B / rows)."""
+        """Batch rows a block (the CDE pair: a cluster) of a launch at
+        `shape` (the ints `shape_names`): the leading dimension of the
+        partials is ceil(B / rows)."""
         return self.kept("plan", *shape, int(backward), 1)
 
     def placement(self, shape, backward: bool) -> int:
-        """The placement of a launch at `shape`: 0 everything in shared
-        memory, 1 the gradient accumulators in device memory, 2 the weights
-        too, 3-5 as 2 with 4, 2, 1 batch rows a block
-        (csrc/sde_common.cuh)."""
+        """The placement of a launch at `shape`: for the SDE pairs 0
+        everything in shared memory, 1 the gradient accumulators in device
+        memory, 2 the weights too, 3-5 as 2 with 4, 2, 1 batch rows a block
+        (csrc/sde_common.cuh); for the CDE pair its plan's level
+        (csrc/fused_cde.cu)."""
         return self.kept("plan", *shape, int(backward), 0)
 
     def force_placement(self, first: int) -> None:

@@ -39,7 +39,8 @@ from ._solver import SolverLib, check_tensors
 __all__ = ["fused_cde_solve", "fused_cde_inputs", "supports_fused_cde",
            "FusedCDE", "fused_cde_forward", "fused_cde_backward",
            "fused_cde_forward_reference", "fused_cde_backward_reference",
-           "FusedCDEGrads", "check_kernel_inputs", "FUSED_CDE_METHODS"]
+           "FusedCDEGrads", "check_kernel_inputs", "FUSED_CDE_METHODS",
+           "fused_cde_plan", "force_cde_plan"]
 
 # launches of each CUDA kernel since the count was last set to 0
 FWD_LAUNCHES = 0
@@ -96,10 +97,11 @@ def supports_fused_cde(func, method: str = "rk4") -> bool:
     `fused_weights()` (FinalTanh, SingleHiddenLayer; not GRU-ODE) on any
     tableau of _TABLEAUS, at any width: every field the JAX package's gate
     takes (snsde/kernels/fused_cde.py:600-631, H*C up to 4096) and more.
-    Weights and accumulators that do not fit a block's shared memory are
-    read from device memory (csrc/sde_common.cuh's placements); only a
-    field whose tiles do not fit even at one batch row a block raises
-    ValueError at launch, never a quiet route to the eager solver."""
+    Wout is split over a thread-block cluster; what does not fit a CTA's
+    shared memory even so is read from device memory (the plan's levels,
+    csrc/fused_cde.cu); only a field whose tiles do not fit even at one
+    batch row a cluster raises ValueError at launch, never a quiet route
+    to the eager solver."""
     return method in _TABLEAUS and hasattr(func, "fused_weights")
 
 
@@ -252,8 +254,33 @@ def fused_cde_backward_reference(z0, ys, gys, dx, dts, win, bin, w_inner,
 _LIB = SolverLib("fused_cde", "fused CDE", 10, 19,
                  int_names=("M", "B", "H", "HH", "C", "n_inner", "method",
                             "act"),
-                 shape_names=("H", "HH", "C", "n_inner", "method"),
-                 int_fns={"plan": 7, "force_placement": 1})
+                 shape_names=("B", "H", "HH", "C", "n_inner", "method"),
+                 int_fns={"plan": 8, "force_placement": 1, "force_plan": 2})
+
+_PLAN_FIELDS = ("level", "rows", "cluster", "keep", "active_clusters",
+                "smem_bytes")
+
+
+def fused_cde_plan(B: int, H: int, HH: int, C: int, n_inner: int,
+                   method: str, backward: bool) -> dict:
+    """The CUDA library's plan of a CDE launch: its level (0 everything in
+    shared memory ... 6 fewer rows, csrc/fused_cde.cu), batch rows and
+    CTAs a cluster, whether the backward keeps the stage activations,
+    cudaOccupancyMaxActiveClusters (a negative CUDA error when the plan
+    cannot be scheduled) and the shared bytes a CTA. Needs the card."""
+    shape = (B, H, HH, C, n_inner, _METHOD_CODE[method], int(backward))
+    return {name: _LIB.call("plan", *shape, i)
+            for i, name in enumerate(_PLAN_FIELDS)}
+
+
+def force_cde_plan(cluster: int = 0, rows: int = 0) -> None:
+    """Make later launches take clusters of `cluster` CTAs and `rows`
+    batch rows a cluster (0: the plan's own choice of each); for tests of
+    each plan. Raises ValueError on a size the kernels do not take."""
+    if _LIB.call("force_plan", cluster, rows) != 0:
+        raise ValueError(f"no CDE plan with {cluster} CTAs and {rows} rows "
+                         f"a cluster")
+    _LIB._kept.clear()
 
 
 def check_kernel_inputs(z0, dx, dts, win, bin, w_inner, b_inner, wout, bout,
@@ -300,7 +327,7 @@ def fused_cde_forward(z0, dx, dts, win, bin, w_inner, b_inner, wout, bout, *,
     dims = check_kernel_inputs(*args, method=method, act=act)
     M, B, H, HH, C, n_inner = dims
     code = _METHOD_CODE[method]
-    stream = _LIB.stream(z0, (H, HH, C, n_inner, code), backward=False)
+    stream = _LIB.stream(z0, (B, H, HH, C, n_inner, code), backward=False)
     ys = torch.empty((M, B, H), dtype=torch.float32, device=z0.device)
     _LIB.launch("fwd", args + (ys,), dims + (code, _ACT_CODE[act]), stream)
     FWD_LAUNCHES += 1
@@ -311,8 +338,8 @@ def fused_cde_backward(z0, ys, gys, dx, dts, win, bin, w_inner, b_inner,
                        wout, bout, *, method: str,
                        act: str) -> FusedCDEGrads:
     """Cotangents of the solve's inputs given gys = dL/dys: the CUDA
-    backward kernel for CUDA tensors (per-block partials summed here), the
-    plain version for CPU tensors."""
+    backward kernel for CUDA tensors (per-cluster partials summed here),
+    the plain version for CPU tensors."""
     global BWD_LAUNCHES
     args = (dx, dts, win, bin, w_inner, b_inner, wout, bout)
     if z0.device.type == "cpu":
@@ -322,10 +349,11 @@ def fused_cde_backward(z0, ys, gys, dx, dts, win, bin, w_inner, b_inner,
                                gys=gys)
     M, B, H, HH, C, n_inner = dims
     code = _METHOD_CODE[method]
-    stream = _LIB.stream(z0, (H, HH, C, n_inner, code), backward=True)
-    nb = -(-B // _LIB.rows((H, HH, C, n_inner, code), backward=True))
-    empty = lambda *shape: torch.empty(shape, dtype=torch.float32,
-                                       device=z0.device)
+    shape = (B, H, HH, C, n_inner, code)
+    stream = _LIB.stream(z0, shape, backward=True)
+    nb = -(-B // _LIB.rows(shape, backward=True))   # clusters
+    empty = lambda *size: torch.empty(size, dtype=torch.float32,
+                                      device=z0.device)
     ddx, dz0 = empty(*dx.shape), empty(B, H)
     p_win, p_bin = empty(nb, H, HH), empty(nb, HH)
     p_wi, p_bi = empty(nb, n_inner, HH, HH), empty(nb, n_inner, HH)

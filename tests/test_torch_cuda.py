@@ -45,8 +45,17 @@ The EM, SRK and CDE pairs also run at H = HH = 128 (one and two inner
 layers) and 256, where the weights and the gradient accumulators no
 longer fit a block's shared memory, in every placement of
 csrc/sde_common.cuh forced once (the accumulators in device memory, the
-weights too, then 4, 2 and 1 batch rows a block), under the init-scale
-rules.
+weights too, then 4, 2 and 1 batch rows a block; for the CDE pair the
+levels of its plan, csrc/fused_cde.cu), under the init-scale rules.
+
+The CDE pair splits Wout over a thread-block cluster: it also runs with
+each cluster size forced (1, 2, 4 and 8 CTAs; H = 20 leaves the last CTAs
+of a cluster of 8 two units and none) at several rows a cluster on a
+ragged batch at C = 6 and 35, on every tableau and activation with zero,
+one and two inner layers in a cluster of two, with the backward keeping
+the stage activations and recomputing them; its backward is
+bit-reproducible, its plan splits Wout as the host rule says, and a plan
+that cannot run raises.
 
 The GRU and LSTM pairs run at init-scale weights over H = 5 ... 512, a
 ragged batch, with and without the GRU's decay stream, under the same
@@ -248,16 +257,16 @@ def test_cde_zero_step_is_identity_on_the_card():
 
 @pytest.mark.cuda
 def test_cde_kernels_raise_above_the_shared_memory_limit():
-    """A field whose output weight does not fit one block's shared memory
-    (H = 128, C = 64: Wout 4 MB) now runs, its weights read from device
-    memory; only a field whose field-output tile alone overflows a block
-    at one batch row (H C = 65536 floats, 256 KB) raises ValueError naming
-    the limit, before any launch."""
+    """A field whose output weight does not fit a cluster's shared memory
+    (H = 128, C = 64: Wout 4 MB) runs, its weights read from device
+    memory; only a field whose tiles alone overflow a CTA at one batch row
+    (H = 4096: its stage increments) raises ValueError naming the limit,
+    before any launch."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
     inputs, flags, gys = _cde_inputs("rk4", "relu", 0, 64, "init", H=128,
                                      B=3, M=2)
-    shape = (128, 128, 64, 0, 3)
+    shape = (3, 128, 128, 64, 0, 3)
     assert fc._LIB.placement(shape, backward=False) >= 2
     _check(_fns(fc, "fused_cde"), inputs, flags, gys, "init",
            ys_f64_factor=YS_F64_FACTOR)
@@ -599,7 +608,7 @@ def _wide_check(kind, H, n_inner, placement):
     if kind == "cde":
         inputs, flags, gys = _cde_inputs("rk4", "relu", n_inner, 6, "init",
                                          B=13, M=4, H=H)
-        shape = (H, H, 6, n_inner, 3)
+        shape = (13, H, H, 6, n_inner, 3)
     else:
         inputs, flags, gys = _inputs(kind == "srk", 4, 17, n_inner, "init",
                                      B=13, M=5, H=H)
@@ -769,3 +778,142 @@ def test_gru_weight_grad_kernel_matches_its_plain_version():
             for a, b in zip(k, p):
                 rel = float((a - b).abs().max()) / float(b.abs().max())
                 assert rel < TOL_GRAD, (L, B, H, dec, rel)
+
+
+# (CTAs a cluster, batch rows a cluster, B, C) of the CDE pair at H = HH =
+# 20, both forced: every cluster size the plan can pick, on batches that
+# leave the last cluster ragged
+CDE_CLUSTERS = [(1, 8, 13, 6), (2, 8, 13, 6), (4, 8, 13, 6), (8, 8, 13, 6),
+                (1, 8, 37, 35), (2, 4, 37, 35), (4, 16, 37, 35),
+                (8, 2, 37, 35), (1, 32, 37, 6)]
+
+
+def _cde_forced(cs, rows, method, act, n_inner, C, B, H=20, M=5):
+    """The CDE pair against its plain versions (init-scale rules) with the
+    plan's cluster size and rows forced."""
+    fc.force_cde_plan(cs, rows)
+    try:
+        for backward in (False, True):
+            p = fc.fused_cde_plan(B, H, H, C, n_inner, method, backward)
+            print(f"cs={cs} rows={rows} B={B} C={C} {method} {act} "
+                  f"n_inner={n_inner} backward={backward}: {p}")
+            assert (p["cluster"], p["rows"]) == (cs, rows)
+            assert p["active_clusters"] >= 1
+        inputs, flags, gys = _cde_inputs(method, act, n_inner, C, "init",
+                                         B=B, M=M, H=H)
+        _check(_fns(fc, "fused_cde"), inputs, flags, gys, "init",
+               ys_f64_factor=YS_F64_FACTOR)
+    finally:
+        fc.force_cde_plan(0, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cs,rows,B,C", CDE_CLUSTERS)
+def test_cde_cluster_plans_match_plain_versions(cs, rows, B, C):
+    """Each cluster size, forced, on a ragged batch at C = 6 and 35."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    _cde_forced(cs, rows, "rk4", "relu", 1, C, B)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_inner", [0, 1, 2])
+@pytest.mark.parametrize("act", ["relu", "tanh"])
+@pytest.mark.parametrize("method", ["euler", "midpoint", "heun", "rk4"])
+def test_cde_every_tableau_activation_and_depth(method, act, n_inner):
+    """Every tableau and activation with zero, one and two inner layers, in
+    a cluster of two CTAs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    _cde_forced(2, 8, method, act, n_inner, 6, 13)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,cs,keep", [(6, 1, 1), (35, 2, 0)])
+def test_cde_backward_keeps_or_recomputes_the_stages(C, cs, keep):
+    """At 8 rows a cluster and H = 32 the backward keeps the stage
+    activations at C = 6 in one CTA and recomputes them at C = 35 in a
+    cluster of two (they do not fit beside the Wout and dWout slices);
+    both match the plain versions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    fc.force_cde_plan(cs, 8)
+    try:
+        p = fc.fused_cde_plan(13, 32, 32, C, 1, "rk4", True)
+        print(f"C={C}: {p}")
+        assert p["keep"] == keep and p["active_clusters"] >= 1
+        inputs, flags, gys = _cde_inputs("rk4", "relu", 1, C, "init", B=13,
+                                         M=4, H=32)
+        _check(_fns(fc, "fused_cde"), inputs, flags, gys, "init",
+               ys_f64_factor=YS_F64_FACTOR)
+    finally:
+        fc.force_cde_plan(0, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cs", [1, 2, 8])
+def test_cde_backward_is_bit_reproducible(cs):
+    """Two backward calls agree bit for bit: the cluster's partials of dh
+    and of the control cotangent summed in rank order, one owner an
+    accumulator entry, the per-cluster partials summed in a fixed order."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    fc.force_cde_plan(cs, 8)
+    try:
+        inputs, flags, gys = _cde_inputs("rk4", "relu", 1, 35, "init", B=37,
+                                         M=5, H=20)
+        ys = fc.fused_cde_forward(**inputs, **flags)
+        a = fc.fused_cde_backward(ys=ys, gys=gys, **inputs, **flags)
+        b = fc.fused_cde_backward(ys=ys, gys=gys, **inputs, **flags)
+        torch.cuda.synchronize()
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+    finally:
+        fc.force_cde_plan(0, 0)
+
+
+@pytest.mark.cuda
+def test_cde_plan_splits_wout_as_it_must():
+    """The host rule on an H100 (227 KB a CTA, 132 SMs): one CTA of 8 rows
+    a cluster at the uea_rk4 width, whose backward keeps the stages; at
+    the sepsis_rk4 width (Wout 143 KB) the forward in one CTA, the
+    backward split over 2 (Wout and dWout slices in shared memory, the
+    stages recomputed); at H = HH = 128 one CTA of 8 rows reading Wout
+    from device memory (one wave, against 4-16 waves of clusters that each
+    read or hold the hidden layers in full), the forward's hidden weights
+    in shared memory, the backward's too in device memory; the sweep's 64
+    rows one a cluster."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    want = {(1024, 32, 6, 1): ((0, 1, 8, 0), (0, 1, 8, 1)),
+            (1024, 32, 35, 1): ((0, 1, 8, 0), (0, 2, 8, 0)),
+            (1024, 128, 6, 1): ((4, 1, 8, 0), (5, 1, 8, 1)),
+            (64, 16, 6, 0): ((0, 1, 1, 0), (0, 1, 1, 1))}
+    for (B, H, C, n_inner), plans in want.items():
+        for backward, w in zip((False, True), plans):
+            p = fc.fused_cde_plan(B, H, H, C, n_inner, "rk4", backward)
+            assert (p["level"], p["cluster"], p["rows"], p["keep"]) == w, p
+            assert p["active_clusters"] >= 1
+
+
+@pytest.mark.cuda
+def test_cde_plan_raises_when_it_cannot_run():
+    """A cluster size or row count the kernels do not take raises
+    ValueError; so does a forced plan whose CTA fits no level (32 rows a
+    cluster of one at the sepsis_rk4 width: its O and dz tiles alone
+    exceed 227 KB), before any launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    with pytest.raises(ValueError):
+        fc.force_cde_plan(3, 0)
+    with pytest.raises(ValueError):
+        fc.force_cde_plan(0, 64)
+    fc.force_cde_plan(1, 32)
+    try:
+        inputs, flags, gys = _cde_inputs("rk4", "relu", 1, 35, "init", B=40,
+                                         M=2, H=32)
+        ys = fc.fused_cde_forward_reference(**inputs, **flags)
+        with pytest.raises(ValueError, match="limit per block"):
+            fc.fused_cde_backward(ys=ys, gys=gys, **inputs, **flags)
+    finally:
+        fc.force_cde_plan(0, 0)
