@@ -27,7 +27,9 @@ LSTM kernels). Phases, each of which raises on failure:
      input lies within rounding of 0 judged apart, check_pair_rows); the
      EM, SRK and CDE pairs at H=HH=128 and 256 with one
      inner layer (B=128, L=24: weights and accumulators past a block's
-     shared memory, each placement printed); the GRU pair (with and
+     shared memory, each placement or plan printed); the EM pair's
+     weight-gradient kernel alone against its plain version at the
+     sepsis shape and at H=HH=128 and 256 (B=128, L=24); the GRU pair (with and
      without the decay stream) and the LSTM pair at the sweep's shape
      (B=64, L=60, H=16, and H=8 for the bilstm's directions), at the JAX
      package's recurrent bench shapes (tools/bench_cde.py:159-177:
@@ -63,13 +65,14 @@ LSTM kernels). Phases, each of which raises on failure:
      no error, and whose trained recurrence through the kernels must match
      its eager loop on a small batch; and the sepsis harness at hidden
      128 (the interpolation flagship encoder's width) for one epoch, which
-     must launch both EM kernels with finite losses;
+     must launch the three EM kernels with finite losses;
   5. times: the natural cubic fit of the forecasting windows on the host
      by each of its two paths (host clock, median of 3); each kernel and
      its plain version (the CDE pair at the sweep's shape and at both
      bench shapes; the GRU and LSTM pairs, and cuDNN's forward, backward
-     and both, at the sweep's shape and the bench shapes; each backward's
-     recurrence and weight-gradient kernels apart, and fused_*_scan
+     and both, at the sweep's shape and the bench shapes; each recurrent
+     and EM backward's recurrence and weight-gradient kernels apart, the
+     weight gradient beside torch.matmul of its products, and fused_*_scan
      forward + backward, projection included, beside cuDNN's forward +
      backward), the wide route (the EM and SRK pairs at the sepsis shape
      and the CDE pair at uea_rk4, H=HH=128 and 256), and one full
@@ -88,16 +91,16 @@ result, without a CUDA device or outside the repository.
     python3 chip_smoke.py --ab-gru PARENT_DIR [PAIRS [REPS]]
     python3 chip_smoke.py --ab-kernels PARENT_DIR [PAIRS [REPS]]
     python3 chip_smoke.py --ab-cde PARENT_DIR [PAIRS [REPS]]
-    python3 chip_smoke.py --phase-split TREE [TREE ...]
+    python3 chip_smoke.py --phase-split [em|cde] TREE [TREE ...]
 
 run none of the phases: they time the SDE paths' training steps
 and the CDE classifier's (`ab_steps`), the LSTM or GRU kernels at the
 sweep's and the bench shapes
-(`ab_rnn`), the EM, SRK and CDE kernels at the main paths' shapes
-(`ab_kernels`), or the CDE pair at the sweep's shape, both bench shapes
-and H=HH=128 and 256 (`ab_cde`), of a parent checkout against this one,
-in alternating processes; or split one CDE launch of each tree by phase
-(`phase_split`).
+(`ab_rnn`), the EM, SRK and CDE kernels at the main paths' shapes and the
+EM pair also at H=HH=128 and 256 (`ab_kernels`), or the CDE pair at the
+sweep's shape, both bench shapes and H=HH=128 and 256 (`ab_cde`), of a
+parent checkout against this one, in alternating processes; or split one
+EM or CDE launch of each tree by phase (`phase_split`).
 """
 
 from __future__ import annotations
@@ -393,9 +396,10 @@ def compare_cde(B, L, C, H, n_inner, method="rk4", field="final_tanh"):
 
 
 def _placements(key, shape):
-    """(forward, backward) placements of an SDE launch at `shape`
-    (csrc/sde_common.cuh: 0 all in shared memory, 1 the accumulators in
-    device memory, 2 the weights too, 3-5 fewer rows a block)."""
+    """(forward, backward) placements of an SRK launch at `shape` (H, HH,
+    n_inner) (csrc/sde_common.cuh: 0 all in shared memory, 1 the
+    accumulators in device memory, 2 the weights too, 3-5 fewer rows a
+    block)."""
     lib = _kernel_modules()[key]._LIB
     return [lib.placement(shape, b) for b in (False, True)]
 
@@ -423,6 +427,72 @@ def cde_plans(shapes, method="rk4"):
             if p["active_clusters"] < 1:
                 raise AssertionError(f"CDE plan at B={B} H={H} C={C} cannot "
                                      f"be scheduled: {p}")
+
+
+def em_plans(shapes):
+    """Print the EM pair's plan at each (B, H, n_inner) (H = HH): level (0
+    the weight slices in shared memory, 1 the weights read from device
+    memory), CTAs and batch rows a cluster, shared bytes a CTA and
+    cudaOccupancyMaxActiveClusters; raise if one cannot be scheduled."""
+    from snsde_torch.kernels import fused_em as fe
+
+    for B, H, n_inner in shapes:
+        for backward in (False, True):
+            p = fe.fused_em_plan(B, H, H, n_inner, backward)
+            print(f"  EM plan B={B} H=HH={H} n_inner={n_inner} "
+                  f"{'backward' if backward else 'forward'}: level "
+                  f"{p['level']}, CS={p['cluster']}, {p['rows']} rows a "
+                  f"cluster, {p['smem_bytes']} shared bytes a CTA, "
+                  f"cudaOccupancyMaxActiveClusters {p['active_clusters']}")
+            if p["active_clusters"] < 1:
+                raise AssertionError(f"EM plan at B={B} H={H} cannot be "
+                                     f"scheduled: {p}")
+
+
+def em_wgrad_args(model_name, B, L, C, H, layers):
+    """The EM weight-gradient kernel's inputs at a shape: y0, the plain
+    trajectory and the plain backward recurrence's streams."""
+    from snsde_torch.kernels import fused_em as fe
+
+    inp, gys = kernel_inputs(model_name, B, L, C, H, layers)
+    fwd, flags = _split(inp)
+    ys = fe.fused_em_forward_reference(*fwd, **flags)
+    st = fe.fused_em_backward_recurrence_reference(fwd[0], ys, gys,
+                                                   *fwd[1:], **flags)
+    return fwd[0], ys, st
+
+
+def compare_em_wgrad(model_name, B, L, C, H, layers):
+    """The EM weight-gradient kernel alone against its plain version on
+    the plain recurrence's streams: every output within TOL_GRAD of its
+    largest entry, and no further from a float64 run than the F64 rule
+    allows. Returns the largest abs error."""
+    from snsde_torch.kernels import fused_em as fe
+
+    y0, ys, st = em_wgrad_args(model_name, B, L, C, H, layers)
+    k = fe.fused_em_weight_grads(y0, ys, st)
+    p = fe.fused_em_weight_grads_reference(y0, ys, st.dxh, st.hs, st.es,
+                                           st.dz3, st.q)
+    r = fe.fused_em_weight_grads_reference(
+        y0.double(), ys.double(),
+        *(t.double() for t in (st.dxh, st.hs, st.es, st.dz3, st.q)))
+    torch.cuda.synchronize()
+    worst = 0.0
+    for name, a, b, ref in zip(p._fields, k, p, r):
+        if not b.numel():
+            continue
+        e = float((a - b).abs().max())
+        rel = e / max(float(b.abs().max()), 1e-30)
+        (k_max, k_rms), (p_max, p_rms) = _errs64(a, ref), _errs64(b, ref)
+        print(f"  EM weight-gradient kernel B={B} L={L} H={H} {name}: max "
+              f"abs err {e:.3e} rel {rel:.3e} (tol {TOL_GRAD:g}); from "
+              f"float64 largest/rms: kernel {k_max:.3e}/{k_rms:.3e}, float32 "
+              f"plain {p_max:.3e}/{p_rms:.3e}")
+        if not (rel <= TOL_GRAD and k_rms <= F64_FACTOR * p_rms + F64_FLOOR):
+            raise AssertionError(f"EM weight-gradient kernel disagrees on "
+                                 f"{name}")
+        worst = max(worst, e)
+    return worst
 
 
 # the batch axis of each SDE and CDE pair's batch-indexed forward inputs,
@@ -565,8 +635,8 @@ def compare_wide():
     (check_pair_rows)."""
     for H in WIDE_H:
         print(f"  placements at H=HH={H}, one inner layer (forward, "
-              f"backward): EM {_placements('em', (H, H, 1))}, SRK "
-              f"{_placements('srk', (H, H, 1))}")
+              f"backward): SRK {_placements('srk', (H, H, 1))}")
+        em_plans([(WIDE["B"], H, 1), (MAIN["B"], H, 1)])
         cde_plans([(WIDE["B"], H, 6, 1), (CDE["uea_rk4"]["B"], H, 6, 1)])
         for key in ("em", "srk", "cde"):
             if key == "cde":
@@ -631,6 +701,7 @@ def _counters():
     out = [(f"{key}_{part}", mod, f"{part.upper()}_LAUNCHES")
            for key, mod in _kernel_modules().items()
            for part in ("fwd", "bwd")]
+    out.append(("em_wgrad", _kernel_modules()["em"], "WGRAD_LAUNCHES"))
     return out + [(f"{key}_{part}", fused_rnn,
                    f"{key.upper()}_{part.upper()}_LAUNCHES")
                   for key in ("gru", "lstm")
@@ -667,7 +738,7 @@ def main_path():
           f"{res.test_metrics.auroc:.4f}, launches {launches}", flush=True)
     if not all(np.isfinite(losses)):
         raise AssertionError("non-finite loss on the sepsis path")
-    if launches["em_fwd"] <= 0 or launches["em_bwd"] <= 0:
+    if min(launches[f"em_{k}"] for k in ("fwd", "bwd", "wgrad")) <= 0:
         raise AssertionError(f"sepsis path did not run the kernels: "
                              f"{launches}")
     check_trained_solve(res.model.sde.func, MAIN)
@@ -676,8 +747,8 @@ def main_path():
 
 def wide_sepsis_path():
     """The sepsis path at hidden SEPSIS_WIDE["H"] = 128 for one epoch: the
-    EM kernels take the field with their gradient accumulators in device
-    memory; the losses must be finite and both kernels launched."""
+    EM kernels take the field in their plan for that width (printed); the
+    losses must be finite and all three EM kernels launched."""
     from snsde_torch.harness.classification import run_sepsis
 
     H = SEPSIS_WIDE["H"]
@@ -692,15 +763,14 @@ def wide_sepsis_path():
     losses = [h[s]["loss"] for h in res.history for s in ("train", "val")]
     losses += [res.train_metrics.loss, res.val_metrics.loss,
                res.test_metrics.loss]
-    shape = (H, H, MAIN["layers"] - 1)
     print(f"main path 1 at H={H}: run_sepsis {SEPSIS_WIDE['epochs']} epoch "
           f"in {wall:.1f} s, losses {[round(v, 4) for v in losses]}, val "
-          f"AUROC {res.val_metrics.auroc:.4f}, placements (forward, "
-          f"backward) {_placements('em', shape)}, "
-          f"launches {launches}", flush=True)
+          f"AUROC {res.val_metrics.auroc:.4f}, launches {launches}",
+          flush=True)
+    em_plans([(MAIN["B"], H, MAIN["layers"] - 1)])
     if not all(np.isfinite(losses)):
         raise AssertionError(f"non-finite loss on the sepsis path at H={H}")
-    if launches["em_fwd"] <= 0 or launches["em_bwd"] <= 0:
+    if min(launches[f"em_{k}"] for k in ("fwd", "bwd", "wgrad")) <= 0:
         raise AssertionError(f"sepsis path at H={H} did not run the "
                              f"kernels: {launches}")
     return launches
@@ -1424,7 +1494,48 @@ def kernel_times(shape, srk=False):
               "bwd": bound(nbytes_in + 4 * (ys.numel() + gys.numel()
                                             + sum(g.numel() for g in grads)),
                            3 * products)}
+    if not srk:
+        ms_w, bounds["wgrad"] = em_backward_times(fwd, ys, gys, flags)
+        ms.update(ms_w)
     return ms, bounds
+
+
+def em_backward_times(fwd, ys, gys, flags):
+    """The EM backward's two kernels timed apart (the recurrence, and the
+    weight gradient with its plain version and torch.matmul of its
+    products), "bwd" then their sum ("bwd_call" the wrapper's time, which
+    adds the sums of the partials); and the weight gradient's bound: its
+    streams read once (the state before each step, dz1, the activations,
+    the inner cotangents, dz3 and q) and its outputs written once, and
+    2 K (H HH + NI HH HH + HH H) operations over K = M B rows."""
+    from snsde_torch.kernels import fused_em as fe
+
+    y0 = fwd[0]
+    rec_args = (y0, ys, gys) + tuple(fwd[1:])
+    st = fe.fused_em_backward_recurrence(*rec_args, **flags)
+    ms = {"bwd_call": timed(lambda: fe.fused_em_backward(*rec_args,
+                                                          **flags)),
+          "bwd_recurrence": timed(lambda: fe.fused_em_backward_recurrence(
+              *rec_args, **flags)),
+          "bwd_wgrad": timed(lambda: fe.fused_em_weight_grads(y0, ys, st)),
+          "wgrad_plain": timed(lambda: fe.fused_em_weight_grads_reference(
+              y0, ys, st.dxh, st.hs, st.es, st.dz3, st.q))}
+    M, B, H = ys.shape
+    HH, NI = st.dxh.shape[2], st.es.shape[0]
+    x = torch.cat([y0[None], ys[:-1]]).reshape(-1, H)
+    pairs = ([(x, st.dxh.reshape(-1, HH))]
+             + [(st.hs[l].reshape(-1, HH), st.es[l].reshape(-1, HH))
+                for l in range(NI)]
+             + [(st.hs[NI].reshape(-1, HH), st.dz3.reshape(-1, H))])
+    ms["wgrad_lib"] = timed(lambda: [torch.matmul(a.T, e) for a, e in pairs])
+    ms["bwd"] = ms["bwd_recurrence"] + ms["bwd_wgrad"]
+    K = M * B
+    n_in = K * (H + HH + (NI + 1) * HH + NI * HH + 2 * H)
+    n_out = H * HH + NI * (HH * HH + HH) + HH * H + H + M * (HH + H)
+    flops = 2 * K * (H * HH + NI * HH * HH + HH * H)
+    print(f"EM backward at B={B} M={M} H={H} HH={HH}: " + ", ".join(
+        f"{k} {v:.4f} ms" for k, v in ms.items()), flush=True)
+    return ms, bound(4 * (n_in + n_out), flops)
 
 
 def cde_kernel_times(shape, method="rk4"):
@@ -1718,6 +1829,17 @@ for key, shape in (("em", c.MAIN), ("srk", c.SRK)):
     args = [fwd[0], ys, gys] + fwd[1:]
     out[key + " fwd"] = c.timed(lambda: fwd_k(*fwd, **flags), reps={reps})
     out[key + " bwd"] = c.timed(lambda: bwd_k(*args, **flags), reps={reps})
+fwd_k, _, bwd_k, _ = c.kernel_fns("em")
+for H in {wide!r}:
+    inp, gys = c.kernel_inputs(c.MAIN["model"], c.MAIN["B"], c.MAIN["L"],
+                               c.MAIN["C"], H, 2)
+    fwd, flags = c._split(inp)
+    ys = fwd_k(*fwd, **flags)
+    args = [fwd[0], ys, gys] + fwd[1:]
+    out["em H=HH=%d fwd" % H] = c.timed(lambda: fwd_k(*fwd, **flags),
+                                        reps={wide_reps}, warmup=2)
+    out["em H=HH=%d bwd" % H] = c.timed(lambda: bwd_k(*args, **flags),
+                                        reps={wide_reps}, warmup=2)
 fwd_k, _, bwd_k, _ = c.kernel_fns("cde")
 fwd, flags, gys = c.cde_kernel_inputs(c.SWEEP["B"], c.SWEEP["L"],
                                       c.SWEEP["D"] + 1, c.SWEEP["H"], 0)
@@ -1788,13 +1910,15 @@ def ab_rnn(kind: str, parent: str, pairs: int = 4, reps: int = 30) -> int:
 
 
 def ab_kernels(parent: str, pairs: int = 4, reps: int = 30) -> int:
-    """A/B of the EM and SRK pairs at the sepsis and MuJoCo shapes and the
-    CDE pair at the sweep's shape (kernels only, `timed`, median of
-    `reps`) between a parent checkout and this one, as ab_rnn:
+    """A/B of the EM and SRK pairs at the sepsis and MuJoCo shapes, the EM
+    pair also at the sepsis shape with H=HH=128 and 256 (one inner layer;
+    median of 10), and the CDE pair at the sweep's shape (kernels only,
+    `timed`, median of `reps`) between a parent checkout and this one, as
+    ab_rnn:
 
         python3 chip_smoke.py --ab-kernels PARENT_DIR [PAIRS [REPS]]"""
     return _ab_rounds("AB-SDE", lambda root: _AB_SDE_CHILD.format(
-        root=root, reps=reps), parent, pairs)
+        root=root, reps=reps, wide=WIDE_H, wide_reps=10), parent, pairs)
 
 
 # the CDE pair's shapes of --ab-cde: (B, L, C, H, n_inner, reps)
@@ -1839,9 +1963,11 @@ def ab_cde(parent: str, pairs: int = 4, reps: int = REPS) -> int:
 
 # A source's barriers get a clock64() reading of block 0's thread 0 after
 # them; the cycles since the previous reading are charged to the barrier's
-# line (cde_ph), so each line's sum is the time of the phase it ends.
+# line (cde_ph), so each line's sum is the time of the phase it ends. The
+# source's own headers are instrumented too, their lines PHASE_FILE apart.
+PHASE_FILE = 4096
 _PHASE_HEAD = """
-__device__ unsigned long long cde_ph_cycles[8192];
+__device__ unsigned long long cde_ph_cycles[16384];
 __device__ long long cde_ph_last;
 __device__ __forceinline__ void cde_ph(int line) {
   if (threadIdx.x == 0 && blockIdx.x == 0) {
@@ -1856,7 +1982,7 @@ extern "C" int cde_phase_read(unsigned long long* out) {
   cudaError_t e = cudaDeviceSynchronize();
   if (e == cudaSuccess)
     e = cudaMemcpyFromSymbol(out, cde_ph_cycles, sizeof(cde_ph_cycles));
-  static unsigned long long zero[8192];
+  static unsigned long long zero[16384];
   if (e == cudaSuccess)
     e = cudaMemcpyToSymbol(cde_ph_cycles, zero, sizeof(zero));
   return (int)e;
@@ -1864,33 +1990,39 @@ extern "C" int cde_phase_read(unsigned long long* out) {
 """
 
 
-def instrument_cde(src: str):
-    """fused_cde.cu with a clock reading after every barrier (the block's
-    or the cluster's; not inside the helper that picks one) and at each
-    kernel's start; and {line: (function, the nearest comment above)}."""
+def instrument(src: str, base: int = 0, fname: str = ""):
+    """A source with a clock reading after every barrier (the block's or
+    the cluster's; not inside the helper that picks one) and at each
+    kernel's start; and {base + line: (file: function, the nearest comment
+    above)}. A .cu file gets the reading's definitions at its top and the
+    read-out entry at its end; a header only the readings."""
     import re
 
     out, where, func, note, helper = [], {}, "", "", False
     for i, line in enumerate(src.splitlines()):
-        m = re.match(r"^(?:[\w:<>,* ]+ )?(\w+)\(", line)
-        if m and not line.startswith((" ", "#", "//")):
-            func, note = m.group(1), ""
+        names = [n for n in re.findall(r"(\w+)\(", line)
+                 if n != "__launch_bounds__"]
+        if names and not line.startswith((" ", "#", "//", "}")):
+            func, note = names[0], ""
         helper = helper or "void cluster_or_block_sync(" in line
         if line.strip().startswith("//"):
             note = line.strip()[3:]
         barrier = ("__syncthreads();" in line or ".sync();" in line
-                   or "cluster_sync();" in line or re.search(r"cluster_or_block_sync\([^)]*\);", line))
-        if barrier and not helper:
-            line += f" cde_ph({i});"
-            where[i] = (func, note)
+                   or "cluster_sync();" in line
+                   or re.search(r"cluster_or_block_sync\([^)]*\);", line))
+        # the weight-gradient kernel runs after the loop, timed apart
+        if barrier and not helper and "wgrad" not in func:
+            line += f" cde_ph({base + i});"
+            where[base + i] = (f"{fname}: {func}" if fname else func, note)
         if "extern __shared__" in line:
             line += " cde_ph(-1);"
         if helper and line == "}":
             helper = False
         out.append(line)
-        if '#include "sde_common.cuh"' in line:
-            out.append(_PHASE_HEAD)
-    return "\n".join(out) + _PHASE_TAIL, where
+    text = "\n".join(out)
+    if base == 0:
+        text = _PHASE_HEAD + text + _PHASE_TAIL
+    return text, where
 
 
 _PHASE_CHILD = """
@@ -1898,29 +2030,37 @@ import ctypes, importlib.util, json, os, subprocess, sys, tempfile
 sys.path.insert(0, {root!r})
 import torch
 import chip_smoke as c
-from snsde_torch.kernels import _build, fused_cde as fc
+from snsde_torch.kernels import _build
 spec = importlib.util.spec_from_file_location(
     "chip_smoke_here", os.path.join({here!r}, "chip_smoke.py"))
 here = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(here)
-src, where = here.instrument_cde(open(os.path.join(_build.CSRC,
-                                                   "fused_cde.cu")).read())
 tmp = tempfile.mkdtemp()
-for f in os.listdir(_build.CSRC):
-    if f.endswith(".cuh"):
-        subprocess.run(["cp", os.path.join(_build.CSRC, f), tmp], check=True)
-open(os.path.join(tmp, "fused_cde.cu"), "w").write(src)
+name = "fused_" + {pair!r}
+src, where = here.instrument(open(os.path.join(_build.CSRC,
+                                               name + ".cu")).read())
+open(os.path.join(tmp, name + ".cu"), "w").write(src)
+heads = sorted(f for f in os.listdir(_build.CSRC) if f.endswith(".cuh"))
+for k, f in enumerate(heads):
+    text, w = here.instrument(open(os.path.join(_build.CSRC, f)).read(),
+                              (k + 1) * here.PHASE_FILE, f)
+    where.update(w)
+    open(os.path.join(tmp, f), "w").write(text)
 lib_path = os.path.join(tmp, "libphase.so")
 subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", lib_path,
-                os.path.join(tmp, "fused_cde.cu")], check=True,
+                os.path.join(tmp, name + ".cu")], check=True,
                capture_output=True)
 lib = ctypes.CDLL(lib_path)
 _build.load = lambda name: lib
-buf = (ctypes.c_ulonglong * 8192)()
-fwd_k, _, bwd_k, _ = c.kernel_fns("cde")
+buf = (ctypes.c_ulonglong * 16384)()
+fwd_k, _, bwd_k, _ = c.kernel_fns({pair!r})
 out = {{}}
-for name, (B, L, C, H, n_inner) in {shapes!r}.items():
-    fwd, flags, gys = c.cde_kernel_inputs(B, L, C, H, n_inner)
+for label, shape in {shapes!r}.items():
+    if {pair!r} == "cde":
+        fwd, flags, gys = c.cde_kernel_inputs(*shape)
+    else:
+        inp, gys = c.kernel_inputs(*shape)
+        fwd, flags = c._split(inp)
     ys = fwd_k(*fwd, **flags)
     args = [fwd[0], ys, gys] + fwd[1:]
     for part, fn in (("fwd", lambda: fwd_k(*fwd, **flags)),
@@ -1929,40 +2069,58 @@ for name, (B, L, C, H, n_inner) in {shapes!r}.items():
         assert lib.cde_phase_read(buf) == 0
         fn()
         assert lib.cde_phase_read(buf) == 0
-        out[name + " " + part] = {{i: [buf[i], *where[i]] for i in where
-                                  if buf[i]}}
+        out[label + " " + part] = {{i: [buf[i], *where[i]] for i in where
+                                   if buf[i]}}
 print("PHASES", json.dumps(out), flush=True)
 """
 
 
-def phase_split(trees) -> int:
-    """Where one launch of the CDE pair spends block 0's cycles, by phase
-    (the barrier that ends it), at the sweep's shape and both bench
-    shapes, for each tree's fused_cde.cu (instrument_cde), one process a
-    tree:
+def phase_split(args) -> int:
+    """Where one launch of a pair spends block 0's cycles, by phase (the
+    barrier that ends it), for each tree's source and headers (instrument),
+    one process a tree and pair:
 
-        python3 chip_smoke.py --phase-split TREE [TREE ...]"""
+        python3 chip_smoke.py --phase-split [em|cde] TREE [TREE ...]
+
+    The CDE pair at the sweep's shape and both bench shapes; the EM pair
+    at the sepsis shape and at H=HH=128 (one inner layer, the sepsis
+    batch, length and channels); both pairs when none is named. A
+    launch's backward includes only the kernels the wrapper launches on
+    the card: since the weight gradient runs apart, its kernel is timed
+    by the other modes, not split here."""
     import os
 
-    shapes = {"sweep": AB_CDE["sweep"][:5],
-              **{n: AB_CDE[n][:5] for n in CDE}}
+    pairs = ("cde", "em")
+    if args and args[0] in pairs:
+        pairs, args = (args[0],), args[1:]
+    shapes = {
+        "cde": {"sweep": AB_CDE["sweep"][:5],
+                **{n: AB_CDE[n][:5] for n in CDE}},
+        "em": {"sepsis": (MAIN["model"], MAIN["B"], MAIN["L"], MAIN["C"],
+                          MAIN["H"], MAIN["layers"]),
+               **{f"sepsis H=HH={H}": (MAIN["model"], MAIN["B"], MAIN["L"],
+                                       MAIN["C"], H, 2) for H in WIDE_H[:1]}}}
     here = os.path.dirname(os.path.abspath(__file__))
-    for tree in trees:
+    for tree in args:
         root = os.path.abspath(tree)
-        code = _PHASE_CHILD.format(root=root, here=here, shapes=shapes)
-        res = subprocess.run([sys.executable, "-c", code], cwd=root,
-                             capture_output=True, text=True, timeout=900)
-        if res.returncode != 0:
-            print(res.stdout[-3000:], res.stderr[-6000:])
-            return 1
-        got = json.loads(res.stdout.split("PHASES ", 1)[1])
-        for launch, lines in got.items():
-            total = sum(v[0] for v in lines.values())
-            print(f"PHASES {tree} {launch}: block 0 {total} cycles")
-            for line, (cyc, func, note) in sorted(
-                    lines.items(), key=lambda kv: -kv[1][0]):
-                print(f"  {100 * cyc / total:5.1f}% {cyc:12d}  line "
-                      f"{int(line) + 1:4d} {func}: {note[:70]}")
+        for pair in pairs:
+            code = _PHASE_CHILD.format(root=root, here=here, pair=pair,
+                                       shapes=shapes[pair])
+            res = subprocess.run([sys.executable, "-c", code], cwd=root,
+                                 capture_output=True, text=True, timeout=900)
+            if res.returncode != 0:
+                print(res.stdout[-3000:], res.stderr[-6000:])
+                return 1
+            got = json.loads(res.stdout.split("PHASES ", 1)[1])
+            for launch, lines in got.items():
+                total = sum(v[0] for v in lines.values())
+                print(f"PHASES {tree} {pair} {launch}: block 0 {total} "
+                      f"cycles")
+                for line, (cyc, func, note) in sorted(
+                        lines.items(), key=lambda kv: -kv[1][0]):
+                    ln = int(line) % PHASE_FILE + 1
+                    print(f"  {100 * cyc / total:5.1f}% {cyc:12d}  line "
+                          f"{ln:4d} {func}: {note[:70]}")
     return 0
 
 
@@ -1986,6 +2144,12 @@ def main() -> int:
                 srk=True)
     compare(MAIN["model"], MAIN["B"], MAIN["L"], MAIN["C"], MAIN["H"],
             MAIN["layers"], srk=True)
+    em_plans([(MAIN["B"], MAIN["H"], MAIN["layers"] - 1)])
+    err["em_wgrad"] = compare_em_wgrad(MAIN["model"], MAIN["B"], MAIN["L"],
+                                       MAIN["C"], MAIN["H"], MAIN["layers"])
+    for H in WIDE_H:
+        compare_em_wgrad(MAIN["model"], WIDE["B"], WIDE["L"], MAIN["C"], H,
+                         2)
     sweep_shape = dict(B=SWEEP["B"], L=SWEEP["L"], C=SWEEP["D"] + 1,
                        H=SWEEP["H"], n_inner=0)
     err["cde"] = compare_cde(**sweep_shape)
@@ -2066,8 +2230,9 @@ def main() -> int:
             ("gru", "fused_gru", (312, 396), "fused_rnn"),
             ("lstm", "fused_lstm", (837, 934), "fused_rnn")):
         for part, line in zip(("fwd", "bwd"), lines):
-            # a recurrent backward's "ms" is its two kernels' times summed:
-            # the recurrence and the weight gradient (backward_times)
+            # a recurrent or EM backward's "ms" is its two kernels' times
+            # summed: the recurrence and the weight gradient
+            # (backward_times, em_backward_times)
             kernels.append({
                 "name": f"{pre}_{'forward' if part == 'fwd' else 'backward'}",
                 "route": "cuda",
@@ -2082,17 +2247,20 @@ def main() -> int:
                 # PyTorch call computes a fused SDE or CDE solve
                 "library_ms": ms[key].get(f"lib_{part}"),
             })
-    for key, line in (("gru", 396), ("lstm", 934)):
+    for key, line, src in (("em", "fused_em.py:888", "fused_em"),
+                           ("gru", "fused_rnn.py:396", "fused_rnn"),
+                           ("lstm", "fused_rnn.py:934", "fused_rnn")):
         kernels.append({
             "name": f"fused_{key}_weight_grads", "route": "cuda",
-            "source": "snsde_torch/csrc/fused_rnn.cu",
-            "replaces": f"snsde/kernels/fused_rnn.py:{line}",
+            "source": f"snsde_torch/csrc/{src}.cu",
+            "replaces": f"snsde/kernels/{line}",
             "launches": launches[key][f"{key}_wgrad"],
             "max_abs_err": err[f"{key}_wgrad"],
             "ms": ms[key]["bwd_wgrad"], "plain_ms": ms[key]["wgrad_plain"],
             "bound_ms": bounds[key]["wgrad"][0],
             "bound_by": bounds[key]["wgrad"][1],
-            # torch.matmul of dW_hh's product alone (db_hh not included)
+            # torch.matmul of the weight products alone (the bias and
+            # per-step sums not included): dW_hh's; the EM's NI + 2
             "library_ms": ms[key]["wgrad_lib"]})
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -153,11 +153,11 @@ class SolverLib:
         return self.kept("plan", *shape, int(backward), 1)
 
     def placement(self, shape, backward: bool) -> int:
-        """The placement of a launch at `shape`: for the SDE pairs 0
+        """The placement of a launch at `shape`: for the SRK pair 0
         everything in shared memory, 1 the gradient accumulators in device
         memory, 2 the weights too, 3-5 as 2 with 4, 2, 1 batch rows a block
-        (csrc/sde_common.cuh); for the CDE pair its plan's level
-        (csrc/fused_cde.cu)."""
+        (csrc/sde_common.cuh); for the EM and CDE pairs their plan's level
+        (csrc/fused_em.cu, csrc/fused_cde.cu)."""
         return self.kept("plan", *shape, int(backward), 0)
 
     def force_placement(self, first: int) -> None:

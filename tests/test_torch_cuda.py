@@ -42,11 +42,17 @@ Both cases also pass that float64 check, and print its readings, largest
 and root-mean-square (run pytest with -s to see them).
 
 The EM, SRK and CDE pairs also run at H = HH = 128 (one and two inner
-layers) and 256, where the weights and the gradient accumulators no
-longer fit a block's shared memory, in every placement of
-csrc/sde_common.cuh forced once (the accumulators in device memory, the
-weights too, then 4, 2 and 1 batch rows a block; for the CDE pair the
-levels of its plan, csrc/fused_cde.cu), under the init-scale rules.
+layers) and 256, where the weights (and the SRK's gradient accumulators)
+no longer fit a block's shared memory, in every placement forced once
+(the SRK: csrc/sde_common.cuh's, the accumulators in device memory, the
+weights too, then 4, 2 and 1 batch rows a block; the CDE pair: the levels
+of its plan, csrc/fused_cde.cu; the EM pair: its plan's levels, the weight
+slices in shared memory or the weights in device memory, with clusters of
+1, 2, 4 and 8 CTAs, csrc/fused_em.cu), under the init-scale rules. The
+EM pair's own plan at H = HH = 256 is a cluster; its weight-gradient
+kernel runs alone against its plain version; its backward is
+bit-reproducible at the sepsis width and at 128, and a plan that cannot
+run raises.
 
 The CDE pair splits Wout over a thread-block cluster: it also runs with
 each cluster size forced (1, 2, 4 and 8 CTAs; H = 20 leaves the last CTAs
@@ -593,16 +599,29 @@ def test_lstm_weight_grad_kernel_matches_its_plain_version():
 # (H = HH, inner layers) of the wide SDE and CDE cases: past the shared
 # memory of one block for the weights and their gradient accumulators
 WIDE = [(128, 1), (128, 2), (256, 1)]
-# placements of csrc/sde_common.cuh, each forced once at H = HH = 128 with
-# one inner layer: 0 the plan's own (the forward in shared memory, the
-# backward's accumulators in device memory), 1 the accumulators in device
-# memory, 2 the weights too, 3-5 as 2 with 4, 2 and 1 batch rows a block
+# placements, each forced once at H = HH = 128 with one inner layer. The
+# SRK's (csrc/sde_common.cuh): 0 the plan's own (the forward in shared
+# memory, the backward's accumulators in device memory), 1 the
+# accumulators in device memory, 2 the weights too, 3-5 as 2 with 4, 2 and
+# 1 batch rows a block; the CDE pair's: its plan's levels from 0 on
 PLACEMENTS = [0, 1, 2, 3, 4, 5]
+# the EM pair's (csrc/fused_em.cu) at the same six cases: (the lowest
+# level, CTAs a cluster, rows a cluster; 0 the plan's own choice): its own
+# plan, level 1 (the weights in device memory), clusters of 2, 4 and 8
+# with the weight slices in shared memory, and level 1 in clusters of 8
+EM_FORCED = {0: (0, 0, 0), 1: (1, 0, 0), 2: (0, 2, 0), 3: (0, 4, 4),
+             4: (0, 8, 2), 5: (1, 8, 1)}
+
+
+def _em_force(level, cs, rows):
+    fe._LIB.force_placement(level)
+    fe.force_em_plan(cs, rows)
 
 
 def _wide_check(kind, H, n_inner, placement):
     """One SDE or CDE pair at H = HH with `placement` forced (the lowest
-    the plan may take), against its plain versions: init-scale rules."""
+    the plan may take; for the EM pair the plan EM_FORCED names), against
+    its plain versions: init-scale rules."""
     mod, pre = {"em": (fe, "fused_em"), "srk": (fs, "fused_srk"),
                 "cde": (fc, "fused_cde")}[kind]
     if kind == "cde":
@@ -612,18 +631,34 @@ def _wide_check(kind, H, n_inner, placement):
     else:
         inputs, flags, gys = _inputs(kind == "srk", 4, 17, n_inner, "init",
                                      B=13, M=5, H=H)
-        shape = (H, H, n_inner)
-    mod._LIB.force_placement(placement)
+        shape = (H, H, n_inner) if kind == "srk" else (13, H, H, n_inner)
+    if kind == "em":
+        level, cs, rows = EM_FORCED[placement]
+        _em_force(level, cs, rows)
+    else:
+        mod._LIB.force_placement(placement)
     try:
         got = [mod._LIB.placement(shape, b) for b in (False, True)]
         print(f"{kind} H={H} n_inner={n_inner} forced {placement}: "
               f"placements (forward, backward) {got}, rows "
               f"{[mod._LIB.rows(shape, b) for b in (False, True)]}")
-        assert min(got) >= placement
+        if kind == "em":
+            for b in (False, True):
+                p = fe.fused_em_plan(13, H, H, n_inner, b)
+                print(f"  em plan {'backward' if b else 'forward'}: {p}")
+                assert p["level"] >= level and p["active_clusters"] >= 1
+                assert cs in (0, p["cluster"]) and rows in (0, p["rows"])
+                if H == 256 and placement == 0:  # the own plan: a cluster
+                    assert p["cluster"] > 1, p
+        else:
+            assert min(got) >= placement
         _check(_fns(mod, pre), inputs, flags, gys, "init",
                ys_f64_factor=YS_F64_FACTOR if kind == "cde" else 0.0)
     finally:
-        mod._LIB.force_placement(0)
+        if kind == "em":
+            _em_force(0, 0, 0)
+        else:
+            mod._LIB.force_placement(0)
 
 
 @pytest.mark.cuda
@@ -649,19 +684,74 @@ def test_each_placement_matches_plain_versions(kind, placement):
 
 
 @pytest.mark.cuda
-def test_wide_backward_is_bit_reproducible():
-    """The device-memory accumulators are owned by one thread each, and
-    their per-block partials summed in a fixed order: two backward calls
-    agree bit for bit."""
+@pytest.mark.parametrize("H", [49, 128])
+def test_wide_backward_is_bit_reproducible(H):
+    """The EM backward at the sepsis width and at 128 (a cluster): the
+    cluster's partials summed in rank order, d theta's per-CTA partials
+    and the weight gradient's split partials summed in a fixed order, no
+    atomics: two backward calls agree bit for bit."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
-    inputs, flags, gys = _inputs(False, 4, 17, 2, "init", B=40, M=5, H=128)
+    inputs, flags, gys = _inputs(False, 4, 17, 2, "init", B=40, M=5, H=H)
     ys = fe.fused_em_forward(**inputs, **flags)
     a = fe.fused_em_backward(ys=ys, gys=gys, **inputs, **flags)
     b = fe.fused_em_backward(ys=ys, gys=gys, **inputs, **flags)
     torch.cuda.synchronize()
     for x, y in zip(a, b):
         assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,n_inner", [(49, 1), (16, 0), (128, 2)])
+def test_em_weight_grad_kernel_matches_its_plain_version(H, n_inner):
+    """The EM weight-gradient kernel alone on the plain recurrence's
+    streams: every output within TOL_GRAD of its largest entry and within
+    the float64 rms rule."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    inputs, flags, gys = _inputs(False, 4, 17, n_inner, "init", B=37, M=6,
+                                 H=H)
+    ys = fe.fused_em_forward_reference(**inputs, **flags)
+    st = fe.fused_em_backward_recurrence_reference(ys=ys, gys=gys, **inputs,
+                                                   **flags)
+    k = fe.fused_em_weight_grads(inputs["y0"], ys, st)
+    p = fe.fused_em_weight_grads_reference(inputs["y0"], ys, st.dxh, st.hs,
+                                           st.es, st.dz3, st.q)
+    r = fe.fused_em_weight_grads_reference(
+        inputs["y0"].double(), ys.double(),
+        *(t.double() for t in (st.dxh, st.hs, st.es, st.dz3, st.q)))
+    torch.cuda.synchronize()
+    for name, a, b, ref in zip(p._fields, k, p, r):
+        if not b.numel():
+            continue
+        rel = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+        (_, k_rms), (_, p_rms) = _errs(a, ref), _errs(b, ref)
+        print(f"{name}: rel {rel:.2e}, rms from float64 kernel {k_rms:.2e} "
+              f"plain {p_rms:.2e}")
+        assert rel < TOL_GRAD, name
+        assert k_rms <= F64_FACTOR * p_rms + F64_FLOOR, name
+
+
+@pytest.mark.cuda
+def test_em_plan_raises_when_it_cannot_run():
+    """A cluster size or row count the kernels do not take raises
+    ValueError; so does a forced plan whose CTA fits at no level (one CTA
+    of 32 rows at H = HH = 1024: its tiles alone exceed 227 KB), before
+    any launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    with pytest.raises(ValueError):
+        fe.force_em_plan(3, 0)
+    with pytest.raises(ValueError):
+        fe.force_em_plan(0, 64)
+    fe.force_em_plan(1, 32)
+    try:
+        inputs, flags, gys = _inputs(False, 4, 17, 1, "init", B=40, M=2,
+                                     H=1024)
+        with pytest.raises(ValueError, match="limit per block"):
+            fe.fused_em_forward(**inputs, **flags)
+    finally:
+        fe.force_em_plan(0, 0)
 
 
 # GRU widths at each kind of its plan (at B = 13 and 100): one CTA (16, 96),

@@ -91,13 +91,14 @@ def test_fused_em_matches_jax_kernel_at_width_128():
     _check_against_jax(_setting(Bn=3, Ln=4, width=128), 4, 17, 128)
 
 
-def _check_against_jax(setting, io, no, width):
+def _check_against_jax(setting, io, no, width, layers=2):
     from snsde.kernels.fused_em import fused_em_solve as jax_solve
 
     times, x, y0, dW = setting
     jpath = JaxPath(jax_hermite(jnp.asarray(times), jnp.asarray(x)), times)
     jfield = JaxField.create(jax.random.PRNGKey(io * 20 + no), C, width,
-                             width, 2, input_option=io, noise_option=no)
+                             width, layers, input_option=io,
+                             noise_option=no)
     dt = resolve_dt(times)
     key = jax.random.PRNGKey(0)
 
@@ -110,7 +111,7 @@ def _check_against_jax(setting, io, no, width):
     (_, ys_j), g_j = filter_value_and_grad(jax_loss, has_aux=True)(
         (jfield, jnp.asarray(y0)))
 
-    field = port_field(jfield, io, no, 2, width)
+    field = port_field(jfield, io, no, layers, width)
     path = CubicPath(hermite_cubic_coeffs(torch.as_tensor(times),
                                           torch.as_tensor(x)), times)
     y0_t = torch.as_tensor(y0).requires_grad_(True)
@@ -164,6 +165,56 @@ def test_backward_reference_is_autograd_of_forward(io, no, n_inner):
             continue
         denom = max(float(auto.abs().max()), 1e-6)
         assert float((ours - auto).abs().max()) / denom < 1e-5, name
+
+
+def _split_backward(y0, ys, gys, xh, dw, a, gk, dts, theta, wy, w_inner,
+                    b_inner, wout, bo, *, mult_y, geometric):
+    """The card's backward in plain form: the recurrence's plain version,
+    then the weight-gradient kernel's plain version on its streams."""
+    st = fe.fused_em_backward_recurrence_reference(
+        y0, ys, gys, xh, dw, a, gk, dts, theta, wy, w_inner, b_inner, wout,
+        bo, mult_y=mult_y, geometric=geometric)
+    w = fe.fused_em_weight_grads_reference(y0, ys, st.dxh, st.hs, st.es,
+                                           st.dz3, st.q)
+    return fe.FusedEMGrads(st.dy0, st.dxh, w.da, w.dgk, st.dtheta, w.dwy,
+                           w.dw_inner, w.db_inner, w.dwout, w.dbo)
+
+
+@pytest.mark.parametrize("io,no,n_inner", [(4, 17, 1), (2, 16, 0),
+                                           (6, 17, 2), (6, 16, 1)])
+def test_weight_grads_reference_matches_backward_reference(io, no, n_inner):
+    """The weight-gradient kernel's plain version, on the plain backward
+    recurrence's streams, gives the in-loop sums of the plain reverse loop
+    (fused_em_backward_reference, the JAX `_bwd_kernel`'s twin): every
+    cotangent to 1e-5 of its largest entry in float32, and to 1e-12 in
+    float64 (the two differ only in the order of the sums)."""
+    for dtype, tol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
+        inputs, flags, gys = _kernel_inputs(io, no, n_inner, Bk=13, M=5,
+                                            Hk=16)
+        inputs = {k: v.to(dtype) for k, v in inputs.items()}
+        gys = gys.to(dtype)
+        ys = fe.fused_em_forward_reference(**inputs, **flags)
+        ref = fe.fused_em_backward_reference(ys=ys, gys=gys, **inputs,
+                                             **flags)
+        got = _split_backward(ys=ys, gys=gys, **inputs, **flags)
+        for name, a, b in zip(ref._fields, got, ref):
+            assert a.shape == b.shape, name
+            if not b.numel():
+                continue
+            denom = max(float(b.abs().max()), 1e-30)
+            assert float((a - b).abs().max()) / denom < tol, (name, dtype)
+
+
+@pytest.mark.parametrize("io,no,layers", [(2, 16, 1), (4, 17, 2),
+                                          (6, 16, 3), (6, 17, 1),
+                                          (2, 17, 3)])
+def test_split_backward_matches_jax_kernel(monkeypatch, io, no, layers):
+    """The backward as the card runs it (recurrence, then the weight
+    gradient over its streams), in plain form, against the JAX fused EM
+    kernel at B=13, M=5, H=HH=16 with 0, 1 and 2 inner layers, mult_y and
+    geometric on and off: the bar of test_fused_em_matches_jax_kernel."""
+    monkeypatch.setattr(fe, "fused_em_backward_reference", _split_backward)
+    _check_against_jax(_setting(Bn=13, Ln=6, width=16), io, no, 16, layers)
 
 
 @pytest.mark.parametrize("n_inner", [0, 2])
