@@ -25,11 +25,11 @@ LSTM kernels). Phases, each of which raises on failure:
      midpoint and heun, SingleHiddenLayer, and FinalTanh with zero and two
      inner layers (each CDE shape's cluster plan printed; rows whose relu
      input lies within rounding of 0 judged apart, check_pair_rows); the
-     EM, SRK and CDE pairs at H=HH=128 and 256 with one
-     inner layer (B=128, L=24: weights and accumulators past a block's
-     shared memory, each placement or plan printed); the EM pair's
-     weight-gradient kernel alone against its plain version at the
-     sepsis shape and at H=HH=128 and 256 (B=128, L=24); the GRU pair (with and
+     EM, SRK and CDE pairs at H=HH=128 and 256 with one inner layer
+     (B=128, L=24: the weights past a block's shared memory, each plan
+     printed); the EM and SRK pairs' weight-gradient
+     kernels alone against their plain versions at the sepsis and MuJoCo
+     shapes and at H=HH=128 and 256 (B=128, L=24); the GRU pair (with and
      without the decay stream) and the LSTM pair at the sweep's shape
      (B=64, L=60, H=16, and H=8 for the bilstm's directions), at the JAX
      package's recurrent bench shapes (tools/bench_cde.py:159-177:
@@ -51,8 +51,8 @@ LSTM kernels). Phases, each of which raises on failure:
      batch 1024, C=69) on synthetic_sepsis(n=4096) for 2 epochs, which
      must launch both EM kernels; the forecasting harness `run_mujoco`
      (neurallnsde, H=32, two hidden layers, batch 1024, srk) on 4000
-     synthetic MuJoCo windows for 2 epochs, which must launch both SRK
-     kernels; the robustness sweep `run_robustness_sweep` (neuralcde,
+     synthetic MuJoCo windows for 2 epochs, which must launch the three
+     SRK kernels; the robustness sweep `run_robustness_sweep` (neuralcde,
      hidden 16, batch 64, missing rate 0.3, seed 0) on the shape of
      tools/run_sweep_cd.py's uea_b_noisy set (320 series, L=60, 5
      channels, 2 classes) for 2 epochs, which must launch both CDE kernels
@@ -71,7 +71,7 @@ LSTM kernels). Phases, each of which raises on failure:
      its plain version (the CDE pair at the sweep's shape and at both
      bench shapes; the GRU and LSTM pairs, and cuDNN's forward, backward
      and both, at the sweep's shape and the bench shapes; each recurrent
-     and EM backward's recurrence and weight-gradient kernels apart, the
+     and SDE backward's recurrence and weight-gradient kernels apart, the
      weight gradient beside torch.matmul of its products, and fused_*_scan
      forward + backward, projection included, beside cuDNN's forward +
      backward), the wide route (the EM and SRK pairs at the sepsis shape
@@ -91,16 +91,16 @@ result, without a CUDA device or outside the repository.
     python3 chip_smoke.py --ab-gru PARENT_DIR [PAIRS [REPS]]
     python3 chip_smoke.py --ab-kernels PARENT_DIR [PAIRS [REPS]]
     python3 chip_smoke.py --ab-cde PARENT_DIR [PAIRS [REPS]]
-    python3 chip_smoke.py --phase-split [em|cde] TREE [TREE ...]
+    python3 chip_smoke.py --phase-split [em|srk|cde] TREE [TREE ...]
 
 run none of the phases: they time the SDE paths' training steps
 and the CDE classifier's (`ab_steps`), the LSTM or GRU kernels at the
 sweep's and the bench shapes
 (`ab_rnn`), the EM, SRK and CDE kernels at the main paths' shapes and the
-EM pair also at H=HH=128 and 256 (`ab_kernels`), or the CDE pair at the
-sweep's shape, both bench shapes and H=HH=128 and 256 (`ab_cde`), of a
-parent checkout against this one, in alternating processes; or split one
-EM or CDE launch of each tree by phase (`phase_split`).
+EM and SRK pairs also at H=HH=128 and 256 (`ab_kernels`), or the CDE pair
+at the sweep's shape, both bench shapes and H=HH=128 and 256 (`ab_cde`), of
+a parent checkout against this one, in alternating processes; or split one
+EM, SRK or CDE launch of each tree by phase (`phase_split`).
 """
 
 from __future__ import annotations
@@ -395,15 +395,6 @@ def compare_cde(B, L, C, H, n_inner, method="rk4", field="final_tanh"):
                            fwd, flags, gys)
 
 
-def _placements(key, shape):
-    """(forward, backward) placements of an SRK launch at `shape` (H, HH,
-    n_inner) (csrc/sde_common.cuh: 0 all in shared memory, 1 the
-    accumulators in device memory, 2 the weights too, 3-5 fewer rows a
-    block)."""
-    lib = _kernel_modules()[key]._LIB
-    return [lib.placement(shape, b) for b in (False, True)]
-
-
 def cde_plans(shapes, method="rk4"):
     """Print the CDE pair's plan at each (B, H, C, n_inner) (H = HH):
     level (0 everything in shared memory, 1 the hidden weights in device
@@ -429,53 +420,59 @@ def cde_plans(shapes, method="rk4"):
                                      f"be scheduled: {p}")
 
 
-def em_plans(shapes):
-    """Print the EM pair's plan at each (B, H, n_inner) (H = HH): level (0
-    the weight slices in shared memory, 1 the weights read from device
-    memory), CTAs and batch rows a cluster, shared bytes a CTA and
-    cudaOccupancyMaxActiveClusters; raise if one cannot be scheduled."""
-    from snsde_torch.kernels import fused_em as fe
-
+def sde_plans(key, shapes):
+    """Print the EM or SRK pair's plan (key 'em' or 'srk') at each (B, H,
+    n_inner) (H = HH): level (0 the weight slices in shared memory, 1 the
+    weights read from device memory), CTAs and batch rows a cluster,
+    shared bytes a CTA and cudaOccupancyMaxActiveClusters; raise if one
+    cannot be scheduled."""
+    plan = getattr(_kernel_modules()[key], f"fused_{key}_plan")
     for B, H, n_inner in shapes:
         for backward in (False, True):
-            p = fe.fused_em_plan(B, H, H, n_inner, backward)
-            print(f"  EM plan B={B} H=HH={H} n_inner={n_inner} "
+            p = plan(B, H, H, n_inner, backward)
+            print(f"  {key.upper()} plan B={B} H=HH={H} n_inner={n_inner} "
                   f"{'backward' if backward else 'forward'}: level "
                   f"{p['level']}, CS={p['cluster']}, {p['rows']} rows a "
                   f"cluster, {p['smem_bytes']} shared bytes a CTA, "
                   f"cudaOccupancyMaxActiveClusters {p['active_clusters']}")
             if p["active_clusters"] < 1:
-                raise AssertionError(f"EM plan at B={B} H={H} cannot be "
-                                     f"scheduled: {p}")
+                raise AssertionError(f"{key.upper()} plan at B={B} H={H} "
+                                     f"cannot be scheduled: {p}")
 
 
-def em_wgrad_args(model_name, B, L, C, H, layers):
-    """The EM weight-gradient kernel's inputs at a shape: y0, the plain
+def wgrad_streams(st):
+    """The recurrence's streams an SDE weight-gradient kernel reads, in its
+    plain version's order after y0 and ys (the SRK's H0_1 first)."""
+    names = ("dxh", "hs", "es", "dz3", "q")
+    return tuple(getattr(st, n) for n in (("h01",) if hasattr(st, "h01")
+                                          else ()) + names)
+
+
+def sde_wgrad_args(key, model_name, B, L, C, H, layers):
+    """An SDE weight-gradient kernel's inputs at a shape: y0, the plain
     trajectory and the plain backward recurrence's streams."""
-    from snsde_torch.kernels import fused_em as fe
-
-    inp, gys = kernel_inputs(model_name, B, L, C, H, layers)
-    fwd, flags = _split(inp)
-    ys = fe.fused_em_forward_reference(*fwd, **flags)
-    st = fe.fused_em_backward_recurrence_reference(fwd[0], ys, gys,
-                                                   *fwd[1:], **flags)
+    mod = _kernel_modules()[key]
+    inp, gys = kernel_inputs(model_name, B, L, C, H, layers,
+                             srk=key == "srk")
+    fwd, flags = _split(inp, key == "srk")
+    ys = getattr(mod, f"fused_{key}_forward_reference")(*fwd, **flags)
+    st = getattr(mod, f"fused_{key}_backward_recurrence_reference")(
+        fwd[0], ys, gys, *fwd[1:], **flags)
     return fwd[0], ys, st
 
 
-def compare_em_wgrad(model_name, B, L, C, H, layers):
-    """The EM weight-gradient kernel alone against its plain version on
-    the plain recurrence's streams: every output within TOL_GRAD of its
-    largest entry, and no further from a float64 run than the F64 rule
-    allows. Returns the largest abs error."""
-    from snsde_torch.kernels import fused_em as fe
-
-    y0, ys, st = em_wgrad_args(model_name, B, L, C, H, layers)
-    k = fe.fused_em_weight_grads(y0, ys, st)
-    p = fe.fused_em_weight_grads_reference(y0, ys, st.dxh, st.hs, st.es,
-                                           st.dz3, st.q)
-    r = fe.fused_em_weight_grads_reference(
-        y0.double(), ys.double(),
-        *(t.double() for t in (st.dxh, st.hs, st.es, st.dz3, st.q)))
+def compare_sde_wgrad(key, model_name, B, L, C, H, layers):
+    """The EM or SRK weight-gradient kernel alone against its plain
+    version on the plain recurrence's streams: every output within
+    TOL_GRAD of its largest entry, and no further from a float64 run than
+    the F64 rule allows. Returns the largest abs error."""
+    mod = _kernel_modules()[key]
+    plain = getattr(mod, f"fused_{key}_weight_grads_reference")
+    y0, ys, st = sde_wgrad_args(key, model_name, B, L, C, H, layers)
+    k = getattr(mod, f"fused_{key}_weight_grads")(y0, ys, st)
+    p = plain(y0, ys, *wgrad_streams(st))
+    r = plain(y0.double(), ys.double(),
+              *(t.double() for t in wgrad_streams(st)))
     torch.cuda.synchronize()
     worst = 0.0
     for name, a, b, ref in zip(p._fields, k, p, r):
@@ -484,13 +481,14 @@ def compare_em_wgrad(model_name, B, L, C, H, layers):
         e = float((a - b).abs().max())
         rel = e / max(float(b.abs().max()), 1e-30)
         (k_max, k_rms), (p_max, p_rms) = _errs64(a, ref), _errs64(b, ref)
-        print(f"  EM weight-gradient kernel B={B} L={L} H={H} {name}: max "
-              f"abs err {e:.3e} rel {rel:.3e} (tol {TOL_GRAD:g}); from "
-              f"float64 largest/rms: kernel {k_max:.3e}/{k_rms:.3e}, float32 "
-              f"plain {p_max:.3e}/{p_rms:.3e}")
+        print(f"  {key.upper()} weight-gradient kernel B={B} L={L} H={H} "
+              f"{name}: max abs err {e:.3e} rel {rel:.3e} (tol "
+              f"{TOL_GRAD:g}); from float64 largest/rms: kernel "
+              f"{k_max:.3e}/{k_rms:.3e}, float32 plain {p_max:.3e}/"
+              f"{p_rms:.3e}")
         if not (rel <= TOL_GRAD and k_rms <= F64_FACTOR * p_rms + F64_FLOOR):
-            raise AssertionError(f"EM weight-gradient kernel disagrees on "
-                                 f"{name}")
+            raise AssertionError(f"{key.upper()} weight-gradient kernel "
+                                 f"disagrees on {name}")
         worst = max(worst, e)
     return worst
 
@@ -630,13 +628,12 @@ def check_pair_rows(label, key, fwd, flags, gys):
 
 def compare_wide():
     """The EM, SRK and CDE pairs at H = HH in WIDE_H with one inner layer
-    (their weights and accumulators past a block's shared memory), at a
+    (their weights past a block's shared memory), at a
     cut batch and length, against their plain versions
     (check_pair_rows)."""
     for H in WIDE_H:
-        print(f"  placements at H=HH={H}, one inner layer (forward, "
-              f"backward): SRK {_placements('srk', (H, H, 1))}")
-        em_plans([(WIDE["B"], H, 1), (MAIN["B"], H, 1)])
+        for key in ("em", "srk"):
+            sde_plans(key, [(WIDE["B"], H, 1), (MAIN["B"], H, 1)])
         cde_plans([(WIDE["B"], H, 6, 1), (CDE["uea_rk4"]["B"], H, 6, 1)])
         for key in ("em", "srk", "cde"):
             if key == "cde":
@@ -701,7 +698,8 @@ def _counters():
     out = [(f"{key}_{part}", mod, f"{part.upper()}_LAUNCHES")
            for key, mod in _kernel_modules().items()
            for part in ("fwd", "bwd")]
-    out.append(("em_wgrad", _kernel_modules()["em"], "WGRAD_LAUNCHES"))
+    out += [(f"{key}_wgrad", _kernel_modules()[key], "WGRAD_LAUNCHES")
+            for key in ("em", "srk")]
     return out + [(f"{key}_{part}", fused_rnn,
                    f"{key.upper()}_{part.upper()}_LAUNCHES")
                   for key in ("gru", "lstm")
@@ -767,7 +765,7 @@ def wide_sepsis_path():
           f"in {wall:.1f} s, losses {[round(v, 4) for v in losses]}, val "
           f"AUROC {res.val_metrics.auroc:.4f}, launches {launches}",
           flush=True)
-    em_plans([(MAIN["B"], H, MAIN["layers"] - 1)])
+    sde_plans("em", [(MAIN["B"], H, MAIN["layers"] - 1)])
     if not all(np.isfinite(losses)):
         raise AssertionError(f"non-finite loss on the sepsis path at H={H}")
     if min(launches[f"em_{k}"] for k in ("fwd", "bwd", "wgrad")) <= 0:
@@ -805,7 +803,7 @@ def mujoco_path():
           f"launches {launches}", flush=True)
     if not all(np.isfinite(mses)):
         raise AssertionError("non-finite MSE on the forecasting path")
-    if launches["srk_fwd"] <= 0 or launches["srk_bwd"] <= 0:
+    if min(launches[f"srk_{k}"] for k in ("fwd", "bwd", "wgrad")) <= 0:
         raise AssertionError(f"forecasting path did not run the SRK "
                              f"kernels: {launches}")
     check_trained_solve(res["model"].func, SRK, srk=True)
@@ -1494,47 +1492,50 @@ def kernel_times(shape, srk=False):
               "bwd": bound(nbytes_in + 4 * (ys.numel() + gys.numel()
                                             + sum(g.numel() for g in grads)),
                            3 * products)}
-    if not srk:
-        ms_w, bounds["wgrad"] = em_backward_times(fwd, ys, gys, flags)
-        ms.update(ms_w)
+    ms_w, bounds["wgrad"] = sde_backward_times("srk" if srk else "em", fwd,
+                                               ys, gys, flags)
+    ms.update(ms_w)
     return ms, bounds
 
 
-def em_backward_times(fwd, ys, gys, flags):
-    """The EM backward's two kernels timed apart (the recurrence, and the
-    weight gradient with its plain version and torch.matmul of its
+def sde_backward_times(key, fwd, ys, gys, flags):
+    """The EM or SRK backward's two kernels timed apart (the recurrence,
+    and the weight gradient with its plain version and torch.matmul of its
     products), "bwd" then their sum ("bwd_call" the wrapper's time, which
     adds the sums of the partials); and the weight gradient's bound: its
-    streams read once (the state before each step, dz1, the activations,
-    the inner cotangents, dz3 and q) and its outputs written once, and
-    2 K (H HH + NI HH HH + HH H) operations over K = M B rows."""
-    from snsde_torch.kernels import fused_em as fe
-
+    streams read once (the states each first layer read, dz1, the
+    activations, the inner cotangents, dz3 and q) and its outputs written
+    once, and 2 K (H HH + NI HH HH + HH H) operations over its K rows (M B
+    for the EM, 2 M B over the SRK's two evaluations)."""
+    mod = _kernel_modules()[key]
+    fn = lambda n: getattr(mod, f"fused_{key}_{n}")
     y0 = fwd[0]
     rec_args = (y0, ys, gys) + tuple(fwd[1:])
-    st = fe.fused_em_backward_recurrence(*rec_args, **flags)
-    ms = {"bwd_call": timed(lambda: fe.fused_em_backward(*rec_args,
-                                                          **flags)),
-          "bwd_recurrence": timed(lambda: fe.fused_em_backward_recurrence(
+    st = fn("backward_recurrence")(*rec_args, **flags)
+    ms = {"bwd_call": timed(lambda: fn("backward")(*rec_args, **flags)),
+          "bwd_recurrence": timed(lambda: fn("backward_recurrence")(
               *rec_args, **flags)),
-          "bwd_wgrad": timed(lambda: fe.fused_em_weight_grads(y0, ys, st)),
-          "wgrad_plain": timed(lambda: fe.fused_em_weight_grads_reference(
-              y0, ys, st.dxh, st.hs, st.es, st.dz3, st.q))}
+          "bwd_wgrad": timed(lambda: fn("weight_grads")(y0, ys, st)),
+          "wgrad_plain": timed(lambda: fn("weight_grads_reference")(
+              y0, ys, *wgrad_streams(st)))}
     M, B, H = ys.shape
-    HH, NI = st.dxh.shape[2], st.es.shape[0]
-    x = torch.cat([y0[None], ys[:-1]]).reshape(-1, H)
+    HH, NI = st.dxh.shape[-1], st.es.shape[0]
+    xs = [y0[None], ys[:-1]] + ([st.h01] if key == "srk" else [])
+    x = torch.cat(xs).reshape(-1, H)
     pairs = ([(x, st.dxh.reshape(-1, HH))]
              + [(st.hs[l].reshape(-1, HH), st.es[l].reshape(-1, HH))
                 for l in range(NI)]
              + [(st.hs[NI].reshape(-1, HH), st.dz3.reshape(-1, H))])
     ms["wgrad_lib"] = timed(lambda: [torch.matmul(a.T, e) for a, e in pairs])
     ms["bwd"] = ms["bwd_recurrence"] + ms["bwd_wgrad"]
-    K = M * B
-    n_in = K * (H + HH + (NI + 1) * HH + NI * HH + 2 * H)
-    n_out = H * HH + NI * (HH * HH + HH) + HH * H + H + M * (HH + H)
+    evals = 2 if key == "srk" else 1
+    K = evals * M * B
+    n_in = K * (H + HH + (NI + 1) * HH + NI * HH + H) + st.q.numel()
+    n_out = (H * HH + NI * (HH * HH + HH) + HH * H + H + evals * M * HH
+             + st.q.numel() // B)
     flops = 2 * K * (H * HH + NI * HH * HH + HH * H)
-    print(f"EM backward at B={B} M={M} H={H} HH={HH}: " + ", ".join(
-        f"{k} {v:.4f} ms" for k, v in ms.items()), flush=True)
+    print(f"{key.upper()} backward at B={B} M={M} H={H} HH={HH}: " +
+          ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items()), flush=True)
     return ms, bound(4 * (n_in + n_out), flops)
 
 
@@ -1829,17 +1830,18 @@ for key, shape in (("em", c.MAIN), ("srk", c.SRK)):
     args = [fwd[0], ys, gys] + fwd[1:]
     out[key + " fwd"] = c.timed(lambda: fwd_k(*fwd, **flags), reps={reps})
     out[key + " bwd"] = c.timed(lambda: bwd_k(*args, **flags), reps={reps})
-fwd_k, _, bwd_k, _ = c.kernel_fns("em")
-for H in {wide!r}:
-    inp, gys = c.kernel_inputs(c.MAIN["model"], c.MAIN["B"], c.MAIN["L"],
-                               c.MAIN["C"], H, 2)
-    fwd, flags = c._split(inp)
-    ys = fwd_k(*fwd, **flags)
-    args = [fwd[0], ys, gys] + fwd[1:]
-    out["em H=HH=%d fwd" % H] = c.timed(lambda: fwd_k(*fwd, **flags),
-                                        reps={wide_reps}, warmup=2)
-    out["em H=HH=%d bwd" % H] = c.timed(lambda: bwd_k(*args, **flags),
-                                        reps={wide_reps}, warmup=2)
+for key in ("em", "srk"):
+    fwd_k, _, bwd_k, _ = c.kernel_fns(key)
+    for H in {wide!r}:
+        inp, gys = c.kernel_inputs(c.MAIN["model"], c.MAIN["B"], c.MAIN["L"],
+                                   c.MAIN["C"], H, 2, srk=key == "srk")
+        fwd, flags = c._split(inp, key == "srk")
+        ys = fwd_k(*fwd, **flags)
+        args = [fwd[0], ys, gys] + fwd[1:]
+        out["%s H=HH=%d fwd" % (key, H)] = c.timed(
+            lambda: fwd_k(*fwd, **flags), reps={wide_reps}, warmup=2)
+        out["%s H=HH=%d bwd" % (key, H)] = c.timed(
+            lambda: bwd_k(*args, **flags), reps={wide_reps}, warmup=2)
 fwd_k, _, bwd_k, _ = c.kernel_fns("cde")
 fwd, flags, gys = c.cde_kernel_inputs(c.SWEEP["B"], c.SWEEP["L"],
                                       c.SWEEP["D"] + 1, c.SWEEP["H"], 0)
@@ -1910,8 +1912,8 @@ def ab_rnn(kind: str, parent: str, pairs: int = 4, reps: int = 30) -> int:
 
 
 def ab_kernels(parent: str, pairs: int = 4, reps: int = 30) -> int:
-    """A/B of the EM and SRK pairs at the sepsis and MuJoCo shapes, the EM
-    pair also at the sepsis shape with H=HH=128 and 256 (one inner layer;
+    """A/B of the EM and SRK pairs at the sepsis and MuJoCo shapes, both
+    also at the sepsis shape with H=HH=128 and 256 (one inner layer;
     median of 10), and the CDE pair at the sweep's shape (kernels only,
     `timed`, median of `reps`) between a parent checkout and this one, as
     ab_rnn:
@@ -2059,8 +2061,8 @@ for label, shape in {shapes!r}.items():
     if {pair!r} == "cde":
         fwd, flags, gys = c.cde_kernel_inputs(*shape)
     else:
-        inp, gys = c.kernel_inputs(*shape)
-        fwd, flags = c._split(inp)
+        inp, gys = c.kernel_inputs(*shape, srk={pair!r} == "srk")
+        fwd, flags = c._split(inp, {pair!r} == "srk")
     ys = fwd_k(*fwd, **flags)
     args = [fwd[0], ys, gys] + fwd[1:]
     for part, fn in (("fwd", lambda: fwd_k(*fwd, **flags)),
@@ -2080,17 +2082,17 @@ def phase_split(args) -> int:
     barrier that ends it), for each tree's source and headers (instrument),
     one process a tree and pair:
 
-        python3 chip_smoke.py --phase-split [em|cde] TREE [TREE ...]
+        python3 chip_smoke.py --phase-split [em|srk|cde] TREE [TREE ...]
 
     The CDE pair at the sweep's shape and both bench shapes; the EM pair
-    at the sepsis shape and at H=HH=128 (one inner layer, the sepsis
-    batch, length and channels); both pairs when none is named. A
-    launch's backward includes only the kernels the wrapper launches on
-    the card: since the weight gradient runs apart, its kernel is timed
-    by the other modes, not split here."""
+    at the sepsis shape and the SRK pair at the MuJoCo shape, each also
+    at H=HH=128 (one inner layer, the sepsis batch, length and channels);
+    every pair when none is named. A launch's backward includes only the
+    kernels the wrapper launches on the card: where the weight gradient
+    runs apart, its kernel is timed by the other modes, not split here."""
     import os
 
-    pairs = ("cde", "em")
+    pairs = ("cde", "em", "srk")
     if args and args[0] in pairs:
         pairs, args = (args[0],), args[1:]
     shapes = {
@@ -2099,7 +2101,12 @@ def phase_split(args) -> int:
         "em": {"sepsis": (MAIN["model"], MAIN["B"], MAIN["L"], MAIN["C"],
                           MAIN["H"], MAIN["layers"]),
                **{f"sepsis H=HH={H}": (MAIN["model"], MAIN["B"], MAIN["L"],
-                                       MAIN["C"], H, 2) for H in WIDE_H[:1]}}}
+                                       MAIN["C"], H, 2) for H in WIDE_H[:1]}},
+        "srk": {"mujoco": (SRK["model"], SRK["B"], SRK["L"], SRK["C"],
+                           SRK["H"], SRK["layers"]),
+                **{f"sepsis H=HH={H}": (MAIN["model"], MAIN["B"], MAIN["L"],
+                                        MAIN["C"], H, 2)
+                   for H in WIDE_H[:1]}}}
     here = os.path.dirname(os.path.abspath(__file__))
     for tree in args:
         root = os.path.abspath(tree)
@@ -2144,12 +2151,15 @@ def main() -> int:
                 srk=True)
     compare(MAIN["model"], MAIN["B"], MAIN["L"], MAIN["C"], MAIN["H"],
             MAIN["layers"], srk=True)
-    em_plans([(MAIN["B"], MAIN["H"], MAIN["layers"] - 1)])
-    err["em_wgrad"] = compare_em_wgrad(MAIN["model"], MAIN["B"], MAIN["L"],
-                                       MAIN["C"], MAIN["H"], MAIN["layers"])
-    for H in WIDE_H:
-        compare_em_wgrad(MAIN["model"], WIDE["B"], WIDE["L"], MAIN["C"], H,
-                         2)
+    sde_plans("em", [(MAIN["B"], MAIN["H"], MAIN["layers"] - 1)])
+    sde_plans("srk", [(SRK["B"], SRK["H"], SRK["layers"] - 1)])
+    for key, sh in (("em", MAIN), ("srk", SRK)):
+        err[f"{key}_wgrad"] = compare_sde_wgrad(key, sh["model"], sh["B"],
+                                                sh["L"], sh["C"], sh["H"],
+                                                sh["layers"])
+        for H in WIDE_H:
+            compare_sde_wgrad(key, sh["model"], WIDE["B"], WIDE["L"],
+                              sh["C"], H, 2)
     sweep_shape = dict(B=SWEEP["B"], L=SWEEP["L"], C=SWEEP["D"] + 1,
                        H=SWEEP["H"], n_inner=0)
     err["cde"] = compare_cde(**sweep_shape)
@@ -2230,9 +2240,9 @@ def main() -> int:
             ("gru", "fused_gru", (312, 396), "fused_rnn"),
             ("lstm", "fused_lstm", (837, 934), "fused_rnn")):
         for part, line in zip(("fwd", "bwd"), lines):
-            # a recurrent or EM backward's "ms" is its two kernels' times
-            # summed: the recurrence and the weight gradient
-            # (backward_times, em_backward_times)
+            # a recurrent or SDE backward's "ms" is its two kernels'
+            # times summed: the recurrence and the weight gradient
+            # (backward_times, sde_backward_times)
             kernels.append({
                 "name": f"{pre}_{'forward' if part == 'fwd' else 'backward'}",
                 "route": "cuda",
@@ -2248,6 +2258,7 @@ def main() -> int:
                 "library_ms": ms[key].get(f"lib_{part}"),
             })
     for key, line, src in (("em", "fused_em.py:888", "fused_em"),
+                           ("srk", "fused_srk.py:527", "fused_srk"),
                            ("gru", "fused_rnn.py:396", "fused_rnn"),
                            ("lstm", "fused_rnn.py:934", "fused_rnn")):
         kernels.append({
@@ -2260,7 +2271,7 @@ def main() -> int:
             "bound_ms": bounds[key]["wgrad"][0],
             "bound_by": bounds[key]["wgrad"][1],
             # torch.matmul of the weight products alone (the bias and
-            # per-step sums not included): dW_hh's; the EM's NI + 2
+            # per-step sums not included): dW_hh's; the SDE pairs' NI + 2
             "library_ms": ms[key]["wgrad_lib"]})
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -71,87 +71,32 @@
 // barrier latency, not the FMA chains, bound them.
 // Exact fp32 FMA on the CUDA cores (TF32 off).
 
-#include <cmath>
-#include <vector>
-
 #include "sde_hopper.cuh"
 
 namespace {
 
-struct EmDims {
-  int M, B, H, HH, NI, mult_y, geometric;
-};
-
-// level 0: the weight slices in shared memory; 1: read from device memory
-constexpr int EM_LEVELS = 2;
-// threads of the backward's chain group when the recompute runs beside it
-// (on an H100 at the sepsis shape 128 beat 256 and 64)
-constexpr int CHAIN_THREADS = 128;
-
-struct EmPlan {
-  int level, cs, R;
-  long long bytes;
-};
-
-// The widths a CTA's tiles and slices take
-struct EmGeo {
-  int U, UH, lU, lUH, sH, sHH, sW, R4, H4, HH4;
-};
-
-__host__ __device__ inline EmGeo em_geo(const EmDims& d, const EmPlan& p) {
-  EmGeo g;
-  g.U = round4((d.H + p.cs - 1) / p.cs);
-  g.UH = round4((d.HH + p.cs - 1) / p.cs);
-  g.lU = ld4(g.U);
-  g.lUH = ld4(g.UH);
-  g.sH = ld4(d.H);
-  g.sHH = ld4(d.HH);
-  g.sW = g.sH > g.sHH ? g.sH : g.sHH;
-  g.R4 = round4(p.R);
-  g.H4 = round4(d.H);
-  g.HH4 = round4(d.HH);
-  return g;
-}
-
-// The shared-memory layout of a CTA, offsets in floats (-1: not there).
-// Weight slices (level 0): Wy' [H4][lUH], W_l [NI][HH4][lUH], Wout
-// [HH4][lU]; the bias slices b_l [NI][UH] and bo [U] at every level.
-// Forward: the state y [R4][sH]; the activations [2][R4][sHH] (ping-pong);
-// the streams xh' [2][R4][UH], a' [2][UH], dW [2][R4][U], gk [2][U] (each
-// tile's rows at the CTA's own width, nh or nu).
+// The shared-memory layout of a CTA, offsets in floats (-1: not there):
+// the weights (take_wts). Forward: the state y [R4][sH]; the activations
+// [2][R4][sHH] (ping-pong); the streams xh' [2][R4][UH], a' [2][UH], dW
+// [2][R4][U], gk [2][U] (each tile's rows at the CTA's own width, nh or
+// nu).
 // Backward: y [2][R4][sH] (y_s in slot s & 1); the activations of two
 // steps [2][NI+1][R4][sHH]; the inner cotangents [2][R4][sHH]; own-column
 // tiles z3, dz3 and the state's cotangent [R4][U]; with CS > 1 the
 // partials of the back products [NI+2][R4][sW]; the streams xh', a', dW,
 // gys [2][R4][U], gk; the reduction's [ET / 32].
 struct EmLayout {
-  long long wy, wi, bi, wo, bo, y, h, e, z3, dz, gbar, pd, xh, a, dw, gy, gk,
-      red, total;
+  WtsAt w;
+  long long y, h, e, z3, dz, gbar, pd, xh, a, dw, gy, gk, red, total;
 };
 
-struct Take {
-  long long at = 0;
-  __host__ __device__ long long operator()(long long n) {
-    const long long o = at;
-    at += (n + 3) & ~3LL;
-    return o;
-  }
-};
-
-__host__ __device__ inline EmLayout em_layout(const EmDims& d,
-                                              const EmPlan& p, int bwd) {
-  const EmGeo g = em_geo(d, p);
+__host__ __device__ inline EmLayout em_layout(const SdeDims& d,
+                                              const SdePlan& p, int bwd) {
+  const SdeGeo g = sde_geo(d, p);
   const long long NI = d.NI, R4 = g.R4;
   EmLayout L;
   Take take;
-  L.wy = L.wi = L.wo = -1;
-  if (p.level == 0) {
-    L.wy = take((long long)g.H4 * g.lUH);
-    L.wi = take(NI * g.HH4 * g.lUH);
-    L.wo = take((long long)g.HH4 * g.lU);
-  }
-  L.bi = take(NI * g.UH);
-  L.bo = take(g.U);
+  L.w = take_wts(take, d, p, g);
   L.e = L.z3 = L.dz = L.gbar = L.pd = L.gy = L.red = -1;
   if (!bwd) {
     L.y = take(R4 * g.sH);
@@ -175,98 +120,13 @@ __host__ __device__ inline EmLayout em_layout(const EmDims& d,
   return L;
 }
 
-// The CTA's place: its cluster's rows and its own columns
-struct Cta {
-  int cs, rank, row0, nr, u0, nu, h0, nh;
-};
-
-__device__ __forceinline__ Cta make_cta(const EmDims& d, const EmPlan& p,
-                                        const EmGeo& g) {
-  Cta c;
-  c.cs = p.cs;
-  c.rank = p.cs == 1 ? 0 : (int)cg::this_cluster().block_rank();
-  c.row0 = (int)(blockIdx.x / p.cs) * p.R;
-  c.nr = min(p.R, d.B - c.row0);
-  c.u0 = min(c.rank * g.U, d.H);
-  c.nu = min(g.U, d.H - c.u0);
-  c.h0 = min(c.rank * g.UH, d.HH);
-  c.nh = min(g.UH, d.HH - c.h0);
-  return c;
-}
-
-// The weights as the products read them: the CTA's column slices in
-// shared memory (level 0: rows and columns past the weights' own are zero,
-// shared memory being zeroed first), or the tensors in device memory at
-// their own strides from the slice's first column; the bias slices in
-// shared memory.
-struct Wts {
-  const float *wy, *wi, *wo, *bi, *bo;
-  int lwy, lwi, swi, lwo;
-};
-
-__device__ __forceinline__ Wts load_wts(const EmDims& d, const EmPlan& p,
-                                        const EmGeo& g, const Cta& c,
-                                        const EmLayout& L, float* s,
-                                        const float* __restrict__ wy,
-                                        const float* __restrict__ wi,
-                                        const float* __restrict__ bi,
-                                        const float* __restrict__ wo,
-                                        const float* __restrict__ bo) {
-  const int H = d.H, HH = d.HH, NI = d.NI, nh = c.nh, nu = c.nu;
-  Wts w;
-  float* sbi = s + L.bi;
-  float* sbo = s + L.bo;
-  for (int i = threadIdx.x; i < NI * nh; i += ET)
-    sbi[(i / nh) * g.UH + i % nh] = bi[(i / nh) * HH + c.h0 + i % nh];
-  for (int i = threadIdx.x; i < nu; i += ET) sbo[i] = bo[c.u0 + i];
-  w.bi = sbi;
-  w.bo = sbo;
-  if (p.level == 0) {
-    float* swy = s + L.wy;
-    float* swi = s + L.wi;
-    float* swo = s + L.wo;
-    for (int i = threadIdx.x; i < H * nh; i += ET)
-      swy[(i / nh) * g.lUH + i % nh] =
-          wy[(size_t)(i / nh) * HH + c.h0 + i % nh];
-    for (int i = threadIdx.x; i < NI * HH * nh; i += ET) {
-      const int l = i / (HH * nh), k = (i / nh) % HH, n = i % nh;
-      swi[((size_t)l * g.HH4 + k) * g.lUH + n] =
-          wi[((size_t)l * HH + k) * HH + c.h0 + n];
-    }
-    for (int i = threadIdx.x; i < HH * nu; i += ET)
-      swo[(i / nu) * g.lU + i % nu] = wo[(size_t)(i / nu) * H + c.u0 + i % nu];
-    w.wy = swy;
-    w.wi = swi;
-    w.wo = swo;
-    w.lwy = w.lwi = g.lUH;
-    w.swi = g.HH4 * g.lUH;
-    w.lwo = g.lU;
-  } else {
-    w.wy = wy + c.h0;
-    w.wi = wi + c.h0;
-    w.wo = wo + c.u0;
-    w.lwy = w.lwi = HH;
-    w.swi = HH * HH;
-    w.lwo = H;
-  }
-  return w;
-}
-
-// the main paths' instance (GW false) reads the weight slices from shared
-// memory, a compile-time fact
-template <bool GW>
-__device__ __forceinline__ EmPlan placed(EmPlan p) {
-  if (!GW) p.level = 0;
-  return p;
-}
-
 // ---------------------------------------------------------------------------
 // The forward kernel
 // ---------------------------------------------------------------------------
 
 template <bool GW>
 __global__ void __launch_bounds__(ET)
-em_fwd_kernel(EmDims d, EmPlan pp, const float* __restrict__ y0,
+em_fwd_kernel(SdeDims d, SdePlan pp, const float* __restrict__ y0,
               const float* __restrict__ xh, const float* __restrict__ dw,
               const float* __restrict__ a, const float* __restrict__ gk,
               const float* __restrict__ dts, const float* __restrict__ theta,
@@ -275,13 +135,13 @@ em_fwd_kernel(EmDims d, EmPlan pp, const float* __restrict__ y0,
               const float* __restrict__ bo, float* __restrict__ ys) {
   extern __shared__ float4 smem4[];
   float* s = reinterpret_cast<float*>(smem4);
-  const EmPlan p = placed<GW>(pp);
-  const EmGeo g = em_geo(d, p);
+  const SdePlan p = placed<GW>(pp);
+  const SdeGeo g = sde_geo(d, p);
   const EmLayout L = em_layout(d, p, 0);
   zero_smem(s, L.total);
   __syncthreads();
   const Cta c = make_cta(d, p, g);
-  const Wts w = load_wts(d, p, g, c, L, s, wy, wi, bi, wo, bo);
+  const Wts w = load_wts(d, p, g, c, L.w, s, wy, wi, bi, wo, bo);
   const int H = d.H, HH = d.HH, NI = d.NI, sH = g.sH, sHH = g.sHH;
   const int U = g.U, UH = g.UH, R4 = g.R4, nr = c.nr, row0 = c.row0;
   const int h0 = c.h0, u0 = c.u0, cs = c.cs, nh = c.nh, nu = c.nu;
@@ -372,7 +232,7 @@ em_fwd_kernel(EmDims d, EmPlan pp, const float* __restrict__ y0,
 // (1 <= p <= NI) or z3 (p = NI + 1).
 template <bool GW>
 __global__ void __launch_bounds__(ET)
-em_bwd_kernel(EmDims d, EmPlan pp, const float* __restrict__ y0,
+em_bwd_kernel(SdeDims d, SdePlan pp, const float* __restrict__ y0,
               const float* __restrict__ ys, const float* __restrict__ gys,
               const float* __restrict__ xh, const float* __restrict__ dw,
               const float* __restrict__ a, const float* __restrict__ gk,
@@ -385,13 +245,13 @@ em_bwd_kernel(EmDims d, EmPlan pp, const float* __restrict__ y0,
               float* __restrict__ qs, float* __restrict__ p_th) {
   extern __shared__ float4 smem4[];
   float* s = reinterpret_cast<float*>(smem4);
-  const EmPlan p = placed<GW>(pp);
-  const EmGeo g = em_geo(d, p);
+  const SdePlan p = placed<GW>(pp);
+  const SdeGeo g = sde_geo(d, p);
   const EmLayout L = em_layout(d, p, 1);
   zero_smem(s, L.total);
   __syncthreads();
   const Cta c = make_cta(d, p, g);
-  const Wts w = load_wts(d, p, g, c, L, s, wy, wi, bi, wo, bo);
+  const Wts w = load_wts(d, p, g, c, L.w, s, wy, wi, bi, wo, bo);
   const int H = d.H, HH = d.HH, NI = d.NI, M = d.M, B = d.B;
   const int sH = g.sH, sHH = g.sHH, sW = g.sW, U = g.U, UH = g.UH;
   const int R4 = g.R4, nr = c.nr, row0 = c.row0, h0 = c.h0, u0 = c.u0;
@@ -609,15 +469,9 @@ em_bwd_kernel(EmDims d, EmPlan pp, const float* __restrict__ y0,
 // The host plan and the launches
 // ---------------------------------------------------------------------------
 
-// the lowest level, and a forced cluster size and row count, the host may
-// take (fused_em_force_placement, fused_em_force_plan; 0: its own)
-int g_first_level = 0;
-int g_force_cs = 0;
-int g_force_rows = 0;
-
 // cudaOccupancyMaxActiveClusters of plan q's kernel (0 when it cannot be
 // scheduled)
-inline int plan_active(const EmPlan& q, int backward) {
+inline int plan_active(const SdePlan& q, int backward) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
   int n = 0, e;
@@ -630,80 +484,14 @@ inline int plan_active(const EmPlan& q, int backward) {
   return e ? 0 : n;
 }
 
-// The plan of a launch: among every level from g_first_level on, CS in
-// {1, 2, 4, 8} (at most max(H, HH)) and R in {1, ..., 32} rows a cluster
-// whose CTA fits the device's shared memory and whose cluster can be
-// scheduled, the one of least estimated time: waves of clusters (the
-// clusters over cudaOccupancyMaxActiveClusters) x a step's cycles in a
-// CTA (R x the FMAs of one row's MLP evaluation / CS at 64 a cycle, twice
-// in the backward, whose recompute runs beside the chain; 300 a phase;
-// 900 a cluster barrier and, in the backward, 300 more a phase for the
-// partials' sum), x 2.5 at level 1 (device memory serving the weights:
-// the factor PR 7's CDE plan measured). Ties go to fewer waves, the lower
-// level, the smaller CS, fewer rows. A pure function of the shapes (and of
-// what a test forces). When nothing fits, the last plan tried, its bytes
-// above the limit (the launch is refused).
-inline EmPlan em_plan(const EmDims& d, int backward) {
-  static std::mutex mu;
-  static std::map<std::tuple<int, int, int, int, int, int, int, int, int>,
-                  EmPlan>
-      seen;
-  int dev = 0;
-  cudaGetDevice(&dev);
-  const auto key = std::make_tuple(dev, d.B, d.H, d.HH, d.NI, backward,
-                                   g_first_level, g_force_cs, g_force_rows);
-  std::lock_guard<std::mutex> lock(mu);
-  const auto it = seen.find(key);
-  if (it != seen.end()) return it->second;
-  const long long limit = (long long)max_optin_smem();
-  EmPlan last{}, best{};
-  last.bytes = limit + 1;
-  double best_cost = -1.0;
-  long long best_key = 0;
-  const int phases = d.NI + 2 + backward;
-  const double row = (double)d.H * d.HH + (double)d.NI * d.HH * d.HH +
-                     (double)d.HH * d.H;
-  for (int level = g_first_level; level < EM_LEVELS; ++level)
-    for (int cs = 1; cs <= 8; cs *= 2) {
-      if (g_force_cs ? cs != g_force_cs
-                     : (cs > 1 && cs > (d.H > d.HH ? d.H : d.HH)))
-        continue;
-      for (int R = 1; R <= 32; R *= 2) {
-        if (g_force_rows && R != g_force_rows) continue;
-        EmPlan q{level, cs, R, 0};
-        q.bytes = (long long)sizeof(float) * em_layout(d, q, backward).total;
-        const int active = q.bytes > limit ? 0 : plan_active(q, backward);
-        if (active < 1) {
-          last = q;
-          continue;
-        }
-        const double waves =
-            std::ceil((double)((d.B + R - 1) / R) / active);
-        const double step =
-            R * row / cs / 64.0 * (1 + backward) + 300.0 * phases +
-            (cs > 1 ? (900.0 + 300.0 * backward) * (d.NI + 2) : 0.0);
-        const double cost = waves * step * (level > 0 ? 2.5 : 1.0);
-        const long long key =
-            (((long long)waves * EM_LEVELS + level) * 16 + cs) * 64 + R;
-        if (best_cost < 0 || cost < best_cost * (1 - 1e-9) ||
-            (cost <= best_cost * (1 + 1e-9) && key < best_key)) {
-          best_cost = cost;
-          best_key = key;
-          best = q;
-        }
-      }
-    }
-  const EmPlan p = best_cost < 0 ? last : best;
-  seen[key] = p;
-  return p;
-}
-
-inline bool valid(const EmDims& d) {
-  return d.M >= 0 && d.B > 0 && d.H > 0 && d.HH > 0 && d.NI >= 0;
-}
-
-inline int ctas(const EmDims& d, const EmPlan& p) {
-  return ((d.B + p.R - 1) / p.R) * p.cs;
+// The plan of a launch (sde_plan): a step is one MLP evaluation, NI + 2
+// phases (and, in the backward, its pointwise part), one cluster barrier a
+// phase.
+inline SdePlan em_plan(const SdeDims& d, int backward) {
+  return sde_plan(
+      d, backward, StepShape{1, d.NI + 2 + backward, d.NI + 2},
+      [&](const SdePlan& q) { return em_layout(d, q, backward).total; },
+      [&](const SdePlan& q) { return plan_active(q, backward); });
 }
 
 struct FwdArgs {
@@ -720,111 +508,45 @@ struct BwdArgs {
 // One launch (or, without `go`, its plan's check); the main paths' level 0
 // runs its own instance (the weight slices in shared memory, a
 // compile-time fact)
-int run_fwd(const EmDims& d, const FwdArgs& A, cudaStream_t s, int* active,
+int run_fwd(const SdeDims& d, const FwdArgs& A, cudaStream_t s, int* active,
             bool go) {
-  if (!valid(d)) return (int)cudaErrorInvalidValue;
-  const EmPlan p = em_plan(d, 0);
+  if (!sde_valid(d)) return (int)cudaErrorInvalidValue;
+  const SdePlan p = em_plan(d, 0);
   if (p.bytes > (long long)max_optin_smem())
     return (int)cudaErrorInvalidValue;
   auto k = p.level ? em_fwd_kernel<true> : em_fwd_kernel<false>;
-  return launch_clusters(k, p.cs, ctas(d, p), p.bytes, s, active, go, d, p,
+  return launch_clusters(k, p.cs, sde_ctas(d, p), p.bytes, s, active, go, d, p,
                          A.y0, A.xh, A.dw, A.a, A.gk, A.dts, A.theta, A.wy,
                          A.wi, A.bi, A.wo, A.bo, A.ys);
 }
 
-int run_bwd(const EmDims& d, const BwdArgs& A, cudaStream_t s, int* active,
+int run_bwd(const SdeDims& d, const BwdArgs& A, cudaStream_t s, int* active,
             bool go) {
-  if (!valid(d)) return (int)cudaErrorInvalidValue;
-  const EmPlan p = em_plan(d, 1);
+  if (!sde_valid(d)) return (int)cudaErrorInvalidValue;
+  const SdePlan p = em_plan(d, 1);
   if (p.bytes > (long long)max_optin_smem())
     return (int)cudaErrorInvalidValue;
   auto k = p.level ? em_bwd_kernel<true> : em_bwd_kernel<false>;
-  return launch_clusters(k, p.cs, ctas(d, p), p.bytes, s, active, go, d, p,
+  return launch_clusters(k, p.cs, sde_ctas(d, p), p.bytes, s, active, go, d, p,
                          A.y0, A.ys, A.gys, A.xh, A.dw, A.a, A.gk, A.dts,
                          A.theta, A.wy, A.wi, A.bi, A.wo, A.bo, A.dxh, A.dy0,
                          A.hs, A.es, A.dz3, A.q, A.p_th);
 }
 
-// The weight-gradient products of a backward: the jobs (Wy', each W_l,
-// Wout, in that order) and their output tiles; splits of K = M B
-struct WgPlan {
-  int njobs, S, bm;
-  long long tiles;
-};
-
-inline WgPlan wg_plan(const EmDims& d) {
-  WgPlan w;
-  w.njobs = d.NI + 2;
-  w.bm = wg_rows(d.H, d.HH);
-  const long long tm_h = (d.H + w.bm - 1) / w.bm,
-                  tm_hh = (d.HH + w.bm - 1) / w.bm;
-  const long long tc_h = (d.H + WG_BN - 1) / WG_BN,
-                  tc_hh = (d.HH + WG_BN - 1) / WG_BN;
-  w.tiles = tm_h * tc_hh + d.NI * tm_hh * tc_hh + tm_hh * tc_h;
-  w.S = wg_splits((long long)d.M * d.B, w.tiles);
-  return w;
-}
-
-// floats of job j's split partials [S][rows + 1][N], and where each starts
-inline long long wg_job_floats(const EmDims& d, int S, int j) {
-  const int rows = j == 0 ? d.H : d.HH, N = j == d.NI + 1 ? d.H : d.HH;
-  return (long long)S * (rows + 1) * N;
-}
-
-int run_wgrad(const EmDims& d, const float* y0, const float* ys,
+// The weight gradient over K = M B rows: Wy' over the states before each
+// step (y0, then ys) and dz1, each W_l and Wout over the activations and
+// cotangents; the per-step column sums of dz1 (da) and q (dgk).
+int run_wgrad(const SdeDims& d, const float* y0, const float* ys,
               const float* dxh, const float* hs, const float* es,
               const float* dz3, const float* q, float* p, float* da,
               float* dgk, cudaStream_t s) {
-  if (!valid(d)) return (int)cudaErrorInvalidValue;
-  const WgPlan wp = wg_plan(d);
+  if (!sde_valid(d)) return (int)cudaErrorInvalidValue;
   const long long K = (long long)d.M * d.B;
-  const size_t MBH = (size_t)d.M * d.B * d.HH;
+  const WgPlan wp = wg_plan(d, K);
   std::vector<WgJob> jobs;
-  long long off = 0;
-  for (int j = 0; j < wp.njobs; ++j) {
-    WgJob J{};
-    if (j == 0) {
-      J = WgJob{y0, ys, dxh, nullptr, d.H, d.HH, d.B, 0};
-    } else if (j <= d.NI) {
-      J = WgJob{hs, hs + (j - 1) * MBH, es + (j - 1) * MBH, nullptr, d.HH,
-                d.HH, 0, 1};
-    } else {
-      J = WgJob{hs, hs + d.NI * MBH, dz3, nullptr, d.HH, d.H, 0, 1};
-    }
-    J.p = p + off;
-    off += wg_job_floats(d, wp.S, j);
-    jobs.push_back(J);
-  }
-  const int kper = (int)(((K + wp.S - 1) / wp.S + WG_BK - 1) / WG_BK * WG_BK);
-  // the jobs in launches of at most WG_MAX_JOBS; the column sums in the
-  // first
-  for (size_t j0 = 0; j0 < jobs.size(); j0 += WG_MAX_JOBS) {
-    WgArgs A{};
-    A.njobs = (int)std::min<size_t>(WG_MAX_JOBS, jobs.size() - j0);
-    A.K = (int)K;
-    A.M = d.M;
-    A.B = d.B;
-    A.kper = kper;
-    A.tiles[0] = 0;
-    for (int j = 0; j < A.njobs; ++j) {
-      A.job[j] = jobs[j0 + j];
-      const long long tm = (A.job[j].rows + wp.bm - 1) / wp.bm;
-      const long long tc = (A.job[j].N + WG_BN - 1) / WG_BN;
-      A.tiles[j + 1] = A.tiles[j] + (int)(tm * tc);
-    }
-    A.nsums = j0 == 0 ? 2 : 0;
-    A.sum[0] = WgSum{dxh, da, d.HH};
-    A.sum[1] = WgSum{q, dgk, d.H};
-    const dim3 grid((unsigned)(A.tiles[A.njobs] + A.nsums * d.M),
-                    (unsigned)wp.S);
-    if (wp.bm == 128)
-      wgrad_kernel<128><<<grid, WG_THREADS, 0, s>>>(A);
-    else
-      wgrad_kernel<64><<<grid, WG_THREADS, 0, s>>>(A);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  return 0;
+  wg_jobs(d, wp, K, y0, ys, nullptr, d.B, (int)K, dxh, hs, es, dz3, p, jobs);
+  const WgSum sums[2] = {WgSum{dxh, da, d.HH, d.M}, WgSum{q, dgk, d.H, d.M}};
+  return run_wgrad_jobs(jobs, sums, 2, K, d.B, wp, s);
 }
 
 }  // namespace
@@ -835,7 +557,7 @@ extern "C" {
 // (above the device's limit when no plan fits).
 long long fused_em_smem_bytes(int B, int H, int HH, int n_inner,
                               int backward) {
-  const EmDims d{1, B, H, HH, n_inner, 0, 0};
+  const SdeDims d{1, B, H, HH, n_inner, 0, 0};
   return em_plan(d, backward).bytes;
 }
 
@@ -845,8 +567,8 @@ long long fused_em_smem_bytes(int B, int H, int HH, int n_inner,
 // of the weight gradient's K (the leading dimension of its partials).
 int fused_em_plan(int B, int H, int HH, int n_inner, int backward,
                   int field) {
-  const EmDims d{1, B, H, HH, n_inner, 0, 0};
-  const EmPlan p = em_plan(d, backward);
+  const SdeDims d{1, B, H, HH, n_inner, 0, 0};
+  const SdePlan p = em_plan(d, backward);
   switch (field) {
     case 0: return p.level;
     case 1: return p.R;
@@ -863,28 +585,18 @@ int fused_em_plan(int B, int H, int HH, int n_inner, int backward,
 
 // The splits of the weight gradient's K = M B at (M, B, H, HH, n_inner).
 int fused_em_wgrad_splits(int M, int B, int H, int HH, int n_inner) {
-  return wg_plan(EmDims{M, B, H, HH, n_inner, 0, 0}).S;
+  return wg_plan(SdeDims{M, B, H, HH, n_inner, 0, 0},
+                 (long long)M * B).S;
 }
 
 // Make later launches take level `first` or a later one (0: the host's
 // own choice). For tests of each level.
-int fused_em_force_placement(int first) {
-  if (first < 0 || first >= EM_LEVELS) return (int)cudaErrorInvalidValue;
-  g_first_level = first;
-  return 0;
-}
+int fused_em_force_placement(int first) { return force_level(first); }
 
 // Make later launches take clusters of cs CTAs and `rows` batch rows a
 // cluster, a power of 2 up to 32 (0: the host's own choice of each). For
 // tests of each plan.
-int fused_em_force_plan(int cs, int rows) {
-  if ((cs != 0 && cs != 1 && cs != 2 && cs != 4 && cs != 8) || rows < 0 ||
-      rows > 32 || (rows & (rows - 1)))
-    return (int)cudaErrorInvalidValue;
-  g_force_cs = cs;
-  g_force_rows = rows;
-  return 0;
-}
+int fused_em_force_plan(int cs, int rows) { return force_plan(cs, rows); }
 
 int fused_em_max_smem() { return max_optin_smem(); }
 
@@ -898,7 +610,7 @@ int fused_em_fwd(const float* y0, const float* xh, const float* dw,
                  const float* bi, const float* wo, const float* bo, float* ys,
                  int M, int B, int H, int HH, int n_inner, int mult_y,
                  int geometric, void* stream) {
-  const EmDims d{M, B, H, HH, n_inner, mult_y, geometric};
+  const SdeDims d{M, B, H, HH, n_inner, mult_y, geometric};
   const FwdArgs A{y0, xh, dw, a, gk, dts, theta, wy, wi, bi, wo, bo, ys};
   return run_fwd(d, A, (cudaStream_t)stream, nullptr, true);
 }
@@ -915,7 +627,7 @@ int fused_em_bwd(const float* y0, const float* ys, const float* gys,
                  float* hs, float* es, float* dz3, float* q, float* p_th,
                  int M, int B, int H, int HH, int n_inner, int mult_y,
                  int geometric, void* stream) {
-  const EmDims d{M, B, H, HH, n_inner, mult_y, geometric};
+  const SdeDims d{M, B, H, HH, n_inner, mult_y, geometric};
   const BwdArgs A{y0, ys, gys, xh, dw, a, gk, dts, theta, wy, wi, bi, wo, bo,
                   dxh, dy0, hs, es, dz3, q, p_th};
   return run_bwd(d, A, (cudaStream_t)stream, nullptr, true);
@@ -930,7 +642,7 @@ int fused_em_wgrad(const float* y0, const float* ys, const float* dxh,
                    const float* q, float* p, float* da, float* dgk, int M,
                    int B, int H, int HH, int n_inner, int mult_y,
                    int geometric, void* stream) {
-  const EmDims d{M, B, H, HH, n_inner, mult_y, geometric};
+  const SdeDims d{M, B, H, HH, n_inner, mult_y, geometric};
   return run_wgrad(d, y0, ys, dxh, hs, es, dz3, q, p, da, dgk,
                    (cudaStream_t)stream);
 }

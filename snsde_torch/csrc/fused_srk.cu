@@ -1,6 +1,7 @@
 // Fused SRIW1 stochastic Runge–Kutta solve of a DiffusionField SDE:
-// forward and backward kernels for NVIDIA Hopper (sm_90a), plain C
-// interface (loaded with ctypes by snsde_torch/kernels/fused_srk.py).
+// forward, backward recurrence and weight-gradient kernels for NVIDIA
+// Hopper (sm_90a), plain C interface (loaded with ctypes by
+// snsde_torch/kernels/fused_srk.py).
 //
 // Replaces the Pallas TPU kernels of snsde/kernels/fused_srk.py:
 //   forward  _fused_srk_forward (pallas_call at :295, body _fwd_kernel :215,
@@ -8,7 +9,7 @@
 //   backward _fused_srk_backward (pallas_call at :527, body _bwd_kernel :317)
 // for drift mode 'embm' (merged emb drift, input_option 2/4/6) and noise
 // mode 'precomp' (the diffusion magnitude depends on t only), with or
-// without mult_y and geometric: the modes of fused_em.cu.
+// without mult_y and geometric, at every width: the modes of fused_em.cu.
 //
 // Rößler's SRIW1 tableau collapses to two drift MLP evaluations per step,
 // f0 = f(t, y) and f1 = f(t + 3/4 dt, H0_1), and four elementwise diffusion
@@ -20,26 +21,62 @@
 //   y1   = y + dt (f0/3 + 2 f1/3) + sum_i coeff_i(dW, I10, dt) g_i
 // with the 1/dt and 1/sqrt(dt) guarded so dt = 0 is an identity step. The
 // per-stage control rows (xh0, a0 at t; xh1, a1 at t + 3/4 dt) and gk rows
-// are precomputed outside the kernels, as for the EM kernels. The backward
-// recomputes every stage of a step from the saved trajectory and reverses
-// the tableau in the JAX kernel's order: f1, g3, g2, g1, g0, f0.
+// are precomputed outside the kernels, as for the EM kernels.
 //
 // What bounds it on the H100: not bytes or FLOPs. At the MuJoCo shape
-// (B=1024, 49 steps, H=32) the forward does ~0.6 GFLOP and moves ~32 MB,
-// ~10 us of either; the backward ~3x the products and ~51 MB. The limit is
-// the chain of dependent steps, each two MLP evaluations of a few
-// [rows x H] x [H x H] products with a block barrier after each, over only
-// 1024 independent rows. The design is fused_em.cu's: one thread block per
-// tile of ROWS batch rows runs the whole time loop, with the weights, the
-// state, the stage states and the activations of both MLP evaluations (and,
-// in the backward, the weight-gradient accumulators, each entry owned by
-// one thread) in shared memory; only the per-step streams touch device
-// memory; exact fp32 FMA on the CUDA cores; per-block partials summed by
-// the wrapper in a fixed order, so runs are bit-reproducible. Wider fields
-// take the device-memory placement of sde_common.cuh (at H = HH with two
-// inner layers: the backward from 80 on, the forward from 128).
+// (B=1024, 49 steps, H=HH=32, one inner layer) the forward does ~0.6 GFLOP
+// and moves ~32 MB, ~10 us of either. The limit is the chain of 49
+// dependent steps, each two MLP evaluations of a few small products with
+// barriers between them, over only 1024 independent rows. The first
+// design (one 256-thread block per 8 rows, each output one FMA chain over
+// scalar shared reads, the streams read inside the step, and in the
+// backward every stage recomputed and five weight-gradient accumulators
+// read-modified-written inside every step) is the one fused_em.cu retired;
+// this one is fused_em.cu's, on its device code (sde_hopper.cuh):
+// * A cluster of CS CTAs (CS in {1, 2, 4, 8}) of 512 threads runs the whole
+//   loop for R batch rows. CTA j owns a block of each layer's output
+//   columns and holds its column slice of Wy', each W_l and Wout; both
+//   drift evaluations use the same slices. A layer's output row is pushed
+//   into every CTA through distributed shared memory, one cluster barrier a
+//   layer (a block barrier for a cluster of one).
+// * The products are register tiles, each forward output one FMA chain in
+//   ascending k (the plain versions' order, so a relu's input rounds as
+//   theirs does). The stages are elementwise on the H columns a CTA owns:
+//   f0's output phase goes on to the four diffusion stages and H0_1 there
+//   and pushes its slice of H0_1, which f1's first layer needs whole; f1's
+//   output phase updates y and pushes its slice.
+// * The step's streams (the xh0, xh1, dW, I10 rows, the a0, a1 and gk0-2
+//   rows, dt; in the backward also gys and the state before the step) are
+//   copied with cp.async a step ahead.
+// * Backward: a reverse recurrence running only the dependent chain of
+//   step u (dz3 of f1 -> back through f1's Wout, W_l, Wy' -> the four
+//   diffusion stages in reverse, g3, g2, g1, g0, elementwise -> dz3 of f0
+//   -> back through f0's MLP -> the state's cotangent), the tableau's order
+//   f1, g3, g2, g1, g0, f0 of the JAX _bwd_kernel. Beside it, 384 of the
+//   CTA's 512 threads rebuild step u-1 from the saved trajectory (f0's
+//   layers, H0_1, f1's layers) in the same phases, one barrier serving
+//   both. The recurrence writes the activations of both evaluations, their
+//   inner cotangents, dz3, H0_1 and the gk rows' cotangents as streams (dz1
+//   is dxh0 / dxh1), and one weight-gradient kernel (wgrad_kernel,
+//   sde_hopper.cuh) forms dWy', dW_l, dWout and the bias sums over
+//   K = 2 M B rows (both evaluations), and the per-step column sums of a0,
+//   a1 and gk0-2, after the loop. d theta is a per-CTA partial; the wrapper
+//   sums every partial in a fixed order. No atomics: runs are
+//   bit-reproducible.
+// * The host plan (srk_plan, sde_plan's rule): level 0 the weight slices in
+//   shared memory, level 1 the weights read from device memory; CS; R from
+//   1 to 32; the least estimated time among the plans that can be placed
+//   (a step counts two MLP evaluations); none placed: the launch is
+//   refused.
+// On an H100 (PERF.md section 6) this took the backward (recurrence plus
+// weight gradient) at the MuJoCo shape from 1.21 to 0.98 ms, and at the
+// sepsis shape with H=HH=128 and 256 the forward from 3.5 and 87 ms to 1.6
+// and 10.4, the backward from 46 and 224 to 5.4 and 40. The MuJoCo forward
+// went from 0.30 to 0.35 ms: its six phases a step cost ~2 K cycles each
+// in both designs, and the stream copies add the rest (without them, 0.30).
+// Exact fp32 FMA on the CUDA cores (TF32 off).
 
-#include "sde_common.cuh"
+#include "sde_hopper.cuh"
 
 namespace {
 
@@ -49,6 +86,16 @@ __constant__ float BETA1[4] = {-1.f, 4.f / 3.f, 2.f / 3.f, 0.f};
 __constant__ float BETA2[4] = {-1.f, 4.f / 3.f, -1.f / 3.f, 0.f};
 __constant__ float BETA3[4] = {2.f, -4.f / 3.f, -2.f / 3.f, 0.f};
 __constant__ float BETA4[4] = {-2.f, 5.f / 3.f, -2.f / 3.f, 1.f};
+
+// The streams' copies: 16-byte where a block is contiguous, issued by the
+// threads [T0, ET) that the products leave idle (the forward's upper half,
+// the backward's recompute group), off the products' own threads. On an
+// H100 at the MuJoCo shape this took the forward from 0.38-0.42 to
+// 0.33-0.38 ms and the recurrence from 0.90-0.94 to 0.84-0.86 (16-byte
+// copies alone cost the forward: 0.43-0.44); with no copies at all (a
+// probe) the forward took 0.30.
+constexpr bool FWD_VEC = true, BWD_VEC = true;
+constexpr int FWD_COPY_T0 = ET / 2, BWD_COPY_T0 = CHAIN_THREADS;
 
 struct Step {
   float dt, sq, rdt, rsq;  // dt, sqrt(dt), guarded 1/dt and 1/sqrt(dt)
@@ -82,17 +129,28 @@ struct Stages {
   float st[4], graw[4], g[4], h01;
 };
 
+__device__ __forceinline__ float noise_g(float state, float gk, float sth,
+                                         bool mult_y) {
+  return tanhf(sth * (mult_y ? gk * state : gk));
+}
+
 __device__ __forceinline__ void noise_eval(Stages& s, int i, float state,
-                                           float gk, float sth, int mult_y) {
+                                           float gk, float sth, bool mult_y) {
   s.st[i] = state;
   s.graw[i] = mult_y ? gk * state : gk;
-  s.g[i] = tanhf(sth * s.graw[i]);
+  s.g[i] = noise_g(state, gk, sth, mult_y);
+}
+
+// H0_1, the state of f1
+__device__ __forceinline__ float h01_of(float y, float f0, float g0,
+                                        float i10, const Step& k) {
+  return y + 0.75f * k.dt * f0 + 1.5f * (i10 * k.rdt) * g0;
 }
 
 __device__ __forceinline__ Stages srk_stages(float y, float f0, float gk0,
                                              float gk1, float gk2, float i10,
                                              float sth, const Step& k,
-                                             int mult_y) {
+                                             bool mult_y) {
   Stages s;
   noise_eval(s, 0, y, gk0, sth, mult_y);
   noise_eval(s, 1, y + 0.25f * k.dt * f0 + 0.5f * k.sq * s.g[0], gk1, sth,
@@ -102,7 +160,7 @@ __device__ __forceinline__ Stages srk_stages(float y, float f0, float gk0,
              y + 0.25f * k.dt * f0 +
                  k.sq * (-5.f * s.g[0] + 3.f * s.g[1] + 0.5f * s.g[2]),
              gk1, sth, mult_y);
-  s.h01 = y + 0.75f * k.dt * f0 + 1.5f * (i10 * k.rdt) * s.g[0];
+  s.h01 = h01_of(y, f0, s.g[0], i10, k);
   return s;
 }
 
@@ -110,7 +168,7 @@ __device__ __forceinline__ Stages srk_stages(float y, float f0, float gk0,
 // theta sum, sets q to the cotangent of its gk (summed over rows later)
 // and returns the cotangent of its state.
 __device__ __forceinline__ float noise_bwd(const Stages& s, int i, float dg,
-                                           float gk, float sth, int mult_y,
+                                           float gk, float sth, bool mult_y,
                                            float& th_acc, float& q) {
   const float g = s.g[i];
   const float dsg = dg * (1.f - g * g);
@@ -124,298 +182,662 @@ __device__ __forceinline__ float noise_bwd(const Stages& s, int i, float dg,
   return 0.f;
 }
 
-__host__ __device__ inline size_t fwd_floats(const Dims& d) {
-  return smem_weights(d) + 4 * tile_h(d) + (d.n_inner + 1) * tile_hh(d);
+// The tensors of a launch (a forward reads y0 and the streams and writes
+// ys; a backward reads the trajectory ys and gys too and writes the rest)
+struct SrkArgs {
+  const float *y0, *ys, *gys, *xh0, *xh1, *dw, *i10, *a0, *a1, *gk0, *gk1,
+      *gk2, *dts, *theta, *wy, *wi, *bi, *wo, *bo;
+  float *ys_out, *dxh, *dy0, *hs, *es, *dz3, *q, *h01, *p_th;
+};
+
+// The shared-memory layout of a CTA, offsets in floats (-1: not there):
+// the weights (take_wts); H0_1 [R4][sH]. Forward: y [R4][sH]; the
+// activations [2][R4][sHH] (ping-pong); f0 and the noise update
+// sum_i coeff_i g_i, own columns [R4][U]. Backward: y [3][R4][sH] (y_t in
+// slot (t + 3) % 3); the activations of two steps and both evaluations
+// [2][2][NI+1][R4][sHH]; the inner cotangents [2][R4][sHH]; own-column
+// tiles of f0's z3 (two steps), f1's z3, dz3, H0_1's cotangent and the
+// state's [R4][U]; with CS > 1 the partials of the back products
+// [NI+2][R4][sW]; the reduction's [ET / 32]. The streams of a step, slot
+// by slot (forward 2, backward 3): xh0, xh1 [R4][UH], a0, a1 [UH], dW,
+// I10 (backward: gys) [R4][U], gk0-2 [3][U], dt [4].
+struct SrkLayout {
+  WtsAt w;
+  long long y, h01, h, e, f0, sn, z30, z31, dz, dh, gbar, pd, xh0, xh1, a0,
+      a1, dw, i10, gy, gk, dt, red, total;
+};
+
+__host__ __device__ inline SrkLayout srk_layout(const SdeDims& d,
+                                                const SdePlan& p, int bwd) {
+  const SdeGeo g = sde_geo(d, p);
+  const long long NI = d.NI, R4 = g.R4, NS = bwd ? 3 : 2;
+  SrkLayout L;
+  Take take;
+  L.w = take_wts(take, d, p, g);
+  L.f0 = L.sn = L.e = L.z30 = L.z31 = L.dz = L.dh = L.gbar = L.pd = L.gy =
+      L.red = -1;
+  L.h01 = take(R4 * g.sH);
+  if (!bwd) {
+    L.y = take(R4 * g.sH);
+    L.h = take(2 * R4 * g.sHH);
+    L.f0 = take(R4 * g.U);
+    L.sn = take(R4 * g.U);
+  } else {
+    L.y = take(3 * R4 * g.sH);
+    L.h = take(4 * (NI + 1) * R4 * g.sHH);
+    L.e = take(2 * R4 * g.sHH);
+    L.z30 = take(2 * R4 * g.U);
+    L.z31 = take(R4 * g.U);
+    L.dz = take(R4 * g.U);
+    L.dh = take(R4 * g.U);
+    L.gbar = take(R4 * g.U);
+    if (p.cs > 1) L.pd = take((NI + 2) * R4 * g.sW);
+    L.gy = take(NS * R4 * g.U);
+    L.red = take(ET / 32);
+  }
+  L.xh0 = take(NS * R4 * g.UH);
+  L.xh1 = take(NS * R4 * g.UH);
+  L.a0 = take(NS * g.UH);
+  L.a1 = take(NS * g.UH);
+  L.dw = take(NS * R4 * g.U);
+  L.i10 = take(NS * R4 * g.U);
+  L.gk = take(NS * 3 * g.U);
+  L.dt = take(NS * 4);
+  L.total = take(0);
+  return L;
 }
 
-__host__ __device__ inline size_t bwd_floats(const Dims& d) {
-  return smem_weights(d) + smem_grads(d) + 9 * tile_h(d) +
-         (2 * d.n_inner + 4) * tile_hh(d) + THREADS / 32;
+// copy_rows (sde_hopper.cuh) issued by the threads [T0, ET) only. A copy,
+// not a thread-range parameter of the shared function: on an H100 that
+// parameter took the EM backward kernel from 128 registers to 64 with
+// spills and its time up ~10%.
+template <int T0>
+__device__ __forceinline__ void copy_rows_by(float* dst, int ld,
+                                             const float* src, size_t sr,
+                                             int n, int nr, bool vec) {
+  constexpr int NT = ET - T0;
+  const int t = (int)threadIdx.x - T0;
+  if (t < 0) return;
+  if (vec && ld == n && sr == (size_t)n &&
+      ((reinterpret_cast<size_t>(dst) | reinterpret_cast<size_t>(src)) &
+       15) == 0) {
+    const int total = nr * n, q = total >> 2;
+    for (int i = t; i < q; i += NT) cp_async16(dst + 4 * i, src + 4 * i, 16);
+    for (int i = 4 * q + t; i < total; i += NT) cp_async4(dst + i, src + i);
+    return;
+  }
+  for (int i = t; i < nr * n; i += NT) {
+    const int r = i / n, c = i - r * n;
+    cp_async4(dst + r * ld + c, src + r * sr + c);
+  }
 }
 
-// the lowest placement the host may pick (fused_srk_force_placement)
-int g_first_placement = 0;
-
-// The placement of a launch at d's widths; its shared bytes
-inline size_t plan(Dims& d, int backward) {
-  const size_t limit = (size_t)max_optin_smem();
-  return backward ? place(d, bwd_floats, g_first_placement, limit)
-                  : place(d, fwd_floats, g_first_placement, limit);
+// step t's streams, the CTA's rows and own columns, into slot b (the
+// backward's also gys), at the kernel's copy width, by its copy threads
+// (each stream by a warp of its own instead was slower on an H100: the
+// MuJoCo forward 0.345-0.378 against 0.328-0.340 ms)
+template <bool BWD>
+__device__ __forceinline__ void prefetch_step(const SrkArgs& A,
+                                              const SdeDims& d,
+                                              const SdeGeo& g, const Cta& c,
+                                              const SrkLayout& L, float* s,
+                                              int b, int t) {
+  constexpr bool vec = BWD ? BWD_VEC : FWD_VEC;
+  constexpr int T0 = BWD ? BWD_COPY_T0 : FWD_COPY_T0;
+  const size_t rb = (size_t)t * d.B + c.row0;
+  const int xt = g.R4 * g.UH, wt = g.R4 * g.U, nh = c.nh, nu = c.nu;
+  const float* xh0 = A.xh0 + rb * d.HH + c.h0;
+  const float* xh1 = A.xh1 + rb * d.HH + c.h0;
+  copy_rows_by<T0>(s + L.xh0 + b * xt, nh, xh0, d.HH, nh, c.nr, vec);
+  copy_rows_by<T0>(s + L.xh1 + b * xt, nh, xh1, d.HH, nh, c.nr, vec);
+  const size_t oa = (size_t)t * d.HH + c.h0;
+  copy_rows_by<T0>(s + L.a0 + b * g.UH, nh, A.a0 + oa, nh, nh, 1, vec);
+  copy_rows_by<T0>(s + L.a1 + b * g.UH, nh, A.a1 + oa, nh, nh, 1, vec);
+  const size_t ow = rb * d.H + c.u0;
+  copy_rows_by<T0>(s + L.dw + b * wt, nu, A.dw + ow, d.H, nu, c.nr, vec);
+  copy_rows_by<T0>(s + L.i10 + b * wt, nu, A.i10 + ow, d.H, nu, c.nr, vec);
+  if (BWD)
+    copy_rows_by<T0>(s + L.gy + b * wt, nu, A.gys + ow, d.H, nu, c.nr, vec);
+  float* gk = s + L.gk + b * 3 * g.U;
+  const size_t o = (size_t)t * d.H + c.u0;
+  copy_rows_by<T0>(gk, nu, A.gk0 + o, nu, nu, 1, vec);
+  copy_rows_by<T0>(gk + g.U, nu, A.gk1 + o, nu, nu, 1, vec);
+  copy_rows_by<T0>(gk + 2 * g.U, nu, A.gk2 + o, nu, nu, 1, vec);
+  copy_rows_by<T0>(s + L.dt + 4 * b, 1, A.dts + t, 1, 1, 1, false);
 }
 
-template <bool WIDE>
-__global__ void __launch_bounds__(THREADS)
-fwd_kernel(Dims dp, const float* __restrict__ y0,
-           const float* __restrict__ xh0, const float* __restrict__ xh1,
-           const float* __restrict__ dw, const float* __restrict__ i10,
-           const float* __restrict__ a0, const float* __restrict__ a1,
-           const float* __restrict__ gk0, const float* __restrict__ gk1,
-           const float* __restrict__ gk2, const float* __restrict__ dts,
-           const float* __restrict__ theta, const float* __restrict__ wy,
-           const float* __restrict__ wi, const float* __restrict__ bi,
-           const float* __restrict__ wo, const float* __restrict__ bo,
-           float* __restrict__ ys) {
-  extern __shared__ float smem[];
-  const Dims d = placed<WIDE>(dp);
-  const int H = d.H, HH = d.HH, sH = odd(H);
-  const Weights w = load_weights(smem, d, wy, wi, bi, wo, bo);
-  float* sy = smem + smem_weights(d);    // y [R][sH]
-  float* s01 = sy + tile_h(d);           // H0_1, the state of f1
-  float* sf0 = s01 + tile_h(d);          // f0
-  float* sn = sf0 + tile_h(d);           // sum_i coeff_i g_i
-  float* hl = sn + tile_h(d);            // activations [NI+1][R][sHH]
-  const float* hlast = hl + d.n_inner * tile_hh(d);
+// Y = X W (mm) for a product whose epilogue is long (the stages' tanh
+// chains): one output a thread where the outputs fit the group's threads
+// once, so the epilogues run side by side, else mm's register tiles.
+template <class Epi>
+__device__ __forceinline__ void mm_ep(Grp g, const float* X, int ldx, int K,
+                                      const float* W, int ldw, bool gw,
+                                      int nr, int N, Epi epi) {
+  if (nr * N <= g.n)
+    mm_tile<1, 1>(g, X, ldx, K, W, ldw, gw, nr, N, epi);
+  else
+    mm(g, X, ldx, K, W, ldw, gw, nr, N, epi);
+}
 
-  const int row0 = blockIdx.x * d.R;
-  const int nr = min(d.R, d.B - row0);
-  const size_t BH = (size_t)d.B * H, BHH = (size_t)d.B * HH;
-  for (int i = threadIdx.x; i < nr * H; i += THREADS)
-    sy[(i / H) * sH + i % H] = y0[(size_t)row0 * H + i];
-  const float sth = sigmoid(theta[0]);
+// ---------------------------------------------------------------------------
+// The forward kernel
+// ---------------------------------------------------------------------------
+
+// Each step: f0's NI + 2 phases (its first layer on y, its inner layers,
+// its output with the stages and H0_1), then f1's (its first layer on
+// H0_1, its inner layers, its output with the update of y).
+template <bool GW>
+__global__ void __launch_bounds__(ET)
+srk_fwd_kernel(SdeDims d, SdePlan pp, SrkArgs A) {
+  extern __shared__ float4 smem4[];
+  float* s = reinterpret_cast<float*>(smem4);
+  const SdePlan p = placed<GW>(pp);
+  const SdeGeo g = sde_geo(d, p);
+  const SrkLayout L = srk_layout(d, p, 0);
+  zero_smem(s, L.total);
   __syncthreads();
+  const Cta c = make_cta(d, p, g);
+  const Wts w = load_wts(d, p, g, c, L.w, s, A.wy, A.wi, A.bi, A.wo, A.bo);
+  const int H = d.H, HH = d.HH, NI = d.NI, sH = g.sH, sHH = g.sHH;
+  const int U = g.U, UH = g.UH, R4 = g.R4, nr = c.nr, row0 = c.row0;
+  const int h0 = c.h0, u0 = c.u0, cs = c.cs, nh = c.nh, nu = c.nu;
+  const int htile = R4 * sHH, xtile = R4 * UH, wtile = R4 * U;
+  float* y = s + L.y;
+  float* h01 = s + L.h01;
+  float* h = s + L.h;
+  float* f0t = s + L.f0;
+  float* snt = s + L.sn;
+  const Grp all{0, ET};
+  for (int i = threadIdx.x; i < nr * H; i += ET)
+    y[(i / H) * sH + i % H] = A.y0[(size_t)row0 * H + i];
+  if (d.M > 0) prefetch_step<false>(A, d, g, c, L, s, 0, 0);
+  cp_async_commit();
+  cp_async_wait_all();
+  // every CTA of the cluster is zeroed before a peer pushes into it
+  cluster_or_block_sync(cs);
+  const float sth = sigmoid(A.theta[0]);
+  const bool mult_y = d.mult_y, geometric = d.geometric;
 
   for (int u = 0; u < d.M; ++u) {
-    const Step k = step_of(dts[u]);
-    const size_t off = u * BH + (size_t)row0 * H;
-    const size_t offh = u * BHH + (size_t)row0 * HH;
-    const size_t uh = (size_t)u * H;
-
-    // f0 = f(t, y) and the four diffusion stages
-    mlp_hidden(d, w, sy, a0 + (size_t)u * HH, xh0 + offh, hl, nr);
-    for (int i = threadIdx.x; i < nr * H; i += THREADS) {
-      const int r = i / H, j = i % H, s = r * sH + j;
-      const float y = sy[s];
-      float z3 = mlp_out(d, w, hlast, r, j);
-      if (d.geometric) z3 *= tanhf(y);
-      const float f0 = tanhf(z3);
-      const float ii = i10[off + i];
-      const Stages st = srk_stages(y, f0, gk0[uh + j], gk1[uh + j],
-                                   gk2[uh + j], ii, sth, k, d.mult_y);
-      float c[4];
-      srk_coeffs(dw[off + i], ii, k, c);
-      s01[s] = st.h01;
-      sf0[s] = f0;
-      sn[s] = c[0] * st.g[0] + c[1] * st.g[1] + c[2] * st.g[2] +
-              c[3] * st.g[3];
+    const int b = u & 1;
+    if (u + 1 < d.M) prefetch_step<false>(A, d, g, c, L, s, b ^ 1, u + 1);
+    cp_async_commit();
+    const Step k = step_of(s[L.dt + 4 * b]);
+    const float* wu = s + L.dw + b * wtile;
+    const float* iu = s + L.i10 + b * wtile;
+    const float* gku = s + L.gk + b * 3 * U;
+#pragma unroll
+    for (int ev = 0; ev < 2; ++ev) {
+      // h_0 = relu(state Wy' + a + xh), own columns, into every CTA
+      const float* X = ev ? h01 : y;
+      const float* au = s + (ev ? L.a1 : L.a0) + b * UH;
+      const float* xu = s + (ev ? L.xh1 : L.xh0) + b * xtile;
+      mm(all, X, sH, H, w.wy, w.lwy, GW, nr, nh,
+         [&](int r, int n, float acc) {
+           push(cs, h, r * sHH + h0 + n,
+                fmaxf(acc + au[n] + xu[r * nh + n], 0.f));
+         });
+      cluster_or_block_sync(cs);
+      for (int l = 0; l < NI; ++l) {
+        const float* hin = h + (l & 1) * htile;
+        float* hout = h + ((l + 1) & 1) * htile;
+        const float* bl = w.bi + l * UH;
+        mm(all, hin, sHH, HH, w.wi + (size_t)l * w.swi, w.lwi, GW, nr, nh,
+           [&](int r, int n, float acc) {
+             push(cs, hout, r * sHH + h0 + n, fmaxf(acc + bl[n], 0.f));
+           });
+        cluster_or_block_sync(cs);
+      }
+      const float* hl = h + (NI & 1) * htile;
+      if (ev == 0) {
+        // f0, own columns; the four diffusion stages; H0_1 into every CTA
+        mm_ep(all, hl, sHH, HH, w.wo, w.lwo, GW, nr, nu,
+              [&](int r, int n, float acc) {
+                const int col = u0 + n, ix = r * U + n;
+                const float yv = y[r * sH + col];
+                float z3 = acc + w.bo[n];
+                if (geometric) z3 *= tanhf(yv);
+                const float f0 = tanhf(z3);
+                const float ii = iu[r * nu + n];
+                const Stages st = srk_stages(yv, f0, gku[n], gku[U + n],
+                                             gku[2 * U + n], ii, sth, k,
+                                             mult_y);
+                float cf[4];
+                srk_coeffs(wu[r * nu + n], ii, k, cf);
+                f0t[ix] = f0;
+                snt[ix] = cf[0] * st.g[0] + cf[1] * st.g[1] +
+                          cf[2] * st.g[2] + cf[3] * st.g[3];
+                push(cs, h01, r * sH + col, st.h01);
+              });
+      } else {
+        // f1, own columns, and the step's update of y there, into every CTA
+        mm_ep(all, hl, sHH, HH, w.wo, w.lwo, GW, nr, nu,
+              [&](int r, int n, float acc) {
+                const int col = u0 + n, ix = r * U + n;
+                float z3 = acc + w.bo[n];
+                if (geometric) z3 *= tanhf(h01[r * sH + col]);
+                const float f1 = tanhf(z3);
+                const float yn = y[r * sH + col] +
+                                 k.dt * (ALPHA0 * f0t[ix] + ALPHA1 * f1) +
+                                 snt[ix];
+                push(cs, y, r * sH + col, yn);
+                A.ys_out[((size_t)u * d.B + row0 + r) * H + col] = yn;
+              });
+        cp_async_wait_all();
+      }
+      cluster_or_block_sync(cs);
     }
-    __syncthreads();
-
-    // f1 = f(t + 3/4 dt, H0_1) and the update
-    mlp_hidden(d, w, s01, a1 + (size_t)u * HH, xh1 + offh, hl, nr);
-    for (int i = threadIdx.x; i < nr * H; i += THREADS) {
-      const int r = i / H, j = i % H, s = r * sH + j;
-      float z3 = mlp_out(d, w, hlast, r, j);
-      if (d.geometric) z3 *= tanhf(s01[s]);
-      const float f1 = tanhf(z3);
-      const float yn =
-          sy[s] + k.dt * (ALPHA0 * sf0[s] + ALPHA1 * f1) + sn[s];
-      sy[s] = yn;  // only this thread reads or writes (r, j) here
-      ys[off + i] = yn;
-    }
-    __syncthreads();
   }
 }
 
-template <bool WIDE>
-__global__ void __launch_bounds__(THREADS)
-bwd_kernel(Dims dp, const float* __restrict__ y0, const float* __restrict__ ys,
-           const float* __restrict__ gys, const float* __restrict__ xh0,
-           const float* __restrict__ xh1, const float* __restrict__ dw,
-           const float* __restrict__ i10, const float* __restrict__ a0,
-           const float* __restrict__ a1, const float* __restrict__ gk0,
-           const float* __restrict__ gk1, const float* __restrict__ gk2,
-           const float* __restrict__ dts, const float* __restrict__ theta,
-           const float* __restrict__ wy, const float* __restrict__ wi,
-           const float* __restrict__ bi, const float* __restrict__ wo,
-           const float* __restrict__ bo, float* __restrict__ dxh0,
-           float* __restrict__ dxh1, float* __restrict__ dy0,
-           float* __restrict__ p_wy, float* __restrict__ p_wi,
-           float* __restrict__ p_bi, float* __restrict__ p_wo,
-           float* __restrict__ p_bo, float* __restrict__ p_a0,
-           float* __restrict__ p_a1, float* __restrict__ p_gk0,
-           float* __restrict__ p_gk1, float* __restrict__ p_gk2,
-           float* __restrict__ p_th) {
-  extern __shared__ float smem[];
-  const Dims d = placed<WIDE>(dp);
-  const int H = d.H, HH = d.HH, NI = d.n_inner, M = d.M;
-  const int sH = odd(H);
-  const Weights w = load_weights(smem, d, wy, wi, bi, wo, bo);
-  const Grads gr = zero_grads(smem + smem_weights(d), d, p_wy, p_wi, p_bi,
-                              p_wo, p_bo);
-  float* sy = smem + smem_weights(d) + smem_grads(d);  // y before the step
-  float* sg = sy + tile_h(d);    // cotangent of y after the step, then before
-  float* sz0 = sg + tile_h(d);   // z3 of f0 before the geometric factor
-  float* s01 = sz0 + tile_h(d);  // H0_1
-  float* sd = s01 + tile_h(d);   // cotangent of z3 (pre-geometric), f1 or f0
-  float* s1 = sd + tile_h(d);    // cotangent of H0_1
-  float* sq0 = s1 + tile_h(d);   // cotangents of the gk0, gk1, gk2 rows
-  float* sq1 = sq0 + tile_h(d);
-  float* sq2 = sq1 + tile_h(d);
-  float* hl0 = sq2 + tile_h(d);            // activations of f0 [NI+1][..]
-  float* hl1 = hl0 + (NI + 1) * tile_hh(d);  // activations of f1
-  float* e0 = hl1 + (NI + 1) * tile_hh(d);   // MLP cotangents, ping-pong
-  float* e1 = e0 + tile_hh(d);
-  float* red = e1 + tile_hh(d);              // [THREADS / 32]
-  const float* hlast0 = hl0 + NI * tile_hh(d);
-  const float* hlast1 = hl1 + NI * tile_hh(d);
+// ---------------------------------------------------------------------------
+// The backward recurrence
+// ---------------------------------------------------------------------------
 
-  const int tid = threadIdx.x;
-  const int row0 = blockIdx.x * d.R;
-  const int nr = min(d.R, d.B - row0);
-  const size_t BH = (size_t)d.B * H, BHH = (size_t)d.B * HH;
-  for (int i = tid; i < (int)tile_h(d); i += THREADS) sg[i] = 0.f;
-  const float sth = sigmoid(theta[0]);
-  float th_acc = 0.f;
+// Iteration u (from M down to 0) runs the chain of step u (u < M) beside
+// the recompute of step u-1 (u >= 1), phase by phase: 2 (NI + 2) phases,
+// one barrier each, then the tail. Phase ph = e (NI + 2) + q: the chain
+// goes back through evaluation 1 - e (f1 first), q = 0 through Wout,
+// 1 <= q <= NI through W_{NI-q}, q = NI + 1 through Wy'; the recompute
+// forms evaluation e (f0 first) of step u-1: h_0 (q = 0), h_q
+// (1 <= q <= NI), z3 (q = NI + 1; for f0 also H0_1). At the start of f0's
+// chain (ph = NI + 2) step u's stages are reversed, elementwise; the tail
+// ends the state's cotangent and forms f1's dz3 of step u-1.
+template <bool GW>
+__global__ void __launch_bounds__(ET)
+srk_bwd_kernel(SdeDims d, SdePlan pp, SrkArgs A) {
+  extern __shared__ float4 smem4[];
+  float* s = reinterpret_cast<float*>(smem4);
+  const SdePlan p = placed<GW>(pp);
+  const SdeGeo g = sde_geo(d, p);
+  const SrkLayout L = srk_layout(d, p, 1);
+  zero_smem(s, L.total);
   __syncthreads();
+  const Cta c = make_cta(d, p, g);
+  const Wts w = load_wts(d, p, g, c, L.w, s, A.wy, A.wi, A.bi, A.wo, A.bo);
+  const int H = d.H, HH = d.HH, NI = d.NI, M = d.M, B = d.B, P = NI + 2;
+  const int sH = g.sH, sHH = g.sHH, sW = g.sW, U = g.U, UH = g.UH;
+  const int R4 = g.R4, nr = c.nr, row0 = c.row0, h0 = c.h0, u0 = c.u0;
+  const int nh = c.nh, nu = c.nu, cs = c.cs, tid = threadIdx.x;
+  const int ytile = R4 * sH, htile = R4 * sHH, xtile = R4 * UH;
+  const int wtile = R4 * U, ptile = R4 * sW;
+  const size_t MB = (size_t)M * B, BH = (size_t)B * H, MBH = MB * H;
+  float* yb = s + L.y;
+  float* h01 = s + L.h01;
+  float* hk = s + L.h;
+  float* e = s + L.e;
+  float* z30 = s + L.z30;
+  float* z31 = s + L.z31;
+  float* dz = s + L.dz;
+  float* dh = s + L.dh;
+  float* gbar = s + L.gbar;
+  float* pd = s + L.pd;
+  // y_t (t >= -1, y_{-1} = y0) lives in slot (t + 3) % 3, step t's streams
+  // in slot t % 3; step t's activations of evaluation ev, layer l, in set
+  // t & 1
+  auto yslot = [&](int t) { return yb + ((t + 3) % 3) * ytile; };
+  auto prefetch_y = [&](int t) {
+    copy_rows_by<BWD_COPY_T0>(
+        yslot(t), sH,
+        (t < 0 ? A.y0 : A.ys + (size_t)t * BH) + (size_t)row0 * H, H, H, nr,
+        BWD_VEC);
+  };
+  auto act = [&](int t, int ev, int l) {
+    return hk + (((t & 1) * 2 + ev) * (NI + 1) + l) * htile;
+  };
+  // the cotangent of layer l's output of evaluation ev at batch row `row`
+  // of a step (l = 0: dz1, the stream dxh)
+  auto put_e = [&](int ev, int l, size_t row, int k, float v) {
+    if (l == 0)
+      A.dxh[((size_t)ev * MB + row) * HH + k] = v;
+    else
+      A.es[(((size_t)(l - 1) * 2 + ev) * MB + row) * HH + k] = v;
+  };
+  if (M > 0) {
+    prefetch_step<true>(A, d, g, c, L, s, (M - 1) % 3, M - 1);
+    prefetch_y(M - 2);
+  }
+  cp_async_commit();
+  cp_async_wait_all();
+  cluster_or_block_sync(cs);
+  const float sth = sigmoid(A.theta[0]);
+  const bool mult_y = d.mult_y, geometric = d.geometric;
+  float th_acc = 0.f;
 
-  for (int u = M - 1; u >= 0; --u) {
-    const Step k = step_of(dts[u]);
-    const float* yprev = (u == 0 ? y0 : ys + (u - 1) * BH) + (size_t)row0 * H;
-    const size_t off = u * BH + (size_t)row0 * H;
-    const size_t offh = u * BHH + (size_t)row0 * HH;
-    const size_t uh = (size_t)u * H;
-    const size_t pa = ((size_t)blockIdx.x * M + u) * HH;
-    const size_t pg = ((size_t)blockIdx.x * M + u) * H;
-    for (int i = tid; i < nr * H; i += THREADS) {
-      const int s = (i / H) * sH + i % H;
-      sy[s] = yprev[i];
-      sg[s] += gys[off + i];
+  for (int u = M; u >= 0; --u) {
+    const bool chain = u < M, rec = u >= 1;
+    if (u >= 2) {
+      prefetch_step<true>(A, d, g, c, L, s, (u - 2) % 3, u - 2);
+      prefetch_y(u - 3);
     }
-    __syncthreads();
+    cp_async_commit();
+    const Grp gc = rec ? Grp{0, CHAIN_THREADS} : Grp{0, ET};
+    const Grp gr = chain ? Grp{CHAIN_THREADS, ET - CHAIN_THREADS}
+                         : Grp{0, ET};
+    const float* yu = yslot(u - 1);  // the state before step u
+    const float* yv = yslot(u - 2);  // the state before step u-1
+    const int su = u % 3, sv = (u + 2) % 3;  // step u's, step u-1's slots
+    const size_t oc = (size_t)u * B + row0;       // step u's first row
+    const size_t ov = (size_t)(u - 1) * B + row0;  // step u-1's
 
-    // recompute f0 and the stages up to H0_1
-    mlp_hidden(d, w, sy, a0 + (size_t)u * HH, xh0 + offh, hl0, nr);
-    for (int i = tid; i < nr * H; i += THREADS) {
-      const int r = i / H, j = i % H, s = r * sH + j;
-      const float y = sy[s];
-      const float z3l = mlp_out(d, w, hlast0, r, j);
-      const float f0 = tanhf(d.geometric ? z3l * tanhf(y) : z3l);
-      const Stages st = srk_stages(y, f0, gk0[uh + j], gk1[uh + j],
-                                   gk2[uh + j], i10[off + i], sth, k,
-                                   d.mult_y);
-      sz0[s] = z3l;
-      s01[s] = st.h01;
-    }
-    __syncthreads();
-
-    // recompute f1, and go back through it (df1 = gbar * 2/3 dt)
-    mlp_hidden(d, w, s01, a1 + (size_t)u * HH, xh1 + offh, hl1, nr);
-    for (int i = tid; i < nr * H; i += THREADS) {
-      const int r = i / H, j = i % H, s = r * sH + j;
-      const float h = s01[s];
-      const float z3l = mlp_out(d, w, hlast1, r, j);
-      const float th = tanhf(h);
-      const float f1 = tanhf(d.geometric ? z3l * th : z3l);
-      const float dz3 = sg[s] * (ALPHA1 * k.dt) * (1.f - f1 * f1);
-      sd[s] = d.geometric ? dz3 * th : dz3;
-      s1[s] = d.geometric ? dz3 * z3l * (1.f - th * th) : 0.f;
-    }
-    __syncthreads();
-    const float* ein1 = mlp_backward(d, w, gr, s01, hl1, sd, e0, e1, nr);
-    spread_dz1(d, w, ein1, p_a1 + pa, dxh1 + offh, s1, nr);
-    __syncthreads();
-
-    // the diffusion stages in reverse (g3, g2, g1, g0), then f0's output
-    for (int i = tid; i < nr * H; i += THREADS) {
-      const int j = i % H, s = (i / H) * sH + j;
-      const float y = sy[s], gb = sg[s], dh01 = s1[s], z3l = sz0[s];
-      const float ty = tanhf(y);
-      const float f0 = tanhf(d.geometric ? z3l * ty : z3l);
-      const float g_0 = gk0[uh + j], g_1 = gk1[uh + j], g_2 = gk2[uh + j];
-      const float ii = i10[off + i];
-      const Stages st = srk_stages(y, f0, g_0, g_1, g_2, ii, sth, k,
-                                   d.mult_y);
-      float c[4];
-      srk_coeffs(dw[off + i], ii, k, c);
-      float df0 = gb * (ALPHA0 * k.dt);
-      float dg[4] = {gb * c[0], gb * c[1], gb * c[2], gb * c[3]};
-      float dy = gb;
-      // stage f1: H0_1 = y + 3/4 dt f0 + 3/2 (I10/dt) g0
-      dy += dh01;
-      df0 += 0.75f * k.dt * dh01;
-      dg[0] += 1.5f * (ii * k.rdt) * dh01;
-      float q0, q1, q2, q3;
-      // stage g3: H1_3 = y + dt/4 f0 + sqrt(dt) (-5 g0 + 3 g1 + g2/2)
-      float ds = noise_bwd(st, 3, dg[3], g_1, sth, d.mult_y, th_acc, q3);
-      dy += ds;
-      df0 += 0.25f * k.dt * ds;
-      dg[0] -= 5.f * k.sq * ds;
-      dg[1] += 3.f * k.sq * ds;
-      dg[2] += 0.5f * k.sq * ds;
-      // stage g2: H1_2 = y + dt f0 - sqrt(dt) g0
-      ds = noise_bwd(st, 2, dg[2], g_2, sth, d.mult_y, th_acc, q2);
-      dy += ds;
-      df0 += k.dt * ds;
-      dg[0] -= k.sq * ds;
-      // stage g1: H1_1 = y + dt/4 f0 + sqrt(dt)/2 g0
-      ds = noise_bwd(st, 1, dg[1], g_1, sth, d.mult_y, th_acc, q1);
-      dy += ds;
-      df0 += 0.25f * k.dt * ds;
-      dg[0] += 0.5f * k.sq * ds;
-      // stage g0 (state y)
-      dy += noise_bwd(st, 0, dg[0], g_0, sth, d.mult_y, th_acc, q0);
-      // f0's output
-      const float dz3 = df0 * (1.f - f0 * f0);
-      float dz3l = dz3;
-      if (d.geometric) {
-        dz3l = dz3 * ty;
-        dy += dz3 * z3l * (1.f - ty * ty);
+    for (int ph = 0; ph < 2 * P; ++ph) {
+      const int ce = ph < P ? 1 : 0, re = 1 - ce, q = ph < P ? ph : ph - P;
+      if (chain && ph > 0 && (q == 0 || cs > 1)) {
+        if (q > 0) {
+          // the chain's previous partial, summed over the cluster in rank
+          // order, through its relu, into the own columns of e
+          const int l = NI + 1 - q;
+          const float* hm = act(u, ce, l);
+          float* eo = e + ((q - 1) & 1) * htile;
+          float* part = pd + (q - 1) * ptile;
+          for (int i = tid; i < nr * nh; i += ET) {
+            const int r = i / nh, k = h0 + i % nh, ix = r * sHH + k;
+            const float v = peer_sum(cs, part, r * sW + k);
+            const float ev = hm[ix] > 0.f ? v : 0.f;
+            eo[ix] = ev;
+            put_e(ce, l, oc + r, k, ev);
+          }
+        } else {
+          // step u's diffusion stages in reverse (g3, g2, g1, g0) given the
+          // state's cotangent and H0_1's, then f0's output
+          const float* wu = s + L.dw + su * wtile;
+          const float* iu = s + L.i10 + su * wtile;
+          const float* gku = s + L.gk + su * 3 * U;
+          const float* zu = z30 + (u & 1) * wtile;
+          const Step k = step_of(s[L.dt + 4 * su]);
+          for (int i = tid; i < nr * nu; i += ET) {
+            const int r = i / nu, n = i % nu, ix = r * U + n, col = u0 + n;
+            float dh01 = dh[ix];
+            if (cs > 1)
+              dh01 += peer_sum(cs, pd + (NI + 1) * ptile, r * sW + col);
+            const float gb = gbar[ix], y = yu[r * sH + col], z3l = zu[ix];
+            const float ty = tanhf(y);
+            const float f0 = tanhf(geometric ? z3l * ty : z3l);
+            const float g_0 = gku[n], g_1 = gku[U + n], g_2 = gku[2 * U + n];
+            const float ii = iu[i];
+            const Stages st =
+                srk_stages(y, f0, g_0, g_1, g_2, ii, sth, k, mult_y);
+            float cf[4];
+            srk_coeffs(wu[i], ii, k, cf);
+            float df0 = gb * (ALPHA0 * k.dt);
+            float dg[4] = {gb * cf[0], gb * cf[1], gb * cf[2], gb * cf[3]};
+            float dy = gb;
+            // stage f1: H0_1 = y + 3/4 dt f0 + 3/2 (I10/dt) g0
+            dy += dh01;
+            df0 += 0.75f * k.dt * dh01;
+            dg[0] += 1.5f * (ii * k.rdt) * dh01;
+            float q0, q1, q2, q3;
+            // stage g3: H1_3 = y + dt/4 f0 + sqrt(dt) (-5 g0 + 3 g1 + g2/2)
+            float ds = noise_bwd(st, 3, dg[3], g_1, sth, mult_y, th_acc, q3);
+            dy += ds;
+            df0 += 0.25f * k.dt * ds;
+            dg[0] -= 5.f * k.sq * ds;
+            dg[1] += 3.f * k.sq * ds;
+            dg[2] += 0.5f * k.sq * ds;
+            // stage g2: H1_2 = y + dt f0 - sqrt(dt) g0
+            ds = noise_bwd(st, 2, dg[2], g_2, sth, mult_y, th_acc, q2);
+            dy += ds;
+            df0 += k.dt * ds;
+            dg[0] -= k.sq * ds;
+            // stage g1: H1_1 = y + dt/4 f0 + sqrt(dt)/2 g0
+            ds = noise_bwd(st, 1, dg[1], g_1, sth, mult_y, th_acc, q1);
+            dy += ds;
+            df0 += 0.25f * k.dt * ds;
+            dg[0] += 0.5f * k.sq * ds;
+            // stage g0 (state y)
+            dy += noise_bwd(st, 0, dg[0], g_0, sth, mult_y, th_acc, q0);
+            // f0's output
+            const float dz3 = df0 * (1.f - f0 * f0);
+            float dz3l = dz3;
+            if (geometric) {
+              dz3l = dz3 * ty;
+              dy += dz3 * z3l * (1.f - ty * ty);
+            }
+            dz[ix] = dz3l;
+            const size_t o = (oc + r) * H + col;
+            A.dz3[o] = dz3l;
+            A.q[o] = q0;
+            A.q[MBH + o] = q3 + q1;
+            A.q[2 * MBH + o] = q2;
+            gbar[ix] = dy;
+          }
+        }
+        __syncthreads();
       }
-      sd[s] = dz3l;
-      sg[s] = dy;
-      sq0[s] = q0;
-      sq1[s] = q3 + q1;
-      sq2[s] = q2;
+      if (chain) {
+        // the chain's product of this phase
+        if (q < NI + 1) {
+          const int l = NI - q;  // the cotangent formed: of h_l's input
+          const float* E = q == 0 ? dz : e + ((q - 1) & 1) * htile + h0;
+          const int lde = q == 0 ? U : sHH, Nc = q == 0 ? nu : nh;
+          const float* W = q == 0 ? w.wo : w.wi + (size_t)l * w.swi;
+          const int ldw = q == 0 ? w.lwo : w.lwi;
+          if (cs == 1) {
+            const float* hm = act(u, ce, l);
+            float* eo = e + (q & 1) * htile;
+            mm_t(gc, E, lde, Nc, W, ldw, GW, nr, HH,
+                 [&](int r, int k, float acc) {
+                   const int ix = r * sHH + k;
+                   const float ev = hm[ix] > 0.f ? acc : 0.f;
+                   eo[ix] = ev;
+                   put_e(ce, l, oc + r, k, ev);
+                 });
+          } else {
+            float* part = pd + q * ptile;
+            mm_t(gc, E, lde, Nc, W, ldw, GW, nr, HH,
+                 [&](int r, int k, float acc) { part[r * sW + k] = acc; });
+          }
+        } else {
+          // dz1 Wy'^T (own columns): f1's into H0_1's cotangent, f0's into
+          // the state's
+          const float* E = e + (NI & 1) * htile + h0;
+          if (cs == 1) {
+            float* to = ce ? dh : gbar;
+            mm_t(gc, E, sHH, nh, w.wy, w.lwy, GW, nr, H,
+                 [&](int r, int k, float acc) { to[r * U + k] += acc; });
+          } else {
+            float* part = pd + (NI + 1) * ptile;
+            mm_t(gc, E, sHH, nh, w.wy, w.lwy, GW, nr, H,
+                 [&](int r, int k, float acc) { part[r * sW + k] = acc; });
+          }
+        }
+      }
+      if (rec) {
+        // the recompute's product of this phase (step u-1, evaluation re)
+        const size_t lay = (size_t)MB * HH;  // one layer of one evaluation
+        if (q == 0) {
+          const float* X = re ? h01 : yv;
+          const float* au = s + (re ? L.a1 : L.a0) + sv * UH;
+          const float* xu = s + (re ? L.xh1 : L.xh0) + sv * xtile;
+          float* ho = act(u - 1, re, 0);
+          float* hso = A.hs + re * lay;
+          mm(gr, X, sH, H, w.wy, w.lwy, GW, nr, nh,
+             [&](int r, int n, float acc) {
+               const float v = fmaxf(acc + au[n] + xu[r * nh + n], 0.f);
+               push(cs, ho, r * sHH + h0 + n, v);
+               hso[(ov + r) * HH + h0 + n] = v;
+             });
+        } else if (q <= NI) {
+          const float* bl = w.bi + (q - 1) * UH;
+          float* ho = act(u - 1, re, q);
+          float* hso = A.hs + ((size_t)q * 2 + re) * lay;
+          mm(gr, act(u - 1, re, q - 1), sHH, HH,
+             w.wi + (size_t)(q - 1) * w.swi, w.lwi, GW, nr, nh,
+             [&](int r, int n, float acc) {
+               const float v = fmaxf(acc + bl[n], 0.f);
+               push(cs, ho, r * sHH + h0 + n, v);
+               hso[(ov + r) * HH + h0 + n] = v;
+             });
+        } else if (re == 0) {
+          // f0's z3, then H0_1 into every CTA
+          const float* iv = s + L.i10 + sv * wtile;
+          const float* gkv = s + L.gk + sv * 3 * U;
+          const Step k = step_of(s[L.dt + 4 * sv]);
+          float* zo = z30 + ((u - 1) & 1) * wtile;
+          mm_ep(gr, act(u - 1, 0, NI), sHH, HH, w.wo, w.lwo, GW, nr, nu,
+                [&](int r, int n, float acc) {
+                  const int col = u0 + n;
+                  const float z3l = acc + w.bo[n];
+                  zo[r * U + n] = z3l;
+                  const float y = yv[r * sH + col];
+                  const float f0 = tanhf(geometric ? z3l * tanhf(y) : z3l);
+                  const float v =
+                      h01_of(y, f0, noise_g(y, gkv[n], sth, mult_y),
+                             iv[r * nu + n], k);
+                  push(cs, h01, r * sH + col, v);
+                  A.h01[(ov + r) * H + col] = v;
+                });
+        } else {
+          mm(gr, act(u - 1, 1, NI), sHH, HH, w.wo, w.lwo, GW, nr, nu,
+             [&](int r, int n, float acc) { z31[r * U + n] = acc + w.bo[n]; });
+        }
+      }
+      cluster_or_block_sync(cs);
     }
-    __syncthreads();
 
-    // the gk rows; back through f0's MLP; then a0', xh0' and y
-    column_sums(d, sq0, p_gk0 + pg, nr);
-    column_sums(d, sq1, p_gk1 + pg, nr);
-    column_sums(d, sq2, p_gk2 + pg, nr);
-    const float* ein0 = mlp_backward(d, w, gr, sy, hl0, sd, e0, e1, nr);
-    spread_dz1(d, w, ein0, p_a0 + pa, dxh0 + offh, sg, nr);
+    // the state's cotangent (CS > 1: f0's last partial summed), then step
+    // u-1's f1 output: back through f1 = tanh(z3 (* tanh(H0_1)))
+    const float* gyv = s + L.gy + sv * wtile;
+    const float dtv = rec ? s[L.dt + 4 * sv] : 0.f;
+    for (int i = tid; i < nr * nu; i += ET) {
+      const int r = i / nu, n = i % nu, ix = r * U + n, col = u0 + n;
+      float gv = gbar[ix];
+      if (cs > 1 && chain)
+        gv += peer_sum(cs, pd + (NI + 1) * ptile, r * sW + col);
+      if (rec) {
+        gv += gyv[i];
+        const float z3l = z31[ix], th = tanhf(h01[r * sH + col]);
+        const float f1 = tanhf(geometric ? z3l * th : z3l);
+        const float dz3 = gv * (ALPHA1 * dtv) * (1.f - f1 * f1);
+        const float dz3l = geometric ? dz3 * th : dz3;
+        dz[ix] = dz3l;
+        dh[ix] = geometric ? dz3 * z3l * (1.f - th * th) : 0.f;
+        A.dz3[MBH + (ov + r) * H + col] = dz3l;
+      }
+      gbar[ix] = gv;
+    }
+    cp_async_wait_all();
     __syncthreads();
   }
 
-  for (int i = tid; i < nr * H; i += THREADS)
-    dy0[(size_t)row0 * H + i] = sg[(i / H) * sH + i % H];
-  store_grads(d, gr, p_wy, p_wi, p_bi, p_wo, p_bo);
-  // d theta: per-thread sums, one per block, through sigmoid'
-  const float s = block_sum(th_acc, red);
-  if (tid == 0) p_th[blockIdx.x] = s * sth * (1.f - sth);
+  for (int i = tid; i < nr * nu; i += ET) {
+    const int r = i / nu, n = i % nu;
+    A.dy0[(size_t)(row0 + r) * H + u0 + n] = gbar[r * U + n];
+  }
+  // d theta: the CTA's sum through sigmoid'
+  const float t = cta_sum(th_acc, s + L.red);
+  if (tid == 0) A.p_th[blockIdx.x] = t * sth * (1.f - sth);
+  // no CTA leaves while a peer may still read its shared memory
+  cluster_or_block_sync(cs);
+}
+
+// ---------------------------------------------------------------------------
+// The host plan and the launches
+// ---------------------------------------------------------------------------
+
+// cudaOccupancyMaxActiveClusters of plan q's kernel (0 when it cannot be
+// scheduled)
+inline int plan_active(const SdePlan& q, int backward) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  int n = 0, e;
+  if (backward)
+    e = cluster_config(q.level ? srk_bwd_kernel<true> : srk_bwd_kernel<false>,
+                       q.cs, 0, q.bytes, 0, cfg, attr, &n);
+  else
+    e = cluster_config(q.level ? srk_fwd_kernel<true> : srk_fwd_kernel<false>,
+                       q.cs, 0, q.bytes, 0, cfg, attr, &n);
+  return e ? 0 : n;
+}
+
+// The plan of a launch (sde_plan): a step is two MLP evaluations, their
+// 2 (NI + 2) phases (and, in the backward, the stages' and the tail's), a
+// cluster barrier each.
+inline SdePlan srk_plan(const SdeDims& d, int backward) {
+  const int P = d.NI + 2;
+  return sde_plan(
+      d, backward, StepShape{2, 2 * P + 2 * backward, 2 * P},
+      [&](const SdePlan& q) { return srk_layout(d, q, backward).total; },
+      [&](const SdePlan& q) { return plan_active(q, backward); });
+}
+
+// One launch (or, without `go`, its plan's check); the main paths' level 0
+// runs its own instance (the weight slices in shared memory, a
+// compile-time fact)
+int run(const SdeDims& d, const SrkArgs& A, int backward, cudaStream_t s,
+        int* active, bool go) {
+  if (!sde_valid(d)) return (int)cudaErrorInvalidValue;
+  const SdePlan p = srk_plan(d, backward);
+  if (p.bytes > (long long)max_optin_smem())
+    return (int)cudaErrorInvalidValue;
+  auto k = backward ? (p.level ? srk_bwd_kernel<true> : srk_bwd_kernel<false>)
+                    : (p.level ? srk_fwd_kernel<true> : srk_fwd_kernel<false>);
+  return launch_clusters(k, p.cs, sde_ctas(d, p), p.bytes, s, active, go, d, p,
+                         A);
+}
+
+// The weight gradient over K = 2 M B rows, both evaluations: Wy' over the
+// states each first layer read (y0, ys, then H0_1) and dz1 (dxh0 then
+// dxh1), each W_l and Wout over the activations and cotangents; the
+// per-step column sums of dz1 (da0, da1) and of the gk rows' cotangents
+// (dgk0, dgk1, dgk2).
+int run_wgrad(const SdeDims& d, const float* y0, const float* ys,
+              const float* h01, const float* dxh, const float* hs,
+              const float* es, const float* dz3, const float* q, float* p,
+              float* da, float* dgk, cudaStream_t s) {
+  if (!sde_valid(d)) return (int)cudaErrorInvalidValue;
+  const long long MB = (long long)d.M * d.B, K = 2 * MB;
+  const WgPlan wp = wg_plan(d, K);
+  std::vector<WgJob> jobs;
+  wg_jobs(d, wp, K, y0, ys, h01, d.B, (int)MB, dxh, hs, es, dz3, p, jobs);
+  const WgSum sums[2] = {WgSum{dxh, da, d.HH, 2 * d.M},
+                         WgSum{q, dgk, d.H, 3 * d.M}};
+  return run_wgrad_jobs(jobs, sums, 2, K, d.B, wp, s);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory a launch needs, in bytes, at its placement (above
-// the device's limit when even one row a block with everything else in
-// device memory does not fit).
-long long fused_srk_smem_bytes(int H, int HH, int n_inner, int backward) {
-  Dims d{0, 0, H, HH, n_inner, 0, 0};
-  return (long long)plan(d, backward);
+// Dynamic shared memory of one CTA of a launch, in bytes, at its plan
+// (above the device's limit when no plan fits).
+long long fused_srk_smem_bytes(int B, int H, int HH, int n_inner,
+                               int backward) {
+  return srk_plan(SdeDims{1, B, H, HH, n_inner, 0, 0}, backward).bytes;
 }
 
-// One field of a launch's plan: 0 the placement (sde_common.cuh), 1 batch
-// rows a block (the leading dimension of the backward's partials is
-// ceil(B / rows)).
-int fused_srk_plan(int H, int HH, int n_inner, int backward, int field) {
-  Dims d{0, 0, H, HH, n_inner, 0, 0};
-  plan(d, backward);
-  return field == 0 ? d.level : d.R;
+// One field of a launch's plan: 0 the level, 1 batch rows a cluster, 2
+// CTAs a cluster, 3 cudaOccupancyMaxActiveClusters (minus the CUDA error
+// when the plan cannot be scheduled), 4 shared bytes a CTA.
+int fused_srk_plan(int B, int H, int HH, int n_inner, int backward,
+                   int field) {
+  const SdeDims d{1, B, H, HH, n_inner, 0, 0};
+  const SdePlan p = srk_plan(d, backward);
+  switch (field) {
+    case 0: return p.level;
+    case 1: return p.R;
+    case 2: return p.cs;
+    case 4: return (int)p.bytes;
+  }
+  int active = 0;
+  const int err = run(d, SrkArgs{}, backward, 0, &active, false);
+  return err ? -err : active;
 }
 
-// Make later launches take placement `first` or a later one (0: the
-// host's own choice). For tests of each placement.
-int fused_srk_force_placement(int first) {
-  if (first < 0 || first >= PLACEMENTS) return (int)cudaErrorInvalidValue;
-  g_first_placement = first;
-  return 0;
+// The splits of the weight gradient's K = 2 M B at (M, B, H, HH, n_inner).
+int fused_srk_wgrad_splits(int M, int B, int H, int HH, int n_inner) {
+  return wg_plan(SdeDims{M, B, H, HH, n_inner, 0, 0}, 2LL * M * B).S;
 }
 
-// The most dynamic shared memory one block may opt in to on this device.
+// Make later launches take level `first` or a later one (0: the host's
+// own choice). For tests of each level.
+int fused_srk_force_placement(int first) { return force_level(first); }
+
+// Make later launches take clusters of cs CTAs and `rows` batch rows a
+// cluster, a power of 2 up to 32 (0: the host's own choice of each). For
+// tests of each plan.
+int fused_srk_force_plan(int cs, int rows) { return force_plan(cs, rows); }
+
 int fused_srk_max_smem() { return max_optin_smem(); }
 
 const char* fused_srk_error_string(int err) {
@@ -430,43 +852,48 @@ int fused_srk_fwd(const float* y0, const float* xh0, const float* xh1,
                   const float* wo, const float* bo, float* ys, int M, int B,
                   int H, int HH, int n_inner, int mult_y, int geometric,
                   void* stream) {
-  Dims d{M, B, H, HH, n_inner, mult_y, geometric};
-  const int smem = (int)plan(d, 0);
-  // the main paths' placement runs its own instance (sde_common.cuh: placed)
-  auto k = d.level == 0 ? fwd_kernel<false> : fwd_kernel<true>;
-  cudaError_t err = cudaFuncSetAttribute(
-      k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  k<<<(B + d.R - 1) / d.R, THREADS, smem, (cudaStream_t)stream>>>(
-      d, y0, xh0, xh1, dw, i10, a0, a1, gk0, gk1, gk2, dts, theta, wy, wi, bi,
-      wo, bo, ys);
-  return (int)cudaGetLastError();
+  const SrkArgs A{y0,  nullptr, nullptr, xh0, xh1, dw, i10, a0, a1,
+                  gk0, gk1,     gk2,     dts, theta, wy, wi, bi, wo,
+                  bo,  ys};
+  return run(SdeDims{M, B, H, HH, n_inner, mult_y, geometric}, A, 0,
+             (cudaStream_t)stream, nullptr, true);
 }
 
+// The reverse recurrence: dy0, the per-CTA partials of d theta ([ctas]),
+// and the streams of the weight gradient: dxh [2][M][B][HH] (dz1 of f0,
+// then f1: the cotangents of xh0 and xh1), hs [NI+1][2][M][B][HH] (h_0..
+// h_NI of both evaluations), es [NI][2][M][B][HH] (the cotangents of
+// h_1..h_NI's inputs), dz3 [2][M][B][H], q [3][M][B][H] (the gk0, gk1 and
+// gk2 rows' cotangents by row) and h01 [M][B][H] (H0_1, f1's state).
 int fused_srk_bwd(const float* y0, const float* ys, const float* gys,
                   const float* xh0, const float* xh1, const float* dw,
                   const float* i10, const float* a0, const float* a1,
                   const float* gk0, const float* gk1, const float* gk2,
                   const float* dts, const float* theta, const float* wy,
                   const float* wi, const float* bi, const float* wo,
-                  const float* bo, float* dxh0, float* dxh1, float* dy0,
-                  float* p_wy, float* p_wi, float* p_bi, float* p_wo,
-                  float* p_bo, float* p_a0, float* p_a1, float* p_gk0,
-                  float* p_gk1, float* p_gk2, float* p_th, int M, int B,
-                  int H, int HH, int n_inner, int mult_y, int geometric,
-                  void* stream) {
-  Dims d{M, B, H, HH, n_inner, mult_y, geometric};
-  const int smem = (int)plan(d, 1);
-  // the main paths' placement runs its own instance (sde_common.cuh: placed)
-  auto k = d.level == 0 ? bwd_kernel<false> : bwd_kernel<true>;
-  cudaError_t err = cudaFuncSetAttribute(
-      k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  k<<<(B + d.R - 1) / d.R, THREADS, smem, (cudaStream_t)stream>>>(
-      d, y0, ys, gys, xh0, xh1, dw, i10, a0, a1, gk0, gk1, gk2, dts, theta,
-      wy, wi, bi, wo, bo, dxh0, dxh1, dy0, p_wy, p_wi, p_bi, p_wo, p_bo, p_a0,
-      p_a1, p_gk0, p_gk1, p_gk2, p_th);
-  return (int)cudaGetLastError();
+                  const float* bo, float* dxh, float* dy0, float* hs,
+                  float* es, float* dz3, float* q, float* h01, float* p_th,
+                  int M, int B, int H, int HH, int n_inner, int mult_y,
+                  int geometric, void* stream) {
+  const SrkArgs A{y0,  ys, gys, xh0, xh1, dw, i10, a0, a1,  gk0,
+                  gk1, gk2, dts, theta, wy, wi, bi, wo, bo, nullptr,
+                  dxh, dy0, hs,  es,  dz3, q,  h01, p_th};
+  return run(SdeDims{M, B, H, HH, n_inner, mult_y, geometric}, A, 1,
+             (cudaStream_t)stream, nullptr, true);
+}
+
+// The weight gradient from the recurrence's streams: the split partials
+// p (Wy' [S][H+1][HH], each W_l [S][HH+1][HH], Wout [S][HH+1][H] one after
+// another; the last row of each the bias sum, zero for Wy'), and the
+// per-step column sums da [2][M][HH] of dxh and dgk [3][M][H] of q.
+int fused_srk_wgrad(const float* y0, const float* ys, const float* h01,
+                    const float* dxh, const float* hs, const float* es,
+                    const float* dz3, const float* q, float* p, float* da,
+                    float* dgk, int M, int B, int H, int HH, int n_inner,
+                    int mult_y, int geometric, void* stream) {
+  return run_wgrad(SdeDims{M, B, H, HH, n_inner, mult_y, geometric}, y0, ys,
+                   h01, dxh, hs, es, dz3, q, p, da, dgk,
+                   (cudaStream_t)stream);
 }
 
 }  // extern "C"

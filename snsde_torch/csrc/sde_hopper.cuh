@@ -1,8 +1,9 @@
-// Device code of the fused SDE kernels' Hopper design (fused_em.cu; the
-// SRK pair is to move onto it): register-tiled products over a group of a
-// CTA's threads, the exchange of a layer's output row over a thread-block
-// cluster, asynchronous copies, the cluster launch, and the weight-gradient
-// product that runs after a reverse loop.
+// Device code of the fused SDE kernels' Hopper design (fused_em.cu,
+// fused_srk.cu): register-tiled products over a group of a CTA's threads,
+// the exchange of a layer's output row over a thread-block cluster,
+// asynchronous copies, a cluster's place in the batch and its slices of
+// the drift MLP's weights, the cluster launch and the host plan that sizes
+// it, and the weight-gradient product that runs after a reverse loop.
 //
 // Everything here has internal linkage: each source that includes it
 // builds into its own library.
@@ -15,9 +16,12 @@
 #include <stddef.h>
 
 #include <algorithm>
+#include <climits>
+#include <cmath>
 #include <map>
 #include <mutex>
 #include <tuple>
+#include <vector>
 
 namespace {
 
@@ -322,6 +326,170 @@ __device__ __forceinline__ float cta_sum(float v, float* red) {
 }
 
 // ---------------------------------------------------------------------------
+// An SDE pair's cluster: its rows, its columns, its slices of the weights
+// ---------------------------------------------------------------------------
+
+// The drift MLP of a DiffusionField in drift mode 'embm' (input_option
+// 2/4/6), the y-independent parts precomputed outside the kernels:
+//   z1 = s Wy' + a' + xh';  h_0 = relu(z1);  h_{l+1} = relu(h_l W_l + b_l)
+//   z3 = h_NI Wout + bo  (* tanh(s) when geometric);  f = tanh(z3)
+// (weights in [in, out] layout), with a diffusion tanh(sigmoid(theta) gk
+// (* s when mult_y)) of a t-only magnitude gk.
+struct SdeDims {
+  int M, B, H, HH, NI, mult_y, geometric;
+};
+
+// level 0: the weight slices in shared memory; 1: read from device memory
+constexpr int SDE_LEVELS = 2;
+// threads of a backward's chain group when the recompute runs beside it
+// (on an H100 at the EM pair's sepsis shape 128 beat 256 and 64)
+constexpr int CHAIN_THREADS = 128;
+
+struct SdePlan {
+  int level, cs, R;
+  long long bytes;
+};
+
+// The widths a CTA's tiles and slices take: own columns U of the H-wide
+// layers and UH of the HH-wide ones (multiples of 4), their float4-read
+// strides, the strides of a full row, R rounded up to 4
+struct SdeGeo {
+  int U, UH, lU, lUH, sH, sHH, sW, R4, H4, HH4;
+};
+
+__host__ __device__ inline SdeGeo sde_geo(const SdeDims& d, const SdePlan& p) {
+  SdeGeo g;
+  g.U = round4((d.H + p.cs - 1) / p.cs);
+  g.UH = round4((d.HH + p.cs - 1) / p.cs);
+  g.lU = ld4(g.U);
+  g.lUH = ld4(g.UH);
+  g.sH = ld4(d.H);
+  g.sHH = ld4(d.HH);
+  g.sW = g.sH > g.sHH ? g.sH : g.sHH;
+  g.R4 = round4(p.R);
+  g.H4 = round4(d.H);
+  g.HH4 = round4(d.HH);
+  return g;
+}
+
+// offsets in floats of a CTA's shared-memory layout, handed out in order,
+// each a multiple of 4 floats
+struct Take {
+  long long at = 0;
+  __host__ __device__ long long operator()(long long n) {
+    const long long o = at;
+    at += (n + 3) & ~3LL;
+    return o;
+  }
+};
+
+// Where the weights sit in shared memory (-1: not there). Weight slices
+// (level 0): Wy' [H4][lUH], W_l [NI][HH4][lUH], Wout [HH4][lU]; the bias
+// slices b_l [NI][UH] and bo [U] at every level.
+struct WtsAt {
+  long long wy, wi, bi, wo, bo;
+};
+
+__host__ __device__ inline WtsAt take_wts(Take& take, const SdeDims& d,
+                                          const SdePlan& p, const SdeGeo& g) {
+  WtsAt w;
+  w.wy = w.wi = w.wo = -1;
+  if (p.level == 0) {
+    w.wy = take((long long)g.H4 * g.lUH);
+    w.wi = take((long long)d.NI * g.HH4 * g.lUH);
+    w.wo = take((long long)g.HH4 * g.lU);
+  }
+  w.bi = take((long long)d.NI * g.UH);
+  w.bo = take(g.U);
+  return w;
+}
+
+// The CTA's place: its cluster's rows and its own columns
+struct Cta {
+  int cs, rank, row0, nr, u0, nu, h0, nh;
+};
+
+__device__ __forceinline__ Cta make_cta(const SdeDims& d, const SdePlan& p,
+                                        const SdeGeo& g) {
+  Cta c;
+  c.cs = p.cs;
+  c.rank = p.cs == 1 ? 0 : (int)cg::this_cluster().block_rank();
+  c.row0 = (int)(blockIdx.x / p.cs) * p.R;
+  c.nr = min(p.R, d.B - c.row0);
+  c.u0 = min(c.rank * g.U, d.H);
+  c.nu = min(g.U, d.H - c.u0);
+  c.h0 = min(c.rank * g.UH, d.HH);
+  c.nh = min(g.UH, d.HH - c.h0);
+  return c;
+}
+
+// The weights as the products read them: the CTA's column slices in
+// shared memory (level 0: rows and columns past the weights' own are zero,
+// shared memory being zeroed first), or the tensors in device memory at
+// their own strides from the slice's first column; the bias slices in
+// shared memory.
+struct Wts {
+  const float *wy, *wi, *wo, *bi, *bo;
+  int lwy, lwi, swi, lwo;
+};
+
+__device__ __forceinline__ Wts load_wts(const SdeDims& d, const SdePlan& p,
+                                        const SdeGeo& g, const Cta& c,
+                                        const WtsAt& at, float* s,
+                                        const float* __restrict__ wy,
+                                        const float* __restrict__ wi,
+                                        const float* __restrict__ bi,
+                                        const float* __restrict__ wo,
+                                        const float* __restrict__ bo) {
+  const int H = d.H, HH = d.HH, NI = d.NI, nh = c.nh, nu = c.nu;
+  Wts w;
+  float* sbi = s + at.bi;
+  float* sbo = s + at.bo;
+  for (int i = threadIdx.x; i < NI * nh; i += ET)
+    sbi[(i / nh) * g.UH + i % nh] = bi[(i / nh) * HH + c.h0 + i % nh];
+  for (int i = threadIdx.x; i < nu; i += ET) sbo[i] = bo[c.u0 + i];
+  w.bi = sbi;
+  w.bo = sbo;
+  if (p.level == 0) {
+    float* swy = s + at.wy;
+    float* swi = s + at.wi;
+    float* swo = s + at.wo;
+    for (int i = threadIdx.x; i < H * nh; i += ET)
+      swy[(i / nh) * g.lUH + i % nh] =
+          wy[(size_t)(i / nh) * HH + c.h0 + i % nh];
+    for (int i = threadIdx.x; i < NI * HH * nh; i += ET) {
+      const int l = i / (HH * nh), k = (i / nh) % HH, n = i % nh;
+      swi[((size_t)l * g.HH4 + k) * g.lUH + n] =
+          wi[((size_t)l * HH + k) * HH + c.h0 + n];
+    }
+    for (int i = threadIdx.x; i < HH * nu; i += ET)
+      swo[(i / nu) * g.lU + i % nu] = wo[(size_t)(i / nu) * H + c.u0 + i % nu];
+    w.wy = swy;
+    w.wi = swi;
+    w.wo = swo;
+    w.lwy = w.lwi = g.lUH;
+    w.swi = g.HH4 * g.lUH;
+    w.lwo = g.lU;
+  } else {
+    w.wy = wy + c.h0;
+    w.wi = wi + c.h0;
+    w.wo = wo + c.u0;
+    w.lwy = w.lwi = HH;
+    w.swi = HH * HH;
+    w.lwo = H;
+  }
+  return w;
+}
+
+// the main paths' instance (GW false) reads the weight slices from shared
+// memory, a compile-time fact
+template <bool GW>
+__device__ __forceinline__ SdePlan placed(SdePlan p) {
+  if (!GW) p.level = 0;
+  return p;
+}
+
+// ---------------------------------------------------------------------------
 // The host side: device limits and cluster launches
 // ---------------------------------------------------------------------------
 
@@ -408,26 +576,143 @@ int launch_clusters(void (*k)(Exp...), int cs, int ctas, long long bytes,
 }
 
 // ---------------------------------------------------------------------------
+// The host plan of an SDE pair's launch
+// ---------------------------------------------------------------------------
+
+// the lowest level, and a forced cluster size and row count, the host may
+// take (the library's force_placement and force_plan entries; 0: its own)
+int g_first_level = 0;
+int g_force_cs = 0;
+int g_force_rows = 0;
+
+// What one step of a launch takes in a CTA: drift MLP evaluations,
+// phases (each ended by a barrier) and cluster barriers
+struct StepShape {
+  int evals, phases, syncs;
+};
+
+// The plan of a launch: among every level from g_first_level on, CS in
+// {1, 2, 4, 8} (at most max(H, HH)) and R in {1, ..., 32} rows a cluster
+// whose CTA fits the device's shared memory (bytes(q): its dynamic bytes)
+// and whose cluster can be scheduled (active(q):
+// cudaOccupancyMaxActiveClusters, 0 when it cannot), the one of least
+// estimated time: waves of clusters (the clusters over the active ones) x
+// the CTAs a full wave puts on an SM, where more than one (they share its
+// issue slots: on an H100 at the SRK pair's MuJoCo shape one CTA of 8 rows
+// an SM beat two of 4) x a step's cycles in a CTA (R x the FMAs of one
+// row's MLP evaluations / CS at 64 a cycle, twice in a backward, whose
+// recompute runs beside the chain; 300 a phase; 900 a cluster barrier and,
+// in a backward, 300 more a barrier for the partials' sum), x 2.5 at level
+// 1 (device memory serving the weights: the factor PR 7's CDE plan
+// measured). Ties go to fewer
+// waves, the lower level, the smaller CS, fewer rows. A pure function of
+// the shapes (and of what a test forces), kept per device. When nothing
+// fits, the last plan tried, its bytes above the limit (the launch is
+// refused).
+template <class Bytes, class Active>
+SdePlan sde_plan(const SdeDims& d, int backward, StepShape st, Bytes bytes,
+                 Active active) {
+  static std::mutex mu;
+  static std::map<std::tuple<int, int, int, int, int, int, int, int, int>,
+                  SdePlan>
+      seen;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  const auto key = std::make_tuple(dev, d.B, d.H, d.HH, d.NI, backward,
+                                   g_first_level, g_force_cs, g_force_rows);
+  std::lock_guard<std::mutex> lock(mu);
+  const auto it = seen.find(key);
+  if (it != seen.end()) return it->second;
+  const long long limit = (long long)max_optin_smem();
+  const double sms = std::max(sm_count(), 1);
+  SdePlan last{}, best{};
+  last.bytes = limit + 1;
+  double best_cost = -1.0;
+  long long best_rank = 0;
+  const double row = (double)d.H * d.HH + (double)d.NI * d.HH * d.HH +
+                     (double)d.HH * d.H;
+  for (int level = g_first_level; level < SDE_LEVELS; ++level)
+    for (int cs = 1; cs <= 8; cs *= 2) {
+      if (g_force_cs ? cs != g_force_cs
+                     : (cs > 1 && cs > (d.H > d.HH ? d.H : d.HH)))
+        continue;
+      for (int R = 1; R <= 32; R *= 2) {
+        if (g_force_rows && R != g_force_rows) continue;
+        SdePlan q{level, cs, R, 0};
+        q.bytes = (long long)sizeof(float) * bytes(q);
+        const int n = q.bytes > limit ? 0 : active(q);
+        if (n < 1) {
+          last = q;
+          continue;
+        }
+        const double clusters = (double)((d.B + R - 1) / R);
+        const double waves = std::ceil(clusters / n);
+        const double share =
+            std::max(1.0, std::min(clusters, (double)n) * cs / sms);
+        const double step =
+            R * row * st.evals / cs / 64.0 * (1 + backward) +
+            300.0 * st.phases +
+            (cs > 1 ? (900.0 + 300.0 * backward) * st.syncs : 0.0);
+        const double cost = waves * share * step * (level > 0 ? 2.5 : 1.0);
+        const long long rank =
+            (((long long)waves * SDE_LEVELS + level) * 16 + cs) * 64 + R;
+        if (best_cost < 0 || cost < best_cost * (1 - 1e-9) ||
+            (cost <= best_cost * (1 + 1e-9) && rank < best_rank)) {
+          best_cost = cost;
+          best_rank = rank;
+          best = q;
+        }
+      }
+    }
+  return seen[key] = best_cost < 0 ? last : best;
+}
+
+inline bool sde_valid(const SdeDims& d) {
+  return d.M >= 0 && d.B > 0 && d.H > 0 && d.HH > 0 && d.NI >= 0;
+}
+
+inline int sde_ctas(const SdeDims& d, const SdePlan& p) {
+  return ((d.B + p.R - 1) / p.R) * p.cs;
+}
+
+// a level the host may start from, and a plan a test may force
+inline int force_level(int first) {
+  if (first < 0 || first >= SDE_LEVELS) return (int)cudaErrorInvalidValue;
+  g_first_level = first;
+  return 0;
+}
+
+inline int force_plan(int cs, int rows) {
+  if ((cs != 0 && cs != 1 && cs != 2 && cs != 4 && cs != 8) || rows < 0 ||
+      rows > 32 || (rows & (rows - 1)))
+    return (int)cudaErrorInvalidValue;
+  g_force_cs = cs;
+  g_force_rows = rows;
+  return 0;
+}
+
+// ---------------------------------------------------------------------------
 // The weight-gradient product after a reverse loop
 // ---------------------------------------------------------------------------
 
 // One product of the weight gradient: p[z][m][c] = sum over the split z's
 // n of x(n)[m] e[n][c] for m < rows, c < N, and, with bias, p[z][rows][c]
 // = the split's sum of e[n][c] (else that row is 0). x(n) is x0 + n rows
-// for n < nb0 and x + (n - nb0) rows after (each row `rows` floats); e
-// rows N floats. p holds S splits of (rows + 1) x N.
+// for n < nb0, x + (n - nb0) rows for n < nb1 and x2 + (n - nb1) rows
+// after (each row `rows` floats); e rows N floats. p holds S splits of
+// (rows + 1) x N.
 struct WgJob {
-  const float *x0, *x, *e;
+  const float *x0, *x, *x2, *e;
   float* p;
-  int rows, N, nb0, bias;
+  int rows, N, nb0, nb1, bias;
 };
 
-// Column sums of a stream [M][B][N] by step: out[u][c] = sum_b s[u][b][c]
-// (summed in a fixed order).
+// Column sums of a stream [steps][B][N] by step: out[u][c] = sum_b
+// s[u][b][c] (summed in a fixed order).
 struct WgSum {
   const float* s;
   float* out;
-  int N;
+  int N, steps;
 };
 
 constexpr int WG_MAX_JOBS = 8, WG_MAX_SUMS = 2;
@@ -438,7 +723,7 @@ constexpr int WG_MIN_K = 8 * WG_BK;
 struct WgArgs {
   WgJob job[WG_MAX_JOBS];
   WgSum sum[WG_MAX_SUMS];
-  int njobs, nsums, K, M, B, kper;
+  int njobs, nsums, K, B, kper;
   int tiles[WG_MAX_JOBS + 1];  // prefix sums of the jobs' output tiles
 };
 
@@ -462,7 +747,8 @@ __global__ void __launch_bounds__(WG_THREADS) wgrad_kernel(WgArgs A) {
   const int b = blockIdx.x;
   if (b >= A.tiles[A.njobs]) {  // a column sum: one step of one stream
     if (blockIdx.y != 0) return;
-    const int q = b - A.tiles[A.njobs], si = q / A.M, u = q - si * A.M;
+    int si = 0, u = b - A.tiles[A.njobs];
+    while (si < A.nsums && u >= A.sum[si].steps) u -= A.sum[si++].steps;
     if (si >= A.nsums) return;
     const WgSum S = A.sum[si];
     float* red = &xs[0][0][0];  // [4][64]
@@ -492,11 +778,12 @@ __global__ void __launch_bounds__(WG_THREADS) wgrad_kernel(WgArgs A) {
   const int tc = tid % 16, tm = tid / 16;
   const int n0 = blockIdx.y * A.kper, n1 = min(A.K, n0 + A.kper);
   const bool xvec = (rows & 3) == 0 && aligned16(J.x) &&
-                    (!J.x0 || aligned16(J.x0));
+                    (!J.x0 || aligned16(J.x0)) && (!J.x2 || aligned16(J.x2));
   const bool yvec = (N & 3) == 0 && aligned16(J.e);
   auto xrow = [&](int n) -> const float* {
-    return n < J.nb0 ? J.x0 + (size_t)n * rows
-                     : J.x + (size_t)(n - J.nb0) * rows;
+    return n < J.nb0   ? J.x0 + (size_t)n * rows
+           : n < J.nb1 ? J.x + (size_t)(n - J.nb0) * rows
+                       : J.x2 + (size_t)(n - J.nb1) * rows;
   };
   auto load = [&](int buf, int nb) {
     for (int q = tid; q < WG_BK * BM / 4; q += WG_THREADS) {
@@ -594,12 +881,98 @@ __global__ void __launch_bounds__(WG_THREADS) wgrad_kernel(WgArgs A) {
 // rows of the weight-gradient tile: 128 where the widths fill them
 inline int wg_rows(int H, int HH) { return (H > 64 || HH > 64) ? 128 : 64; }
 
-// Splits of K = M B for products whose output tiles number `tiles`: about
-// two CTAs an SM, each split at least WG_MIN_K rows of K.
+// Splits of K for products whose output tiles number `tiles`: about two
+// CTAs an SM, each split at least WG_MIN_K rows of K.
 inline int wg_splits(long long K, long long tiles) {
   long long s = (2LL * sm_count() + tiles - 1) / (tiles > 0 ? tiles : 1);
   s = std::min(s, K / WG_MIN_K);
   return (int)std::max(s, 1LL);
+}
+
+// The weight-gradient products of an SDE backward over K rows of its
+// streams: the jobs (Wy', each W_l, Wout, in that order), their output
+// tiles and the splits of K
+struct WgPlan {
+  int njobs, S, bm;
+  long long tiles;
+};
+
+inline WgPlan wg_plan(const SdeDims& d, long long K) {
+  WgPlan w;
+  w.njobs = d.NI + 2;
+  w.bm = wg_rows(d.H, d.HH);
+  const long long tm_h = (d.H + w.bm - 1) / w.bm,
+                  tm_hh = (d.HH + w.bm - 1) / w.bm;
+  const long long tc_h = (d.H + WG_BN - 1) / WG_BN,
+                  tc_hh = (d.HH + WG_BN - 1) / WG_BN;
+  w.tiles = tm_h * tc_hh + d.NI * tm_hh * tc_hh + tm_hh * tc_h;
+  w.S = wg_splits(K, w.tiles);
+  return w;
+}
+
+// The jobs of an SDE backward's weight gradient over K rows: Wy' (x: the
+// states the first layer read, x0 / x / x2 split at nb0 and nb1; e: dz1),
+// each W_l (x: hs[l], e: es[l], each stream K rows), Wout (x: hs[NI], e:
+// dz3), their split partials one after another from p (Wy' [S][H+1][HH],
+// each W_l [S][HH+1][HH], Wout [S][HH+1][H]; the last row of each the bias
+// sum, zero for Wy').
+inline void wg_jobs(const SdeDims& d, const WgPlan& wp, long long K,
+                    const float* x0, const float* x, const float* x2, int nb0,
+                    int nb1, const float* dz1, const float* hs,
+                    const float* es, const float* dz3, float* p,
+                    std::vector<WgJob>& jobs) {
+  const size_t KHH = (size_t)K * d.HH;
+  long long off = 0;
+  for (int j = 0; j < wp.njobs; ++j) {
+    WgJob J{};
+    if (j == 0)
+      J = WgJob{x0, x, x2, dz1, nullptr, d.H, d.HH, nb0, nb1, 0};
+    else if (j <= d.NI)
+      J = WgJob{nullptr, hs + (j - 1) * KHH, nullptr, es + (j - 1) * KHH,
+                nullptr, d.HH, d.HH, 0, INT_MAX, 1};
+    else
+      J = WgJob{nullptr, hs + d.NI * KHH, nullptr, dz3, nullptr, d.HH, d.H,
+                0, INT_MAX, 1};
+    J.p = p + off;
+    off += (long long)wp.S * (J.rows + 1) * J.N;
+    jobs.push_back(J);
+  }
+}
+
+// Launch the jobs, in launches of at most WG_MAX_JOBS, with the column sums
+// (at most WG_MAX_SUMS) in the first; B rows a step of the summed streams.
+inline int run_wgrad_jobs(const std::vector<WgJob>& jobs, const WgSum* sums,
+                          int nsums, long long K, int B, const WgPlan& wp,
+                          cudaStream_t s) {
+  const int kper = (int)(((K + wp.S - 1) / wp.S + WG_BK - 1) / WG_BK * WG_BK);
+  for (size_t j0 = 0; j0 < jobs.size(); j0 += WG_MAX_JOBS) {
+    WgArgs A{};
+    A.njobs = (int)std::min<size_t>(WG_MAX_JOBS, jobs.size() - j0);
+    A.K = (int)K;
+    A.B = B;
+    A.kper = kper;
+    A.tiles[0] = 0;
+    for (int j = 0; j < A.njobs; ++j) {
+      A.job[j] = jobs[j0 + j];
+      const long long tm = (A.job[j].rows + wp.bm - 1) / wp.bm;
+      const long long tc = (A.job[j].N + WG_BN - 1) / WG_BN;
+      A.tiles[j + 1] = A.tiles[j] + (int)(tm * tc);
+    }
+    A.nsums = j0 == 0 ? nsums : 0;
+    int steps = 0;
+    for (int i = 0; i < A.nsums; ++i) {
+      A.sum[i] = sums[i];
+      steps += sums[i].steps;
+    }
+    const dim3 grid((unsigned)(A.tiles[A.njobs] + steps), (unsigned)wp.S);
+    if (wp.bm == 128)
+      wgrad_kernel<128><<<grid, WG_THREADS, 0, s>>>(A);
+    else
+      wgrad_kernel<64><<<grid, WG_THREADS, 0, s>>>(A);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
 }
 
 }  // namespace

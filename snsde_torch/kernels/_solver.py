@@ -1,9 +1,10 @@
 """What the fused solver kernel pairs (fused_em.py, fused_srk.py) share on
 the Python side (fused_cde.py and fused_rnn.py use the input checks and the
-library), as csrc/sde_common.cuh holds what they share on the
-device: the modes they take, the input checks, the loaded library with its
-common C interface, and the precomputes outside the kernels (the merged
-drift's weights and rows, the diffusion magnitude gk(t), the stage times).
+library), as csrc/sde_hopper.cuh holds what they share on the device: the
+modes they take, the input checks, the loaded library with its common C
+interface, the sums of the weight gradient's split partials, and the
+precomputes outside the kernels (the merged drift's weights and rows, the
+diffusion magnitude gk(t), the stage times).
 """
 
 from __future__ import annotations
@@ -16,8 +17,9 @@ import torch
 
 __all__ = ["EMB_IO", "PRECOMP_NO", "MULT_Y_NO", "SolverLib",
            "supports_fused", "check_supported", "check_tensors",
-           "kernel_dims", "precomp_gk", "merged_drift_weights",
-           "merged_drift_rows", "stage_times"]
+           "kernel_dims", "wgrad_partial_sizes", "sum_wgrad_partials",
+           "precomp_gk", "merged_drift_weights", "merged_drift_rows",
+           "stage_times"]
 
 EMB_IO = {2, 4, 6}
 PRECOMP_NO = {0, 1, 2, 3, 4, 5, 6, 11, 12, 13, 16, 17}
@@ -153,16 +155,15 @@ class SolverLib:
         return self.kept("plan", *shape, int(backward), 1)
 
     def placement(self, shape, backward: bool) -> int:
-        """The placement of a launch at `shape`: for the SRK pair 0
-        everything in shared memory, 1 the gradient accumulators in device
-        memory, 2 the weights too, 3-5 as 2 with 4, 2, 1 batch rows a block
-        (csrc/sde_common.cuh); for the EM and CDE pairs their plan's level
-        (csrc/fused_em.cu, csrc/fused_cde.cu)."""
+        """The level of a launch's plan at `shape`: for the SDE pairs 0 the
+        weight slices in shared memory, 1 the weights read from device
+        memory (csrc/sde_hopper.cuh: sde_plan); for the CDE pair its plan's
+        level (csrc/fused_cde.cu)."""
         return self.kept("plan", *shape, int(backward), 0)
 
     def force_placement(self, first: int) -> None:
-        """Make later launches take placement `first` or a later one; 0
-        restores the host's own choice. For tests of each placement."""
+        """Make later launches take level `first` of their plan or a later
+        one; 0 restores the host's own choice. For tests of each level."""
         if self.call("force_placement", first) != 0:
             raise ValueError(f"no placement {first}")
         self._kept.clear()
@@ -200,6 +201,31 @@ class SolverLib:
             part = {"fwd": "forward", "bwd": "backward"}.get(which, which)
             raise RuntimeError(f"{self.label} {part} kernel launch failed: "
                                f"{msg}")
+
+
+def wgrad_partial_sizes(S: int, H: int, HH: int, n_inner: int):
+    """Floats of each weight's split partials in an SDE weight-gradient
+    kernel's output, in its order: Wy' [S, H+1, HH], each W_l
+    [S, HH+1, HH], Wout [S, HH+1, H] (the last row of each the bias sum)."""
+    return [S * (H + 1) * HH] + [S * (HH + 1) * HH] * n_inner + [
+        S * (HH + 1) * H]
+
+
+def sum_wgrad_partials(p: torch.Tensor, S: int, H: int, HH: int,
+                       n_inner: int):
+    """The weight gradient from an SDE weight-gradient kernel's split
+    partials p (wgrad_partial_sizes), each weight's S splits summed in a
+    fixed order: (dWy', dW_inner, db_inner, dWout, dbo)."""
+    sizes = wgrad_partial_sizes(S, H, HH, n_inner)
+    parts = [t.reshape(S, -1).sum(0) for t in torch.split(p, sizes)]
+    wy_ = parts[0].reshape(H + 1, HH)
+    inner = [t.reshape(HH + 1, HH) for t in parts[1:-1]]
+    wo_ = parts[-1].reshape(HH + 1, H)
+    dwi = (torch.stack([t[:HH] for t in inner]) if inner
+           else p.new_empty((0, HH, HH)))
+    dbi = (torch.stack([t[HH] for t in inner]) if inner
+           else p.new_empty((0, HH)))
+    return wy_[:H], dwi, dbi, wo_[:HH], wo_[HH]
 
 
 # ---------------------------------------------------------------------------

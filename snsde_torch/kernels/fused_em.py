@@ -51,7 +51,8 @@ from ..ops.solve import make_grid
 from ._solver import (MULT_Y_NO, SolverLib, check_supported,
                       check_tensors, kernel_dims, merged_drift_rows,
                       merged_drift_weights, precomp_gk, stage_times,
-                      supports_fused)
+                      sum_wgrad_partials, supports_fused,
+                      wgrad_partial_sizes)
 
 __all__ = ["fused_em_solve", "fused_em_inputs", "supports_fused", "FusedEM",
            "fused_em_forward", "fused_em_backward",
@@ -351,21 +352,11 @@ def _launch_weight_grads(y0, ys, st: EMStreams, stream) -> EMWeightGrads:
     M, B, HH = st.dxh.shape
     H, n_inner = y0.shape[1], st.es.shape[0]
     S = _LIB.kept("wgrad_splits", M, B, H, HH, n_inner)
-    sizes = ([S * (H + 1) * HH] + [S * (HH + 1) * HH] * n_inner
-             + [S * (HH + 1) * H])
-    p = _empty(sum(sizes), device=y0.device)
+    p = _empty(sum(wgrad_partial_sizes(S, H, HH, n_inner)), device=y0.device)
     da, dgk = _empty(M, HH, device=y0.device), _empty(M, H, device=y0.device)
     _LIB.launch("wgrad", (y0, ys, st.dxh, st.hs, st.es, st.dz3, st.q, p, da,
                           dgk), (M, B, H, HH, n_inner, 0, 0), stream)
-    parts = [t.reshape(S, -1).sum(0) for t in torch.split(p, sizes)]
-    wy_ = parts[0].reshape(H + 1, HH)
-    inner = [t.reshape(HH + 1, HH) for t in parts[1:-1]]
-    wo_ = parts[-1].reshape(HH + 1, H)
-    dwi = (torch.stack([t[:HH] for t in inner]) if inner
-           else _empty(0, HH, HH, device=y0.device))
-    dbi = (torch.stack([t[HH] for t in inner]) if inner
-           else _empty(0, HH, device=y0.device))
-    return EMWeightGrads(wy_[:H], dwi, dbi, wo_[:HH], wo_[HH], da, dgk)
+    return EMWeightGrads(*sum_wgrad_partials(p, S, H, HH, n_inner), da, dgk)
 
 
 def fused_em_forward(y0, xh, dw, a, gk, dts, theta, wy, w_inner, b_inner,

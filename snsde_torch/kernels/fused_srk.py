@@ -23,14 +23,19 @@ diffusion magnitudes gk (gk0 at t, gk1 at t + dt/4, gk2 at t + dt).
 
 What bounds the kernels on the H100: at the MuJoCo shape (B=1024, 49 steps,
 H=HH=32, one inner layer) the forward does ~0.6 GFLOP and moves ~32 MB
-(~10 us at 67 TFLOP/s fp32 or 3.35 TB/s), the backward ~3x the products
-and ~51 MB. Neither is the limit: the work is a chain of 49 dependent steps,
-each two MLP evaluations of [rows x 32] x [32 x 32] products with barriers
-between them, over only 1024 independent rows. The design is the EM
-kernels' (one thread block per 8-row tile runs the whole loop with the
-weights, state, stage states and both evaluations' activations in shared
-memory; exact fp32 FMA; per-block partial gradients summed here in a fixed
-order, so runs are reproducible).
+(~10 us at 67 TFLOP/s fp32 or 3.35 TB/s). Neither is the limit: the work is
+a chain of 49 dependent steps, each two MLP evaluations of
+[rows x 32] x [32 x 32] products with barriers between them, over only 1024
+independent rows. The design is the EM kernels' (csrc/fused_srk.cu on
+csrc/sde_hopper.cuh): a cluster keeps its weight slices, state, stage
+states and activations in shared memory for the whole loop, with
+register-tiled products on 512 threads and the step's streams copied a step
+ahead; the backward runs only the dependent chain in its loop (f1, the
+diffusion stages in reverse, f0), rebuilding each step beside the previous
+step's chain, and writes the streams from which one weight-gradient kernel
+forms the weight, bias and per-step gradients after the loop. Exact fp32 on
+the CUDA cores; every partial summed here in a fixed order, so runs are
+reproducible.
 
 Each kernel has a plain PyTorch version beside it with the same inputs and
 outputs. `fused_srk_forward`/`fused_srk_backward` take the plain versions
@@ -49,16 +54,23 @@ from ..ops.brownian import brownian_increments, space_time_levy_area
 from ..ops.solve import make_grid
 from ._solver import (MULT_Y_NO, SolverLib, check_supported, check_tensors,
                       kernel_dims, merged_drift_rows, merged_drift_weights,
-                      precomp_gk, stage_times, supports_fused)
+                      precomp_gk, stage_times, sum_wgrad_partials,
+                      supports_fused, wgrad_partial_sizes)
 
 __all__ = ["fused_srk_solve", "fused_srk_inputs", "supports_fused_srk",
            "FusedSRK", "fused_srk_forward", "fused_srk_backward",
+           "fused_srk_backward_recurrence", "fused_srk_weight_grads",
            "fused_srk_forward_reference", "fused_srk_backward_reference",
-           "FusedSRKGrads", "check_kernel_inputs"]
+           "fused_srk_backward_recurrence_reference",
+           "fused_srk_weight_grads_reference", "fused_srk_plan",
+           "force_srk_plan", "FusedSRKGrads", "SRKStreams",
+           "SRKWeightGrads", "check_kernel_inputs"]
 
-# launches of each CUDA kernel since the count was last set to 0
+# launches of each CUDA kernel since the count was last set to 0: the
+# forward, the backward recurrence and the weight gradient
 FWD_LAUNCHES = 0
 BWD_LAUNCHES = 0
+WGRAD_LAUNCHES = 0
 
 # the SRIW1 y-update weights (snsde/kernels/fused_srk.py:63-67)
 _ALPHA0, _ALPHA1 = 1.0 / 3.0, 2.0 / 3.0
@@ -73,7 +85,7 @@ supports_fused_srk = supports_fused
 
 
 class FusedSRKGrads(NamedTuple):
-    """Cotangents of the fused SRK solve's inputs (per-block partials
+    """Cotangents of the fused SRK solve's inputs (every partial
     summed)."""
     dy0: torch.Tensor        # [B, H]
     dxh0: torch.Tensor       # [M, B, HH]
@@ -89,6 +101,31 @@ class FusedSRKGrads(NamedTuple):
     db_inner: torch.Tensor   # [n_inner, HH]
     dwout: torch.Tensor      # [HH, H]
     dbo: torch.Tensor        # [H]
+
+
+class SRKStreams(NamedTuple):
+    """What the backward recurrence leaves: the state's and theta's
+    cotangents, and the streams of the weight gradient, evaluation 0 (f0,
+    at t on y) before evaluation 1 (f1, at t + 3/4 dt on H0_1)."""
+    dy0: torch.Tensor        # [B, H]
+    dtheta: torch.Tensor     # [1]
+    dxh: torch.Tensor        # [2, M, B, HH]: dz1 of f0 and f1 (dxh0, dxh1)
+    hs: torch.Tensor         # [n_inner+1, 2, M, B, HH]: h_0..h_NI
+    es: torch.Tensor         # [n_inner, 2, M, B, HH]: of h_1..h_NI's inputs
+    dz3: torch.Tensor        # [2, M, B, H]: of z3 before the geometric factor
+    h01: torch.Tensor        # [M, B, H]: H0_1, the state of f1
+    q: torch.Tensor          # [3, M, B, H]: of the gk0, gk1, gk2 rows, by row
+
+
+class SRKWeightGrads(NamedTuple):
+    """The weight gradient's products over the recurrence's streams."""
+    dwy: torch.Tensor        # [H, HH]
+    dw_inner: torch.Tensor   # [n_inner, HH, HH]
+    db_inner: torch.Tensor   # [n_inner, HH]
+    dwout: torch.Tensor      # [HH, H]
+    dbo: torch.Tensor        # [H]
+    da: torch.Tensor         # [2, M, HH]: da0, da1
+    dgk: torch.Tensor        # [3, M, H]: dgk0, dgk1, dgk2
 
 
 # ---------------------------------------------------------------------------
@@ -171,24 +208,38 @@ def fused_srk_forward_reference(y0, xh0, xh1, dw, i10, a0, a1, gk0, gk1, gk2,
     return torch.stack(ys)
 
 
+def _dz3(df, state, z3l, geometric):
+    """Back through f = tanh(z3l (* tanh(state))) given df: (the state's
+    cotangent, dz3 before the geometric factor)."""
+    f_ty = torch.tanh(state)
+    f = torch.tanh(z3l * f_ty if geometric else z3l)
+    dz3 = df * (1.0 - f * f)
+    if geometric:
+        return dz3 * z3l * (1.0 - f_ty * f_ty), dz3 * f_ty
+    return torch.zeros_like(state), dz3
+
+
+def _mlp_back(dz3l, hs, w_inner, wout):
+    """Back through one evaluation's MLP from dz3: (dz1, the cotangents of
+    h_1..h_NI's inputs)."""
+    dz = (dz3l @ wout.T) * (hs[-1] > 0)
+    es = [None] * w_inner.shape[0]
+    for l in range(w_inner.shape[0] - 1, -1, -1):
+        es[l] = dz
+        dz = (dz @ w_inner[l].T) * (hs[l] > 0)
+    return dz, es
+
+
 def _drift_bwd(df, state, hs, z3l, wy, w_inner, wout, geometric, acc):
     """Back through one drift evaluation given df = dL/df: adds the weight
     gradients into acc and returns (d state, dz1)."""
-    f_ty = torch.tanh(state)
-    z3 = z3l * f_ty if geometric else z3l
-    f = torch.tanh(z3)
-    dz3 = df * (1.0 - f * f)
-    dstate = torch.zeros_like(state)
-    if geometric:
-        dstate = dz3 * z3l * (1.0 - f_ty * f_ty)
-        dz3 = dz3 * f_ty
+    dstate, dz3 = _dz3(df, state, z3l, geometric)
+    dz, es = _mlp_back(dz3, hs, w_inner, wout)
     acc["wout"] += hs[-1].T @ dz3
     acc["bo"] += dz3.sum(0)
-    dz = (dz3 @ wout.T) * (hs[-1] > 0)
     for l in range(w_inner.shape[0] - 1, -1, -1):
-        acc["w_inner"][l] += hs[l].T @ dz
-        acc["b_inner"][l] += dz.sum(0)
-        dz = (dz @ w_inner[l].T) * (hs[l] > 0)
+        acc["w_inner"][l] += hs[l].T @ es[l]
+        acc["b_inner"][l] += es[l].sum(0)
     acc["wy"] += state.T @ dz
     return dstate + dz @ wy.T, dz
 
@@ -279,13 +330,148 @@ def fused_srk_backward_reference(y0, ys, gys, xh0, xh1, dw, i10, a0, a1, gk0,
                          acc["bo"])
 
 
+def fused_srk_backward_recurrence_reference(y0, ys, gys, xh0, xh1, dw, i10,
+                                            a0, a1, gk0, gk1, gk2, dts, theta,
+                                            wy, w_inner, b_inner, wout, bo, *,
+                                            mult_y: bool, geometric: bool,
+                                            relu=torch.relu) -> SRKStreams:
+    """The backward recurrence kernel's plain version: the reverse loop of
+    fused_srk_backward_reference (the same tableau order f1, g3, g2, g1,
+    g0, f0) without the weight gradients, recording instead the streams
+    they are formed from (SRKStreams)."""
+    sth = torch.sigmoid(theta.reshape(()))
+    w = (wy, w_inner, b_inner, wout, bo, geometric, relu)
+    M, n_inner = dts.shape[0], w_inner.shape[0]
+    ev2 = (2,) + tuple(xh0.shape)
+    hs_out = xh0.new_empty((n_inner + 1,) + ev2)
+    es_out = xh0.new_empty((n_inner,) + ev2)
+    dxh = xh0.new_empty(ev2)
+    dz3s = gys.new_empty((2,) + tuple(gys.shape))
+    qs = gys.new_empty((3,) + tuple(gys.shape))
+    h01s = torch.empty_like(gys)
+    dth = torch.zeros((), dtype=y0.dtype, device=y0.device)
+    gbar = torch.zeros_like(y0)
+    for u in range(M - 1, -1, -1):
+        gbar = gbar + gys[u]
+        y = y0 if u == 0 else ys[u - 1]
+        dt = dts[u]
+        sq, rdt, rsq = _step_consts(dt)
+        gks = (gk0[u], gk1[u], gk2[u])
+        f0, hs0, z3l0 = _drift(y, xh0[u], a0[u], *w)
+        states, graws, gs, h01 = _stages(y, f0, gks, i10[u], sth, dt, sq, rdt,
+                                         mult_y)
+        _, hs1, z3l1 = _drift(h01, xh1[u], a1[u], *w)
+        coeffs = _coeffs(dw[u], i10[u], dt, rdt, rsq)
+        df0 = gbar * (_ALPHA0 * dt)
+        dgs = [gbar * c for c in coeffs]
+        dy = gbar
+        dq = [None] * 4
+
+        def g_bwd(i, dg):
+            nonlocal dth
+            dsg = dg * (1.0 - gs[i] * gs[i])
+            dth = dth + (dsg * graws[i]).sum()
+            dgraw = dsg * sth
+            if mult_y:
+                dq[i] = dgraw * states[i]
+                return dgraw * gks[(0, 1, 2, 1)[i]]
+            dq[i] = dgraw
+            return torch.zeros_like(dg)
+
+        # stage f1 (state H0_1)
+        dh01, dz3_1 = _dz3(gbar * (_ALPHA1 * dt), h01, z3l1, geometric)
+        dz1_1, es1 = _mlp_back(dz3_1, hs1, w_inner, wout)
+        dh01 = dh01 + dz1_1 @ wy.T
+        dy = dy + dh01
+        df0 = df0 + 0.75 * dt * dh01
+        dgs[0] = dgs[0] + 1.5 * (i10[u] * rdt) * dh01
+        # stage g3 (state H1_3 = y + dt/4 f0 + sqrt(dt)(-5 g0 + 3 g1 + g2/2))
+        ds = g_bwd(3, dgs[3])
+        dy = dy + ds
+        df0 = df0 + 0.25 * dt * ds
+        dgs[0] = dgs[0] - 5.0 * sq * ds
+        dgs[1] = dgs[1] + 3.0 * sq * ds
+        dgs[2] = dgs[2] + 0.5 * sq * ds
+        # stage g2 (state H1_2 = y + dt f0 - sqrt(dt) g0)
+        ds = g_bwd(2, dgs[2])
+        dy = dy + ds
+        df0 = df0 + dt * ds
+        dgs[0] = dgs[0] - sq * ds
+        # stage g1 (state H1_1 = y + dt/4 f0 + sqrt(dt)/2 g0)
+        ds = g_bwd(1, dgs[1])
+        dy = dy + ds
+        df0 = df0 + 0.25 * dt * ds
+        dgs[0] = dgs[0] + 0.5 * sq * ds
+        # stage g0 (state y), then stage f0 (state y)
+        dy = dy + g_bwd(0, dgs[0])
+        dyf0, dz3_0 = _dz3(df0, y, z3l0, geometric)
+        dz1_0, es0 = _mlp_back(dz3_0, hs0, w_inner, wout)
+        for ev, (hs_e, es_e, dz1, dz3) in enumerate(
+                ((hs0, es0, dz1_0, dz3_0), (hs1, es1, dz1_1, dz3_1))):
+            for l in range(n_inner + 1):
+                hs_out[l, ev, u] = hs_e[l]
+            for l in range(n_inner):
+                es_out[l, ev, u] = es_e[l]
+            dxh[ev, u], dz3s[ev, u] = dz1, dz3
+        h01s[u] = h01
+        qs[0, u], qs[1, u], qs[2, u] = dq[0], dq[3] + dq[1], dq[2]
+        gbar = dy + dyf0 + dz1_0 @ wy.T
+    dtheta = (dth * sth * (1.0 - sth)).reshape(theta.shape)
+    return SRKStreams(gbar, dtheta, dxh, hs_out, es_out, dz3s, h01s, qs)
+
+
+def fused_srk_weight_grads_reference(y0, ys, h01, dxh, hs, es, dz3,
+                                     q) -> SRKWeightGrads:
+    """The weight-gradient kernel's plain version: over K = 2 M B rows of
+    the recurrence's streams (both evaluations), dWy' = sum x^T dz1 with x
+    the state each first layer read (y_{u-1}, then H0_1), dW_l = sum h_l^T
+    e_{l+1}, dWout = sum h_NI^T dz3 and the bias sums; da[e, u] and
+    dgk[j, u] the step's column sums of dz1 and q."""
+    _, M, B, H = dz3.shape
+    HH, n_inner = dxh.shape[3], es.shape[0]
+    x = torch.cat([y0[None], ys[:M - 1], h01]).reshape(-1, H)
+    dwi = torch.stack([hs[l].reshape(-1, HH).T @ es[l].reshape(-1, HH)
+                       for l in range(n_inner)]) if n_inner else \
+        dxh.new_zeros((0, HH, HH))
+    return SRKWeightGrads(
+        x.T @ dxh.reshape(-1, HH), dwi, es.sum((1, 2, 3)),
+        hs[n_inner].reshape(-1, HH).T @ dz3.reshape(-1, H),
+        dz3.sum((0, 1, 2)), dxh.sum(2), q.sum(2))
+
+
 # ---------------------------------------------------------------------------
 # The CUDA kernels
 # ---------------------------------------------------------------------------
 
 # built and loaded at first launch
-_LIB = SolverLib("fused_srk", "fused SRK", 18, 33,
-                 int_fns={"plan": 5, "force_placement": 1})
+_LIB = SolverLib("fused_srk", "fused SRK", 18, 27,
+                 shape_names=("B", "H", "HH", "n_inner"),
+                 launches={"wgrad": 11},
+                 int_fns={"plan": 6, "force_placement": 1, "force_plan": 2,
+                          "wgrad_splits": 5})
+_PLAN_FIELDS = ("level", "rows", "cluster", "active_clusters", "smem_bytes")
+
+
+def fused_srk_plan(B: int, H: int, HH: int, n_inner: int,
+                   backward: bool) -> dict:
+    """The CUDA library's plan of an SRK launch: its level (0 the weight
+    slices in shared memory, 1 the weights read from device memory,
+    csrc/sde_hopper.cuh), batch rows and CTAs a cluster,
+    cudaOccupancyMaxActiveClusters (a negative CUDA error when the plan
+    cannot be scheduled) and the shared bytes a CTA. Needs the card."""
+    shape = (B, H, HH, n_inner, int(backward))
+    return {name: _LIB.call("plan", *shape, i)
+            for i, name in enumerate(_PLAN_FIELDS)}
+
+
+def force_srk_plan(cluster: int = 0, rows: int = 0) -> None:
+    """Make later launches take clusters of `cluster` CTAs and `rows`
+    batch rows a cluster (0: the plan's own choice of each); for tests of
+    each plan. Raises ValueError on a size the kernels do not take."""
+    if _LIB.call("force_plan", cluster, rows) != 0:
+        raise ValueError(f"no SRK plan with {cluster} CTAs and {rows} rows "
+                         f"a cluster")
+    _LIB._kept.clear()
 
 
 def check_kernel_inputs(y0, xh0, xh1, dw, i10, a0, a1, gk0, gk1, gk2, dts,
@@ -294,7 +480,7 @@ def check_kernel_inputs(y0, xh0, xh1, dw, i10, a0, a1, gk0, gk1, gk2, dts,
     """Raise ValueError on what the kernels do not take: a dtype other
     than float32, tensors on different devices, a non-contiguous tensor,
     or a shape that disagrees with y0/wy/w_inner/dts. Every width is
-    taken (csrc/sde_common.cuh places what does not fit shared memory in
+    taken (the plan splits the weights over a cluster or reads them from
     device memory). Returns (M, B, H, HH, n_inner)."""
     M, B, H, HH, n_inner = dims = kernel_dims("fused SRK", y0, wy, w_inner,
                                               dts)
@@ -312,6 +498,45 @@ def check_kernel_inputs(y0, xh0, xh1, dw, i10, a0, a1, gk0, gk1, gk2, dts,
     return dims
 
 
+def _empty(*shape, device):
+    return torch.empty(shape, dtype=torch.float32, device=device)
+
+
+def _launch_forward(dims, flags, tensors, stream) -> torch.Tensor:
+    M, B, H, _, _ = dims
+    ys = _empty(M, B, H, device=tensors[0].device)
+    _LIB.launch("fwd", tensors + (ys,), dims + flags, stream)
+    return ys
+
+
+def _launch_recurrence(dims, flags, tensors, stream) -> SRKStreams:
+    M, B, H, HH, n_inner = dims
+    dev = tensors[0].device
+    ctas = (-(-B // _LIB.rows(dims[1:], backward=True))
+            * _LIB.kept("plan", B, H, HH, n_inner, 1, 2))
+    dxh, dy0 = _empty(2, M, B, HH, device=dev), _empty(B, H, device=dev)
+    hs, es = (_empty(n_inner + 1, 2, M, B, HH, device=dev),
+              _empty(n_inner, 2, M, B, HH, device=dev))
+    dz3, q = _empty(2, M, B, H, device=dev), _empty(3, M, B, H, device=dev)
+    h01, p_th = _empty(M, B, H, device=dev), _empty(ctas, device=dev)
+    _LIB.launch("bwd", tensors + (dxh, dy0, hs, es, dz3, q, h01, p_th),
+                dims + flags, stream)
+    return SRKStreams(dy0, p_th.sum(0, keepdim=True), dxh, hs, es, dz3, h01,
+                      q)
+
+
+def _launch_weight_grads(y0, ys, st: SRKStreams, stream) -> SRKWeightGrads:
+    _, M, B, HH = st.dxh.shape
+    H, n_inner = y0.shape[1], st.es.shape[0]
+    S = _LIB.kept("wgrad_splits", M, B, H, HH, n_inner)
+    p = _empty(sum(wgrad_partial_sizes(S, H, HH, n_inner)), device=y0.device)
+    da = _empty(2, M, HH, device=y0.device)
+    dgk = _empty(3, M, H, device=y0.device)
+    _LIB.launch("wgrad", (y0, ys, st.h01, st.dxh, st.hs, st.es, st.dz3, st.q,
+                          p, da, dgk), (M, B, H, HH, n_inner, 0, 0), stream)
+    return SRKWeightGrads(*sum_wgrad_partials(p, S, H, HH, n_inner), da, dgk)
+
+
 def fused_srk_forward(y0, xh0, xh1, dw, i10, a0, a1, gk0, gk1, gk2, dts,
                       theta, wy, w_inner, b_inner, wout, bo, *, mult_y: bool,
                       geometric: bool) -> torch.Tensor:
@@ -324,48 +549,74 @@ def fused_srk_forward(y0, xh0, xh1, dw, i10, a0, a1, gk0, gk1, gk2, dts,
         return fused_srk_forward_reference(*args, mult_y=mult_y,
                                            geometric=geometric)
     dims = check_kernel_inputs(*args)
-    stream = _LIB.stream(y0, dims[2:], backward=False)
-    M, B, H, _, _ = dims
-    ys = torch.empty((M, B, H), dtype=torch.float32, device=y0.device)
-    _LIB.launch("fwd", args + (ys,), dims + (mult_y, geometric), stream)
+    stream = _LIB.stream(y0, dims[1:], backward=False)
+    ys = _launch_forward(dims, (mult_y, geometric), args, stream)
     FWD_LAUNCHES += 1
     return ys
+
+
+def fused_srk_backward_recurrence(y0, ys, gys, xh0, xh1, dw, i10, a0, a1,
+                                  gk0, gk1, gk2, dts, theta, wy, w_inner,
+                                  b_inner, wout, bo, *, mult_y: bool,
+                                  geometric: bool) -> SRKStreams:
+    """The reverse loop given gys = dL/dys (SRKStreams): the CUDA backward
+    recurrence kernel for CUDA tensors (d theta's per-CTA partials summed
+    here), the plain version for CPU tensors."""
+    global BWD_LAUNCHES
+    args = (y0, ys, gys, xh0, xh1, dw, i10, a0, a1, gk0, gk1, gk2, dts,
+            theta, wy, w_inner, b_inner, wout, bo)
+    if y0.device.type == "cpu":
+        return fused_srk_backward_recurrence_reference(
+            *args, mult_y=mult_y, geometric=geometric)
+    dims = check_kernel_inputs(y0, *args[3:], ys=ys, gys=gys)
+    stream = _LIB.stream(y0, dims[1:], backward=True)
+    st = _launch_recurrence(dims, (mult_y, geometric), args, stream)
+    BWD_LAUNCHES += 1
+    return st
+
+
+def fused_srk_weight_grads(y0, ys, st: SRKStreams) -> SRKWeightGrads:
+    """The weight, bias and per-step gradients from the recurrence's
+    streams (SRKWeightGrads): the CUDA weight-gradient kernel for CUDA
+    tensors (its split partials summed here, in a fixed order), the plain
+    version for CPU tensors."""
+    global WGRAD_LAUNCHES
+    if y0.device.type == "cpu":
+        return fused_srk_weight_grads_reference(y0, ys, st.h01, st.dxh,
+                                                st.hs, st.es, st.dz3, st.q)
+    _, M, B, H = st.dz3.shape
+    HH, n_inner = st.dxh.shape[3], st.es.shape[0]
+    want = {"y0": (B, H), "ys": (M, B, H), "h01": (M, B, H),
+            "dxh": (2, M, B, HH), "hs": (n_inner + 1, 2, M, B, HH),
+            "es": (n_inner, 2, M, B, HH), "dz3": (2, M, B, H),
+            "q": (3, M, B, H)}
+    check_tensors("fused SRK", want, {"y0": y0, "ys": ys, "h01": st.h01,
+                                      "dxh": st.dxh, "hs": st.hs,
+                                      "es": st.es, "dz3": st.dz3,
+                                      "q": st.q}, y0.device)
+    stream = _LIB.stream(y0, (B, H, HH, n_inner), backward=True)
+    out = _launch_weight_grads(y0, ys, st, stream)
+    WGRAD_LAUNCHES += 1
+    return out
 
 
 def fused_srk_backward(y0, ys, gys, xh0, xh1, dw, i10, a0, a1, gk0, gk1, gk2,
                        dts, theta, wy, w_inner, b_inner, wout, bo, *,
                        mult_y: bool, geometric: bool) -> FusedSRKGrads:
-    """Cotangents of the solve's inputs given gys = dL/dys: the CUDA
-    backward kernel for CUDA tensors (per-block partials summed here), the
-    plain version for CPU tensors."""
-    global BWD_LAUNCHES
-    args = (xh0, xh1, dw, i10, a0, a1, gk0, gk1, gk2, dts, theta, wy,
-            w_inner, b_inner, wout, bo)
+    """Cotangents of the solve's inputs given gys = dL/dys: for CUDA
+    tensors the backward recurrence kernel, then the weight-gradient
+    kernel; for CPU tensors the plain reverse loop."""
+    args = (y0, ys, gys, xh0, xh1, dw, i10, a0, a1, gk0, gk1, gk2, dts,
+            theta, wy, w_inner, b_inner, wout, bo)
     if y0.device.type == "cpu":
-        return fused_srk_backward_reference(y0, ys, gys, *args,
-                                            mult_y=mult_y,
+        return fused_srk_backward_reference(*args, mult_y=mult_y,
                                             geometric=geometric)
-    dims = check_kernel_inputs(y0, *args, ys=ys, gys=gys)
-    stream = _LIB.stream(y0, dims[2:], backward=True)
-    M, B, H, HH, n_inner = dims
-    nb = -(-B // _LIB.rows(dims[2:], backward=True))
-    empty = lambda *shape: torch.empty(shape, dtype=torch.float32,
-                                       device=y0.device)
-    dxh0, dxh1, dy0 = empty(M, B, HH), empty(M, B, HH), empty(B, H)
-    p_wy, p_wi, p_bi = (empty(nb, H, HH), empty(nb, n_inner, HH, HH),
-                        empty(nb, n_inner, HH))
-    p_wo, p_bo = empty(nb, HH, H), empty(nb, H)
-    p_a0, p_a1 = empty(nb, M, HH), empty(nb, M, HH)
-    p_gk = [empty(nb, M, H) for _ in range(3)]
-    p_th = empty(nb)
-    _LIB.launch("bwd", (y0, ys, gys) + args + (
-        dxh0, dxh1, dy0, p_wy, p_wi, p_bi, p_wo, p_bo, p_a0, p_a1, *p_gk,
-        p_th), dims + (mult_y, geometric), stream)
-    BWD_LAUNCHES += 1
-    return FusedSRKGrads(dy0, dxh0, dxh1, p_a0.sum(0), p_a1.sum(0),
-                         *(p.sum(0) for p in p_gk), p_th.sum(0, keepdim=True),
-                         p_wy.sum(0), p_wi.sum(0), p_bi.sum(0), p_wo.sum(0),
-                         p_bo.sum(0))
+    st = fused_srk_backward_recurrence(*args, mult_y=mult_y,
+                                       geometric=geometric)
+    w = fused_srk_weight_grads(y0, ys, st)
+    return FusedSRKGrads(st.dy0, st.dxh[0], st.dxh[1], w.da[0], w.da[1],
+                         w.dgk[0], w.dgk[1], w.dgk[2], st.dtheta, w.dwy,
+                         w.dw_inner, w.db_inner, w.dwout, w.dbo)
 
 
 _ARG_ORDER = ("y0", "xh0", "xh1", "dw", "i10", "a0", "a1", "gk0", "gk1",
@@ -374,10 +625,11 @@ _ARG_ORDER = ("y0", "xh0", "xh1", "dw", "i10", "a0", "a1", "gk0", "gk1",
 
 class FusedSRK(torch.autograd.Function):
     """ys = SRIW1 solve over the merged drift; backward by the backward
-    kernel. Inputs in _ARG_ORDER, then mult_y and geometric: y0 [B,H],
-    xh0/xh1 [M,B,HH], dw/i10 [M,B,H] (not differentiated), a0/a1 [M,HH],
-    gk0/gk1/gk2 [M,H], dts [M] (not differentiated), theta [1], wy [H,HH],
-    w_inner [n_inner,HH,HH], b_inner [n_inner,HH], wout [HH,H], bo [H]."""
+    recurrence and weight-gradient kernels. Inputs in _ARG_ORDER, then
+    mult_y and geometric: y0 [B,H], xh0/xh1 [M,B,HH], dw/i10 [M,B,H] (not
+    differentiated), a0/a1 [M,HH], gk0/gk1/gk2 [M,H], dts [M] (not
+    differentiated), theta [1], wy [H,HH], w_inner [n_inner,HH,HH],
+    b_inner [n_inner,HH], wout [HH,H], bo [H]."""
 
     @staticmethod
     def forward(ctx, *args):

@@ -42,17 +42,16 @@ Both cases also pass that float64 check, and print its readings, largest
 and root-mean-square (run pytest with -s to see them).
 
 The EM, SRK and CDE pairs also run at H = HH = 128 (one and two inner
-layers) and 256, where the weights (and the SRK's gradient accumulators)
-no longer fit a block's shared memory, in every placement forced once
-(the SRK: csrc/sde_common.cuh's, the accumulators in device memory, the
-weights too, then 4, 2 and 1 batch rows a block; the CDE pair: the levels
-of its plan, csrc/fused_cde.cu; the EM pair: its plan's levels, the weight
+layers) and 256, where the weights no longer fit a block's shared memory,
+in every placement forced once (the CDE pair: the levels of its plan,
+csrc/fused_cde.cu; the EM and SRK pairs: their plan's levels, the weight
 slices in shared memory or the weights in device memory, with clusters of
-1, 2, 4 and 8 CTAs, csrc/fused_em.cu), under the init-scale rules. The
-EM pair's own plan at H = HH = 256 is a cluster; its weight-gradient
-kernel runs alone against its plain version; its backward is
-bit-reproducible at the sepsis width and at 128, and a plan that cannot
-run raises.
+1, 2, 4 and 8 CTAs, csrc/sde_hopper.cuh), under the init-scale rules. The
+EM and SRK pairs' own plans at H = HH = 256 are clusters; each pair's
+weight-gradient kernel runs alone against its plain version; each
+backward is bit-reproducible (the EM's at the sepsis width and at 128,
+the SRK's at the MuJoCo width and at 128), and a plan that cannot run
+raises.
 
 The CDE pair splits Wout over a thread-block cluster: it also runs with
 each cluster size forced (1, 2, 4 and 8 CTAs; H = 20 leaves the last CTAs
@@ -599,29 +598,29 @@ def test_lstm_weight_grad_kernel_matches_its_plain_version():
 # (H = HH, inner layers) of the wide SDE and CDE cases: past the shared
 # memory of one block for the weights and their gradient accumulators
 WIDE = [(128, 1), (128, 2), (256, 1)]
-# placements, each forced once at H = HH = 128 with one inner layer. The
-# SRK's (csrc/sde_common.cuh): 0 the plan's own (the forward in shared
-# memory, the backward's accumulators in device memory), 1 the
-# accumulators in device memory, 2 the weights too, 3-5 as 2 with 4, 2 and
-# 1 batch rows a block; the CDE pair's: its plan's levels from 0 on
+# placements, each forced once at H = HH = 128 with one inner layer: the
+# CDE pair's plan's levels from 0 on
 PLACEMENTS = [0, 1, 2, 3, 4, 5]
-# the EM pair's (csrc/fused_em.cu) at the same six cases: (the lowest
-# level, CTAs a cluster, rows a cluster; 0 the plan's own choice): its own
-# plan, level 1 (the weights in device memory), clusters of 2, 4 and 8
-# with the weight slices in shared memory, and level 1 in clusters of 8
+# the EM and SRK pairs' (csrc/sde_hopper.cuh: sde_plan) at the same six
+# cases: (the lowest level, CTAs a cluster, rows a cluster; 0 the plan's
+# own choice): its own plan, level 1 (the weights in device memory),
+# clusters of 2, 4 and 8 with the weight slices in shared memory, and
+# level 1 in clusters of 8
 EM_FORCED = {0: (0, 0, 0), 1: (1, 0, 0), 2: (0, 2, 0), 3: (0, 4, 4),
              4: (0, 8, 2), 5: (1, 8, 1)}
+SDE = {"em": (fe, "fused_em"), "srk": (fs, "fused_srk")}
 
 
-def _em_force(level, cs, rows):
-    fe._LIB.force_placement(level)
-    fe.force_em_plan(cs, rows)
+def _sde_force(kind, level, cs, rows):
+    mod, pre = SDE[kind]
+    mod._LIB.force_placement(level)
+    getattr(mod, f"force_{kind}_plan")(cs, rows)
 
 
 def _wide_check(kind, H, n_inner, placement):
     """One SDE or CDE pair at H = HH with `placement` forced (the lowest
-    the plan may take; for the EM pair the plan EM_FORCED names), against
-    its plain versions: init-scale rules."""
+    level the CDE plan may take; for the EM and SRK pairs the plan
+    EM_FORCED names), against its plain versions: init-scale rules."""
     mod, pre = {"em": (fe, "fused_em"), "srk": (fs, "fused_srk"),
                 "cde": (fc, "fused_cde")}[kind]
     if kind == "cde":
@@ -631,10 +630,10 @@ def _wide_check(kind, H, n_inner, placement):
     else:
         inputs, flags, gys = _inputs(kind == "srk", 4, 17, n_inner, "init",
                                      B=13, M=5, H=H)
-        shape = (H, H, n_inner) if kind == "srk" else (13, H, H, n_inner)
-    if kind == "em":
+        shape = (13, H, H, n_inner)
+    if kind in SDE:
         level, cs, rows = EM_FORCED[placement]
-        _em_force(level, cs, rows)
+        _sde_force(kind, level, cs, rows)
     else:
         mod._LIB.force_placement(placement)
     try:
@@ -642,10 +641,10 @@ def _wide_check(kind, H, n_inner, placement):
         print(f"{kind} H={H} n_inner={n_inner} forced {placement}: "
               f"placements (forward, backward) {got}, rows "
               f"{[mod._LIB.rows(shape, b) for b in (False, True)]}")
-        if kind == "em":
+        if kind in SDE:
             for b in (False, True):
-                p = fe.fused_em_plan(13, H, H, n_inner, b)
-                print(f"  em plan {'backward' if b else 'forward'}: {p}")
+                p = getattr(mod, f"{pre}_plan")(13, H, H, n_inner, b)
+                print(f"  {kind} plan {'backward' if b else 'forward'}: {p}")
                 assert p["level"] >= level and p["active_clusters"] >= 1
                 assert cs in (0, p["cluster"]) and rows in (0, p["rows"])
                 if H == 256 and placement == 0:  # the own plan: a cluster
@@ -655,8 +654,8 @@ def _wide_check(kind, H, n_inner, placement):
         _check(_fns(mod, pre), inputs, flags, gys, "init",
                ys_f64_factor=YS_F64_FACTOR if kind == "cde" else 0.0)
     finally:
-        if kind == "em":
-            _em_force(0, 0, 0)
+        if kind in SDE:
+            _sde_force(kind, 0, 0, 0)
         else:
             mod._LIB.force_placement(0)
 
@@ -702,24 +701,39 @@ def test_wide_backward_is_bit_reproducible(H):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("H,n_inner", [(49, 1), (16, 0), (128, 2)])
-def test_em_weight_grad_kernel_matches_its_plain_version(H, n_inner):
-    """The EM weight-gradient kernel alone on the plain recurrence's
-    streams: every output within TOL_GRAD of its largest entry and within
-    the float64 rms rule."""
+@pytest.mark.parametrize("H", [32, 128])
+def test_srk_backward_is_bit_reproducible(H):
+    """The SRK backward at the MuJoCo width and at 128 (a cluster): the
+    same fixed orders as the EM's, no atomics: two backward calls agree
+    bit for bit."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
-    inputs, flags, gys = _inputs(False, 4, 17, n_inner, "init", B=37, M=6,
-                                 H=H)
-    ys = fe.fused_em_forward_reference(**inputs, **flags)
-    st = fe.fused_em_backward_recurrence_reference(ys=ys, gys=gys, **inputs,
-                                                   **flags)
-    k = fe.fused_em_weight_grads(inputs["y0"], ys, st)
-    p = fe.fused_em_weight_grads_reference(inputs["y0"], ys, st.dxh, st.hs,
-                                           st.es, st.dz3, st.q)
-    r = fe.fused_em_weight_grads_reference(
-        inputs["y0"].double(), ys.double(),
-        *(t.double() for t in (st.dxh, st.hs, st.es, st.dz3, st.q)))
+    inputs, flags, gys = _inputs(True, 4, 17, 1, "init", B=40, M=5, H=H)
+    ys = fs.fused_srk_forward(**inputs, **flags)
+    a = fs.fused_srk_backward(ys=ys, gys=gys, **inputs, **flags)
+    b = fs.fused_srk_backward(ys=ys, gys=gys, **inputs, **flags)
+    torch.cuda.synchronize()
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+def _wgrad_check(kind, H, n_inner):
+    """An SDE weight-gradient kernel alone on the plain recurrence's
+    streams: every output within TOL_GRAD of its largest entry and within
+    the float64 rms rule."""
+    mod, pre = SDE[kind]
+    inputs, flags, gys = _inputs(kind == "srk", 4, 17, n_inner, "init",
+                                 B=37, M=6, H=H)
+    ys = getattr(mod, f"{pre}_forward_reference")(**inputs, **flags)
+    st = getattr(mod, f"{pre}_backward_recurrence_reference")(
+        ys=ys, gys=gys, **inputs, **flags)
+    streams = ((st.h01,) if kind == "srk" else ()) + (st.dxh, st.hs, st.es,
+                                                      st.dz3, st.q)
+    plain = getattr(mod, f"{pre}_weight_grads_reference")
+    k = getattr(mod, f"{pre}_weight_grads")(inputs["y0"], ys, st)
+    p = plain(inputs["y0"], ys, *streams)
+    r = plain(inputs["y0"].double(), ys.double(),
+              *(t.double() for t in streams))
     torch.cuda.synchronize()
     for name, a, b, ref in zip(p._fields, k, p, r):
         if not b.numel():
@@ -733,25 +747,56 @@ def test_em_weight_grad_kernel_matches_its_plain_version(H, n_inner):
 
 
 @pytest.mark.cuda
-def test_em_plan_raises_when_it_cannot_run():
+@pytest.mark.parametrize("H,n_inner", [(49, 1), (16, 0), (128, 2)])
+def test_em_weight_grad_kernel_matches_its_plain_version(H, n_inner):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    _wgrad_check("em", H, n_inner)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,n_inner", [(32, 1), (16, 0), (128, 2)])
+def test_srk_weight_grad_kernel_matches_its_plain_version(H, n_inner):
+    """The SRK weight-gradient kernel over both evaluations (K = 2 M B):
+    _wgrad_check's rules."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    _wgrad_check("srk", H, n_inner)
+
+
+def _plan_raises(kind):
     """A cluster size or row count the kernels do not take raises
     ValueError; so does a forced plan whose CTA fits at no level (one CTA
     of 32 rows at H = HH = 1024: its tiles alone exceed 227 KB), before
     any launch."""
+    mod, pre = SDE[kind]
+    force = getattr(mod, f"force_{kind}_plan")
+    with pytest.raises(ValueError):
+        force(3, 0)
+    with pytest.raises(ValueError):
+        force(0, 64)
+    force(1, 32)
+    try:
+        inputs, flags, gys = _inputs(kind == "srk", 4, 17, 1, "init", B=40,
+                                     M=2, H=1024)
+        with pytest.raises(ValueError, match="limit per block"):
+            getattr(mod, f"{pre}_forward")(**inputs, **flags)
+    finally:
+        force(0, 0)
+
+
+@pytest.mark.cuda
+def test_em_plan_raises_when_it_cannot_run():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
-    with pytest.raises(ValueError):
-        fe.force_em_plan(3, 0)
-    with pytest.raises(ValueError):
-        fe.force_em_plan(0, 64)
-    fe.force_em_plan(1, 32)
-    try:
-        inputs, flags, gys = _inputs(False, 4, 17, 1, "init", B=40, M=2,
-                                     H=1024)
-        with pytest.raises(ValueError, match="limit per block"):
-            fe.fused_em_forward(**inputs, **flags)
-    finally:
-        fe.force_em_plan(0, 0)
+    _plan_raises("em")
+
+
+@pytest.mark.cuda
+def test_srk_plan_raises_when_it_cannot_run():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    _plan_raises("srk")
 
 
 # GRU widths at each kind of its plan (at B = 13 and 100): one CTA (16, 96),

@@ -53,17 +53,21 @@ def _interpret_mode(monkeypatch):
     monkeypatch.setenv("SNSDE_FUSED_STREAM", "f32")
 
 
-@pytest.fixture(scope="module")
-def setting():
+def _setting(Bn=B, Ln=L, width=H):
     rng = np.random.default_rng(0)
-    times = np.linspace(0.0, 1.0, L).astype(np.float32)
-    x = rng.normal(size=(B, L, C)).astype(np.float32)
-    y0 = rng.normal(size=(B, H)).astype(np.float32)
+    times = np.linspace(0.0, 1.0, Ln).astype(np.float32)
+    x = rng.normal(size=(Bn, Ln, C)).astype(np.float32)
+    y0 = rng.normal(size=(Bn, width)).astype(np.float32)
     grid, _ = make_grid(times, resolve_dt(times))
     dts = np.diff(grid)[:, None, None]
-    dW = rng.normal(size=(len(grid) - 1, B, H)) * np.sqrt(dts)
+    dW = rng.normal(size=(len(grid) - 1, Bn, width)) * np.sqrt(dts)
     I10 = 0.5 * dts * (dW + rng.normal(size=dW.shape) * np.sqrt(dts / 3.0))
     return times, x, y0, grid, dW.astype(np.float32), I10.astype(np.float32)
+
+
+@pytest.fixture(scope="module")
+def setting():
+    return _setting()
 
 
 def port_path(times, x):
@@ -78,12 +82,21 @@ def test_fused_srk_matches_jax_kernel(setting, io, no):
     merge the drift and reverse the tableau the same way and differ only in
     f32 summation order (measured: trajectory 2.4e-7, gradients 3.7e-6
     relative at most)."""
+    _check_against_jax(setting, io, no, H)
+
+
+def _check_against_jax(setting, io, no, width, layers=2, grad_tol=5e-4):
+    """The port's fused SRK solve (plain versions on the CPU) against the
+    JAX fused SRK kernel in interpret mode on the same weights, path and
+    (dW, I10): the trajectory to atol 2e-5, y0's and every parameter's
+    gradient to grad_tol relative to its largest entry."""
     from snsde.kernels.fused_srk import fused_srk_solve as jax_solve
 
     times, x, y0, _, dW, I10 = setting
     jpath = JaxPath(jax_hermite(jnp.asarray(times), jnp.asarray(x)), times)
-    jfield = JaxField.create(jax.random.PRNGKey(io * 20 + no), C, H, H, 2,
-                             input_option=io, noise_option=no)
+    jfield = JaxField.create(jax.random.PRNGKey(io * 20 + no), C, width,
+                             width, layers, input_option=io,
+                             noise_option=no)
     dt = resolve_dt(times)
 
     def jax_loss(tree):
@@ -96,7 +109,8 @@ def test_fused_srk_matches_jax_kernel(setting, io, no):
     (_, ys_j), g_j = filter_value_and_grad(jax_loss, has_aux=True)(
         (jfield, jnp.asarray(y0)))
 
-    field = DiffusionField(C, H, H, 2, input_option=io, noise_option=no)
+    field = DiffusionField(C, width, width, layers, input_option=io,
+                           noise_option=no)
     load_jax_arrays(field, jax_arrays(jfield))
     path = port_path(times, x)
     y0_t = torch.as_tensor(y0).requires_grad_(True)
@@ -115,7 +129,7 @@ def test_fused_srk_matches_jax_kernel(setting, io, no):
     for name, ref in theirs.items():
         denom = max(float(np.abs(ref).max()), 1e-6)
         err = float(np.abs(ours[name] - ref).max()) / denom
-        assert err < 5e-4, f"({io},{no}) grad {name}: rel err {err:.2e}"
+        assert err < grad_tol, f"({io},{no}) grad {name}: rel err {err:.2e}"
 
 
 SUPPORTED = [(io, no) for io in (2, 4, 6) for no in sorted(PRECOMP_NO)]
@@ -197,6 +211,60 @@ def test_backward_reference_is_autograd_of_forward(io, no, n_inner):
         assert float((ours - auto).abs().max()) / denom < 1e-5, name
 
 
+def _split_backward(y0, ys, gys, xh0, xh1, dw, i10, a0, a1, gk0, gk1, gk2,
+                    dts, theta, wy, w_inner, b_inner, wout, bo, *, mult_y,
+                    geometric):
+    """The card's backward in plain form: the recurrence's plain version,
+    then the weight-gradient kernel's plain version on its streams."""
+    st = fs.fused_srk_backward_recurrence_reference(
+        y0, ys, gys, xh0, xh1, dw, i10, a0, a1, gk0, gk1, gk2, dts, theta,
+        wy, w_inner, b_inner, wout, bo, mult_y=mult_y, geometric=geometric)
+    w = fs.fused_srk_weight_grads_reference(y0, ys, st.h01, st.dxh, st.hs,
+                                            st.es, st.dz3, st.q)
+    return fs.FusedSRKGrads(st.dy0, st.dxh[0], st.dxh[1], w.da[0], w.da[1],
+                            w.dgk[0], w.dgk[1], w.dgk[2], st.dtheta, w.dwy,
+                            w.dw_inner, w.db_inner, w.dwout, w.dbo)
+
+
+@pytest.mark.parametrize("io,no,n_inner", [(4, 17, 1), (2, 16, 0),
+                                           (6, 17, 2), (6, 16, 1)])
+def test_weight_grads_reference_matches_backward_reference(io, no, n_inner):
+    """The weight-gradient kernel's plain version, on the plain backward
+    recurrence's streams, gives the in-loop sums of the plain reverse loop
+    (fused_srk_backward_reference, the JAX `_bwd_kernel`'s twin), with
+    mult_y on and off: every cotangent to 1e-5 of its largest entry in
+    float32, and to 1e-12 in float64 (the two differ only in the order of
+    the sums; measured at most 5.3e-7 and 1.1e-15)."""
+    for dtype, tol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
+        inputs, flags, gys = _kernel_inputs(io, no, n_inner, Bk=13, M=5,
+                                            Hk=16)
+        inputs = {k: v.to(dtype) for k, v in inputs.items()}
+        gys = gys.to(dtype)
+        ys = fs.fused_srk_forward_reference(**inputs, **flags)
+        ref = fs.fused_srk_backward_reference(ys=ys, gys=gys, **inputs,
+                                              **flags)
+        got = _split_backward(ys=ys, gys=gys, **inputs, **flags)
+        for name, a, b in zip(ref._fields, got, ref):
+            assert a.shape == b.shape, name
+            if not b.numel():
+                continue
+            denom = max(float(b.abs().max()), 1e-30)
+            assert float((a - b).abs().max()) / denom < tol, (name, dtype)
+
+
+@pytest.mark.parametrize("io,no,layers", [(2, 16, 1), (4, 17, 2),
+                                          (6, 17, 3)])
+def test_split_backward_matches_jax_kernel(monkeypatch, io, no, layers):
+    """The backward as the card runs it (recurrence, then the weight
+    gradient over its streams), in plain form, against the JAX fused SRK
+    kernel at B=13, M=5, H=HH=16 with 0, 1 and 2 inner layers, mult_y and
+    geometric on and off: the trajectory to atol 2e-5 and every gradient
+    to 1e-4 of its largest entry."""
+    monkeypatch.setattr(fs, "fused_srk_backward_reference", _split_backward)
+    _check_against_jax(_setting(Bn=13, Ln=6, width=16), io, no, 16, layers,
+                       grad_tol=1e-4)
+
+
 @pytest.mark.parametrize("n_inner", [0, 2])
 def test_plain_versions_take_every_relu_from_their_argument(n_inner):
     """Every relu of the plain forward and backward (two drift evaluations
@@ -261,8 +329,8 @@ def test_kernel_input_checks_name_the_limit(monkeypatch):
         fs.check_kernel_inputs(**inputs, ys=gys[:, :3], gys=gys)
     with pytest.raises(ValueError, match="not contiguous"):
         fs.check_kernel_inputs(**{**inputs, "wout": inputs["wout"].t()})
-    # any width passes the checks (csrc/sde_common.cuh places what does
-    # not fit shared memory in device memory); the launch that cannot fit
+    # any width passes the checks (the plan splits the weights over a
+    # cluster or reads them from device memory); the launch that cannot fit
     # even then raises naming the limit (stand-in library: the real one
     # needs the card)
     wide, _, wide_gys = _kernel_inputs(4, 17, 1, Bk=2, M=2, Hk=256)
@@ -274,7 +342,7 @@ def test_kernel_input_checks_name_the_limit(monkeypatch):
     cuda = SimpleNamespace(device=torch.device("cuda"))
     with pytest.raises(ValueError, match=f"above this device's {limit}-byte "
                                          f"limit per block"):
-        fs._LIB.stream(cuda, (4096, 4096, 1), backward=False)
+        fs._LIB.stream(cuda, (2, 4096, 4096, 1), backward=False)
 
 
 def test_wrapper_raises_on_a_device_without_the_kernel():
