@@ -44,8 +44,21 @@ LSTM kernels). Phases, each of which raises on failure:
      H=128: the trajectory and every backward output, within
      stated tolerances of the float32 plain version, and no further from
      a float64 run of the plain version than a small multiple of the
-     float32 plain version's own error; and the GRU and LSTM kernels at
+     float32 plain version's own error; the GRU and LSTM kernels at
      the bench shapes against cuDNN (torch.nn.GRU/LSTM, same weights);
+     and the EM and SRK pairs' new modes (compare_modes): the drift modes
+     'yy' and 'xt' and the noise modes 'elem', 'net1' and 'net2', every
+     drift mode with every new noise mode at least once (MODE_CONFIGS:
+     (0,7) and (6,7) on states of either sign), at B=128, L=12 and the
+     sweep's width (H=16) and the sepsis width (H=49, C=69), net2 (2,19)
+     also at H=HH=128 and 256 with its plans printed, and the
+     weight-gradient kernels alone for (1,18) and (3,15), their
+     trajectories and cotangents by the float64 rule (sqrt noise near 0
+     amplifies float32 rounding); and the configurations of phase 4's new
+     paths at those paths' own shapes (compare_path_modes): naivesde
+     (1,18) through the EM pair at the sepsis shape, and each SRK sweep
+     name (SDE_SWEEP_MODELS) at the sweep's shape, with their
+     weight-gradient kernels alone;
   4. main paths, each with every launch count set to 0 just before it and
      read just after: the sepsis harness `run_sepsis` (neurallnsde, H=49,
      batch 1024, C=69) on synthetic_sepsis(n=4096) for 2 epochs, which
@@ -63,9 +76,17 @@ LSTM kernels). Phases, each of which raises on failure:
      model a run with the counts set to 0 before each, each of which must
      launch both kernels of its pair, write a record with an accuracy and
      no error, and whose trained recurrence through the kernels must match
-     its eager loop on a small batch; and the sepsis harness at hidden
-     128 (the interpolation flagship encoder's width) for one epoch, which
-     must launch the three EM kernels with finite losses;
+     its eager loop on a small batch; the sweep cell with the SDE stream
+     names neuralsde_2_16, neuralsde_4_17, neuralsde_6_17 and
+     neuralsde_3_18 (srk), one model a run, each of which must launch the
+     three SRK kernels, write a record with an accuracy and no error, give
+     a finite loss, and whose trained field's fused solve must match the
+     eager one; the sepsis harness at hidden 128 (the interpolation
+     flagship encoder's width) for one epoch, which must launch the three
+     EM kernels with finite losses; and the sepsis harness with naivesde
+     (1,18: drift 'yy', noise 'net2') at the flagship width for one
+     epoch, which must launch the three EM kernels with finite losses and
+     whose trained field's fused solve must match the eager one;
   5. times: the natural cubic fit of the forecasting windows on the host
      by each of its two paths (host clock, median of 3); each kernel and
      its plain version (the CDE pair at the sweep's shape and at both
@@ -81,10 +102,13 @@ LSTM kernels). Phases, each of which raises on failure:
      after warm-up; the CDE step is the uea_rk4 classifier at B=1024, the
      recurrent steps the gru and lstm classifiers at B=1024, L=72, H=32);
      a torch.profiler window of each kernel step gives device time by
-     kernel and the device's busy share.
-It prints one JSON line of the kernels, the card's name and power limit,
-and last `{"ok": true, "device": {...}}`. It exits non-zero, printing no
-result, without a CUDA device or outside the repository.
+     kernel and the device's busy share; and the new modes' kernels
+     (MODE_TIMES: (0,7), (3,15), (1,18)) at the sweep's shape and the
+     sepsis width, with their bounds (mode_kernel_times).
+It prints one JSON line of the kernels (each SDE kernel with the `modes`
+it takes), the card's name and power limit, and last `{"ok": true,
+"device": {...}}`. It exits non-zero, printing no result, without a CUDA
+device or outside the repository.
 
     python3 chip_smoke.py --ab-steps PARENT_DIR [PAIRS [REPS]]
     python3 chip_smoke.py --ab-lstm PARENT_DIR [PAIRS [REPS]]
@@ -92,6 +116,7 @@ result, without a CUDA device or outside the repository.
     python3 chip_smoke.py --ab-kernels PARENT_DIR [PAIRS [REPS]]
     python3 chip_smoke.py --ab-cde PARENT_DIR [PAIRS [REPS]]
     python3 chip_smoke.py --phase-split [em|srk|cde] TREE [TREE ...]
+    python3 chip_smoke.py --sweep-cd OUT [EPOCHS [SEEDS]]
 
 run none of the phases: they time the SDE paths' training steps
 and the CDE classifier's (`ab_steps`), the LSTM or GRU kernels at the
@@ -99,8 +124,11 @@ sweep's and the bench shapes
 (`ab_rnn`), the EM, SRK and CDE kernels at the main paths' shapes and the
 EM and SRK pairs also at H=HH=128 and 256 (`ab_kernels`), or the CDE pair
 at the sweep's shape, both bench shapes and H=HH=128 and 256 (`ab_cde`), of
-a parent checkout against this one, in alternating processes; or split one
-EM, SRK or CDE launch of each tree by phase (`phase_split`).
+a parent checkout against this one, in alternating processes; split one
+EM, SRK or CDE launch of each tree by phase (`phase_split`); or run the
+port's counterpart of tools/run_sweep_cd.py (`sweep_cd`: 5 datasets x 4
+missing rates x 6 models x SEEDS, then the critical-difference analysis,
+written to OUT with SWEEP_CD.json's keys).
 """
 
 from __future__ import annotations
@@ -186,6 +214,19 @@ N_MUJOCO = 4000     # windows: 100 trajectories x 40, as the bank gives
 DEV = "cuda"
 
 
+# every kernel source
+SOURCES = ["fused_em", "fused_srk", "fused_cde", "fused_rnn"]
+# every mode the SDE pairs' kernels take
+SDE_MODES = ["embm", "yy", "xt", "precomp", "elem", "net1", "net2"]
+# phase 4's new paths: the sweep's SDE stream names (srk), and the sepsis
+# harness with the README's naivesde (1,18) (euler) for one epoch
+SDE_SWEEP_MODELS = ("neuralsde_2_16", "neuralsde_4_17", "neuralsde_6_17",
+                    "neuralsde_3_18")
+NAIVE = dict(model="naivesde", epochs=1)
+# phase 5's new modes (each drift mode, each new noise mode) and shapes
+MODE_TIMES = ((0, 7), (3, 15), (1, 18))
+
+
 def card() -> str:
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -200,7 +241,7 @@ def build():
     from snsde_torch.kernels import _build
 
     t0 = time.perf_counter()
-    _build.build(["fused_em", "fused_srk", "fused_cde", "fused_rnn"])
+    _build.build(SOURCES)
     print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
     for name, rec in _build.BUILD_LOG.items():
         for line in rec["log"].splitlines():
@@ -251,14 +292,24 @@ def levy_area(rng, dW, dt=1.0):
 
 
 def _split(inp, srk=False):
-    """(the forward's tensor inputs in order, flags) of an SDE pair."""
+    """(the forward's tensor inputs in order, None where the modes take
+    none; the mode flags) of an SDE pair."""
+    from snsde_torch.kernels import fused_em as fe
     from snsde_torch.kernels import fused_srk as fs
 
-    names = fs._ARG_ORDER if srk else (
-        "y0", "xh", "dw", "a", "gk", "dts", "theta", "wy", "w_inner",
-        "b_inner", "wout", "bo")
-    flags = dict(mult_y=inp["mult_y"], geometric=inp["geometric"])
-    return [inp[k] for k in names], flags
+    mod = fs if srk else fe
+    return ([inp[k] for k in mod._ARG_ORDER],
+            {k: inp[k] for k in mod._MODE_KEYS})
+
+
+def _dbl(t):
+    """A float64 copy of a tensor, or of a NamedTuple's tensors (None
+    kept)."""
+    if t is None:
+        return None
+    if isinstance(t, tuple):
+        return type(t)(*(_dbl(v) for v in t))
+    return t.double()
 
 
 def _kernel_modules():
@@ -269,10 +320,22 @@ def _kernel_modules():
 
 def kernel_fns(key):
     """(forward, plain forward, backward, plain backward) of the pair
-    'em', 'srk' or 'cde'."""
+    'em', 'srk' or 'cde', each forward returning (ys, the noise nets'
+    streams or None) and each backward taking those streams as `ns` (the
+    CDE pair's forwards, which return ys alone, and backwards, which take
+    no streams, wrapped to that form)."""
     mod = _kernel_modules()[key]
-    return tuple(getattr(mod, f"fused_{key}_{n}") for n in (
+    fns = tuple(getattr(mod, f"fused_{key}_{n}") for n in (
         "forward", "forward_reference", "backward", "backward_reference"))
+    if key != "cde":
+        return fns
+
+    def fwd(f):
+        return lambda *a, **k: (f(*a, **k), None)
+
+    def bwd(f):
+        return lambda *a, ns=None, **k: f(*a, **k)
+    return fwd(fns[0]), fwd(fns[1]), bwd(fns[2]), bwd(fns[3])
 
 
 def _errs64(a, ref):
@@ -285,25 +348,27 @@ def _errs64(a, ref):
             float(d.square().mean().sqrt()) / scale)
 
 
-def check_pair(label, fns, fwd, flags, gys, ys_f64_factor=0.0):
+def check_pair(label, fns, fwd, flags, gys, ys_f64_factor=0.0,
+               grad_f64_factor=0.0):
     """Kernel vs plain version on the same inputs; returns max abs errors
     of the forward and the backward (over all its outputs). The trajectory
     may differ by the larger of TOL_YS and ys_f64_factor times the float32
     plain version's own largest error from float64, both over its largest
-    entry; each cotangent by TOL_GRAD of its largest entry. Each output is
-    also held against a float64 run
+    entry; each cotangent by the larger of TOL_GRAD and grad_f64_factor
+    times the float32 plain version's own, over its largest entry. Each
+    output is also held against a float64 run
     of the plain version: the kernel's root-mean-square error from it may
     be at most F64_FACTOR times the float32 plain version's own, plus
     F64_FLOOR (both over the largest entry)."""
     fwd_k, fwd_p, bwd_k, bwd_p = fns
-    ys_k = fwd_k(*fwd, **flags)
-    ys_p = fwd_p(*fwd, **flags)
+    ys_k, ns_k = fwd_k(*fwd, **flags)
+    ys_p, ns_p = fwd_p(*fwd, **flags)
     bwd_args = [fwd[0], ys_p, gys] + fwd[1:]
-    g_k = bwd_k(*bwd_args, **flags)
-    g_p = bwd_p(*bwd_args, **flags)
-    in64 = [t.double() for t in fwd]
-    ys_64 = fwd_p(*in64, **flags)
-    g_64 = bwd_p(in64[0], ys_64, gys.double(), *in64[1:], **flags)
+    g_k = bwd_k(*bwd_args, **flags, ns=ns_p)
+    g_p = bwd_p(*bwd_args, **flags, ns=ns_p)
+    in64 = [_dbl(t) for t in fwd]
+    ys_64, ns_64 = fwd_p(*in64, **flags)
+    g_64 = bwd_p(in64[0], ys_64, gys.double(), *in64[1:], **flags, ns=ns_64)
     torch.cuda.synchronize()
 
     def check64(name, k, p, ref):
@@ -327,17 +392,30 @@ def check_pair(label, fns, fwd, flags, gys, ys_f64_factor=0.0):
     print(f"      ys tol rel {tol_f:.3e}")
     if not rel_f <= tol_f:
         raise AssertionError(f"{label}: forward kernel disagrees: {rel_f}")
+    # a noise net's streams (stage states, outputs, hidden activations),
+    # each by the trajectory's rule
+    for name, a, b, ref in zip(ns_k._fields if ns_k else (), ns_k or (),
+                               ns_p or (), ns_64 or ()):
+        if b is None:
+            continue
+        rel = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+        print(f"    {name:10s} max rel err {rel:.3e}")
+        tol = max(TOL_YS, ys_f64_factor * check64(name, a, b, ref))
+        if not rel <= tol:
+            raise AssertionError(f"{label}: forward kernel disagrees on "
+                                 f"{name}: {rel}")
     err_b = 0.0
     for name, a, b, ref in zip(g_k._fields, g_k, g_p, g_64):
-        if b.numel() == 0:
+        if b is None or b.numel() == 0:
             continue
         err = float((a - b).abs().max())
         rel = err / max(float(b.abs().max()), 1e-30)
         err_b = max(err_b, err)
+        p_max = check64(name, a, b, ref)
+        tol_g = max(TOL_GRAD, grad_f64_factor * p_max)
         print(f"    d{name[1:]:9s} max abs err {err:.3e} rel {rel:.3e} "
-              f"(tol rel {TOL_GRAD:g})")
-        check64(name, a, b, ref)
-        if not rel <= TOL_GRAD:
+              f"(tol rel {tol_g:.3g})")
+        if not rel <= tol_g:
             raise AssertionError(f"{label}: backward kernel disagrees on "
                                  f"{name}")
     return err_f, err_b
@@ -420,17 +498,18 @@ def cde_plans(shapes, method="rk4"):
                                      f"be scheduled: {p}")
 
 
-def sde_plans(key, shapes):
-    """Print the EM or SRK pair's plan (key 'em' or 'srk') at each (B, H,
-    n_inner) (H = HH): level (0 the weight slices in shared memory, 1 the
-    weights read from device memory), CTAs and batch rows a cluster,
-    shared bytes a CTA and cudaOccupancyMaxActiveClusters; raise if one
-    cannot be scheduled."""
+def sde_plans(key, shapes, drift="embm", noise="precomp"):
+    """Print the EM or SRK pair's plan (key 'em' or 'srk') in a drift and
+    noise mode at each (B, H, n_inner) (H = HH): level (0 the weight slices
+    in shared memory, 1 the weights read from device memory), CTAs and
+    batch rows a cluster, shared bytes a CTA and
+    cudaOccupancyMaxActiveClusters; raise if one cannot be scheduled."""
     plan = getattr(_kernel_modules()[key], f"fused_{key}_plan")
     for B, H, n_inner in shapes:
         for backward in (False, True):
-            p = plan(B, H, H, n_inner, backward)
-            print(f"  {key.upper()} plan B={B} H=HH={H} n_inner={n_inner} "
+            p = plan(B, H, H, n_inner, backward, drift, noise)
+            print(f"  {key.upper()} plan ({drift}, {noise}) B={B} H=HH={H} "
+                  f"n_inner={n_inner} "
                   f"{'backward' if backward else 'forward'}: level "
                   f"{p['level']}, CS={p['cluster']}, {p['rows']} rows a "
                   f"cluster, {p['smem_bytes']} shared bytes a CTA, "
@@ -440,25 +519,41 @@ def sde_plans(key, shapes):
                                      f"cannot be scheduled: {p}")
 
 
-def wgrad_streams(st):
-    """The recurrence's streams an SDE weight-gradient kernel reads, in its
-    plain version's order after y0 and ys (the SRK's H0_1 first)."""
-    names = ("dxh", "hs", "es", "dz3", "q")
-    return tuple(getattr(st, n) for n in (("h01",) if hasattr(st, "h01")
-                                          else ()) + names)
+def wgrad_plain(key, y0, ys, st, ns, flags):
+    """The EM or SRK weight-gradient kernel's plain version on the
+    recurrence's streams st and the forward's noise streams ns (None
+    outside the nets' modes)."""
+    mod = _kernel_modules()[key]
+    plain = getattr(mod, f"fused_{key}_weight_grads_reference")
+    mf = dict(drift=flags["drift"], noise=flags["noise"])
+    nh = None if ns is None else ns.nh
+    if key == "em":
+        return plain(y0, ys, st.dxh, st.hs, st.es, st.dz3, st.q, st.dn,
+                     st.dz2, nh, **mf)
+    return plain(y0, ys, st.h01, st.dxh, st.hs, st.es, st.dz3, st.q,
+                 None if ns is None else ns.nst, st.dn, st.dz2, nh, **mf)
+
+
+def wgrad_kernel(key, y0, ys, st, ns, flags):
+    """The EM or SRK weight-gradient kernel's wrapper on the streams."""
+    fn = getattr(_kernel_modules()[key], f"fused_{key}_weight_grads")
+    extra = (None if ns is None else ns.nh) if key == "em" else ns
+    return fn(y0, ys, st, extra, drift=flags["drift"], noise=flags["noise"])
 
 
 def sde_wgrad_args(key, model_name, B, L, C, H, layers):
     """An SDE weight-gradient kernel's inputs at a shape: y0, the plain
-    trajectory and the plain backward recurrence's streams."""
+    trajectory, the plain backward recurrence's streams, the plain
+    forward's noise streams (None outside the nets' modes) and the
+    flags."""
     mod = _kernel_modules()[key]
     inp, gys = kernel_inputs(model_name, B, L, C, H, layers,
                              srk=key == "srk")
     fwd, flags = _split(inp, key == "srk")
-    ys = getattr(mod, f"fused_{key}_forward_reference")(*fwd, **flags)
+    ys, ns = getattr(mod, f"fused_{key}_forward_reference")(*fwd, **flags)
     st = getattr(mod, f"fused_{key}_backward_recurrence_reference")(
-        fwd[0], ys, gys, *fwd[1:], **flags)
-    return fwd[0], ys, st
+        fwd[0], ys, gys, *fwd[1:], **flags, ns=ns)
+    return fwd[0], ys, st, ns, flags
 
 
 def compare_sde_wgrad(key, model_name, B, L, C, H, layers):
@@ -466,22 +561,21 @@ def compare_sde_wgrad(key, model_name, B, L, C, H, layers):
     version on the plain recurrence's streams: every output within
     TOL_GRAD of its largest entry, and no further from a float64 run than
     the F64 rule allows. Returns the largest abs error."""
-    mod = _kernel_modules()[key]
-    plain = getattr(mod, f"fused_{key}_weight_grads_reference")
-    y0, ys, st = sde_wgrad_args(key, model_name, B, L, C, H, layers)
-    k = getattr(mod, f"fused_{key}_weight_grads")(y0, ys, st)
-    p = plain(y0, ys, *wgrad_streams(st))
-    r = plain(y0.double(), ys.double(),
-              *(t.double() for t in wgrad_streams(st)))
+    y0, ys, st, ns, flags = sde_wgrad_args(key, model_name, B, L, C, H,
+                                           layers)
+    k = wgrad_kernel(key, y0, ys, st, ns, flags)
+    p = wgrad_plain(key, y0, ys, st, ns, flags)
+    r = wgrad_plain(key, _dbl(y0), _dbl(ys), _dbl(st), _dbl(ns), flags)
     torch.cuda.synchronize()
     worst = 0.0
     for name, a, b, ref in zip(p._fields, k, p, r):
-        if not b.numel():
+        if b is None or not b.numel():
             continue
         e = float((a - b).abs().max())
         rel = e / max(float(b.abs().max()), 1e-30)
         (k_max, k_rms), (p_max, p_rms) = _errs64(a, ref), _errs64(b, ref)
-        print(f"  {key.upper()} weight-gradient kernel B={B} L={L} H={H} "
+        print(f"  {key.upper()} weight-gradient kernel {model_name} B={B} "
+              f"L={L} H={H} "
               f"{name}: max abs err {e:.3e} rel {rel:.3e} (tol "
               f"{TOL_GRAD:g}); from float64 largest/rms: kernel "
               f"{k_max:.3e}/{k_rms:.3e}, float32 plain {p_max:.3e}/"
@@ -539,7 +633,8 @@ class NearRelu:
         return out
 
 
-def check_near_rows(label, key, fwd, flags, gys, near, ys_f64_factor):
+def check_near_rows(label, key, fwd, flags, gys, near, ys_f64_factor,
+                    grad_f64_factor=0.0):
     """The rows check_pair_rows sets aside (`near`: NearRelu.rows() of a
     float64 run), each judged on the whole batch by its trajectory and
     its batch-indexed cotangents (ROW_GRADS) from the kernel against
@@ -555,27 +650,32 @@ def check_near_rows(label, key, fwd, flags, gys, near, ys_f64_factor):
     pre-activations in float64 and in the float32 plain version, and the
     errors from every run."""
     fwd_k, fwd_p, bwd_k, bwd_p = kernel_fns(key)
-    ys_p = fwd_p(*fwd, **flags)
+    ys_p, ns_p = fwd_p(*fwd, **flags)
     probe32 = NearRelu(at=near.found)
     fwd_p(*fwd, **flags, relu=probe32)
-    ys_k = fwd_k(*fwd, **flags)
-    g_k = bwd_k(fwd[0], ys_k, gys, *fwd[1:], **flags)
-    in64 = [t.double() for t in fwd]
+    ys_k, ns_k = fwd_k(*fwd, **flags)
+    g_k = bwd_k(fwd[0], ys_k, gys, *fwd[1:], **flags, ns=ns_k)
+    in64 = [_dbl(t) for t in fwd]
+    rows = [n for n in ROW_GRADS[key] if getattr(g_k, n) is not None]
     refs = {}
     for side, flip, ins in (("as float64 rounds them", False, in64),
                             ("on the other side", True, in64),
                             ("as float32 rounds them", False, fwd),
                             ("on float32's other side", True, fwd)):
         g = gys.double() if ins is in64 else gys
-        ys64 = fwd_p(*ins, **flags, relu=NearRelu(flip=flip))
+        ys64, ns64 = fwd_p(*ins, **flags, relu=NearRelu(flip=flip))
         g64 = bwd_p(ins[0], ys64, g, *ins[1:], **flags,
-                    relu=NearRelu(flip=flip))
-        refs[side] = {"ys": (ys64, 1), **{n: (getattr(g64, n), ax)
-                                           for n, ax in ROW_GRADS[key].items()}}
-    outs = {"ys": ys_k, **{n: getattr(g_k, n) for n in ROW_GRADS[key]}}
+                    relu=NearRelu(flip=flip), ns=ns64)
+        refs[side] = {"ys": (ys64, 1), **{n: (getattr(g64, n),
+                                              ROW_GRADS[key][n])
+                                           for n in rows}}
+    outs = {"ys": ys_k, **{n: getattr(g_k, n) for n in rows}}
     ys64 = refs["as float64 rounds them"]["ys"][0]
+    g_p = bwd_p(fwd[0], ys_p, gys, *fwd[1:], **flags, ns=ns_p)
     tol = {"ys": max(TOL_YS, ys_f64_factor * _errs64(ys_p, ys64)[0]),
-           **{n: TOL_GRAD for n in ROW_GRADS[key]}}
+           **{n: max(TOL_GRAD, grad_f64_factor * _errs64(
+               getattr(g_p, n), refs["as float64 rounds them"][n][0])[0])
+              for n in rows}}
     z32 = probe32.rows()
     for r, entries in sorted(near.rows().items()):
         print(f"    {label} row {r}, near relus (evaluation, unit, float64 / "
@@ -597,15 +697,19 @@ def check_near_rows(label, key, fwd, flags, gys, near, ys_f64_factor):
                                  f"neither side of its near relus")
 
 
-def check_pair_rows(label, key, fwd, flags, gys):
+def check_pair_rows(label, key, fwd, flags, gys, amplifies=False):
     """A pair against its plain versions: check_pair on the rows where
     float32 rounding cannot flip a relu (NearRelu on a float64 run of the
     plain forward; every row for a tanh field), and check_near_rows on
-    the others. Returns check_pair's errors."""
-    factor = YS_F64_FACTOR if key == "cde" else 0.0
+    the others. Returns check_pair's errors. The CDE pair's trajectory,
+    and with `amplifies` (an SDE pair in the new modes, where sqrt noise
+    near y = 0 amplifies float32 rounding) its trajectory and cotangents,
+    are held by the float64 rule (YS_F64_FACTOR)."""
+    factor = YS_F64_FACTOR if key == "cde" or amplifies else 0.0
+    gfactor = YS_F64_FACTOR if amplifies else 0.0
     near = NearRelu()
     if flags.get("act", "relu") == "relu":
-        kernel_fns(key)[1](*(t.double() for t in fwd), **flags, relu=near)
+        kernel_fns(key)[1](*(_dbl(t) for t in fwd), **flags, relu=near)
     aside = sorted(near.rows())
     B = gys.shape[1]
     if aside:
@@ -617,12 +721,13 @@ def check_pair_rows(label, key, fwd, flags, gys):
     err = check_pair(f"{label} B={len(rows)}" if aside else label,
                      kernel_fns(key),
                      [t.index_select(ins[i], rows).contiguous()
-                      if i in ins and aside else t
+                      if i in ins and aside and t is not None else t
                       for i, t in enumerate(fwd)],
                      flags, gys.index_select(1, rows).contiguous()
-                     if aside else gys, ys_f64_factor=factor)
+                     if aside else gys, ys_f64_factor=factor,
+                     grad_f64_factor=gfactor)
     if aside:
-        check_near_rows(label, key, fwd, flags, gys, near, factor)
+        check_near_rows(label, key, fwd, flags, gys, near, factor, gfactor)
     return err
 
 
@@ -648,6 +753,94 @@ def compare_wide():
                             key, fwd, flags, gys)
 
 
+# Phase 3: the drift modes 'yy' and 'xt' and the noise modes 'elem', 'net1'
+# and 'net2' of both SDE pairs, every drift mode with every new noise mode
+# at least once ((0,7) and (6,7) on states of either sign), at a small
+# batch and length
+MODE_CONFIGS = ((0, 7), (1, 8), (3, 9), (5, 10), (0, 14), (3, 15), (1, 18),
+                (5, 19), (6, 7), (4, 14), (2, 19))
+MODE_SHAPE = dict(B=128, L=12, layers=2)
+
+
+def mode_name(io, no):
+    return f"neuralsde_{io}_{no}"
+
+
+def compare_modes():
+    """Both SDE pairs in every configuration of MODE_CONFIGS at the sweep's
+    width (H=16) and the sepsis width (H=49, C=69), B=128, L=12, two
+    hidden layers, against their plain versions (check_pair_rows: float32
+    and float64); net2 (2,19) also at H=HH=128 and 256 with one inner
+    layer (B=128, L=24), its plans printed; the weight-gradient kernels
+    alone for (1,18) and (3,15) at the sepsis width. Returns the largest
+    errors of each pair's forward and backward, and of its weight-gradient
+    kernel."""
+    err = {}
+    for key in ("em", "srk"):
+        worst = [0.0, 0.0]
+        for io, no in MODE_CONFIGS:
+            for H, C in ((SWEEP["H"], SWEEP["D"] + 1), (MAIN["H"], MAIN["C"])):
+                inp, gys = kernel_inputs(mode_name(io, no), MODE_SHAPE["B"],
+                                         MODE_SHAPE["L"], C, H,
+                                         MODE_SHAPE["layers"],
+                                         srk=key == "srk")
+                fwd, flags = _split(inp, key == "srk")
+                e = check_pair_rows(f"{key.upper()} ({io},{no}) "
+                                    f"({flags['drift']}, {flags['noise']}) "
+                                    f"B={MODE_SHAPE['B']} L={MODE_SHAPE['L']}"
+                                    f" H={H}", key, fwd, flags, gys,
+                                    amplifies=True)
+                worst = [max(a, b) for a, b in zip(worst, e)]
+        for H in WIDE_H:
+            sde_plans(key, [(WIDE["B"], H, 1), (MAIN["B"], H, 1)],
+                      drift="embm", noise="net2")
+            inp, gys = kernel_inputs(mode_name(2, 19), WIDE["B"], WIDE["L"],
+                                     MAIN["C"], H, 2, srk=key == "srk")
+            fwd, flags = _split(inp, key == "srk")
+            check_pair_rows(f"{key.upper()} (2,19) wide L={WIDE['L']} "
+                            f"H=HH={H}", key, fwd, flags, gys,
+                            amplifies=True)
+        err[f"{key}_modes"] = tuple(worst)
+        err[f"{key}_modes_wgrad"] = max(
+            compare_sde_wgrad(key, mode_name(io, no), MODE_SHAPE["B"],
+                              MODE_SHAPE["L"], MAIN["C"], MAIN["H"],
+                              MODE_SHAPE["layers"])
+            for io, no in ((1, 18), (3, 15)))
+    return err
+
+
+# phase 4's new paths at their own shapes: (pair, model, B, L, C, H, hidden
+# layers) of naivesde on the sepsis harness (euler) and of each SDE stream
+# name on the sweep cell (srk, one hidden layer)
+PATH_MODES = ((("em", NAIVE["model"], MAIN["B"], MAIN["L"], MAIN["C"],
+                MAIN["H"], MAIN["layers"]),)
+              + tuple(("srk", name, SWEEP["B"], SWEEP["L"], SWEEP["D"] + 1,
+                       SWEEP["H"], 1) for name in SDE_SWEEP_MODELS))
+
+
+def compare_path_modes():
+    """Each PATH_MODES configuration at its path's shape against the plain
+    versions (check_pair_rows; the new modes by the float64 rule, the
+    'embm'+'precomp' fields by the strict one), and its weight-gradient
+    kernel alone (compare_sde_wgrad). Returns the largest errors of each
+    pair's forward and backward, and of its weight-gradient kernel."""
+    err = {}
+    for key, name, B, L, C, H, layers in PATH_MODES:
+        inp, gys = kernel_inputs(name, B, L, C, H, layers, srk=key == "srk")
+        fwd, flags = _split(inp, key == "srk")
+        new = (flags["drift"], flags["noise"]) != ("embm", "precomp")
+        e = check_pair_rows(f"{key.upper()} path {name} "
+                            f"({flags['drift']}, {flags['noise']}) B={B} "
+                            f"L={L} H={H}", key, fwd, flags, gys,
+                            amplifies=new)
+        w = compare_sde_wgrad(key, name, B, L, C, H, layers)
+        f, b = err.get(f"{key}_paths", (0.0, 0.0))
+        err[f"{key}_paths"] = (max(f, e[0]), max(b, e[1]))
+        err[f"{key}_paths_wgrad"] = max(err.get(f"{key}_paths_wgrad", 0.0),
+                                        w)
+    return err
+
+
 def wide_kernel_times(reps=5):
     """ms per launch of the wide route: the EM and SRK pairs at the
     sepsis shape (B=1024, 71 steps, C=69) and the CDE pair at uea_rk4
@@ -660,7 +853,7 @@ def wide_kernel_times(reps=5):
             inp, gys = kernel_inputs(MAIN["model"], MAIN["B"], MAIN["L"],
                                      MAIN["C"], H, 2, srk=key == "srk")
             fwd, flags = _split(inp, key == "srk")
-            ys = fwd_k(*fwd, **flags)
+            ys, _ = fwd_k(*fwd, **flags)
             args = [fwd[0], ys, gys] + fwd[1:]
             ms[f"{key} H={H} fwd"] = timed(lambda: fwd_k(*fwd, **flags),
                                            reps=reps, warmup=1)
@@ -669,7 +862,7 @@ def wide_kernel_times(reps=5):
         fwd_k, _, bwd_k, _ = kernel_fns("cde")
         sh = CDE["uea_rk4"]
         fwd, flags, gys = cde_kernel_inputs(sh["B"], sh["L"], sh["C"], H, 1)
-        ys = fwd_k(*fwd, **flags)
+        ys, _ = fwd_k(*fwd, **flags)
         args = [fwd[0], ys, gys] + fwd[1:]
         ms[f"cde H={H} fwd"] = timed(lambda: fwd_k(*fwd, **flags),
                                      reps=reps, warmup=1)
@@ -774,6 +967,39 @@ def wide_sepsis_path():
     return launches
 
 
+def naive_sepsis_path():
+    """The sepsis harness with naivesde (1,18: drift 'yy', noise 'net2')
+    at the flagship width for NAIVE["epochs"] epoch: it must launch the
+    three EM kernels with finite losses, and the trained field's fused
+    solve must match the eager one. Returns the launch counts."""
+    import dataclasses
+
+    from snsde_torch.harness.classification import run_sepsis
+
+    cfg = dataclasses.replace(main_config(), model_name=NAIVE["model"])
+    zero_counts()
+    t0 = time.perf_counter()
+    res = run_sepsis(cfg, n=N_SEPSIS, max_epochs=NAIVE["epochs"], device=DEV)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    wall = time.perf_counter() - t0
+    losses = [h[s]["loss"] for h in res.history for s in ("train", "val")]
+    losses += [res.train_metrics.loss, res.val_metrics.loss,
+               res.test_metrics.loss]
+    print(f"main path 1 with {NAIVE['model']}: run_sepsis {NAIVE['epochs']} "
+          f"epoch in {wall:.1f} s, losses {[round(v, 4) for v in losses]}, "
+          f"val AUROC {res.val_metrics.auroc:.4f}, launches {launches}",
+          flush=True)
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite loss on the sepsis path with "
+                             f"{NAIVE['model']}")
+    if min(launches[f"em_{k}"] for k in ("fwd", "bwd", "wgrad")) <= 0:
+        raise AssertionError(f"sepsis path with {NAIVE['model']} did not "
+                             f"run the EM kernels: {launches}")
+    check_trained_solve(res.model.sde.func, MAIN, amplifies=True)
+    return launches
+
+
 def mujoco_config():
     from snsde_torch.harness.forecasting import ForecastConfig
 
@@ -856,6 +1082,63 @@ def sweep_path(out_dir):
     return launches
 
 
+def sde_sweep_path(out_dir):
+    """The robustness sweep's SDE stream names (SDE_SWEEP_MODELS, srk) on
+    the sweep cell, one model a run with every count set to 0 before it:
+    each must launch the three SRK kernels, write a record with an accuracy
+    and no error, give a finite loss on the validation rows, and its
+    trained field's fused solve must match the eager one. Returns the
+    launch counts of each run."""
+    from snsde_torch.harness.robustness import (SweepConfig, preprocess_ists,
+                                                run_robustness_sweep)
+    from snsde_torch.train.loop import softmax_cross_entropy
+
+    X, y, _ = uea_b_noisy()
+    data = preprocess_ists(X[:64], missing_rate=0.3, seed=0,
+                           interpolation="hermite")
+    out = {}
+    for name in SDE_SWEEP_MODELS:
+        cfg = SweepConfig(models=(name,), missing_rates=(0.3,), seeds=(0,),
+                          hidden_dim=SWEEP["H"], batch_size=SWEEP["B"],
+                          max_epochs=2, out_dir=out_dir)
+        trained = {}
+        zero_counts()
+        t0 = time.perf_counter()
+        recs = run_robustness_sweep(cfg, n=SWEEP["n"], data_fn=uea_b_noisy,
+                                    dataset_name="uea_b_noisy",
+                                    verbose=False, device=DEV,
+                                    models=trained)
+        torch.cuda.synchronize()
+        launches = out[name] = read_counts()
+        wall = time.perf_counter() - t0
+        model = trained.get((0.3, name, 0))
+        loss = float("nan")
+        if model is not None:
+            model.eval()
+            with torch.no_grad():
+                logits = model(torch.as_tensor(data["seq"], device=DEV),
+                               torch.as_tensor(data["coeffs"], device=DEV),
+                               generator=torch.Generator(DEV).manual_seed(0))
+                loss = float(softmax_cross_entropy(
+                    logits, torch.as_tensor(y[:64], device=DEV).long()))
+        print(f"main path 3 with {name}: run_robustness_sweep (srk) 2 "
+              f"epochs in {wall:.1f} s, records {recs}, validation-rows "
+              f"loss {loss:.4f}, launches {launches}", flush=True)
+        if not recs or any("error" in r or "accuracy" not in r
+                           for r in recs):
+            raise AssertionError(f"the sweep wrote a failed record: {recs}")
+        if not (all(np.isfinite(r["accuracy"]) for r in recs)
+                and np.isfinite(loss)):
+            raise AssertionError(f"non-finite accuracy or loss with {name}")
+        if min(launches[f"srk_{k}"] for k in ("fwd", "bwd", "wgrad")) <= 0:
+            raise AssertionError(f"{name} did not run the SRK kernels: "
+                                 f"{launches}")
+        check_trained_solve(model.layer.inner.func,
+                            dict(L=SWEEP["L"], C=SWEEP["D"] + 1,
+                                 H=SWEEP["H"]), srk=True, amplifies=True)
+    return out
+
+
 def check_trained_cde_solve(model, data):
     """A trained classifier's CDE stream through the fused kernels vs the
     eager cdeint, on the same coefficients. The two are different solvers
@@ -886,9 +1169,15 @@ def check_trained_cde_solve(model, data):
         raise AssertionError("trained CDE model's fused solve disagrees")
 
 
-def check_trained_solve(func, shape, srk=False, B=64):
+def check_trained_solve(func, shape, srk=False, B=64, amplifies=False):
     """A trained field's fused solve vs the eager solver, on the same dW
-    (and, for srk, the same Lévy area)."""
+    (and, for srk, the same Lévy area): within TOL_YS of max|ys|, or with
+    `amplifies` (the new paths' trained fields, stepped at dt = 1 here,
+    where their solves amplify float32 rounding) within the larger of that
+    and YS_F64_FACTOR times the float32 eager solve's own largest error
+    from a float64 run of it, as the CDE pair's trained solve is held."""
+    import copy
+
     from snsde_torch.kernels.fused_em import fused_em_solve
     from snsde_torch.kernels.fused_srk import fused_srk_solve
     from snsde_torch.ops import (BrownianGrid, CubicPath, hermite_cubic_coeffs,
@@ -896,6 +1185,7 @@ def check_trained_solve(func, shape, srk=False, B=64):
 
     rng = np.random.default_rng(1)
     L, C, H = shape["L"], shape["C"], shape["H"]
+    label = f"({func.input_option},{func.noise_option})"
     times = np.arange(L, dtype=np.float32)
     x = torch.as_tensor(rng.normal(size=(B, L, C)).astype(np.float32))
     path = CubicPath(hermite_cubic_coeffs(torch.as_tensor(times), x).to(DEV),
@@ -906,23 +1196,42 @@ def check_trained_solve(func, shape, srk=False, B=64):
     dW = torch.as_tensor(dW).to(DEV)
     y0 = torch.as_tensor(rng.normal(size=(B, H)).astype(np.float32)).to(DEV)
     field = func.bind(path)
+
+    def eager(fld, pth, y, dw, i10):
+        if srk:
+            return sdeint(fld.f, fld.g, y, times, method="srk",
+                          bm=BrownianGrid(grid, dw, i10))
+        return sdeint(fld.f, fld.g, y, times, bm=BrownianGrid(grid, dw))
+
     with torch.no_grad():
         if srk:
             ys_f = fused_srk_solve(field, path, times, y0, dt=1.0,
                                    brownian_override=(dW, I10))
-            ys_e = sdeint(field.f, field.g, y0, times, method="srk",
-                          bm=BrownianGrid(grid, dW, I10))
         else:
             ys_f = fused_em_solve(field, path, times, y0, dt=1.0,
                                   dW_override=dW)
-            ys_e = sdeint(field.f, field.g, y0, times,
-                          bm=BrownianGrid(grid, dW))
+        ys_e = eager(field, path, y0, dW, I10)
+        tol, note = TOL_YS, ""
+        if amplifies:
+            path64 = CubicPath(hermite_cubic_coeffs(
+                torch.as_tensor(times, dtype=torch.float64),
+                x.double()).to(DEV), times)
+            f64 = copy.deepcopy(func).double().bind(path64)
+            ys_64 = eager(f64, path64, y0.double(), dW.double(),
+                          I10.double())
+            scale = float(ys_64.abs().max())
+            e32 = float((ys_e.double() - ys_64).abs().max()) / scale
+            ek = float((ys_f.double() - ys_64).abs().max()) / scale
+            tol = max(TOL_YS, YS_F64_FACTOR * e32)
+            note = (f"; from float64: the float32 eager solve {e32:.3e}, the "
+                    f"fused {ek:.3e}")
     err = float((ys_f - ys_e).abs().max())
     rel = err / max(float(ys_e.abs().max()), 1e-30)
-    print(f"trained model: fused vs eager {'srk' if srk else 'euler'} "
-          f"solve, B={B}: shape {tuple(ys_f.shape)}, max abs err {err:.3e} "
-          f"rel {rel:.3e} (tol rel {TOL_YS:g})")
-    if not (torch.isfinite(ys_f).all() and rel <= TOL_YS):
+    print(f"trained model {label}: fused vs eager "
+          f"{'srk' if srk else 'euler'} solve, B={B}: shape "
+          f"{tuple(ys_f.shape)}, max abs err {err:.3e} rel {rel:.3e} (tol "
+          f"rel {tol:.3e}{note})")
+    if not (torch.isfinite(ys_f).all() and rel <= tol):
         raise AssertionError("trained model's fused solve disagrees")
 
 
@@ -1475,7 +1784,7 @@ def kernel_times(shape, srk=False):
     inp, gys = kernel_inputs(shape["model"], shape["B"], shape["L"],
                              shape["C"], shape["H"], shape["layers"], srk=srk)
     fwd, flags = _split(inp, srk)
-    ys = fwd_k(*fwd, **flags)
+    ys, _ = fwd_k(*fwd, **flags)
     bwd_args = [fwd[0], ys, gys] + fwd[1:]
     ms = {"fwd": timed(lambda: fwd_k(*fwd, **flags)),
           "fwd_plain": timed(lambda: fwd_p(*fwd, **flags)),
@@ -1486,15 +1795,78 @@ def kernel_times(shape, srk=False):
     n_inner = inp["w_inner"].shape[0]
     evals = 2 if srk else 1
     products = 2 * evals * M * B * (H * HH + n_inner * HH * HH + HH * H)
-    nbytes_in = 4 * sum(t.numel() for t in fwd)
+    nbytes_in = 4 * sum(t.numel() for t in fwd if t is not None)
     grads = bwd_k(*bwd_args, **flags)
     bounds = {"fwd": bound(nbytes_in + 4 * ys.numel(), products),
               "bwd": bound(nbytes_in + 4 * (ys.numel() + gys.numel()
-                                            + sum(g.numel() for g in grads)),
+                                            + sum(g.numel() for g in grads
+                                                  if g is not None)),
                            3 * products)}
     ms_w, bounds["wgrad"] = sde_backward_times("srk" if srk else "em", fwd,
                                                ys, gys, flags)
     ms.update(ms_w)
+    return ms, bounds
+
+
+def sde_products(key, flags, M, B, H, HH, NI):
+    """fp32 operations of an SDE pair's forward: the drift MLP's products
+    (one evaluation an EM step, two an SRK step; no first product in drift
+    mode 'xt') and the noise nets' (one diffusion evaluation an EM step,
+    four an SRK step; H x H a layer)."""
+    evals, nevals = (2, 4) if key == "srk" else (1, 1)
+    first = 0 if flags["drift"] == "xt" else H * HH
+    nets = {"net1": 1, "net2": 2}.get(flags["noise"], 0)
+    return 2 * M * B * (evals * (first + NI * HH * HH + HH * H)
+                        + nevals * nets * H * H)
+
+
+def mode_kernel_times(reps=10):
+    """Phase 5's new modes: each pair's forward and backward (the wrapper:
+    recurrence, weight gradient, sums) in MODE_TIMES at the sweep's shape
+    (B=64, L=60, C=6, H=16) and the sepsis width (B=1024, L=72, C=69,
+    H=49), two hidden layers, median of `reps`; the plain versions at the
+    sweep's shape (3 runs); and the bounds of each from its inputs (the
+    bytes of every input and output once, sde_products; the backward 3x
+    the forward's operations). {name: ms}, {name: bound}."""
+    ms, bounds = {}, {}
+    shapes = {"sweep": (SWEEP["B"], SWEEP["L"], SWEEP["D"] + 1, SWEEP["H"]),
+              "sepsis": (MAIN["B"], MAIN["L"], MAIN["C"], MAIN["H"])}
+    for key in ("em", "srk"):
+        fwd_k, fwd_p, bwd_k, bwd_p = kernel_fns(key)
+        for io, no in MODE_TIMES:
+            for sname, (B, L, C, H) in shapes.items():
+                inp, gys = kernel_inputs(mode_name(io, no), B, L, C, H, 2,
+                                         srk=key == "srk")
+                fwd, flags = _split(inp, key == "srk")
+                ys, ns = fwd_k(*fwd, **flags)
+                args = [fwd[0], ys, gys] + fwd[1:]
+                tag = f"{key} ({io},{no}) {sname}"
+                ms[f"{tag} fwd"] = timed(lambda: fwd_k(*fwd, **flags),
+                                         reps=reps, warmup=2)
+                ms[f"{tag} bwd"] = timed(
+                    lambda: bwd_k(*args, **flags, ns=ns), reps=reps,
+                    warmup=2)
+                if sname == "sweep":
+                    ms[f"{tag} fwd_plain"] = timed(
+                        lambda: fwd_p(*fwd, **flags), reps=3, warmup=1)
+                    ms[f"{tag} bwd_plain"] = timed(
+                        lambda: bwd_p(*args, **flags, ns=ns), reps=3,
+                        warmup=1)
+                M = ys.shape[0]
+                flops = sde_products(key, flags, M, B, H, H, 1)
+                n_in = sum(t.numel() for t in fwd if t is not None)
+                n_ns = sum(t.numel() for t in (ns or ()) if t is not None)
+                grads = bwd_k(*args, **flags, ns=ns)
+                n_g = sum(g.numel() for g in grads if g is not None)
+                bounds[f"{tag} fwd"] = bound(4 * (n_in + ys.numel() + n_ns),
+                                             flops)
+                bounds[f"{tag} bwd"] = bound(
+                    4 * (n_in + 2 * ys.numel() + n_ns + n_g), 3 * flops)
+                print(f"new mode times {tag} (B={B}, M={M}, H={H}): "
+                      f"fwd {ms[tag + ' fwd']:.4f} ms, bwd "
+                      f"{ms[tag + ' bwd']:.4f} ms; bounds "
+                      f"{bounds[tag + ' fwd']}, {bounds[tag + ' bwd']}",
+                      flush=True)
     return ms, bounds
 
 
@@ -1516,8 +1888,8 @@ def sde_backward_times(key, fwd, ys, gys, flags):
           "bwd_recurrence": timed(lambda: fn("backward_recurrence")(
               *rec_args, **flags)),
           "bwd_wgrad": timed(lambda: fn("weight_grads")(y0, ys, st)),
-          "wgrad_plain": timed(lambda: fn("weight_grads_reference")(
-              y0, ys, *wgrad_streams(st)))}
+          "wgrad_plain": timed(lambda: wgrad_plain(key, y0, ys, st, None,
+                                                   flags))}
     M, B, H = ys.shape
     HH, NI = st.dxh.shape[-1], st.es.shape[0]
     xs = [y0[None], ys[:-1]] + ([st.h01] if key == "srk" else [])
@@ -1552,7 +1924,7 @@ def cde_kernel_times(shape, method="rk4"):
     fwd_k, fwd_p, bwd_k, bwd_p = kernel_fns("cde")
     fwd, flags, gys = cde_kernel_inputs(shape["B"], shape["L"], shape["C"],
                                         shape["H"], shape["n_inner"], method)
-    ys = fwd_k(*fwd, **flags)
+    ys, _ = fwd_k(*fwd, **flags)
     bwd_args = [fwd[0], ys, gys] + fwd[1:]
     ms = {"fwd": timed(lambda: fwd_k(*fwd, **flags)),
           "fwd_plain": timed(lambda: fwd_p(*fwd, **flags), reps=5, warmup=1),
@@ -1819,6 +2191,8 @@ _AB_SDE_CHILD = """
 import json, sys
 sys.path.insert(0, {root!r})
 import chip_smoke as c
+# a forward's ys (a parent tree's forwards may return ys alone)
+ys_of = lambda o: o[0] if isinstance(o, tuple) else o
 out = {{}}
 for key, shape in (("em", c.MAIN), ("srk", c.SRK)):
     fwd_k, _, bwd_k, _ = c.kernel_fns(key)
@@ -1826,7 +2200,7 @@ for key, shape in (("em", c.MAIN), ("srk", c.SRK)):
                                shape["C"], shape["H"], shape["layers"],
                                srk=key == "srk")
     fwd, flags = c._split(inp, key == "srk")
-    ys = fwd_k(*fwd, **flags)
+    ys = ys_of(fwd_k(*fwd, **flags))
     args = [fwd[0], ys, gys] + fwd[1:]
     out[key + " fwd"] = c.timed(lambda: fwd_k(*fwd, **flags), reps={reps})
     out[key + " bwd"] = c.timed(lambda: bwd_k(*args, **flags), reps={reps})
@@ -1836,7 +2210,7 @@ for key in ("em", "srk"):
         inp, gys = c.kernel_inputs(c.MAIN["model"], c.MAIN["B"], c.MAIN["L"],
                                    c.MAIN["C"], H, 2, srk=key == "srk")
         fwd, flags = c._split(inp, key == "srk")
-        ys = fwd_k(*fwd, **flags)
+        ys = ys_of(fwd_k(*fwd, **flags))
         args = [fwd[0], ys, gys] + fwd[1:]
         out["%s H=HH=%d fwd" % (key, H)] = c.timed(
             lambda: fwd_k(*fwd, **flags), reps={wide_reps}, warmup=2)
@@ -1845,7 +2219,7 @@ for key in ("em", "srk"):
 fwd_k, _, bwd_k, _ = c.kernel_fns("cde")
 fwd, flags, gys = c.cde_kernel_inputs(c.SWEEP["B"], c.SWEEP["L"],
                                       c.SWEEP["D"] + 1, c.SWEEP["H"], 0)
-ys = fwd_k(*fwd, **flags)
+ys = ys_of(fwd_k(*fwd, **flags))
 args = [fwd[0], ys, gys] + fwd[1:]
 out["cde sweep fwd"] = c.timed(lambda: fwd_k(*fwd, **flags), reps={reps})
 out["cde sweep bwd"] = c.timed(lambda: bwd_k(*args, **flags), reps={reps})
@@ -1936,11 +2310,13 @@ _AB_CDE_CHILD = """
 import json, sys
 sys.path.insert(0, {root!r})
 import chip_smoke as c
+# a forward's ys (a parent tree's forwards may return ys alone)
+ys_of = lambda o: o[0] if isinstance(o, tuple) else o
 fwd_k, _, bwd_k, _ = c.kernel_fns("cde")
 out = {{}}
 for name, (B, L, C, H, n_inner, reps) in {shapes!r}.items():
     fwd, flags, gys = c.cde_kernel_inputs(B, L, C, H, n_inner)
-    ys = fwd_k(*fwd, **flags)
+    ys = ys_of(fwd_k(*fwd, **flags))
     args = [fwd[0], ys, gys] + fwd[1:]
     out[name + " fwd"] = c.timed(lambda: fwd_k(*fwd, **flags), reps=reps,
                                  warmup=min(reps, 3))
@@ -2055,6 +2431,8 @@ subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", lib_path,
 lib = ctypes.CDLL(lib_path)
 _build.load = lambda name: lib
 buf = (ctypes.c_ulonglong * 16384)()
+# a forward's ys (a tree's forwards may return ys alone)
+ys_of = lambda o: o[0] if isinstance(o, tuple) else o
 fwd_k, _, bwd_k, _ = c.kernel_fns({pair!r})
 out = {{}}
 for label, shape in {shapes!r}.items():
@@ -2063,7 +2441,7 @@ for label, shape in {shapes!r}.items():
     else:
         inp, gys = c.kernel_inputs(*shape, srk={pair!r} == "srk")
         fwd, flags = c._split(inp, {pair!r} == "srk")
-    ys = fwd_k(*fwd, **flags)
+    ys = ys_of(fwd_k(*fwd, **flags))
     args = [fwd[0], ys, gys] + fwd[1:]
     for part, fn in (("fwd", lambda: fwd_k(*fwd, **flags)),
                      ("bwd", lambda: bwd_k(*args, **flags))):
@@ -2131,6 +2509,101 @@ def phase_split(args) -> int:
     return 0
 
 
+# --sweep-cd: the grid of tools/run_sweep_cd.py:25-53 (5 UEA-shaped
+# datasets x 4 missing rates x 6 models x seeds), the JAX package's
+# SWEEP_CD.json experiment on the port
+SWEEP_CD_MODELS = ("neuralsde_2_16", "neuralsde_4_17", "neuralsde_6_17",
+                   "neuralcde", "gru", "grud")
+SWEEP_CD_RATES = (0.0, 0.3, 0.5, 0.7)
+
+
+def sweep_cd_datasets():
+    """tools/run_sweep_cd.py's make_datasets, on the port's synthetic_uea:
+    name -> data_fn(n) of (base seed, noise, length, channels, classes)."""
+    from snsde_torch.data import synthetic_uea
+
+    def variant(base_seed, noise, length, channels, classes):
+        def fn(n=320, **kw):
+            X, y, t = synthetic_uea(n=n, length=length, channels=channels,
+                                    num_classes=classes, seed=base_seed)
+            rng = np.random.default_rng(base_seed + 1)
+            X = X + noise * rng.normal(size=X.shape).astype(np.float32)
+            return X, y, t
+        return fn
+
+    return {"uea_a_clean": variant(10, 0.0, 40, 3, 4),
+            "uea_a_noisy": variant(20, 0.5, 40, 3, 4),
+            "uea_a_hard": variant(30, 1.0, 40, 3, 4),
+            "uea_b_clean": variant(40, 0.2, 60, 5, 2),
+            "uea_b_noisy": variant(50, 0.8, 60, 5, 2)}
+
+
+def sweep_cd(out: str, epochs: int = 30, seeds: int = 3) -> int:
+    """The port's counterpart of tools/run_sweep_cd.py:25-134 on the card:
+    every dataset x rate x model x seed through run_robustness_sweep
+    (hidden 16, batch 64, patience 10; one model a run: the port has no
+    seed-packed ensembles), records beside `out` in <out>_runs/, then the
+    score table (mean test accuracy over seeds per (dataset, rate) problem)
+    through snsde_torch.analysis.cd_analysis, written to `out` with the
+    keys of SWEEP_CD.json and the card's name and power limit:
+
+        python3 chip_smoke.py --sweep-cd OUT [EPOCHS [SEEDS]]"""
+    import os
+
+    from snsde_torch.analysis import cd_analysis
+    from snsde_torch.harness.robustness import (SweepConfig,
+                                                run_robustness_sweep)
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    smi = card()
+    t0 = time.perf_counter()
+    records = []
+    for name, data_fn in sweep_cd_datasets().items():
+        cfg = SweepConfig(models=SWEEP_CD_MODELS,
+                          missing_rates=SWEEP_CD_RATES,
+                          seeds=tuple(range(seeds)), hidden_dim=16,
+                          batch_size=64, max_epochs=epochs, patience=10,
+                          out_dir=os.path.splitext(out)[0] + "_runs")
+        print(f"##### dataset {name} #####", flush=True)
+        records += run_robustness_sweep(cfg, n=320, data_fn=data_fn,
+                                        dataset_name=name, verbose=True,
+                                        device=DEV)
+    ok = [r for r in records if "accuracy" in r]
+    problems = sorted({(r["dataset"], r["missing_rate"]) for r in ok})
+    models = list(SWEEP_CD_MODELS)
+    acc = np.full((len(problems), len(models)), np.nan)
+    f1 = np.full_like(acc, np.nan)
+    for i, (ds, rate) in enumerate(problems):
+        for j, m in enumerate(models):
+            cell = [r for r in ok if (r["dataset"], r["missing_rate"],
+                                      r["model"]) == (ds, rate, m)]
+            if cell:
+                acc[i, j] = float(np.mean([r["accuracy"] for r in cell]))
+                f1[i, j] = float(np.mean([r["f1_weighted"] for r in cell]))
+    keep = ~np.isnan(acc).any(axis=1)
+    res = cd_analysis(acc[keep], models)
+    payload = {
+        "problems": [f"{d}@{r}" for (d, r), k in zip(problems, keep) if k],
+        "models": models, "accuracy": acc[keep].tolist(),
+        "f1_weighted": f1[keep].tolist(),
+        "avg_ranks": res.avg_ranks.tolist(),
+        "friedman_stat": res.friedman_stat, "friedman_p": res.friedman_p,
+        "pairwise": res.pairwise, "cliques": res.cliques,
+        "n_runs": len(ok), "n_errors": len(records) - len(ok),
+        "epochs": epochs, "seeds": seeds, "card": smi,
+        "seconds": time.perf_counter() - t0}
+    with open(out, "w") as f:
+        json.dump(payload, f, indent=2)
+    print(json.dumps({"avg_ranks": dict(zip(models, res.avg_ranks.tolist())),
+                      "friedman_p": res.friedman_p, "cliques": res.cliques,
+                      "n_runs": len(ok), "n_errors": payload["n_errors"]}))
+    print(f"wrote {out} ({len(ok)} runs, {payload['seconds']:.0f} s) "
+          f"[{smi}]")
+    return 0 if ok and not payload["n_errors"] else 1
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2172,6 +2645,10 @@ def main() -> int:
     for n_inner in (0, 2):
         compare_cde(128, sh["L"], sh["C"], sh["H"], n_inner)
     compare_wide()
+    print("the SDE pairs' new modes vs their plain versions:", flush=True)
+    err.update(compare_modes())
+    print("the new paths' configurations at their own shapes:", flush=True)
+    err.update(compare_path_modes())
     rs = RNN_SWEEP
     err["gru"] = compare_rnn("gru", **rs)
     compare_rnn("gru", **rs, dec=True)
@@ -2206,9 +2683,11 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as out_dir:
         launches = {"em": main_path(), "srk": mujoco_path(),
                     "cde": sweep_path(out_dir)}
+        sde_sweep_path(out_dir)
         rnn_launches = rnn_sweep_path(out_dir)
     launches["gru"] = launches["lstm"] = rnn_launches
     wide_sepsis_path()
+    naive_sepsis_path()
     spline_times()
     ms, bounds = {}, {}
     for key, shape, srk in (("em", MAIN, False), ("srk", SRK, True)):
@@ -2229,6 +2708,7 @@ def main() -> int:
                     ms[kind][f"{name} {k}"] = v
         ms[kind].update(step_times(f"{kind} classifier", rnn_step_fns(kind)))
     ms["wide"] = wide_kernel_times()
+    ms["modes"], _ = mode_kernel_times()
     for key in ms:
         for k, v in ms[key].items():
             print(f"time {key} {k}: {v:.4f} ms  [{smi}]")
@@ -2249,13 +2729,19 @@ def main() -> int:
                 "source": f"snsde_torch/csrc/{src}.cu",
                 "replaces": f"snsde/kernels/{src}.py:{line}",
                 "launches": launches[key][f"{key}_{part}"],
-                "max_abs_err": err[key][0 if part == "fwd" else 1],
+                # the largest error of the main path's shape and, for the
+                # SDE pairs, of the new modes' and new paths' comparisons
+                "max_abs_err": max(err[k][0 if part == "fwd" else 1]
+                                   for k in (key, f"{key}_modes",
+                                             f"{key}_paths")
+                                   if k in err),
                 "ms": ms[key][part], "plain_ms": ms[key][f"{part}_plain"],
                 "bound_ms": bounds[key][part][0],
                 "bound_by": bounds[key][part][1],
                 # cuDNN at the same shape (torch.nn.GRU/LSTM); no single
                 # PyTorch call computes a fused SDE or CDE solve
                 "library_ms": ms[key].get(f"lib_{part}"),
+                **({"modes": SDE_MODES} if key in ("em", "srk") else {}),
             })
     for key, line, src in (("em", "fused_em.py:888", "fused_em"),
                            ("srk", "fused_srk.py:527", "fused_srk"),
@@ -2266,13 +2752,17 @@ def main() -> int:
             "source": f"snsde_torch/csrc/{src}.cu",
             "replaces": f"snsde/kernels/{line}",
             "launches": launches[key][f"{key}_wgrad"],
-            "max_abs_err": err[f"{key}_wgrad"],
+            "max_abs_err": max(err[k] for k in (f"{key}_wgrad",
+                                                f"{key}_modes_wgrad",
+                                                f"{key}_paths_wgrad")
+                               if k in err),
             "ms": ms[key]["bwd_wgrad"], "plain_ms": ms[key]["wgrad_plain"],
             "bound_ms": bounds[key]["wgrad"][0],
             "bound_by": bounds[key]["wgrad"][1],
             # torch.matmul of the weight products alone (the bias and
             # per-step sums not included): dW_hh's; the SDE pairs' NI + 2
-            "library_ms": ms[key]["wgrad_lib"]})
+            "library_ms": ms[key]["wgrad_lib"],
+            **({"modes": SDE_MODES} if key in ("em", "srk") else {})})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -2293,4 +2783,6 @@ if __name__ == "__main__":
         sys.exit(ab_cde(sys.argv[2], *map(int, sys.argv[3:5])))
     if sys.argv[1:2] == ["--phase-split"]:
         sys.exit(phase_split(sys.argv[2:]))
+    if sys.argv[1:2] == ["--sweep-cd"]:
+        sys.exit(sweep_cd(sys.argv[2], *map(int, sys.argv[3:5])))
     sys.exit(main())

@@ -7,8 +7,8 @@
 //   forward  _fused_srk_forward (pallas_call at :295, body _fwd_kernel :215,
 //            step _srk_step :158)
 //   backward _fused_srk_backward (pallas_call at :527, body _bwd_kernel :317)
-// for drift mode 'embm' (merged emb drift, input_option 2/4/6) and noise
-// mode 'precomp' (the diffusion magnitude depends on t only), with or
+// for every drift mode ('embm', 'yy', 'xt': an instance each) and noise
+// mode ('precomp', 'elem', 'net1', 'net2': an instance each), with or
 // without mult_y and geometric, at every width: the modes of fused_em.cu.
 //
 // Rößler's SRIW1 tableau collapses to two drift MLP evaluations per step,
@@ -68,6 +68,18 @@
 //   1 to 32; the least estimated time among the plans that can be placed
 //   (a step counts two MLP evaluations); none placed: the launch is
 //   refused.
+// The noise nets ('net1', 'net2') make each diffusion evaluation one or
+// two products on a stage state, so the stages stop being elementwise: in
+// the forward, stage 0's net runs beside f0's first layers, stages 1 and
+// 2's beside f1's, and stage 3's after f1 (its state needs g1 and g2),
+// before the update of y; the forward writes the stage states (nst), the
+// nets' outputs (nb) and hidden activations (nh) as streams. The backward
+// reads them and reverses g3, g2, g1, g0 with the nets' back products, one
+// phase each (two for net2) on all threads, between f1's chain and f0's;
+// it writes the nets' output cotangents (dn, dz2), and the weight-gradient
+// kernel forms dWn1, dWn2 and dbn2 over K = 4 M B rows (the four stages).
+// Their instances run clusters of one CTA (sde_plan). These modes are a
+// simple design, not yet made fast.
 // On an H100 (PERF.md section 6) this took the backward (recurrence plus
 // weight gradient) at the MuJoCo shape from 1.21 to 0.98 ms, and at the
 // sepsis shape with H=HH=128 and 256 the forward from 3.5 and 87 ms to 1.6
@@ -123,10 +135,11 @@ __device__ __forceinline__ void srk_coeffs(float dw, float i10, const Step& k,
 }
 
 // The four diffusion stages of one element, given y and f0: stage states
-// st (y, H1_1, H1_2, H1_3), raw diffusions graw, bounded g, and the second
-// drift stage's state h01.
+// st (y, H1_1, H1_2, H1_3), bases (the gk row, or elem of the state), raw
+// diffusions graw, bounded g, and the second drift stage's state h01. The
+// elementwise noise modes only ('precomp', 'elem').
 struct Stages {
-  float st[4], graw[4], g[4], h01;
+  float st[4], base[4], graw[4], g[4], h01;
 };
 
 __device__ __forceinline__ float noise_g(float state, float gk, float sth,
@@ -134,11 +147,22 @@ __device__ __forceinline__ float noise_g(float state, float gk, float sth,
   return tanhf(sth * (mult_y ? gk * state : gk));
 }
 
+// the diffusion's base at a state: the row (gk) or elem of the state
+template <int NZ>
+__device__ __forceinline__ float pw_base(float state, float gk, int elem) {
+  if constexpr (NZ == NZ_ELEM) return elem_base(elem, state);
+  return gk;
+}
+
+template <int NZ>
 __device__ __forceinline__ void noise_eval(Stages& s, int i, float state,
-                                           float gk, float sth, bool mult_y) {
+                                           float gk, float sth, bool mult_y,
+                                           int elem) {
+  const float b = pw_base<NZ>(state, gk, elem);
   s.st[i] = state;
-  s.graw[i] = mult_y ? gk * state : gk;
-  s.g[i] = noise_g(state, gk, sth, mult_y);
+  s.base[i] = b;
+  s.graw[i] = mult_y ? b * state : b;
+  s.g[i] = noise_g(state, b, sth, mult_y);
 }
 
 // H0_1, the state of f1
@@ -147,47 +171,74 @@ __device__ __forceinline__ float h01_of(float y, float f0, float g0,
   return y + 0.75f * k.dt * f0 + 1.5f * (i10 * k.rdt) * g0;
 }
 
+// the states of stages 1-3 from y, f0 and the g's before them
+__device__ __forceinline__ float stage1(float y, float f0, float g0,
+                                        const Step& k) {
+  return y + 0.25f * k.dt * f0 + 0.5f * k.sq * g0;
+}
+__device__ __forceinline__ float stage2(float y, float f0, float g0,
+                                        const Step& k) {
+  return y + k.dt * f0 - k.sq * g0;
+}
+__device__ __forceinline__ float stage3(float y, float f0, float g0,
+                                        float g1, float g2, const Step& k) {
+  return y + 0.25f * k.dt * f0 + k.sq * (-5.f * g0 + 3.f * g1 + 0.5f * g2);
+}
+
+template <int NZ>
 __device__ __forceinline__ Stages srk_stages(float y, float f0, float gk0,
                                              float gk1, float gk2, float i10,
                                              float sth, const Step& k,
-                                             bool mult_y) {
+                                             bool mult_y, int elem) {
   Stages s;
-  noise_eval(s, 0, y, gk0, sth, mult_y);
-  noise_eval(s, 1, y + 0.25f * k.dt * f0 + 0.5f * k.sq * s.g[0], gk1, sth,
-             mult_y);
-  noise_eval(s, 2, y + k.dt * f0 - k.sq * s.g[0], gk2, sth, mult_y);
-  noise_eval(s, 3,
-             y + 0.25f * k.dt * f0 +
-                 k.sq * (-5.f * s.g[0] + 3.f * s.g[1] + 0.5f * s.g[2]),
-             gk1, sth, mult_y);
+  noise_eval<NZ>(s, 0, y, gk0, sth, mult_y, elem);
+  noise_eval<NZ>(s, 1, stage1(y, f0, s.g[0], k), gk1, sth, mult_y, elem);
+  noise_eval<NZ>(s, 2, stage2(y, f0, s.g[0], k), gk2, sth, mult_y, elem);
+  noise_eval<NZ>(s, 3, stage3(y, f0, s.g[0], s.g[1], s.g[2], k), gk1, sth,
+             mult_y, elem);
   s.h01 = h01_of(y, f0, s.g[0], i10, k);
   return s;
 }
 
 // Reverse one diffusion stage given the cotangent dg of its g: adds to the
-// theta sum, sets q to the cotangent of its gk (summed over rows later)
-// and returns the cotangent of its state.
+// theta sum, sets q to the cotangent of its base (the gk row's, summed over
+// rows later) and returns the cotangent of its state. gk: the stage's row
+// ('precomp': its base).
+template <int NZ>
 __device__ __forceinline__ float noise_bwd(const Stages& s, int i, float dg,
                                            float gk, float sth, bool mult_y,
-                                           float& th_acc, float& q) {
+                                           int elem, float& th_acc,
+                                           float& q) {
   const float g = s.g[i];
   const float dsg = dg * (1.f - g * g);
   th_acc = fmaf(dsg, s.graw[i], th_acc);
   const float dgraw = dsg * sth;
+  if constexpr (NZ == NZ_PRE) {
+    if (mult_y) {
+      q = dgraw * s.st[i];
+      return dgraw * gk;
+    }
+    q = dgraw;
+    return 0.f;
+  }
+  float ds = 0.f;
+  q = dgraw;
   if (mult_y) {
     q = dgraw * s.st[i];
-    return dgraw * gk;
+    ds = dgraw * s.base[i];
   }
-  q = dgraw;
-  return 0.f;
+  return ds + q * elem_deriv(elem, s.st[i]);
 }
 
 // The tensors of a launch (a forward reads y0 and the streams and writes
-// ys; a backward reads the trajectory ys and gys too and writes the rest)
+// ys, and in the noise nets' modes nst, nb and nh; a backward reads the
+// trajectory ys, gys and those streams too and writes the rest). The gk
+// rows are the an1 rows in the nets' modes.
 struct SrkArgs {
   const float *y0, *ys, *gys, *xh0, *xh1, *dw, *i10, *a0, *a1, *gk0, *gk1,
-      *gk2, *dts, *theta, *wy, *wi, *bi, *wo, *bo;
-  float *ys_out, *dxh, *dy0, *hs, *es, *dz3, *q, *h01, *p_th;
+      *gk2, *dts, *theta, *wy, *wi, *bi, *wo, *bo, *wn1, *wn2, *bn2;
+  float *ys_out, *nst, *nbs, *nhs, *dxh, *dy0, *hs, *es, *dz3, *q, *h01,
+      *dn, *dz2, *p_th;
 };
 
 // The shared-memory layout of a CTA, offsets in floats (-1: not there):
@@ -200,11 +251,17 @@ struct SrkArgs {
 // state's [R4][U]; with CS > 1 the partials of the back products
 // [NI+2][R4][sW]; the reduction's [ET / 32]. The streams of a step, slot
 // by slot (forward 2, backward 3): xh0, xh1 [R4][UH], a0, a1 [UH], dW,
-// I10 (backward: gys) [R4][U], gk0-2 [3][U], dt [4].
+// I10 (backward: gys) [R4][U], gk0-2 [3][U], dt [4]. The noise nets'
+// (clusters of one CTA): forward, the states of stages 1-3 [3][R4][sH],
+// the nets' outputs [4][R4][U], (net2) hidden rows [4][R4][sH] and f1
+// [R4][U]; backward, the cotangents of the nets' outputs [2][R4][U] and
+// (net2) hidden layers [R4][U], a stage's direct state cotangent, the
+// state's, f0's and g0-g2's running cotangents [R4][U] each.
 struct SrkLayout {
   WtsAt w;
-  long long y, h01, h, e, f0, sn, z30, z31, dz, dh, gbar, pd, xh0, xh1, a0,
-      a1, dw, i10, gy, gk, dt, red, total;
+  long long y, h01, h, e, f0, sn, z30, z31, dz, dh, gbar, pd, nst, ngt, nht,
+      f1, tq, tq1, tdir, tdy, tdf0, tdg, xh0, xh1, a0, a1, dw, i10, gy, gk,
+      dt, red, total;
 };
 
 __host__ __device__ inline SrkLayout srk_layout(const SdeDims& d,
@@ -216,12 +273,22 @@ __host__ __device__ inline SrkLayout srk_layout(const SdeDims& d,
   L.w = take_wts(take, d, p, g);
   L.f0 = L.sn = L.e = L.z30 = L.z31 = L.dz = L.dh = L.gbar = L.pd = L.gy =
       L.red = -1;
+  L.nst = L.ngt = L.nht = L.f1 = L.tq = L.tq1 = L.tdir = L.tdy = L.tdf0 =
+      L.tdg = -1;
+  const bool net = net_noise(d.noise), net2 = d.noise == NZ_NET2;
+  const long long ut = R4 * g.U;
   L.h01 = take(R4 * g.sH);
   if (!bwd) {
     L.y = take(R4 * g.sH);
     L.h = take(2 * R4 * g.sHH);
     L.f0 = take(R4 * g.U);
     L.sn = take(R4 * g.U);
+    if (net) {
+      L.nst = take(3 * R4 * g.sH);
+      L.ngt = take(4 * ut);
+      L.f1 = take(ut);
+    }
+    if (net2) L.nht = take(4 * R4 * g.sH);
   } else {
     L.y = take(3 * R4 * g.sH);
     L.h = take(4 * (NI + 1) * R4 * g.sHH);
@@ -232,6 +299,14 @@ __host__ __device__ inline SrkLayout srk_layout(const SdeDims& d,
     L.dh = take(R4 * g.U);
     L.gbar = take(R4 * g.U);
     if (p.cs > 1) L.pd = take((NI + 2) * R4 * g.sW);
+    if (net) {
+      L.tq = take(2 * ut);
+      L.tdir = take(ut);
+      L.tdy = take(ut);
+      L.tdf0 = take(ut);
+      L.tdg = take(3 * ut);
+    }
+    if (net2) L.tq1 = take(ut);
     L.gy = take(NS * R4 * g.U);
     L.red = take(ET / 32);
   }
@@ -276,7 +351,7 @@ __device__ __forceinline__ void copy_rows_by(float* dst, int ld,
 // backward's also gys), at the kernel's copy width, by its copy threads
 // (each stream by a warp of its own instead was slower on an H100: the
 // MuJoCo forward 0.345-0.378 against 0.328-0.340 ms)
-template <bool BWD>
+template <bool BWD, int DR, int NZ>
 __device__ __forceinline__ void prefetch_step(const SrkArgs& A,
                                               const SdeDims& d,
                                               const SdeGeo& g, const Cta& c,
@@ -286,23 +361,30 @@ __device__ __forceinline__ void prefetch_step(const SrkArgs& A,
   constexpr int T0 = BWD ? BWD_COPY_T0 : FWD_COPY_T0;
   const size_t rb = (size_t)t * d.B + c.row0;
   const int xt = g.R4 * g.UH, wt = g.R4 * g.U, nh = c.nh, nu = c.nu;
-  const float* xh0 = A.xh0 + rb * d.HH + c.h0;
-  const float* xh1 = A.xh1 + rb * d.HH + c.h0;
-  copy_rows_by<T0>(s + L.xh0 + b * xt, nh, xh0, d.HH, nh, c.nr, vec);
-  copy_rows_by<T0>(s + L.xh1 + b * xt, nh, xh1, d.HH, nh, c.nr, vec);
-  const size_t oa = (size_t)t * d.HH + c.h0;
-  copy_rows_by<T0>(s + L.a0 + b * g.UH, nh, A.a0 + oa, nh, nh, 1, vec);
-  copy_rows_by<T0>(s + L.a1 + b * g.UH, nh, A.a1 + oa, nh, nh, 1, vec);
+  if (DR != DR_YY) {
+    const float* xh0 = A.xh0 + rb * d.HH + c.h0;
+    const float* xh1 = A.xh1 + rb * d.HH + c.h0;
+    copy_rows_by<T0>(s + L.xh0 + b * xt, nh, xh0, d.HH, nh, c.nr, vec);
+    copy_rows_by<T0>(s + L.xh1 + b * xt, nh, xh1, d.HH, nh, c.nr, vec);
+  }
+  if (DR != DR_XT) {
+    const size_t oa = (size_t)t * d.HH + c.h0;
+    copy_rows_by<T0>(s + L.a0 + b * g.UH, nh, A.a0 + oa, nh, nh, 1, vec);
+    copy_rows_by<T0>(s + L.a1 + b * g.UH, nh, A.a1 + oa, nh, nh, 1, vec);
+  }
   const size_t ow = rb * d.H + c.u0;
   copy_rows_by<T0>(s + L.dw + b * wt, nu, A.dw + ow, d.H, nu, c.nr, vec);
   copy_rows_by<T0>(s + L.i10 + b * wt, nu, A.i10 + ow, d.H, nu, c.nr, vec);
   if (BWD)
     copy_rows_by<T0>(s + L.gy + b * wt, nu, A.gys + ow, d.H, nu, c.nr, vec);
-  float* gk = s + L.gk + b * 3 * g.U;
-  const size_t o = (size_t)t * d.H + c.u0;
-  copy_rows_by<T0>(gk, nu, A.gk0 + o, nu, nu, 1, vec);
-  copy_rows_by<T0>(gk + g.U, nu, A.gk1 + o, nu, nu, 1, vec);
-  copy_rows_by<T0>(gk + 2 * g.U, nu, A.gk2 + o, nu, nu, 1, vec);
+  // the gk rows ('precomp'), or the forward's an1 rows (the nets)
+  if (NZ == NZ_PRE || (net_noise(NZ) && !BWD)) {
+    float* gk = s + L.gk + b * 3 * g.U;
+    const size_t o = (size_t)t * d.H + c.u0;
+    copy_rows_by<T0>(gk, nu, A.gk0 + o, nu, nu, 1, vec);
+    copy_rows_by<T0>(gk + g.U, nu, A.gk1 + o, nu, nu, 1, vec);
+    copy_rows_by<T0>(gk + 2 * g.U, nu, A.gk2 + o, nu, nu, 1, vec);
+  }
   copy_rows_by<T0>(s + L.dt + 4 * b, 1, A.dts + t, 1, 1, 1, false);
 }
 
@@ -325,19 +407,26 @@ __device__ __forceinline__ void mm_ep(Grp g, const float* X, int ldx, int K,
 
 // Each step: f0's NI + 2 phases (its first layer on y, its inner layers,
 // its output with the stages and H0_1), then f1's (its first layer on
-// H0_1, its inner layers, its output with the update of y).
-template <bool GW>
+// H0_1, its inner layers, its output with the update of y). With a noise
+// net (clusters of one CTA), stage 0's net runs beside f0's first layers,
+// f0's output forms g0, H0_1 and the states of stages 1 and 2, whose nets
+// run beside f1's first layers; f1's output is kept, and after it stage
+// 3's state, its net and the update of y take two to three phases more.
+template <bool GW, int DR, int NZ>
 __global__ void __launch_bounds__(ET)
-srk_fwd_kernel(SdeDims d, SdePlan pp, SrkArgs A) {
+srk_fwd_kernel(SdeDims dd, SdePlan pp, SrkArgs A) {
   extern __shared__ float4 smem4[];
   float* s = reinterpret_cast<float*>(smem4);
+  const SdeDims d = with_modes<DR, NZ>(dd);
   const SdePlan p = placed<GW>(pp);
   const SdeGeo g = sde_geo(d, p);
   const SrkLayout L = srk_layout(d, p, 0);
   zero_smem(s, L.total);
   __syncthreads();
   const Cta c = make_cta(d, p, g);
-  const Wts w = load_wts(d, p, g, c, L.w, s, A.wy, A.wi, A.bi, A.wo, A.bo);
+  const Wts w = load_wts(d, p, g, c, L.w, s,
+                         WtsIn{A.wy, A.wi, A.bi, A.wo, A.bo, A.wn1, A.wn2,
+                               A.bn2});
   const int H = d.H, HH = d.HH, NI = d.NI, sH = g.sH, sHH = g.sHH;
   const int U = g.U, UH = g.UH, R4 = g.R4, nr = c.nr, row0 = c.row0;
   const int h0 = c.h0, u0 = c.u0, cs = c.cs, nh = c.nh, nu = c.nu;
@@ -347,10 +436,15 @@ srk_fwd_kernel(SdeDims d, SdePlan pp, SrkArgs A) {
   float* h = s + L.h;
   float* f0t = s + L.f0;
   float* snt = s + L.sn;
+  float* nst = s + L.nst;  // the states of stages 1-3
+  float* ngt = s + L.ngt;  // the nets' outputs, stages 0-3
+  float* nht = s + L.nht;  // net2's hidden rows, stages 0-3
+  float* f1t = s + L.f1;
+  const size_t MBH = (size_t)d.M * d.B * H;
   const Grp all{0, ET};
   for (int i = threadIdx.x; i < nr * H; i += ET)
     y[(i / H) * sH + i % H] = A.y0[(size_t)row0 * H + i];
-  if (d.M > 0) prefetch_step<false>(A, d, g, c, L, s, 0, 0);
+  if (d.M > 0) prefetch_step<false, DR, NZ>(A, d, g, c, L, s, 0, 0);
   cp_async_commit();
   cp_async_wait_all();
   // every CTA of the cluster is zeroed before a peer pushes into it
@@ -360,24 +454,80 @@ srk_fwd_kernel(SdeDims d, SdePlan pp, SrkArgs A) {
 
   for (int u = 0; u < d.M; ++u) {
     const int b = u & 1;
-    if (u + 1 < d.M) prefetch_step<false>(A, d, g, c, L, s, b ^ 1, u + 1);
+    if (u + 1 < d.M)
+      prefetch_step<false, DR, NZ>(A, d, g, c, L, s, b ^ 1, u + 1);
     cp_async_commit();
     const Step k = step_of(s[L.dt + 4 * b]);
     const float* wu = s + L.dw + b * wtile;
     const float* iu = s + L.i10 + b * wtile;
     const float* gku = s + L.gk + b * 3 * U;
+    const size_t ob = (size_t)u * d.B + row0;  // the step's first row
+    // a noise net's first layer on stage i's state X (its an1 row: the
+    // stage time's), and net2's second layer
+    auto net_first = [&](int i, const float* X, const float* an) {
+      mm(all, X, sH, H, w.wn1, w.lwn, GW, nr, nu,
+         [&](int r, int n, float acc) {
+           const float v = acc + an[n];
+           if constexpr (NZ == NZ_NET1) {
+             ngt[i * wtile + r * U + n] = v;
+           } else {
+             const float hv = fmaxf(v, 0.f);
+             nht[i * R4 * sH + r * sH + u0 + n] = hv;
+             A.nhs[i * MBH + (ob + r) * H + u0 + n] = hv;
+           }
+         });
+    };
+    auto net_second = [&](int i) {
+      mm(all, nht + i * R4 * sH, sH, H, w.wn2, w.lwn, GW, nr, nu,
+         [&](int r, int n, float acc) {
+           ngt[i * wtile + r * U + n] = fmaxf(acc + w.bn2[n], 0.f);
+         });
+    };
+    // g_i from its net's output at (r, n) and its state
+    auto net_g = [&](int i, int ix, float state) {
+      const float b0 = ngt[i * wtile + ix];
+      return tanhf(sth * (mult_y ? b0 * state : b0));
+    };
 #pragma unroll
     for (int ev = 0; ev < 2; ++ev) {
-      // h_0 = relu(state Wy' + a + xh), own columns, into every CTA
+      // h_0 = relu(state Wy' + a + xh) ('yy': without xh; 'xt': relu(xh)),
+      // own columns, into every CTA
       const float* X = ev ? h01 : y;
       const float* au = s + (ev ? L.a1 : L.a0) + b * UH;
       const float* xu = s + (ev ? L.xh1 : L.xh0) + b * xtile;
-      mm(all, X, sH, H, w.wy, w.lwy, GW, nr, nh,
-         [&](int r, int n, float acc) {
-           push(cs, h, r * sHH + h0 + n,
-                fmaxf(acc + au[n] + xu[r * nh + n], 0.f));
-         });
+      if constexpr (DR == DR_XT) {
+        xt_first(all, xu, nr, nh, [&](int r, int n, float v) {
+          push(cs, h, r * sHH + h0 + n, v);
+        });
+      } else {
+        mm(all, X, sH, H, w.wy, w.lwy, GW, nr, nh,
+           [&](int r, int n, float acc) {
+             float v;
+             if constexpr (DR == DR_EMBM)
+               v = acc + au[n] + xu[r * nh + n];
+             else
+               v = acc + au[n];
+             push(cs, h, r * sHH + h0 + n, fmaxf(v, 0.f));
+           });
+      }
+      if constexpr (net_noise(NZ)) {
+        if (ev == 0) {
+          net_first(0, y, gku);
+        } else {
+          net_first(1, nst, gku + U);
+          net_first(2, nst + R4 * sH, gku + 2 * U);
+        }
+      }
       cluster_or_block_sync(cs);
+      if constexpr (NZ == NZ_NET2) {
+        if (ev == 0) {
+          net_second(0);
+        } else {
+          net_second(1);
+          net_second(2);
+        }
+        if (NI == 0) __syncthreads();
+      }
       for (int l = 0; l < NI; ++l) {
         const float* hin = h + (l & 1) * htile;
         float* hout = h + ((l + 1) & 1) * htile;
@@ -389,7 +539,28 @@ srk_fwd_kernel(SdeDims d, SdePlan pp, SrkArgs A) {
         cluster_or_block_sync(cs);
       }
       const float* hl = h + (NI & 1) * htile;
-      if (ev == 0) {
+      if (ev == 0 && net_noise(NZ)) {
+        // f0, own columns; g0, H0_1 and the states of stages 1 and 2
+        mm_ep(all, hl, sHH, HH, w.wo, w.lwo, GW, nr, nu,
+              [&](int r, int n, float acc) {
+                const int col = u0 + n, ix = r * U + n;
+                const float yv = y[r * sH + col];
+                float z3 = acc + w.bo[n];
+                if (geometric) z3 *= tanhf(yv);
+                const float f0 = tanhf(z3);
+                const float g0 = net_g(0, ix, yv);
+                const float s1 = stage1(yv, f0, g0, k);
+                const float s2 = stage2(yv, f0, g0, k);
+                f0t[ix] = f0;
+                nst[r * sH + col] = s1;
+                nst[R4 * sH + r * sH + col] = s2;
+                push(cs, h01, r * sH + col,
+                     h01_of(yv, f0, g0, iu[r * nu + n], k));
+                const size_t o = (ob + r) * H + col;
+                A.nst[o] = s1;
+                A.nst[MBH + o] = s2;
+              });
+      } else if (ev == 0) {
         // f0, own columns; the four diffusion stages; H0_1 into every CTA
         mm_ep(all, hl, sHH, HH, w.wo, w.lwo, GW, nr, nu,
               [&](int r, int n, float acc) {
@@ -399,9 +570,9 @@ srk_fwd_kernel(SdeDims d, SdePlan pp, SrkArgs A) {
                 if (geometric) z3 *= tanhf(yv);
                 const float f0 = tanhf(z3);
                 const float ii = iu[r * nu + n];
-                const Stages st = srk_stages(yv, f0, gku[n], gku[U + n],
+                const Stages st = srk_stages<NZ>(yv, f0, gku[n], gku[U + n],
                                              gku[2 * U + n], ii, sth, k,
-                                             mult_y);
+                                             mult_y, d.elem);
                 float cf[4];
                 srk_coeffs(wu[r * nu + n], ii, k, cf);
                 f0t[ix] = f0;
@@ -409,6 +580,16 @@ srk_fwd_kernel(SdeDims d, SdePlan pp, SrkArgs A) {
                           cf[2] * st.g[2] + cf[3] * st.g[3];
                 push(cs, h01, r * sH + col, st.h01);
               });
+      } else if (net_noise(NZ)) {
+        // f1, own columns, kept for the update after stage 3
+        mm_ep(all, hl, sHH, HH, w.wo, w.lwo, GW, nr, nu,
+              [&](int r, int n, float acc) {
+                const int col = u0 + n;
+                float z3 = acc + w.bo[n];
+                if (geometric) z3 *= tanhf(h01[r * sH + col]);
+                f1t[r * U + n] = tanhf(z3);
+              });
+        cp_async_wait_all();
       } else {
         // f1, own columns, and the step's update of y there, into every CTA
         mm_ep(all, hl, sHH, HH, w.wo, w.lwo, GW, nr, nu,
@@ -427,6 +608,45 @@ srk_fwd_kernel(SdeDims d, SdePlan pp, SrkArgs A) {
       }
       cluster_or_block_sync(cs);
     }
+    if constexpr (net_noise(NZ)) {
+      // stage 3's state (g1 and g2 are in), its net, then the update of y
+      for (int i = threadIdx.x; i < nr * nu; i += ET) {
+        const int r = i / nu, n = i % nu, col = u0 + n, ix = r * U + n;
+        const float yv = y[r * sH + col];
+        const float s1 = nst[r * sH + col], s2 = nst[R4 * sH + r * sH + col];
+        const float s3 = stage3(yv, f0t[ix], net_g(0, ix, yv),
+                                net_g(1, ix, s1), net_g(2, ix, s2), k);
+        nst[2 * R4 * sH + r * sH + col] = s3;
+        A.nst[2 * MBH + (ob + r) * H + col] = s3;
+      }
+      __syncthreads();
+      net_first(3, nst + 2 * R4 * sH, gku + U);
+      __syncthreads();
+      if constexpr (NZ == NZ_NET2) {
+        net_second(3);
+        __syncthreads();
+      }
+      for (int i = threadIdx.x; i < nr * nu; i += ET) {
+        const int r = i / nu, n = i % nu, col = u0 + n, ix = r * U + n;
+        const float yv = y[r * sH + col];
+        float st[4] = {yv, nst[r * sH + col], nst[R4 * sH + r * sH + col],
+                       nst[2 * R4 * sH + r * sH + col]};
+        float cf[4];
+        srk_coeffs(wu[r * nu + n], iu[r * nu + n], k, cf);
+        float sn = 0.f;
+        const size_t o = (ob + r) * H + col;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          sn += cf[j] * net_g(j, ix, st[j]);
+          A.nbs[j * MBH + o] = ngt[j * wtile + ix];
+        }
+        const float yn =
+            yv + k.dt * (ALPHA0 * f0t[ix] + ALPHA1 * f1t[ix]) + sn;
+        y[r * sH + col] = yn;
+        A.ys_out[o] = yn;
+      }
+      __syncthreads();
+    }
   }
 }
 
@@ -442,19 +662,27 @@ srk_fwd_kernel(SdeDims d, SdePlan pp, SrkArgs A) {
 // forms evaluation e (f0 first) of step u-1: h_0 (q = 0), h_q
 // (1 <= q <= NI), z3 (q = NI + 1; for f0 also H0_1). At the start of f0's
 // chain (ph = NI + 2) step u's stages are reversed, elementwise; the tail
-// ends the state's cotangent and forms f1's dz3 of step u-1.
-template <bool GW>
+// ends the state's cotangent and forms f1's dz3 of step u-1. In drift
+// mode 'xt' the chain's last phase of each evaluation has no product. With
+// a noise net (clusters of one CTA), the stages' reverse at the start of
+// f0's chain is a phase a stage (two for net2), all threads: each stage's
+// pointwise part, then its net's back product, whose epilogue goes on to
+// the stage before it; the stage values come from the forward's streams.
+template <bool GW, int DR, int NZ>
 __global__ void __launch_bounds__(ET)
-srk_bwd_kernel(SdeDims d, SdePlan pp, SrkArgs A) {
+srk_bwd_kernel(SdeDims dd, SdePlan pp, SrkArgs A) {
   extern __shared__ float4 smem4[];
   float* s = reinterpret_cast<float*>(smem4);
+  const SdeDims d = with_modes<DR, NZ>(dd);
   const SdePlan p = placed<GW>(pp);
   const SdeGeo g = sde_geo(d, p);
   const SrkLayout L = srk_layout(d, p, 1);
   zero_smem(s, L.total);
   __syncthreads();
   const Cta c = make_cta(d, p, g);
-  const Wts w = load_wts(d, p, g, c, L.w, s, A.wy, A.wi, A.bi, A.wo, A.bo);
+  const Wts w = load_wts(d, p, g, c, L.w, s,
+                         WtsIn{A.wy, A.wi, A.bi, A.wo, A.bo, A.wn1, A.wn2,
+                               nullptr});
   const int H = d.H, HH = d.HH, NI = d.NI, M = d.M, B = d.B, P = NI + 2;
   const int sH = g.sH, sHH = g.sHH, sW = g.sW, U = g.U, UH = g.UH;
   const int R4 = g.R4, nr = c.nr, row0 = c.row0, h0 = c.h0, u0 = c.u0;
@@ -494,7 +722,7 @@ srk_bwd_kernel(SdeDims d, SdePlan pp, SrkArgs A) {
       A.es[(((size_t)(l - 1) * 2 + ev) * MB + row) * HH + k] = v;
   };
   if (M > 0) {
-    prefetch_step<true>(A, d, g, c, L, s, (M - 1) % 3, M - 1);
+    prefetch_step<true, DR, NZ>(A, d, g, c, L, s, (M - 1) % 3, M - 1);
     prefetch_y(M - 2);
   }
   cp_async_commit();
@@ -507,7 +735,7 @@ srk_bwd_kernel(SdeDims d, SdePlan pp, SrkArgs A) {
   for (int u = M; u >= 0; --u) {
     const bool chain = u < M, rec = u >= 1;
     if (u >= 2) {
-      prefetch_step<true>(A, d, g, c, L, s, (u - 2) % 3, u - 2);
+      prefetch_step<true, DR, NZ>(A, d, g, c, L, s, (u - 2) % 3, u - 2);
       prefetch_y(u - 3);
     }
     cp_async_commit();
@@ -537,6 +765,128 @@ srk_bwd_kernel(SdeDims d, SdePlan pp, SrkArgs A) {
             eo[ix] = ev;
             put_e(ce, l, oc + r, k, ev);
           }
+        } else if constexpr (net_noise(NZ)) {
+          // A noise net's stages of step u in reverse (clusters of one CTA,
+          // all threads; the forward's stage states nst, outputs nb and
+          // hidden rows nh read back): the incoming cotangents and stage 3's
+          // pointwise part, then for each stage i = 3..0 its net's back
+          // product(s), whose epilogue adds the stage's state cotangent to
+          // those of y, f0 and the g's before it and runs stage i-1's
+          // pointwise part (after stage 0: f0's output).
+          const Grp all{0, ET};
+          float* tq = s + L.tq;      // what a net's back product reads
+          float* tq1 = s + L.tq1;    // net2's hidden cotangent
+          float* tdir = s + L.tdir;  // a stage's state cotangent, direct
+          float* tdy = s + L.tdy;    // the state's running cotangent
+          float* tdf0 = s + L.tdf0;  // f0's
+          float* tdg = s + L.tdg;    // g0's, g1's and g2's
+          const int su = u % 3;
+          const float* yu = yslot(u - 1);
+          const float* wu = s + L.dw + su * wtile;
+          const float* iu = s + L.i10 + su * wtile;
+          const float* zu = z30 + (u & 1) * wtile;
+          const Step k = step_of(s[L.dt + 4 * su]);
+          const size_t oc = (size_t)u * B + row0;
+          // stage i's pointwise reverse at (r, col) given dg: the theta
+          // sum, the cotangent of its net's output (net2: of the second
+          // layer's) into tq slot i & 1 and its stream, its state's
+          // cotangent outside the net into tdir
+          auto stage_pw = [&](int i, int r, int col, float dg) {
+            const int ix = r * U + col;
+            const size_t o = (oc + r) * H + col;
+            const float st =
+                i == 0 ? yu[r * sH + col] : A.nst[(i - 1) * MBH + o];
+            const float base = A.nbs[i * MBH + o];
+            const float graw = mult_y ? base * st : base;
+            const float gg = tanhf(sth * graw);
+            const float dsg = dg * (1.f - gg * gg);
+            th_acc = fmaf(dsg, graw, th_acc);
+            const float dgraw = dsg * sth;
+            float dbase = dgraw, direct = 0.f;
+            if (mult_y) {
+              dbase = dgraw * st;
+              direct = dgraw * base;
+            }
+            float v;
+            if constexpr (NZ == NZ_NET1) {
+              v = dbase;
+              A.dn[i * MBH + o] = v;
+            } else {
+              v = base > 0.f ? dbase : 0.f;
+              A.dz2[i * MBH + o] = v;
+            }
+            tq[(i & 1) * wtile + ix] = v;
+            tdir[ix] = direct;
+          };
+          for (int i = tid; i < nr * nu; i += ET) {
+            const int r = i / nu, n = i % nu, ix = r * U + n;
+            const float dh01 = dh[ix], gb = gbar[ix], ii = iu[i];
+            float cf[4];
+            srk_coeffs(wu[i], ii, k, cf);
+            // y's, f0's and g0-g2's cotangents from the update and H0_1
+            tdy[ix] = gb + dh01;
+            tdf0[ix] = gb * (ALPHA0 * k.dt) + 0.75f * k.dt * dh01;
+            tdg[ix] = gb * cf[0] + 1.5f * (ii * k.rdt) * dh01;
+            tdg[wtile + ix] = gb * cf[1];
+            tdg[2 * wtile + ix] = gb * cf[2];
+            stage_pw(3, r, n, gb * cf[3]);
+          }
+          __syncthreads();
+      #pragma unroll 1
+          for (int si = 3; si >= 0; --si) {
+            const float* E = tq + (si & 1) * wtile;
+            if constexpr (NZ == NZ_NET2) {
+              mm_t(all, E, U, nu, w.wn2, w.lwn, GW, nr, H,
+                   [&](int r, int kk, float acc) {
+                     const size_t o = si * MBH + (oc + r) * H + kk;
+                     const float v = A.nhs[o] > 0.f ? acc : 0.f;
+                     tq1[r * U + kk] = v;
+                     A.dn[o] = v;
+                   });
+              __syncthreads();
+              E = tq1;
+            }
+            mm_t(all, E, U, nu, w.wn1, w.lwn, GW, nr, H,
+                 [&](int r, int kk, float acc) {
+                   const int ix = r * U + kk;
+                   const float ds = acc + tdir[ix];
+                   const float dy = tdy[ix] + ds;
+                   tdy[ix] = dy;
+                   // the stage's state: H1_3 = y + dt/4 f0 + sqrt(dt)
+                   // (-5 g0 + 3 g1 + g2/2), H1_2 = y + dt f0 - sqrt(dt)
+                   // g0, H1_1 = y + dt/4 f0 + sqrt(dt)/2 g0
+                   if (si == 3) {
+                     tdf0[ix] += 0.25f * k.dt * ds;
+                     tdg[ix] -= 5.f * k.sq * ds;
+                     tdg[wtile + ix] += 3.f * k.sq * ds;
+                     tdg[2 * wtile + ix] += 0.5f * k.sq * ds;
+                   } else if (si == 2) {
+                     tdf0[ix] += k.dt * ds;
+                     tdg[ix] -= k.sq * ds;
+                   } else if (si == 1) {
+                     tdf0[ix] += 0.25f * k.dt * ds;
+                     tdg[ix] += 0.5f * k.sq * ds;
+                   }
+                   if (si > 0) {
+                     stage_pw(si - 1, r, kk, tdg[(si - 1) * wtile + ix]);
+                     return;
+                   }
+                   // f0's output
+                   const float y = yu[r * sH + kk], z3l = zu[ix];
+                   const float ty = tanhf(y);
+                   const float f0 = tanhf(geometric ? z3l * ty : z3l);
+                   const float dz3 = tdf0[ix] * (1.f - f0 * f0);
+                   float dz3l = dz3, dyo = dy;
+                   if (geometric) {
+                     dz3l = dz3 * ty;
+                     dyo += dz3 * z3l * (1.f - ty * ty);
+                   }
+                   dz[ix] = dz3l;
+                   A.dz3[(oc + r) * H + kk] = dz3l;
+                   gbar[ix] = dyo;
+                 });
+            __syncthreads();
+          }
         } else {
           // step u's diffusion stages in reverse (g3, g2, g1, g0) given the
           // state's cotangent and H0_1's, then f0's output
@@ -555,8 +905,8 @@ srk_bwd_kernel(SdeDims d, SdePlan pp, SrkArgs A) {
             const float f0 = tanhf(geometric ? z3l * ty : z3l);
             const float g_0 = gku[n], g_1 = gku[U + n], g_2 = gku[2 * U + n];
             const float ii = iu[i];
-            const Stages st =
-                srk_stages(y, f0, g_0, g_1, g_2, ii, sth, k, mult_y);
+            const Stages st = srk_stages<NZ>(y, f0, g_0, g_1, g_2, ii, sth, k,
+                                         mult_y, d.elem);
             float cf[4];
             srk_coeffs(wu[i], ii, k, cf);
             float df0 = gb * (ALPHA0 * k.dt);
@@ -568,24 +918,26 @@ srk_bwd_kernel(SdeDims d, SdePlan pp, SrkArgs A) {
             dg[0] += 1.5f * (ii * k.rdt) * dh01;
             float q0, q1, q2, q3;
             // stage g3: H1_3 = y + dt/4 f0 + sqrt(dt) (-5 g0 + 3 g1 + g2/2)
-            float ds = noise_bwd(st, 3, dg[3], g_1, sth, mult_y, th_acc, q3);
+            float ds =
+                noise_bwd<NZ>(st, 3, dg[3], g_1, sth, mult_y, d.elem, th_acc, q3);
             dy += ds;
             df0 += 0.25f * k.dt * ds;
             dg[0] -= 5.f * k.sq * ds;
             dg[1] += 3.f * k.sq * ds;
             dg[2] += 0.5f * k.sq * ds;
             // stage g2: H1_2 = y + dt f0 - sqrt(dt) g0
-            ds = noise_bwd(st, 2, dg[2], g_2, sth, mult_y, th_acc, q2);
+            ds = noise_bwd<NZ>(st, 2, dg[2], g_2, sth, mult_y, d.elem, th_acc, q2);
             dy += ds;
             df0 += k.dt * ds;
             dg[0] -= k.sq * ds;
             // stage g1: H1_1 = y + dt/4 f0 + sqrt(dt)/2 g0
-            ds = noise_bwd(st, 1, dg[1], g_1, sth, mult_y, th_acc, q1);
+            ds = noise_bwd<NZ>(st, 1, dg[1], g_1, sth, mult_y, d.elem, th_acc, q1);
             dy += ds;
             df0 += 0.25f * k.dt * ds;
             dg[0] += 0.5f * k.sq * ds;
             // stage g0 (state y)
-            dy += noise_bwd(st, 0, dg[0], g_0, sth, mult_y, th_acc, q0);
+            dy +=
+                noise_bwd<NZ>(st, 0, dg[0], g_0, sth, mult_y, d.elem, th_acc, q0);
             // f0's output
             const float dz3 = df0 * (1.f - f0 * f0);
             float dz3l = dz3;
@@ -596,9 +948,11 @@ srk_bwd_kernel(SdeDims d, SdePlan pp, SrkArgs A) {
             dz[ix] = dz3l;
             const size_t o = (oc + r) * H + col;
             A.dz3[o] = dz3l;
-            A.q[o] = q0;
-            A.q[MBH + o] = q3 + q1;
-            A.q[2 * MBH + o] = q2;
+            if constexpr (NZ == NZ_PRE) {
+              A.q[o] = q0;
+              A.q[MBH + o] = q3 + q1;
+              A.q[2 * MBH + o] = q2;
+            }
             gbar[ix] = dy;
           }
         }
@@ -627,7 +981,7 @@ srk_bwd_kernel(SdeDims d, SdePlan pp, SrkArgs A) {
             mm_t(gc, E, lde, Nc, W, ldw, GW, nr, HH,
                  [&](int r, int k, float acc) { part[r * sW + k] = acc; });
           }
-        } else {
+        } else if (DR != DR_XT) {
           // dz1 Wy'^T (own columns): f1's into H0_1's cotangent, f0's into
           // the state's
           const float* E = e + (NI & 1) * htile + h0;
@@ -651,12 +1005,23 @@ srk_bwd_kernel(SdeDims d, SdePlan pp, SrkArgs A) {
           const float* xu = s + (re ? L.xh1 : L.xh0) + sv * xtile;
           float* ho = act(u - 1, re, 0);
           float* hso = A.hs + re * lay;
-          mm(gr, X, sH, H, w.wy, w.lwy, GW, nr, nh,
-             [&](int r, int n, float acc) {
-               const float v = fmaxf(acc + au[n] + xu[r * nh + n], 0.f);
-               push(cs, ho, r * sHH + h0 + n, v);
-               hso[(ov + r) * HH + h0 + n] = v;
-             });
+          if constexpr (DR == DR_XT) {
+            xt_first(gr, xu, nr, nh, [&](int r, int n, float v) {
+              push(cs, ho, r * sHH + h0 + n, v);
+              hso[(ov + r) * HH + h0 + n] = v;
+            });
+          } else {
+            mm(gr, X, sH, H, w.wy, w.lwy, GW, nr, nh,
+               [&](int r, int n, float acc) {
+                 float v;
+                 if constexpr (DR == DR_EMBM)
+                   v = fmaxf(acc + au[n] + xu[r * nh + n], 0.f);
+                 else
+                   v = fmaxf(acc + au[n], 0.f);
+                 push(cs, ho, r * sHH + h0 + n, v);
+                 hso[(ov + r) * HH + h0 + n] = v;
+               });
+          }
         } else if (q <= NI) {
           const float* bl = w.bi + (q - 1) * UH;
           float* ho = act(u - 1, re, q);
@@ -681,9 +1046,13 @@ srk_bwd_kernel(SdeDims d, SdePlan pp, SrkArgs A) {
                   zo[r * U + n] = z3l;
                   const float y = yv[r * sH + col];
                   const float f0 = tanhf(geometric ? z3l * tanhf(y) : z3l);
-                  const float v =
-                      h01_of(y, f0, noise_g(y, gkv[n], sth, mult_y),
-                             iv[r * nu + n], k);
+                  float b0;  // stage 0's base
+                  if constexpr (net_noise(NZ))
+                    b0 = A.nbs[(ov + r) * H + col];
+                  else
+                    b0 = pw_base<NZ>(y, gkv[n], d.elem);
+                  const float v = h01_of(y, f0, noise_g(y, b0, sth, mult_y),
+                                         iv[r * nu + n], k);
                   push(cs, h01, r * sH + col, v);
                   A.h01[(ov + r) * H + col] = v;
                 });
@@ -735,64 +1104,89 @@ srk_bwd_kernel(SdeDims d, SdePlan pp, SrkArgs A) {
 // The host plan and the launches
 // ---------------------------------------------------------------------------
 
+// The instance of a launch: the level's (a compile-time fact: the main
+// paths' level 0 reads the weight slices from shared memory) and the drift
+// and noise modes'
+using SrkKernel = decltype(&srk_fwd_kernel<false, DR_EMBM, NZ_PRE>);
+
+inline SrkKernel srk_kernel(const SdeDims& d, int backward, int level) {
+  static const SrkKernel k[2][2][SDE_DRIFTS][SDE_NOISES] = {
+      SDE_INSTANCES(srk_fwd_kernel), SDE_INSTANCES(srk_bwd_kernel)};
+  return k[backward ? 1 : 0][level ? 1 : 0][d.drift][d.noise];
+}
+
 // cudaOccupancyMaxActiveClusters of plan q's kernel (0 when it cannot be
 // scheduled)
-inline int plan_active(const SdePlan& q, int backward) {
+inline int plan_active(const SdeDims& d, const SdePlan& q, int backward) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
-  int n = 0, e;
-  if (backward)
-    e = cluster_config(q.level ? srk_bwd_kernel<true> : srk_bwd_kernel<false>,
-                       q.cs, 0, q.bytes, 0, cfg, attr, &n);
-  else
-    e = cluster_config(q.level ? srk_fwd_kernel<true> : srk_fwd_kernel<false>,
-                       q.cs, 0, q.bytes, 0, cfg, attr, &n);
+  int n = 0;
+  const int e = cluster_config(srk_kernel(d, backward, q.level), q.cs,
+                               0, q.bytes, 0, cfg, attr, &n);
   return e ? 0 : n;
 }
 
 // The plan of a launch (sde_plan): a step is two MLP evaluations, their
 // 2 (NI + 2) phases (and, in the backward, the stages' and the tail's), a
-// cluster barrier each.
+// cluster barrier each, and four diffusion evaluations (a noise net's
+// stages: four phases more in the forward, four or eight in the backward).
 inline SdePlan srk_plan(const SdeDims& d, int backward) {
   const int P = d.NI + 2;
+  const int net = noise_jobs(d);
+  const int extra = net ? (backward ? 4 * net : 2 + net) : 0;
   return sde_plan(
-      d, backward, StepShape{2, 2 * P + 2 * backward, 2 * P},
+      d, backward, StepShape{2, 2 * P + 2 * backward + extra, 2 * P, 4},
       [&](const SdePlan& q) { return srk_layout(d, q, backward).total; },
-      [&](const SdePlan& q) { return plan_active(q, backward); });
+      [&](const SdePlan& q) { return plan_active(d, q, backward); });
 }
 
-// One launch (or, without `go`, its plan's check); the main paths' level 0
-// runs its own instance (the weight slices in shared memory, a
-// compile-time fact)
+inline bool srk_valid(const SdeDims& d) {
+  return sde_valid(d) && sde_modes_valid(d.drift, d.noise, d.elem);
+}
+
+// One launch (or, without `go`, its plan's check)
 int run(const SdeDims& d, const SrkArgs& A, int backward, cudaStream_t s,
         int* active, bool go) {
-  if (!sde_valid(d)) return (int)cudaErrorInvalidValue;
+  if (!srk_valid(d)) return (int)cudaErrorInvalidValue;
   const SdePlan p = srk_plan(d, backward);
   if (p.bytes > (long long)max_optin_smem())
     return (int)cudaErrorInvalidValue;
-  auto k = backward ? (p.level ? srk_bwd_kernel<true> : srk_bwd_kernel<false>)
-                    : (p.level ? srk_fwd_kernel<true> : srk_fwd_kernel<false>);
-  return launch_clusters(k, p.cs, sde_ctas(d, p), p.bytes, s, active, go, d, p,
-                         A);
+  return launch_clusters(srk_kernel(d, backward, p.level), p.cs,
+                         sde_ctas(d, p), p.bytes, s, active, go, d, p, A);
 }
 
 // The weight gradient over K = 2 M B rows, both evaluations: Wy' over the
 // states each first layer read (y0, ys, then H0_1) and dz1 (dxh0 then
-// dxh1), each W_l and Wout over the activations and cotangents; the
-// per-step column sums of dz1 (da0, da1) and of the gk rows' cotangents
-// (dgk0, dgk1, dgk2).
+// dxh1; not in drift mode 'xt'), each W_l and Wout over the activations and
+// cotangents; the per-step column sums of dz1 (da0, da1; not in 'xt') and
+// of the gk rows' cotangents (dgk0, dgk1, dgk2; 'precomp'). A noise net's
+// over K = 4 M B rows, the four stages, in a second launch: Wn1 over the
+// stage states (y0, ys, then nst) and dn, Wn2 over nh and dz2, and the
+// column sums of dn by stage and step (dgk [4][M][H]: the an1 rows'
+// cotangents, stages 1 and 3 summed by the wrapper).
 int run_wgrad(const SdeDims& d, const float* y0, const float* ys,
               const float* h01, const float* dxh, const float* hs,
-              const float* es, const float* dz3, const float* q, float* p,
-              float* da, float* dgk, cudaStream_t s) {
-  if (!sde_valid(d)) return (int)cudaErrorInvalidValue;
+              const float* es, const float* dz3, const float* q,
+              const float* nst, const float* dn, const float* nh,
+              const float* dz2, float* p, float* da, float* dgk,
+              cudaStream_t s) {
+  if (!srk_valid(d)) return (int)cudaErrorInvalidValue;
   const long long MB = (long long)d.M * d.B, K = 2 * MB;
   const WgPlan wp = wg_plan(d, K);
   std::vector<WgJob> jobs;
-  wg_jobs(d, wp, K, y0, ys, h01, d.B, (int)MB, dxh, hs, es, dz3, p, jobs);
-  const WgSum sums[2] = {WgSum{dxh, da, d.HH, 2 * d.M},
-                         WgSum{q, dgk, d.H, 3 * d.M}};
-  return run_wgrad_jobs(jobs, sums, 2, K, d.B, wp, s);
+  const long long off = wg_jobs(d, wp, K, y0, ys, h01, d.B, (int)MB, dxh, hs,
+                                es, dz3, p, jobs);
+  WgSum sums[WG_MAX_SUMS];
+  int ns = 0;
+  if (d.drift != DR_XT) sums[ns++] = WgSum{dxh, da, d.HH, 2 * d.M};
+  if (d.noise == NZ_PRE) sums[ns++] = WgSum{q, dgk, d.H, 3 * d.M};
+  int err = run_wgrad_jobs(jobs, sums, ns, K, d.B, wp, s);
+  if (err || !net_noise(d.noise)) return err;
+  std::vector<WgJob> njobs;
+  wg_noise_jobs(d, wp, y0, ys, nst, d.B, (int)MB, dn, nh, dz2, p + off,
+                njobs);
+  const WgSum nsum{dn, dgk, d.H, 4 * d.M};
+  return run_wgrad_jobs(njobs, &nsum, 1, 4 * MB, d.B, wp, s);
 }
 
 }  // namespace
@@ -801,17 +1195,21 @@ extern "C" {
 
 // Dynamic shared memory of one CTA of a launch, in bytes, at its plan
 // (above the device's limit when no plan fits).
-long long fused_srk_smem_bytes(int B, int H, int HH, int n_inner,
-                               int backward) {
-  return srk_plan(SdeDims{1, B, H, HH, n_inner, 0, 0}, backward).bytes;
+long long fused_srk_smem_bytes(int B, int H, int HH, int n_inner, int drift,
+                               int noise, int backward) {
+  if (!sde_modes_valid(drift, noise, 7)) return -1;
+  return srk_plan(SdeDims{1, B, H, HH, n_inner, 0, 0, drift, noise, 0},
+                  backward)
+      .bytes;
 }
 
 // One field of a launch's plan: 0 the level, 1 batch rows a cluster, 2
 // CTAs a cluster, 3 cudaOccupancyMaxActiveClusters (minus the CUDA error
 // when the plan cannot be scheduled), 4 shared bytes a CTA.
-int fused_srk_plan(int B, int H, int HH, int n_inner, int backward,
-                   int field) {
-  const SdeDims d{1, B, H, HH, n_inner, 0, 0};
+int fused_srk_plan(int B, int H, int HH, int n_inner, int drift, int noise,
+                   int backward, int field) {
+  if (!sde_modes_valid(drift, noise, 7)) return -(int)cudaErrorInvalidValue;
+  const SdeDims d{1, B, H, HH, n_inner, 0, 0, drift, noise, 9};
   const SdePlan p = srk_plan(d, backward);
   switch (field) {
     case 0: return p.level;
@@ -824,9 +1222,12 @@ int fused_srk_plan(int B, int H, int HH, int n_inner, int backward,
   return err ? -err : active;
 }
 
-// The splits of the weight gradient's K = 2 M B at (M, B, H, HH, n_inner).
-int fused_srk_wgrad_splits(int M, int B, int H, int HH, int n_inner) {
-  return wg_plan(SdeDims{M, B, H, HH, n_inner, 0, 0}, 2LL * M * B).S;
+// The splits of the weight gradient's K at (M, B, H, HH, n_inner) in the
+// modes (the leading dimension of its partials).
+int fused_srk_wgrad_splits(int M, int B, int H, int HH, int n_inner,
+                           int drift, int noise) {
+  return wg_plan(SdeDims{M, B, H, HH, n_inner, 0, 0, drift, noise, 0},
+                 2LL * M * B).S;
 }
 
 // Make later launches take level `first` or a later one (0: the host's
@@ -844,56 +1245,85 @@ const char* fused_srk_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
+// The forward: ys, and in the noise nets' modes the states of stages 1-3
+// nst [3][M][B][H], the nets' outputs nb [4][M][B][H] and (net2) hidden
+// activations nh [4][M][B][H]. A tensor a mode does not take is null: xh0
+// and xh1 in 'yy'; a0, a1 and wy in 'xt'; the gk rows in 'elem' (the an1
+// rows in the nets); wn1 (wn2, bn2) outside the nets (net1).
 int fused_srk_fwd(const float* y0, const float* xh0, const float* xh1,
                   const float* dw, const float* i10, const float* a0,
                   const float* a1, const float* gk0, const float* gk1,
                   const float* gk2, const float* dts, const float* theta,
                   const float* wy, const float* wi, const float* bi,
-                  const float* wo, const float* bo, float* ys, int M, int B,
-                  int H, int HH, int n_inner, int mult_y, int geometric,
-                  void* stream) {
-  const SrkArgs A{y0,  nullptr, nullptr, xh0, xh1, dw, i10, a0, a1,
-                  gk0, gk1,     gk2,     dts, theta, wy, wi, bi, wo,
-                  bo,  ys};
-  return run(SdeDims{M, B, H, HH, n_inner, mult_y, geometric}, A, 0,
-             (cudaStream_t)stream, nullptr, true);
+                  const float* wo, const float* bo, const float* wn1,
+                  const float* wn2, const float* bn2, float* ys, float* nst,
+                  float* nb, float* nh, int M, int B, int H, int HH,
+                  int n_inner, int mult_y, int geometric, int drift,
+                  int noise, int elem, void* stream) {
+  SrkArgs A{};
+  A.y0 = y0; A.xh0 = xh0; A.xh1 = xh1; A.dw = dw; A.i10 = i10; A.a0 = a0;
+  A.a1 = a1; A.gk0 = gk0; A.gk1 = gk1; A.gk2 = gk2; A.dts = dts;
+  A.theta = theta; A.wy = wy; A.wi = wi; A.bi = bi; A.wo = wo; A.bo = bo;
+  A.wn1 = wn1; A.wn2 = wn2; A.bn2 = bn2;
+  A.ys_out = ys; A.nst = nst; A.nbs = nb; A.nhs = nh;
+  return run(SdeDims{M, B, H, HH, n_inner, mult_y, geometric, drift, noise,
+                     elem},
+             A, 0, (cudaStream_t)stream, nullptr, true);
 }
 
 // The reverse recurrence: dy0, the per-CTA partials of d theta ([ctas]),
 // and the streams of the weight gradient: dxh [2][M][B][HH] (dz1 of f0,
 // then f1: the cotangents of xh0 and xh1), hs [NI+1][2][M][B][HH] (h_0..
 // h_NI of both evaluations), es [NI][2][M][B][HH] (the cotangents of
-// h_1..h_NI's inputs), dz3 [2][M][B][H], q [3][M][B][H] (the gk0, gk1 and
-// gk2 rows' cotangents by row) and h01 [M][B][H] (H0_1, f1's state).
+// h_1..h_NI's inputs), dz3 [2][M][B][H], h01 [M][B][H] (H0_1, f1's state),
+// and by noise mode q [3][M][B][H] (the gk0, gk1 and gk2 rows' cotangents
+// by row, 'precomp'), dn [4][M][B][H] (the cotangents of the nets' first
+// layers' outputs by stage) and dz2 [4][M][B][H] (of net2's second layers'
+// outputs); the nets read the forward's nst, nb and nh.
 int fused_srk_bwd(const float* y0, const float* ys, const float* gys,
                   const float* xh0, const float* xh1, const float* dw,
                   const float* i10, const float* a0, const float* a1,
                   const float* gk0, const float* gk1, const float* gk2,
                   const float* dts, const float* theta, const float* wy,
                   const float* wi, const float* bi, const float* wo,
-                  const float* bo, float* dxh, float* dy0, float* hs,
-                  float* es, float* dz3, float* q, float* h01, float* p_th,
+                  const float* bo, const float* wn1, const float* wn2,
+                  const float* nst, const float* nb, const float* nh,
+                  float* dxh, float* dy0, float* hs, float* es, float* dz3,
+                  float* q, float* h01, float* dn, float* dz2, float* p_th,
                   int M, int B, int H, int HH, int n_inner, int mult_y,
-                  int geometric, void* stream) {
-  const SrkArgs A{y0,  ys, gys, xh0, xh1, dw, i10, a0, a1,  gk0,
-                  gk1, gk2, dts, theta, wy, wi, bi, wo, bo, nullptr,
-                  dxh, dy0, hs,  es,  dz3, q,  h01, p_th};
-  return run(SdeDims{M, B, H, HH, n_inner, mult_y, geometric}, A, 1,
-             (cudaStream_t)stream, nullptr, true);
+                  int geometric, int drift, int noise, int elem,
+                  void* stream) {
+  SrkArgs A{};
+  A.y0 = y0; A.ys = ys; A.gys = gys; A.xh0 = xh0; A.xh1 = xh1; A.dw = dw;
+  A.i10 = i10; A.a0 = a0; A.a1 = a1; A.gk0 = gk0; A.gk1 = gk1; A.gk2 = gk2;
+  A.dts = dts; A.theta = theta; A.wy = wy; A.wi = wi; A.bi = bi; A.wo = wo;
+  A.bo = bo; A.wn1 = wn1; A.wn2 = wn2;
+  A.nst = const_cast<float*>(nst); A.nbs = const_cast<float*>(nb);
+  A.nhs = const_cast<float*>(nh);
+  A.dxh = dxh; A.dy0 = dy0; A.hs = hs; A.es = es; A.dz3 = dz3; A.q = q;
+  A.h01 = h01; A.dn = dn; A.dz2 = dz2; A.p_th = p_th;
+  return run(SdeDims{M, B, H, HH, n_inner, mult_y, geometric, drift, noise,
+                     elem},
+             A, 1, (cudaStream_t)stream, nullptr, true);
 }
 
 // The weight gradient from the recurrence's streams: the split partials
-// p (Wy' [S][H+1][HH], each W_l [S][HH+1][HH], Wout [S][HH+1][H] one after
-// another; the last row of each the bias sum, zero for Wy'), and the
-// per-step column sums da [2][M][HH] of dxh and dgk [3][M][H] of q.
+// p (Wy' [S][H+1][HH] unless the drift is 'xt', each W_l [S][HH+1][HH],
+// Wout [S][HH+1][H], then Wn1 and (net2) Wn2 [S][H+1][H], one after
+// another; the last row of each the bias sum, zero for Wy' and Wn1), the
+// per-step column sums da [2][M][HH] of dxh, and dgk, [3][M][H] of q
+// ('precomp') or [4][M][H] of dn by stage (the nets).
 int fused_srk_wgrad(const float* y0, const float* ys, const float* h01,
                     const float* dxh, const float* hs, const float* es,
-                    const float* dz3, const float* q, float* p, float* da,
-                    float* dgk, int M, int B, int H, int HH, int n_inner,
-                    int mult_y, int geometric, void* stream) {
-  return run_wgrad(SdeDims{M, B, H, HH, n_inner, mult_y, geometric}, y0, ys,
-                   h01, dxh, hs, es, dz3, q, p, da, dgk,
-                   (cudaStream_t)stream);
+                    const float* dz3, const float* q, const float* nst,
+                    const float* dn, const float* nh, const float* dz2,
+                    float* p, float* da, float* dgk, int M, int B, int H,
+                    int HH, int n_inner, int mult_y, int geometric, int drift,
+                    int noise, int elem, void* stream) {
+  return run_wgrad(SdeDims{M, B, H, HH, n_inner, mult_y, geometric, drift,
+                           noise, elem},
+                   y0, ys, h01, dxh, hs, es, dz3, q, nst, dn, nh, dz2, p, da,
+                   dgk, (cudaStream_t)stream);
 }
 
 }  // extern "C"

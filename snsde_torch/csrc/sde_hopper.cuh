@@ -329,15 +329,88 @@ __device__ __forceinline__ float cta_sum(float v, float* red) {
 // An SDE pair's cluster: its rows, its columns, its slices of the weights
 // ---------------------------------------------------------------------------
 
-// The drift MLP of a DiffusionField in drift mode 'embm' (input_option
-// 2/4/6), the y-independent parts precomputed outside the kernels:
-//   z1 = s Wy' + a' + xh';  h_0 = relu(z1);  h_{l+1} = relu(h_l W_l + b_l)
+// The drift MLP of a DiffusionField, the y-independent parts precomputed
+// outside the kernels, by drift mode (the JAX package's _DRIFT_BY_IO):
+//   'embm' (input_option 2/4/6): z1 = s Wy' + a' + xh' (the merged emb)
+//   'yy'   (input_option 1/3/5): z1 = s Wy + a (a = tf Wt + b_in)
+//   'xt'   (input_option 0):     z1 = xh (= initial_network(X(t)))
+//   h_0 = relu(z1);  h_{l+1} = relu(h_l W_l + b_l)
 //   z3 = h_NI Wout + bo  (* tanh(s) when geometric);  f = tanh(z3)
-// (weights in [in, out] layout), with a diffusion tanh(sigmoid(theta) gk
-// (* s when mult_y)) of a t-only magnitude gk.
+// (weights in [in, out] layout), and a diffusion tanh(sigmoid(theta) base
+// (* s when mult_y)) whose base is, by noise mode:
+//   'precomp' (noise_option 0-6, 11-13, 16, 17): a t-only row gk
+//   'elem' (7-10): sqrt, cube, sigmoid or relu of s (elem: the option)
+//   'net1' (14/15): s Wn1 + an1 (an1 = tf Wn1_t + bn1, a row)
+//   'net2' (18/19): relu(relu(s Wn1 + an1) Wn2 + bn2)
+// A kernel instance is compiled for one drift and one noise mode (template
+// arguments); mult_y, geometric and the elem option are runtime flags.
+enum { DR_EMBM = 0, DR_YY = 1, DR_XT = 2, SDE_DRIFTS = 3 };
+enum { NZ_PRE = 0, NZ_ELEM = 1, NZ_NET1 = 2, NZ_NET2 = 3, SDE_NOISES = 4 };
+
+// The initializer of a kernel template K<GW, DR, NZ>'s instances as a
+// table [level][drift][noise] (level 1: GW, the weights in device memory)
+#define SDE_NZ_ROW(K, GW, DR) \
+  {K<GW, DR, NZ_PRE>, K<GW, DR, NZ_ELEM>, K<GW, DR, NZ_NET1>, \
+   K<GW, DR, NZ_NET2>}
+#define SDE_DR_ROWS(K, GW)                                      \
+  {SDE_NZ_ROW(K, GW, DR_EMBM), SDE_NZ_ROW(K, GW, DR_YY), \
+   SDE_NZ_ROW(K, GW, DR_XT)}
+#define SDE_INSTANCES(K) {SDE_DR_ROWS(K, false), SDE_DR_ROWS(K, true)}
+
+// the modes an instance exists for (and, in mode 'elem', noise_option 7-10)
+inline bool sde_modes_valid(int drift, int noise, int elem) {
+  return drift >= 0 && drift < SDE_DRIFTS && noise >= 0 &&
+         noise < SDE_NOISES &&
+         (noise != NZ_ELEM || (elem >= 7 && elem <= 10));
+}
+
+__host__ __device__ constexpr bool net_noise(int nz) {
+  return nz == NZ_NET1 || nz == NZ_NET2;
+}
+
 struct SdeDims {
-  int M, B, H, HH, NI, mult_y, geometric;
+  int M, B, H, HH, NI, mult_y, geometric, drift, noise, elem;
 };
+
+// d with its modes the instance's compile-time ones, so that every branch
+// on them in the shared layout and weight code folds away
+template <int DR, int NZ>
+__device__ __forceinline__ SdeDims with_modes(SdeDims d) {
+  d.drift = DR;
+  d.noise = NZ;
+  return d;
+}
+
+// The elementwise noise bases (noise_option 7-10) and their derivatives,
+// as the JAX kernel takes them (snsde/kernels/fused_em.py:381-392,
+// 424-437): sqrt is 0 where s <= 0 (the reference's nan_to_num), its
+// derivative 0 there.
+__device__ __forceinline__ float elem_base(int no, float s) {
+  if (no == 7) return s > 0.f ? sqrtf(fmaxf(s, 0.f)) : 0.f;
+  if (no == 8) return s * s * s;
+  if (no == 9) return sigmoid(s);
+  return fmaxf(s, 0.f);
+}
+__device__ __forceinline__ float elem_deriv(int no, float s) {
+  if (no == 7) return s > 0.f ? 0.5f * rsqrtf(fmaxf(s, 1e-30f)) : 0.f;
+  if (no == 8) return 3.f * s * s;
+  if (no == 9) {
+    const float g = sigmoid(s);
+    return g * (1.f - g);
+  }
+  return s > 0.f ? 1.f : 0.f;
+}
+
+// h_0 = relu(xh) of drift mode 'xt' over the own columns, by the threads
+// of group g: epi(r, n, h_0)
+template <class Epi>
+__device__ __forceinline__ void xt_first(Grp g, const float* xu, int nr,
+                                         int nh, Epi epi) {
+  const int t = (int)threadIdx.x - g.t0;
+  if (t < 0 || t >= g.n) return;
+  for (int i = t; i < nr * nh; i += g.n)
+    epi(i / nh, i % nh, fmaxf(xu[i], 0.f));
+}
 
 // level 0: the weight slices in shared memory; 1: read from device memory
 constexpr int SDE_LEVELS = 2;
@@ -384,23 +457,27 @@ struct Take {
 };
 
 // Where the weights sit in shared memory (-1: not there). Weight slices
-// (level 0): Wy' [H4][lUH], W_l [NI][HH4][lUH], Wout [HH4][lU]; the bias
-// slices b_l [NI][UH] and bo [U] at every level.
+// (level 0): Wy' [H4][lUH] (not in drift mode 'xt'), W_l [NI][HH4][lUH],
+// Wout [HH4][lU], and the noise net's Wn1 and (net2) Wn2 [H4][lU]; the
+// bias slices b_l [NI][UH], bo [U] and (net2) bn2 [U] at every level.
 struct WtsAt {
-  long long wy, wi, bi, wo, bo;
+  long long wy, wi, bi, wo, bo, wn1, wn2, bn2;
 };
 
 __host__ __device__ inline WtsAt take_wts(Take& take, const SdeDims& d,
                                           const SdePlan& p, const SdeGeo& g) {
   WtsAt w;
-  w.wy = w.wi = w.wo = -1;
+  w.wy = w.wi = w.wo = w.wn1 = w.wn2 = w.bn2 = -1;
   if (p.level == 0) {
-    w.wy = take((long long)g.H4 * g.lUH);
+    if (d.drift != DR_XT) w.wy = take((long long)g.H4 * g.lUH);
     w.wi = take((long long)d.NI * g.HH4 * g.lUH);
     w.wo = take((long long)g.HH4 * g.lU);
+    if (net_noise(d.noise)) w.wn1 = take((long long)g.H4 * g.lU);
+    if (d.noise == NZ_NET2) w.wn2 = take((long long)g.H4 * g.lU);
   }
   w.bi = take((long long)d.NI * g.UH);
   w.bo = take(g.U);
+  if (d.noise == NZ_NET2) w.bn2 = take(g.U);
   return w;
 }
 
@@ -427,56 +504,83 @@ __device__ __forceinline__ Cta make_cta(const SdeDims& d, const SdePlan& p,
 // shared memory (level 0: rows and columns past the weights' own are zero,
 // shared memory being zeroed first), or the tensors in device memory at
 // their own strides from the slice's first column; the bias slices in
-// shared memory.
+// shared memory. The noise net's weights (Wn1, Wn2 [H][H], bn2 [H]; null
+// in the other noise modes) are sliced by output column as Wout is.
 struct Wts {
-  const float *wy, *wi, *wo, *bi, *bo;
-  int lwy, lwi, swi, lwo;
+  const float *wy, *wi, *wo, *bi, *bo, *wn1, *wn2, *bn2;
+  int lwy, lwi, swi, lwo, lwn;
 };
+
+struct WtsIn {
+  const float *wy, *wi, *bi, *wo, *bo, *wn1, *wn2, *bn2;
+};
+
+// one [K][N] weight's column slice [c0, c0 + n) into dst [K][ld]
+__device__ __forceinline__ void load_slice(float* dst, int ld,
+                                           const float* __restrict__ src,
+                                           int K, int N, int c0, int n) {
+  for (int i = threadIdx.x; i < K * n; i += ET)
+    dst[(i / n) * ld + i % n] = src[(size_t)(i / n) * N + c0 + i % n];
+}
 
 __device__ __forceinline__ Wts load_wts(const SdeDims& d, const SdePlan& p,
                                         const SdeGeo& g, const Cta& c,
                                         const WtsAt& at, float* s,
-                                        const float* __restrict__ wy,
-                                        const float* __restrict__ wi,
-                                        const float* __restrict__ bi,
-                                        const float* __restrict__ wo,
-                                        const float* __restrict__ bo) {
+                                        const WtsIn& in) {
   const int H = d.H, HH = d.HH, NI = d.NI, nh = c.nh, nu = c.nu;
   Wts w;
   float* sbi = s + at.bi;
   float* sbo = s + at.bo;
   for (int i = threadIdx.x; i < NI * nh; i += ET)
-    sbi[(i / nh) * g.UH + i % nh] = bi[(i / nh) * HH + c.h0 + i % nh];
-  for (int i = threadIdx.x; i < nu; i += ET) sbo[i] = bo[c.u0 + i];
+    sbi[(i / nh) * g.UH + i % nh] = in.bi[(i / nh) * HH + c.h0 + i % nh];
+  for (int i = threadIdx.x; i < nu; i += ET) sbo[i] = in.bo[c.u0 + i];
   w.bi = sbi;
   w.bo = sbo;
+  w.wn1 = w.wn2 = w.bn2 = nullptr;
+  w.lwn = 0;
+  if (d.noise == NZ_NET2 && in.bn2) {  // (a backward reads no bn2)
+    float* sbn = s + at.bn2;
+    for (int i = threadIdx.x; i < nu; i += ET) sbn[i] = in.bn2[c.u0 + i];
+    w.bn2 = sbn;
+  }
   if (p.level == 0) {
     float* swy = s + at.wy;
     float* swi = s + at.wi;
     float* swo = s + at.wo;
-    for (int i = threadIdx.x; i < H * nh; i += ET)
-      swy[(i / nh) * g.lUH + i % nh] =
-          wy[(size_t)(i / nh) * HH + c.h0 + i % nh];
+    if (d.drift != DR_XT) load_slice(swy, g.lUH, in.wy, H, HH, c.h0, nh);
     for (int i = threadIdx.x; i < NI * HH * nh; i += ET) {
       const int l = i / (HH * nh), k = (i / nh) % HH, n = i % nh;
       swi[((size_t)l * g.HH4 + k) * g.lUH + n] =
-          wi[((size_t)l * HH + k) * HH + c.h0 + n];
+          in.wi[((size_t)l * HH + k) * HH + c.h0 + n];
     }
-    for (int i = threadIdx.x; i < HH * nu; i += ET)
-      swo[(i / nu) * g.lU + i % nu] = wo[(size_t)(i / nu) * H + c.u0 + i % nu];
+    load_slice(swo, g.lU, in.wo, HH, H, c.u0, nu);
     w.wy = swy;
     w.wi = swi;
     w.wo = swo;
     w.lwy = w.lwi = g.lUH;
     w.swi = g.HH4 * g.lUH;
     w.lwo = g.lU;
+    if (net_noise(d.noise)) {
+      load_slice(s + at.wn1, g.lU, in.wn1, H, H, c.u0, nu);
+      w.wn1 = s + at.wn1;
+      w.lwn = g.lU;
+    }
+    if (d.noise == NZ_NET2) {
+      load_slice(s + at.wn2, g.lU, in.wn2, H, H, c.u0, nu);
+      w.wn2 = s + at.wn2;
+    }
   } else {
-    w.wy = wy + c.h0;
-    w.wi = wi + c.h0;
-    w.wo = wo + c.u0;
+    w.wy = in.wy + c.h0;
+    w.wi = in.wi + c.h0;
+    w.wo = in.wo + c.u0;
     w.lwy = w.lwi = HH;
     w.swi = HH * HH;
     w.lwo = H;
+    if (net_noise(d.noise)) {
+      w.wn1 = in.wn1 + c.u0;
+      w.lwn = H;
+    }
+    if (d.noise == NZ_NET2) w.wn2 = in.wn2 + c.u0;
   }
   return w;
 }
@@ -586,9 +690,10 @@ int g_force_cs = 0;
 int g_force_rows = 0;
 
 // What one step of a launch takes in a CTA: drift MLP evaluations,
-// phases (each ended by a barrier) and cluster barriers
+// phases (each ended by a barrier), cluster barriers and diffusion
+// evaluations
 struct StepShape {
-  int evals, phases, syncs;
+  int evals, phases, syncs, nevals;
 };
 
 // The plan of a launch: among every level from g_first_level on, CS in
@@ -604,22 +709,28 @@ struct StepShape {
 // recompute runs beside the chain; 300 a phase; 900 a cluster barrier and,
 // in a backward, 300 more a barrier for the partials' sum), x 2.5 at level
 // 1 (device memory serving the weights: the factor PR 7's CDE plan
-// measured). Ties go to fewer
+// measured). The noise nets' products (net1: H x H FMAs a row and
+// diffusion evaluation, net2: twice that) count as the drift's; their
+// instances take clusters of one only (their back products are not split
+// over a cluster), so at wide widths their weights go to device memory.
+// Ties go to fewer
 // waves, the lower level, the smaller CS, fewer rows. A pure function of
-// the shapes (and of what a test forces), kept per device. When nothing
-// fits, the last plan tried, its bytes above the limit (the launch is
-// refused).
+// the shapes and modes (and of what a test forces), kept per device. When
+// nothing fits, the last plan tried, its bytes above the limit (the launch
+// is refused).
 template <class Bytes, class Active>
 SdePlan sde_plan(const SdeDims& d, int backward, StepShape st, Bytes bytes,
                  Active active) {
   static std::mutex mu;
-  static std::map<std::tuple<int, int, int, int, int, int, int, int, int>,
+  static std::map<std::tuple<int, int, int, int, int, int, int, int, int,
+                             int, int>,
                   SdePlan>
       seen;
   int dev = 0;
   cudaGetDevice(&dev);
-  const auto key = std::make_tuple(dev, d.B, d.H, d.HH, d.NI, backward,
-                                   g_first_level, g_force_cs, g_force_rows);
+  const auto key =
+      std::make_tuple(dev, d.B, d.H, d.HH, d.NI, backward, g_first_level,
+                      g_force_cs, g_force_rows, d.drift, d.noise);
   std::lock_guard<std::mutex> lock(mu);
   const auto it = seen.find(key);
   if (it != seen.end()) return it->second;
@@ -629,13 +740,17 @@ SdePlan sde_plan(const SdeDims& d, int backward, StepShape st, Bytes bytes,
   last.bytes = limit + 1;
   double best_cost = -1.0;
   long long best_rank = 0;
-  const double row = (double)d.H * d.HH + (double)d.NI * d.HH * d.HH +
-                     (double)d.HH * d.H;
+  const double row =
+      ((double)d.H * d.HH + (double)d.NI * d.HH * d.HH + (double)d.HH * d.H) *
+          st.evals +
+      (d.noise == NZ_NET1 ? 1.0 : d.noise == NZ_NET2 ? 2.0 : 0.0) * d.H *
+          d.H * st.nevals;
   for (int level = g_first_level; level < SDE_LEVELS; ++level)
     for (int cs = 1; cs <= 8; cs *= 2) {
       if (g_force_cs ? cs != g_force_cs
                      : (cs > 1 && cs > (d.H > d.HH ? d.H : d.HH)))
         continue;
+      if (net_noise(d.noise) && cs > 1) continue;
       for (int R = 1; R <= 32; R *= 2) {
         if (g_force_rows && R != g_force_rows) continue;
         SdePlan q{level, cs, R, 0};
@@ -650,7 +765,7 @@ SdePlan sde_plan(const SdeDims& d, int backward, StepShape st, Bytes bytes,
         const double share =
             std::max(1.0, std::min(clusters, (double)n) * cs / sms);
         const double step =
-            R * row * st.evals / cs / 64.0 * (1 + backward) +
+            R * row / cs / 64.0 * (1 + backward) +
             300.0 * st.phases +
             (cs > 1 ? (900.0 + 300.0 * backward) * st.syncs : 0.0);
         const double cost = waves * share * step * (level > 0 ? 2.5 : 1.0);
@@ -890,40 +1005,49 @@ inline int wg_splits(long long K, long long tiles) {
 }
 
 // The weight-gradient products of an SDE backward over K rows of its
-// streams: the jobs (Wy', each W_l, Wout, in that order), their output
-// tiles and the splits of K
+// streams: the jobs (Wy' unless the drift is 'xt', each W_l, Wout, then
+// the noise net's Wn1 and Wn2 where it has them, in that order), their
+// output tiles and the splits of K
 struct WgPlan {
   int njobs, S, bm;
   long long tiles;
 };
 
+inline long long wg_tiles(int rows, int N, int bm) {
+  return (long long)((rows + bm - 1) / bm) * ((N + WG_BN - 1) / WG_BN);
+}
+
+inline int noise_jobs(const SdeDims& d) {
+  return d.noise == NZ_NET1 ? 1 : d.noise == NZ_NET2 ? 2 : 0;
+}
+
 inline WgPlan wg_plan(const SdeDims& d, long long K) {
   WgPlan w;
-  w.njobs = d.NI + 2;
+  const int wy = d.drift != DR_XT, nn = noise_jobs(d);
+  w.njobs = wy + d.NI + 1 + nn;
   w.bm = wg_rows(d.H, d.HH);
-  const long long tm_h = (d.H + w.bm - 1) / w.bm,
-                  tm_hh = (d.HH + w.bm - 1) / w.bm;
-  const long long tc_h = (d.H + WG_BN - 1) / WG_BN,
-                  tc_hh = (d.HH + WG_BN - 1) / WG_BN;
-  w.tiles = tm_h * tc_hh + d.NI * tm_hh * tc_hh + tm_hh * tc_h;
+  w.tiles = wy * wg_tiles(d.H, d.HH, w.bm) +
+            d.NI * wg_tiles(d.HH, d.HH, w.bm) + wg_tiles(d.HH, d.H, w.bm) +
+            nn * wg_tiles(d.H, d.H, w.bm);
   w.S = wg_splits(K, w.tiles);
   return w;
 }
 
-// The jobs of an SDE backward's weight gradient over K rows: Wy' (x: the
-// states the first layer read, x0 / x / x2 split at nb0 and nb1; e: dz1),
-// each W_l (x: hs[l], e: es[l], each stream K rows), Wout (x: hs[NI], e:
-// dz3), their split partials one after another from p (Wy' [S][H+1][HH],
-// each W_l [S][HH+1][HH], Wout [S][HH+1][H]; the last row of each the bias
-// sum, zero for Wy').
-inline void wg_jobs(const SdeDims& d, const WgPlan& wp, long long K,
-                    const float* x0, const float* x, const float* x2, int nb0,
-                    int nb1, const float* dz1, const float* hs,
-                    const float* es, const float* dz3, float* p,
-                    std::vector<WgJob>& jobs) {
+// The drift's jobs of an SDE backward's weight gradient over K rows: Wy'
+// (x: the states the first layer read, x0 / x / x2 split at nb0 and nb1;
+// e: dz1; not in drift mode 'xt'), each W_l (x: hs[l], e: es[l], each
+// stream K rows), Wout (x: hs[NI], e: dz3), their split partials one after
+// another from p (Wy' [S][H+1][HH], each W_l [S][HH+1][HH], Wout
+// [S][HH+1][H]; the last row of each the bias sum, zero for Wy'). Returns
+// the floats of p they take.
+inline long long wg_jobs(const SdeDims& d, const WgPlan& wp, long long K,
+                         const float* x0, const float* x, const float* x2,
+                         int nb0, int nb1, const float* dz1, const float* hs,
+                         const float* es, const float* dz3, float* p,
+                         std::vector<WgJob>& jobs) {
   const size_t KHH = (size_t)K * d.HH;
   long long off = 0;
-  for (int j = 0; j < wp.njobs; ++j) {
+  for (int j = d.drift == DR_XT ? 1 : 0; j < d.NI + 2; ++j) {
     WgJob J{};
     if (j == 0)
       J = WgJob{x0, x, x2, dz1, nullptr, d.H, d.HH, nb0, nb1, 0};
@@ -937,6 +1061,26 @@ inline void wg_jobs(const SdeDims& d, const WgPlan& wp, long long K,
     off += (long long)wp.S * (J.rows + 1) * J.N;
     jobs.push_back(J);
   }
+  return off;
+}
+
+// The noise net's jobs over K rows of its streams, their partials from p:
+// Wn1 [S][H+1][H] (x: the states each diffusion evaluation read, x0 / x /
+// x2 split at nb0 and nb1; e: dn, the cotangent of its output; no bias
+// sum: the bias is in the an1 rows), and for net2 Wn2 [S][H+1][H] (x: nh,
+// the hidden activations; e: dz2, the cotangent of its output; the last
+// row the bias sum).
+inline void wg_noise_jobs(const SdeDims& d, const WgPlan& wp,
+                          const float* x0, const float* x, const float* x2,
+                          int nb0, int nb1, const float* dn, const float* nh,
+                          const float* dz2, float* p,
+                          std::vector<WgJob>& jobs) {
+  if (!net_noise(d.noise)) return;
+  jobs.push_back(WgJob{x0, x, x2, dn, p, d.H, d.H, nb0, nb1, 0});
+  if (d.noise == NZ_NET2)
+    jobs.push_back(WgJob{nullptr, nh, nullptr, dz2,
+                         p + (long long)wp.S * (d.H + 1) * d.H, d.H, d.H, 0,
+                         INT_MAX, 1});
 }
 
 // Launch the jobs, in launches of at most WG_MAX_JOBS, with the column sums

@@ -2,8 +2,8 @@
 snsde/harness/robustness.py:48-446, the solo loop).
 
   * `ISTSClassifier`: seq layer (any name `registry.PORTED_NAMES` holds:
-    the Neural CDEs and the plain recurrent baselines) -> last step ->
-    BatchNorm -> ReLU(fc1) -> fc2, nan_to_num on the logits;
+    the Neural SDEs, the Neural CDEs and the plain recurrent baselines) ->
+    last step -> BatchNorm -> ReLU(fc1) -> fc2, nan_to_num on the logits;
   * `train_ists_model`: softmax cross-entropy, the 100x gradient hook on fc2
     before a global-norm clip at 10 (optax's rule), Adam without weight
     decay, StepLR(10, 0.5) stepped once per epoch, patience-10 early stop
@@ -12,7 +12,12 @@ snsde/harness/robustness.py:48-446, the solo loop).
   * stratified 70/15/15 splits per seed, (x, mask, delta) preprocessing
     with seeded missingness, per-(missing rate, model, seed) JSON records
     with skip-if-exists resume; every exception of a run becomes an
-    "error" record, as in the reference sweep.
+    "error" record, as in the reference sweep;
+  * the run's seed drives, as the JAX package's key per run does, the
+    initial weights and one generator on the model's device that draws
+    the training-time noise (an SDE's Brownian paths, a stacked SeqRNN's
+    dropout) in training and evaluation; test predictions draw from their
+    own generator of that seed.
 
 Batches follow the JAX package, not the reference's smaller last batch
 (ROADMAP Queue 3): the last partial batch is padded by wrap-around, the
@@ -176,9 +181,10 @@ def _to_device(arrays: Dict[str, np.ndarray], device) -> Dict:
 def train_ists_model(model: ISTSClassifier, data: Dict, y: np.ndarray,
                      splits, lr: float = 1e-3, batch_size: int = 64,
                      max_epochs: int = 30, patience: int = 10,
-                     verbose: bool = False):
+                     verbose: bool = False, seed: int = 0):
     """Train one classifier on its device; returns (the best-val model,
-    its test metrics)."""
+    its test metrics). `seed` seeds the batch order and the generator of
+    the model's noise in training and evaluation."""
     device = next(model.parameters()).device
     arrays = {"seq": data["seq"], "coeffs": data["coeffs"],
               "y": y.astype(np.int64)}
@@ -194,7 +200,7 @@ def train_ists_model(model: ISTSClassifier, data: Dict, y: np.ndarray,
         logits_all, ys, losses, ns = [], [], [], []
         with torch.no_grad():
             for batch, nv in iterate_batches(d, batch_size):
-                lo = model(batch["seq"], batch["coeffs"])
+                lo = model(batch["seq"], batch["coeffs"], generator=gen)
                 losses.append(softmax_cross_entropy(lo, batch["y"]) * nv)
                 logits_all.append(lo[:nv])
                 ys.append(batch["y"][:nv])
@@ -205,8 +211,8 @@ def train_ists_model(model: ISTSClassifier, data: Dict, y: np.ndarray,
             float(torch.stack(losses).sum()) / sum(ns), num_classes)
 
     sched = StepLR(lr=lr, step_size=10, gamma=0.5)
-    rng = np.random.default_rng(0)
-    gen = torch.Generator(device=device).manual_seed(0)
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=device).manual_seed(seed)
     best_val, stale = -np.inf, 0
     best_state = copy.deepcopy(model.state_dict())
     for epoch in range(max_epochs):
@@ -233,17 +239,20 @@ def train_ists_model(model: ISTSClassifier, data: Dict, y: np.ndarray,
 
 
 def predict_ists(model: ISTSClassifier, data: Dict, y: np.ndarray, idx,
-                 batch_size: int = 64):
+                 batch_size: int = 64, seed: int = 0):
     """Test-split predictions (y_true, y_pred, logits) of a trained
-    classifier."""
+    classifier; an SDE's Brownian paths drawn from a generator of
+    `seed` on the model's device."""
     device = next(model.parameters()).device
     d = _to_device({"seq": data["seq"][idx], "coeffs": data["coeffs"][idx]},
                    device)
+    gen = torch.Generator(device=device).manual_seed(seed)
     model.eval()
     logits = []
     with torch.no_grad():
         for batch, nv in iterate_batches(d, batch_size):
-            logits.append(model(batch["seq"], batch["coeffs"])[:nv])
+            logits.append(model(batch["seq"], batch["coeffs"],
+                                generator=gen)[:nv])
     logits = torch.cat(logits).cpu().numpy()
     return y.astype(np.int64)[idx], logits.argmax(-1), logits
 
@@ -297,7 +306,7 @@ def run_robustness_sweep(cfg: SweepConfig = SweepConfig(), n: int = 256,
                     model, test_m = train_ists_model(
                         model, data, y, splits, lr=cfg.lr,
                         batch_size=cfg.batch_size, max_epochs=cfg.max_epochs,
-                        patience=cfg.patience)
+                        patience=cfg.patience, seed=seed)
                     if models is not None:
                         models[(rate, model_name, seed)] = model
                     rec = {"dataset": dataset_name, "missing_rate": rate,
@@ -309,7 +318,7 @@ def run_robustness_sweep(cfg: SweepConfig = SweepConfig(), n: int = 256,
                                              None)}
                     if cfg.save_preds:
                         yt, yp, lo = predict_ists(model, data, y, splits[2],
-                                                  cfg.batch_size)
+                                                  cfg.batch_size, seed)
                         os.makedirs(os.path.dirname(out_path), exist_ok=True)
                         np.savez(out_path[:-5] + ".npz", y_true=yt,
                                  y_pred=yp, logits=lo)

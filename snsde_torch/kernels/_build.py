@@ -24,8 +24,14 @@ __all__ = ["build", "load", "BUILD_LOG", "CSRC", "BUILD_DIR"]
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
+# -split-compile=0 for nvcc's optimizer and for ptxas: a source's functions
+# compiled on every core. The SDE pairs' sources hold 48 kernel instances
+# each (drift x noise mode x level x forward/backward); nvcc's flag alone
+# leaves ptxas to compile them one after another (the SRK source ~270 s on
+# the chip machine's 8 cores), with both the four sources build in ~214 s.
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "-split-compile=0", "-Xptxas", "-split-compile=0"]
 
 # name -> nvcc's output (ptxas register/shared-memory report) and seconds
 BUILD_LOG: Dict[str, dict] = {}

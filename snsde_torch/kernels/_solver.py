@@ -3,51 +3,92 @@ the Python side (fused_cde.py and fused_rnn.py use the input checks and the
 library), as csrc/sde_hopper.cuh holds what they share on the device: the
 modes they take, the input checks, the loaded library with its common C
 interface, the sums of the weight gradient's split partials, and the
-precomputes outside the kernels (the merged drift's weights and rows, the
-diffusion magnitude gk(t), the stage times).
+precomputes outside the kernels (the drift's weights and rows by drift
+mode, the diffusion magnitude gk(t) or the noise net's an1 rows and
+weights, the stage times).
+
+The modes are the JAX kernels' (snsde/kernels/fused_em.py:_config): the
+drift mode by input_option ('xt' 0, 'yy' 1/3/5, 'embm' 2/4/6: the merged
+emb drift), the noise mode by noise_option ('precomp' 0-6, 11-13, 16, 17;
+'elem' 7-10; 'net1' 14/15; 'net2' 18/19), mult_y and geometric. The
+kernels take the whole 7 x 20 grid.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
-__all__ = ["EMB_IO", "PRECOMP_NO", "MULT_Y_NO", "SolverLib",
-           "supports_fused", "check_supported", "check_tensors",
-           "kernel_dims", "wgrad_partial_sizes", "sum_wgrad_partials",
-           "precomp_gk", "merged_drift_weights", "merged_drift_rows",
-           "stage_times"]
+__all__ = ["PRECOMP_NO", "ELEM_NO", "MULT_Y_NO", "DRIFT_BY_IO",
+           "DRIFT_CODE", "NOISE_CODE", "SolverLib", "sde_modes",
+           "noise_mode", "supports_fused", "check_supported",
+           "check_tensors", "kernel_dims", "wgrad_partial_sizes",
+           "sum_wgrad_partials", "precomp_gk", "drift_weights",
+           "drift_rows", "noise_rows", "noise_weights", "elem_base",
+           "elem_deriv", "stage_times", "SDE_INT_NAMES", "SDE_SHAPE_NAMES",
+           "is_net", "mode_codes", "SdeModes", "sde_mode", "check_mode",
+           "drift_input", "noise_base", "noise_back"]
 
-EMB_IO = {2, 4, 6}
 PRECOMP_NO = {0, 1, 2, 3, 4, 5, 6, 11, 12, 13, 16, 17}
+ELEM_NO = {7, 8, 9, 10}
 MULT_Y_NO = {3, 6, 11, 13, 15, 17, 19}
+DRIFT_BY_IO = {0: "xt", 1: "yy", 2: "embm", 3: "yy", 4: "embm", 5: "yy",
+               6: "embm"}
+# the kernels' codes of the modes (csrc/sde_hopper.cuh: DR_*, NZ_*)
+DRIFT_CODE = {"embm": 0, "yy": 1, "xt": 2}
+NOISE_CODE = {"precomp": 0, "elem": 1, "net1": 2, "net2": 3}
+
+
+def noise_mode(no: int) -> str:
+    """The noise mode of a noise_option."""
+    if no in PRECOMP_NO:
+        return "precomp"
+    if no in ELEM_NO:
+        return "elem"
+    return "net1" if no in (14, 15) else "net2"
+
+
+def sde_modes(field) -> dict:
+    """The kernels' flags for a field: drift and noise mode, the elem
+    option (the noise_option in mode 'elem', else 0), mult_y, geometric."""
+    io, no = field.input_option, field.noise_option
+    noise = noise_mode(no)
+    return {"drift": DRIFT_BY_IO[io], "noise": noise,
+            "elem": no if noise == "elem" else 0,
+            "mult_y": no in MULT_Y_NO, "geometric": io in (5, 6)}
 
 
 def supports_fused(field) -> bool:
-    """True when the CUDA kernels take the field's configuration: drift
-    mode 'embm' (input_option 2, 4, 6) with a t-only ('precomp')
-    diffusion."""
+    """True when the CUDA kernels take the field's configuration: every
+    input_option (0-6) x noise_option (0-19) of a DiffusionField, as the
+    JAX kernels do (snsde/kernels/fused_em.py:1072-1081)."""
     io = getattr(field, "input_option", None)
     no = getattr(field, "noise_option", None)
-    return io in EMB_IO and no in PRECOMP_NO
+    return io in DRIFT_BY_IO and isinstance(no, int) and 0 <= no <= 19
 
 
 def check_supported(field, label: str) -> None:
     if not supports_fused(field):
         raise ValueError(
-            f"{label} kernels take input_option in {sorted(EMB_IO)} with "
-            f"noise_option in {sorted(PRECOMP_NO)}; got "
-            f"({getattr(field, 'input_option', None)}, "
+            f"{label} kernels take input_option 0-6 and noise_option "
+            f"0-19; got ({getattr(field, 'input_option', None)}, "
             f"{getattr(field, 'noise_option', None)})")
 
 
-def check_tensors(label: str, want: dict, got: dict, device) -> None:
+def check_tensors(label: str, want: dict, got: dict, device,
+                  modes=None) -> None:
     """Raise ValueError unless every tensor of `got` that is not None is
-    float32, on `device`, contiguous and of the shape `want` names."""
+    float32, on `device`, contiguous and of the shape `want` names; with
+    `modes` (SdeModes), also unless each tensor they decide is given
+    exactly when they take it (check_mode, in the same pass)."""
+    need = modes.need if modes is not None else {}
     for name, t in got.items():
+        if name in need and need[name] != (t is not None):
+            check_mode(label, modes, **{name: t})
         if t is None:
             continue
         if t.dtype != torch.float32:
@@ -63,17 +104,16 @@ def check_tensors(label: str, want: dict, got: dict, device) -> None:
             raise ValueError(f"{label} kernel: {name} is not contiguous")
 
 
-def kernel_dims(label: str, y0, wy, w_inner, dts):
+def kernel_dims(label: str, y0, wout, w_inner, dts):
     """(M, B, H, HH, n_inner) from the tensors that fix them; ValueError on
     the wrong rank. Any width is taken here: the kernels place what does
     not fit shared memory in device memory (`SolverLib.stream` raises where
     even that cannot launch)."""
-    if y0.ndim != 2 or wy.ndim != 2 or w_inner.ndim != 3 or dts.ndim != 1:
-        raise ValueError(f"{label} kernel: y0 [B,H], wy [H,HH], w_inner "
+    if y0.ndim != 2 or wout.ndim != 2 or w_inner.ndim != 3 or dts.ndim != 1:
+        raise ValueError(f"{label} kernel: y0 [B,H], wout [HH,H], w_inner "
                          "[n_inner,HH,HH] and dts [M] expected")
     B, H = y0.shape
-    HH = wy.shape[1]
-    return dts.shape[0], B, H, HH, w_inner.shape[0]
+    return dts.shape[0], B, H, wout.shape[0], w_inner.shape[0]
 
 
 _P = ctypes.c_void_p
@@ -88,8 +128,8 @@ class SolverLib:
     `int_names`, then the stream), <name>_smem_bytes (the ints
     `shape_names`, then 1 for the backward), <name>_max_smem and
     <name>_error_string. `label` names the pair
-    in errors. The SDE pairs take (M, B, H, HH, n_inner, mult_y,
-    geometric) and size their shared memory by (H, HH, n_inner). A library
+    in errors. The SDE pairs take SDE_INT_NAMES and size their shared
+    memory by SDE_SHAPE_NAMES. A library
     may have further launch entries of the same shape (`launches`: suffix
     -> number of tensor pointers) and entries that take ints and return an
     int (`int_fns`: suffix -> number of ints; `call`). The SDE and CDE
@@ -99,11 +139,8 @@ class SolverLib:
     depend only on the shapes are asked once per shape and kept."""
 
     def __init__(self, name: str, label: str, n_fwd_ptrs: int,
-                 n_bwd_ptrs: int,
-                 int_names=("M", "B", "H", "HH", "n_inner", "mult_y",
-                            "geometric"),
-                 shape_names=("H", "HH", "n_inner"), source: str = "",
-                 launches=None, int_fns=None):
+                 n_bwd_ptrs: int, *, int_names, shape_names,
+                 source: str = "", launches=None, int_fns=None):
         self.name, self.label = name, label
         self.source = source or name
         self._n_ptrs = {"fwd": n_fwd_ptrs, "bwd": n_bwd_ptrs,
@@ -203,29 +240,46 @@ class SolverLib:
                                f"{msg}")
 
 
-def wgrad_partial_sizes(S: int, H: int, HH: int, n_inner: int):
+def _n_nets(noise: str) -> int:
+    return {"net1": 1, "net2": 2}.get(noise, 0)
+
+
+def wgrad_partial_sizes(S: int, H: int, HH: int, n_inner: int,
+                        drift: str = "embm", noise: str = "precomp"):
     """Floats of each weight's split partials in an SDE weight-gradient
-    kernel's output, in its order: Wy' [S, H+1, HH], each W_l
-    [S, HH+1, HH], Wout [S, HH+1, H] (the last row of each the bias sum)."""
-    return [S * (H + 1) * HH] + [S * (HH + 1) * HH] * n_inner + [
-        S * (HH + 1) * H]
+    kernel's output, in its order: Wy' [S, H+1, HH] (not in drift mode
+    'xt'), each W_l [S, HH+1, HH], Wout [S, HH+1, H], then the noise net's
+    Wn1 and (net2) Wn2 [S, H+1, H] (the last row of each the bias sum)."""
+    return ([S * (H + 1) * HH] * (drift != "xt")
+            + [S * (HH + 1) * HH] * n_inner + [S * (HH + 1) * H]
+            + [S * (H + 1) * H] * _n_nets(noise))
 
 
 def sum_wgrad_partials(p: torch.Tensor, S: int, H: int, HH: int,
-                       n_inner: int):
+                       n_inner: int, drift: str = "embm",
+                       noise: str = "precomp"):
     """The weight gradient from an SDE weight-gradient kernel's split
     partials p (wgrad_partial_sizes), each weight's S splits summed in a
-    fixed order: (dWy', dW_inner, db_inner, dWout, dbo)."""
-    sizes = wgrad_partial_sizes(S, H, HH, n_inner)
+    fixed order: (dWy', dW_inner, db_inner, dWout, dbo), dWy' None in drift
+    mode 'xt'; with a noise net also (dWn1, dWn2, dbn2), None where the net
+    has no such weight."""
+    sizes = wgrad_partial_sizes(S, H, HH, n_inner, drift, noise)
     parts = [t.reshape(S, -1).sum(0) for t in torch.split(p, sizes)]
-    wy_ = parts[0].reshape(H + 1, HH)
-    inner = [t.reshape(HH + 1, HH) for t in parts[1:-1]]
+    nn = _n_nets(noise)
+    nets = [t.reshape(H + 1, H) for t in parts[len(parts) - nn:]]
+    parts = parts[:len(parts) - nn]
+    wy_ = parts.pop(0).reshape(H + 1, HH) if drift != "xt" else None
+    inner = [t.reshape(HH + 1, HH) for t in parts[:-1]]
     wo_ = parts[-1].reshape(HH + 1, H)
     dwi = (torch.stack([t[:HH] for t in inner]) if inner
            else p.new_empty((0, HH, HH)))
     dbi = (torch.stack([t[HH] for t in inner]) if inner
            else p.new_empty((0, HH)))
-    return wy_[:H], dwi, dbi, wo_[:HH], wo_[HH]
+    out = (None if wy_ is None else wy_[:H], dwi, dbi, wo_[:HH], wo_[HH])
+    if not nn:
+        return out
+    return out + (nets[0][:H], nets[1][:H] if nn > 1 else None,
+                  nets[1][H] if nn > 1 else None)
 
 
 # ---------------------------------------------------------------------------
@@ -254,43 +308,123 @@ def precomp_gk(field, t_lo: torch.Tensor) -> torch.Tensor:
     return torch.relu(field.noise_t(tf))           # 16, 17
 
 
-def merged_drift_weights(field, device) -> dict:
-    """The merged drift's weights in [in, out] layout: Wy' = Wy We1 and the
-    MLP's stacked inner layers and output layer (differentiable)."""
+def drift_weights(field, device) -> dict:
+    """The drift's weights in [in, out] layout: the first layer's y-part wy
+    (drift mode 'embm': the merged Wy' = Wy We1; 'yy': linear_in's
+    y-columns; 'xt': None) and the MLP's stacked inner layers and output
+    layer (differentiable)."""
     H, io = field.hidden_channels, field.input_option
-    we1 = field.emb.weight[:, :H].t()             # [in, out]
+    drift = DRIFT_BY_IO[io]
     w_in = field.linear_in.weight                 # [HH, 2 + H] or [HH, H]
-    wy = (w_in[:, 2:].t() if io in (4, 6) else w_in.t()) @ we1
-    HH = wy.shape[1]
+    HH = w_in.shape[0]
+    if drift == "xt":
+        wy = None
+    else:
+        wy = w_in[:, 2:].t() if io in (3, 4, 5, 6) else w_in.t()
+        if drift == "embm":
+            wy = wy @ field.emb.weight[:, :H].t()     # Wy We1, [in, out]
+        wy = wy.contiguous()
     if len(field.linears):
         w_inner = torch.stack([l.weight.t() for l in field.linears])
         b_inner = torch.stack([l.bias for l in field.linears])
     else:
         w_inner = torch.zeros((0, HH, HH), dtype=torch.float32, device=device)
         b_inner = torch.zeros((0, HH), dtype=torch.float32, device=device)
-    return {"wy": wy.contiguous(), "w_inner": w_inner, "b_inner": b_inner,
+    return {"wy": wy, "w_inner": w_inner, "b_inner": b_inner,
             "wout": field.linear_out.weight.t().contiguous(),
             "bo": field.linear_out.bias}
 
 
-def merged_drift_rows(field, path, tv: np.ndarray, t: torch.Tensor):
-    """The y-independent parts of the merged drift input at stage times tv
-    [M] (host float64; `t` is the same times as a float32 tensor on the
-    device): the hoist xh' = (X(t) W_init + b_init) We2 [M, B, HH] (one
-    [M*B, C] product) and a' = (tf Wt + b_in) We1 + be [M, HH]
-    (differentiable)."""
+def drift_rows(field, path, tv: np.ndarray, t: torch.Tensor):
+    """The y-independent parts of the drift input at stage times tv [M]
+    (host float64; `t` is the same times as a float32 tensor on the
+    device), (xh [M, B, HH], a [M, HH]), differentiable, by drift mode:
+    'embm' the hoist xh' = (X(t) W_init + b_init) We2 (one [M*B, C]
+    product) and a' = (tf Wt + b_in) We1 + be; 'yy' no xh and a = tf Wt +
+    b_in (b_in alone for input_option 1); 'xt' xh = X(t) W_init + b_init and
+    no a (snsde/kernels/fused_em.py:1226-1258)."""
     H, io = field.hidden_channels, field.input_option
-    we = field.emb.weight                         # [H, 2H] (torch layout)
-    we1, we2 = we[:, :H].t(), we[:, H:].t()       # [in, out]
-    xh = field.initial_network(path.evaluate_grid(tv)) @ we2
-    w_in = field.linear_in.weight
-    if io in (4, 6):
-        tf = torch.stack([torch.sin(t), torch.cos(t)], dim=-1)   # [M, 2]
-        a = tf @ w_in[:, :2].t() + field.linear_in.bias
-    else:
-        a = field.linear_in.bias.expand(len(tv), -1)
-    a = a @ we1 + field.emb.bias
-    return xh.contiguous(), a.contiguous()
+    drift = DRIFT_BY_IO[io]
+    xh = a = None
+    if drift != "yy":
+        xh = field.initial_network(path.evaluate_grid(tv))
+        if drift == "embm":
+            xh = xh @ field.emb.weight[:, H:].t()     # @ We2 [in, out]
+        xh = xh.contiguous()
+    if drift != "xt":
+        w_in = field.linear_in.weight
+        if io in (3, 4, 5, 6):
+            tf = torch.stack([torch.sin(t), torch.cos(t)], dim=-1)  # [M, 2]
+            a = tf @ w_in[:, :2].t() + field.linear_in.bias
+        else:
+            a = field.linear_in.bias.expand(len(tv), -1)
+        if drift == "embm":
+            a = a @ field.emb.weight[:, :H].t() + field.emb.bias
+        a = a.contiguous()
+    return xh, a
+
+
+def _noise_first(field):
+    """The noise net's first layer (noise_y, or its first module)."""
+    ny = field.noise_y
+    return ny[0] if isinstance(ny, torch.nn.Sequential) else ny
+
+
+def noise_rows(field, t: torch.Tensor):
+    """The row stream of the diffusion at stage times t [M]: gk(t) [M, H]
+    in mode 'precomp', an1 = tf Wn1_t + bn1 [M, H] in the nets' modes
+    (snsde/kernels/fused_em.py:1283-1289), None in mode 'elem'
+    (differentiable)."""
+    noise = noise_mode(field.noise_option)
+    if noise == "precomp":
+        return precomp_gk(field, t).contiguous()
+    if noise == "elem":
+        return None
+    n1 = _noise_first(field)
+    tf = torch.stack([torch.sin(t), torch.cos(t)], dim=-1)      # [M, 2]
+    return (tf @ n1.weight[:, :2].t() + n1.bias).contiguous()
+
+
+def noise_weights(field) -> dict:
+    """The noise net's weights in [in, out] layout: wn1 (its first layer's
+    y-columns), wn2 and bn2 (net2's second layer); None where the mode has
+    no such weight (differentiable)."""
+    noise = noise_mode(field.noise_option)
+    out = {"wn1": None, "wn2": None, "bn2": None}
+    if noise in ("net1", "net2"):
+        out["wn1"] = _noise_first(field).weight[:, 2:].t().contiguous()
+    if noise == "net2":
+        out["wn2"] = field.noise_y[2].weight.t().contiguous()
+        out["bn2"] = field.noise_y[2].bias
+    return out
+
+
+def elem_base(no: int, y: torch.Tensor) -> torch.Tensor:
+    """The elementwise noise base of noise_option 7-10 as the JAX kernel
+    takes it (snsde/kernels/fused_em.py:381-392): sqrt is 0 where y <= 0
+    (the reference's nan_to_num)."""
+    if no == 7:    # the inner where keeps sqrt's gradient finite at y <= 0
+        return torch.where(y > 0, torch.sqrt(torch.where(y > 0, y, 1.0)),
+                           torch.zeros_like(y))
+    if no == 8:
+        return y * y * y
+    if no == 9:
+        return torch.sigmoid(y)
+    return torch.clamp(y, min=0.0)
+
+
+def elem_deriv(no: int, y: torch.Tensor) -> torch.Tensor:
+    """Its derivative as the JAX kernel takes it (:424-437): sqrt's is 0
+    where y <= 0."""
+    if no == 7:
+        return torch.where(y > 0, 0.5 * torch.rsqrt(torch.clamp(y, min=1e-30)),
+                           torch.zeros_like(y))
+    if no == 8:
+        return 3.0 * y * y
+    if no == 9:
+        s = torch.sigmoid(y)
+        return s * (1.0 - s)
+    return (y > 0).to(y.dtype)
 
 
 def stage_times(device, *tvs: np.ndarray) -> torch.Tensor:
@@ -298,3 +432,104 @@ def stage_times(device, *tvs: np.ndarray) -> torch.Tensor:
     device: one host-to-device copy (each copy from pageable host memory
     waits for the stream)."""
     return torch.as_tensor(np.stack(tvs), dtype=torch.float32, device=device)
+
+
+# ---------------------------------------------------------------------------
+# The modes as the pairs' wrappers and plain versions take them
+# ---------------------------------------------------------------------------
+
+# the SDE libraries' ints of a launch, and of the shape their plans and
+# shared memory depend on
+SDE_INT_NAMES = ("M", "B", "H", "HH", "n_inner", "mult_y", "geometric",
+                 "drift", "noise", "elem")
+SDE_SHAPE_NAMES = ("B", "H", "HH", "n_inner", "drift", "noise")
+
+
+def is_net(noise: str) -> bool:
+    return noise in ("net1", "net2")
+
+
+def mode_codes(drift: str, noise: str):
+    return DRIFT_CODE[drift], NOISE_CODE[noise]
+
+
+class SdeModes(NamedTuple):
+    """A launch's modes as the kernels and the plain versions take them:
+    `flags` the plain versions' keywords (mult_y, geometric, drift, noise,
+    elem), `ints` the last five of SDE_INT_NAMES, `codes` (drift, noise) as
+    the plans take them, and `need`: for each tensor the modes decide
+    (a stage's xh0, a1, gk2 ... by its own name too), whether they take
+    it."""
+    flags: dict
+    ints: tuple
+    codes: tuple
+    need: dict
+
+
+@functools.lru_cache(maxsize=None)
+def sde_mode(mult_y, geometric, drift, noise, elem) -> SdeModes:
+    """The SdeModes of a launch, made once per distinct modes; ValueError
+    on a mode the kernels do not know. Treat the result as read-only."""
+    if drift not in DRIFT_CODE or noise not in NOISE_CODE:
+        raise ValueError(f"fused SDE kernels: no mode ({drift}, {noise})")
+    if noise == "elem" and elem not in (7, 8, 9, 10):
+        raise ValueError(f"fused SDE kernels: elem option {elem} is not 7-10")
+    need = {"xh": drift != "yy", "a": drift != "xt", "wy": drift != "xt",
+            "gk": noise != "elem", "wn1": is_net(noise),
+            "wn2": noise == "net2", "bn2": noise == "net2"}
+    need.update({f"{k}{i}": need[k] for k, n in (("xh", 2), ("a", 2),
+                                                  ("gk", 3))
+                 for i in range(n)})
+    codes = mode_codes(drift, noise)
+    return SdeModes({"mult_y": bool(mult_y), "geometric": bool(geometric),
+                     "drift": drift, "noise": noise, "elem": int(elem)},
+                    (int(bool(mult_y)), int(bool(geometric)), *codes,
+                     int(elem)), codes, need)
+
+
+def check_mode(label: str, modes: SdeModes, **tensors) -> None:
+    """Raise ValueError when a tensor the modes decide (by name) is not
+    theirs: one they need is None, or one they do not take is given."""
+    need = modes.need
+    for name, t in tensors.items():
+        if name in need and need[name] != (t is not None):
+            raise ValueError(
+                f"{label} ({modes.flags['drift']}, {modes.flags['noise']}): "
+                f"{name} {'missing' if need[name] else 'not taken'}")
+
+
+def drift_input(y, u, xh, a, wy, drift):
+    """h_0's input at step u by drift mode."""
+    if drift == "xt":
+        return xh[u]
+    z = y @ wy + a[u]
+    return z + xh[u] if drift == "embm" else z
+
+
+def noise_base(y, row, noise, elem, wn1, wn2, bn2, relu):
+    """The diffusion's base at state y (row: the step's gk or an1 row) and,
+    for net2, the net's hidden activations."""
+    if noise == "precomp":
+        return row.expand_as(y), None
+    if noise == "elem":
+        return elem_base(elem, y), None
+    zn1 = y @ wn1 + row
+    if noise == "net1":
+        return zn1, None
+    hn = relu(zn1)
+    return relu(hn @ wn2 + bn2), hn
+
+
+def noise_back(dbase, y, base, hn, noise, elem, wn1, wn2):
+    """Back through the base given its cotangent: (y's cotangent through
+    the base, dn: the cotangent of the net's first layer's output, dz2: of
+    net2's second layer's output)."""
+    if noise == "precomp":
+        return torch.zeros_like(y), None, None
+    if noise == "elem":
+        return dbase * elem_deriv(elem, y), None, None
+    if noise == "net1":
+        return dbase @ wn1.T, dbase, None
+    dz2 = dbase * (base > 0)
+    dn = (dz2 @ wn2.T) * (hn > 0)
+    return dn @ wn1.T, dn, dz2

@@ -1,11 +1,12 @@
 from .neuralcde import (FinalTanh, GRUODEField, NeuralCDE, NeuralCDEStream,
                         SingleHiddenLayer, cde_solve_dispatch)
-from .neuralsde import (NeuralSDE, NeuralSDEForecasting, ReadoutHead,
-                        resolve_dt, solve_dispatch)
+from .neuralsde import (NeuralSDE, NeuralSDEForecasting, NeuralSDEStream,
+                        ReadoutHead, resolve_dt, solve_dispatch)
 from .rnn import SeqRNN, last_observation_excl
 from .time_rnn import GRUDFull
 
 __all__ = ["FinalTanh", "GRUODEField", "NeuralCDE", "NeuralCDEStream",
            "SingleHiddenLayer", "cde_solve_dispatch", "NeuralSDE",
-           "NeuralSDEForecasting", "ReadoutHead", "resolve_dt",
+           "NeuralSDEForecasting", "NeuralSDEStream", "ReadoutHead",
+           "resolve_dt",
            "solve_dispatch", "SeqRNN", "last_observation_excl", "GRUDFull"]

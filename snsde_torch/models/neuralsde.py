@@ -1,6 +1,7 @@
-"""NeuralSDE models (counterpart of snsde/models/neuralsde.py:44-172,
-217-256): the terminal-readout head for classification and the forecasting
-head. The stream and tutorial heads are not ported yet.
+"""NeuralSDE models (counterpart of snsde/models/neuralsde.py:44-256): the
+terminal-readout head for classification, the stream head of the
+registry's `neuralsde_{i}_{j}` names and the forecasting head. The
+tutorial head is not ported yet.
 
 Train/eval mode is torch's (`model.train()` / `model.eval()`): BatchNorm
 uses batch statistics and dropout is live only in train mode. The solve is
@@ -24,7 +25,7 @@ from ..ops.interp import CubicPath
 from ..ops.solve import sdeint
 
 __all__ = ["resolve_dt", "solve_dispatch", "ReadoutHead", "NeuralSDE",
-           "NeuralSDEForecasting"]
+           "NeuralSDEStream", "NeuralSDEForecasting"]
 
 
 def resolve_dt(times, floor: float = 1e-3) -> float:
@@ -38,11 +39,13 @@ def resolve_dt(times, floor: float = 1e-3) -> float:
 def solve_dispatch(func, path, times, y0, *, generator, dt, method,
                    bm: Optional[BrownianGrid] = None,
                    use_fused: bool = True):
-    """The fused CUDA kernels when y0 is on a CUDA device, no Brownian grid
-    is injected and the field's configuration is one the kernels take: the
-    EM kernels for euler (`supports_fused`), the SRK kernels for srk
-    (`supports_fused_srk`). The eager `sdeint` on the same device in every
-    other case."""
+    """The fused CUDA kernels when y0 is on a CUDA device and no Brownian
+    grid is injected: the EM kernels for euler, the SRK kernels for srk,
+    each of which takes every DiffusionField configuration
+    (`supports_fused`, `supports_fused_srk`). The eager `sdeint` on the
+    same device for CPU tensors, an injected `bm`, `use_fused=False`, a
+    field that is no DiffusionField, and the methods no kernel takes (in
+    the JAX package either: milstein, heun)."""
     if use_fused and bm is None and y0.device.type == "cuda":
         if method == "euler" and supports_fused(func):
             return fused_em_solve(func, path, times, y0, generator=generator,
@@ -116,6 +119,46 @@ class NeuralSDE(nn.Module):
         idx = torch.as_tensor(final_index, device=zs.device).long()
         z = zs[idx, torch.arange(zs.shape[1], device=zs.device)]   # [B, H]
         return self.readout(z, generator=generator)
+
+
+class NeuralSDEStream(nn.Module):
+    """The stream head (snsde/models/neuralsde.py:176-215, the reference's
+    torch-ists nsde_model.py:45-84): the whole trajectory through a
+    per-step linear readout; solves with srk unless told otherwise.
+
+    forward(times [L], coeffs [B, L-1, 4C]) -> (linear(z) [B, L, out],
+    z [B, L, H]); y0 = initial_network(X(t0)), or zeros when
+    initial=False."""
+
+    def __init__(self, func, input_channels: int, hidden_channels: int,
+                 output_channels: int, initial: bool = True,
+                 method: str = "srk", *,
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        self.func = func
+        self.initial_network = make_linear(input_channels, hidden_channels,
+                                           generator=generator,
+                                           device=device)
+        self.linear = make_linear(hidden_channels, output_channels,
+                                  generator=generator, device=device)
+        self.initial = initial
+        self.method = method
+
+    def forward(self, times, coeffs, *, generator=None, dt=None, method=None,
+                bm=None, use_fused: bool = True):
+        path = CubicPath(coeffs, times)
+        func = self.func.bind(path)
+        if self.initial:
+            y0 = self.initial_network(path.evaluate(path.times[0]))
+        else:
+            y0 = coeffs.new_zeros((coeffs.shape[0],
+                                   self.linear.in_features))
+        dt = resolve_dt(times) if dt is None else dt
+        zs = solve_dispatch(func, path, times, y0, generator=generator,
+                            dt=dt, method=method or self.method, bm=bm,
+                            use_fused=use_fused)
+        z = zs.movedim(0, 1)                                  # [B, L, H]
+        return self.linear(z), z
 
 
 class NeuralSDEForecasting(nn.Module):

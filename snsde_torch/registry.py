@@ -1,15 +1,20 @@
-"""Unified model registry (counterpart of snsde/registry.py:58-83, 172-446),
-for the Neural CDE and the plain recurrent names.
+"""Unified model registry (counterpart of snsde/registry.py:58-446), for
+the Neural SDE, Neural CDE and plain recurrent names.
 
 `SeqLayer` normalises a model to (out_stream [N, L, H], hidden_stream)
 from the stacked seq [N, 3, L, D] (values, mask, delta) and packed spline
 coefficients over (time ‖ values), with times linspace(0, 1, L). The port
-builds `neuralcde` (natural cubic control), `neuralcde-c` (cubic),
+builds the 140 `neuralsde_{i}_{jj}` names (a DiffusionField of
+input_option i and noise_option jj in a NeuralSDEStream, srk unless told
+otherwise: the fused SRK kernels on the card), `neuralsde-x/y/z` (the
+scalar-noise SDE, euler through the eager solver, as the JAX package
+solves it), `neuralcde` (natural cubic control), `neuralcde-c` (cubic),
 `neuralcde-h` (Hermite) and `gru-ode`, and the recurrent baselines `rnn`,
 `gru`, `lstm`, `bilstm` (SeqRNN over the values), `gru-simple` (SeqRNN
 over values ‖ mask ‖ delta) and `grud` (GRUDFull over (values, mask,
 delta)); every other registry name raises NotImplementedError naming its
-ROADMAP item.
+ROADMAP item. The SDE names draw their Brownian paths from the generator
+the caller passes.
 """
 
 from __future__ import annotations
@@ -20,9 +25,14 @@ import numpy as np
 import torch
 from torch import nn
 
+from .fields import DiffusionField
 from .models.neuralcde import FinalTanh, GRUODEField, NeuralCDEStream
+from .models.neuralsde import NeuralSDEStream, resolve_dt
 from .models.rnn import SeqRNN
 from .models.time_rnn import GRUDFull
+from .nn.layers import make_linear
+from .ops.interp import CubicPath
+from .ops.solve import sdeint
 
 __all__ = ["MODEL_NAMES", "PORTED_NAMES", "SeqLayer", "make_seq_layer"]
 
@@ -54,8 +64,10 @@ def _build_model_names():
 
 MODEL_NAMES = _build_model_names()
 _SEQ_RNN = ("rnn", "gru", "lstm", "bilstm", "gru-simple")
+_SCALAR_SDE = ("neuralsde-x", "neuralsde-y", "neuralsde-z")
 PORTED_NAMES = ("neuralcde", "neuralcde-c", "neuralcde-h", "gru-ode",
-                *_SEQ_RNN, "grud")
+                *_SEQ_RNN, "grud", *_SCALAR_SDE,
+                *(n for n in MODEL_NAMES if n.startswith("neuralsde_")))
 
 # ROADMAP Queue 1 item of every registry name the port does not build yet
 _RECURRENT = ("tlstm", "plstm", "tglstm", "transformer", "gru-dt", "gru-d",
@@ -71,11 +83,56 @@ def _roadmap_item(name: str) -> str:
         return "item 18 (log-signature and attention CDEs)"
     if name.startswith("latentsde"):
         return "item 20 (LatentSDE)"
-    if name in ("sand", "mtan", "miam") or name.split("_")[0] in (
-            "neuralflow", "neuralflowcde", "neuralmixture",
-            "neuralcontrolledflow"):
-        return "item 21 (attention and flows)"
-    return "item 14 (NeuralSDEStream and the scalar-noise SDEs)"
+    return "item 21 (attention and flows)"
+
+
+class _ScalarNoiseSDE(nn.Module):
+    """`neuralsde-x/y/z`: the deprecated scalar-noise SDE (the JAX
+    package's snsde/registry.py:87-140, the reference's nsde_model.py:
+    87-144). Drift input by option: x the control, y the state, z both
+    (through emb); a scalar learned noise tanh(exp(sigma)). Solved by the
+    eager sdeint (euler), as in the JAX package: no kernel takes it.
+
+    forward(coeffs, times) -> (readout(z) [B, L, H], z [B, L, H])."""
+
+    def __init__(self, input_channels: int, hidden_channels: int,
+                 option: str, *, generator: Optional[torch.Generator] = None,
+                 device=None):
+        super().__init__()
+        H = hidden_channels
+        lin = lambda i, o: make_linear(i, o, generator=generator,
+                                       device=device)
+        self.initial_network = lin(input_channels, H)
+        self.linear_in = lin(H, H)
+        self.linear_out = lin(H, H)
+        self.emb = lin(2 * H, H)
+        self.readout = lin(H, H)
+        self.sigma = nn.Parameter(torch.zeros(1, device=device))
+        self.option = option
+        self.method = "euler"
+
+    def forward(self, coeffs, times, *, generator=None, bm=None):
+        path = CubicPath(coeffs, times)
+        y0 = self.initial_network(path.evaluate(path.times[0]))
+
+        def f(t, y):
+            xt = self.initial_network(path.evaluate(t))
+            yy = self.linear_in(y)
+            if self.option == "x":
+                z = xt
+            elif self.option == "y":
+                z = yy
+            else:
+                z = self.emb(torch.cat([yy, xt], dim=-1))
+            return torch.tanh(self.linear_out(torch.relu(z)))
+
+        def g(t, y):
+            return torch.tanh(torch.exp(self.sigma)).expand(y.shape)
+
+        zs = sdeint(f, g, y0, times, generator=generator, bm=bm,
+                    dt=resolve_dt(times), method=self.method)
+        z = zs.movedim(0, 1)
+        return self.readout(z), z
 
 
 class SeqLayer(nn.Module):
@@ -89,9 +146,16 @@ class SeqLayer(nn.Module):
     def forward(self, seq, coeffs, *,
                 generator: Optional[torch.Generator] = None,
                 use_fused: bool = True):
-        """`generator` draws SeqRNN's inter-layer dropout in training."""
+        """`generator` draws SeqRNN's inter-layer dropout in training and
+        the SDE names' Brownian paths (those refuse to run without it)."""
         name = self.model_name
         x, mask, delta = seq[:, 0], seq[:, 1], seq[:, 2]
+        times = np.linspace(0.0, 1.0, seq.shape[2]).astype(np.float32)
+        if name.startswith("neuralsde_"):
+            return self.inner(times, coeffs, generator=generator,
+                              use_fused=use_fused)
+        if name in _SCALAR_SDE:
+            return self.inner(coeffs, times, generator=generator)
         if name in ("rnn", "gru", "lstm", "bilstm"):
             return self.inner(x, generator=generator, use_fused=use_fused)
         if name == "gru-simple":
@@ -101,7 +165,6 @@ class SeqLayer(nn.Module):
             hn = self.inner(x, mask, delta, use_fused=use_fused)
             return hn, hn
         # the CDE names: a NeuralCDEStream over the cubic coefficients
-        times = np.linspace(0.0, 1.0, seq.shape[2]).astype(np.float32)
         return self.inner(times, coeffs, use_fused=use_fused)
 
 
@@ -117,7 +180,10 @@ def make_seq_layer(model_name: str, input_dim: int, seq_len: int,
     rk4); `rnn`/`gru`/`lstm` are SeqRNN of that kind, `bilstm` a
     bidirectional LSTM of hidden // 2 per direction, `gru-simple` a GRU over
     3D channels, each with `num_layers` layers and inter-layer `dropout`
-    (snsde/registry.py:307-320); `grud` is GRUDFull."""
+    (snsde/registry.py:307-320); `grud` is GRUDFull; `neuralsde_{i}_{jj}`
+    is NeuralSDEStream(DiffusionField(coeff_dim, H, hh, num_hidden_layers,
+    i, jj), srk unless `method` says otherwise) and `neuralsde-x/y/z` the
+    scalar-noise SDE (snsde/registry.py:406-410, 429-440)."""
     if model_name not in MODEL_NAMES:
         raise NotImplementedError(f"unknown model name {model_name!r}")
     if model_name not in PORTED_NAMES:
@@ -138,6 +204,17 @@ def make_seq_layer(model_name: str, input_dim: int, seq_len: int,
         inner = SeqRNN(3 * input_dim, hidden_dim, hidden_dim, "gru", **rnn)
     elif model_name == "grud":
         inner = GRUDFull(input_dim, hidden_dim, **kw)
+    elif model_name in _SCALAR_SDE:
+        inner = _ScalarNoiseSDE(coeff_dim, hidden_dim, model_name[-1], **kw)
+    elif model_name.startswith("neuralsde_"):
+        _, io, no = model_name.split("_")
+        field = DiffusionField(coeff_dim, hidden_dim, hh, num_hidden_layers,
+                               input_option=int(io), noise_option=int(no),
+                               **kw)
+        # the reference's torch-ists stream solves with srk unless told
+        # otherwise (diff_module/NSDE/nsde_model.py:67)
+        inner = NeuralSDEStream(field, coeff_dim, hidden_dim, hidden_dim,
+                                method=method or "srk", **kw)
     elif model_name == "gru-ode":
         field = GRUODEField(coeff_dim, hidden_dim, **kw)
         inner = NeuralCDEStream(field, coeff_dim, hidden_dim, hidden_dim,

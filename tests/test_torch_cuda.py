@@ -53,6 +53,14 @@ backward is bit-reproducible (the EM's at the sepsis width and at 128,
 the SRK's at the MuJoCo width and at 128), and a plan that cannot run
 raises.
 
+The EM and SRK pairs' drift modes 'yy' and 'xt' and noise modes 'elem',
+'net1' and 'net2' run at the sepsis width and at H = 16 on a ragged batch
+with zero to two inner layers, under the init-scale rules (every drift
+mode with every new noise mode, sqrt noise on states of either sign; the
+trajectory and cotangents of these by the float64 rule, YS_F64_FACTOR, as
+sqrt noise near 0 amplifies float32 rounding), net2 also at H = HH = 128
+and 256, and each pair's weight-gradient kernel alone in the nets' modes.
+
 The CDE pair splits Wout over a thread-block cluster: it also runs with
 each cluster size forced (1, 2, 4 and 8 CTAs; H = 20 leaves the last CTAs
 of a cluster of 8 two units and none) at several rows a cluster on a
@@ -86,7 +94,8 @@ from snsde_torch.kernels import fused_cde as fc
 from snsde_torch.kernels import fused_em as fe
 from snsde_torch.kernels import fused_rnn as fr
 from snsde_torch.kernels import fused_srk as fs
-from snsde_torch.kernels._solver import MULT_Y_NO
+from snsde_torch.kernels._solver import (DRIFT_BY_IO, ELEM_NO, MULT_Y_NO,
+                                        noise_mode)
 from snsde_torch.models.rnn import scan_cell
 from snsde_torch.nn.layers import GRUCell, LSTMCell
 
@@ -163,19 +172,47 @@ def _errs(a, ref):
             float(d.square().mean().sqrt()) / scale)
 
 
-def _check(fns, inputs, flags, gys, scale, ys_f64_factor=0.0):
+def _mode_inputs(srk, io, no, n_inner, B=20, M=9, H=49, seed=0):
+    """Random init-scale kernel inputs on the card of a drift and noise
+    mode (None where the mode takes none), its flags, and gys."""
+    inputs, flags, gys = _inputs(srk, io, no, n_inner, "init", B=B, M=M, H=H,
+                                 seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    t = lambda *s: torch.as_tensor(rng.normal(size=s).astype(np.float32),
+                                   device="cuda")
+    drift, noise = DRIFT_BY_IO[io], noise_mode(no)
+    flags.update(drift=drift, noise=noise, elem=no if no in ELEM_NO else 0)
+    none = {"yy": ("xh", "xh0", "xh1"), "xt": ("a", "a0", "a1", "wy"),
+            "embm": ()}[drift]
+    if noise == "elem":
+        none += ("gk", "gk0", "gk1", "gk2")
+    for name in none:
+        if name in inputs:
+            inputs[name] = None
+    k = 1.0 / np.sqrt(H)
+    inputs.update(wn1=k * t(H, H) if noise in ("net1", "net2") else None,
+                  wn2=k * t(H, H) if noise == "net2" else None,
+                  bn2=k * t(H) if noise == "net2" else None)
+    return inputs, flags, gys
+
+
+def _check(fns, inputs, flags, gys, scale, ys_f64_factor=0.0,
+           grad_f64_factor=0.0):
     fwd, fwd_ref, bwd, bwd_ref = fns
-    ys_k = fwd(**inputs, **flags)
-    ys_p = fwd_ref(**inputs, **flags)
-    g_k = bwd(ys=ys_p, gys=gys, **inputs, **flags)
-    g_p = bwd_ref(ys=ys_p, gys=gys, **inputs, **flags)
-    in64 = {k: v.double() for k, v in inputs.items()}
-    ys_64 = fwd_ref(**in64, **flags)
-    g_64 = bwd_ref(ys=ys_64, gys=gys.double(), **in64, **flags)
+    ys_k, ns_k = fwd(**inputs, **flags)
+    ys_p, ns_p = fwd_ref(**inputs, **flags)
+    g_k = bwd(ys=ys_p, gys=gys, **inputs, **flags, ns=ns_p)
+    g_p = bwd_ref(ys=ys_p, gys=gys, **inputs, **flags, ns=ns_p)
+    in64 = {k: None if v is None else v.double() for k, v in inputs.items()}
+    ys_64, ns_64 = fwd_ref(**in64, **flags)
+    g_64 = bwd_ref(ys=ys_64, gys=gys.double(), **in64, **flags, ns=ns_64)
     torch.cuda.synchronize()
     outs = [("ys", ys_k, ys_p, ys_64)] + [
-        (name, a, b, c) for name, a, b, c in zip(g_p._fields, g_k, g_p, g_64)
-        if c.numel()]
+        (f"ns.{name}", a, b, c)
+        for name, a, b, c in zip(ns_p._fields if ns_p else (), ns_k or (),
+                                 ns_p or (), ns_64 or ()) if c is not None
+    ] + [(name, a, b, c) for name, a, b, c in zip(g_p._fields, g_k, g_p, g_64)
+         if c is not None and c.numel()]
     plain_max = {}
     for name, k_, p_, ref in outs:
         (k_max, k_rms), (p_max, p_rms) = _errs(k_, ref), _errs(p_, ref)
@@ -192,13 +229,23 @@ def _check(fns, inputs, flags, gys, scale, ys_f64_factor=0.0):
             rel = float((a - b).abs().max()) / max(float(b.abs().max()),
                                                    1e-30)
             tol = (max(TOL_YS, ys_f64_factor * plain_max[name])
-                   if name == "ys" else TOL_GRAD)
+                   if name == "ys" or name.startswith("ns.")
+                   else max(TOL_GRAD, grad_f64_factor * plain_max[name]))
             assert rel < tol, f"{name}: rel err {rel:.2e}"
 
 
 def _fns(mod, pre):
-    return tuple(getattr(mod, f"{pre}_{n}") for n in (
+    """(forward, plain forward, backward, plain backward), each forward
+    returning (ys, the noise nets' streams or None) and each backward
+    taking those streams as `ns`: the CDE pair's, which return ys alone
+    and take no streams, wrapped to that form."""
+    fns = tuple(getattr(mod, f"{pre}_{n}") for n in (
         "forward", "forward_reference", "backward", "backward_reference"))
+    if pre != "fused_cde":
+        return fns
+    fwd = lambda f: lambda **k: (f(**k), None)
+    bwd = lambda f: lambda ns=None, **k: f(**k)
+    return fwd(fns[0]), fwd(fns[1]), bwd(fns[2]), bwd(fns[3])
 
 
 @pytest.mark.cuda
@@ -230,7 +277,7 @@ def test_srk_zero_step_is_identity_on_the_card():
     inputs["dts"] = torch.zeros_like(inputs["dts"])
     inputs["dw"] = torch.zeros_like(inputs["dw"])
     inputs["i10"] = torch.zeros_like(inputs["i10"])
-    ys = fs.fused_srk_forward(**inputs, **flags)
+    ys, _ = fs.fused_srk_forward(**inputs, **flags)
     torch.cuda.synchronize()
     assert torch.equal(ys, inputs["y0"].expand_as(ys))
 
@@ -630,7 +677,7 @@ def _wide_check(kind, H, n_inner, placement):
     else:
         inputs, flags, gys = _inputs(kind == "srk", 4, 17, n_inner, "init",
                                      B=13, M=5, H=H)
-        shape = (13, H, H, n_inner)
+        shape = (13, H, H, n_inner, 0, 0)    # drift 'embm', 'precomp'
     if kind in SDE:
         level, cs, rows = EM_FORCED[placement]
         _sde_force(kind, level, cs, rows)
@@ -692,7 +739,7 @@ def test_wide_backward_is_bit_reproducible(H):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
     inputs, flags, gys = _inputs(False, 4, 17, 2, "init", B=40, M=5, H=H)
-    ys = fe.fused_em_forward(**inputs, **flags)
+    ys, _ = fe.fused_em_forward(**inputs, **flags)
     a = fe.fused_em_backward(ys=ys, gys=gys, **inputs, **flags)
     b = fe.fused_em_backward(ys=ys, gys=gys, **inputs, **flags)
     torch.cuda.synchronize()
@@ -709,7 +756,7 @@ def test_srk_backward_is_bit_reproducible(H):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
     inputs, flags, gys = _inputs(True, 4, 17, 1, "init", B=40, M=5, H=H)
-    ys = fs.fused_srk_forward(**inputs, **flags)
+    ys, _ = fs.fused_srk_forward(**inputs, **flags)
     a = fs.fused_srk_backward(ys=ys, gys=gys, **inputs, **flags)
     b = fs.fused_srk_backward(ys=ys, gys=gys, **inputs, **flags)
     torch.cuda.synchronize()
@@ -724,7 +771,7 @@ def _wgrad_check(kind, H, n_inner):
     mod, pre = SDE[kind]
     inputs, flags, gys = _inputs(kind == "srk", 4, 17, n_inner, "init",
                                  B=37, M=6, H=H)
-    ys = getattr(mod, f"{pre}_forward_reference")(**inputs, **flags)
+    ys, _ = getattr(mod, f"{pre}_forward_reference")(**inputs, **flags)
     st = getattr(mod, f"{pre}_backward_recurrence_reference")(
         ys=ys, gys=gys, **inputs, **flags)
     streams = ((st.h01,) if kind == "srk" else ()) + (st.dxh, st.hs, st.es,
@@ -736,7 +783,92 @@ def _wgrad_check(kind, H, n_inner):
               *(t.double() for t in streams))
     torch.cuda.synchronize()
     for name, a, b, ref in zip(p._fields, k, p, r):
-        if not b.numel():
+        if b is None or not b.numel():
+            continue
+        rel = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+        (_, k_rms), (_, p_rms) = _errs(a, ref), _errs(b, ref)
+        print(f"{name}: rel {rel:.2e}, rms from float64 kernel {k_rms:.2e} "
+              f"plain {p_rms:.2e}")
+        assert rel < TOL_GRAD, name
+        assert k_rms <= F64_FACTOR * p_rms + F64_FLOOR, name
+
+
+# every drift mode with every new noise mode: (io, no, inner layers)
+MODE_CASES = [(0, 7, 1), (1, 8, 0), (3, 9, 2), (5, 10, 1), (0, 14, 0),
+              (3, 15, 1), (1, 18, 2), (5, 19, 1), (6, 7, 0), (4, 14, 1),
+              (2, 19, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["em", "srk"])
+@pytest.mark.parametrize("H", [49, 16])
+@pytest.mark.parametrize("io,no,n_inner", MODE_CASES)
+def test_sde_mode_kernels_match_plain_versions(kind, io, no, n_inner, H):
+    """The new drift and noise modes' kernels (and the nets' forward
+    streams) against their plain versions, init-scale rules with the
+    float64 rule for the trajectory and the cotangents."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    mod, pre = SDE[kind]
+    inputs, flags, gys = _mode_inputs(kind == "srk", io, no, n_inner, H=H)
+    _check(_fns(mod, pre), inputs, flags, gys, "init",
+           ys_f64_factor=YS_F64_FACTOR, grad_f64_factor=YS_F64_FACTOR)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["em", "srk"])
+@pytest.mark.parametrize("H", [128, 256])
+def test_net2_kernels_take_wide_fields(kind, H):
+    """net2 (2,19) at H = HH = 128 and 256: its plan (a CTA a cluster,
+    the weights in device memory where they do not fit) runs and matches
+    the plain versions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    mod, pre = SDE[kind]
+    for b in (False, True):
+        p = getattr(mod, f"{pre}_plan")(13, H, H, 1, b, "embm", "net2")
+        print(f"{kind} net2 H={H} {'backward' if b else 'forward'}: {p}")
+        assert p["cluster"] == 1 and p["active_clusters"] >= 1, p
+    inputs, flags, gys = _mode_inputs(kind == "srk", 2, 19, 1, B=13, M=5,
+                                      H=H)
+    _check(_fns(mod, pre), inputs, flags, gys, "init",
+           ys_f64_factor=YS_F64_FACTOR, grad_f64_factor=YS_F64_FACTOR)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["em", "srk"])
+@pytest.mark.parametrize("io,no", [(1, 18), (3, 15), (0, 14)])
+def test_net_weight_grad_kernels_match_their_plain_versions(kind, io, no):
+    """The weight-gradient kernel in the nets' modes (dWn1, dWn2, dbn2 and
+    the an1 rows' cotangents beside the drift's) on the plain recurrence's
+    streams: _wgrad_check's rules."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    mod, pre = SDE[kind]
+    inputs, flags, gys = _mode_inputs(kind == "srk", io, no, 1, B=37, M=6,
+                                      H=49)
+    ys, ns = getattr(mod, f"{pre}_forward_reference")(**inputs, **flags)
+    st = getattr(mod, f"{pre}_backward_recurrence_reference")(
+        ys=ys, gys=gys, **inputs, **flags, ns=ns)
+    md = dict(drift=flags["drift"], noise=flags["noise"])
+    y0 = inputs["y0"]
+    if kind == "em":
+        k = fe.fused_em_weight_grads(y0, ys, st, ns.nh, **md)
+        plain = lambda c: fe.fused_em_weight_grads_reference(
+            c(y0), c(ys), *(c(t) for t in (st.dxh, st.hs, st.es, st.dz3)),
+            None, c(st.dn), c(st.dz2), c(ns.nh), **md)
+    else:
+        k = fs.fused_srk_weight_grads(y0, ys, st, ns, **md)
+        plain = lambda c: fs.fused_srk_weight_grads_reference(
+            c(y0), c(ys), *(c(t) for t in (st.h01, st.dxh, st.hs, st.es,
+                                           st.dz3)),
+            None, c(ns.nst), c(st.dn), c(st.dz2), c(ns.nh), **md)
+    p = plain(lambda t: t)
+    r = plain(lambda t: None if t is None else t.double())
+    torch.cuda.synchronize()
+    for name, a, b, ref in zip(p._fields, k, p, r):
+        if b is None:
+            assert a is None, name
             continue
         rel = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
         (_, k_rms), (_, p_rms) = _errs(a, ref), _errs(b, ref)

@@ -152,7 +152,7 @@ def test_backward_reference_is_autograd_of_forward(io, no, n_inner):
     inputs, flags, gys = _kernel_inputs(io, no, n_inner)
     leaves = {k: v.clone().requires_grad_(k not in ("dw", "dts"))
               for k, v in inputs.items()}
-    ys = fe.fused_em_forward_reference(**leaves, **flags)
+    ys, _ = fe.fused_em_forward_reference(**leaves, **flags)
     (ys * gys).sum().backward()
     grads = fe.fused_em_backward_reference(ys=ys.detach(), gys=gys,
                                            **inputs, **flags)
@@ -168,16 +168,23 @@ def test_backward_reference_is_autograd_of_forward(io, no, n_inner):
 
 
 def _split_backward(y0, ys, gys, xh, dw, a, gk, dts, theta, wy, w_inner,
-                    b_inner, wout, bo, *, mult_y, geometric):
+                    b_inner, wout, bo, wn1=None, wn2=None, bn2=None, *,
+                    mult_y, geometric, drift="embm", noise="precomp", elem=0,
+                    ns=None):
     """The card's backward in plain form: the recurrence's plain version,
     then the weight-gradient kernel's plain version on its streams."""
     st = fe.fused_em_backward_recurrence_reference(
         y0, ys, gys, xh, dw, a, gk, dts, theta, wy, w_inner, b_inner, wout,
-        bo, mult_y=mult_y, geometric=geometric)
-    w = fe.fused_em_weight_grads_reference(y0, ys, st.dxh, st.hs, st.es,
-                                           st.dz3, st.q)
-    return fe.FusedEMGrads(st.dy0, st.dxh, w.da, w.dgk, st.dtheta, w.dwy,
-                           w.dw_inner, w.db_inner, w.dwout, w.dbo)
+        bo, wn1, wn2, bn2, mult_y=mult_y, geometric=geometric, drift=drift,
+        noise=noise, elem=elem, ns=ns)
+    w = fe.fused_em_weight_grads_reference(
+        y0, ys, st.dxh, st.hs, st.es, st.dz3, st.q, st.dn, st.dz2,
+        None if ns is None else ns.nh, drift=drift, noise=noise)
+    out = (st.dy0, None if drift == "yy" else st.dxh, w.da, w.dgk,
+           st.dtheta, w.dwy, w.dw_inner, w.db_inner, w.dwout, w.dbo)
+    if noise in ("net1", "net2"):
+        return fe.FusedEMNetGrads(*out, w.dwn1, w.dwn2, w.dbn2)
+    return fe.FusedEMGrads(*out)
 
 
 @pytest.mark.parametrize("io,no,n_inner", [(4, 17, 1), (2, 16, 0),
@@ -193,7 +200,7 @@ def test_weight_grads_reference_matches_backward_reference(io, no, n_inner):
                                             Hk=16)
         inputs = {k: v.to(dtype) for k, v in inputs.items()}
         gys = gys.to(dtype)
-        ys = fe.fused_em_forward_reference(**inputs, **flags)
+        ys, _ = fe.fused_em_forward_reference(**inputs, **flags)
         ref = fe.fused_em_backward_reference(ys=ys, gys=gys, **inputs,
                                              **flags)
         got = _split_backward(ys=ys, gys=gys, **inputs, **flags)
@@ -229,11 +236,12 @@ def test_plain_versions_take_every_relu_from_their_argument(n_inner):
         seen.append(z.shape)
         return torch.relu(z)
 
-    ys = fe.fused_em_forward_reference(**inputs, **flags, relu=relu)
+    ys, _ = fe.fused_em_forward_reference(**inputs, **flags, relu=relu)
     M, Bk = gys.shape[:2]
     assert seen == [(Bk, 4)] * (M * (1 + n_inner))
     torch.testing.assert_close(
-        ys, fe.fused_em_forward_reference(**inputs, **flags), rtol=0, atol=0)
+        ys, fe.fused_em_forward_reference(**inputs, **flags)[0], rtol=0,
+        atol=0)
     seen.clear()
     g = fe.fused_em_backward_reference(ys=ys, gys=gys, **inputs, **flags,
                                        relu=relu)
@@ -268,14 +276,15 @@ def test_fused_solve_matches_eager_solver(setting, io, no):
 
 
 def test_supports_fused_is_exactly_the_kernel_modes():
+    """The kernels take the whole 7 x 20 grid, as the JAX kernels do; the
+    input builder raises only for options out of range."""
     take = {(io, no) for io in range(7) for no in range(20)
             if fe.supports_fused(DiffusionField(C, H, H, 1, input_option=io,
                                                 noise_option=no))}
-    assert take == set(SUPPORTED)
+    assert take == {(io, no) for io in range(7) for no in range(20)}
     assert not fe.supports_fused(object())
     with pytest.raises(ValueError, match="fused EM kernels take"):
-        fe.fused_em_inputs(DiffusionField(C, H, H, 1, input_option=1,
-                                          noise_option=18),
+        fe.fused_em_inputs(SimpleNamespace(input_option=7, noise_option=18),
                            None, np.arange(3.0), torch.zeros(2, H),
                            torch.zeros(2, 2, H))
 

@@ -196,7 +196,7 @@ def test_backward_reference_is_autograd_of_forward(io, no, n_inner):
     inputs, flags, gys = _kernel_inputs(io, no, n_inner)
     leaves = {k: v.clone().requires_grad_(k not in ("dw", "i10", "dts"))
               for k, v in inputs.items()}
-    ys = fs.fused_srk_forward_reference(**leaves, **flags)
+    ys, _ = fs.fused_srk_forward_reference(**leaves, **flags)
     (ys * gys).sum().backward()
     grads = fs.fused_srk_backward_reference(ys=ys.detach(), gys=gys,
                                             **inputs, **flags)
@@ -212,18 +212,28 @@ def test_backward_reference_is_autograd_of_forward(io, no, n_inner):
 
 
 def _split_backward(y0, ys, gys, xh0, xh1, dw, i10, a0, a1, gk0, gk1, gk2,
-                    dts, theta, wy, w_inner, b_inner, wout, bo, *, mult_y,
-                    geometric):
+                    dts, theta, wy, w_inner, b_inner, wout, bo, wn1=None,
+                    wn2=None, bn2=None, *, mult_y, geometric, drift="embm",
+                    noise="precomp", elem=0, ns=None):
     """The card's backward in plain form: the recurrence's plain version,
     then the weight-gradient kernel's plain version on its streams."""
     st = fs.fused_srk_backward_recurrence_reference(
         y0, ys, gys, xh0, xh1, dw, i10, a0, a1, gk0, gk1, gk2, dts, theta,
-        wy, w_inner, b_inner, wout, bo, mult_y=mult_y, geometric=geometric)
-    w = fs.fused_srk_weight_grads_reference(y0, ys, st.h01, st.dxh, st.hs,
-                                            st.es, st.dz3, st.q)
-    return fs.FusedSRKGrads(st.dy0, st.dxh[0], st.dxh[1], w.da[0], w.da[1],
-                            w.dgk[0], w.dgk[1], w.dgk[2], st.dtheta, w.dwy,
-                            w.dw_inner, w.db_inner, w.dwout, w.dbo)
+        wy, w_inner, b_inner, wout, bo, wn1, wn2, bn2, mult_y=mult_y,
+        geometric=geometric, drift=drift, noise=noise, elem=elem, ns=ns)
+    nst, nh = (None, None) if ns is None else (ns.nst, ns.nh)
+    w = fs.fused_srk_weight_grads_reference(
+        y0, ys, st.h01, st.dxh, st.hs, st.es, st.dz3, st.q, nst, st.dn,
+        st.dz2, nh, drift=drift, noise=noise)
+    yy = drift == "yy"
+    da = (None, None) if w.da is None else (w.da[0], w.da[1])
+    dgk = (None,) * 3 if w.dgk is None else (w.dgk[0], w.dgk[1], w.dgk[2])
+    out = (st.dy0, None if yy else st.dxh[0], None if yy else st.dxh[1],
+           *da, *dgk, st.dtheta, w.dwy, w.dw_inner, w.db_inner, w.dwout,
+           w.dbo)
+    if noise in ("net1", "net2"):
+        return fs.FusedSRKNetGrads(*out, w.dwn1, w.dwn2, w.dbn2)
+    return fs.FusedSRKGrads(*out)
 
 
 @pytest.mark.parametrize("io,no,n_inner", [(4, 17, 1), (2, 16, 0),
@@ -240,7 +250,7 @@ def test_weight_grads_reference_matches_backward_reference(io, no, n_inner):
                                             Hk=16)
         inputs = {k: v.to(dtype) for k, v in inputs.items()}
         gys = gys.to(dtype)
-        ys = fs.fused_srk_forward_reference(**inputs, **flags)
+        ys, _ = fs.fused_srk_forward_reference(**inputs, **flags)
         ref = fs.fused_srk_backward_reference(ys=ys, gys=gys, **inputs,
                                               **flags)
         got = _split_backward(ys=ys, gys=gys, **inputs, **flags)
@@ -277,11 +287,11 @@ def test_plain_versions_take_every_relu_from_their_argument(n_inner):
         seen.append(z.shape)
         return torch.relu(z)
 
-    ys = fs.fused_srk_forward_reference(**inputs, **flags, relu=relu)
+    ys, _ = fs.fused_srk_forward_reference(**inputs, **flags, relu=relu)
     M, Bk = gys.shape[:2]
     assert seen == [(Bk, 4)] * (2 * M * (1 + n_inner))
     torch.testing.assert_close(
-        ys, fs.fused_srk_forward_reference(**inputs, **flags), rtol=0,
+        ys, fs.fused_srk_forward_reference(**inputs, **flags)[0], rtol=0,
         atol=0)
     seen.clear()
     g = fs.fused_srk_backward_reference(ys=ys, gys=gys, **inputs, **flags,
@@ -298,7 +308,7 @@ def test_zero_step_is_identity():
     inputs, flags, gys = _kernel_inputs(4, 17, 1, dt=0.0)
     inputs["dw"] = torch.zeros_like(inputs["dw"])
     inputs["i10"] = torch.zeros_like(inputs["i10"])
-    ys = fs.fused_srk_forward(**inputs, **flags)
+    ys, _ = fs.fused_srk_forward(**inputs, **flags)
     assert torch.equal(ys, inputs["y0"].expand_as(ys))
     grads = fs.fused_srk_backward(ys=ys, gys=gys, **inputs, **flags)
     torch.testing.assert_close(grads.dy0, gys.sum(0), rtol=0, atol=1e-6)
@@ -306,14 +316,15 @@ def test_zero_step_is_identity():
 
 
 def test_supports_fused_srk_is_exactly_the_kernel_modes():
+    """The kernels take the whole 7 x 20 grid, as the JAX kernels do; the
+    input builder raises only for options out of range."""
     take = {(io, no) for io in range(7) for no in range(20)
             if fs.supports_fused_srk(DiffusionField(C, H, H, 1,
                                                     input_option=io,
                                                     noise_option=no))}
-    assert take == set(SUPPORTED)
+    assert take == {(io, no) for io in range(7) for no in range(20)}
     with pytest.raises(ValueError, match="fused SRK kernels take"):
-        fs.fused_srk_inputs(DiffusionField(C, H, H, 1, input_option=1,
-                                           noise_option=18),
+        fs.fused_srk_inputs(SimpleNamespace(input_option=1, noise_option=20),
                             None, np.arange(3.0), torch.zeros(2, H),
                             torch.zeros(2, 2, H), torch.zeros(2, 2, H))
 
