@@ -104,11 +104,29 @@ LSTM kernels). Phases, each of which raises on failure:
      a torch.profiler window of each kernel step gives device time by
      kernel and the device's busy share; and the new modes' kernels
      (MODE_TIMES: (0,7), (3,15), (1,18)) at the sweep's shape and the
-     sepsis width, with their bounds (mode_kernel_times).
+     sepsis width, with their bounds (mode_kernel_times);
+  6. the member axis (seed ensembles), in phases 3-5's places: each
+     MEMBER_CASES launch (the EM pair at the sepsis shape with five members,
+     the SRK pair at the sweep's shape with three, each member on its own
+     weights and streams, each pair with (4,17) and a noise net's
+     configuration) bit for bit the solo launches of its
+     members under forced plans, a one-member launch bit for bit the solo
+     launch, and each member against the plain versions under the plan's
+     own choice (compare_members); the whole sepsis model (C=69, H=49,
+     two hidden layers, (4,17), B=32) through the EM kernels against the
+     JAX package's loss and every gradient in
+     tests/goldens/sepsis_whole_model.npz (whole_model_check); the sepsis
+     flagship's five repeats as one ensemble (run_sepsis_ensemble) for 2
+     epochs, which must launch the packed EM kernels and no solo one; the
+     sweep cell with pack_seeds for neuralsde_4_17 (three seeds, the
+     packed SRK kernels) and neuralcde; the packed launches against as
+     many solo launches and their plain versions, with their bounds
+     (packed_kernel_times); and the ensemble's training step against five
+     solo steps, wall and device time (ensemble_step_times).
 It prints one JSON line of the kernels (each SDE kernel with the `modes`
-it takes), the card's name and power limit, and last `{"ok": true,
-"device": {...}}`. It exits non-zero, printing no result, without a CUDA
-device or outside the repository.
+it takes; the packed launches as their own entries), the card's name and
+power limit, and last `{"ok": true, "device": {...}}`. It exits non-zero,
+printing no result, without a CUDA device or outside the repository.
 
     python3 chip_smoke.py --ab-steps PARENT_DIR [PAIRS [REPS]]
     python3 chip_smoke.py --ab-lstm PARENT_DIR [PAIRS [REPS]]
@@ -116,7 +134,8 @@ device or outside the repository.
     python3 chip_smoke.py --ab-kernels PARENT_DIR [PAIRS [REPS]]
     python3 chip_smoke.py --ab-cde PARENT_DIR [PAIRS [REPS]]
     python3 chip_smoke.py --phase-split [em|srk|cde] TREE [TREE ...]
-    python3 chip_smoke.py --sweep-cd OUT [EPOCHS [SEEDS]]
+    python3 chip_smoke.py --sweep-cd OUT [EPOCHS [SEEDS [PACK]]]
+    python3 chip_smoke.py --sepsis-r5 [OUT]
 
 run none of the phases: they time the SDE paths' training steps
 and the CDE classifier's (`ab_steps`), the LSTM or GRU kernels at the
@@ -127,8 +146,11 @@ at the sweep's shape, both bench shapes and H=HH=128 and 256 (`ab_cde`), of
 a parent checkout against this one, in alternating processes; split one
 EM, SRK or CDE launch of each tree by phase (`phase_split`); or run the
 port's counterpart of tools/run_sweep_cd.py (`sweep_cd`: 5 datasets x 4
-missing rates x 6 models x SEEDS, then the critical-difference analysis,
-written to OUT with SWEEP_CD.json's keys).
+missing rates x 6 models x SEEDS, the SDE and CDE cells seed-packed
+unless PACK is 0, then the critical-difference analysis, written to OUT
+with SWEEP_CD.json's keys); or train the sepsis flagship's five repeats
+for 40 epochs as one ensemble (`sepsis_r5`, RESULTS_sepsis_r5.json's
+layout, to OUT, by default RESULTS_torch_sepsis_r5.json).
 """
 
 from __future__ import annotations
@@ -893,6 +915,9 @@ def _counters():
            for part in ("fwd", "bwd")]
     out += [(f"{key}_wgrad", _kernel_modules()[key], "WGRAD_LAUNCHES")
             for key in ("em", "srk")]
+    out += [(f"{key}_packed_{part}", _kernel_modules()[key],
+             f"PACKED_{part.upper()}_LAUNCHES")
+            for key in ("em", "srk") for part in ("fwd", "bwd", "wgrad")]
     return out + [(f"{key}_{part}", fused_rnn,
                    f"{key.upper()}_{part.upper()}_LAUNCHES")
                   for key in ("gru", "lstm")
@@ -2077,7 +2102,8 @@ def step_times(label, steps, eager_reps=EAGER_REPS):
 def profile_step(label, step, n=5):
     """Where one training step's time goes: device time by kernel over n
     steps (torch.profiler), and the device's busy share of the window (the
-    profiler's own host cost inflates the wall time)."""
+    profiler's own host cost inflates the wall time). Returns (wall ms,
+    device ms) a step."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2102,6 +2128,7 @@ def profile_step(label, step, n=5):
           f"wall, device busy {busy:.3f} ms ({100 * busy / wall:.1f}%)")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
         print(f"  {ms:8.4f} ms {100 * ms / wall:5.1f}%  {name[:100]}")
+    return wall, busy
 
 
 _AB_CHILD = """
@@ -2538,16 +2565,19 @@ def sweep_cd_datasets():
             "uea_b_noisy": variant(50, 0.8, 60, 5, 2)}
 
 
-def sweep_cd(out: str, epochs: int = 30, seeds: int = 3) -> int:
+def sweep_cd(out: str, epochs: int = 30, seeds: int = 3,
+             pack: int = 1) -> int:
     """The port's counterpart of tools/run_sweep_cd.py:25-134 on the card:
     every dataset x rate x model x seed through run_robustness_sweep
-    (hidden 16, batch 64, patience 10; one model a run: the port has no
-    seed-packed ensembles), records beside `out` in <out>_runs/, then the
-    score table (mean test accuracy over seeds per (dataset, rate) problem)
-    through snsde_torch.analysis.cd_analysis, written to `out` with the
-    keys of SWEEP_CD.json and the card's name and power limit:
+    (hidden 16, batch 64, patience 10; with `pack`, the tool's default, a
+    cell's seeds of the SDE names and `neuralcde` as one seed ensemble,
+    pack_seeds; else one model a run), records beside `out` in
+    <out>_runs/, then the score table (mean test accuracy over seeds per
+    (dataset, rate) problem) through snsde_torch.analysis.cd_analysis,
+    written to `out` with the keys of SWEEP_CD.json and the card's name
+    and power limit:
 
-        python3 chip_smoke.py --sweep-cd OUT [EPOCHS [SEEDS]]"""
+        python3 chip_smoke.py --sweep-cd OUT [EPOCHS [SEEDS [PACK]]]"""
     import os
 
     from snsde_torch.analysis import cd_analysis
@@ -2569,7 +2599,7 @@ def sweep_cd(out: str, epochs: int = 30, seeds: int = 3) -> int:
         print(f"##### dataset {name} #####", flush=True)
         records += run_robustness_sweep(cfg, n=320, data_fn=data_fn,
                                         dataset_name=name, verbose=True,
-                                        device=DEV)
+                                        pack_seeds=bool(pack), device=DEV)
     ok = [r for r in records if "accuracy" in r]
     problems = sorted({(r["dataset"], r["missing_rate"]) for r in ok})
     models = list(SWEEP_CD_MODELS)
@@ -2592,7 +2622,7 @@ def sweep_cd(out: str, epochs: int = 30, seeds: int = 3) -> int:
         "friedman_stat": res.friedman_stat, "friedman_p": res.friedman_p,
         "pairwise": res.pairwise, "cliques": res.cliques,
         "n_runs": len(ok), "n_errors": len(records) - len(ok),
-        "epochs": epochs, "seeds": seeds, "card": smi,
+        "epochs": epochs, "seeds": seeds, "packed": bool(pack), "card": smi,
         "seconds": time.perf_counter() - t0}
     with open(out, "w") as f:
         json.dump(payload, f, indent=2)
@@ -2602,6 +2632,443 @@ def sweep_cd(out: str, epochs: int = 30, seeds: int = 3) -> int:
     print(f"wrote {out} ({len(ok)} runs, {payload['seconds']:.0f} s) "
           f"[{smi}]")
     return 0 if ok and not payload["n_errors"] else 1
+
+
+# ---------------------------------------------------------------------------
+# The member axis (seed ensembles): K members in one launch of a pair
+# ---------------------------------------------------------------------------
+
+# (pair, model, B, L, C, H, hidden layers, K): the EM pair at the sepsis
+# shape with five members, the SRK pair at the sweep's shape with three,
+# each member on its own weights and control streams (as the ensembles
+# give them: kernels/multi.py); each pair with a noise net's
+# configuration too
+MEMBER_CASES = (
+    ("em", MAIN["model"], MAIN["B"], MAIN["L"], MAIN["C"], MAIN["H"],
+     MAIN["layers"], 5),
+    ("em", "naivesde", MAIN["B"], MAIN["L"], MAIN["C"], MAIN["H"],
+     MAIN["layers"], 5),
+    ("srk", "neuralsde_4_17", SWEEP["B"], SWEEP["L"], SWEEP["D"] + 1,
+     SWEEP["H"], 1, 3),
+    ("srk", "neuralsde_1_18", SWEEP["B"], SWEEP["L"], SWEEP["D"] + 1,
+     SWEEP["H"], 1, 3))
+# forced plans (CTAs a cluster, rows a cluster) of the bitwise checks
+MEMBER_PLANS = ((1, 8), (2, 4))
+N_SEPSIS_R5, SEPSIS_R5_EPOCHS, REPEATS = 4096, 40, 5
+
+
+def member_inputs(key, model_name, B, L, C, H, layers, K):
+    """K members' kernel inputs (member k's field, path and noise from seed
+    k), stacked on a leading axis but dts. (stacked forward inputs, flags,
+    stacked gys, [(member's forward inputs, its gys)])."""
+    members = []
+    for k in range(K):
+        inp, gys = kernel_inputs(model_name, B, L, C, H, layers, seed=k,
+                                 srk=key == "srk")
+        members.append((inp, gys))
+    mod = _kernel_modules()[key]
+    stacked = []
+    for name in mod._ARG_ORDER:
+        first = members[0][0][name]
+        if first is None or name == "dts":
+            stacked.append(first)
+        else:
+            stacked.append(torch.stack([m[0][name] for m in members]))
+    flags = {k: members[0][0][k] for k in mod._MODE_KEYS}
+    gys = torch.stack([g for _, g in members])
+    return (stacked, flags, gys,
+            [([m[0][n] for n in mod._ARG_ORDER], m[1]) for m in members])
+
+
+def _run(key, fwd, flags, gys):
+    """(ys, ns, cotangents) of one launch pair."""
+    fwd_k, _, bwd_k, _ = kernel_fns(key)
+    ys, ns = fwd_k(*fwd, **flags)
+    g = bwd_k(fwd[0], ys, gys, *fwd[1:], **flags, ns=ns)
+    torch.cuda.synchronize()
+    return ys, ns, g
+
+
+def _member_of(t, k, key):
+    """Member k of a packed launch's output (its noise streams along the
+    SRK's second axis)."""
+    if t is None:
+        return None
+    if isinstance(t, tuple):
+        axis = 1 if key == "srk" else 0
+        return type(t)(*(None if v is None else v.select(axis, k)
+                         for v in t))
+    return t[k]
+
+
+def _same_as_solo(label, key, packed, solo):
+    """Raise unless every member of a packed launch's outputs is bit for
+    bit its solo launch's."""
+    ys, ns, g = packed
+    for k, (ys_k, ns_k, g_k) in enumerate(solo):
+        if not torch.equal(ys[k], ys_k):
+            raise AssertionError(f"{label}: member {k} ys is not the solo "
+                                 f"launch's")
+        if ns is not None:
+            for name, a, b in zip(ns._fields, _member_of(ns, k, key), ns_k):
+                if b is not None and not torch.equal(a, b):
+                    raise AssertionError(f"{label}: member {k} {name}")
+        for name, a, b in zip(g._fields, g, g_k):
+            if b is not None and not torch.equal(a[k], b):
+                raise AssertionError(f"{label}: member {k} {name} is not "
+                                     f"the solo launch's")
+
+
+def compare_members(key, model_name, B, L, C, H, layers, K):
+    """One member-axis case: (1) under each forced plan of MEMBER_PLANS,
+    member k of the packed launch is bit for bit the launch of member k
+    alone (the trajectory, the nets' streams, every cotangent); (2) a
+    packed launch of one member is bit for bit the solo launch under the
+    plan's own choice; (3) under the plan's own choice (waves over K x
+    clusters) each member against the plain versions on its inputs
+    (check_pair; the float64 rule in the modes that amplify float32 rounding). Returns the largest
+    forward and backward errors of (3)."""
+    from snsde_torch.kernels._solver import sde_mode, stack_members
+
+    mod = _kernel_modules()[key]
+    fwd, flags, gys, members = member_inputs(key, model_name, B, L, C, H,
+                                             layers, K)
+    label = f"{key.upper()} {model_name} B={B} L={L} H={H} K={K}"
+    net = flags["noise"] in ("net1", "net2")
+    for cs, rows in MEMBER_PLANS:
+        if net and cs > 1:
+            continue        # the nets' instances run one-CTA clusters
+        mod._LIB.force_placement(0)
+        getattr(mod, f"force_{key}_plan")(cs, rows)
+        try:
+            packed = _run(key, fwd, flags, gys)
+            solo = [_run(key, f, flags, g) for f, g in members]
+        finally:
+            getattr(mod, f"force_{key}_plan")(0, 0)
+        _same_as_solo(f"{label} plan ({cs}, {rows})", key, packed, solo)
+    one = [t if t is None or name == "dts" else t[:1]
+           for name, t in zip(mod._ARG_ORDER, fwd)]
+    packed1 = _run(key, one, flags, gys[:1])
+    _same_as_solo(f"{label} K=1", key, packed1,
+                  [_run(key, members[0][0], flags, members[0][1])])
+    shape = (B, H, H, layers - 1, *sde_mode(**flags).codes)
+    for b in (False, True):
+        p = getattr(mod, f"fused_{key}_plan")(*shape[:4], b, flags["drift"],
+                                              flags["noise"], members=K)
+        print(f"  {label} plan {'backward' if b else 'forward'}: {p}")
+    fwd_k, fwd_p, bwd_k, bwd_p = kernel_fns(key)
+    ys_k, ns_k = fwd_k(*fwd, **flags)
+    # the backward on the plain forwards' trajectories, as check_pair
+    # runs a solo kernel's
+    plain = [fwd_p(*f, **flags) for f, _ in members]
+    ns_p = stack_members([p[1] for p in plain],
+                         {f: 1 for f in ("nst", "nb", "nh")}
+                         if key == "srk" else None)
+    g = bwd_k(fwd[0], torch.stack([p[0] for p in plain]), gys, *fwd[1:],
+              **flags, ns=ns_p)
+    amp = flags["noise"] != "precomp"
+    err_f = err_b = 0.0
+    for k, (f, gk) in enumerate(members):
+        fns = (lambda *a, k=k, **kw: (ys_k[k], _member_of(ns_k, k, key)),
+               fwd_p,
+               lambda *a, k=k, **kw: type(g)(*(None if t is None else t[k]
+                                               for t in g)), bwd_p)
+        e = check_pair(f"{label} member {k}", fns, f, flags, gk,
+                       ys_f64_factor=YS_F64_FACTOR if amp else 0.0,
+                       grad_f64_factor=YS_F64_FACTOR if amp else 0.0)
+        err_f, err_b = max(err_f, e[0]), max(err_b, e[1])
+    print(f"  {label}: every member bit for bit its solo launch under plans "
+          f"{[p for p in MEMBER_PLANS if not net or p[0] == 1]} and K=1; "
+          f"largest error from the plain versions {err_f:.3e} / {err_b:.3e}",
+          flush=True)
+    return err_f, err_b
+
+
+def packed_kernel_times(reps=10):
+    """The packed launches against K solo launches: the EM pair with K=5
+    at the sepsis shape, the SRK pair with K=3 at the sweep's shape, each
+    member on its own weights and streams; each forward and backward (the
+    wrapper: recurrence, weight gradient, sums) packed, as K solo launches
+    in a row and as the plain versions member by member; the bounds from
+    the packed launch's inputs (every input read once, every output
+    written once; K x a solo launch's MLP products, 3x in the backward).
+    ({key: {name: ms}}, {key: {part: bound}})."""
+    ms, bounds = {}, {}
+    for key, model, B, L, C, H, layers, K in (MEMBER_CASES[0],
+                                              MEMBER_CASES[2]):
+        fwd_k, fwd_p, bwd_k, bwd_p = kernel_fns(key)
+        fwd, flags, gys, members = member_inputs(key, model, B, L, C, H,
+                                                 layers, K)
+        ys, ns = fwd_k(*fwd, **flags)
+        args = [fwd[0], ys, gys] + fwd[1:]
+        solo = [(f, fwd_k(*f, **flags)[0], g) for f, g in members]
+
+        def solo_fwd():
+            for f, _, _ in solo:
+                fwd_k(*f, **flags)
+
+        def solo_bwd():
+            for f, y, g in solo:
+                bwd_k(f[0], y, g, *f[1:], **flags)
+
+        def plain_fwd():
+            for f, _, _ in solo:
+                fwd_p(*f, **flags)
+
+        def plain_bwd():
+            for f, y, g in solo:
+                bwd_p(f[0], y, g, *f[1:], **flags)
+
+        ms[key] = {"fwd": timed(lambda: fwd_k(*fwd, **flags), reps=reps),
+                   "bwd": timed(lambda: bwd_k(*args, **flags), reps=reps),
+                   "fwd_solo_k": timed(solo_fwd, reps=reps),
+                   "bwd_solo_k": timed(solo_bwd, reps=reps),
+                   "fwd_plain": timed(plain_fwd, reps=2, warmup=1),
+                   "bwd_plain": timed(plain_bwd, reps=2, warmup=1)}
+        M = ys.shape[1]
+        HH = fwd[mod_index(key, "w_inner")].shape[-1]
+        NI = fwd[mod_index(key, "w_inner")].shape[1]
+        products = K * sde_products(key, flags, M, B, H, HH, NI)
+        nbytes_in = 4 * sum(t.numel() for t in fwd if t is not None)
+        grads = bwd_k(*args, **flags)
+        bounds[key] = {
+            "fwd": bound(nbytes_in + 4 * ys.numel(), products),
+            "bwd": bound(nbytes_in + 4 * (ys.numel() + gys.numel()
+                                          + sum(g.numel() for g in grads
+                                                if g is not None)),
+                         3 * products)}
+        for part in ("fwd", "bwd"):
+            print(f"time packed {key} K={K} {part}: {ms[key][part]:.4f} ms "
+                  f"against {K} solo launches {ms[key][part + '_solo_k']:.4f}"
+                  f" ms (plain, member by member, "
+                  f"{ms[key][part + '_plain']:.2f} ms; bound "
+                  f"{bounds[key][part][0]:.5f} ms by "
+                  f"{bounds[key][part][1]})", flush=True)
+    return ms, bounds
+
+
+def mod_index(key, name):
+    return _kernel_modules()[key]._ARG_ORDER.index(name)
+
+
+def sepsis_ensemble_path():
+    """The sepsis flagship's REPEATS repeats as one seed ensemble
+    (run_sepsis_ensemble) for 2 epochs; every loss finite, the packed EM
+    kernels launched, one result a member with the members' weights
+    different. Returns the launch counts of its run."""
+    from snsde_torch.harness.classification import run_sepsis_ensemble
+
+    zero_counts()
+    t0 = time.perf_counter()
+    res = run_sepsis_ensemble(main_config(), repeats=REPEATS, n=N_SEPSIS,
+                              max_epochs=2, device=DEV)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    wall = time.perf_counter() - t0
+    losses = [v for r in res for v in
+              [h[s]["loss"] for h in r.history for s in ("train", "val")]
+              + [r.train_metrics.loss, r.val_metrics.loss,
+                 r.test_metrics.loss]]
+    print(f"main path 4: run_sepsis_ensemble ({REPEATS} repeats) 2 epochs in "
+          f"{wall:.1f} s, test AUROC "
+          f"{[round(r.test_metrics.auroc, 4) for r in res]}, launches "
+          f"{launches}", flush=True)
+    if len(res) != REPEATS or not all(np.isfinite(losses)):
+        raise AssertionError("the sepsis ensemble gave a non-finite loss")
+    if min(launches[f"em_packed_{k}"] for k in ("fwd", "bwd", "wgrad")) <= 0:
+        raise AssertionError(f"the sepsis ensemble did not run the packed "
+                             f"EM kernels: {launches}")
+    if launches["em_fwd"] or launches["em_bwd"]:
+        raise AssertionError(f"the sepsis ensemble ran solo EM launches: "
+                             f"{launches}")
+    m = res[0].model.members
+    if torch.equal(m[0].field.linear_out.weight, m[1].field.linear_out.weight):
+        raise AssertionError("the ensemble's members have one weight")
+    return launches
+
+
+def packed_sweep_path(out_dir):
+    """The sweep cell with pack_seeds: `neuralsde_4_17` (its three seeds'
+    solve one packed SRK launch) and `neuralcde` (a solo CDE launch a
+    member), one model a run with every count set to 0 before it; each
+    writes a record a seed with `packed` and no error. Returns the launch
+    counts of each run."""
+    from snsde_torch.harness.robustness import (SweepConfig,
+                                                run_robustness_sweep)
+
+    out = {}
+    for name, need in (("neuralsde_4_17", ("srk_packed_fwd",
+                                           "srk_packed_bwd",
+                                           "srk_packed_wgrad")),
+                       ("neuralcde", ("cde_fwd", "cde_bwd"))):
+        cfg = SweepConfig(models=(name,), missing_rates=(0.3,),
+                          seeds=(0, 1, 2), hidden_dim=SWEEP["H"],
+                          batch_size=SWEEP["B"], max_epochs=2,
+                          out_dir=out_dir)
+        zero_counts()
+        t0 = time.perf_counter()
+        recs = run_robustness_sweep(cfg, n=SWEEP["n"], data_fn=uea_b_noisy,
+                                    dataset_name="uea_b_noisy_packed",
+                                    verbose=False, pack_seeds=True,
+                                    device=DEV)
+        torch.cuda.synchronize()
+        launches = out[name] = read_counts()
+        print(f"main path 5: the packed sweep cell with {name} (3 seeds) 2 "
+              f"epochs in {time.perf_counter() - t0:.1f} s, records {recs}, "
+              f"launches {launches}", flush=True)
+        if (len(recs) != 3 or any("error" in r or r.get("packed") != 3
+                                  or not np.isfinite(r["accuracy"])
+                                  for r in recs)):
+            raise AssertionError(f"the packed sweep cell failed: {recs}")
+        if min(launches[k] for k in need) <= 0:
+            raise AssertionError(f"the packed {name} cell did not launch "
+                                 f"{need}: {launches}")
+    return out
+
+
+def ensemble_step_fns():
+    """One training step of the sepsis ensemble (REPEATS members) on one
+    batch of 1024 sepsis-shaped samples: its solve one packed EM launch
+    pair; {label: step()}."""
+    from snsde_torch.data import preprocess_classification, synthetic_sepsis
+    from snsde_torch.harness.classification import build_sepsis_ensemble
+    from snsde_torch.train.ensemble_loop import (_per_member_loss,
+                                                 ensemble_step,
+                                                 member_generators)
+    from snsde_torch.train.loop import readout_grad_hook
+
+    cfg = main_config()
+    X, static, y, lengths, _ = synthetic_sepsis(n=MAIN["B"],
+                                                length=MAIN["L"], seed=0)
+    data = preprocess_classification(X, y, lengths, use_intensity=True,
+                                     times=np.arange(MAIN["L"],
+                                                     dtype=np.float32))
+    times, dev = data["times"], torch.device(DEV)
+    cat = lambda k: np.concatenate([data[s][k]
+                                    for s in ("train", "val", "test")])
+    batch = {"coeffs": torch.as_tensor(cat("coeffs"), device=dev),
+             "final_index": torch.as_tensor(cat("final_index"), device=dev),
+             "y": torch.as_tensor(cat("y"), dtype=torch.float32, device=dev),
+             "static": torch.as_tensor(static, device=dev)}
+    model = build_sepsis_ensemble(cfg, data["input_channels"],
+                                  static.shape[-1], REPEATS, dev)
+    params = [list(model.member(k).parameters()) for k in range(REPEATS)]
+    opts = [torch.optim.Adam(ps, lr=1e-3, weight_decay=1e-5)
+            for ps in params]
+    for k in range(REPEATS):
+        readout_grad_hook("readout.linear2")(model.member(k))
+    gens = member_generators(0, REPEATS, dev)
+    active = np.ones(REPEATS, bool)
+
+    def loss_fn(b):
+        logits = model(times, b["coeffs"], b["static"], b["final_index"],
+                       generators=gens)[..., 0]
+        return _per_member_loss(logits, b["y"], torch.ones_like(b["y"]), 2,
+                                10.0), logits
+
+    return {"train_step": lambda: ensemble_step(model, opts, params, loss_fn,
+                                                batch, active)}
+
+
+def ensemble_step_times():
+    """The sepsis ensemble's step (REPEATS members) against REPEATS x the
+    solo step, timed in this process: wall (CUDA events, median) and the
+    profiler's device time of each."""
+    ens = ensemble_step_fns()["train_step"]
+    solo = sepsis_step_fns()["train_step"]
+    ms = {"ensemble_step": timed(ens), "solo_step": timed(solo)}
+    ms["ensemble_wall"], ms["ensemble_device"] = profile_step(
+        f"sepsis ensemble ({REPEATS} members)", ens)
+    ms["solo_wall"], ms["solo_device"] = profile_step("sepsis solo", solo)
+    print(f"time sepsis ensemble step ({REPEATS} members): "
+          f"{ms['ensemble_step']:.3f} ms against {REPEATS} x the solo step "
+          f"{REPEATS * ms['solo_step']:.3f} ms; device "
+          f"{ms['ensemble_device']:.3f} ms against {REPEATS} x "
+          f"{ms['solo_device']:.3f} ms", flush=True)
+    return ms
+
+
+def whole_model_check():
+    """The whole sepsis model (C=69, H=49, two hidden layers, LNSDE (4,17))
+    through the EM kernels against the JAX package's loss and every
+    gradient, tests/goldens/sepsis_whole_model.npz (the check of
+    tests/sepsis_whole_model.py: loss 1e-5 relative, gradients 1e-4 of
+    their largest entry). Raises on a miss."""
+    import importlib.util
+    import os
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    spec = importlib.util.spec_from_file_location(
+        "sepsis_whole_model", os.path.join(here, "tests",
+                                           "sepsis_whole_model.py"))
+    wm = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(wm)
+    from snsde_torch.kernels import fused_em as fe
+
+    d = wm.data()
+    dW = torch.as_tensor(d["dW"], device=DEV)
+    real, fe.brownian_increments = fe.brownian_increments, (
+        lambda *a, **k: dW)
+    try:
+        n0 = fe.FWD_LAUNCHES + fe.BWD_LAUNCHES + fe.WGRAD_LAUNCHES
+        model = wm.port_model(DEV)
+        loss, grads = wm.port_loss_and_grads(
+            model, d, torch.Generator(device=DEV))
+        n = fe.FWD_LAUNCHES + fe.BWD_LAUNCHES + fe.WGRAD_LAUNCHES - n0
+    finally:
+        fe.brownian_increments = real
+    if n != 3:
+        raise AssertionError(f"the whole-model check launched {n} EM "
+                             f"kernels, not 3")
+    errs = wm.check(loss, grads, np.load(wm.GOLDEN))
+    worst = max(errs, key=errs.get)
+    print(f"whole sepsis model through the EM kernels against JAX: loss "
+          f"{loss:.7f} (golden {float(np.load(wm.GOLDEN)['loss']):.7f}), "
+          f"largest gradient error {errs[worst]:.2e} of its scale "
+          f"({worst})", flush=True)
+
+
+def sepsis_r5(out: str = "RESULTS_torch_sepsis_r5.json") -> int:
+    """The flagship's five repeats for 40 epochs as one seed ensemble
+    (n=4096 synthetic sepsis, H=49, two hidden layers, batch 1024, seed 0;
+    the JAX package's tools/run_flagship_ensembles.py), per-repeat test
+    AUROC and accuracy with the quality pins' verdicts, written to `out`
+    in the layout of RESULTS_sepsis_r5.json:
+
+        python3 chip_smoke.py --sepsis-r5 [OUT]"""
+    from snsde_torch.harness.classification import run_sepsis_ensemble
+    from snsde_torch.train.pins import FLAGSHIP_PINS, check_history
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    smi = card()
+    cfg = main_config()
+    cfg.seed, cfg.data_seed = 0, 0
+    t0 = time.time()
+    res = run_sepsis_ensemble(cfg, repeats=REPEATS, n=N_SEPSIS_R5,
+                              max_epochs=SEPSIS_R5_EPOCHS, device=DEV)
+
+    def summary(metric):
+        vals = [float(getattr(r.test_metrics, metric)) for r in res]
+        pins = [check_history(r.history, FLAGSHIP_PINS["sepsis"])
+                for r in res]
+        return {"per_repeat": [round(v, 4) for v in vals],
+                "mean": round(float(np.mean(vals)), 4),
+                "std": round(float(np.std(vals)), 4),
+                "pins_ok": [p["ok"] for p in pins],
+                "pin_violations": sum((p["violations"] for p in pins), [])}
+
+    rec = {"model": MAIN["model"], "H": MAIN["H"], "layers": MAIN["layers"],
+           "batch": MAIN["B"], "n": N_SEPSIS_R5,
+           "epochs": SEPSIS_R5_EPOCHS, "repeats": REPEATS, "packed": True,
+           "auroc": summary("auroc"), "accuracy": summary("accuracy"),
+           "wall_time_min": round((time.time() - t0) / 60.0, 2),
+           "card": smi}
+    with open(out, "w") as f:
+        json.dump(rec, f, indent=1)
+    print(json.dumps(rec, indent=1), flush=True)
+    return 0
 
 
 def main() -> int:
@@ -2649,6 +3116,13 @@ def main() -> int:
     err.update(compare_modes())
     print("the new paths' configurations at their own shapes:", flush=True)
     err.update(compare_path_modes())
+    print("the member axis (K members a launch) against the solo launches "
+          "and the plain versions:", flush=True)
+    for case in MEMBER_CASES:
+        e = compare_members(*case)
+        key = f"{case[0]}_packed"
+        err[key] = tuple(max(a, b) for a, b in zip(err.get(key, (0, 0)), e))
+    whole_model_check()
     rs = RNN_SWEEP
     err["gru"] = compare_rnn("gru", **rs)
     compare_rnn("gru", **rs, dec=True)
@@ -2684,7 +3158,9 @@ def main() -> int:
         launches = {"em": main_path(), "srk": mujoco_path(),
                     "cde": sweep_path(out_dir)}
         sde_sweep_path(out_dir)
+        launches["srk_packed"] = packed_sweep_path(out_dir)["neuralsde_4_17"]
         rnn_launches = rnn_sweep_path(out_dir)
+    launches["em_packed"] = sepsis_ensemble_path()
     launches["gru"] = launches["lstm"] = rnn_launches
     wide_sepsis_path()
     naive_sepsis_path()
@@ -2709,6 +3185,11 @@ def main() -> int:
         ms[kind].update(step_times(f"{kind} classifier", rnn_step_fns(kind)))
     ms["wide"] = wide_kernel_times()
     ms["modes"], _ = mode_kernel_times()
+    packed_ms, packed_bounds = packed_kernel_times()
+    for key in ("em", "srk"):
+        ms[f"{key}_packed"] = packed_ms[key]
+        bounds[f"{key}_packed"] = packed_bounds[key]
+    ms["ensemble"] = ensemble_step_times()
     for key in ms:
         for k, v in ms[key].items():
             print(f"time {key} {k}: {v:.4f} ms  [{smi}]")
@@ -2763,6 +3244,29 @@ def main() -> int:
             # per-step sums not included): dW_hh's; the SDE pairs' NI + 2
             "library_ms": ms[key]["wgrad_lib"],
             **({"modes": SDE_MODES} if key in ("em", "srk") else {})})
+    for key, K, shape in (("em", MEMBER_CASES[0][7], "sepsis"),
+                          ("srk", MEMBER_CASES[2][7], "sweep")):
+        src = f"fused_{key}"
+        lines = (688, 888) if key == "em" else (295, 527)
+        for part, line in zip(("fwd", "bwd"), lines):
+            kernels.append({
+                "name": (f"fused_{key}_"
+                         f"{'forward' if part == 'fwd' else 'backward'}"
+                         f"_packed"),
+                "route": "cuda", "source": f"snsde_torch/csrc/{src}.cu",
+                "replaces": f"snsde/kernels/{src}.py:{line}",
+                # the main path's: the sepsis ensemble (EM), the packed
+                # sweep cell (SRK); a backward is a recurrence and a
+                # weight-gradient launch
+                "launches": launches[f"{key}_packed"][f"{key}_packed_{part}"],
+                "max_abs_err": err[f"{key}_packed"][0 if part == "fwd"
+                                                    else 1],
+                "ms": ms[f"{key}_packed"][part],
+                "plain_ms": ms[f"{key}_packed"][f"{part}_plain"],
+                "bound_ms": bounds[f"{key}_packed"][part][0],
+                "bound_by": bounds[f"{key}_packed"][part][1],
+                "library_ms": None, "members": K, "shape": shape,
+                "solo_launches_ms": ms[f"{key}_packed"][f"{part}_solo_k"]})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -2784,5 +3288,7 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--phase-split"]:
         sys.exit(phase_split(sys.argv[2:]))
     if sys.argv[1:2] == ["--sweep-cd"]:
-        sys.exit(sweep_cd(sys.argv[2], *map(int, sys.argv[3:5])))
+        sys.exit(sweep_cd(sys.argv[2], *map(int, sys.argv[3:6])))
+    if sys.argv[1:2] == ["--sepsis-r5"]:
+        sys.exit(sepsis_r5(*sys.argv[2:3]))
     sys.exit(main())

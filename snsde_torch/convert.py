@@ -10,7 +10,11 @@ of Linears is a `ModuleList` here, with the same indices; for the recurrent
 classifiers `layer.inner.cells.0.w_ih` and `layer.inner.cells_bwd.0.b_hh`
 (SeqRNN's cells, a `ModuleList` of cells), `layer.inner.embed.weight`, and
 GRUDFull's own `layer.inner.w_hh`, `layer.inner.gamma_x.weight` and
-`layer.inner.x_mean`). A cell's or GRUDFull's raw arrays (`w_ih`, `w_hh`,
+`layer.inner.x_mean`; for the seed ensembles the members' tuples, a
+`ModuleList` here too: InitialValueSeedEnsemble's
+`members.0.field.linear_in.weight` and `members.0.readout.norm.running_var`,
+SeedEnsemble's `fields.0...`, `initial_networks.0...` and `readouts.0...`,
+ISTSSeedEnsembleSDE's `members.0.layer.inner.func...`). A cell's or GRUDFull's raw arrays (`w_ih`, `w_hh`,
 `b_ih`, `b_hh`, `x_mean`) have one layout on both sides and are copied as
 they are; only a `Linear`'s weight is transposed.
 `load_jax_arrays` fills a port model from such a dict;

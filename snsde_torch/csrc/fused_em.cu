@@ -171,11 +171,17 @@ em_fwd_kernel(SdeDims dd, SdePlan pp, const float* __restrict__ y0,
   zero_smem(s, L.total);
   __syncthreads();
   const Cta c = make_cta(d, p, g);
-  const Wts w =
-      load_wts(d, p, g, c, L.w, s, WtsIn{wy, wi, bi, wo, bo, wn1, wn2, bn2});
+  const Wts w = load_wts(
+      d, p, g, c, L.w, s,
+      member_wts(d, (int)blockIdx.y,
+                 WtsIn{wy, wi, bi, wo, bo, wn1, wn2, bn2}));
   const int H = d.H, HH = d.HH, NI = d.NI, sH = g.sH, sHH = g.sHH;
   const int U = g.U, UH = g.UH, R4 = g.R4, nr = c.nr, row0 = c.row0;
   const int h0 = c.h0, u0 = c.u0, cs = c.cs, nh = c.nh, nu = c.nu;
+  // the member's first step in its streams and its first batch row, held
+  // through the loop (formed at each use instead, ptxas gave the backward
+  // 64 registers and spills)
+  const int km = c.km, kb = member_row(d);
   const int htile = R4 * sHH, xtile = R4 * UH, wtile = R4 * U;
   float* y = s + L.y;
   float* h = s + L.h;
@@ -187,26 +193,26 @@ em_fwd_kernel(SdeDims dd, SdePlan pp, const float* __restrict__ y0,
   float* hn = s + L.hn;
   const Grp all{0, ET};
   for (int i = threadIdx.x; i < nr * H; i += ET)
-    y[(i / H) * sH + i % H] = y0[(size_t)row0 * H + i];
+    y[(i / H) * sH + i % H] = y0[(size_t)(kb + row0) * H + i];
   // step u's streams into slot u & 1 (those of the instance's modes)
   auto prefetch = [&](int u) {
     const int b = u & 1;
     if (DR != DR_YY)
-      copy_rows(xb + b * xtile, nh, xh + ((size_t)u * d.B + row0) * HH + h0,
-                HH, nh, nr);
+      copy_rows(xb + b * xtile, nh,
+                xh + ((size_t)(km + u) * d.B + row0) * HH + h0, HH, nh, nr);
     if (DR != DR_XT)
-      copy_rows(ab + b * UH, nh, a + (size_t)u * HH + h0, nh, nh, 1);
-    copy_rows(wb + b * wtile, nu, dw + ((size_t)u * d.B + row0) * H + u0, H,
-              nu, nr);
+      copy_rows(ab + b * UH, nh, a + (size_t)(km + u) * HH + h0, nh, nh, 1);
+    copy_rows(wb + b * wtile, nu,
+              dw + ((size_t)(km + u) * d.B + row0) * H + u0, H, nu, nr);
     if (NZ != NZ_ELEM)
-      copy_rows(gb + b * U, nu, gk + (size_t)u * H + u0, nu, nu, 1);
+      copy_rows(gb + b * U, nu, gk + (size_t)(km + u) * H + u0, nu, nu, 1);
     cp_async_commit();
   };
   if (d.M > 0) prefetch(0);
   cp_async_wait_all();
   // every CTA of the cluster is zeroed before a peer pushes into it
   cluster_or_block_sync(cs);
-  const float sth = sigmoid(theta[0]);
+  const float sth = sigmoid(theta[blockIdx.y]);
   const bool mult_y = d.mult_y, geometric = d.geometric;
 
   for (int u = 0; u < d.M; ++u) {
@@ -245,7 +251,7 @@ em_fwd_kernel(SdeDims dd, SdePlan pp, const float* __restrict__ y0,
            } else {
              const float hv = fmaxf(v, 0.f);
              hn[r * sH + u0 + n] = hv;
-             nhs[((size_t)u * d.B + row0 + r) * H + u0 + n] = hv;
+             nhs[((size_t)(km + u) * d.B + row0 + r) * H + u0 + n] = hv;
            }
          });
     }
@@ -290,7 +296,7 @@ em_fwd_kernel(SdeDims dd, SdePlan pp, const float* __restrict__ y0,
          const float gg = tanhf(sth * graw);
          const float yn = yv + f * dt + gg * wu[r * nu + n];
          push(cs, y, r * sH + col, yn);
-         const size_t o = ((size_t)u * d.B + row0 + r) * H + col;
+         const size_t o = ((size_t)(km + u) * d.B + row0 + r) * H + col;
          ys[o] = yn;
          if constexpr (net_noise(NZ)) nbs[o] = base;
        });
@@ -340,9 +346,13 @@ em_bwd_kernel(SdeDims dd, SdePlan pp, const float* __restrict__ y0,
   zero_smem(s, L.total);
   __syncthreads();
   const Cta c = make_cta(d, p, g);
-  const Wts w = load_wts(d, p, g, c, L.w, s,
-                         WtsIn{wy, wi, bi, wo, bo, wn1, wn2, nullptr});
+  const Wts w = load_wts(
+      d, p, g, c, L.w, s,
+      member_wts(d, (int)blockIdx.y,
+                 WtsIn{wy, wi, bi, wo, bo, wn1, wn2, nullptr}));
   const int H = d.H, HH = d.HH, NI = d.NI, M = d.M, B = d.B;
+  const int km = c.km, kb = member_row(d);
+  const size_t MK = (size_t)d.K * M;  // the steps of a layer's stream
   const int sH = g.sH, sHH = g.sHH, sW = g.sW, U = g.U, UH = g.UH;
   const int R4 = g.R4, nr = c.nr, row0 = c.row0, h0 = c.h0, u0 = c.u0;
   const int nh = c.nh, nu = c.nu, cs = c.cs, tid = threadIdx.x;
@@ -368,23 +378,28 @@ em_bwd_kernel(SdeDims dd, SdePlan pp, const float* __restrict__ y0,
   auto yslot = [&](int t) { return yb + ((t + 2) & 1) * ytile; };
   auto prefetch_y = [&](int t) {
     copy_rows(yslot(t), sH,
-              (t < 0 ? y0 : ys + (size_t)t * BH) + (size_t)row0 * H, H, H,
-              nr);
+              (t < 0 ? y0 + (size_t)kb * H : ys + (size_t)(km + t) * BH) +
+                  (size_t)row0 * H,
+              H, H, nr);
   };
   // step t's streams into slot t & 1 (those of the instance's modes)
   auto prefetch = [&](int t) {
     const int b = t & 1;
     if (DR != DR_YY)
-      copy_rows(xb + b * xtile, nh, xh + ((size_t)t * B + row0) * HH + h0,
-                HH, nh, nr, true);
+      copy_rows(xb + b * xtile, nh,
+                xh + ((size_t)(km + t) * B + row0) * HH + h0, HH, nh, nr,
+                true);
     if (DR != DR_XT)
-      copy_rows(ab + b * UH, nh, a + (size_t)t * HH + h0, nh, nh, 1, true);
-    copy_rows(wb + b * wtile, nu, dw + ((size_t)t * B + row0) * H + u0, H,
-              nu, nr, true);
-    copy_rows(gyb + b * wtile, nu, gys + ((size_t)t * B + row0) * H + u0, H,
-              nu, nr, true);
+      copy_rows(ab + b * UH, nh, a + (size_t)(km + t) * HH + h0, nh, nh, 1,
+                true);
+    copy_rows(wb + b * wtile, nu,
+              dw + ((size_t)(km + t) * B + row0) * H + u0, H, nu, nr, true);
+    copy_rows(gyb + b * wtile, nu,
+              gys + ((size_t)(km + t) * B + row0) * H + u0, H, nu, nr,
+              true);
     if (NZ == NZ_PRE)
-      copy_rows(gb + b * U, nu, gk + (size_t)t * H + u0, nu, nu, 1, true);
+      copy_rows(gb + b * U, nu, gk + (size_t)(km + t) * H + u0, nu, nu, 1,
+                true);
   };
   if (M > 0) {
     prefetch(M - 1);
@@ -393,7 +408,7 @@ em_bwd_kernel(SdeDims dd, SdePlan pp, const float* __restrict__ y0,
   }
   cp_async_wait_all();
   cluster_or_block_sync(cs);
-  const float sth = sigmoid(theta[0]);
+  const float sth = sigmoid(theta[blockIdx.y]);
   const bool mult_y = d.mult_y, geometric = d.geometric;
   float th_acc = 0.f;
 
@@ -411,8 +426,9 @@ em_bwd_kernel(SdeDims dd, SdePlan pp, const float* __restrict__ y0,
     float* hv = hk + ((u + 1) & 1) * hset;     // step u-1's, recomputed
     const float* yv = yslot(u - 2);            // the state before step u-1
     const int sv = (u + 1) & 1;                // step u-1's stream slot
-    const size_t ov = ((size_t)(u - 1) * B + row0);  // its first row
-    const size_t oc = ((size_t)u * B + row0);        // step u's first row
+    // step u-1's first row, step u's
+    const size_t ov = ((size_t)(km + u - 1) * B + row0);
+    const size_t oc = ((size_t)(km + u) * B + row0);
 
     for (int ph = 0; ph < NI + 2; ++ph) {
       // CS > 1: the chain's previous partial, summed over the cluster in
@@ -430,7 +446,7 @@ em_bwd_kernel(SdeDims dd, SdePlan pp, const float* __restrict__ y0,
           if (l == 0)
             dxh[(oc + r) * HH + k] = ev;
           else
-            es[((size_t)(l - 1) * M * B + oc + r) * HH + k] = ev;
+            es[((size_t)(l - 1) * MK * B + oc + r) * HH + k] = ev;
         }
         __syncthreads();
       }
@@ -453,7 +469,7 @@ em_bwd_kernel(SdeDims dd, SdePlan pp, const float* __restrict__ y0,
                    if (l == 0)
                      dxh[(oc + r) * HH + k] = ev;
                    else
-                     es[((size_t)(l - 1) * M * B + oc + r) * HH + k] = ev;
+                     es[((size_t)(l - 1) * MK * B + oc + r) * HH + k] = ev;
                  });
           } else {
             float* part = pd + ph * ptile;
@@ -516,7 +532,7 @@ em_bwd_kernel(SdeDims dd, SdePlan pp, const float* __restrict__ y0,
         } else if (ph <= NI) {
           const float* bl = w.bi + (ph - 1) * UH;
           float* ho = hv + ph * htile;
-          float* hso = hs + (size_t)ph * M * BHH;
+          float* hso = hs + (size_t)ph * MK * BHH;
           mm(gr, hv + (ph - 1) * htile, sHH, HH,
              w.wi + (size_t)(ph - 1) * w.swi, w.lwi, GW, nr, nh,
              [&](int r, int n, float acc) {
@@ -598,11 +614,12 @@ em_bwd_kernel(SdeDims dd, SdePlan pp, const float* __restrict__ y0,
 
   for (int i = tid; i < nr * nu; i += ET) {
     const int r = i / nu, k = i % nu;
-    dy0[(size_t)(row0 + r) * H + u0 + k] = gbar[r * U + k];
+    dy0[(size_t)(kb + row0 + r) * H + u0 + k] = gbar[r * U + k];
   }
   // d theta: the CTA's sum through sigmoid'
   const float t = cta_sum(th_acc, s + L.red);
-  if (tid == 0) p_th[blockIdx.x] = t * sth * (1.f - sth);
+  if (tid == 0)
+    p_th[(size_t)blockIdx.y * gridDim.x + blockIdx.x] = t * sth * (1.f - sth);
   // no CTA leaves while a peer may still read its shared memory
   cluster_or_block_sync(cs);
 }
@@ -669,7 +686,7 @@ struct FwdArgs {
 struct BwdArgs {
   const float *y0, *ys, *gys, *xh, *dw, *a, *gk, *dts, *theta, *wy, *wi,
       *bi, *wo, *bo, *wn1, *wn2, *nb, *nh;
-  float *dxh, *dy0, *hs, *es, *dz3, *q, *dn, *dz2, *p_th;
+  float *dxh, *dy0, *hs, *es, *dz3, *q, *dn, *dz2, *p_th, *dtheta;
 };
 
 // One launch (or, without `go`, its plan's check)
@@ -679,7 +696,7 @@ int run_fwd(const SdeDims& d, const FwdArgs& A, cudaStream_t s, int* active,
   const SdePlan p = em_plan(d, 0);
   if (p.bytes > (long long)max_optin_smem())
     return (int)cudaErrorInvalidValue;
-  return launch_clusters(fwd_kernel(d, p.level), p.cs, sde_ctas(d, p),
+  return launch_clusters(fwd_kernel(d, p.level), p.cs, sde_ctas(d, p), d.K,
                          p.bytes, s, active, go, d, p, A.y0, A.xh, A.dw, A.a,
                          A.gk, A.dts, A.theta, A.wy, A.wi, A.bi, A.wo, A.bo,
                          A.wn1, A.wn2, A.bn2, A.ys, A.nb, A.nh);
@@ -691,38 +708,53 @@ int run_bwd(const SdeDims& d, const BwdArgs& A, cudaStream_t s, int* active,
   const SdePlan p = em_plan(d, 1);
   if (p.bytes > (long long)max_optin_smem())
     return (int)cudaErrorInvalidValue;
-  return launch_clusters(bwd_kernel(d, p.level), p.cs, sde_ctas(d, p),
-                         p.bytes, s, active, go, d, p, A.y0, A.ys, A.gys,
-                         A.xh, A.dw, A.a, A.gk, A.dts, A.theta, A.wy, A.wi,
-                         A.bi, A.wo, A.bo, A.wn1, A.wn2, A.nb, A.nh, A.dxh,
-                         A.dy0, A.hs, A.es, A.dz3, A.q, A.dn, A.dz2, A.p_th);
+  const int ctas = sde_ctas(d, p);
+  const int err = launch_clusters(
+      bwd_kernel(d, p.level), p.cs, ctas, d.K, p.bytes, s, active, go, d, p,
+      A.y0, A.ys, A.gys, A.xh, A.dw, A.a, A.gk, A.dts, A.theta, A.wy, A.wi,
+      A.bi, A.wo, A.bo, A.wn1, A.wn2, A.nb, A.nh, A.dxh, A.dy0, A.hs, A.es,
+      A.dz3, A.q, A.dn, A.dz2, A.p_th);
+  if (err || !go) return err;
+  // d theta of each member: its CTAs' partials summed in a fixed order
+  return run_split_sums({SplitSum{A.p_th, A.dtheta, 1, ctas, 1, ctas}}, d.K,
+                        s);
 }
 
-// The weight gradient over K = M B rows: Wy' over the states before each
-// step (y0, then ys) and dz1 (not in drift mode 'xt'), each W_l and Wout
-// over the activations and cotangents, the noise net's Wn1 over the states
-// and dn, Wn2 over nh and dz2; the per-step column sums of dz1 (da; not in
-// 'xt') and of q (dgk, 'precomp') or dn (the an1 rows' cotangent, the
-// nets).
+// The weight gradient over K = M B rows a member: Wy' over the states
+// before each step (y0, then ys) and dz1 (not in drift mode 'xt'), each W_l
+// and Wout over the activations and cotangents, the noise net's Wn1 over
+// the states and dn, Wn2 over nh and dz2, their split partials p summed
+// into w; the per-step column sums of dz1 (da; not in 'xt') and of q
+// (dgk, 'precomp') or dn (the an1 rows' cotangent, the nets).
 int run_wgrad(const SdeDims& d, const float* y0, const float* ys,
               const float* dxh, const float* hs, const float* es,
               const float* dz3, const float* q, const float* dn,
-              const float* dz2, const float* nh, float* p, float* da,
-              float* dgk, cudaStream_t s) {
+              const float* dz2, const float* nh, float* p, float* w,
+              float* da, float* dgk, cudaStream_t s) {
   if (!em_valid(d)) return (int)cudaErrorInvalidValue;
-  const long long K = (long long)d.M * d.B;
+  const long long K = (long long)d.M * d.B, BH = (long long)d.B * d.H;
   const WgPlan wp = wg_plan(d, K);
   std::vector<WgJob> jobs;
-  const long long off = wg_jobs(d, wp, K, y0, ys, nullptr, d.B, (int)K, dxh,
-                                hs, es, dz3, p, jobs);
-  wg_noise_jobs(d, wp, y0, ys, nullptr, d.B, (int)K, dn, nh, dz2, p + off,
-                jobs);
+  long long per = wg_jobs(d, wp, K, y0, ys, nullptr, d.B, (int)K, BH,
+                          K * d.H, 0, K, 0, 0, dxh, hs, es, dz3, p, jobs);
+  wg_noise_jobs(d, wp, y0, ys, nullptr, d.B, (int)K, BH, K * d.H, 0, K, 0, 0,
+                dn, nh, dz2, p + per, jobs);
+  per += (long long)wp.S * (d.H + 1) * d.H * noise_jobs(d);
+  set_member_partials(jobs, per);
+  const long long KHH = K * d.HH, KH = K * d.H, MHH = (long long)d.M * d.HH,
+                  MH = (long long)d.M * d.H;
   WgSum sums[WG_MAX_SUMS];
   int ns = 0;
-  if (d.drift != DR_XT) sums[ns++] = WgSum{dxh, da, d.HH, d.M};
-  if (d.noise == NZ_PRE) sums[ns++] = WgSum{q, dgk, d.H, d.M};
-  if (net_noise(d.noise)) sums[ns++] = WgSum{dn, dgk, d.H, d.M};
-  return run_wgrad_jobs(jobs, sums, ns, K, d.B, wp, s);
+  if (d.drift != DR_XT)
+    sums[ns++] = WgSum{dxh, da, d.HH, d.M, KHH, MHH, 0, 0};
+  if (d.noise == NZ_PRE) sums[ns++] = WgSum{q, dgk, d.H, d.M, KH, MH, 0, 0};
+  if (net_noise(d.noise))
+    sums[ns++] = WgSum{dn, dgk, d.H, d.M, KH, MH, 0, 0};
+  const int err = run_wgrad_jobs(jobs, sums, ns, K, d.B, wp, d.K, s);
+  if (err) return err;
+  long long wm = 0;
+  for (const WgJob& J : jobs) wm += (long long)(J.rows + 1) * J.N;
+  return run_split_sums(wg_split_sums(jobs, wp, w, per, wm), d.K, s);
 }
 
 }  // namespace
@@ -732,19 +764,21 @@ extern "C" {
 // Dynamic shared memory of one CTA of a launch, in bytes, at its plan
 // (above the device's limit when no plan fits).
 long long fused_em_smem_bytes(int B, int H, int HH, int n_inner, int drift,
-                              int noise, int backward) {
-  if (!sde_modes_valid(drift, noise, 7)) return -1;
-  const SdeDims d{1, B, H, HH, n_inner, 0, 0, drift, noise, 0};
+                              int noise, int members, int backward) {
+  if (!sde_modes_valid(drift, noise, 7) || members < 1) return -1;
+  const SdeDims d{1, B, H, HH, n_inner, 0, 0, drift, noise, 0, members};
   return em_plan(d, backward).bytes;
 }
 
-// One field of a launch's plan: 0 the level, 1 batch rows a cluster, 2
-// CTAs a cluster, 3 cudaOccupancyMaxActiveClusters (minus the CUDA error
-// when the plan cannot be scheduled), 4 shared bytes a CTA.
+// One field of a launch's plan over `members` members: 0 the level, 1
+// batch rows a cluster, 2 CTAs a cluster, 3 cudaOccupancyMaxActiveClusters
+// (minus the CUDA error when the plan cannot be scheduled), 4 shared bytes
+// a CTA.
 int fused_em_plan(int B, int H, int HH, int n_inner, int drift, int noise,
-                  int backward, int field) {
-  if (!sde_modes_valid(drift, noise, 7)) return -(int)cudaErrorInvalidValue;
-  const SdeDims d{1, B, H, HH, n_inner, 0, 0, drift, noise, 9};
+                  int members, int backward, int field) {
+  if (!sde_modes_valid(drift, noise, 7) || members < 1)
+    return -(int)cudaErrorInvalidValue;
+  const SdeDims d{1, B, H, HH, n_inner, 0, 0, drift, noise, 9, members};
   const SdePlan p = em_plan(d, backward);
   switch (field) {
     case 0: return p.level;
@@ -764,7 +798,7 @@ int fused_em_plan(int B, int H, int HH, int n_inner, int drift, int noise,
 // in the modes (the leading dimension of its partials).
 int fused_em_wgrad_splits(int M, int B, int H, int HH, int n_inner,
                           int drift, int noise) {
-  return wg_plan(SdeDims{M, B, H, HH, n_inner, 0, 0, drift, noise, 0},
+  return wg_plan(SdeDims{M, B, H, HH, n_inner, 0, 0, drift, noise, 0, 1},
                  (long long)M * B).S;
 }
 
@@ -783,10 +817,11 @@ const char* fused_em_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// The forward: ys, and in the noise nets' modes their outputs nb [M][B][H]
-// and (net2) hidden activations nh [M][B][H]. A tensor a mode does not
-// take is null: xh in 'yy'; a and wy in 'xt'; gk in 'elem' (the an1 rows
-// in the nets); wn1 (wn2, bn2) outside the nets (net1).
+// The forward of K members: ys, and in the noise nets' modes their
+// outputs nb [M][B][H] and (net2) hidden activations nh [M][B][H], each
+// [K][...] as every input but dts [M] (member k's weights, y0, xh, dW, a
+// and gk at k times a member's size). A tensor a mode does not take is null: xh in 'yy'; a and wy in 'xt'; gk in 'elem'
+// (the an1 rows in the nets); wn1 (wn2, bn2) outside the nets (net1).
 int fused_em_fwd(const float* y0, const float* xh, const float* dw,
                  const float* a, const float* gk, const float* dts,
                  const float* theta, const float* wy, const float* wi,
@@ -794,20 +829,23 @@ int fused_em_fwd(const float* y0, const float* xh, const float* dw,
                  const float* wn1, const float* wn2, const float* bn2,
                  float* ys, float* nb, float* nh, int M, int B, int H, int HH,
                  int n_inner, int mult_y, int geometric, int drift, int noise,
-                 int elem, void* stream) {
-  const SdeDims d{M, B, H, HH, n_inner, mult_y, geometric, drift, noise, elem};
+                 int elem, int members, void* stream) {
+  const SdeDims d{M,     B,    H,    HH,      n_inner, mult_y,
+                  geometric, drift, noise, elem, members};
   const FwdArgs A{y0, xh, dw, a,  gk,  dts, theta, wy, wi,
                   bi, wo, bo, wn1, wn2, bn2, ys,   nb, nh};
   return run_fwd(d, A, (cudaStream_t)stream, nullptr, true);
 }
 
-// The reverse recurrence: dy0, dxh' (= dz1), the per-CTA partials of
-// d theta ([ctas]), and the streams of the weight gradient: hs [NI+1][M][B]
-// [HH] (h_0..h_NI), es [NI][M][B][HH] (the cotangents of h_1..h_NI's
+// The reverse recurrence of K members (inputs laid out as the forward's):
+// dy0, dxh' (= dz1), d theta ([K]: the per-CTA partials p_th [K][ctas]
+// summed), and the streams of the weight gradient: hs [NI+1][K][M][B][HH]
+// (h_0..h_NI), es [NI][K][M][B][HH] (the cotangents of h_1..h_NI's
 // inputs), dz3 [M][B][H], and by noise mode q [M][B][H] (the gk row's
 // cotangent by row, 'precomp'), dn [M][B][H] (the cotangent of the noise
 // net's first layer's output, the nets) and dz2 [M][B][H] (of its second
-// layer's output, net2); the nets read the forward's nb and nh.
+// layer's output, net2), each of those [K][...] as dy0 and dxh; the nets
+// read the forward's nb and nh.
 int fused_em_bwd(const float* y0, const float* ys, const float* gys,
                  const float* xh, const float* dw, const float* a,
                  const float* gk, const float* dts, const float* theta,
@@ -815,31 +853,35 @@ int fused_em_bwd(const float* y0, const float* ys, const float* gys,
                  const float* wo, const float* bo, const float* wn1,
                  const float* wn2, const float* nb, const float* nh,
                  float* dxh, float* dy0, float* hs, float* es, float* dz3,
-                 float* q, float* dn, float* dz2, float* p_th, int M, int B,
-                 int H, int HH, int n_inner, int mult_y, int geometric,
-                 int drift, int noise, int elem, void* stream) {
-  const SdeDims d{M, B, H, HH, n_inner, mult_y, geometric, drift, noise, elem};
-  const BwdArgs A{y0,  ys,  gys, xh,  dw,  a,  gk, dts, theta,
-                  wy,  wi,  bi,  wo,  bo,  wn1, wn2, nb, nh,
-                  dxh, dy0, hs,  es,  dz3, q,  dn, dz2, p_th};
+                 float* q, float* dn, float* dz2, float* p_th, float* dtheta,
+                 int M, int B, int H, int HH, int n_inner, int mult_y,
+                 int geometric, int drift, int noise, int elem, int members,
+                 void* stream) {
+  const SdeDims d{M,     B,    H,    HH,      n_inner, mult_y,
+                  geometric, drift, noise, elem, members};
+  const BwdArgs A{y0,  ys,  gys, xh,  dw,  a,  gk, dts,  theta, wy,
+                  wi,  bi,  wo,  bo,  wn1, wn2, nb, nh, dxh,  dy0,
+                  hs,  es,  dz3, q,   dn,  dz2, p_th, dtheta};
   return run_bwd(d, A, (cudaStream_t)stream, nullptr, true);
 }
 
-// The weight gradient from the recurrence's streams: the split partials
-// p (Wy' [S][H+1][HH] unless the drift is 'xt', each W_l [S][HH+1][HH],
-// Wout [S][HH+1][H], then Wn1 and (net2) Wn2 [S][H+1][H], one after
-// another; the last row of each the bias sum, zero for Wy' and Wn1), and
-// the per-step column sums da [M][HH] of dxh and dgk [M][H] of q or dn.
+// The weight gradient of K members from the recurrence's streams: the
+// split partials p [K][...] (Wy' [S][H+1][HH] unless the drift is 'xt',
+// each W_l [S][HH+1][HH], Wout [S][HH+1][H], then Wn1 and (net2) Wn2
+// [S][H+1][H], one after another), their sums w [K][...] (the same without
+// S; the last row of each the bias sum, zero for Wy' and Wn1), and the
+// per-step column sums da [K][M][HH] of dxh and dgk [K][M][H] of q or dn.
 int fused_em_wgrad(const float* y0, const float* ys, const float* dxh,
                    const float* hs, const float* es, const float* dz3,
                    const float* q, const float* dn, const float* dz2,
-                   const float* nh, float* p, float* da, float* dgk, int M,
-                   int B, int H, int HH, int n_inner, int mult_y,
-                   int geometric, int drift, int noise, int elem,
-                   void* stream) {
-  const SdeDims d{M, B, H, HH, n_inner, mult_y, geometric, drift, noise, elem};
-  return run_wgrad(d, y0, ys, dxh, hs, es, dz3, q, dn, dz2, nh, p, da, dgk,
-                   (cudaStream_t)stream);
+                   const float* nh, float* p, float* w, float* da,
+                   float* dgk, int M, int B, int H, int HH, int n_inner,
+                   int mult_y, int geometric, int drift, int noise, int elem,
+                   int members, void* stream) {
+  const SdeDims d{M,     B,    H,    HH,      n_inner, mult_y,
+                  geometric, drift, noise, elem, members};
+  return run_wgrad(d, y0, ys, dxh, hs, es, dz3, q, dn, dz2, nh, p, w, da,
+                   dgk, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -238,7 +238,7 @@ struct SrkArgs {
   const float *y0, *ys, *gys, *xh0, *xh1, *dw, *i10, *a0, *a1, *gk0, *gk1,
       *gk2, *dts, *theta, *wy, *wi, *bi, *wo, *bo, *wn1, *wn2, *bn2;
   float *ys_out, *nst, *nbs, *nhs, *dxh, *dy0, *hs, *es, *dz3, *q, *h01,
-      *dn, *dz2, *p_th;
+      *dn, *dz2, *p_th, *dtheta;
 };
 
 // The shared-memory layout of a CTA, offsets in floats (-1: not there):
@@ -359,7 +359,7 @@ __device__ __forceinline__ void prefetch_step(const SrkArgs& A,
                                               int b, int t) {
   constexpr bool vec = BWD ? BWD_VEC : FWD_VEC;
   constexpr int T0 = BWD ? BWD_COPY_T0 : FWD_COPY_T0;
-  const size_t rb = (size_t)t * d.B + c.row0;
+  const size_t rb = (size_t)(c.km + t) * d.B + c.row0;
   const int xt = g.R4 * g.UH, wt = g.R4 * g.U, nh = c.nh, nu = c.nu;
   if (DR != DR_YY) {
     const float* xh0 = A.xh0 + rb * d.HH + c.h0;
@@ -368,7 +368,7 @@ __device__ __forceinline__ void prefetch_step(const SrkArgs& A,
     copy_rows_by<T0>(s + L.xh1 + b * xt, nh, xh1, d.HH, nh, c.nr, vec);
   }
   if (DR != DR_XT) {
-    const size_t oa = (size_t)t * d.HH + c.h0;
+    const size_t oa = (size_t)(c.km + t) * d.HH + c.h0;
     copy_rows_by<T0>(s + L.a0 + b * g.UH, nh, A.a0 + oa, nh, nh, 1, vec);
     copy_rows_by<T0>(s + L.a1 + b * g.UH, nh, A.a1 + oa, nh, nh, 1, vec);
   }
@@ -380,7 +380,7 @@ __device__ __forceinline__ void prefetch_step(const SrkArgs& A,
   // the gk rows ('precomp'), or the forward's an1 rows (the nets)
   if (NZ == NZ_PRE || (net_noise(NZ) && !BWD)) {
     float* gk = s + L.gk + b * 3 * g.U;
-    const size_t o = (size_t)t * d.H + c.u0;
+    const size_t o = (size_t)(c.km + t) * d.H + c.u0;
     copy_rows_by<T0>(gk, nu, A.gk0 + o, nu, nu, 1, vec);
     copy_rows_by<T0>(gk + g.U, nu, A.gk1 + o, nu, nu, 1, vec);
     copy_rows_by<T0>(gk + 2 * g.U, nu, A.gk2 + o, nu, nu, 1, vec);
@@ -412,8 +412,11 @@ __device__ __forceinline__ void mm_ep(Grp g, const float* X, int ldx, int K,
 // f0's output forms g0, H0_1 and the states of stages 1 and 2, whose nets
 // run beside f1's first layers; f1's output is kept, and after it stage
 // 3's state, its net and the update of y take two to three phases more.
+// One CTA an SM asked for: without it ptxas built the (embm, precomp)
+// instance with 64 registers and 112/544 bytes spilled (the MuJoCo
+// forward +13% on an H100); the backward keeps (ET), which ran faster.
 template <bool GW, int DR, int NZ>
-__global__ void __launch_bounds__(ET)
+__global__ void __launch_bounds__(ET, 1)
 srk_fwd_kernel(SdeDims dd, SdePlan pp, SrkArgs A) {
   extern __shared__ float4 smem4[];
   float* s = reinterpret_cast<float*>(smem4);
@@ -425,8 +428,9 @@ srk_fwd_kernel(SdeDims dd, SdePlan pp, SrkArgs A) {
   __syncthreads();
   const Cta c = make_cta(d, p, g);
   const Wts w = load_wts(d, p, g, c, L.w, s,
-                         WtsIn{A.wy, A.wi, A.bi, A.wo, A.bo, A.wn1, A.wn2,
-                               A.bn2});
+                         member_wts(d, (int)blockIdx.y,
+                                    WtsIn{A.wy, A.wi, A.bi, A.wo, A.bo,
+                                          A.wn1, A.wn2, A.bn2}));
   const int H = d.H, HH = d.HH, NI = d.NI, sH = g.sH, sHH = g.sHH;
   const int U = g.U, UH = g.UH, R4 = g.R4, nr = c.nr, row0 = c.row0;
   const int h0 = c.h0, u0 = c.u0, cs = c.cs, nh = c.nh, nu = c.nu;
@@ -440,16 +444,18 @@ srk_fwd_kernel(SdeDims dd, SdePlan pp, SrkArgs A) {
   float* ngt = s + L.ngt;  // the nets' outputs, stages 0-3
   float* nht = s + L.nht;  // net2's hidden rows, stages 0-3
   float* f1t = s + L.f1;
-  const size_t MBH = (size_t)d.M * d.B * H;
+  // a stage's stream [E][K][M][B][H]: its members' steps
+  const size_t MBH = (size_t)d.K * d.M * d.B * H;
   const Grp all{0, ET};
   for (int i = threadIdx.x; i < nr * H; i += ET)
-    y[(i / H) * sH + i % H] = A.y0[(size_t)row0 * H + i];
+    y[(i / H) * sH + i % H] =
+        A.y0[(size_t)(member_row(d) + row0) * H + i];
   if (d.M > 0) prefetch_step<false, DR, NZ>(A, d, g, c, L, s, 0, 0);
   cp_async_commit();
   cp_async_wait_all();
   // every CTA of the cluster is zeroed before a peer pushes into it
   cluster_or_block_sync(cs);
-  const float sth = sigmoid(A.theta[0]);
+  const float sth = sigmoid(A.theta[blockIdx.y]);
   const bool mult_y = d.mult_y, geometric = d.geometric;
 
   for (int u = 0; u < d.M; ++u) {
@@ -461,7 +467,8 @@ srk_fwd_kernel(SdeDims dd, SdePlan pp, SrkArgs A) {
     const float* wu = s + L.dw + b * wtile;
     const float* iu = s + L.i10 + b * wtile;
     const float* gku = s + L.gk + b * 3 * U;
-    const size_t ob = (size_t)u * d.B + row0;  // the step's first row
+    // the step's first row
+    const size_t ob = (size_t)(c.km + u) * d.B + row0;
     // a noise net's first layer on stage i's state X (its an1 row: the
     // stage time's), and net2's second layer
     auto net_first = [&](int i, const float* X, const float* an) {
@@ -602,7 +609,7 @@ srk_fwd_kernel(SdeDims dd, SdePlan pp, SrkArgs A) {
                                  k.dt * (ALPHA0 * f0t[ix] + ALPHA1 * f1) +
                                  snt[ix];
                 push(cs, y, r * sH + col, yn);
-                A.ys_out[((size_t)u * d.B + row0 + r) * H + col] = yn;
+                A.ys_out[(ob + r) * H + col] = yn;
               });
         cp_async_wait_all();
       }
@@ -681,15 +688,18 @@ srk_bwd_kernel(SdeDims dd, SdePlan pp, SrkArgs A) {
   __syncthreads();
   const Cta c = make_cta(d, p, g);
   const Wts w = load_wts(d, p, g, c, L.w, s,
-                         WtsIn{A.wy, A.wi, A.bi, A.wo, A.bo, A.wn1, A.wn2,
-                               nullptr});
+                         member_wts(d, (int)blockIdx.y,
+                                    WtsIn{A.wy, A.wi, A.bi, A.wo, A.bo,
+                                          A.wn1, A.wn2, nullptr}));
   const int H = d.H, HH = d.HH, NI = d.NI, M = d.M, B = d.B, P = NI + 2;
   const int sH = g.sH, sHH = g.sHH, sW = g.sW, U = g.U, UH = g.UH;
   const int R4 = g.R4, nr = c.nr, row0 = c.row0, h0 = c.h0, u0 = c.u0;
   const int nh = c.nh, nu = c.nu, cs = c.cs, tid = threadIdx.x;
   const int ytile = R4 * sH, htile = R4 * sHH, xtile = R4 * UH;
   const int wtile = R4 * U, ptile = R4 * sW;
-  const size_t MB = (size_t)M * B, BH = (size_t)B * H, MBH = MB * H;
+  // the rows of one evaluation's or stage's stream [E][K][M][B]: every
+  // member's steps
+  const size_t MB = (size_t)d.K * M * B, BH = (size_t)B * H, MBH = MB * H;
   float* yb = s + L.y;
   float* h01 = s + L.h01;
   float* hk = s + L.h;
@@ -707,7 +717,10 @@ srk_bwd_kernel(SdeDims dd, SdePlan pp, SrkArgs A) {
   auto prefetch_y = [&](int t) {
     copy_rows_by<BWD_COPY_T0>(
         yslot(t), sH,
-        (t < 0 ? A.y0 : A.ys + (size_t)t * BH) + (size_t)row0 * H, H, H, nr,
+        (t < 0 ? A.y0 + (size_t)member_row(d) * H
+               : A.ys + (size_t)(c.km + t) * BH) +
+            (size_t)row0 * H,
+        H, H, nr,
         BWD_VEC);
   };
   auto act = [&](int t, int ev, int l) {
@@ -728,7 +741,7 @@ srk_bwd_kernel(SdeDims dd, SdePlan pp, SrkArgs A) {
   cp_async_commit();
   cp_async_wait_all();
   cluster_or_block_sync(cs);
-  const float sth = sigmoid(A.theta[0]);
+  const float sth = sigmoid(A.theta[blockIdx.y]);
   const bool mult_y = d.mult_y, geometric = d.geometric;
   float th_acc = 0.f;
 
@@ -745,8 +758,9 @@ srk_bwd_kernel(SdeDims dd, SdePlan pp, SrkArgs A) {
     const float* yu = yslot(u - 1);  // the state before step u
     const float* yv = yslot(u - 2);  // the state before step u-1
     const int su = u % 3, sv = (u + 2) % 3;  // step u's, step u-1's slots
-    const size_t oc = (size_t)u * B + row0;       // step u's first row
-    const size_t ov = (size_t)(u - 1) * B + row0;  // step u-1's
+    // step u's first row, step u-1's
+    const size_t oc = (size_t)(c.km + u) * B + row0;
+    const size_t ov = (size_t)(c.km + u - 1) * B + row0;
 
     for (int ph = 0; ph < 2 * P; ++ph) {
       const int ce = ph < P ? 1 : 0, re = 1 - ce, q = ph < P ? ph : ph - P;
@@ -786,7 +800,7 @@ srk_bwd_kernel(SdeDims dd, SdePlan pp, SrkArgs A) {
           const float* iu = s + L.i10 + su * wtile;
           const float* zu = z30 + (u & 1) * wtile;
           const Step k = step_of(s[L.dt + 4 * su]);
-          const size_t oc = (size_t)u * B + row0;
+          const size_t oc = (size_t)(c.km + u) * B + row0;
           // stage i's pointwise reverse at (r, col) given dg: the theta
           // sum, the cotangent of its net's output (net2: of the second
           // layer's) into tq slot i & 1 and its stream, its state's
@@ -1091,11 +1105,12 @@ srk_bwd_kernel(SdeDims dd, SdePlan pp, SrkArgs A) {
 
   for (int i = tid; i < nr * nu; i += ET) {
     const int r = i / nu, n = i % nu;
-    A.dy0[(size_t)(row0 + r) * H + u0 + n] = gbar[r * U + n];
+    A.dy0[(size_t)(member_row(d) + row0 + r) * H + u0 + n] = gbar[r * U + n];
   }
   // d theta: the CTA's sum through sigmoid'
   const float t = cta_sum(th_acc, s + L.red);
-  if (tid == 0) A.p_th[blockIdx.x] = t * sth * (1.f - sth);
+  if (tid == 0)
+    A.p_th[(size_t)blockIdx.y * gridDim.x + blockIdx.x] = t * sth * (1.f - sth);
   // no CTA leaves while a peer may still read its shared memory
   cluster_or_block_sync(cs);
 }
@@ -1151,42 +1166,66 @@ int run(const SdeDims& d, const SrkArgs& A, int backward, cudaStream_t s,
   const SdePlan p = srk_plan(d, backward);
   if (p.bytes > (long long)max_optin_smem())
     return (int)cudaErrorInvalidValue;
-  return launch_clusters(srk_kernel(d, backward, p.level), p.cs,
-                         sde_ctas(d, p), p.bytes, s, active, go, d, p, A);
+  const int ctas = sde_ctas(d, p);
+  const int err = launch_clusters(srk_kernel(d, backward, p.level), p.cs,
+                                  ctas, d.K, p.bytes, s, active, go, d, p, A);
+  if (err || !go || !backward) return err;
+  // d theta of each member: its CTAs' partials summed in a fixed order
+  return run_split_sums({SplitSum{A.p_th, A.dtheta, 1, ctas, 1, ctas}}, d.K,
+                        s);
 }
 
-// The weight gradient over K = 2 M B rows, both evaluations: Wy' over the
-// states each first layer read (y0, ys, then H0_1) and dz1 (dxh0 then
-// dxh1; not in drift mode 'xt'), each W_l and Wout over the activations and
-// cotangents; the per-step column sums of dz1 (da0, da1; not in 'xt') and
-// of the gk rows' cotangents (dgk0, dgk1, dgk2; 'precomp'). A noise net's
-// over K = 4 M B rows, the four stages, in a second launch: Wn1 over the
-// stage states (y0, ys, then nst) and dn, Wn2 over nh and dz2, and the
-// column sums of dn by stage and step (dgk [4][M][H]: the an1 rows'
-// cotangents, stages 1 and 3 summed by the wrapper).
+// The weight gradient over K = 2 M B rows a member, both evaluations:
+// Wy' over the states each first layer read (y0, ys, then H0_1) and dz1
+// (dxh0 then dxh1; not in drift mode 'xt'), each W_l and Wout over the
+// activations and cotangents; the per-step column sums of dz1 (da0, da1;
+// not in 'xt') and of the gk rows' cotangents (dgk0, dgk1, dgk2;
+// 'precomp'). A noise net's over K = 4 M B rows, the four stages, in a
+// second launch: Wn1 over the stage states (y0, ys, then nst) and dn, Wn2
+// over nh and dz2, and the column sums of dn by stage and step (dgk
+// [4][M][H]: the an1 rows' cotangents, stages 1 and 3 summed by the
+// wrapper). The split partials p are summed into w after both launches.
+// The streams of an evaluation or stage hold every member's steps
+// ([E][K][M][B]): a member's rows are segments of M B rows, K M B apart.
 int run_wgrad(const SdeDims& d, const float* y0, const float* ys,
               const float* h01, const float* dxh, const float* hs,
               const float* es, const float* dz3, const float* q,
               const float* nst, const float* dn, const float* nh,
-              const float* dz2, float* p, float* da, float* dgk,
+              const float* dz2, float* p, float* w, float* da, float* dgk,
               cudaStream_t s) {
   if (!srk_valid(d)) return (int)cudaErrorInvalidValue;
   const long long MB = (long long)d.M * d.B, K = 2 * MB;
+  const long long BH = (long long)d.B * d.H, MBH = MB * d.H;
+  // one member's rows are contiguous: no segments
+  const int seg = d.K > 1 ? (int)MB : 0, sseg = d.K > 1 ? d.M : 0;
+  const long long gap = (long long)d.K * MB, sgap = (long long)d.K * d.M;
   const WgPlan wp = wg_plan(d, K);
-  std::vector<WgJob> jobs;
-  const long long off = wg_jobs(d, wp, K, y0, ys, h01, d.B, (int)MB, dxh, hs,
-                                es, dz3, p, jobs);
+  std::vector<WgJob> jobs, njobs;
+  long long per = wg_jobs(d, wp, K, y0, ys, h01, d.B, (int)MB, BH, MBH, MBH,
+                          MB, seg, gap, dxh, hs, es, dz3, p, jobs);
+  wg_noise_jobs(d, wp, y0, ys, nst, d.B, (int)MB, BH, MBH, MBH, MB, seg, gap,
+                dn, nh, dz2, p + per, njobs);
+  per += (long long)wp.S * (d.H + 1) * d.H * noise_jobs(d);
+  set_member_partials(jobs, per);
+  set_member_partials(njobs, per);
+  const long long M = d.M;
   WgSum sums[WG_MAX_SUMS];
   int ns = 0;
-  if (d.drift != DR_XT) sums[ns++] = WgSum{dxh, da, d.HH, 2 * d.M};
-  if (d.noise == NZ_PRE) sums[ns++] = WgSum{q, dgk, d.H, 3 * d.M};
-  int err = run_wgrad_jobs(jobs, sums, ns, K, d.B, wp, s);
-  if (err || !net_noise(d.noise)) return err;
-  std::vector<WgJob> njobs;
-  wg_noise_jobs(d, wp, y0, ys, nst, d.B, (int)MB, dn, nh, dz2, p + off,
-                njobs);
-  const WgSum nsum{dn, dgk, d.H, 4 * d.M};
-  return run_wgrad_jobs(njobs, &nsum, 1, 4 * MB, d.B, wp, s);
+  if (d.drift != DR_XT)
+    sums[ns++] =
+        WgSum{dxh, da, d.HH, 2 * d.M, MB * d.HH, 2 * M * d.HH, sseg, sgap};
+  if (d.noise == NZ_PRE)
+    sums[ns++] = WgSum{q, dgk, d.H, 3 * d.M, MBH, 3 * M * d.H, sseg, sgap};
+  int err = run_wgrad_jobs(jobs, sums, ns, K, d.B, wp, d.K, s);
+  if (!err && net_noise(d.noise)) {
+    const WgSum nsum{dn, dgk, d.H, 4 * d.M, MBH, 4 * M * d.H, sseg, sgap};
+    err = run_wgrad_jobs(njobs, &nsum, 1, 4 * MB, d.B, wp, d.K, s);
+  }
+  if (err) return err;
+  jobs.insert(jobs.end(), njobs.begin(), njobs.end());
+  long long wm = 0;
+  for (const WgJob& J : jobs) wm += (long long)(J.rows + 1) * J.N;
+  return run_split_sums(wg_split_sums(jobs, wp, w, per, wm), d.K, s);
 }
 
 }  // namespace
@@ -1196,20 +1235,23 @@ extern "C" {
 // Dynamic shared memory of one CTA of a launch, in bytes, at its plan
 // (above the device's limit when no plan fits).
 long long fused_srk_smem_bytes(int B, int H, int HH, int n_inner, int drift,
-                               int noise, int backward) {
-  if (!sde_modes_valid(drift, noise, 7)) return -1;
-  return srk_plan(SdeDims{1, B, H, HH, n_inner, 0, 0, drift, noise, 0},
-                  backward)
+                               int noise, int members, int backward) {
+  if (!sde_modes_valid(drift, noise, 7) || members < 1) return -1;
+  return srk_plan(
+             SdeDims{1, B, H, HH, n_inner, 0, 0, drift, noise, 0, members},
+             backward)
       .bytes;
 }
 
-// One field of a launch's plan: 0 the level, 1 batch rows a cluster, 2
-// CTAs a cluster, 3 cudaOccupancyMaxActiveClusters (minus the CUDA error
-// when the plan cannot be scheduled), 4 shared bytes a CTA.
+// One field of a launch's plan over `members` members: 0 the level, 1
+// batch rows a cluster, 2 CTAs a cluster, 3 cudaOccupancyMaxActiveClusters
+// (minus the CUDA error when the plan cannot be scheduled), 4 shared bytes
+// a CTA.
 int fused_srk_plan(int B, int H, int HH, int n_inner, int drift, int noise,
-                   int backward, int field) {
-  if (!sde_modes_valid(drift, noise, 7)) return -(int)cudaErrorInvalidValue;
-  const SdeDims d{1, B, H, HH, n_inner, 0, 0, drift, noise, 9};
+                   int members, int backward, int field) {
+  if (!sde_modes_valid(drift, noise, 7) || members < 1)
+    return -(int)cudaErrorInvalidValue;
+  const SdeDims d{1, B, H, HH, n_inner, 0, 0, drift, noise, 9, members};
   const SdePlan p = srk_plan(d, backward);
   switch (field) {
     case 0: return p.level;
@@ -1226,7 +1268,7 @@ int fused_srk_plan(int B, int H, int HH, int n_inner, int drift, int noise,
 // modes (the leading dimension of its partials).
 int fused_srk_wgrad_splits(int M, int B, int H, int HH, int n_inner,
                            int drift, int noise) {
-  return wg_plan(SdeDims{M, B, H, HH, n_inner, 0, 0, drift, noise, 0},
+  return wg_plan(SdeDims{M, B, H, HH, n_inner, 0, 0, drift, noise, 0, 1},
                  2LL * M * B).S;
 }
 
@@ -1245,11 +1287,14 @@ const char* fused_srk_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// The forward: ys, and in the noise nets' modes the states of stages 1-3
-// nst [3][M][B][H], the nets' outputs nb [4][M][B][H] and (net2) hidden
-// activations nh [4][M][B][H]. A tensor a mode does not take is null: xh0
-// and xh1 in 'yy'; a0, a1 and wy in 'xt'; the gk rows in 'elem' (the an1
-// rows in the nets); wn1 (wn2, bn2) outside the nets (net1).
+// The forward of K members: ys [K][M][B][H], and in the noise nets' modes
+// the states of stages 1-3 nst [3][K][M][B][H], the nets' outputs nb
+// [4][K][M][B][H] and (net2) hidden activations nh [4][K][M][B][H]; every
+// input but dts [M] is [K][...] (member k's weights, y0, dW, I10 and gk
+// rows, xh0, xh1, a0 and a1 at k times a member's size). A tensor a mode
+// does not take is null: xh0 and xh1 in 'yy'; a0, a1 and wy
+// in 'xt'; the gk rows in 'elem' (the an1 rows in the nets); wn1 (wn2,
+// bn2) outside the nets (net1).
 int fused_srk_fwd(const float* y0, const float* xh0, const float* xh1,
                   const float* dw, const float* i10, const float* a0,
                   const float* a1, const float* gk0, const float* gk1,
@@ -1259,7 +1304,7 @@ int fused_srk_fwd(const float* y0, const float* xh0, const float* xh1,
                   const float* wn2, const float* bn2, float* ys, float* nst,
                   float* nb, float* nh, int M, int B, int H, int HH,
                   int n_inner, int mult_y, int geometric, int drift,
-                  int noise, int elem, void* stream) {
+                  int noise, int elem, int members, void* stream) {
   SrkArgs A{};
   A.y0 = y0; A.xh0 = xh0; A.xh1 = xh1; A.dw = dw; A.i10 = i10; A.a0 = a0;
   A.a1 = a1; A.gk0 = gk0; A.gk1 = gk1; A.gk2 = gk2; A.dts = dts;
@@ -1267,19 +1312,22 @@ int fused_srk_fwd(const float* y0, const float* xh0, const float* xh1,
   A.wn1 = wn1; A.wn2 = wn2; A.bn2 = bn2;
   A.ys_out = ys; A.nst = nst; A.nbs = nb; A.nhs = nh;
   return run(SdeDims{M, B, H, HH, n_inner, mult_y, geometric, drift, noise,
-                     elem},
+                     elem, members},
              A, 0, (cudaStream_t)stream, nullptr, true);
 }
 
-// The reverse recurrence: dy0, the per-CTA partials of d theta ([ctas]),
-// and the streams of the weight gradient: dxh [2][M][B][HH] (dz1 of f0,
-// then f1: the cotangents of xh0 and xh1), hs [NI+1][2][M][B][HH] (h_0..
-// h_NI of both evaluations), es [NI][2][M][B][HH] (the cotangents of
-// h_1..h_NI's inputs), dz3 [2][M][B][H], h01 [M][B][H] (H0_1, f1's state),
-// and by noise mode q [3][M][B][H] (the gk0, gk1 and gk2 rows' cotangents
-// by row, 'precomp'), dn [4][M][B][H] (the cotangents of the nets' first
-// layers' outputs by stage) and dz2 [4][M][B][H] (of net2's second layers'
-// outputs); the nets read the forward's nst, nb and nh.
+// The reverse recurrence of K members (inputs laid out as the forward's):
+// dy0 [K][B][H], d theta [K] (the per-CTA partials p_th [K][ctas] summed),
+// and the streams of the weight gradient, every evaluation's or stage's
+// holding all members' steps: dxh [2][K][M][B][HH] (dz1 of f0, then f1:
+// the cotangents of xh0 and xh1, each member's), hs [NI+1][2][K][M][B][HH]
+// (h_0..h_NI of both evaluations), es [NI][2][K][M][B][HH] (the cotangents
+// of h_1..h_NI's inputs), dz3 [2][K][M][B][H], h01 [K][M][B][H] (H0_1,
+// f1's state), and by noise mode q [3][K][M][B][H] (the gk0, gk1 and gk2
+// rows' cotangents by row, 'precomp'), dn [4][K][M][B][H] (the cotangents
+// of the nets' first layers' outputs by stage) and dz2 [4][K][M][B][H] (of
+// net2's second layers' outputs); the nets read the forward's nst, nb and
+// nh.
 int fused_srk_bwd(const float* y0, const float* ys, const float* gys,
                   const float* xh0, const float* xh1, const float* dw,
                   const float* i10, const float* a0, const float* a1,
@@ -1290,9 +1338,9 @@ int fused_srk_bwd(const float* y0, const float* ys, const float* gys,
                   const float* nst, const float* nb, const float* nh,
                   float* dxh, float* dy0, float* hs, float* es, float* dz3,
                   float* q, float* h01, float* dn, float* dz2, float* p_th,
-                  int M, int B, int H, int HH, int n_inner, int mult_y,
-                  int geometric, int drift, int noise, int elem,
-                  void* stream) {
+                  float* dtheta, int M, int B, int H, int HH, int n_inner,
+                  int mult_y, int geometric, int drift, int noise, int elem,
+                  int members, void* stream) {
   SrkArgs A{};
   A.y0 = y0; A.ys = ys; A.gys = gys; A.xh0 = xh0; A.xh1 = xh1; A.dw = dw;
   A.i10 = i10; A.a0 = a0; A.a1 = a1; A.gk0 = gk0; A.gk1 = gk1; A.gk2 = gk2;
@@ -1301,29 +1349,31 @@ int fused_srk_bwd(const float* y0, const float* ys, const float* gys,
   A.nst = const_cast<float*>(nst); A.nbs = const_cast<float*>(nb);
   A.nhs = const_cast<float*>(nh);
   A.dxh = dxh; A.dy0 = dy0; A.hs = hs; A.es = es; A.dz3 = dz3; A.q = q;
-  A.h01 = h01; A.dn = dn; A.dz2 = dz2; A.p_th = p_th;
+  A.h01 = h01; A.dn = dn; A.dz2 = dz2; A.p_th = p_th; A.dtheta = dtheta;
   return run(SdeDims{M, B, H, HH, n_inner, mult_y, geometric, drift, noise,
-                     elem},
+                     elem, members},
              A, 1, (cudaStream_t)stream, nullptr, true);
 }
 
-// The weight gradient from the recurrence's streams: the split partials
-// p (Wy' [S][H+1][HH] unless the drift is 'xt', each W_l [S][HH+1][HH],
-// Wout [S][HH+1][H], then Wn1 and (net2) Wn2 [S][H+1][H], one after
-// another; the last row of each the bias sum, zero for Wy' and Wn1), the
-// per-step column sums da [2][M][HH] of dxh, and dgk, [3][M][H] of q
-// ('precomp') or [4][M][H] of dn by stage (the nets).
+// The weight gradient of K members from the recurrence's streams: the
+// split partials p [K][...] (Wy' [S][H+1][HH] unless the drift is 'xt',
+// each W_l [S][HH+1][HH], Wout [S][HH+1][H], then Wn1 and (net2) Wn2
+// [S][H+1][H], one after another), their sums w [K][...] (the same without
+// S; the last row of each the bias sum, zero for Wy' and Wn1), the
+// per-step column sums da [K][2][M][HH] of dxh, and dgk, [K][3][M][H] of q
+// ('precomp') or [K][4][M][H] of dn by stage (the nets).
 int fused_srk_wgrad(const float* y0, const float* ys, const float* h01,
                     const float* dxh, const float* hs, const float* es,
                     const float* dz3, const float* q, const float* nst,
                     const float* dn, const float* nh, const float* dz2,
-                    float* p, float* da, float* dgk, int M, int B, int H,
-                    int HH, int n_inner, int mult_y, int geometric, int drift,
-                    int noise, int elem, void* stream) {
+                    float* p, float* w, float* da, float* dgk, int M, int B,
+                    int H, int HH, int n_inner, int mult_y, int geometric,
+                    int drift, int noise, int elem, int members,
+                    void* stream) {
   return run_wgrad(SdeDims{M, B, H, HH, n_inner, mult_y, geometric, drift,
-                           noise, elem},
-                   y0, ys, h01, dxh, hs, es, dz3, q, nst, dn, nh, dz2, p, da,
-                   dgk, (cudaStream_t)stream);
+                           noise, elem, members},
+                   y0, ys, h01, dxh, hs, es, dz3, q, nst, dn, nh, dz2, p, w,
+                   da, dgk, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -368,8 +368,12 @@ __host__ __device__ constexpr bool net_noise(int nz) {
   return nz == NZ_NET1 || nz == NZ_NET2;
 }
 
+// A launch's shapes and modes, and its members: K same-configuration
+// solves (each with its own weights, y0, control and Brownian streams) in
+// one launch, member k on blockIdx.y, each of its tensors lying at k times
+// a member's size (csrc/fused_em.cu, fused_srk.cu: the layouts).
 struct SdeDims {
-  int M, B, H, HH, NI, mult_y, geometric, drift, noise, elem;
+  int M, B, H, HH, NI, mult_y, geometric, drift, noise, elem, K;
 };
 
 // d with its modes the instance's compile-time ones, so that every branch
@@ -481,10 +485,17 @@ __host__ __device__ inline WtsAt take_wts(Take& take, const SdeDims& d,
   return w;
 }
 
-// The CTA's place: its cluster's rows and its own columns
+// The CTA's place: its cluster's rows and its own columns, and its
+// member's (k = blockIdx.y) first step km = k M in a stream laid out
+// [K][M]
 struct Cta {
-  int cs, rank, row0, nr, u0, nu, h0, nh;
+  int cs, rank, row0, nr, u0, nu, h0, nh, km;
 };
+
+// the CTA's member's first batch row in a tensor laid out [K][B]
+__device__ __forceinline__ int member_row(const SdeDims& d) {
+  return (int)blockIdx.y * d.B;
+}
 
 __device__ __forceinline__ Cta make_cta(const SdeDims& d, const SdePlan& p,
                                         const SdeGeo& g) {
@@ -497,6 +508,7 @@ __device__ __forceinline__ Cta make_cta(const SdeDims& d, const SdePlan& p,
   c.nu = min(g.U, d.H - c.u0);
   c.h0 = min(c.rank * g.UH, d.HH);
   c.nh = min(g.UH, d.HH - c.h0);
+  c.km = (int)blockIdx.y * d.M;
   return c;
 }
 
@@ -514,6 +526,23 @@ struct Wts {
 struct WtsIn {
   const float *wy, *wi, *bi, *wo, *bo, *wn1, *wn2, *bn2;
 };
+
+// p + k n: member k's tensor of n floats a member (null stays null)
+__device__ __forceinline__ const float* member(const float* p, int k,
+                                               size_t n) {
+  return p ? p + (size_t)k * n : p;
+}
+
+// member k's weights, each tensor [K][...] (a tensor the modes do not take
+// is null)
+__device__ __forceinline__ WtsIn member_wts(const SdeDims& d, int k,
+                                            const WtsIn& in) {
+  const size_t H = d.H, HH = d.HH, NI = d.NI;
+  return WtsIn{member(in.wy, k, H * HH),   member(in.wi, k, NI * HH * HH),
+               member(in.bi, k, NI * HH),  member(in.wo, k, HH * H),
+               member(in.bo, k, H),        member(in.wn1, k, H * H),
+               member(in.wn2, k, H * H),   member(in.bn2, k, H)};
+}
 
 // one [K][N] weight's column slice [c0, c0 + n) into dst [K][ld]
 __device__ __forceinline__ void load_slice(float* dst, int ld,
@@ -625,12 +654,12 @@ inline int sm_count() {
 template <class... Exp>
 int cluster_config(void (*k)(Exp...), int cs, int ctas, long long bytes,
                    cudaStream_t s, cudaLaunchConfig_t& cfg,
-                   cudaLaunchAttribute* attr, int* n) {
+                   cudaLaunchAttribute* attr, int* n, int members = 1) {
   cudaError_t err = cudaFuncSetAttribute(
       k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
   cfg = {};
-  cfg.gridDim = dim3((unsigned)(ctas > 0 ? ctas : cs));
+  cfg.gridDim = dim3((unsigned)(ctas > 0 ? ctas : cs), (unsigned)members);
   cfg.blockDim = dim3(ET);
   cfg.dynamicSmemBytes = (size_t)bytes;
   cfg.stream = s;
@@ -658,18 +687,20 @@ int cluster_config(void (*k)(Exp...), int cs, int ctas, long long bytes,
   return 0;
 }
 
-// Launch kernel k on `ctas` CTAs of ET threads in clusters of cs, with
+// Launch kernel k on `ctas` CTAs of ET threads in clusters of cs, for
+// each of `members` members (gridDim.y), with
 // `bytes` of dynamic shared memory, or, without `run`, only check it:
 // cudaOccupancyMaxActiveClusters must find room for at least one cluster
 // (its count in *active when given). An unschedulable launch returns an
 // error: there is no quiet fallback to another route.
 template <class... Exp, class... Act>
-int launch_clusters(void (*k)(Exp...), int cs, int ctas, long long bytes,
-                    cudaStream_t s, int* active, bool run, Act... args) {
+int launch_clusters(void (*k)(Exp...), int cs, int ctas, int members,
+                    long long bytes, cudaStream_t s, int* active, bool run,
+                    Act... args) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
   int n = 0;
-  const int e = cluster_config(k, cs, ctas, bytes, s, cfg, attr, &n);
+  const int e = cluster_config(k, cs, ctas, bytes, s, cfg, attr, &n, members);
   if (e) return e;
   if (active) *active = n;
   if (n < 1) return (int)cudaErrorLaunchOutOfResources;
@@ -701,7 +732,8 @@ struct StepShape {
 // whose CTA fits the device's shared memory (bytes(q): its dynamic bytes)
 // and whose cluster can be scheduled (active(q):
 // cudaOccupancyMaxActiveClusters, 0 when it cannot), the one of least
-// estimated time: waves of clusters (the clusters over the active ones) x
+// estimated time: waves of clusters (the K members' clusters over the
+// active ones) x
 // the CTAs a full wave puts on an SM, where more than one (they share its
 // issue slots: on an H100 at the SRK pair's MuJoCo shape one CTA of 8 rows
 // an SM beat two of 4) x a step's cycles in a CTA (R x the FMAs of one
@@ -723,14 +755,15 @@ SdePlan sde_plan(const SdeDims& d, int backward, StepShape st, Bytes bytes,
                  Active active) {
   static std::mutex mu;
   static std::map<std::tuple<int, int, int, int, int, int, int, int, int,
-                             int, int>,
+                             int, int, int>,
                   SdePlan>
       seen;
   int dev = 0;
   cudaGetDevice(&dev);
+  const int K = std::max(d.K, 1);
   const auto key =
       std::make_tuple(dev, d.B, d.H, d.HH, d.NI, backward, g_first_level,
-                      g_force_cs, g_force_rows, d.drift, d.noise);
+                      g_force_cs, g_force_rows, d.drift, d.noise, K);
   std::lock_guard<std::mutex> lock(mu);
   const auto it = seen.find(key);
   if (it != seen.end()) return it->second;
@@ -760,7 +793,7 @@ SdePlan sde_plan(const SdeDims& d, int backward, StepShape st, Bytes bytes,
           last = q;
           continue;
         }
-        const double clusters = (double)((d.B + R - 1) / R);
+        const double clusters = (double)K * ((d.B + R - 1) / R);
         const double waves = std::ceil(clusters / n);
         const double share =
             std::max(1.0, std::min(clusters, (double)n) * cs / sms);
@@ -783,7 +816,8 @@ SdePlan sde_plan(const SdeDims& d, int backward, StepShape st, Bytes bytes,
 }
 
 inline bool sde_valid(const SdeDims& d) {
-  return d.M >= 0 && d.B > 0 && d.H > 0 && d.HH > 0 && d.NI >= 0;
+  return d.M >= 0 && d.B > 0 && d.H > 0 && d.HH > 0 && d.NI >= 0 &&
+         d.K >= 1 && d.K <= 65535;
 }
 
 inline int sde_ctas(const SdeDims& d, const SdePlan& p) {
@@ -815,20 +849,36 @@ inline int force_plan(int cs, int rows) {
 // = the split's sum of e[n][c] (else that row is 0). x(n) is x0 + n rows
 // for n < nb0, x + (n - nb0) rows for n < nb1 and x2 + (n - nb1) rows
 // after (each row `rows` floats); e rows N floats. p holds S splits of
-// (rows + 1) x N.
+// (rows + 1) x N. Member k (blockIdx.z) reads and writes each at k times
+// its member stride (m*, in floats). A stream whose bit is set in segm (1:
+// x, 2: x2, 4: e) holds a member's rows in segments of `seg` rows, `gap`
+// rows apart (the SRK's streams [E][K][M][B]: seg M B, gap K M B): its row
+// i is at (i / seg) gap + i % seg.
 struct WgJob {
   const float *x0, *x, *x2, *e;
   float* p;
   int rows, N, nb0, nb1, bias;
+  long long mx0, mx, mx2, me, mp;
+  int segm, seg;
+  long long gap;
 };
 
 // Column sums of a stream [steps][B][N] by step: out[u][c] = sum_b
-// s[u][b][c] (summed in a fixed order).
+// s[u][b][c] (summed in a fixed order); member k's at k ms and k mo, its
+// steps in segments of `seg` steps `gap` steps apart when seg > 0.
 struct WgSum {
   const float* s;
   float* out;
   int N, steps;
+  long long ms, mo;
+  int seg;
+  long long gap;
 };
+
+__device__ __forceinline__ long long seg_row(long long i, int seg,
+                                             long long gap) {
+  return (i / seg) * gap + i % seg;
+}
 
 constexpr int WG_MAX_JOBS = 8, WG_MAX_SUMS = 2;
 constexpr int WG_THREADS = 256, WG_BN = 64, WG_BK = 16;
@@ -851,8 +901,9 @@ __device__ __forceinline__ bool aligned16(const void* p) {
 // with cp.async; on an H100 a ring of 3 or 4 steps was no faster at the
 // sepsis shape), BM / 16 x 4 outputs a thread in registers. blockIdx.x
 // runs over the jobs' tiles, then over the column sums (one block a step
-// and stream); blockIdx.y is the split of K. A fixed order everywhere, no
-// atomics: runs are bit-reproducible.
+// and stream); blockIdx.y is the split of K, blockIdx.z the member. A
+// fixed order everywhere, no atomics: runs are bit-reproducible, and a
+// member's sums are those of a launch of that member alone.
 template <int BM>
 __global__ void __launch_bounds__(WG_THREADS) wgrad_kernel(WgArgs A) {
   constexpr int TM = BM / 16;
@@ -860,19 +911,23 @@ __global__ void __launch_bounds__(WG_THREADS) wgrad_kernel(WgArgs A) {
   __shared__ __align__(16) float es[2][WG_BK][WG_BN];
   const int tid = threadIdx.x;
   const int b = blockIdx.x;
+  const long long mk = blockIdx.z;
   if (b >= A.tiles[A.njobs]) {  // a column sum: one step of one stream
     if (blockIdx.y != 0) return;
     int si = 0, u = b - A.tiles[A.njobs];
     while (si < A.nsums && u >= A.sum[si].steps) u -= A.sum[si++].steps;
     if (si >= A.nsums) return;
-    const WgSum S = A.sum[si];
+    WgSum S = A.sum[si];
+    S.s += mk * S.ms;
+    S.out += mk * S.mo;
     float* red = &xs[0][0][0];  // [4][64]
     const int grp = tid >> 6, cl = tid & 63;
     for (int c0 = 0; c0 < S.N; c0 += 64) {
       const int c = c0 + cl;
       float acc = 0.f;
       if (c < S.N) {
-        const float* src = S.s + (size_t)u * A.B * S.N + c;
+        const long long su = S.seg ? seg_row(u, S.seg, S.gap) : u;
+        const float* src = S.s + (size_t)su * A.B * S.N + c;
         for (int r = grp; r < A.B; r += 4) acc += src[(size_t)r * S.N];
       }
       red[grp * 64 + cl] = acc;
@@ -886,7 +941,12 @@ __global__ void __launch_bounds__(WG_THREADS) wgrad_kernel(WgArgs A) {
   }
   int j = 0;
   while (b >= A.tiles[j + 1]) ++j;
-  const WgJob J = A.job[j];
+  WgJob J = A.job[j];
+  J.x0 += mk * J.mx0;  // (a null segment has stride 0)
+  J.x += mk * J.mx;
+  J.x2 += mk * J.mx2;
+  J.e += mk * J.me;
+  J.p += mk * J.mp;
   const int t = b - A.tiles[j], NCt = (J.N + WG_BN - 1) / WG_BN;
   const int c0 = (t % NCt) * WG_BN, m0 = (t / NCt) * BM;
   const int N = J.N, rows = J.rows;
@@ -895,10 +955,13 @@ __global__ void __launch_bounds__(WG_THREADS) wgrad_kernel(WgArgs A) {
   const bool xvec = (rows & 3) == 0 && aligned16(J.x) &&
                     (!J.x0 || aligned16(J.x0)) && (!J.x2 || aligned16(J.x2));
   const bool yvec = (N & 3) == 0 && aligned16(J.e);
+  auto row_of = [&](int bit, long long i) {
+    return (J.segm & bit) ? seg_row(i, J.seg, J.gap) : i;
+  };
   auto xrow = [&](int n) -> const float* {
     return n < J.nb0   ? J.x0 + (size_t)n * rows
-           : n < J.nb1 ? J.x + (size_t)(n - J.nb0) * rows
-                       : J.x2 + (size_t)(n - J.nb1) * rows;
+           : n < J.nb1 ? J.x + (size_t)row_of(1, n - J.nb0) * rows
+                       : J.x2 + (size_t)row_of(2, n - J.nb1) * rows;
   };
   auto load = [&](int buf, int nb) {
     for (int q = tid; q < WG_BK * BM / 4; q += WG_THREADS) {
@@ -917,7 +980,7 @@ __global__ void __launch_bounds__(WG_THREADS) wgrad_kernel(WgArgs A) {
       }
     }
     const int lr = tid / 16, lc = (tid % 16) * 4, n = nb + lr, c = c0 + lc;
-    const float* y = J.e + (size_t)n * N + c;
+    const float* y = J.e + (size_t)row_of(4, n) * N + c;
     if (yvec) {
       const bool ok = n < n1 && c < N;
       cp_async16(&es[buf][lr][lc], ok ? y : J.e, ok ? 16 : 0);
@@ -1033,30 +1096,39 @@ inline WgPlan wg_plan(const SdeDims& d, long long K) {
   return w;
 }
 
-// The drift's jobs of an SDE backward's weight gradient over K rows: Wy'
-// (x: the states the first layer read, x0 / x / x2 split at nb0 and nb1;
-// e: dz1; not in drift mode 'xt'), each W_l (x: hs[l], e: es[l], each
-// stream K rows), Wout (x: hs[NI], e: dz3), their split partials one after
-// another from p (Wy' [S][H+1][HH], each W_l [S][HH+1][HH], Wout
-// [S][HH+1][H]; the last row of each the bias sum, zero for Wy'). Returns
-// the floats of p they take.
+// The drift's jobs of an SDE backward's weight gradient over K rows a
+// member: Wy' (x: the states the first layer read, x0 / x / x2 split at
+// nb0 and nb1, their member strides m0, m1, m2 floats; e: dz1; not in
+// drift mode 'xt'), each W_l (x: hs[l], e: es[l]), Wout (x: hs[NI], e:
+// dz3), their split partials one after another from p (Wy' [S][H+1][HH],
+// each W_l [S][HH+1][HH], Wout [S][HH+1][H]; the last row of each the bias
+// sum, zero for Wy'). dz1, dz3 and each layer of hs and es hold the K
+// members' rows (hs and es a layer after another), member k's from row
+// k mr, in segments of `seg` rows `gap` rows apart when seg > 0 (the SRK's
+// two evaluations). Returns the floats of p they take (a member's;
+// set_member_partials sets its stride).
 inline long long wg_jobs(const SdeDims& d, const WgPlan& wp, long long K,
                          const float* x0, const float* x, const float* x2,
-                         int nb0, int nb1, const float* dz1, const float* hs,
-                         const float* es, const float* dz3, float* p,
+                         int nb0, int nb1, long long m0, long long m1,
+                         long long m2, long long mr, int seg, long long gap,
+                         const float* dz1, const float* hs, const float* es,
+                         const float* dz3, float* p,
                          std::vector<WgJob>& jobs) {
-  const size_t KHH = (size_t)K * d.HH;
+  const long long lay = (long long)d.K * K * d.HH, mh = mr * d.HH;
   long long off = 0;
   for (int j = d.drift == DR_XT ? 1 : 0; j < d.NI + 2; ++j) {
     WgJob J{};
     if (j == 0)
-      J = WgJob{x0, x, x2, dz1, nullptr, d.H, d.HH, nb0, nb1, 0};
+      J = WgJob{x0, x, x2, dz1, nullptr, d.H, d.HH, nb0, nb1, 0,
+                m0, m1, m2, mh, 0, seg ? 4 : 0, seg, gap};
     else if (j <= d.NI)
-      J = WgJob{nullptr, hs + (j - 1) * KHH, nullptr, es + (j - 1) * KHH,
-                nullptr, d.HH, d.HH, 0, INT_MAX, 1};
+      J = WgJob{nullptr, hs + (j - 1) * lay, nullptr, es + (j - 1) * lay,
+                nullptr, d.HH, d.HH, 0, INT_MAX, 1, 0, mh, 0, mh, 0,
+                seg ? 5 : 0, seg, gap};
     else
-      J = WgJob{nullptr, hs + d.NI * KHH, nullptr, dz3, nullptr, d.HH, d.H,
-                0, INT_MAX, 1};
+      J = WgJob{nullptr, hs + d.NI * lay, nullptr, dz3, nullptr, d.HH, d.H,
+                0, INT_MAX, 1, 0, mh, 0, mr * d.H, 0, seg ? 5 : 0, seg,
+                gap};
     J.p = p + off;
     off += (long long)wp.S * (J.rows + 1) * J.N;
     jobs.push_back(J);
@@ -1064,30 +1136,41 @@ inline long long wg_jobs(const SdeDims& d, const WgPlan& wp, long long K,
   return off;
 }
 
-// The noise net's jobs over K rows of its streams, their partials from p:
-// Wn1 [S][H+1][H] (x: the states each diffusion evaluation read, x0 / x /
-// x2 split at nb0 and nb1; e: dn, the cotangent of its output; no bias
+// The noise net's jobs, their partials from p: Wn1 [S][H+1][H] (x: the
+// states each diffusion evaluation read, x0 / x / x2 split at nb0 and nb1,
+// member strides m0, m1, m2; e: dn, the cotangent of its output; no bias
 // sum: the bias is in the an1 rows), and for net2 Wn2 [S][H+1][H] (x: nh,
 // the hidden activations; e: dz2, the cotangent of its output; the last
-// row the bias sum).
+// row the bias sum). x2, dn, nh and dz2 hold member k's rows from row
+// k mr, in segments as wg_jobs's.
 inline void wg_noise_jobs(const SdeDims& d, const WgPlan& wp,
                           const float* x0, const float* x, const float* x2,
-                          int nb0, int nb1, const float* dn, const float* nh,
-                          const float* dz2, float* p,
-                          std::vector<WgJob>& jobs) {
+                          int nb0, int nb1, long long m0, long long m1,
+                          long long m2, long long mr, int seg, long long gap,
+                          const float* dn, const float* nh, const float* dz2,
+                          float* p, std::vector<WgJob>& jobs) {
   if (!net_noise(d.noise)) return;
-  jobs.push_back(WgJob{x0, x, x2, dn, p, d.H, d.H, nb0, nb1, 0});
+  const long long mh = mr * d.H;
+  jobs.push_back(WgJob{x0, x, x2, dn, p, d.H, d.H, nb0, nb1, 0, m0, m1, m2,
+                       mh, 0, seg ? 6 : 0, seg, gap});
   if (d.noise == NZ_NET2)
     jobs.push_back(WgJob{nullptr, nh, nullptr, dz2,
                          p + (long long)wp.S * (d.H + 1) * d.H, d.H, d.H, 0,
-                         INT_MAX, 1});
+                         INT_MAX, 1, 0, mh, 0, mh, 0, seg ? 5 : 0, seg,
+                         gap});
+}
+
+// Every job's partials at `per` floats a member
+inline void set_member_partials(std::vector<WgJob>& jobs, long long per) {
+  for (WgJob& J : jobs) J.mp = per;
 }
 
 // Launch the jobs, in launches of at most WG_MAX_JOBS, with the column sums
-// (at most WG_MAX_SUMS) in the first; B rows a step of the summed streams.
+// (at most WG_MAX_SUMS) in the first; B rows a step of the summed streams;
+// `members` members (gridDim.z).
 inline int run_wgrad_jobs(const std::vector<WgJob>& jobs, const WgSum* sums,
                           int nsums, long long K, int B, const WgPlan& wp,
-                          cudaStream_t s) {
+                          int members, cudaStream_t s) {
   const int kper = (int)(((K + wp.S - 1) / wp.S + WG_BK - 1) / WG_BK * WG_BK);
   for (size_t j0 = 0; j0 < jobs.size(); j0 += WG_MAX_JOBS) {
     WgArgs A{};
@@ -1108,7 +1191,8 @@ inline int run_wgrad_jobs(const std::vector<WgJob>& jobs, const WgSum* sums,
       A.sum[i] = sums[i];
       steps += sums[i].steps;
     }
-    const dim3 grid((unsigned)(A.tiles[A.njobs] + steps), (unsigned)wp.S);
+    const dim3 grid((unsigned)(A.tiles[A.njobs] + steps), (unsigned)wp.S,
+                    (unsigned)members);
     if (wp.bm == 128)
       wgrad_kernel<128><<<grid, WG_THREADS, 0, s>>>(A);
     else
@@ -1117,6 +1201,83 @@ inline int run_wgrad_jobs(const std::vector<WgJob>& jobs, const WgSum* sums,
     if (err != cudaSuccess) return (int)err;
   }
   return 0;
+}
+
+// ---------------------------------------------------------------------------
+// The sums of split partials
+// ---------------------------------------------------------------------------
+
+// out[i] = sum over s < S of p[s n + i] for i < n, s in ascending order;
+// member k's at k mp and k mo
+struct SplitSum {
+  const float* p;
+  float* out;
+  long long n, mp, mo;
+  int S;
+};
+
+constexpr int SPLIT_MAX = 8, SPLIT_THREADS = 256;
+
+struct SplitArgs {
+  SplitSum seg[SPLIT_MAX];
+  long long first[SPLIT_MAX + 1];  // prefix sums of the segments' n
+  int nseg;
+};
+
+// One output a thread over every segment's outputs (blockIdx.y the
+// member): each a sum in one fixed order, so a member's result is the one
+// a launch of that member alone gives.
+__global__ void __launch_bounds__(SPLIT_THREADS)
+split_sum_kernel(SplitArgs A) {
+  const long long i =
+      (long long)blockIdx.x * SPLIT_THREADS + threadIdx.x;
+  if (i >= A.first[A.nseg]) return;
+  int j = 0;
+  while (i >= A.first[j + 1]) ++j;
+  const SplitSum G = A.seg[j];
+  const long long k = blockIdx.y, o = i - A.first[j];
+  const float* p = G.p + k * G.mp + o;
+  float acc = 0.f;
+  for (int z = 0; z < G.S; ++z) acc += p[(long long)z * G.n];
+  G.out[k * G.mo + o] = acc;
+}
+
+// Sum the segments (at most SPLIT_MAX a launch) for `members` members.
+inline int run_split_sums(const std::vector<SplitSum>& segs, int members,
+                          cudaStream_t s) {
+  for (size_t j0 = 0; j0 < segs.size(); j0 += SPLIT_MAX) {
+    SplitArgs A{};
+    A.nseg = (int)std::min<size_t>(SPLIT_MAX, segs.size() - j0);
+    A.first[0] = 0;
+    for (int j = 0; j < A.nseg; ++j) {
+      A.seg[j] = segs[j0 + j];
+      A.first[j + 1] = A.first[j] + A.seg[j].n;
+    }
+    const long long blocks =
+        (A.first[A.nseg] + SPLIT_THREADS - 1) / SPLIT_THREADS;
+    if (blocks == 0) continue;
+    split_sum_kernel<<<dim3((unsigned)blocks, (unsigned)members),
+                       SPLIT_THREADS, 0, s>>>(A);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
+}
+
+// The sums of a weight gradient's split partials: job j's S splits of
+// (rows + 1) x N into w, one job after another ((rows + 1) x N floats
+// each: the weight, then its bias sum), `pm` and `wm` floats a member.
+inline std::vector<SplitSum> wg_split_sums(const std::vector<WgJob>& jobs,
+                                           const WgPlan& wp, float* w,
+                                           long long pm, long long wm) {
+  std::vector<SplitSum> segs;
+  long long off = 0;
+  for (const WgJob& J : jobs) {
+    const long long n = (long long)(J.rows + 1) * J.N;
+    segs.push_back(SplitSum{J.p, w + off, n, pm, wm, wp.S});
+    off += n;
+  }
+  return segs;
 }
 
 }  // namespace

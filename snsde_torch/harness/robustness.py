@@ -1,5 +1,6 @@
 """Robustness-to-missingness sweep (counterpart of
-snsde/harness/robustness.py:48-446, the solo loop).
+snsde/harness/robustness.py:48-720: the solo loop and the seed-packed
+ensembles).
 
   * `ISTSClassifier`: seq layer (any name `registry.PORTED_NAMES` holds:
     the Neural SDEs, the Neural CDEs and the plain recurrent baselines) ->
@@ -23,8 +24,17 @@ Batches follow the JAX package, not the reference's smaller last batch
 (ROADMAP Queue 3): the last partial batch is padded by wrap-around, the
 training loss is the plain mean over the padded batch (BatchNorm sees the
 duplicates), and an evaluation weighs each batch's mean loss by its count
-of valid rows. The seed-packed ensemble route (`pack_seeds=True`) is not
-ported yet.
+of valid rows.
+
+`pack_seeds=True` trains a cell's seeds of an SDE grid name, `neuralcde`
+or `gru-ode` at once as an `ISTSSeedEnsembleSDE` (`train_ists_ensemble`):
+each seed its own split, missingness and control path; the SDE members'
+solve one member-axis launch on CUDA (models/ensemble.py), the CDE
+members' one solo launch each. It follows the JAX package's ensemble
+trainer: member k's batches in the order of numpy's default_rng(k), each
+member's masked mean loss, a shared StepLR decay, per-member early stop
+and restore; a member that stopped keeps its parameters and BatchNorm
+statistics while its Adam state advances.
 """
 
 from __future__ import annotations
@@ -32,9 +42,10 @@ from __future__ import annotations
 import copy
 import json
 import os
+import re
 import time
 from dataclasses import dataclass
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -43,17 +54,23 @@ from torch import nn
 from .. import resolve_device
 from ..data.common import inject_missingness, stratified_split
 from ..data.synthetic import synthetic_uea
+from ..models.ensemble import packed_cde_solve, packed_solve
+from ..models.neuralcde import NeuralCDEStream, _build_path
+from ..models.neuralsde import resolve_dt
 from ..nn.layers import BatchNorm, make_linear
-from ..ops.interp import hermite_cubic_coeffs, natural_cubic_coeffs
+from ..ops.interp import (CubicPath, hermite_cubic_coeffs,
+                          natural_cubic_coeffs)
 from ..registry import make_seq_layer
-from ..train.loop import (iterate_batches, readout_grad_hook,
+from ..train.ensemble_loop import ensemble_step, member_generators
+from ..train.loop import (_padded_grid, iterate_batches, readout_grad_hook,
                           softmax_cross_entropy, train_step)
 from ..train.metrics import classification_metrics
 from ..train.schedule import StepLR
 
 __all__ = ["ISTSClassifier", "SweepConfig", "coeff_family",
            "preprocess_ists", "make_fixed_splits", "train_ists_model",
-           "ists_train_step", "predict_ists", "run_robustness_sweep"]
+           "ists_train_step", "predict_ists", "run_robustness_sweep",
+           "ISTSSeedEnsembleSDE", "train_ists_ensemble"]
 
 CLIP_NORM = 10.0
 
@@ -268,11 +285,11 @@ def run_robustness_sweep(cfg: SweepConfig = SweepConfig(), n: int = 256,
     on CUDA unless `device` says otherwise. The seed drives the split, the
     missingness draw and the initial weights. When `models` is a dict,
     each classifier trained in this call is stored in it under
-    (missing_rate, model name, seed)."""
-    if pack_seeds:
-        raise NotImplementedError(
-            "pack_seeds=True (seed-packed ensembles) is not ported yet "
-            "(ROADMAP Queue 1 item 11)")
+    (missing_rate, model name, seed). With pack_seeds a cell's pending
+    seeds of an SDE grid name, `neuralcde` or `gru-ode` train as one
+    ISTSSeedEnsembleSDE (train_ists_ensemble, seeded by the first of them;
+    the other models keep the solo loop); an exception there writes an
+    error record for each seed whose record it has not written."""
     dev = resolve_device(device)
     X, y, _ = data_fn(n=n)
     results = []
@@ -285,8 +302,17 @@ def run_robustness_sweep(cfg: SweepConfig = SweepConfig(), n: int = 256,
                                             interpolation=family)
         return data_cache[k]
 
+    def _write(rec, out_path):
+        os.makedirs(os.path.dirname(out_path), exist_ok=True)
+        with open(out_path, "w") as f:
+            json.dump(rec, f)
+        results.append(rec)
+        if verbose:
+            print(rec, flush=True)
+
     for rate in cfg.missing_rates:
         for model_name in cfg.models:
+            pending = []
             for seed in cfg.seeds:
                 out_path = os.path.join(cfg.out_dir, dataset_name,
                                         str(int(rate * 100)),
@@ -295,6 +321,14 @@ def run_robustness_sweep(cfg: SweepConfig = SweepConfig(), n: int = 256,
                     with open(out_path) as f:
                         results.append(json.load(f))
                     continue
+                pending.append((seed, out_path))
+            if (pack_seeds and len(pending) > 1
+                    and (_SDE_GRID_RE.match(model_name)
+                         or model_name in ("neuralcde", "gru-ode"))):
+                _packed_cell(cfg, X, y, _data, model_name, rate, pending,
+                             dataset_name, dev, models, _write)
+                continue
+            for seed, out_path in pending:
                 splits = stratified_split(y, seed=seed)
                 t0 = time.time()
                 try:
@@ -326,10 +360,241 @@ def run_robustness_sweep(cfg: SweepConfig = SweepConfig(), n: int = 256,
                     rec = {"dataset": dataset_name, "missing_rate": rate,
                            "model": model_name, "seed": seed,
                            "error": repr(e)}
-                os.makedirs(os.path.dirname(out_path), exist_ok=True)
-                with open(out_path, "w") as f:
-                    json.dump(rec, f)
-                results.append(rec)
-                if verbose:
-                    print(rec, flush=True)
+                _write(rec, out_path)
     return results
+
+
+_SDE_GRID_RE = re.compile(r"^neuralsde_\d+_\d+$")
+
+
+def _packed_cell(cfg, X, y, data_of, model_name, rate, pending,
+                 dataset_name, dev, models, write) -> None:
+    """One cell's pending seeds as one ISTSSeedEnsembleSDE
+    (robustness.py:344-399): records as the solo loop's, with `packed`,
+    the members' count; an exception writes an error record for every
+    seed whose record was not written yet."""
+    seeds = [s for s, _ in pending]
+    t0 = time.time()
+    written = set()
+    try:
+        datas = [data_of(rate, s, coeff_family(model_name)) for s in seeds]
+        splits_list = [stratified_split(y, seed=s) for s in seeds]
+        model = ISTSSeedEnsembleSDE(
+            model_name, X.shape[-1], X.shape[1], cfg.hidden_dim,
+            int(y.max()) + 1, len(seeds), method=cfg.method,
+            generator=torch.Generator().manual_seed(seeds[0])).to(dev)
+        model, test_ms = train_ists_ensemble(
+            model, datas, y, splits_list, lr=cfg.lr,
+            batch_size=cfg.batch_size, max_epochs=cfg.max_epochs,
+            patience=cfg.patience, seed=seeds[0])
+        wall = time.time() - t0
+        for k, ((seed, out_path), tm) in enumerate(zip(pending, test_ms)):
+            if models is not None:
+                models[(rate, model_name, seed)] = model.members[k]
+            if cfg.save_preds:
+                yt, yp, lo = predict_ists(model.members[k], datas[k], y,
+                                          splits_list[k][2], cfg.batch_size,
+                                          seed)
+                os.makedirs(os.path.dirname(out_path), exist_ok=True)
+                np.savez(out_path[:-5] + ".npz", y_true=yt, y_pred=yp,
+                         logits=lo)
+            write({"dataset": dataset_name, "missing_rate": rate,
+                   "model": model_name, "seed": seed,
+                   "accuracy": float(tm.accuracy),
+                   "f1_weighted": float(tm.f1_weighted),
+                   "wall_time": wall / len(seeds), "packed": len(seeds),
+                   "method": model.method}, out_path)
+            written.add(out_path)
+    except Exception as e:  # the reference sweep's blanket skip
+        for seed, out_path in pending:
+            if out_path not in written:
+                write({"dataset": dataset_name, "missing_rate": rate,
+                       "model": model_name, "seed": seed,
+                       "error": repr(e)}, out_path)
+
+
+class ISTSSeedEnsembleSDE(nn.Module):
+    """K seeds of one `neuralsde_{i}_{jj}`, `neuralcde` or `gru-ode`
+    classifier (robustness.py:454-540), each member an ISTSClassifier
+    with its own control path (the seed changes the split and the
+    missingness, so members see different data). The SDE members' solve
+    is one member-axis launch on CUDA (`packed_solve` with per-member
+    paths); the CDE members' one solve each (`packed_cde_solve`); the
+    heads run per member. The head draws no dropout.
+
+    forward(seqs [K, B, 3, L, D], coeffs [K, B, L-1, 4C], *, generators)
+    -> logits [K, B, classes]."""
+
+    def __init__(self, model_name: str, input_dim: int, seq_len: int,
+                 hidden_dim: int, num_classes: int, n_members: int,
+                 hidden_hidden_dim: Optional[int] = None, num_layers: int = 1,
+                 num_hidden_layers: int = 1, method: Optional[str] = None, *,
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        self.members = nn.ModuleList(
+            ISTSClassifier(model_name, input_dim, seq_len, hidden_dim,
+                           num_classes, hidden_hidden_dim, num_layers,
+                           num_hidden_layers, method=method,
+                           generator=generator, device=device)
+            for _ in range(n_members))
+        # the members' stream solver (srk for the SDE names by default)
+        self.method = self.members[0].layer.inner.method
+
+    @property
+    def n_members(self) -> int:
+        return len(self.members)
+
+    def member(self, k: int) -> nn.Module:
+        return self.members[k]
+
+    def forward(self, seqs, coeffs, *,
+                generators: Sequence[torch.Generator],
+                use_fused: bool = True):
+        K, L = self.n_members, seqs.shape[3]
+        times = np.linspace(0.0, 1.0, L).astype(np.float32)
+        streams = [m.layer.inner for m in self.members]
+        cde = isinstance(streams[0], NeuralCDEStream)
+        paths = [_build_path(coeffs[k], times, streams[k].control) if cde
+                 else CubicPath(coeffs[k], times) for k in range(K)]
+        y0s = torch.stack([s.initial_network(paths[k].evaluate(
+            paths[k].times[0])) for k, s in enumerate(streams)])
+        if cde:
+            zs = packed_cde_solve([s.func for s in streams], paths[0], times,
+                                  y0s, method=self.method,
+                                  dt=resolve_dt(times, floor=0.0),
+                                  paths=paths, use_fused=use_fused)
+        else:
+            zs = packed_solve([s.func for s in streams], paths[0], times,
+                              y0s, generators, method=self.method,
+                              dt=resolve_dt(times), paths=paths)
+        logits = []
+        for k, m in enumerate(self.members):
+            out = streams[k].linear(zs[k].movedim(0, 1))[:, -1, :]
+            h = torch.relu(m.fc1(m.norm(out)))
+            logits.append(torch.nan_to_num(m.fc2(h)))
+        return torch.stack(logits)
+
+
+def train_ists_ensemble(model: ISTSSeedEnsembleSDE, datas, y: np.ndarray,
+                        splits_list, lr: float = 1e-3, batch_size: int = 64,
+                        max_epochs: int = 30, patience: int = 10,
+                        verbose: bool = False, seed: int = 0, lrs=None):
+    """Train K sweep seeds at once (robustness.py:543-720). datas: the K
+    members' preprocessed dicts (each seed's missingness); splits_list:
+    their (train, val, test) index triples, of equal sizes. Per member, as
+    train_ists_model: softmax cross-entropy (its masked mean over the
+    batch), the 100x fc2 hook before a global-norm clip at 10 on its own
+    gradients, Adam, patience-10 early stop on val accuracy and a restore
+    of its best state. The StepLR(10, 0.5) decay is shared; `lrs` gives
+    each member its own base rate. Member k's batches follow numpy's
+    default_rng(k), as the JAX trainer's; the members' noise comes from
+    member_generators(seed). Returns (the model, each member's test
+    metrics)."""
+    K = model.n_members
+    device = next(model.parameters()).device
+    lr_base = np.asarray(lrs if lrs is not None else [lr] * K, np.float64)
+    if lr_base.shape != (K,):
+        raise ValueError("lrs needs one rate per member")
+    num_classes = int(y.max()) + 1
+    n_tr = len(splits_list[0][0])
+    if any(len(sp[0]) != n_tr for sp in splits_list):
+        raise ValueError("the members' train splits must be of one size")
+    seqs = torch.as_tensor(np.stack([d["seq"] for d in datas]),
+                           device=device)
+    coeffs = torch.as_tensor(np.stack([d["coeffs"] for d in datas]),
+                             device=device)
+    ylab = torch.as_tensor(y.astype(np.int64), device=device)
+    members = torch.arange(K, device=device)[:, None]
+    params = [[p for p in model.member(k).parameters() if p.requires_grad]
+              for k in range(K)]
+    opts = [torch.optim.Adam(ps, lr=float(lr_base[k]))
+            for k, ps in enumerate(params)]
+    hooks = []
+    for k in range(K):
+        hooks += readout_grad_hook("fc2")(model.member(k))
+    gens = member_generators(seed, K, device)
+
+    def loss_fn(batch):
+        bidx, mask = batch
+        logits = model(seqs[members, bidx], coeffs[members, bidx],
+                       generators=gens)                     # [K, B, C]
+        logp = torch.log_softmax(logits, dim=-1)
+        per = -torch.gather(logp, -1, ylab[bidx][..., None])[..., 0]
+        m = mask[None]
+        return (per * m).sum(1) / m.sum(1).clamp_min(1.0), logits
+
+    def grid(which, rngs=None):
+        """Each member's padded index grid [nb, K, B] and the shared mask
+        [nb, B]."""
+        perms = []
+        for k, sp in enumerate(splits_list):
+            ix = np.asarray(sp[which])
+            if rngs is not None:
+                ix = rngs[k].permutation(ix)
+            g, mask = _padded_grid(ix, batch_size)
+            perms.append(g)
+        return np.stack(perms, axis=1), mask
+
+    def evaluate(which):
+        perm, masks = grid(which)
+        model.eval()
+        logits, losses = [], []
+        with torch.no_grad():
+            for bidx, mask in zip(perm, masks):
+                ml, lo = loss_fn((torch.as_tensor(bidx, device=device),
+                                  torch.as_tensor(mask, device=device)))
+                logits.append(lo)
+                losses.append(ml)
+        model.train()
+        logits = torch.stack(logits).cpu().numpy()      # [nb, K, B, C]
+        losses = torch.stack(losses).cpu().numpy()      # [nb, K]
+        valid = masks.reshape(-1) > 0
+        n_valid = masks.sum(axis=1)
+        out = []
+        for k in range(K):
+            idx = perm[:, k].reshape(-1)[valid]
+            lo = logits[:, k].reshape(-1, num_classes)[valid]
+            loss = float((losses[:, k] * n_valid).sum() / n_valid.sum())
+            out.append(classification_metrics(y.astype(np.int64)[idx], lo,
+                                              loss, num_classes))
+        return out
+
+    sched = StepLR(lr=1.0, step_size=10, gamma=0.5)
+    rngs = [np.random.default_rng(k) for k in range(K)]
+    best_val = np.full(K, -np.inf)
+    best_state = [copy.deepcopy(model.member(k).state_dict())
+                  for k in range(K)]
+    stale = np.zeros(K, int)
+    active = np.ones(K, bool)
+    for epoch in range(max_epochs):
+        perm, masks = grid(0, rngs)
+        for bidx, mask in zip(perm, masks):
+            ensemble_step(model, opts, params, loss_fn,
+                          (torch.as_tensor(bidx, device=device),
+                           torch.as_tensor(mask, device=device)),
+                          active, clip_norm=CLIP_NORM)
+        decay = sched.step()
+        for k in range(K):
+            for group in opts[k].param_groups:
+                group["lr"] = float(lr_base[k]) * decay
+        val_ms = evaluate(1)
+        for k in range(K):
+            if not active[k]:
+                continue
+            if val_ms[k].accuracy > best_val[k]:
+                best_val[k], stale[k] = val_ms[k].accuracy, 0
+                best_state[k] = copy.deepcopy(model.member(k).state_dict())
+            else:
+                stale[k] += 1
+                if stale[k] >= patience:
+                    active[k] = False
+        if verbose:
+            accs = " ".join(f"{v.accuracy:.3f}" for v in val_ms)
+            print(f"  epoch {epoch}: val acc [{accs}]", flush=True)
+        if not active.any():
+            break
+    for h in hooks:
+        h.remove()
+    for k in range(K):
+        model.member(k).load_state_dict(best_state[k])
+    return model, evaluate(2)

@@ -12,6 +12,13 @@ drift mode by input_option ('xt' 0, 'yy' 1/3/5, 'embm' 2/4/6: the merged
 emb drift), the noise mode by noise_option ('precomp' 0-6, 11-13, 16, 17;
 'elem' 7-10; 'net1' 14/15; 'net2' 18/19), mult_y and geometric. The
 kernels take the whole 7 x 20 grid.
+
+One launch of an SDE pair solves K same-configuration members (a seed
+ensemble): the wrappers take a member's tensors with a leading K axis
+(y0 [K, B, H], ...), or without it for one solve, which is the K = 1
+launch. Every member has its own control streams too (xh, a; the SRK's
+xh0, xh1, a0, a1), since they are made from its own weights. Member i of a
+launch is bit for bit a launch of member i alone under the same plan.
 """
 
 from __future__ import annotations
@@ -27,11 +34,14 @@ __all__ = ["PRECOMP_NO", "ELEM_NO", "MULT_Y_NO", "DRIFT_BY_IO",
            "DRIFT_CODE", "NOISE_CODE", "SolverLib", "sde_modes",
            "noise_mode", "supports_fused", "check_supported",
            "check_tensors", "kernel_dims", "wgrad_partial_sizes",
-           "sum_wgrad_partials", "precomp_gk", "drift_weights",
+           "precomp_gk", "drift_weights",
            "drift_rows", "noise_rows", "noise_weights", "elem_base",
            "elem_deriv", "stage_times", "SDE_INT_NAMES", "SDE_SHAPE_NAMES",
            "is_net", "mode_codes", "SdeModes", "sde_mode", "check_mode",
-           "drift_input", "noise_base", "noise_back"]
+           "drift_input", "noise_base", "noise_back",
+           "member_count", "member_shapes", "member_args",
+           "stack_members", "select_member", "per_member",
+           "split_weight_grads"]
 
 PRECOMP_NO = {0, 1, 2, 3, 4, 5, 6, 11, 12, 13, 16, 17}
 ELEM_NO = {7, 8, 9, 10}
@@ -105,15 +115,76 @@ def check_tensors(label: str, want: dict, got: dict, device,
 
 
 def kernel_dims(label: str, y0, wout, w_inner, dts):
-    """(M, B, H, HH, n_inner) from the tensors that fix them; ValueError on
-    the wrong rank. Any width is taken here: the kernels place what does
+    """(M, B, H, HH, n_inner) from the tensors that fix them (a member's,
+    with a leading K axis on each but dts in a packed launch); ValueError
+    on the wrong rank. Any width is taken here: the kernels place what does
     not fit shared memory in device memory (`SolverLib.stream` raises where
     even that cannot launch)."""
-    if y0.ndim != 2 or wout.ndim != 2 or w_inner.ndim != 3 or dts.ndim != 1:
+    k = int(y0.ndim == 3)
+    if (y0.ndim not in (2, 3) or wout.ndim != 2 + k or w_inner.ndim != 3 + k
+            or dts.ndim != 1):
         raise ValueError(f"{label} kernel: y0 [B,H], wout [HH,H], w_inner "
-                         "[n_inner,HH,HH] and dts [M] expected")
-    B, H = y0.shape
-    return dts.shape[0], B, H, wout.shape[0], w_inner.shape[0]
+                         "[n_inner,HH,HH] (each with a leading member axis "
+                         "in a packed launch) and dts [M] expected")
+    B, H = y0.shape[k:]
+    return dts.shape[0], B, H, wout.shape[k], w_inner.shape[k]
+
+
+def member_count(y0) -> int:
+    """K of a packed launch (y0 [K, B, H]); 0 for a solo one (y0 [B, H])."""
+    return y0.shape[0] if y0.ndim == 3 else 0
+
+
+def member_shapes(want: dict, K: int) -> dict:
+    """The shapes of a packed launch's tensors: a member's with a leading
+    K, but for dts."""
+    return {n: s if n == "dts" else (K,) + s for n, s in want.items()}
+
+
+def member_args(args: dict, k: int) -> dict:
+    """Member k's tensors of a packed launch's (by name)."""
+    return {n: t if t is None or n == "dts" else t[k]
+            for n, t in args.items()}
+
+
+def stack_members(outs, axes=None):
+    """The members' results (each a tensor, None or a NamedTuple of them)
+    stacked along each field's member axis (`axes`: field -> axis, 0 where
+    not named)."""
+    first = outs[0]
+    if first is None:
+        return None
+    if isinstance(first, torch.Tensor):
+        return torch.stack(outs)
+    axes = axes or {}
+    return type(first)(*(
+        None if getattr(first, f) is None else
+        torch.stack([getattr(o, f) for o in outs], axes.get(f, 0))
+        for f in first._fields))
+
+
+def per_member(fn, names, args, K: int, axes=None, **kw):
+    """The plain version of a packed launch: fn on each member's tensors
+    (args by `names`; a NamedTuple keyword with a member axis its own
+    member's, by `axes`), the results stacked."""
+    outs = []
+    for k in range(K):
+        mk = member_args(dict(zip(names, args)), k)
+        kwk = {n: select_member(v, k, axes) if isinstance(v, tuple) else v
+               for n, v in kw.items()}
+        outs.append(fn(*mk.values(), **kwk))
+    if isinstance(outs[0], tuple) and not hasattr(outs[0], "_fields"):
+        return tuple(stack_members(list(o), axes) for o in zip(*outs))
+    return stack_members(outs, axes)
+
+
+def select_member(nt, k: int, axes=None):
+    """Member k's fields of a NamedTuple of a packed launch's tensors."""
+    if nt is None:
+        return None
+    axes = axes or {}
+    return type(nt)(*(None if t is None else t.select(axes.get(f, 0), k)
+                      for f, t in zip(nt._fields, nt)))
 
 
 _P = ctypes.c_void_p
@@ -247,39 +318,45 @@ def _n_nets(noise: str) -> int:
 def wgrad_partial_sizes(S: int, H: int, HH: int, n_inner: int,
                         drift: str = "embm", noise: str = "precomp"):
     """Floats of each weight's split partials in an SDE weight-gradient
-    kernel's output, in its order: Wy' [S, H+1, HH] (not in drift mode
-    'xt'), each W_l [S, HH+1, HH], Wout [S, HH+1, H], then the noise net's
-    Wn1 and (net2) Wn2 [S, H+1, H] (the last row of each the bias sum)."""
+    kernel's scratch a member, in its order: Wy' [S, H+1, HH] (not in drift
+    mode 'xt'), each W_l [S, HH+1, HH], Wout [S, HH+1, H], then the noise
+    net's Wn1 and (net2) Wn2 [S, H+1, H] (the last row of each the bias
+    sum); with S = 1 those of the summed output."""
     return ([S * (H + 1) * HH] * (drift != "xt")
             + [S * (HH + 1) * HH] * n_inner + [S * (HH + 1) * H]
             + [S * (H + 1) * H] * _n_nets(noise))
 
 
-def sum_wgrad_partials(p: torch.Tensor, S: int, H: int, HH: int,
-                       n_inner: int, drift: str = "embm",
-                       noise: str = "precomp"):
-    """The weight gradient from an SDE weight-gradient kernel's split
-    partials p (wgrad_partial_sizes), each weight's S splits summed in a
-    fixed order: (dWy', dW_inner, db_inner, dWout, dbo), dWy' None in drift
-    mode 'xt'; with a noise net also (dWn1, dWn2, dbn2), None where the net
-    has no such weight."""
-    sizes = wgrad_partial_sizes(S, H, HH, n_inner, drift, noise)
-    parts = [t.reshape(S, -1).sum(0) for t in torch.split(p, sizes)]
+def split_weight_grads(w: torch.Tensor, H: int, HH: int, n_inner: int,
+                       drift: str = "embm", noise: str = "precomp"):
+    """The weight gradient from an SDE weight-gradient launch's summed
+    output w [..., n] (wgrad_partial_sizes with S = 1, after any leading
+    member axis; the library sums each weight's split partials in a fixed
+    order): (dWy', dW_inner, db_inner, dWout, dbo), each with w's leading
+    axes, dWy' None in drift mode 'xt'; with a noise net also (dWn1, dWn2,
+    dbn2), None where the net has no such weight. Views and one stack."""
+    lead = tuple(w.shape[:-1])
+    parts = list(torch.split(w, wgrad_partial_sizes(1, H, HH, n_inner, drift,
+                                                    noise), dim=-1))
     nn = _n_nets(noise)
-    nets = [t.reshape(H + 1, H) for t in parts[len(parts) - nn:]]
+    nets = [t.reshape(*lead, H + 1, H) for t in parts[len(parts) - nn:]]
     parts = parts[:len(parts) - nn]
-    wy_ = parts.pop(0).reshape(H + 1, HH) if drift != "xt" else None
-    inner = [t.reshape(HH + 1, HH) for t in parts[:-1]]
-    wo_ = parts[-1].reshape(HH + 1, H)
-    dwi = (torch.stack([t[:HH] for t in inner]) if inner
-           else p.new_empty((0, HH, HH)))
-    dbi = (torch.stack([t[HH] for t in inner]) if inner
-           else p.new_empty((0, HH)))
-    out = (None if wy_ is None else wy_[:H], dwi, dbi, wo_[:HH], wo_[HH])
+    wy_ = parts.pop(0).reshape(*lead, H + 1, HH) if drift != "xt" else None
+    wo_ = parts.pop().reshape(*lead, HH + 1, H)
+    if parts:
+        inner = torch.stack([t.reshape(*lead, HH + 1, HH) for t in parts],
+                            dim=len(lead))
+        dwi, dbi = inner[..., :HH, :], inner[..., HH, :]
+    else:
+        dwi, dbi = (w.new_empty(lead + (0, HH, HH)),
+                    w.new_empty(lead + (0, HH)))
+    out = (None if wy_ is None else wy_[..., :H, :], dwi, dbi,
+           wo_[..., :HH, :], wo_[..., HH, :])
     if not nn:
         return out
-    return out + (nets[0][:H], nets[1][:H] if nn > 1 else None,
-                  nets[1][H] if nn > 1 else None)
+    return out + (nets[0][..., :H, :],
+                  nets[1][..., :H, :] if nn > 1 else None,
+                  nets[1][..., H, :] if nn > 1 else None)
 
 
 # ---------------------------------------------------------------------------
@@ -441,8 +518,8 @@ def stage_times(device, *tvs: np.ndarray) -> torch.Tensor:
 # the SDE libraries' ints of a launch, and of the shape their plans and
 # shared memory depend on
 SDE_INT_NAMES = ("M", "B", "H", "HH", "n_inner", "mult_y", "geometric",
-                 "drift", "noise", "elem")
-SDE_SHAPE_NAMES = ("B", "H", "HH", "n_inner", "drift", "noise")
+                 "drift", "noise", "elem", "members")
+SDE_SHAPE_NAMES = ("B", "H", "HH", "n_inner", "drift", "noise", "members")
 
 
 def is_net(noise: str) -> bool:
@@ -456,7 +533,7 @@ def mode_codes(drift: str, noise: str):
 class SdeModes(NamedTuple):
     """A launch's modes as the kernels and the plain versions take them:
     `flags` the plain versions' keywords (mult_y, geometric, drift, noise,
-    elem), `ints` the last five of SDE_INT_NAMES, `codes` (drift, noise) as
+    elem), `ints` SDE_INT_NAMES's five modes, `codes` (drift, noise) as
     the plans take them, and `need`: for each tensor the modes decide
     (a stage's xh0, a1, gk2 ... by its own name too), whether they take
     it."""

@@ -47,6 +47,7 @@ raise.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -57,10 +58,11 @@ from ..ops.solve import make_grid
 from ._solver import (SDE_INT_NAMES, SDE_SHAPE_NAMES, SdeModes, SolverLib,
                       check_mode, check_supported, check_tensors,
                       drift_input, drift_rows, drift_weights, is_net,
-                      kernel_dims, mode_codes, noise_back, noise_base,
-                      noise_rows, noise_weights, sde_mode, sde_modes,
-                      stage_times, sum_wgrad_partials, supports_fused,
-                      wgrad_partial_sizes)
+                      kernel_dims, member_count, member_shapes, mode_codes,
+                      noise_back, noise_base, noise_rows, noise_weights,
+                      per_member, sde_mode, sde_modes, select_member,
+                      split_weight_grads, stack_members,
+                      stage_times, supports_fused, wgrad_partial_sizes)
 
 __all__ = ["fused_em_solve", "fused_em_inputs", "supports_fused", "FusedEM",
            "fused_em_forward", "fused_em_backward",
@@ -72,10 +74,14 @@ __all__ = ["fused_em_solve", "fused_em_inputs", "supports_fused", "FusedEM",
            "EMStreams", "EMWeightGrads"]
 
 # launches of each CUDA kernel since the count was last set to 0: the
-# forward, the backward recurrence and the weight gradient
+# forward, the backward recurrence and the weight gradient, solo and (the
+# PACKED_ counts) with a member axis
 FWD_LAUNCHES = 0
 BWD_LAUNCHES = 0
 WGRAD_LAUNCHES = 0
+PACKED_FWD_LAUNCHES = 0
+PACKED_BWD_LAUNCHES = 0
+PACKED_WGRAD_LAUNCHES = 0
 
 
 class FusedEMGrads(NamedTuple):
@@ -397,21 +403,25 @@ def fused_em_weight_grads_reference(y0, ys, dxh, hs, es, dz3, q, dn=None,
 # ---------------------------------------------------------------------------
 
 # the library, built and loaded at first launch
-_LIB = SolverLib("fused_em", "fused EM", 18, 27, int_names=SDE_INT_NAMES,
-                 shape_names=SDE_SHAPE_NAMES, launches={"wgrad": 13},
-                 int_fns={"plan": 8, "force_placement": 1, "force_plan": 2,
+_LIB = SolverLib("fused_em", "fused EM", 18, 28, int_names=SDE_INT_NAMES,
+                 shape_names=SDE_SHAPE_NAMES, launches={"wgrad": 14},
+                 int_fns={"plan": 9, "force_placement": 1, "force_plan": 2,
                           "wgrad_splits": 7})
 _PLAN_FIELDS = ("level", "rows", "cluster", "active_clusters", "smem_bytes")
+# the member axis of a packed launch's streams (EMStreams; 0 where not named)
+_STREAM_AXES = {"hs": 1, "es": 1}
 
 
 def fused_em_plan(B: int, H: int, HH: int, n_inner: int, backward: bool,
-                  drift: str = "embm", noise: str = "precomp") -> dict:
-    """The CUDA library's plan of an EM launch: its level (0 the weight
-    slices in shared memory, 1 the weights read from device memory,
-    csrc/fused_em.cu), batch rows and CTAs a cluster,
+                  drift: str = "embm", noise: str = "precomp",
+                  members: int = 1) -> dict:
+    """The CUDA library's plan of an EM launch of `members` members: its
+    level (0 the weight slices in shared memory, 1 the weights read from
+    device memory, csrc/fused_em.cu), batch rows and CTAs a cluster,
     cudaOccupancyMaxActiveClusters (a negative CUDA error when the plan
     cannot be scheduled) and the shared bytes a CTA. Needs the card."""
-    shape = (B, H, HH, n_inner, *mode_codes(drift, noise), int(backward))
+    shape = (B, H, HH, n_inner, *mode_codes(drift, noise), members,
+             int(backward))
     return {name: _LIB.call("plan", *shape, i)
             for i, name in enumerate(_PLAN_FIELDS)}
 
@@ -426,106 +436,138 @@ def force_em_plan(cluster: int = 0, rows: int = 0) -> None:
     _LIB._kept.clear()
 
 
+@functools.lru_cache(maxsize=None)
+def _want(M, B, H, HH, n_inner) -> dict:
+    """A member's tensors' shapes (read-only)."""
+    return {"y0": (B, H), "xh": (M, B, HH), "dw": (M, B, H), "a": (M, HH),
+            "gk": (M, H), "dts": (M,), "theta": (1,), "wy": (H, HH),
+            "w_inner": (n_inner, HH, HH), "b_inner": (n_inner, HH),
+            "wout": (HH, H), "bo": (H,), "wn1": (H, H), "wn2": (H, H),
+            "bn2": (H,), "ys": (M, B, H), "gys": (M, B, H)}
+
+
+def _checked(y0, xh, dw, a, gk, dts, theta, wy, w_inner, b_inner, wout, bo,
+             wn1, wn2, bn2, ys, gys, modes):
+    """check_kernel_inputs's checks; (dims, K: 0 for a solo launch)."""
+    dims = kernel_dims("fused EM", y0, wout, w_inner, dts)
+    got = {"y0": y0, "xh": xh, "dw": dw, "a": a, "gk": gk, "dts": dts,
+           "theta": theta, "wy": wy, "w_inner": w_inner, "b_inner": b_inner,
+           "wout": wout, "bo": bo, "wn1": wn1, "wn2": wn2, "bn2": bn2,
+           "ys": ys, "gys": gys}
+    want = _want(*dims)
+    K = member_count(y0)
+    if K:
+        want = member_shapes(want, K)
+    check_tensors("fused EM", want, got, y0.device, modes)
+    return dims, K
+
+
 def check_kernel_inputs(y0, xh, dw, a, gk, dts, theta, wy, w_inner, b_inner,
                         wout, bo, wn1=None, wn2=None, bn2=None, ys=None,
                         gys=None, modes: Optional[SdeModes] = None):
     """Raise ValueError on what the kernels do not take: a dtype other
     than float32, tensors on different devices, a non-contiguous tensor,
-    or a shape that disagrees with y0/w_inner/wout/dts; with `modes`, a
-    tensor given that they do not take or missing where they need it (a
-    tensor the modes do not take is None). Every width is taken (the plan
-    splits the weights over a cluster or reads them from device memory).
-    Returns (M, B, H, HH, n_inner)."""
-    M, B, H, HH, n_inner = dims = kernel_dims("fused EM", y0, wout,
-                                              w_inner, dts)
-    want = {"y0": (B, H), "xh": (M, B, HH), "dw": (M, B, H), "a": (M, HH),
-            "gk": (M, H), "dts": (M,), "theta": (1,), "wy": (H, HH),
-            "w_inner": (n_inner, HH, HH), "b_inner": (n_inner, HH),
-            "wout": (HH, H), "bo": (H,), "wn1": (H, H), "wn2": (H, H),
-            "bn2": (H,), "ys": (M, B, H), "gys": (M, B, H)}
-    got = {"y0": y0, "xh": xh, "dw": dw, "a": a, "gk": gk, "dts": dts,
-           "theta": theta, "wy": wy, "w_inner": w_inner, "b_inner": b_inner,
-           "wout": wout, "bo": bo, "wn1": wn1, "wn2": wn2, "bn2": bn2,
-           "ys": ys, "gys": gys}
-    check_tensors("fused EM", want, got, y0.device, modes)
-    return dims
+    or a shape that disagrees with y0/w_inner/wout/dts (each but dts with a
+    leading member axis in a packed launch); with `modes`, a tensor given that they do not
+    take or missing where they need it (a tensor the modes do not take is
+    None). Every width is taken (the plan splits the weights over a
+    cluster or reads them from device memory). Returns (M, B, H, HH,
+    n_inner)."""
+    return _checked(y0, xh, dw, a, gk, dts, theta, wy, w_inner, b_inner,
+                    wout, bo, wn1, wn2, bn2, ys, gys, modes)[0]
 
 
 def _empty(*shape, device):
     return torch.empty(shape, dtype=torch.float32, device=device)
 
 
-def _launch_forward(dims, modes: SdeModes, tensors, stream):
+def _launch_forward(dims, modes: SdeModes, tensors, stream, K: int):
+    """K members (0: a solo launch, its outputs without the member axis)."""
     M, B, H, _, _ = dims
-    noise = modes.flags["noise"]
+    noise, m = modes.flags["noise"], (K,) if K else ()
     dev = tensors[0].device
-    ys = _empty(M, B, H, device=dev)
-    nb = _empty(M, B, H, device=dev) if is_net(noise) else None
-    nh = _empty(M, B, H, device=dev) if noise == "net2" else None
-    _LIB.launch("fwd", tuple(tensors) + (ys, nb, nh), dims + modes.ints,
-                stream)
+    ys = _empty(*m, M, B, H, device=dev)
+    nb = _empty(*m, M, B, H, device=dev) if is_net(noise) else None
+    nh = _empty(*m, M, B, H, device=dev) if noise == "net2" else None
+    _LIB.launch("fwd", tuple(tensors) + (ys, nb, nh),
+                dims + modes.ints + (max(K, 1),), stream)
     return ys, None if nb is None else EMNoise(nb, nh)
 
 
-def _launch_recurrence(dims, modes: SdeModes, tensors, ns,
-                       stream) -> EMStreams:
+def _launch_recurrence(dims, modes: SdeModes, tensors, ns, stream,
+                       K: int) -> EMStreams:
     M, B, H, HH, n_inner = dims
-    noise = modes.flags["noise"]
+    noise, m, Kn = modes.flags["noise"], (K,) if K else (), max(K, 1)
     dev = tensors[0].device
-    shape = (B, H, HH, n_inner, *modes.codes)
+    shape = (B, H, HH, n_inner, *modes.codes, Kn)
     ctas = -(-B // _LIB.rows(shape, backward=True)) * _LIB.kept(
         "plan", *shape, 1, 2)
-    dxh, dy0 = _empty(M, B, HH, device=dev), _empty(B, H, device=dev)
-    hs, es = (_empty(n_inner + 1, M, B, HH, device=dev),
-              _empty(n_inner, M, B, HH, device=dev))
-    dz3 = _empty(M, B, H, device=dev)
-    q = _empty(M, B, H, device=dev) if noise == "precomp" else None
-    dn = _empty(M, B, H, device=dev) if is_net(noise) else None
-    dz2 = _empty(M, B, H, device=dev) if noise == "net2" else None
-    p_th = _empty(ctas, device=dev)
+    dxh, dy0 = _empty(*m, M, B, HH, device=dev), _empty(*m, B, H, device=dev)
+    hs, es = (_empty(n_inner + 1, *m, M, B, HH, device=dev),
+              _empty(n_inner, *m, M, B, HH, device=dev))
+    per = lambda on: _empty(*m, M, B, H, device=dev) if on else None
+    dz3, q = per(True), per(noise == "precomp")
+    dn, dz2 = per(is_net(noise)), per(noise == "net2")
+    p_th, dth = _empty(Kn * ctas, device=dev), _empty(*m, 1, device=dev)
     nb, nh = ns if ns is not None else (None, None)
     _LIB.launch("bwd", tuple(tensors) + (nb, nh, dxh, dy0, hs, es, dz3, q,
-                                         dn, dz2, p_th),
-                dims + modes.ints, stream)
-    return EMStreams(dy0, p_th.sum(0, keepdim=True), dxh, hs, es, dz3, q, dn,
-                     dz2)
+                                         dn, dz2, p_th, dth),
+                dims + modes.ints + (Kn,), stream)
+    return EMStreams(dy0, dth, dxh, hs, es, dz3, q, dn, dz2)
 
 
 def _launch_weight_grads(y0, ys, st: EMStreams, nh, modes: SdeModes,
-                         stream) -> EMWeightGrads:
-    M, B, HH = st.dxh.shape
-    H, n_inner = y0.shape[1], st.es.shape[0]
+                         stream, K: int) -> EMWeightGrads:
+    """From a packed launch's streams (K members), or a solo one's (K 0)."""
+    M, B, HH = st.dxh.shape[-3:]
+    H, n_inner, m = y0.shape[-1], st.es.shape[0], (K,) if K else ()
     drift, noise = modes.flags["drift"], modes.flags["noise"]
     S = _LIB.kept("wgrad_splits", M, B, H, HH, n_inner, *modes.codes)
-    p = _empty(sum(wgrad_partial_sizes(S, H, HH, n_inner, drift, noise)),
-               device=y0.device)
-    da = _empty(M, HH, device=y0.device) if drift != "xt" else None
-    dgk = _empty(M, H, device=y0.device) if noise != "elem" else None
+    size = lambda s: sum(wgrad_partial_sizes(s, H, HH, n_inner, drift, noise))
+    p = _empty(max(K, 1), size(S), device=y0.device)
+    w = _empty(*m, size(1), device=y0.device)
+    da = _empty(*m, M, HH, device=y0.device) if drift != "xt" else None
+    dgk = _empty(*m, M, H, device=y0.device) if noise != "elem" else None
     _LIB.launch("wgrad", (y0, ys, st.dxh, st.hs, st.es, st.dz3, st.q, st.dn,
-                          st.dz2, nh, p, da, dgk),
-                (M, B, H, HH, n_inner) + modes.ints, stream)
-    w = sum_wgrad_partials(p, S, H, HH, n_inner, drift, noise)
-    return EMWeightGrads(*w[:5], da, dgk, *w[5:])
+                          st.dz2, nh, p, w, da, dgk),
+                (M, B, H, HH, n_inner) + modes.ints + (max(K, 1),), stream)
+    g = split_weight_grads(w, H, HH, n_inner, drift, noise)
+    return EMWeightGrads(*g[:5], da, dgk, *g[5:])
+
+
+_FWD_NAMES = ("y0", "xh", "dw", "a", "gk", "dts", "theta", "wy", "w_inner",
+              "b_inner", "wout", "bo", "wn1", "wn2", "bn2")
+_BWD_NAMES = ("y0", "ys", "gys") + _FWD_NAMES[1:]
 
 
 def fused_em_forward(y0, xh, dw, a, gk, dts, theta, wy, w_inner, b_inner,
                      wout, bo, wn1=None, wn2=None, bn2=None, *,
                      mult_y: bool, geometric: bool, drift: str = "embm",
                      noise: str = "precomp", elem: int = 0):
-    """(ys [M, B, H], EMNoise in the nets' modes else None): the CUDA
-    forward kernel for CUDA tensors, the plain version for CPU tensors."""
-    global FWD_LAUNCHES
+    """(ys [M, B, H], EMNoise in the nets' modes else None), each with a
+    leading member axis in a packed launch (y0 [K, B, H]): the CUDA forward
+    kernel for CUDA tensors, the plain version for CPU tensors (member by
+    member in a packed launch)."""
+    global FWD_LAUNCHES, PACKED_FWD_LAUNCHES
     modes = sde_mode(mult_y, geometric, drift, noise, elem)
     args = (y0, xh, dw, a, gk, dts, theta, wy, w_inner, b_inner, wout, bo,
             wn1, wn2, bn2)
     if y0.device.type == "cpu":
         check_mode("fused EM", modes, xh=xh, a=a, gk=gk, wy=wy, wn1=wn1,
                    wn2=wn2, bn2=bn2)
+        K = member_count(y0)
+        if K:
+            return per_member(fused_em_forward_reference, _FWD_NAMES, args,
+                              K, **modes.flags)
         return fused_em_forward_reference(*args, **modes.flags)
-    dims = check_kernel_inputs(*args, modes=modes)
-    stream = _LIB.stream(y0, dims[1:] + modes.codes, backward=False)
-    out = _launch_forward(dims, modes, args, stream)
-    FWD_LAUNCHES += 1
+    dims, K = _checked(*args, None, None, modes)
+    stream = _LIB.stream(y0, dims[1:] + modes.codes + (max(K, 1),),
+                         backward=False)
+    out = _launch_forward(dims, modes, args, stream, K)
+    if K:
+        PACKED_FWD_LAUNCHES += 1
+    else:
+        FWD_LAUNCHES += 1
     return out
 
 
@@ -535,31 +577,40 @@ def fused_em_backward_recurrence(y0, ys, gys, xh, dw, a, gk, dts, theta, wy,
                                  geometric: bool, drift: str = "embm",
                                  noise: str = "precomp", elem: int = 0,
                                  ns: Optional[EMNoise] = None) -> EMStreams:
-    """The reverse loop given gys = dL/dys (EMStreams): the CUDA backward
-    recurrence kernel for CUDA tensors (d theta's per-CTA partials summed
-    here), the plain version for CPU tensors."""
-    global BWD_LAUNCHES
+    """The reverse loop given gys = dL/dys (EMStreams; in a packed launch
+    each with a member axis: the first, or hs's and es's second): the CUDA
+    backward recurrence kernel for CUDA tensors (d theta's per-CTA
+    partials summed in the library), the plain version for CPU tensors."""
+    global BWD_LAUNCHES, PACKED_BWD_LAUNCHES
     modes = sde_mode(mult_y, geometric, drift, noise, elem)
     args = (y0, ys, gys, xh, dw, a, gk, dts, theta, wy, w_inner, b_inner,
             wout, bo, wn1, wn2, bn2)
     if y0.device.type == "cpu":
         check_mode("fused EM", modes, xh=xh, a=a, gk=gk, wy=wy, wn1=wn1,
                    wn2=wn2, bn2=bn2)
+        K = member_count(y0)
+        if K:
+            return per_member(fused_em_backward_recurrence_reference,
+                              _BWD_NAMES, args, K, _STREAM_AXES, ns=ns,
+                              **modes.flags)
         return fused_em_backward_recurrence_reference(*args, **modes.flags,
                                                       ns=ns)
     if is_net(noise) and ns is None:
         raise ValueError("the noise nets' backward takes the forward's "
                          "EMNoise (ns=)")
-    dims = check_kernel_inputs(y0, xh, dw, a, gk, dts, theta, wy, w_inner,
-                               b_inner, wout, bo, wn1, wn2, bn2, ys=ys,
-                               gys=gys, modes=modes)
+    dims, K = _checked(y0, xh, dw, a, gk, dts, theta, wy, w_inner, b_inner,
+                       wout, bo, wn1, wn2, bn2, ys, gys, modes)
     if ns is not None:
         check_tensors("fused EM", {"nb": tuple(ys.shape),
                                    "nh": tuple(ys.shape)},
                       ns._asdict(), y0.device)
-    stream = _LIB.stream(y0, dims[1:] + modes.codes, backward=True)
-    st = _launch_recurrence(dims, modes, args[:16], ns, stream)
-    BWD_LAUNCHES += 1
+    stream = _LIB.stream(y0, dims[1:] + modes.codes + (max(K, 1),),
+                         backward=True)
+    st = _launch_recurrence(dims, modes, args[:16], ns, stream, K)
+    if K:
+        PACKED_BWD_LAUNCHES += 1
+    else:
+        BWD_LAUNCHES += 1
     return st
 
 
@@ -567,23 +618,30 @@ def fused_em_weight_grads(y0, ys, st: EMStreams, nh=None, *,
                           drift: str = "embm",
                           noise: str = "precomp") -> EMWeightGrads:
     """The weight, bias and per-step gradients from the recurrence's
-    streams (EMWeightGrads; nh: net2's hidden activations from the
-    forward): the CUDA weight-gradient kernel for CUDA tensors (its split
-    partials summed here, in a fixed order), the plain version for CPU
-    tensors."""
-    global WGRAD_LAUNCHES
+    streams (EMWeightGrads, each with a leading member axis in a packed
+    launch; nh: net2's hidden activations from the forward): the CUDA
+    weight-gradient kernel for CUDA tensors (its split partials summed in
+    the library, in a fixed order), the plain version for CPU tensors."""
+    global WGRAD_LAUNCHES, PACKED_WGRAD_LAUNCHES
     # the weight gradient reads no flag but the modes (any elem option)
     modes = sde_mode(False, False, drift, noise, 7)
+    K = member_count(y0)
     if y0.device.type == "cpu":
+        if K:
+            return stack_members([fused_em_weight_grads(
+                y0[k], ys[k], select_member(st, k, _STREAM_AXES),
+                None if nh is None else nh[k], drift=drift, noise=noise)
+                for k in range(K)])
         return fused_em_weight_grads_reference(
             y0, ys, st.dxh, st.hs, st.es, st.dz3, st.q, st.dn, st.dz2, nh,
             drift=drift, noise=noise)
-    M, B, H = st.dz3.shape
-    HH, n_inner = st.dxh.shape[2], st.es.shape[0]
-    s3 = (M, B, H)
-    want = {"y0": (B, H), "ys": s3, "dxh": (M, B, HH),
-            "hs": (n_inner + 1, M, B, HH), "es": (n_inner, M, B, HH),
-            "dz3": s3, "q": s3, "dn": s3, "dz2": s3, "nh": s3}
+    M, B, H = st.dz3.shape[-3:]
+    HH, n_inner = st.dxh.shape[-1], st.es.shape[0]
+    s3, m = (M, B, H), (K,) if K else ()
+    want = {"y0": m + (B, H), "ys": m + s3, "dxh": m + (M, B, HH),
+            "hs": (n_inner + 1,) + m + (M, B, HH),
+            "es": (n_inner,) + m + (M, B, HH), "dz3": m + s3, "q": m + s3,
+            "dn": m + s3, "dz2": m + s3, "nh": m + s3}
     check_tensors("fused EM", want, {"y0": y0, "ys": ys, "dxh": st.dxh,
                                      "hs": st.hs, "es": st.es,
                                      "dz3": st.dz3, "q": st.q, "dn": st.dn,
@@ -593,10 +651,13 @@ def fused_em_weight_grads(y0, ys, st: EMStreams, nh=None, *,
             or (noise == "net2") != (st.dz2 is not None and nh is not None)):
         raise ValueError(f"fused EM weight gradient ({noise}): the streams "
                          f"are not the mode's")
-    stream = _LIB.stream(y0, (B, H, HH, n_inner) + modes.codes,
+    stream = _LIB.stream(y0, (B, H, HH, n_inner) + modes.codes + (max(K, 1),),
                          backward=True)
-    out = _launch_weight_grads(y0, ys, st, nh, modes, stream)
-    WGRAD_LAUNCHES += 1
+    out = _launch_weight_grads(y0, ys, st, nh, modes, stream, K)
+    if K:
+        PACKED_WGRAD_LAUNCHES += 1
+    else:
+        WGRAD_LAUNCHES += 1
     return out
 
 
@@ -606,9 +667,9 @@ def fused_em_backward(y0, ys, gys, xh, dw, a, gk, dts, theta, wy, w_inner,
                       noise: str = "precomp", elem: int = 0,
                       ns: Optional[EMNoise] = None):
     """Cotangents of the solve's inputs given gys = dL/dys (FusedEMGrads,
-    FusedEMNetGrads in the nets' modes): for CUDA tensors the backward
-    recurrence kernel, then the weight-gradient kernel; for CPU tensors
-    the plain reverse loop."""
+    FusedEMNetGrads in the nets' modes; in a packed launch each member's
+    along a leading axis): for CUDA tensors the backward recurrence kernel, then the
+    weight-gradient kernel; for CPU tensors the plain reverse loop."""
     modes = dict(mult_y=mult_y, geometric=geometric, drift=drift,
                  noise=noise, elem=elem)
     args = (y0, ys, gys, xh, dw, a, gk, dts, theta, wy, w_inner, b_inner,
@@ -616,19 +677,21 @@ def fused_em_backward(y0, ys, gys, xh, dw, a, gk, dts, theta, wy, w_inner,
     if y0.device.type == "cpu":
         check_mode("fused EM", sde_mode(**modes), xh=xh, a=a, gk=gk, wy=wy,
                    wn1=wn1, wn2=wn2, bn2=bn2)
-        return fused_em_backward_reference(*args, **modes, ns=ns)
+        K = member_count(y0)
+        if not K:
+            return fused_em_backward_reference(*args, **modes, ns=ns)
+        return per_member(fused_em_backward_reference, _BWD_NAMES, args, K,
+                          ns=ns, **modes)
     st = fused_em_backward_recurrence(*args, **modes, ns=ns)
     w = fused_em_weight_grads(y0, ys, st, None if ns is None else ns.nh,
                               drift=drift, noise=noise)
-    out = (st.dy0, None if drift == "yy" else st.dxh, w.da, w.dgk, st.dtheta,
-           w.dwy, w.dw_inner, w.db_inner, w.dwout, w.dbo)
-    if is_net(noise):
-        return FusedEMNetGrads(*out, w.dwn1, w.dwn2, w.dbn2)
-    return FusedEMGrads(*out)
+    out = (st.dy0, None if drift == "yy" else st.dxh, w.da, w.dgk,
+           st.dtheta, w.dwy, w.dw_inner, w.db_inner, w.dwout, w.dbo)
+    return (FusedEMNetGrads(*out, w.dwn1, w.dwn2, w.dbn2) if is_net(noise)
+            else FusedEMGrads(*out))
 
 
-_ARG_ORDER = ("y0", "xh", "dw", "a", "gk", "dts", "theta", "wy", "w_inner",
-              "b_inner", "wout", "bo", "wn1", "wn2", "bn2")
+_ARG_ORDER = _FWD_NAMES
 _MODE_KEYS = ("mult_y", "geometric", "drift", "noise", "elem")
 
 
@@ -639,7 +702,8 @@ class FusedEM(torch.autograd.Function):
     (not differentiated), a [M,HH], gk [M,H] (the an1 rows in the nets'
     modes), dts [M] (not differentiated), theta [1], wy [H,HH],
     w_inner [n_inner,HH,HH], b_inner [n_inner,HH], wout [HH,H], bo [H],
-    wn1 [H,H], wn2 [H,H], bn2 [H]."""
+    wn1 [H,H], wn2 [H,H], bn2 [H]; in a packed solve of K members each but
+    dts with a leading K axis, and ys [K, M, B, H]."""
 
     @staticmethod
     def forward(ctx, modes, *tensors):

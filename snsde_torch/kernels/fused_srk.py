@@ -49,6 +49,7 @@ raise.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -59,10 +60,11 @@ from ..ops.solve import make_grid
 from ._solver import (SDE_INT_NAMES, SDE_SHAPE_NAMES, SdeModes, SolverLib,
                       check_mode, check_supported, check_tensors,
                       drift_input, drift_rows, drift_weights, is_net,
-                      kernel_dims, mode_codes, noise_back, noise_base,
-                      noise_rows, noise_weights, sde_mode, sde_modes,
-                      stage_times, sum_wgrad_partials, supports_fused,
-                      wgrad_partial_sizes)
+                      kernel_dims, member_count, member_shapes, mode_codes,
+                      noise_back, noise_base, noise_rows, noise_weights,
+                      per_member, sde_mode, sde_modes, select_member,
+                      split_weight_grads, stack_members,
+                      stage_times, supports_fused, wgrad_partial_sizes)
 
 __all__ = ["fused_srk_solve", "fused_srk_inputs", "supports_fused_srk",
            "FusedSRK", "fused_srk_forward", "fused_srk_backward",
@@ -74,10 +76,14 @@ __all__ = ["fused_srk_solve", "fused_srk_inputs", "supports_fused_srk",
            "SRKNoise", "SRKStreams", "SRKWeightGrads", "check_kernel_inputs"]
 
 # launches of each CUDA kernel since the count was last set to 0: the
-# forward, the backward recurrence and the weight gradient
+# forward, the backward recurrence and the weight gradient, solo and (the
+# PACKED_ counts) with a member axis
 FWD_LAUNCHES = 0
 BWD_LAUNCHES = 0
 WGRAD_LAUNCHES = 0
+PACKED_FWD_LAUNCHES = 0
+PACKED_BWD_LAUNCHES = 0
+PACKED_WGRAD_LAUNCHES = 0
 
 # the SRIW1 y-update weights (snsde/kernels/fused_srk.py:63-67)
 _ALPHA0, _ALPHA1 = 1.0 / 3.0, 2.0 / 3.0
@@ -590,21 +596,28 @@ def fused_srk_weight_grads_reference(y0, ys, h01, dxh, hs, es, dz3, q,
 # ---------------------------------------------------------------------------
 
 # the library, built and loaded at first launch
-_LIB = SolverLib("fused_srk", "fused SRK", 24, 34, int_names=SDE_INT_NAMES,
-                 shape_names=SDE_SHAPE_NAMES, launches={"wgrad": 15},
-                 int_fns={"plan": 8, "force_placement": 1, "force_plan": 2,
+_LIB = SolverLib("fused_srk", "fused SRK", 24, 35, int_names=SDE_INT_NAMES,
+                 shape_names=SDE_SHAPE_NAMES, launches={"wgrad": 16},
+                 int_fns={"plan": 9, "force_placement": 1, "force_plan": 2,
                           "wgrad_splits": 7})
 _PLAN_FIELDS = ("level", "rows", "cluster", "active_clusters", "smem_bytes")
+# the member axis of a packed launch's streams (SRKStreams, SRKNoise; 0
+# where not named): an evaluation's or stage's stream holds every member's
+# steps ([E, K, M, B, ...])
+_STREAM_AXES = {"dxh": 1, "hs": 2, "es": 2, "dz3": 1, "q": 1, "dn": 1,
+                "dz2": 1, "nst": 1, "nb": 1, "nh": 1}
 
 
 def fused_srk_plan(B: int, H: int, HH: int, n_inner: int, backward: bool,
-                   drift: str = "embm", noise: str = "precomp") -> dict:
-    """The CUDA library's plan of an SRK launch: its level (0 the weight
-    slices in shared memory, 1 the weights read from device memory,
-    csrc/sde_hopper.cuh), batch rows and CTAs a cluster,
+                   drift: str = "embm", noise: str = "precomp",
+                   members: int = 1) -> dict:
+    """The CUDA library's plan of an SRK launch of `members` members: its
+    level (0 the weight slices in shared memory, 1 the weights read from
+    device memory, csrc/sde_hopper.cuh), batch rows and CTAs a cluster,
     cudaOccupancyMaxActiveClusters (a negative CUDA error when the plan
     cannot be scheduled) and the shared bytes a CTA. Needs the card."""
-    shape = (B, H, HH, n_inner, *mode_codes(drift, noise), int(backward))
+    shape = (B, H, HH, n_inner, *mode_codes(drift, noise), members,
+             int(backward))
     return {name: _LIB.call("plan", *shape, i)
             for i, name in enumerate(_PLAN_FIELDS)}
 
@@ -619,33 +632,50 @@ def force_srk_plan(cluster: int = 0, rows: int = 0) -> None:
     _LIB._kept.clear()
 
 
+@functools.lru_cache(maxsize=None)
+def _want(M, B, H, HH, n_inner) -> dict:
+    """A member's tensors' shapes (read-only)."""
+    s3, s3h, row, rowh = (M, B, H), (M, B, HH), (M, H), (M, HH)
+    return {"y0": (B, H), "xh0": s3h, "xh1": s3h, "dw": s3, "i10": s3,
+            "a0": rowh, "a1": rowh, "gk0": row, "gk1": row, "gk2": row,
+            "dts": (M,), "theta": (1,), "wy": (H, HH),
+            "w_inner": (n_inner, HH, HH), "b_inner": (n_inner, HH),
+            "wout": (HH, H), "bo": (H,), "wn1": (H, H), "wn2": (H, H),
+            "bn2": (H,), "ys": s3, "gys": s3}
+
+
+def _checked(y0, xh0, xh1, dw, i10, a0, a1, gk0, gk1, gk2, dts, theta, wy,
+             w_inner, b_inner, wout, bo, wn1, wn2, bn2, ys, gys, modes):
+    """check_kernel_inputs's checks; (dims, K: 0 for a solo launch)."""
+    dims = kernel_dims("fused SRK", y0, wout, w_inner, dts)
+    got = {"y0": y0, "xh0": xh0, "xh1": xh1, "dw": dw, "i10": i10, "a0": a0,
+           "a1": a1, "gk0": gk0, "gk1": gk1, "gk2": gk2, "dts": dts,
+           "theta": theta, "wy": wy, "w_inner": w_inner, "b_inner": b_inner,
+           "wout": wout, "bo": bo, "wn1": wn1, "wn2": wn2, "bn2": bn2,
+           "ys": ys, "gys": gys}
+    want = _want(*dims)
+    K = member_count(y0)
+    if K:
+        want = member_shapes(want, K)
+    check_tensors("fused SRK", want, got, y0.device, modes)
+    return dims, K
+
+
 def check_kernel_inputs(y0, xh0, xh1, dw, i10, a0, a1, gk0, gk1, gk2, dts,
                         theta, wy, w_inner, b_inner, wout, bo, wn1=None,
                         wn2=None, bn2=None, ys=None, gys=None,
                         modes: Optional[SdeModes] = None):
     """Raise ValueError on what the kernels do not take: a dtype other
     than float32, tensors on different devices, a non-contiguous tensor,
-    or a shape that disagrees with y0/w_inner/wout/dts; with `modes`, a
-    tensor given that they do not take or missing where they need it (a
-    tensor the modes do not take is None). Every width is taken (the plan
-    splits the weights over a cluster or reads them from device memory).
-    Returns (M, B, H, HH, n_inner)."""
-    M, B, H, HH, n_inner = dims = kernel_dims("fused SRK", y0, wout,
-                                              w_inner, dts)
-    s3, s3h, row, rowh = (M, B, H), (M, B, HH), (M, H), (M, HH)
-    want = {"y0": (B, H), "xh0": s3h, "xh1": s3h, "dw": s3, "i10": s3,
-            "a0": rowh, "a1": rowh, "gk0": row, "gk1": row, "gk2": row,
-            "dts": (M,), "theta": (1,), "wy": (H, HH),
-            "w_inner": (n_inner, HH, HH), "b_inner": (n_inner, HH),
-            "wout": (HH, H), "bo": (H,), "wn1": (H, H), "wn2": (H, H),
-            "bn2": (H,), "ys": s3, "gys": s3}
-    got = {"y0": y0, "xh0": xh0, "xh1": xh1, "dw": dw, "i10": i10, "a0": a0,
-           "a1": a1, "gk0": gk0, "gk1": gk1, "gk2": gk2, "dts": dts,
-           "theta": theta, "wy": wy, "w_inner": w_inner, "b_inner": b_inner,
-           "wout": wout, "bo": bo, "wn1": wn1, "wn2": wn2, "bn2": bn2,
-           "ys": ys, "gys": gys}
-    check_tensors("fused SRK", want, got, y0.device, modes)
-    return dims
+    or a shape that disagrees with y0/w_inner/wout/dts (each but dts with a
+    leading member axis in a packed launch); with `modes`, a tensor given
+    that they do not take or missing where they need it (a tensor the modes do not
+    take is None). Every width is taken (the plan splits the weights over a
+    cluster or reads them from device memory). Returns (M, B, H, HH,
+    n_inner)."""
+    return _checked(y0, xh0, xh1, dw, i10, a0, a1, gk0, gk1, gk2, dts, theta,
+                    wy, w_inner, b_inner, wout, bo, wn1, wn2, bn2, ys, gys,
+                    modes)[0]
 
 
 def _check_srk_mode(modes, xh0, xh1, a0, a1, gks, wy, wn1, wn2, bn2):
@@ -658,66 +688,79 @@ def _empty(*shape, device):
     return torch.empty(shape, dtype=torch.float32, device=device)
 
 
-def _launch_forward(dims, modes: SdeModes, tensors, stream):
+def _launch_forward(dims, modes: SdeModes, tensors, stream, K: int):
+    """K members (0: a solo launch, its outputs without the member axis)."""
     M, B, H, _, _ = dims
-    noise = modes.flags["noise"]
+    noise, m = modes.flags["noise"], (K,) if K else ()
     dev = tensors[0].device
-    ys = _empty(M, B, H, device=dev)
+    ys = _empty(*m, M, B, H, device=dev)
     ns = None
     if is_net(noise):
-        ns = SRKNoise(_empty(3, M, B, H, device=dev),
-                      _empty(4, M, B, H, device=dev),
-                      _empty(4, M, B, H, device=dev) if noise == "net2"
+        ns = SRKNoise(_empty(3, *m, M, B, H, device=dev),
+                      _empty(4, *m, M, B, H, device=dev),
+                      _empty(4, *m, M, B, H, device=dev) if noise == "net2"
                       else None)
     _LIB.launch("fwd", tuple(tensors) + (ys,) + (
         tuple(ns) if ns is not None else (None, None, None)),
-        dims + modes.ints, stream)
+        dims + modes.ints + (max(K, 1),), stream)
     return ys, ns
 
 
-def _launch_recurrence(dims, modes: SdeModes, tensors, ns,
-                       stream) -> SRKStreams:
+def _launch_recurrence(dims, modes: SdeModes, tensors, ns, stream,
+                       K: int) -> SRKStreams:
     M, B, H, HH, n_inner = dims
-    noise = modes.flags["noise"]
+    noise, m, Kn = modes.flags["noise"], (K,) if K else (), max(K, 1)
     dev = tensors[0].device
-    shape = (B, H, HH, n_inner, *modes.codes)
+    shape = (B, H, HH, n_inner, *modes.codes, Kn)
     ctas = -(-B // _LIB.rows(shape, backward=True)) * _LIB.kept(
         "plan", *shape, 1, 2)
-    dxh, dy0 = _empty(2, M, B, HH, device=dev), _empty(B, H, device=dev)
-    hs, es = (_empty(n_inner + 1, 2, M, B, HH, device=dev),
-              _empty(n_inner, 2, M, B, HH, device=dev))
-    dz3 = _empty(2, M, B, H, device=dev)
-    q = _empty(3, M, B, H, device=dev) if noise == "precomp" else None
-    dn = _empty(4, M, B, H, device=dev) if is_net(noise) else None
-    dz2 = _empty(4, M, B, H, device=dev) if noise == "net2" else None
-    h01, p_th = _empty(M, B, H, device=dev), _empty(ctas, device=dev)
+    dxh, dy0 = (_empty(2, *m, M, B, HH, device=dev),
+                _empty(*m, B, H, device=dev))
+    hs, es = (_empty(n_inner + 1, 2, *m, M, B, HH, device=dev),
+              _empty(n_inner, 2, *m, M, B, HH, device=dev))
+    dz3 = _empty(2, *m, M, B, H, device=dev)
+    q = _empty(3, *m, M, B, H, device=dev) if noise == "precomp" else None
+    dn = _empty(4, *m, M, B, H, device=dev) if is_net(noise) else None
+    dz2 = _empty(4, *m, M, B, H, device=dev) if noise == "net2" else None
+    h01 = _empty(*m, M, B, H, device=dev)
+    p_th, dth = _empty(Kn * ctas, device=dev), _empty(*m, 1, device=dev)
     saved = tuple(ns) if ns is not None else (None, None, None)
     _LIB.launch("bwd", tuple(tensors) + saved + (dxh, dy0, hs, es, dz3, q,
-                                                 h01, dn, dz2, p_th),
-                dims + modes.ints, stream)
-    return SRKStreams(dy0, p_th.sum(0, keepdim=True), dxh, hs, es, dz3, h01,
-                      q, dn, dz2)
+                                                 h01, dn, dz2, p_th, dth),
+                dims + modes.ints + (Kn,), stream)
+    return SRKStreams(dy0, dth, dxh, hs, es, dz3, h01, q, dn, dz2)
 
 
 def _launch_weight_grads(y0, ys, st: SRKStreams, ns, modes: SdeModes,
-                         stream) -> SRKWeightGrads:
-    _, M, B, HH = st.dxh.shape
-    H, n_inner = y0.shape[1], st.es.shape[0]
+                         stream, K: int) -> SRKWeightGrads:
+    """From a packed launch's streams (K members), or a solo one's (K 0)."""
+    M, B, HH = st.dxh.shape[-3:]
+    H, n_inner, m = y0.shape[-1], st.es.shape[0], (K,) if K else ()
     drift, noise = modes.flags["drift"], modes.flags["noise"]
     S = _LIB.kept("wgrad_splits", M, B, H, HH, n_inner, *modes.codes)
-    p = _empty(sum(wgrad_partial_sizes(S, H, HH, n_inner, drift, noise)),
-               device=y0.device)
-    da = _empty(2, M, HH, device=y0.device) if drift != "xt" else None
-    dgk = (_empty(3, M, H, device=y0.device) if noise == "precomp" else
-           _empty(4, M, H, device=y0.device) if is_net(noise) else None)
+    size = lambda s: sum(wgrad_partial_sizes(s, H, HH, n_inner, drift, noise))
+    p = _empty(max(K, 1), size(S), device=y0.device)
+    w = _empty(*m, size(1), device=y0.device)
+    da = _empty(*m, 2, M, HH, device=y0.device) if drift != "xt" else None
+    dgk = (_empty(*m, 3, M, H, device=y0.device) if noise == "precomp" else
+           _empty(*m, 4, M, H, device=y0.device) if is_net(noise) else None)
     nst, nh = (ns.nst, ns.nh) if ns is not None else (None, None)
     _LIB.launch("wgrad", (y0, ys, st.h01, st.dxh, st.hs, st.es, st.dz3,
-                          st.q, nst, st.dn, nh, st.dz2, p, da, dgk),
-                (M, B, H, HH, n_inner) + modes.ints, stream)
+                          st.q, nst, st.dn, nh, st.dz2, p, w, da, dgk),
+                (M, B, H, HH, n_inner) + modes.ints + (max(K, 1),), stream)
     if is_net(noise):     # the an1 rows' cotangents: stages 1 and 3 summed
-        dgk = torch.stack([dgk[0], dgk[1] + dgk[3], dgk[2]])
-    w = sum_wgrad_partials(p, S, H, HH, n_inner, drift, noise)
-    return SRKWeightGrads(*w[:5], da, dgk, *w[5:])
+        e = len(m)
+        dgk = torch.stack([dgk.select(e, 0),
+                           dgk.select(e, 1) + dgk.select(e, 3),
+                           dgk.select(e, 2)], e)
+    g = split_weight_grads(w, H, HH, n_inner, drift, noise)
+    return SRKWeightGrads(*g[:5], da, dgk, *g[5:])
+
+
+_FWD_NAMES = ("y0", "xh0", "xh1", "dw", "i10", "a0", "a1", "gk0", "gk1",
+              "gk2", "dts", "theta", "wy", "w_inner", "b_inner", "wout", "bo",
+              "wn1", "wn2", "bn2")
+_BWD_NAMES = ("y0", "ys", "gys") + _FWD_NAMES[1:]
 
 
 def fused_srk_forward(y0, xh0, xh1, dw, i10, a0, a1, gk0, gk1, gk2, dts,
@@ -725,20 +768,30 @@ def fused_srk_forward(y0, xh0, xh1, dw, i10, a0, a1, gk0, gk1, gk2, dts,
                       wn2=None, bn2=None, *, mult_y: bool, geometric: bool,
                       drift: str = "embm", noise: str = "precomp",
                       elem: int = 0):
-    """(ys [M, B, H], SRKNoise in the nets' modes else None): the CUDA
-    forward kernel for CUDA tensors, the plain version for CPU tensors."""
-    global FWD_LAUNCHES
+    """(ys [M, B, H], SRKNoise in the nets' modes else None), with a member
+    axis in a packed launch (y0 [K, B, H]; ys [K, M, B, H], SRKNoise's
+    second axis): the CUDA forward kernel for CUDA tensors, the plain
+    version for CPU tensors (member by member in a packed launch)."""
+    global FWD_LAUNCHES, PACKED_FWD_LAUNCHES
     modes = sde_mode(mult_y, geometric, drift, noise, elem)
     args = (y0, xh0, xh1, dw, i10, a0, a1, gk0, gk1, gk2, dts, theta, wy,
             w_inner, b_inner, wout, bo, wn1, wn2, bn2)
     if y0.device.type == "cpu":
         _check_srk_mode(modes, xh0, xh1, a0, a1, (gk0, gk1, gk2), wy, wn1,
                         wn2, bn2)
+        K = member_count(y0)
+        if K:
+            return per_member(fused_srk_forward_reference, _FWD_NAMES, args,
+                              K, _STREAM_AXES, **modes.flags)
         return fused_srk_forward_reference(*args, **modes.flags)
-    dims = check_kernel_inputs(*args, modes=modes)
-    stream = _LIB.stream(y0, dims[1:] + modes.codes, backward=False)
-    out = _launch_forward(dims, modes, args, stream)
-    FWD_LAUNCHES += 1
+    dims, K = _checked(*args, None, None, modes)
+    stream = _LIB.stream(y0, dims[1:] + modes.codes + (max(K, 1),),
+                         backward=False)
+    out = _launch_forward(dims, modes, args, stream, K)
+    if K:
+        PACKED_FWD_LAUNCHES += 1
+    else:
+        FWD_LAUNCHES += 1
     return out
 
 
@@ -748,9 +801,10 @@ def _check_ns(ns, ys, noise, device):
     if ns is None:
         raise ValueError("the noise nets' backward takes the forward's "
                          "SRKNoise (ns=)")
-    M, B, H = ys.shape
-    check_tensors("fused SRK", {"nst": (3, M, B, H), "nb": (4, M, B, H),
-                                "nh": (4, M, B, H)}, ns._asdict(), device)
+    *k, M, B, H = ys.shape
+    check_tensors("fused SRK", {"nst": (3, *k, M, B, H),
+                                "nb": (4, *k, M, B, H),
+                                "nh": (4, *k, M, B, H)}, ns._asdict(), device)
 
 
 def fused_srk_backward_recurrence(y0, ys, gys, xh0, xh1, dw, i10, a0, a1,
@@ -761,23 +815,33 @@ def fused_srk_backward_recurrence(y0, ys, gys, xh0, xh1, dw, i10, a0, a1,
                                   noise: str = "precomp", elem: int = 0,
                                   ns: Optional[SRKNoise] = None
                                   ) -> SRKStreams:
-    """The reverse loop given gys = dL/dys (SRKStreams): the CUDA backward
-    recurrence kernel for CUDA tensors (d theta's per-CTA partials summed
-    here), the plain version for CPU tensors."""
-    global BWD_LAUNCHES
+    """The reverse loop given gys = dL/dys (SRKStreams; in a packed launch
+    with a member axis, _STREAM_AXES): the CUDA backward recurrence kernel
+    for CUDA tensors (d theta's per-CTA partials summed in the library),
+    the plain version for CPU tensors."""
+    global BWD_LAUNCHES, PACKED_BWD_LAUNCHES
     modes = sde_mode(mult_y, geometric, drift, noise, elem)
     args = (y0, ys, gys, xh0, xh1, dw, i10, a0, a1, gk0, gk1, gk2, dts,
             theta, wy, w_inner, b_inner, wout, bo, wn1, wn2, bn2)
     if y0.device.type == "cpu":
         _check_srk_mode(modes, xh0, xh1, a0, a1, (gk0, gk1, gk2), wy, wn1,
                         wn2, bn2)
+        K = member_count(y0)
+        if K:
+            return per_member(fused_srk_backward_recurrence_reference,
+                              _BWD_NAMES, args, K, _STREAM_AXES, ns=ns,
+                              **modes.flags)
         return fused_srk_backward_recurrence_reference(*args, **modes.flags,
                                                        ns=ns)
-    dims = check_kernel_inputs(y0, *args[3:], ys=ys, gys=gys, modes=modes)
+    dims, K = _checked(y0, *args[3:], ys, gys, modes)
     _check_ns(ns, ys, noise, y0.device)
-    stream = _LIB.stream(y0, dims[1:] + modes.codes, backward=True)
-    st = _launch_recurrence(dims, modes, args[:21], ns, stream)
-    BWD_LAUNCHES += 1
+    stream = _LIB.stream(y0, dims[1:] + modes.codes + (max(K, 1),),
+                         backward=True)
+    st = _launch_recurrence(dims, modes, args[:21], ns, stream, K)
+    if K:
+        PACKED_BWD_LAUNCHES += 1
+    else:
+        BWD_LAUNCHES += 1
     return st
 
 
@@ -786,26 +850,35 @@ def fused_srk_weight_grads(y0, ys, st: SRKStreams,
                            drift: str = "embm",
                            noise: str = "precomp") -> SRKWeightGrads:
     """The weight, bias and per-step gradients from the recurrence's
-    streams (SRKWeightGrads; ns: the forward's stage states and hidden
-    activations in the nets' modes): the CUDA weight-gradient kernel for
-    CUDA tensors (its split partials summed here, in a fixed order), the
-    plain version for CPU tensors."""
-    global WGRAD_LAUNCHES
+    streams (SRKWeightGrads, each with a leading member axis in a packed
+    launch; ns: the forward's stage states and hidden activations in the
+    nets' modes): the CUDA weight-gradient kernel for CUDA tensors (its
+    split partials summed in the library, in a fixed order), the plain
+    version for CPU tensors."""
+    global WGRAD_LAUNCHES, PACKED_WGRAD_LAUNCHES
     # the weight gradient reads no flag but the modes (any elem option)
     modes = sde_mode(False, False, drift, noise, 7)
     nst, nh = (ns.nst, ns.nh) if ns is not None else (None, None)
+    K = member_count(y0)
     if y0.device.type == "cpu":
+        if K:
+            return stack_members([fused_srk_weight_grads(
+                y0[k], ys[k], select_member(st, k, _STREAM_AXES),
+                select_member(ns, k, _STREAM_AXES), drift=drift,
+                noise=noise) for k in range(K)])
         return fused_srk_weight_grads_reference(
             y0, ys, st.h01, st.dxh, st.hs, st.es, st.dz3, st.q, nst, st.dn,
             st.dz2, nh, drift=drift, noise=noise)
-    _, M, B, H = st.dz3.shape
-    HH, n_inner = st.dxh.shape[3], st.es.shape[0]
-    s4 = (4, M, B, H)
-    want = {"y0": (B, H), "ys": (M, B, H), "h01": (M, B, H),
-            "dxh": (2, M, B, HH), "hs": (n_inner + 1, 2, M, B, HH),
-            "es": (n_inner, 2, M, B, HH), "dz3": (2, M, B, H),
-            "q": (3, M, B, H), "nst": (3, M, B, H), "dn": s4, "dz2": s4,
-            "nh": s4}
+    M, B, H = st.dz3.shape[-3:]
+    HH, n_inner = st.dxh.shape[-1], st.es.shape[0]
+    m = (K,) if K else ()
+    s4 = (4,) + m + (M, B, H)
+    want = {"y0": m + (B, H), "ys": m + (M, B, H), "h01": m + (M, B, H),
+            "dxh": (2,) + m + (M, B, HH),
+            "hs": (n_inner + 1, 2) + m + (M, B, HH),
+            "es": (n_inner, 2) + m + (M, B, HH), "dz3": (2,) + m + (M, B, H),
+            "q": (3,) + m + (M, B, H), "nst": (3,) + m + (M, B, H),
+            "dn": s4, "dz2": s4, "nh": s4}
     check_tensors("fused SRK", want, {"y0": y0, "ys": ys, "h01": st.h01,
                                       "dxh": st.dxh, "hs": st.hs,
                                       "es": st.es, "dz3": st.dz3,
@@ -816,10 +889,13 @@ def fused_srk_weight_grads(y0, ys, st: SRKStreams,
             or (noise == "net2") != (st.dz2 is not None and nh is not None)):
         raise ValueError(f"fused SRK weight gradient ({noise}): the streams "
                          f"are not the mode's")
-    stream = _LIB.stream(y0, (B, H, HH, n_inner) + modes.codes,
+    stream = _LIB.stream(y0, (B, H, HH, n_inner) + modes.codes + (max(K, 1),),
                          backward=True)
-    out = _launch_weight_grads(y0, ys, st, ns, modes, stream)
-    WGRAD_LAUNCHES += 1
+    out = _launch_weight_grads(y0, ys, st, ns, modes, stream, K)
+    if K:
+        PACKED_WGRAD_LAUNCHES += 1
+    else:
+        WGRAD_LAUNCHES += 1
     return out
 
 
@@ -829,33 +905,34 @@ def fused_srk_backward(y0, ys, gys, xh0, xh1, dw, i10, a0, a1, gk0, gk1, gk2,
                        drift: str = "embm", noise: str = "precomp",
                        elem: int = 0, ns: Optional[SRKNoise] = None):
     """Cotangents of the solve's inputs given gys = dL/dys (FusedSRKGrads,
-    FusedSRKNetGrads in the nets' modes): for CUDA tensors the backward
-    recurrence kernel, then the weight-gradient kernel; for CPU tensors
-    the plain reverse loop."""
+    FusedSRKNetGrads in the nets' modes; in a packed launch each member's
+    along a leading axis): for CUDA tensors the backward recurrence kernel, then the
+    weight-gradient kernel; for CPU tensors the plain reverse loop."""
     modes = dict(mult_y=mult_y, geometric=geometric, drift=drift,
                  noise=noise, elem=elem)
     args = (y0, ys, gys, xh0, xh1, dw, i10, a0, a1, gk0, gk1, gk2, dts,
             theta, wy, w_inner, b_inner, wout, bo, wn1, wn2, bn2)
+    K = member_count(y0)
     if y0.device.type == "cpu":
         _check_srk_mode(sde_mode(**modes), xh0, xh1, a0, a1, (gk0, gk1, gk2),
                         wy, wn1, wn2, bn2)
-        return fused_srk_backward_reference(*args, **modes, ns=ns)
+        if not K:
+            return fused_srk_backward_reference(*args, **modes, ns=ns)
+        return per_member(fused_srk_backward_reference, _BWD_NAMES, args, K,
+                          _STREAM_AXES, ns=ns, **modes)
     st = fused_srk_backward_recurrence(*args, **modes, ns=ns)
     w = fused_srk_weight_grads(y0, ys, st, ns, drift=drift, noise=noise)
-    yy = drift == "yy"
-    da = (None, None) if w.da is None else (w.da[0], w.da[1])
-    dgk = (None,) * 3 if w.dgk is None else (w.dgk[0], w.dgk[1], w.dgk[2])
-    out = (st.dy0, None if yy else st.dxh[0], None if yy else st.dxh[1],
-           *da, *dgk, st.dtheta, w.dwy, w.dw_inner, w.db_inner, w.dwout,
-           w.dbo)
-    if is_net(noise):
-        return FusedSRKNetGrads(*out, w.dwn1, w.dwn2, w.dbn2)
-    return FusedSRKGrads(*out)
+    yy, e = drift == "yy", int(K > 0)   # the evaluations' axis
+    da = (None, None) if w.da is None else w.da.unbind(e)
+    dgk = (None,) * 3 if w.dgk is None else w.dgk.unbind(e)
+    dxh = (None, None) if yy else st.dxh.unbind(0)
+    out = (st.dy0, *dxh, *da, *dgk, st.dtheta, w.dwy, w.dw_inner,
+           w.db_inner, w.dwout, w.dbo)
+    return (FusedSRKNetGrads(*out, w.dwn1, w.dwn2, w.dbn2) if is_net(noise)
+            else FusedSRKGrads(*out))
 
 
-_ARG_ORDER = ("y0", "xh0", "xh1", "dw", "i10", "a0", "a1", "gk0", "gk1",
-              "gk2", "dts", "theta", "wy", "w_inner", "b_inner", "wout", "bo",
-              "wn1", "wn2", "bn2")
+_ARG_ORDER = _FWD_NAMES
 _MODE_KEYS = ("mult_y", "geometric", "drift", "noise", "elem")
 
 
@@ -866,7 +943,9 @@ class FusedSRK(torch.autograd.Function):
     [B,H], xh0/xh1 [M,B,HH], dw/i10 [M,B,H] (not differentiated), a0/a1
     [M,HH], gk0/gk1/gk2 [M,H] (the an1 rows in the nets' modes), dts [M]
     (not differentiated), theta [1], wy [H,HH], w_inner [n_inner,HH,HH],
-    b_inner [n_inner,HH], wout [HH,H], bo [H], wn1, wn2 [H,H], bn2 [H]."""
+    b_inner [n_inner,HH], wout [HH,H], bo [H], wn1, wn2 [H,H], bn2 [H]; in a
+    packed solve of K members each but dts with a leading K axis, and ys
+    [K, M, B, H]."""
 
     @staticmethod
     def forward(ctx, modes, *tensors):

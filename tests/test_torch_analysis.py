@@ -85,3 +85,26 @@ def test_the_port_imports_neither_jax_nor_the_jax_package():
     assert "import jax" not in src and "from snsde" not in src
     assert "import snsde" not in src
     assert "import matplotlib" not in src.split("def plot_cd_diagram")[0]
+
+
+def test_no_port_module_and_no_chip_script_imports_jax():
+    """Every module of snsde_torch and chip_smoke.py: no import of jax and
+    none of the JAX package (snsde_torch keeps its own copies)."""
+    import os
+    import re
+
+    import snsde_torch
+
+    root = os.path.dirname(os.path.dirname(
+        os.path.abspath(snsde_torch.__file__)))
+    files = [os.path.join(d, f)
+             for d, _, fs in os.walk(os.path.join(root, "snsde_torch"))
+             for f in fs if f.endswith(".py")]
+    files.append(os.path.join(root, "chip_smoke.py"))
+    bad = re.compile(r"^\s*(import (jax|snsde)\b(?!_)|from (jax|snsde)"
+                     r"(\.| import))", re.M)
+    for path in files:
+        with open(path) as f:
+            hits = bad.findall(f.read())
+        assert not hits, (path, hits)
+    assert len(files) > 30

@@ -677,7 +677,7 @@ def _wide_check(kind, H, n_inner, placement):
     else:
         inputs, flags, gys = _inputs(kind == "srk", 4, 17, n_inner, "init",
                                      B=13, M=5, H=H)
-        shape = (13, H, H, n_inner, 0, 0)    # drift 'embm', 'precomp'
+        shape = (13, H, H, n_inner, 0, 0, 1)  # 'embm', 'precomp', 1 member
     if kind in SDE:
         level, cs, rows = EM_FORCED[placement]
         _sde_force(kind, level, cs, rows)
@@ -1184,3 +1184,143 @@ def test_cde_plan_raises_when_it_cannot_run():
             fc.fused_cde_backward(ys=ys, gys=gys, **inputs, **flags)
     finally:
         fc.force_cde_plan(0, 0)
+
+
+# ---------------------------------------------------------------------------
+# The member axis: K same-configuration solves in one launch
+# ---------------------------------------------------------------------------
+
+# (pair, io, no, inner layers, H, K): the main paths' modes, a net mode,
+# a yy drift, and a packed launch of one member
+MEMBER_CASES = [("em", 4, 17, 1, 49, 3), ("em", 1, 18, 1, 16, 2),
+                ("em", 4, 17, 1, 49, 1), ("srk", 4, 17, 0, 16, 3),
+                ("srk", 3, 15, 1, 16, 2), ("srk", 4, 17, 1, 32, 1)]
+# forced plans (CTAs a cluster, rows a cluster; 0 the plan's own choice)
+MEMBER_PLANS = [(1, 8), (2, 4), (1, 1)]
+
+
+def _member_inputs(kind, io, no, n_inner, H, K, B=21, M=7):
+    """K members' init-scale inputs (each member's from its own seed),
+    stacked on a leading axis but dts, their flags and cotangents, and
+    each member's own inputs."""
+    members = [_mode_inputs(kind == "srk", io, no, n_inner, B=B, M=M, H=H,
+                            seed=7 * s + 1) for s in range(K)]
+    flags = members[0][1]
+    inputs = {}
+    for name, t in members[0][0].items():
+        if t is None or name == "dts":
+            inputs[name] = t
+        else:
+            inputs[name] = torch.stack([m[0][name] for m in members])
+    gys = torch.stack([m[2] for m in members])
+    return inputs, flags, gys, [m[0] for m in members]
+
+
+def _member_run(kind, inputs, flags, gys):
+    """(ys, the backward's cotangents) of one launch."""
+    mod, pre = SDE[kind]
+    ys, ns = getattr(mod, f"{pre}_forward")(**inputs, **flags)
+    g = getattr(mod, f"{pre}_backward")(ys=ys, gys=gys.contiguous(),
+                                        **inputs, **flags, ns=ns)
+    torch.cuda.synchronize()
+    return ys, ns, g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plan", MEMBER_PLANS)
+@pytest.mark.parametrize("kind,io,no,n_inner,H,K", MEMBER_CASES)
+def test_member_axis_is_bitwise_the_solo_launch(kind, io, no, n_inner, H, K,
+                                                plan):
+    """Under one forced plan, member k of a packed launch is bit for bit
+    the launch of member k alone: the trajectory, the nets' streams and
+    every cotangent."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    cs, rows = plan
+    if no in (14, 15, 18, 19) and cs > 1:
+        pytest.skip("the noise nets' instances run clusters of one CTA")
+    inputs, flags, gys, members = _member_inputs(kind, io, no, n_inner, H, K)
+    _sde_force(kind, 0, cs, rows)
+    try:
+        ys, ns, g = _member_run(kind, inputs, flags, gys)
+        solo = [_member_run(kind, m, flags, gys[k])
+                for k, m in enumerate(members)]
+    finally:
+        _sde_force(kind, 0, 0, 0)
+    for k, (ys_k, ns_k, g_k) in enumerate(solo):
+        assert torch.equal(ys[k], ys_k), f"member {k}: ys"
+        if ns is not None:
+            axis = 0 if kind == "em" else 1
+            for name, a, b in zip(ns._fields, ns, ns_k):
+                if b is not None:
+                    assert torch.equal(a.select(axis, k), b), (k, name)
+        for name, a, b in zip(g._fields, g, g_k):
+            if b is not None:
+                assert torch.equal(a[k], b), f"member {k}: {name}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,io,no,n_inner,H,K", MEMBER_CASES)
+def test_member_axis_matches_plain_versions(kind, io, no, n_inner, H, K):
+    """Under the plan's own choice (waves over K x clusters) each member
+    of a packed launch against the plain versions on its inputs:
+    init-scale rules, the float64 rule in the noise nets' and sqrt's
+    modes, as for the solo launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    mod, pre = SDE[kind]
+    inputs, flags, gys, members = _member_inputs(kind, io, no, n_inner, H, K)
+    ys, ns, g = _member_run(kind, inputs, flags, gys)
+    f64 = YS_F64_FACTOR if flags["noise"] != "precomp" else 0.0
+    for k, m in enumerate(members):
+        sel = lambda t: None if t is None else t[k]
+        axis = 0 if kind == "em" else 1
+        ns_k = None if ns is None else type(ns)(*(
+            None if t is None else t.select(axis, k) for t in ns))
+        fns = (lambda **kw: (ys[k], ns_k),
+               getattr(mod, f"{pre}_forward_reference"),
+               lambda **kw: type(g)(*(sel(t) for t in g)),
+               getattr(mod, f"{pre}_backward_reference"))
+        _check(fns, m, flags, gys[k], "init", ys_f64_factor=f64,
+               grad_f64_factor=f64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["em", "srk"])
+def test_member_plans_weigh_waves_over_the_members(kind):
+    """The plan of K members counts K x clusters: at the sweep's shape
+    (B = 64, H = 16) five members fill more of the card than one, and
+    every plan can be scheduled."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    mod, pre = SDE[kind]
+    for K in (1, 5, 64):
+        for b in (False, True):
+            p = getattr(mod, f"{pre}_plan")(64, 16, 16, 0, b, members=K)
+            print(f"{kind} K={K} {'backward' if b else 'forward'}: {p}")
+            assert p["active_clusters"] >= 1
+
+
+@pytest.mark.cuda
+def test_whole_sepsis_model_through_the_em_kernels_matches_jax(monkeypatch):
+    """The full sepsis model (C = 69, H = 49, two hidden layers, LNSDE
+    (4,17)) on the card, its solve through the EM kernels with the golden's
+    increments: the loss and every gradient against the JAX package's
+    (tests/goldens/sepsis_whole_model.npz, written by
+    tests/test_torch_whole_model.py; loss 1e-5 relative, gradients 1e-4 of
+    their largest entry, tests/sepsis_whole_model.py)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    import sepsis_whole_model as wm
+
+    d = wm.data()
+    dW = torch.as_tensor(d["dW"], device="cuda")
+    monkeypatch.setattr(fe, "brownian_increments", lambda *a, **k: dW)
+    launches = (fe.FWD_LAUNCHES, fe.BWD_LAUNCHES, fe.WGRAD_LAUNCHES)
+    model = wm.port_model("cuda")
+    loss, grads = wm.port_loss_and_grads(
+        model, d, torch.Generator(device="cuda"))
+    assert (fe.FWD_LAUNCHES, fe.BWD_LAUNCHES, fe.WGRAD_LAUNCHES) == tuple(
+        n + 1 for n in launches)
+    errs = wm.check(loss, grads, np.load(wm.GOLDEN))
+    print("largest gradient error over its scale:", max(errs.values()))
