@@ -8,7 +8,10 @@ the fused EM kernels), the MuJoCo forecasting training path (SRIW1, the
 fused SRK kernels), the robustness sweep with the Neural CDE (FinalTanh,
 natural cubic control, rk4: the fused CDE kernels) and the sweep's
 recurrent baselines `gru`, `grud`, `lstm` and `bilstm` (the fused GRU and
-LSTM kernels). Phases, each of which raises on failure:
+LSTM kernels); since the seed ensembles their packed runs, and since the
+speech and latent slice Speech Commands (the EM kernels at L=161) and the
+sweep's `latentsde`/`latentsde-kl` (the EM kernels' latent instances),
+phase 7. Phases, each of which raises on failure:
   1. card: name, and name and power limit from nvidia-smi;
   2. build: nvcc builds every kernel of the four paths from
      snsde_torch/csrc/ (sm_90a, one nvcc per source, all started together),
@@ -122,7 +125,27 @@ LSTM kernels). Phases, each of which raises on failure:
      packed SRK kernels) and neuralcde; the packed launches against as
      many solo launches and their plain versions, with their bounds
      (packed_kernel_times); and the ensemble's training step against five
-     solo steps, wall and device time (ensemble_step_times).
+     solo steps, wall and device time (ensemble_step_times);
+  7. Speech Commands and the latent SDE, in phases 3-5's places: the EM
+     pair at the speech flagship's shape (SPEECH: B=1024, L=161, C=21,
+     H=HH=49, two hidden layers, (4,17)) against its plain versions; the
+     latent pair (LatentSDE's augmented system, fused_latent_em_solve's
+     inputs) at the sweep's shape (B=64, L=60: 106 steps, C=6, H=16, no
+     inner layer) and at H=HH=128 with one inner layer, under the forced
+     cluster sizes 1, 2 and 4 and the plan's own choice, its trajectory
+     (the KL lane's) and cotangents by the float64 rule and its latent
+     lanes by TOL_YS, the forward's bits the same under every plan
+     (compare_latent), and its weight-gradient kernel alone; run_speech at
+     full width on synthetic_speech(n=2048) for 2 epochs (the EM kernels,
+     finite losses, the trained field's fused solve against the eager
+     one), run_speech_ensemble with five repeats for 1 epoch (the packed
+     EM kernels and no solo launch), and the sweep cell with latentsde and
+     latentsde-kl, one model a run (the latent kernels, a record with an
+     accuracy, a finite loss and KL term, the trained model's fused latent
+     solve against the eager sdeint(f_aug, g_aug), KL lane included); the
+     latent pair's times and bounds at the sweep's shape, the EM pair's at
+     the speech shape, and one speech training step through the kernels
+     and the eager solver with its profiler window.
 It prints one JSON line of the kernels (each SDE kernel with the `modes`
 it takes; the packed launches as their own entries), the card's name and
 power limit, and last `{"ok": true, "device": {...}}`. It exits non-zero,
@@ -136,6 +159,7 @@ printing no result, without a CUDA device or outside the repository.
     python3 chip_smoke.py --phase-split [em|srk|cde] TREE [TREE ...]
     python3 chip_smoke.py --sweep-cd OUT [EPOCHS [SEEDS [PACK]]]
     python3 chip_smoke.py --sepsis-r5 [OUT]
+    python3 chip_smoke.py --speech-r5 [OUT]
 
 run none of the phases: they time the SDE paths' training steps
 and the CDE classifier's (`ab_steps`), the LSTM or GRU kernels at the
@@ -150,7 +174,9 @@ missing rates x 6 models x SEEDS, the SDE and CDE cells seed-packed
 unless PACK is 0, then the critical-difference analysis, written to OUT
 with SWEEP_CD.json's keys); or train the sepsis flagship's five repeats
 for 40 epochs as one ensemble (`sepsis_r5`, RESULTS_sepsis_r5.json's
-layout, to OUT, by default RESULTS_torch_sepsis_r5.json).
+layout, to OUT, by default RESULTS_torch_sepsis_r5.json), or the speech
+flagship's (`speech_r5`: n=8192, RESULTS_speech_r5.json's layout, by
+default RESULTS_torch_speech_r5.json).
 """
 
 from __future__ import annotations
@@ -578,13 +604,14 @@ def sde_wgrad_args(key, model_name, B, L, C, H, layers):
     return fwd[0], ys, st, ns, flags
 
 
-def compare_sde_wgrad(key, model_name, B, L, C, H, layers):
+def compare_sde_wgrad(key, model_name, B, L, C, H, layers, args=None):
     """The EM or SRK weight-gradient kernel alone against its plain
-    version on the plain recurrence's streams: every output within
-    TOL_GRAD of its largest entry, and no further from a float64 run than
-    the F64 rule allows. Returns the largest abs error."""
-    y0, ys, st, ns, flags = sde_wgrad_args(key, model_name, B, L, C, H,
-                                           layers)
+    version on the plain recurrence's streams (`args`: sde_wgrad_args's,
+    made here when None): every output within TOL_GRAD of its largest
+    entry, and no further from a float64 run than the F64 rule allows.
+    Returns the largest abs error."""
+    y0, ys, st, ns, flags = args or sde_wgrad_args(key, model_name, B, L, C,
+                                                   H, layers)
     k = wgrad_kernel(key, y0, ys, st, ns, flags)
     p = wgrad_plain(key, y0, ys, st, ns, flags)
     r = wgrad_plain(key, _dbl(y0), _dbl(ys), _dbl(st), _dbl(ns), flags)
@@ -918,6 +945,8 @@ def _counters():
     out += [(f"{key}_packed_{part}", _kernel_modules()[key],
              f"PACKED_{part.upper()}_LAUNCHES")
             for key in ("em", "srk") for part in ("fwd", "bwd", "wgrad")]
+    out += [(f"em_latent_{part}", _kernel_modules()["em"],
+             f"LATENT_{part.upper()}_LAUNCHES") for part in ("fwd", "bwd")]
     return out + [(f"{key}_{part}", fused_rnn,
                    f"{key.upper()}_{part.upper()}_LAUNCHES")
                   for key in ("gru", "lstm")
@@ -3071,6 +3100,429 @@ def sepsis_r5(out: str = "RESULTS_torch_sepsis_r5.json") -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# Speech Commands and the latent SDE (the EM pair's latent instances)
+# ---------------------------------------------------------------------------
+
+# the speech flagship (RESULTS_speech_r5.json): neurallnsde (4,17), H=HH=49,
+# two hidden layers, batch 1024, L=161 (160 EM steps at dt=1), C=21 (20
+# MFCC coefficients and time), 10 classes
+SPEECH = dict(B=1024, L=161, C=21, H=49, layers=2, model="neurallnsde")
+N_SPEECH = 2048     # samples of synthetic_speech on the speech path
+N_SPEECH_R5, SPEECH_R5_EPOCHS = 8192, 40
+# the latent pair at the sweep's shape (latentsde at hidden 16: 15 latent
+# lanes and the KL lane, no inner layer) and at H=HH=128 with one inner
+# layer, each under every cluster size sde_plan can pick there
+LATENT = dict(B=SWEEP["B"], L=SWEEP["L"], C=SWEEP["D"] + 1, H=SWEEP["H"],
+              layers=1)
+LATENT_WIDE = dict(B=128, L=24, C=SWEEP["D"] + 1, H=128, layers=2)
+LATENT_PLANS = (1, 2, 4)
+LATENT_MODELS = ("latentsde", "latentsde-kl")
+
+
+def latent_kernel_inputs(B, L, C, H, layers, seed=0):
+    """The latent mode's inputs (detached, on the card) of a random
+    LatentSDE (C channels, H = HH, `layers` hidden layers) on a random
+    control path over the sweep's times linspace(0, 1, L), increments
+    N(0, dt) and a cotangent N(0, 1) / B on every lane and step (the KL
+    lane's too) from numpy: (forward inputs in _ARG_ORDER, flags, gys)."""
+    from snsde_torch.kernels.fused_em import (_ARG_ORDER, _MODE_KEYS,
+                                              latent_inputs)
+    from snsde_torch.models.latent_sde import LatentSDE
+    from snsde_torch.models.neuralsde import resolve_dt
+    from snsde_torch.ops import make_grid
+
+    rng = np.random.default_rng(seed)
+    model = LatentSDE(C, H, H, layers, method="euler",
+                      generator=torch.Generator().manual_seed(seed)).to(DEV)
+    times = np.linspace(0.0, 1.0, L).astype(np.float32)
+    dt = resolve_dt(times)
+    grid, _ = make_grid(times, dt)
+    M = grid.shape[0] - 1
+    dW = rng.normal(size=(M, B, H)) * np.sqrt(np.diff(grid))[:, None, None]
+    z0 = rng.normal(size=(B, H - 1))
+    aug0 = torch.as_tensor(np.concatenate([z0, np.zeros((B, 1))], -1),
+                           dtype=torch.float32, device=DEV)
+    with torch.no_grad():
+        inp = latent_inputs(model, grid, aug0,
+                            torch.as_tensor(dW, dtype=torch.float32))
+    inp = {k: (v.detach().contiguous() if torch.is_tensor(v) else v)
+           for k, v in inp.items()}
+    gys = torch.as_tensor(rng.normal(size=(M, B, H)) / B,
+                          dtype=torch.float32, device=DEV)
+    return ([inp[k] for k in _ARG_ORDER],
+            {k: inp[k] for k in _MODE_KEYS + ("latent",)}, gys)
+
+
+def latent_plans(B, H, n_inner):
+    """Print the latent instances' plans at (B, H = HH, n_inner); raise if
+    one cannot be scheduled."""
+    from snsde_torch.kernels.fused_em import fused_em_plan
+
+    for backward in (False, True):
+        p = fused_em_plan(B, H, H, n_inner, backward, "yy", "precomp",
+                          latent=True)
+        print(f"  EM latent plan B={B} H=HH={H} n_inner={n_inner} "
+              f"{'backward' if backward else 'forward'}: level "
+              f"{p['level']}, CS={p['cluster']}, {p['rows']} rows a "
+              f"cluster, {p['smem_bytes']} shared bytes a CTA, "
+              f"cudaOccupancyMaxActiveClusters {p['active_clusters']}")
+        if p["active_clusters"] < 1:
+            raise AssertionError(f"latent plan at B={B} H={H} cannot be "
+                                 f"scheduled: {p}")
+
+
+def compare_latent(B, L, C, H, layers):
+    """The latent pair against its plain versions (check_pair) under each
+    forced cluster size of LATENT_PLANS and under the plan's own choice:
+    the latent lanes by the main paths' rule (TOL_YS of their largest
+    entry), the whole trajectory (the KL lane's sum over a row) and the
+    cotangents by the float64 rule (the larger of the main paths' limits
+    and YS_F64_FACTOR times the float32 plain version's own error); the
+    forward's trajectory must be the same bits under every plan (each
+    product one FMA chain in ascending k, the KL rate summed by one thread
+    in ascending q). Returns the largest forward and backward errors."""
+    from snsde_torch.kernels import fused_em as fe
+
+    fwd, flags, gys = latent_kernel_inputs(B, L, C, H, layers)
+    fns = kernel_fns("em")
+    label = f"EM latent B={B} L={L} H={H} n_inner={layers - 1}"
+    latent_plans(B, H, layers - 1)
+    worst, first = (0.0, 0.0), None
+    for cs in LATENT_PLANS + (0,):
+        fe.force_em_plan(cs, 0)
+        try:
+            e = check_pair(f"{label} CS={cs or 'plan'}", fns, fwd, flags, gys,
+                           ys_f64_factor=YS_F64_FACTOR,
+                           grad_f64_factor=YS_F64_FACTOR)
+            ys_k = fns[0](*fwd, **flags)[0]
+        finally:
+            fe.force_em_plan(0, 0)
+        ys_p = fns[1](*fwd, **flags)[0]
+        lat = ys_p[..., :-1]
+        rel = (float((ys_k[..., :-1] - lat).abs().max())
+               / max(float(lat.abs().max()), 1e-30))
+        print(f"    latent lanes max rel err {rel:.3e} (tol {TOL_YS:g}); "
+              f"KL lane at the end {float(ys_k[-1, :, -1].mean()):.4f} "
+              f"(mean over rows)")
+        if not rel <= TOL_YS:
+            raise AssertionError(f"{label} CS={cs}: latent lanes disagree")
+        if first is None:
+            first = ys_k
+        elif not torch.equal(ys_k, first):
+            raise AssertionError(f"{label}: the trajectory (KL lane "
+                                 f"{torch.equal(ys_k[..., -1], first[..., -1])}"
+                                 f") differs between plans CS=1 and CS={cs}")
+        worst = tuple(max(a, b) for a, b in zip(worst, e))
+    print(f"  {label}: the forward's bits are the same under CS="
+          f"{', '.join(map(str, LATENT_PLANS))} and the plan's own choice")
+    return worst
+
+
+def compare_latent_wgrad(B, L, C, H, layers):
+    """The weight-gradient kernel alone on the latent recurrence's plain
+    streams (compare_sde_wgrad)."""
+    from snsde_torch.kernels import fused_em as fe
+
+    fwd, flags, gys = latent_kernel_inputs(B, L, C, H, layers)
+    ys, _ = fe.fused_em_forward_reference(*fwd, **flags)
+    st = fe.fused_em_backward_recurrence_reference(fwd[0], ys, gys, *fwd[1:],
+                                                   **flags)
+    return compare_sde_wgrad("em", "latent", B, L, C, H, layers,
+                             args=(fwd[0], ys, st, None, flags))
+
+
+def _losses(results):
+    return [v for r in results for v in
+            [h[s]["loss"] for h in r.history for s in ("train", "val")]
+            + [r.train_metrics.loss, r.val_metrics.loss, r.test_metrics.loss]]
+
+
+def speech_path():
+    """The speech harness run_speech at full width (SPEECH) on
+    synthetic_speech(n=N_SPEECH) for 2 epochs: it must launch the three EM
+    kernels with finite losses, and the trained field's fused solve must
+    match the eager one on the same increments. Returns the launch
+    counts."""
+    from snsde_torch.harness.classification import run_speech
+
+    zero_counts()
+    t0 = time.perf_counter()
+    res = run_speech(main_config(), n=N_SPEECH, max_epochs=2, device=DEV)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    losses = _losses([res])
+    print(f"main path 6: run_speech 2 epochs in "
+          f"{time.perf_counter() - t0:.1f} s, losses "
+          f"{[round(v, 4) for v in losses]}, val accuracy "
+          f"{res.val_metrics.accuracy:.4f}, test accuracy "
+          f"{res.test_metrics.accuracy:.4f}, launches {launches}", flush=True)
+    if not all(np.isfinite(losses)):
+        raise AssertionError("non-finite loss on the speech path")
+    if min(launches[f"em_{k}"] for k in ("fwd", "bwd", "wgrad")) <= 0:
+        raise AssertionError(f"the speech path did not run the EM kernels: "
+                             f"{launches}")
+    check_trained_solve(res.model.func, SPEECH)
+    return launches
+
+
+def speech_ensemble_path():
+    """run_speech_ensemble with REPEATS repeats at full width for one
+    epoch: the packed EM kernels and no solo launch, finite losses, the
+    members' weights different. Returns the launch counts."""
+    from snsde_torch.harness.classification import run_speech_ensemble
+
+    zero_counts()
+    t0 = time.perf_counter()
+    res = run_speech_ensemble(main_config(), repeats=REPEATS, n=N_SPEECH,
+                              max_epochs=1, device=DEV)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    print(f"main path 7: run_speech_ensemble ({REPEATS} repeats) 1 epoch in "
+          f"{time.perf_counter() - t0:.1f} s, test accuracy "
+          f"{[round(r.test_metrics.accuracy, 4) for r in res]}, launches "
+          f"{launches}", flush=True)
+    if len(res) != REPEATS or not all(np.isfinite(_losses(res))):
+        raise AssertionError("the speech ensemble gave a non-finite loss")
+    if min(launches[f"em_packed_{k}"] for k in ("fwd", "bwd", "wgrad")) <= 0:
+        raise AssertionError(f"the speech ensemble did not run the packed "
+                             f"EM kernels: {launches}")
+    if launches["em_fwd"] or launches["em_bwd"] or launches["em_wgrad"]:
+        raise AssertionError(f"the speech ensemble ran solo EM launches: "
+                             f"{launches}")
+    f = res[0].model.fields
+    if torch.equal(f[0].linear_out.weight, f[1].linear_out.weight):
+        raise AssertionError("the speech ensemble's members have one weight")
+    return launches
+
+
+def latent_sweep_path(out_dir):
+    """The sweep cell (uea_b_noisy, hidden 16, batch 64, missing rate 0.3,
+    seed 0) with LATENT_MODELS, one model a run with every count set to 0
+    before it: each must launch the latent instances (and the weight
+    gradient), write a record with an accuracy and no error, give a finite
+    loss and KL term on the validation rows, and its trained model's fused
+    latent solve must match the eager sdeint(f_aug, g_aug) on the same
+    increments, the KL lane included. Returns the launch counts summed
+    over the runs."""
+    from snsde_torch.harness.robustness import (SweepConfig, ists_loss,
+                                                preprocess_ists,
+                                                run_robustness_sweep)
+
+    X, y, _ = uea_b_noisy()
+    data = preprocess_ists(X[:64], missing_rate=0.3, seed=0,
+                           interpolation="hermite")
+    batch = {"seq": torch.as_tensor(data["seq"], device=DEV),
+             "coeffs": torch.as_tensor(data["coeffs"], device=DEV),
+             "y": torch.as_tensor(y[:64], device=DEV).long()}
+    total = {}
+    for name in LATENT_MODELS:
+        cfg = SweepConfig(models=(name,), missing_rates=(0.3,), seeds=(0,),
+                          hidden_dim=SWEEP["H"], batch_size=SWEEP["B"],
+                          max_epochs=2, out_dir=out_dir)
+        trained = {}
+        zero_counts()
+        t0 = time.perf_counter()
+        recs = run_robustness_sweep(cfg, n=SWEEP["n"], data_fn=uea_b_noisy,
+                                    dataset_name="uea_b_noisy",
+                                    verbose=False, device=DEV,
+                                    models=trained)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        model = trained.get((0.3, name, 0))
+        loss = kl = float("nan")
+        if model is not None:
+            model.eval()
+            with torch.no_grad():
+                gen = torch.Generator(DEV).manual_seed(0)
+                loss = float(ists_loss(model, batch, gen,
+                                       kl_weight=cfg.kl_weight)[0])
+                kl = float(model(batch["seq"], batch["coeffs"],
+                                 generator=gen, with_aux=True)[1])
+        print(f"main path 8 with {name}: run_robustness_sweep (euler, the "
+              f"latent kernels) 2 epochs in {time.perf_counter() - t0:.1f} "
+              f"s, records {recs}, validation-rows loss {loss:.4f}, KL term "
+              f"{kl:.4f}, launches {launches}", flush=True)
+        if not recs or any("error" in r or "accuracy" not in r
+                           for r in recs):
+            raise AssertionError(f"the sweep wrote a failed record: {recs}")
+        if not (all(np.isfinite(r["accuracy"]) for r in recs)
+                and np.isfinite(loss) and np.isfinite(kl)):
+            raise AssertionError(f"non-finite accuracy, loss or KL with "
+                                 f"{name}")
+        if min(launches[k] for k in ("em_latent_fwd", "em_latent_bwd",
+                                     "em_wgrad")) <= 0:
+            raise AssertionError(f"{name} did not run the latent kernels: "
+                                 f"{launches}")
+        check_trained_latent_solve(model.layer.inner)
+    return total
+
+
+def check_trained_latent_solve(model, B=64):
+    """A trained LatentSDE's fused latent solve vs the eager
+    sdeint(f_aug, g_aug) on the same increments over the sweep's times, the
+    KL lane included: within the larger of TOL_YS and YS_F64_FACTOR times
+    the float32 eager solve's own largest error from a float64 run of it,
+    over max|ys| (the float64 rule)."""
+    import copy
+
+    from snsde_torch.kernels.fused_em import fused_latent_em_solve
+    from snsde_torch.models.neuralsde import resolve_dt
+    from snsde_torch.ops import BrownianGrid, make_grid, sdeint
+
+    rng = np.random.default_rng(2)
+    H = model.embedding.out_features
+    times = np.linspace(0.0, 1.0, SWEEP["L"]).astype(np.float32)
+    grid, _ = make_grid(times, resolve_dt(times))
+    dW = torch.as_tensor(rng.normal(size=(len(grid) - 1, B, H))
+                         * np.sqrt(np.diff(grid))[:, None, None],
+                         dtype=torch.float64, device=DEV)
+    aug0 = torch.as_tensor(np.concatenate(
+        [rng.normal(size=(B, H - 1)), np.zeros((B, 1))], -1),
+        dtype=torch.float64, device=DEV)
+    m64 = copy.deepcopy(model).double()
+    with torch.no_grad():
+        ys_f = fused_latent_em_solve(model, times, aug0.float(),
+                                     dW=dW.float())
+        ys_e = sdeint(model.f_aug, model.g_aug, aug0.float(), times,
+                      bm=BrownianGrid(grid, dW.float()))
+        ys_64 = sdeint(m64.f_aug, m64.g_aug, aug0, times,
+                       bm=BrownianGrid(grid, dW))
+    scale = float(ys_64.abs().max())
+    e32 = float((ys_e.double() - ys_64).abs().max()) / scale
+    rel = float((ys_f - ys_e).abs().max()) / max(float(ys_e.abs().max()),
+                                                 1e-30)
+    kl = (float((ys_f[..., -1] - ys_e[..., -1]).abs().max())
+          / max(float(ys_e[..., -1].abs().max()), 1e-30))
+    tol = max(TOL_YS, YS_F64_FACTOR * e32)
+    print(f"trained latent model: fused vs eager euler solve, B={B}: shape "
+          f"{tuple(ys_f.shape)}, max rel err {rel:.3e} (KL lane {kl:.3e}; "
+          f"tol {tol:.3e}; the float32 eager solve from float64 {e32:.3e})")
+    if not (torch.isfinite(ys_f).all() and rel <= tol and kl <= tol):
+        raise AssertionError("trained latent model's fused solve disagrees")
+
+
+def latent_kernel_times():
+    """The latent pair at the sweep's shape (LATENT): forward and backward
+    (the wrapper), their plain versions, the recurrence and the weight
+    gradient apart (sde_backward_times), and the bounds from its inputs:
+    the bytes of every input and output once, the drift MLP's products
+    (sde_products; the KL sum adds 2 B H a step) and 3x those for the
+    backward."""
+    fwd_k, fwd_p, bwd_k, bwd_p = kernel_fns("em")
+    sh = LATENT
+    fwd, flags, gys = latent_kernel_inputs(sh["B"], sh["L"], sh["C"],
+                                           sh["H"], sh["layers"])
+    ys, _ = fwd_k(*fwd, **flags)
+    args = [fwd[0], ys, gys] + fwd[1:]
+    ms = {"fwd": timed(lambda: fwd_k(*fwd, **flags)),
+          "fwd_plain": timed(lambda: fwd_p(*fwd, **flags), reps=5, warmup=1),
+          "bwd_call": timed(lambda: bwd_k(*args, **flags)),
+          "bwd_plain": timed(lambda: bwd_p(*args, **flags), reps=5,
+                             warmup=1)}
+    M, B, H = ys.shape
+    flops = (sde_products("em", flags, M, B, H, H, sh["layers"] - 1)
+             + 2 * M * B * H)
+    n_in = sum(t.numel() for t in fwd if t is not None)
+    n_g = sum(g.numel() for g in bwd_k(*args, **flags) if g is not None)
+    bounds = {"fwd": bound(4 * (n_in + ys.numel()), flops),
+              "bwd": bound(4 * (n_in + 2 * ys.numel() + n_g), 3 * flops)}
+    ms_w, bounds["wgrad"] = sde_backward_times("em", fwd, ys, gys, flags)
+    ms.update(ms_w)
+    print(f"latent pair at the sweep's shape (B={B}, M={M}, H={H}): fwd "
+          f"{ms['fwd']:.4f} ms, bwd {ms['bwd']:.4f} ms (recurrence "
+          f"{ms['bwd_recurrence']:.4f} + weight gradient "
+          f"{ms['bwd_wgrad']:.4f}); plain {ms['fwd_plain']:.2f} / "
+          f"{ms['bwd_plain']:.2f} ms; bounds {bounds}", flush=True)
+    return ms, bounds
+
+
+def speech_step_fns():
+    """One training step of the speech model (ten-class cross-entropy +
+    0.01 L2, the 100x readout hook, coupled-L2 Adam) on one batch of 1024
+    speech-shaped samples: {label: step()} through the kernels and through
+    the eager solver."""
+    from snsde_torch.data import preprocess_classification, synthetic_speech
+    from snsde_torch.harness.classification import build_speech_model
+    from snsde_torch.train.loop import (TrainConfig, make_loss_fn,
+                                        make_optimizer, readout_grad_hook,
+                                        train_step)
+
+    X, y, lengths, _ = synthetic_speech(n=SPEECH["B"], seed=0)
+    data = preprocess_classification(X, y, lengths, use_intensity=False,
+                                     times=np.arange(SPEECH["L"],
+                                                     dtype=np.float32))
+    times, dev = data["times"], torch.device(DEV)
+    cat = lambda k: np.concatenate([data[s][k]
+                                    for s in ("train", "val", "test")])
+    batch = {"coeffs": torch.as_tensor(cat("coeffs"), device=dev),
+             "final_index": torch.as_tensor(cat("final_index"), device=dev),
+             "y": torch.as_tensor(cat("y"), device=dev)}
+    out = {}
+    for label, fused in (("train_step", True), ("train_step_eager", False)):
+        model, reg_fn = build_speech_model(main_config(),
+                                           data["input_channels"], dev)
+        tc = TrainConfig(num_classes=10, step_mode="valaccuracy")
+        readout_grad_hook("readout.linear2")(model)
+
+        def apply_fn(m, b, g, fused=fused):
+            return m(times, b["coeffs"], b["final_index"], generator=g,
+                     use_fused=fused)
+
+        loss_fn = make_loss_fn(apply_fn, reg_fn, tc)
+        opt = make_optimizer(model, tc)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        out[label] = (lambda model=model, opt=opt, loss_fn=loss_fn, gen=gen:
+                      train_step(model, opt, loss_fn, batch, gen))
+    return out
+
+
+def speech_r5(out: str = "RESULTS_torch_speech_r5.json") -> int:
+    """The speech flagship's five repeats for 40 epochs as one seed
+    ensemble (n=8192 synthetic speech, H=49, two hidden layers, batch 1024,
+    seed 0; the JAX package's tools/run_flagship_ensembles.py), per-repeat
+    test accuracy and weighted F1 with the quality pins' verdicts, written
+    to `out` in the layout of RESULTS_speech_r5.json:
+
+        python3 chip_smoke.py --speech-r5 [OUT]"""
+    from snsde_torch.harness.classification import run_speech_ensemble
+    from snsde_torch.train.pins import FLAGSHIP_PINS, check_history
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    smi = card()
+    cfg = main_config()
+    cfg.seed, cfg.data_seed = 0, 0
+    t0 = time.time()
+    res = run_speech_ensemble(cfg, repeats=REPEATS, n=N_SPEECH_R5,
+                              max_epochs=SPEECH_R5_EPOCHS, device=DEV)
+
+    def summary(metric):
+        vals = [float(getattr(r.test_metrics, metric)) for r in res]
+        pins = [check_history(r.history, FLAGSHIP_PINS["speech"])
+                for r in res]
+        return {"per_repeat": [round(v, 4) for v in vals],
+                "mean": round(float(np.mean(vals)), 4),
+                "std": round(float(np.std(vals)), 4),
+                "pins_ok": [p["ok"] for p in pins],
+                "pin_violations": sum((p["violations"] for p in pins), [])}
+
+    rec = {"model": SPEECH["model"], "H": SPEECH["H"],
+           "layers": SPEECH["layers"], "batch": SPEECH["B"],
+           "n": N_SPEECH_R5, "epochs": SPEECH_R5_EPOCHS, "repeats": REPEATS,
+           "packed": True, "accuracy": summary("accuracy"),
+           "f1_weighted": summary("f1_weighted"),
+           "wall_time_min": round((time.time() - t0) / 60.0, 2),
+           "card": smi}
+    with open(out, "w") as f:
+        json.dump(rec, f, indent=1)
+    print(json.dumps(rec, indent=1), flush=True)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3116,6 +3568,14 @@ def main() -> int:
     err.update(compare_modes())
     print("the new paths' configurations at their own shapes:", flush=True)
     err.update(compare_path_modes())
+    print("the EM pair at the speech shape, and the latent pair:", flush=True)
+    sp = SPEECH
+    err["em_speech"] = compare(sp["model"], sp["B"], sp["L"], sp["C"],
+                               sp["H"], sp["layers"])
+    err["em_latent"] = tuple(max(a, b) for a, b in zip(
+        compare_latent(**LATENT), compare_latent(**LATENT_WIDE)))
+    err["em_latent_wgrad"] = max(compare_latent_wgrad(**LATENT),
+                                 compare_latent_wgrad(**LATENT_WIDE))
     print("the member axis (K members a launch) against the solo launches "
           "and the plain versions:", flush=True)
     for case in MEMBER_CASES:
@@ -3160,6 +3620,9 @@ def main() -> int:
         sde_sweep_path(out_dir)
         launches["srk_packed"] = packed_sweep_path(out_dir)["neuralsde_4_17"]
         rnn_launches = rnn_sweep_path(out_dir)
+        launches["em_latent"] = latent_sweep_path(out_dir)
+    launches["em_speech"] = speech_path()
+    launches["em_speech_packed"] = speech_ensemble_path()
     launches["em_packed"] = sepsis_ensemble_path()
     launches["gru"] = launches["lstm"] = rnn_launches
     wide_sepsis_path()
@@ -3190,6 +3653,10 @@ def main() -> int:
         ms[f"{key}_packed"] = packed_ms[key]
         bounds[f"{key}_packed"] = packed_bounds[key]
     ms["ensemble"] = ensemble_step_times()
+    ms["em_speech"], bounds["em_speech"] = kernel_times(SPEECH)
+    ms["em_speech"].update(step_times("speech (euler)", speech_step_fns(),
+                                      eager_reps=3))
+    ms["em_latent"], bounds["em_latent"] = latent_kernel_times()
     for key in ms:
         for k, v in ms[key].items():
             print(f"time {key} {k}: {v:.4f} ms  [{smi}]")
@@ -3267,6 +3734,38 @@ def main() -> int:
                 "bound_by": bounds[f"{key}_packed"][part][1],
                 "library_ms": None, "members": K, "shape": shape,
                 "solo_launches_ms": ms[f"{key}_packed"][f"{part}_solo_k"]})
+    # the EM pair at the speech shape (its launches the speech path's), and
+    # the latent instances at the sweep's shape (their launches the latent
+    # sweep runs'; the weight-gradient kernel is the one the other modes
+    # run, on the latent recurrence's streams)
+    for key, shape, lk, modes in (("em_speech", "speech", "em", SDE_MODES),
+                                  ("em_latent", "sweep", "em_latent",
+                                   ["latent"])):
+        for part, line in (("fwd", 688), ("bwd", 888)):
+            kernels.append({
+                "name": (f"fused_em_"
+                         f"{'forward' if part == 'fwd' else 'backward'}"
+                         f"_{key[3:]}"),
+                "route": "cuda", "source": "snsde_torch/csrc/fused_em.cu",
+                "replaces": f"snsde/kernels/fused_em.py:{line}",
+                "launches": launches[key][f"{lk}_{part}"],
+                "max_abs_err": err[key][0 if part == "fwd" else 1],
+                "ms": ms[key][part], "plain_ms": ms[key][f"{part}_plain"],
+                "bound_ms": bounds[key][part][0],
+                "bound_by": bounds[key][part][1], "library_ms": None,
+                "shape": shape, "modes": modes})
+    kernels.append({
+        "name": "fused_em_weight_grads_latent", "route": "cuda",
+        "source": "snsde_torch/csrc/fused_em.cu",
+        "replaces": "snsde/kernels/fused_em.py:888",
+        "launches": launches["em_latent"]["em_wgrad"],
+        "max_abs_err": err["em_latent_wgrad"],
+        "ms": ms["em_latent"]["bwd_wgrad"],
+        "plain_ms": ms["em_latent"]["wgrad_plain"],
+        "bound_ms": bounds["em_latent"]["wgrad"][0],
+        "bound_by": bounds["em_latent"]["wgrad"][1],
+        "library_ms": ms["em_latent"]["wgrad_lib"], "shape": "sweep",
+        "modes": ["latent"]})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -3291,4 +3790,6 @@ if __name__ == "__main__":
         sys.exit(sweep_cd(sys.argv[2], *map(int, sys.argv[3:6])))
     if sys.argv[1:2] == ["--sepsis-r5"]:
         sys.exit(sepsis_r5(*sys.argv[2:3]))
+    if sys.argv[1:2] == ["--speech-r5"]:
+        sys.exit(speech_r5(*sys.argv[2:3]))
     sys.exit(main())

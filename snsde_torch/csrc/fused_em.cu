@@ -11,7 +11,24 @@
 // instance of the kernels; noise modes 'precomp' (the diffusion magnitude
 // gk[u] depends on t only), 'elem' (7-10), 'net1' (14/15) and 'net2'
 // (18/19), an instance each too; with or without mult_y and geometric, at
-// every width.
+// every width. The latent mode of the JAX kernel (_config's `latent`,
+// :234-245; forward :346-352, _latent_u :362-372, backward :467-475) has
+// instances of its own (NZ_LAT): a LatentSDE's augmented system, drift
+// 'yy', the gk row sigma on the latent lanes and 0 on the KL lane (the
+// last, H-1), per-lane rows lat = (theta, mu, mask / sigma):
+//   lanes q < H-1:  y_q <- y_q + z3_q dt + gk_q dW_q  (drift linear,
+//                   diffusion raw: no tanh, no sigmoid(theta))
+//   lane H-1:       y_K <- y_K + 0.5 sum_{q<H-1} u_q^2 dt,
+//                   u_q = (z3_q - theta (mu - y_q)) / sigma
+// Each CTA pushes its own columns' u_q into every CTA of the cluster; after
+// one more cluster barrier the CTA owning the KL lane sums the whole row in
+// ascending q, so the rate's bits do not depend on the plan. In the
+// reverse loop the KL lane's cotangent gK (the sum of its gys: nothing else
+// reaches it) is kept a row in every CTA, and lane q takes
+//   dz3_q = gbar_q dt + (gK dt) u_q / sigma,
+//   dy_q += (gK dt) u_q theta / sigma,
+// the weight gradient being that of 'precomp' over the new dz3. A simple
+// design, not yet made fast.
 //
 // Each step u (the primes are precomputed outside the kernel):
 //   z1 = y Wy' + a'[u] + xh'[u] ('embm'), y Wy + a[u] ('yy'), xh[u] ('xt')
@@ -88,6 +105,12 @@
 
 namespace {
 
+// the noise code of the latent instances, past the shared modes' (its
+// instances are this source's own: SDE_INSTANCES has no latent axis)
+constexpr int NZ_LAT = SDE_NOISES;
+
+__host__ __device__ constexpr bool lat_noise(int nz) { return nz == NZ_LAT; }
+
 // The shared-memory layout of a CTA, offsets in floats (-1: not there):
 // the weights (take_wts). Forward: the state y [R4][sH]; the activations
 // [2][R4][sHH] (ping-pong); the noise net's output [R4][U] and (net2)
@@ -100,11 +123,14 @@ namespace {
 // partials of the back products [NI+2][R4][sW]; the noise net's: the
 // cotangent of its output [R4][U], (net2) of its hidden layer [R4][U], and
 // the state's [R4][U]; the streams xh', a', dW, gys [2][R4][U], gk; the
-// reduction's [ET / 32].
+// reduction's [ET / 32]. The latent instances also take the rows lat
+// [3][U] (theta, mu, mask / sigma: own columns); the forward the row of u
+// [R4][sH] (every CTA's columns), the backward the KL lane's cotangent
+// [R4] and its gys column [2][R4].
 struct EmLayout {
   WtsAt w;
   long long y, h, e, z3, dz, gbar, pd, gn, hn, tq, tq1, tdy, xh, a, dw, gy,
-      gk, red, total;
+      gk, red, lat, ut, gkl, gkb, total;
 };
 
 __host__ __device__ inline EmLayout em_layout(const SdeDims& d,
@@ -116,12 +142,16 @@ __host__ __device__ inline EmLayout em_layout(const SdeDims& d,
   L.w = take_wts(take, d, p, g);
   L.e = L.z3 = L.dz = L.gbar = L.pd = L.gy = L.red = -1;
   L.gn = L.hn = L.tq = L.tq1 = L.tdy = -1;
+  L.lat = L.ut = L.gkl = L.gkb = -1;
   const bool net = net_noise(d.noise), net2 = d.noise == NZ_NET2;
+  const bool lat = lat_noise(d.noise);
+  if (lat) L.lat = take(3 * (long long)g.U);
   if (!bwd) {
     L.y = take(R4 * g.sH);
     L.h = take(2 * R4 * g.sHH);
     if (net) L.gn = take(R4 * g.U);
     if (net2) L.hn = take(R4 * g.sH);
+    if (lat) L.ut = take(R4 * g.sH);
   } else {
     L.y = take(2 * R4 * g.sH);
     L.h = take(2 * (NI + 1) * R4 * g.sHH);
@@ -137,6 +167,10 @@ __host__ __device__ inline EmLayout em_layout(const SdeDims& d,
     if (net2) L.tq1 = take(R4 * g.U);
     L.gy = take(2 * R4 * g.U);
     L.red = take(ET / 32);
+    if (lat) {
+      L.gkl = take(R4);
+      L.gkb = take(2 * R4);
+    }
   }
   L.xh = take(2 * R4 * g.UH);
   L.a = take(2 * (long long)g.UH);
@@ -144,6 +178,16 @@ __host__ __device__ inline EmLayout em_layout(const SdeDims& d,
   L.gk = take(2 * (long long)g.U);
   L.total = take(0);
   return L;
+}
+
+// the latent rows' own columns into sl [3][U] (member k = blockIdx.y's
+// lat [3][H])
+__device__ __forceinline__ void load_lat(float* sl, const float* lat,
+                                         const SdeDims& d, const Cta& c,
+                                         int U) {
+  const float* src = lat + (size_t)blockIdx.y * 3 * d.H + c.u0;
+  for (int i = threadIdx.x; i < 3 * c.nu; i += ET)
+    sl[(i / c.nu) * U + i % c.nu] = src[(size_t)(i / c.nu) * d.H + i % c.nu];
 }
 
 // ---------------------------------------------------------------------------
@@ -160,8 +204,8 @@ em_fwd_kernel(SdeDims dd, SdePlan pp, const float* __restrict__ y0,
               const float* __restrict__ bi, const float* __restrict__ wo,
               const float* __restrict__ bo, const float* __restrict__ wn1,
               const float* __restrict__ wn2, const float* __restrict__ bn2,
-              float* __restrict__ ys, float* __restrict__ nbs,
-              float* __restrict__ nhs) {
+              const float* __restrict__ lat, float* __restrict__ ys,
+              float* __restrict__ nbs, float* __restrict__ nhs) {
   extern __shared__ float4 smem4[];
   float* s = reinterpret_cast<float*>(smem4);
   const SdeDims d = with_modes<DR, NZ>(dd);
@@ -191,9 +235,12 @@ em_fwd_kernel(SdeDims dd, SdePlan pp, const float* __restrict__ y0,
   float* gb = s + L.gk;
   float* gn = s + L.gn;
   float* hn = s + L.hn;
+  float* sl = s + L.lat;
+  float* ut = s + L.ut;
   const Grp all{0, ET};
   for (int i = threadIdx.x; i < nr * H; i += ET)
     y[(i / H) * sH + i % H] = y0[(size_t)(kb + row0) * H + i];
+  if constexpr (lat_noise(NZ)) load_lat(sl, lat, d, c, U);
   // step u's streams into slot u & 1 (those of the instance's modes)
   auto prefetch = [&](int u) {
     const int b = u & 1;
@@ -277,29 +324,58 @@ em_fwd_kernel(SdeDims dd, SdePlan pp, const float* __restrict__ y0,
     }
     // z3, own columns, and the step's update of y there, into every CTA
     const float* hl = h + (NI & 1) * htile;
-    mm(all, hl, sHH, HH, w.wo, w.lwo, GW, nr, c.nu,
-       [&](int r, int n, float acc) {
-         const int col = u0 + n;
-         const float yv = y[r * sH + col];
-         float z3 = acc + w.bo[n];
-         if (geometric) z3 *= tanhf(yv);
-         const float f = tanhf(z3);
-         float base;
-         if constexpr (NZ == NZ_PRE)
-           base = gu[n];
-         else if constexpr (NZ == NZ_ELEM)
-           base = elem_base(d.elem, yv);
-         else
-           base = gn[r * U + n];
-         float graw = base;
-         if (mult_y) graw *= yv;
-         const float gg = tanhf(sth * graw);
-         const float yn = yv + f * dt + gg * wu[r * nu + n];
-         push(cs, y, r * sH + col, yn);
-         const size_t o = ((size_t)(km + u) * d.B + row0 + r) * H + col;
-         ys[o] = yn;
-         if constexpr (net_noise(NZ)) nbs[o] = base;
-       });
+    if constexpr (lat_noise(NZ)) {
+      // the latent lanes: linear drift, raw diffusion; u_q into every CTA
+      mm(all, hl, sHH, HH, w.wo, w.lwo, GW, nr, c.nu,
+         [&](int r, int n, float acc) {
+           const int col = u0 + n;
+           if (col == H - 1) return;
+           const float yv = y[r * sH + col];
+           const float z3 = acc + w.bo[n];
+           push(cs, ut, r * sH + col,
+                (z3 - sl[n] * (sl[U + n] - yv)) * sl[2 * U + n]);
+           const float yn = yv + z3 * dt + gu[n] * wu[r * nu + n];
+           push(cs, y, r * sH + col, yn);
+           ys[((size_t)(km + u) * d.B + row0 + r) * H + col] = yn;
+         });
+      cluster_or_block_sync(cs);
+      // the KL lane: its CTA sums the row of u in ascending q
+      const int nk = H - 1 - u0;
+      if (nk >= 0 && nk < nu)
+        for (int r = threadIdx.x; r < nr; r += ET) {
+          const float* ur = ut + r * sH;
+          float acc = 0.f;
+          for (int q = 0; q < H - 1; ++q) acc = fmaf(ur[q], ur[q], acc);
+          const float yv = y[r * sH + H - 1];
+          const float yn = yv + (0.5f * acc) * dt + gu[nk] * wu[r * nu + nk];
+          push(cs, y, r * sH + H - 1, yn);
+          ys[((size_t)(km + u) * d.B + row0 + r) * H + H - 1] = yn;
+        }
+    } else {
+      mm(all, hl, sHH, HH, w.wo, w.lwo, GW, nr, c.nu,
+         [&](int r, int n, float acc) {
+           const int col = u0 + n;
+           const float yv = y[r * sH + col];
+           float z3 = acc + w.bo[n];
+           if (geometric) z3 *= tanhf(yv);
+           const float f = tanhf(z3);
+           float base;
+           if constexpr (NZ == NZ_PRE)
+             base = gu[n];
+           else if constexpr (NZ == NZ_ELEM)
+             base = elem_base(d.elem, yv);
+           else
+             base = gn[r * U + n];
+           float graw = base;
+           if (mult_y) graw *= yv;
+           const float gg = tanhf(sth * graw);
+           const float yn = yv + f * dt + gg * wu[r * nu + n];
+           push(cs, y, r * sH + col, yn);
+           const size_t o = ((size_t)(km + u) * d.B + row0 + r) * H + col;
+           ys[o] = yn;
+           if constexpr (net_noise(NZ)) nbs[o] = base;
+         });
+    }
     cp_async_wait_all();
     cluster_or_block_sync(cs);
   }
@@ -331,7 +407,8 @@ em_bwd_kernel(SdeDims dd, SdePlan pp, const float* __restrict__ y0,
               const float* __restrict__ wy, const float* __restrict__ wi,
               const float* __restrict__ bi, const float* __restrict__ wo,
               const float* __restrict__ bo, const float* __restrict__ wn1,
-              const float* __restrict__ wn2, const float* __restrict__ nbs,
+              const float* __restrict__ wn2, const float* __restrict__ lat,
+              const float* __restrict__ nbs,
               const float* __restrict__ nhs, float* __restrict__ dxh,
               float* __restrict__ dy0, float* __restrict__ hs,
               float* __restrict__ es, float* __restrict__ dz3s,
@@ -374,6 +451,10 @@ em_bwd_kernel(SdeDims dd, SdePlan pp, const float* __restrict__ y0,
   float* tq = s + L.tq;
   float* tq1 = s + L.tq1;
   float* tdy = s + L.tdy;
+  float* sl = s + L.lat;
+  float* gkl = s + L.gkl;
+  float* gkb = s + L.gkb;
+  if constexpr (lat_noise(NZ)) load_lat(sl, lat, d, c, U);
   // y_s (s >= -1, y_{-1} = y0) lives in slot (s + 2) & 1
   auto yslot = [&](int t) { return yb + ((t + 2) & 1) * ytile; };
   auto prefetch_y = [&](int t) {
@@ -397,9 +478,13 @@ em_bwd_kernel(SdeDims dd, SdePlan pp, const float* __restrict__ y0,
     copy_rows(gyb + b * wtile, nu,
               gys + ((size_t)(km + t) * B + row0) * H + u0, H, nu, nr,
               true);
-    if (NZ == NZ_PRE)
+    if (NZ == NZ_PRE || lat_noise(NZ))
       copy_rows(gb + b * U, nu, gk + (size_t)(km + t) * H + u0, nu, nu, 1,
                 true);
+    // the KL lane's gys column
+    if (lat_noise(NZ))
+      copy_rows(gkb + b * R4, 1,
+                gys + ((size_t)(km + t) * B + row0) * H + H - 1, H, 1, nr);
   };
   if (M > 0) {
     prefetch(M - 1);
@@ -429,6 +514,10 @@ em_bwd_kernel(SdeDims dd, SdePlan pp, const float* __restrict__ y0,
     // step u-1's first row, step u's
     const size_t ov = ((size_t)(km + u - 1) * B + row0);
     const size_t oc = ((size_t)(km + u) * B + row0);
+    // the KL lane's cotangent after step u-1 (read after the phases'
+    // barriers)
+    if (lat_noise(NZ) && rec)
+      for (int r = tid; r < nr; r += ET) gkl[r] += gkb[sv * R4 + r];
 
     for (int ph = 0; ph < NI + 2; ++ph) {
       // CS > 1: the chain's previous partial, summed over the cluster in
@@ -560,7 +649,23 @@ em_bwd_kernel(SdeDims dd, SdePlan pp, const float* __restrict__ y0,
       if (DR != DR_XT && cs > 1 && chain)
         gv += peer_sum(cs, pd + (NI + 1) * ptile, r * sW + u0 + k);
       if (net_noise(NZ) && chain) gv += tdy[ix];
-      if (rec) {
+      if constexpr (lat_noise(NZ)) {
+        if (rec) {
+          // back through the raw diffusion and the linear drift, and (the
+          // KL lane's cotangent through u_q) the rate
+          gv += gyu[i];
+          const float y = yv[r * sH + u0 + k];
+          const float uq = (z3[ix] - sl[k] * (sl[U + k] - y)) * sl[2 * U + k];
+          const float df = gv * dt;
+          const float du = (gkl[r] * dt) * uq;
+          const float dz3l = (u0 + k < H - 1 ? df : 0.f) + du * sl[2 * U + k];
+          const size_t o = (ov + r) * H + u0 + k;
+          dz[ix] = dz3l;
+          dz3s[o] = dz3l;
+          qs[o] = gv * wu[i];
+          gv += du * (sl[k] * sl[2 * U + k]);
+        }
+      } else if (rec) {
         gv += gyu[i];
         const float y = yv[r * sH + u0 + k];
         const float z3l = z3[ix];
@@ -631,18 +736,25 @@ em_bwd_kernel(SdeDims dd, SdePlan pp, const float* __restrict__ y0,
 // The instance of a launch: the level's (a compile-time fact: the main
 // paths' level 0 reads the weight slices from shared memory) and the drift
 // and noise modes'
+// (and the latent instances', drift 'yy' only)
 using FwdKernel = decltype(&em_fwd_kernel<false, DR_EMBM, NZ_PRE>);
 using BwdKernel = decltype(&em_bwd_kernel<false, DR_EMBM, NZ_PRE>);
 
 inline FwdKernel fwd_kernel(const SdeDims& d, int level) {
   static const FwdKernel k[2][SDE_DRIFTS][SDE_NOISES] =
       SDE_INSTANCES(em_fwd_kernel);
+  static const FwdKernel kl[2] = {em_fwd_kernel<false, DR_YY, NZ_LAT>,
+                                  em_fwd_kernel<true, DR_YY, NZ_LAT>};
+  if (lat_noise(d.noise)) return kl[level ? 1 : 0];
   return k[level ? 1 : 0][d.drift][d.noise];
 }
 
 inline BwdKernel bwd_kernel(const SdeDims& d, int level) {
   static const BwdKernel k[2][SDE_DRIFTS][SDE_NOISES] =
       SDE_INSTANCES(em_bwd_kernel);
+  static const BwdKernel kl[2] = {em_bwd_kernel<false, DR_YY, NZ_LAT>,
+                                  em_bwd_kernel<true, DR_YY, NZ_LAT>};
+  if (lat_noise(d.noise)) return kl[level ? 1 : 0];
   return k[level ? 1 : 0][d.drift][d.noise];
 }
 
@@ -663,29 +775,41 @@ inline int plan_active(const SdeDims& d, const SdePlan& q, int backward) {
 
 // The plan of a launch (sde_plan): a step is one MLP evaluation, NI + 2
 // phases (and, in the backward, its pointwise part; net2's forward with no
-// inner layer one more), one cluster barrier a phase, one diffusion
-// evaluation.
+// inner layer one more; the latent forward one more, the KL lane's, with a
+// cluster barrier), one cluster barrier a phase, one diffusion evaluation.
 inline SdePlan em_plan(const SdeDims& d, int backward) {
-  const int extra = !backward && d.noise == NZ_NET2 && d.NI == 0;
+  const int lat = !backward && lat_noise(d.noise);
+  const int extra = (!backward && d.noise == NZ_NET2 && d.NI == 0) + lat;
   return sde_plan(
-      d, backward, StepShape{1, d.NI + 2 + backward + extra, d.NI + 2, 1},
+      d, backward,
+      StepShape{1, d.NI + 2 + backward + extra, d.NI + 2 + lat, 1},
       [&](const SdePlan& q) { return em_layout(d, q, backward).total; },
       [&](const SdePlan& q) { return plan_active(d, q, backward); });
 }
 
+// the modes this source's instances take: the shared ones, and the latent
+// mode with drift 'yy'
+inline bool em_modes_valid(int drift, int noise, int elem) {
+  return sde_modes_valid(drift, noise, elem) ||
+         (lat_noise(noise) && drift == DR_YY);
+}
+
+// the latent mode without mult_y and geometric, on a KL lane and at least
+// one latent lane
 inline bool em_valid(const SdeDims& d) {
-  return sde_valid(d) && sde_modes_valid(d.drift, d.noise, d.elem);
+  return sde_valid(d) && em_modes_valid(d.drift, d.noise, d.elem) &&
+         (!lat_noise(d.noise) || (!d.mult_y && !d.geometric && d.H >= 2));
 }
 
 struct FwdArgs {
   const float *y0, *xh, *dw, *a, *gk, *dts, *theta, *wy, *wi, *bi, *wo, *bo,
-      *wn1, *wn2, *bn2;
+      *wn1, *wn2, *bn2, *lat;
   float *ys, *nb, *nh;
 };
 
 struct BwdArgs {
   const float *y0, *ys, *gys, *xh, *dw, *a, *gk, *dts, *theta, *wy, *wi,
-      *bi, *wo, *bo, *wn1, *wn2, *nb, *nh;
+      *bi, *wo, *bo, *wn1, *wn2, *lat, *nb, *nh;
   float *dxh, *dy0, *hs, *es, *dz3, *q, *dn, *dz2, *p_th, *dtheta;
 };
 
@@ -699,7 +823,7 @@ int run_fwd(const SdeDims& d, const FwdArgs& A, cudaStream_t s, int* active,
   return launch_clusters(fwd_kernel(d, p.level), p.cs, sde_ctas(d, p), d.K,
                          p.bytes, s, active, go, d, p, A.y0, A.xh, A.dw, A.a,
                          A.gk, A.dts, A.theta, A.wy, A.wi, A.bi, A.wo, A.bo,
-                         A.wn1, A.wn2, A.bn2, A.ys, A.nb, A.nh);
+                         A.wn1, A.wn2, A.bn2, A.lat, A.ys, A.nb, A.nh);
 }
 
 int run_bwd(const SdeDims& d, const BwdArgs& A, cudaStream_t s, int* active,
@@ -712,7 +836,8 @@ int run_bwd(const SdeDims& d, const BwdArgs& A, cudaStream_t s, int* active,
   const int err = launch_clusters(
       bwd_kernel(d, p.level), p.cs, ctas, d.K, p.bytes, s, active, go, d, p,
       A.y0, A.ys, A.gys, A.xh, A.dw, A.a, A.gk, A.dts, A.theta, A.wy, A.wi,
-      A.bi, A.wo, A.bo, A.wn1, A.wn2, A.nb, A.nh, A.dxh, A.dy0, A.hs, A.es,
+      A.bi, A.wo, A.bo, A.wn1, A.wn2, A.lat, A.nb, A.nh, A.dxh, A.dy0, A.hs,
+      A.es,
       A.dz3, A.q, A.dn, A.dz2, A.p_th);
   if (err || !go) return err;
   // d theta of each member: its CTAs' partials summed in a fixed order
@@ -765,7 +890,7 @@ extern "C" {
 // (above the device's limit when no plan fits).
 long long fused_em_smem_bytes(int B, int H, int HH, int n_inner, int drift,
                               int noise, int members, int backward) {
-  if (!sde_modes_valid(drift, noise, 7) || members < 1) return -1;
+  if (!em_modes_valid(drift, noise, 7) || members < 1) return -1;
   const SdeDims d{1, B, H, HH, n_inner, 0, 0, drift, noise, 0, members};
   return em_plan(d, backward).bytes;
 }
@@ -776,7 +901,7 @@ long long fused_em_smem_bytes(int B, int H, int HH, int n_inner, int drift,
 // a CTA.
 int fused_em_plan(int B, int H, int HH, int n_inner, int drift, int noise,
                   int members, int backward, int field) {
-  if (!sde_modes_valid(drift, noise, 7) || members < 1)
+  if (!em_modes_valid(drift, noise, 7) || members < 1)
     return -(int)cudaErrorInvalidValue;
   const SdeDims d{1, B, H, HH, n_inner, 0, 0, drift, noise, 9, members};
   const SdePlan p = em_plan(d, backward);
@@ -821,19 +946,22 @@ const char* fused_em_error_string(int err) {
 // outputs nb [M][B][H] and (net2) hidden activations nh [M][B][H], each
 // [K][...] as every input but dts [M] (member k's weights, y0, xh, dW, a
 // and gk at k times a member's size). A tensor a mode does not take is null: xh in 'yy'; a and wy in 'xt'; gk in 'elem'
-// (the an1 rows in the nets); wn1 (wn2, bn2) outside the nets (net1).
+// (the an1 rows in the nets); wn1 (wn2, bn2) outside the nets (net1); lat
+// ([K][3][H]: theta, mu, mask / sigma) outside the latent mode (noise
+// NZ_LAT, whose H includes the KL lane).
 int fused_em_fwd(const float* y0, const float* xh, const float* dw,
                  const float* a, const float* gk, const float* dts,
                  const float* theta, const float* wy, const float* wi,
                  const float* bi, const float* wo, const float* bo,
                  const float* wn1, const float* wn2, const float* bn2,
-                 float* ys, float* nb, float* nh, int M, int B, int H, int HH,
+                 const float* lat, float* ys, float* nb, float* nh, int M,
+                 int B, int H, int HH,
                  int n_inner, int mult_y, int geometric, int drift, int noise,
                  int elem, int members, void* stream) {
   const SdeDims d{M,     B,    H,    HH,      n_inner, mult_y,
                   geometric, drift, noise, elem, members};
-  const FwdArgs A{y0, xh, dw, a,  gk,  dts, theta, wy, wi,
-                  bi, wo, bo, wn1, wn2, bn2, ys,   nb, nh};
+  const FwdArgs A{y0, xh, dw,  a,   gk,  dts, theta, wy, wi, bi,
+                  wo, bo, wn1, wn2, bn2, lat, ys,    nb, nh};
   return run_fwd(d, A, (cudaStream_t)stream, nullptr, true);
 }
 
@@ -845,13 +973,14 @@ int fused_em_fwd(const float* y0, const float* xh, const float* dw,
 // cotangent by row, 'precomp'), dn [M][B][H] (the cotangent of the noise
 // net's first layer's output, the nets) and dz2 [M][B][H] (of its second
 // layer's output, net2), each of those [K][...] as dy0 and dxh; the nets
-// read the forward's nb and nh.
+// read the forward's nb and nh, the latent mode its rows lat.
 int fused_em_bwd(const float* y0, const float* ys, const float* gys,
                  const float* xh, const float* dw, const float* a,
                  const float* gk, const float* dts, const float* theta,
                  const float* wy, const float* wi, const float* bi,
                  const float* wo, const float* bo, const float* wn1,
-                 const float* wn2, const float* nb, const float* nh,
+                 const float* wn2, const float* lat, const float* nb,
+                 const float* nh,
                  float* dxh, float* dy0, float* hs, float* es, float* dz3,
                  float* q, float* dn, float* dz2, float* p_th, float* dtheta,
                  int M, int B, int H, int HH, int n_inner, int mult_y,
@@ -859,9 +988,9 @@ int fused_em_bwd(const float* y0, const float* ys, const float* gys,
                  void* stream) {
   const SdeDims d{M,     B,    H,    HH,      n_inner, mult_y,
                   geometric, drift, noise, elem, members};
-  const BwdArgs A{y0,  ys,  gys, xh,  dw,  a,  gk, dts,  theta, wy,
-                  wi,  bi,  wo,  bo,  wn1, wn2, nb, nh, dxh,  dy0,
-                  hs,  es,  dz3, q,   dn,  dz2, p_th, dtheta};
+  const BwdArgs A{y0,  ys,  gys, xh,  dw,  a,   gk, dts, theta, wy,
+                  wi,  bi,  wo,  bo,  wn1, wn2, lat, nb, nh,  dxh,
+                  dy0, hs,  es,  dz3, q,   dn,  dz2, p_th, dtheta};
   return run_bwd(d, A, (cudaStream_t)stream, nullptr, true);
 }
 

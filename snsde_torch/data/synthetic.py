@@ -1,17 +1,18 @@
-"""Synthetic sepsis-, UEA- and MuJoCo-shaped data (counterpart of
-snsde/data/synthetic.py:20-50, 72-100, the port's own copy: the same
-arrays, bit for bit, from the same seed).
+"""Synthetic sepsis-, Speech Commands-, UEA- and MuJoCo-shaped data
+(counterpart of snsde/data/synthetic.py:20-100, the port's own copy: the
+same arrays, bit for bit, from the same seed).
 
-The sepsis archive and the MuJoCo trajectory bank are not downloaded here,
-so the harnesses run on data with the same shapes (and, for sepsis, the
-same missingness and a learnable label).
+The sepsis and Speech Commands archives and the MuJoCo trajectory bank
+are not downloaded here, so the harnesses run on data with the same
+shapes (and, for sepsis, the same missingness and a learnable label).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["synthetic_sepsis", "synthetic_uea", "synthetic_mujoco"]
+__all__ = ["synthetic_sepsis", "synthetic_speech", "synthetic_uea",
+           "synthetic_mujoco"]
 
 
 def synthetic_sepsis(n: int = 4096, length: int = 72, channels: int = 34,
@@ -45,6 +46,27 @@ def synthetic_sepsis(n: int = 4096, length: int = 72, channels: int = 34,
     static = rng.normal(0, 1, (n, static_dim)).astype(np.float32)
     static[:, 0] += 0.5 * y
     return base, static, y, lengths.astype(np.int64), t.astype(np.float32)
+
+
+def synthetic_speech(n: int = 2048, length: int = 161, channels: int = 20,
+                     num_classes: int = 10, seed: int = 0):
+    """Speech Commands MFCC-shaped: [n, 161, 20], 10 classes (the
+    reference's speech_commands.py:54-57 shape). Class c adds a sinusoid of
+    frequency 2 + 1.5 c to the channels j with j % num_classes == c, over
+    0.5 N(0, 1) noise. Returns (X, y, lengths, t)."""
+    rng = np.random.default_rng(seed)
+    y = rng.integers(0, num_classes, n)
+    t = np.linspace(0, 1, length, dtype=np.float32)
+    X = 0.5 * rng.normal(0, 1, (n, length, channels)).astype(np.float32)
+    for c in range(num_classes):
+        idx = np.flatnonzero(y == c)
+        freq = 2.0 + c * 1.5
+        pattern = np.sin(2 * np.pi * freq * t)[None, :, None]
+        chans = (np.arange(channels) % num_classes) == c
+        X[idx[:, None], :, np.flatnonzero(chans)[None, :]] += \
+            pattern.transpose(0, 2, 1)
+    lengths = np.full(n, length, np.int64)
+    return X, y.astype(np.int64), lengths, t
 
 
 def synthetic_uea(n: int = 512, length: int = 100, channels: int = 3,

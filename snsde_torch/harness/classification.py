@@ -1,17 +1,23 @@
-"""Sepsis classification harness (counterpart of
-snsde/harness/classification.py:44-56, 110-252, 297-353 and 416-475).
+"""Sepsis and Speech Commands classification harnesses (counterpart of
+snsde/harness/classification.py:44-56, 110-475).
 
 The model name resolves to an (input_option, noise_option) pair of the
-7x20 grid; the sepsis model maps the static features to z0 through a
+7x20 grid. The sepsis model maps the static features to z0 through a
 two-layer encoder and reads the NeuralSDE's terminal state out through a
 BatchNorm head; training is binary BCE with pos_weight 10, selected on val
 AUROC, with the 100x gradient hook on the readout's last linear. The
-harness runs on synthetic sepsis-shaped data by default.
+speech model takes z0 from its initial network on the first observation
+(no static features, no intensity channels: 20 MFCC coefficients and
+time) and ten classes; training is softmax cross-entropy selected on val
+accuracy, with the same hook. The harnesses run on synthetic data of the
+benchmarks' shapes by default.
 
-`run_sepsis_ensemble` trains the reference's repeats of one cell (same
-data and split, fresh initial weights and training noise each) as one
-seed ensemble, its solve one member-axis launch; `run_all` walks the
-reference's experiment grid, the repeats of a cell solo or packed.
+`run_sepsis_ensemble` and `run_speech_ensemble` train the reference's
+repeats of one cell (same data and split, fresh initial weights and
+training noise each) as one seed ensemble, its solve one member-axis
+launch; `run_all` walks the reference's experiment grid, the repeats of a
+sepsis cell solo or packed, those of a speech cell solo (as the JAX
+package's run_all, which packs only sepsis cells).
 """
 
 from __future__ import annotations
@@ -28,9 +34,9 @@ from torch import nn
 
 from .. import resolve_device
 from ..data.common import preprocess_classification, stratified_split
-from ..data.synthetic import synthetic_sepsis
+from ..data.synthetic import synthetic_sepsis, synthetic_speech
 from ..fields import MODEL_NAME_GRID, DiffusionField
-from ..models.ensemble import InitialValueSeedEnsemble
+from ..models.ensemble import InitialValueSeedEnsemble, SeedEnsemble
 from ..models.neuralsde import NeuralSDE
 from ..nn.layers import make_linear
 from ..train.ensemble_loop import fit_classifier_ensemble
@@ -38,7 +44,8 @@ from ..train.loop import (FitResult, TrainConfig, fit_classifier,
                           readout_grad_hook)
 
 __all__ = ["parse_model_name", "make_sde_model", "InitialValueModel",
-           "HarnessConfig", "run_sepsis", "run_sepsis_ensemble", "run_all"]
+           "HarnessConfig", "run_sepsis", "run_sepsis_ensemble",
+           "run_speech", "run_speech_ensemble", "run_all"]
 
 _NEURALSDE_RE = re.compile(r"^neuralsde_(\d+)_(\d+)$")
 
@@ -249,6 +256,114 @@ def run_sepsis_ensemble(cfg: HarnessConfig = HarnessConfig(),
     return results
 
 
+SPEECH_CLASSES = 10
+
+
+def _speech_data(cfg: HarnessConfig, n: int, data_fn: Callable):
+    """The preprocessed speech splits: no intensity channels, unit time
+    steps (classification.py:263-268)."""
+    X, y, lengths, _ = data_fn(n=n, seed=cfg.dseed)
+    return preprocess_classification(
+        X, y, lengths, use_intensity=False, seed=cfg.dseed,
+        times=np.arange(X.shape[1], dtype=np.float32))
+
+
+def _speech_config(cfg: HarnessConfig, max_epochs) -> TrainConfig:
+    return TrainConfig(lr=cfg.lr, batch_size=cfg.batch_size,
+                       max_epochs=max_epochs or cfg.max_epochs,
+                       num_classes=SPEECH_CLASSES, step_mode="valaccuracy",
+                       seed=cfg.seed)
+
+
+def build_speech_model(cfg: HarnessConfig, input_channels: int, device):
+    """(NeuralSDE with z0 from its initial network, reg_subtree_fn), drawn
+    on the CPU from a generator seeded with cfg.seed, then moved to
+    `device`."""
+    gen = torch.Generator().manual_seed(cfg.seed)
+    model, reg_fn = make_sde_model(
+        cfg.model_name, input_channels, cfg.hidden_channels,
+        cfg.hidden_hidden_channels, cfg.num_hidden_layers,
+        output_channels=SPEECH_CLASSES, initial=True, method=cfg.method,
+        generator=gen)
+    return model.to(device), reg_fn
+
+
+def run_speech(cfg: HarnessConfig = HarnessConfig(), n: int = 2048,
+               data_fn: Callable = synthetic_speech,
+               max_epochs: Optional[int] = None,
+               device=None) -> FitResult:
+    """Speech Commands classification (classification.py:255-288): ten
+    classes, selected on val accuracy, z0 from the first observation. Runs
+    on CUDA unless `device` says otherwise."""
+    dev = resolve_device(device)
+    data = _speech_data(cfg, n, data_fn)
+    model, reg_fn = build_speech_model(cfg, data["input_channels"], dev)
+    times = data["times"]
+
+    def apply_fn(m, batch, generator):
+        return m(times, batch["coeffs"], batch["final_index"],
+                 generator=generator)
+
+    result = fit_classifier(
+        model, apply_fn, reg_fn, data["train"], data["val"], data["test"],
+        _speech_config(cfg, max_epochs),
+        grad_hook=readout_grad_hook("readout.linear2"))
+    if cfg.results_dir:
+        _save_results(cfg.results_dir, f"speech-{cfg.model_name}", result)
+    return result
+
+
+def build_speech_ensemble(cfg: HarnessConfig, input_channels: int,
+                          repeats: int, device) -> SeedEnsemble:
+    """`repeats` members of the speech model, drawn on the CPU from one
+    generator seeded with cfg.seed (member after member), then moved to
+    `device`."""
+    io, no = parse_model_name(cfg.model_name)
+    gen = torch.Generator().manual_seed(cfg.seed)
+
+    def make_field(g):
+        return DiffusionField(input_channels, cfg.hidden_channels,
+                              cfg.hidden_hidden_channels,
+                              cfg.num_hidden_layers, input_option=io,
+                              noise_option=no, generator=g)
+
+    model = SeedEnsemble(make_field, input_channels, cfg.hidden_channels,
+                         SPEECH_CLASSES, repeats, method=cfg.method,
+                         generator=gen)
+    return model.to(device)
+
+
+def run_speech_ensemble(cfg: HarnessConfig = HarnessConfig(),
+                        repeats: int = 5, n: int = 2048,
+                        data_fn: Callable = synthetic_speech,
+                        max_epochs: Optional[int] = None,
+                        device=None) -> List[FitResult]:
+    """The reference's repeats of one speech cell (same data and split,
+    fresh initial weights and training noise each repeat) trained as one
+    seed ensemble (classification.py:356-413): its solve one launch of the
+    member-axis kernels on CUDA. The 100x hook scales each member's
+    readouts[k].linear2 (member(k)'s module 2). Returns one FitResult per
+    repeat."""
+    dev = resolve_device(device)
+    data = _speech_data(cfg, n, data_fn)
+    model = build_speech_ensemble(cfg, data["input_channels"], repeats, dev)
+    times = data["times"]
+
+    def apply_fn(m, batch, generators):
+        return m(times, batch["coeffs"], batch["final_index"],
+                 generators=generators)                      # [K, B, 10]
+
+    results = fit_classifier_ensemble(
+        model, apply_fn, data["train"], data["val"], data["test"],
+        _speech_config(cfg, max_epochs),
+        member_grad_hook=readout_grad_hook("2.linear2"))
+    if cfg.results_dir:
+        for res in results:
+            _save_results(cfg.results_dir,
+                          f"speech-{cfg.model_name}-packed", res)
+    return results
+
+
 def run_all(task: str = "sepsis", models=("staticsde", "naivesde",
             "neurallsde", "neurallnsde", "neuralgsde"),
             hidden_list=(16, 32, 64, 128), layer_list=(1, 2, 3, 4),
@@ -257,15 +372,15 @@ def run_all(task: str = "sepsis", models=("staticsde", "naivesde",
             pack_repeats: bool = False, device=None):
     """The reference's experiment grid (classification.py:416-475):
     layers x hidden x models x repeats x {intensity, no intensity}, with
-    skip-if-exists resume through the records under `results_dir`. With
-    pack_repeats a cell's `repeats` replicas train as one seed ensemble
-    (run_sepsis_ensemble); else each repeat solo, seed = its number, on
-    the data of seed 0. Only the sepsis task is ported (run_speech is
-    ROADMAP Queue 1 item 10). Returns [(cell name, test metrics)]."""
-    if task != "sepsis":
-        raise NotImplementedError(
-            f"run_all task {task!r}: only 'sepsis' is ported (run_speech "
-            "is ROADMAP Queue 1 item 10)")
+    skip-if-exists resume through the records under `results_dir`, for
+    task 'sepsis' (run_sepsis) or 'speech' (run_speech, which takes no
+    intensity channels either way). With pack_repeats a sepsis cell's
+    `repeats` replicas train as one seed ensemble (run_sepsis_ensemble);
+    else, and for every speech cell, each repeat solo, seed = its number,
+    on the data of seed 0. Returns [(cell name, test metrics)]."""
+    if task not in ("sepsis", "speech"):
+        raise ValueError(f"run_all task {task!r}: 'sepsis' or 'speech'")
+    runner = run_sepsis if task == "sepsis" else run_speech
     results = []
     for use_intensity in intensities:
         for num_layers in layer_list:
@@ -278,7 +393,7 @@ def run_all(task: str = "sepsis", models=("staticsde", "naivesde",
                                 num_hidden_layers=num_layers,
                                 use_intensity=use_intensity,
                                 max_epochs=max_epochs)
-                    if pack_repeats and repeats > 1:
+                    if pack_repeats and task == "sepsis" and repeats > 1:
                         if os.path.exists(os.path.join(results_dir, name,
                                                        "0")):
                             continue
@@ -293,9 +408,9 @@ def run_all(task: str = "sepsis", models=("staticsde", "naivesde",
                         if os.path.exists(os.path.join(results_dir, name,
                                                        str(rep))):
                             continue
-                        res = run_sepsis(HarnessConfig(seed=rep, data_seed=0,
-                                                       **base),
-                                         n=n, device=device)
+                        res = runner(HarnessConfig(seed=rep, data_seed=0,
+                                                   **base),
+                                     n=n, device=device)
                         _save_results(results_dir, name, res)
                         results.append((name, res.test_metrics.as_dict()))
     return results

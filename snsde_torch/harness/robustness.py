@@ -3,9 +3,12 @@ snsde/harness/robustness.py:48-720: the solo loop and the seed-packed
 ensembles).
 
   * `ISTSClassifier`: seq layer (any name `registry.PORTED_NAMES` holds:
-    the Neural SDEs, the Neural CDEs and the plain recurrent baselines) ->
-    last step -> BatchNorm -> ReLU(fc1) -> fc2, nan_to_num on the logits;
-  * `train_ists_model`: softmax cross-entropy, the 100x gradient hook on fc2
+    the Neural SDEs, the LatentSDE, the Neural CDEs and the plain recurrent
+    baselines) -> last step -> BatchNorm -> ReLU(fc1) -> fc2, nan_to_num on
+    the logits; the LatentSDE's layer also gives its KL term;
+  * `train_ists_model`: softmax cross-entropy (plus kl_weight x the KL term
+    for the LatentSDE names, in training and evaluation, as the JAX loss
+    :186-191), the 100x gradient hook on fc2
     before a global-norm clip at 10 (optax's rule), Adam without weight
     decay, StepLR(10, 0.5) stepped once per epoch, patience-10 early stop
     on val accuracy and a restore of the best model (weights and BatchNorm
@@ -69,8 +72,9 @@ from ..train.schedule import StepLR
 
 __all__ = ["ISTSClassifier", "SweepConfig", "coeff_family",
            "preprocess_ists", "make_fixed_splits", "train_ists_model",
-           "ists_train_step", "predict_ists", "run_robustness_sweep",
-           "ISTSSeedEnsembleSDE", "train_ists_ensemble"]
+           "ists_loss", "ists_train_step", "predict_ists",
+           "run_robustness_sweep", "ISTSSeedEnsembleSDE",
+           "train_ists_ensemble"]
 
 CLIP_NORM = 10.0
 
@@ -136,11 +140,16 @@ class ISTSClassifier(nn.Module):
 
     def forward(self, seq, coeffs, *,
                 generator: Optional[torch.Generator] = None,
-                use_fused: bool = True):
-        out = self.layer(seq, coeffs, generator=generator,
-                         use_fused=use_fused)[0][:, -1, :]
-        h = torch.relu(self.fc1(self.norm(out)))
-        return torch.nan_to_num(self.fc2(h))
+                use_fused: bool = True, with_aux: bool = False):
+        """logits [B, K]; with `with_aux`, (logits, the layer's aux: the
+        LatentSDE's KL term, else None)."""
+        res = self.layer(seq, coeffs, generator=generator,
+                         use_fused=use_fused)
+        h = torch.relu(self.fc1(self.norm(res[0][:, -1, :])))
+        logits = torch.nan_to_num(self.fc2(h))
+        if with_aux:
+            return logits, res[2] if len(res) == 3 else None
+        return logits
 
 
 def make_fixed_splits(y: np.ndarray, seeds=(0, 1, 2, 3, 4),
@@ -166,6 +175,8 @@ class SweepConfig:
     max_epochs: int = 30
     patience: int = 10
     out_dir: str = "out"
+    # the KL term's weight in the LatentSDE names' loss
+    kl_weight: float = 1e-4
     # None -> each model family's default (rk4 for the CDE names)
     method: object = None
     # write the test predictions (y_true, y_pred, logits) as .npz beside
@@ -173,19 +184,31 @@ class SweepConfig:
     save_preds: bool = False
 
 
+def ists_loss(model: ISTSClassifier, batch, generator=None,
+              use_fused: bool = True, kl_weight: float = 1e-4):
+    """(cross-entropy over the batch + kl_weight x the layer's KL term when
+    it has one, logits)."""
+    logits, aux = model(batch["seq"], batch["coeffs"], generator=generator,
+                        use_fused=use_fused, with_aux=True)
+    loss = softmax_cross_entropy(logits, batch["y"])
+    if aux is not None:
+        loss = loss + kl_weight * aux
+    return loss, logits
+
+
 def ists_train_step(model: ISTSClassifier, optimizer, batch,
                     use_fused: bool = True,
-                    generator: Optional[torch.Generator] = None
-                    ) -> torch.Tensor:
-    """One update: cross-entropy over the whole (padded) batch, backward
-    (the fc2 hook, when registered, fires here), the global-norm clip at
-    CLIP_NORM, Adam. `generator` draws the model's training-time noise (a
-    stacked SeqRNN's inter-layer dropout). Returns the loss (no host
-    synchronisation)."""
+                    generator: Optional[torch.Generator] = None,
+                    kl_weight: float = 1e-4) -> torch.Tensor:
+    """One update: cross-entropy over the whole (padded) batch (plus the
+    weighted KL term of a LatentSDE), backward (the fc2 hook, when
+    registered, fires here), the global-norm clip at CLIP_NORM, Adam.
+    `generator` draws the model's training-time noise (an SDE's Brownian
+    paths, a stacked SeqRNN's inter-layer dropout). Returns the loss (no
+    host synchronisation)."""
 
     def loss_fn(m, b, gen):
-        logits = m(b["seq"], b["coeffs"], generator=gen, use_fused=use_fused)
-        return softmax_cross_entropy(logits, b["y"]), logits
+        return ists_loss(m, b, gen, use_fused, kl_weight)
 
     return train_step(model, optimizer, loss_fn, batch, generator,
                       clip_norm=CLIP_NORM)
@@ -198,10 +221,12 @@ def _to_device(arrays: Dict[str, np.ndarray], device) -> Dict:
 def train_ists_model(model: ISTSClassifier, data: Dict, y: np.ndarray,
                      splits, lr: float = 1e-3, batch_size: int = 64,
                      max_epochs: int = 30, patience: int = 10,
-                     verbose: bool = False, seed: int = 0):
+                     verbose: bool = False, seed: int = 0,
+                     kl_weight: float = 1e-4):
     """Train one classifier on its device; returns (the best-val model,
     its test metrics). `seed` seeds the batch order and the generator of
-    the model's noise in training and evaluation."""
+    the model's noise in training and evaluation; `kl_weight` weighs a
+    LatentSDE's KL term in the loss."""
     device = next(model.parameters()).device
     arrays = {"seq": data["seq"], "coeffs": data["coeffs"],
               "y": y.astype(np.int64)}
@@ -217,8 +242,8 @@ def train_ists_model(model: ISTSClassifier, data: Dict, y: np.ndarray,
         logits_all, ys, losses, ns = [], [], [], []
         with torch.no_grad():
             for batch, nv in iterate_batches(d, batch_size):
-                lo = model(batch["seq"], batch["coeffs"], generator=gen)
-                losses.append(softmax_cross_entropy(lo, batch["y"]) * nv)
+                loss, lo = ists_loss(model, batch, gen, kl_weight=kl_weight)
+                losses.append(loss * nv)
                 logits_all.append(lo[:nv])
                 ys.append(batch["y"][:nv])
                 ns.append(nv)
@@ -235,7 +260,8 @@ def train_ists_model(model: ISTSClassifier, data: Dict, y: np.ndarray,
     for epoch in range(max_epochs):
         for batch, _ in iterate_batches(split_data["train"], batch_size,
                                         rng=rng):
-            ists_train_step(model, optimizer, batch, generator=gen)
+            ists_train_step(model, optimizer, batch, generator=gen,
+                            kl_weight=kl_weight)
         for group in optimizer.param_groups:
             group["lr"] = sched.step()
         val_m = evaluate(split_data["val"])
@@ -340,7 +366,8 @@ def run_robustness_sweep(cfg: SweepConfig = SweepConfig(), n: int = 256,
                     model, test_m = train_ists_model(
                         model, data, y, splits, lr=cfg.lr,
                         batch_size=cfg.batch_size, max_epochs=cfg.max_epochs,
-                        patience=cfg.patience, seed=seed)
+                        patience=cfg.patience, seed=seed,
+                        kl_weight=cfg.kl_weight)
                     if models is not None:
                         models[(rate, model_name, seed)] = model
                     rec = {"dataset": dataset_name, "missing_rate": rate,

@@ -31,8 +31,8 @@ import numpy as np
 import torch
 
 __all__ = ["PRECOMP_NO", "ELEM_NO", "MULT_Y_NO", "DRIFT_BY_IO",
-           "DRIFT_CODE", "NOISE_CODE", "SolverLib", "sde_modes",
-           "noise_mode", "supports_fused", "check_supported",
+           "DRIFT_CODE", "NOISE_CODE", "LATENT_CODE", "SolverLib",
+           "sde_modes", "noise_mode", "supports_fused", "check_supported",
            "check_tensors", "kernel_dims", "wgrad_partial_sizes",
            "precomp_gk", "drift_weights",
            "drift_rows", "noise_rows", "noise_weights", "elem_base",
@@ -51,6 +51,9 @@ DRIFT_BY_IO = {0: "xt", 1: "yy", 2: "embm", 3: "yy", 4: "embm", 5: "yy",
 # the kernels' codes of the modes (csrc/sde_hopper.cuh: DR_*, NZ_*)
 DRIFT_CODE = {"embm": 0, "yy": 1, "xt": 2}
 NOISE_CODE = {"precomp": 0, "elem": 1, "net1": 2, "net2": 3}
+# the noise code of the EM kernels' latent instances (csrc/fused_em.cu:
+# NZ_LAT), which the libraries' plans and launches take in its place
+LATENT_CODE = 4
 
 
 def noise_mode(no: int) -> str:
@@ -534,34 +537,49 @@ class SdeModes(NamedTuple):
     """A launch's modes as the kernels and the plain versions take them:
     `flags` the plain versions' keywords (mult_y, geometric, drift, noise,
     elem), `ints` SDE_INT_NAMES's five modes, `codes` (drift, noise) as
-    the plans take them, and `need`: for each tensor the modes decide
-    (a stage's xh0, a1, gk2 ... by its own name too), whether they take
-    it."""
+    the plans take them (the latent mode's noise code LATENT_CODE), `need`:
+    for each tensor the modes decide (a stage's xh0, a1, gk2 ... by its own
+    name too; the latent rows `lat`), whether they take it, and `latent`:
+    the EM pair's latent mode (the plain versions' `latent` keyword)."""
     flags: dict
     ints: tuple
     codes: tuple
     need: dict
+    latent: bool = False
 
 
 @functools.lru_cache(maxsize=None)
-def sde_mode(mult_y, geometric, drift, noise, elem) -> SdeModes:
+def sde_mode(mult_y, geometric, drift, noise, elem,
+             latent: bool = False) -> SdeModes:
     """The SdeModes of a launch, made once per distinct modes; ValueError
-    on a mode the kernels do not know. Treat the result as read-only."""
+    on a mode the kernels do not know, and on a latent mode other than the
+    JAX kernel's one (snsde/kernels/fused_em.py:1385-1386): drift 'yy' with
+    noise 'precomp', without mult_y and geometric. Treat the result as
+    read-only."""
     if drift not in DRIFT_CODE or noise not in NOISE_CODE:
         raise ValueError(f"fused SDE kernels: no mode ({drift}, {noise})")
     if noise == "elem" and elem not in (7, 8, 9, 10):
         raise ValueError(f"fused SDE kernels: elem option {elem} is not 7-10")
+    if latent and (drift, noise, bool(mult_y), bool(geometric)) != (
+            "yy", "precomp", False, False):
+        raise ValueError(
+            f"fused SDE kernels: the latent mode takes drift 'yy' and noise "
+            f"'precomp' without mult_y and geometric; got ({drift}, {noise}"
+            f", mult_y={bool(mult_y)}, geometric={bool(geometric)})")
     need = {"xh": drift != "yy", "a": drift != "xt", "wy": drift != "xt",
             "gk": noise != "elem", "wn1": is_net(noise),
-            "wn2": noise == "net2", "bn2": noise == "net2"}
+            "wn2": noise == "net2", "bn2": noise == "net2",
+            "lat": bool(latent)}
     need.update({f"{k}{i}": need[k] for k, n in (("xh", 2), ("a", 2),
                                                   ("gk", 3))
                  for i in range(n)})
     codes = mode_codes(drift, noise)
+    if latent:
+        codes = (codes[0], LATENT_CODE)
     return SdeModes({"mult_y": bool(mult_y), "geometric": bool(geometric),
                      "drift": drift, "noise": noise, "elem": int(elem)},
                     (int(bool(mult_y)), int(bool(geometric)), *codes,
-                     int(elem)), codes, need)
+                     int(elem)), codes, need, bool(latent))
 
 
 def check_mode(label: str, modes: SdeModes, **tensors) -> None:
@@ -571,7 +589,8 @@ def check_mode(label: str, modes: SdeModes, **tensors) -> None:
     for name, t in tensors.items():
         if name in need and need[name] != (t is not None):
             raise ValueError(
-                f"{label} ({modes.flags['drift']}, {modes.flags['noise']}): "
+                f"{label} ({modes.flags['drift']}, {modes.flags['noise']}"
+                f"{', latent' if modes.latent else ''}): "
                 f"{name} {'missing' if need[name] else 'not taken'}")
 
 

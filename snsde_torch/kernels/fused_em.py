@@ -11,7 +11,14 @@ z1 = y Wy + a) or 'xt' (0: z1 = xh); noise mode 'precomp' (a diffusion
 magnitude that depends on t only: noise_option 0-6, 11-13, 16, 17), 'elem'
 (7-10: sqrt, cube, sigmoid, relu of y), 'net1' (14/15: y Wn1 + an1) or
 'net2' (18/19: relu(relu(y Wn1 + an1) Wn2 + bn2)); mult_y and geometric
-on or off. Each drift and noise mode is an instance of the kernels.
+on or off. Each drift and noise mode is an instance of the kernels. The
+latent mode (`_config`'s `latent`, :234-245; forward :346-352, `_latent_u`
+:362-372, backward :467-475) solves a LatentSDE's augmented system: drift
+'yy' and noise 'precomp' with the drift output linear, the diffusion (the
+gk row, sigma on the latent lanes) applied raw, and on the last lane the
+Girsanov KL rate 0.5 sum_q u_q^2, u_q = (z3_q - theta (mu - y_q)) / sigma,
+from the rows `lat` = (theta, mu, mask / sigma); its own instances of the
+forward and the recurrence (`fused_latent_em_solve`).
 
 What bounds the kernels on the H100: at the main-path shape (B=1024, 71
 steps, H=49) the forward moves ~43 MB and does ~1 GFLOP of fp32 work
@@ -71,17 +78,22 @@ __all__ = ["fused_em_solve", "fused_em_inputs", "supports_fused", "FusedEM",
            "fused_em_backward_recurrence_reference",
            "fused_em_weight_grads_reference", "fused_em_plan",
            "force_em_plan", "FusedEMGrads", "FusedEMNetGrads", "EMNoise",
-           "EMStreams", "EMWeightGrads"]
+           "EMStreams", "EMWeightGrads", "fused_latent_em_solve",
+           "latent_inputs"]
 
 # launches of each CUDA kernel since the count was last set to 0: the
-# forward, the backward recurrence and the weight gradient, solo and (the
-# PACKED_ counts) with a member axis
+# forward, the backward recurrence and the weight gradient, solo, (the
+# PACKED_ counts) with a member axis and (the LATENT_ counts: the latent
+# instances; their weight gradient is that of 'precomp') solo in the
+# latent mode
 FWD_LAUNCHES = 0
 BWD_LAUNCHES = 0
 WGRAD_LAUNCHES = 0
 PACKED_FWD_LAUNCHES = 0
 PACKED_BWD_LAUNCHES = 0
 PACKED_WGRAD_LAUNCHES = 0
+LATENT_FWD_LAUNCHES = 0
+LATENT_BWD_LAUNCHES = 0
 
 
 class FusedEMGrads(NamedTuple):
@@ -159,16 +171,53 @@ def _row(gk, u):
     return None if gk is None else gk[u]
 
 
+def latent_mask(H: int, device=None) -> torch.Tensor:
+    """[H]: 1 on the latent lanes, 0 on the KL lane (the last)."""
+    m = torch.ones(H, dtype=torch.float32, device=device)
+    m[-1] = 0.0
+    return m
+
+
+def _latent_drift(z3, y, lat):
+    """The latent mode's drift: z3 (linear) on the latent lanes and the KL
+    rate 0.5 sum_q u_q^2 on the last, u = (z3 - theta (mu - y)) mask /
+    sigma from lat = (theta, mu, mask / sigma) [3, H] (the KL lane's u is 0:
+    its row of mask / sigma is)."""
+    th, mu, isg = lat
+    u = (z3 - th * (mu - y)) * isg
+    rate = 0.5 * (u * u).sum(-1, keepdim=True)
+    kl = torch.zeros_like(isg)
+    kl[-1] = 1.0
+    return z3 + rate * kl
+
+
+def _latent_back(gbar, y, z3, dt, dw, lat):
+    """Back through a latent step y' = y + f dt + gk dW given gbar = the
+    cotangent of y' (the JAX kernel's :467-475): (dz3, y's cotangent
+    through the KL rate, q = the gk row's cotangent by batch row). The KL
+    lane's cotangent dt gbar_KL fans out through each u_q to z3_q (/ sigma)
+    and y_q (theta / sigma)."""
+    th, mu, isg = lat
+    u = (z3 - th * (mu - y)) * isg
+    df = gbar * dt
+    du = df[:, -1:] * u
+    return (df * latent_mask(y.shape[-1], y.device) + du * isg,
+            du * (th * isg), gbar * dw)
+
+
 def fused_em_forward_reference(y0, xh, dw, a, gk, dts, theta, wy, w_inner,
                                b_inner, wout, bo, wn1=None, wn2=None,
-                               bn2=None, *, mult_y: bool, geometric: bool,
-                               drift: str = "embm", noise: str = "precomp",
-                               elem: int = 0, relu=torch.relu):
+                               bn2=None, lat=None, *, mult_y: bool,
+                               geometric: bool, drift: str = "embm",
+                               noise: str = "precomp", elem: int = 0,
+                               latent: bool = False, relu=torch.relu):
     """Eager EM loop over the field's drift and diffusion: (ys [M, B, H], y
     after each step; EMNoise in the nets' modes, else None). Weights in
     [in, out] layout; theta [1]; gk holds the an1 rows in the nets' modes.
-    Every relu of the drift MLP and the noise net is `relu` (a stand-in
-    may probe the pre-activations)."""
+    In the latent mode (lat: the rows theta, mu, mask / sigma [3, H]) the
+    drift is z3 with the KL rate on the last lane and the diffusion gk
+    raw. Every relu of the drift MLP and the noise net is `relu` (a
+    stand-in may probe the pre-activations)."""
     sth = torch.sigmoid(theta.reshape(()))
     y = y0
     ys, nbs, nhs = [], [], []
@@ -177,6 +226,10 @@ def fused_em_forward_reference(y0, xh, dw, a, gk, dts, theta, wy, w_inner,
         for l in range(w_inner.shape[0]):
             h = relu(h @ w_inner[l] + b_inner[l])
         z3 = h @ wout + bo
+        if latent:
+            y = y + _latent_drift(z3, y, lat) * dts[u] + gk[u] * dw[u]
+            ys.append(y)
+            continue
         if geometric:
             z3 = z3 * torch.tanh(y)
         f = torch.tanh(z3)
@@ -207,17 +260,19 @@ def _noise_state(ns, u, y, gk, noise, elem, wn1, wn2, bn2, relu):
 
 def fused_em_backward_reference(y0, ys, gys, xh, dw, a, gk, dts, theta, wy,
                                 w_inner, b_inner, wout, bo, wn1=None,
-                                wn2=None, bn2=None, *, mult_y: bool,
-                                geometric: bool, drift: str = "embm",
-                                noise: str = "precomp", elem: int = 0,
+                                wn2=None, bn2=None, lat=None, *,
+                                mult_y: bool, geometric: bool,
+                                drift: str = "embm", noise: str = "precomp",
+                                elem: int = 0, latent: bool = False,
                                 ns: Optional[EMNoise] = None,
                                 relu=torch.relu):
     """Eager reverse loop mirroring the JAX `_bwd_kernel`: recompute each
     step from the state before it (the nets' outputs and hidden
     activations read from the forward's `ns`), then back through the
-    diffusion bound, mult_y, the noise base, the drift MLP and the drift
-    input. `relu` as in the forward; its derivative is read from its
-    output (> 0). FusedEMGrads, FusedEMNetGrads in the nets' modes."""
+    diffusion bound, mult_y, the noise base (in the latent mode: the KL
+    rate and the raw diffusion), the drift MLP and the drift input. `relu`
+    as in the forward; its derivative is read from its output (> 0).
+    FusedEMGrads, FusedEMNetGrads in the nets' modes."""
     sth = torch.sigmoid(theta.reshape(()))
     n_inner = w_inner.shape[0]
     gbar = torch.zeros_like(y0)
@@ -238,39 +293,43 @@ def fused_em_backward_reference(y0, ys, gys, xh, dw, a, gk, dts, theta, wy,
         for l in range(n_inner):
             hs.append(relu(hs[-1] @ w_inner[l] + b_inner[l]))
         z3l = hs[-1] @ wout + bo
-        ty = torch.tanh(y)
-        f = torch.tanh(z3l * ty if geometric else z3l)
-        base, hn = _noise_state(ns, u, y, gk, noise, elem, wn1, wn2, bn2,
-                                relu)
-        graw = base * y if mult_y else base
-        g = torch.tanh(sth * graw)
+        if latent:
+            dz3l, dy, q = _latent_back(gbar, y, z3l, dts[u], dw[u], lat)
+            dgk[u] = q.sum(0)
+        else:
+            ty = torch.tanh(y)
+            f = torch.tanh(z3l * ty if geometric else z3l)
+            base, hn = _noise_state(ns, u, y, gk, noise, elem, wn1, wn2, bn2,
+                                    relu)
+            graw = base * y if mult_y else base
+            g = torch.tanh(sth * graw)
 
-        df = gbar * dts[u]
-        dg = gbar * dw[u]
-        dsg = dg * (1.0 - g * g)
-        dth = dth + (dsg * graw).sum()
-        dgraw = dsg * sth
-        if mult_y:
-            dbase, dy = dgraw * y, dgraw * base
-        else:
-            dbase, dy = dgraw, torch.zeros_like(y)
-        dyn, dn, dz2 = noise_back(dbase, y, base, hn, noise, elem, wn1,
-                                   wn2)
-        dy = dy + dyn
-        if noise == "precomp":
-            dgk[u] = dbase.sum(0)
-        elif is_net(noise):
-            dgk[u] = dn.sum(0)
-            dwn1 += y.T @ dn
-            if noise == "net2":
-                dwn2 += hn.T @ dz2
-                dbn2 += dz2.sum(0)
-        dz3 = df * (1.0 - f * f)
-        if geometric:
-            dz3l = dz3 * ty
-            dy = dy + dz3 * z3l * (1.0 - ty * ty)
-        else:
-            dz3l = dz3
+            df = gbar * dts[u]
+            dg = gbar * dw[u]
+            dsg = dg * (1.0 - g * g)
+            dth = dth + (dsg * graw).sum()
+            dgraw = dsg * sth
+            if mult_y:
+                dbase, dy = dgraw * y, dgraw * base
+            else:
+                dbase, dy = dgraw, torch.zeros_like(y)
+            dyn, dn, dz2 = noise_back(dbase, y, base, hn, noise, elem, wn1,
+                                       wn2)
+            dy = dy + dyn
+            if noise == "precomp":
+                dgk[u] = dbase.sum(0)
+            elif is_net(noise):
+                dgk[u] = dn.sum(0)
+                dwn1 += y.T @ dn
+                if noise == "net2":
+                    dwn2 += hn.T @ dz2
+                    dbn2 += dz2.sum(0)
+            dz3 = df * (1.0 - f * f)
+            if geometric:
+                dz3l = dz3 * ty
+                dy = dy + dz3 * z3l * (1.0 - ty * ty)
+            else:
+                dz3l = dz3
         dwo += hs[-1].T @ dz3l
         dbo += dz3l.sum(0)
         dz = (dz3l @ wout.T) * (hs[-1] > 0)
@@ -295,10 +354,12 @@ def fused_em_backward_reference(y0, ys, gys, xh, dw, a, gk, dts, theta, wy,
 def fused_em_backward_recurrence_reference(y0, ys, gys, xh, dw, a, gk, dts,
                                            theta, wy, w_inner, b_inner, wout,
                                            bo, wn1=None, wn2=None, bn2=None,
-                                           *, mult_y: bool, geometric: bool,
+                                           lat=None, *, mult_y: bool,
+                                           geometric: bool,
                                            drift: str = "embm",
                                            noise: str = "precomp",
                                            elem: int = 0,
+                                           latent: bool = False,
                                            ns: Optional[EMNoise] = None,
                                            relu=torch.relu) -> EMStreams:
     """The backward recurrence kernel's plain version: the reverse loop of
@@ -324,34 +385,37 @@ def fused_em_backward_recurrence_reference(y0, ys, gys, xh, dw, a, gk, dts,
         for l in range(n_inner):
             hs.append(relu(hs[-1] @ w_inner[l] + b_inner[l]))
         z3l = hs[-1] @ wout + bo
-        ty = torch.tanh(y)
-        f = torch.tanh(z3l * ty if geometric else z3l)
-        base, hn = _noise_state(ns, u, y, gk, noise, elem, wn1, wn2, bn2,
-                                relu)
-        graw = base * y if mult_y else base
-        g = torch.tanh(sth * graw)
-        dsg = gbar * dw[u] * (1.0 - g * g)
-        dth = dth + (dsg * graw).sum()
-        dgraw = dsg * sth
-        if mult_y:
-            dbase, dy = dgraw * y, dgraw * base
+        if latent:
+            dz3l, dy, qs[u] = _latent_back(gbar, y, z3l, dts[u], dw[u], lat)
         else:
-            dbase, dy = dgraw, torch.zeros_like(y)
-        dyn, dn, dz2 = noise_back(dbase, y, base, hn, noise, elem, wn1,
-                                   wn2)
-        dy = dy + dyn
-        if qs is not None:
-            qs[u] = dbase
-        if dns is not None:
-            dns[u] = dn
-        if dz2s is not None:
-            dz2s[u] = dz2
-        dz3 = gbar * dts[u] * (1.0 - f * f)
-        if geometric:
-            dz3l = dz3 * ty
-            dy = dy + dz3 * z3l * (1.0 - ty * ty)
-        else:
-            dz3l = dz3
+            ty = torch.tanh(y)
+            f = torch.tanh(z3l * ty if geometric else z3l)
+            base, hn = _noise_state(ns, u, y, gk, noise, elem, wn1, wn2, bn2,
+                                    relu)
+            graw = base * y if mult_y else base
+            g = torch.tanh(sth * graw)
+            dsg = gbar * dw[u] * (1.0 - g * g)
+            dth = dth + (dsg * graw).sum()
+            dgraw = dsg * sth
+            if mult_y:
+                dbase, dy = dgraw * y, dgraw * base
+            else:
+                dbase, dy = dgraw, torch.zeros_like(y)
+            dyn, dn, dz2 = noise_back(dbase, y, base, hn, noise, elem, wn1,
+                                       wn2)
+            dy = dy + dyn
+            if qs is not None:
+                qs[u] = dbase
+            if dns is not None:
+                dns[u] = dn
+            if dz2s is not None:
+                dz2s[u] = dz2
+            dz3 = gbar * dts[u] * (1.0 - f * f)
+            if geometric:
+                dz3l = dz3 * ty
+                dy = dy + dz3 * z3l * (1.0 - ty * ty)
+            else:
+                dz3l = dz3
         dz3s[u] = dz3l
         for l in range(n_inner + 1):
             hs_out[l, u] = hs[l]
@@ -403,7 +467,7 @@ def fused_em_weight_grads_reference(y0, ys, dxh, hs, es, dz3, q, dn=None,
 # ---------------------------------------------------------------------------
 
 # the library, built and loaded at first launch
-_LIB = SolverLib("fused_em", "fused EM", 18, 28, int_names=SDE_INT_NAMES,
+_LIB = SolverLib("fused_em", "fused EM", 19, 29, int_names=SDE_INT_NAMES,
                  shape_names=SDE_SHAPE_NAMES, launches={"wgrad": 14},
                  int_fns={"plan": 9, "force_placement": 1, "force_plan": 2,
                           "wgrad_splits": 7})
@@ -414,14 +478,17 @@ _STREAM_AXES = {"hs": 1, "es": 1}
 
 def fused_em_plan(B: int, H: int, HH: int, n_inner: int, backward: bool,
                   drift: str = "embm", noise: str = "precomp",
-                  members: int = 1) -> dict:
-    """The CUDA library's plan of an EM launch of `members` members: its
-    level (0 the weight slices in shared memory, 1 the weights read from
-    device memory, csrc/fused_em.cu), batch rows and CTAs a cluster,
-    cudaOccupancyMaxActiveClusters (a negative CUDA error when the plan
-    cannot be scheduled) and the shared bytes a CTA. Needs the card."""
-    shape = (B, H, HH, n_inner, *mode_codes(drift, noise), members,
-             int(backward))
+                  members: int = 1, latent: bool = False) -> dict:
+    """The CUDA library's plan of an EM launch of `members` members (in the
+    latent mode with `latent`): its level (0 the weight slices in shared
+    memory, 1 the weights read from device memory, csrc/fused_em.cu), batch
+    rows and CTAs a cluster, cudaOccupancyMaxActiveClusters (a negative
+    CUDA error when the plan cannot be scheduled) and the shared bytes a
+    CTA. Needs the card."""
+    codes = mode_codes(drift, noise)
+    if latent:
+        codes = sde_mode(False, False, drift, noise, 0, True).codes
+    shape = (B, H, HH, n_inner, *codes, members, int(backward))
     return {name: _LIB.call("plan", *shape, i)
             for i, name in enumerate(_PLAN_FIELDS)}
 
@@ -443,17 +510,17 @@ def _want(M, B, H, HH, n_inner) -> dict:
             "gk": (M, H), "dts": (M,), "theta": (1,), "wy": (H, HH),
             "w_inner": (n_inner, HH, HH), "b_inner": (n_inner, HH),
             "wout": (HH, H), "bo": (H,), "wn1": (H, H), "wn2": (H, H),
-            "bn2": (H,), "ys": (M, B, H), "gys": (M, B, H)}
+            "bn2": (H,), "lat": (3, H), "ys": (M, B, H), "gys": (M, B, H)}
 
 
 def _checked(y0, xh, dw, a, gk, dts, theta, wy, w_inner, b_inner, wout, bo,
-             wn1, wn2, bn2, ys, gys, modes):
+             wn1, wn2, bn2, lat, ys, gys, modes):
     """check_kernel_inputs's checks; (dims, K: 0 for a solo launch)."""
     dims = kernel_dims("fused EM", y0, wout, w_inner, dts)
     got = {"y0": y0, "xh": xh, "dw": dw, "a": a, "gk": gk, "dts": dts,
            "theta": theta, "wy": wy, "w_inner": w_inner, "b_inner": b_inner,
            "wout": wout, "bo": bo, "wn1": wn1, "wn2": wn2, "bn2": bn2,
-           "ys": ys, "gys": gys}
+           "lat": lat, "ys": ys, "gys": gys}
     want = _want(*dims)
     K = member_count(y0)
     if K:
@@ -463,8 +530,8 @@ def _checked(y0, xh, dw, a, gk, dts, theta, wy, w_inner, b_inner, wout, bo,
 
 
 def check_kernel_inputs(y0, xh, dw, a, gk, dts, theta, wy, w_inner, b_inner,
-                        wout, bo, wn1=None, wn2=None, bn2=None, ys=None,
-                        gys=None, modes: Optional[SdeModes] = None):
+                        wout, bo, wn1=None, wn2=None, bn2=None, lat=None,
+                        ys=None, gys=None, modes: Optional[SdeModes] = None):
     """Raise ValueError on what the kernels do not take: a dtype other
     than float32, tensors on different devices, a non-contiguous tensor,
     or a shape that disagrees with y0/w_inner/wout/dts (each but dts with a
@@ -474,7 +541,7 @@ def check_kernel_inputs(y0, xh, dw, a, gk, dts, theta, wy, w_inner, b_inner,
     cluster or reads them from device memory). Returns (M, B, H, HH,
     n_inner)."""
     return _checked(y0, xh, dw, a, gk, dts, theta, wy, w_inner, b_inner,
-                    wout, bo, wn1, wn2, bn2, ys, gys, modes)[0]
+                    wout, bo, wn1, wn2, bn2, lat, ys, gys, modes)[0]
 
 
 def _empty(*shape, device):
@@ -536,36 +603,41 @@ def _launch_weight_grads(y0, ys, st: EMStreams, nh, modes: SdeModes,
 
 
 _FWD_NAMES = ("y0", "xh", "dw", "a", "gk", "dts", "theta", "wy", "w_inner",
-              "b_inner", "wout", "bo", "wn1", "wn2", "bn2")
+              "b_inner", "wout", "bo", "wn1", "wn2", "bn2", "lat")
 _BWD_NAMES = ("y0", "ys", "gys") + _FWD_NAMES[1:]
 
 
 def fused_em_forward(y0, xh, dw, a, gk, dts, theta, wy, w_inner, b_inner,
-                     wout, bo, wn1=None, wn2=None, bn2=None, *,
+                     wout, bo, wn1=None, wn2=None, bn2=None, lat=None, *,
                      mult_y: bool, geometric: bool, drift: str = "embm",
-                     noise: str = "precomp", elem: int = 0):
+                     noise: str = "precomp", elem: int = 0,
+                     latent: bool = False):
     """(ys [M, B, H], EMNoise in the nets' modes else None), each with a
     leading member axis in a packed launch (y0 [K, B, H]): the CUDA forward
     kernel for CUDA tensors, the plain version for CPU tensors (member by
-    member in a packed launch)."""
-    global FWD_LAUNCHES, PACKED_FWD_LAUNCHES
-    modes = sde_mode(mult_y, geometric, drift, noise, elem)
+    member in a packed launch). `latent` (with its rows `lat`) takes the
+    latent instance."""
+    global FWD_LAUNCHES, PACKED_FWD_LAUNCHES, LATENT_FWD_LAUNCHES
+    modes = sde_mode(mult_y, geometric, drift, noise, elem, latent)
     args = (y0, xh, dw, a, gk, dts, theta, wy, w_inner, b_inner, wout, bo,
-            wn1, wn2, bn2)
+            wn1, wn2, bn2, lat)
     if y0.device.type == "cpu":
         check_mode("fused EM", modes, xh=xh, a=a, gk=gk, wy=wy, wn1=wn1,
-                   wn2=wn2, bn2=bn2)
+                   wn2=wn2, bn2=bn2, lat=lat)
         K = member_count(y0)
         if K:
             return per_member(fused_em_forward_reference, _FWD_NAMES, args,
-                              K, **modes.flags)
-        return fused_em_forward_reference(*args, **modes.flags)
+                              K, **modes.flags, latent=modes.latent)
+        return fused_em_forward_reference(*args, **modes.flags,
+                                          latent=modes.latent)
     dims, K = _checked(*args, None, None, modes)
     stream = _LIB.stream(y0, dims[1:] + modes.codes + (max(K, 1),),
                          backward=False)
     out = _launch_forward(dims, modes, args, stream, K)
     if K:
         PACKED_FWD_LAUNCHES += 1
+    elif latent:
+        LATENT_FWD_LAUNCHES += 1
     else:
         FWD_LAUNCHES += 1
     return out
@@ -573,42 +645,46 @@ def fused_em_forward(y0, xh, dw, a, gk, dts, theta, wy, w_inner, b_inner,
 
 def fused_em_backward_recurrence(y0, ys, gys, xh, dw, a, gk, dts, theta, wy,
                                  w_inner, b_inner, wout, bo, wn1=None,
-                                 wn2=None, bn2=None, *, mult_y: bool,
-                                 geometric: bool, drift: str = "embm",
-                                 noise: str = "precomp", elem: int = 0,
+                                 wn2=None, bn2=None, lat=None, *,
+                                 mult_y: bool, geometric: bool,
+                                 drift: str = "embm", noise: str = "precomp",
+                                 elem: int = 0, latent: bool = False,
                                  ns: Optional[EMNoise] = None) -> EMStreams:
     """The reverse loop given gys = dL/dys (EMStreams; in a packed launch
     each with a member axis: the first, or hs's and es's second): the CUDA
     backward recurrence kernel for CUDA tensors (d theta's per-CTA
     partials summed in the library), the plain version for CPU tensors."""
-    global BWD_LAUNCHES, PACKED_BWD_LAUNCHES
-    modes = sde_mode(mult_y, geometric, drift, noise, elem)
+    global BWD_LAUNCHES, PACKED_BWD_LAUNCHES, LATENT_BWD_LAUNCHES
+    modes = sde_mode(mult_y, geometric, drift, noise, elem, latent)
     args = (y0, ys, gys, xh, dw, a, gk, dts, theta, wy, w_inner, b_inner,
-            wout, bo, wn1, wn2, bn2)
+            wout, bo, wn1, wn2, bn2, lat)
     if y0.device.type == "cpu":
         check_mode("fused EM", modes, xh=xh, a=a, gk=gk, wy=wy, wn1=wn1,
-                   wn2=wn2, bn2=bn2)
+                   wn2=wn2, bn2=bn2, lat=lat)
         K = member_count(y0)
         if K:
             return per_member(fused_em_backward_recurrence_reference,
                               _BWD_NAMES, args, K, _STREAM_AXES, ns=ns,
-                              **modes.flags)
-        return fused_em_backward_recurrence_reference(*args, **modes.flags,
-                                                      ns=ns)
+                              **modes.flags, latent=modes.latent)
+        return fused_em_backward_recurrence_reference(
+            *args, **modes.flags, latent=modes.latent, ns=ns)
     if is_net(noise) and ns is None:
         raise ValueError("the noise nets' backward takes the forward's "
                          "EMNoise (ns=)")
     dims, K = _checked(y0, xh, dw, a, gk, dts, theta, wy, w_inner, b_inner,
-                       wout, bo, wn1, wn2, bn2, ys, gys, modes)
+                       wout, bo, wn1, wn2, bn2, lat, ys, gys, modes)
     if ns is not None:
         check_tensors("fused EM", {"nb": tuple(ys.shape),
                                    "nh": tuple(ys.shape)},
                       ns._asdict(), y0.device)
     stream = _LIB.stream(y0, dims[1:] + modes.codes + (max(K, 1),),
                          backward=True)
-    st = _launch_recurrence(dims, modes, args[:16], ns, stream, K)
+    st = _launch_recurrence(dims, modes, args[:16] + (lat,), ns, stream,
+                            K)
     if K:
         PACKED_BWD_LAUNCHES += 1
+    elif latent:
+        LATENT_BWD_LAUNCHES += 1
     else:
         BWD_LAUNCHES += 1
     return st
@@ -662,21 +738,23 @@ def fused_em_weight_grads(y0, ys, st: EMStreams, nh=None, *,
 
 
 def fused_em_backward(y0, ys, gys, xh, dw, a, gk, dts, theta, wy, w_inner,
-                      b_inner, wout, bo, wn1=None, wn2=None, bn2=None, *,
-                      mult_y: bool, geometric: bool, drift: str = "embm",
-                      noise: str = "precomp", elem: int = 0,
+                      b_inner, wout, bo, wn1=None, wn2=None, bn2=None,
+                      lat=None, *, mult_y: bool, geometric: bool,
+                      drift: str = "embm", noise: str = "precomp",
+                      elem: int = 0, latent: bool = False,
                       ns: Optional[EMNoise] = None):
     """Cotangents of the solve's inputs given gys = dL/dys (FusedEMGrads,
     FusedEMNetGrads in the nets' modes; in a packed launch each member's
-    along a leading axis): for CUDA tensors the backward recurrence kernel, then the
-    weight-gradient kernel; for CPU tensors the plain reverse loop."""
+    along a leading axis): for CUDA tensors the backward recurrence kernel,
+    then the weight-gradient kernel (in the latent mode that of 'precomp':
+    only dz3 differs); for CPU tensors the plain reverse loop."""
     modes = dict(mult_y=mult_y, geometric=geometric, drift=drift,
-                 noise=noise, elem=elem)
+                 noise=noise, elem=elem, latent=latent)
     args = (y0, ys, gys, xh, dw, a, gk, dts, theta, wy, w_inner, b_inner,
-            wout, bo, wn1, wn2, bn2)
+            wout, bo, wn1, wn2, bn2, lat)
     if y0.device.type == "cpu":
         check_mode("fused EM", sde_mode(**modes), xh=xh, a=a, gk=gk, wy=wy,
-                   wn1=wn1, wn2=wn2, bn2=bn2)
+                   wn1=wn1, wn2=wn2, bn2=bn2, lat=lat)
         K = member_count(y0)
         if not K:
             return fused_em_backward_reference(*args, **modes, ns=ns)
@@ -692,18 +770,22 @@ def fused_em_backward(y0, ys, gys, xh, dw, a, gk, dts, theta, wy, w_inner,
 
 
 _ARG_ORDER = _FWD_NAMES
+# the modes every SDE pair's autograd.Function takes (FusedEM also takes
+# `latent`, False when not given)
 _MODE_KEYS = ("mult_y", "geometric", "drift", "noise", "elem")
 
 
 class FusedEM(torch.autograd.Function):
-    """ys = EM solve of a DiffusionField; backward by the backward
-    kernels. Inputs in _ARG_ORDER (None where the mode takes none), then
-    the modes (a dict of _MODE_KEYS): y0 [B,H], xh [M,B,HH], dw [M,B,H]
-    (not differentiated), a [M,HH], gk [M,H] (the an1 rows in the nets'
-    modes), dts [M] (not differentiated), theta [1], wy [H,HH],
+    """ys = EM solve of a DiffusionField (or, with the mode `latent`, of a
+    LatentSDE's augmented system); backward by the backward kernels. The
+    modes (a dict of _MODE_KEYS and optionally `latent`), then the inputs
+    in _ARG_ORDER (None where the mode takes none): y0 [B,H], xh [M,B,HH],
+    dw [M,B,H] (not differentiated), a [M,HH], gk [M,H] (the an1 rows in
+    the nets' modes), dts [M] (not differentiated), theta [1], wy [H,HH],
     w_inner [n_inner,HH,HH], b_inner [n_inner,HH], wout [HH,H], bo [H],
-    wn1 [H,H], wn2 [H,H], bn2 [H]; in a packed solve of K members each but
-    dts with a leading K axis, and ys [K, M, B, H]."""
+    wn1 [H,H], wn2 [H,H], bn2 [H], lat [3,H] (the latent rows, not
+    differentiated); in a packed solve of K members each but dts with a
+    leading K axis, and ys [K, M, B, H]."""
 
     @staticmethod
     def forward(ctx, modes, *tensors):
@@ -724,7 +806,7 @@ class FusedEM(torch.autograd.Function):
         return (None, gr.dy0, gr.dxh, None, gr.da, gr.dgk, None, gr.dtheta,
                 gr.dwy, gr.dw_inner, gr.db_inner, gr.dwout, gr.dbo,
                 net.dwn1 if net else None, net.dwn2 if net else None,
-                net.dbn2 if net else None)
+                net.dbn2 if net else None, None)
 
 
 # ---------------------------------------------------------------------------
@@ -745,7 +827,7 @@ def fused_em_inputs(field, path, grid: np.ndarray, y0: torch.Tensor,
             "dw": dW.to(device=dev, dtype=f32).contiguous(), "a": a,
             "gk": noise_rows(field, t_lo), "dts": dts,
             "theta": field.theta.reshape(1), **drift_weights(field, dev),
-            **noise_weights(field), **sde_modes(field)}
+            **noise_weights(field), "lat": None, **sde_modes(field)}
 
 
 def fused_em_solve(field, path, times, y0: torch.Tensor, *,
@@ -773,3 +855,73 @@ def fused_em_solve(field, path, times, y0: torch.Tensor, *,
                        *(inputs[k] for k in _ARG_ORDER))
     full = torch.cat([y0[None], ys], dim=0)
     return full[torch.as_tensor(out_idx, device=y0.device)]
+
+
+def latent_inputs(model, grid: np.ndarray, aug0: torch.Tensor,
+                  dW: torch.Tensor) -> dict:
+    """The kernels' inputs in the latent mode for a LatentSDE (its H - 1
+    latent lanes and the KL lane) on a host step grid, as the JAX entry
+    builds them (fused_em.py:1404-1452): the a row tf Wt + b_in from the
+    sin/cos of each step's start time, Wy with a zero row for the KL lane,
+    Wout and bo with a zero KL column (the KL lane stays out of the drift
+    MLP), the gk row sigma on the latent lanes and 0 on the KL lane, and
+    lat = (theta, mu, mask / sigma) [3, H] (differentiable where the
+    model's parameters enter; the buffers carry no gradient)."""
+    dev, f32 = aug0.device, torch.float32
+    H = aug0.shape[1]
+    t_lo, dts = stage_times(dev, grid[:-1], np.diff(grid))
+    w_in = model.linear_in.weight                     # [HH, 2 + (H - 1)]
+    HH = w_in.shape[0]
+    tf = torch.stack([torch.sin(t_lo), torch.cos(t_lo)], dim=-1)   # [M, 2]
+    a = (tf @ w_in[:, :2].t() + model.linear_in.bias).contiguous()
+    wy = torch.cat([w_in[:, 2:].t(), w_in.new_zeros((1, HH))])     # [H, HH]
+    wout = torch.cat([model.linear_out.weight.t(),
+                      w_in.new_zeros((HH, 1))], dim=1)             # [HH, H]
+    bo = torch.cat([model.linear_out.bias, w_in.new_zeros(1)])
+    if len(model.linears):
+        w_inner = torch.stack([l.weight.t() for l in model.linears])
+        b_inner = torch.stack([l.bias for l in model.linears])
+    else:
+        w_inner = torch.zeros((0, HH, HH), dtype=f32, device=dev)
+        b_inner = torch.zeros((0, HH), dtype=f32, device=dev)
+    mask = latent_mask(H, dev)
+    sig = model.sigma[0, 0].to(f32)
+    gk = (sig * mask).expand(dts.shape[0], H).contiguous()
+    isg = mask / torch.where(sig == 0.0, torch.ones_like(sig), sig)
+    lat = torch.stack([model.theta[0, 0].to(f32).expand(H),
+                       model.mu[0, 0].to(f32).expand(H), isg]).detach()
+    return {"y0": aug0.contiguous(), "xh": None,
+            "dw": dW.to(device=dev, dtype=f32).contiguous(), "a": a,
+            "gk": gk, "dts": dts,
+            "theta": torch.zeros(1, dtype=f32, device=dev),
+            "wy": wy.contiguous(), "w_inner": w_inner, "b_inner": b_inner,
+            "wout": wout.contiguous(), "bo": bo, "wn1": None, "wn2": None,
+            "bn2": None, "lat": lat.contiguous(), "mult_y": False,
+            "geometric": False, "drift": "yy", "noise": "precomp",
+            "elem": 0, "latent": True}
+
+
+def fused_latent_em_solve(model, times, aug0: torch.Tensor, *,
+                          generator: Optional[torch.Generator] = None,
+                          dt: Optional[float] = None,
+                          dW: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """EM solve of a LatentSDE's augmented system (models/latent_sde.py
+    f_aug/g_aug) through the latent instances of the fused kernels
+    (fused_em.py:1342-1474): the posterior drift MLP, the OU prior and the
+    KL rate on the card. aug0 [B, H]: the latent state and a zero KL lane.
+    The increments come from `dW` [M, B, H] when given, else from
+    `generator`, drawn exactly as sdeint(f_aug, g_aug, aug0, ...) draws
+    them. Returns ys [T, B, H] on the output times (the KL total at
+    ys[-1, :, H-1])."""
+    from ..models.neuralsde import resolve_dt
+
+    dt = resolve_dt(times) if dt is None else dt
+    grid, out_idx = make_grid(times, dt)
+    if dW is None:
+        dW = brownian_increments(generator, grid, tuple(aug0.shape),
+                                 aug0.dtype, aug0.device)
+    inputs = latent_inputs(model, grid, aug0, dW)
+    ys = FusedEM.apply({k: inputs[k] for k in _MODE_KEYS + ("latent",)},
+                       *(inputs[k] for k in _ARG_ORDER))
+    full = torch.cat([aug0[None], ys], dim=0)
+    return full[torch.as_tensor(out_idx, device=aug0.device)]

@@ -1,3 +1,4 @@
+from .latent_sde import LatentSDE
 from .neuralcde import (FinalTanh, GRUODEField, NeuralCDE, NeuralCDEStream,
                         SingleHiddenLayer, cde_solve_dispatch)
 from .neuralsde import (NeuralSDE, NeuralSDEForecasting, NeuralSDEStream,
@@ -5,8 +6,8 @@ from .neuralsde import (NeuralSDE, NeuralSDEForecasting, NeuralSDEStream,
 from .rnn import SeqRNN, last_observation_excl
 from .time_rnn import GRUDFull
 
-__all__ = ["FinalTanh", "GRUODEField", "NeuralCDE", "NeuralCDEStream",
-           "SingleHiddenLayer", "cde_solve_dispatch", "NeuralSDE",
-           "NeuralSDEForecasting", "NeuralSDEStream", "ReadoutHead",
-           "resolve_dt",
-           "solve_dispatch", "SeqRNN", "last_observation_excl", "GRUDFull"]
+__all__ = ["LatentSDE", "FinalTanh", "GRUODEField", "NeuralCDE",
+           "NeuralCDEStream", "SingleHiddenLayer", "cde_solve_dispatch",
+           "NeuralSDE", "NeuralSDEForecasting", "NeuralSDEStream",
+           "ReadoutHead", "resolve_dt", "solve_dispatch", "SeqRNN",
+           "last_observation_excl", "GRUDFull"]

@@ -9,12 +9,14 @@ input_option i and noise_option jj in a NeuralSDEStream, srk unless told
 otherwise: the fused SRK kernels on the card), `neuralsde-x/y/z` (the
 scalar-noise SDE, euler through the eager solver, as the JAX package
 solves it), `neuralcde` (natural cubic control), `neuralcde-c` (cubic),
-`neuralcde-h` (Hermite) and `gru-ode`, and the recurrent baselines `rnn`,
-`gru`, `lstm`, `bilstm` (SeqRNN over the values), `gru-simple` (SeqRNN
-over values ‖ mask ‖ delta) and `grud` (GRUDFull over (values, mask,
-delta)); every other registry name raises NotImplementedError naming its
-ROADMAP item. The SDE names draw their Brownian paths from the generator
-the caller passes.
+`neuralcde-h` (Hermite), `gru-ode`, `latentsde` and `latentsde-kl` (a
+LatentSDE, euler unless told otherwise: the latent mode of the fused EM
+kernels on the card; its layer also returns the KL term), and the
+recurrent baselines `rnn`, `gru`, `lstm`, `bilstm` (SeqRNN over the
+values), `gru-simple` (SeqRNN over values ‖ mask ‖ delta) and `grud`
+(GRUDFull over (values, mask, delta)); every other registry name raises
+NotImplementedError naming its ROADMAP item. The SDE names draw their
+Brownian paths from the generator the caller passes.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import torch
 from torch import nn
 
 from .fields import DiffusionField
+from .models.latent_sde import LatentSDE
 from .models.neuralcde import FinalTanh, GRUODEField, NeuralCDEStream
 from .models.neuralsde import NeuralSDEStream, resolve_dt
 from .models.rnn import SeqRNN
@@ -65,8 +68,9 @@ def _build_model_names():
 MODEL_NAMES = _build_model_names()
 _SEQ_RNN = ("rnn", "gru", "lstm", "bilstm", "gru-simple")
 _SCALAR_SDE = ("neuralsde-x", "neuralsde-y", "neuralsde-z")
+_LATENT = ("latentsde", "latentsde-kl")
 PORTED_NAMES = ("neuralcde", "neuralcde-c", "neuralcde-h", "gru-ode",
-                *_SEQ_RNN, "grud", *_SCALAR_SDE,
+                *_SEQ_RNN, "grud", *_SCALAR_SDE, *_LATENT,
                 *(n for n in MODEL_NAMES if n.startswith("neuralsde_")))
 
 # ROADMAP Queue 1 item of every registry name the port does not build yet
@@ -81,8 +85,6 @@ def _roadmap_item(name: str) -> str:
         return "items 3 and 17 (linear and rectilinear controls)"
     if name.startswith("neuralrde") or name in ("ancde", "exit", "leap"):
         return "item 18 (log-signature and attention CDEs)"
-    if name.startswith("latentsde"):
-        return "item 20 (LatentSDE)"
     return "item 21 (attention and flows)"
 
 
@@ -137,7 +139,8 @@ class _ScalarNoiseSDE(nn.Module):
 
 class SeqLayer(nn.Module):
     """The dispatcher. forward(seq [N, 3, L, D], coeffs) -> (out [N, L, H],
-    hidden [N, L, H])."""
+    hidden [N, L, H]), and for the LatentSDE names (out, latent [N, L,
+    H-1], its KL term logqp) as the JAX layer's (out, hn, aux)."""
 
     def __init__(self, inner: nn.Module, model_name: str):
         super().__init__()
@@ -156,6 +159,9 @@ class SeqLayer(nn.Module):
                               use_fused=use_fused)
         if name in _SCALAR_SDE:
             return self.inner(coeffs, times, generator=generator)
+        if name in _LATENT:
+            return self.inner(coeffs, times, generator=generator,
+                              use_fused=use_fused)
         if name in ("rnn", "gru", "lstm", "bilstm"):
             return self.inner(x, generator=generator, use_fused=use_fused)
         if name == "gru-simple":
@@ -182,8 +188,10 @@ def make_seq_layer(model_name: str, input_dim: int, seq_len: int,
     3D channels, each with `num_layers` layers and inter-layer `dropout`
     (snsde/registry.py:307-320); `grud` is GRUDFull; `neuralsde_{i}_{jj}`
     is NeuralSDEStream(DiffusionField(coeff_dim, H, hh, num_hidden_layers,
-    i, jj), srk unless `method` says otherwise) and `neuralsde-x/y/z` the
-    scalar-noise SDE (snsde/registry.py:406-410, 429-440)."""
+    i, jj), srk unless `method` says otherwise), `neuralsde-x/y/z` the
+    scalar-noise SDE and `latentsde`/`latentsde-kl` LatentSDE(coeff_dim, H,
+    hh, num_hidden_layers), euler unless `method` says otherwise
+    (snsde/registry.py:402-410, 429-440)."""
     if model_name not in MODEL_NAMES:
         raise NotImplementedError(f"unknown model name {model_name!r}")
     if model_name not in PORTED_NAMES:
@@ -206,6 +214,9 @@ def make_seq_layer(model_name: str, input_dim: int, seq_len: int,
         inner = GRUDFull(input_dim, hidden_dim, **kw)
     elif model_name in _SCALAR_SDE:
         inner = _ScalarNoiseSDE(coeff_dim, hidden_dim, model_name[-1], **kw)
+    elif model_name in _LATENT:
+        inner = LatentSDE(coeff_dim, hidden_dim, hh, num_hidden_layers,
+                          method=method or "euler", **kw)
     elif model_name.startswith("neuralsde_"):
         _, io, no = model_name.split("_")
         field = DiffusionField(coeff_dim, hidden_dim, hh, num_hidden_layers,

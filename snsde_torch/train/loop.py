@@ -2,12 +2,12 @@
 195-598).
 
 Losses: BCE-with-logits for the binary heads, softmax cross-entropy for
-the multiclass ones (the robustness harness), and a global-norm gradient
-clip with optax's rule (`clip_by_global_norm`).
+the multiclass ones (Speech Commands, the robustness harness), and a
+global-norm gradient clip with optax's rule (`clip_by_global_norm`).
 
-  * loss = BCE-with-logits (pos_weight) masked to the valid rows of the
-    batch, plus 0.01 x the sum of L2 norms of the vector field's
-    parameters;
+  * loss = BCE-with-logits (pos_weight) for two classes, softmax
+    cross-entropy for more, masked to the valid rows of the batch, plus
+    0.01 x the sum of L2 norms of the vector field's parameters;
   * Adam with coupled L2 weight decay lr0 x 0.01 (`torch.optim.Adam`'s
     `weight_decay` adds wd*p to the gradient before the moments, and stays
     at its construction value when the rate is cut);
@@ -137,16 +137,19 @@ class FitResult:
 def make_loss_fn(apply_fn: Callable, reg_subtree_fn: Callable,
                  config: TrainConfig) -> Callable:
     """(model, batch, generator) -> (loss, logits). apply_fn(model, batch,
-    generator) -> logits [B]; batch["_mask"] marks the valid rows."""
-    if config.num_classes != 2:
-        raise NotImplementedError(
-            "only binary (BCE) classification is ported; the multiclass "
-            "harness (run_speech) is ROADMAP Queue 1 item 10")
+    generator) -> logits: [B] for the binary head (BCE with pos_weight),
+    [B, num_classes] otherwise (softmax cross-entropy), as the JAX loop's
+    per-sample loss (snsde/train/loop.py:276-291); batch["_mask"] marks
+    the valid rows of either."""
+    if config.num_classes == 2:
+        per_sample = lambda lo, y: bce_with_logits_per_sample(
+            lo, y, config.pos_weight)
+    else:
+        per_sample = softmax_cross_entropy_per_sample
 
     def loss_fn(model, batch, generator):
         logits = apply_fn(model, batch, generator)
-        per = bce_with_logits_per_sample(logits, batch["y"],
-                                         config.pos_weight)
+        per = per_sample(logits, batch["y"])
         mask = batch.get("_mask")
         if mask is None:
             loss = per.mean()
@@ -234,9 +237,11 @@ def fit_classifier(model: torch.nn.Module, apply_fn: Callable,
                    test_data: Optional[Dict[str, np.ndarray]],
                    config: TrainConfig,
                    grad_hook: Optional[Callable] = None) -> FitResult:
-    """Binary classification fit on the model's device.
+    """Classification fit on the model's device (binary or multiclass by
+    config.num_classes).
 
-    apply_fn(model, batch, generator) -> logits [B]; `reg_subtree_fn(model)`
+    apply_fn(model, batch, generator) -> logits [B] (binary) or [B, C];
+    `reg_subtree_fn(model)`
     is the module to L2-regularise; `grad_hook(model)` registers gradient
     hooks (see readout_grad_hook). The datasets are numpy dicts uploaded to
     the device once; the Brownian increments and dropout masks come from a
@@ -336,11 +341,12 @@ def fit_classifier(model: torch.nn.Module, apply_fn: Callable,
         history.append({"epoch": epoch, "lr": lr,
                         "train": train_m.as_dict(), "val": val_m.as_dict()})
         if cfg.verbose:
+            auc = (f" train_auc {train_m.auroc:.3f} val_auc "
+                   f"{val_m.auroc:.3f}" if train_m.auroc is not None else "")
             print(f"epoch {epoch}: train_loss {train_m.loss:.3f} "
                   f"train_acc {train_m.accuracy:.3f} val_loss "
-                  f"{val_m.loss:.3f} val_acc {val_m.accuracy:.3f} "
-                  f"train_auc {train_m.auroc:.3f} val_auc "
-                  f"{val_m.auroc:.3f} lr {lr:.2e}", flush=True)
+                  f"{val_m.loss:.3f} val_acc {val_m.accuracy:.3f}{auc} "
+                  f"lr {lr:.2e}", flush=True)
         if (epoch > best_train_loss_epoch + cfg.plateau_terminate
                 or epoch > best_train_acc_epoch + cfg.plateau_terminate):
             if cfg.verbose:

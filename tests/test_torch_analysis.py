@@ -3,6 +3,8 @@ JAX package's: average ranks, the Friedman test, the Holm-corrected
 pairwise Wilcoxon tests, the CD cliques and cd_analysis, on seeded random
 score tables (with ties) and on SWEEP_CD.json's accuracy table."""
 
+import torch_threads  # noqa: F401  (one intra-op thread)
+
 import json
 import os
 

@@ -6,6 +6,8 @@ fed the same numpy inputs on both sides, with the tolerance beside each
 assert.
 """
 
+import torch_threads  # noqa: F401  (one intra-op thread)
+
 import numpy as np
 import pytest
 import torch

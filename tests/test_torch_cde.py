@@ -13,6 +13,8 @@ arithmetic, another summation order); trajectories and model outputs
 1e-5 absolute, as in tests/test_torch_fused_cde.py.
 """
 
+import torch_threads  # noqa: F401  (one intra-op thread)
+
 import numpy as np
 import pytest
 import torch

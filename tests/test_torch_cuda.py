@@ -84,6 +84,8 @@ The plain-mode pairs are also held against cuDNN (`torch.nn.GRU`/
 `torch.nn.LSTM` with TF32 off) on the same weights.
 """
 
+import torch_threads  # noqa: F401  (one intra-op thread)
+
 import copy
 
 import numpy as np
@@ -1324,3 +1326,91 @@ def test_whole_sepsis_model_through_the_em_kernels_matches_jax(monkeypatch):
         n + 1 for n in launches)
     errs = wm.check(loss, grads, np.load(wm.GOLDEN))
     print("largest gradient error over its scale:", max(errs.values()))
+
+
+# the latent instances (LatentSDE's augmented system): (H = HH, inner
+# layers) at the sweep's width, the sepsis width and H = HH = 128, each
+# under its own plan and forced ones (lowest level, CTAs a cluster, rows a
+# cluster; 0 the plan's own choice)
+LATENT_CASES = [(16, 0), (49, 1), (128, 1)]
+LATENT_FORCED = [(0, 0, 0), (0, 1, 0), (0, 2, 0), (0, 4, 4), (1, 0, 0),
+                 (1, 8, 1)]
+
+
+def _latent_inputs(H, n_inner, B=13, L=7, seed=0):
+    """The latent mode's inputs of a random LatentSDE (5 channels, H = HH)
+    over the times linspace(0, 1, L) on the card, its flags, and gys (on
+    every lane, the KL lane's too)."""
+    from snsde_torch.models.latent_sde import LatentSDE
+    from snsde_torch.models.neuralsde import resolve_dt
+    from snsde_torch.ops import make_grid
+
+    rng = np.random.default_rng(seed)
+    model = LatentSDE(5, H, H, n_inner + 1, method="euler",
+                      generator=torch.Generator().manual_seed(seed)).cuda()
+    times = np.linspace(0.0, 1.0, L).astype(np.float32)
+    grid, _ = make_grid(times, resolve_dt(times))
+    M = len(grid) - 1
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device="cuda")
+    dW = t(rng.normal(size=(M, B, H)) * np.sqrt(np.diff(grid))[:, None, None])
+    aug0 = t(np.concatenate([rng.normal(size=(B, H - 1)), np.zeros((B, 1))],
+                            -1))
+    with torch.no_grad():
+        inp = fe.latent_inputs(model, grid, aug0, dW)
+    flags = {k: inp.pop(k) for k in fe._MODE_KEYS + ("latent",)}
+    inputs = {k: None if v is None else v.detach().contiguous()
+              for k, v in inp.items()}
+    return inputs, flags, t(rng.normal(size=(M, B, H)) / B)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,n_inner", LATENT_CASES)
+def test_latent_kernels_match_plain_versions_under_every_plan(H, n_inner):
+    """The latent forward and backward against their plain versions under
+    each forced plan (the trajectory with its KL lane and every cotangent
+    by the float64 rule), and the forward's bits the same under every plan:
+    the KL rate is one thread's sum over the exchanged row in ascending q."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    inputs, flags, gys = _latent_inputs(H, n_inner)
+    first = None
+    for level, cs, rows in LATENT_FORCED:
+        _sde_force("em", level, cs, rows)
+        try:
+            for b in (False, True):
+                p = fe.fused_em_plan(13, H, H, n_inner, b, "yy", "precomp",
+                                     latent=True)
+                print(f"latent H={H} forced {(level, cs, rows)} "
+                      f"{'backward' if b else 'forward'}: {p}")
+                assert p["active_clusters"] >= 1 and p["level"] >= level
+            _check(_fns(fe, "fused_em"), inputs, flags, gys, "init",
+                   ys_f64_factor=YS_F64_FACTOR,
+                   grad_f64_factor=YS_F64_FACTOR)
+            ys, _ = fe.fused_em_forward(**inputs, **flags)
+        finally:
+            _sde_force("em", 0, 0, 0)
+        if first is None:
+            first = ys
+        assert torch.equal(ys, first), (level, cs, rows)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,n_inner", LATENT_CASES)
+def test_latent_weight_grads_kernel_matches_its_plain_version(H, n_inner):
+    """The weight-gradient kernel on the latent recurrence's streams (the
+    kernel's own recurrence, as the backward runs it) against its plain
+    version on the same streams."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    inputs, flags, gys = _latent_inputs(H, n_inner, B=40)
+    ys, _ = fe.fused_em_forward(**inputs, **flags)
+    st = fe.fused_em_backward_recurrence(ys=ys, gys=gys, **inputs, **flags)
+    k = fe.fused_em_weight_grads(inputs["y0"], ys, st, drift="yy")
+    p = fe.fused_em_weight_grads_reference(inputs["y0"], ys, st.dxh, st.hs,
+                                           st.es, st.dz3, st.q, drift="yy")
+    for name, a, b in zip(p._fields, k, p):
+        if b is None or not b.numel():
+            continue
+        rel = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+        print(f"latent H={H} weight gradient {name}: rel err {rel:.2e}")
+        assert rel < TOL_GRAD, name

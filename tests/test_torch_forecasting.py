@@ -6,6 +6,8 @@ on the same (dW, I10), three coupled-L2 Adam steps against optax, and the
 harness end to end at a tiny width.
 """
 
+import torch_threads  # noqa: F401  (one intra-op thread)
+
 import numpy as np
 import optax
 import pytest

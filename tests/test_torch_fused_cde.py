@@ -15,6 +15,8 @@ weights, z0 and the control stream ddx) 1e-4 relative to its largest
 entry.
 """
 
+import torch_threads  # noqa: F401  (one intra-op thread)
+
 import numpy as np
 import pytest
 import torch

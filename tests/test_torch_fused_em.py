@@ -9,6 +9,8 @@ themselves are compared with the plain versions on the card by
 chip_smoke.py and by tests/test_torch_cuda.py.
 """
 
+import torch_threads  # noqa: F401  (one intra-op thread)
+
 from types import SimpleNamespace
 
 import numpy as np
@@ -168,15 +170,15 @@ def test_backward_reference_is_autograd_of_forward(io, no, n_inner):
 
 
 def _split_backward(y0, ys, gys, xh, dw, a, gk, dts, theta, wy, w_inner,
-                    b_inner, wout, bo, wn1=None, wn2=None, bn2=None, *,
-                    mult_y, geometric, drift="embm", noise="precomp", elem=0,
-                    ns=None):
+                    b_inner, wout, bo, wn1=None, wn2=None, bn2=None, lat=None,
+                    *, mult_y, geometric, drift="embm", noise="precomp",
+                    elem=0, latent=False, ns=None):
     """The card's backward in plain form: the recurrence's plain version,
     then the weight-gradient kernel's plain version on its streams."""
     st = fe.fused_em_backward_recurrence_reference(
         y0, ys, gys, xh, dw, a, gk, dts, theta, wy, w_inner, b_inner, wout,
-        bo, wn1, wn2, bn2, mult_y=mult_y, geometric=geometric, drift=drift,
-        noise=noise, elem=elem, ns=ns)
+        bo, wn1, wn2, bn2, lat, mult_y=mult_y, geometric=geometric,
+        drift=drift, noise=noise, elem=elem, latent=latent, ns=ns)
     w = fe.fused_em_weight_grads_reference(
         y0, ys, st.dxh, st.hs, st.es, st.dz3, st.q, st.dn, st.dz2,
         None if ns is None else ns.nh, drift=drift, noise=noise)

@@ -13,6 +13,8 @@ areas). The CUDA kernels are compared with the plain versions on the card
 by chip_smoke.py and tests/test_torch_cuda.py.
 """
 
+import torch_threads  # noqa: F401  (one intra-op thread)
+
 from types import SimpleNamespace
 
 import numpy as np

@@ -20,6 +20,8 @@ of the cell's input states and W_hh's cotangent dgh); the GRU's is also
 held to the JAX kernel's dW_hh and db_hh.
 """
 
+import torch_threads  # noqa: F401  (one intra-op thread)
+
 from types import SimpleNamespace
 
 import numpy as np

@@ -10,6 +10,8 @@ compared with the plain versions on the card by chip_smoke.py and by
 tests/test_torch_cuda.py.
 """
 
+import torch_threads  # noqa: F401  (one intra-op thread)
+
 from types import SimpleNamespace
 
 import numpy as np

@@ -17,6 +17,8 @@ Tolerances: trajectories within 5e-6 of max|ys|, every gradient within
 1e-4 of its largest entry.
 """
 
+import torch_threads  # noqa: F401  (one intra-op thread)
+
 import numpy as np
 import pytest
 import torch

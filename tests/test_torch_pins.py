@@ -3,6 +3,8 @@ on every case of tests/test_pins.py, each run on both packages' pins so
 the copy cannot drift from the JAX package's; plus the known fault of the
 reference it keeps (ROADMAP "Known faults in the reference itself")."""
 
+import torch_threads  # noqa: F401  (one intra-op thread)
+
 import math
 
 import numpy as np

@@ -10,6 +10,8 @@ tests/test_reference_parity.py holds the JAX package to: f/g over the full
 to 1e-4 relative.
 """
 
+import torch_threads  # noqa: F401  (one intra-op thread)
+
 import ast
 import pathlib
 

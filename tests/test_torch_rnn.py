@@ -15,6 +15,8 @@ Tolerances: cells, SeqRNN and GRUDFull outputs 2e-6 absolute; every
 gradient 1e-4 relative to its largest entry.
 """
 
+import torch_threads  # noqa: F401  (one intra-op thread)
+
 import numpy as np
 import pytest
 import torch

@@ -23,6 +23,8 @@ against noise of 8e-8) takes a step of noise: such entries are set to 0
 on both sides at each step, from the JAX gradient.
 """
 
+import torch_threads  # noqa: F401  (one intra-op thread)
+
 import numpy as np
 import optax
 import pytest

@@ -25,6 +25,8 @@ sides: Adam would blow each side's noise up to a step of its own, and
 through the bias the BatchNorm running mean would drift apart too.
 """
 
+import torch_threads  # noqa: F401  (one intra-op thread)
+
 import numpy as np
 import optax
 import pytest

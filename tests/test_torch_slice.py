@@ -8,6 +8,8 @@ gradient must agree, and so must the parameters and BatchNorm buffers after
 three coupled-Adam steps with the 100x readout hook.
 """
 
+import torch_threads  # noqa: F401  (one intra-op thread)
+
 import numpy as np
 import optax
 import pytest

@@ -9,6 +9,8 @@ same (dW, I10), drawn with numpy. The sampler cannot reproduce JAX's bits,
 so it is checked by its moments.
 """
 
+import torch_threads  # noqa: F401  (one intra-op thread)
+
 import pathlib
 
 import numpy as np

@@ -8,6 +8,8 @@ eager solvers (the fused kernels draw their own paths; their modes are held
 to the JAX kernels by tests/test_torch_fused_modes.py).
 """
 
+import torch_threads  # noqa: F401  (one intra-op thread)
+
 import numpy as np
 import pytest
 import torch
@@ -227,9 +229,9 @@ def test_sweep_seeds_draw_different_training_paths(monkeypatch):
     seen = []
     real = trob.ists_train_step
 
-    def spy(model, optimizer, batch, use_fused=True, generator=None):
+    def spy(model, optimizer, batch, use_fused=True, generator=None, **kw):
         seen.append(torch.randn(3, generator=_copy_gen(generator)))
-        return real(model, optimizer, batch, use_fused, generator)
+        return real(model, optimizer, batch, use_fused, generator, **kw)
 
     monkeypatch.setattr(trob, "ists_train_step", spy)
     X, y, _ = synthetic_uea(n=24, length=6, channels=2, num_classes=2,

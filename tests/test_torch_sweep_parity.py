@@ -24,6 +24,8 @@ agrees to 3e-7 while this bias differs by 2e-3 and the running mean by
 trainers look up), so the comparison sees the training path itself.
 """
 
+import torch_threads  # noqa: F401  (one intra-op thread)
+
 import numpy as np
 import pytest
 import torch

@@ -11,6 +11,8 @@ the JAX package's values of this run within 1e-6, so a change on either
 side shows.
 """
 
+import torch_threads  # noqa: F401  (one intra-op thread)
+
 import os
 
 import numpy as np
