@@ -11,7 +11,9 @@ recurrent baselines `gru`, `grud`, `lstm` and `bilstm` (the fused GRU and
 LSTM kernels); since the seed ensembles their packed runs, and since the
 speech and latent slice Speech Commands (the EM kernels at L=161) and the
 sweep's `latentsde`/`latentsde-kl` (the EM kernels' latent instances),
-phase 7. Phases, each of which raises on failure:
+phase 7; since the ODE-RNN hybrids the sweep's `gru-dt`, `gru-d`,
+`ode-rnn` and `ode-lstm` (the GRU and LSTM kernels' modes), phase 8.
+Phases, each of which raises on failure:
   1. card: name, and name and power limit from nvidia-smi;
   2. build: nvcc builds every kernel of the four paths from
      snsde_torch/csrc/ (sm_90a, one nvcc per source, all started together),
@@ -145,9 +147,20 @@ phase 7. Phases, each of which raises on failure:
      solve against the eager sdeint(f_aug, g_aug), KL lane included); the
      latent pair's times and bounds at the sweep's shape, the EM pair's at
      the speech shape, and one speech training step through the kernels
-     and the eager solver with its profiler window.
+     and the eager solver with its profiler window;
+  8. the ODE-RNN hybrids, in phases 3-5's places: each instance of the
+     GRU pair's obs, decay-row and evolve modes and the LSTM pair's evolve
+     (RNN_MODES) against its plain version by compare_rnn's rules, at the
+     sweep's shape (B=64, L=60, H=16; the evolve also with three layers
+     and two substeps) and at H=256 (B=128, L=24: a cluster of 8), its
+     plan printed (compare_rnn_modes); the sweep cell with gru-dt, gru-d,
+     ode-rnn and ode-lstm in phase 4's recurrent runs, each of which must
+     launch its own instances (RNN_PAIRS) and the weight-gradient kernels
+     once a backward; and the instances' times and bounds at both shapes
+     (rnn_modes_times).
 It prints one JSON line of the kernels (each SDE kernel with the `modes`
-it takes; the packed launches as their own entries), the card's name and
+it takes; the packed launches and the hybrids' instances as their own
+entries, the latter with their H=256 times), the card's name and
 power limit, and last `{"ok": true, "device": {...}}`. It exits non-zero,
 printing no result, without a CUDA device or outside the repository.
 
@@ -205,8 +218,28 @@ CDE = {"uea_rk4": dict(B=1024, L=72, C=6, H=32, n_inner=1),
 # the sweep cell (tools/run_sweep_cd.py: uea_b_noisy, neuralcde, hidden 16)
 SWEEP = dict(n=320, L=60, D=5, classes=2, seed=50, noise=0.8, H=16, B=64)
 # the recurrent baselines of the sweep cell: each recurrence reads the
-# embedded stream (hidden 16); the bilstm runs 8 units per direction
-RNN_MODELS = ("gru", "grud", "lstm", "bilstm")
+# embedded stream (hidden 16); the bilstm runs 8 units per direction; and
+# the ODE-RNN hybrids (the GRU pair's obs, decay-row and evolve modes, the
+# LSTM pair's evolve)
+RNN_MODELS = ("gru", "grud", "lstm", "bilstm", "gru-dt", "gru-d", "ode-rnn",
+              "ode-lstm")
+# the launch counters (read_counts keys) each recurrent name must move:
+# its instances' forward and backward, and the weight-gradient kernel
+# once a backward (W_hh's; with the evolve, its layers' too)
+RNN_PAIRS = {"gru": ("gru", "gru_wgrad"), "grud": ("gru", "gru_wgrad"),
+             "lstm": ("lstm", "lstm_wgrad"), "bilstm": ("lstm", "lstm_wgrad"),
+             "gru-dt": ("gru_obs", "gru_wgrad"),
+             "gru-d": ("gru_dec1", "gru_wgrad"),
+             "ode-rnn": ("gru_ode", "gru_wgrad", "mlp_wgrad"),
+             "ode-lstm": ("lstm_ode", "lstm_wgrad", "mlp_wgrad")}
+# the hybrids' kernel instances: (pair, mode, JSON name suffix); mode as
+# fused_rnn's (GRU 1 obs, 2 the decay row, 3 the evolve; LSTM 1 the evolve)
+RNN_MODES = (("gru", 1, "obs"), ("gru", 2, "dec1"), ("gru", 3, "ode"),
+             ("lstm", 1, "ode"))
+# their shapes beside the sweep's: a width whose plan splits W_hh over a
+# cluster of 8 (the evolve run by every CTA of it), at a cut batch and
+# length
+RNN_MODE_WIDE = dict(B=128, L=24, H=256)
 RNN_SWEEP = dict(B=SWEEP["B"], L=SWEEP["L"], C=SWEEP["H"], H=SWEEP["H"])
 # the JAX package's recurrent bench shapes (tools/bench_cde.py:159-177)
 RNN_BENCH = {f"{kind}{sfx}": dict(kind=kind, B=1024, L=72, C=6, H=h)
@@ -947,10 +980,14 @@ def _counters():
             for key in ("em", "srk") for part in ("fwd", "bwd", "wgrad")]
     out += [(f"em_latent_{part}", _kernel_modules()["em"],
              f"LATENT_{part.upper()}_LAUNCHES") for part in ("fwd", "bwd")]
-    return out + [(f"{key}_{part}", fused_rnn,
-                   f"{key.upper()}_{part.upper()}_LAUNCHES")
-                  for key in ("gru", "lstm")
-                  for part in ("fwd", "bwd", "wgrad")]
+    out += [(f"{key}_{part}", fused_rnn,
+             f"{key.upper()}_{part.upper()}_LAUNCHES")
+            for key in ("gru", "lstm") for part in ("fwd", "bwd", "wgrad")]
+    out += [(f"{key}_{part}", fused_rnn,
+             f"{key.upper()}_{part.upper()}_LAUNCHES")
+            for key in ("gru_obs", "gru_dec1", "gru_ode", "lstm_ode")
+            for part in ("fwd", "bwd")]
+    return out + [("mlp_wgrad", fused_rnn, "MLP_WGRAD_LAUNCHES")]
 
 
 def zero_counts():
@@ -1334,9 +1371,10 @@ def rnn_run(kind, fwd, bwd, inp, ghs):
         g = bwd(hs=hs, ghs=ghs, **inp)
         return {"hs": hs, **{n: v for n, v in zip(g._fields, g)
                              if v is not None}}
-    hs, cs = fwd(**inp)
+    hs, cs, _ = fwd(**inp)
     g = bwd(hs=hs, cs=cs, ghs=ghs, **inp)
-    return {"hs": hs, "cs": cs, **dict(zip(g._fields, g))}
+    return {"hs": hs, "cs": cs, **{n: v for n, v in zip(g._fields, g)
+                                   if v is not None}}
 
 
 def compare_rnn(kind, B, L, C, H, dec=False):
@@ -1423,14 +1461,13 @@ def compare_wgrad(kind, B, L, C, H, dec=False):
 
     _, _, inp, ghs = rnn_kernel_inputs(kind, B, L, C, H, dec)
     if kind == "lstm":
-        hs, cs = fr.fused_lstm_forward_reference(**inp)
+        hs, cs, _ = fr.fused_lstm_forward_reference(**inp)
         args = (hs, fr.fused_lstm_backward_reference(hs=hs, cs=cs, ghs=ghs,
                                                      **inp).dgi)
     else:
         hs = fr.fused_gru_forward_reference(**inp)
-        dgh = fr._gru_backward_loop(inp["gi"], hs, ghs, inp["h0"],
-                                    inp["whh"], inp["bhh"],
-                                    inp.get("hdec"))[1]
+        dgh = fr._gru_reverse(inp["gi"], hs, ghs, inp["h0"], inp["whh"],
+                              inp["bhh"], inp.get("hdec")).dgh
         args = (inp["h0"], hs, dgh, inp.get("hdec"))
     k = getattr(fr, f"fused_{kind}_weight_grads")(*args)
     plain = getattr(fr, f"fused_{kind}_weight_grads_reference")
@@ -1572,15 +1609,16 @@ def compare_rnn_cudnn(kind, B, L, C, H):
 
 
 def rnn_sweep_path(out_dir):
-    """The robustness sweep's recurrent baselines on the sweep cell, one
-    model a run, the counts set to 0 just before each run and read just
-    after; returns the launch counts summed over the four runs."""
-    from snsde_torch.harness.robustness import (SweepConfig, preprocess_ists,
+    """The robustness sweep's recurrent baselines and ODE-RNN hybrids on
+    the sweep cell, one model a run, the counts set to 0 just before each
+    run and read just after; returns the launch counts summed over the
+    runs of each pair's names ({'gru': counts, 'lstm': counts})."""
+    from snsde_torch.harness.robustness import (SweepConfig, coeff_family,
+                                                preprocess_ists,
                                                 run_robustness_sweep)
 
     X, _, _ = uea_b_noisy()
-    small = preprocess_ists(X[:16], missing_rate=0.3, seed=0)
-    total = {}
+    total = {"gru": {}, "lstm": {}}
     for name in RNN_MODELS:
         cfg = SweepConfig(models=(name,), missing_rates=(0.3,), seeds=(0,),
                           hidden_dim=SWEEP["H"], batch_size=SWEEP["B"],
@@ -1595,7 +1633,7 @@ def rnn_sweep_path(out_dir):
         torch.cuda.synchronize()
         launches = read_counts()
         wall = time.perf_counter() - t0
-        pair = "gru" if name in ("gru", "grud") else "lstm"
+        pair, *grads = RNN_PAIRS[name]
         print(f"main path 4 ({name}): run_robustness_sweep 2 epochs in "
               f"{wall:.1f} s, records {recs}, launches {launches}",
               flush=True)
@@ -1607,14 +1645,18 @@ def rnn_sweep_path(out_dir):
         if launches[f"{pair}_fwd"] <= 0 or launches[f"{pair}_bwd"] <= 0:
             raise AssertionError(f"{name} did not run the {pair} kernels: "
                                  f"{launches}")
-        if launches[f"{pair}_wgrad"] != launches[f"{pair}_bwd"]:
-            raise AssertionError(f"{name}: the {pair} weight-gradient "
-                                 f"kernel ran {launches[pair + '_wgrad']} "
-                                 f"times, the recurrence "
-                                 f"{launches[pair + '_bwd']}")
+        for key in grads:
+            if launches[key] != launches[f"{pair}_bwd"]:
+                raise AssertionError(f"{name}: the weight-gradient kernel "
+                                     f"({key}) ran {launches[key]} times, "
+                                     f"the recurrence "
+                                     f"{launches[pair + '_bwd']}")
+        small = preprocess_ists(X[:16], missing_rate=0.3,
+                                interpolation=coeff_family(name), seed=0)
         check_trained_rnn(name, trained[(0.3, name, 0)], small)
+        fam = total[pair.split("_")[0]]
         for key, v in launches.items():
-            total[key] = total.get(key, 0) + v
+            fam[key] = fam.get(key, 0) + v
     return total
 
 
@@ -1622,12 +1664,20 @@ def check_trained_rnn(name, model, data):
     """A trained classifier's recurrence through the kernels vs its eager
     loop over the cell, on the same batch: the stream within TOL_YS of its
     largest entry."""
-    inner = model.layer.inner
+    layer, inner = model.layer, model.layer.inner
     seq = torch.as_tensor(data["seq"], device=DEV)
+    coeffs = torch.as_tensor(data["coeffs"], device=DEV)
     x, mask, delta = seq[:, 0], seq[:, 1], seq[:, 2]
+    times = np.linspace(0.0, 1.0, seq.shape[2]).astype(np.float32)
     with torch.no_grad():
         if name == "grud":
             z_f, z_e = (inner(x, mask, delta, use_fused=f)
+                        for f in (True, False))
+        elif name == "ode-lstm":
+            z_f, z_e = (inner(layer.in_proj(x), delta[..., 0], use_fused=f)
+                        for f in (True, False))
+        elif name in ("gru-dt", "gru-d", "ode-rnn"):
+            z_f, z_e = (inner(times, coeffs, stream=True, use_fused=f)[1]
                         for f in (True, False))
         else:
             z_f, z_e = (inner(x, use_fused=f)[1] for f in (True, False))
@@ -1637,6 +1687,235 @@ def check_trained_rnn(name, model, data):
           f"over max|z| {rel:.3e} (tol {TOL_YS:g})")
     if not (torch.isfinite(z_f).all() and rel <= TOL_YS):
         raise AssertionError(f"trained {name} model's kernels disagree")
+
+
+def rnn_mode_inputs(kind, mode, B, L, H, n=2, S=1, seed=0):
+    """A random cell of the sweep's shape (the embedded stream of width H
+    in, the port's init) on a random sequence, and a mode's detached
+    inputs, as a hybrid of the sweep hands them over: gi, W_hh, b_hh (the
+    GRU's h0 ~ N(0, 1/4)), the mask obs [L, B] ~ Bernoulli(0.5) (the
+    GRU's), the decay row hrow [L, H] ~ U(0.2, 1), the evolve's MLP (n
+    layers of the init's scale, hh = H) with the knots' spacing 1/(L-1)
+    (GRU) or elapsed times ~ U(0, 2) per row (LSTM) over S substeps; and
+    the cotangent ghs of a batch-mean loss. (inputs, mode kwargs, ghs)."""
+    from snsde_torch.kernels import fused_rnn as fr
+    from snsde_torch.nn.layers import make_linear
+
+    _, xs, inp, ghs = rnn_kernel_inputs(kind, B, L, H, H, seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=DEV)
+    kw = {}
+    if kind == "gru":
+        kw["obs"] = t(rng.uniform(size=(L, B)) < 0.5)
+        if mode == 2:
+            kw["hrow"] = t(rng.uniform(0.2, 1.0, size=(L, H)))
+    if (kind, mode) in (("gru", 3), ("lstm", 1)):
+        gen = torch.Generator().manual_seed(seed)
+        layers = [make_linear(H, H, generator=gen) for _ in range(n)]
+        with torch.no_grad():
+            mlp = fr.pack_mlp(layers).to(DEV)
+        dts = (t(np.full(L, 1.0 / (L - 1))) if kind == "gru"
+               else t(rng.uniform(0.0, 2.0, size=(L, B))))
+        kw["ode"] = fr.Evolve(mlp, (dts / S).contiguous(), n, H, S)
+    return inp, kw, ghs
+
+
+def rnn_mode_run(kind, inp, kw, ghs, plain=False):
+    """{output name: tensor} of a mode's forward (hs; the LSTM's cs and
+    hcell) and backward on the same inputs: the kernels, or with plain
+    their plain versions."""
+    from snsde_torch.kernels import fused_rnn as fr
+
+    sfx = "_reference" if plain else ""
+    fwd = getattr(fr, f"fused_{kind}_forward{sfx}")
+    bwd = getattr(fr, f"fused_{kind}_backward{sfx}")
+    if kind == "gru":
+        hs = fwd(**inp, **kw)
+        out = {"hs": hs}
+        g = bwd(hs=hs, ghs=ghs, **inp, **kw)
+    else:
+        hs, cs, hcell = fwd(**inp, save_cs=True, **kw)
+        out = {"hs": hs, "cs": cs, "hcell": hcell}
+        g = bwd(hs=hs, cs=cs, ghs=ghs, hcell=hcell, **inp, **kw)
+    out.update({n: v for n, v in zip(g._fields, g) if v is not None})
+    return out
+
+
+def _dbl_mode(kw):
+    return {n: (v._replace(mlp=v.mlp.double(), dts=v.dts.double())
+                if n == "ode" else v.double()) for n, v in kw.items()}
+
+
+def compare_rnn_mode(kind, mode, B, L, H, n=2, S=1):
+    """One of the hybrids' kernel instances against its plain version on
+    the same inputs, by compare_rnn's rules (hs, cs and hcell within
+    TOL_YS of their largest entries, every cotangent, the evolve's packed
+    weight gradient dmlp and the decay row's dhrow included, within
+    TOL_GRAD, and the float64 rms rule), with the plan it ran printed.
+    Returns the largest abs errors of the forward's and the backward's
+    outputs."""
+    from snsde_torch.kernels import fused_rnn as fr
+
+    inp, kw, ghs = rnn_mode_inputs(kind, mode, B, L, H, n, S)
+    k = rnn_mode_run(kind, inp, kw, ghs)
+    p = rnn_mode_run(kind, inp, kw, ghs, plain=True)
+    r = rnn_mode_run(kind, {n_: v.double() for n_, v in inp.items()},
+                     _dbl_mode(kw), ghs.double(), plain=True)
+    torch.cuda.synchronize()
+    ode = kw.get("ode")
+    plan = (fr.fused_gru_plan(H, B, True, mode, ode) if kind == "gru"
+            else fr.fused_lstm_plan(H, B, True, ode))
+    print(f"  {kind.upper()} mode {mode} B={B} L={L} H={H}"
+          f"{f' n={n} S={S}' if ode else ''}: backward plan CS="
+          f"{plan['cluster']}, {plan['rows']} rows, {plan['smem_bytes']} "
+          f"shared bytes")
+    err = {"fwd": 0.0, "bwd": 0.0}
+    for name in k:
+        e = float((k[name] - p[name]).abs().max())
+        rel = e / max(float(p[name].abs().max()), 1e-30)
+        (k_max, k_rms), (p_max, p_rms) = (_errs64(k[name], r[name]),
+                                          _errs64(p[name], r[name]))
+        fwd = name in ("hs", "cs", "hcell")
+        tol = TOL_YS if fwd else TOL_GRAD
+        print(f"    {name:6s} max abs err {e:.3e} rel {rel:.3e} (tol "
+              f"{tol:g}); from float64 largest/rms: kernel {k_max:.3e}/"
+              f"{k_rms:.3e}, float32 plain {p_max:.3e}/{p_rms:.3e}")
+        if not rel <= tol:
+            raise AssertionError(f"{kind} mode {mode} kernel disagrees on "
+                                 f"{name}")
+        if not k_rms <= F64_FACTOR * p_rms + F64_FLOOR:
+            raise AssertionError(f"{kind} mode {mode} {name}: kernel "
+                                 f"further from float64 than the plain "
+                                 f"version allows")
+        part = "fwd" if fwd else "bwd"
+        err[part] = max(err[part], e)
+    return err["fwd"], err["bwd"]
+
+
+def compare_rnn_modes():
+    """Every hybrid instance against its plain version at the sweep's shape
+    and at H=256 (a cluster of 8 CTAs, each running the evolve on its full
+    copy), the evolve also with three layers and two substeps. Returns
+    {'<pair>_<suffix>': (fwd err, bwd err)}."""
+    rs, wide = RNN_SWEEP, RNN_MODE_WIDE
+    out = {}
+    for kind, mode, sfx in RNN_MODES:
+        errs = [compare_rnn_mode(kind, mode, rs["B"], rs["L"], rs["H"]),
+                compare_rnn_mode(kind, mode, wide["B"], wide["L"],
+                                 wide["H"])]
+        if sfx == "ode":
+            errs.append(compare_rnn_mode(kind, mode, rs["B"], rs["L"],
+                                         rs["H"], n=3, S=2))
+        out[f"{kind}_{sfx}"] = tuple(max(e[i] for e in errs)
+                                     for i in range(2))
+    return out
+
+
+def _numel(*ts):
+    return sum(t.numel() for t in ts if torch.is_tensor(t))
+
+
+def rnn_mode_kernel_times(kind, mode, B, L, H):
+    """Times of one hybrid instance and its plain versions at one shape,
+    and its bounds from the same inputs: the forward; the backward's
+    recurrence and the W_hh weight gradient timed apart and summed
+    ("bwd"); with the evolve its layers' weight gradient alone
+    ("mlpgrad"). Bytes: every input read once and every output written
+    once, the wrapper's (the backward writes dgi, dh0, dW_hh, db_hh and
+    the decay row's cotangent; its streams for the evolve's weight
+    gradient are that kernel's inputs, on its side of the split).
+    Operations: the cell's products (2 L B G H^2 forward, 3x backward with
+    W_hh's weight product) and the evolve's (2 L S B per layer in x out
+    forward; the backward recomputes the substeps and runs the back
+    product: 2x; its weight gradient 2 K in x out, K = L S B). No PyTorch
+    call computes a masked or evolved GRU/LSTM: no library time for the
+    pair; the evolve's weight gradient has torch.matmul of each layer's
+    product (its bias sums left out)."""
+    from snsde_torch.kernels import fused_rnn as fr
+
+    inp, kw, ghs = rnn_mode_inputs(kind, mode, B, L, H)
+    ode = kw.get("ode")
+    G = 3 if kind == "gru" else 4
+    fwd = getattr(fr, f"fused_{kind}_forward")
+    fwd_p = getattr(fr, f"fused_{kind}_forward_reference")
+    bwd = getattr(fr, f"fused_{kind}_backward")
+    bwd_p = getattr(fr, f"fused_{kind}_backward_reference")
+    rec_k = getattr(fr, f"fused_{kind}_backward_recurrence")
+    fkw = kw if kind == "gru" else dict(save_cs=True, **kw)
+    outs = fwd(**inp, **fkw)
+    if kind == "gru":
+        hs, fouts = outs, (outs,)
+        bargs = dict(hs=hs, ghs=ghs, **inp)
+    else:
+        hs, cs, hcell = fouts = outs
+        bargs = dict(hs=hs, cs=cs, ghs=ghs, hcell=hcell, **inp)
+    rec = lambda: rec_k(**bargs, **kw)
+    r = rec()
+    wg = ((lambda: fr.fused_gru_weight_grads(inp["h0"], hs, r.dgh,
+                                             xin=r.xin))
+          if kind == "gru" else
+          (lambda: fr.fused_lstm_weight_grads(hs, r.dgi)))
+    g = bwd(**bargs, **kw)
+    grads = [v for n, v in zip(g._fields, g)
+             if v is not None and n != "dmlp"]
+    ms = {"fwd": timed(lambda: fwd(**inp, **fkw)),
+          "fwd_plain": timed(lambda: fwd_p(**inp, **fkw), reps=3, warmup=1),
+          "bwd_recurrence": timed(rec), "bwd_wgrad": timed(wg),
+          "bwd_plain": timed(lambda: bwd_p(**bargs, **kw), reps=3,
+                             warmup=1)}
+    ms["bwd"] = ms["bwd_recurrence"] + ms["bwd_wgrad"]
+    prod = 2 * L * B * G * H * H
+    mlp_pairs = 0
+    if ode is not None:
+        dims = fr._mlp_dims(H, ode.hh, ode.n)
+        mlp_pairs = sum(i * j for i, j in dims)
+        K = L * ode.steps * B
+        av = fr._stream_views(r.acts, K, [i for i, _ in dims])
+        zv = fr._stream_views(r.dzs, K, [j for _, j in dims])
+        ms["mlpgrad"] = timed(lambda: fr.fused_mlp_weight_grads(
+            r.acts, r.dzs, L, B, H, ode))
+        ms["mlpgrad_plain"] = timed(lambda: fr.fused_mlp_weight_grads_reference(
+            r.acts, r.dzs, L, B, H, ode), reps=5, warmup=1)
+        ms["mlpgrad_lib"] = timed(lambda: [torch.matmul(a.T, z)
+                                           for a, z in zip(av, zv)])
+    evolve = 2 * L * B * (ode.steps if ode else 0) * mlp_pairs
+    mode_ins = [kw.get("obs"), kw.get("hrow")] + ([ode.mlp, ode.dts]
+                                                  if ode else [])
+    ins = list(inp.values()) + mode_ins
+    k_x = (L if kind == "gru" else L - 1) * B
+    bounds = {
+        "fwd": bound(4 * (_numel(*ins) + _numel(*fouts)), prod + evolve),
+        "bwd": bound(4 * (_numel(*bargs.values(), *mode_ins)
+                          + _numel(*grads)),
+                     3 * prod + 2 * evolve),
+        "wgrad": bound(4 * (k_x * H + L * B * G * H + (H + 1) * G * H),
+                       2 * k_x * H * G * H)}
+    if ode is not None:
+        ps = sum((i + 1) * j for i, j in dims)
+        bounds["mlpgrad"] = bound(4 * (_numel(r.acts, r.dzs) + ps),
+                                  2 * K * mlp_pairs)
+    print(f"{kind.upper()} mode {mode} at B={B} L={L} H={H}: bounds "
+          + ", ".join(f"{k} {v[0]:.6f} ms ({v[1]})" for k, v in
+                      bounds.items()) + "; " + ", ".join(
+              f"{k} {v:.4f} ms" for k, v in ms.items()), flush=True)
+    return ms, bounds
+
+
+def rnn_modes_times():
+    """The hybrids' instances timed at the sweep's shape and at H=256:
+    ({'<pair>_<suffix>': ms}, {...: bounds}), the H=256 times under
+    '<key> h256'."""
+    rs, wide = RNN_SWEEP, RNN_MODE_WIDE
+    ms, bounds = {}, {}
+    for kind, mode, sfx in RNN_MODES:
+        key = f"{kind}_{sfx}"
+        ms[key], bounds[key] = rnn_mode_kernel_times(kind, mode, rs["B"],
+                                                     rs["L"], rs["H"])
+        w_ms, w_bounds = rnn_mode_kernel_times(kind, mode, wide["B"],
+                                               wide["L"], wide["H"])
+        ms[key].update({f"{k} h256": v for k, v in w_ms.items()})
+        bounds[key].update({f"{k} h256": v for k, v in w_bounds.items()})
+    return ms, bounds
 
 
 def rnn_kernel_times(kind, B, L, C, H):
@@ -1655,7 +1934,7 @@ def rnn_kernel_times(kind, B, L, C, H):
         hs = fwd(**inp)
         bargs = dict(hs=hs, ghs=ghs, **inp)
     else:
-        hs, cs = fwd(**inp)
+        hs, cs, _ = fwd(**inp)
         bargs = dict(hs=hs, cs=cs, ghs=ghs, **inp)
     ms = {"fwd": timed(lambda: fwd(**inp)),
           "fwd_plain": timed(lambda: fwd_p(**inp), reps=5, warmup=1),
@@ -1716,11 +1995,11 @@ def backward_times(kind, cell, xs, bargs, ghs):
     wg = getattr(fr, f"fused_{kind}_weight_grads")
     wg_p = getattr(fr, f"fused_{kind}_weight_grads_reference")
     if kind == "lstm":
-        dg = rec(**bargs)
+        dg = rec(**bargs).dgi
         args = (hs, dg)
         x = torch.cat([torch.zeros_like(hs[:1]), hs[:-1]])
     else:
-        dg = rec(**bargs)[1]
+        dg = rec(**bargs).dgh
         args = (bargs["h0"], hs, dg, bargs.get("hdec"))
         x = torch.cat([bargs["h0"][None], hs[:-1]])
     G = dg.shape[-1] // H
@@ -2235,6 +2514,7 @@ for name, (B, L, C, H, dec) in {shapes!r}.items():
     if kind == "lstm":  # its two backward kernels apart
         rec, wg = fr.fused_lstm_backward_recurrence, fr.fused_lstm_weight_grads
         dg = rec(ghs=ghs, **extra, **inp)
+        dg = dg[0] if isinstance(dg, tuple) else dg  # a parent's: dgi alone
         out[name + " bwd rec"] = c.timed(
             lambda: rec(ghs=ghs, **extra, **inp), reps={reps})
         out[name + " bwd wgrad"] = c.timed(lambda: wg(extra["hs"], dg),
@@ -3612,6 +3892,9 @@ def main() -> int:
     err["lstm_wgrad"] = compare_wgrad("lstm", rs["B"], rs["L"], rs["C"],
                                       rs["H"])
     compare_wgrad("lstm", 1024, 72, 6, 128)
+    print("the ODE-RNN hybrids' instances vs their plain versions:",
+          flush=True)
+    err.update(compare_rnn_modes())
     for shape in RNN_BENCH.values():
         compare_rnn_cudnn(**shape)
     with tempfile.TemporaryDirectory() as out_dir:
@@ -3619,12 +3902,11 @@ def main() -> int:
                     "cde": sweep_path(out_dir)}
         sde_sweep_path(out_dir)
         launches["srk_packed"] = packed_sweep_path(out_dir)["neuralsde_4_17"]
-        rnn_launches = rnn_sweep_path(out_dir)
+        launches.update(rnn_sweep_path(out_dir))
         launches["em_latent"] = latent_sweep_path(out_dir)
     launches["em_speech"] = speech_path()
     launches["em_speech_packed"] = speech_ensemble_path()
     launches["em_packed"] = sepsis_ensemble_path()
-    launches["gru"] = launches["lstm"] = rnn_launches
     wide_sepsis_path()
     naive_sepsis_path()
     spline_times()
@@ -3657,6 +3939,9 @@ def main() -> int:
     ms["em_speech"].update(step_times("speech (euler)", speech_step_fns(),
                                       eager_reps=3))
     ms["em_latent"], bounds["em_latent"] = latent_kernel_times()
+    mode_ms, mode_bounds = rnn_modes_times()
+    ms.update(mode_ms)
+    bounds.update(mode_bounds)
     for key in ms:
         for k, v in ms[key].items():
             print(f"time {key} {k}: {v:.4f} ms  [{smi}]")
@@ -3766,6 +4051,46 @@ def main() -> int:
         "bound_by": bounds["em_latent"]["wgrad"][1],
         "library_ms": ms["em_latent"]["wgrad_lib"], "shape": "sweep",
         "modes": ["latent"]})
+    # the hybrids' instances at the sweep's shape (their launches the
+    # sweep runs'; the H=256 times beside), and the evolve's weight
+    # gradient on each pair's streams (one product kernel over its layers'
+    # streams; its launches those of the pair's names' runs)
+    for kind, mode, sfx in RNN_MODES:
+        key = f"{kind}_{sfx}"
+        lines = (312, 396) if kind == "gru" else (837, 934)
+        for part, line in zip(("fwd", "bwd"), lines):
+            kernels.append({
+                "name": (f"fused_{kind}_"
+                         f"{'forward' if part == 'fwd' else 'backward'}"
+                         f"_{sfx}"),
+                "route": "cuda", "source": "snsde_torch/csrc/fused_rnn.cu",
+                "replaces": f"snsde/kernels/fused_rnn.py:{line}",
+                "launches": launches[kind][f"{key}_{part}"],
+                "max_abs_err": err[key][0 if part == "fwd" else 1],
+                "ms": ms[key][part], "plain_ms": ms[key][f"{part}_plain"],
+                "bound_ms": bounds[key][part][0],
+                "bound_by": bounds[key][part][1], "library_ms": None,
+                "shape": "sweep", "mode": mode,
+                "ms_h256": ms[key][f"{part} h256"],
+                "plain_ms_h256": ms[key][f"{part}_plain h256"],
+                "bound_ms_h256": bounds[key][f"{part} h256"][0]})
+        if sfx == "ode":
+            kernels.append({
+                "name": f"fused_mlp_weight_grads_{kind}", "route": "cuda",
+                "source": "snsde_torch/csrc/fused_rnn.cu",
+                "replaces": f"snsde/kernels/fused_rnn.py:{lines[1]}",
+                "launches": launches[kind]["mlp_wgrad"],
+                "max_abs_err": err[key][1],
+                "ms": ms[key]["mlpgrad"],
+                "plain_ms": ms[key]["mlpgrad_plain"],
+                "bound_ms": bounds[key]["mlpgrad"][0],
+                "bound_by": bounds[key]["mlpgrad"][1],
+                "library_ms": ms[key]["mlpgrad_lib"],
+                "shape": "sweep", "mode": mode,
+                "ms_h256": ms[key]["mlpgrad h256"],
+                "plain_ms_h256": ms[key]["mlpgrad_plain h256"],
+                "library_ms_h256": ms[key]["mlpgrad_lib h256"],
+                "bound_ms_h256": bounds[key]["mlpgrad h256"][0]})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -10,7 +10,12 @@ of Linears is a `ModuleList` here, with the same indices; for the recurrent
 classifiers `layer.inner.cells.0.w_ih` and `layer.inner.cells_bwd.0.b_hh`
 (SeqRNN's cells, a `ModuleList` of cells), `layer.inner.embed.weight`, and
 GRUDFull's own `layer.inner.w_hh`, `layer.inner.gamma_x.weight` and
-`layer.inner.x_mean`; for the seed ensembles the members' tuples, a
+`layer.inner.x_mean`; for the ODE-RNN hybrids `layer.inner.gru.w_ih` and
+`layer.inner.linear.weight` (GRUdt, GRUD, ODERNN), GRUD's
+`layer.inner.decay.weight`, ODERNN's `layer.inner.f_layers.1.bias` (its
+tuple of Linears a `ModuleList` here), ODELSTM's `layer.inner.lstm.w_hh`
+and `layer.inner.f1.weight`, and the layer's own `layer.in_proj.weight`;
+for the seed ensembles the members' tuples, a
 `ModuleList` here too: InitialValueSeedEnsemble's
 `members.0.field.linear_in.weight` and `members.0.readout.norm.running_var`,
 SeedEnsemble's `fields.0...`, `initial_networks.0...` and `readouts.0...`,

@@ -11,7 +11,19 @@
 //                 _lstm_bwd_kernel :616)
 // in the modes the plain recurrent baselines and GRUD-full use: the GRU
 // from any h0, with or without the per-sample hidden-decay stream hdec
-// [L, B, H] (has_dec == 2), and the LSTM from zero (h, c). The input
+// [L, B, H] (has_dec == 2), and the LSTM from zero (h, c); and in the modes
+// of the ODE-RNN hybrids (the kernel bodies' has_obs, has_dec == 1 and
+// n_ode, fused_rnn.py:95-106, :141-178, :259-297, :596-600, :654-671):
+//   GRU mode 1  the observation mask obs [L, B] (GRU-dt):
+//               h = obs h' + (1 - obs) h_in, h_in the cell's input state
+//   GRU mode 2  mode 1 with a time-only decay row hrow [L, H] (GRU-D):
+//               h_in = h hrow_t; its cotangent summed over the batch
+//   GRU mode 3  mode 1 with the Euler MLP evolve (ODE-RNN): h_in is h after
+//               S substeps x += dt_t f(x), f an MLP of n layers (tanh
+//               inner layers, linear output), dt_t = tdif_t / S
+//   LSTM mode 1 the same evolve applied to the cell's output h' with a
+//               per-row dt [L, B] (ODE-LSTM); c passes through
+// (obs may be absent in modes 2 and 3: every step observed). The input
 // projection gi = x W_ih + b_ih [L, B, G*H] is computed outside the
 // kernels (one matrix product); gates follow torch's order, (r, z, n) and
 // (i, f, g, o):
@@ -71,6 +83,28 @@
 //   in a fixed order.
 // Plain fp32 FMA on the CUDA cores (TF32 off), no atomics.
 //
+// The modes. The mask and the decay row are read from device memory where
+// they are used (a row a step; L2-resident). The decay row's cotangent is
+// a sum over the batch, whose rows are spread over clusters: each CTA sums
+// its rows of its own units in row order into a partial [clusters][L][H],
+// which the wrapper sums in cluster order (no atomics). The MLP of the
+// evolve reads x of every unit, so every CTA of a cluster runs the whole
+// MLP on its full copy of the state (recomputed, not exchanged: at the
+// sweep's width the cluster is one CTA, and an exchange would add a
+// cluster barrier a layer), its weights read from device memory (L1/L2):
+// one output a thread, in a fixed order, so every CTA holds the same bits.
+// The backward recomputes the substep states from the step's input state,
+// takes the cotangent of every unit (each CTA adds the partials of the
+// whole row in rank order, its own units' direct share added by their
+// owner), goes back through the substeps, and writes each layer's input
+// and output cotangent as streams [L][S][B][width] (each CTA its share of
+// the columns); the weight gradients are the same product kernel after
+// the loop, one launch a layer, as W_hh's is. A GRU mode's W_hh gradient
+// takes the cell's input states from a stream xin [L][B][H] the backward
+// writes (modes 2 and 3; mode 1 reads h0 and hs); the LSTM's evolve keeps
+// hs (the evolved h, the next cell's input), and its forward writes the
+// cell's own output h' as a stream hcell for the backward.
+//
 // What bounds it on the H100: at the bench shapes (B = 1024, L = 72) the
 // work is small. At H = 32 the GRU forward moves 38 MB (gi in, hs out) and
 // does 0.45 GFLOP: ~11 us, bytes; at H = 128 it does 7.2 GFLOP: ~108 us,
@@ -113,6 +147,45 @@ __host__ __device__ inline Split split_of(int H, int cs) {
   return Split{U, round4(U), round4(H)};
 }
 
+// The mode of a launch: 0 the plain modes; GRU 1 obs, 2 obs + row decay,
+// 3 obs + evolve; LSTM 1 evolve. The evolve's MLP has n layers (H -> HH
+// -> ... -> HH -> H; H -> H when n = 1) and S substeps.
+struct ModeShape {
+  int mode, HH, n, S;
+};
+
+// What a mode's kernels read besides the plain inputs (null where unused)
+struct ModeArgs {
+  const float* obs;   // [L][B] 0/1; null: every step observed
+  const float* hrow;  // [L][H], the GRU's time-only decay row
+  const float* mlp;   // [W_0 (in x out), b_0 (out), W_1, b_1, ...]
+  const float* dts;   // substep sizes: [L] (GRU), [L][B] (LSTM)
+  int HH, n, S;
+};
+
+// The mode's own tiles, in floats (sM: the wider of H and HH). GRU forward,
+// mode 3, and LSTM forward, mode 1: the MLP's two scratch tiles [2][R][sM].
+// GRU backward (a kernel of its own for modes 1-3: the plain backward's
+// tiles without the decay's [R][sH], with the rows' decay products [R][sU]):
+// mode 2 the cell's input state [R][sH]; mode 3 the substep states
+// [S + 1][R][sH], the cotangent of the input state [R][sH], the inner
+// layers' activations [n - 1][R][sHH] and two [R][sM] for the layers'
+// cotangents. LSTM backward, mode 1: the step's ghs and the cotangent of
+// its output, every unit, [R][sH] each, the substep states [S][R][sH], the
+// activations and the two cotangent tiles.
+inline size_t mode_floats(int G, int H, int R, int backward,
+                          const ModeShape& ms) {
+  if (ms.mode == 0) return 0;
+  const size_t rH = (size_t)R * round4(H);
+  const size_t rM = (size_t)R * round4(std::max(H, ms.HH));
+  const size_t acts = (size_t)std::max(ms.n - 1, 0) * R * round4(ms.HH);
+  const bool ode = G == 3 ? ms.mode == 3 : ms.mode == 1;
+  if (!backward) return ode ? 2 * rM : 0;
+  if (G == 4) return (2 + (size_t)ms.S) * rH + acts + 2 * rM;
+  if (ms.mode == 2) return rH;
+  return ode ? (2 + (size_t)ms.S) * rH + acts + 2 * rM : 0;
+}
+
 // Shared memory of a CTA, in floats, for G gates. GRU forward: the cell's
 // input state [2][R][sH], the own gi columns of three steps [3][R][3 sU],
 // the own units' decay of three steps [3][R][sU], bias [3 sU]. GRU
@@ -126,20 +199,23 @@ __host__ __device__ inline Split split_of(int H, int cs) {
 // before the step [R][sH], the step's own gi columns [R][4 sU], c before
 // the step, the step's ghs, the cotangents of the step's output h (from
 // the later steps) and c [R][sU] each, the gate cotangents [R][4 sU], the
-// partial dh [2][R][sH], bias [4 sU]. Then the slice when it is in shared
-// memory.
+// partial dh [2][R][sH], bias [4 sU]. Then the mode's tiles (mode_floats),
+// then the slice when it is in shared memory.
 inline size_t rnn_floats(int G, int H, int cs, int R, int w_smem,
-                         int backward) {
+                         int backward, const ModeShape& ms) {
   const Split s = split_of(H, cs);
   const size_t rH = (size_t)R * s.sH, rU = (size_t)R * s.sU;
   size_t tiles;
-  if (G == 3)
+  if (G == 3 && backward && ms.mode != 0)
+    tiles = 3 * rH + 11 * rU + 3 * s.sU;
+  else if (G == 3)
     tiles = backward ? 4 * rH + 11 * rU + 3 * s.sU
                      : 2 * rH + 12 * rU + 3 * s.sU;
   else
     tiles = backward ? 3 * rH + 12 * rU + 4 * s.sU
                      : 2 * rH + 13 * rU + 4 * s.sU;
-  return tiles + (w_smem ? (size_t)H * odd(G * s.sU) : 0);
+  return tiles + mode_floats(G, H, R, backward, ms) +
+         (w_smem ? (size_t)H * odd(G * s.sU) : 0);
 }
 
 inline int sm_count() {
@@ -167,21 +243,31 @@ inline int rows_per_thread(int U, int R) {
   return rpt;
 }
 
-inline RnnPlan rnn_plan(int G, int H, int B, int backward) {
+// A cluster size and rows a cluster forced on every later plan (0: the
+// host's own choice), for tests of each kind of plan
+int g_force_cs = 0, g_force_rows = 0;
+
+inline RnnPlan rnn_plan(int G, int H, int B, int backward,
+                        const ModeShape& ms) {
   const size_t limit = (size_t)max_optin_smem();
   const int sms = sm_count();
-  for (int w_smem = 1; w_smem >= 0; --w_smem)
-    for (int cs = w_smem ? 1 : 8; cs <= 8; cs *= 2) {
+  for (int w_smem = 1; w_smem >= 0; --w_smem) {
+    const int cs_lo = g_force_cs ? g_force_cs : (w_smem ? 1 : 8);
+    const int cs_hi = g_force_cs ? g_force_cs : 8;
+    for (int cs = cs_lo; cs <= cs_hi; cs *= 2) {
       int want = 8;
       while (want < 32 && (B + want - 1) / want * cs > sms) want *= 2;
-      for (int R = want; R >= 8; R /= 2) {
+      const int r_hi = g_force_rows ? g_force_rows : want;
+      const int r_lo = g_force_rows ? g_force_rows : 8;
+      for (int R = r_hi; R >= r_lo; R /= 2) {
         const size_t bytes =
-            sizeof(float) * rnn_floats(G, H, cs, R, w_smem, backward);
+            sizeof(float) * rnn_floats(G, H, cs, R, w_smem, backward, ms);
         if (bytes <= limit)
           return RnnPlan{cs, R, w_smem,
                          rows_per_thread(split_of(H, cs).U, R), bytes};
       }
     }
+  }
   return RnnPlan{0, 0, 0, 0, 0};
 }
 
@@ -393,15 +479,203 @@ __device__ __forceinline__ void back_sums(const float* dg, int sU, int nu,
 }
 
 // ---------------------------------------------------------------------------
+// The evolve's MLP, shared by the GRU's mode 3 and the LSTM's mode 1. Every
+// CTA runs it on its full copy of the state (rows < nr, every unit); one
+// output a thread, its sum in a fixed order (the same bits in every CTA).
+// Tiles are [R][stride]; dt of row r is dt[r * dstride].
+// ---------------------------------------------------------------------------
+
+// Layer i of n maps in_i -> out_i: H -> HH ... HH -> H (H -> H when n = 1)
+__host__ __device__ inline int mlp_in(int i, int H, int HH) {
+  return i == 0 ? H : HH;
+}
+__host__ __device__ inline int mlp_out(int i, int n, int H, int HH) {
+  return i == n - 1 ? H : HH;
+}
+// the offset of layer i's W (b follows it) in the packed weights
+__host__ __device__ inline size_t mlp_off(int i, int n, int H, int HH) {
+  size_t o = 0;
+  for (int j = 0; j < i; ++j) {
+    const int ow = mlp_out(j, n, H, HH);
+    o += (size_t)mlp_in(j, H, HH) * ow + ow;
+  }
+  return o;
+}
+
+// y[r][c] = sum_m a[r][m] M[m][c] (+ bias[c], tanh with `inner`) for r <
+// nr, c < nc, m < nm, where M is W [nm][ld] or, with TRANS, W^T (W [nc][ld]).
+// A thread takes column c for a group of rg rows (RG: at most), so each
+// weight it loads (from L1/L2) feeds every row of the group. Each output's
+// sum runs over m in ascending order, whatever the grouping.
+template <bool TRANS, int RG>
+__device__ __forceinline__ void mlp_product_rows(
+    const float* a, int as, int nm, float* y, int ys, int nc,
+    const float* __restrict__ W, int ld, const float* bias, int nr,
+    bool inner, int rg) {
+  const int groups = (nr + rg - 1) / rg;
+  for (int i = threadIdx.x; i < nc * groups; i += THREADS) {
+    const int c = i % nc, r0 = (i / nc) * rg;
+    const int nq = min(rg, nr - r0);
+    float acc[RG];
+#pragma unroll
+    for (int q = 0; q < RG; ++q) acc[q] = 0.f;
+    for (int m = 0; m < nm; ++m) {
+      const float w =
+          __ldg(W + (TRANS ? (size_t)c * ld + m : (size_t)m * ld + c));
+#pragma unroll
+      for (int q = 0; q < RG; ++q)
+        if (RG == 1 || q < nq) acc[q] = fmaf(a[(r0 + q) * as + m], w, acc[q]);
+    }
+    const float b = bias ? __ldg(bias + c) : 0.f;
+#pragma unroll
+    for (int q = 0; q < RG; ++q)
+      if (RG == 1 || q < nq) {
+        const float v = bias ? acc[q] + b : acc[q];
+        y[(r0 + q) * ys + c] = inner ? tanhf(v) : v;
+      }
+  }
+}
+
+// mlp_product_rows with the most rows a group (1, 2, 4 or 8) that still
+// give the block's threads an item each: one at the sweep's width (a loop
+// of its own: the 8-row loop's predicates cost the sweep's evolve 1.5x on
+// an H100), 8 at H = 256, where every CTA of a cluster reads the whole MLP
+// from L2 (a loop over up to 8 rows, the row count at run time: with 2-4
+// instantiations more, the H = 256 forward took 12% longer)
+template <bool TRANS>
+__device__ __forceinline__ void mlp_product(const float* a, int as, int nm,
+                                            float* y, int ys, int nc,
+                                            const float* __restrict__ W,
+                                            int ld, const float* bias,
+                                            int nr, bool inner) {
+  int rg = 8;
+  while (rg > 1 && nc * ((nr + rg - 1) / rg) < THREADS) rg /= 2;
+  if (rg == 1)
+    mlp_product_rows<TRANS, 1>(a, as, nm, y, ys, nc, W, ld, bias, nr, inner,
+                               1);
+  else
+    mlp_product_rows<TRANS, 8>(a, as, nm, y, ys, nc, W, ld, bias, nr, inner,
+                               rg);
+}
+
+// out[r][j] = act(x[r] W[:, j] + b[j]) for r < nr, j < ow (act: tanh on
+// the inner layers); b is stored after W
+__device__ __forceinline__ void mlp_layer(const float* x, int xs, int iw,
+                                          float* out, int os, int ow,
+                                          const float* __restrict__ W,
+                                          int nr, bool inner) {
+  mlp_product<false>(x, xs, iw, out, os, ow, W, ow, W + (size_t)iw * ow, nr,
+                     inner);
+}
+
+// y = x + dt f(x), one Euler substep (y may be x); t0, t1 scratch [R][sM]
+__device__ __forceinline__ void mlp_substep(const float* x, float* y, int xs,
+                                            float* t0, float* t1, int sM,
+                                            const ModeArgs& m, int H, int nr,
+                                            const float* dt, int dstride) {
+  const float* in = x;
+  int is = xs, iw = H;
+  for (int i = 0; i < m.n; ++i) {
+    const int ow = mlp_out(i, m.n, H, m.HH);
+    float* out = (i & 1) ? t1 : t0;
+    mlp_layer(in, is, iw, out, sM, ow, m.mlp + mlp_off(i, m.n, H, m.HH), nr,
+              i < m.n - 1);
+    __syncthreads();
+    in = out;
+    is = sM;
+    iw = ow;
+  }
+  for (int i = threadIdx.x; i < nr * H; i += THREADS) {
+    const int r = i / H, k = i - r * H;
+    y[r * xs + k] = x[r * xs + k] + dt[r * dstride] * in[r * sM + k];
+  }
+  __syncthreads();
+}
+
+// The columns [c0, c1) of a width this CTA writes to a stream
+__device__ __forceinline__ void own_cols(int width, int cs, int rank, int& c0,
+                                         int& c1) {
+  const int per = (width + cs - 1) / cs;
+  c0 = min(width, rank * per);
+  c1 = min(width, c0 + per);
+}
+
+// Back through one substep x1 = x0 + dt f(x0): dh [R][sH] (the cotangent of
+// x1, every unit) becomes x0's. A [n - 1][R][sHH] takes the inner layers'
+// activations (recomputed from x0), dz and dx [R][sM] the layers'
+// cotangents. Each layer's input and output cotangent rows go to the
+// streams acts/dzs (layer i's blocks [K][in_i] and [K][out_i], K = L S B,
+// at row krow + r), this CTA's share of the columns.
+__device__ __forceinline__ void mlp_back(float* dh, int sH, const float* x0,
+                                         float* A, int tA, int sHH,
+                                         float* dz, float* dx, int sM,
+                                         const ModeArgs& m, int H, int nr,
+                                         const float* dt, int dstride,
+                                         float* __restrict__ acts,
+                                         float* __restrict__ dzs,
+                                         size_t krow, size_t K, int cs,
+                                         int rank) {
+  const int n = m.n, HH = m.HH;
+  for (int i = 0; i + 1 < n; ++i) {
+    mlp_layer(i == 0 ? x0 : A + (i - 1) * tA, i == 0 ? sH : sHH,
+              mlp_in(i, H, HH), A + i * tA, sHH, HH,
+              m.mlp + mlp_off(i, n, H, HH), nr, true);
+    __syncthreads();
+  }
+  for (int i = threadIdx.x; i < nr * H; i += THREADS) {
+    const int r = i / H, k = i - r * H;
+    dz[r * sM + k] = dh[r * sH + k] * dt[r * dstride];
+  }
+  __syncthreads();
+  size_t aoff = 0, zoff = 0;
+  for (int i = 0; i < n; ++i) {
+    aoff += K * mlp_in(i, H, HH);
+    zoff += K * mlp_out(i, n, H, HH);
+  }
+  for (int i = n - 1; i >= 0; --i) {
+    const int iw = mlp_in(i, H, HH), ow = mlp_out(i, n, H, HH);
+    aoff -= K * iw;
+    zoff -= K * ow;
+    const float* a = i == 0 ? x0 : A + (i - 1) * tA;
+    const int as = i == 0 ? sH : sHH;
+    const float* __restrict__ W = m.mlp + mlp_off(i, n, H, HH);
+    int c0, c1;
+    own_cols(iw, cs, rank, c0, c1);
+    for (int q = threadIdx.x; q < nr * (c1 - c0); q += THREADS) {
+      const int r = q / (c1 - c0), k = c0 + q - r * (c1 - c0);
+      acts[aoff + (krow + r) * iw + k] = a[r * as + k];
+    }
+    own_cols(ow, cs, rank, c0, c1);
+    for (int q = threadIdx.x; q < nr * (c1 - c0); q += THREADS) {
+      const int r = q / (c1 - c0), j = c0 + q - r * (c1 - c0);
+      dzs[zoff + (krow + r) * ow + j] = dz[r * sM + j];
+    }
+    // dx = dz W^T
+    mlp_product<true>(dz, sM, ow, dx, sM, iw, W, ow, nullptr, nr, false);
+    __syncthreads();
+    for (int q = threadIdx.x; q < nr * iw; q += THREADS) {
+      const int r = q / iw, k = q - r * iw;
+      if (i > 0) {
+        const float v = a[r * as + k];
+        dz[r * sM + k] = dx[r * sM + k] * (1.f - v * v);
+      } else {
+        dh[r * sH + k] += dx[r * sM + k];
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// ---------------------------------------------------------------------------
 // GRU
 // ---------------------------------------------------------------------------
 
-template <int RPT, int WS>
+template <int RPT, int WS, int MODE>
 __global__ void __launch_bounds__(THREADS)
 gru_fwd_kernel(RnnDims d, int cs, int R, const float* __restrict__ gi,
                const float* __restrict__ h0, const float* __restrict__ whh,
                const float* __restrict__ bhh, const float* __restrict__ hdec,
-               float* __restrict__ hs) {
+               float* __restrict__ hs, ModeArgs m) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   cg::cluster_group cluster = cg::this_cluster();
@@ -413,7 +687,9 @@ gru_fwd_kernel(RnnDims d, int cs, int R, const float* __restrict__ gi,
   float* gbuf = hbuf + 2 * tileH;  // gi, own columns [3][R][3 sU]
   float* dbuf = gbuf + 3 * tileG;  // the next step's decay, own [3][R][sU]
   float* bias = dbuf + 3 * tileU;  // [3 sU]
-  float* rest = bias + 3 * sU;
+  float* evt = bias + 3 * sU;      // mode 3: the MLP's scratch [2][R][sM]
+  const int sM = round4(max(H, m.HH));
+  float* rest = evt + (MODE == 3 ? 2 * R * sM : 0);
   zero_smem(smem, rest - smem);
   __syncthreads();
   const WSlice w = load_slice<3, WS>(rest, whh, H, g);
@@ -421,11 +697,15 @@ gru_fwd_kernel(RnnDims d, int cs, int R, const float* __restrict__ gi,
     const int gt = i / g.nu, ul = i - gt * g.nu;
     bias[gt * sU + ul] = bhh[gt * H + g.u0 + ul];
   }
-  // the first step's input state, every unit: h0, decayed
+  // the first step's input state, every unit: h0, decayed (mode 3 evolves
+  // it at the top of the step)
   for (int i = tid; i < g.nr * H; i += THREADS) {
     const int r = i / H, k = i - r * H;
     const size_t o = (size_t)(g.row0 + r) * H + k;
-    hbuf[r * sH + k] = hdec ? h0[o] * hdec[o] : h0[o];
+    if (MODE == 0)
+      hbuf[r * sH + k] = hdec ? h0[o] * hdec[o] : h0[o];
+    else
+      hbuf[r * sH + k] = MODE == 2 ? h0[o] * m.hrow[k] : h0[o];
   }
   // 16-byte copies when every row segment starts on 16 bytes
   const bool v4 = ((H | g.s.U) & 3) == 0 && aligned16(gi) &&
@@ -437,7 +717,7 @@ gru_fwd_kernel(RnnDims d, int cs, int R, const float* __restrict__ gi,
     copy_rows_async(gbuf + slot * tileG, 3 * sU, sU,
                     gi + ((size_t)t * d.B + g.row0) * GH + g.u0, GH, H, g.nr,
                     3, g.nu, v4, first);
-    if (hdec && t + 1 < d.L)
+    if (MODE == 0 && hdec && t + 1 < d.L)
       copy_rows_async(dbuf + slot * tileU, sU, 0,
                       hdec + ((size_t)(t + 1) * d.B + g.row0) * H + g.u0, H,
                       0, g.nr, 1, g.nu, v4, first);
@@ -453,13 +733,18 @@ gru_fwd_kernel(RnnDims d, int cs, int R, const float* __restrict__ gi,
   const int items = g.nu * (R / RPT), idle = items % THREADS;
   for (int t = 0; t < d.L; ++t) {
     const int cur = t & 1;
-    const float* hc = hbuf + cur * tileH;
+    float* hc = hbuf + cur * tileH;
     float* hn = hbuf + (cur ^ 1) * tileH;
     const float* git = gbuf + (t % 3) * tileG;
     const float* dec = dbuf + (t % 3) * tileU;
     // into the buffers step t - 1 read: all its reads are behind a barrier
     if (t + 2 < d.L) prefetch(t + 2, idle);
     cp_async_commit();
+    // the evolve, in place: peers write only the next step's buffer
+    if (MODE == 3)
+      for (int sub = 0; sub < m.S; ++sub)
+        mlp_substep(hc, hc, sH, evt, evt + R * sM, sM, m, H, g.nr,
+                    m.dts + t, 0);
     for (int item = tid; item < items; item += THREADS) {
       const int ul = item % g.nu, r0 = (item / g.nu) * RPT;
       float acc[3][RPT];
@@ -476,8 +761,14 @@ gru_fwd_kernel(RnnDims d, int cs, int R, const float* __restrict__ gi,
               tanhf(gr[2 * sU] + rg * (acc[2][q] + bs[2 * sU]));
           const int u = g.u0 + ul;
           float h = (1.f - zg) * ng + zg * hc[r * sH + u];
+          if (MODE != 0 && m.obs) {  // unobserved: the input state passes
+            const float sel = m.obs[(size_t)t * d.B + g.row0 + r];
+            h = sel * h + (1.f - sel) * hc[r * sH + u];
+          }
           hs[t * BH + (size_t)(g.row0 + r) * H + u] = h;
-          if (hdec && t + 1 < d.L) h *= dec[r * sU + ul];  // next step's
+          if (MODE == 0 && hdec && t + 1 < d.L)
+            h *= dec[r * sU + ul];  // next step's
+          if (MODE == 2 && t + 1 < d.L) h *= m.hrow[(size_t)(t + 1) * H + u];
           if (cs == 1)
             hn[r * sH + u] = h;
           else
@@ -674,15 +965,245 @@ gru_bwd_kernel(RnnDims d, int cs, int R, const float* __restrict__ gi,
   cluster_or_block_sync(cluster, cs);
 }
 
+// The GRU backward in modes 1-3, a kernel of its own so that the plain
+// modes' instances stay as they were (their cluster of one skips a barrier
+// a step by forming the next step's cotangent in the gate loop, which the
+// mask, the row sums and the evolve do not allow): the plain backward's
+// reverse recurrence,
+// with the observation mask splitting the output's cotangent between the
+// cell (obs) and the input state (1 - obs), and the cell's input state
+// x_t = h_{t-1} (mode 1), h_{t-1} hrow_t (mode 2) or h_{t-1} evolved
+// (mode 3, its substeps recomputed at the top of the step). Every cluster
+// size takes the cluster path (a cluster of one reads its own partial):
+// after the barrier each CTA forms the cotangent of the input state of
+// its own units (modes 1, 2: the direct share and the partials in rank
+// order; through the row to h_{t-1}, each CTA summing its rows' dx h into
+// its cluster's partial of dhrow) or of every unit (mode 3: the owners'
+// direct shares sit in their partials), then back through the substeps.
+// Writes dgi, dgh, dh0, the cell's input states xin (modes 2, 3; W_hh's
+// weight gradient reads them), dhrow's partials (mode 2) and the MLP's
+// streams (mode 3).
+template <int RPT, int WS, int MODE>
+__global__ void __launch_bounds__(THREADS)
+gru_bwd_mode_kernel(RnnDims d, int cs, int R, const float* __restrict__ gi,
+                    const float* __restrict__ h0, const float* __restrict__ hs,
+                    const float* __restrict__ ghs,
+                    const float* __restrict__ whh,
+                    const float* __restrict__ bhh, ModeArgs m,
+                    float* __restrict__ dgi, float* __restrict__ dgh,
+                    float* __restrict__ dh0, float* __restrict__ dhrow,
+                    float* __restrict__ xin, float* __restrict__ acts,
+                    float* __restrict__ dzs) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const Geom g = geom_of(d, cs, R, rank);
+  const int H = d.H, GH = 3 * H, sH = g.s.sH, sU = g.s.sU, tid = threadIdx.x;
+  const int tileH = R * sH, tileU = R * sU, sD = 3 * sU;
+  const int sHH = round4(m.HH), sM = round4(max(H, m.HH)), tA = R * sHH;
+  const size_t BH = (size_t)d.B * H;
+  float* hprev = smem;              // h before the step [R][sH], every unit
+  float* gbuf = hprev + tileH;      // the step's gi, own columns [R][3 sU]
+  float* gsel = gbuf + 3 * tileU;   // the step's ghs, own units [R][sU]
+  float* gh = gsel + tileU;         // cotangent of the step's output h from
+                                    // the later steps, own units
+  float* dzh = gh + tileU;          // its direct share in the input's
+  float* hown = dzh + tileU;        // mode 2: h before the step, own units
+  float* pdec = hown + tileU;       // mode 2: the rows' dx h, own units
+  float* dg = pdec + tileU;         // [dr, dz, dn r], own columns [R][3 sU]
+  float* pdh = dg + 3 * tileU;      // the CTA's partial dh [2][R][sH]
+  float* bias = pdh + 2 * tileH;    // [3 sU]
+  float* tail = bias + 3 * sU;
+  // the cell's input state [R][sH]: mode 1 hprev; mode 2 its own tile;
+  // mode 3 the last of the substep states [S + 1][R][sH]
+  float* subs = tail;
+  float* xt = MODE == 1 ? hprev : MODE == 2 ? tail : subs + m.S * tileH;
+  float* dhin = subs + (m.S + 1) * tileH;  // mode 3, every unit
+  float* A = dhin + tileH;                 // [n - 1][R][sHH]
+  float* dzt = A + (m.n - 1) * tA;         // [R][sM]
+  float* dxt = dzt + R * sM;               // [R][sM]
+  float* rest = MODE == 1 ? tail : MODE == 2 ? tail + tileH : dxt + R * sM;
+  zero_smem(smem, rest - smem);
+  __syncthreads();
+  const WSlice w = load_slice<3, WS>(rest, whh, H, g);
+  for (int i = tid; i < 3 * g.nu; i += THREADS) {
+    const int gt = i / g.nu, ul = i - gt * g.nu;
+    bias[gt * sU + ul] = bhh[gt * H + g.u0 + ul];
+  }
+  // 16-byte copies when every row segment starts on 16 bytes
+  const bool v4 = ((H | g.s.U) & 3) == 0 && aligned16(gi) && aligned16(h0) &&
+                  aligned16(hs) && aligned16(ghs);
+  // what step t reads: its gi and ghs rows, h before it (h0 before the
+  // first), issued from thread `first` on
+  auto prefetch = [&](int t, int first) {
+    const size_t row = (size_t)t * d.B + g.row0;
+    copy_rows_async(gbuf, sD, sU, gi + row * GH + g.u0, GH, H, g.nr, 3, g.nu,
+                    v4, first);
+    copy_rows_async(gsel, sU, 0, ghs + row * H + g.u0, H, 0, g.nr, 1, g.nu,
+                    v4, first);
+    copy_rows_async(
+        hprev, sH, 0, t > 0 ? hs + (row - d.B) * H : h0 + (size_t)g.row0 * H,
+        H, 0, g.nr, 1, H, v4, first);
+  };
+  prefetch(d.L - 1, 0);
+  cp_async_wait_all();
+  cluster.sync();
+  const int items = g.nu * (R / RPT), back_items = H * (R / RPT);
+  const int idle = back_items % THREADS;
+  const size_t K = (size_t)d.L * m.S * d.B;  // the MLP streams' rows
+  for (int t = d.L - 1; t >= 0; --t) {
+    // the cell's input state
+    if (MODE == 2) {
+      for (int i = tid; i < g.nr * H; i += THREADS) {
+        const int r = i / H, k = i - r * H;
+        xt[r * sH + k] = hprev[r * sH + k] * m.hrow[(size_t)t * H + k];
+      }
+      __syncthreads();
+    } else if (MODE == 3) {
+      for (int i = tid; i < g.nr * H; i += THREADS) {
+        const int r = i / H, k = i - r * H;
+        subs[r * sH + k] = hprev[r * sH + k];
+      }
+      __syncthreads();
+      for (int sub = 0; sub < m.S; ++sub)
+        mlp_substep(subs + sub * tileH, subs + (sub + 1) * tileH, sH, dzt,
+                    dxt, sM, m, H, g.nr, m.dts + t, 0);
+    }
+    // the own units' gates and their cotangents
+    const size_t ob = ((size_t)t * d.B + g.row0) * GH + g.u0;
+    for (int item = tid; item < items; item += THREADS) {
+      const int ul = item % g.nu, r0 = (item / g.nu) * RPT;
+      float acc[3][RPT];
+      gate_sums<3, RPT>(xt, sH, H, w, ul, r0, acc);
+#pragma unroll
+      for (int q = 0; q < RPT; ++q) {
+        const int r = r0 + q;
+        if (r < g.nr) {
+          const float* gr = gbuf + r * sD + ul;
+          const float* bs = bias + ul;
+          const float rg = sigmoid(gr[0] + acc[0][q] + bs[0]);
+          const float zg = sigmoid(gr[sU] + acc[1][q] + bs[sU]);
+          const float ghn = acc[2][q] + bs[2 * sU];
+          const float ng = tanhf(gr[2 * sU] + rg * ghn);
+          const int e = r * sU + ul, u = g.u0 + ul;
+          const size_t o = (size_t)(g.row0 + r) * H + u;
+          const float hin = xt[r * sH + u];
+          // the step's output h = sel h' + (1 - sel) h_in
+          const float gb = gsel[e] + gh[e];
+          const float sel =
+              m.obs ? m.obs[(size_t)t * d.B + g.row0 + r] : 1.f;
+          const float dhn = gb * sel;
+          const float dn = dhn * (1.f - zg) * (1.f - ng * ng);
+          const float dr = dn * ghn * rg * (1.f - rg);
+          const float dz = dhn * (hin - ng) * zg * (1.f - zg);
+          float* dgs = dg + r * sD + ul;
+          dgs[0] = dr;
+          dgs[sU] = dz;
+          dgs[2 * sU] = dn * rg;
+          float* dgr = dgi + ob + (size_t)r * GH + ul;
+          dgr[0] = dr;
+          dgr[H] = dz;
+          dgr[2 * H] = dn;
+          float* dwr = dgh + ob + (size_t)r * GH + ul;
+          dwr[0] = dr;
+          dwr[H] = dz;
+          dwr[2 * H] = dn * rg;
+          dzh[e] = dhn * zg + gb * (1.f - sel);
+          if (MODE != 1) xin[t * BH + o] = hin;
+          if (MODE == 2) hown[e] = hprev[r * sH + u];
+        }
+      }
+    }
+    __syncthreads();  // dg complete; this step's prefetched rows are read
+    if (t > 0) prefetch(t - 1, idle);
+    // back through the own columns of W_hh: the partial dh of every unit
+    // (mode 3: with the own units' direct share)
+    float* pd = pdh + (t & 1) * tileH;
+    for (int item = tid; item < back_items; item += THREADS) {
+      const int k = item % H, r0 = (item / H) * RPT;
+      float acc[RPT];
+      back_sums<3, RPT>(dg, sU, g.nu, w, k, r0, acc);
+      const bool own = MODE == 3 && k >= g.u0 && k < g.u0 + g.nu;
+#pragma unroll
+      for (int q = 0; q < RPT; ++q)
+        if (r0 + q < g.nr)
+          pd[(r0 + q) * sH + k] =
+              own ? acc[q] + dzh[(r0 + q) * sU + k - g.u0] : acc[q];
+    }
+    cluster_or_block_sync(cluster, cs);
+    if (MODE != 3) {
+      // the own units' cotangent of the step's input state: the direct
+      // share, then the cluster's partials in rank order; through the row
+      for (int i = tid; i < g.nr * g.nu; i += THREADS) {
+        const int r = i / g.nu, ul = i - r * g.nu, e = r * sU + ul;
+        const int u = g.u0 + ul, p = r * sH + u;
+        float s = cluster.map_shared_rank(pd, 0)[p];
+        for (int peer = 1; peer < cs; ++peer)
+          s += cluster.map_shared_rank(pd, peer)[p];
+        float dx = dzh[e] + s;
+        if (MODE == 2) {
+          pdec[e] = dx * hown[e];
+          dx *= m.hrow[(size_t)t * H + u];
+        }
+        if (t > 0)
+          gh[e] = dx;
+        else
+          dh0[(size_t)(g.row0 + r) * H + u] = dx;
+      }
+      if (MODE == 2) {  // the cluster's rows' sum, in row order
+        __syncthreads();
+        float* dst = dhrow + ((size_t)(blockIdx.x / cs) * d.L + t) * H + g.u0;
+        for (int ul = tid; ul < g.nu; ul += THREADS) {
+          float s = 0.f;
+          for (int r = 0; r < g.nr; ++r) s += pdec[r * sU + ul];
+          dst[ul] = s;
+        }
+      }
+    } else {
+      // every unit's cotangent of the evolved state, then back through
+      // the substeps to h_{t-1}
+      for (int i = tid; i < g.nr * H; i += THREADS) {
+        const int r = i / H, k = i - r * H, p = r * sH + k;
+        float s = cluster.map_shared_rank(pd, 0)[p];
+        for (int peer = 1; peer < cs; ++peer)
+          s += cluster.map_shared_rank(pd, peer)[p];
+        dhin[p] = s;
+      }
+      __syncthreads();
+      for (int sub = m.S - 1; sub >= 0; --sub)
+        mlp_back(dhin, sH, subs + sub * tileH, A, tA, sHH, dzt, dxt, sM, m,
+                 H, g.nr, m.dts + t, 0, acts, dzs,
+                 ((size_t)t * m.S + sub) * d.B + g.row0, K, cs, rank);
+      for (int i = tid; i < g.nr * g.nu; i += THREADS) {
+        const int r = i / g.nu, ul = i - r * g.nu, u = g.u0 + ul;
+        const float v = dhin[r * sH + u];
+        if (t > 0)
+          gh[r * sU + ul] = v;
+        else
+          dh0[(size_t)(g.row0 + r) * H + u] = v;
+      }
+    }
+    cp_async_wait_all();
+    __syncthreads();
+  }
+  // no CTA leaves while a peer may still read its partials
+  cluster_or_block_sync(cluster, cs);
+}
+
 // ---------------------------------------------------------------------------
 // LSTM (from zero h and c)
 // ---------------------------------------------------------------------------
 
-template <int RPT, int WS>
+// Mode 1 (the evolve): the cell's output h' goes to every CTA (and to the
+// stream hcell when a backward will run), then after a cluster barrier each
+// CTA evolves its full copy in place and writes its own units of hs.
+template <int RPT, int WS, int MODE>
 __global__ void __launch_bounds__(THREADS)
 lstm_fwd_kernel(RnnDims d, int cs, int R, const float* __restrict__ gi,
                 const float* __restrict__ whh, const float* __restrict__ bhh,
-                float* __restrict__ hs, float* __restrict__ cs_out) {
+                float* __restrict__ hs, float* __restrict__ cs_out,
+                ModeArgs m, float* __restrict__ hcell) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   cg::cluster_group cluster = cg::this_cluster();
@@ -694,7 +1215,9 @@ lstm_fwd_kernel(RnnDims d, int cs, int R, const float* __restrict__ gi,
   float* gbuf = hbuf + 2 * tileH;  // gi, own columns [3][R][4 sU]
   float* cst = gbuf + 3 * tileG;   // c, own units [R][sU]
   float* bias = cst + R * sU;      // [4 sU]
-  float* rest = bias + 4 * sU;
+  float* evt = bias + 4 * sU;      // mode 1: the MLP's scratch [2][R][sM]
+  const int sM = round4(max(H, m.HH));
+  float* rest = evt + (MODE == 1 ? 2 * R * sM : 0);
   zero_smem(smem, rest - smem);
   __syncthreads();
   const WSlice w = load_slice<4, WS>(rest, whh, H, g);
@@ -750,9 +1273,22 @@ lstm_fwd_kernel(RnnDims d, int cs, int R, const float* __restrict__ gi,
             for (int peer = 0; peer < cs; ++peer)
               cluster.map_shared_rank(hn, peer)[r * sH + u] = h;
           const size_t o = t * BH + (size_t)(g.row0 + r) * H + u;
-          hs[o] = h;
+          if (MODE == 0)
+            hs[o] = h;
+          else if (hcell)
+            hcell[o] = h;
           if (cs_out) cs_out[o] = c;  // only when a backward will need it
         }
+      }
+    }
+    if (MODE == 1) {  // every unit's h', then its evolve
+      cluster_or_block_sync(cluster, cs);
+      for (int sub = 0; sub < m.S; ++sub)
+        mlp_substep(hn, hn, sH, evt, evt + R * sM, sM, m, H, g.nr,
+                    m.dts + (size_t)t * d.B + g.row0, 1);
+      for (int i = tid; i < g.nr * g.nu; i += THREADS) {
+        const int r = i / g.nu, u = g.u0 + i - r * g.nu;
+        hs[t * BH + (size_t)(g.row0 + r) * H + u] = hn[r * sH + u];
       }
     }
     cp_async_wait<1>();  // step t + 1's rows are in
@@ -760,12 +1296,19 @@ lstm_fwd_kernel(RnnDims d, int cs, int R, const float* __restrict__ gi,
   }
 }
 
-template <int RPT, int WS>
+// Mode 1 (the evolve): at the top of step t each CTA forms the cotangent
+// of the step's output (hs[t], every unit: ghs and the partials of the
+// step after in rank order), recomputes the substeps from the cell's
+// output hcell[t] and goes back through them to the cotangent of h', of
+// which the gates take their own units; the MLP's streams as the GRU's.
+template <int RPT, int WS, int MODE>
 __global__ void __launch_bounds__(THREADS)
 lstm_bwd_kernel(RnnDims d, int cs, int R, const float* __restrict__ gi,
                 const float* __restrict__ hs, const float* __restrict__ cs_in,
                 const float* __restrict__ ghs, const float* __restrict__ whh,
-                const float* __restrict__ bhh, float* __restrict__ dgi) {
+                const float* __restrict__ bhh, float* __restrict__ dgi,
+                ModeArgs m, const float* __restrict__ hcell,
+                float* __restrict__ acts, float* __restrict__ dzs) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   cg::cluster_group cluster = cg::this_cluster();
@@ -782,7 +1325,17 @@ lstm_bwd_kernel(RnnDims d, int cs, int R, const float* __restrict__ gi,
   float* dg = gc + tileU;           // gate cotangents, own columns
   float* pdh = dg + 4 * tileU;      // the CTA's partial dh [2][R][sH]
   float* bias = pdh + 2 * tileH;    // [4 sU]
-  float* rest = bias + 4 * sU;
+  // mode 1: the step's ghs and the cotangent of its output, every unit
+  // [R][sH] each, the substep states [S][R][sH] (the first is hcell[t]),
+  // the inner layers' activations [n - 1][R][sHH], two [R][sM]
+  const int sHH = round4(m.HH), sM = round4(max(H, m.HH)), tA = R * sHH;
+  float* gfull = bias + 4 * sU;
+  float* dho = gfull + tileH;
+  float* subs = dho + tileH;
+  float* A = subs + m.S * tileH;
+  float* dzt = A + (m.n - 1) * tA;
+  float* dxt = dzt + R * sM;
+  float* rest = MODE == 1 ? dxt + R * sM : bias + 4 * sU;
   zero_smem(smem, rest - smem);
   __syncthreads();
   const WSlice w = load_slice<4, WS>(rest, whh, H, g);
@@ -794,13 +1347,21 @@ lstm_bwd_kernel(RnnDims d, int cs, int R, const float* __restrict__ gi,
   // before the first step)
   // 16-byte copies when every row segment starts on 16 bytes
   const bool v4 = ((H | g.s.U) & 3) == 0 && aligned16(gi) && aligned16(hs) &&
-                  aligned16(cs_in) && aligned16(ghs);
+                  aligned16(cs_in) && aligned16(ghs) &&
+                  (MODE == 0 || aligned16(hcell));
   auto prefetch = [&](int t, int first) {
     const size_t row = (size_t)t * d.B + g.row0;
     copy_rows_async(gbuf, sD, sU, gi + row * GH + g.u0, GH, H, g.nr, 4, g.nu,
                     v4, first);
-    copy_rows_async(gsel, sU, 0, ghs + row * H + g.u0, H, 0, g.nr, 1, g.nu,
-                    v4, first);
+    if (MODE == 0) {
+      copy_rows_async(gsel, sU, 0, ghs + row * H + g.u0, H, 0, g.nr, 1, g.nu,
+                      v4, first);
+    } else {
+      copy_rows_async(gfull, sH, 0, ghs + row * H, H, 0, g.nr, 1, H, v4,
+                      first);
+      copy_rows_async(subs, sH, 0, hcell + row * H, H, 0, g.nr, 1, H, v4,
+                      first);
+    }
     if (t > 0) {
       copy_rows_async(hprev, sH, 0, hs + (row - d.B) * H, H, 0, g.nr, 1, H,
                       v4, first);
@@ -817,11 +1378,33 @@ lstm_bwd_kernel(RnnDims d, int cs, int R, const float* __restrict__ gi,
   // the step's items; the copies go to the threads after the back product's
   const int items = g.nu * (R / RPT), back_items = H * (R / RPT);
   const int idle = back_items % THREADS;
+  const size_t K = (size_t)d.L * m.S * d.B;  // mode 1: the MLP streams' rows
+  const int rank = (int)cluster.block_rank();
   for (int t = d.L - 1; t >= 0; --t) {
-    // recompute the own units' gates from (h, c) before the step; their
-    // cotangents
     const size_t ob = ((size_t)t * d.B + g.row0) * GH + g.u0;
     const float* pdl = pdh + ((t + 1) & 1) * tileH;  // zero at the last step
+    if (MODE == 1) {
+      // the cotangent of the step's output, every unit: the partials of
+      // the step after in rank order, and ghs; back through the evolve
+      for (int i = tid; i < g.nr * H; i += THREADS) {
+        const int r = i / H, k = i - r * H, p = r * sH + k;
+        float s = cluster.map_shared_rank(pdl, 0)[p];
+        for (int peer = 1; peer < cs; ++peer)
+          s += cluster.map_shared_rank(pdl, peer)[p];
+        dho[p] = s + gfull[p];
+      }
+      __syncthreads();
+      const float* dt = m.dts + (size_t)t * d.B + g.row0;
+      for (int sub = 0; sub + 1 < m.S; ++sub)
+        mlp_substep(subs + sub * tileH, subs + (sub + 1) * tileH, sH, dzt,
+                    dxt, sM, m, H, g.nr, dt, 1);
+      for (int sub = m.S - 1; sub >= 0; --sub)
+        mlp_back(dho, sH, subs + sub * tileH, A, tA, sHH, dzt, dxt, sM, m, H,
+                 g.nr, dt, 1, acts, dzs,
+                 ((size_t)t * m.S + sub) * d.B + g.row0, K, cs, rank);
+    }
+    // recompute the own units' gates from (h, c) before the step; their
+    // cotangents
     for (int item = tid; item < items; item += THREADS) {
       const int ul = item % g.nu, r0 = (item / g.nu) * RPT;
       float acc[4][RPT];
@@ -841,7 +1424,8 @@ lstm_bwd_kernel(RnnDims d, int cs, int R, const float* __restrict__ gi,
           const float tc = tanhf(fg * c + ig * gg);
           // a cluster of one reads its partial dh of the step after as it is
           const float ghv =
-              (cs == 1 ? pdl[r * sH + ul] : gh[e]) + gsel[e];
+              MODE == 1 ? dho[r * sH + g.u0 + ul]
+                        : (cs == 1 ? pdl[r * sH + ul] : gh[e]) + gsel[e];
           const float dc = gc[e] + ghv * og * (1.f - tc * tc);
           const float di = dc * gg * ig * (1.f - ig);
           const float df = dc * c * fg * (1.f - fg);
@@ -880,8 +1464,9 @@ lstm_bwd_kernel(RnnDims d, int cs, int R, const float* __restrict__ gi,
       continue;
     }
     cluster.sync();
-    // the own units' dh: the cluster's partials in rank order
-    for (int i = tid; i < g.nr * g.nu; i += THREADS) {
+    // the own units' dh: the cluster's partials in rank order (mode 1 sums
+    // every unit's at the top of the next step)
+    for (int i = tid; MODE == 0 && i < g.nr * g.nu; i += THREADS) {
       const int r = i / g.nu, ul = i - r * g.nu, o = r * sH + g.u0 + ul;
       float s = cluster.map_shared_rank(pd, 0)[o];
       for (int peer = 1; peer < cs; ++peer)
@@ -907,25 +1492,30 @@ constexpr int WG_MIN_K = 8 * WG_BK;
 
 inline int wgrad_rows(int H) { return H > 64 ? 128 : 64; }
 
-// Splits of K = L B: enough that the output tiles make about two CTAs an
-// SM, each split at least WG_MIN_K rows of K.
-inline int wgrad_splits(int L, int B, int H, int G) {
-  const long long K = (long long)L * B, bm = wgrad_rows(H);
-  const long long tiles =
-      ((H + bm - 1) / bm) * ((G * H + WG_BN - 1) / WG_BN);
+// Splits of K rows of an [M, K] x [K, N] product: enough that the output
+// tiles make about two CTAs an SM, each split at least WG_MIN_K rows of K.
+inline int wgrad_splits_k(long long K, int M, int N) {
+  const long long bm = wgrad_rows(M);
+  const long long tiles = ((M + bm - 1) / bm) * ((N + WG_BN - 1) / WG_BN);
   long long s = (2LL * sm_count() + tiles - 1) / tiles;
   s = std::min(s, K / WG_MIN_K);
   return (int)std::max(s, 1LL);
 }
 
-// Split z's partials p[z] [H + 1][N], N = G H: row k < H holds the sum over
-// its n of x[n][k] dg[n][c], row H the sum over its n of dg[n][c]; n < K =
-// L B runs over (step, row). x[n] is the cell's input state of the step:
-// hs[n - B] for n >= B, h0[n] (zero without h0) for n < B, times hdec[n]
-// with DEC.
+// Splits of K = L B of a G-gate weight gradient
+inline int wgrad_splits(int L, int B, int H, int G) {
+  return wgrad_splits_k((long long)L * B, H, G * H);
+}
+
+// Split z's partials p[z] [H + 1][N]: row k < H holds the sum over its n of
+// x[n][k] dg[n][c], row H the sum over its n of dg[n][c]; n < K runs over
+// the rows of dg [K][N] (W_hh's gradient: K = L B over (step, row), N = G
+// H). x[n] [H] is the cell's input state of the step: hs[n - B] for n >=
+// B, h0[n] (zero without h0) for n < B, times hdec[n] with DEC (B = K and
+// x = h0: any stream [K][H], as the evolve's layers give them).
 template <int BM, bool DEC>
 __global__ void __launch_bounds__(THREADS)
-rnn_wgrad_kernel(int K, int B, int H, int G, int kper,
+rnn_wgrad_kernel(int K, int B, int H, int N, int kper,
                  const float* __restrict__ h0, const float* __restrict__ hs,
                  const float* __restrict__ hdec, const float* __restrict__ dg,
                  float* __restrict__ p) {
@@ -933,7 +1523,7 @@ rnn_wgrad_kernel(int K, int B, int H, int G, int kper,
   __shared__ __align__(16) float xs[2][WG_BK][BM];
   __shared__ __align__(16) float ds[DEC ? 2 : 1][DEC ? WG_BK : 1][BM];
   __shared__ __align__(16) float ys[2][WG_BK][WG_BN];
-  const int N = G * H, tid = threadIdx.x, tc = tid % 16, tm = tid / 16;
+  const int tid = threadIdx.x, tc = tid % 16, tm = tid / 16;
   const int c0 = blockIdx.x * WG_BN, m0 = blockIdx.y * BM;
   const int n0 = blockIdx.z * kper, n1 = min(K, n0 + kper);
   const bool xvec = (H & 3) == 0 && aligned16(hs) && (!h0 || aligned16(h0)) &&
@@ -1051,20 +1641,49 @@ rnn_wgrad_kernel(int K, int B, int H, int G, int kper,
     }
 }
 
-int rnn_wgrad(const float* h0, const float* hs, const float* hdec,
-              const float* dg, float* p, int L, int B, int H, int G,
-              cudaStream_t s) {
-  if (L <= 0 || B <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
-  const int K = L * B, S = wgrad_splits(L, B, H, G);
+// The product over K rows of x [H] and dg [N] into the split partials p
+// [splits][H + 1][N] (x as rnn_wgrad_kernel reads it)
+int rnn_wgrad_k(const float* h0, const float* hs, const float* hdec,
+                const float* dg, float* p, int K, int B, int H, int N,
+                cudaStream_t s) {
+  if (K <= 0 || B <= 0 || H <= 0 || N <= 0) return (int)cudaErrorInvalidValue;
+  const int S = wgrad_splits_k(K, H, N);
   const int kper = ((K + S - 1) / S + WG_BK - 1) / WG_BK * WG_BK;
   const int bm = wgrad_rows(H);
-  const dim3 grid((G * H + WG_BN - 1) / WG_BN, (H + bm - 1) / bm, S);
+  const dim3 grid((N + WG_BN - 1) / WG_BN, (H + bm - 1) / bm, S);
   auto k = bm == 128 ? (hdec ? rnn_wgrad_kernel<128, true>
                              : rnn_wgrad_kernel<128, false>)
                       : (hdec ? rnn_wgrad_kernel<64, true>
                               : rnn_wgrad_kernel<64, false>);
-  k<<<grid, THREADS, 0, s>>>(K, B, H, G, kper, h0, hs, hdec, dg, p);
+  k<<<grid, THREADS, 0, s>>>(K, B, H, N, kper, h0, hs, hdec, dg, p);
   return (int)cudaGetLastError();
+}
+
+int rnn_wgrad(const float* h0, const float* hs, const float* hdec,
+              const float* dg, float* p, int L, int B, int H, int G,
+              cudaStream_t s) {
+  if (L <= 0) return (int)cudaErrorInvalidValue;
+  return rnn_wgrad_k(h0, hs, hdec, dg, p, L * B, B, H, G * H, s);
+}
+
+// The evolve's weight gradients: layer i's product over the K = L S B rows
+// of its input stream [K][in_i] and output cotangent [K][out_i] (blocks of
+// acts and dzs in layer order) into its split partials, each layer's block
+// of p after the one before ([splits_i][in_i + 1][out_i])
+int mlp_wgrad(const float* acts, const float* dzs, float* p, int L, int B,
+              int H, int HH, int n, int S, cudaStream_t s) {
+  const long long K = (long long)L * S * B;
+  if (K <= 0 || n <= 0) return (int)cudaErrorInvalidValue;
+  for (int i = 0; i < n; ++i) {
+    const int iw = mlp_in(i, H, HH), ow = mlp_out(i, n, H, HH);
+    const int err = rnn_wgrad_k(acts, acts, nullptr, dzs, p, (int)K, (int)K,
+                                iw, ow, s);
+    if (err) return err;
+    p += (size_t)wgrad_splits_k(K, iw, ow) * (iw + 1) * ow;
+    acts += K * iw;
+    dzs += K * ow;
+  }
+  return 0;
 }
 
 // ---------------------------------------------------------------------------
@@ -1075,24 +1694,30 @@ struct GruFwdArgs {
   RnnDims d;
   const float *gi, *h0, *whh, *bhh, *hdec;
   float* hs;
+  ModeArgs m;
 };
 
 struct GruBwdArgs {
   RnnDims d;
   const float *gi, *h0, *hs, *ghs, *whh, *bhh, *hdec;
   float *dgi, *dgh, *dh0, *dhdec;
+  // modes 1-3 (gru_bwd_mode_kernel): null where the mode has none
+  float *dhrow, *xin, *acts, *dzs;
+  ModeArgs m;
 };
 
 struct LstmFwdArgs {
   RnnDims d;
   const float *gi, *whh, *bhh;
-  float *hs, *cs;
+  float *hs, *cs, *hcell;
+  ModeArgs m;
 };
 
 struct LstmBwdArgs {
   RnnDims d;
-  const float *gi, *hs, *cs, *ghs, *whh, *bhh;
-  float* dgi;
+  const float *gi, *hs, *cs, *ghs, *whh, *bhh, *hcell;
+  float *dgi, *acts, *dzs;
+  ModeArgs m;
 };
 
 // Launch kernel k over clusters of p.cs CTAs, or, without `run`, only
@@ -1146,52 +1771,82 @@ int launch_clusters(void (*k)(Exp...), const RnnPlan& p, int B,
   return (int)cudaGetLastError();
 }
 
-template <int RPT, int WS>
+// Each launcher is a member template of its mode: Fn<MODE>::template
+// At<RPT, WS>::run
+template <int MODE>
 struct GruFwd {
-  static int run(const GruFwdArgs& a, const RnnPlan& p, cudaStream_t s,
-                 int* active, bool go) {
-    return launch_clusters(gru_fwd_kernel<RPT, WS>, p, a.d.B, s, active, go,
-                           a.d, p.cs, p.rows, a.gi, a.h0, a.whh, a.bhh,
-                           a.hdec, a.hs);
-  }
+  template <int RPT, int WS>
+  struct At {
+    static int run(const GruFwdArgs& a, const RnnPlan& p, cudaStream_t s,
+                   int* active, bool go) {
+      return launch_clusters(gru_fwd_kernel<RPT, WS, MODE>, p, a.d.B, s,
+                             active, go, a.d, p.cs, p.rows, a.gi, a.h0,
+                             a.whh, a.bhh, a.hdec, a.hs, a.m);
+    }
+  };
 };
 
-template <int RPT, int WS>
 struct GruBwd {
-  static int run(const GruBwdArgs& a, const RnnPlan& p, cudaStream_t s,
-                 int* active, bool go) {
-    return launch_clusters(gru_bwd_kernel<RPT, WS>, p, a.d.B, s, active, go,
-                           a.d, p.cs, p.rows, a.gi, a.h0, a.hs, a.ghs, a.whh,
-                           a.bhh, a.hdec, a.dgi, a.dgh, a.dh0, a.dhdec);
-  }
+  template <int RPT, int WS>
+  struct At {
+    static int run(const GruBwdArgs& a, const RnnPlan& p, cudaStream_t s,
+                   int* active, bool go) {
+      return launch_clusters(gru_bwd_kernel<RPT, WS>, p, a.d.B, s, active,
+                             go, a.d, p.cs, p.rows, a.gi, a.h0, a.hs, a.ghs,
+                             a.whh, a.bhh, a.hdec, a.dgi, a.dgh, a.dh0,
+                             a.dhdec);
+    }
+  };
 };
 
-template <int RPT, int WS>
+template <int MODE>
+struct GruBwdMode {
+  template <int RPT, int WS>
+  struct At {
+    static int run(const GruBwdArgs& a, const RnnPlan& p, cudaStream_t s,
+                   int* active, bool go) {
+      return launch_clusters(gru_bwd_mode_kernel<RPT, WS, MODE>, p, a.d.B, s,
+                             active, go, a.d, p.cs, p.rows, a.gi, a.h0, a.hs,
+                             a.ghs, a.whh, a.bhh, a.m, a.dgi, a.dgh, a.dh0,
+                             a.dhrow, a.xin, a.acts, a.dzs);
+    }
+  };
+};
+
+template <int MODE>
 struct LstmFwd {
-  static int run(const LstmFwdArgs& a, const RnnPlan& p, cudaStream_t s,
-                 int* active, bool go) {
-    return launch_clusters(lstm_fwd_kernel<RPT, WS>, p, a.d.B, s, active, go,
-                           a.d, p.cs, p.rows, a.gi, a.whh, a.bhh, a.hs, a.cs);
-  }
+  template <int RPT, int WS>
+  struct At {
+    static int run(const LstmFwdArgs& a, const RnnPlan& p, cudaStream_t s,
+                   int* active, bool go) {
+      return launch_clusters(lstm_fwd_kernel<RPT, WS, MODE>, p, a.d.B, s,
+                             active, go, a.d, p.cs, p.rows, a.gi, a.whh,
+                             a.bhh, a.hs, a.cs, a.m, a.hcell);
+    }
+  };
 };
 
-template <int RPT, int WS>
+template <int MODE>
 struct LstmBwd {
-  static int run(const LstmBwdArgs& a, const RnnPlan& p, cudaStream_t s,
-                 int* active, bool go) {
-    return launch_clusters(lstm_bwd_kernel<RPT, WS>, p, a.d.B, s, active, go,
-                           a.d, p.cs, p.rows, a.gi, a.hs, a.cs, a.ghs, a.whh,
-                           a.bhh, a.dgi);
-  }
+  template <int RPT, int WS>
+  struct At {
+    static int run(const LstmBwdArgs& a, const RnnPlan& p, cudaStream_t s,
+                   int* active, bool go) {
+      return launch_clusters(lstm_bwd_kernel<RPT, WS, MODE>, p, a.d.B, s,
+                             active, go, a.d, p.cs, p.rows, a.gi, a.hs, a.cs,
+                             a.ghs, a.whh, a.bhh, a.dgi, a.m, a.hcell,
+                             a.acts, a.dzs);
+    }
+  };
 };
 
-// The plan of one launch of G gates, then its kernel instance (rows per
-// thread, and the slices in shared or device memory).
+// The plan of one launch of G gates in mode ms, then its kernel instance
+// (rows per thread, and the slices in shared or device memory).
 template <template <int, int> class Fn, class Args>
-int rnn_launch(const Args& a, int G, int backward, cudaStream_t s,
-               int* active, bool go) {
+int rnn_launch(const Args& a, int G, int backward, const ModeShape& ms,
+               cudaStream_t s, int* active, bool go) {
   if (a.d.L <= 0 || a.d.B <= 0 || a.d.H <= 0) return (int)cudaErrorInvalidValue;
-  const RnnPlan p = rnn_plan(G, a.d.H, a.d.B, backward);
+  const RnnPlan p = rnn_plan(G, a.d.H, a.d.B, backward, ms);
   if (p.bytes == 0) return (int)cudaErrorInvalidValue;
   switch (p.rpt * 2 + p.w_smem) {
     case 2: return Fn<1, 0>::run(a, p, s, active, go);
@@ -1206,15 +1861,63 @@ int rnn_launch(const Args& a, int G, int backward, cudaStream_t s,
   return (int)cudaErrorInvalidValue;
 }
 
-// One field of the plan of a launch with G gates at (H, B): 0 CTAs per
-// cluster, 1 batch rows per cluster, 2 the slices in shared memory (1) or
-// device memory (0), 3 rows per thread, 4 cudaOccupancyMaxActiveClusters
-// (minus the CUDA error when the plan cannot be scheduled), 5 dynamic
-// shared bytes per CTA. Fwd and Bwd: the launch's forward and backward.
-template <template <int, int> class Fwd, template <int, int> class Bwd,
-          class FwdArgs, class BwdArgs>
-int plan_field(int G, int H, int B, int backward, int field) {
-  const RnnPlan p = rnn_plan(G, H, B, backward);
+// The kernel instance of a mode: the plain modes (0) and the modes each
+// pair takes (GRU 1-3, LSTM 1)
+inline bool valid_mode(int G, const ModeShape& ms) {
+  const bool ode = G == 3 ? ms.mode == 3 : ms.mode == 1;
+  if (ms.mode < 0 || ms.mode > (G == 3 ? 3 : 1)) return false;
+  return !ode || (ms.n >= 1 && ms.S >= 1 && (ms.n == 1 || ms.HH >= 1));
+}
+
+template <template <int> class Fn, class Args>
+int gru_launch(const Args& a, int backward, const ModeShape& ms,
+               cudaStream_t s, int* active, bool go) {
+  if (!valid_mode(3, ms)) return (int)cudaErrorInvalidValue;
+  switch (ms.mode) {
+    case 0: return rnn_launch<Fn<0>::template At>(a, 3, backward, ms, s,
+                                                   active, go);
+    case 1: return rnn_launch<Fn<1>::template At>(a, 3, backward, ms, s,
+                                                   active, go);
+    case 2: return rnn_launch<Fn<2>::template At>(a, 3, backward, ms, s,
+                                                   active, go);
+    case 3: return rnn_launch<Fn<3>::template At>(a, 3, backward, ms, s,
+                                                   active, go);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+template <template <int> class Fn, class Args>
+int lstm_launch(const Args& a, int backward, const ModeShape& ms,
+                cudaStream_t s, int* active, bool go) {
+  if (!valid_mode(4, ms)) return (int)cudaErrorInvalidValue;
+  if (ms.mode == 0)
+    return rnn_launch<Fn<0>::template At>(a, 4, backward, ms, s, active, go);
+  return rnn_launch<Fn<1>::template At>(a, 4, backward, ms, s, active, go);
+}
+
+// The GRU backward by mode: the plain kernel in mode 0, the mode kernel in
+// 1-3
+int gru_bwd_launch(const GruBwdArgs& a, const ModeShape& ms, cudaStream_t s,
+                   int* active, bool go) {
+  if (!valid_mode(3, ms)) return (int)cudaErrorInvalidValue;
+  switch (ms.mode) {
+    case 0: return rnn_launch<GruBwd::At>(a, 3, 1, ms, s, active, go);
+    case 1: return rnn_launch<GruBwdMode<1>::At>(a, 3, 1, ms, s, active, go);
+    case 2: return rnn_launch<GruBwdMode<2>::At>(a, 3, 1, ms, s, active, go);
+    case 3: return rnn_launch<GruBwdMode<3>::At>(a, 3, 1, ms, s, active, go);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// One field of the plan of a launch with G gates at (H, B) in mode ms: 0
+// CTAs per cluster, 1 batch rows per cluster, 2 the slices in shared
+// memory (1) or device memory (0), 3 rows per thread, 4
+// cudaOccupancyMaxActiveClusters (minus the CUDA error when the plan cannot
+// be scheduled), 5 dynamic shared bytes per CTA.
+int plan_field(int G, int H, int B, int backward, const ModeShape& ms,
+               int field) {
+  if (!valid_mode(G, ms)) return -(int)cudaErrorInvalidValue;
+  const RnnPlan p = rnn_plan(G, H, B, backward, ms);
   switch (field) {
     case 0: return p.cs;
     case 1: return p.rows;
@@ -1223,14 +1926,28 @@ int plan_field(int G, int H, int B, int backward, int field) {
     case 5: return (int)p.bytes;
   }
   int active = 0, err;
-  if (backward) {
-    BwdArgs a = {};
-    a.d = RnnDims{1, B, H};
-    err = rnn_launch<Bwd>(a, G, 1, 0, &active, false);
+  const RnnDims d{1, B, H};
+  const ModeArgs m{nullptr, nullptr, nullptr, nullptr, ms.HH, ms.n, ms.S};
+  if (G == 3 && backward) {
+    GruBwdArgs a = {};
+    a.d = d;
+    a.m = m;
+    err = gru_bwd_launch(a, ms, 0, &active, false);
+  } else if (G == 3) {
+    GruFwdArgs a = {};
+    a.d = d;
+    a.m = m;
+    err = gru_launch<GruFwd>(a, 0, ms, 0, &active, false);
+  } else if (backward) {
+    LstmBwdArgs a = {};
+    a.d = d;
+    a.m = m;
+    err = lstm_launch<LstmBwd>(a, 1, ms, 0, &active, false);
   } else {
-    FwdArgs a = {};
-    a.d = RnnDims{1, B, H};
-    err = rnn_launch<Fwd>(a, G, 0, 0, &active, false);
+    LstmFwdArgs a = {};
+    a.d = d;
+    a.m = m;
+    err = lstm_launch<LstmFwd>(a, 0, ms, 0, &active, false);
   }
   return err ? -err : active;
 }
@@ -1238,6 +1955,11 @@ int plan_field(int G, int H, int B, int backward, int field) {
 }  // namespace
 
 extern "C" {
+
+// Every entry of a pair takes the launch's mode after its dimensions: the
+// mode (0 the plain modes; GRU 1 obs, 2 obs + row decay, 3 obs + evolve;
+// LSTM 1 evolve) and the evolve's shape (HH, n layers, S substeps; 0
+// without it).
 
 int fused_gru_max_smem() { return max_optin_smem(); }
 int fused_lstm_max_smem() { return max_optin_smem(); }
@@ -1250,22 +1972,42 @@ const char* fused_lstm_error_string(int err) {
 }
 
 // Dynamic shared memory of one CTA of a launch, in bytes: the plan never
-// exceeds the device's limit (the slices move to device memory instead).
-long long fused_gru_smem_bytes(int H, int B, int backward) {
-  return (long long)rnn_plan(3, H, B, backward).bytes;
+// exceeds the device's limit (the slices move to device memory instead; 0
+// when nothing fits).
+long long fused_gru_smem_bytes(int H, int B, int mode, int HH, int n, int S,
+                               int backward) {
+  return (long long)rnn_plan(3, H, B, backward, ModeShape{mode, HH, n, S})
+      .bytes;
 }
-long long fused_lstm_smem_bytes(int H, int B, int backward) {
-  return (long long)rnn_plan(4, H, B, backward).bytes;
+long long fused_lstm_smem_bytes(int H, int B, int mode, int HH, int n, int S,
+                                int backward) {
+  return (long long)rnn_plan(4, H, B, backward, ModeShape{mode, HH, n, S})
+      .bytes;
 }
 
-// One field of the plan at (H, B) (plan_field)
-int fused_gru_plan(int H, int B, int backward, int field) {
-  return plan_field<GruFwd, GruBwd, GruFwdArgs, GruBwdArgs>(3, H, B,
-                                                           backward, field);
+// One field of the plan at (H, B) in a mode (plan_field)
+int fused_gru_plan(int H, int B, int mode, int HH, int n, int S,
+                   int backward, int field) {
+  return plan_field(3, H, B, backward, ModeShape{mode, HH, n, S}, field);
 }
-int fused_lstm_plan(int H, int B, int backward, int field) {
-  return plan_field<LstmFwd, LstmBwd, LstmFwdArgs, LstmBwdArgs>(
-      4, H, B, backward, field);
+int fused_lstm_plan(int H, int B, int mode, int HH, int n, int S,
+                    int backward, int field) {
+  return plan_field(4, H, B, backward, ModeShape{mode, HH, n, S}, field);
+}
+
+// Force the cluster size (0, 1, 2, 4 or 8) and rows a cluster (0, 8, 16 or
+// 32) of every later GRU and LSTM plan; 0 restores the host's own choice.
+// Nonzero for a value the kernels do not take.
+int fused_gru_force_plan(int cs, int rows) {
+  if ((cs & (cs - 1)) || cs < 0 || cs > 8 ||
+      !(rows == 0 || rows == 8 || rows == 16 || rows == 32))
+    return 1;
+  g_force_cs = cs;
+  g_force_rows = rows;
+  return 0;
+}
+int fused_lstm_force_plan(int cs, int rows) {
+  return fused_gru_force_plan(cs, rows);
 }
 
 // Splits of the weight-gradient product, the leading dimension of its
@@ -1277,24 +2019,39 @@ int fused_lstm_wgrad_splits(int L, int B, int H) {
   return wgrad_splits(L, B, H, 4);
 }
 
-// hdec may be null (no decay)
+// The GRU forward. hdec [L][B][H] (mode 0) may be null (no decay); obs
+// [L][B] (modes 1-3; null in modes 2 and 3: every step observed), the
+// decay row hrow [L][H] (mode 2), the evolve's packed mlp (ModeArgs) and
+// substep sizes dts [L] (mode 3) are null where the mode has none.
 int fused_gru_fwd(const float* gi, const float* h0, const float* whh,
-                  const float* bhh, const float* hdec, float* hs, int L,
-                  int B, int H, void* stream) {
-  const GruFwdArgs a{RnnDims{L, B, H}, gi, h0, whh, bhh, hdec, hs};
-  return rnn_launch<GruFwd>(a, 3, 0, (cudaStream_t)stream, nullptr, true);
+                  const float* bhh, const float* hdec, const float* obs,
+                  const float* hrow, const float* mlp, const float* dts,
+                  float* hs, int L, int B, int H, int mode, int HH, int n,
+                  int S, void* stream) {
+  const GruFwdArgs a{RnnDims{L, B, H}, gi, h0, whh, bhh, hdec, hs,
+                     ModeArgs{obs, hrow, mlp, dts, HH, n, S}};
+  return gru_launch<GruFwd>(a, 0, ModeShape{mode, HH, n, S},
+                            (cudaStream_t)stream, nullptr, true);
 }
 
-// The reverse recurrence: dgi, W_hh's cotangent dgh, dh0 and, with hdec,
-// dhdec (the weight gradient is fused_gru_wgrad). hdec and dhdec are null
-// together (no decay).
+// The reverse recurrence: dgi, W_hh's cotangent dgh, dh0 (the weight
+// gradients are fused_gru_wgrad and fused_gru_mlpgrad); with hdec (mode 0)
+// dhdec; the cell's input states xin [L][B][H] (modes 2, 3), dhrow's
+// per-cluster partials [clusters][L][H] (mode 2) and the evolve layers'
+// input and cotangent streams acts, dzs (mode 3). Null where the mode has
+// none.
 int fused_gru_bwd(const float* gi, const float* h0, const float* hs,
                   const float* ghs, const float* whh, const float* bhh,
-                  const float* hdec, float* dgi, float* dgh, float* dh0,
-                  float* dhdec, int L, int B, int H, void* stream) {
+                  const float* hdec, const float* obs, const float* hrow,
+                  const float* mlp, const float* dts, float* dgi, float* dgh,
+                  float* dh0, float* dhdec, float* dhrow, float* xin,
+                  float* acts, float* dzs, int L, int B, int H, int mode,
+                  int HH, int n, int S, void* stream) {
   const GruBwdArgs a{RnnDims{L, B, H}, gi, h0, hs, ghs, whh, bhh, hdec,
-                     dgi, dgh, dh0, dhdec};
-  return rnn_launch<GruBwd>(a, 3, 1, (cudaStream_t)stream, nullptr, true);
+                     dgi, dgh, dh0, dhdec, dhrow, xin, acts, dzs,
+                     ModeArgs{obs, hrow, mlp, dts, HH, n, S}};
+  return gru_bwd_launch(a, ModeShape{mode, HH, n, S}, (cudaStream_t)stream,
+                        nullptr, true);
 }
 
 // Partials of (dW_hh, db_hh) [splits][H + 1][3H] from the cell's input
@@ -1305,19 +2062,43 @@ int fused_gru_wgrad(const float* h0, const float* hs, const float* hdec,
   return rnn_wgrad(h0, hs, hdec, dgh, p, L, B, H, 3, (cudaStream_t)stream);
 }
 
-// cs may be null: the inference-only primal writes no cell-state stream
-int fused_lstm_fwd(const float* gi, const float* whh, const float* bhh,
-                   float* hs, float* cs, int L, int B, int H, void* stream) {
-  const LstmFwdArgs a{RnnDims{L, B, H}, gi, whh, bhh, hs, cs};
-  return rnn_launch<LstmFwd>(a, 4, 0, (cudaStream_t)stream, nullptr, true);
+// The evolve's weight gradients from either pair's backward streams
+// (mlp_wgrad): one product kernel, whose entries sit beside the GRU's
+int fused_gru_mlpgrad(const float* acts, const float* dzs, float* p, int L,
+                      int B, int H, int HH, int n, int S, void* stream) {
+  return mlp_wgrad(acts, dzs, p, L, B, H, HH, n, S, (cudaStream_t)stream);
+}
+// Splits of one evolve layer's product over K rows, in_w -> out_w: its
+// partials [splits][in_w + 1][out_w]
+int fused_gru_mlp_splits(int K, int in_w, int out_w) {
+  return wgrad_splits_k(K, in_w, out_w);
 }
 
-// The reverse recurrence: dgi only (the weight gradient is fused_lstm_wgrad)
+// The LSTM forward; the evolve of h' (mode 1) with its packed mlp and dts
+// [L][B] (null in mode 0). cs and hcell may be null (no backward will
+// run); hcell, the cells' own h', is written in mode 1 only.
+int fused_lstm_fwd(const float* gi, const float* whh, const float* bhh,
+                   const float* mlp, const float* dts, float* hs, float* cs,
+                   float* hcell, int L, int B, int H, int mode, int HH, int n,
+                   int S, void* stream) {
+  const LstmFwdArgs a{RnnDims{L, B, H}, gi, whh, bhh, hs, cs, hcell,
+                      ModeArgs{nullptr, nullptr, mlp, dts, HH, n, S}};
+  return lstm_launch<LstmFwd>(a, 0, ModeShape{mode, HH, n, S},
+                              (cudaStream_t)stream, nullptr, true);
+}
+
+// The reverse recurrence: dgi (the weight gradients are fused_lstm_wgrad
+// and fused_gru_mlpgrad) and, in mode 1, the evolve layers' streams
 int fused_lstm_bwd(const float* gi, const float* hs, const float* cs,
-                   const float* ghs, const float* whh, const float* bhh,
-                   float* dgi, int L, int B, int H, void* stream) {
-  const LstmBwdArgs a{RnnDims{L, B, H}, gi, hs, cs, ghs, whh, bhh, dgi};
-  return rnn_launch<LstmBwd>(a, 4, 1, (cudaStream_t)stream, nullptr, true);
+                   const float* hcell, const float* ghs, const float* whh,
+                   const float* bhh, const float* mlp, const float* dts,
+                   float* dgi, float* acts, float* dzs, int L, int B, int H,
+                   int mode, int HH, int n, int S, void* stream) {
+  const LstmBwdArgs a{RnnDims{L, B, H}, gi, hs, cs, ghs, whh, bhh, hcell,
+                      dgi, acts, dzs,
+                      ModeArgs{nullptr, nullptr, mlp, dts, HH, n, S}};
+  return lstm_launch<LstmBwd>(a, 1, ModeShape{mode, HH, n, S},
+                              (cudaStream_t)stream, nullptr, true);
 }
 
 // Partials of (dW_hh, db_hh) [splits][H + 1][4H] from hs and dgi (the

@@ -205,7 +205,8 @@ class SolverLib:
     in errors. The SDE pairs take SDE_INT_NAMES and size their shared
     memory by SDE_SHAPE_NAMES. A library
     may have further launch entries of the same shape (`launches`: suffix
-    -> number of tensor pointers) and entries that take ints and return an
+    -> number of tensor pointers, or (pointers, ints) for an entry that
+    takes its own count of ints) and entries that take ints and return an
     int (`int_fns`: suffix -> number of ints; `call`). The SDE and CDE
     pairs have <name>_plan (the ints `shape_names`, 1 for the backward,
     then the field: 0 the placement, 1 batch rows a block; `rows`) and
@@ -230,7 +231,8 @@ class SolverLib:
         lib = load(self.source)
         fn = lambda suffix: getattr(lib, f"{self.name}_{suffix}")
         for which, n in self._n_ptrs.items():
-            fn(which).argtypes = [_P] * n + [_I] * len(self.int_names) + [_P]
+            n, n_ints = n if isinstance(n, tuple) else (n, len(self.int_names))
+            fn(which).argtypes = [_P] * n + [_I] * n_ints + [_P]
             fn(which).restype = _I
         fn("smem_bytes").argtypes = [_I] * (len(self.shape_names) + 1)
         fn("smem_bytes").restype = ctypes.c_longlong
@@ -302,7 +304,7 @@ class SolverLib:
 
     def launch(self, which: str, tensors, ints, stream: int) -> None:
         """Run <name>_<which> ('fwd', 'bwd' or an entry of `launches`) on
-        the tensors' pointers and the ints `int_names`; RuntimeError with
+        the tensors' pointers and its ints (`int_names`); RuntimeError with
         the CUDA error if the launch fails."""
         err = self._fn(which)(*(None if t is None else t.data_ptr()
                                 for t in tensors),

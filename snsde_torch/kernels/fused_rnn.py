@@ -9,11 +9,14 @@ Replaces the Pallas TPU kernels of snsde/kernels/fused_rnn.py — the GRU's
 `_lstm_forward` (:837) and `_fused_lstm_bwd` (:934) — in the modes the
 plain recurrent baselines (`SeqRNN`) and GRUD-full use: the GRU from any
 h0, with or without the per-sample hidden-decay stream hdec [L, B, H], and
-the LSTM from zero (h, c), in both directions. The other modes of the JAX
-kernels (`obs`, the time-only decay row, the ODE-RNN and ODE-LSTM evolves,
-PLSTM's `sel`, TGLSTM's `tg`, TLSTM, bf16 streams) raise
-NotImplementedError naming ROADMAP Queue 2 K6/K7; they never fall back to
-an eager loop.
+the LSTM from zero (h, c), in both directions; and in the modes of the
+ODE-RNN hybrids: the GRU's observation mask `obs` [L, B] (GRU-dt), with a
+time-only decay row hdec [L, H] (GRU-D) or with the in-kernel Euler MLP
+evolve before the cell (ODE-RNN; `Evolve`), and the LSTM's evolve of h
+after the cell with a per-row step (ODE-LSTM). The other modes of the JAX
+kernels (PLSTM's `sel`, TGLSTM's `tg`, TLSTM, bf16 streams, and mode
+combinations no JAX caller reaches) raise NotImplementedError naming
+ROADMAP Queue 2 K6/K7; they never fall back to an eager loop.
 
 The input projection gi = xs @ w_ih + b_ih is computed outside the kernels
 as one `torch.matmul`, as JAX computes it outside its `pallas_call`s; its
@@ -38,7 +41,9 @@ import torch
 from ._solver import SolverLib, check_tensors
 
 __all__ = ["fused_gru_scan", "fused_lstm_scan", "supports_fused_gru",
-           "supports_fused_lstm", "FusedGRU", "FusedLSTM",
+           "supports_fused_lstm", "FusedGRU", "FusedLSTM", "Evolve",
+           "pack_mlp", "mlp_layers", "fused_mlp_weight_grads",
+           "fused_mlp_weight_grads_reference", "force_rnn_plan",
            "fused_gru_forward", "fused_gru_backward",
            "fused_gru_forward_reference", "fused_gru_backward_reference",
            "fused_gru_backward_recurrence", "fused_gru_weight_grads",
@@ -47,7 +52,8 @@ __all__ = ["fused_gru_scan", "fused_lstm_scan", "supports_fused_gru",
            "fused_lstm_forward_reference", "fused_lstm_backward_reference",
            "fused_lstm_backward_recurrence", "fused_lstm_weight_grads",
            "fused_lstm_weight_grads_reference",
-           "fused_lstm_plan", "FusedGRUGrads", "FusedLSTMGrads", "MAX_H"]
+           "fused_lstm_plan", "FusedGRUGrads", "FusedLSTMGrads",
+           "GRURecurrence", "LSTMRecurrence", "MAX_H"]
 
 # launches of each CUDA kernel since the count was last set to 0
 GRU_FWD_LAUNCHES = 0
@@ -56,6 +62,18 @@ GRU_WGRAD_LAUNCHES = 0
 LSTM_FWD_LAUNCHES = 0
 LSTM_BWD_LAUNCHES = 0
 LSTM_WGRAD_LAUNCHES = 0
+# the modes' instances, counted apart from the plain ones: the GRU's obs
+# (mode 1), obs + row decay (2) and obs + evolve (3), the LSTM's evolve
+GRU_OBS_FWD_LAUNCHES = 0
+GRU_OBS_BWD_LAUNCHES = 0
+GRU_DEC1_FWD_LAUNCHES = 0
+GRU_DEC1_BWD_LAUNCHES = 0
+GRU_ODE_FWD_LAUNCHES = 0
+GRU_ODE_BWD_LAUNCHES = 0
+LSTM_ODE_FWD_LAUNCHES = 0
+LSTM_ODE_BWD_LAUNCHES = 0
+# the evolve's weight-gradient kernel, which both pairs' backwards feed
+MLP_WGRAD_LAUNCHES = 0
 
 # the JAX package's width limit (snsde/kernels/fused_rnn.py:46); the CUDA
 # kernels take every H up to it
@@ -81,13 +99,28 @@ def supports_fused_lstm(cell) -> bool:
     return _supports(cell, 4)
 
 
+class Evolve(NamedTuple):
+    """The in-kernel Euler MLP evolve (ODE-RNN before the GRU's cell,
+    ODE-LSTM after the LSTM's): `steps` substeps x += dt f(x), f an MLP of
+    n layers H -> hh -> ... -> hh -> H (H -> H when n = 1), tanh on the
+    inner layers, its weights packed by pack_mlp."""
+    mlp: torch.Tensor                    # [W_0 (in x out), b_0, W_1, ...]
+    dts: torch.Tensor                    # substep sizes: [L] GRU, [L, B] LSTM
+    n: int
+    hh: int
+    steps: int
+
+
 class FusedGRUGrads(NamedTuple):
-    """Cotangents of the fused GRU's inputs (split partials summed)."""
+    """Cotangents of the fused GRU's inputs (split partials summed); None
+    for a mode input the call did not have."""
     dgi: torch.Tensor                    # [L, B, 3H]
     dh0: torch.Tensor                    # [B, H]
     dwhh: torch.Tensor                   # [H, 3H]
     dbhh: torch.Tensor                   # [3H]
-    dhdec: Optional[torch.Tensor]        # [L, B, H], None without hdec
+    dhdec: Optional[torch.Tensor] = None  # [L, B, H]
+    dhrow: Optional[torch.Tensor] = None  # [L, H]
+    dmlp: Optional[torch.Tensor] = None   # the evolve's, packed as its mlp
 
 
 class FusedLSTMGrads(NamedTuple):
@@ -95,6 +128,103 @@ class FusedLSTMGrads(NamedTuple):
     dgi: torch.Tensor                    # [L, B, 4H]
     dwhh: torch.Tensor                   # [H, 4H]
     dbhh: torch.Tensor                   # [4H]
+    dmlp: Optional[torch.Tensor] = None   # the evolve's, packed as its mlp
+
+
+# ---------------------------------------------------------------------------
+# The evolve's MLP: packed weights, its layers, its substeps
+# ---------------------------------------------------------------------------
+
+def _mlp_dims(H: int, hh: int, n: int):
+    """(in, out) of each layer: H -> hh ... hh -> H (H -> H when n = 1)."""
+    return [(H if i == 0 else hh, H if i == n - 1 else hh) for i in range(n)]
+
+
+def pack_mlp(layers) -> torch.Tensor:
+    """The kernels' packed weights of a sequence of `nn.Linear`s: each
+    layer's weight as [in, out] (the JAX layout), then its bias. Built with
+    torch.cat, so gradients reach the layers."""
+    return torch.cat([t for lin in layers
+                      for t in (lin.weight.t().reshape(-1), lin.bias)])
+
+
+def mlp_layers(mlp: torch.Tensor, H: int, hh: int, n: int):
+    """[(W [in, out], b [out])] views of packed weights."""
+    out, o = [], 0
+    for i, j in _mlp_dims(H, hh, n):
+        out.append((mlp[o:o + i * j].view(i, j), mlp[o + i * j:o + i * j + j]))
+        o += i * j + j
+    return out
+
+
+def _mlp_f(x, layers):
+    for w, b in layers[:-1]:
+        x = torch.tanh(x @ w + b)
+    w, b = layers[-1]
+    return x @ w + b
+
+
+def _evolve(h, layers, dt, steps):
+    """(h after `steps` Euler substeps of size dt, the state before each)."""
+    subs = []
+    for _ in range(steps):
+        subs.append(h)
+        h = h + dt * _mlp_f(h, layers)
+    return h, subs
+
+
+def _stream_views(buf, K, widths):
+    """Per-layer [K, width] views of a stream buffer laid out as the
+    kernels write it (layer blocks in order)."""
+    out, o = [], 0
+    for w in widths:
+        out.append(buf[o:o + K * w].view(K, w))
+        o += K * w
+    return out
+
+
+def _evolve_back(dh, subs, layers, dt, acts, dzs, row):
+    """Back through the substeps `subs` (in reverse): the cotangent of the
+    state before them, writing each layer's input and output cotangent at
+    stream rows row(s) of acts/dzs (per-layer [L S B, width] views)."""
+    n = len(layers)
+    for s in range(len(subs) - 1, -1, -1):
+        xs = [subs[s]]
+        for w, b in layers[:-1]:
+            xs.append(torch.tanh(xs[-1] @ w + b))
+        dz = dh * dt
+        rows = row(s)
+        for i in range(n - 1, -1, -1):
+            acts[i][rows] = xs[i]
+            dzs[i][rows] = dz
+            dx = dz @ layers[i][0].T
+            if i > 0:
+                dz = dx * (1.0 - xs[i] * xs[i])
+        dh = dh + dx
+    return dh
+
+
+def _evolve_streams(ode: "Evolve", L, B, H, like):
+    """Empty stream buffers (acts, dzs) of the evolve's backward and their
+    per-layer views."""
+    dims = _mlp_dims(H, ode.hh, ode.n)
+    K = L * ode.steps * B
+    acts = like.new_empty(K * sum(i for i, _ in dims))
+    dzs = like.new_empty(K * sum(j for _, j in dims))
+    return (acts, dzs, _stream_views(acts, K, [i for i, _ in dims]),
+            _stream_views(dzs, K, [j for _, j in dims]))
+
+
+def fused_mlp_weight_grads_reference(acts, dzs, L, B, H, ode: "Evolve"):
+    """The evolve's weight gradients, packed as its mlp, from the
+    backward's streams: layer i's dW = acts_i^T dzs_i, db = the sum of
+    dzs_i over the K = L S B rows (one product a layer, as the kernel)."""
+    dims = _mlp_dims(H, ode.hh, ode.n)
+    K = L * ode.steps * B
+    a = _stream_views(acts, K, [i for i, _ in dims])
+    z = _stream_views(dzs, K, [j for _, j in dims])
+    return torch.cat([t for x, d in zip(a, z)
+                      for t in ((x.T @ d).reshape(-1), d.sum(0))])
 
 
 # ---------------------------------------------------------------------------
@@ -113,68 +243,138 @@ def _gru_cell(g, hin, whh, bhh):
     return (1.0 - z) * n + z * hin, r, z, n, ghn
 
 
-def fused_gru_forward_reference(gi, h0, whh, bhh, hdec=None) -> torch.Tensor:
+def _gru_input(t, h, hdec, hrow, ode, layers):
+    """(the cell's input state at step t from h before it, the evolve's
+    substep states or None)."""
+    if hdec is not None:
+        return h * hdec[t], None
+    if hrow is not None:
+        return h * hrow[t], None
+    if ode is not None:
+        return _evolve(h, layers, ode.dts[t], ode.steps)
+    return h, None
+
+
+def fused_gru_forward_reference(gi, h0, whh, bhh, hdec=None, obs=None,
+                                hrow=None, ode=None) -> torch.Tensor:
     """Eager GRU loop: hs [L, B, H] (h after each step) from gi [L, B, 3H]
     (the input projection with b_ih), h0 [B, H], W_hh [H, 3H], b_hh [3H]
-    and, when given, the per-sample decay hdec [L, B, H] applied to the
-    state before each step."""
+    and the modes: the per-sample decay hdec [L, B, H] or the time-only
+    row hrow [L, H] applied to the state before each step, or the Euler
+    MLP evolve `ode` (Evolve, dts [L]); with obs [L, B] a step keeps the
+    cell's update only where obs is 1 and passes its input state on where
+    it is 0 (fused_rnn.py:95-106)."""
+    layers = (mlp_layers(ode.mlp, h0.shape[1], ode.hh, ode.n)
+              if ode is not None else None)
     h, hs = h0, []
     for t in range(gi.shape[0]):
-        hin = h * hdec[t] if hdec is not None else h
+        hin = _gru_input(t, h, hdec, hrow, ode, layers)[0]
         h = _gru_cell(gi[t], hin, whh, bhh)[0]
+        if obs is not None:
+            sel = obs[t][:, None]
+            h = sel * h + (1.0 - sel) * hin
         hs.append(h)
     return torch.stack(hs)
 
 
-def _gru_backward_loop(gi, hs, ghs, h0, whh, bhh, hdec=None):
+class GRURecurrence(NamedTuple):
+    """What the GRU's reverse recurrence writes: dgi [L, B, 3H] = [dr, dz,
+    dn], W_hh's cotangent dgh [L, B, 3H] = [dr, dz, dn r], dh0 [B, H],
+    dhdec [L, B, H], dhrow [L, H], the cell's input states xin [L, B, H]
+    (with hrow or the evolve), and the evolve's streams (acts, dzs: each
+    layer's input and output cotangent, [L, S, B, width] blocks)."""
+    dgi: torch.Tensor
+    dgh: torch.Tensor
+    dh0: torch.Tensor
+    dhdec: Optional[torch.Tensor] = None
+    dhrow: Optional[torch.Tensor] = None
+    xin: Optional[torch.Tensor] = None
+    acts: Optional[torch.Tensor] = None
+    dzs: Optional[torch.Tensor] = None
+
+
+def _gru_reverse(gi, hs, ghs, h0, whh, bhh, hdec=None, obs=None, hrow=None,
+                 ode=None) -> GRURecurrence:
     """The reverse loop of the GRU backward (the JAX `_bwd_kernel`'s):
-    recompute the gates from the cell's input state before each step, then
-    back through the gates, W_hh and the decay. (dgi [L, B, 3H] = [dr, dz,
-    dn], dgh [L, B, 3H] = [dr, dz, dn r] (W_hh's cotangent), dh0, dhdec or
-    None.)"""
+    recompute the cell's input state (the decay, or the evolve's substeps)
+    and the gates before each step, then back through the mask, the gates,
+    W_hh and the decay or the evolve."""
+    L, B, H = hs.shape
     dgi, dgh = torch.empty_like(gi), torch.empty_like(gi)
     dhdec = torch.empty_like(hdec) if hdec is not None else None
+    dhrow = torch.empty_like(hrow) if hrow is not None else None
+    xin = (torch.empty_like(hs) if hrow is not None or ode is not None
+           else None)
+    layers = acts = dzs = None
+    if ode is not None:
+        layers = mlp_layers(ode.mlp, H, ode.hh, ode.n)
+        acts, dzs, av, zv = _evolve_streams(ode, L, B, H, hs)
     gbar = torch.zeros_like(h0)
-    for t in range(gi.shape[0] - 1, -1, -1):
+    for t in range(L - 1, -1, -1):
         gbar = gbar + ghs[t]
         h = h0 if t == 0 else hs[t - 1]
-        hin = h * hdec[t] if hdec is not None else h
+        hin, subs = _gru_input(t, h, hdec, hrow, ode, layers)
         _, r, z, n, ghn = _gru_cell(gi[t], hin, whh, bhh)
-        dn_pre = gbar * (1.0 - z) * (1.0 - n * n)
+        dhn = gbar if obs is None else gbar * obs[t][:, None]
+        dn_pre = dhn * (1.0 - z) * (1.0 - n * n)
         dr_pre = dn_pre * ghn * r * (1.0 - r)
-        dz_pre = gbar * (hin - n) * z * (1.0 - z)
+        dz_pre = dhn * (hin - n) * z * (1.0 - z)
         dgh[t] = torch.cat([dr_pre, dz_pre, dn_pre * r], dim=-1)
         dgi[t] = torch.cat([dr_pre, dz_pre, dn_pre], dim=-1)
-        dhin = gbar * z + dgh[t] @ whh.T
+        if obs is None:
+            dhin = gbar * z + dgh[t] @ whh.T
+        else:
+            dhin = (dhn * z + gbar * (1.0 - obs[t][:, None])
+                    + dgh[t] @ whh.T)
+        if xin is not None:
+            xin[t] = hin
         if hdec is not None:
             dhdec[t] = dhin * h
             dhin = dhin * hdec[t]
+        elif hrow is not None:
+            dhrow[t] = (dhin * h).sum(0)
+            dhin = dhin * hrow[t]
+        elif ode is not None:
+            dhin = _evolve_back(
+                dhin, subs, layers, ode.dts[t], av, zv,
+                lambda s, t=t: slice((t * ode.steps + s) * B,
+                                     (t * ode.steps + s + 1) * B))
         gbar = dhin
-    return dgi, dgh, gbar, dhdec
+    return GRURecurrence(dgi, dgh, gbar, dhdec, dhrow, xin, acts, dzs)
 
 
-def fused_gru_weight_grads_reference(h0, hs, dgh, hdec=None):
+def fused_gru_weight_grads_reference(h0, hs, dgh, hdec=None, xin=None):
     """(dW_hh [H, 3H], db_hh [3H]) from the cell's input states and W_hh's
     cotangent dgh [L, B, 3H]: the gates' h-part is x_t W_hh + b_hh with
-    x_t = h_{t-1} hdec_t (h_{-1} = h0; no decay without hdec), so dW_hh =
-    sum_t x_t^T dgh_t and db_hh = sum dgh. One product over (step, row),
-    as the weight-gradient kernel computes it."""
+    x_t = h_{t-1} hdec_t (h_{-1} = h0; no decay without hdec), or x_t =
+    xin[t] where the backward wrote them (the row decay, the evolve), so
+    dW_hh = sum_t x_t^T dgh_t and db_hh = sum dgh. One product over (step,
+    row), as the weight-gradient kernel computes it."""
     H, G = hs.shape[-1], dgh.shape[-1]
-    x = torch.cat([h0[None], hs[:-1]])
-    if hdec is not None:
-        x = x * hdec
+    if xin is not None:
+        x = xin
+    else:
+        x = torch.cat([h0[None], hs[:-1]])
+        if hdec is not None:
+            x = x * hdec
     return x.reshape(-1, H).T @ dgh.reshape(-1, G), dgh.reshape(-1, G).sum(0)
 
 
-def fused_gru_backward_reference(gi, hs, ghs, h0, whh, bhh,
-                                 hdec=None) -> FusedGRUGrads:
-    """Eager reverse loop mirroring the backward kernels (and the JAX
-    `_bwd_kernel`), then the weight gradients from the cell's input states
-    and dgh (fused_gru_weight_grads_reference)."""
-    dgi, dgh, dh0, dhdec = _gru_backward_loop(gi, hs, ghs, h0, whh, bhh,
-                                              hdec)
-    return FusedGRUGrads(dgi, dh0, *fused_gru_weight_grads_reference(
-        h0, hs, dgh, hdec), dhdec)
+def fused_gru_backward_reference(gi, hs, ghs, h0, whh, bhh, hdec=None,
+                                 obs=None, hrow=None,
+                                 ode=None):
+    """FusedGRUGrads: the eager reverse loop mirroring the backward kernels
+    (and the JAX `_bwd_kernel`), then the weight gradients from the cell's
+    input states and dgh (fused_gru_weight_grads_reference) and, with the
+    evolve, its layers' from their streams
+    (fused_mlp_weight_grads_reference)."""
+    rec = _gru_reverse(gi, hs, ghs, h0, whh, bhh, hdec, obs, hrow, ode)
+    grads = fused_gru_weight_grads_reference(h0, hs, rec.dgh, hdec, rec.xin)
+    dmlp = (fused_mlp_weight_grads_reference(rec.acts, rec.dzs, *hs.shape,
+                                             ode)
+            if ode is not None else None)
+    return FusedGRUGrads(rec.dgi, rec.dh0, *grads, rec.dhdec, rec.dhrow,
+                         dmlp)
 
 
 def _lstm_cell(g, h, c, whh, bhh):
@@ -189,17 +389,28 @@ def _lstm_cell(g, h, c, whh, bhh):
     return o * torch.tanh(c2), c2, i, f, gg, o
 
 
-def fused_lstm_forward_reference(gi, whh, bhh, save_cs: bool = True):
-    """Eager LSTM loop from zero (h, c): (hs [L, B, H], cs [L, B, H] or None
-    when save_cs is False)."""
+def fused_lstm_forward_reference(gi, whh, bhh, save_cs: bool = True,
+                                 ode=None):
+    """Eager LSTM loop from zero (h, c): (hs [L, B, H], cs [L, B, H],
+    hcell), cs None when save_cs is False. With the evolve `ode` (Evolve,
+    dts [L, B]) the cell's output h' is evolved after each step (hs holds
+    the evolved h, the next cell's input; c passes through), and hcell
+    [L, B, H] holds the cells' own h' (None without the evolve or without
+    save_cs)."""
     B, H = gi.shape[1], whh.shape[0]
+    layers = (mlp_layers(ode.mlp, H, ode.hh, ode.n) if ode is not None
+              else None)
     h = c = gi.new_zeros((B, H))
-    hs, cs = [], []
+    hs, cs, hcell = [], [], []
     for t in range(gi.shape[0]):
         h, c = _lstm_cell(gi[t], h, c, whh, bhh)[:2]
+        if ode is not None:
+            hcell.append(h)
+            h = _evolve(h, layers, ode.dts[t][:, None], ode.steps)[0]
         hs.append(h)
         cs.append(c)
-    return torch.stack(hs), (torch.stack(cs) if save_cs else None)
+    return (torch.stack(hs), torch.stack(cs) if save_cs else None,
+            torch.stack(hcell) if save_cs and ode is not None else None)
 
 
 def fused_lstm_weight_grads_reference(hs, dgi):
@@ -213,17 +424,37 @@ def fused_lstm_weight_grads_reference(hs, dgi):
     return dwhh, dgi.reshape(-1, G).sum(0)
 
 
-def fused_lstm_backward_reference(gi, hs, cs, ghs, whh,
-                                  bhh) -> FusedLSTMGrads:
-    """Eager reverse loop mirroring the backward kernels (and the JAX
-    `_lstm_bwd_kernel`): recompute the gates from (h, c) before each step,
-    then back through the cell and W_hh to dgi; then the weight gradients
-    from hs and dgi (fused_lstm_weight_grads_reference)."""
+class LSTMRecurrence(NamedTuple):
+    """What the LSTM's reverse recurrence writes: dgi [L, B, 4H] and, with
+    the evolve, its streams (acts, dzs: each layer's input and output
+    cotangent, [L, S, B, width] blocks)."""
+    dgi: torch.Tensor
+    acts: Optional[torch.Tensor] = None
+    dzs: Optional[torch.Tensor] = None
+
+
+def _lstm_reverse(gi, hs, cs, ghs, whh, bhh, ode=None,
+                  hcell=None) -> LSTMRecurrence:
+    """The reverse loop of the LSTM backward, with the evolve (its
+    substeps recomputed from the cell's output hcell[t]) undone before the
+    cell's backward."""
+    L, B, H = hs.shape
     dgi = torch.empty_like(gi)
+    layers = acts = dzs = None
+    if ode is not None:
+        layers = mlp_layers(ode.mlp, H, ode.hh, ode.n)
+        acts, dzs, av, zv = _evolve_streams(ode, L, B, H, hs)
     zero = torch.zeros_like(hs[0])
     gh, gc = zero, zero
-    for t in range(gi.shape[0] - 1, -1, -1):
+    for t in range(L - 1, -1, -1):
         gh = gh + ghs[t]
+        if ode is not None:
+            dt = ode.dts[t][:, None]
+            subs = _evolve(hcell[t], layers, dt, ode.steps)[1]
+            gh = _evolve_back(
+                gh, subs, layers, dt, av, zv,
+                lambda s, t=t: slice((t * ode.steps + s) * B,
+                                     (t * ode.steps + s + 1) * B))
         h, c = (zero, zero) if t == 0 else (hs[t - 1], cs[t - 1])
         _, c2, i, f, gg, o = _lstm_cell(gi[t], h, c, whh, bhh)
         tc = torch.tanh(c2)
@@ -234,22 +465,48 @@ def fused_lstm_backward_reference(gi, hs, cs, ghs, whh,
         dgi[t] = dgates
         gh = dgates @ whh.T
         gc = dc * f
-    return FusedLSTMGrads(dgi, *fused_lstm_weight_grads_reference(hs, dgi))
+    return LSTMRecurrence(dgi, acts, dzs)
+
+
+def fused_lstm_backward_reference(gi, hs, cs, ghs, whh, bhh, ode=None,
+                                  hcell=None):
+    """FusedLSTMGrads: the eager reverse loop mirroring the backward
+    kernels (and the JAX
+    `_lstm_bwd_kernel`): recompute the gates from (h, c) before each step
+    (and, with the evolve, its substeps from hcell[t], gone back through
+    first), then back through the cell and W_hh to dgi; then the weight
+    gradients from hs and dgi (fused_lstm_weight_grads_reference) and the
+    evolve's from its streams."""
+    rec = _lstm_reverse(gi, hs, cs, ghs, whh, bhh, ode, hcell)
+    dmlp = (fused_mlp_weight_grads_reference(rec.acts, rec.dzs, *hs.shape,
+                                             ode)
+            if ode is not None else None)
+    return FusedLSTMGrads(rec.dgi, *fused_lstm_weight_grads_reference(
+        hs, rec.dgi), dmlp)
 
 
 # ---------------------------------------------------------------------------
 # The CUDA kernels
 # ---------------------------------------------------------------------------
 
-# built and loaded at first launch; one library, csrc/fused_rnn.cu
-_GRU = SolverLib("fused_gru", "fused GRU", 6, 11, int_names=("L", "B", "H"),
-                 shape_names=("H", "B"), source="fused_rnn",
-                 launches={"wgrad": 5},
-                 int_fns={"plan": 4, "wgrad_splits": 3})
-_LSTM = SolverLib("fused_lstm", "fused LSTM", 5, 7,
-                  int_names=("L", "B", "H"), shape_names=("H", "B"),
-                  source="fused_rnn", launches={"wgrad": 3},
-                  int_fns={"plan": 4, "wgrad_splits": 3})
+# built and loaded at first launch; one library, csrc/fused_rnn.cu. Every
+# launch and plan entry takes the mode after the dimensions (GRU 0 the
+# plain modes, 1 obs, 2 obs + row decay, 3 obs + evolve; LSTM 0 plain, 1
+# evolve) and the evolve's shape (hh, n layers, S substeps; 0 without it).
+# The weight-gradient entries take (L, B, H); the evolve's (L, B, H, hh, n,
+# S), one kernel for both pairs, sits beside the GRU's entries.
+_INTS = ("L", "B", "H", "mode", "HH", "n", "S")
+_SHAPE = ("H", "B", "mode", "HH", "n", "S")
+_GRU = SolverLib("fused_gru", "fused GRU", 10, 19, int_names=_INTS,
+                 shape_names=_SHAPE, source="fused_rnn",
+                 launches={"wgrad": (5, 3), "mlpgrad": (3, 6)},
+                 int_fns={"plan": 8, "wgrad_splits": 3, "mlp_splits": 3,
+                          "force_plan": 2})
+_LSTM = SolverLib("fused_lstm", "fused LSTM", 8, 12, int_names=_INTS,
+                  shape_names=_SHAPE, source="fused_rnn",
+                  launches={"wgrad": (3, 3)},
+                  int_fns={"plan": 8, "wgrad_splits": 3})
+_LIBS = (_GRU, _LSTM)
 _PLAN_FIELDS = ("cluster", "rows", "w_smem", "rows_per_thread",
                 "active_clusters", "smem_bytes")
 
@@ -266,28 +523,50 @@ def _dims(label, gi, whh, gates):
     return L, B, H
 
 
-def check_gru_inputs(gi, h0, whh, bhh, hdec=None, hs=None, ghs=None):
+def _check_evolve(label, ode, L, B, H, device, per_row):
+    """ValueError unless the evolve's packed weights and steps fit."""
+    if ode.n < 1 or ode.steps < 1 or (ode.n > 1 and ode.hh < 1):
+        raise ValueError(f"{label} kernel: the evolve needs n >= 1 layers, "
+                         f"steps >= 1 and hh >= 1; got {tuple(ode[2:])}")
+    size = sum(i * j + j for i, j in _mlp_dims(H, ode.hh, ode.n))
+    check_tensors(label, {"mlp": (size,),
+                          "dts": (L, B) if per_row else (L,)},
+                  {"mlp": ode.mlp, "dts": ode.dts}, device)
+
+
+def check_gru_inputs(gi, h0, whh, bhh, hdec=None, hs=None, ghs=None,
+                     obs=None, hrow=None, ode=None):
     """Raise ValueError on what the GRU kernels do not take: a dtype other
     than float32, tensors on different devices, a non-contiguous tensor, a
-    shape that disagrees with gi/W_hh, or H above MAX_H. Returns (L, B, H)."""
+    shape that disagrees with gi/W_hh (obs [L, B], hrow [L, H], the
+    evolve's packed weights and dts [L]), or H above MAX_H. Returns (L, B,
+    H)."""
     L, B, H = _dims("fused GRU", gi, whh, 3)
     want = {"gi": (L, B, 3 * H), "h0": (B, H), "whh": (H, 3 * H),
             "bhh": (3 * H,), "hdec": (L, B, H), "hs": (L, B, H),
-            "ghs": (L, B, H)}
+            "ghs": (L, B, H), "obs": (L, B), "hrow": (L, H)}
     check_tensors("fused GRU", want, {"gi": gi, "h0": h0, "whh": whh,
                                       "bhh": bhh, "hdec": hdec, "hs": hs,
-                                      "ghs": ghs}, gi.device)
+                                      "ghs": ghs, "obs": obs, "hrow": hrow},
+                  gi.device)
+    if ode is not None:
+        _check_evolve("fused GRU", ode, L, B, H, gi.device, per_row=False)
     return L, B, H
 
 
-def check_lstm_inputs(gi, whh, bhh, hs=None, cs=None, ghs=None):
-    """As check_gru_inputs, for the LSTM kernels."""
+def check_lstm_inputs(gi, whh, bhh, hs=None, cs=None, ghs=None, hcell=None,
+                      ode=None):
+    """As check_gru_inputs, for the LSTM kernels (the evolve's dts [L,
+    B])."""
     L, B, H = _dims("fused LSTM", gi, whh, 4)
     want = {"gi": (L, B, 4 * H), "whh": (H, 4 * H), "bhh": (4 * H,),
-            "hs": (L, B, H), "cs": (L, B, H), "ghs": (L, B, H)}
+            "hs": (L, B, H), "cs": (L, B, H), "ghs": (L, B, H),
+            "hcell": (L, B, H)}
     check_tensors("fused LSTM", want, {"gi": gi, "whh": whh, "bhh": bhh,
-                                       "hs": hs, "cs": cs, "ghs": ghs},
-                  gi.device)
+                                       "hs": hs, "cs": cs, "ghs": ghs,
+                                       "hcell": hcell}, gi.device)
+    if ode is not None:
+        _check_evolve("fused LSTM", ode, L, B, H, gi.device, per_row=True)
     return L, B, H
 
 
@@ -295,52 +574,132 @@ def _empty(*shape, device):
     return torch.empty(shape, dtype=torch.float32, device=device)
 
 
-def fused_gru_forward(gi, h0, whh, bhh, hdec=None) -> torch.Tensor:
-    """hs [L, B, H]: the CUDA forward kernel for CUDA tensors, the plain
-    version for CPU tensors."""
-    global GRU_FWD_LAUNCHES
-    if gi.device.type == "cpu":
-        return fused_gru_forward_reference(gi, h0, whh, bhh, hdec)
-    L, B, H = check_gru_inputs(gi, h0, whh, bhh, hdec)
-    stream = _GRU.stream(gi, (H, B), backward=False)
+def _gru_mode(hdec, obs, hrow, ode) -> int:
+    """The kernels' mode of a GRU call: 0 the plain modes (with or without
+    hdec), 1 obs, 2 the row decay, 3 the evolve (2 and 3 with or without
+    obs). The combinations no JAX caller reaches raise."""
+    if obs is None and hrow is None and ode is None:
+        return 0
+    if hdec is not None or (hrow is not None and ode is not None):
+        _unported("the GRU's per-sample decay with obs, a row decay or the "
+                  "evolve, or a row decay with the evolve", "K6")
+    return 3 if ode is not None else 2 if hrow is not None else 1
+
+
+def _mode_ints(mode, ode):
+    """(mode, HH, n, S) of a launch."""
+    return (mode,) + ((ode.hh, ode.n, ode.steps) if ode is not None
+                      else (0, 0, 0))
+
+
+def _mode_ptrs(ode):
+    """The evolve's packed weights and step sizes, or two nulls."""
+    return (ode.mlp, ode.dts) if ode is not None else (None, None)
+
+
+# each mode's launch counters: (forward, backward)
+_GRU_COUNTS = {0: ("GRU_FWD_LAUNCHES", "GRU_BWD_LAUNCHES"),
+               1: ("GRU_OBS_FWD_LAUNCHES", "GRU_OBS_BWD_LAUNCHES"),
+               2: ("GRU_DEC1_FWD_LAUNCHES", "GRU_DEC1_BWD_LAUNCHES"),
+               3: ("GRU_ODE_FWD_LAUNCHES", "GRU_ODE_BWD_LAUNCHES")}
+_LSTM_COUNTS = {0: ("LSTM_FWD_LAUNCHES", "LSTM_BWD_LAUNCHES"),
+                1: ("LSTM_ODE_FWD_LAUNCHES", "LSTM_ODE_BWD_LAUNCHES")}
+
+
+def _count(name):
+    globals()[name] += 1
+
+
+def _gru_fwd_launch(mode, gi, h0, whh, bhh, hdec, obs, hrow, ode, stream):
+    """hs of the GRU's forward kernel in mode `mode` on any tensors (a CUDA
+    stream handle, 0 for the default)."""
+    L, B, _ = gi.shape
+    H = whh.shape[0]
     hs = _empty(L, B, H, device=gi.device)
-    _GRU.launch("fwd", (gi, h0, whh, bhh, hdec, hs), (L, B, H), stream)
-    GRU_FWD_LAUNCHES += 1
+    _GRU.launch("fwd", (gi, h0, whh, bhh, hdec, obs, hrow, *_mode_ptrs(ode),
+                        hs), (L, B, H) + _mode_ints(mode, ode), stream)
     return hs
 
 
-def fused_gru_backward(gi, hs, ghs, h0, whh, bhh, hdec=None) -> FusedGRUGrads:
+def fused_gru_forward(gi, h0, whh, bhh, hdec=None, obs=None, hrow=None,
+                      ode=None) -> torch.Tensor:
+    """hs [L, B, H]: the CUDA forward kernel of the call's mode for CUDA
+    tensors, the plain version for CPU tensors."""
+    if gi.device.type == "cpu":
+        return fused_gru_forward_reference(gi, h0, whh, bhh, hdec, obs, hrow,
+                                           ode)
+    mode = _gru_mode(hdec, obs, hrow, ode)
+    L, B, H = check_gru_inputs(gi, h0, whh, bhh, hdec, obs=obs, hrow=hrow,
+                               ode=ode)
+    stream = _GRU.stream(gi, (H, B) + _mode_ints(mode, ode), backward=False)
+    hs = _gru_fwd_launch(mode, gi, h0, whh, bhh, hdec, obs, hrow, ode,
+                         stream)
+    _count(_GRU_COUNTS[mode][0])
+    return hs
+
+
+def fused_gru_backward(gi, hs, ghs, h0, whh, bhh, hdec=None, obs=None,
+                       hrow=None, ode=None) -> FusedGRUGrads:
     """Cotangents of the GRU's inputs given ghs = dL/dhs: for CUDA tensors
-    the reverse-recurrence kernel (dgi, dh0, dhdec and W_hh's cotangent
-    dgh), then the weight-gradient kernel (fused_gru_weight_grads); the
-    plain version for CPU tensors."""
+    the reverse-recurrence kernel of the call's mode
+    (fused_gru_backward_recurrence), then the weight-gradient kernel
+    (fused_gru_weight_grads) and, with the evolve, its layers'
+    (fused_mlp_weight_grads); the plain version for CPU tensors."""
     if gi.device.type == "cpu":
-        return fused_gru_backward_reference(gi, hs, ghs, h0, whh, bhh, hdec)
-    dgi, dgh, dh0, dhdec = fused_gru_backward_recurrence(gi, hs, ghs, h0,
-                                                         whh, bhh, hdec)
-    return FusedGRUGrads(dgi, dh0, *fused_gru_weight_grads(h0, hs, dgh,
-                                                           hdec), dhdec)
+        return fused_gru_backward_reference(gi, hs, ghs, h0, whh, bhh, hdec,
+                                            obs, hrow, ode)
+    rec = fused_gru_backward_recurrence(gi, hs, ghs, h0, whh, bhh, hdec, obs,
+                                        hrow, ode)
+    dmlp = (fused_mlp_weight_grads(rec.acts, rec.dzs, *hs.shape, ode)
+            if ode is not None else None)
+    return FusedGRUGrads(rec.dgi, rec.dh0, *fused_gru_weight_grads(
+        h0, hs, rec.dgh, hdec, rec.xin), rec.dhdec, rec.dhrow, dmlp)
 
 
-def fused_gru_backward_recurrence(gi, hs, ghs, h0, whh, bhh, hdec=None):
-    """(dgi, dgh, dh0, dhdec), the reverse recurrence alone: dgi [L, B,
-    3H] = [dr, dz, dn], W_hh's cotangent dgh [L, B, 3H] = [dr, dz, dn r],
-    dh0 [B, H] and dhdec [L, B, H] (None without hdec). The CUDA kernel for
-    CUDA tensors, the plain reverse loop for CPU tensors."""
-    global GRU_BWD_LAUNCHES
-    if gi.device.type == "cpu":
-        return _gru_backward_loop(gi, hs, ghs, h0, whh, bhh, hdec)
-    L, B, H = check_gru_inputs(gi, h0, whh, bhh, hdec, hs, ghs)
-    stream = _GRU.stream(gi, (H, B), backward=True)
+def _gru_bwd_launch(mode, gi, hs, ghs, h0, whh, bhh, hdec, obs, hrow, ode,
+                    stream, clusters) -> GRURecurrence:
+    """The GRU's reverse recurrence in mode `mode` on any tensors; the
+    decay row's cotangent from its `clusters` partials, summed here in
+    cluster order."""
+    L, B, H = hs.shape
     dev = gi.device
     dgi, dgh = _empty(L, B, 3 * H, device=dev), _empty(L, B, 3 * H,
                                                        device=dev)
     dh0 = _empty(B, H, device=dev)
     dhdec = _empty(L, B, H, device=dev) if hdec is not None else None
-    _GRU.launch("bwd", (gi, h0, hs, ghs, whh, bhh, hdec, dgi, dgh, dh0,
-                        dhdec), (L, B, H), stream)
-    GRU_BWD_LAUNCHES += 1
-    return dgi, dgh, dh0, dhdec
+    dhrow = _empty(clusters, L, H, device=dev) if mode == 2 else None
+    xin = _empty(L, B, H, device=dev) if mode in (2, 3) else None
+    acts = dzs = None
+    if mode == 3:
+        acts, dzs = _evolve_streams(ode, L, B, H, hs)[:2]
+    _GRU.launch("bwd", (gi, h0, hs, ghs, whh, bhh, hdec, obs, hrow,
+                        *_mode_ptrs(ode), dgi, dgh, dh0, dhdec, dhrow, xin,
+                        acts, dzs), (L, B, H) + _mode_ints(mode, ode), stream)
+    return GRURecurrence(dgi, dgh, dh0, dhdec,
+                         dhrow.sum(0) if dhrow is not None else None, xin,
+                         acts, dzs)
+
+
+def fused_gru_backward_recurrence(gi, hs, ghs, h0, whh, bhh, hdec=None,
+                                  obs=None, hrow=None,
+                                  ode=None) -> GRURecurrence:
+    """The reverse recurrence alone (GRURecurrence: dgi [L, B, 3H] = [dr,
+    dz, dn], W_hh's cotangent dgh [L, B, 3H] = [dr, dz, dn r], dh0 [B, H],
+    and where the call's mode has them dhdec, dhrow, the cell's input
+    states and the evolve's streams): the CUDA kernel for CUDA tensors,
+    the plain reverse loop for CPU tensors."""
+    if gi.device.type == "cpu":
+        return _gru_reverse(gi, hs, ghs, h0, whh, bhh, hdec, obs, hrow, ode)
+    mode = _gru_mode(hdec, obs, hrow, ode)
+    L, B, H = check_gru_inputs(gi, h0, whh, bhh, hdec, hs, ghs, obs, hrow,
+                               ode)
+    shape = (H, B) + _mode_ints(mode, ode)
+    stream = _GRU.stream(gi, shape, backward=True)
+    clusters = -(-B // _GRU.kept("plan", *shape, 1, 1))
+    rec = _gru_bwd_launch(mode, gi, hs, ghs, h0, whh, bhh, hdec, obs, hrow,
+                          ode, stream, clusters)
+    _count(_GRU_COUNTS[mode][1])
+    return rec
 
 
 def _weight_grads(lib, label, gates, hs, dg, ptrs, others):
@@ -355,7 +714,7 @@ def _weight_grads(lib, label, gates, hs, dg, ptrs, others):
     want = {"h0": (B, H), "hs": (L, B, H), "hdec": (L, B, H),
             "dg": (L, B, gates * H)}
     check_tensors(label, want, {**others, "hs": hs, "dg": dg}, hs.device)
-    stream = lib.stream(hs, (H, B), backward=True)
+    stream = lib.stream(hs, (H, B, 0, 0, 0, 0), backward=True)
     S = lib.kept("wgrad_splits", L, B, H)
     p = _empty(S, H + 1, gates * H, device=hs.device)
     lib.launch("wgrad", ptrs + (p,), (L, B, H), stream)
@@ -363,58 +722,149 @@ def _weight_grads(lib, label, gates, hs, dg, ptrs, others):
     return s[:H], s[H]
 
 
-def fused_gru_weight_grads(h0, hs, dgh, hdec=None):
+def fused_gru_weight_grads(h0, hs, dgh, hdec=None, xin=None):
     """(dW_hh, db_hh) from the cell's input states (h0 [B, H], hs [L, B,
-    H], hdec [L, B, H] or None) and W_hh's cotangent dgh [L, B, 3H]: the
-    CUDA weight-gradient kernel for CUDA tensors (its split partials summed
+    H], hdec [L, B, H] or None; or the stream xin [L, B, H] of them that a
+    mode's backward wrote) and W_hh's cotangent dgh [L, B, 3H]: the CUDA
+    weight-gradient kernel for CUDA tensors (its split partials summed
     here, in a fixed order), the plain version for CPU tensors."""
     global GRU_WGRAD_LAUNCHES
     if hs.device.type == "cpu":
-        return fused_gru_weight_grads_reference(h0, hs, dgh, hdec)
-    out = _weight_grads(_GRU, "fused GRU", 3, hs, dgh, (h0, hs, hdec, dgh),
-                        {"h0": h0, "hdec": hdec})
+        return fused_gru_weight_grads_reference(h0, hs, dgh, hdec, xin)
+    if xin is not None:
+        # the kernel reads x_n as h0[n] for n < B and hs[n - B] after: xin
+        # in place of both
+        out = _weight_grads(_GRU, "fused GRU", 3, xin, dgh,
+                            (xin[0], xin[1:], None, dgh), {})
+    else:
+        out = _weight_grads(_GRU, "fused GRU", 3, hs, dgh,
+                            (h0, hs, hdec, dgh), {"h0": h0, "hdec": hdec})
     GRU_WGRAD_LAUNCHES += 1
     return out
 
 
-def fused_lstm_forward(gi, whh, bhh, save_cs: bool = True):
-    """(hs, cs) [L, B, H] each, cs None when save_cs is False: the CUDA
-    forward kernel for CUDA tensors (without save_cs it writes no
-    cell-state stream), the plain version for CPU tensors."""
-    global LSTM_FWD_LAUNCHES
-    if gi.device.type == "cpu":
-        return fused_lstm_forward_reference(gi, whh, bhh, save_cs)
-    L, B, H = check_lstm_inputs(gi, whh, bhh)
-    stream = _LSTM.stream(gi, (H, B), backward=False)
+def _mlp_partials(K, H, ode):
+    """Floats of each evolve layer's split partials [S_i, in_i + 1,
+    out_i] in the weight-gradient kernel's scratch, in layer order."""
+    return [_GRU.kept("mlp_splits", K, i, j) * (i + 1) * j
+            for i, j in _mlp_dims(H, ode.hh, ode.n)]
+
+
+def _mlpgrad_launch(acts, dzs, L, B, H, ode, stream):
+    """The evolve's weight gradients, packed as its mlp, from the kernel
+    on any tensors: each layer's split partials summed here in a fixed
+    order."""
+    sizes = _mlp_partials(L * ode.steps * B, H, ode)
+    p = _empty(sum(sizes), device=acts.device)
+    _GRU.launch("mlpgrad", (acts, dzs, p),
+                (L, B, H, ode.hh, ode.n, ode.steps), stream)
+    out, o = [], 0
+    for size, (i, j) in zip(sizes, _mlp_dims(H, ode.hh, ode.n)):
+        s = p[o:o + size].view(-1, i + 1, j).sum(0)
+        out += [s[:i].reshape(-1), s[i]]
+        o += size
+    return torch.cat(out)
+
+
+def fused_mlp_weight_grads(acts, dzs, L, B, H, ode: Evolve) -> torch.Tensor:
+    """The evolve's weight gradients, packed as its mlp, from either pair's
+    backward streams (acts, dzs: each layer's input and output cotangent
+    over the K = L S B rows): the CUDA weight-gradient kernel (one product
+    a layer) for CUDA tensors, the plain version for CPU tensors."""
+    global MLP_WGRAD_LAUNCHES
+    if acts.device.type == "cpu":
+        return fused_mlp_weight_grads_reference(acts, dzs, L, B, H, ode)
+    K = L * ode.steps * B
+    dims = _mlp_dims(H, ode.hh, ode.n)
+    check_tensors("fused evolve", {"acts": (K * sum(i for i, _ in dims),),
+                                   "dzs": (K * sum(j for _, j in dims),)},
+                  {"acts": acts, "dzs": dzs}, acts.device)
+    stream = _GRU.stream(acts, (H, B, 0, 0, 0, 0), backward=True)
+    out = _mlpgrad_launch(acts, dzs, L, B, H, ode, stream)
+    MLP_WGRAD_LAUNCHES += 1
+    return out
+
+
+def _lstm_fwd_launch(mode, gi, whh, bhh, ode, save_cs, stream):
+    """(hs, cs, hcell) of the LSTM's forward kernel in mode `mode` on any
+    tensors (cs None without save_cs, hcell None without it or the
+    evolve)."""
+    L, B, _ = gi.shape
+    H = whh.shape[0]
     hs = _empty(L, B, H, device=gi.device)
     cs = _empty(L, B, H, device=gi.device) if save_cs else None
-    _LSTM.launch("fwd", (gi, whh, bhh, hs, cs), (L, B, H), stream)
-    LSTM_FWD_LAUNCHES += 1
-    return hs, cs
+    hcell = (_empty(L, B, H, device=gi.device) if save_cs and mode
+             else None)
+    _LSTM.launch("fwd", (gi, whh, bhh, *_mode_ptrs(ode), hs, cs, hcell),
+                 (L, B, H) + _mode_ints(mode, ode), stream)
+    return hs, cs, hcell
 
 
-def fused_lstm_backward(gi, hs, cs, ghs, whh, bhh) -> FusedLSTMGrads:
+def fused_lstm_forward(gi, whh, bhh, save_cs: bool = True, ode=None):
+    """(hs, cs, hcell) [L, B, H] each: the CUDA forward kernel for CUDA
+    tensors (without save_cs it writes no cell-state stream: cs None), the
+    plain version for CPU tensors. With the evolve `ode` (Evolve, dts [L,
+    B]) hs is the evolved h and hcell the cells' own output h' (None
+    without the evolve or without save_cs)."""
+    if gi.device.type == "cpu":
+        return fused_lstm_forward_reference(gi, whh, bhh, save_cs, ode)
+    mode = int(ode is not None)
+    L, B, H = check_lstm_inputs(gi, whh, bhh, ode=ode)
+    stream = _LSTM.stream(gi, (H, B) + _mode_ints(mode, ode), backward=False)
+    out = _lstm_fwd_launch(mode, gi, whh, bhh, ode, save_cs, stream)
+    _count(_LSTM_COUNTS[mode][0])
+    return out
+
+
+def fused_lstm_backward(gi, hs, cs, ghs, whh, bhh, ode=None,
+                        hcell=None) -> FusedLSTMGrads:
     """Cotangents of the LSTM's inputs given ghs = dL/dhs: for CUDA tensors
-    the reverse-recurrence kernel (dgi), then the weight-gradient kernel
-    (fused_lstm_weight_grads); the plain version for CPU tensors."""
+    the reverse-recurrence kernel (fused_lstm_backward_recurrence), then
+    the weight-gradient kernel (fused_lstm_weight_grads) and, with the
+    evolve `ode`, its layers' (fused_mlp_weight_grads); the plain version
+    for CPU tensors."""
     if gi.device.type == "cpu":
-        return fused_lstm_backward_reference(gi, hs, cs, ghs, whh, bhh)
-    dgi = fused_lstm_backward_recurrence(gi, hs, cs, ghs, whh, bhh)
-    return FusedLSTMGrads(dgi, *fused_lstm_weight_grads(hs, dgi))
+        return fused_lstm_backward_reference(gi, hs, cs, ghs, whh, bhh, ode,
+                                             hcell)
+    rec = fused_lstm_backward_recurrence(gi, hs, cs, ghs, whh, bhh, ode,
+                                         hcell)
+    dmlp = (fused_mlp_weight_grads(rec.acts, rec.dzs, *hs.shape, ode)
+            if ode is not None else None)
+    return FusedLSTMGrads(rec.dgi, *fused_lstm_weight_grads(hs, rec.dgi),
+                          dmlp)
 
 
-def fused_lstm_backward_recurrence(gi, hs, cs, ghs, whh, bhh):
-    """dgi [L, B, 4H], the reverse recurrence alone: the CUDA kernel for
-    CUDA tensors, the plain reverse loop for CPU tensors."""
-    global LSTM_BWD_LAUNCHES
-    if gi.device.type == "cpu":
-        return fused_lstm_backward_reference(gi, hs, cs, ghs, whh, bhh).dgi
-    L, B, H = check_lstm_inputs(gi, whh, bhh, hs, cs, ghs)
-    stream = _LSTM.stream(gi, (H, B), backward=True)
+def _lstm_bwd_launch(mode, gi, hs, cs, hcell, ghs, whh, bhh, ode,
+                     stream) -> LSTMRecurrence:
+    """The LSTM's reverse recurrence in mode `mode` on any tensors."""
+    L, B, H = hs.shape
     dgi = _empty(L, B, 4 * H, device=gi.device)
-    _LSTM.launch("bwd", (gi, hs, cs, ghs, whh, bhh, dgi), (L, B, H), stream)
-    LSTM_BWD_LAUNCHES += 1
-    return dgi
+    acts, dzs = (_evolve_streams(ode, L, B, H, hs)[:2] if mode
+                 else (None, None))
+    _LSTM.launch("bwd", (gi, hs, cs, hcell, ghs, whh, bhh, *_mode_ptrs(ode),
+                         dgi, acts, dzs),
+                 (L, B, H) + _mode_ints(mode, ode), stream)
+    return LSTMRecurrence(dgi, acts, dzs)
+
+
+def fused_lstm_backward_recurrence(gi, hs, cs, ghs, whh, bhh, ode=None,
+                                   hcell=None) -> LSTMRecurrence:
+    """The reverse recurrence alone (LSTMRecurrence: dgi [L, B, 4H] and,
+    with the evolve, its streams): the CUDA kernel for CUDA tensors, the
+    plain reverse loop for CPU tensors."""
+    if gi.device.type == "cpu":
+        return _lstm_reverse(gi, hs, cs, ghs, whh, bhh, ode, hcell)
+    mode = int(ode is not None)
+    L, B, H = check_lstm_inputs(gi, whh, bhh, hs, cs, ghs,
+                                hcell if mode else None, ode)
+    if mode and hcell is None:
+        raise ValueError("fused LSTM backward kernel: the evolve needs the "
+                         "cells' own outputs hcell")
+    stream = _LSTM.stream(gi, (H, B) + _mode_ints(mode, ode), backward=True)
+    out = _lstm_bwd_launch(mode, gi, hs, cs, hcell, ghs, whh, bhh, ode,
+                           stream)
+    _count(_LSTM_COUNTS[mode][1])
+    return out
 
 
 def fused_lstm_weight_grads(hs, dgi):
@@ -429,59 +879,91 @@ def fused_lstm_weight_grads(hs, dgi):
     return out
 
 
-def _plan(lib, H, B, backward):
-    return {name: lib.call("plan", H, B, int(backward), i)
+def _plan(lib, shape, backward):
+    return {name: lib.call("plan", *shape, int(backward), i)
             for i, name in enumerate(_PLAN_FIELDS)}
 
 
-def fused_gru_plan(H: int, B: int, backward: bool) -> dict:
-    """The CUDA library's plan of a GRU launch at (H, B): CTAs per
+def fused_gru_plan(H: int, B: int, backward: bool, mode: int = 0,
+                   ode: Optional[Evolve] = None) -> dict:
+    """The CUDA library's plan of a GRU launch at (H, B) in a mode (0 the
+    plain modes; 1 obs, 2 the row decay, 3 the evolve `ode`): CTAs per
     cluster, batch rows per cluster, whether the W_hh slices sit in shared
     memory, rows per thread, cudaOccupancyMaxActiveClusters (a negative
     CUDA error when the plan cannot be scheduled) and the shared bytes per
     CTA. Needs the card."""
-    return _plan(_GRU, H, B, backward)
+    return _plan(_GRU, (H, B) + _mode_ints(mode, ode), backward)
 
 
-def fused_lstm_plan(H: int, B: int, backward: bool) -> dict:
-    """As fused_gru_plan, for an LSTM launch."""
-    return _plan(_LSTM, H, B, backward)
+def fused_lstm_plan(H: int, B: int, backward: bool,
+                    ode: Optional[Evolve] = None) -> dict:
+    """As fused_gru_plan, for an LSTM launch (with the evolve `ode`)."""
+    return _plan(_LSTM, (H, B) + _mode_ints(int(ode is not None), ode),
+                 backward)
+
+
+def force_rnn_plan(cluster: int = 0, rows: int = 0) -> None:
+    """Make every later GRU and LSTM launch take `cluster` CTAs a cluster
+    (1, 2, 4 or 8) and `rows` batch rows a cluster (8, 16 or 32), the W_hh
+    slices in shared memory where they fit; 0 restores the host's own
+    choice. For tests of each kind of plan. Needs the card."""
+    if _GRU.call("force_plan", cluster, rows) != 0:
+        raise ValueError(f"no plan of {cluster} CTAs and {rows} rows")
+    for lib in _LIBS:
+        lib._kept.clear()
+
+
+def _evolve_of(mlp, dts, meta):
+    return Evolve(mlp, dts, *meta) if mlp is not None else None
 
 
 class FusedGRU(torch.autograd.Function):
     """hs = the GRU recurrence over gi [L, B, 3H] from h0 [B, H] with W_hh
-    [H, 3H], b_hh [3H] and an optional decay stream hdec [L, B, H] (None
-    for none); backward by the backward kernel."""
+    [H, 3H], b_hh [3H], an optional decay stream hdec [L, B, H] (None for
+    none) and the modes: obs [L, B], the decay row hrow [L, H], the
+    evolve's packed weights mlp and dts [L] with meta = (n, hh, steps);
+    backward by the backward kernels. obs and dts are data: no
+    cotangent."""
 
     @staticmethod
-    def forward(ctx, gi, h0, whh, bhh, hdec):
-        hs = fused_gru_forward(gi, h0, whh, bhh, hdec)
-        ctx.save_for_backward(gi, h0, whh, bhh, hdec, hs)
+    def forward(ctx, gi, h0, whh, bhh, hdec, obs=None, hrow=None, mlp=None,
+                dts=None, meta=None):
+        hs = fused_gru_forward(gi, h0, whh, bhh, hdec, obs, hrow,
+                               _evolve_of(mlp, dts, meta))
+        ctx.meta = meta
+        ctx.save_for_backward(gi, h0, whh, bhh, hdec, obs, hrow, mlp, dts, hs)
         return hs
 
     @staticmethod
     def backward(ctx, ghs):
-        gi, h0, whh, bhh, hdec, hs = ctx.saved_tensors
-        g = fused_gru_backward(gi, hs, ghs.contiguous(), h0, whh, bhh, hdec)
-        return g.dgi, g.dh0, g.dwhh, g.dbhh, g.dhdec
+        gi, h0, whh, bhh, hdec, obs, hrow, mlp, dts, hs = ctx.saved_tensors
+        g = fused_gru_backward(gi, hs, ghs.contiguous(), h0, whh, bhh, hdec,
+                               obs, hrow, _evolve_of(mlp, dts, ctx.meta))
+        return (g.dgi, g.dh0, g.dwhh, g.dbhh, g.dhdec, None, g.dhrow, g.dmlp,
+                None, None)
 
 
 class FusedLSTM(torch.autograd.Function):
     """hs = the LSTM recurrence over gi [L, B, 4H] from zero (h, c) with
-    W_hh [H, 4H], b_hh [4H]; the cell-state trajectory is saved for the
+    W_hh [H, 4H], b_hh [4H] and, optionally, the evolve of h after each
+    cell (packed weights mlp, dts [L, B], meta = (n, hh, steps)); the
+    cell-state trajectory (and the cells' own h') is saved for the
     backward kernel, not returned."""
 
     @staticmethod
-    def forward(ctx, gi, whh, bhh):
-        hs, cs = fused_lstm_forward(gi, whh, bhh, save_cs=True)
-        ctx.save_for_backward(gi, whh, bhh, hs, cs)
+    def forward(ctx, gi, whh, bhh, mlp=None, dts=None, meta=None):
+        hs, cs, hcell = fused_lstm_forward(gi, whh, bhh, True,
+                                           _evolve_of(mlp, dts, meta))
+        ctx.meta = meta
+        ctx.save_for_backward(gi, whh, bhh, hs, cs, mlp, dts, hcell)
         return hs
 
     @staticmethod
     def backward(ctx, ghs):
-        gi, whh, bhh, hs, cs = ctx.saved_tensors
-        return tuple(fused_lstm_backward(gi, hs, cs, ghs.contiguous(), whh,
-                                         bhh))
+        gi, whh, bhh, hs, cs, mlp, dts, hcell = ctx.saved_tensors
+        g = fused_lstm_backward(gi, hs, cs, ghs.contiguous(), whh, bhh,
+                                _evolve_of(mlp, dts, ctx.meta), hcell)
+        return g.dgi, g.dwhh, g.dbhh, g.dmlp, None, None
 
 
 # ---------------------------------------------------------------------------
@@ -506,6 +988,23 @@ def _projection(cell, xs, reverse):
     return (xs @ cell.w_ih + cell.b_ih).contiguous()
 
 
+def _evolve_args(ode_layers, steps, dts, H, reverse, name):
+    """(packed weights, substep sizes, meta) of the evolve by the
+    `nn.Linear`s ode_layers over elapsed times dts (flipped for reverse),
+    or (None, None, None)."""
+    if ode_layers is None and dts is None:
+        return None, None, None
+    if ode_layers is None or dts is None or len(ode_layers) == 0:
+        raise ValueError(f"the evolve needs both ode_layers and {name}")
+    n = len(ode_layers)
+    hh = ode_layers[0].out_features if n > 1 else H
+    dts = torch.as_tensor(dts, dtype=torch.float32)
+    if reverse:
+        dts = torch.flip(dts, (0,))
+    return (pack_mlp(ode_layers), (dts / steps).contiguous(),
+            (n, hh, int(steps)))
+
+
 def fused_gru_scan(cell, xs, h0=None, reverse: bool = False,
                    stream_dtype=None, obs=None, hdec=None, ode_layers=None,
                    tdif=None, ode_steps: int = 1) -> torch.Tensor:
@@ -513,17 +1012,21 @@ def fused_gru_scan(cell, xs, h0=None, reverse: bool = False,
     [L, B, H], the scan over the cell (torch (r, z, n) gates) from h0
     (zeros if None). reverse=True runs the backward direction of a
     bidirectional layer (hs[i] is the state after consuming xs[i:] from the
-    right). hdec [L, B, H] is GRUD-full's per-sample hidden decay, applied
-    to the state before each step; its cotangent reaches the decay net
-    through autograd. As snsde/kernels/fused_rnn.py:432-522; `obs`, a
-    time-only decay row (rank-2 hdec), the ODE-RNN evolve and bf16 streams
-    raise NotImplementedError."""
-    if obs is not None:
-        _unported("the observation mask `obs` (GRU-dt, GRU-D)", "K6")
-    if ode_layers is not None or tdif is not None:
-        _unported("the ODE-RNN evolve (`ode_layers`, `tdif`)", "K6")
-    if hdec is not None and hdec.ndim != 3:
-        _unported("a time-only hidden-decay row (rank-2 hdec, GRU-D)", "K6")
+    right). As snsde/kernels/fused_rnn.py:432-522:
+      obs [L, B]   keep the cell's update only where 1 (an unobserved
+                   step passes the decayed or evolved state on); data, no
+                   gradient (GRU-dt, GRU-D, ODE-RNN).
+      hdec         the hidden decay applied to the state before each
+                   step: a per-sample stream [L, B, H] (GRUD-full) or a
+                   time-only row [L, H] (GRU-D); its cotangent reaches the
+                   decay net through autograd.
+      ode_layers, tdif [L], ode_steps
+                   ODE-RNN: evolve the state before each step by
+                   ode_steps Euler substeps of tdif[t] / ode_steps of the
+                   MLP of the `nn.Linear`s ode_layers (tanh inner
+                   layers, linear output); not with hdec.
+    bf16 streams, and the per-sample decay with any of the others, raise
+    NotImplementedError on the card (ROADMAP Queue 2 K6)."""
     _check_stream_dtype(stream_dtype, "K6")
     if not supports_fused_gru(cell):
         raise ValueError(f"fused GRU kernels take GRUCell-shaped cells with "
@@ -533,12 +1036,21 @@ def fused_gru_scan(cell, xs, h0=None, reverse: bool = False,
     if h0 is None:
         h0 = xs.new_zeros((B, H))
     gi = _projection(cell, xs, reverse)
-    if hdec is not None and reverse:
-        hdec = torch.flip(hdec, (0,))
+    flip = (lambda a: torch.flip(a, (0,))) if reverse else (lambda a: a)
+    hrow = None
     if hdec is not None:
-        hdec = hdec.contiguous()
+        hdec = flip(hdec).contiguous()
+        if hdec.ndim == 2:
+            hdec, hrow = None, hdec
+    if obs is not None:
+        obs = flip(obs).to(torch.float32).contiguous()
+    mlp, dts, meta = _evolve_args(ode_layers, ode_steps, tdif, H, reverse,
+                                  "tdif")
+    if dts is not None:
+        dts = dts.to(xs.device)
     hs = FusedGRU.apply(gi, h0.contiguous(), cell.w_hh.contiguous(),
-                        cell.b_hh.contiguous(), hdec)
+                        cell.b_hh.contiguous(), hdec, obs, hrow, mlp, dts,
+                        meta)
     return torch.flip(hs, (0,)) if reverse else hs
 
 
@@ -549,15 +1061,15 @@ def fused_lstm_scan(cell, xs, reverse: bool = False, stream_dtype=None,
     """The LSTM recurrence through the fused kernels from zero (h, c): xs
     [L, B, C] -> hs [L, B, H], the scan over the cell (torch (i, f, g, o)).
     When no gradient will be asked for, the forward kernel runs alone and
-    writes no cell-state stream. As snsde/kernels/fused_rnn.py:972-1058;
-    PLSTM's `sel`, TGLSTM's `tg`, the ODE-LSTM evolve, TLSTM and bf16
-    streams raise NotImplementedError."""
+    writes no cell-state stream. With ode_layers (`nn.Linear`s) and odt
+    [L, B] (ODE-LSTM), h is evolved after each cell by ode_steps Euler
+    substeps of odt / ode_steps of their MLP (c passes through). As
+    snsde/kernels/fused_rnn.py:972-1058; PLSTM's `sel`, TGLSTM's `tg`,
+    TLSTM and bf16 streams raise NotImplementedError."""
     if sel is not None:
         _unported("the PLSTM time gate `sel`", "K7")
     if tg is not None:
         _unported("the TGLSTM gate modifiers `tg`", "K7")
-    if ode_layers is not None or odt is not None:
-        _unported("the ODE-LSTM evolve (`ode_layers`, `odt`)", "K7")
     if tlstm is not None or tel is not None:
         _unported("the TLSTM memory decomposition (`tlstm`, `tel`)", "K7")
     _check_stream_dtype(stream_dtype, "K7")
@@ -566,9 +1078,14 @@ def fused_lstm_scan(cell, xs, reverse: bool = False, stream_dtype=None,
                          f"with H <= {MAX_H}; got {type(cell).__name__}")
     gi = _projection(cell, xs, reverse)
     whh, bhh = cell.w_hh.contiguous(), cell.b_hh.contiguous()
-    if torch.is_grad_enabled() and any(t.requires_grad
-                                       for t in (gi, whh, bhh)):
-        hs = FusedLSTM.apply(gi, whh, bhh)
+    mlp, dts, meta = _evolve_args(ode_layers, ode_steps, odt,
+                                  cell.hidden_size, reverse, "odt")
+    if dts is not None:
+        dts = dts.to(xs.device)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (gi, whh, bhh, mlp)):
+        hs = FusedLSTM.apply(gi, whh, bhh, mlp, dts, meta)
     else:
-        hs, _ = fused_lstm_forward(gi, whh, bhh, save_cs=False)
+        hs = fused_lstm_forward(gi, whh, bhh, False,
+                                _evolve_of(mlp, dts, meta))[0]
     return torch.flip(hs, (0,)) if reverse else hs

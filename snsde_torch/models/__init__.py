@@ -3,11 +3,12 @@ from .neuralcde import (FinalTanh, GRUODEField, NeuralCDE, NeuralCDEStream,
                         SingleHiddenLayer, cde_solve_dispatch)
 from .neuralsde import (NeuralSDE, NeuralSDEForecasting, NeuralSDEStream,
                         ReadoutHead, resolve_dt, solve_dispatch)
-from .rnn import SeqRNN, last_observation_excl
-from .time_rnn import GRUDFull
+from .rnn import GRUD, ODERNN, GRUdt, SeqRNN, last_observation_excl
+from .time_rnn import GRUDFull, ODELSTM
 
 __all__ = ["LatentSDE", "FinalTanh", "GRUODEField", "NeuralCDE",
            "NeuralCDEStream", "SingleHiddenLayer", "cde_solve_dispatch",
            "NeuralSDE", "NeuralSDEForecasting", "NeuralSDEStream",
            "ReadoutHead", "resolve_dt", "solve_dispatch", "SeqRNN",
-           "last_observation_excl", "GRUDFull"]
+           "last_observation_excl", "GRUDFull", "GRUdt", "GRUD", "ODERNN",
+           "ODELSTM"]

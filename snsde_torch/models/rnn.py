@@ -1,31 +1,37 @@
-"""Plain recurrent sequence baselines (counterpart of snsde/models/rnn.py:
-56-68 and 322-442): `SeqRNN`, the stacked RNN/GRU/LSTM (optionally
-bidirectional) of the registry's `rnn`, `gru`, `gru-simple`, `lstm` and
-`bilstm`, and `last_observation_excl`, the forward-fill index GRUD-full's
-fused route precomputes.
+"""Discrete-time baselines (counterpart of snsde/models/rnn.py): the
+observation-gated GRUs `GRUdt`, `GRUD` and `ODERNN` (`:71-320`, the
+registry's `gru-dt`, `gru-d` and `ode-rnn`), `SeqRNN`, the stacked
+RNN/GRU/LSTM (optionally bidirectional) of the registry's `rnn`, `gru`,
+`gru-simple`, `lstm` and `bilstm`, and `last_observation_excl`, the
+forward-fill index that GRUD-full's fused route and the observation GRUs'
+elapsed-time precompute use.
 
 On a CUDA device a GRU or LSTM cell runs its whole recurrence through the
 fused kernels (`kernels/fused_rnn.py`), in both directions and at every
-width up to the kernels' H <= 512; the tanh Elman cell, every CPU tensor
-and `use_fused=False` take the eager loop over the cell. The JAX package's
-gate `_fused_rnn_enabled` (fused only on a TPU and only at H >= 128,
-`snsde/models/rnn.py:31-53`) was measured on a TPU and does not carry over.
-The other models of the JAX module (GRUdt, GRUD, ODERNN, SeqCNN,
-SeqTransformer) are not ported yet (ROADMAP Queue 1 item 19).
+width up to the kernels' H <= 512, and so do the observation GRUs (the
+GRU kernels' obs mode, with GRU-D's decay row or ODE-RNN's evolve); the
+tanh Elman cell, every CPU tensor and `use_fused=False` take the eager
+loop. The JAX package's gate `_fused_rnn_enabled` (fused only on a TPU and
+only at H >= 128, `snsde/models/rnn.py:31-53`) was measured on a TPU and
+does not carry over. SeqCNN and SeqTransformer are not ported yet (ROADMAP
+Queue 1 item 19).
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 from torch import nn
 
-from ..kernels.fused_rnn import (fused_gru_scan, fused_lstm_scan,
+from ..kernels.fused_rnn import (MAX_H, fused_gru_scan, fused_lstm_scan,
                                  supports_fused_gru, supports_fused_lstm)
 from ..nn.layers import GRUCell, LSTMCell, RNNCell, make_linear
+from ..ops.interp import CubicPath
 
-__all__ = ["SeqRNN", "last_observation_excl", "scan_cell"]
+__all__ = ["GRUdt", "GRUD", "ODERNN", "SeqRNN", "last_observation_excl",
+           "scan_cell"]
 
 
 def last_observation_excl(observed: torch.Tensor) -> torch.Tensor:
@@ -37,6 +43,194 @@ def last_observation_excl(observed: torch.Tensor) -> torch.Tensor:
         (L,) + (1,) * (observed.ndim - 1))
     last_incl = torch.cummax(torch.where(observed, idx, -1), dim=0).values
     return torch.cat([torch.full_like(last_incl[:1], -1), last_incl[:-1]])
+
+
+def _values_from_spline(times, coeffs) -> torch.Tensor:
+    """The control spline at every knot -> [B, L, C] (the reference
+    evaluates the interpolant at the knots, other.py:50-51)."""
+    path = CubicPath(coeffs, times)
+    return path.evaluate_grid(path.times_np).movedim(0, 1)
+
+
+class _ObservationGRUBase(nn.Module):
+    """A GRU updated only at observed steps, over the intensity-augmented
+    stream [t ‖ K cumulative intensities ‖ K values] of an odd width
+    `input_channels` (the reference's `_GRU` family, other.py:14-138;
+    snsde/models/rnn.py:81-215). Channel 0 becomes the time since the last
+    knot and the intensities per-step indicators; a step is observed where
+    an indicator exceeds 0.5; the time elapsed since the last observed step
+    is added to the first channel of the GRU's input; between steps the
+    state evolves (`evolve`: the identity here, a decay in GRUD, an ODE in
+    ODERNN). The GRU reads the values only, or the whole stream with
+    use_intensity.
+
+    forward(times [L], coeffs, final_index [B], z0=None, stream=False) ->
+    (linear(h at final_index) or linear(every h) with stream, hs [B, L, H]).
+    """
+
+    def __init__(self, input_channels: int, hidden_channels: int,
+                 output_channels: int, use_intensity: bool = False, *,
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        kw = dict(generator=generator, device=device)
+        K = (input_channels - 1) // 2
+        self.gru = GRUCell(input_channels if use_intensity else K,
+                           hidden_channels, **kw)
+        self.linear = make_linear(hidden_channels, output_channels, **kw)
+        self.input_channels = input_channels
+        self.use_intensity = use_intensity
+
+    def evolve(self, h, time_diff):
+        return h
+
+    def _decay_rows(self, time_diffs):
+        """The time-only decay rows [L, H] of the fused route, or None."""
+        return None
+
+    def _kernels_take(self, X, use_fused: bool) -> bool:
+        """True where the recurrence goes through the fused kernels: CUDA
+        tensors, unless use_fused is False, with the evolve's widths within
+        the kernels' H <= MAX_H (snsde/models/rnn.py:132-135)."""
+        return (use_fused and X.device.type == "cuda"
+                and supports_fused_gru(self.gru)
+                and all(lin.out_features <= MAX_H
+                        for lin in getattr(self, "f_layers", ())))
+
+    def _fused_path(self, X, time_diffs, z0, K):
+        """hs [L, B, H] through the GRU kernels' obs mode (with GRU-D's
+        decay row or ODE-RNN's evolve): the elapsed-time recurrence is
+        data only, so it closes over an exclusive prefix sum and the last
+        observed step (snsde/models/rnn.py:95-143)."""
+        xs = X.movedim(1, 0)                             # [L, B, C]
+        observed = xs[:, :, 1:1 + K].amax(-1) > 0.5      # [L, B]
+        delta = xs[:, :, 0]
+        # the time elapsed before step t since the last observed step
+        pcs = torch.cumsum(delta, 0) - delta
+        last = last_observation_excl(observed)
+        dt_acc = pcs - torch.gather(pcs, 0, last + 1)
+        inp = xs if self.use_intensity else xs[:, :, 1 + K:]
+        inp = torch.cat([inp[:, :, :1] + dt_acc[:, :, None], inp[:, :, 1:]],
+                        dim=-1)
+        ode = {}
+        if isinstance(self, ODERNN):
+            ode = dict(ode_layers=self.f_layers, tdif=time_diffs,
+                       ode_steps=self.ode_steps)
+        return fused_gru_scan(self.gru, inp, h0=z0,
+                              obs=observed.to(xs.dtype),
+                              hdec=self._decay_rows(time_diffs), **ode)
+
+    def forward(self, times, coeffs, final_index=None, *, z0=None,
+                stream: bool = False, use_fused: bool = True):
+        times_np = np.asarray(times, np.float32)
+        X = _values_from_spline(times_np, coeffs)        # [B, L, C]
+        # an odd [t ‖ K intensities ‖ K values] width: a wider coefficient
+        # stream's extra trailing channel is ignored (the registry's
+        # gru-dt/gru-d/ode-rnn contract, as in JAX)
+        X = X[..., :self.input_channels]
+        K = (self.input_channels - 1) // 2
+        tt = torch.as_tensor(times_np, device=X.device)
+        intens = X[:, :, 1:1 + K]
+        intens = torch.cat([intens[:, :1], intens[:, 1:] - intens[:, :-1]],
+                           dim=1)
+        dt_chan = torch.cat([X[:, :1, 0] - tt[0], X[:, 1:, 0] - tt[:-1]],
+                            dim=1)
+        X = torch.cat([dt_chan[..., None], intens, X[..., 1 + K:]], dim=-1)
+        B, H = X.shape[0], self.gru.hidden_size
+        if z0 is None:
+            z0 = X.new_zeros((B, H))
+        time_diffs = torch.cat([tt.new_zeros(1), tt[1:] - tt[:-1]])
+        if self._kernels_take(X, use_fused):
+            out = self._fused_path(X, time_diffs, z0, K).movedim(0, 1)
+        else:
+            out = self._eager(X, time_diffs, z0, K)
+        if stream:
+            final = out
+        else:
+            idx = torch.as_tensor(np.asarray(final_index), device=X.device)
+            final = out[torch.arange(B, device=X.device), idx]
+        return self.linear(final), out
+
+    def _eager(self, X, time_diffs, z0, K):
+        """The step loop (snsde/models/rnn.py:183-215): hs [B, L, H]."""
+        h, dt_acc = z0, X.new_zeros(X.shape[0])
+        hs = []
+        for t in range(X.shape[1]):
+            Xi = X[:, t]
+            h = self.evolve(h, time_diffs[t])
+            observed = Xi[:, 1:1 + K].amax(1) > 0.5
+            inp = Xi if self.use_intensity else Xi[:, 1 + K:]
+            inp = torch.cat([inp[:, :1] + dt_acc[:, None], inp[:, 1:]],
+                            dim=-1)
+            h = torch.where(observed[:, None], self.gru(inp, h), h)
+            dt_acc = torch.where(observed, torch.zeros_like(dt_acc),
+                                 dt_acc + Xi[:, 0])
+            hs.append(h)
+        return torch.stack(hs, dim=1)
+
+
+class GRUdt(_ObservationGRUBase):
+    """GRU on (elapsed time, observed values); no evolution between
+    observations (reference GRU_dt; snsde/models/rnn.py:218-235)."""
+
+
+class GRUD(_ObservationGRUBase):
+    """GRU-D: the state decays by exp(-relu(decay(dt))) over each step's
+    elapsed time dt, a time-only row a step (reference GRU_D,
+    other.py:96-104; snsde/models/rnn.py:238-268). Not `grud`
+    (GRUDFull, time_rnn.py). On the card the rows ride the GRU kernels'
+    decay-row mode; the decay net's gradient comes back through autograd
+    of the rows."""
+
+    def __init__(self, input_channels: int, hidden_channels: int,
+                 output_channels: int, use_intensity: bool = False, *,
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__(input_channels, hidden_channels, output_channels,
+                         use_intensity, generator=generator, device=device)
+        self.decay = make_linear(1, hidden_channels, generator=generator,
+                                 device=device)
+
+    def evolve(self, h, time_diff):
+        rate = torch.relu(self.decay(time_diff.reshape(1)))
+        return h * torch.exp(-rate)
+
+    def _decay_rows(self, time_diffs):
+        return torch.exp(-torch.relu(self.decay(time_diffs[:, None])))
+
+
+class ODERNN(_ObservationGRUBase):
+    """ODE-RNN: between steps the state follows an MLP ODE, `ode_steps`
+    Euler steps over each step's elapsed time (reference other.py:121-138;
+    snsde/models/rnn.py:271-320). The MLP has num_hidden_layers + 1
+    layers, H -> hh -> ... -> H, tanh on the inner ones. On the card the
+    evolve runs inside the GRU kernels (their evolve mode)."""
+
+    def __init__(self, input_channels: int, hidden_channels: int,
+                 output_channels: int,
+                 hidden_hidden_channels: Optional[int] = None,
+                 num_hidden_layers: int = 1, use_intensity: bool = False,
+                 ode_steps: int = 1, *,
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__(input_channels, hidden_channels, output_channels,
+                         use_intensity, generator=generator, device=device)
+        hh = hidden_hidden_channels or hidden_channels
+        widths = ([hidden_channels] + [hh] * num_hidden_layers
+                  + [hidden_channels])
+        self.f_layers = nn.ModuleList(
+            make_linear(i, o, generator=generator, device=device)
+            for i, o in zip(widths[:-1], widths[1:]))
+        self.ode_steps = ode_steps
+
+    def _func(self, h):
+        x = h
+        for lin in self.f_layers[:-1]:
+            x = torch.tanh(lin(x))
+        return self.f_layers[-1](x)
+
+    def evolve(self, h, time_diff):
+        dt = time_diff / self.ode_steps
+        for _ in range(self.ode_steps):
+            h = h + dt * self._func(h)
+        return h
 
 
 def scan_cell(cell, xs: torch.Tensor, reverse: bool = False) -> torch.Tensor:

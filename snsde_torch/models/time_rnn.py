@@ -1,14 +1,18 @@
 """Time-aware recurrent models (counterpart of snsde/models/time_rnn.py):
 `GRUDFull` (`:331-438`), GRU-D with a trainable input decay toward the
-channel means and a hidden decay, the registry's `grud`.
+channel means and a hidden decay, the registry's `grud`; and `ODELSTM`
+(`:442-519`), the registry's `ode-lstm`.
 
 On a CUDA device it runs the fused route of the JAX package (`_fused_path`,
 `:407-438`): the x_last recurrence is a data-only forward fill (closed form
 through `last_observation_excl`), the input decay and imputation and the
 input projection are precomputes, and the per-sample hidden decay rides
-the fused GRU kernel's hdec stream. CPU tensors and `use_fused=False` take
-the eager step loop. TLSTM, PLSTM, TGLSTM and ODELSTM wait, with the LSTM
-kernel modes they need (ROADMAP Queue 1 item 19, Queue 2 K7).
+the fused GRU kernel's hdec stream. ODELSTM with the euler solver runs
+the LSTM kernels' evolve mode on a CUDA device (`:492-507`); heun and rk4
+take the eager loop there too, as in the JAX package. CPU tensors and
+`use_fused=False` take the eager step loop. TLSTM, PLSTM and TGLSTM wait,
+with the LSTM kernel modes they need (ROADMAP Queue 1 item 19, Queue 2
+K7).
 """
 
 from __future__ import annotations
@@ -20,11 +24,12 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..kernels.fused_rnn import fused_gru_scan, supports_fused_gru
-from ..nn.layers import make_linear
+from ..kernels.fused_rnn import (fused_gru_scan, fused_lstm_scan,
+                                 supports_fused_gru, supports_fused_lstm)
+from ..nn.layers import LSTMCell, make_linear
 from .rnn import last_observation_excl
 
-__all__ = ["GRUDFull"]
+__all__ = ["GRUDFull", "ODELSTM"]
 
 
 class GRUDFull(nn.Module):
@@ -101,3 +106,68 @@ class GRUDFull(nn.Module):
         x_hat = ms * xs + (1 - ms) * (gx * x_last + (1 - gx) * self.x_mean)
         inp = torch.cat([x_hat, ms], dim=-1)
         return fused_gru_scan(self, inp, hdec=gh).movedim(0, 1)
+
+
+class ODELSTM(nn.Module):
+    """ODE-LSTM: an LSTM cell at each step, its output state h then evolved
+    by an MLP ODE f = f2(tanh(f1(h))) over the step's elapsed time, in
+    `ode_steps` fixed steps of `solver` (euler, heun or rk4); c passes
+    through (reference module/odelstm.py:13-137, the non-torchdyn branch).
+
+    forward(x [B, L, D], timestamps [B, L] (elapsed times)) -> hs
+    [B, L, H]."""
+
+    def __init__(self, input_size: int, hidden_size: int,
+                 solver: str = "euler", ode_steps: int = 1, *,
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        kw = dict(generator=generator, device=device)
+        self.lstm = LSTMCell(input_size, hidden_size, **kw)
+        self.f1 = make_linear(hidden_size, hidden_size, **kw)
+        self.f2 = make_linear(hidden_size, hidden_size, **kw)
+        self.solver = solver
+        self.ode_steps = ode_steps
+
+    def _f(self, h):
+        return self.f2(torch.tanh(self.f1(h)))
+
+    def _evolve(self, h, dt):
+        dt = dt[:, None] / self.ode_steps
+        for _ in range(self.ode_steps):
+            if self.solver == "euler":
+                h = h + dt * self._f(h)
+            elif self.solver == "heun":
+                k1 = self._f(h)
+                k2 = self._f(h + dt * k1)
+                h = h + 0.5 * dt * (k1 + k2)
+            elif self.solver == "rk4":
+                k1 = self._f(h)
+                k2 = self._f(h + 0.5 * dt * k1)
+                k3 = self._f(h + 0.5 * dt * k2)
+                k4 = self._f(h + dt * k3)
+                h = h + dt / 6.0 * (k1 + 2 * k2 + 2 * k3 + k4)
+            else:
+                raise ValueError(self.solver)
+        return h
+
+    def _kernels_take(self, x, use_fused: bool) -> bool:
+        """True where the recurrence goes through the fused kernels: CUDA
+        tensors with the euler solver, unless use_fused is False."""
+        return (use_fused and x.device.type == "cuda"
+                and self.solver == "euler" and supports_fused_lstm(self.lstm))
+
+    def forward(self, x, timestamps, *, use_fused: bool = True):
+        if self._kernels_take(x, use_fused):
+            hs = fused_lstm_scan(self.lstm, x.movedim(1, 0),
+                                 ode_layers=(self.f1, self.f2),
+                                 odt=timestamps.movedim(1, 0),
+                                 ode_steps=self.ode_steps)
+            return hs.movedim(0, 1)
+        B, L = x.shape[:2]
+        h = c = x.new_zeros((B, self.lstm.hidden_size))
+        hs = []
+        for t in range(L):
+            h, (_, c) = self.lstm(x[:, t], (h, c))
+            h = self._evolve(h, timestamps[:, t])
+            hs.append(h)
+        return torch.stack(hs, dim=1)

@@ -14,8 +14,11 @@ LatentSDE, euler unless told otherwise: the latent mode of the fused EM
 kernels on the card; its layer also returns the KL term), and the
 recurrent baselines `rnn`, `gru`, `lstm`, `bilstm` (SeqRNN over the
 values), `gru-simple` (SeqRNN over values ‖ mask ‖ delta) and `grud`
-(GRUDFull over (values, mask, delta)); every other registry name raises
-NotImplementedError naming its ROADMAP item. The SDE names draw their
+(GRUDFull over (values, mask, delta)), and the ODE-RNN hybrids `gru-dt`,
+`gru-d`, `ode-rnn` (the observation GRUs over the coefficients) and
+`ode-lstm` (ODELSTM over the projected values and the first channel's
+delta); every other registry name raises NotImplementedError naming its
+ROADMAP item. The SDE names draw their
 Brownian paths from the generator the caller passes.
 """
 
@@ -31,8 +34,8 @@ from .fields import DiffusionField
 from .models.latent_sde import LatentSDE
 from .models.neuralcde import FinalTanh, GRUODEField, NeuralCDEStream
 from .models.neuralsde import NeuralSDEStream, resolve_dt
-from .models.rnn import SeqRNN
-from .models.time_rnn import GRUDFull
+from .models.rnn import GRUD, ODERNN, GRUdt, SeqRNN
+from .models.time_rnn import ODELSTM, GRUDFull
 from .nn.layers import make_linear
 from .ops.interp import CubicPath
 from .ops.solve import sdeint
@@ -69,13 +72,14 @@ MODEL_NAMES = _build_model_names()
 _SEQ_RNN = ("rnn", "gru", "lstm", "bilstm", "gru-simple")
 _SCALAR_SDE = ("neuralsde-x", "neuralsde-y", "neuralsde-z")
 _LATENT = ("latentsde", "latentsde-kl")
+_OBS_GRU = ("gru-dt", "gru-d", "ode-rnn")
 PORTED_NAMES = ("neuralcde", "neuralcde-c", "neuralcde-h", "gru-ode",
-                *_SEQ_RNN, "grud", *_SCALAR_SDE, *_LATENT,
+                *_SEQ_RNN, "grud", *_OBS_GRU, "ode-lstm", *_SCALAR_SDE,
+                *_LATENT,
                 *(n for n in MODEL_NAMES if n.startswith("neuralsde_")))
 
 # ROADMAP Queue 1 item of every registry name the port does not build yet
-_RECURRENT = ("tlstm", "plstm", "tglstm", "transformer", "gru-dt", "gru-d",
-              "ode-rnn", "ode-lstm")
+_RECURRENT = ("tlstm", "plstm", "tglstm", "transformer")
 
 
 def _roadmap_item(name: str) -> str:
@@ -140,11 +144,15 @@ class _ScalarNoiseSDE(nn.Module):
 class SeqLayer(nn.Module):
     """The dispatcher. forward(seq [N, 3, L, D], coeffs) -> (out [N, L, H],
     hidden [N, L, H]), and for the LatentSDE names (out, latent [N, L,
-    H-1], its KL term logqp) as the JAX layer's (out, hn, aux)."""
+    H-1], its KL term logqp) as the JAX layer's (out, hn, aux). `in_proj`
+    (ode-lstm's values -> hidden Linear) is the JAX layer's, None for the
+    other names."""
 
-    def __init__(self, inner: nn.Module, model_name: str):
+    def __init__(self, inner: nn.Module, model_name: str,
+                 in_proj: Optional[nn.Module] = None):
         super().__init__()
         self.inner, self.model_name = inner, model_name
+        self.in_proj = in_proj
 
     def forward(self, seq, coeffs, *,
                 generator: Optional[torch.Generator] = None,
@@ -170,6 +178,15 @@ class SeqLayer(nn.Module):
         if name == "grud":
             hn = self.inner(x, mask, delta, use_fused=use_fused)
             return hn, hn
+        if name == "ode-lstm":
+            hn = self.inner(self.in_proj(x), delta[..., 0],
+                            use_fused=use_fused)
+            return hn, hn
+        if name in _OBS_GRU:
+            # stream=True: the readout of every step (the final index is
+            # then unused)
+            return self.inner(times, coeffs, stream=True,
+                              use_fused=use_fused)
         # the CDE names: a NeuralCDEStream over the cubic coefficients
         return self.inner(times, coeffs, use_fused=use_fused)
 
@@ -186,7 +203,12 @@ def make_seq_layer(model_name: str, input_dim: int, seq_len: int,
     rk4); `rnn`/`gru`/`lstm` are SeqRNN of that kind, `bilstm` a
     bidirectional LSTM of hidden // 2 per direction, `gru-simple` a GRU over
     3D channels, each with `num_layers` layers and inter-layer `dropout`
-    (snsde/registry.py:307-320); `grud` is GRUDFull; `neuralsde_{i}_{jj}`
+    (snsde/registry.py:307-320); `grud` is GRUDFull; `gru-dt`, `gru-d` and
+    `ode-rnn` are GRUdt, GRUD and ODERNN(hh, num_hidden_layers) over the
+    largest odd width of the coefficient channels (the JAX registry's rule,
+    snsde/registry.py:369-386); `ode-lstm` is ODELSTM(H, H, solver `method`
+    or euler) behind a Linear in_proj of the values
+    (snsde/registry.py:332-335); `neuralsde_{i}_{jj}`
     is NeuralSDEStream(DiffusionField(coeff_dim, H, hh, num_hidden_layers,
     i, jj), srk unless `method` says otherwise), `neuralsde-x/y/z` the
     scalar-noise SDE and `latentsde`/`latentsde-kl` LatentSDE(coeff_dim, H,
@@ -212,6 +234,22 @@ def make_seq_layer(model_name: str, input_dim: int, seq_len: int,
         inner = SeqRNN(3 * input_dim, hidden_dim, hidden_dim, "gru", **rnn)
     elif model_name == "grud":
         inner = GRUDFull(input_dim, hidden_dim, **kw)
+    elif model_name in _OBS_GRU:
+        # the observation GRUs declare the odd [t ‖ K intensities ‖ K
+        # values] width (the reference asserts it, other.py:18-20): the
+        # largest odd one, the extra channel of an even stream ignored
+        ic = coeff_dim if coeff_dim % 2 == 1 else coeff_dim - 1
+        if model_name == "ode-rnn":
+            inner = ODERNN(ic, hidden_dim, hidden_dim, hh, num_hidden_layers,
+                           **kw)
+        else:
+            inner = (GRUdt if model_name == "gru-dt" else GRUD)(
+                ic, hidden_dim, hidden_dim, **kw)
+    elif model_name == "ode-lstm":
+        inner = ODELSTM(hidden_dim, hidden_dim, solver=method or "euler",
+                        **kw)
+        return SeqLayer(inner, model_name,
+                        in_proj=make_linear(input_dim, hidden_dim, **kw))
     elif model_name in _SCALAR_SDE:
         inner = _ScalarNoiseSDE(coeff_dim, hidden_dim, model_name[-1], **kw)
     elif model_name in _LATENT:

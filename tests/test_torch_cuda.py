@@ -82,6 +82,16 @@ backward is bit-reproducible; the LSTM also as the inference primal. The
 weight-gradient kernel they share runs alone against its plain version.
 The plain-mode pairs are also held against cuDNN (`torch.nn.GRU`/
 `torch.nn.LSTM` with TF32 off) on the same weights.
+
+The ODE-RNN hybrids' instances (the GRU pair's obs, obs + decay row and
+obs + evolve modes, the LSTM pair's evolve; one to three evolve layers,
+one and two substeps) run under every kind of plan, forced
+(`force_rnn_plan`: the host's own, one CTA, clusters of 2, 4 and 8 with
+H = 20 leaving the last CTAs two units and none), on ragged batches, by
+the same rules, each launch counted in its own counter; at H = 256 under
+the plan's cluster of 8; their backwards bit-reproducible; and the four
+hybrids' registry layers through the kernels against their eager loops on
+the card.
 """
 
 import torch_threads  # noqa: F401  (one intra-op thread)
@@ -356,9 +366,10 @@ def _rnn_run(kind, fwd, bwd, inputs, ghs):
         outs = {"hs": hs, **{n: v for n, v in zip(g._fields, g)
                              if v is not None}}
     else:
-        hs, cs = fwd(**inputs)
+        hs, cs, _ = fwd(**inputs)
         g = bwd(hs=hs, cs=cs, ghs=ghs, **inputs)
-        outs = {"hs": hs, "cs": cs, **dict(zip(g._fields, g))}
+        outs = {"hs": hs, "cs": cs, **{n: v for n, v in zip(g._fields, g)
+                                       if v is not None}}
     return outs
 
 
@@ -519,8 +530,8 @@ def test_lstm_forward_without_grad_writes_no_cell_states():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
     inputs, _ = _rnn_inputs("lstm", 32)
-    hs, cs = fr.fused_lstm_forward(**inputs, save_cs=True)
-    hs2, cs2 = fr.fused_lstm_forward(**inputs, save_cs=False)
+    hs, cs, _ = fr.fused_lstm_forward(**inputs, save_cs=True)
+    hs2, cs2, _ = fr.fused_lstm_forward(**inputs, save_cs=False)
     assert cs is not None and cs2 is None
     assert torch.equal(hs, hs2)
     cell = LSTMCell(6, 32, generator=torch.Generator().manual_seed(0)).cuda()
@@ -600,8 +611,8 @@ def test_lstm_inference_primal_at_cluster_widths(H):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
     inputs, _ = _rnn_inputs("lstm", H, B=100)
-    hs, cs = fr.fused_lstm_forward(**inputs, save_cs=True)
-    hs2, cs2 = fr.fused_lstm_forward(**inputs, save_cs=False)
+    hs, cs, _ = fr.fused_lstm_forward(**inputs, save_cs=True)
+    hs2, cs2, _ = fr.fused_lstm_forward(**inputs, save_cs=False)
     assert cs is not None and cs2 is None
     assert torch.equal(hs, hs2)
 
@@ -615,12 +626,12 @@ def test_lstm_backward_is_bit_reproducible(H):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
     inputs, ghs = _rnn_inputs("lstm", H, B=100)
-    hs, cs = fr.fused_lstm_forward(**inputs)
+    hs, cs, _ = fr.fused_lstm_forward(**inputs)
     a = fr.fused_lstm_backward(hs=hs, cs=cs, ghs=ghs, **inputs)
     b = fr.fused_lstm_backward(hs=hs, cs=cs, ghs=ghs, **inputs)
     torch.cuda.synchronize()
     for x, y in zip(a, b):
-        assert torch.equal(x, y)
+        assert (x is None and y is None) or torch.equal(x, y)
 
 
 @pytest.mark.cuda
@@ -1022,7 +1033,7 @@ def test_gru_backward_is_bit_reproducible(H):
     b = fr.fused_gru_backward(hs=hs, ghs=ghs, **inputs)
     torch.cuda.synchronize()
     for x, y in zip(a, b):
-        assert torch.equal(x, y)
+        assert (x is None and y is None) or torch.equal(x, y)
 
 
 @pytest.mark.cuda
@@ -1414,3 +1425,186 @@ def test_latent_weight_grads_kernel_matches_its_plain_version(H, n_inner):
         rel = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
         print(f"latent H={H} weight gradient {name}: rel err {rel:.2e}")
         assert rel < TOL_GRAD, name
+
+
+# ---------------------------------------------------------------------------
+# The ODE-RNN hybrids' instances: the GRU pair's obs (mode 1), obs + decay
+# row (2) and obs + evolve (3), the LSTM pair's evolve
+# ---------------------------------------------------------------------------
+
+# (kind, mode, evolve layers, substeps, hh)
+RNN_MODE_CASES = [("gru", 1, 0, 0, 0), ("gru", 2, 0, 0, 0),
+                  ("gru", 3, 2, 1, 16), ("gru", 3, 3, 2, 7),
+                  ("gru", 3, 1, 2, 0), ("lstm", 1, 2, 1, 20),
+                  ("lstm", 1, 3, 2, 7)]
+# every kind of plan, forced: the host's own, one CTA, clusters of 2, 4
+# and 8 CTAs (H = 20: the last CTAs of 8 hold 2 units and none)
+RNN_FORCED = [(0, 0), (1, 8), (2, 8), (4, 16), (8, 8)]
+
+
+def _rnn_mode_inputs(kind, mode, n, S, hh, H, B, L, obs=True, seed=0):
+    """The pair's inputs (_rnn_inputs) and a mode's: obs [L, B] ~
+    Bernoulli(0.6), the decay row [L, H] ~ U(0.2, 1), the evolve's MLP at
+    the init's scale with step sizes ~ U(0, 0.4) / S ([L] for the GRU,
+    [L, B] for the LSTM)."""
+    inputs, ghs = _rnn_inputs(kind, H, B=B, L=L, seed=seed)
+    rng = np.random.default_rng(seed + 100)
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device="cuda")
+    kw = {}
+    if kind == "gru" and obs:
+        kw["obs"] = t(rng.uniform(size=(L, B)) < 0.6)
+    if mode == 2:
+        kw["hrow"] = t(rng.uniform(0.2, 1.0, size=(L, H)))
+    if n:
+        hh = hh if n > 1 else H
+        parts = []
+        for i, j in fr._mlp_dims(H, hh, n):
+            k = 1.0 / np.sqrt(i)
+            parts += [t(rng.uniform(-k, k, size=i * j)),
+                      t(rng.uniform(-k, k, size=j))]
+        dts = rng.uniform(0.0, 0.4, size=(L,) if kind == "gru" else (L, B))
+        kw["ode"] = fr.Evolve(torch.cat(parts), t(dts / S), n, hh, S)
+    return inputs, kw, ghs
+
+
+def _rnn_mode_run(kind, inputs, kw, ghs, plain=False):
+    sfx = "_reference" if plain else ""
+    fwd = getattr(fr, f"fused_{kind}_forward{sfx}")
+    bwd = getattr(fr, f"fused_{kind}_backward{sfx}")
+    if kind == "gru":
+        hs = fwd(**inputs, **kw)
+        out = {"hs": hs}
+        g = bwd(hs=hs, ghs=ghs, **inputs, **kw)
+    else:
+        hs, cs, hcell = fwd(**inputs, save_cs=True, **kw)
+        out = {"hs": hs, "cs": cs, "hcell": hcell}
+        g = bwd(hs=hs, cs=cs, ghs=ghs, hcell=hcell, **inputs, **kw)
+    out.update({n: v for n, v in zip(g._fields, g) if v is not None})
+    return out
+
+
+def _check_rnn_mode(kind, inputs, kw, ghs):
+    """_check_rnn's rules for a mode: every output (the decay row's and
+    the evolve's cotangents included) against the float32 plain version
+    and a float64 run of it."""
+    k = _rnn_mode_run(kind, inputs, kw, ghs)
+    p = _rnn_mode_run(kind, inputs, kw, ghs, plain=True)
+    kw64 = {n: (v._replace(mlp=v.mlp.double(), dts=v.dts.double())
+                if n == "ode" else v.double()) for n, v in kw.items()}
+    r64 = _rnn_mode_run(kind, {n: v.double() for n, v in inputs.items()},
+                        kw64, ghs.double(), plain=True)
+    torch.cuda.synchronize()
+    assert set(k) == set(p)
+    for name in k:
+        (k_max, k_rms), (p_max, p_rms) = (_errs(k[name], r64[name]),
+                                          _errs(p[name], r64[name]))
+        print(f"{kind} {name}: error from float64 over max (largest, rms): "
+              f"kernel {k_max:.2e} {k_rms:.2e}, float32 plain {p_max:.2e} "
+              f"{p_rms:.2e}")
+        assert k_rms <= F64_FACTOR * p_rms + F64_FLOOR, name
+        rel = float((k[name] - p[name]).abs().max()) / max(
+            float(p[name].abs().max()), 1e-30)
+        tol = TOL_YS if name in ("hs", "cs", "hcell") else TOL_GRAD
+        assert rel < tol, f"{kind} {name}: rel err {rel:.2e}"
+    return k
+
+
+@pytest.fixture
+def forced_rnn_plan():
+    """force_rnn_plan for the test, the host's own plan restored after (on
+    a machine with the card: the library needs it)."""
+    yield fr.force_rnn_plan
+    if torch.cuda.is_available():
+        fr.force_rnn_plan(0, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plan", RNN_FORCED)
+@pytest.mark.parametrize("H,B", [(16, 13), (20, 37)])
+@pytest.mark.parametrize("kind,mode,n,S,hh", RNN_MODE_CASES)
+def test_rnn_mode_kernels_match_plain_versions(kind, mode, n, S, hh, H, B,
+                                               plan, forced_rnn_plan):
+    """Each hybrid instance against its plain version under every kind of
+    plan, forced, on ragged batches, with the launch counted in its own
+    counter."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    forced_rnn_plan(*plan)
+    inputs, kw, ghs = _rnn_mode_inputs(kind, mode, n, S, hh, H, B, L=9)
+    name = {("gru", 1): "GRU_OBS", ("gru", 2): "GRU_DEC1",
+            ("gru", 3): "GRU_ODE", ("lstm", 1): "LSTM_ODE"}[kind, mode]
+    before = (getattr(fr, f"{name}_FWD_LAUNCHES"),
+              getattr(fr, f"{name}_BWD_LAUNCHES"))
+    _check_rnn_mode(kind, inputs, kw, ghs)
+    assert (getattr(fr, f"{name}_FWD_LAUNCHES"),
+            getattr(fr, f"{name}_BWD_LAUNCHES")) == (before[0] + 1,
+                                                      before[1] + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,mode,n,S,hh", [("gru", 2, 0, 0, 0),
+                                              ("gru", 3, 2, 1, 256),
+                                              ("lstm", 1, 2, 1, 256)])
+def test_rnn_mode_kernels_at_cluster_width(kind, mode, n, S, hh):
+    """At H = 256, where the plan splits W_hh over a cluster of 8 and
+    every CTA runs the evolve on its full copy of the state."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    inputs, kw, ghs = _rnn_mode_inputs(kind, mode, n, S, hh, 256, 40, L=6)
+    plan = (fr.fused_gru_plan(256, 40, True, mode, kw.get("ode"))
+            if kind == "gru" else fr.fused_lstm_plan(256, 40, True,
+                                                     kw["ode"]))
+    print(f"{kind} mode {mode} H=256 backward plan {plan}")
+    assert plan["cluster"] == 8 and plan["active_clusters"] >= 1
+    _check_rnn_mode(kind, inputs, kw, ghs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,mode,n,S,hh", [("gru", 2, 0, 0, 0),
+                                              ("gru", 3, 2, 2, 16),
+                                              ("lstm", 1, 2, 2, 16)])
+@pytest.mark.parametrize("plan", [(0, 0), (4, 8)])
+def test_rnn_mode_backward_is_bit_reproducible(kind, mode, n, S, hh, plan,
+                                               forced_rnn_plan):
+    """Two backward calls on the same inputs give bitwise-equal outputs:
+    the decay row's partials and the evolve's split partials summed in a
+    fixed order, no atomics."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    forced_rnn_plan(*plan)
+    inputs, kw, ghs = _rnn_mode_inputs(kind, mode, n, S, hh, 20, 100, L=7)
+    a = _rnn_mode_run(kind, inputs, kw, ghs)
+    b = _rnn_mode_run(kind, inputs, kw, ghs)
+    torch.cuda.synchronize()
+    for name in a:
+        assert torch.equal(a[name], b[name]), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["gru-dt", "gru-d", "ode-rnn", "ode-lstm"])
+def test_hybrid_layers_on_the_card_match_their_eager_loops(name):
+    """Each hybrid's registry layer on the card through the kernels against
+    its eager loop on the card: the stream and every gradient."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    from snsde_torch.data import synthetic_uea
+    from snsde_torch.harness.robustness import coeff_family, preprocess_ists
+    from snsde_torch.registry import make_seq_layer
+
+    X, _, _ = synthetic_uea(n=24, length=15, channels=4, num_classes=2,
+                            seed=1)
+    data = preprocess_ists(X, 0.3, interpolation=coeff_family(name), seed=1)
+    seq = torch.as_tensor(data["seq"], device="cuda")
+    coeffs = torch.as_tensor(data["coeffs"], device="cuda")
+    layer = make_seq_layer(name, 4, 15, 16, num_hidden_layers=2,
+                           generator=torch.Generator().manual_seed(0)).cuda()
+    outs = []
+    for fused in (True, False):
+        layer.zero_grad()
+        out, hn = layer(seq, coeffs, use_fused=fused)
+        ((out ** 2).sum() + (hn ** 2).sum()).backward()
+        outs.append([hn.detach()] + [p.grad.clone()
+                                     for p in layer.parameters()])
+    for a, b in zip(*outs):
+        rel = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+        assert rel < TOL_GRAD, rel

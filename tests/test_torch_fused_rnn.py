@@ -156,15 +156,19 @@ def test_gru_backward_reference_is_autograd_of_forward(dec):
 def test_lstm_backward_reference_is_autograd_of_forward():
     inp, ghs = _inputs("lstm", 7, seed=3)
     leaves = {n: v.requires_grad_(True) for n, v in _f64(inp).items()}
-    hs, cs = fr.fused_lstm_forward_reference(**leaves)
+    hs, cs, hcell = fr.fused_lstm_forward_reference(**leaves)
+    assert hcell is None
     g = torch.as_tensor(ghs, dtype=torch.float64)
     hs.backward(g)
     ours = fr.fused_lstm_backward_reference(hs=hs.detach(), cs=cs.detach(),
                                             ghs=g, **_f64(inp))
     for name in fr.FusedLSTMGrads._fields:
-        torch.testing.assert_close(getattr(ours, name),
-                                   leaves[name[1:]].grad, rtol=1e-12,
-                                   atol=1e-12)
+        leaf = leaves.get(name[1:])
+        if leaf is None:
+            assert getattr(ours, name) is None
+            continue
+        torch.testing.assert_close(getattr(ours, name), leaf.grad,
+                                   rtol=1e-12, atol=1e-12)
 
 
 def _in_loop_weight_grads(hs, dgi):
@@ -199,7 +203,7 @@ def test_lstm_weight_grads_reference_equals_in_loop_accumulation(L, reverse,
     if reverse:
         t["gi"] = torch.flip(t["gi"], (0,))
     g = torch.as_tensor(np.random.default_rng(6).normal(size=(L, batch, H)))
-    hs, cs = fr.fused_lstm_forward_reference(**t)
+    hs, cs, _ = fr.fused_lstm_forward_reference(**t)
     grads = fr.fused_lstm_backward_reference(hs=hs, cs=cs, ghs=g, **t)
     dwhh, dbhh = _in_loop_weight_grads(hs, grads.dgi)
     torch.testing.assert_close(grads.dwhh, dwhh, rtol=1e-12, atol=1e-12)
@@ -207,7 +211,7 @@ def test_lstm_weight_grads_reference_equals_in_loop_accumulation(L, reverse,
     k = fr.fused_lstm_weight_grads(hs, grads.dgi)
     assert torch.equal(k[0], grads.dwhh) and torch.equal(k[1], grads.dbhh)
     assert torch.equal(
-        fr.fused_lstm_backward_recurrence(hs=hs, cs=cs, ghs=g, **t),
+        fr.fused_lstm_backward_recurrence(hs=hs, cs=cs, ghs=g, **t).dgi,
         grads.dgi)
 
 
@@ -234,8 +238,7 @@ def test_gru_weight_grads_reference_matches_jax_kernel(dec, reverse):
     _, g_j = _jax_side("gru", inp, ghs, reverse)
     t, g = _kernel_streams(inp, ghs, reverse)
     hs = fr.fused_gru_forward_reference(**t)
-    dgi, dgh, dh0, dhdec = fr.fused_gru_backward_recurrence(hs=hs, ghs=g,
-                                                            **t)
+    dgh = fr.fused_gru_backward_recurrence(hs=hs, ghs=g, **t).dgh
     k = fr.fused_gru_weight_grads(t["h0"], hs, dgh, t.get("hdec"))
     ref = fr.fused_gru_weight_grads_reference(t["h0"], hs, dgh,
                                               t.get("hdec"))
@@ -283,7 +286,7 @@ def test_gru_weight_grads_reference_equals_in_loop_accumulation(L, dec,
         t["hdec"] = torch.as_tensor(rng.uniform(0.2, 1.0, size=(L, batch, H)))
     g = f(L, batch, H)
     hs = fr.fused_gru_forward_reference(**t)
-    _, dgh, _, _ = fr.fused_gru_backward_recurrence(hs=hs, ghs=g, **t)
+    dgh = fr.fused_gru_backward_recurrence(hs=hs, ghs=g, **t).dgh
     dwhh, dbhh = _gru_in_loop_weight_grads(t["h0"], hs, dgh, t.get("hdec"))
     grads = fr.fused_gru_backward_reference(hs=hs, ghs=g, **t)
     torch.testing.assert_close(grads.dwhh, dwhh, rtol=1e-12, atol=1e-12)
@@ -297,9 +300,9 @@ def test_lstm_inference_primal_skips_the_cell_states(monkeypatch):
     calls = []
     real = fr.fused_lstm_forward
 
-    def spy(gi, whh, bhh, save_cs=True):
+    def spy(gi, whh, bhh, save_cs=True, ode=None):
         calls.append(save_cs)
-        return real(gi, whh, bhh, save_cs)
+        return real(gi, whh, bhh, save_cs, ode)
 
     monkeypatch.setattr(fr, "fused_lstm_forward", spy)
     cell = LSTMCell(C, H, generator=torch.Generator().manual_seed(0))
@@ -312,8 +315,8 @@ def test_lstm_inference_primal_skips_the_cell_states(monkeypatch):
     c = fr.fused_lstm_scan(cell, xs)
     assert calls == [False, True, False]
     assert torch.equal(a, b.detach()) and torch.equal(a, c)
-    hs, cs = real(xs @ cell.w_ih.detach() + cell.b_ih.detach(),
-                  cell.w_hh.detach(), cell.b_hh.detach(), save_cs=False)
+    hs, cs, _ = real(xs @ cell.w_ih.detach() + cell.b_ih.detach(),
+                     cell.w_hh.detach(), cell.b_hh.detach(), save_cs=False)
     assert cs is None and torch.equal(hs, a)
 
 
@@ -330,10 +333,7 @@ def test_supports_fused_is_the_cell_layout_and_width():
     assert not fr.supports_fused_gru(SimpleNamespace(w_hh=gru.w_hh))
 
 
-@pytest.mark.parametrize("kw", [
-    {"obs": torch.ones(4, B)}, {"hdec": torch.ones(4, H)},
-    {"ode_layers": (), "tdif": torch.ones(4)},
-    {"stream_dtype": torch.bfloat16}])
+@pytest.mark.parametrize("kw", [{"stream_dtype": torch.bfloat16}])
 def test_unported_gru_modes_raise(kw):
     cell = GRUCell(C, H, generator=torch.Generator().manual_seed(0))
     with pytest.raises(NotImplementedError, match="K6"):
@@ -342,7 +342,6 @@ def test_unported_gru_modes_raise(kw):
 
 @pytest.mark.parametrize("kw", [
     {"sel": torch.ones(4, B, H)}, {"tg": torch.ones(4, B, 3 * H)},
-    {"ode_layers": (), "odt": torch.ones(4, B)},
     {"tlstm": object(), "tel": torch.ones(4, B)},
     {"stream_dtype": torch.bfloat16}])
 def test_unported_lstm_modes_raise(kw):
@@ -404,7 +403,7 @@ def test_wrappers_raise_on_a_device_without_the_kernels(tmp_path,
     monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path))
     monkeypatch.setattr(_build.shutil, "which", lambda name: None)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
-    lib = SolverLib("fused_gru", "fused GRU", 6, 11,
+    lib = SolverLib("fused_gru", "fused GRU", 10, 19,
                     int_names=fr._GRU.int_names,
                     shape_names=fr._GRU.shape_names, source="fused_rnn")
     with pytest.raises(RuntimeError, match="nvcc not found"):
