@@ -12,7 +12,10 @@ LSTM kernels); since the seed ensembles their packed runs, and since the
 speech and latent slice Speech Commands (the EM kernels at L=161) and the
 sweep's `latentsde`/`latentsde-kl` (the EM kernels' latent instances),
 phase 7; since the ODE-RNN hybrids the sweep's `gru-dt`, `gru-d`,
-`ode-rnn` and `ode-lstm` (the GRU and LSTM kernels' modes), phase 8.
+`ode-rnn` and `ode-lstm` (the GRU and LSTM kernels' modes), phase 8; since
+the time-aware LSTMs the sweep's `tlstm`, `plstm` and `tglstm` (the LSTM
+kernels' sel, tg and TLSTM modes) and `cnn` and `transformer` (no kernel),
+phase 9.
 Phases, each of which raises on failure:
   1. card: name, and name and power limit from nvidia-smi;
   2. build: nvcc builds every kernel of the four paths from
@@ -157,10 +160,25 @@ Phases, each of which raises on failure:
      ode-rnn and ode-lstm in phase 4's recurrent runs, each of which must
      launch its own instances (RNN_PAIRS) and the weight-gradient kernels
      once a backward; and the instances' times and bounds at both shapes
-     (rnn_modes_times).
+     (rnn_modes_times);
+  9. the time-aware LSTMs, in phases 3-5's places: each instance of the
+     LSTM pair's sel, tg and TLSTM modes (RNN_MODES) against its plain
+     version by compare_rnn's rules at the sweep's shape, at the plan's
+     boundaries (H=96, 200, 256; B=128, L=24), at H=512 with B=16 (the
+     slices in device memory) and at a ragged B=100, each plan printed,
+     TLSTM's W_d gradient among the cotangents; the sweep cell with tlstm,
+     plstm and tglstm, one model a run, each of which must launch its own
+     instances (RNN_PAIRS), the weight-gradient kernels once a backward
+     (TLSTM's W_d gradient too) and no eager step of its cells, and whose
+     trained layers through the kernels must match their eager loops; the
+     sweep cell with cnn and transformer (no kernel: none may launch);
+     the instances' times and bounds at the sweep's shape and at H=256,
+     and one tlstm training step at the sweep cell through the kernels and
+     through the eager loop with its profiler window.
 It prints one JSON line of the kernels (each SDE kernel with the `modes`
-it takes; the packed launches and the hybrids' instances as their own
-entries, the latter with their H=256 times), the card's name and
+it takes; the packed launches, the hybrids' and the time-aware LSTMs'
+instances and TLSTM's W_d gradient as their own entries, the recurrent
+modes with their H=256 times), the card's name and
 power limit, and last `{"ok": true, "device": {...}}`. It exits non-zero,
 printing no result, without a CUDA device or outside the repository.
 
@@ -231,11 +249,28 @@ RNN_PAIRS = {"gru": ("gru", "gru_wgrad"), "grud": ("gru", "gru_wgrad"),
              "gru-dt": ("gru_obs", "gru_wgrad"),
              "gru-d": ("gru_dec1", "gru_wgrad"),
              "ode-rnn": ("gru_ode", "gru_wgrad", "mlp_wgrad"),
-             "ode-lstm": ("lstm_ode", "lstm_wgrad", "mlp_wgrad")}
-# the hybrids' kernel instances: (pair, mode, JSON name suffix); mode as
-# fused_rnn's (GRU 1 obs, 2 the decay row, 3 the evolve; LSTM 1 the evolve)
+             "ode-lstm": ("lstm_ode", "lstm_wgrad", "mlp_wgrad"),
+             "tlstm": ("lstm_tlstm", "lstm_wgrad", "lstm_wd_wgrad"),
+             "plstm": ("lstm_sel", "lstm_wgrad"),
+             "tglstm": ("lstm_tg", "lstm_wgrad")}
+# phase 9's names on the sweep cell: the time-aware LSTMs (the LSTM pair's
+# sel, tg and TLSTM modes), and the convolution and attention baselines,
+# which run no kernel
+TIME_MODELS = ("tlstm", "plstm", "tglstm")
+BASELINE_MODELS = ("cnn", "transformer")
+# the hybrids' and the time-aware LSTMs' kernel instances: (pair, mode,
+# JSON name suffix); mode as fused_rnn's (GRU 1 obs, 2 the decay row, 3
+# the evolve; LSTM 1 the evolve, 2 sel, 3 tg, 4 TLSTM)
 RNN_MODES = (("gru", 1, "obs"), ("gru", 2, "dec1"), ("gru", 3, "ode"),
-             ("lstm", 1, "ode"))
+             ("lstm", 1, "ode"), ("lstm", 2, "sel"), ("lstm", 3, "tg"),
+             ("lstm", 4, "tlstm"))
+TIME_MODES = ("sel", "tg", "tlstm")
+# the time-aware modes' further shapes (B, L, H): the LSTM plan's
+# boundaries (one CTA at H=96, a cluster of 4 at 200; 8 at 256 is
+# RNN_MODE_WIDE's), the slices in device memory (H=512, B=16) and a
+# ragged batch
+TIME_MODE_SHAPES = ((128, 24, 96), (128, 24, 200), (16, 20, 512),
+                    (100, 30, 32))
 # their shapes beside the sweep's: a width whose plan splits W_hh over a
 # cluster of 8 (the evolve run by every CTA of it), at a cut batch and
 # length
@@ -985,9 +1020,11 @@ def _counters():
             for key in ("gru", "lstm") for part in ("fwd", "bwd", "wgrad")]
     out += [(f"{key}_{part}", fused_rnn,
              f"{key.upper()}_{part.upper()}_LAUNCHES")
-            for key in ("gru_obs", "gru_dec1", "gru_ode", "lstm_ode")
+            for key in ("gru_obs", "gru_dec1", "gru_ode", "lstm_ode",
+                        "lstm_sel", "lstm_tg", "lstm_tlstm")
             for part in ("fwd", "bwd")]
-    return out + [("mlp_wgrad", fused_rnn, "MLP_WGRAD_LAUNCHES")]
+    return out + [("mlp_wgrad", fused_rnn, "MLP_WGRAD_LAUNCHES"),
+                  ("lstm_wd_wgrad", fused_rnn, "LSTM_WD_WGRAD_LAUNCHES")]
 
 
 def zero_counts():
@@ -1608,31 +1645,60 @@ def compare_rnn_cudnn(kind, B, L, C, H):
                                  f"{name}")
 
 
-def rnn_sweep_path(out_dir):
-    """The robustness sweep's recurrent baselines and ODE-RNN hybrids on
-    the sweep cell, one model a run, the counts set to 0 just before each
-    run and read just after; returns the launch counts summed over the
-    runs of each pair's names ({'gru': counts, 'lstm': counts})."""
+class EagerSteps:
+    """Counts the eager steps of the time-aware LSTM cells while active:
+    a run through the kernels takes none."""
+
+    def __enter__(self):
+        from snsde_torch.models import time_rnn
+
+        self.n, self.real = 0, {}
+        for cls in (time_rnn.TLSTMCell, time_rnn.PLSTMCell,
+                    time_rnn.TGLSTMCell):
+            real = self.real[cls] = cls.forward
+
+            def counted(cell, *a, real=real, **k):
+                self.n += 1
+                return real(cell, *a, **k)
+            cls.forward = counted
+        return self
+
+    def __exit__(self, *exc):
+        for cls, real in self.real.items():
+            cls.forward = real
+
+
+def rnn_sweep_path(out_dir, names=RNN_MODELS):
+    """The robustness sweep's recurrent baselines and ODE-RNN hybrids (or
+    `names`: phase 9's time-aware LSTMs) on the sweep cell, one model a
+    run, the counts set to 0 just before each run and read just after; no
+    eager step of a time-aware cell may run; returns the launch counts
+    summed over the runs of each pair's names ({'gru': counts, 'lstm':
+    counts})."""
     from snsde_torch.harness.robustness import (SweepConfig, coeff_family,
                                                 preprocess_ists,
                                                 run_robustness_sweep)
 
     X, _, _ = uea_b_noisy()
     total = {"gru": {}, "lstm": {}}
-    for name in RNN_MODELS:
+    for name in names:
         cfg = SweepConfig(models=(name,), missing_rates=(0.3,), seeds=(0,),
                           hidden_dim=SWEEP["H"], batch_size=SWEEP["B"],
                           max_epochs=2, out_dir=out_dir)
         trained = {}
         zero_counts()
         t0 = time.perf_counter()
-        recs = run_robustness_sweep(cfg, n=SWEEP["n"], data_fn=uea_b_noisy,
-                                    dataset_name="uea_b_noisy",
-                                    verbose=False, device=DEV,
-                                    models=trained)
+        with EagerSteps() as eager:
+            recs = run_robustness_sweep(cfg, n=SWEEP["n"],
+                                        data_fn=uea_b_noisy,
+                                        dataset_name="uea_b_noisy",
+                                        verbose=False, device=DEV,
+                                        models=trained)
         torch.cuda.synchronize()
         launches = read_counts()
         wall = time.perf_counter() - t0
+        if eager.n:
+            raise AssertionError(f"{name} took {eager.n} eager cell steps")
         pair, *grads = RNN_PAIRS[name]
         print(f"main path 4 ({name}): run_robustness_sweep 2 epochs in "
               f"{wall:.1f} s, records {recs}, launches {launches}",
@@ -1679,6 +1745,9 @@ def check_trained_rnn(name, model, data):
         elif name in ("gru-dt", "gru-d", "ode-rnn"):
             z_f, z_e = (inner(times, coeffs, stream=True, use_fused=f)[1]
                         for f in (True, False))
+        elif name in TIME_MODELS:
+            z_f, z_e = (layer(seq, coeffs, use_fused=f)[1]
+                        for f in (True, False))
         else:
             z_f, z_e = (inner(x, use_fused=f)[1] for f in (True, False))
     rel = float((z_f - z_e).abs().max()) / max(float(z_e.abs().max()), 1e-30)
@@ -1689,6 +1758,34 @@ def check_trained_rnn(name, model, data):
         raise AssertionError(f"trained {name} model's kernels disagree")
 
 
+def baseline_sweep_path(out_dir):
+    """The sweep cell with the convolution and attention baselines, one
+    model a run: each must write a record with a finite accuracy and no
+    error, and launch no kernel of the port (neither has one)."""
+    from snsde_torch.harness.robustness import (SweepConfig,
+                                                run_robustness_sweep)
+
+    for name in BASELINE_MODELS:
+        cfg = SweepConfig(models=(name,), missing_rates=(0.3,), seeds=(0,),
+                          hidden_dim=SWEEP["H"], batch_size=SWEEP["B"],
+                          max_epochs=2, out_dir=out_dir)
+        zero_counts()
+        t0 = time.perf_counter()
+        recs = run_robustness_sweep(cfg, n=SWEEP["n"], data_fn=uea_b_noisy,
+                                    dataset_name="uea_b_noisy",
+                                    verbose=False, device=DEV)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        print(f"main path 9 ({name}): run_robustness_sweep 2 epochs in "
+              f"{time.perf_counter() - t0:.1f} s, records {recs}",
+              flush=True)
+        if not recs or any("error" in r or "accuracy" not in r
+                           or not np.isfinite(r["accuracy"]) for r in recs):
+            raise AssertionError(f"the sweep wrote a failed record: {recs}")
+        if any(launches.values()):
+            raise AssertionError(f"{name} launched kernels: {launches}")
+
+
 def rnn_mode_inputs(kind, mode, B, L, H, n=2, S=1, seed=0):
     """A random cell of the sweep's shape (the embedded stream of width H
     in, the port's init) on a random sequence, and a mode's detached
@@ -1696,8 +1793,11 @@ def rnn_mode_inputs(kind, mode, B, L, H, n=2, S=1, seed=0):
     GRU's h0 ~ N(0, 1/4)), the mask obs [L, B] ~ Bernoulli(0.5) (the
     GRU's), the decay row hrow [L, H] ~ U(0.2, 1), the evolve's MLP (n
     layers of the init's scale, hh = H) with the knots' spacing 1/(L-1)
-    (GRU) or elapsed times ~ U(0, 2) per row (LSTM) over S substeps; and
-    the cotangent ghs of a batch-mean loss. (inputs, mode kwargs, ghs)."""
+    (GRU) or elapsed times ~ U(0, 2) per row (LSTM) over S substeps; the
+    LSTM's openness sel [L, B, H] ~ U(0, 1), modifiers tg [L, B, 3H]
+    sigmoids of N(0, 1), TLSTM's W_d and b_d of the init's scale with
+    elapsed times tel [L, B] ~ U(0, 2); and the cotangent ghs of a
+    batch-mean loss. (inputs, mode kwargs, ghs)."""
     from snsde_torch.kernels import fused_rnn as fr
     from snsde_torch.nn.layers import make_linear
 
@@ -1717,6 +1817,15 @@ def rnn_mode_inputs(kind, mode, B, L, H, n=2, S=1, seed=0):
         dts = (t(np.full(L, 1.0 / (L - 1))) if kind == "gru"
                else t(rng.uniform(0.0, 2.0, size=(L, B))))
         kw["ode"] = fr.Evolve(mlp, (dts / S).contiguous(), n, H, S)
+    if (kind, mode) == ("lstm", 2):
+        kw["sel"] = t(rng.uniform(size=(L, B, H)))
+    if (kind, mode) == ("lstm", 3):
+        kw["tg"] = t(1.0 / (1.0 + np.exp(-rng.normal(size=(L, B, 3 * H)))))
+    if (kind, mode) == ("lstm", 4):
+        k = 1.0 / np.sqrt(H)
+        kw["dec"] = fr.Decomp(t(rng.uniform(-k, k, size=(H, H))),
+                              t(rng.uniform(-k, k, size=H)),
+                              t(rng.uniform(0.0, 2.0, size=(L, B))))
     return inp, kw, ghs
 
 
@@ -1737,13 +1846,16 @@ def rnn_mode_run(kind, inp, kw, ghs, plain=False):
         hs, cs, hcell = fwd(**inp, save_cs=True, **kw)
         out = {"hs": hs, "cs": cs, "hcell": hcell}
         g = bwd(hs=hs, cs=cs, ghs=ghs, hcell=hcell, **inp, **kw)
-    out.update({n: v for n, v in zip(g._fields, g) if v is not None})
-    return out
+    out.update(zip(g._fields, g))
+    return {n: v for n, v in out.items() if v is not None}
 
 
 def _dbl_mode(kw):
+    from snsde_torch.kernels.fused_rnn import Decomp
+
     return {n: (v._replace(mlp=v.mlp.double(), dts=v.dts.double())
-                if n == "ode" else v.double()) for n, v in kw.items()}
+                if n == "ode" else Decomp(*(x.double() for x in v))
+                if n == "dec" else v.double()) for n, v in kw.items()}
 
 
 def compare_rnn_mode(kind, mode, B, L, H, n=2, S=1):
@@ -1753,7 +1865,7 @@ def compare_rnn_mode(kind, mode, B, L, H, n=2, S=1):
     weight gradient dmlp and the decay row's dhrow included, within
     TOL_GRAD, and the float64 rms rule), with the plan it ran printed.
     Returns the largest abs errors of the forward's and the backward's
-    outputs."""
+    outputs and of TLSTM's W_d gradient (0 without it)."""
     from snsde_torch.kernels import fused_rnn as fr
 
     inp, kw, ghs = rnn_mode_inputs(kind, mode, B, L, H, n, S)
@@ -1763,13 +1875,21 @@ def compare_rnn_mode(kind, mode, B, L, H, n=2, S=1):
                      _dbl_mode(kw), ghs.double(), plain=True)
     torch.cuda.synchronize()
     ode = kw.get("ode")
-    plan = (fr.fused_gru_plan(H, B, True, mode, ode) if kind == "gru"
-            else fr.fused_lstm_plan(H, B, True, ode))
-    print(f"  {kind.upper()} mode {mode} B={B} L={L} H={H}"
-          f"{f' n={n} S={S}' if ode else ''}: backward plan CS="
-          f"{plan['cluster']}, {plan['rows']} rows, {plan['smem_bytes']} "
-          f"shared bytes")
-    err = {"fwd": 0.0, "bwd": 0.0}
+    for backward in (False, True):
+        plan = (fr.fused_gru_plan(H, B, backward, mode, ode)
+                if kind == "gru" else
+                fr.fused_lstm_plan(H, B, backward, ode, mode))
+        print(f"  {kind.upper()} mode {mode} B={B} L={L} H={H}"
+              f"{f' n={n} S={S}' if ode else ''}: "
+              f"{'backward' if backward else 'forward'} plan CS="
+              f"{plan['cluster']}, {plan['rows']} rows, W_hh slices in "
+              f"{'shared' if plan['w_smem'] else 'device'} memory, "
+              f"{plan['smem_bytes']} shared bytes, "
+              f"cudaOccupancyMaxActiveClusters {plan['active_clusters']}")
+        if plan["active_clusters"] < 1:
+            raise AssertionError(f"{kind} mode {mode} plan at B={B} H={H} "
+                                 f"cannot be scheduled: {plan}")
+    err = {"fwd": 0.0, "bwd": 0.0, "wd": 0.0}
     for name in k:
         e = float((k[name] - p[name]).abs().max())
         rel = e / max(float(p[name].abs().max()), 1e-30)
@@ -1787,16 +1907,18 @@ def compare_rnn_mode(kind, mode, B, L, H, n=2, S=1):
             raise AssertionError(f"{kind} mode {mode} {name}: kernel "
                                  f"further from float64 than the plain "
                                  f"version allows")
-        part = "fwd" if fwd else "bwd"
+        part = "fwd" if fwd else "wd" if name in ("dwd", "dbd") else "bwd"
         err[part] = max(err[part], e)
-    return err["fwd"], err["bwd"]
+    return err["fwd"], max(err["bwd"], err["wd"]), err["wd"]
 
 
 def compare_rnn_modes():
-    """Every hybrid instance against its plain version at the sweep's shape
-    and at H=256 (a cluster of 8 CTAs, each running the evolve on its full
-    copy), the evolve also with three layers and two substeps. Returns
-    {'<pair>_<suffix>': (fwd err, bwd err)}."""
+    """Every hybrid and time-aware instance against its plain version at
+    the sweep's shape and at H=256 (a cluster of 8 CTAs, each running the
+    evolve on its full copy; TLSTM's keeping every unit of c), the evolve
+    also with three layers and two substeps, the time-aware modes also at
+    TIME_MODE_SHAPES. Returns {'<pair>_<suffix>': (fwd err, bwd err, W_d
+    gradient err)}."""
     rs, wide = RNN_SWEEP, RNN_MODE_WIDE
     out = {}
     for kind, mode, sfx in RNN_MODES:
@@ -1806,8 +1928,11 @@ def compare_rnn_modes():
         if sfx == "ode":
             errs.append(compare_rnn_mode(kind, mode, rs["B"], rs["L"],
                                          rs["H"], n=3, S=2))
+        if sfx in TIME_MODES:
+            errs += [compare_rnn_mode(kind, mode, B, L, H)
+                     for B, L, H in TIME_MODE_SHAPES]
         out[f"{kind}_{sfx}"] = tuple(max(e[i] for e in errs)
-                                     for i in range(2))
+                                     for i in range(3))
     return out
 
 
@@ -1827,10 +1952,15 @@ def rnn_mode_kernel_times(kind, mode, B, L, H):
     Operations: the cell's products (2 L B G H^2 forward, 3x backward with
     W_hh's weight product) and the evolve's (2 L S B per layer in x out
     forward; the backward recomputes the substeps and runs the back
-    product: 2x; its weight gradient 2 K in x out, K = L S B). No PyTorch
-    call computes a masked or evolved GRU/LSTM: no library time for the
-    pair; the evolve's weight gradient has torch.matmul of each layer's
-    product (its bias sums left out)."""
+    product: 2x; its weight gradient 2 K in x out, K = L S B); TLSTM's
+    c W_d (2 L B H^2 forward; recomputed and run back in the backward: 2x;
+    its weight gradient, the "wdgrad" entry timed alone, 2 (L - 1) B H^2).
+    The mode's streams (sel, tg, tel) and W_d, b_d are inputs; dsel and
+    dtg written gradients; TLSTM's dW_d and the evolve's layers' gradients
+    are their weight-gradient kernels'. No PyTorch call computes a masked,
+    evolved or time-aware GRU/LSTM (cuDNN has no such mode): no library
+    time for the pair; the evolve's and W_d's weight gradients have
+    torch.matmul of each product (their bias sums left out)."""
     from snsde_torch.kernels import fused_rnn as fr
 
     inp, kw, ghs = rnn_mode_inputs(kind, mode, B, L, H)
@@ -1857,7 +1987,7 @@ def rnn_mode_kernel_times(kind, mode, B, L, H):
           (lambda: fr.fused_lstm_weight_grads(hs, r.dgi)))
     g = bwd(**bargs, **kw)
     grads = [v for n, v in zip(g._fields, g)
-             if v is not None and n != "dmlp"]
+             if v is not None and n not in ("dmlp", "dwd", "dbd")]
     ms = {"fwd": timed(lambda: fwd(**inp, **fkw)),
           "fwd_plain": timed(lambda: fwd_p(**inp, **fkw), reps=3, warmup=1),
           "bwd_recurrence": timed(rec), "bwd_wgrad": timed(wg),
@@ -1878,22 +2008,37 @@ def rnn_mode_kernel_times(kind, mode, B, L, H):
             r.acts, r.dzs, L, B, H, ode), reps=5, warmup=1)
         ms["mlpgrad_lib"] = timed(lambda: [torch.matmul(a.T, z)
                                            for a, z in zip(av, zv)])
+    dec = kw.get("dec")
+    wdprod = 2 * L * B * H * H if dec is not None else 0
+    if dec is not None:
+        k_c = (L - 1) * B
+        ms["wdgrad"] = timed(lambda: fr.fused_lstm_wd_grads(outs[1], r.dzd))
+        ms["wdgrad_plain"] = timed(
+            lambda: fr.fused_lstm_weight_grads_reference(outs[1], r.dzd),
+            reps=5, warmup=1)
+        ck, zk = outs[1][:-1].reshape(-1, H), r.dzd[1:].reshape(-1, H)
+        ms["wdgrad_lib"] = timed(lambda: torch.matmul(ck.T, zk))
     evolve = 2 * L * B * (ode.steps if ode else 0) * mlp_pairs
-    mode_ins = [kw.get("obs"), kw.get("hrow")] + ([ode.mlp, ode.dts]
-                                                  if ode else [])
+    mode_ins = [kw.get("obs"), kw.get("hrow"), kw.get("sel"),
+                kw.get("tg")] + ([ode.mlp, ode.dts] if ode else []) + (
+                    list(dec) if dec is not None else [])
     ins = list(inp.values()) + mode_ins
     k_x = (L if kind == "gru" else L - 1) * B
     bounds = {
-        "fwd": bound(4 * (_numel(*ins) + _numel(*fouts)), prod + evolve),
+        "fwd": bound(4 * (_numel(*ins) + _numel(*fouts)),
+                     prod + evolve + wdprod),
         "bwd": bound(4 * (_numel(*bargs.values(), *mode_ins)
                           + _numel(*grads)),
-                     3 * prod + 2 * evolve),
+                     3 * prod + 2 * evolve + 2 * wdprod),
         "wgrad": bound(4 * (k_x * H + L * B * G * H + (H + 1) * G * H),
                        2 * k_x * H * G * H)}
     if ode is not None:
         ps = sum((i + 1) * j for i, j in dims)
         bounds["mlpgrad"] = bound(4 * (_numel(r.acts, r.dzs) + ps),
                                   2 * K * mlp_pairs)
+    if dec is not None:
+        bounds["wdgrad"] = bound(4 * (k_c * H + L * B * H + (H + 1) * H),
+                                 2 * k_c * H * H)
     print(f"{kind.upper()} mode {mode} at B={B} L={L} H={H}: bounds "
           + ", ".join(f"{k} {v[0]:.6f} ms ({v[1]})" for k, v in
                       bounds.items()) + "; " + ", ".join(
@@ -1902,12 +2047,13 @@ def rnn_mode_kernel_times(kind, mode, B, L, H):
 
 
 def rnn_modes_times():
-    """The hybrids' instances timed at the sweep's shape and at H=256:
-    ({'<pair>_<suffix>': ms}, {...: bounds}), the H=256 times under
+    """The hybrids' and the time-aware instances timed at the sweep's shape
+    and at H=256, beside the plain LSTM pair ('lstm_plain', mode 0) at
+    both: ({'<pair>_<suffix>': ms}, {...: bounds}), the H=256 times under
     '<key> h256'."""
     rs, wide = RNN_SWEEP, RNN_MODE_WIDE
     ms, bounds = {}, {}
-    for kind, mode, sfx in RNN_MODES:
+    for kind, mode, sfx in RNN_MODES + (("lstm", 0, "plain"),):
         key = f"{kind}_{sfx}"
         ms[key], bounds[key] = rnn_mode_kernel_times(kind, mode, rs["B"],
                                                      rs["L"], rs["H"])
@@ -2042,6 +2188,37 @@ def rnn_step_fns(name):
     out = {}
     for label, fused in (("train_step", True), ("train_step_eager", False)):
         model = ISTSClassifier(name, sh["C"] - 1, sh["L"], sh["H"], 4,
+                               generator=torch.Generator().manual_seed(0))
+        model = model.to(dev)
+        readout_grad_hook("fc2")(model)
+        opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+        out[label] = (lambda model=model, opt=opt, fused=fused:
+                      ists_train_step(model, opt, batch, use_fused=fused))
+    return out
+
+
+def time_lstm_step_fns(name):
+    """One training step (as rnn_step_fns) of ISTSClassifier(name) on one
+    batch of the sweep cell (uea_b_noisy, B=64, L=60, 5 channels, hidden
+    16, missing 0.3): {label: step()} through the kernels and through the
+    eager loop over the cells."""
+    from snsde_torch.harness.robustness import (ISTSClassifier,
+                                                coeff_family,
+                                                ists_train_step,
+                                                preprocess_ists)
+    from snsde_torch.train.loop import readout_grad_hook
+
+    X, y, _ = uea_b_noisy()
+    data = preprocess_ists(X[:SWEEP["B"]], missing_rate=0.3,
+                           interpolation=coeff_family(name), seed=0)
+    dev = torch.device(DEV)
+    batch = {"seq": torch.as_tensor(data["seq"], device=dev),
+             "coeffs": torch.as_tensor(data["coeffs"], device=dev),
+             "y": torch.as_tensor(y[:SWEEP["B"]], device=dev)}
+    out = {}
+    for label, fused in (("train_step", True), ("train_step_eager", False)):
+        model = ISTSClassifier(name, SWEEP["D"], SWEEP["L"], SWEEP["H"],
+                               SWEEP["classes"],
                                generator=torch.Generator().manual_seed(0))
         model = model.to(dev)
         readout_grad_hook("fc2")(model)
@@ -3892,8 +4069,8 @@ def main() -> int:
     err["lstm_wgrad"] = compare_wgrad("lstm", rs["B"], rs["L"], rs["C"],
                                       rs["H"])
     compare_wgrad("lstm", 1024, 72, 6, 128)
-    print("the ODE-RNN hybrids' instances vs their plain versions:",
-          flush=True)
+    print("the ODE-RNN hybrids' and the time-aware LSTMs' instances vs "
+          "their plain versions:", flush=True)
     err.update(compare_rnn_modes())
     for shape in RNN_BENCH.values():
         compare_rnn_cudnn(**shape)
@@ -3904,6 +4081,8 @@ def main() -> int:
         launches["srk_packed"] = packed_sweep_path(out_dir)["neuralsde_4_17"]
         launches.update(rnn_sweep_path(out_dir))
         launches["em_latent"] = latent_sweep_path(out_dir)
+        launches["lstm_time"] = rnn_sweep_path(out_dir, TIME_MODELS)["lstm"]
+        baseline_sweep_path(out_dir)
     launches["em_speech"] = speech_path()
     launches["em_speech_packed"] = speech_ensemble_path()
     launches["em_packed"] = sepsis_ensemble_path()
@@ -3942,6 +4121,9 @@ def main() -> int:
     mode_ms, mode_bounds = rnn_modes_times()
     ms.update(mode_ms)
     bounds.update(mode_bounds)
+    ms["lstm_tlstm"].update(step_times("tlstm sweep-cell classifier",
+                                       time_lstm_step_fns("tlstm"),
+                                       eager_reps=3))
     for key in ms:
         for k, v in ms[key].items():
             print(f"time {key} {k}: {v:.4f} ms  [{smi}]")
@@ -4058,6 +4240,8 @@ def main() -> int:
     for kind, mode, sfx in RNN_MODES:
         key = f"{kind}_{sfx}"
         lines = (312, 396) if kind == "gru" else (837, 934)
+        # the time-aware modes' launches: phase 9's sweep runs
+        runs = launches["lstm_time" if sfx in TIME_MODES else kind]
         for part, line in zip(("fwd", "bwd"), lines):
             kernels.append({
                 "name": (f"fused_{kind}_"
@@ -4065,7 +4249,7 @@ def main() -> int:
                          f"_{sfx}"),
                 "route": "cuda", "source": "snsde_torch/csrc/fused_rnn.cu",
                 "replaces": f"snsde/kernels/fused_rnn.py:{line}",
-                "launches": launches[kind][f"{key}_{part}"],
+                "launches": runs[f"{key}_{part}"],
                 "max_abs_err": err[key][0 if part == "fwd" else 1],
                 "ms": ms[key][part], "plain_ms": ms[key][f"{part}_plain"],
                 "bound_ms": bounds[key][part][0],
@@ -4091,6 +4275,24 @@ def main() -> int:
                 "plain_ms_h256": ms[key]["mlpgrad_plain h256"],
                 "library_ms_h256": ms[key]["mlpgrad_lib h256"],
                 "bound_ms_h256": bounds[key]["mlpgrad h256"][0]})
+        if sfx == "tlstm":
+            # TLSTM's W_d gradient: the weight-gradient kernel on c and dzd
+            kernels.append({
+                "name": "fused_lstm_weight_grads_wd", "route": "cuda",
+                "source": "snsde_torch/csrc/fused_rnn.cu",
+                "replaces": f"snsde/kernels/fused_rnn.py:{lines[1]}",
+                "launches": runs["lstm_wd_wgrad"],
+                "max_abs_err": err[key][2],
+                "ms": ms[key]["wdgrad"],
+                "plain_ms": ms[key]["wdgrad_plain"],
+                "bound_ms": bounds[key]["wdgrad"][0],
+                "bound_by": bounds[key]["wdgrad"][1],
+                "library_ms": ms[key]["wdgrad_lib"],
+                "shape": "sweep", "mode": mode,
+                "ms_h256": ms[key]["wdgrad h256"],
+                "plain_ms_h256": ms[key]["wdgrad_plain h256"],
+                "library_ms_h256": ms[key]["wdgrad_lib h256"],
+                "bound_ms_h256": bounds[key]["wdgrad h256"][0]})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

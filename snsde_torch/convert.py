@@ -15,6 +15,12 @@ GRUDFull's own `layer.inner.w_hh`, `layer.inner.gamma_x.weight` and
 `layer.inner.decay.weight`, ODERNN's `layer.inner.f_layers.1.bias` (its
 tuple of Linears a `ModuleList` here), ODELSTM's `layer.inner.lstm.w_hh`
 and `layer.inner.f1.weight`, and the layer's own `layer.in_proj.weight`;
+for the time-aware LSTMs each cell of `layer.inner.cells.0...`: TLSTM's
+Linears `W_all`, `U_all`, `W_d`, PLSTM's raw `W`, `U`, `bias`, `periods`,
+`shifts`, `on_end`, TGLSTM's Linears `weights` and `weight_t`; SeqCNN's
+`layer.inner.kernels.0` (raw [k, c_in, c_out], a `ParameterList` here)
+and `biases.0`; SeqTransformer's `layer.inner.wq.0.weight` .. `ff2.1.bias`
+and `embed`;
 for the seed ensembles the members' tuples, a
 `ModuleList` here too: InitialValueSeedEnsemble's
 `members.0.field.linear_in.weight` and `members.0.readout.norm.running_var`,

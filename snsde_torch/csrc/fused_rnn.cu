@@ -23,7 +23,17 @@
 //               inner layers, linear output), dt_t = tdif_t / S
 //   LSTM mode 1 the same evolve applied to the cell's output h' with a
 //               per-row dt [L, B] (ODE-LSTM); c passes through
-// (obs may be absent in modes 2 and 3: every step observed). The input
+// (obs may be absent in modes 2 and 3: every step observed); and in the
+// modes of the time-aware LSTMs (has_sel, has_tg and kind == "tlstm",
+// fused_rnn.py:543-575, :601-606, :661-716):
+//   LSTM mode 2 PLSTM's openness sel [L, B, H]: h = sel h' + (1 - sel) h,
+//               likewise c (hs and cs hold the blended states)
+//   LSTM mode 3 TGLSTM's modifiers tg [L, B, 3H] multiplying the i, f
+//               and o gates' sigmoids
+//   LSTM mode 4 TLSTM's memory decomposition: c_short = tanh(c W_d +
+//               b_d) of every unit of c, c_adj = c - c_short + c_short
+//               tel_t (tel [L, B], one elapsed time a row), the gates
+//               (f, i, o, a sigmoid candidate) on c_adj. The input
 // projection gi = x W_ih + b_ih [L, B, G*H] is computed outside the
 // kernels (one matrix product); gates follow torch's order, (r, z, n) and
 // (i, f, g, o):
@@ -148,8 +158,9 @@ __host__ __device__ inline Split split_of(int H, int cs) {
 }
 
 // The mode of a launch: 0 the plain modes; GRU 1 obs, 2 obs + row decay,
-// 3 obs + evolve; LSTM 1 evolve. The evolve's MLP has n layers (H -> HH
-// -> ... -> HH -> H; H -> H when n = 1) and S substeps.
+// 3 obs + evolve; LSTM 1 evolve, 2 sel, 3 tg, 4 TLSTM. The evolve's MLP
+// has n layers (H -> HH -> ... -> HH -> H; H -> H when n = 1) and S
+// substeps.
 struct ModeShape {
   int mode, HH, n, S;
 };
@@ -161,10 +172,21 @@ struct ModeArgs {
   const float* mlp;   // [W_0 (in x out), b_0 (out), W_1, b_1, ...]
   const float* dts;   // substep sizes: [L] (GRU), [L][B] (LSTM)
   int HH, n, S;
+  const float* aux;   // the LSTM's mode stream: sel [L][B][H] (mode 2), tg
+                      // [L][B][3H] (3), tel [L][B] (4)
+  const float* wd;    // TLSTM's W_d [H][H] (in x out)
+  const float* bd;    // and b_d [H]
 };
 
-// The mode's own tiles, in floats (sM: the wider of H and HH). GRU forward,
-// mode 3, and LSTM forward, mode 1: the MLP's two scratch tiles [2][R][sM].
+// The mode's own tiles, in floats (sM: the wider of H and HH; sU, sH of
+// the plan's split). GRU forward, mode 3, and LSTM forward, mode 1: the
+// MLP's two scratch tiles [2][R][sM]. LSTM forward, mode 2: the own sel
+// columns of three steps [3][R][sU]; mode 3: the own tg columns
+// [3][R][3 sU]; mode 4: c of every unit [2][R][sH] and b_d's own columns
+// [sU]. LSTM backward, mode 2: the step's own sel columns and the carry of
+// h's cotangent past the cell [R][sU] each; mode 3: the step's own tg
+// columns [R][3 sU]; mode 4: c before the step, every unit [R][sH], the
+// partial dc [2][R][sH], dzd of the own units [R][sU], b_d [sU].
 // GRU backward (a kernel of its own for modes 1-3: the plain backward's
 // tiles without the decay's [R][sH], with the rows' decay products [R][sU]):
 // mode 2 the cell's input state [R][sH]; mode 3 the substep states
@@ -173,9 +195,17 @@ struct ModeArgs {
 // cotangents. LSTM backward, mode 1: the step's ghs and the cotangent of
 // its output, every unit, [R][sH] each, the substep states [S][R][sH], the
 // activations and the two cotangent tiles.
-inline size_t mode_floats(int G, int H, int R, int backward,
+inline size_t mode_floats(int G, int H, int cs, int R, int backward,
                           const ModeShape& ms) {
   if (ms.mode == 0) return 0;
+  const Split sp = split_of(H, cs);
+  if (G == 4 && ms.mode >= 2) {
+    const size_t rU = (size_t)R * sp.sU, rS = (size_t)R * sp.sH;
+    if (ms.mode == 4)
+      return (backward ? 3 * rS + rU : 2 * rS) + sp.sU;
+    return (ms.mode == 2 ? 1 : 3) * rU * (backward ? 1 : 3) +
+           (backward && ms.mode == 2 ? rU : 0);
+  }
   const size_t rH = (size_t)R * round4(H);
   const size_t rM = (size_t)R * round4(std::max(H, ms.HH));
   const size_t acts = (size_t)std::max(ms.n - 1, 0) * R * round4(ms.HH);
@@ -200,7 +230,8 @@ inline size_t mode_floats(int G, int H, int R, int backward,
 // the step, the step's ghs, the cotangents of the step's output h (from
 // the later steps) and c [R][sU] each, the gate cotangents [R][4 sU], the
 // partial dh [2][R][sH], bias [4 sU]. Then the mode's tiles (mode_floats),
-// then the slice when it is in shared memory.
+// then the slice when it is in shared memory (TLSTM's W_d columns [H][sU]
+// after W_hh's).
 inline size_t rnn_floats(int G, int H, int cs, int R, int w_smem,
                          int backward, const ModeShape& ms) {
   const Split s = split_of(H, cs);
@@ -214,8 +245,10 @@ inline size_t rnn_floats(int G, int H, int cs, int R, int w_smem,
   else
     tiles = backward ? 3 * rH + 12 * rU + 4 * s.sU
                      : 2 * rH + 13 * rU + 4 * s.sU;
-  return tiles + mode_floats(G, H, R, backward, ms) +
-         (w_smem ? (size_t)H * odd(G * s.sU) : 0);
+  const size_t slices =
+      (size_t)H * (odd(G * s.sU) + (G == 4 && ms.mode == 4 ? odd(s.sU) : 0));
+  return tiles + mode_floats(G, H, cs, R, backward, ms) +
+         (w_smem ? slices : 0);
 }
 
 inline int sm_count() {
@@ -1197,7 +1230,12 @@ gru_bwd_mode_kernel(RnnDims d, int cs, int R, const float* __restrict__ gi,
 
 // Mode 1 (the evolve): the cell's output h' goes to every CTA (and to the
 // stream hcell when a backward will run), then after a cluster barrier each
-// CTA evolves its full copy in place and writes its own units of hs.
+// CTA evolves its full copy in place and writes its own units of hs. Modes
+// 2 and 3 read their stream's own columns, prefetched with gi; mode 2's
+// blended h is what goes to the peers. Mode 4 keeps c like h, every unit
+// in every CTA (double-buffered, each CTA storing its units' c' into every
+// peer), for the product c W_d over the CTA's own columns of W_d, held
+// beside its W_hh slice by the same plan.
 template <int RPT, int WS, int MODE>
 __global__ void __launch_bounds__(THREADS)
 lstm_fwd_kernel(RnnDims d, int cs, int R, const float* __restrict__ gi,
@@ -1217,25 +1255,46 @@ lstm_fwd_kernel(RnnDims d, int cs, int R, const float* __restrict__ gi,
   float* bias = cst + R * sU;      // [4 sU]
   float* evt = bias + 4 * sU;      // mode 1: the MLP's scratch [2][R][sM]
   const int sM = round4(max(H, m.HH));
-  float* rest = evt + (MODE == 1 ? 2 * R * sM : 0);
+  // modes 2 and 3: the own sel or tg columns of three steps [3][tileX];
+  // mode 4: c [2][R][sH], every unit, and b_d's own columns [sU]
+  const int tileX = MODE == 2 ? R * sU : MODE == 3 ? 3 * R * sU : 0;
+  float* xbuf = evt + (MODE == 1 ? 2 * R * sM : 0);
+  float* cbuf = xbuf + 3 * tileX;
+  float* bdo = cbuf + (MODE == 4 ? 2 * tileH : 0);
+  float* rest = bdo + (MODE == 4 ? sU : 0);
   zero_smem(smem, rest - smem);
   __syncthreads();
   const WSlice w = load_slice<4, WS>(rest, whh, H, g);
+  const WSlice wdl =
+      MODE == 4 ? load_slice<1, WS>(rest + (size_t)H * odd(4 * sU), m.wd, H, g)
+                : w;
   for (int i = tid; i < 4 * g.nu; i += THREADS) {
     const int gt = i / g.nu, ul = i - gt * g.nu;
     bias[gt * sU + ul] = bhh[gt * H + g.u0 + ul];
   }
+  for (int i = tid; MODE == 4 && i < g.nu; i += THREADS)
+    bdo[i] = m.bd[g.u0 + i];
   // 16-byte copies when every row segment starts on 16 bytes
-  const bool v4 = ((H | g.s.U) & 3) == 0 && aligned16(gi);
-  auto prefetch_gi = [&](int t, float* dst, int first) {
-    copy_rows_async(dst, 4 * sU, sU,
-                    gi + ((size_t)t * d.B + g.row0) * GH + g.u0, GH, H, g.nr,
-                    4, g.nu, v4, first);
+  const bool v4 = ((H | g.s.U) & 3) == 0 && aligned16(gi) &&
+                  ((MODE != 2 && MODE != 3) || aligned16(m.aux));
+  // step t's gi columns (and the mode's stream), into slot t % 3
+  auto prefetch = [&](int t, int first) {
+    const int slot = t % 3;
+    const size_t row = (size_t)t * d.B + g.row0;
+    copy_rows_async(gbuf + slot * tileG, 4 * sU, sU, gi + row * GH + g.u0,
+                    GH, H, g.nr, 4, g.nu, v4, first);
+    if (MODE == 2)
+      copy_rows_async(xbuf + slot * tileX, sU, 0, m.aux + row * H + g.u0, H,
+                      0, g.nr, 1, g.nu, v4, first);
+    if (MODE == 3)
+      copy_rows_async(xbuf + slot * tileX, 3 * sU, sU,
+                      m.aux + row * 3 * H + g.u0, 3 * H, H, g.nr, 3, g.nu,
+                      v4, first);
   };
   // one copy group a step, empty or not, two steps in flight
-  prefetch_gi(0, gbuf, 0);
+  prefetch(0, 0);
   cp_async_commit();
-  if (d.L > 1) prefetch_gi(1, gbuf + tileG, 0);
+  if (d.L > 1) prefetch(1, 0);
   cp_async_commit();
   cp_async_wait<1>();
   cluster.sync();  // every CTA's h is zeroed before a peer writes into it
@@ -1245,35 +1304,69 @@ lstm_fwd_kernel(RnnDims d, int cs, int R, const float* __restrict__ gi,
     const int cur = t & 1;
     const float* hc = hbuf + cur * tileH;
     float* hn = hbuf + (cur ^ 1) * tileH;
+    const float* cc = cbuf + cur * tileH;
+    float* cn = cbuf + (cur ^ 1) * tileH;
     const float* git = gbuf + (t % 3) * tileG;
+    const float* xc = xbuf + (t % 3) * tileX;
     // into the buffer step t - 1 read: all its reads are behind a barrier
-    if (t + 2 < d.L) prefetch_gi(t + 2, gbuf + ((t + 2) % 3) * tileG, idle);
+    if (t + 2 < d.L) prefetch(t + 2, idle);
     cp_async_commit();
     for (int item = tid; item < items; item += THREADS) {
       const int ul = item % g.nu, r0 = (item / g.nu) * RPT;
-      float acc[4][RPT];
+      float acc[4][RPT], accd[1][RPT];
       gate_sums<4, RPT>(hc, sH, H, w, ul, r0, acc);
+      if (MODE == 4) gate_sums<1, RPT>(cc, sH, H, wdl, ul, r0, accd);
 #pragma unroll
       for (int q = 0; q < RPT; ++q) {
         const int r = r0 + q;
         if (r < g.nr) {
           const float* gr = git + r * 4 * sU + ul;
           const float* bs = bias + ul;
-          const float ig = sigmoid(gr[0] + acc[0][q] + bs[0]);
-          const float fg = sigmoid(gr[sU] + acc[1][q] + bs[sU]);
-          const float gg = tanhf(gr[2 * sU] + acc[2][q] + bs[2 * sU]);
-          const float og = sigmoid(gr[3 * sU] + acc[3][q] + bs[3 * sU]);
           const int e = r * sU + ul, u = g.u0 + ul;
-          const float c = fg * cst[e] + ig * gg;
-          const float h = og * tanhf(c);
-          cst[e] = c;
-          if (cs == 1)
+          float c, h;
+          if (MODE == 4) {  // gates (f, i, o, candidate) on c_adj
+            const float cold = cc[r * sH + u];
+            const float csh = tanhf(accd[0][q] + bdo[ul]);
+            const float tel = m.aux[(size_t)t * d.B + g.row0 + r];
+            const float cadj = cold - csh + csh * tel;
+            const float fg = sigmoid(gr[0] + acc[0][q] + bs[0]);
+            const float ig = sigmoid(gr[sU] + acc[1][q] + bs[sU]);
+            const float og = sigmoid(gr[2 * sU] + acc[2][q] + bs[2 * sU]);
+            const float ct = sigmoid(gr[3 * sU] + acc[3][q] + bs[3 * sU]);
+            c = fg * cadj + ig * ct;
+            h = og * tanhf(c);
+          } else {
+            float ig = sigmoid(gr[0] + acc[0][q] + bs[0]);
+            float fg = sigmoid(gr[sU] + acc[1][q] + bs[sU]);
+            const float gg = tanhf(gr[2 * sU] + acc[2][q] + bs[2 * sU]);
+            float og = sigmoid(gr[3 * sU] + acc[3][q] + bs[3 * sU]);
+            if (MODE == 3) {
+              const float* tr = xc + r * 3 * sU + ul;
+              ig *= tr[0];
+              fg *= tr[sU];
+              og *= tr[2 * sU];
+            }
+            const float cold = cst[e];
+            c = fg * cold + ig * gg;
+            h = og * tanhf(c);
+            if (MODE == 2) {  // the blend with the state before the step
+              const float sel = xc[e];
+              h = sel * h + (1.f - sel) * hc[r * sH + u];
+              c = sel * c + (1.f - sel) * cold;
+            }
+            cst[e] = c;
+          }
+          if (cs == 1) {
             hn[r * sH + u] = h;
-          else
-            for (int peer = 0; peer < cs; ++peer)
+            if (MODE == 4) cn[r * sH + u] = c;
+          } else {
+            for (int peer = 0; peer < cs; ++peer) {
               cluster.map_shared_rank(hn, peer)[r * sH + u] = h;
+              if (MODE == 4) cluster.map_shared_rank(cn, peer)[r * sH + u] = c;
+            }
+          }
           const size_t o = t * BH + (size_t)(g.row0 + r) * H + u;
-          if (MODE == 0)
+          if (MODE != 1)
             hs[o] = h;
           else if (hcell)
             hcell[o] = h;
@@ -1301,6 +1394,14 @@ lstm_fwd_kernel(RnnDims d, int cs, int R, const float* __restrict__ gi,
 // step after in rank order), recomputes the substeps from the cell's
 // output hcell[t] and goes back through them to the cotangent of h', of
 // which the gates take their own units; the MLP's streams as the GRU's.
+// Mode 2 recomputes the cell's own (h', c') from the gates, writes dsel =
+// gh (h' - h) + gc (c' - c) and passes (1 - sel) of each cotangent by the
+// cell (h's share a direct term of the next step's sum). Mode 3 writes dtg
+// from the raw sigmoids. Mode 4 recomputes c_short from every unit of c
+// before the step, writes dzd (the cotangent of c W_d + b_d) and sums the
+// partials of dzd W_d^T over the cluster in rank order, as dh's; the
+// weight gradients (W_hh's from hs and dgi, W_d's from cs and dzd) are the
+// product kernel's after the loop.
 template <int RPT, int WS, int MODE>
 __global__ void __launch_bounds__(THREADS)
 lstm_bwd_kernel(RnnDims d, int cs, int R, const float* __restrict__ gi,
@@ -1308,7 +1409,8 @@ lstm_bwd_kernel(RnnDims d, int cs, int R, const float* __restrict__ gi,
                 const float* __restrict__ ghs, const float* __restrict__ whh,
                 const float* __restrict__ bhh, float* __restrict__ dgi,
                 ModeArgs m, const float* __restrict__ hcell,
-                float* __restrict__ acts, float* __restrict__ dzs) {
+                float* __restrict__ acts, float* __restrict__ dzs,
+                float* __restrict__ dmode) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   cg::cluster_group cluster = cg::this_cluster();
@@ -1335,25 +1437,45 @@ lstm_bwd_kernel(RnnDims d, int cs, int R, const float* __restrict__ gi,
   float* A = subs + m.S * tileH;
   float* dzt = A + (m.n - 1) * tA;
   float* dxt = dzt + R * sM;
-  float* rest = MODE == 1 ? dxt + R * sM : bias + 4 * sU;
+  // mode 2: the step's own sel columns, then the carry of h's cotangent
+  // past the cell (own units); mode 3: the step's own tg columns [R][3 sU];
+  // mode 4: c before the step, every unit [R][sH], the CTA's partial dc
+  // [2][R][sH], dzd of the own units [R][sU], b_d's own columns [sU]
+  float* xb = bias + 4 * sU;
+  float* dhc = xb + tileU;
+  float* cfull = xb;
+  float* pdc = cfull + tileH;
+  float* dzd = pdc + 2 * tileH;
+  float* bdo = dzd + tileU;
+  float* rest = MODE == 1   ? dxt + R * sM
+                : MODE == 2 ? xb + 2 * tileU
+                : MODE == 3 ? xb + 3 * tileU
+                : MODE == 4 ? bdo + sU
+                            : bias + 4 * sU;
   zero_smem(smem, rest - smem);
   __syncthreads();
   const WSlice w = load_slice<4, WS>(rest, whh, H, g);
+  const WSlice wdl =
+      MODE == 4 ? load_slice<1, WS>(rest + (size_t)H * odd(4 * sU), m.wd, H, g)
+                : w;
   for (int i = tid; i < 4 * g.nu; i += THREADS) {
     const int gt = i / g.nu, ul = i - gt * g.nu;
     bias[gt * sU + ul] = bhh[gt * H + g.u0 + ul];
   }
+  for (int i = tid; MODE == 4 && i < g.nu; i += THREADS)
+    bdo[i] = m.bd[g.u0 + i];
   // what step t reads: its gi and ghs rows, and (h, c) before it (zero
   // before the first step)
   // 16-byte copies when every row segment starts on 16 bytes
   const bool v4 = ((H | g.s.U) & 3) == 0 && aligned16(gi) && aligned16(hs) &&
                   aligned16(cs_in) && aligned16(ghs) &&
-                  (MODE == 0 || aligned16(hcell));
+                  (MODE != 1 || aligned16(hcell)) &&
+                  ((MODE != 2 && MODE != 3) || aligned16(m.aux));
   auto prefetch = [&](int t, int first) {
     const size_t row = (size_t)t * d.B + g.row0;
     copy_rows_async(gbuf, sD, sU, gi + row * GH + g.u0, GH, H, g.nr, 4, g.nu,
                     v4, first);
-    if (MODE == 0) {
+    if (MODE != 1) {
       copy_rows_async(gsel, sU, 0, ghs + row * H + g.u0, H, 0, g.nr, 1, g.nu,
                       v4, first);
     } else {
@@ -1362,14 +1484,26 @@ lstm_bwd_kernel(RnnDims d, int cs, int R, const float* __restrict__ gi,
       copy_rows_async(subs, sH, 0, hcell + row * H, H, 0, g.nr, 1, H, v4,
                       first);
     }
+    if (MODE == 2)
+      copy_rows_async(xb, sU, 0, m.aux + row * H + g.u0, H, 0, g.nr, 1, g.nu,
+                      v4, first);
+    if (MODE == 3)
+      copy_rows_async(xb, 3 * sU, sU, m.aux + row * 3 * H + g.u0, 3 * H, H,
+                      g.nr, 3, g.nu, v4, first);
     if (t > 0) {
       copy_rows_async(hprev, sH, 0, hs + (row - d.B) * H, H, 0, g.nr, 1, H,
                       v4, first);
-      copy_rows_async(cprev, sU, 0, cs_in + (row - d.B) * H + g.u0, H, 0,
-                      g.nr, 1, g.nu, v4, first);
+      if (MODE == 4)
+        copy_rows_async(cfull, sH, 0, cs_in + (row - d.B) * H, H, 0, g.nr, 1,
+                        H, v4, first);
+      else
+        copy_rows_async(cprev, sU, 0, cs_in + (row - d.B) * H + g.u0, H, 0,
+                        g.nr, 1, g.nu, v4, first);
     } else {
       for (int i = tid; i < g.nr * sH; i += THREADS) hprev[i] = 0.f;
       for (int i = tid; i < g.nr * sU; i += THREADS) cprev[i] = 0.f;
+      for (int i = tid; MODE == 4 && i < g.nr * sH; i += THREADS)
+        cfull[i] = 0.f;
     }
   };
   prefetch(d.L - 1, 0);
@@ -1383,6 +1517,7 @@ lstm_bwd_kernel(RnnDims d, int cs, int R, const float* __restrict__ gi,
   for (int t = d.L - 1; t >= 0; --t) {
     const size_t ob = ((size_t)t * d.B + g.row0) * GH + g.u0;
     const float* pdl = pdh + ((t + 1) & 1) * tileH;  // zero at the last step
+    const float* pcl = pdc + ((t + 1) & 1) * tileH;  // mode 4, likewise
     if (MODE == 1) {
       // the cotangent of the step's output, every unit: the partials of
       // the step after in rank order, and ghs; back through the evolve
@@ -1407,49 +1542,107 @@ lstm_bwd_kernel(RnnDims d, int cs, int R, const float* __restrict__ gi,
     // cotangents
     for (int item = tid; item < items; item += THREADS) {
       const int ul = item % g.nu, r0 = (item / g.nu) * RPT;
-      float acc[4][RPT];
+      float acc[4][RPT], accd[1][RPT];
       gate_sums<4, RPT>(hprev, sH, H, w, ul, r0, acc);
+      if (MODE == 4) gate_sums<1, RPT>(cfull, sH, H, wdl, ul, r0, accd);
 #pragma unroll
       for (int q = 0; q < RPT; ++q) {
         const int r = r0 + q;
         if (r < g.nr) {
           const float* gr = gbuf + r * sD + ul;
           const float* bs = bias + ul;
-          const float ig = sigmoid(gr[0] + acc[0][q] + bs[0]);
-          const float fg = sigmoid(gr[sU] + acc[1][q] + bs[sU]);
-          const float gg = tanhf(gr[2 * sU] + acc[2][q] + bs[2 * sU]);
-          const float og = sigmoid(gr[3 * sU] + acc[3][q] + bs[3 * sU]);
           const int e = r * sU + ul;
-          const float c = cprev[e];
-          const float tc = tanhf(fg * c + ig * gg);
+          const size_t orow = (size_t)t * d.B + g.row0 + r;
           // a cluster of one reads its partial dh of the step after as it is
-          const float ghv =
+          float ghv =
               MODE == 1 ? dho[r * sH + g.u0 + ul]
                         : (cs == 1 ? pdl[r * sH + ul] : gh[e]) + gsel[e];
-          const float dc = gc[e] + ghv * og * (1.f - tc * tc);
-          const float di = dc * gg * ig * (1.f - ig);
-          const float df = dc * c * fg * (1.f - fg);
-          const float dgg = dc * ig * (1.f - gg * gg);
-          const float dov = ghv * tc * og * (1.f - og);
-          gc[e] = dc * fg;
+          if (MODE == 2) ghv += dhc[e];
+          float gcv = gc[e];
+          if (MODE == 4 && cs == 1) gcv += pcl[r * sH + ul];
+          float d0, d1, d2, d3;
+          if (MODE == 4) {
+            const float c = cfull[r * sH + g.u0 + ul];
+            const float csh = tanhf(accd[0][q] + bdo[ul]);
+            const float tel = m.aux[orow];
+            const float cadj = c - csh + csh * tel;
+            const float fg = sigmoid(gr[0] + acc[0][q] + bs[0]);
+            const float ig = sigmoid(gr[sU] + acc[1][q] + bs[sU]);
+            const float og = sigmoid(gr[2 * sU] + acc[2][q] + bs[2 * sU]);
+            const float ct = sigmoid(gr[3 * sU] + acc[3][q] + bs[3 * sU]);
+            const float tc = tanhf(fg * cadj + ig * ct);
+            const float dc = gcv + ghv * og * (1.f - tc * tc);
+            d0 = dc * cadj * fg * (1.f - fg);
+            d1 = dc * ct * ig * (1.f - ig);
+            d2 = ghv * tc * og * (1.f - og);
+            d3 = dc * ig * ct * (1.f - ct);
+            const float dca = dc * fg;
+            const float dz = dca * (tel - 1.f) * (1.f - csh * csh);
+            gc[e] = dca;  // the partials of dzd W_d^T join it below
+            dzd[e] = dz;
+            dmode[orow * H + g.u0 + ul] = dz;
+          } else {
+            const float si = sigmoid(gr[0] + acc[0][q] + bs[0]);
+            const float sf = sigmoid(gr[sU] + acc[1][q] + bs[sU]);
+            const float gg = tanhf(gr[2 * sU] + acc[2][q] + bs[2 * sU]);
+            const float so = sigmoid(gr[3 * sU] + acc[3][q] + bs[3 * sU]);
+            const float* tr = xb + r * 3 * sU + ul;  // mode 3
+            const float ig = MODE == 3 ? si * tr[0] : si;
+            const float fg = MODE == 3 ? sf * tr[sU] : sf;
+            const float og = MODE == 3 ? so * tr[2 * sU] : so;
+            const float c = cprev[e];
+            const float c2 = fg * c + ig * gg;
+            const float tc = tanhf(c2);
+            float dcc = 0.f;
+            if (MODE == 2) {  // back through the blend
+              const float sel = xb[e];
+              dmode[orow * H + g.u0 + ul] =
+                  ghv * (og * tc - hprev[r * sH + g.u0 + ul]) +
+                  gcv * (c2 - c);
+              dhc[e] = ghv * (1.f - sel);
+              dcc = gcv * (1.f - sel);
+              ghv *= sel;
+              gcv *= sel;
+            }
+            const float dc = gcv + ghv * og * (1.f - tc * tc);
+            if (MODE == 3) {  // the modifiers' cotangents, then the gates'
+              const float di = dc * gg, df = dc * c, dov = ghv * tc;
+              float* dt = dmode + orow * 3 * H + g.u0 + ul;
+              dt[0] = di * si;
+              dt[H] = df * sf;
+              dt[2 * H] = dov * so;
+              d0 = di * tr[0] * si * (1.f - si);
+              d1 = df * tr[sU] * sf * (1.f - sf);
+              d2 = dc * ig * (1.f - gg * gg);
+              d3 = dov * tr[2 * sU] * so * (1.f - so);
+            } else {
+              d0 = dc * gg * ig * (1.f - ig);
+              d1 = dc * c * fg * (1.f - fg);
+              d2 = dc * ig * (1.f - gg * gg);
+              d3 = ghv * tc * og * (1.f - og);
+            }
+            gc[e] = MODE == 2 ? dc * fg + dcc : dc * fg;
+          }
           float* dgs = dg + r * sD + ul;
-          dgs[0] = di;
-          dgs[sU] = df;
-          dgs[2 * sU] = dgg;
-          dgs[3 * sU] = dov;
+          dgs[0] = d0;
+          dgs[sU] = d1;
+          dgs[2 * sU] = d2;
+          dgs[3 * sU] = d3;
           float* dgr = dgi + ob + (size_t)r * GH + ul;
-          dgr[0] = di;
-          dgr[H] = df;
-          dgr[2 * H] = dgg;
-          dgr[3 * H] = dov;
+          dgr[0] = d0;
+          dgr[H] = d1;
+          dgr[2 * H] = d2;
+          dgr[3 * H] = d3;
         }
       }
     }
     if (t == 0) break;
     __syncthreads();  // dg complete; this step's prefetched rows are read
     prefetch(t - 1, idle);
-    // back through the own columns of W_hh: the partial dh of every unit
+    // back through the own columns of W_hh (and of W_d): the partial dh
+    // (and dc) of every unit
     float* pd = pdh + (t & 1) * tileH;
+    float* pc = pdc + (t & 1) * tileH;
     for (int item = tid; item < back_items; item += THREADS) {
       const int k = item % H, r0 = (item / H) * RPT;
       float acc[RPT];
@@ -1457,6 +1650,12 @@ lstm_bwd_kernel(RnnDims d, int cs, int R, const float* __restrict__ gi,
 #pragma unroll
       for (int q = 0; q < RPT; ++q)
         if (r0 + q < g.nr) pd[(r0 + q) * sH + k] = acc[q];
+      if (MODE == 4) {
+        back_sums<1, RPT>(dzd, sU, g.nu, wdl, k, r0, acc);
+#pragma unroll
+        for (int q = 0; q < RPT; ++q)
+          if (r0 + q < g.nr) pc[(r0 + q) * sH + k] = acc[q];
+      }
     }
     if (cs == 1) {
       cp_async_wait_all();
@@ -1464,14 +1663,20 @@ lstm_bwd_kernel(RnnDims d, int cs, int R, const float* __restrict__ gi,
       continue;
     }
     cluster.sync();
-    // the own units' dh: the cluster's partials in rank order (mode 1 sums
-    // every unit's at the top of the next step)
-    for (int i = tid; MODE == 0 && i < g.nr * g.nu; i += THREADS) {
+    // the own units' dh (and dc): the cluster's partials in rank order
+    // (mode 1 sums every unit's at the top of the next step)
+    for (int i = tid; MODE != 1 && i < g.nr * g.nu; i += THREADS) {
       const int r = i / g.nu, ul = i - r * g.nu, o = r * sH + g.u0 + ul;
       float s = cluster.map_shared_rank(pd, 0)[o];
       for (int peer = 1; peer < cs; ++peer)
         s += cluster.map_shared_rank(pd, peer)[o];
       gh[r * sU + ul] = s;
+      if (MODE == 4) {
+        float sc = cluster.map_shared_rank(pc, 0)[o];
+        for (int peer = 1; peer < cs; ++peer)
+          sc += cluster.map_shared_rank(pc, peer)[o];
+        gc[r * sU + ul] += sc;
+      }
     }
     cp_async_wait_all();
     __syncthreads();
@@ -1718,6 +1923,7 @@ struct LstmBwdArgs {
   const float *gi, *hs, *cs, *ghs, *whh, *bhh, *hcell;
   float *dgi, *acts, *dzs;
   ModeArgs m;
+  float* dmode;  // dsel (mode 2), dtg (3) or dzd (4)
 };
 
 // Launch kernel k over clusters of p.cs CTAs, or, without `run`, only
@@ -1835,7 +2041,7 @@ struct LstmBwd {
       return launch_clusters(lstm_bwd_kernel<RPT, WS, MODE>, p, a.d.B, s,
                              active, go, a.d, p.cs, p.rows, a.gi, a.hs, a.cs,
                              a.ghs, a.whh, a.bhh, a.dgi, a.m, a.hcell,
-                             a.acts, a.dzs);
+                             a.acts, a.dzs, a.dmode);
     }
   };
 };
@@ -1862,10 +2068,10 @@ int rnn_launch(const Args& a, int G, int backward, const ModeShape& ms,
 }
 
 // The kernel instance of a mode: the plain modes (0) and the modes each
-// pair takes (GRU 1-3, LSTM 1)
+// pair takes (GRU 1-3, LSTM 1-4)
 inline bool valid_mode(int G, const ModeShape& ms) {
   const bool ode = G == 3 ? ms.mode == 3 : ms.mode == 1;
-  if (ms.mode < 0 || ms.mode > (G == 3 ? 3 : 1)) return false;
+  if (ms.mode < 0 || ms.mode > (G == 3 ? 3 : 4)) return false;
   return !ode || (ms.n >= 1 && ms.S >= 1 && (ms.n == 1 || ms.HH >= 1));
 }
 
@@ -1890,9 +2096,19 @@ template <template <int> class Fn, class Args>
 int lstm_launch(const Args& a, int backward, const ModeShape& ms,
                 cudaStream_t s, int* active, bool go) {
   if (!valid_mode(4, ms)) return (int)cudaErrorInvalidValue;
-  if (ms.mode == 0)
-    return rnn_launch<Fn<0>::template At>(a, 4, backward, ms, s, active, go);
-  return rnn_launch<Fn<1>::template At>(a, 4, backward, ms, s, active, go);
+  switch (ms.mode) {
+    case 0: return rnn_launch<Fn<0>::template At>(a, 4, backward, ms, s,
+                                                   active, go);
+    case 1: return rnn_launch<Fn<1>::template At>(a, 4, backward, ms, s,
+                                                   active, go);
+    case 2: return rnn_launch<Fn<2>::template At>(a, 4, backward, ms, s,
+                                                   active, go);
+    case 3: return rnn_launch<Fn<3>::template At>(a, 4, backward, ms, s,
+                                                   active, go);
+    case 4: return rnn_launch<Fn<4>::template At>(a, 4, backward, ms, s,
+                                                   active, go);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 // The GRU backward by mode: the plain kernel in mode 0, the mode kernel in
@@ -1958,8 +2174,8 @@ extern "C" {
 
 // Every entry of a pair takes the launch's mode after its dimensions: the
 // mode (0 the plain modes; GRU 1 obs, 2 obs + row decay, 3 obs + evolve;
-// LSTM 1 evolve) and the evolve's shape (HH, n layers, S substeps; 0
-// without it).
+// LSTM 1 evolve, 2 sel, 3 tg, 4 TLSTM) and the evolve's shape (HH, n
+// layers, S substeps; 0 without it).
 
 int fused_gru_max_smem() { return max_optin_smem(); }
 int fused_lstm_max_smem() { return max_optin_smem(); }
@@ -2018,6 +2234,10 @@ int fused_gru_wgrad_splits(int L, int B, int H) {
 int fused_lstm_wgrad_splits(int L, int B, int H) {
   return wgrad_splits(L, B, H, 4);
 }
+// and of TLSTM's W_d gradient: [splits][H + 1][H]
+int fused_lstm_wdgrad_splits(int L, int B, int H) {
+  return wgrad_splits(L, B, H, 1);
+}
 
 // The GRU forward. hdec [L][B][H] (mode 0) may be null (no decay); obs
 // [L][B] (modes 1-3; null in modes 2 and 3: every step observed), the
@@ -2075,28 +2295,38 @@ int fused_gru_mlp_splits(int K, int in_w, int out_w) {
 }
 
 // The LSTM forward; the evolve of h' (mode 1) with its packed mlp and dts
-// [L][B] (null in mode 0). cs and hcell may be null (no backward will
-// run); hcell, the cells' own h', is written in mode 1 only.
+// [L][B]; the mode's stream aux: sel [L][B][H] (mode 2), tg [L][B][3H]
+// (3), tel [L][B] (4); TLSTM's W_d [H][H] and b_d [H] (4). Null where the
+// mode has none. cs and hcell may be null (no backward will run); hcell,
+// the cells' own h', is written in mode 1 only.
 int fused_lstm_fwd(const float* gi, const float* whh, const float* bhh,
-                   const float* mlp, const float* dts, float* hs, float* cs,
+                   const float* mlp, const float* dts, const float* aux,
+                   const float* wd, const float* bd, float* hs, float* cs,
                    float* hcell, int L, int B, int H, int mode, int HH, int n,
                    int S, void* stream) {
   const LstmFwdArgs a{RnnDims{L, B, H}, gi, whh, bhh, hs, cs, hcell,
-                      ModeArgs{nullptr, nullptr, mlp, dts, HH, n, S}};
+                      ModeArgs{nullptr, nullptr, mlp, dts, HH, n, S, aux, wd,
+                               bd}};
   return lstm_launch<LstmFwd>(a, 0, ModeShape{mode, HH, n, S},
                               (cudaStream_t)stream, nullptr, true);
 }
 
-// The reverse recurrence: dgi (the weight gradients are fused_lstm_wgrad
-// and fused_gru_mlpgrad) and, in mode 1, the evolve layers' streams
+// The reverse recurrence: dgi (the weight gradients are fused_lstm_wgrad,
+// fused_lstm_wdgrad and fused_gru_mlpgrad), in mode 1 the evolve layers'
+// streams, in modes 2-4 dmode: dsel [L][B][H], dtg [L][B][3H] or dzd
+// [L][B][H]. The mode's inputs as the forward's.
 int fused_lstm_bwd(const float* gi, const float* hs, const float* cs,
                    const float* hcell, const float* ghs, const float* whh,
                    const float* bhh, const float* mlp, const float* dts,
-                   float* dgi, float* acts, float* dzs, int L, int B, int H,
-                   int mode, int HH, int n, int S, void* stream) {
+                   const float* aux, const float* wd, const float* bd,
+                   float* dgi, float* acts, float* dzs, float* dmode, int L,
+                   int B, int H, int mode, int HH, int n, int S,
+                   void* stream) {
   const LstmBwdArgs a{RnnDims{L, B, H}, gi, hs, cs, ghs, whh, bhh, hcell,
                       dgi, acts, dzs,
-                      ModeArgs{nullptr, nullptr, mlp, dts, HH, n, S}};
+                      ModeArgs{nullptr, nullptr, mlp, dts, HH, n, S, aux, wd,
+                               bd},
+                      dmode};
   return lstm_launch<LstmBwd>(a, 1, ModeShape{mode, HH, n, S},
                               (cudaStream_t)stream, nullptr, true);
 }
@@ -2106,6 +2336,15 @@ int fused_lstm_bwd(const float* gi, const float* hs, const float* cs,
 int fused_lstm_wgrad(const float* hs, const float* dgi, float* p, int L,
                      int B, int H, void* stream) {
   return rnn_wgrad(nullptr, hs, nullptr, dgi, p, L, B, H, 4,
+                   (cudaStream_t)stream);
+}
+
+// Partials of TLSTM's (dW_d, db_d) [splits][H + 1][H] from the cell states
+// cs and dzd (the product kernel with x_t = c_{t-1}, zero before the first
+// step)
+int fused_lstm_wdgrad(const float* cs, const float* dzd, float* p, int L,
+                      int B, int H, void* stream) {
+  return rnn_wgrad(nullptr, cs, nullptr, dzd, p, L, B, H, 1,
                    (cudaStream_t)stream);
 }
 

@@ -9,13 +9,15 @@ Replaces the Pallas TPU kernels of snsde/kernels/fused_rnn.py — the GRU's
 `_lstm_forward` (:837) and `_fused_lstm_bwd` (:934) — in the modes the
 plain recurrent baselines (`SeqRNN`) and GRUD-full use: the GRU from any
 h0, with or without the per-sample hidden-decay stream hdec [L, B, H], and
-the LSTM from zero (h, c), in both directions; and in the modes of the
+the LSTM from zero (h, c), in both directions; in the modes of the
 ODE-RNN hybrids: the GRU's observation mask `obs` [L, B] (GRU-dt), with a
 time-only decay row hdec [L, H] (GRU-D) or with the in-kernel Euler MLP
 evolve before the cell (ODE-RNN; `Evolve`), and the LSTM's evolve of h
-after the cell with a per-row step (ODE-LSTM). The other modes of the JAX
-kernels (PLSTM's `sel`, TGLSTM's `tg`, TLSTM, bf16 streams, and mode
-combinations no JAX caller reaches) raise NotImplementedError naming
+after the cell with a per-row step (ODE-LSTM); and in the modes of the
+time-aware LSTMs: PLSTM's phased openness `sel` [L, B, H], TGLSTM's gate
+modifiers `tg` [L, B, 3H] and TLSTM's memory decomposition (`Decomp`: W_d,
+b_d and the elapsed times tel [L, B]). bf16 streams, and mode
+combinations no JAX caller reaches, raise NotImplementedError naming
 ROADMAP Queue 2 K6/K7; they never fall back to an eager loop.
 
 The input projection gi = xs @ w_ih + b_ih is computed outside the kernels
@@ -41,7 +43,7 @@ import torch
 from ._solver import SolverLib, check_tensors
 
 __all__ = ["fused_gru_scan", "fused_lstm_scan", "supports_fused_gru",
-           "supports_fused_lstm", "FusedGRU", "FusedLSTM", "Evolve",
+           "supports_fused_lstm", "FusedGRU", "FusedLSTM", "Evolve", "Decomp",
            "pack_mlp", "mlp_layers", "fused_mlp_weight_grads",
            "fused_mlp_weight_grads_reference", "force_rnn_plan",
            "fused_gru_forward", "fused_gru_backward",
@@ -51,7 +53,7 @@ __all__ = ["fused_gru_scan", "fused_lstm_scan", "supports_fused_gru",
            "fused_lstm_forward", "fused_lstm_backward",
            "fused_lstm_forward_reference", "fused_lstm_backward_reference",
            "fused_lstm_backward_recurrence", "fused_lstm_weight_grads",
-           "fused_lstm_weight_grads_reference",
+           "fused_lstm_weight_grads_reference", "fused_lstm_wd_grads",
            "fused_lstm_plan", "FusedGRUGrads", "FusedLSTMGrads",
            "GRURecurrence", "LSTMRecurrence", "MAX_H"]
 
@@ -72,6 +74,15 @@ GRU_ODE_FWD_LAUNCHES = 0
 GRU_ODE_BWD_LAUNCHES = 0
 LSTM_ODE_FWD_LAUNCHES = 0
 LSTM_ODE_BWD_LAUNCHES = 0
+# the time-aware LSTMs' modes: PLSTM's sel (mode 2), TGLSTM's tg (3), TLSTM
+# (4), and TLSTM's W_d gradient (the weight-gradient kernel on c and dzd)
+LSTM_SEL_FWD_LAUNCHES = 0
+LSTM_SEL_BWD_LAUNCHES = 0
+LSTM_TG_FWD_LAUNCHES = 0
+LSTM_TG_BWD_LAUNCHES = 0
+LSTM_TLSTM_FWD_LAUNCHES = 0
+LSTM_TLSTM_BWD_LAUNCHES = 0
+LSTM_WD_WGRAD_LAUNCHES = 0
 # the evolve's weight-gradient kernel, which both pairs' backwards feed
 MLP_WGRAD_LAUNCHES = 0
 
@@ -111,6 +122,16 @@ class Evolve(NamedTuple):
     steps: int
 
 
+class Decomp(NamedTuple):
+    """TLSTM's memory decomposition: before each step the short-term part
+    of the cell state, tanh(c W_d + b_d), is rescaled by the step's elapsed
+    time, c_adj = c - c_short + c_short tel, and the gates (f, i, o, a
+    sigmoid candidate) update c_adj."""
+    wd: torch.Tensor                     # [H, H] (in x out)
+    bd: torch.Tensor                     # [H]
+    tel: torch.Tensor                    # [L, B] elapsed times, data
+
+
 class FusedGRUGrads(NamedTuple):
     """Cotangents of the fused GRU's inputs (split partials summed); None
     for a mode input the call did not have."""
@@ -124,11 +145,16 @@ class FusedGRUGrads(NamedTuple):
 
 
 class FusedLSTMGrads(NamedTuple):
-    """Cotangents of the fused LSTM's inputs (split partials summed)."""
+    """Cotangents of the fused LSTM's inputs (split partials summed); None
+    for a mode input the call did not have (tel is data: none)."""
     dgi: torch.Tensor                    # [L, B, 4H]
     dwhh: torch.Tensor                   # [H, 4H]
     dbhh: torch.Tensor                   # [4H]
     dmlp: Optional[torch.Tensor] = None   # the evolve's, packed as its mlp
+    dsel: Optional[torch.Tensor] = None   # [L, B, H]
+    dtg: Optional[torch.Tensor] = None    # [L, B, 3H]
+    dwd: Optional[torch.Tensor] = None    # [H, H]
+    dbd: Optional[torch.Tensor] = None    # [H]
 
 
 # ---------------------------------------------------------------------------
@@ -377,33 +403,68 @@ def fused_gru_backward_reference(gi, hs, ghs, h0, whh, bhh, hdec=None,
                          dmlp)
 
 
-def _lstm_cell(g, h, c, whh, bhh):
-    """One LSTM step: (h', c', i, f, gg, o)."""
+def _lstm_cell(g, h, c, whh, bhh, tg=None, dec=None, tel=None):
+    """One cell evaluation from (h, c) before the step and the step's input
+    row g: (h', c', (i, f, gg, o, extra)) in torch's gate order (i, f, g,
+    o). With the modifiers tg [B, 3H] (TGLSTM) i, f and o are the raw
+    sigmoids times their modifiers, extra the raw sigmoids; with the memory
+    decomposition dec (TLSTM, tel [B] the step's elapsed times) the gates
+    read (f, i, o, a sigmoid candidate gg) and update c_adj, extra =
+    (c_short, c_adj) (snsde/kernels/fused_rnn.py:543-575)."""
     H = h.shape[1]
     a = g + h @ whh + bhh
+    if dec is not None:
+        c_short = torch.tanh(c @ dec.wd + dec.bd)
+        c_adj = c - c_short + c_short * tel[:, None]
+        f = torch.sigmoid(a[:, :H])
+        i = torch.sigmoid(a[:, H:2 * H])
+        o = torch.sigmoid(a[:, 2 * H:3 * H])
+        gg = torch.sigmoid(a[:, 3 * H:])
+        c2 = f * c_adj + i * gg
+        return o * torch.tanh(c2), c2, (i, f, gg, o, (c_short, c_adj))
     i = torch.sigmoid(a[:, :H])
     f = torch.sigmoid(a[:, H:2 * H])
     gg = torch.tanh(a[:, 2 * H:3 * H])
     o = torch.sigmoid(a[:, 3 * H:])
+    raw = None
+    if tg is not None:
+        raw = (i, f, o)
+        i, f, o = i * tg[:, :H], f * tg[:, H:2 * H], o * tg[:, 2 * H:]
     c2 = f * c + i * gg
-    return o * torch.tanh(c2), c2, i, f, gg, o
+    return o * torch.tanh(c2), c2, (i, f, gg, o, raw)
+
+
+def _lstm_step(t, gi, h, c, whh, bhh, sel, tg, dec):
+    """(h, c) after step t of a mode (PLSTM's openness sel blends the cell's
+    output with the state before it, both carries), and the cell's own
+    (h', c', gates)."""
+    h2, c2, gates = _lstm_cell(gi[t], h, c, whh, bhh,
+                               tg[t] if tg is not None else None, dec,
+                               dec.tel[t] if dec is not None else None)
+    if sel is None:
+        return h2, c2, (h2, c2, gates)
+    s = sel[t]
+    return s * h2 + (1.0 - s) * h, s * c2 + (1.0 - s) * c, (h2, c2, gates)
 
 
 def fused_lstm_forward_reference(gi, whh, bhh, save_cs: bool = True,
-                                 ode=None):
+                                 ode=None, sel=None, tg=None, dec=None):
     """Eager LSTM loop from zero (h, c): (hs [L, B, H], cs [L, B, H],
     hcell), cs None when save_cs is False. With the evolve `ode` (Evolve,
     dts [L, B]) the cell's output h' is evolved after each step (hs holds
     the evolved h, the next cell's input; c passes through), and hcell
     [L, B, H] holds the cells' own h' (None without the evolve or without
-    save_cs)."""
+    save_cs). The time-aware modes (one at a time): PLSTM's openness sel
+    [L, B, H] (h = sel h' + (1 - sel) h, likewise c: hs and cs hold the
+    blended states), TGLSTM's modifiers tg [L, B, 3H] of the i, f and o
+    gates, TLSTM's memory decomposition dec (Decomp)."""
     B, H = gi.shape[1], whh.shape[0]
     layers = (mlp_layers(ode.mlp, H, ode.hh, ode.n) if ode is not None
               else None)
     h = c = gi.new_zeros((B, H))
     hs, cs, hcell = [], [], []
     for t in range(gi.shape[0]):
-        h, c = _lstm_cell(gi[t], h, c, whh, bhh)[:2]
+        h, c = _lstm_step(t, gi, h, c, whh, bhh, sel, tg, dec)[:2]
         if ode is not None:
             hcell.append(h)
             h = _evolve(h, layers, ode.dts[t][:, None], ode.steps)[0]
@@ -418,7 +479,9 @@ def fused_lstm_weight_grads_reference(hs, dgi):
     and the gate cotangents dgi [L, B, 4H]: the gate pre-activation is
     gi + h W_hh + b_hh, so W_hh's cotangent is dgi itself, and dW_hh =
     sum_t h_{t-1}^T dgi_t (h_{-1} = 0), db_hh = sum dgi. One product over
-    (step, row), as the weight-gradient kernel computes it."""
+    (step, row), as the weight-gradient kernel computes it. TLSTM's (dW_d,
+    db_d) are the same product of the cell states cs and the cotangents
+    dzd [L, B, H] of c_short's pre-activation c_{t-1} W_d + b_d."""
     H, G = hs.shape[-1], dgi.shape[-1]
     dwhh = hs[:-1].reshape(-1, H).T @ dgi[1:].reshape(-1, G)
     return dwhh, dgi.reshape(-1, G).sum(0)
@@ -427,23 +490,34 @@ def fused_lstm_weight_grads_reference(hs, dgi):
 class LSTMRecurrence(NamedTuple):
     """What the LSTM's reverse recurrence writes: dgi [L, B, 4H] and, with
     the evolve, its streams (acts, dzs: each layer's input and output
-    cotangent, [L, S, B, width] blocks)."""
+    cotangent, [L, S, B, width] blocks); PLSTM's dsel [L, B, H], TGLSTM's
+    dtg [L, B, 3H], and TLSTM's dzd [L, B, H] (the cotangent of c_short's
+    pre-activation, which W_d's gradient takes)."""
     dgi: torch.Tensor
     acts: Optional[torch.Tensor] = None
     dzs: Optional[torch.Tensor] = None
+    dsel: Optional[torch.Tensor] = None
+    dtg: Optional[torch.Tensor] = None
+    dzd: Optional[torch.Tensor] = None
 
 
-def _lstm_reverse(gi, hs, cs, ghs, whh, bhh, ode=None,
-                  hcell=None) -> LSTMRecurrence:
-    """The reverse loop of the LSTM backward, with the evolve (its
-    substeps recomputed from the cell's output hcell[t]) undone before the
-    cell's backward."""
+def _lstm_reverse(gi, hs, cs, ghs, whh, bhh, ode=None, hcell=None, sel=None,
+                  tg=None, dec=None) -> LSTMRecurrence:
+    """The reverse loop of the LSTM backward (the JAX `_lstm_bwd_kernel`'s,
+    fused_rnn.py:616-728): recompute the cell from (h, c) before each step,
+    then back through PLSTM's blend, the evolve (its substeps recomputed
+    from the cell's output hcell[t], undone before the cell's backward),
+    the gates (TGLSTM's modifiers, TLSTM's decomposition) and W_hh (and
+    W_d)."""
     L, B, H = hs.shape
     dgi = torch.empty_like(gi)
     layers = acts = dzs = None
     if ode is not None:
         layers = mlp_layers(ode.mlp, H, ode.hh, ode.n)
         acts, dzs, av, zv = _evolve_streams(ode, L, B, H, hs)
+    dsel = torch.empty_like(sel) if sel is not None else None
+    dtg = torch.empty_like(tg) if tg is not None else None
+    dzd = torch.empty_like(hs) if dec is not None else None
     zero = torch.zeros_like(hs[0])
     gh, gc = zero, zero
     for t in range(L - 1, -1, -1):
@@ -456,33 +530,66 @@ def _lstm_reverse(gi, hs, cs, ghs, whh, bhh, ode=None,
                 lambda s, t=t: slice((t * ode.steps + s) * B,
                                      (t * ode.steps + s + 1) * B))
         h, c = (zero, zero) if t == 0 else (hs[t - 1], cs[t - 1])
-        _, c2, i, f, gg, o = _lstm_cell(gi[t], h, c, whh, bhh)
+        h2, c2, (i, f, gg, o, extra) = _lstm_step(t, gi, h, c, whh, bhh, sel,
+                                                  tg, dec)[2]
+        dh_carry = dc_carry = 0.0
+        if sel is not None:
+            # h = sel h' + (1 - sel) h (likewise c): sel's cotangent, and
+            # the shares that pass the cell by
+            s = sel[t]
+            dsel[t] = gh * (h2 - h) + gc * (c2 - c)
+            dh_carry, dc_carry = gh * (1.0 - s), gc * (1.0 - s)
+            gh, gc = gh * s, gc * s
         tc = torch.tanh(c2)
         dc = gc + gh * o * (1.0 - tc * tc)
-        dgates = torch.cat([dc * gg * i * (1.0 - i), dc * c * f * (1.0 - f),
-                            dc * i * (1.0 - gg * gg),
-                            gh * tc * o * (1.0 - o)], dim=-1)
+        if dec is not None:
+            c_short, c_adj = extra
+            dgates = torch.cat([dc * c_adj * f * (1.0 - f),
+                                dc * gg * i * (1.0 - i),
+                                gh * tc * o * (1.0 - o),
+                                dc * i * gg * (1.0 - gg)], dim=-1)
+            dc_adj = dc * f
+            dzd[t] = (dc_adj * (dec.tel[t][:, None] - 1.0)
+                      * (1.0 - c_short * c_short))
+            gc = dc_adj + dzd[t] @ dec.wd.T
+        elif tg is not None:
+            si, sf, so = extra
+            m = tg[t]
+            di, df, do = dc * gg, dc * c, gh * tc
+            dtg[t] = torch.cat([di * si, df * sf, do * so], dim=-1)
+            dgates = torch.cat([di * m[:, :H] * si * (1.0 - si),
+                                df * m[:, H:2 * H] * sf * (1.0 - sf),
+                                dc * i * (1.0 - gg * gg),
+                                do * m[:, 2 * H:] * so * (1.0 - so)], dim=-1)
+            gc = dc * f
+        else:
+            dgates = torch.cat([dc * gg * i * (1.0 - i),
+                                dc * c * f * (1.0 - f),
+                                dc * i * (1.0 - gg * gg),
+                                gh * tc * o * (1.0 - o)], dim=-1)
+            gc = dc * f + dc_carry
         dgi[t] = dgates
-        gh = dgates @ whh.T
-        gc = dc * f
-    return LSTMRecurrence(dgi, acts, dzs)
+        gh = dgates @ whh.T + dh_carry
+    return LSTMRecurrence(dgi, acts, dzs, dsel, dtg, dzd)
 
 
 def fused_lstm_backward_reference(gi, hs, cs, ghs, whh, bhh, ode=None,
-                                  hcell=None):
+                                  hcell=None, sel=None, tg=None, dec=None):
     """FusedLSTMGrads: the eager reverse loop mirroring the backward
-    kernels (and the JAX
-    `_lstm_bwd_kernel`): recompute the gates from (h, c) before each step
-    (and, with the evolve, its substeps from hcell[t], gone back through
-    first), then back through the cell and W_hh to dgi; then the weight
-    gradients from hs and dgi (fused_lstm_weight_grads_reference) and the
-    evolve's from its streams."""
-    rec = _lstm_reverse(gi, hs, cs, ghs, whh, bhh, ode, hcell)
+    kernels (and the JAX `_lstm_bwd_kernel`): recompute the gates from
+    (h, c) before each step (and, with the evolve, its substeps from
+    hcell[t], gone back through first), then back through the cell and
+    W_hh to dgi (and a mode's dsel, dtg or dzd); then the weight gradients
+    from hs and dgi (fused_lstm_weight_grads_reference), TLSTM's W_d's from
+    cs and dzd, and the evolve's from its streams."""
+    rec = _lstm_reverse(gi, hs, cs, ghs, whh, bhh, ode, hcell, sel, tg, dec)
     dmlp = (fused_mlp_weight_grads_reference(rec.acts, rec.dzs, *hs.shape,
                                              ode)
             if ode is not None else None)
+    dwd = (fused_lstm_weight_grads_reference(cs, rec.dzd)
+           if dec is not None else (None, None))
     return FusedLSTMGrads(rec.dgi, *fused_lstm_weight_grads_reference(
-        hs, rec.dgi), dmlp)
+        hs, rec.dgi), dmlp, rec.dsel, rec.dtg, *dwd)
 
 
 # ---------------------------------------------------------------------------
@@ -492,9 +599,10 @@ def fused_lstm_backward_reference(gi, hs, cs, ghs, whh, bhh, ode=None,
 # built and loaded at first launch; one library, csrc/fused_rnn.cu. Every
 # launch and plan entry takes the mode after the dimensions (GRU 0 the
 # plain modes, 1 obs, 2 obs + row decay, 3 obs + evolve; LSTM 0 plain, 1
-# evolve) and the evolve's shape (hh, n layers, S substeps; 0 without it).
-# The weight-gradient entries take (L, B, H); the evolve's (L, B, H, hh, n,
-# S), one kernel for both pairs, sits beside the GRU's entries.
+# evolve, 2 sel, 3 tg, 4 TLSTM) and the evolve's shape (hh, n layers, S
+# substeps; 0 without it). The weight-gradient entries take (L, B, H); the
+# evolve's (L, B, H, hh, n, S), one kernel for both pairs, sits beside the
+# GRU's entries; TLSTM's W_d gradient (the same kernel) beside the LSTM's.
 _INTS = ("L", "B", "H", "mode", "HH", "n", "S")
 _SHAPE = ("H", "B", "mode", "HH", "n", "S")
 _GRU = SolverLib("fused_gru", "fused GRU", 10, 19, int_names=_INTS,
@@ -502,10 +610,11 @@ _GRU = SolverLib("fused_gru", "fused GRU", 10, 19, int_names=_INTS,
                  launches={"wgrad": (5, 3), "mlpgrad": (3, 6)},
                  int_fns={"plan": 8, "wgrad_splits": 3, "mlp_splits": 3,
                           "force_plan": 2})
-_LSTM = SolverLib("fused_lstm", "fused LSTM", 8, 12, int_names=_INTS,
+_LSTM = SolverLib("fused_lstm", "fused LSTM", 11, 16, int_names=_INTS,
                   shape_names=_SHAPE, source="fused_rnn",
-                  launches={"wgrad": (3, 3)},
-                  int_fns={"plan": 8, "wgrad_splits": 3})
+                  launches={"wgrad": (3, 3), "wdgrad": (3, 3)},
+                  int_fns={"plan": 8, "wgrad_splits": 3,
+                           "wdgrad_splits": 3})
 _LIBS = (_GRU, _LSTM)
 _PLAN_FIELDS = ("cluster", "rows", "w_smem", "rows_per_thread",
                 "active_clusters", "smem_bytes")
@@ -555,16 +664,21 @@ def check_gru_inputs(gi, h0, whh, bhh, hdec=None, hs=None, ghs=None,
 
 
 def check_lstm_inputs(gi, whh, bhh, hs=None, cs=None, ghs=None, hcell=None,
-                      ode=None):
-    """As check_gru_inputs, for the LSTM kernels (the evolve's dts [L,
-    B])."""
+                      ode=None, sel=None, tg=None, dec=None):
+    """As check_gru_inputs, for the LSTM kernels (the evolve's dts [L, B];
+    sel [L, B, H], tg [L, B, 3H]; the decomposition's W_d [H, H], b_d [H]
+    and tel [L, B])."""
     L, B, H = _dims("fused LSTM", gi, whh, 4)
     want = {"gi": (L, B, 4 * H), "whh": (H, 4 * H), "bhh": (4 * H,),
             "hs": (L, B, H), "cs": (L, B, H), "ghs": (L, B, H),
-            "hcell": (L, B, H)}
+            "hcell": (L, B, H), "sel": (L, B, H), "tg": (L, B, 3 * H),
+            "wd": (H, H), "bd": (H,), "tel": (L, B)}
+    dec = dec or Decomp(None, None, None)
     check_tensors("fused LSTM", want, {"gi": gi, "whh": whh, "bhh": bhh,
                                        "hs": hs, "cs": cs, "ghs": ghs,
-                                       "hcell": hcell}, gi.device)
+                                       "hcell": hcell, "sel": sel, "tg": tg,
+                                       "wd": dec.wd, "bd": dec.bd,
+                                       "tel": dec.tel}, gi.device)
     if ode is not None:
         _check_evolve("fused LSTM", ode, L, B, H, gi.device, per_row=True)
     return L, B, H
@@ -603,7 +717,10 @@ _GRU_COUNTS = {0: ("GRU_FWD_LAUNCHES", "GRU_BWD_LAUNCHES"),
                2: ("GRU_DEC1_FWD_LAUNCHES", "GRU_DEC1_BWD_LAUNCHES"),
                3: ("GRU_ODE_FWD_LAUNCHES", "GRU_ODE_BWD_LAUNCHES")}
 _LSTM_COUNTS = {0: ("LSTM_FWD_LAUNCHES", "LSTM_BWD_LAUNCHES"),
-                1: ("LSTM_ODE_FWD_LAUNCHES", "LSTM_ODE_BWD_LAUNCHES")}
+                1: ("LSTM_ODE_FWD_LAUNCHES", "LSTM_ODE_BWD_LAUNCHES"),
+                2: ("LSTM_SEL_FWD_LAUNCHES", "LSTM_SEL_BWD_LAUNCHES"),
+                3: ("LSTM_TG_FWD_LAUNCHES", "LSTM_TG_BWD_LAUNCHES"),
+                4: ("LSTM_TLSTM_FWD_LAUNCHES", "LSTM_TLSTM_BWD_LAUNCHES")}
 
 
 def _count(name):
@@ -702,11 +819,11 @@ def fused_gru_backward_recurrence(gi, hs, ghs, h0, whh, bhh, hdec=None,
     return rec
 
 
-def _weight_grads(lib, label, gates, hs, dg, ptrs, others):
+def _weight_grads(lib, label, gates, hs, dg, ptrs, others, entry="wgrad"):
     """(dW_hh, db_hh) of the weight-gradient kernel, launched on `ptrs`
-    (the library's order) after checking hs, dg and `others`: its split
-    partials [S, H + 1, G H] (dW_hh's rows, then db_hh) summed here in a
-    fixed order."""
+    (the library's order) through the library's `entry` after checking hs,
+    dg and `others`: its split partials [S, H + 1, G H] (dW_hh's rows, then
+    db_hh) summed here in a fixed order."""
     if hs.ndim != 3 or dg.shape[:2] != hs.shape[:2]:
         raise ValueError(f"{label} weight-gradient kernel: hs [L, B, H] and "
                          f"a cotangent [L, B, {gates}H] expected")
@@ -715,9 +832,9 @@ def _weight_grads(lib, label, gates, hs, dg, ptrs, others):
             "dg": (L, B, gates * H)}
     check_tensors(label, want, {**others, "hs": hs, "dg": dg}, hs.device)
     stream = lib.stream(hs, (H, B, 0, 0, 0, 0), backward=True)
-    S = lib.kept("wgrad_splits", L, B, H)
+    S = lib.kept(f"{entry}_splits", L, B, H)
     p = _empty(S, H + 1, gates * H, device=hs.device)
-    lib.launch("wgrad", ptrs + (p,), (L, B, H), stream)
+    lib.launch(entry, ptrs + (p,), (L, B, H), stream)
     s = p.sum(0)
     return s[:H], s[H]
 
@@ -785,7 +902,30 @@ def fused_mlp_weight_grads(acts, dzs, L, B, H, ode: Evolve) -> torch.Tensor:
     return out
 
 
-def _lstm_fwd_launch(mode, gi, whh, bhh, ode, save_cs, stream):
+def _lstm_mode(ode, sel, tg, dec) -> int:
+    """The kernels' mode of an LSTM call: 0 plain, 1 the evolve, 2 sel, 3
+    tg, 4 the memory decomposition. Two of them at once (no JAX caller
+    does that) raise."""
+    given = [m for m, x in ((1, ode), (2, sel), (3, tg), (4, dec))
+             if x is not None]
+    if len(given) > 1:
+        _unported("a combination of the LSTM's evolve, sel, tg and TLSTM "
+                  "modes", "K7")
+    return given[0] if given else 0
+
+
+def _lstm_mode_ptrs(ode, sel, tg, dec):
+    """The evolve's packed weights and step sizes, the mode's stream (sel,
+    tg or tel) and the decomposition's W_d and b_d; null where the mode has
+    none."""
+    aux = sel if sel is not None else tg if tg is not None else (
+        dec.tel if dec is not None else None)
+    return (*_mode_ptrs(ode), aux, *((dec.wd, dec.bd) if dec is not None
+                                     else (None, None)))
+
+
+def _lstm_fwd_launch(mode, gi, whh, bhh, ode, save_cs, stream, sel=None,
+                     tg=None, dec=None):
     """(hs, cs, hcell) of the LSTM's forward kernel in mode `mode` on any
     tensors (cs None without save_cs, hcell None without it or the
     evolve)."""
@@ -793,76 +933,94 @@ def _lstm_fwd_launch(mode, gi, whh, bhh, ode, save_cs, stream):
     H = whh.shape[0]
     hs = _empty(L, B, H, device=gi.device)
     cs = _empty(L, B, H, device=gi.device) if save_cs else None
-    hcell = (_empty(L, B, H, device=gi.device) if save_cs and mode
+    hcell = (_empty(L, B, H, device=gi.device) if save_cs and mode == 1
              else None)
-    _LSTM.launch("fwd", (gi, whh, bhh, *_mode_ptrs(ode), hs, cs, hcell),
+    _LSTM.launch("fwd", (gi, whh, bhh, *_lstm_mode_ptrs(ode, sel, tg, dec),
+                         hs, cs, hcell),
                  (L, B, H) + _mode_ints(mode, ode), stream)
     return hs, cs, hcell
 
 
-def fused_lstm_forward(gi, whh, bhh, save_cs: bool = True, ode=None):
-    """(hs, cs, hcell) [L, B, H] each: the CUDA forward kernel for CUDA
-    tensors (without save_cs it writes no cell-state stream: cs None), the
-    plain version for CPU tensors. With the evolve `ode` (Evolve, dts [L,
-    B]) hs is the evolved h and hcell the cells' own output h' (None
-    without the evolve or without save_cs)."""
+def fused_lstm_forward(gi, whh, bhh, save_cs: bool = True, ode=None,
+                       sel=None, tg=None, dec=None):
+    """(hs, cs, hcell) [L, B, H] each: the CUDA forward kernel of the
+    call's mode for CUDA tensors (without save_cs it writes no cell-state
+    stream: cs None), the plain version for CPU tensors. With the evolve
+    `ode` (Evolve, dts [L, B]) hs is the evolved h and hcell the cells' own
+    output h' (None without the evolve or without save_cs); sel, tg and
+    dec (Decomp) as fused_lstm_forward_reference."""
     if gi.device.type == "cpu":
-        return fused_lstm_forward_reference(gi, whh, bhh, save_cs, ode)
-    mode = int(ode is not None)
-    L, B, H = check_lstm_inputs(gi, whh, bhh, ode=ode)
+        return fused_lstm_forward_reference(gi, whh, bhh, save_cs, ode, sel,
+                                            tg, dec)
+    mode = _lstm_mode(ode, sel, tg, dec)
+    L, B, H = check_lstm_inputs(gi, whh, bhh, ode=ode, sel=sel, tg=tg,
+                                dec=dec)
     stream = _LSTM.stream(gi, (H, B) + _mode_ints(mode, ode), backward=False)
-    out = _lstm_fwd_launch(mode, gi, whh, bhh, ode, save_cs, stream)
+    out = _lstm_fwd_launch(mode, gi, whh, bhh, ode, save_cs, stream, sel, tg,
+                           dec)
     _count(_LSTM_COUNTS[mode][0])
     return out
 
 
 def fused_lstm_backward(gi, hs, cs, ghs, whh, bhh, ode=None,
-                        hcell=None) -> FusedLSTMGrads:
+                        hcell=None, sel=None, tg=None,
+                        dec=None) -> FusedLSTMGrads:
     """Cotangents of the LSTM's inputs given ghs = dL/dhs: for CUDA tensors
-    the reverse-recurrence kernel (fused_lstm_backward_recurrence), then
-    the weight-gradient kernel (fused_lstm_weight_grads) and, with the
-    evolve `ode`, its layers' (fused_mlp_weight_grads); the plain version
-    for CPU tensors."""
+    the reverse-recurrence kernel of the call's mode
+    (fused_lstm_backward_recurrence), then the weight-gradient kernel
+    (fused_lstm_weight_grads; TLSTM's W_d by fused_lstm_wd_grads) and,
+    with the evolve `ode`, its layers' (fused_mlp_weight_grads); the plain
+    version for CPU tensors."""
     if gi.device.type == "cpu":
         return fused_lstm_backward_reference(gi, hs, cs, ghs, whh, bhh, ode,
-                                             hcell)
+                                             hcell, sel, tg, dec)
     rec = fused_lstm_backward_recurrence(gi, hs, cs, ghs, whh, bhh, ode,
-                                         hcell)
+                                         hcell, sel, tg, dec)
     dmlp = (fused_mlp_weight_grads(rec.acts, rec.dzs, *hs.shape, ode)
             if ode is not None else None)
+    dwd = (fused_lstm_wd_grads(cs, rec.dzd) if dec is not None
+           else (None, None))
     return FusedLSTMGrads(rec.dgi, *fused_lstm_weight_grads(hs, rec.dgi),
-                          dmlp)
+                          dmlp, rec.dsel, rec.dtg, *dwd)
 
 
 def _lstm_bwd_launch(mode, gi, hs, cs, hcell, ghs, whh, bhh, ode,
-                     stream) -> LSTMRecurrence:
-    """The LSTM's reverse recurrence in mode `mode` on any tensors."""
+                     stream, sel=None, tg=None, dec=None) -> LSTMRecurrence:
+    """The LSTM's reverse recurrence in mode `mode` on any tensors: dgi,
+    the evolve's streams (mode 1), dsel (2), dtg (3) or dzd (4)."""
     L, B, H = hs.shape
     dgi = _empty(L, B, 4 * H, device=gi.device)
-    acts, dzs = (_evolve_streams(ode, L, B, H, hs)[:2] if mode
+    acts, dzs = (_evolve_streams(ode, L, B, H, hs)[:2] if mode == 1
                  else (None, None))
-    _LSTM.launch("bwd", (gi, hs, cs, hcell, ghs, whh, bhh, *_mode_ptrs(ode),
-                         dgi, acts, dzs),
+    dmode = (_empty(L, B, 3 * H if mode == 3 else H, device=gi.device)
+             if mode > 1 else None)
+    _LSTM.launch("bwd", (gi, hs, cs, hcell, ghs, whh, bhh,
+                         *_lstm_mode_ptrs(ode, sel, tg, dec), dgi, acts, dzs,
+                         dmode),
                  (L, B, H) + _mode_ints(mode, ode), stream)
-    return LSTMRecurrence(dgi, acts, dzs)
+    return LSTMRecurrence(dgi, acts, dzs, *(dmode if mode == m else None
+                                            for m in (2, 3, 4)))
 
 
 def fused_lstm_backward_recurrence(gi, hs, cs, ghs, whh, bhh, ode=None,
-                                   hcell=None) -> LSTMRecurrence:
-    """The reverse recurrence alone (LSTMRecurrence: dgi [L, B, 4H] and,
-    with the evolve, its streams): the CUDA kernel for CUDA tensors, the
-    plain reverse loop for CPU tensors."""
+                                   hcell=None, sel=None, tg=None,
+                                   dec=None) -> LSTMRecurrence:
+    """The reverse recurrence alone (LSTMRecurrence: dgi [L, B, 4H] and the
+    call's mode's streams): the CUDA kernel for CUDA tensors, the plain
+    reverse loop for CPU tensors."""
     if gi.device.type == "cpu":
-        return _lstm_reverse(gi, hs, cs, ghs, whh, bhh, ode, hcell)
-    mode = int(ode is not None)
+        return _lstm_reverse(gi, hs, cs, ghs, whh, bhh, ode, hcell, sel, tg,
+                             dec)
+    mode = _lstm_mode(ode, sel, tg, dec)
     L, B, H = check_lstm_inputs(gi, whh, bhh, hs, cs, ghs,
-                                hcell if mode else None, ode)
-    if mode and hcell is None:
+                                hcell if mode == 1 else None, ode, sel, tg,
+                                dec)
+    if mode == 1 and hcell is None:
         raise ValueError("fused LSTM backward kernel: the evolve needs the "
                          "cells' own outputs hcell")
     stream = _LSTM.stream(gi, (H, B) + _mode_ints(mode, ode), backward=True)
     out = _lstm_bwd_launch(mode, gi, hs, cs, hcell, ghs, whh, bhh, ode,
-                           stream)
+                           stream, sel, tg, dec)
     _count(_LSTM_COUNTS[mode][1])
     return out
 
@@ -876,6 +1034,20 @@ def fused_lstm_weight_grads(hs, dgi):
         return fused_lstm_weight_grads_reference(hs, dgi)
     out = _weight_grads(_LSTM, "fused LSTM", 4, hs, dgi, (hs, dgi), {})
     LSTM_WGRAD_LAUNCHES += 1
+    return out
+
+
+def fused_lstm_wd_grads(cs, dzd):
+    """TLSTM's (dW_d [H, H], db_d [H]) from the cell states cs [L, B, H]
+    and the cotangents dzd [L, B, H] of c_short's pre-activation
+    c_{t-1} W_d + b_d (c_{-1} = 0): the weight-gradient kernel on those
+    streams for CUDA tensors, the plain version for CPU tensors."""
+    global LSTM_WD_WGRAD_LAUNCHES
+    if cs.device.type == "cpu":
+        return fused_lstm_weight_grads_reference(cs, dzd)
+    out = _weight_grads(_LSTM, "fused LSTM W_d", 1, cs, dzd, (cs, dzd), {},
+                        entry="wdgrad")
+    LSTM_WD_WGRAD_LAUNCHES += 1
     return out
 
 
@@ -896,10 +1068,11 @@ def fused_gru_plan(H: int, B: int, backward: bool, mode: int = 0,
 
 
 def fused_lstm_plan(H: int, B: int, backward: bool,
-                    ode: Optional[Evolve] = None) -> dict:
-    """As fused_gru_plan, for an LSTM launch (with the evolve `ode`)."""
-    return _plan(_LSTM, (H, B) + _mode_ints(int(ode is not None), ode),
-                 backward)
+                    ode: Optional[Evolve] = None, mode: int = 0) -> dict:
+    """As fused_gru_plan, for an LSTM launch in a mode (0 plain; 1 the
+    evolve `ode`, 2 sel, 3 tg, 4 TLSTM)."""
+    mode = 1 if ode is not None else mode
+    return _plan(_LSTM, (H, B) + _mode_ints(mode, ode), backward)
 
 
 def force_rnn_plan(cluster: int = 0, rows: int = 0) -> None:
@@ -943,27 +1116,39 @@ class FusedGRU(torch.autograd.Function):
                 None, None)
 
 
+def _decomp_of(wd, bd, tel):
+    return Decomp(wd, bd, tel) if wd is not None else None
+
+
 class FusedLSTM(torch.autograd.Function):
     """hs = the LSTM recurrence over gi [L, B, 4H] from zero (h, c) with
-    W_hh [H, 4H], b_hh [4H] and, optionally, the evolve of h after each
-    cell (packed weights mlp, dts [L, B], meta = (n, hh, steps)); the
-    cell-state trajectory (and the cells' own h') is saved for the
-    backward kernel, not returned."""
+    W_hh [H, 4H], b_hh [4H] and, optionally, one mode: the evolve of h
+    after each cell (packed weights mlp, dts [L, B], meta = (n, hh,
+    steps)), PLSTM's sel [L, B, H], TGLSTM's tg [L, B, 3H], or TLSTM's
+    memory decomposition (W_d [H, H], b_d [H], tel [L, B]); the cell-state
+    trajectory (and the cells' own h') is saved for the backward kernel,
+    not returned. dts and tel are data: no cotangent."""
 
     @staticmethod
-    def forward(ctx, gi, whh, bhh, mlp=None, dts=None, meta=None):
+    def forward(ctx, gi, whh, bhh, mlp=None, dts=None, meta=None, sel=None,
+                tg=None, wd=None, bd=None, tel=None):
         hs, cs, hcell = fused_lstm_forward(gi, whh, bhh, True,
-                                           _evolve_of(mlp, dts, meta))
+                                           _evolve_of(mlp, dts, meta), sel,
+                                           tg, _decomp_of(wd, bd, tel))
         ctx.meta = meta
-        ctx.save_for_backward(gi, whh, bhh, hs, cs, mlp, dts, hcell)
+        ctx.save_for_backward(gi, whh, bhh, hs, cs, mlp, dts, hcell, sel, tg,
+                              wd, bd, tel)
         return hs
 
     @staticmethod
     def backward(ctx, ghs):
-        gi, whh, bhh, hs, cs, mlp, dts, hcell = ctx.saved_tensors
+        (gi, whh, bhh, hs, cs, mlp, dts, hcell, sel, tg, wd, bd,
+         tel) = ctx.saved_tensors
         g = fused_lstm_backward(gi, hs, cs, ghs.contiguous(), whh, bhh,
-                                _evolve_of(mlp, dts, ctx.meta), hcell)
-        return g.dgi, g.dwhh, g.dbhh, g.dmlp, None, None
+                                _evolve_of(mlp, dts, ctx.meta), hcell, sel,
+                                tg, _decomp_of(wd, bd, tel))
+        return (g.dgi, g.dwhh, g.dbhh, g.dmlp, None, None, g.dsel, g.dtg,
+                g.dwd, g.dbd, None)
 
 
 # ---------------------------------------------------------------------------
@@ -1061,31 +1246,55 @@ def fused_lstm_scan(cell, xs, reverse: bool = False, stream_dtype=None,
     """The LSTM recurrence through the fused kernels from zero (h, c): xs
     [L, B, C] -> hs [L, B, H], the scan over the cell (torch (i, f, g, o)).
     When no gradient will be asked for, the forward kernel runs alone and
-    writes no cell-state stream. With ode_layers (`nn.Linear`s) and odt
-    [L, B] (ODE-LSTM), h is evolved after each cell by ode_steps Euler
-    substeps of odt / ode_steps of their MLP (c passes through). As
-    snsde/kernels/fused_rnn.py:972-1058; PLSTM's `sel`, TGLSTM's `tg`,
-    TLSTM and bf16 streams raise NotImplementedError."""
-    if sel is not None:
-        _unported("the PLSTM time gate `sel`", "K7")
-    if tg is not None:
-        _unported("the TGLSTM gate modifiers `tg`", "K7")
-    if tlstm is not None or tel is not None:
-        _unported("the TLSTM memory decomposition (`tlstm`, `tel`)", "K7")
+    writes no cell-state stream. As snsde/kernels/fused_rnn.py:972-1058,
+    one mode at a time:
+      ode_layers, odt [L, B], ode_steps
+                   ODE-LSTM: h evolved after each cell by ode_steps Euler
+                   substeps of odt / ode_steps of the MLP of the
+                   `nn.Linear`s ode_layers (c passes through);
+      sel [L, B, H]
+                   PLSTM's phased openness: h and c become sel times the
+                   cell's output plus (1 - sel) times the state before;
+      tg [L, B, 3H]
+                   TGLSTM's sigmoid modifiers of the i, f and o gates;
+      tlstm, tel [L, B]
+                   TLSTM's memory decomposition by the `nn.Linear` W_d
+                   (tlstm) over the elapsed times tel, the gates read as
+                   (f, i, o, sigmoid candidate).
+    sel, tg and W_d take gradients (through autograd to whatever made
+    them); odt and tel are data. A reverse run flips every stream. Two
+    modes at once and bf16 streams raise NotImplementedError (ROADMAP
+    Queue 2 K7)."""
+    _lstm_mode(ode_layers if ode_layers is not None else odt, sel, tg,
+               tlstm if tlstm is not None else tel)
     _check_stream_dtype(stream_dtype, "K7")
     if not supports_fused_lstm(cell):
         raise ValueError(f"fused LSTM kernels take LSTMCell-shaped cells "
                          f"with H <= {MAX_H}; got {type(cell).__name__}")
+    if (tlstm is None) != (tel is None):
+        raise ValueError("TLSTM's memory decomposition needs both tlstm "
+                         "and tel")
     gi = _projection(cell, xs, reverse)
     whh, bhh = cell.w_hh.contiguous(), cell.b_hh.contiguous()
     mlp, dts, meta = _evolve_args(ode_layers, ode_steps, odt,
                                   cell.hidden_size, reverse, "odt")
     if dts is not None:
         dts = dts.to(xs.device)
+    flip = (lambda a: torch.flip(a, (0,))) if reverse else (lambda a: a)
+    sel = flip(sel).contiguous() if sel is not None else None
+    tg = flip(tg).contiguous() if tg is not None else None
+    wd = bd = None
+    if tlstm is not None:
+        wd, bd = tlstm.weight.t().contiguous(), tlstm.bias.contiguous()
+        tel = flip(torch.as_tensor(tel, dtype=torch.float32,
+                                   device=xs.device)).contiguous()
     if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in (gi, whh, bhh, mlp)):
-        hs = FusedLSTM.apply(gi, whh, bhh, mlp, dts, meta)
+            t is not None and t.requires_grad
+            for t in (gi, whh, bhh, mlp, sel, tg, wd, bd)):
+        hs = FusedLSTM.apply(gi, whh, bhh, mlp, dts, meta, sel, tg, wd, bd,
+                             tel)
     else:
         hs = fused_lstm_forward(gi, whh, bhh, False,
-                                _evolve_of(mlp, dts, meta))[0]
+                                _evolve_of(mlp, dts, meta), sel, tg,
+                                _decomp_of(wd, bd, tel))[0]
     return torch.flip(hs, (0,)) if reverse else hs

@@ -13,8 +13,9 @@ GRU kernels' obs mode, with GRU-D's decay row or ODE-RNN's evolve); the
 tanh Elman cell, every CPU tensor and `use_fused=False` take the eager
 loop. The JAX package's gate `_fused_rnn_enabled` (fused only on a TPU and
 only at H >= 128, `snsde/models/rnn.py:31-53`) was measured on a TPU and
-does not carry over. SeqCNN and SeqTransformer are not ported yet (ROADMAP
-Queue 1 item 19).
+does not carry over. `SeqCNN` (`:446-483`, the registry's `cnn`,
+`cnn-3/5/7`) and `SeqTransformer` (`:487-554`, `transformer`) have no
+kernel, as in the JAX package: plain torch operations.
 """
 
 from __future__ import annotations
@@ -24,14 +25,15 @@ from typing import Optional
 import numpy as np
 import torch
 from torch import nn
+from torch.nn import functional as F
 
 from ..kernels.fused_rnn import (MAX_H, fused_gru_scan, fused_lstm_scan,
                                  supports_fused_gru, supports_fused_lstm)
 from ..nn.layers import GRUCell, LSTMCell, RNNCell, make_linear
 from ..ops.interp import CubicPath
 
-__all__ = ["GRUdt", "GRUD", "ODERNN", "SeqRNN", "last_observation_excl",
-           "scan_cell"]
+__all__ = ["GRUdt", "GRUD", "ODERNN", "SeqRNN", "SeqCNN", "SeqTransformer",
+           "last_observation_excl", "scan_cell"]
 
 
 def last_observation_excl(observed: torch.Tensor) -> torch.Tensor:
@@ -309,3 +311,105 @@ class SeqRNN(nn.Module):
             xs = hs
         stream = xs.movedim(0, 1)
         return self.linear(stream), stream
+
+
+class SeqCNN(nn.Module):
+    """A 1-D convolution stack over the time axis (the reference's
+    cnn{-3,-5,-7}): `depth` convolutions of `kernel_size` with "SAME"
+    padding, each followed by a ReLU, then a linear readout. The kernels
+    keep the JAX layout [k, c_in, c_out] (~ U(-1/sqrt(c_in k), ..)), the
+    biases start at zero.
+
+    forward(x [B, L, C]) -> (out [B, L, output_channels], h [B, L, H])."""
+
+    def __init__(self, input_channels: int, hidden_channels: int,
+                 output_channels: int, kernel_size: int = 3, depth: int = 2,
+                 *, generator: Optional[torch.Generator] = None,
+                 device=None):
+        super().__init__()
+        kernels, biases = [], []
+        c_in = input_channels
+        for _ in range(depth):
+            k = 1.0 / np.sqrt(c_in * kernel_size)
+            w = torch.empty((kernel_size, c_in, hidden_channels),
+                            device=device)
+            with torch.no_grad():
+                nn.init.uniform_(w, -k, k, generator=generator)
+            kernels.append(nn.Parameter(w))
+            biases.append(nn.Parameter(torch.zeros(hidden_channels,
+                                                   device=device)))
+            c_in = hidden_channels
+        self.kernels = nn.ParameterList(kernels)
+        self.biases = nn.ParameterList(biases)
+        self.linear = make_linear(hidden_channels, output_channels,
+                                  generator=generator, device=device)
+
+    def forward(self, x):
+        h = x.movedim(1, 2)                               # [B, C, L]
+        for kern, b in zip(self.kernels, self.biases):
+            h = torch.relu(F.conv1d(h, kern.permute(2, 1, 0), b,
+                                    padding="same"))
+        h = h.movedim(2, 1)
+        return self.linear(h), h
+
+
+class SeqTransformer(nn.Module):
+    """Encoder-only transformer with sinusoidal positions (the reference's
+    `transformer` baseline), parametrised as the JAX package writes it, not
+    as torch's `nn.TransformerEncoder`: an embedding, then per layer
+    `num_heads`-head self-attention (wq, wk, wv, wo) and a ReLU
+    feed-forward of width 4H (ff1, ff2), each added back and followed by a
+    layer norm without scale or offset (eps 1e-5), then a linear readout.
+
+    forward(x [B, L, C]) -> (out [B, L, output_channels], h [B, L, H])."""
+
+    def __init__(self, input_channels: int, hidden_channels: int,
+                 output_channels: int, num_heads: int = 4,
+                 num_layers: int = 2, *,
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        H = hidden_channels
+        mk = lambda a, b: make_linear(a, b, generator=generator,
+                                      device=device)
+        self.embed = mk(input_channels, H)
+        for name, (a, b) in (("wq", (H, H)), ("wk", (H, H)), ("wv", (H, H)),
+                             ("wo", (H, H)), ("ff1", (H, 4 * H)),
+                             ("ff2", (4 * H, H))):
+            setattr(self, name, nn.ModuleList(mk(a, b)
+                                              for _ in range(num_layers)))
+        self.linear = mk(H, output_channels)
+        self.num_heads, self.num_layers = num_heads, num_layers
+
+    @staticmethod
+    def _positions(L, H, like):
+        pos = torch.arange(L, dtype=like.dtype, device=like.device)[:, None]
+        i = torch.arange(0, H, 2, dtype=like.dtype, device=like.device)
+        angle = pos / torch.pow(10000.0, i / H)[None, :]
+        pe = like.new_zeros((L, H))
+        pe[:, 0::2] = torch.sin(angle)
+        pe[:, 1::2] = torch.cos(angle)[:, :H // 2]
+        return pe
+
+    @staticmethod
+    def _norm(x):
+        mu = x.mean(-1, keepdim=True)
+        var = x.var(-1, unbiased=False, keepdim=True)
+        return (x - mu) * torch.rsqrt(var + 1e-5)
+
+    def forward(self, x):
+        h = self.embed(x)                                 # [B, L, H]
+        B, L, H = h.shape
+        h = h + self._positions(L, H, h)
+        nh = self.num_heads
+        hd = H // nh
+        for li in range(self.num_layers):
+            q = self.wq[li](h).reshape(B, L, nh, hd)
+            k = self.wk[li](h).reshape(B, L, nh, hd)
+            v = self.wv[li](h).reshape(B, L, nh, hd)
+            att = torch.einsum("blhd,bmhd->bhlm", q, k) / np.sqrt(hd)
+            att = torch.softmax(att, dim=-1)
+            o = torch.einsum("bhlm,bmhd->blhd", att, v).reshape(B, L, H)
+            h = self._norm(h + self.wo[li](o))
+            ff = self.ff2[li](torch.relu(self.ff1[li](h)))
+            h = self._norm(h + ff)
+        return self.linear(h), h

@@ -17,9 +17,12 @@ values), `gru-simple` (SeqRNN over values ‖ mask ‖ delta) and `grud`
 (GRUDFull over (values, mask, delta)), and the ODE-RNN hybrids `gru-dt`,
 `gru-d`, `ode-rnn` (the observation GRUs over the coefficients) and
 `ode-lstm` (ODELSTM over the projected values and the first channel's
-delta); every other registry name raises NotImplementedError naming its
-ROADMAP item. The SDE names draw their
-Brownian paths from the generator the caller passes.
+delta), the time-aware LSTMs `tlstm`, `tglstm` (over the projected values
+and the first channel's delta) and `plstm` (over the projected values and
+the grid's times), and the convolution and attention baselines `cnn`,
+`cnn-3/5/7` and `transformer` (over the values); every other registry
+name raises NotImplementedError naming its ROADMAP item. The SDE names
+draw their Brownian paths from the generator the caller passes.
 """
 
 from __future__ import annotations
@@ -34,8 +37,8 @@ from .fields import DiffusionField
 from .models.latent_sde import LatentSDE
 from .models.neuralcde import FinalTanh, GRUODEField, NeuralCDEStream
 from .models.neuralsde import NeuralSDEStream, resolve_dt
-from .models.rnn import GRUD, ODERNN, GRUdt, SeqRNN
-from .models.time_rnn import ODELSTM, GRUDFull
+from .models.rnn import GRUD, ODERNN, GRUdt, SeqCNN, SeqRNN, SeqTransformer
+from .models.time_rnn import ODELSTM, PLSTM, TGLSTM, TLSTM, GRUDFull
 from .nn.layers import make_linear
 from .ops.interp import CubicPath
 from .ops.solve import sdeint
@@ -73,18 +76,17 @@ _SEQ_RNN = ("rnn", "gru", "lstm", "bilstm", "gru-simple")
 _SCALAR_SDE = ("neuralsde-x", "neuralsde-y", "neuralsde-z")
 _LATENT = ("latentsde", "latentsde-kl")
 _OBS_GRU = ("gru-dt", "gru-d", "ode-rnn")
+_TIME_LSTM = {"tlstm": TLSTM, "plstm": PLSTM, "tglstm": TGLSTM}
+_CONV_ATTN = ("cnn", "cnn-3", "cnn-5", "cnn-7", "transformer")
 PORTED_NAMES = ("neuralcde", "neuralcde-c", "neuralcde-h", "gru-ode",
-                *_SEQ_RNN, "grud", *_OBS_GRU, "ode-lstm", *_SCALAR_SDE,
-                *_LATENT,
+                *_SEQ_RNN, "grud", *_OBS_GRU, "ode-lstm", *_TIME_LSTM,
+                *_CONV_ATTN, *_SCALAR_SDE, *_LATENT,
                 *(n for n in MODEL_NAMES if n.startswith("neuralsde_")))
-
-# ROADMAP Queue 1 item of every registry name the port does not build yet
-_RECURRENT = ("tlstm", "plstm", "tglstm", "transformer")
 
 
 def _roadmap_item(name: str) -> str:
-    if name in _RECURRENT or name.startswith("cnn"):
-        return "item 19 (recurrent models)"
+    """The ROADMAP Queue 1 item of a registry name the port does not build
+    yet."""
     if name in ("neuralcde-l", "neuralcde-r"):
         return "items 3 and 17 (linear and rectilinear controls)"
     if name.startswith("neuralrde") or name in ("ancde", "exit", "leap"):
@@ -145,8 +147,8 @@ class SeqLayer(nn.Module):
     """The dispatcher. forward(seq [N, 3, L, D], coeffs) -> (out [N, L, H],
     hidden [N, L, H]), and for the LatentSDE names (out, latent [N, L,
     H-1], its KL term logqp) as the JAX layer's (out, hn, aux). `in_proj`
-    (ode-lstm's values -> hidden Linear) is the JAX layer's, None for the
-    other names."""
+    (the values -> hidden Linear of ode-lstm and the time-aware LSTMs) is
+    the JAX layer's, None for the other names."""
 
     def __init__(self, inner: nn.Module, model_name: str,
                  in_proj: Optional[nn.Module] = None):
@@ -172,6 +174,8 @@ class SeqLayer(nn.Module):
                               use_fused=use_fused)
         if name in ("rnn", "gru", "lstm", "bilstm"):
             return self.inner(x, generator=generator, use_fused=use_fused)
+        if name in _CONV_ATTN:
+            return self.inner(x)
         if name == "gru-simple":
             return self.inner(torch.cat([x, mask, delta], dim=-1),
                               generator=generator, use_fused=use_fused)
@@ -181,6 +185,13 @@ class SeqLayer(nn.Module):
         if name == "ode-lstm":
             hn = self.inner(self.in_proj(x), delta[..., 0],
                             use_fused=use_fused)
+            return hn, hn
+        if name in _TIME_LSTM:
+            # the elapsed times of the first channel; plstm's absolute
+            # times are the grid's (snsde/registry.py:205-209)
+            ts = (torch.as_tensor(times, device=x.device).expand(
+                x.shape[0], -1) if name == "plstm" else delta[..., 0])
+            hn = self.inner(self.in_proj(x), ts, use_fused=use_fused)[0]
             return hn, hn
         if name in _OBS_GRU:
             # stream=True: the readout of every step (the final index is
@@ -208,7 +219,11 @@ def make_seq_layer(model_name: str, input_dim: int, seq_len: int,
     largest odd width of the coefficient channels (the JAX registry's rule,
     snsde/registry.py:369-386); `ode-lstm` is ODELSTM(H, H, solver `method`
     or euler) behind a Linear in_proj of the values
-    (snsde/registry.py:332-335); `neuralsde_{i}_{jj}`
+    (snsde/registry.py:332-335), `tlstm`, `plstm` and `tglstm` TLSTM, PLSTM
+    and TGLSTM(H, H, num_layers) behind one too (:323-331); `cnn` (kernel
+    3) and `cnn-k` SeqCNN of depth max(num_layers, 1), `transformer`
+    SeqTransformer(num_layers) with 4 heads when hidden % 4 == 0, else 1
+    (:303-305, :336-339); `neuralsde_{i}_{jj}`
     is NeuralSDEStream(DiffusionField(coeff_dim, H, hh, num_hidden_layers,
     i, jj), srk unless `method` says otherwise), `neuralsde-x/y/z` the
     scalar-noise SDE and `latentsde`/`latentsde-kl` LatentSDE(coeff_dim, H,
@@ -245,11 +260,21 @@ def make_seq_layer(model_name: str, input_dim: int, seq_len: int,
         else:
             inner = (GRUdt if model_name == "gru-dt" else GRUD)(
                 ic, hidden_dim, hidden_dim, **kw)
-    elif model_name == "ode-lstm":
-        inner = ODELSTM(hidden_dim, hidden_dim, solver=method or "euler",
-                        **kw)
+    elif model_name in ("ode-lstm", *_TIME_LSTM):
+        inner = (ODELSTM(hidden_dim, hidden_dim, solver=method or "euler",
+                         **kw) if model_name == "ode-lstm" else
+                 _TIME_LSTM[model_name](hidden_dim, hidden_dim, num_layers,
+                                        **kw))
         return SeqLayer(inner, model_name,
                         in_proj=make_linear(input_dim, hidden_dim, **kw))
+    elif model_name.startswith("cnn"):
+        k = int(model_name.split("-")[1]) if "-" in model_name else 3
+        inner = SeqCNN(input_dim, hidden_dim, hidden_dim, kernel_size=k,
+                       depth=max(num_layers, 1), **kw)
+    elif model_name == "transformer":
+        inner = SeqTransformer(input_dim, hidden_dim, hidden_dim,
+                               num_heads=4 if hidden_dim % 4 == 0 else 1,
+                               num_layers=num_layers, **kw)
     elif model_name in _SCALAR_SDE:
         inner = _ScalarNoiseSDE(coeff_dim, hidden_dim, model_name[-1], **kw)
     elif model_name in _LATENT:

@@ -1429,14 +1429,21 @@ def test_latent_weight_grads_kernel_matches_its_plain_version(H, n_inner):
 
 # ---------------------------------------------------------------------------
 # The ODE-RNN hybrids' instances: the GRU pair's obs (mode 1), obs + decay
-# row (2) and obs + evolve (3), the LSTM pair's evolve
+# row (2) and obs + evolve (3), the LSTM pair's evolve (1); and the
+# time-aware LSTMs': the LSTM pair's sel (2), tg (3) and TLSTM (4)
 # ---------------------------------------------------------------------------
 
 # (kind, mode, evolve layers, substeps, hh)
 RNN_MODE_CASES = [("gru", 1, 0, 0, 0), ("gru", 2, 0, 0, 0),
                   ("gru", 3, 2, 1, 16), ("gru", 3, 3, 2, 7),
                   ("gru", 3, 1, 2, 0), ("lstm", 1, 2, 1, 20),
-                  ("lstm", 1, 3, 2, 7)]
+                  ("lstm", 1, 3, 2, 7), ("lstm", 2, 0, 0, 0),
+                  ("lstm", 3, 0, 0, 0), ("lstm", 4, 0, 0, 0)]
+# each mode's launch counters
+RNN_MODE_COUNTERS = {("gru", 1): "GRU_OBS", ("gru", 2): "GRU_DEC1",
+                     ("gru", 3): "GRU_ODE", ("lstm", 1): "LSTM_ODE",
+                     ("lstm", 2): "LSTM_SEL", ("lstm", 3): "LSTM_TG",
+                     ("lstm", 4): "LSTM_TLSTM"}
 # every kind of plan, forced: the host's own, one CTA, clusters of 2, 4
 # and 8 CTAs (H = 20: the last CTAs of 8 hold 2 units and none)
 RNN_FORCED = [(0, 0), (1, 8), (2, 8), (4, 16), (8, 8)]
@@ -1446,14 +1453,16 @@ def _rnn_mode_inputs(kind, mode, n, S, hh, H, B, L, obs=True, seed=0):
     """The pair's inputs (_rnn_inputs) and a mode's: obs [L, B] ~
     Bernoulli(0.6), the decay row [L, H] ~ U(0.2, 1), the evolve's MLP at
     the init's scale with step sizes ~ U(0, 0.4) / S ([L] for the GRU,
-    [L, B] for the LSTM)."""
+    [L, B] for the LSTM); the LSTM's sel [L, B, H] ~ U(0, 1), tg [L, B, 3H]
+    sigmoids of N(0, 1), TLSTM's W_d and b_d at the init's scale with
+    elapsed times ~ U(0, 2) [L, B]."""
     inputs, ghs = _rnn_inputs(kind, H, B=B, L=L, seed=seed)
     rng = np.random.default_rng(seed + 100)
     t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device="cuda")
     kw = {}
     if kind == "gru" and obs:
         kw["obs"] = t(rng.uniform(size=(L, B)) < 0.6)
-    if mode == 2:
+    if kind == "gru" and mode == 2:
         kw["hrow"] = t(rng.uniform(0.2, 1.0, size=(L, H)))
     if n:
         hh = hh if n > 1 else H
@@ -1464,7 +1473,29 @@ def _rnn_mode_inputs(kind, mode, n, S, hh, H, B, L, obs=True, seed=0):
                       t(rng.uniform(-k, k, size=j))]
         dts = rng.uniform(0.0, 0.4, size=(L,) if kind == "gru" else (L, B))
         kw["ode"] = fr.Evolve(torch.cat(parts), t(dts / S), n, hh, S)
+    if kind == "lstm" and mode == 2:
+        kw["sel"] = t(rng.uniform(size=(L, B, H)))
+    if kind == "lstm" and mode == 3:
+        kw["tg"] = t(1.0 / (1.0 + np.exp(-rng.normal(size=(L, B, 3 * H)))))
+    if kind == "lstm" and mode == 4:
+        k = 1.0 / np.sqrt(H)
+        kw["dec"] = fr.Decomp(t(rng.uniform(-k, k, size=(H, H))),
+                              t(rng.uniform(-k, k, size=(H,))),
+                              t(rng.uniform(0.0, 2.0, size=(L, B))))
     return inputs, kw, ghs
+
+
+def _mode_f64(kw):
+    """A mode's inputs in float64."""
+    out = {}
+    for n, v in kw.items():
+        if n == "ode":
+            out[n] = v._replace(mlp=v.mlp.double(), dts=v.dts.double())
+        elif n == "dec":
+            out[n] = fr.Decomp(*(x.double() for x in v))
+        else:
+            out[n] = v.double()
+    return out
 
 
 def _rnn_mode_run(kind, inputs, kw, ghs, plain=False):
@@ -1477,7 +1508,9 @@ def _rnn_mode_run(kind, inputs, kw, ghs, plain=False):
         g = bwd(hs=hs, ghs=ghs, **inputs, **kw)
     else:
         hs, cs, hcell = fwd(**inputs, save_cs=True, **kw)
-        out = {"hs": hs, "cs": cs, "hcell": hcell}
+        out = {"hs": hs, "cs": cs}
+        if hcell is not None:
+            out["hcell"] = hcell
         g = bwd(hs=hs, cs=cs, ghs=ghs, hcell=hcell, **inputs, **kw)
     out.update({n: v for n, v in zip(g._fields, g) if v is not None})
     return out
@@ -1489,10 +1522,8 @@ def _check_rnn_mode(kind, inputs, kw, ghs):
     and a float64 run of it."""
     k = _rnn_mode_run(kind, inputs, kw, ghs)
     p = _rnn_mode_run(kind, inputs, kw, ghs, plain=True)
-    kw64 = {n: (v._replace(mlp=v.mlp.double(), dts=v.dts.double())
-                if n == "ode" else v.double()) for n, v in kw.items()}
     r64 = _rnn_mode_run(kind, {n: v.double() for n, v in inputs.items()},
-                        kw64, ghs.double(), plain=True)
+                        _mode_f64(kw), ghs.double(), plain=True)
     torch.cuda.synchronize()
     assert set(k) == set(p)
     for name in k:
@@ -1531,8 +1562,7 @@ def test_rnn_mode_kernels_match_plain_versions(kind, mode, n, S, hh, H, B,
         pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
     forced_rnn_plan(*plan)
     inputs, kw, ghs = _rnn_mode_inputs(kind, mode, n, S, hh, H, B, L=9)
-    name = {("gru", 1): "GRU_OBS", ("gru", 2): "GRU_DEC1",
-            ("gru", 3): "GRU_ODE", ("lstm", 1): "LSTM_ODE"}[kind, mode]
+    name = RNN_MODE_COUNTERS[kind, mode]
     before = (getattr(fr, f"{name}_FWD_LAUNCHES"),
               getattr(fr, f"{name}_BWD_LAUNCHES"))
     _check_rnn_mode(kind, inputs, kw, ghs)
@@ -1544,25 +1574,45 @@ def test_rnn_mode_kernels_match_plain_versions(kind, mode, n, S, hh, H, B,
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind,mode,n,S,hh", [("gru", 2, 0, 0, 0),
                                               ("gru", 3, 2, 1, 256),
-                                              ("lstm", 1, 2, 1, 256)])
+                                              ("lstm", 1, 2, 1, 256),
+                                              ("lstm", 2, 0, 0, 0),
+                                              ("lstm", 3, 0, 0, 0),
+                                              ("lstm", 4, 0, 0, 0)])
 def test_rnn_mode_kernels_at_cluster_width(kind, mode, n, S, hh):
     """At H = 256, where the plan splits W_hh over a cluster of 8 and
-    every CTA runs the evolve on its full copy of the state."""
+    every CTA runs the evolve on its full copy of the state (TLSTM: keeps
+    every unit of c and sums dc's partials over the cluster)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
     inputs, kw, ghs = _rnn_mode_inputs(kind, mode, n, S, hh, 256, 40, L=6)
     plan = (fr.fused_gru_plan(256, 40, True, mode, kw.get("ode"))
             if kind == "gru" else fr.fused_lstm_plan(256, 40, True,
-                                                     kw["ode"]))
+                                                     kw.get("ode"), mode))
     print(f"{kind} mode {mode} H=256 backward plan {plan}")
     assert plan["cluster"] == 8 and plan["active_clusters"] >= 1
     _check_rnn_mode(kind, inputs, kw, ghs)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("mode", [2, 3, 4])
+def test_time_lstm_modes_with_slices_in_device_memory(mode):
+    """The time-aware LSTM instances at H = 512, B = 16: the W_hh (and
+    W_d) slices read from device memory by a cluster of 8."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    inputs, kw, ghs = _rnn_mode_inputs("lstm", mode, 0, 0, 0, 512, 16, L=5)
+    for backward in (False, True):
+        plan = fr.fused_lstm_plan(512, 16, backward, mode=mode)
+        print(f"lstm mode {mode} H=512 plan {plan}")
+        assert plan["cluster"] == 8 and plan["active_clusters"] >= 1
+    _check_rnn_mode("lstm", inputs, kw, ghs)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("kind,mode,n,S,hh", [("gru", 2, 0, 0, 0),
                                               ("gru", 3, 2, 2, 16),
-                                              ("lstm", 1, 2, 2, 16)])
+                                              ("lstm", 1, 2, 2, 16),
+                                              ("lstm", 4, 0, 0, 0)])
 @pytest.mark.parametrize("plan", [(0, 0), (4, 8)])
 def test_rnn_mode_backward_is_bit_reproducible(kind, mode, n, S, hh, plan,
                                                forced_rnn_plan):
@@ -1605,6 +1655,41 @@ def test_hybrid_layers_on_the_card_match_their_eager_loops(name):
         ((out ** 2).sum() + (hn ** 2).sum()).backward()
         outs.append([hn.detach()] + [p.grad.clone()
                                      for p in layer.parameters()])
+    for a, b in zip(*outs):
+        rel = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+        assert rel < TOL_GRAD, rel
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["tlstm", "plstm", "tglstm"])
+def test_time_lstm_layers_on_the_card_match_their_eager_loops(name):
+    """Each time-aware LSTM's two-layer registry layer on the card through
+    the kernels' modes against its eager loop on the card: the stream and
+    every gradient (the phase parameters and weight_t included)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    from snsde_torch.data import synthetic_uea
+    from snsde_torch.harness.robustness import coeff_family, preprocess_ists
+    from snsde_torch.registry import make_seq_layer
+
+    X, _, _ = synthetic_uea(n=24, length=15, channels=4, num_classes=2,
+                            seed=1)
+    data = preprocess_ists(X, 0.3, interpolation=coeff_family(name), seed=1)
+    seq = torch.as_tensor(data["seq"], device="cuda")
+    coeffs = torch.as_tensor(data["coeffs"], device="cuda")
+    layer = make_seq_layer(name, 4, 15, 16, num_layers=2,
+                           generator=torch.Generator().manual_seed(0)).cuda()
+    counter = {"tlstm": "LSTM_TLSTM", "plstm": "LSTM_SEL",
+               "tglstm": "LSTM_TG"}[name]
+    before = getattr(fr, f"{counter}_FWD_LAUNCHES")
+    outs = []
+    for fused in (True, False):
+        layer.zero_grad()
+        out, hn = layer(seq, coeffs, use_fused=fused)
+        ((out ** 2).sum() + (hn ** 2).sum()).backward()
+        outs.append([hn.detach()] + [p.grad.clone()
+                                     for p in layer.parameters()])
+    assert getattr(fr, f"{counter}_FWD_LAUNCHES") == before + 2
     for a, b in zip(*outs):
         rel = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
         assert rel < TOL_GRAD, rel

@@ -300,9 +300,9 @@ def test_lstm_inference_primal_skips_the_cell_states(monkeypatch):
     calls = []
     real = fr.fused_lstm_forward
 
-    def spy(gi, whh, bhh, save_cs=True, ode=None):
+    def spy(gi, whh, bhh, save_cs=True, *modes, **kw):
         calls.append(save_cs)
-        return real(gi, whh, bhh, save_cs, ode)
+        return real(gi, whh, bhh, save_cs, *modes, **kw)
 
     monkeypatch.setattr(fr, "fused_lstm_forward", spy)
     cell = LSTMCell(C, H, generator=torch.Generator().manual_seed(0))
@@ -341,10 +341,15 @@ def test_unported_gru_modes_raise(kw):
 
 
 @pytest.mark.parametrize("kw", [
-    {"sel": torch.ones(4, B, H)}, {"tg": torch.ones(4, B, 3 * H)},
-    {"tlstm": object(), "tel": torch.ones(4, B)},
+    {"sel": torch.ones(4, B, H), "tg": torch.ones(4, B, 3 * H)},
+    {"tg": torch.ones(4, B, 3 * H), "tlstm": object(),
+     "tel": torch.ones(4, B)},
+    {"sel": torch.ones(4, B, H), "odt": torch.ones(4, B),
+     "ode_layers": [torch.nn.Linear(H, H)]},
     {"stream_dtype": torch.bfloat16}])
 def test_unported_lstm_modes_raise(kw):
+    """Two of the LSTM's modes at once (no JAX caller does that) and bf16
+    streams raise on every device."""
     cell = LSTMCell(C, H, generator=torch.Generator().manual_seed(0))
     with pytest.raises(NotImplementedError, match="K7"):
         fr.fused_lstm_scan(cell, torch.zeros(4, B, C), **kw)

@@ -263,7 +263,7 @@ def test_run_robustness_sweep_writes_records_and_resumes(tmp_path,
     an unported name becomes an error record (the reference sweep's
     blanket skip), each record is a JSON file, and a second call reads
     them back without training."""
-    cfg = trob.SweepConfig(models=("neuralcde", "tlstm"),
+    cfg = trob.SweepConfig(models=("neuralcde", "sand"),
                            missing_rates=(0.3,),
                            seeds=(0,), hidden_dim=6, batch_size=16,
                            max_epochs=2, out_dir=str(tmp_path))
@@ -271,15 +271,15 @@ def test_run_robustness_sweep_writes_records_and_resumes(tmp_path,
     recs = trob.run_robustness_sweep(cfg, n=60, data_fn=_tiny_data,
                                      verbose=False, device="cpu",
                                      models=trained)
-    assert [r["model"] for r in recs] == ["neuralcde", "tlstm"]
-    cde, tlstm = recs
+    assert [r["model"] for r in recs] == ["neuralcde", "sand"]
+    cde, sand = recs
     assert 0.0 <= cde["accuracy"] <= 1.0 and cde["method"] == "rk4"
     assert "error" not in cde
-    assert "NotImplementedError" in tlstm["error"]
+    assert "NotImplementedError" in sand["error"]
     assert set(trained) == {(0.3, "neuralcde", 0)}
     files = sorted(p.name for p in (tmp_path / "synthetic_uea" / "30")
                    .iterdir())
-    assert files == ["neuralcde_0.json", "tlstm_0.json"]
+    assert files == ["neuralcde_0.json", "sand_0.json"]
 
     def no_training(*a, **k):
         raise AssertionError("trained again")
