@@ -15,7 +15,10 @@ phase 7; since the ODE-RNN hybrids the sweep's `gru-dt`, `gru-d`,
 `ode-rnn` and `ode-lstm` (the GRU and LSTM kernels' modes), phase 8; since
 the time-aware LSTMs the sweep's `tlstm`, `plstm` and `tglstm` (the LSTM
 kernels' sel, tg and TLSTM modes) and `cnn` and `transformer` (no kernel),
-phase 9.
+phase 9; since the CDE pair's GRU-ODE field and member axis the sweep's
+`gru-ode` (the CDE kernels' gruode instances) and the seed-packed
+`neuralcde` and `gru-ode` cells (one launch of the member-axis CDE kernels
+for the three seeds), phase 10.
 Phases, each of which raises on failure:
   1. card: name, and name and power limit from nvidia-smi;
   2. build: nvcc builds every kernel of the four paths from
@@ -127,7 +130,8 @@ Phases, each of which raises on failure:
      flagship's five repeats as one ensemble (run_sepsis_ensemble) for 2
      epochs, which must launch the packed EM kernels and no solo one; the
      sweep cell with pack_seeds for neuralsde_4_17 (three seeds, the
-     packed SRK kernels) and neuralcde; the packed launches against as
+     packed SRK kernels), and neuralcde and gru-ode (the packed CDE
+     kernels, no solo CDE launch); the packed launches against as
      many solo launches and their plain versions, with their bounds
      (packed_kernel_times); and the ensemble's training step against five
      solo steps, wall and device time (ensemble_step_times);
@@ -174,10 +178,34 @@ Phases, each of which raises on failure:
      sweep cell with cnn and transformer (no kernel: none may launch);
      the instances' times and bounds at the sweep's shape and at H=256,
      and one tlstm training step at the sweep cell through the kernels and
-     through the eager loop with its profiler window.
+     through the eager loop with its profiler window;
+ 10. the CDE pair's GRU-ODE field and member axis, in phases 3-6's
+     places: the gruode instances against their plain versions, the
+     trajectory and every cotangent by the float64 rule (compare_gruode:
+     the sweep cell B=64, L=60 (106 rk4 steps), C=6, H=16; the JAX
+     package's gruode_rk4 bench shape B=1024, L=72 (136 steps), C=6,
+     H=32; euler, midpoint and heun at B=128; H=128 and 256 at B=128,
+     L=24, the gates past a CTA's shared memory; every plan level forced
+     once; a ragged B=100; each plan printed); the member axis at the
+     sweep cell with three FinalTanh and three GRU-ODE members, each on its
+     own weights and control stream, each member bit for bit its solo
+     launch under forced plans, at K=1 and under the packed launch's own
+     plans (compare_cde_members), and the packed latent solve at the
+     sweep's shape, each member bit for bit its solo latent launch, also
+     through fused_latent_em_solve_packed (compare_latent_members); the
+     sweep cell with gru-ode for 2 epochs, which must launch the gruode
+     instances and never the eager cdeint, with a finite loss and its
+     trained field's fused solve against the eager one
+     (gruode_sweep_path); the seed-packed neuralcde and gru-ode cells in
+     phase 6's run; the gruode instances' times and bounds at both
+     shapes beside FinalTanh's, the packed launch against three solo
+     launches (cde_packed_kernel_times), and one gru-ode training step at
+     the sweep cell through the kernels and with use_fused=False, with its
+     profiler window.
 It prints one JSON line of the kernels (each SDE kernel with the `modes`
 it takes; the packed launches, the hybrids' and the time-aware LSTMs'
-instances and TLSTM's W_d gradient as their own entries, the recurrent
+instances, TLSTM's W_d gradient and the CDE pair's gruode instances and
+packed launches as their own entries, the recurrent
 modes with their H=256 times), the card's name and
 power limit, and last `{"ok": true, "device": {...}}`. It exits non-zero,
 printing no result, without a CUDA device or outside the repository.
@@ -549,31 +577,42 @@ def compare(model_name, B, L, C, H, layers, srk=False):
 def cde_kernel_inputs(B, L, C, H, n_inner, method="rk4", field="final_tanh",
                       seed=0):
     """Detached inputs of the CDE pair: a random field (FinalTanh with
-    n_inner inner layers, or SingleHiddenLayer) on the natural cubic path
+    n_inner inner layers, SingleHiddenLayer, or with field "gruode" the
+    GRU-ODE field, whose tensors of the MLP are None) on the natural cubic path
     of random series over linspace(0, 1, L), stepped with dt = the
     smallest knot gap (the NeuralCDE default), and a cotangent gys of a
     batch-mean loss; (tensors in the forward's order, flags, gys)."""
     from snsde_torch.kernels import fused_cde as fc
-    from snsde_torch.models import (FinalTanh, SingleHiddenLayer,
-                                    resolve_dt)
+    from snsde_torch.models import (FinalTanh, GRUODEField,
+                                    SingleHiddenLayer, resolve_dt)
     from snsde_torch.ops import CubicPath, make_grid, natural_cubic_coeffs
 
     rng = np.random.default_rng(seed)
     gen = torch.Generator().manual_seed(seed)
     if field == "final_tanh":
         func = FinalTanh(C, H, H, n_inner + 1, generator=gen)
+    elif field == "gruode":
+        func = GRUODEField(C, H, generator=gen)
     else:
         func = SingleHiddenLayer(C, H, H, generator=gen)
     func = func.to(DEV)
     times = np.linspace(0.0, 1.0, L).astype(np.float32)
-    x = torch.as_tensor(rng.normal(size=(B, L, C)).astype(np.float32))
+    x = rng.normal(size=(B, L, C)).astype(np.float32)
+    if field == "gruode":
+        # a Brownian-like path (N(0, 1/L) steps): the GRU-ODE state feeds
+        # back through its gates, and on independent N(0, 1) knots the
+        # explicit solve itself diverges (past 1e11 in float64 at B=100,
+        # L=30), where no float32 digit is left to compare
+        x = np.cumsum(x / np.sqrt(L), axis=1, dtype=np.float32)
+    x = torch.as_tensor(x)
     coeffs = natural_cubic_coeffs(torch.as_tensor(times), x, pack=True)
     path = CubicPath(coeffs.to(DEV), times)
     grid, _ = make_grid(times, resolve_dt(times, floor=0.0))
     z0 = torch.as_tensor(rng.normal(size=(B, H)).astype(np.float32)).to(DEV)
     with torch.no_grad():
         inp = fc.fused_cde_inputs(func, path, grid, z0, method)
-    fwd = [inp[k].detach().contiguous() for k in fc._ARG_ORDER]
+    fwd = [None if inp[k] is None else inp[k].detach().contiguous()
+           for k in fc._ARG_ORDER]
     M = len(grid) - 1
     gys = torch.as_tensor(rng.normal(size=(M, B, H)).astype(np.float32) / B)
     return fwd, dict(method=method, act=inp["act"]), gys.to(DEV)
@@ -581,15 +620,17 @@ def cde_kernel_inputs(B, L, C, H, n_inner, method="rk4", field="final_tanh",
 
 def compare_cde(B, L, C, H, n_inner, method="rk4", field="final_tanh"):
     """The CDE pair's plan at the shape, and the pair against its plain
-    versions (check_pair_rows)."""
-    cde_plans([(B, H, C, n_inner)], method)
+    versions (check_pair_rows; the GRU-ODE field's cotangents too by the
+    float64 rule: its z feedback through three gates amplifies float32
+    rounding)."""
     fwd, flags, gys = cde_kernel_inputs(B, L, C, H, n_inner, method, field)
+    cde_plans([(B, H, C, n_inner)], method, flags["act"])
     return check_pair_rows(f"CDE {field} {method} n_inner={n_inner} B={B} "
                            f"L={L} (M={gys.shape[0]}) C={C} H={H}", "cde",
-                           fwd, flags, gys)
+                           fwd, flags, gys, amplifies=field == "gruode")
 
 
-def cde_plans(shapes, method="rk4"):
+def cde_plans(shapes, method="rk4", act="relu", members=1):
     """Print the CDE pair's plan at each (B, H, C, n_inner) (H = HH):
     level (0 everything in shared memory, 1 the hidden weights in device
     memory, 2 the hidden gradients too, 3 dWout too, 4 as 3 with the Wout
@@ -602,8 +643,10 @@ def cde_plans(shapes, method="rk4"):
 
     for B, H, C, n_inner in shapes:
         for backward in (False, True):
-            p = fc.fused_cde_plan(B, H, H, C, n_inner, method, backward)
+            p = fc.fused_cde_plan(B, H, H, C, n_inner, method, backward, act,
+                                  members)
             print(f"  CDE plan B={B} H=HH={H} C={C} n_inner={n_inner} "
+                  f"{act} K={members} "
                   f"{method} {'backward' if backward else 'forward'}: level "
                   f"{p['level']}, CS={p['cluster']}, {p['rows']} rows a "
                   f"cluster, stages {'kept' if p['keep'] else 'recomputed'}"
@@ -1015,6 +1058,9 @@ def _counters():
             for key in ("em", "srk") for part in ("fwd", "bwd", "wgrad")]
     out += [(f"em_latent_{part}", _kernel_modules()["em"],
              f"LATENT_{part.upper()}_LAUNCHES") for part in ("fwd", "bwd")]
+    out += [(f"cde_{kind}_{part}", _kernel_modules()["cde"],
+             f"{kind.upper()}_{part.upper()}_LAUNCHES")
+            for kind in ("gru", "packed") for part in ("fwd", "bwd")]
     out += [(f"{key}_{part}", fused_rnn,
              f"{key.upper()}_{part.upper()}_LAUNCHES")
             for key in ("gru", "lstm") for part in ("fwd", "bwd", "wgrad")]
@@ -2421,19 +2467,33 @@ def sde_backward_times(key, fwd, ys, gys, flags):
     return ms, bound(4 * (n_in + n_out), flops)
 
 
-def cde_kernel_times(shape, method="rk4"):
+def cde_flops(flags, M, B, H, HH, C, n_inner):
+    """The fp32 operations of a CDE forward (per stage and row: the MLP's
+    products, or the GRU-ODE field's three gate products, and the [H, C]
+    contraction with dX/dt)."""
+    from snsde_torch.kernels import fused_cde as fc
+
+    stages = len(fc._TABLEAUS[flags["method"]][2])
+    if flags["act"] == "gruode":
+        per_eval = 2 * 3 * H * H * C + 2 * H * C
+    else:
+        per_eval = 2 * (H * HH + n_inner * HH * HH + HH * H * C) + 2 * H * C
+    return stages * M * B * per_eval
+
+
+def cde_kernel_times(shape, method="rk4", field="final_tanh"):
     """Times of the CDE pair and its plain versions (fewer runs: the plain
     backward at 136 rk4 steps takes a large part of a second), and its
     bounds from the same inputs: the bytes of every input read once and
-    every output written once, and the fp32 operations of the field (per
-    stage and row: the MLP's products and the [H, C] contraction with
-    dX/dt; the backward recomputes each evaluation and runs its products
-    back: 3x)."""
+    every output written once, and the fp32 operations of the field
+    (cde_flops; the backward recomputes each evaluation and runs its
+    products back: 3x)."""
     from snsde_torch.kernels import fused_cde as fc
 
     fwd_k, fwd_p, bwd_k, bwd_p = kernel_fns("cde")
     fwd, flags, gys = cde_kernel_inputs(shape["B"], shape["L"], shape["C"],
-                                        shape["H"], shape["n_inner"], method)
+                                        shape["H"], shape["n_inner"], method,
+                                        field)
     ys, _ = fwd_k(*fwd, **flags)
     bwd_args = [fwd[0], ys, gys] + fwd[1:]
     ms = {"fwd": timed(lambda: fwd_k(*fwd, **flags)),
@@ -2441,19 +2501,16 @@ def cde_kernel_times(shape, method="rk4"):
           "bwd": timed(lambda: bwd_k(*bwd_args, **flags)),
           "bwd_plain": timed(lambda: bwd_p(*bwd_args, **flags), reps=5,
                              warmup=1)}
-    M, B, H = ys.shape
-    HH, n_inner = fwd[3].shape[1], fwd[5].shape[0]
-    C = fwd[7].shape[1] // H
-    stages = len(fc._TABLEAUS[method][2])
-    per_eval = 2 * (H * HH + n_inner * HH * HH + HH * H * C) + 2 * H * C
-    flops = stages * M * B * per_eval
-    nbytes_in = 4 * sum(t.numel() for t in fwd)
+    M, B, H, HH, C, n_inner = fc.check_kernel_inputs(*fwd, **flags)
+    flops = cde_flops(flags, M, B, H, HH, C, n_inner)
+    nbytes_in = 4 * sum(t.numel() for t in fwd if t is not None)
     grads = bwd_k(*bwd_args, **flags)
     bounds = {"fwd": bound(nbytes_in + 4 * ys.numel(), flops),
               "bwd": bound(nbytes_in + 4 * (ys.numel() + gys.numel()
-                                            + sum(g.numel() for g in grads)),
+                                            + sum(g.numel() for g in grads
+                                                  if g is not None)),
                            3 * flops)}
-    print(f"CDE pair at B={B} M={M} C={C} H={H} n_inner={n_inner}: "
+    print(f"CDE pair ({field}) at B={B} M={M} C={C} H={H} n_inner={n_inner}: "
           f"forward {flops / 1e9:.3f} GFLOP, bound "
           f"{bounds['fwd'][0]:.5f} ms ({bounds['fwd'][1]}), backward bound "
           f"{bounds['bwd'][0]:.5f} ms ({bounds['bwd'][1]})", flush=True)
@@ -3373,20 +3430,29 @@ def sepsis_ensemble_path():
     return launches
 
 
-def packed_sweep_path(out_dir):
+# the solo launch counters a seed-packed CDE cell must leave at 0: each of
+# its forwards and backwards is one launch for every seed
+CDE_SOLO = ("cde_fwd", "cde_bwd", "cde_gru_fwd", "cde_gru_bwd")
+
+
+def packed_sweep_path(out_dir, names=("neuralsde_4_17", "neuralcde",
+                                       "gru-ode")):
     """The sweep cell with pack_seeds: `neuralsde_4_17` (its three seeds'
-    solve one packed SRK launch) and `neuralcde` (a solo CDE launch a
-    member), one model a run with every count set to 0 before it; each
-    writes a record a seed with `packed` and no error. Returns the launch
-    counts of each run."""
+    solve one packed SRK launch), and `neuralcde` and `gru-ode` (their
+    three seeds' solve one packed CDE launch: the packed counters move and
+    no solo CDE launch is made), one model a run with every count set to 0
+    before it; each writes a record a seed with `packed` and no error.
+    Returns the launch counts of each run."""
     from snsde_torch.harness.robustness import (SweepConfig,
                                                 run_robustness_sweep)
 
     out = {}
-    for name, need in (("neuralsde_4_17", ("srk_packed_fwd",
-                                           "srk_packed_bwd",
-                                           "srk_packed_wgrad")),
-                       ("neuralcde", ("cde_fwd", "cde_bwd"))):
+    cde = ("cde_packed_fwd", "cde_packed_bwd")
+    need_of = {"neuralsde_4_17": ("srk_packed_fwd", "srk_packed_bwd",
+                                  "srk_packed_wgrad"),
+               "neuralcde": cde, "gru-ode": cde}
+    for name in names:
+        need = need_of[name]
         cfg = SweepConfig(models=(name,), missing_rates=(0.3,),
                           seeds=(0, 1, 2), hidden_dim=SWEEP["H"],
                           batch_size=SWEEP["B"], max_epochs=2,
@@ -3409,6 +3475,9 @@ def packed_sweep_path(out_dir):
         if min(launches[k] for k in need) <= 0:
             raise AssertionError(f"the packed {name} cell did not launch "
                                  f"{need}: {launches}")
+        if any(launches[k] for k in CDE_SOLO):
+            raise AssertionError(f"the packed {name} cell made solo CDE "
+                                 f"launches: {launches}")
     return out
 
 
@@ -3980,6 +4049,376 @@ def speech_r5(out: str = "RESULTS_torch_speech_r5.json") -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the GRU-ODE field on the CDE kernels, the CDE pair's member
+# axis and the packed latent solve
+# ---------------------------------------------------------------------------
+
+# the GRU-ODE field's shapes: the sweep cell's (106 rk4 steps) and the JAX
+# package's gruode_rk4 bench shape (tools/bench_cde.py:153: B=1024, L=72,
+# 136 rk4 steps, C=6, H=32)
+GRU_SHAPES = {"sweep": dict(B=SWEEP["B"], L=SWEEP["L"], C=SWEEP["D"] + 1,
+                            H=SWEEP["H"], n_inner=0),
+              "gruode_rk4": dict(B=1024, L=72, C=6, H=32, n_inner=0)}
+# the shape at which each plan level is forced once, and the plan's levels
+# (csrc/fused_cde.cu: LEVELS)
+GRU_LEVELS = dict(B=128, L=24, C=6, H=32, n_inner=0)
+CDE_LEVELS = 7
+# members of the packed CDE cells and launches: the sweep's three seeds
+CDE_K = 3
+
+
+def compare_gruode():
+    """The GRU-ODE instances against their plain versions (compare_cde:
+    the trajectory and every cotangent by the float64 rule) at both
+    GRU_SHAPES, on euler, midpoint and heun (B=128 at the bench length), at
+    H=128 and 256 (B=128, L=24: the gates past a CTA's shared memory), with
+    every plan level forced once (GRU_LEVELS) and on a ragged B=100; each
+    plan printed. Returns the largest forward and backward errors."""
+    from snsde_torch.kernels import fused_cde as fc
+
+    errs = [compare_cde(**sh, field="gruode") for sh in GRU_SHAPES.values()]
+    sh = GRU_SHAPES["gruode_rk4"]
+    for method in ("euler", "midpoint", "heun"):
+        errs.append(compare_cde(128, sh["L"], sh["C"], sh["H"], 0, method,
+                                field="gruode"))
+    for H in WIDE_H:
+        errs.append(compare_cde(WIDE["B"], WIDE["L"], 6, H, 0,
+                                field="gruode"))
+    for level in range(1, CDE_LEVELS):
+        print(f"  the GRU-ODE instances with level {level} forced:")
+        fc._LIB.force_placement(level)
+        try:
+            errs.append(compare_cde(**GRU_LEVELS, field="gruode"))
+        finally:
+            fc._LIB.force_placement(0)
+    errs.append(compare_cde(100, 30, 6, 32, 0, field="gruode"))
+    return max(e[0] for e in errs), max(e[1] for e in errs)
+
+
+def cde_member_inputs(field, K, B, L, C, H, n_inner):
+    """K members' CDE inputs (member k's field, control path, z0 and
+    cotangent from seed k: a control stream of its own), stacked on a
+    leading axis but dts: (stacked forward inputs, flags, stacked gys,
+    [(member's forward inputs, its gys)])."""
+    from snsde_torch.kernels import fused_cde as fc
+
+    members = [cde_kernel_inputs(B, L, C, H, n_inner, "rk4", field, seed=k)
+               for k in range(K)]
+    stacked = [t if t is None or name == "dts" else
+               torch.stack([m[0][i] for m in members])
+               for i, (name, t) in enumerate(zip(fc._ARG_ORDER,
+                                                 members[0][0]))]
+    return (stacked, members[0][1], torch.stack([m[2] for m in members]),
+            [(m[0], m[2]) for m in members])
+
+
+def compare_cde_members(field, K=CDE_K):
+    """The CDE pair's member axis at the sweep cell (K members of `field`,
+    each on its own weights, z0 and control stream): (1) under each forced
+    plan of MEMBER_PLANS, member k of the packed launch is bit for bit the
+    launch of member k alone (the trajectory and every cotangent); (2) a
+    packed launch of one member is bit for bit the solo launch under the
+    plan's own choice; (3) under the packed launch's own plans (waves over
+    K x clusters; printed), the solo launches under the same plans forced
+    are its members bit for bit, and each member's largest error from its
+    float32 plain version is returned (forward, backward; the solo kernels
+    are held to the plain versions at this shape by compare_cde)."""
+    from snsde_torch.kernels import fused_cde as fc
+
+    sh = GRU_SHAPES["sweep"]
+    fwd, flags, gys, members = cde_member_inputs(field, K, **sh)
+    label = (f"CDE {field} member axis B={sh['B']} L={sh['L']} H={sh['H']} "
+             f"K={K}")
+    for cs, rows in MEMBER_PLANS:
+        fc.force_cde_plan(cs, rows)
+        try:
+            packed = _run("cde", fwd, flags, gys)
+            solo = [_run("cde", f, flags, g) for f, g in members]
+        finally:
+            fc.force_cde_plan(0, 0)
+        _same_as_solo(f"{label} plan ({cs}, {rows})", "cde", packed, solo)
+    one = [t if t is None or name == "dts" else t[:1]
+           for name, t in zip(fc._ARG_ORDER, fwd)]
+    _same_as_solo(f"{label} K=1", "cde", _run("cde", one, flags, gys[:1]),
+                  [_run("cde", members[0][0], flags, members[0][1])])
+    cde_plans([(sh["B"], sh["H"], sh["C"], sh["n_inner"])], "rk4",
+              flags["act"], K)
+    plan = {b: fc.fused_cde_plan(sh["B"], sh["H"], sh["H"], sh["C"],
+                                 sh["n_inner"], "rk4", b, flags["act"], K)
+            for b in (False, True)}
+    fwd_k, fwd_p, bwd_k, bwd_p = kernel_fns("cde")
+    ys = fwd_k(*fwd, **flags)[0]
+    g = bwd_k(fwd[0], ys, gys, *fwd[1:], **flags)
+    err_f = err_b = 0.0
+    for k, (f, gk) in enumerate(members):
+        solo = []
+        for b, run in ((False, lambda: fwd_k(*f, **flags)[0]),
+                       (True, lambda: bwd_k(f[0], ys[k], gk, *f[1:],
+                                            **flags))):
+            fc.force_cde_plan(plan[b]["cluster"], plan[b]["rows"])
+            try:
+                solo.append(run())
+            finally:
+                fc.force_cde_plan(0, 0)
+        ys_s, g_s = solo
+        torch.cuda.synchronize()
+        _same_as_solo(f"{label} the packed plans", "cde",
+                      (ys[k:k + 1], None, type(g)(*(None if t is None
+                                                    else t[k:k + 1]
+                                                    for t in g))),
+                      [(ys_s, None, g_s)])
+        ys_p = fwd_p(*f, **flags)[0]
+        g_p = bwd_p(f[0], ys[k], gk, *f[1:], **flags)
+        err_f = max(err_f, float((ys[k] - ys_p).abs().max()))
+        err_b = max([err_b] + [float((a[k] - b).abs().max())
+                               for a, b in zip(g, g_p)
+                               if b is not None and b.numel()])
+    print(f"  {label}: every member bit for bit its solo launch under plans "
+          f"{list(MEMBER_PLANS)}, K=1 and the packed launch's own plans "
+          f"(forward {plan[False]['cluster']} x {plan[False]['rows']}, "
+          f"backward {plan[True]['cluster']} x {plan[True]['rows']}); "
+          f"largest error from the float32 plain versions {err_f:.3e} / "
+          f"{err_b:.3e}", flush=True)
+    return err_f, err_b
+
+
+def compare_latent_members(K=CDE_K):
+    """The packed latent solve at the sweep's shape (LATENT): K LatentSDE
+    members (member k's weights, increments, initial state and cotangent
+    from seed k) in one launch of the EM kernels' latent instances, member
+    k bit for bit its solo latent launch under each forced plan of
+    MEMBER_PLANS (the trajectory with its KL lane and every cotangent, the
+    weight gradient's included); and through the entry points,
+    fused_latent_em_solve_packed on K generators against
+    fused_latent_em_solve on each, bit for bit under a forced plan."""
+    from snsde_torch.kernels import fused_em as fe
+    from snsde_torch.kernels.multi import fused_latent_em_solve_packed
+    from snsde_torch.models.latent_sde import LatentSDE
+    from snsde_torch.models.neuralsde import resolve_dt
+
+    members = [latent_kernel_inputs(**LATENT, seed=k) for k in range(K)]
+    fwd = [t if t is None or name == "dts" else
+           torch.stack([m[0][i] for m in members])
+           for i, (name, t) in enumerate(zip(fe._ARG_ORDER, members[0][0]))]
+    flags, gys = members[0][1], torch.stack([m[2] for m in members])
+    label = (f"EM latent member axis B={LATENT['B']} L={LATENT['L']} "
+             f"H={LATENT['H']} K={K}")
+    for cs, rows in MEMBER_PLANS:
+        fe.force_em_plan(cs, rows)
+        try:
+            packed = _run("em", fwd, flags, gys)
+            solo = [_run("em", m[0], flags, m[2]) for m in members]
+        finally:
+            fe.force_em_plan(0, 0)
+        _same_as_solo(f"{label} plan ({cs}, {rows})", "em", packed, solo)
+    times = np.linspace(0.0, 1.0, LATENT["L"]).astype(np.float32)
+    models = [LatentSDE(LATENT["C"], LATENT["H"], LATENT["H"],
+                        LATENT["layers"], method="euler",
+                        generator=torch.Generator().manual_seed(k)).to(DEV)
+              for k in range(K)]
+    aug0 = torch.zeros(K, LATENT["B"], LATENT["H"], device=DEV)
+    aug0[..., :-1] = torch.randn(K, LATENT["B"], LATENT["H"] - 1,
+                                 device=DEV)
+    gen = lambda k: torch.Generator(DEV).manual_seed(100 + k)
+    dt = resolve_dt(times)
+    fe.force_em_plan(*MEMBER_PLANS[0])
+    try:
+        with torch.no_grad():
+            ys = fused_latent_em_solve_packed(models, times, aug0,
+                                              [gen(k) for k in range(K)],
+                                              dt=dt)
+            for k in range(K):
+                solo = fe.fused_latent_em_solve(models[k], times, aug0[k],
+                                                generator=gen(k), dt=dt)
+                if not torch.equal(ys[k], solo):
+                    raise AssertionError(f"{label}: member {k} of "
+                                         f"fused_latent_em_solve_packed is "
+                                         f"not its solo solve")
+    finally:
+        fe.force_em_plan(0, 0)
+    if not torch.isfinite(ys).all():
+        raise AssertionError(f"{label}: non-finite packed latent solve")
+    print(f"  {label}: every member bit for bit its solo latent launch "
+          f"under plans {list(MEMBER_PLANS)}; fused_latent_em_solve_packed "
+          f"on {K} generators bit for bit fused_latent_em_solve on each "
+          f"(KL lane at the end {float(ys[:, -1, :, -1].mean()):.4f})",
+          flush=True)
+
+
+def gruode_sweep_path(out_dir):
+    """The sweep cell with `gru-ode` (rk4, hidden 16) for 2 epochs, every
+    count set to 0 just before it: it must launch the CDE kernels' gruode
+    instances (forward and backward), take the eager cdeint nowhere, write
+    a record with an accuracy and no error, give a finite loss on the
+    validation rows, and its trained field's fused solve must match the
+    eager one (check_trained_cde_solve). Returns the launch counts of its
+    run."""
+    from snsde_torch.harness.robustness import (SweepConfig, preprocess_ists,
+                                                run_robustness_sweep)
+    from snsde_torch.models import neuralcde
+    from snsde_torch.train.loop import softmax_cross_entropy
+
+    cfg = SweepConfig(models=("gru-ode",), missing_rates=(0.3,), seeds=(0,),
+                      hidden_dim=SWEEP["H"], batch_size=SWEEP["B"],
+                      max_epochs=2, out_dir=out_dir)
+    trained, eager = {}, []
+    real = neuralcde.cdeint
+
+    def counted(*a, **k):
+        eager.append(1)
+        return real(*a, **k)
+
+    neuralcde.cdeint = counted
+    zero_counts()
+    t0 = time.perf_counter()
+    try:
+        recs = run_robustness_sweep(cfg, n=SWEEP["n"], data_fn=uea_b_noisy,
+                                    dataset_name="uea_b_noisy",
+                                    verbose=False, device=DEV,
+                                    models=trained)
+        torch.cuda.synchronize()
+        launches = read_counts()
+    finally:
+        neuralcde.cdeint = real
+    wall = time.perf_counter() - t0
+    model = trained.get((0.3, "gru-ode", 0))
+    X, y, _ = uea_b_noisy()
+    data = preprocess_ists(X[:64], missing_rate=0.3, seed=0,
+                           interpolation="natural")
+    loss = float("nan")
+    if model is not None:
+        model.eval()
+        with torch.no_grad():
+            logits = model(torch.as_tensor(data["seq"], device=DEV),
+                           torch.as_tensor(data["coeffs"], device=DEV))
+            loss = float(softmax_cross_entropy(
+                logits, torch.as_tensor(y[:64], device=DEV).long()))
+    print(f"main path 10: run_robustness_sweep (gru-ode, rk4) 2 epochs in "
+          f"{wall:.1f} s, records {recs}, validation-rows loss {loss:.4f}, "
+          f"eager cdeint calls {len(eager)}, launches {launches}",
+          flush=True)
+    if not recs or any("error" in r or "accuracy" not in r for r in recs):
+        raise AssertionError(f"the gru-ode sweep wrote a failed record: "
+                             f"{recs}")
+    if not (all(np.isfinite(r["accuracy"]) for r in recs)
+            and np.isfinite(loss)):
+        raise AssertionError("non-finite accuracy or loss with gru-ode")
+    if launches["cde_gru_fwd"] <= 0 or launches["cde_gru_bwd"] <= 0:
+        raise AssertionError(f"gru-ode did not run the gruode instances: "
+                             f"{launches}")
+    if eager:
+        raise AssertionError(f"gru-ode took the eager cdeint {len(eager)} "
+                             f"times")
+    check_trained_cde_solve(model, preprocess_ists(
+        X[:16], missing_rate=0.3, seed=0, interpolation="natural"))
+    return launches
+
+
+def gruode_kernel_times():
+    """The gruode instances' times, plain versions and bounds at both
+    GRU_SHAPES (cde_kernel_times; the sweep's keys plain, the bench
+    shape's with its name). ({name: ms}, {part: bound})."""
+    ms, bounds = {}, {}
+    for name, sh in GRU_SHAPES.items():
+        m, b = cde_kernel_times(sh, field="gruode")
+        sfx = "" if name == "sweep" else f" {name}"
+        ms.update({f"{k}{sfx}": v for k, v in m.items()})
+        bounds.update({f"{k}{sfx}": v for k, v in b.items()})
+    return ms, bounds
+
+
+def cde_packed_kernel_times(reps=10):
+    """The packed CDE launch (CDE_K members at the sweep cell, each on its
+    own weights and control stream; FinalTanh and GRU-ODE) against CDE_K
+    solo launches in a row and the plain versions member by member, with
+    bounds from the packed launch's inputs (every input read once, every
+    output written once; CDE_K x a solo launch's operations, 3x in the
+    backward). ({field: {name: ms}}, {field: {part: bound}})."""
+    from snsde_torch.kernels import fused_cde as fc
+
+    fwd_k, fwd_p, bwd_k, bwd_p = kernel_fns("cde")
+    ms, bounds = {}, {}
+    for field in ("final_tanh", "gruode"):
+        fwd, flags, gys, members = cde_member_inputs(field, CDE_K,
+                                                     **GRU_SHAPES["sweep"])
+        ys = fwd_k(*fwd, **flags)[0]
+        args = [fwd[0], ys, gys] + fwd[1:]
+        solo = [(f, fwd_k(*f, **flags)[0], g) for f, g in members]
+
+        def solo_fwd():
+            for f, _, _ in solo:
+                fwd_k(*f, **flags)
+
+        def solo_bwd():
+            for f, y, g in solo:
+                bwd_k(f[0], y, g, *f[1:], **flags)
+
+        def plain_fwd():
+            for f, _, _ in solo:
+                fwd_p(*f, **flags)
+
+        def plain_bwd():
+            for f, y, g in solo:
+                bwd_p(f[0], y, g, *f[1:], **flags)
+
+        ms[field] = {"fwd": timed(lambda: fwd_k(*fwd, **flags), reps=reps),
+                     "bwd": timed(lambda: bwd_k(*args, **flags), reps=reps),
+                     "fwd_solo_k": timed(solo_fwd, reps=reps),
+                     "bwd_solo_k": timed(solo_bwd, reps=reps),
+                     "fwd_plain": timed(plain_fwd, reps=2, warmup=1),
+                     "bwd_plain": timed(plain_bwd, reps=2, warmup=1)}
+        dims = fc.check_kernel_inputs(*members[0][0], **flags)
+        flops = CDE_K * cde_flops(flags, *dims)
+        nbytes_in = 4 * sum(t.numel() for t in fwd if t is not None)
+        grads = bwd_k(*args, **flags)
+        bounds[field] = {
+            "fwd": bound(nbytes_in + 4 * ys.numel(), flops),
+            "bwd": bound(nbytes_in + 4 * (ys.numel() + gys.numel()
+                                          + sum(g.numel() for g in grads
+                                                if g is not None)),
+                         3 * flops)}
+        for part in ("fwd", "bwd"):
+            print(f"time packed CDE {field} K={CDE_K} {part}: "
+                  f"{ms[field][part]:.4f} ms against {CDE_K} solo launches "
+                  f"{ms[field][part + '_solo_k']:.4f} ms (plain, member by "
+                  f"member, {ms[field][part + '_plain']:.2f} ms; bound "
+                  f"{bounds[field][part][0]:.5f} ms by "
+                  f"{bounds[field][part][1]})", flush=True)
+    return ms, bounds
+
+
+def gruode_step_fns():
+    """One training step (cross-entropy, the 100x fc2 hook, the clip at
+    10, Adam) of ISTSClassifier("gru-ode") at the sweep cell (64 rows of
+    uea_b_noisy, 30% missing, natural coefficients, hidden 16, rk4):
+    {label: step()} through the CDE kernels and with use_fused=False (the
+    eager cdeint)."""
+    from snsde_torch.harness.robustness import (ISTSClassifier,
+                                                ists_train_step,
+                                                preprocess_ists)
+    from snsde_torch.train.loop import readout_grad_hook
+
+    X, y, _ = uea_b_noisy()
+    data = preprocess_ists(X[:SWEEP["B"]], missing_rate=0.3, seed=0,
+                           interpolation="natural")
+    dev = torch.device(DEV)
+    batch = {"seq": torch.as_tensor(data["seq"], device=dev),
+             "coeffs": torch.as_tensor(data["coeffs"], device=dev),
+             "y": torch.as_tensor(y[:SWEEP["B"]], device=dev)}
+    out = {}
+    for label, fused in (("train_step", True), ("train_step_eager", False)):
+        model = ISTSClassifier("gru-ode", SWEEP["D"], SWEEP["L"], SWEEP["H"],
+                               SWEEP["classes"],
+                               generator=torch.Generator().manual_seed(0))
+        model = model.to(dev)
+        readout_grad_hook("fc2")(model)
+        opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+        out[label] = (lambda model=model, opt=opt, fused=fused:
+                      ists_train_step(model, opt, batch, use_fused=fused))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4074,11 +4513,25 @@ def main() -> int:
     err.update(compare_rnn_modes())
     for shape in RNN_BENCH.values():
         compare_rnn_cudnn(**shape)
+    print("phase 10: the GRU-ODE instances vs their plain versions, the CDE "
+          "pair's member axis and the packed latent solve vs the solo "
+          "launches:", flush=True)
+    err["cde_gruode"] = compare_gruode()
+    err["cde_packed"] = tuple(max(a, b) for a, b in zip(
+        compare_cde_members("final_tanh"), compare_cde_members("gruode")))
+    compare_latent_members()
     with tempfile.TemporaryDirectory() as out_dir:
         launches = {"em": main_path(), "srk": mujoco_path(),
                     "cde": sweep_path(out_dir)}
         sde_sweep_path(out_dir)
-        launches["srk_packed"] = packed_sweep_path(out_dir)["neuralsde_4_17"]
+        packed = packed_sweep_path(out_dir)
+        launches["srk_packed"] = packed["neuralsde_4_17"]
+        # the packed CDE kernels' launches: both packed CDE cells'
+        launches["cde_packed"] = {k: packed["neuralcde"][k]
+                                  + packed["gru-ode"][k]
+                                  for k in ("cde_packed_fwd",
+                                            "cde_packed_bwd")}
+        launches["cde_gru"] = gruode_sweep_path(out_dir)
         launches.update(rnn_sweep_path(out_dir))
         launches["em_latent"] = latent_sweep_path(out_dir)
         launches["lstm_time"] = rnn_sweep_path(out_dir, TIME_MODELS)["lstm"]
@@ -4124,6 +4577,14 @@ def main() -> int:
     ms["lstm_tlstm"].update(step_times("tlstm sweep-cell classifier",
                                        time_lstm_step_fns("tlstm"),
                                        eager_reps=3))
+    ms["cde_gruode"], bounds["cde_gruode"] = gruode_kernel_times()
+    packed_ms, packed_bounds = cde_packed_kernel_times()
+    ms["cde_packed"], bounds["cde_packed"] = (packed_ms["final_tanh"],
+                                              packed_bounds["final_tanh"])
+    ms["cde_packed_gruode"] = packed_ms["gruode"]
+    bounds["cde_packed_gruode"] = packed_bounds["gruode"]
+    ms["cde_gruode"].update(step_times("gru-ode sweep-cell classifier",
+                                       gruode_step_fns(), eager_reps=3))
     for key in ms:
         for k, v in ms[key].items():
             print(f"time {key} {k}: {v:.4f} ms  [{smi}]")
@@ -4293,6 +4754,50 @@ def main() -> int:
                 "plain_ms_h256": ms[key]["wdgrad_plain h256"],
                 "library_ms_h256": ms[key]["wdgrad_lib h256"],
                 "bound_ms_h256": bounds[key]["wdgrad h256"][0]})
+    # the CDE pair's GRU-ODE instances at the sweep cell (their launches
+    # the gru-ode sweep run's; the gruode_rk4 bench shape's times beside,
+    # and FinalTanh's at both shapes: the sweep cell's field, and uea_rk4's
+    # with one inner layer), and its member axis (K = CDE_K FinalTanh
+    # members at the sweep cell; its launches both packed CDE cells', the
+    # GRU-ODE members' times beside)
+    for part, line in (("fwd", 364), ("bwd", 505)):
+        name = "forward" if part == "fwd" else "backward"
+        i = 0 if part == "fwd" else 1
+        kernels.append({
+            "name": f"fused_cde_{name}_gruode", "route": "cuda",
+            "source": "snsde_torch/csrc/fused_cde.cu",
+            "replaces": f"snsde/kernels/fused_cde.py:{line}",
+            "launches": launches["cde_gru"][f"cde_gru_{part}"],
+            "max_abs_err": err["cde_gruode"][i],
+            "ms": ms["cde_gruode"][part],
+            "plain_ms": ms["cde_gruode"][f"{part}_plain"],
+            "bound_ms": bounds["cde_gruode"][part][0],
+            "bound_by": bounds["cde_gruode"][part][1], "library_ms": None,
+            "shape": "sweep", "field": "gruode",
+            "ms_gruode_rk4": ms["cde_gruode"][f"{part} gruode_rk4"],
+            "plain_ms_gruode_rk4":
+                ms["cde_gruode"][f"{part}_plain gruode_rk4"],
+            "bound_ms_gruode_rk4":
+                bounds["cde_gruode"][f"{part} gruode_rk4"][0],
+            "finaltanh_ms": ms["cde"][part],
+            "finaltanh_ms_uea_rk4": ms["cde"][f"uea_rk4 {part}"]})
+        kernels.append({
+            "name": f"fused_cde_{name}_packed", "route": "cuda",
+            "source": "snsde_torch/csrc/fused_cde.cu",
+            "replaces": f"snsde/kernels/fused_cde.py:{line}",
+            "launches": launches["cde_packed"][f"cde_packed_{part}"],
+            "max_abs_err": err["cde_packed"][i],
+            "ms": ms["cde_packed"][part],
+            "plain_ms": ms["cde_packed"][f"{part}_plain"],
+            "bound_ms": bounds["cde_packed"][part][0],
+            "bound_by": bounds["cde_packed"][part][1], "library_ms": None,
+            "members": CDE_K, "shape": "sweep", "field": "final_tanh",
+            "solo_launches_ms": ms["cde_packed"][f"{part}_solo_k"],
+            "ms_gruode": ms["cde_packed_gruode"][part],
+            "solo_launches_ms_gruode":
+                ms["cde_packed_gruode"][f"{part}_solo_k"],
+            "plain_ms_gruode": ms["cde_packed_gruode"][f"{part}_plain"],
+            "bound_ms_gruode": bounds["cde_packed_gruode"][part][0]})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

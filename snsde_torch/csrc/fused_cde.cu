@@ -8,16 +8,22 @@
 //            field _field_forward :184)
 //   backward _fused_cde_backward (pallas_call at :505, body _bwd_kernel :385,
 //            field _field_bwd :218)
-// for the FinalTanh field (relu MLP, any number of inner layers) and the
-// SingleHiddenLayer field (tanh, no inner layer), on the euler, midpoint,
-// heun (= rk2) and rk4 tableaus. The activation is a template parameter;
-// the tableau is a small table in the kernel's arguments (the stage loops
-// run rolled, so one kernel serves every tableau).
+// for the FinalTanh field (relu MLP, any number of inner layers), the
+// SingleHiddenLayer field (tanh, no inner layer) and the GRU-ODE field
+// (the `gruode` kind, :190-202 and :223-248), on the euler, midpoint,
+// heun (= rk2) and rk4 tableaus. The field kind is a template parameter
+// (ACT: 0 relu, 1 tanh, 2 gruode); the tableau is a small table in the
+// kernel's arguments (the stage loops run rolled, so one kernel serves
+// every tableau).
 //
 // One field evaluation at a stage state y, for each batch row:
 //   h_0 = act(y Win + bin);  h_{l+1} = act(h_l W_l + b_l)
 //   O = tanh(h_NI Wout + bout)            [H*C], h-major: O[h*C + c]
 //   k[h] = sum_c O[h*C + c] dX/dt[c]      (dX/dt at the stage's time)
+// or, for the GRU-ODE field, with three gates W_r, W_z, W_h [H, H*C] (its
+// "output layers": h-major columns like Wout, no hidden layer):
+//   r = sigmoid(y W_r + b_r)  u = sigmoid(y W_z + b_z)  zh = y W_h + b_h
+//   O[h*C + c] = (1 - u) (tanh(r zh) - y[h])
 // and a step z <- z + dt sum_i b_i k_i with the stage states
 // y_i = z + dt sum_j A_ij k_j (every tableau here has one nonzero A_ij a
 // stage, at j = i - 1). The TPU kernel does the contraction with one-hot
@@ -79,6 +85,21 @@
 //   memory serves).
 //   cudaOccupancyMaxActiveClusters must find room for a cluster, else the
 //   launch is refused (no fallback).
+// * The GRU-ODE field rides the same split: CTA j owns the C columns of
+//   its units in each of the three gates (their slices and, in the
+//   backward, their gradients in shared memory, or in device memory at the
+//   plan's levels 3-6), so its O, k and dz need no exchange; the gates read
+//   the whole stage state, which every CTA holds. Its backward sums the
+//   partial dz_r W_r^T + dz_u W_z^T + dz_h W_h^T of each CTA over the
+//   cluster in rank order (the path of the Wout back product) and adds the
+//   state-expand term -sum_c dO (1 - u) of its own units. The stages' gates
+//   r, u, zh and O are kept where the plan finds room.
+// * A member axis: one launch solves K members (blockIdx.y), each on its
+//   own weights, initial state and control stream, every tensor with a
+//   leading K axis but dts. The backward's per-cluster weight-gradient
+//   partials [K][clusters][P] are summed in ascending cluster order by a
+//   second kernel, so member k of a launch is bit for bit its solo launch
+//   under one plan, and every run is bit-reproducible.
 // Exact fp32 FMA on the CUDA cores (TF32 off).
 
 #include <cooperative_groups.h>
@@ -99,8 +120,9 @@ constexpr unsigned FULL = 0xffffffffu;
 constexpr int LEVELS = 7;  // plan levels (see the head of the file)
 constexpr int MAX_STAGES = 4;
 
+// K: the members of a launch (the GRU-ODE field takes HH = H, NI = 0)
 struct CdeDims {
-  int M, B, H, HH, C, NI;
+  int M, B, H, HH, C, NI, K;
 };
 
 // An explicit tableau (snsde/kernels/fused_cde.py:67-77): stage i evaluates
@@ -126,16 +148,50 @@ inline bool tableau(int method, Tab* T) {
   return false;
 }
 
-template <bool RELU>
+// the field kinds (ACT), as the C interface's act codes
+constexpr int ACT_RELU = 0, ACT_TANH = 1, ACT_GRU = 2;
+
+template <int ACT>
 __device__ __forceinline__ float act(float z) {
-  return RELU ? fmaxf(z, 0.f) : tanhf(z);
+  return ACT == ACT_RELU ? fmaxf(z, 0.f) : tanhf(z);
 }
 
 // derivative of the activation from its output h
-template <bool RELU>
+template <int ACT>
 __device__ __forceinline__ float act_d(float h) {
-  return RELU ? (h > 0.f ? 1.f : 0.f) : 1.f - h * h;
+  return ACT == ACT_RELU ? (h > 0.f ? 1.f : 0.f) : 1.f - h * h;
 }
+
+// The sizes in floats of a member's weights, in the order the backward's
+// weight-gradient partials hold them: Win [H][HH], bin, W_l [NI][HH][HH],
+// b_l [NI][HH], Wout [HH][H*C], bout; for the GRU-ODE field (gru) only its
+// gates W [3][H][H*C] and b [3][H*C] in Wout's and bout's places.
+struct Parts {
+  long long win, bin, wi, bi, wo, bo;
+};
+
+__host__ __device__ inline Parts cde_parts(const CdeDims& d, bool gru) {
+  const long long HH = d.HH, HC = (long long)d.H * d.C, G = gru ? 3 : 1;
+  Parts s;
+  s.win = gru ? 0 : (long long)d.H * HH;
+  s.bin = gru ? 0 : HH;
+  s.wi = gru ? 0 : d.NI * HH * HH;
+  s.bi = gru ? 0 : d.NI * HH;
+  s.wo = G * HH * HC;
+  s.bo = G * HC;
+  return s;
+}
+
+__host__ __device__ inline long long parts_total(const Parts& s) {
+  return s.win + s.bin + s.wi + s.bi + s.wo + s.bo;
+}
+
+// pointers to a cluster's block of the partials, by weight (the backward
+// keeps them in shared memory: held in registers through the loop they
+// cost its chain spills)
+struct PartPtrs {
+  float *win, *bin, *wi, *bi, *wo, *bo;
+};
 
 __host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
 
@@ -175,11 +231,15 @@ __host__ __device__ inline void set_level(CdePlan& p, int level) {
 // cotangents of the state and of the stages' k [1+NS][R4][U4]; e0, e1
 // [R4][sHH]; the partial dh [2][R4][sHH] and control cotangent
 // [2][R4][NTC4]; the prefetched state [2][R4][sH], own gys [2][R4][U4] and
-// dx rows [2][R4][NTC4].
+// dx rows [2][R4][NTC4]. The GRU-ODE field (gru) has no hidden weights,
+// tiles or gradients: its three gate slices [3][H4][ldQ] and biases
+// [3][ldQ] take Wout's places (and their gradients dWout's), its stage
+// tiles are the gates r, u, zh [3][R4][ldQ] (forward: once; backward: nk
+// times), and e0 holds its own units' state-expand term [R4][U4].
 struct Layout {
   long long win, bin, wi, bi, wo, bo;
   long long gwo, gbo, gwin, gbin, gwi, gbi;
-  long long z, ks, hk, ok, gbar, dks, e0, e1, pd, ddp, gyb, dxb;
+  long long z, ks, hk, ok, gbar, dks, e0, e1, pd, ddp, gyb, dxb, parts;
   long long total;
 };
 
@@ -194,36 +254,39 @@ struct Take {
 
 __host__ __device__ inline Layout cde_layout(const CdeDims& d,
                                              const CdePlan& p, int ns,
-                                             int nt, int bwd) {
+                                             int nt, int bwd, bool gru) {
   Layout L;
   Take take;
-  const long long NI = d.NI;
+  const long long NI = d.NI, G = gru ? 3 : 1;
   const long long U = (d.H + p.cs - 1) / p.cs, UH = (d.HH + p.cs - 1) / p.cs;
   const long long sH = ld4(d.H), sHH = ld4(d.HH), ldQ = ld4((int)U * d.C);
   const long long R4 = round4(p.R), NTC4 = round4(nt * d.C);
   const long long H4 = round4(d.H), HH4 = round4(d.HH), U4 = round4((int)U);
-  L.win = p.hw ? take(H4 * sHH) : -1;
-  L.bin = p.hw ? take(HH4) : -1;
-  L.wi = p.hw ? take(NI * HH4 * sHH) : -1;
-  L.bi = p.hw ? take(NI * HH4) : -1;
-  L.wo = p.ow ? take(HH4 * ldQ) : -1;
-  L.bo = p.ow ? take(ldQ) : -1;
+  const bool hw = p.hw && !gru, hg = p.hg && !gru;
+  L.win = hw ? take(H4 * sHH) : -1;
+  L.bin = hw ? take(HH4) : -1;
+  L.wi = hw ? take(NI * HH4 * sHH) : -1;
+  L.bi = hw ? take(NI * HH4) : -1;
+  L.wo = p.ow ? take(G * HH4 * ldQ) : -1;
+  L.bo = p.ow ? take(G * ldQ) : -1;
   L.gwo = L.gbo = L.gwin = L.gbin = L.gwi = L.gbi = -1;
-  L.gbar = L.dks = L.e0 = L.e1 = L.pd = L.ddp = L.gyb = -1;
+  L.gbar = L.dks = L.e0 = L.e1 = L.pd = L.ddp = L.gyb = L.parts = -1;
+  // a stage's field tiles: the gates, or the hidden activations
+  const long long ftile = gru ? 3 * R4 * ldQ : (NI + 1) * R4 * sHH;
   if (!bwd) {
     L.z = take(R4 * sH);
     L.ks = take(2 * ns * R4 * sH);
-    L.hk = take(2 * R4 * sHH);
+    L.hk = take(gru ? ftile : 2 * R4 * sHH);
     L.ok = take(R4 * ldQ);
     L.dxb = take(2 * R4 * NTC4);
     L.total = take(0);
     return L;
   }
   if (p.og) {
-    L.gwo = take(d.HH * ldQ);
-    L.gbo = take(ldQ);
+    L.gwo = take(G * d.HH * ldQ);
+    L.gbo = take(G * ldQ);
   }
-  if (p.hg) {
+  if (hg) {
     L.gwin = take(U * HH4);
     L.gbin = take(HH4);
     L.gwi = take(NI * UH * HH4);
@@ -231,17 +294,18 @@ __host__ __device__ inline Layout cde_layout(const CdeDims& d,
   }
   const long long nk = p.keep ? ns : 1;
   L.ks = take(ns * R4 * sH);
-  L.hk = take(nk * (NI + 1) * R4 * sHH);
+  L.hk = take(nk * ftile);
   L.ok = take(nk * R4 * ldQ);
   L.gbar = take(R4 * U4);
   L.dks = take(ns * R4 * U4);
-  L.e0 = take(R4 * sHH);
-  L.e1 = take(R4 * sHH);
+  L.e0 = take(gru ? R4 * U4 : R4 * sHH);
+  L.e1 = gru ? -1 : take(R4 * sHH);
   L.pd = take(2 * R4 * sHH);
   L.ddp = take(2 * R4 * NTC4);
   L.z = take(2 * R4 * sH);  // the state before the step, prefetched
   L.gyb = take(2 * R4 * U4);
   L.dxb = take(2 * R4 * NTC4);
+  L.parts = take(sizeof(PartPtrs) / sizeof(float));
   L.total = take(0);
   return L;
 }
@@ -567,18 +631,20 @@ __device__ __forceinline__ void grad(const float* X, const float* X2,
 // Shared-memory copies: Win [H4][sHH], bin, W_l [NI][HH4][sHH], b_l
 // [NI][HH4], the Wout slice [HH4][ldQ], bout slice; or the tensors in
 // device memory at their own strides (the Wout slice from column u0 C).
+// The GRU-ODE field's gate g slice is at wo + g sgw, its bias at bo + g sgb.
 struct Net {
   const float *win, *bin, *wi, *bi, *wo, *bo;
-  int lwin, lwi, swi, sbi, lwo;
+  int lwin, lwi, swi, sbi, lwo, sgw, sgb;
   int gwh, gwo;  // hidden / output weights in device memory
   int H, HH, C, NI, cs, rank, u0, nu, h0, nh, nr;
   int sH, sHH, ldQ, NTC4, U4;
 };
 
-// the gradient accumulators: shared memory, or the cluster's partials
+// the gradient accumulators: shared memory, or the cluster's partials (the
+// GRU-ODE field's gate g at wo + g swo, bo + g sbo)
 struct Acc {
   float *wo, *bo, *win, *bin, *wi, *bi;
-  int lwo, lwin, lwi, swi, sbi;
+  int lwo, lwin, lwi, swi, sbi, swo, sbo;
   int dev_h, dev_o;
 };
 
@@ -588,7 +654,7 @@ struct Acc {
 // Inlined, as every phase function is, into kernels that run the stage
 // loop rolled: the tiles' pointers stay known as shared memory (32-bit
 // addresses, LDS), and each kernel holds one copy of the code.
-template <bool RELU, bool WIDE>
+template <int ACT, bool WIDE>
 __device__ __forceinline__ void field_forward(const Net n, const float* z,
                                               const float* kp, bool has_kp,
                                               float alpha, float* h, int nt,
@@ -597,7 +663,7 @@ __device__ __forceinline__ void field_forward(const Net n, const float* z,
   const float* bin = n.bin;
   // the first layer
   mm(z, kp, alpha, has_kp, n.sH, n.H, n.win, n.lwin, WIDE && n.gwh, n.nr, HH,
-     [&](int r, int j, float a) { h[r * sHH + j] = act<RELU>(a + bin[j]); });
+     [&](int r, int j, float a) { h[r * sHH + j] = act<ACT>(a + bin[j]); });
   __syncthreads();
   for (int l = 0; l < n.NI; ++l) {
     // the inner layers
@@ -606,7 +672,7 @@ __device__ __forceinline__ void field_forward(const Net n, const float* z,
     const float* b = n.bi + l * n.sbi;
     mm(hin, hin, 0.f, false, sHH, HH, n.wi + (size_t)l * n.swi, n.lwi,
        WIDE && n.gwh, n.nr, HH, [&](int r, int j, float a) {
-         hout[r * sHH + j] = act<RELU>(a + b[j]);
+         hout[r * sHH + j] = act<ACT>(a + b[j]);
        });
     __syncthreads();
   }
@@ -617,6 +683,41 @@ __device__ __forceinline__ void field_forward(const Net n, const float* z,
   mm(hl, hl, 0.f, false, sHH, HH, n.wo, n.lwo, WIDE && n.gwo, n.nr,
      n.nu * n.C,
      [&](int r, int q, float a) { o[r * ldQ + q] = tanhf(a + bo[q]); });
+  __syncthreads();
+}
+
+// The GRU-ODE field for the nr rows whose stage state is y = z (with
+// has_kp, z + alpha kp), own columns: the gates r = sigmoid(y W_r + b_r),
+// u = sigmoid(y W_z + b_z) and zh = y W_h + b_h into the tiles t, t +
+// ttile, t + 2 ttile ([R4][ldQ] each), then O = (1 - u)(tanh(r zh) -
+// y[h]) into o [R4][ldQ]. Ends after a barrier.
+template <bool WIDE>
+__device__ __forceinline__ void gru_field_forward(const Net n, const float* z,
+                                                  const float* kp,
+                                                  bool has_kp, float alpha,
+                                                  float* t, int ttile,
+                                                  float* o) {
+  const int C = n.C, QC = n.nu * C, ldQ = n.ldQ, sH = n.sH;
+#pragma unroll 1
+  for (int gate = 0; gate < 3; ++gate) {
+    const float* b = n.bo + gate * n.sgb;
+    float* tg = t + gate * ttile;
+    const bool sig = gate < 2;
+    mm(z, kp, alpha, has_kp, sH, n.H, n.wo + (size_t)gate * n.sgw, n.lwo,
+       WIDE && n.gwo, n.nr, QC, [&](int r, int q, float a) {
+         const float v = a + b[q];
+         tg[r * ldQ + q] = sig ? sigmoid(v) : v;
+       });
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < n.nr * QC; i += CT) {
+    const int r = i / QC, q = i - r * QC, h = n.u0 + q / C;
+    const int e = r * ldQ + q;
+    float y = z[r * sH + h];
+    if (has_kp) y = fmaf(alpha, kp[r * sH + h], y);
+    const float g = tanhf(t[e] * t[2 * ttile + e]);
+    o[e] = (1.f - t[ttile + e]) * (g - y);
+  }
   __syncthreads();
 }
 
@@ -647,8 +748,8 @@ struct BwdTiles {
   const float *z, *kp;   // the stage state is z (with has_kp, z + alpha kp)
   int has_kp;
   float alpha;
-  const float* h;        // the evaluation's hidden tiles (NI+1, htile apart)
-  int htile;
+  float* h;              // the evaluation's hidden tiles (NI+1, htile apart;
+  int htile;             // the GRU-ODE field's gates, overwritten by dz)
   float* o;              // its O slice [R4][ldQ], overwritten by dz
   const float *dk, *dxt; // the own cotangent of its k [R4][U4]; dx's row
   float* ddt;            // the CTA's partial of the control cotangent
@@ -659,11 +760,110 @@ struct BwdTiles {
   float ap;
 };
 
+// The control cotangent of one field evaluation, dd[c] += sum_{h own}
+// dk[h] O[h, c] (h split over lanes), into ddt. No barrier.
+__device__ __forceinline__ void control_cotangent(const Net n,
+                                                  const BwdTiles& b) {
+  const int C = n.C, nr = n.nr, nu = n.nu, ldQ = n.ldQ, NTC4 = n.NTC4;
+  const int U4 = n.U4;
+  const int items = nr * C, KS = k_lanes(items, nu), total = items * KS;
+  for (int base = 0; base < total; base += CT) {
+    const int t = base + threadIdx.x;
+    const bool on = t < total;
+    const int item = t / KS, ks = t & (KS - 1);
+    const int r = item / C, c = item - r * C;
+    float acc = 0.f;
+    if (on)
+      for (int hl = ks; hl < nu; hl += KS)
+        acc = fmaf(b.dk[r * U4 + hl], b.o[r * ldQ + hl * C + c], acc);
+    acc = lane_sum(acc, KS);
+    if (on && ks == 0) b.ddt[r * NTC4 + c] += acc;
+  }
+}
+
+// Back through one GRU-ODE field evaluation (snsde/kernels/fused_cde.py:
+// 223-248), its gates kept in b.h (b.htile apart) and O in b.o: the
+// control cotangent into ddt; dz of each gate's own columns in the gate's
+// place; their weight gradients into the accumulators; the CTA's partial
+// of dy = dz_r W_r^T + dz_u W_z^T + dz_h W_h^T over its own columns,
+// summed over the cluster in rank order, plus the own units' state-expand
+// term -sum_c do (1 - u), into gbar (and ap dy into dkp). Ends after a
+// barrier; with cs > 1 it holds a cluster barrier after the partial dy is
+// written.
+template <bool WIDE>
+__device__ __forceinline__ void gru_field_backward(const Net n, const Acc g,
+                                                   const BwdTiles b) {
+  const int C = n.C, nr = n.nr, nu = n.nu, H = n.H;
+  const int sH = n.sH, ldQ = n.ldQ, NTC4 = n.NTC4, U4 = n.U4;
+  const int QC = nu * C, tid = threadIdx.x, tt = b.htile;
+  float* t = b.h;
+  control_cotangent(n, b);
+  // dz of the three gates in their tiles' places, and the expand term
+  // (this pass reads neither the control cotangent nor O: no barrier)
+  float* ex = b.e0;
+  for (int i = tid; i < nr * nu; i += CT) {
+    const int r = i / nu, hl = i - r * nu, h = n.u0 + hl;
+    float y = b.z[r * sH + h];
+    if (b.has_kp) y = fmaf(b.alpha, b.kp[r * sH + h], y);
+    const float dk = b.dk[r * U4 + hl];
+    float s = 0.f;
+    for (int c = 0; c < C; ++c) {
+      const int e = r * ldQ + hl * C + c;
+      const float rg = t[e], ug = t[tt + e], zh = t[2 * tt + e];
+      const float gv = tanhf(rg * zh);
+      const float dout = dk * b.dxt[r * NTC4 + c];
+      const float dgg = dout * (1.f - ug);
+      const float dgate = dgg * (1.f - gv * gv);
+      s -= dgg;
+      t[e] = dgate * zh * rg * (1.f - rg);
+      t[tt + e] = -dout * (gv - y) * ug * (1.f - ug);
+      t[2 * tt + e] = dgate * rg;
+    }
+    ex[r * U4 + hl] = s;
+  }
+  __syncthreads();
+  // the gates' gradients (own columns, every input row) and the CTA's
+  // partial of the back product, the gates summed in order by the thread
+  // that owns an output (mm_t gives each output the same thread each call)
+  float* pd = b.pd;
+#pragma unroll 1
+  for (int gate = 0; gate < 3; ++gate) {
+    const float* dz = t + gate * tt;
+    grad(b.z, b.kp, b.alpha, b.has_kp, sH, 0, H, dz, ldQ, QC,
+         g.wo + (size_t)gate * g.swo, g.lwo, g.bo + gate * g.sbo, true,
+         WIDE && g.dev_o, nr);
+    const bool first = gate == 0;
+    mm_t(dz, ldQ, QC, n.wo + (size_t)gate * n.sgw, n.lwo, WIDE && n.gwo, nr,
+         H, [&](int r, int k, float a) {
+           float* e = pd + r * sH + k;
+           *e = first ? a : *e + a;
+         });
+  }
+  cluster_or_block_sync(n.cs);
+  float* gbar = b.gbar;
+  for (int i = tid; i < nr * nu; i += CT) {
+    const int r = i / nu, hl = i - r * nu, e = r * sH + n.u0 + hl;
+    float s;
+    if (n.cs == 1) {
+      s = pd[e];
+    } else {
+      cg::cluster_group cl = cg::this_cluster();
+      s = cl.map_shared_rank(pd, 0)[e];
+      for (int peer = 1; peer < n.cs; ++peer)
+        s += cl.map_shared_rank(pd, peer)[e];
+    }
+    const float dy = s + ex[r * U4 + hl];
+    gbar[r * U4 + hl] += dy;
+    if (b.has_dkp) b.dkp[r * U4 + hl] += b.ap * dy;
+  }
+  __syncthreads();
+}
+
 // Back through one field evaluation. Adds the own units' share of the
 // control cotangent into ddt, the gradients into the accumulators, the own
 // units' dy into gbar and ap dy into dkp. Ends after a barrier; with
 // cs > 1 it holds a cluster barrier after the partial dh is written.
-template <bool RELU, bool WIDE>
+template <int ACT, bool WIDE>
 __device__ __forceinline__ void field_backward(const Net n, const Acc g,
                                                const BwdTiles b) {
   const int HH = n.HH, C = n.C, NI = n.NI, nr = n.nr, nu = n.nu;
@@ -671,22 +871,7 @@ __device__ __forceinline__ void field_backward(const Net n, const Acc g,
   const int QC = nu * C, tid = threadIdx.x;
   const float* hlast = b.h + NI * b.htile;
 
-  // the control, dd[c] += sum_{h own} dk[h] O[h, c] (h split over lanes)
-  {
-    const int items = nr * C, KS = k_lanes(items, nu), total = items * KS;
-    for (int base = 0; base < total; base += CT) {
-      const int t = base + tid;
-      const bool on = t < total;
-      const int item = t / KS, ks = t & (KS - 1);
-      const int r = item / C, c = item - r * C;
-      float acc = 0.f;
-      if (on)
-        for (int hl = ks; hl < nu; hl += KS)
-          acc = fmaf(b.dk[r * U4 + hl], b.o[r * ldQ + hl * C + c], acc);
-      acc = lane_sum(acc, KS);
-      if (on && ks == 0) b.ddt[r * NTC4 + c] += acc;
-    }
-  }
+  control_cotangent(n, b);
   __syncthreads();
   // dz = dk dX/dt (1 - O^2) of the own columns, in O's place
   for (int i = tid; i < nr * QC; i += CT) {
@@ -707,7 +892,7 @@ __device__ __forceinline__ void field_backward(const Net n, const Acc g,
     float* e0 = b.e0;
     mm_t(dz, ldQ, QC, n.wo, n.lwo, WIDE && n.gwo, nr, HH,
          [&](int r, int k, float a) {
-           e0[r * sHH + k] = a * act_d<RELU>(hlast[r * sHH + k]);
+           e0[r * sHH + k] = a * act_d<ACT>(hlast[r * sHH + k]);
          });
     __syncthreads();
   } else {
@@ -722,7 +907,7 @@ __device__ __forceinline__ void field_backward(const Net n, const Acc g,
       float s = cl.map_shared_rank(b.pd, 0)[e];
       for (int peer = 1; peer < n.cs; ++peer)
         s += cl.map_shared_rank(b.pd, peer)[e];
-      b.e0[e] = s * act_d<RELU>(hlast[e]);
+      b.e0[e] = s * act_d<ACT>(hlast[e]);
     }
     __syncthreads();
   }
@@ -739,7 +924,7 @@ __device__ __forceinline__ void field_backward(const Net n, const Acc g,
     float* eo = eout;
     mm_t(ein, sHH, HH, n.wi + (size_t)l * n.swi, n.lwi, WIDE && n.gwh, nr,
          HH, [&](int r, int k, float a) {
-           eo[r * sHH + k] = a * act_d<RELU>(hprev[r * sHH + k]);
+           eo[r * sHH + k] = a * act_d<ACT>(hprev[r * sHH + k]);
          });
     __syncthreads();
     float* t = ein;
@@ -777,7 +962,7 @@ struct FwdArgs {
 struct BwdArgs {
   CdeDims d;
   const float *z0, *ys, *gys, *dx, *dts, *win, *bin, *wi, *bi, *wo, *bo;
-  float *ddx, *dz0, *p_win, *p_bin, *p_wi, *p_bi, *p_wo, *p_bo;
+  float *ddx, *dz0, *part, *grads;
 };
 
 // the main paths' instance (WIDE false) has everything in shared memory
@@ -789,9 +974,26 @@ __device__ __forceinline__ CdePlan placed(CdePlan p) {
   return p;
 }
 
+// The block of the weight-gradient partials [K][clusters][P] of this CTA's
+// member and cluster, its weights' parts at the offsets of cde_parts.
+__device__ __forceinline__ PartPtrs cluster_parts(float* part, const Parts& s,
+                                                 int cs) {
+  PartPtrs q;
+  q.win = part + ((size_t)blockIdx.y * (gridDim.x / cs) + blockIdx.x / cs) *
+                     (size_t)parts_total(s);
+  q.bin = q.win + s.win;
+  q.wi = q.bin + s.bin;
+  q.bi = q.wi + s.wi;
+  q.wo = q.bi + s.bi;
+  q.bo = q.wo + s.wo;
+  return q;
+}
+
 // The CTA's geometry and weights; the shared-memory copies are filled
 // (rows and columns past the weights' own stay zero: the caller zeroes
-// shared memory first).
+// shared memory first). GRU: the GRU-ODE field's three gates, [3][H][H*C]
+// and [3][H*C] in wo's and bo's places, and no hidden weights.
+template <bool GRU>
 __device__ __forceinline__ Net make_net(const CdeDims& d, const CdePlan& p,
                                         const Layout& L, float* s, int nt,
                                         const float* __restrict__ win,
@@ -822,7 +1024,10 @@ __device__ __forceinline__ Net make_net(const CdeDims& d, const CdePlan& p,
   n.NTC4 = round4(nt * C);
   n.U4 = round4(U);
   const int sHH = n.sHH, HH4 = round4(HH), QC = n.nu * C;
-  if (p.hw) {
+  if constexpr (GRU) {
+    n.win = n.bin = n.wi = n.bi = nullptr;
+    n.lwin = n.lwi = n.swi = n.sbi = 0;
+  } else if (p.hw) {
     float* swin = s + L.win;
     float* sbin = s + L.bin;
     float* swi = s + L.wi;
@@ -855,25 +1060,39 @@ __device__ __forceinline__ Net make_net(const CdeDims& d, const CdePlan& p,
   if (p.ow) {
     float* swo = s + L.wo;
     float* sbo = s + L.bo;
-    for (int i = threadIdx.x; i < HH * QC; i += CT) {
-      const int k = i / QC, q = i % QC;
-      swo[k * n.ldQ + q] = wo[(size_t)k * HC + n.u0 * C + q];
+    if constexpr (GRU) {
+      for (int i = threadIdx.x; i < 3 * HH * QC; i += CT) {
+        const int gate = i / (HH * QC), k = (i / QC) % HH, q = i % QC;
+        swo[(gate * HH4 + k) * n.ldQ + q] =
+            wo[((size_t)gate * HH + k) * HC + n.u0 * C + q];
+      }
+      for (int i = threadIdx.x; i < 3 * QC; i += CT)
+        sbo[(i / QC) * n.ldQ + i % QC] = bo[(i / QC) * HC + n.u0 * C + i % QC];
+    } else {
+      for (int i = threadIdx.x; i < HH * QC; i += CT) {
+        const int k = i / QC, q = i % QC;
+        swo[k * n.ldQ + q] = wo[(size_t)k * HC + n.u0 * C + q];
+      }
+      for (int i = threadIdx.x; i < QC; i += CT) sbo[i] = bo[n.u0 * C + i];
     }
-    for (int i = threadIdx.x; i < QC; i += CT) sbo[i] = bo[n.u0 * C + i];
     n.wo = swo;
     n.bo = sbo;
     n.lwo = n.ldQ;
+    n.sgw = HH4 * n.ldQ;
+    n.sgb = n.ldQ;
   } else {
     n.wo = wo + n.u0 * C;
     n.bo = bo + n.u0 * C;
     n.lwo = HC;
+    n.sgw = HH * HC;
+    n.sgb = HC;
   }
   n.gwh = !p.hw;
   n.gwo = !p.ow;
   return n;
 }
 
-template <bool RELU, bool WIDE>
+template <int ACT, bool WIDE>
 __global__ void __launch_bounds__(CT)
 cde_fwd_kernel(CdeDims d, CdePlan pp, Tab T, const float* __restrict__ z0,
                const float* __restrict__ dx, const float* __restrict__ dts,
@@ -881,27 +1100,40 @@ cde_fwd_kernel(CdeDims d, CdePlan pp, Tab T, const float* __restrict__ z0,
                const float* __restrict__ wi, const float* __restrict__ bi,
                const float* __restrict__ wo, const float* __restrict__ bo,
                float* __restrict__ ys) {
+  constexpr bool GRU = ACT == ACT_GRU;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const CdePlan p = placed<WIDE>(pp);
   const int NS = T.ns;
-  const Layout L = cde_layout(d, p, NS, T.nt, 0);
+  const Layout L = cde_layout(d, p, NS, T.nt, 0, GRU);
   zero_smem(smem, L.total);
+  // member k = blockIdx.y: its weights, and its streams [K][M][B][...]
+  // read as step km + u of [K M][B][...] (km the only member offset held
+  // through the loop: each pointer held costs the loop registers)
+  const size_t k = blockIdx.y, BH = (size_t)d.B * d.H;
+  const int NTC = T.nt * d.C, km = (int)k * d.M;
+  const Parts ps = cde_parts(d, GRU);
+  win += k * ps.win;
+  bin += k * ps.bin;
+  wi += k * ps.wi;
+  bi += k * ps.bi;
+  wo += k * ps.wo;
+  bo += k * ps.bo;
   __syncthreads();
-  const Net n = make_net(d, p, L, smem, T.nt, win, bin, wi, bi, wo, bo);
-  const int H = d.H, sH = n.sH, NTC = T.nt * d.C, NTC4 = n.NTC4;
+  const Net n =
+      make_net<GRU>(d, p, L, smem, T.nt, win, bin, wi, bi, wo, bo);
+  const int H = d.H, sH = n.sH, NTC4 = n.NTC4;
   const int tile = round4(p.R) * sH, dtile = round4(p.R) * NTC4;
   const int row0 = (int)(blockIdx.x / p.cs) * p.R, nr = n.nr;
-  const size_t BH = (size_t)d.B * H;
   float* z = smem + L.z;
   float* ks = smem + L.ks;  // [2][NS] tiles
   float* hk = smem + L.hk;
   float* ok = smem + L.ok;
   float* dxb = smem + L.dxb;
-  const int htile = round4(p.R) * n.sHH;
+  const int htile = round4(p.R) * n.sHH, ttile = round4(p.R) * n.ldQ;
   for (int i = threadIdx.x; i < nr * H; i += CT)
-    z[(i / H) * sH + i % H] = z0[(size_t)row0 * H + i];
-  copy_rows(dxb, NTC4, dx + (size_t)row0 * NTC, NTC, NTC, nr);
+    z[(i / H) * sH + i % H] = z0[k * BH + (size_t)row0 * H + i];
+  copy_rows(dxb, NTC4, dx + ((size_t)km * d.B + row0) * NTC, NTC, NTC, nr);
   cp_async_commit();
   cp_async_wait_all();
   // every CTA of the cluster is zeroed before a peer stores into it
@@ -912,20 +1144,24 @@ cde_fwd_kernel(CdeDims d, CdePlan pp, Tab T, const float* __restrict__ z0,
     const float* dxu = dxb + (u & 1) * dtile;
     if (u + 1 < d.M)
       copy_rows(dxb + ((u + 1) & 1) * dtile, NTC4,
-                dx + ((size_t)(u + 1) * d.B + row0) * NTC, NTC, NTC, nr);
+                dx + ((size_t)(km + u + 1) * d.B + row0) * NTC, NTC, NTC,
+                nr);
     cp_async_commit();
     float* kst = ks + (u & 1) * NS * tile;
 #pragma unroll 1
     for (int s = 0; s < NS; ++s) {
       const float* kp = kst + (s > 0 ? s - 1 : 0) * tile;
-      field_forward<RELU, WIDE>(n, z, kp, s > 0, T.a[s] * dt, hk, 2, htile,
-                                ok);
+      if constexpr (GRU)
+        gru_field_forward<WIDE>(n, z, kp, s > 0, T.a[s] * dt, hk, ttile, ok);
+      else
+        field_forward<ACT, WIDE>(n, z, kp, s > 0, T.a[s] * dt, hk, 2, htile,
+                                 ok);
       // the stage's k, into every CTA of the cluster
       contract_push(n, ok, dxu + T.t[s] * d.C, kst + s * tile);
       cluster_or_block_sync(p.cs);
     }
     // the step's update
-    const size_t off = u * BH + (size_t)row0 * H;
+    const size_t off = (size_t)(km + u) * BH + (size_t)row0 * H;
     for (int i = threadIdx.x; i < nr * H; i += CT) {
       const int r = i / H, h = i - r * H, e = r * sH + h;
       float v = z[e];
@@ -939,7 +1175,7 @@ cde_fwd_kernel(CdeDims d, CdePlan pp, Tab T, const float* __restrict__ z0,
   }
 }
 
-template <bool RELU, bool WIDE>
+template <int ACT, bool WIDE>
 __global__ void __launch_bounds__(CT)
 cde_bwd_kernel(CdeDims d, CdePlan pp, Tab T, const float* __restrict__ z0,
                const float* __restrict__ ys, const float* __restrict__ gys,
@@ -948,26 +1184,40 @@ cde_bwd_kernel(CdeDims d, CdePlan pp, Tab T, const float* __restrict__ z0,
                const float* __restrict__ wi, const float* __restrict__ bi,
                const float* __restrict__ wo, const float* __restrict__ bo,
                float* __restrict__ ddx, float* __restrict__ dz0,
-               float* __restrict__ p_win, float* __restrict__ p_bin,
-               float* __restrict__ p_wi, float* __restrict__ p_bi,
-               float* __restrict__ p_wo, float* __restrict__ p_bo) {
+               float* __restrict__ part) {
+  constexpr bool GRU = ACT == ACT_GRU;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const CdePlan p = placed<WIDE>(pp);
   const int NS = T.ns;
-  const Layout L = cde_layout(d, p, NS, T.nt, 1);
+  const Layout L = cde_layout(d, p, NS, T.nt, 1, GRU);
   zero_smem(smem, L.total);
-  __syncthreads();
-  const Net n = make_net(d, p, L, smem, T.nt, win, bin, wi, bi, wo, bo);
   const int H = d.H, HH = d.HH, C = d.C, NI = d.NI, HC = H * C;
-  const int sH = n.sH, ldQ = n.ldQ, NTC = T.nt * C;
+  const int NTC = T.nt * C;
+  const int cl = (int)(blockIdx.x / p.cs), row0 = cl * p.R;
+  // member k = blockIdx.y: its weights, its streams as step km + u (as the
+  // forward's), its cluster's block of the partials (cluster_parts)
+  const size_t k = blockIdx.y, BH = (size_t)d.B * H;
+  const int km = (int)k * d.M;
+  const Parts ps = cde_parts(d, GRU);
+  win += k * ps.win;
+  bin += k * ps.bin;
+  wi += k * ps.wi;
+  bi += k * ps.bi;
+  wo += k * ps.wo;
+  bo += k * ps.bo;
+  PartPtrs* const pq = reinterpret_cast<PartPtrs*>(smem + L.parts);
+  __syncthreads();  // zeroed before thread 0 writes the slot
+  if (threadIdx.x == 0) *pq = cluster_parts(part, ps, p.cs);
+  __syncthreads();
+  const Net n =
+      make_net<GRU>(d, p, L, smem, T.nt, win, bin, wi, bi, wo, bo);
+  const int sH = n.sH, ldQ = n.ldQ;
   const int NTC4 = n.NTC4, U4 = n.U4, R4 = round4(p.R), tid = threadIdx.x;
   const int tile = R4 * sH, utile = R4 * U4, dtile = R4 * NTC4;
-  const int htile = R4 * n.sHH;
-  const int cl = (int)(blockIdx.x / p.cs), row0 = cl * p.R, nr = n.nr;
+  const int htile = R4 * n.sHH, ttile = R4 * ldQ, nr = n.nr;
   const int UH = (HH + p.cs - 1) / p.cs;
-  const size_t BH = (size_t)d.B * H;
-  const int QC = n.nu * C;
+  const int QC = n.nu * C, G = GRU ? 3 : 1;
 
   // the accumulators: in shared memory (zeroed above) or the cluster's
   // partials in device memory (zeroed here by their owners)
@@ -976,16 +1226,24 @@ cde_bwd_kernel(CdeDims d, CdePlan pp, Tab T, const float* __restrict__ z0,
     g.wo = smem + L.gwo;
     g.bo = smem + L.gbo;
     g.lwo = ldQ;
+    g.swo = HH * ldQ;
+    g.sbo = ldQ;
   } else {
-    g.wo = p_wo + (size_t)cl * HH * HC + n.u0 * C;
-    g.bo = p_bo + (size_t)cl * HC + n.u0 * C;
+    const PartPtrs q = *pq;
+    g.wo = q.wo + n.u0 * C;
+    g.bo = q.bo + n.u0 * C;
     g.lwo = HC;
-    for (int i = tid; i < HH * QC; i += CT)
+    g.swo = HH * HC;
+    g.sbo = HC;
+    for (int i = tid; i < G * HH * QC; i += CT)
       g.wo[(size_t)(i / QC) * HC + i % QC] = 0.f;
-    for (int i = tid; i < QC; i += CT) g.bo[i] = 0.f;
+    for (int i = tid; i < G * QC; i += CT) g.bo[(i / QC) * HC + i % QC] = 0.f;
   }
   const int HH4 = round4(HH);
-  if (p.hg) {
+  if constexpr (GRU) {
+    g.win = g.bin = g.wi = g.bi = nullptr;
+    g.lwin = g.lwi = g.swi = g.sbi = 0;
+  } else if (p.hg) {
     g.win = smem + L.gwin;
     g.bin = smem + L.gbin;
     g.wi = smem + L.gwi;
@@ -994,10 +1252,11 @@ cde_bwd_kernel(CdeDims d, CdePlan pp, Tab T, const float* __restrict__ z0,
     g.swi = UH * HH4;
     g.sbi = HH4;
   } else {
-    g.win = p_win + (size_t)cl * H * HH + (size_t)n.u0 * HH;
-    g.bin = p_bin + (size_t)cl * HH;
-    g.wi = p_wi + (size_t)cl * NI * HH * HH + (size_t)n.h0 * HH;
-    g.bi = p_bi + (size_t)cl * NI * HH;
+    const PartPtrs q = *pq;
+    g.win = q.win + (size_t)n.u0 * HH;
+    g.bin = q.bin;
+    g.wi = q.wi + (size_t)n.h0 * HH;
+    g.bi = q.bi;
     g.lwin = g.lwi = HH;
     g.swi = HH * HH;
     g.sbi = HH;
@@ -1014,7 +1273,7 @@ cde_bwd_kernel(CdeDims d, CdePlan pp, Tab T, const float* __restrict__ z0,
   g.dev_o = !p.og;
 
   float* ks = smem + L.ks;    // [NS] tiles
-  float* hk = smem + L.hk;    // [nk][NI+1] tiles
+  float* hk = smem + L.hk;    // [nk] stages' field tiles
   float* ok = smem + L.ok;    // [nk] O slices
   float* zb = smem + L.z;     // [2] the state before the step
   float* gyb = smem + L.gyb;  // [2] own gys rows
@@ -1023,18 +1282,19 @@ cde_bwd_kernel(CdeDims d, CdePlan pp, Tab T, const float* __restrict__ z0,
   float* dks = smem + L.dks;  // [NS] own tiles
   float* pd = smem + L.pd;    // [2]
   float* ddp = smem + L.ddp;  // [2]
-  const int stile = (NI + 1) * htile, otile = R4 * ldQ;
+  const int stile = GRU ? 3 * ttile : (NI + 1) * htile, otile = R4 * ldQ;
 
   // what step u reads, into buffer u & 1
   auto prefetch = [&](int u) {
     const int b = u & 1;
-    copy_rows(zb + b * tile, sH,
-              (u == 0 ? z0 : ys + (size_t)(u - 1) * BH) + (size_t)row0 * H,
-              H, H, nr);
+    const float* zu =
+        u == 0 ? z0 + blockIdx.y * BH : ys + (size_t)(km + u - 1) * BH;
+    copy_rows(zb + b * tile, sH, zu + (size_t)row0 * H, H, H, nr);
     copy_rows(gyb + b * utile, U4,
-              gys + (size_t)u * BH + (size_t)row0 * H + n.u0, H, n.nu, nr);
-    copy_rows(dxb + b * dtile, NTC4, dx + ((size_t)u * d.B + row0) * NTC,
-              NTC, NTC, nr);
+              gys + (size_t)(km + u) * BH + (size_t)row0 * H + n.u0, H, n.nu,
+              nr);
+    copy_rows(dxb + b * dtile, NTC4,
+              dx + ((size_t)(km + u) * d.B + row0) * NTC, NTC, NTC, nr);
     cp_async_commit();
   };
   prefetch(d.M - 1);
@@ -1072,8 +1332,13 @@ cde_bwd_kernel(CdeDims d, CdePlan pp, Tab T, const float* __restrict__ z0,
       const float* kp = ks + (s > 0 ? s - 1 : 0) * tile;
       const float alpha = T.a[s] * dt;
       if (!rev || (!p.keep && s != NS - 1)) {
-        field_forward<RELU, WIDE>(n, z, kp, s > 0, alpha, hk + slot * stile,
-                                  NI + 1, htile, ok + slot * otile);
+        if constexpr (GRU)
+          gru_field_forward<WIDE>(n, z, kp, s > 0, alpha, hk + slot * stile,
+                                  ttile, ok + slot * otile);
+        else
+          field_forward<ACT, WIDE>(n, z, kp, s > 0, alpha,
+                                   hk + slot * stile, NI + 1, htile,
+                                   ok + slot * otile);
         if (!rev && s < NS - 1) {
           contract_push(n, ok + slot * otile, dxu + T.t[s] * C,
                         ks + s * tile);
@@ -1087,25 +1352,28 @@ cde_bwd_kernel(CdeDims d, CdePlan pp, Tab T, const float* __restrict__ z0,
       t.has_kp = s > 0;
       t.alpha = alpha;
       t.h = hk + slot * stile;
-      t.htile = htile;
+      t.htile = GRU ? ttile : htile;
       t.o = ok + slot * otile;
       t.dk = dks + s * utile;
       t.dxt = dxu + T.t[s] * C;
       t.ddt = ddu + T.t[s] * C;
       t.e0 = smem + L.e0;
-      t.e1 = smem + L.e1;
+      t.e1 = GRU ? nullptr : smem + L.e1;
       t.pd = pd + par * htile;
       t.gbar = gbar;
       t.dkp = dks + (s > 0 ? s - 1 : 0) * utile;
       t.has_dkp = s > 0;
       t.ap = alpha;
-      field_backward<RELU, WIDE>(n, g, t);
+      if constexpr (GRU)
+        gru_field_backward<WIDE>(n, g, t);
+      else
+        field_backward<ACT, WIDE>(n, g, t);
       par ^= 1;
     }
     // the step's control cotangent: the cluster's partials in rank order,
     // each CTA writing every cs-th entry (the last stage's barrier made
     // every partial complete; a peer overwrites its partial two steps on)
-    const size_t offx = ((size_t)u * d.B + row0) * NTC;
+    const size_t offx = ((size_t)(km + u) * d.B + row0) * NTC;
     if (p.cs == 1) {
       for (int i = tid; i < nr * NTC; i += CT)
         ddx[offx + i] = ddu[(i / NTC) * NTC4 + i % NTC];
@@ -1125,33 +1393,50 @@ cde_bwd_kernel(CdeDims d, CdePlan pp, Tab T, const float* __restrict__ z0,
 
   for (int i = tid; i < nr * n.nu; i += CT) {
     const int r = i / n.nu, hl = i % n.nu;
-    dz0[(size_t)(row0 + r) * H + n.u0 + hl] = gbar[r * U4 + hl];
+    dz0[(blockIdx.y * (size_t)d.B + row0 + r) * H + n.u0 + hl] =
+        gbar[r * U4 + hl];
   }
+  const PartPtrs q = *pq;
   if (p.og) {
-    float* pwo = p_wo + (size_t)cl * HH * HC + n.u0 * C;
-    for (int i = tid; i < HH * QC; i += CT)
+    float* pwo = q.wo + n.u0 * C;
+    for (int i = tid; i < G * HH * QC; i += CT)
       pwo[(size_t)(i / QC) * HC + i % QC] = g.wo[(i / QC) * ldQ + i % QC];
-    for (int i = tid; i < QC; i += CT)
-      p_bo[(size_t)cl * HC + n.u0 * C + i] = g.bo[i];
+    for (int i = tid; i < G * QC; i += CT)
+      q.bo[(i / QC) * HC + n.u0 * C + i % QC] = g.bo[(i / QC) * ldQ + i % QC];
   }
-  if (p.hg) {
-    float* pwin = p_win + (size_t)cl * H * HH + (size_t)n.u0 * HH;
+  if (!GRU && p.hg) {
+    float* pwin = q.win + (size_t)n.u0 * HH;
     for (int i = tid; i < n.nu * HH; i += CT)
       pwin[i] = g.win[(i / HH) * HH4 + i % HH];
     for (int l = 0; l < NI; ++l) {
-      float* pwi = p_wi + ((size_t)cl * NI + l) * HH * HH + (size_t)n.h0 * HH;
+      float* pwi = q.wi + (size_t)l * HH * HH + (size_t)n.h0 * HH;
       for (int i = tid; i < n.nh * HH; i += CT)
         pwi[i] = g.wi[l * g.swi + (i / HH) * HH4 + i % HH];
     }
     if (n.rank == 0) {
-      for (int i = tid; i < HH; i += CT)
-        p_bin[(size_t)cl * HH + i] = g.bin[i];
+      for (int i = tid; i < HH; i += CT) q.bin[i] = g.bin[i];
       for (int i = tid; i < NI * HH; i += CT)
-        p_bi[(size_t)cl * NI * HH + i] = g.bi[(i / HH) * HH4 + i % HH];
+        q.bi[i] = g.bi[(i / HH) * HH4 + i % HH];
     }
   }
   // no CTA leaves while a peer may still read its shared memory
   cluster_or_block_sync(p.cs);
+}
+
+// The weight gradients of K members: out[k][i] = sum over the clusters c
+// of part[k][c][i], in ascending c (a fixed order: the same bits whatever
+// K, and from run to run).
+__global__ void __launch_bounds__(256)
+cde_sum_kernel(const float* __restrict__ part, float* __restrict__ out,
+               int nb, long long P) {
+  const size_t k = blockIdx.y;
+  const float* src = part + k * nb * P;
+  for (long long i = blockIdx.x * 256LL + threadIdx.x; i < P;
+       i += (long long)gridDim.x * 256) {
+    float s = src[i];
+    for (int c = 1; c < nb; ++c) s += src[(size_t)c * P + i];
+    out[k * P + i] = s;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1178,20 +1463,22 @@ inline int sm_count() {
 // (1 to 8, up to 32 when a test forces it; level 6: 4, 2 or 1) and, in
 // the backward, keeping the stage
 // activations or not, whose CTA fits the device's shared memory, the one
-// of least estimated time: waves of CTAs (one CTA a SM: 512 threads of up
-// to 128 registers fill its register file) x a stage's cycles in a CTA
-// (rows x the FMAs of one row's field evaluation there, hidden layers in
-// full and Wout's share 1 / CS, at 64 a cycle; 300 a phase; 900 a cluster
-// barrier, two in the backward), x 1.2 for a backward that recomputes its
-// stages, x 2.5 from level 1 on (device memory serving weights or
-// accumulators: dWout's read-modify-writes took 40% of the first design's
-// sepsis_rk4 backward on an H100, and at H=HH=128 clusters that each read
-// the hidden weights from L2 lost to one CTA reading Wout there); ties go
-// to fewer waves, the lower level, the smaller CS, keeping, fewer rows. A
-// pure function of the shapes (and of what a test forces). When nothing
-// fits, the last plan tried, its bytes above the limit (the launch is
-// refused).
-inline CdePlan cde_plan(const CdeDims& d, int ns, int nt, int backward) {
+// of least estimated time: waves of CTAs over the K members (one CTA a
+// SM: 512 threads of up to 128 registers fill its register file) x a
+// stage's cycles in a CTA (rows x the FMAs of one row's field evaluation
+// there, hidden layers in full and Wout's share 1 / CS, or the GRU-ODE
+// field's three gates' share 1 / CS, at 64 a cycle; 300 a phase; 900 a
+// cluster barrier, two in the backward), x 1.2 for a backward that
+// recomputes its stages, x 2.5 from level 1 on (device memory serving
+// weights or accumulators: dWout's read-modify-writes took 40% of the
+// first design's sepsis_rk4 backward on an H100, and at H=HH=128 clusters
+// that each read the hidden weights from L2 lost to one CTA reading Wout
+// there); ties go to fewer waves, the lower level, the smaller CS,
+// keeping, fewer rows. A pure function of the shapes (and of what a test
+// forces). When nothing fits, the last plan tried, its bytes above the
+// limit (the launch is refused).
+inline CdePlan cde_plan(const CdeDims& d, int ns, int nt, int backward,
+                        bool gru) {
   const long long limit = (long long)max_optin_smem();
   const double sms = sm_count() > 0 ? sm_count() : 1;
   CdePlan p{}, best{};
@@ -1212,16 +1499,17 @@ inline CdePlan cde_plan(const CdeDims& d, int ns, int nt, int backward) {
           q.keep = keep;
           set_level(q, level);
           q.bytes = (long long)sizeof(float) *
-                    cde_layout(d, q, ns, nt, backward).total;
+                    cde_layout(d, q, ns, nt, backward, gru).total;
           if (q.bytes > limit) {
             p = q;
             continue;
           }
-          const double waves =
-              std::ceil((double)((d.B + R - 1) / R) * cs / sms);
-          const double row = (double)d.H * d.HH +
-                             (double)d.NI * d.HH * d.HH +
-                             (double)d.HH * d.H * d.C / cs;
+          const double waves = std::ceil(
+              (double)d.K * ((d.B + R - 1) / R) * cs / sms);
+          const double row =
+              gru ? 3.0 * d.H * d.H * d.C / cs
+                  : (double)d.H * d.HH + (double)d.NI * d.HH * d.HH +
+                        (double)d.HH * d.H * d.C / cs;
           const double stage = R * row / 64.0 + 300.0 * (d.NI + 3) +
                                (cs > 1 ? 900.0 * (1 + backward) : 0.0);
           const double cost = waves * stage * (level > 0 ? 2.5 : 1.0) *
@@ -1242,19 +1530,20 @@ inline CdePlan cde_plan(const CdeDims& d, int ns, int nt, int backward) {
   return best_cost < 0 ? p : best;
 }
 
-// Launch kernel k over clusters of p.cs CTAs, or, without `run`, only
-// check the plan: its shared memory is set first, then
-// cudaOccupancyMaxActiveClusters must find room for at least one cluster
-// (its count in *active when given). An unschedulable plan returns an
-// error: there is no quiet fallback to another route.
+// Launch kernel k over clusters of p.cs CTAs, the members on the grid's
+// second dimension, or, without `run`, only check the plan: its shared
+// memory is set first, then cudaOccupancyMaxActiveClusters must find room
+// for at least one cluster (its count in *active when given). An
+// unschedulable plan returns an error: there is no quiet fallback to
+// another route.
 template <class... Exp, class... Act>
-int launch_clusters(void (*k)(Exp...), const CdePlan& p, int B,
+int launch_clusters(void (*k)(Exp...), const CdePlan& p, int B, int K,
                     cudaStream_t s, int* active, bool run, Act... args) {
   cudaError_t err = cudaFuncSetAttribute(
       k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.bytes);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)(((B + p.R - 1) / p.R) * p.cs));
+  cfg.gridDim = dim3((unsigned)(((B + p.R - 1) / p.R) * p.cs), (unsigned)K);
   cfg.blockDim = dim3(CT);
   cfg.dynamicSmemBytes = (size_t)p.bytes;
   cfg.stream = s;
@@ -1293,46 +1582,62 @@ int launch_clusters(void (*k)(Exp...), const CdePlan& p, int B,
   return (int)cudaGetLastError();
 }
 
-inline bool valid(const CdeDims& d) {
-  return d.M >= 0 && d.B > 0 && d.H > 0 && d.HH > 0 && d.C > 0 && d.NI >= 0;
+inline bool valid(const CdeDims& d, int act_code) {
+  return d.M >= 0 && d.B > 0 && d.H > 0 && d.HH > 0 && d.C > 0 &&
+         d.NI >= 0 && d.K > 0 && act_code >= 0 && act_code <= ACT_GRU &&
+         (act_code != ACT_GRU || (d.HH == d.H && d.NI == 0));
 }
 
+using FwdKernel = decltype(&cde_fwd_kernel<ACT_RELU, false>);
+using BwdKernel = decltype(&cde_bwd_kernel<ACT_RELU, false>);
+
 // One launch (or, without `go`, its plan's check) of a method's tableau
-// and an activation (act 0 relu: FinalTanh; 1 tanh: SingleHiddenLayer);
-// the main paths' level 0 runs its own instance (everything in shared
-// memory, as compile-time facts)
+// and a field kind (act 0 relu: FinalTanh; 1 tanh: SingleHiddenLayer; 2
+// the GRU-ODE field); the main paths' level 0 runs its own instance
+// (everything in shared memory, as compile-time facts)
 int run_fwd(const FwdArgs& a, int method, int act_code, cudaStream_t s,
             int* active, bool go) {
   Tab T;
-  if (!tableau(method, &T) || !valid(a.d)) return (int)cudaErrorInvalidValue;
-  const CdePlan p = cde_plan(a.d, T.ns, T.nt, 0);
+  if (!tableau(method, &T) || !valid(a.d, act_code))
+    return (int)cudaErrorInvalidValue;
+  const CdePlan p = cde_plan(a.d, T.ns, T.nt, 0, act_code == ACT_GRU);
   if (p.bytes > (long long)max_optin_smem())
     return (int)cudaErrorInvalidValue;
-  const bool relu = act_code == 0, wide = p.level > 0;
-  auto k = relu ? (wide ? cde_fwd_kernel<true, true>
-                        : cde_fwd_kernel<true, false>)
-                : (wide ? cde_fwd_kernel<false, true>
-                        : cde_fwd_kernel<false, false>);
-  return launch_clusters(k, p, a.d.B, s, active, go, a.d, p, T, a.z0, a.dx,
-                         a.dts, a.win, a.bin, a.wi, a.bi, a.wo, a.bo, a.ys);
+  static const FwdKernel ks[3][2] = {
+      {cde_fwd_kernel<ACT_RELU, false>, cde_fwd_kernel<ACT_RELU, true>},
+      {cde_fwd_kernel<ACT_TANH, false>, cde_fwd_kernel<ACT_TANH, true>},
+      {cde_fwd_kernel<ACT_GRU, false>, cde_fwd_kernel<ACT_GRU, true>}};
+  return launch_clusters(ks[act_code][p.level > 0], p, a.d.B, a.d.K, s,
+                         active, go, a.d, p, T, a.z0, a.dx, a.dts, a.win,
+                         a.bin, a.wi, a.bi, a.wo, a.bo, a.ys);
 }
 
+// The backward kernel, then the sum of its weight-gradient partials
 int run_bwd(const BwdArgs& a, int method, int act_code, cudaStream_t s,
             int* active, bool go) {
   Tab T;
-  if (!tableau(method, &T) || !valid(a.d)) return (int)cudaErrorInvalidValue;
-  const CdePlan p = cde_plan(a.d, T.ns, T.nt, 1);
+  if (!tableau(method, &T) || !valid(a.d, act_code))
+    return (int)cudaErrorInvalidValue;
+  const bool gru = act_code == ACT_GRU;
+  const CdePlan p = cde_plan(a.d, T.ns, T.nt, 1, gru);
   if (p.bytes > (long long)max_optin_smem())
     return (int)cudaErrorInvalidValue;
-  const bool relu = act_code == 0, wide = p.level > 0;
-  auto k = relu ? (wide ? cde_bwd_kernel<true, true>
-                        : cde_bwd_kernel<true, false>)
-                : (wide ? cde_bwd_kernel<false, true>
-                        : cde_bwd_kernel<false, false>);
-  return launch_clusters(k, p, a.d.B, s, active, go, a.d, p, T, a.z0, a.ys,
-                         a.gys, a.dx, a.dts, a.win, a.bin, a.wi, a.bi, a.wo,
-                         a.bo, a.ddx, a.dz0, a.p_win, a.p_bin, a.p_wi, a.p_bi,
-                         a.p_wo, a.p_bo);
+  static const BwdKernel ks[3][2] = {
+      {cde_bwd_kernel<ACT_RELU, false>, cde_bwd_kernel<ACT_RELU, true>},
+      {cde_bwd_kernel<ACT_TANH, false>, cde_bwd_kernel<ACT_TANH, true>},
+      {cde_bwd_kernel<ACT_GRU, false>, cde_bwd_kernel<ACT_GRU, true>}};
+  int err = launch_clusters(ks[act_code][p.level > 0], p, a.d.B, a.d.K, s,
+                            active, go, a.d, p, T, a.z0, a.ys, a.gys, a.dx,
+                            a.dts, a.win, a.bin, a.wi, a.bi, a.wo, a.bo,
+                            a.ddx, a.dz0, a.part);
+  if (err || !go) return err;
+  const long long P = parts_total(cde_parts(a.d, gru));
+  const int nb = (a.d.B + p.R - 1) / p.R;
+  const long long blocks = (P + 255) / 256;
+  cde_sum_kernel<<<dim3((unsigned)(blocks < 1024 ? blocks : 1024),
+                        (unsigned)a.d.K),
+                   256, 0, s>>>(a.part, a.grads, nb, P);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -1341,27 +1646,28 @@ extern "C" {
 
 // Dynamic shared memory of one CTA of a launch, in bytes, at its plan
 // (above the device's limit when even the last level at one row does not
-// fit; -1 for an unknown method).
+// fit; -1 for an unknown method or field).
 long long fused_cde_smem_bytes(int B, int H, int HH, int C, int n_inner,
-                               int method, int backward) {
+                               int method, int act_code, int members,
+                               int backward) {
   Tab T;
-  if (!tableau(method, &T)) return -1;
-  const CdeDims d{1, B, H, HH, C, n_inner};
-  return cde_plan(d, T.ns, T.nt, backward).bytes;
+  const CdeDims d{1, B, H, HH, C, n_inner, members};
+  if (!tableau(method, &T) || !valid(d, act_code)) return -1;
+  return cde_plan(d, T.ns, T.nt, backward, act_code == ACT_GRU).bytes;
 }
 
 // One field of a launch's plan: 0 the level, 1 batch rows a cluster (the
-// leading dimension of the backward's partials is ceil(B / rows)), 2 CTAs
-// a cluster, 3 the stage activations kept (backward), 4
-// cudaOccupancyMaxActiveClusters of the relu instance (minus the CUDA
-// error when the plan cannot be scheduled), 5 shared bytes a CTA; -1 for
-// an unknown method.
+// backward's partials are [members][ceil(B / rows)][P]), 2 CTAs a cluster,
+// 3 the stage activations kept (backward), 4
+// cudaOccupancyMaxActiveClusters (minus the CUDA error when the plan
+// cannot be scheduled), 5 shared bytes a CTA; -1 for an unknown method or
+// field.
 int fused_cde_plan(int B, int H, int HH, int C, int n_inner, int method,
-                   int backward, int field) {
+                   int act_code, int members, int backward, int field) {
   Tab T;
-  if (!tableau(method, &T)) return -1;
-  const CdeDims d{1, B, H, HH, C, n_inner};
-  const CdePlan p = cde_plan(d, T.ns, T.nt, backward);
+  const CdeDims d{1, B, H, HH, C, n_inner, members};
+  if (!tableau(method, &T) || !valid(d, act_code)) return -1;
+  const CdePlan p = cde_plan(d, T.ns, T.nt, backward, act_code == ACT_GRU);
   switch (field) {
     case 0: return p.level;
     case 1: return p.R;
@@ -1373,11 +1679,11 @@ int fused_cde_plan(int B, int H, int HH, int C, int n_inner, int method,
   if (backward) {
     BwdArgs a = {};
     a.d = d;
-    err = run_bwd(a, method, 0, 0, &active, false);
+    err = run_bwd(a, method, act_code, 0, &active, false);
   } else {
     FwdArgs a = {};
     a.d = d;
-    err = run_fwd(a, method, 0, 0, &active, false);
+    err = run_fwd(a, method, act_code, 0, &active, false);
   }
   return err ? -err : active;
 }
@@ -1408,27 +1714,31 @@ const char* fused_cde_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
+// The forward of K members (every tensor with a leading K axis but dts;
+// the GRU-ODE field's gates W [3][H][H*C] and b [3][H*C] in wo's and bo's
+// places, win, bin, wi and bi null): ys [K][M][B][H].
 int fused_cde_fwd(const float* z0, const float* dx, const float* dts,
                   const float* win, const float* bin, const float* wi,
                   const float* bi, const float* wo, const float* bo, float* ys,
                   int M, int B, int H, int HH, int C, int n_inner, int method,
-                  int act_code, void* stream) {
-  const FwdArgs a{CdeDims{M, B, H, HH, C, n_inner}, z0, dx, dts, win, bin,
-                  wi, bi, wo, bo, ys};
+                  int act_code, int members, void* stream) {
+  const FwdArgs a{CdeDims{M, B, H, HH, C, n_inner, members}, z0, dx, dts,
+                  win, bin, wi, bi, wo, bo, ys};
   return run_fwd(a, method, act_code, (cudaStream_t)stream, nullptr, true);
 }
 
+// The backward of K members (inputs as the forward's): ddx, dz0, and the
+// weight gradients grads [K][P] (each member's weights' sizes in the
+// order of cde_parts) summed from the partials part [K][clusters][P].
 int fused_cde_bwd(const float* z0, const float* ys, const float* gys,
                   const float* dx, const float* dts, const float* win,
                   const float* bin, const float* wi, const float* bi,
                   const float* wo, const float* bo, float* ddx, float* dz0,
-                  float* p_win, float* p_bin, float* p_wi, float* p_bi,
-                  float* p_wo, float* p_bo, int M, int B, int H, int HH,
-                  int C, int n_inner, int method, int act_code,
+                  float* part, float* grads, int M, int B, int H, int HH,
+                  int C, int n_inner, int method, int act_code, int members,
                   void* stream) {
-  const BwdArgs a{CdeDims{M, B, H, HH, C, n_inner}, z0, ys, gys, dx, dts,
-                  win, bin, wi, bi, wo, bo, ddx, dz0, p_win, p_bin, p_wi,
-                  p_bi, p_wo, p_bo};
+  BwdArgs a{CdeDims{M, B, H, HH, C, n_inner, members}, z0, ys, gys, dx, dts,
+            win, bin, wi, bi, wo, bo, ddx, dz0, part, grads};
   return run_bwd(a, method, act_code, (cudaStream_t)stream, nullptr, true);
 }
 

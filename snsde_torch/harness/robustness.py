@@ -33,11 +33,12 @@ of valid rows.
 or `gru-ode` at once as an `ISTSSeedEnsembleSDE` (`train_ists_ensemble`):
 each seed its own split, missingness and control path; the SDE members'
 solve one member-axis launch on CUDA (models/ensemble.py), the CDE
-members' one solo launch each. It follows the JAX package's ensemble
-trainer: member k's batches in the order of numpy's default_rng(k), each
-member's masked mean loss, a shared StepLR decay, per-member early stop
-and restore; a member that stopped keeps its parameters and BatchNorm
-statistics while its Adam state advances.
+members' (FinalTanh, GRU-ODE) one launch of the member-axis CDE kernels.
+It follows the JAX package's ensemble trainer: member k's batches in the
+order of numpy's default_rng(k), each member's masked mean loss, a shared
+StepLR decay, per-member early stop and restore; a member that stopped
+keeps its parameters and BatchNorm statistics while its Adam state
+advances.
 """
 
 from __future__ import annotations
@@ -446,8 +447,8 @@ class ISTSSeedEnsembleSDE(nn.Module):
     with its own control path (the seed changes the split and the
     missingness, so members see different data). The SDE members' solve
     is one member-axis launch on CUDA (`packed_solve` with per-member
-    paths); the CDE members' one solve each (`packed_cde_solve`); the
-    heads run per member. The head draws no dropout.
+    paths), the CDE members' too (`packed_cde_solve`); the heads run per
+    member. The head draws no dropout.
 
     forward(seqs [K, B, 3, L, D], coeffs [K, B, L-1, 4C], *, generators)
     -> logits [K, B, classes]."""

@@ -1,15 +1,16 @@
 """Seed-packed fused solves: K same-configuration members in one launch
-(counterpart of snsde/kernels/multi.py:84-553).
+(counterpart of snsde/kernels/multi.py:84-553 and :715-748).
 
 The JAX package packs K members into the TPU's 128-lane axis with
 block-diagonal weights (`pack_fields`, multi.py:98): a trick of the MXU,
-which on a GPU would multiply every product's work by K. Here the EM and
-SRK kernels have a member axis instead (csrc/sde_hopper.cuh): one launch
-runs K members side by side, each with its own weights, initial state
-and Brownian streams, on the grid's second dimension. The JAX contract is
-kept: packed member i is a solo solve with the same noise, bit for bit
-under the same plan (its increments drawn from its own generator exactly
-as `fused_em_solve`/`fused_srk_solve` draw them).
+which on a GPU would multiply every product's work by K. Here the EM, SRK
+and CDE kernels have a member axis instead (csrc/sde_hopper.cuh,
+csrc/fused_cde.cu): one launch runs K members side by side, each with its
+own weights, initial state and Brownian or control streams, on the grid's
+second dimension. The JAX contract is kept: packed member i is a solo
+solve with the same noise, bit for bit under the same plan (its increments
+drawn from its own generator exactly as `fused_em_solve`/
+`fused_srk_solve`/`fused_latent_em_solve` draw them).
 
 Each member's precomputes (the drift's hoist and rows, the diffusion rows,
 its weights in [in, out] layout) are the solo solve's, by the same
@@ -17,8 +18,9 @@ operations, stacked on a leading member axis; `paths` gives each member
 its own control path (the robustness sweep's seeds each carry their own
 missingness), else all members read `path`.
 
-The CDE pair has no member axis yet: `fused_cde_solve_packed` runs one
-solo CDE launch a member (ROADMAP Queue 1 item 12).
+The CDE members (FinalTanh, SingleHiddenLayer, GRU-ODE) stack their
+`fused_cde_inputs`, one control-derivative stream each; the LatentSDE
+members stack their `latent_inputs` onto the EM pair's latent instances.
 """
 
 from __future__ import annotations
@@ -29,15 +31,17 @@ import torch
 
 from ..ops.brownian import brownian_increments, space_time_levy_area
 from ..ops.solve import make_grid
-from .fused_cde import fused_cde_solve
-from .fused_em import FusedEM, fused_em_inputs
+from .fused_cde import FusedCDE, fused_cde_inputs
+from .fused_cde import _ARG_ORDER as _CDE_ARGS
+from .fused_em import FusedEM, fused_em_inputs, latent_inputs
 from .fused_em import _ARG_ORDER as _EM_ARGS
 from .fused_em import _MODE_KEYS
 from .fused_srk import FusedSRK, fused_srk_inputs
 from .fused_srk import _ARG_ORDER as _SRK_ARGS
 
 __all__ = ["fused_em_solve_packed", "fused_srk_solve_packed",
-           "fused_cde_solve_packed", "check_same_config"]
+           "fused_cde_solve_packed", "fused_latent_em_solve_packed",
+           "check_same_config"]
 
 
 def check_same_config(fields) -> None:
@@ -53,6 +57,15 @@ def check_same_config(fields) -> None:
             raise ValueError(
                 "pack_fields needs identically-configured models "
                 "(same input/noise option, widths, depth)")
+
+
+def _check_same_shapes(members, label: str) -> None:
+    """ValueError unless every member is of the first one's type with
+    parameters of the same shapes (the same kind, widths and depth)."""
+    shapes = lambda m: (type(m), tuple(p.shape for p in m.parameters()))
+    if any(shapes(m) != shapes(members[0]) for m in members[1:]):
+        raise ValueError(f"{label} needs identically-configured members "
+                         f"(same kind, widths, depth)")
 
 
 def _member_paths(path, paths, K: int):
@@ -150,13 +163,54 @@ def fused_srk_solve_packed(fields: Sequence, path, times, y0s: torch.Tensor,
 def fused_cde_solve_packed(funcs: Sequence, path, times, z0s: torch.Tensor,
                            dt: Optional[float] = None, method: str = "rk4",
                            paths=None) -> torch.Tensor:
-    """K CDE fields solved by one solo fused CDE launch a member, in order
-    (the CDE pair has no member axis yet; multi.py:505 packs them into one
-    launch). Returns zs [K, T, B, H]."""
+    """Solve K identically-configured CDE fields (FinalTanh,
+    SingleHiddenLayer or GRUODEField) in one launch of the CDE kernels
+    (multi.py:505-553): z0s [K, B, H]; `paths` one control path per member
+    (the robustness sweep's seeds each carry their own missingness), else
+    every member reads `path`. Member i is fused_cde_solve(funcs[i], ...)
+    bit for bit under the same plan. Returns zs [K, T, B, H]."""
+    from ..models.neuralsde import resolve_dt
+
     K = len(funcs)
     if z0s.shape[0] != K:
         raise ValueError("need one z0 slice per field")
+    _check_same_shapes(funcs, "fused_cde_solve_packed")
     member_paths = _member_paths(path, paths, K)
-    return torch.stack([fused_cde_solve(funcs[k], member_paths[k], times,
-                                        z0s[k], dt=dt, method=method)
-                        for k in range(K)])
+    dt = resolve_dt(times, floor=0.0) if dt is None else dt
+    grid, out_idx = make_grid(times, dt)
+    inputs = [fused_cde_inputs(funcs[k], member_paths[k], grid, z0s[k],
+                               method) for k in range(K)]
+    ys = FusedCDE.apply(*_stack_inputs(inputs, _CDE_ARGS), method,
+                        inputs[0]["act"])
+    return _out(z0s, ys, out_idx)
+
+
+def fused_latent_em_solve_packed(models: Sequence, times,
+                                 aug0s: torch.Tensor, dWs_or_generators,
+                                 dt: Optional[float] = None) -> torch.Tensor:
+    """Solve K identically-configured LatentSDE augmented systems in one
+    launch of the EM kernels' latent instances (multi.py:715-748, which
+    lane-packs them): aug0s [K, B, H] (each member's latent state and a zero
+    KL lane); dWs_or_generators: K torch.Generators (member i draws the
+    increments fused_latent_em_solve(models[i], ..., generator=
+    generators[i]) draws) or the increments [K, M, B, H]. Returns ys
+    [K, T, B, H] (member i's KL total at ys[i, -1, :, H-1])."""
+    from ..models.neuralsde import resolve_dt
+
+    K = len(models)
+    if aug0s.shape[0] != K or len(dWs_or_generators) != K:
+        raise ValueError("need one aug0 slice and one generator (or noise "
+                         "draw) per model")
+    _check_same_shapes(models, "fused_latent_em_solve_packed")
+    dt = resolve_dt(times) if dt is None else dt
+    grid, out_idx = make_grid(times, dt)
+    inputs = []
+    for k in range(K):
+        dW = dWs_or_generators[k]
+        if not isinstance(dW, torch.Tensor):
+            dW = brownian_increments(dW, grid, tuple(aug0s.shape[1:]),
+                                     aug0s.dtype, aug0s.device)
+        inputs.append(latent_inputs(models[k], grid, aug0s[k], dW))
+    ys = FusedEM.apply({k: inputs[0][k] for k in _MODE_KEYS + ("latent",)},
+                       *_stack_inputs(inputs, _EM_ARGS))
+    return _out(aug0s, ys, out_idx)

@@ -6,8 +6,9 @@ cell of the classification grids, 5 seeds a cell of the robustness sweep)
 and trains each replica in its own process. A seed ensemble trains K
 same-configuration replicas at once: on CUDA tensors the SDE solve, the
 whole hot loop, is one launch of the EM or SRK kernels with a member axis
-(kernels/multi.py), while the members' small initial networks and readout
-heads run as ordinary per-member modules. Each member is a submodule, so
+(kernels/multi.py; a CDE ensemble's, of the CDE kernels), while the
+members' small initial networks and readout heads run as ordinary
+per-member modules. Each member is a submodule, so
 `state_dict` and `convert.py` see the JAX package's leaves.
 
 Members are independent: each draws its Brownian increments and its
@@ -71,10 +72,10 @@ def packed_cde_solve(funcs: Sequence, path, times, z0s: torch.Tensor, *,
                      method: str = "rk4", dt: Optional[float] = None,
                      paths=None, use_fused: bool = True) -> torch.Tensor:
     """K members' CDE solve (ensemble.py:166-205): on CUDA tensors where
-    the fused CDE kernels take the field, `fused_cde_solve_packed` (one
-    solo launch a member: the CDE pair has no member axis yet), else each
-    member's eager cdeint, as `cde_solve_dispatch` chooses for a solo
-    solve. Returns [K, T, B, H]."""
+    the fused CDE kernels take the field (FinalTanh, SingleHiddenLayer,
+    GRUODEField), `fused_cde_solve_packed` (one launch of the member-axis
+    CDE kernels for all K), else each member's eager cdeint, as
+    `cde_solve_dispatch` chooses for a solo solve. Returns [K, T, B, H]."""
     dt = resolve_dt(times, floor=0.0) if dt is None else dt
     if (use_fused and z0s.device.type == "cuda"
             and supports_fused_cde(funcs[0], method)):

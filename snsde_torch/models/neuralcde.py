@@ -3,11 +3,13 @@ FinalTanh, SingleHiddenLayer and GRU-ODE vector fields, the terminal and
 stream wrappers, and the solver dispatch.
 
 dz = f(z) dX(t) with a matrix-valued field f(z) in R^{H x C}. On a CUDA
-device, FinalTanh and SingleHiddenLayer solve through the fused CDE
-kernels on every explicit tableau (`kernels/fused_cde.py`); the GRU-ODE
-field and every CPU tensor take the eager `cdeint`. The JAX package's gate
-`_fused_cde_pays` (a width limit and exact-f32 kernels on euler only) was
-measured on a TPU and does not carry over.
+device, FinalTanh, SingleHiddenLayer and the GRU-ODE field solve through
+the fused CDE kernels on every explicit tableau (`kernels/fused_cde.py`);
+every CPU tensor takes the eager `cdeint`. The JAX package's gates
+(`_fused_cde_pays`: a width limit and exact-f32 kernels on euler only;
+the GRU-ODE field's `SNSDE_FUSED_GRUODE` opt-in) were measured on a TPU
+and do not carry over: the kernels compute in exact float32 for every
+field.
 
 Controls: the cubic family ('cubic', 'hermite', 'natural') evaluates
 through `CubicPath`; the linear and rectilinear controls are not ported
@@ -121,6 +123,11 @@ class GRUODEField(nn.Module):
         u = torch.sigmoid(self.W_z(z)).reshape(shape)
         g = torch.tanh(r * self.W_h(z).reshape(shape))
         return (1.0 - u) * (g - z[..., :, None])
+
+    def fused_weights(self):
+        """("gruode", (W_r, W_z, W_h)): the field as the fused CDE kernels
+        take it, three [H] -> [H*C] gates with h-major outputs."""
+        return "gruode", (self.W_r, self.W_z, self.W_h)
 
 
 def _build_path(coeffs, times, control: str):

@@ -240,16 +240,19 @@ def test_neural_cde_stream_matches_jax(field):
 
 
 def test_dispatch_on_the_cpu_takes_the_eager_solve(monkeypatch):
-    """A CPU tensor never reaches the fused solve; the GRU-ODE field never
-    does, on any device."""
+    """A CPU tensor never reaches the fused solve, whatever the field; on
+    the card every field takes the kernels, the GRU-ODE field too, on
+    every tableau."""
     def no_fused(*a, **k):
         raise AssertionError("the fused CDE solve was called")
 
     monkeypatch.setattr(tcde, "fused_cde_solve", no_fused)
-    _, tm = _models("stream")
     times, coeffs = _model_data()
-    tm(times, torch.as_tensor(coeffs))
-    assert not tcde.supports_fused_cde(tcde.GRUODEField(C, H), "rk4")
+    for field in ("final_tanh", "gruode"):
+        _, tm = _models("stream", field=field)
+        tm(times, torch.as_tensor(coeffs))
+    for method in ("euler", "midpoint", "heun", "rk2", "rk4"):
+        assert tcde.supports_fused_cde(tcde.GRUODEField(C, H), method)
 
 
 def test_linear_control_is_not_ported():

@@ -167,10 +167,16 @@ def _cde_inputs(method, act, n_inner, C, scale, B=20, M=9, H=49, seed=0):
     k, kb = (1.0 / np.sqrt(H),) * 2 if scale == "init" else (0.5, 1.0)
     dt = 0.5 if scale == "init" else 0.05
     inputs = dict(z0=t(B, H), dx=t(M, B, NT * C),
-                  dts=torch.full((M,), dt, device="cuda"),
-                  win=k * t(H, HH), bin=kb * t(HH),
-                  w_inner=k * t(n_inner, HH, HH), b_inner=kb * t(n_inner, HH),
-                  wout=k * t(HH, H * C), bout=kb * t(H * C))
+                  dts=torch.full((M,), dt, device="cuda"))
+    if act == "gruode":         # the GRU-ODE field: three gates, no MLP
+        inputs.update(dict.fromkeys(("win", "bin", "w_inner", "b_inner",
+                                     "wout", "bout")),
+                      wg=k * t(3, H, H * C), bg=kb * t(3, H * C))
+    else:
+        inputs.update(win=k * t(H, HH), bin=kb * t(HH),
+                      w_inner=k * t(n_inner, HH, HH),
+                      b_inner=kb * t(n_inner, HH), wout=k * t(HH, H * C),
+                      bout=kb * t(H * C))
     gys = t(M, B, H) / (B if scale == "init" else 1)
     return inputs, dict(method=method, act=act), gys
 
@@ -330,7 +336,7 @@ def test_cde_kernels_raise_above_the_shared_memory_limit():
         pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
     inputs, flags, gys = _cde_inputs("rk4", "relu", 0, 64, "init", H=128,
                                      B=3, M=2)
-    shape = (3, 128, 128, 64, 0, 3)
+    shape = (3, 128, 128, 64, 0, 3, 0, 1)    # rk4, relu, one member
     assert fc._LIB.placement(shape, backward=False) >= 2
     _check(_fns(fc, "fused_cde"), inputs, flags, gys, "init",
            ys_f64_factor=YS_F64_FACTOR)
@@ -686,7 +692,7 @@ def _wide_check(kind, H, n_inner, placement):
     if kind == "cde":
         inputs, flags, gys = _cde_inputs("rk4", "relu", n_inner, 6, "init",
                                          B=13, M=4, H=H)
-        shape = (13, H, H, 6, n_inner, 3)
+        shape = (13, H, H, 6, n_inner, 3, 0, 1)  # rk4, relu, 1 member
     else:
         inputs, flags, gys = _inputs(kind == "srk", 4, 17, n_inner, "init",
                                      B=13, M=5, H=H)
@@ -1147,7 +1153,7 @@ def test_cde_backward_is_bit_reproducible(cs):
         b = fc.fused_cde_backward(ys=ys, gys=gys, **inputs, **flags)
         torch.cuda.synchronize()
         for x, y in zip(a, b):
-            assert torch.equal(x, y)
+            assert (x is None and y is None) or torch.equal(x, y)
     finally:
         fc.force_cde_plan(0, 0)
 
@@ -1197,6 +1203,130 @@ def test_cde_plan_raises_when_it_cannot_run():
             fc.fused_cde_backward(ys=ys, gys=gys, **inputs, **flags)
     finally:
         fc.force_cde_plan(0, 0)
+
+
+# The GRU-ODE field (act "gruode") on the CDE kernels: (CTAs a cluster,
+# batch rows a cluster, B, C, H), both forced; every cluster size on a
+# ragged batch, and the sweep's width
+GRU_CDE_CLUSTERS = [(1, 8, 13, 6, 16), (2, 8, 13, 6, 20), (4, 4, 13, 6, 20),
+                    (8, 2, 37, 6, 20), (1, 32, 37, 6, 16), (2, 16, 37, 35, 20)]
+
+
+def _gru_forced(cs, rows, method, C, B, H, level=0, M=5):
+    """The GRU-ODE instances against their plain versions (init-scale
+    rules) with the plan's cluster size and rows, and its lowest level,
+    forced."""
+    fc.force_cde_plan(cs, rows)
+    fc._LIB.force_placement(level)
+    try:
+        for backward in (False, True):
+            p = fc.fused_cde_plan(B, H, H, C, 0, method, backward, "gruode")
+            print(f"gruode cs={cs} rows={rows} level>={level} B={B} C={C} "
+                  f"H={H} {method} backward={backward}: {p}")
+            assert p["level"] >= level and p["active_clusters"] >= 1
+            assert cs in (0, p["cluster"]) and rows in (0, p["rows"])
+        inputs, flags, gys = _cde_inputs(method, "gruode", 0, C, "init",
+                                         B=B, M=M, H=H)
+        _check(_fns(fc, "fused_cde"), inputs, flags, gys, "init",
+               ys_f64_factor=YS_F64_FACTOR, grad_f64_factor=YS_F64_FACTOR)
+    finally:
+        fc.force_cde_plan(0, 0)
+        fc._LIB.force_placement(0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cs,rows,B,C,H", GRU_CDE_CLUSTERS)
+def test_cde_gruode_cluster_plans_match_plain_versions(cs, rows, B, C, H):
+    """Each cluster size, forced, with the GRU-ODE field (its cotangents by
+    the float64 rule: its z feedback through three gates amplifies float32
+    rounding)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    _gru_forced(cs, rows, "rk4", C, B, H)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("level", [1, 2, 3, 4, 5, 6])
+def test_cde_gruode_every_level_matches_plain_versions(level):
+    """Every plan level forced (from 3 on the gates' gradients, from 4 the
+    gates themselves in device memory), in a cluster of two CTAs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    _gru_forced(2, 0, "rk4", 6, 13, 20, level=level)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["euler", "midpoint", "heun", "rk4"])
+def test_cde_gruode_every_tableau(method):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    _gru_forced(1, 8, method, 6, 13, 16)
+    _gru_forced(0, 0, method, 6, 64, 16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H", [128, 256])
+def test_cde_gruode_wide_fields_match_plain_versions(H):
+    """H = 128 and 256 at C = 6: the gates past a CTA's shared memory (the
+    plan's own choice, printed)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    _gru_forced(0, 0, "rk4", 6, 24, H, M=3)
+
+
+# (field kind, inner layers, H, K) of the CDE pair's member axis
+CDE_MEMBER_CASES = [("relu", 0, 16, 3), ("relu", 1, 32, 2),
+                    ("tanh", 0, 16, 2), ("gruode", 0, 16, 3),
+                    ("gruode", 0, 20, 1)]
+
+
+def _cde_members(act, n_inner, H, K, B=21, M=6, C=6):
+    """K members' init-scale inputs of the CDE pair (member k's from seed
+    k), stacked but dts, their gys, and each member's own inputs."""
+    members = [_cde_inputs("rk4", act, n_inner, C, "init", B=B, M=M, H=H,
+                           seed=k) for k in range(K)]
+    inputs = {n: t if t is None or n == "dts" else
+              torch.stack([m[0][n] for m in members])
+              for n, t in members[0][0].items()}
+    return (inputs, members[0][1], torch.stack([m[2] for m in members]),
+            [(m[0], m[2]) for m in members])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plan", [(1, 8), (2, 4)])
+@pytest.mark.parametrize("act,n_inner,H,K", CDE_MEMBER_CASES)
+def test_cde_member_axis_is_bitwise_the_solo_launch(act, n_inner, H, K,
+                                                    plan):
+    """Under one forced plan, member k of a packed CDE launch is bit for
+    bit the launch of member k alone: the trajectory and every
+    cotangent."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    inputs, flags, gys, members = _cde_members(act, n_inner, H, K)
+
+    def run(inp, g):
+        ys = fc.fused_cde_forward(**inp, **flags)
+        return ys, fc.fused_cde_backward(ys=ys, gys=g, **inp, **flags)
+
+    fc.force_cde_plan(*plan)
+    try:
+        ys, g = run(inputs, gys)
+        solo = [run(m, gk) for m, gk in members]
+    finally:
+        fc.force_cde_plan(0, 0)
+    torch.cuda.synchronize()
+    for k, (ys_k, g_k) in enumerate(solo):
+        assert torch.equal(ys[k], ys_k), f"member {k}: ys"
+        for name, a, b in zip(g._fields, g, g_k):
+            assert (a is None) == (b is None), name
+            if b is not None:
+                assert torch.equal(a[k], b), f"member {k}: {name}"
+    # and each member against the plain versions under the plan's choice
+    ys = fc.fused_cde_forward(**inputs, **flags)
+    for k, (m, gk) in enumerate(members):
+        ys_p = fc.fused_cde_forward_reference(**m, **flags)
+        rel = float((ys[k] - ys_p).abs().max() / ys_p.abs().max())
+        assert rel < 1e-4, (k, rel)
 
 
 # ---------------------------------------------------------------------------
