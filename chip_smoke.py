@@ -18,7 +18,10 @@ kernels' sel, tg and TLSTM modes) and `cnn` and `transformer` (no kernel),
 phase 9; since the CDE pair's GRU-ODE field and member axis the sweep's
 `gru-ode` (the CDE kernels' gruode instances) and the seed-packed
 `neuralcde` and `gru-ode` cells (one launch of the member-axis CDE kernels
-for the three seeds), phase 10.
+for the three seeds), phase 10; since the linear controls and the solvers
+without a kernel the sweep's `neuralcde-l` and `neuralcde-r` (the CDE
+kernels on a LinearPath's stream) and `run_mujoco` with milstein and
+heun (the eager sdeint), phase 11.
 Phases, each of which raises on failure:
   1. card: name, and name and power limit from nvidia-smi;
   2. build: nvcc builds every kernel of the four paths from
@@ -201,12 +204,34 @@ Phases, each of which raises on failure:
      shapes beside FinalTanh's, the packed launch against three solo
      launches (cde_packed_kernel_times), and one gru-ode training step at
      the sweep cell through the kernels and with use_fused=False, with its
-     profiler window.
+     profiler window;
+ 11. the linear controls and the solvers no kernel takes, in phases
+     3-5's places: the CDE pair against its plain versions on both linear
+     streams at the sweep cell (compare_linear_cde: neuralcde-l's knot
+     values over linspace(0, 1, 60), 106 rk4 steps, stage times on and
+     within one ulp of knots; neuralcde-r's rectilinear knots stepped on
+     their index, 118 steps; the trajectory and every cotangent, ddx
+     included, by check_pair_rows); sdeint_adaptive and the five adaptive
+     and extra ODE solvers at B=64, H=16 on the card against the CPU, in
+     float64 (compare_solvers_card_vs_cpu); the sweep cell with
+     neuralcde-l and neuralcde-r for 2 epochs each (linear_sweep_path:
+     the CDE kernels launched, the eager cdeint never, a finite loss, the
+     trained solve through the kernels against the eager one); run_mujoco
+     with milstein and with heun for 1 epoch each at the MuJoCo shape
+     (sde_method_mujoco_path: finite MSEs, no EM or SRK launch, the
+     trained field's solve on the card against the CPU on one
+     BrownianGrid); the pair's times and bounds on both linear streams
+     (cde_linear_kernel_times, in the kernels line's CDE entries), one
+     neuralcde-l training step through the kernels and with
+     use_fused=False, one milstein training step at the MuJoCo shape with
+     its profiler window, and each adaptive solver's time a solve and a
+     trial step at B=1024, H=32 (adaptive_solver_times).
 It prints one JSON line of the kernels (each SDE kernel with the `modes`
 it takes; the packed launches, the hybrids' and the time-aware LSTMs'
 instances, TLSTM's W_d gradient and the CDE pair's gruode instances and
 packed launches as their own entries, the recurrent
-modes with their H=256 times), the card's name and
+modes with their H=256 times, the CDE pair's with its linear streams'
+times and launches), the card's name and
 power limit, and last `{"ok": true, "device": {...}}`. It exits non-zero,
 printing no result, without a CUDA device or outside the repository.
 
@@ -2488,12 +2513,18 @@ def cde_kernel_times(shape, method="rk4", field="final_tanh"):
     every output written once, and the fp32 operations of the field
     (cde_flops; the backward recomputes each evaluation and runs its
     products back: 3x)."""
-    from snsde_torch.kernels import fused_cde as fc
-
-    fwd_k, fwd_p, bwd_k, bwd_p = kernel_fns("cde")
     fwd, flags, gys = cde_kernel_inputs(shape["B"], shape["L"], shape["C"],
                                         shape["H"], shape["n_inner"], method,
                                         field)
+    return cde_times(fwd, flags, gys, field)
+
+
+def cde_times(fwd, flags, gys, label):
+    """cde_kernel_times on given inputs of the pair (`label` names them in
+    the printed bounds)."""
+    from snsde_torch.kernels import fused_cde as fc
+
+    fwd_k, fwd_p, bwd_k, bwd_p = kernel_fns("cde")
     ys, _ = fwd_k(*fwd, **flags)
     bwd_args = [fwd[0], ys, gys] + fwd[1:]
     ms = {"fwd": timed(lambda: fwd_k(*fwd, **flags)),
@@ -2510,7 +2541,7 @@ def cde_kernel_times(shape, method="rk4", field="final_tanh"):
                                             + sum(g.numel() for g in grads
                                                   if g is not None)),
                            3 * flops)}
-    print(f"CDE pair ({field}) at B={B} M={M} C={C} H={H} n_inner={n_inner}: "
+    print(f"CDE pair ({label}) at B={B} M={M} C={C} H={H} n_inner={n_inner}: "
           f"forward {flops / 1e9:.3f} GFLOP, bound "
           f"{bounds['fwd'][0]:.5f} ms ({bounds['fwd'][1]}), backward bound "
           f"{bounds['bwd'][0]:.5f} ms ({bounds['bwd'][1]})", flush=True)
@@ -2593,10 +2624,11 @@ def sepsis_step_fns():
     return out
 
 
-def mujoco_step_fns():
+def mujoco_step_fns(method="srk"):
     """One training step of the forecasting model (mse + 0.01 L2, coupled-
     L2 Adam) on one batch of 1024 MuJoCo-shaped windows: {label: step()}
-    through the SRK kernels and through the eager srk solver."""
+    through the SRK kernels and through the eager srk solver (with a
+    method no kernel takes, both through the eager solver)."""
     from snsde_torch.data import synthetic_mujoco
     from snsde_torch.harness.forecasting import (forecast_coeffs,
                                                  make_forecast_model)
@@ -2614,7 +2646,7 @@ def mujoco_step_fns():
     for label, fused in (("train_step", True), ("train_step_eager", False)):
         model, reg_fn = make_forecast_model(
             cfg.model_name, SRK["C"], SRK["H"], SRK["H"], SRK["layers"],
-            SRK["C"], T, method="srk",
+            SRK["C"], T, method=method,
             generator=torch.Generator().manual_seed(0))
         model = model.to(dev)
 
@@ -4419,6 +4451,455 @@ def gruode_step_fns():
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the linear controls on the CDE kernels, and the solvers no
+# kernel takes (milstein, heun, adaptive Euler–Maruyama, the adaptive and
+# extra ODE solvers)
+# ---------------------------------------------------------------------------
+
+LINEAR_MODELS = ("neuralcde-l", "neuralcde-r")
+# the sweep cell's CDE shape (hidden 16, FinalTanh with no inner layer)
+LINEAR = dict(B=SWEEP["B"], L=SWEEP["L"], C=SWEEP["D"] + 1, H=SWEEP["H"],
+              n_inner=0)
+SDE_METHODS = ("milstein", "heun")
+# the adaptive solvers' small card-vs-CPU problem, and their timing width
+# (the MuJoCo path's B and H)
+ADAPTIVE = dict(B=64, H=16)
+ADAPTIVE_TIMES = dict(B=SRK["B"], H=SRK["H"])
+ODE_METHODS = ("dopri5", "rk23", "rk12", "ode23s", "sym12")
+
+
+def linear_cde_inputs(name, B, L, C, H, n_inner, seed=0):
+    """Detached inputs of the CDE pair on the linear control the sweep's
+    `name` layer builds: knot values (time ‖ x) over linspace(0, 1, L) of
+    random series, a FinalTanh field; neuralcde-l steps at the smallest
+    knot gap (106 rk4 steps at L=60), neuralcde-r on the rectilinear
+    knots' index at dt = 1 (118 steps). Returns (tensors in the forward's
+    order, flags, gys, (stage times on a knot, stage times within one ulp
+    of a knot but not on it))."""
+    from snsde_torch.kernels import fused_cde as fc
+    from snsde_torch.models import FinalTanh, resolve_dt
+    from snsde_torch.ops import (LinearPath, fill_missing_linear, make_grid,
+                                 rectilinear_coeffs)
+
+    rng = np.random.default_rng(seed)
+    func = FinalTanh(C, H, H, n_inner + 1,
+                     generator=torch.Generator().manual_seed(seed)).to(DEV)
+    times = np.linspace(0.0, 1.0, L).astype(np.float32)
+    tt = torch.as_tensor(times)
+    x = torch.as_tensor(rng.normal(size=(B, L, C - 1)).astype(np.float32))
+    vals = fill_missing_linear(tt, torch.cat(
+        [tt[None, :, None].expand(B, -1, 1), x], dim=-1))
+    if name == "neuralcde-r":
+        _, vals = rectilinear_coeffs(tt, vals)
+        times = np.arange(2 * L - 1, dtype=np.float32)
+    path = LinearPath(times, vals.to(DEV))
+    grid, _ = make_grid(times, resolve_dt(times, floor=0.0))
+    z0 = torch.as_tensor(rng.normal(size=(B, H)).astype(np.float32)).to(DEV)
+    with torch.no_grad():
+        inp = fc.fused_cde_inputs(func, path, grid, z0, "rk4")
+    fwd = [None if inp[k] is None else inp[k].detach().contiguous()
+           for k in fc._ARG_ORDER]
+    stage = fc._stage_grid(grid, np.diff(grid), fc._stage_times("rk4")[0])
+    knot = times[np.abs(stage[:, None] - times[None, :]).argmin(axis=1)]
+    gap = np.abs(stage - knot)
+    near = (int((gap == 0).sum()),
+            int(((gap > 0) & (gap <= np.spacing(knot))).sum()))
+    M = len(grid) - 1
+    gys = torch.as_tensor(rng.normal(size=(M, B, H)).astype(np.float32) / B)
+    return fwd, dict(method="rk4", act=inp["act"]), gys.to(DEV), near
+
+
+def compare_linear_cde():
+    """The CDE pair against its plain versions on both linear streams at
+    the sweep cell (check_pair_rows: the trajectory and every cotangent,
+    ddx included, by the rules of the cubic stream), the neuralcde-l grid
+    with stage times within one ulp of knots. Returns the largest forward
+    and backward errors."""
+    errs = []
+    for name in LINEAR_MODELS:
+        fwd, flags, gys, (on, near) = linear_cde_inputs(name, **LINEAR)
+        print(f"  {name} stream: {gys.shape[0]} rk4 steps, {on} stage times "
+              f"on a knot, {near} within one ulp of a knot", flush=True)
+        if name == "neuralcde-l" and near < 1:
+            raise AssertionError("no stage time within one ulp of a knot")
+        cde_plans([(LINEAR["B"], LINEAR["H"], LINEAR["C"],
+                    LINEAR["n_inner"])])
+        errs.append(check_pair_rows(
+            f"CDE {name} linear stream B={LINEAR['B']} (M={gys.shape[0]}) "
+            f"C={LINEAR['C']} H={LINEAR['H']}", "cde", fwd, flags, gys))
+    return tuple(max(e[i] for e in errs) for i in range(2))
+
+
+def check_trained_linear_cde(name, model, data):
+    """A trained linear-control classifier's CDE solve (its layer's own
+    path, field, z0 and grid) through the fused kernels against the eager
+    cdeint: within the larger of TOL_YS and YS_F64_FACTOR times the
+    float32 eager solve's own largest error from a float64 run of the
+    plain version on the same control stream (over max|z|). The float64
+    reference takes the stream the float32 stage times give: on a linear
+    control a float64 stage time an ulp across a knot would take another
+    slope, and another solve."""
+    from snsde_torch.kernels import fused_cde as fc
+    from snsde_torch.models import neuralcde
+    from snsde_torch.ops import cdeint, make_grid
+
+    seen = []
+    real = neuralcde.cde_solve_dispatch
+
+    def record(path, func, z0, ts, **kw):
+        seen.append((path, func, z0, ts, kw))
+        return real(path, func, z0, ts, **kw)
+
+    neuralcde.cde_solve_dispatch = record
+    try:
+        with torch.no_grad():
+            model.layer(torch.as_tensor(data["seq"], device=DEV), None)
+    finally:
+        neuralcde.cde_solve_dispatch = real
+    (path, func, z0, ts, kw), = seen
+    grid, out_idx = make_grid(ts, kw["dt"])
+    with torch.no_grad():
+        z_f = fc.fused_cde_solve(func, path, ts, z0, dt=kw["dt"],
+                                 method=kw["method"])
+        z_e = cdeint(path, func, z0, ts, dt=kw["dt"], method=kw["method"])
+        inp = fc.fused_cde_inputs(func, path, grid, z0, kw["method"])
+        ys64 = fc.fused_cde_forward_reference(
+            *(_dbl(inp[k]) for k in fc._ARG_ORDER), method=inp["method"],
+            act=inp["act"])
+    z_64 = torch.cat([z0[None].double(), ys64])[
+        torch.as_tensor(out_idx, device=z0.device)]
+    scale = float(z_64.abs().max())
+    rel = float((z_f - z_e).abs().max()) / scale
+    e_eager = float((z_e.double() - z_64).abs().max()) / scale
+    tol = max(TOL_YS, YS_F64_FACTOR * e_eager)
+    print(f"trained {name}: fused vs eager rk4 CDE solve, B={z_f.shape[1]}: "
+          f"shape {tuple(z_f.shape)}, largest err over max|z| {rel:.3e} "
+          f"(tol {tol:.3e}; the float32 eager solve from float64 "
+          f"{e_eager:.3e})")
+    if not (torch.isfinite(z_f).all() and rel <= tol):
+        raise AssertionError(f"trained {name} model's fused solve disagrees")
+
+
+def linear_sweep_path(out_dir):
+    """The sweep cell with neuralcde-l and neuralcde-r (rk4, hidden 16) for
+    2 epochs each, every count set to 0 just before each run: each must
+    launch the CDE kernels (forward and backward), take the eager cdeint
+    nowhere, write a record with an accuracy and no error, give a finite
+    loss on the validation rows, and its trained layer's fused solve must
+    match the eager one (check_trained_linear_cde). Returns each run's
+    launch counts."""
+    from snsde_torch.harness.robustness import (SweepConfig, coeff_family,
+                                                preprocess_ists,
+                                                run_robustness_sweep)
+    from snsde_torch.models import neuralcde
+    from snsde_torch.train.loop import softmax_cross_entropy
+
+    X, y, _ = uea_b_noisy()
+    out = {}
+    for name in LINEAR_MODELS:
+        cfg = SweepConfig(models=(name,), missing_rates=(0.3,), seeds=(0,),
+                          hidden_dim=SWEEP["H"], batch_size=SWEEP["B"],
+                          max_epochs=2, out_dir=out_dir)
+        trained, eager = {}, []
+        real = neuralcde.cdeint
+
+        def counted(*a, **k):
+            eager.append(1)
+            return real(*a, **k)
+
+        neuralcde.cdeint = counted
+        zero_counts()
+        t0 = time.perf_counter()
+        try:
+            recs = run_robustness_sweep(cfg, n=SWEEP["n"],
+                                        data_fn=uea_b_noisy,
+                                        dataset_name="uea_b_noisy",
+                                        verbose=False, device=DEV,
+                                        models=trained)
+            torch.cuda.synchronize()
+            launches = out[name] = read_counts()
+        finally:
+            neuralcde.cdeint = real
+        wall = time.perf_counter() - t0
+        model = trained.get((0.3, name, 0))
+        data = preprocess_ists(X[:64], missing_rate=0.3, seed=0,
+                               interpolation=coeff_family(name))
+        loss = float("nan")
+        if model is not None:
+            model.eval()
+            with torch.no_grad():
+                logits = model(torch.as_tensor(data["seq"], device=DEV),
+                               torch.as_tensor(data["coeffs"], device=DEV))
+                loss = float(softmax_cross_entropy(
+                    logits, torch.as_tensor(y[:64], device=DEV).long()))
+        print(f"main path 11: run_robustness_sweep ({name}, rk4) 2 epochs in "
+              f"{wall:.1f} s, records {recs}, validation-rows loss "
+              f"{loss:.4f}, eager cdeint calls {len(eager)}, launches "
+              f"{launches}", flush=True)
+        if not recs or any("error" in r or "accuracy" not in r
+                           for r in recs):
+            raise AssertionError(f"the {name} sweep wrote a failed record: "
+                                 f"{recs}")
+        if not (all(np.isfinite(r["accuracy"]) for r in recs)
+                and np.isfinite(loss)):
+            raise AssertionError(f"non-finite accuracy or loss with {name}")
+        if launches["cde_fwd"] <= 0 or launches["cde_bwd"] <= 0:
+            raise AssertionError(f"{name} did not run the CDE kernels: "
+                                 f"{launches}")
+        if eager:
+            raise AssertionError(f"{name} took the eager cdeint "
+                                 f"{len(eager)} times")
+        check_trained_linear_cde(name, model, data)
+    return out
+
+
+def check_sde_card_vs_cpu(func, method, B=64):
+    """A trained field's eager `method` solve at the MuJoCo shape on the
+    card against the same solve on the CPU, on one injected BrownianGrid:
+    within the larger of TOL_YS and YS_F64_FACTOR times the CPU float32
+    solve's own largest error from a float64 run of it (over max|ys|)."""
+    import copy
+
+    from snsde_torch.ops import (BrownianGrid, CubicPath,
+                                 hermite_cubic_coeffs, make_grid, sdeint)
+
+    rng = np.random.default_rng(2)
+    L, C, H = SRK["L"], SRK["C"], SRK["H"]
+    times = np.arange(L, dtype=np.float32)
+    x = torch.as_tensor(rng.normal(size=(B, L, C)).astype(np.float32))
+    grid, _ = make_grid(times, 1.0)
+    dW = torch.as_tensor(rng.normal(size=(len(grid) - 1, B, H)).astype(
+        np.float32))
+    y0 = torch.as_tensor(rng.normal(size=(B, H)).astype(np.float32))
+
+    def solve(dev, dtype):
+        fld = copy.deepcopy(func).to(device=dev, dtype=dtype)
+        path = CubicPath(hermite_cubic_coeffs(
+            torch.as_tensor(times, dtype=dtype), x.to(dtype)).to(dev), times)
+        fld.bind(path)
+        with torch.no_grad():
+            return sdeint(fld.f, fld.g, y0.to(device=dev, dtype=dtype),
+                          times, method=method,
+                          bm=BrownianGrid(grid, dW.to(device=dev,
+                                                      dtype=dtype)))
+
+    ys_card = solve(DEV, torch.float32).cpu()
+    ys_cpu = solve("cpu", torch.float32)
+    ys_64 = solve("cpu", torch.float64)
+    scale = float(ys_64.abs().max())
+    rel = float((ys_card - ys_cpu).abs().max()) / scale
+    e32 = float((ys_cpu.double() - ys_64).abs().max()) / scale
+    tol = max(TOL_YS, YS_F64_FACTOR * e32)
+    print(f"trained field ({func.input_option},{func.noise_option}): "
+          f"{method} solve on the card vs the CPU, B={B}: shape "
+          f"{tuple(ys_card.shape)}, largest err over max|ys| {rel:.3e} (tol "
+          f"{tol:.3e}; the CPU float32 solve from float64 {e32:.3e})")
+    if not (torch.isfinite(ys_card).all() and rel <= tol):
+        raise AssertionError(f"the {method} solve on the card disagrees with "
+                             f"the CPU")
+
+
+def sde_method_mujoco_path(method):
+    """run_mujoco with `method` (milstein or heun: the eager sdeint, as the
+    JAX package solves them) at the MuJoCo shape for 1 epoch, every count
+    set to 0 just before it: the MSEs finite, no EM or SRK launch, and the
+    trained field's solve on the card matching the CPU's
+    (check_sde_card_vs_cpu). Returns the launch counts."""
+    import dataclasses
+
+    from snsde_torch.harness.forecasting import run_mujoco
+
+    cfg = dataclasses.replace(mujoco_config(), method=method)
+    zero_counts()
+    t0 = time.perf_counter()
+    res = run_mujoco(cfg, n=N_MUJOCO, max_epochs=1, device=DEV)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    wall = time.perf_counter() - t0
+    mses = [h[s] for h in res["history"] for s in ("train", "val", "test")]
+    mses.append(res["test_mse"])
+    print(f"main path 11: run_mujoco ({method}) 1 epoch in {wall:.1f} s "
+          f"({res['steps']} steps), MSEs {[round(v, 4) for v in mses]}, "
+          f"launches {launches}", flush=True)
+    if not all(np.isfinite(mses)):
+        raise AssertionError(f"non-finite MSE on the forecasting path with "
+                             f"{method}")
+    kernels = {k: v for k, v in launches.items()
+               if k.startswith(("em_", "srk_")) and v}
+    if kernels:
+        raise AssertionError(f"run_mujoco with {method} launched SDE kernels: "
+                             f"{kernels}")
+    check_sde_card_vs_cpu(res["model"].func, method)
+    return launches
+
+
+def _solver_problem(B, H, dtype, dev, seed=0):
+    """Weights, y0 and (f, g) of a small channel-mixing SDE/ODE."""
+    rng = np.random.default_rng(seed)
+    A, S = (torch.as_tensor(rng.normal(size=(H, H)) * 0.6 / np.sqrt(H),
+                            dtype=dtype, device=dev) for _ in range(2))
+    b = torch.as_tensor(rng.normal(size=(H,)) * 0.3, dtype=dtype, device=dev)
+    y0 = torch.as_tensor(rng.normal(size=(B, H)), dtype=dtype, device=dev)
+    f = lambda t, y: (0.5 * torch.tanh(y @ A + b) * (1.0 + 0.2 * torch.sin(t))
+                      - 0.2 * y)
+    g = lambda t, y: 0.4 * torch.sigmoid(y @ S)
+    return f, g, y0
+
+
+def _run_solver(name, f, g, y0, calls):
+    """One solve of the adaptive EM or an ODE method over [0, 1] (five
+    outputs), counting the drift's calls into `calls`."""
+    from snsde_torch.ops import odeint, sdeint_adaptive
+
+    def fc(t, y):
+        calls.append(1)
+        return f(t, y)
+
+    ts = np.linspace(0.0, 1.0, 5).astype(np.float32)
+    with torch.no_grad():
+        if name == "sdeint_adaptive":
+            return sdeint_adaptive(fc, g, y0, ts, seed=0, rtol=1e-2,
+                                   atol=1e-3, differentiable=True)
+        kw = (dict(dt=0.05) if name in ("ode23s", "sym12")
+              else dict(differentiable=True))
+        return odeint(fc, y0, ts, method=name, **kw)
+
+
+def compare_solvers_card_vs_cpu():
+    """sdeint_adaptive (its Virtual Brownian Tree's counter draws the same
+    on both devices) and the five adaptive and extra ODE solvers at a small
+    size (ADAPTIVE), on the card against the CPU: in float64, where the
+    step control sees the true errors on both devices (in float32 the
+    first trial steps' error estimates are rounding noise, so the two
+    devices' grids may part), the same count of drift calls and the
+    outputs within 1e-9 of max|ys|; then in float32 on the card, finite."""
+    for name in ("sdeint_adaptive",) + ODE_METHODS:
+        out, calls = {}, {}
+        for dev in (DEV, "cpu"):
+            f, g, y0 = _solver_problem(**ADAPTIVE, dtype=torch.float64,
+                                       dev=dev)
+            calls[dev] = []
+            out[dev] = _run_solver(name, f, g, y0, calls[dev]).cpu()
+        f, g, y0 = _solver_problem(**ADAPTIVE, dtype=torch.float32, dev=DEV)
+        ys32 = _run_solver(name, f, g, y0, [])
+        scale = float(out["cpu"].abs().max())
+        rel = float((out[DEV] - out["cpu"]).abs().max()) / scale
+        rel32 = float((ys32.double().cpu() - out["cpu"]).abs().max()) / scale
+        print(f"  {name}: card vs CPU (float64) largest err over max|ys| "
+              f"{rel:.3e}, drift calls {len(calls[DEV])} / "
+              f"{len(calls['cpu'])}; float32 on the card from the float64 "
+              f"{rel32:.3e}", flush=True)
+        if not (len(calls[DEV]) == len(calls["cpu"]) and rel <= 1e-9
+                and torch.isfinite(out[DEV]).all()
+                and torch.isfinite(ys32).all()):
+            raise AssertionError(f"{name} on the card disagrees with the CPU")
+
+
+def adaptive_solver_times(reps=3):
+    """Wall ms of one solve of sdeint_adaptive and of each adaptive or
+    extra ODE method at ADAPTIVE_TIMES in float32 on the card (host clock
+    around the solve and a synchronise, median of `reps` after one
+    warm-up), and per trial step: the adaptive loops read each trial's
+    error back to the host. {name: (ms a solve, trial steps, ms a trial
+    step)}."""
+    out = {}
+    for name in ("sdeint_adaptive",) + ODE_METHODS:
+        f, g, y0 = _solver_problem(**ADAPTIVE_TIMES, dtype=torch.float32,
+                                   dev=DEV)
+        runs = []
+        for i in range(reps + 1):
+            calls = []
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _run_solver(name, f, g, y0, calls)
+            torch.cuda.synchronize()
+            if i:
+                runs.append((time.perf_counter() - t0) * 1e3)
+        # drift calls a trial step: 2 (EM: a full step, then the second
+        # half step; the first half step reuses the full step's), 6
+        # (dopri5, FSAL, plus one for the first step), 4 (rk23), 2 (rk12);
+        # a fixed grid's step: 3 (ode23s: the Jacobian's, two stages), 2
+        # (sym12, plus one for the first velocity)
+        per = {"sdeint_adaptive": 2, "dopri5": 6, "rk23": 4, "rk12": 2,
+               "ode23s": 3, "sym12": 2}[name]
+        trials = max((len(calls) - (1 if name in ("dopri5", "sym12")
+                                    else 0)) // per, 1)
+        ms = statistics.median(runs)
+        out[name] = (ms, trials, ms / trials)
+        print(f"time {name} at B={ADAPTIVE_TIMES['B']} H={ADAPTIVE_TIMES['H']} "
+              f"(float32, five outputs over [0, 1]): {ms:.2f} ms a solve, "
+              f"{trials} trial steps, {ms / trials:.3f} ms a trial step",
+              flush=True)
+    return out
+
+
+def cde_linear_kernel_times():
+    """The CDE pair's times, plain versions and bounds on both linear
+    streams at the sweep cell (cde_times: the rules of cde_kernel_times).
+    ({name: {part: ms}}, {name: {part: bound}})."""
+    ms, bounds = {}, {}
+    for name in LINEAR_MODELS:
+        fwd, flags, gys, _ = linear_cde_inputs(name, **LINEAR)
+        ms[name], bounds[name] = cde_times(fwd, flags, gys, name)
+    return ms, bounds
+
+
+def linear_step_fns(name="neuralcde-l"):
+    """One training step (cross-entropy, the 100x fc2 hook, the clip at
+    10, Adam) of ISTSClassifier(name) at the sweep cell (64 rows of
+    uea_b_noisy, 30% missing, hidden 16, rk4): {label: step()} through the
+    CDE kernels and with use_fused=False (the eager cdeint)."""
+    from snsde_torch.harness.robustness import (ISTSClassifier,
+                                                coeff_family,
+                                                ists_train_step,
+                                                preprocess_ists)
+    from snsde_torch.train.loop import readout_grad_hook
+
+    X, y, _ = uea_b_noisy()
+    data = preprocess_ists(X[:SWEEP["B"]], missing_rate=0.3, seed=0,
+                           interpolation=coeff_family(name))
+    dev = torch.device(DEV)
+    batch = {"seq": torch.as_tensor(data["seq"], device=dev),
+             "coeffs": torch.as_tensor(data["coeffs"], device=dev),
+             "y": torch.as_tensor(y[:SWEEP["B"]], device=dev)}
+    out = {}
+    for label, fused in (("train_step", True), ("train_step_eager", False)):
+        model = ISTSClassifier(name, SWEEP["D"], SWEEP["L"], SWEEP["H"],
+                               SWEEP["classes"],
+                               generator=torch.Generator().manual_seed(0))
+        model = model.to(dev)
+        readout_grad_hook("fc2")(model)
+        opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+        out[label] = (lambda model=model, opt=opt, fused=fused:
+                      ists_train_step(model, opt, batch, use_fused=fused))
+    return out
+
+
+def sde_method_step_time(method="milstein", reps=3):
+    """One training step of the forecasting model at the MuJoCo shape
+    (batch 1024, mse + 0.01 L2, coupled-L2 Adam) with `method`, which no
+    kernel takes (the eager sdeint): its median ms (CUDA events, after one
+    warm-up) and a profiler window of two steps."""
+    steps = mujoco_step_fns(method)
+    ms = timed(steps["train_step_eager"], reps=reps, warmup=1)
+    profile_step(f"mujoco ({method}, eager)", steps["train_step_eager"], n=2)
+    return ms
+
+
+def linear_entry(part, launches, ms, bounds):
+    """The CDE pair's entry's fields of the linear streams: per registry
+    name, its sweep run's launches, and the pair's time, plain time and
+    bound on that name's stream at the sweep cell."""
+    out = {}
+    for name, sfx in zip(LINEAR_MODELS, ("linear", "rectilinear")):
+        out.update({f"launches_{sfx}": launches[name][f"cde_{part}"],
+                    f"ms_{sfx}": ms[name][part],
+                    f"plain_ms_{sfx}": ms[name][f"{part}_plain"],
+                    f"bound_ms_{sfx}": bounds[name][part][0]})
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4520,6 +5001,11 @@ def main() -> int:
     err["cde_packed"] = tuple(max(a, b) for a, b in zip(
         compare_cde_members("final_tanh"), compare_cde_members("gruode")))
     compare_latent_members()
+    print("phase 11: the CDE pair on the linear streams vs its plain "
+          "versions, and the solvers without a kernel on the card vs the "
+          "CPU:", flush=True)
+    err["cde_paths"] = compare_linear_cde()
+    compare_solvers_card_vs_cpu()
     with tempfile.TemporaryDirectory() as out_dir:
         launches = {"em": main_path(), "srk": mujoco_path(),
                     "cde": sweep_path(out_dir)}
@@ -4536,6 +5022,9 @@ def main() -> int:
         launches["em_latent"] = latent_sweep_path(out_dir)
         launches["lstm_time"] = rnn_sweep_path(out_dir, TIME_MODELS)["lstm"]
         baseline_sweep_path(out_dir)
+        launches["cde_linear"] = linear_sweep_path(out_dir)
+    for method in SDE_METHODS:
+        sde_method_mujoco_path(method)
     launches["em_speech"] = speech_path()
     launches["em_speech_packed"] = speech_ensemble_path()
     launches["em_packed"] = sepsis_ensemble_path()
@@ -4585,6 +5074,16 @@ def main() -> int:
     bounds["cde_packed_gruode"] = packed_bounds["gruode"]
     ms["cde_gruode"].update(step_times("gru-ode sweep-cell classifier",
                                        gruode_step_fns(), eager_reps=3))
+    linear_ms, linear_bounds = cde_linear_kernel_times()
+    ms["cde_linear"] = step_times("neuralcde-l sweep-cell classifier",
+                                  linear_step_fns(), eager_reps=3)
+    ms["solvers"] = {"mujoco milstein train_step": sde_method_step_time()}
+    for name, (solve_ms, _, trial_ms) in adaptive_solver_times().items():
+        ms["solvers"][f"{name} solve"] = solve_ms
+        ms["solvers"][f"{name} trial_step"] = trial_ms
+    for name in LINEAR_MODELS:
+        for k, v in linear_ms[name].items():
+            ms["cde_linear"][f"{name} {k}"] = v
     for key in ms:
         for k, v in ms[key].items():
             print(f"time {key} {k}: {v:.4f} ms  [{smi}]")
@@ -4618,6 +5117,8 @@ def main() -> int:
                 # PyTorch call computes a fused SDE or CDE solve
                 "library_ms": ms[key].get(f"lib_{part}"),
                 **({"modes": SDE_MODES} if key in ("em", "srk") else {}),
+                **(linear_entry(part, launches["cde_linear"], linear_ms,
+                                linear_bounds) if key == "cde" else {}),
             })
     for key, line, src in (("em", "fused_em.py:888", "fused_em"),
                            ("srk", "fused_srk.py:527", "fused_srk"),

@@ -42,7 +42,9 @@ __all__ = ["ForecastConfig", "run_mujoco", "make_forecast_model",
 
 def resolve_sde_method(method: str) -> str:
     """rk4 is not an SDE method and maps to euler; the SDE methods are
-    euler, srk, milstein and heun (the port runs euler and srk)."""
+    euler, srk, milstein and heun (euler and srk through the EM and SRK
+    kernels on the card, milstein and heun through the eager sdeint, as
+    the JAX package solves them)."""
     if method == "rk4":
         return "euler"
     if method not in ("euler", "srk", "milstein", "heun"):

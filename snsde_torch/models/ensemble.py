@@ -4,19 +4,20 @@ snsde/models/ensemble.py:36-290).
 The reference repeats one model configuration over seeds (5 repeats a
 cell of the classification grids, 5 seeds a cell of the robustness sweep)
 and trains each replica in its own process. A seed ensemble trains K
-same-configuration replicas at once: on CUDA tensors the SDE solve, the
-whole hot loop, is one launch of the EM or SRK kernels with a member axis
-(kernels/multi.py; a CDE ensemble's, of the CDE kernels), while the
-members' small initial networks and readout heads run as ordinary
-per-member modules. Each member is a submodule, so
+same-configuration replicas at once: on CUDA tensors the SDE solve (euler
+or srk), the whole hot loop, is one launch of the EM or SRK kernels with
+a member axis (kernels/multi.py; a CDE ensemble's, of the CDE kernels),
+while the members' small initial networks and readout heads run as
+ordinary per-member modules. Each member is a submodule, so
 `state_dict` and `convert.py` see the JAX package's leaves.
 
 Members are independent: each draws its Brownian increments and its
 dropout masks from its own generator, exactly what a solo model driven by
 that generator draws (the solve's increments first, then the readout's
 mask), so member i of an ensemble is the solo model run on generator i.
-On CPU tensors every member is solved by its own eager solve, as the JAX
-package does off its accelerator.
+On CPU tensors, and for the SDE methods no kernel takes (milstein, heun,
+reversible_heun), every member is solved by its own eager solve, as the
+JAX package does off its accelerator.
 """
 
 from __future__ import annotations
@@ -42,25 +43,21 @@ def packed_solve(fields: Sequence, path, times, y0s: torch.Tensor,
                  generators: Sequence[torch.Generator], *,
                  method: str = "euler", dt: Optional[float] = None,
                  paths=None) -> torch.Tensor:
-    """K members' solve (ensemble.py:133-163): on CUDA tensors one launch
-    of the member-axis kernels (euler: the EM pair, srk: the SRK pair);
-    on CPU tensors each member's own eager solve. `generators` holds each
-    member's generator, `paths` each member's own control path (else all
-    read `path`). A method no kernel takes raises on the card, as the solo
-    dispatch does. Returns [K, T, B, H]."""
+    """K members' solve (ensemble.py:133-163): on CUDA tensors with euler
+    or srk one launch of the member-axis kernels (the EM pair, the SRK
+    pair); every other case, CPU tensors and the methods no kernel takes
+    (milstein, heun, reversible_heun), each member's own solve through
+    `solve_dispatch` on its own generator, as the JAX package solves off
+    its accelerator. `generators` holds each member's generator, `paths`
+    each member's own control path (else all read `path`). Returns
+    [K, T, B, H]."""
     dt = resolve_dt(times) if dt is None else dt
-    if y0s.device.type == "cuda":
-        if method == "euler":
-            return fused_em_solve_packed(list(fields), path, times, y0s,
-                                         list(generators), dt=dt,
-                                         paths=paths)
-        if method == "srk":
-            return fused_srk_solve_packed(list(fields), path, times, y0s,
-                                          list(generators), dt=dt,
-                                          paths=paths)
-        raise NotImplementedError(
-            f"sdeint method {method!r} is not ported yet (ROADMAP Queue 1 "
-            "item 13: the other SDE solvers); 'euler' and 'srk' run")
+    if y0s.device.type == "cuda" and method == "euler":
+        return fused_em_solve_packed(list(fields), path, times, y0s,
+                                     list(generators), dt=dt, paths=paths)
+    if y0s.device.type == "cuda" and method == "srk":
+        return fused_srk_solve_packed(list(fields), path, times, y0s,
+                                      list(generators), dt=dt, paths=paths)
     member_paths = paths if paths is not None else [path] * len(fields)
     return torch.stack([
         solve_dispatch(f.bind(member_paths[i]), member_paths[i], times,

@@ -12,8 +12,14 @@ and do not carry over: the kernels compute in exact float32 for every
 field.
 
 Controls: the cubic family ('cubic', 'hermite', 'natural') evaluates
-through `CubicPath`; the linear and rectilinear controls are not ported
-yet.
+through `CubicPath` over packed coefficients, the linear control
+('linear', which the rectilinear one uses too) through `LinearPath` over
+knot values; the fused solve reads either path's `derivative_grid`.
+
+`cde_solve_dispatch` sends a method without a tableau (dopri5, rk23,
+rk12, ode23s, sym12) to the eager `cdeint` with `differentiable=False`,
+as the JAX package does: training through the adaptive methods raises
+there, as it does in JAX.
 """
 
 from __future__ import annotations
@@ -25,7 +31,7 @@ from torch import nn
 
 from ..kernels.fused_cde import fused_cde_solve, supports_fused_cde
 from ..nn.layers import make_linear
-from ..ops.interp import CubicPath
+from ..ops.interp import CubicPath, LinearPath
 from ..ops.solve import cdeint
 from .neuralsde import ReadoutHead, resolve_dt
 
@@ -134,9 +140,7 @@ def _build_path(coeffs, times, control: str):
     if control in ("cubic", "hermite", "natural"):
         return CubicPath(coeffs, times)
     if control == "linear":
-        raise NotImplementedError(
-            "the linear control (LinearPath) is not ported yet (ROADMAP "
-            "Queue 1 items 3 and 17)")
+        return LinearPath(times, coeffs)
     raise ValueError(f"unknown control type {control!r}")
 
 
@@ -185,8 +189,8 @@ class NeuralCDE(nn.Module):
 class NeuralCDEStream(nn.Module):
     """Stream variant: the whole trajectory and a per-step linear readout.
 
-    forward(times [L], coeffs [B, L-1, 4C]) -> (out [B, L, out], z
-    [B, L, H])."""
+    forward(times [L], coeffs [B, L-1, 4C], or with the linear control
+    knot values [B, L, C]) -> (out [B, L, out], z [B, L, H])."""
 
     def __init__(self, func, input_channels: int, hidden_channels: int,
                  output_channels: int, initial: bool = True,
@@ -207,8 +211,9 @@ class NeuralCDEStream(nn.Module):
         if self.initial:
             z0 = self.initial_network(path.evaluate(path.times[0]))
         else:
-            z0 = torch.zeros((path.a.shape[0], self.linear.in_features),
-                             dtype=path.a.dtype, device=path.a.device)
+            ref = path.values if isinstance(path, LinearPath) else path.a
+            z0 = torch.zeros((ref.shape[0], self.linear.in_features),
+                             dtype=ref.dtype, device=ref.device)
         dt = resolve_dt(times, floor=0.0) if dt is None else dt
         zs = cde_solve_dispatch(path, self.func, z0, times, dt=dt,
                                 method=method or self.method,

@@ -45,7 +45,7 @@ def solve_dispatch(func, path, times, y0, *, generator, dt, method,
     (`supports_fused`, `supports_fused_srk`). The eager `sdeint` on the
     same device for CPU tensors, an injected `bm`, `use_fused=False`, a
     field that is no DiffusionField, and the methods no kernel takes (in
-    the JAX package either: milstein, heun)."""
+    the JAX package either: milstein, heun, reversible_heun)."""
     if use_fused and bm is None and y0.device.type == "cuda":
         if method == "euler" and supports_fused(func):
             return fused_em_solve(func, path, times, y0, generator=generator,

@@ -1,10 +1,20 @@
-from .brownian import BrownianGrid, brownian_increments, space_time_levy_area
-from .interp import (CubicPath, fill_missing_linear, hermite_cubic_coeffs,
-                     natural_cubic_coeffs, pack_coeffs, tridiagonal_solve,
-                     unpack_coeffs)
-from .solve import cdeint, make_grid, odeint, sdeint
+from .brownian import (BrownianGrid, VirtualBrownianTree, brownian_increments,
+                       counter_normals, space_time_levy_area)
+from .dopri import odeint_dopri5
+from .extra_solvers import (odeint_ode23s, odeint_rk12, odeint_rk23,
+                            odeint_sym12)
+from .interp import (CubicPath, LinearPath, fill_missing_linear,
+                     hermite_cubic_coeffs, linear_coeffs,
+                     natural_cubic_coeffs, pack_coeffs, rectilinear_coeffs,
+                     tridiagonal_solve, unpack_coeffs)
+from .solve import (SOLVER_ORDERS, cdeint, make_grid, odeint, sdeint,
+                    sdeint_adaptive)
 
-__all__ = ["BrownianGrid", "brownian_increments", "space_time_levy_area",
-           "CubicPath", "fill_missing_linear", "hermite_cubic_coeffs",
-           "natural_cubic_coeffs", "pack_coeffs", "tridiagonal_solve",
-           "unpack_coeffs", "make_grid", "sdeint", "odeint", "cdeint"]
+__all__ = ["BrownianGrid", "VirtualBrownianTree", "brownian_increments",
+           "counter_normals", "space_time_levy_area", "CubicPath",
+           "LinearPath", "fill_missing_linear", "hermite_cubic_coeffs",
+           "linear_coeffs", "natural_cubic_coeffs", "pack_coeffs",
+           "rectilinear_coeffs", "tridiagonal_solve", "unpack_coeffs",
+           "make_grid", "sdeint", "sdeint_adaptive", "odeint", "cdeint",
+           "odeint_dopri5", "odeint_rk23", "odeint_rk12", "odeint_ode23s",
+           "odeint_sym12", "SOLVER_ORDERS"]

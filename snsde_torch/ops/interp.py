@@ -1,15 +1,18 @@
-"""Control-path interpolation (counterpart of snsde/ops/interp.py:56-252,
-295-560).
+"""Control-path interpolation (counterpart of snsde/ops/interp.py:56-636).
 
 The NaN-aware natural cubic spline (a masked Thomas solve over the observed
 knots of every series at once), linear fill of missing values, Hermite
 cubic coefficients with backward differences (torchcde semantics), the
 packed coefficient layout [..., L-1, 4C] = [a | b | 2c | 3d], and
-`CubicPath` evaluation and derivative.
+`CubicPath` evaluation and derivative; the linear and rectilinear controls
+(`linear_coeffs`, `rectilinear_coeffs`) and `LinearPath`.
 
 Bucket rule, as in the JAX package: the interval of time t is
 searchsorted(times, t, side="left") - 1, clipped to [0, L-2], so a knot
-time evaluates at the END of the interval before it.
+time evaluates at the END of the interval before it. A linear path's
+derivative jumps at a knot, so a time one ulp across a knot takes another
+slope: the fused CDE solve's stage times follow the eager steppers'
+float32 arithmetic for that reason (kernels/fused_cde.py:_stage_grid).
 """
 
 from __future__ import annotations
@@ -20,8 +23,8 @@ import numpy as np
 import torch
 
 __all__ = ["tridiagonal_solve", "natural_cubic_coeffs", "fill_missing_linear",
-           "hermite_cubic_coeffs", "pack_coeffs", "unpack_coeffs",
-           "CubicPath"]
+           "hermite_cubic_coeffs", "linear_coeffs", "rectilinear_coeffs",
+           "pack_coeffs", "unpack_coeffs", "CubicPath", "LinearPath"]
 
 
 def tridiagonal_solve(b, A_upper, A_diagonal, A_lower):
@@ -249,6 +252,31 @@ def hermite_cubic_coeffs(times, series, *, pack: bool = True):
     return pack_coeffs(*out) if pack else out
 
 
+def linear_coeffs(times, series):
+    """The linear control's knot values: the series with its NaNs filled
+    (fill_missing_linear), [..., L, C]."""
+    return fill_missing_linear(times, series)
+
+
+def rectilinear_coeffs(times, series, time_index: int = 0):
+    """The rectilinear control (snsde/ops/interp.py:368-389): the filled
+    series held between observations, with time and value moves
+    interleaved, which doubles the length axis. Returns (new_times [2L-1],
+    values [..., 2L-1, C]) for a LinearPath; the channel `time_index`
+    (None: none) is overwritten by new_times."""
+    series = torch.as_tensor(series)
+    times = torch.as_tensor(times, dtype=series.dtype, device=series.device)
+    x = fill_missing_linear(times, series)
+    L = x.shape[-2]
+    reps = x.repeat_interleave(2, dim=-2)[..., :2 * L - 1, :]
+    vals = torch.cat([x[..., :1, :], reps[..., :-1, :]], dim=-2)
+    t_reps = times.repeat_interleave(2)[1:]
+    new_times = torch.cat([times[:1], t_reps[:-1]])
+    if time_index is not None:
+        vals[..., time_index] = new_times.expand(vals.shape[:-1])
+    return new_times, vals
+
+
 def pack_coeffs(a, b, two_c, three_d):
     return torch.cat([a, b, two_c, three_d], dim=-1)
 
@@ -339,3 +367,59 @@ class CubicPath:
         control-derivative stream of the fused CDE solve)."""
         return self._slope(*self._grid_bucket(ts, (self.b, self.two_c,
                                                    self.three_d)))
+
+
+class LinearPath:
+    """Piecewise-linear control path over knot values [..., L, C] and knot
+    times [L] (snsde/ops/interp.py:566-636), the times kept on the host as
+    numpy and on the values' device. `evaluate` and `derivative` take one
+    time on the device and divide by the float32 knot gap;
+    `derivative_grid` resolves the buckets of a host grid in float64 and
+    divides by the knot gap cast from float64 to float32, as the JAX
+    package does each."""
+
+    def __init__(self, times, values):
+        values = torch.as_tensor(values)
+        if isinstance(times, torch.Tensor):
+            times = times.detach().cpu().numpy()
+        self.values = values
+        self.times_np = np.asarray(times)
+        self.times = torch.as_tensor(self.times_np, dtype=values.dtype,
+                                     device=values.device)
+
+    def _knots(self, t):
+        """The knot values at both ends of one device time t's interval,
+        each [..., C], its offset into the interval and the interval's
+        float32 gap."""
+        t = torch.as_tensor(t, dtype=self.values.dtype,
+                            device=self.values.device)
+        idx = torch.searchsorted(self.times, t.reshape(1), side="left") - 1
+        idx = idx.clamp(0, self.values.shape[-2] - 2)
+        x0 = self.values.index_select(-2, idx).squeeze(-2)
+        x1 = self.values.index_select(-2, idx + 1).squeeze(-2)
+        return x0, x1, t - self.times[idx[0]], (self.times[idx[0] + 1]
+                                               - self.times[idx[0]])
+
+    def evaluate(self, t):
+        """X(t) for one time t -> [..., C]."""
+        x0, x1, frac, h = self._knots(t)
+        return x0 + (frac / h) * (x1 - x0)
+
+    def derivative(self, t):
+        """dX/dt at one time t -> [..., C]."""
+        x0, x1, _, h = self._knots(t)
+        return (x1 - x0) / h
+
+    def derivative_grid(self, ts) -> torch.Tensor:
+        """dX/dt at a host grid of times [M] -> [M, ..., C] (the
+        control-derivative stream of the fused CDE solve)."""
+        ts = np.asarray(ts, np.float64)
+        times = self.times_np.astype(np.float64)
+        idx = np.clip(np.searchsorted(times, ts, side="left") - 1,
+                      0, self.values.shape[-2] - 2)
+        take = lambda i: self.values.index_select(
+            -2, torch.as_tensor(i, device=self.values.device)).movedim(-2, 0)
+        h = torch.as_tensor((times[idx + 1] - times[idx]).astype(np.float32),
+                            device=self.values.device)
+        return (take(idx + 1) - take(idx)) / h.reshape(
+            (len(idx),) + (1,) * (self.values.ndim - 1))

@@ -1,20 +1,32 @@
-"""Fixed-grid SDE, ODE and CDE solvers (counterpart of
-snsde/ops/solve.py:48-91, 121-199, 249-456).
+"""SDE, ODE and CDE solvers (counterpart of snsde/ops/solve.py).
 
 `make_grid` is host numpy, a copy of the JAX package's, both modes.
-`sdeint` is an eager loop differentiated by torch autograd, with the
-methods euler (Euler–Maruyama) and srk (Rößler's SRIW1, strong order 1.5
-for diagonal Ito noise, the scheme torchsde's 'srk' applies); the other
-methods of the JAX package (milstein, heun, reversible_heun) are not ported
-yet. The srk loop is the yardstick of the fused SRK kernels' plain
-versions.
+`sdeint` is an eager loop differentiated by torch autograd, with every
+method of the JAX package: euler (Euler–Maruyama), milstein (its
+correction the full Jacobian-vector product (dg/dy) g, by forward-mode
+AD), heun (Stratonovich Heun), srk (Rößler's SRIW1, strong order 1.5 for
+diagonal Ito noise, the scheme torchsde's 'srk' applies) and
+reversible_heun (the algebraically reversible Heun of Kidger et al.
+2021, carrying the (y, ŷ) pair). The srk loop is the yardstick of the
+fused SRK kernels' plain versions, the euler loop the EM kernels'; the
+other methods have no kernel, in the JAX package either.
 
-`odeint` is the fixed-grid ODE loop (euler, midpoint, heun = rk2, rk4) and
-`cdeint` reduces dz = f(z) dX(t) to it; both are eager loops differentiated
-by torch autograd, the yardstick of the fused CDE kernels' plain versions.
-Stage times are float32 scalars on the device, as the JAX scan computes
-them (t0 + 0.5 dt). The adaptive methods (dopri5, rk23, rk12, ode23s,
-sym12) are not ported yet.
+`sdeint_adaptive` is adaptive Euler–Maruyama by step doubling on a
+`VirtualBrownianTree`. `odeint` is the fixed-grid ODE loop (euler,
+midpoint, heun = rk2, rk4) and dispatches the adaptive and extra methods
+(dopri5 in ops/dopri.py; rk23, rk12, ode23s, sym12 in
+ops/extra_solvers.py); `cdeint` reduces dz = f(z) dX(t) to it. The
+fixed-grid loops are the yardstick of the fused CDE kernels' plain
+versions. Stage times are float32 scalars on the device, as the JAX scan
+computes them (t0 + 0.5 dt).
+
+The adaptive loops decide accept/reject on the host: each trial step reads
+its error norm back from the device (one synchronisation a trial step on
+the card). Step sizes and times are host numbers in the solve's precision
+(numpy float32 for float32 states), so gradients flow through the state
+chain on the realised grid only, as the JAX package's stop_gradient makes
+them; with `differentiable=False` the result refuses reverse mode as the
+JAX package's while_loop does (ops/_guards.py).
 """
 
 from __future__ import annotations
@@ -24,9 +36,12 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
-from .brownian import BrownianGrid, brownian_increments, space_time_levy_area
+from ._guards import nondiff_guard
+from .brownian import (BrownianGrid, VirtualBrownianTree, _host_float,
+                       brownian_increments, space_time_levy_area)
 
-__all__ = ["make_grid", "sdeint", "odeint", "cdeint"]
+__all__ = ["make_grid", "sdeint", "sdeint_adaptive", "odeint", "cdeint",
+           "SOLVER_ORDERS"]
 
 
 def make_grid(ts, dt: Optional[float],
@@ -112,6 +127,26 @@ def _step_euler(f, g, t0, dt, y, dW, U):
     return y + f(t0, y) * dt + g(t0, y) * dW
 
 
+def _step_milstein(f, g, t0, dt, y, dW, U):
+    """Milstein for diagonal noise (strong order 1.0): the correction is
+    the Jacobian-vector product (dg/dy) g, the full product, since the
+    noise nets mix channels."""
+    gy = g(t0, y)
+    g_dg = torch.func.jvp(lambda yy: g(t0, yy), (y,), (gy,))[1]
+    return y + f(t0, y) * dt + gy * dW + 0.5 * g_dg * (dW * dW - dt)
+
+
+def _step_heun(f, g, t0, dt, y, dW, U):
+    """Stratonovich Heun: the average of the drift and the diffusion at
+    both ends of an Euler predictor."""
+    f0 = f(t0, y)
+    g0 = g(t0, y)
+    y1 = y + f0 * dt + g0 * dW
+    f1 = f(t0 + dt, y1)
+    g1 = g(t0 + dt, y1)
+    return y + 0.5 * (f0 + f1) * dt + 0.5 * (g0 + g1) * dW
+
+
 def _step_srk(f, g, t0, dt, y, dW, U):
     """One SRIW1 step; U is the space-time Lévy area I_(1,0). The drift
     runs twice per step: at stage 0 and stage 1. Stage 2's drift state is
@@ -154,23 +189,46 @@ def _step_srk(f, g, t0, dt, y, dW, U):
     return y1
 
 
-_STEPPERS = {"euler": _step_euler, "srk": _step_srk}
+_STEPPERS = {"euler": _step_euler, "milstein": _step_milstein,
+             "heun": _step_heun, "srk": _step_srk}
+
+SOLVER_ORDERS = {"euler": 0.5, "milstein": 1.0, "heun": 0.5, "srk": 1.5,
+                 "reversible_heun": 0.5}
+
+
+def _reversible_heun(f, g, y0, t_lo, dts, dW):
+    """Algebraically reversible Heun (Kidger et al. 2021, arXiv:2105.13493;
+    torchsde's 'reversible_heun'), carrying (y, ŷ):
+        ŷ' = 2 y - ŷ + f(t, ŷ) h + g(t, ŷ) dW
+        y' = y + (f(t, ŷ) + f(t + h, ŷ')) h/2 + (g(t, ŷ) + g(t + h, ŷ')) dW/2
+    Stratonovich, strong order 0.5. Returns ([y0, y_1, ..., y_M], ŷ_M):
+    the last pair, from which the steps can be run back exactly."""
+    y, yh = y0, y0
+    ys = [y0]
+    for k in range(dts.shape[0]):
+        t0, h, dw = t_lo[k], dts[k], dW[k]
+        f0, g0 = f(t0, yh), g(t0, yh)
+        yh = 2.0 * y - yh + f0 * h + g0 * dw
+        f1, g1 = f(t0 + h, yh), g(t0 + h, yh)
+        y = y + 0.5 * (f0 + f1) * h + 0.5 * (g0 + g1) * dw
+        ys.append(y)
+    return ys, yh
 
 
 def sdeint(f: Callable, g: Callable, y0: torch.Tensor, ts, *,
            generator: Optional[torch.Generator] = None,
            bm: Optional[BrownianGrid] = None, dt: Optional[float] = None,
-           method: str = "euler", grid_mode: str = "equal") -> torch.Tensor:
+           method: str = "euler", grid_mode: str = "equal",
+           return_brownian: bool = False):
     """Integrate dy = f(t,y) dt + g(t,y) dW (diagonal noise) over output
-    times ts. y0: [..., H]. Brownian increments (and, for srk, the Lévy
-    area) come from `bm` when given, else from `generator`: dW first, then
-    the Lévy area. Returns ys [T, ...y0.shape] (time-major)."""
-    if method not in _STEPPERS:
-        raise NotImplementedError(
-            f"sdeint method {method!r} is not ported yet (ROADMAP Queue 1 "
-            "item 13: the other SDE solvers); 'euler' and 'srk' run"
-        )
-    stepper = _STEPPERS[method]
+    times ts with `method` (euler, milstein, heun, srk, reversible_heun).
+    y0: [..., H]. Brownian increments (and, for srk, the Lévy area) come
+    from `bm` when given, else from `generator`: dW first, then the Lévy
+    area. Returns ys [T, ...y0.shape] (time-major), and with
+    `return_brownian` also the BrownianGrid it stepped on (U only for
+    srk)."""
+    if method not in _STEPPERS and method != "reversible_heun":
+        raise ValueError(f"unknown SDE method {method!r}")
     if isinstance(ts, torch.Tensor):
         ts = ts.detach().cpu().numpy()
     if bm is not None:
@@ -194,13 +252,20 @@ def sdeint(f: Callable, g: Callable, y0: torch.Tensor, ts, *,
 
     t_lo = torch.as_tensor(grid[:-1], dtype=y0.dtype, device=y0.device)
     dts = torch.as_tensor(np.diff(grid), dtype=y0.dtype, device=y0.device)
-    ys = [y0]
-    y = y0
-    for k in range(dts.shape[0]):
-        y = stepper(f, g, t_lo[k], dts[k], y, dW[k],
-                    None if U is None else U[k])
-        ys.append(y)
-    return torch.stack(ys)[torch.as_tensor(out_idx, device=y0.device)]
+    if method == "reversible_heun":
+        ys, _ = _reversible_heun(f, g, y0, t_lo, dts, dW)
+    else:
+        stepper = _STEPPERS[method]
+        ys = [y0]
+        y = y0
+        for k in range(dts.shape[0]):
+            y = stepper(f, g, t_lo[k], dts[k], y, dW[k],
+                        None if U is None else U[k])
+            ys.append(y)
+    out = torch.stack(ys)[torch.as_tensor(out_idx, device=y0.device)]
+    if return_brownian:
+        return out, BrownianGrid(grid, dW, U if method == "srk" else None)
+    return out
 
 
 def _ode_euler(f, t0, dt, y):
@@ -234,18 +299,33 @@ _ODE_STEPPERS = {
     "rk4": _ode_rk4,
 }
 
-_ADAPTIVE = ("dopri5", "rk23", "rk12", "ode23s", "sym12", "sym12async")
-
-
 def odeint(f: Callable, y0: torch.Tensor, ts, *, dt: Optional[float] = None,
-           method: str = "rk4") -> torch.Tensor:
-    """Fixed-grid ODE integration of dy/dt = f(t, y) over the output times
-    ts on make_grid(ts, dt); ys [T, ...y0.shape] (time-major)."""
-    if method in _ADAPTIVE:
-        raise NotImplementedError(
-            f"odeint method {method!r} is not ported yet (ROADMAP Queue 1 "
-            "item 16: the adaptive ODE solvers); euler, midpoint, heun, rk2 "
-            "and rk4 run")
+           method: str = "rk4", differentiable: bool = False,
+           max_steps: int = 4096) -> torch.Tensor:
+    """ODE integration of dy/dt = f(t, y) over the output times ts; ys
+    [T, ...y0.shape] (time-major). The fixed-grid methods step on
+    make_grid(ts, dt); dopri5, rk23 and rk12 are adaptive, with at most
+    `max_steps` trial steps, and refuse reverse mode unless
+    `differentiable`; ode23s and sym12 (or sym12async) step on
+    make_grid(ts, dt) (snsde/ops/solve.py:371-421)."""
+    if method == "dopri5":
+        from .dopri import odeint_dopri5
+
+        return odeint_dopri5(f, y0, ts, differentiable=differentiable,
+                             max_steps=max_steps)
+    if method in ("rk23", "rk12"):
+        from . import extra_solvers
+
+        return getattr(extra_solvers, f"odeint_{method}")(
+            f, y0, ts, differentiable=differentiable, max_steps=max_steps)
+    if method == "ode23s":
+        from .extra_solvers import odeint_ode23s
+
+        return odeint_ode23s(f, y0, ts, dt=dt)
+    if method in ("sym12", "sym12async"):
+        from .extra_solvers import odeint_sym12
+
+        return odeint_sym12(f, y0, ts, dt=dt)
     if method not in _ODE_STEPPERS:
         raise ValueError(f"unknown ODE method {method!r}")
     stepper = _ODE_STEPPERS[method]
@@ -261,13 +341,109 @@ def odeint(f: Callable, y0: torch.Tensor, ts, *, dt: Optional[float] = None,
 
 
 def cdeint(X, func: Callable, z0: torch.Tensor, ts, *,
-           dt: Optional[float] = None, method: str = "rk4") -> torch.Tensor:
+           dt: Optional[float] = None, method: str = "rk4",
+           differentiable: bool = False,
+           max_steps: int = 4096) -> torch.Tensor:
     """Controlled differential equation dz = f(z) dX(t), reduced to the ODE
-    dz/dt = f(t, z) @ dX/dt. X has .derivative(t) -> [..., C] (CubicPath);
-    func(t, z) -> [..., H, C]. Returns zs [T, ...z0.shape]."""
+    dz/dt = f(t, z) @ dX/dt. X has .derivative(t) -> [..., C] (CubicPath,
+    LinearPath); func(t, z) -> [..., H, C]. `differentiable` and
+    `max_steps` reach the adaptive methods (odeint). Returns zs
+    [T, ...z0.shape]."""
 
     def ode_f(t, z):
         dX = X.derivative(t)                           # [..., C]
         return torch.einsum("...hc,...c->...h", func(t, z), dX)
 
-    return odeint(ode_f, z0, ts, dt=dt, method=method)
+    return odeint(ode_f, z0, ts, dt=dt, method=method,
+                  differentiable=differentiable, max_steps=max_steps)
+
+
+def sdeint_adaptive(f: Callable, g: Callable, y0: torch.Tensor, ts, *,
+                    seed: Optional[int] = None,
+                    tree: Optional[VirtualBrownianTree] = None,
+                    rtol: float = 1e-3, atol: float = 1e-4,
+                    dt0: Optional[float] = None, max_steps: int = 4096,
+                    vbt_depth: int = 18,
+                    differentiable: bool = False) -> torch.Tensor:
+    """Adaptive Euler–Maruyama with step-doubling error control
+    (snsde/ops/solve.py:463-610). The Brownian path is a
+    VirtualBrownianTree over [ts[0], ts[-1]] of depth `vbt_depth` keyed by
+    `seed`, or `tree` when given: W(t) is a pure function of t, so a
+    rejected step re-queries the same path.
+
+    Each trial step compares one full Euler step with two half steps on
+    the same increments; the error norm is the root mean square of the
+    difference over atol + rtol |y|, and the step is accepted when it is
+    at most 1, the two half steps kept. The next step is h times
+    clip(0.9 / sqrt(err), 0.2, 2.0), at least span 2^-vbt_depth. Each
+    output interval takes at most `max_steps` trial steps; an interval
+    that runs out of them leaves NaN from there on, never a partial
+    integration. `differentiable=False` refuses reverse mode as the JAX
+    package's while_loop does; `differentiable=True` gives the same
+    values and lets gradients through the state chain on the realised
+    grid (the JAX package's masked scan). Returns ys [T, *y0.shape]."""
+    ts_np = np.asarray(ts.detach().cpu() if isinstance(ts, torch.Tensor)
+                       else ts, dtype=np.float64)
+    if ts_np.ndim != 1 or ts_np.shape[0] < 2:
+        raise ValueError("ts must be 1-D with at least two times")
+    f32 = _host_float(y0.dtype)
+    t_lo, t_hi = float(ts_np[0]), float(ts_np[-1])
+    if tree is None:
+        if seed is None:
+            raise ValueError("sdeint_adaptive needs either seed= or tree=")
+        tree = VirtualBrownianTree(t_lo, t_hi, tuple(y0.shape), seed=seed,
+                                   depth=vbt_depth, dtype=y0.dtype,
+                                   device=y0.device)
+    h = f32(dt0 if dt0 is not None else (t_hi - t_lo) / 100.0)
+    h_min = f32((t_hi - t_lo) * 2.0 ** (-float(vbt_depth)))
+    eps_done = 1e-12 * max(abs(t_hi), 1.0)
+    scalar = lambda v: torch.tensor(v, dtype=y0.dtype, device=y0.device)
+    # the last trial's Brownian queries: the next trial starts at one of
+    # them (its end after an acceptance, its start after a rejection)
+    seen = {}
+
+    def W(t):
+        w = seen.get(t)
+        return tree.evaluate(t) if w is None else w
+
+    ys, y, done = [y0], y0, True
+    for t_start, t_end in zip(ts_np[:-1].astype(f32), ts_np[1:].astype(f32)):
+        if not done:
+            # an exhausted interval left NaN, on which every later interval
+            # runs out of trial steps too (a NaN error never accepts)
+            ys.append(y)
+            continue
+        t, h, done = t_start, min(h, t_end - t_start), False
+        for _ in range(max_steps):
+            h_eff = min(h, t_end - t)
+            tm, te = t + f32(0.5) * h_eff, t + h_eff
+            w0, wm, we = W(t), W(tm), W(te)
+            seen = {t: w0, tm: wm, te: we}
+            f0, g0 = f(scalar(t), y), g(scalar(t), y)
+            y_full = y + f0 * float(h_eff) + g0 * (we - w0)
+            y_half = y + f0 * float(f32(0.5) * h_eff) + g0 * (wm - w0)
+            y_half = (y_half + f(scalar(tm), y_half) * float(f32(0.5) * h_eff)
+                      + g(scalar(tm), y_half) * (we - wm))
+            with torch.no_grad():
+                tol = atol + rtol * y.abs()
+                err = torch.sqrt(((y_full - y_half) / tol).square().mean()
+                                 + 1e-12)
+            err = f32(err.item())                  # one sync a trial step
+            rsqrt = f32(1.0) / np.sqrt(max(err, f32(1e-10)))
+            h = max(h_eff * np.clip(f32(0.9) * rsqrt, f32(0.2), f32(2.0)),
+                    h_min)
+            if err <= 1.0:
+                t, y = t + h_eff, y_half
+            if t >= t_end - eps_done:
+                done = True
+                break
+        if not done:
+            y = torch.full_like(y, float("nan"))
+        ys.append(y)
+    out = torch.stack(ys)
+    if differentiable:
+        return out
+    return nondiff_guard(
+        out, "sdeint_adaptive(differentiable=False)",
+        "Pass differentiable=True (identical results) or use a fixed-grid "
+        "method.")

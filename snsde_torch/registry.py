@@ -9,7 +9,9 @@ input_option i and noise_option jj in a NeuralSDEStream, srk unless told
 otherwise: the fused SRK kernels on the card), `neuralsde-x/y/z` (the
 scalar-noise SDE, euler through the eager solver, as the JAX package
 solves it), `neuralcde` (natural cubic control), `neuralcde-c` (cubic),
-`neuralcde-h` (Hermite), `gru-ode`, `latentsde` and `latentsde-kl` (a
+`neuralcde-h` (Hermite), `neuralcde-l` (linear control over the filled
+values) and `neuralcde-r` (rectilinear control, stepped on the knot
+index), `gru-ode`, `latentsde` and `latentsde-kl` (a
 LatentSDE, euler unless told otherwise: the latent mode of the fused EM
 kernels on the card; its layer also returns the KL term), and the
 recurrent baselines `rnn`, `gru`, `lstm`, `bilstm` (SeqRNN over the
@@ -40,7 +42,7 @@ from .models.neuralsde import NeuralSDEStream, resolve_dt
 from .models.rnn import GRUD, ODERNN, GRUdt, SeqCNN, SeqRNN, SeqTransformer
 from .models.time_rnn import ODELSTM, PLSTM, TGLSTM, TLSTM, GRUDFull
 from .nn.layers import make_linear
-from .ops.interp import CubicPath
+from .ops.interp import CubicPath, fill_missing_linear, rectilinear_coeffs
 from .ops.solve import sdeint
 
 __all__ = ["MODEL_NAMES", "PORTED_NAMES", "SeqLayer", "make_seq_layer"]
@@ -78,7 +80,9 @@ _LATENT = ("latentsde", "latentsde-kl")
 _OBS_GRU = ("gru-dt", "gru-d", "ode-rnn")
 _TIME_LSTM = {"tlstm": TLSTM, "plstm": PLSTM, "tglstm": TGLSTM}
 _CONV_ATTN = ("cnn", "cnn-3", "cnn-5", "cnn-7", "transformer")
-PORTED_NAMES = ("neuralcde", "neuralcde-c", "neuralcde-h", "gru-ode",
+_LINEAR_CDE = ("neuralcde-l", "neuralcde-r")
+PORTED_NAMES = ("neuralcde", "neuralcde-c", "neuralcde-h", *_LINEAR_CDE,
+                "gru-ode",
                 *_SEQ_RNN, "grud", *_OBS_GRU, "ode-lstm", *_TIME_LSTM,
                 *_CONV_ATTN, *_SCALAR_SDE, *_LATENT,
                 *(n for n in MODEL_NAMES if n.startswith("neuralsde_")))
@@ -87,8 +91,6 @@ PORTED_NAMES = ("neuralcde", "neuralcde-c", "neuralcde-h", "gru-ode",
 def _roadmap_item(name: str) -> str:
     """The ROADMAP Queue 1 item of a registry name the port does not build
     yet."""
-    if name in ("neuralcde-l", "neuralcde-r"):
-        return "items 3 and 17 (linear and rectilinear controls)"
     if name.startswith("neuralrde") or name in ("ancde", "exit", "leap"):
         return "item 18 (log-signature and attention CDEs)"
     return "item 21 (attention and flows)"
@@ -198,8 +200,27 @@ class SeqLayer(nn.Module):
             # then unused)
             return self.inner(times, coeffs, stream=True,
                               use_fused=use_fused)
+        if name in _LINEAR_CDE:
+            return self._linear_cde(x, times, use_fused)
         # the CDE names: a NeuralCDEStream over the cubic coefficients
         return self.inner(times, coeffs, use_fused=use_fused)
+
+    def _linear_cde(self, x, times, use_fused):
+        """`neuralcde-l`/`-r` (snsde/registry.py:216-233): knot values
+        (time ‖ x) filled by fill_missing_linear, not the cubic
+        coefficients; `-l` steps on the grid's times, `-r` on the
+        rectilinear knots' index 0..2L-2 (its vertical moves have no finite
+        slope in real time), sample k at knot 2k, so the even steps are
+        kept."""
+        tt = torch.as_tensor(times, dtype=x.dtype, device=x.device)
+        tcol = tt[None, :, None].expand(x.shape[0], -1, 1)
+        vals = fill_missing_linear(tt, torch.cat([tcol, x], dim=-1))
+        if self.model_name == "neuralcde-l":
+            return self.inner(times, vals, use_fused=use_fused)
+        _, vals = rectilinear_coeffs(tt, vals)
+        knots = np.arange(2 * x.shape[1] - 1, dtype=np.float32)
+        out, hn = self.inner(knots, vals, use_fused=use_fused)
+        return out[:, 0::2], hn[:, 0::2]
 
 
 def make_seq_layer(model_name: str, input_dim: int, seq_len: int,
@@ -225,7 +246,9 @@ def make_seq_layer(model_name: str, input_dim: int, seq_len: int,
     SeqTransformer(num_layers) with 4 heads when hidden % 4 == 0, else 1
     (:303-305, :336-339); `neuralsde_{i}_{jj}`
     is NeuralSDEStream(DiffusionField(coeff_dim, H, hh, num_hidden_layers,
-    i, jj), srk unless `method` says otherwise), `neuralsde-x/y/z` the
+    i, jj), srk unless `method` says otherwise), `neuralcde-l`/`-r`
+    NeuralCDEStream(FinalTanh) on the linear control, rk4 unless `method`
+    says otherwise (:389-402), `neuralsde-x/y/z` the
     scalar-noise SDE and `latentsde`/`latentsde-kl` LatentSDE(coeff_dim, H,
     hh, num_hidden_layers), euler unless `method` says otherwise
     (snsde/registry.py:402-410, 429-440)."""
@@ -295,9 +318,10 @@ def make_seq_layer(model_name: str, input_dim: int, seq_len: int,
                                 **kw)
     else:
         # neuralcde -> natural, -c -> cubic (torchcde's natural cubic, the
-        # same spline family), -h -> hermite; all evaluate via CubicPath
-        control = {"": "natural", "-c": "cubic",
-                   "-h": "hermite"}[model_name[9:]]
+        # same spline family), -h -> hermite, all through CubicPath; -l and
+        # -r through LinearPath
+        control = {"": "natural", "-c": "cubic", "-h": "hermite",
+                   "-l": "linear", "-r": "linear"}[model_name[9:]]
         field = FinalTanh(coeff_dim, hidden_dim, hh, num_hidden_layers, **kw)
         inner = NeuralCDEStream(field, coeff_dim, hidden_dim, hidden_dim,
                                 control=control, method=method or "rk4",

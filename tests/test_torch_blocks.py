@@ -200,14 +200,6 @@ def test_sdeint_with_injected_dw_matches_jax_scan():
     np.testing.assert_allclose(ours.numpy(), np.asarray(ref), atol=2e-5)
 
 
-@pytest.mark.parametrize("method", ["milstein", "heun", "reversible_heun"])
-def test_sdeint_other_methods_raise(method):
-    with pytest.raises(NotImplementedError, match="item 13"):
-        sdeint(lambda t, y: y, lambda t, y: y, torch.zeros(2, 1),
-               np.linspace(0, 1, 3), generator=torch.Generator(),
-               method=method)
-
-
 def test_brownian_sampler_ou_moments():
     """The port's own sampler (a torch.Generator, not JAX's RBG bits): OU
     mean and variance at t=1 against the closed form, within ~2.5 sigma of

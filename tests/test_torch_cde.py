@@ -148,16 +148,6 @@ def test_odeint_matches_jax(method):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL)
 
 
-@pytest.mark.parametrize("method", ["dopri5", "rk23", "rk12", "ode23s",
-                                    "sym12"])
-def test_adaptive_odeint_is_not_ported(method):
-    _, tf, y0 = _ode_fns()
-    with pytest.raises(NotImplementedError, match="item 16"):
-        odeint(tf, torch.as_tensor(y0), np.linspace(0, 1, 3), method=method)
-    with pytest.raises(ValueError, match="unknown"):
-        odeint(tf, torch.as_tensor(y0), np.linspace(0, 1, 3), method="rk9")
-
-
 @pytest.mark.parametrize("method", FIXED)
 @pytest.mark.parametrize("irregular", [False, True])
 def test_cdeint_matches_jax(method, irregular):
@@ -253,14 +243,3 @@ def test_dispatch_on_the_cpu_takes_the_eager_solve(monkeypatch):
         tm(times, torch.as_tensor(coeffs))
     for method in ("euler", "midpoint", "heun", "rk2", "rk4"):
         assert tcde.supports_fused_cde(tcde.GRUODEField(C, H), method)
-
-
-def test_linear_control_is_not_ported():
-    _, tf = _field_pair("final_tanh", Cn=C + 1)
-    model = tcde.NeuralCDEStream(tf, C + 1, H, 2, control="linear")
-    times, coeffs = _model_data()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model(times, torch.as_tensor(coeffs))
-    with pytest.raises(ValueError, match="unknown control"):
-        tcde.NeuralCDEStream(tf, C + 1, H, 2, control="spline")(
-            times, torch.as_tensor(coeffs))
