@@ -21,7 +21,10 @@ phase 9; since the CDE pair's GRU-ODE field and member axis the sweep's
 for the three seeds), phase 10; since the linear controls and the solvers
 without a kernel the sweep's `neuralcde-l` and `neuralcde-r` (the CDE
 kernels on a LinearPath's stream) and `run_mujoco` with milstein and
-heun (the eager sdeint), phase 11.
+heun (the eager sdeint), phase 11; since the rest of the model zoo the
+sweep's `ancde`, `exit`, `leap`, `neuralrde-1/2/3` and the flow-CDE
+families (the CDE kernels), `mtan` (the GRU kernels in both directions),
+`sand`, `miam` and `neuralflow_*` (no kernel), phase 12.
 Phases, each of which raises on failure:
   1. card: name, and name and power limit from nvidia-smi;
   2. build: nvcc builds every kernel of the four paths from
@@ -225,13 +228,37 @@ Phases, each of which raises on failure:
      neuralcde-l training step through the kernels and with
      use_fused=False, one milstein training step at the MuJoCo shape with
      its profiler window, and each adaptive solver's time a solve and a
-     trial step at B=1024, H=32 (adaptive_solver_times).
+     trial step at B=1024, H=32 (adaptive_solver_times);
+ 12. the rest of the model zoo, in phases 3-5's places: the CDE pair
+     against its plain versions on the streams the registry layers make
+     at the sweep cell (compare_zoo_cde: NeuralRDE's log-signature stream
+     at depths 1-3, C = 6, 21, 91, 23 rk4 steps; ANCDE's bottom field, H =
+     C = 6, and its top field on the re-fit gated Hermite stream; every
+     cotangent, ddx included, by check_pair_rows); a fresh ancde layer's
+     gradients through the kernels against the eager solves, the gate's
+     through the top stream's ddx (check_ancde_gate_grad); the GRU pair on
+     mTAN's BiGRU (B=64, L=60, H=16) forward and reverse against the eager
+     loop, every cotangent the input's included (compare_mtan_bigru); the
+     sweep cell with ancde, exit, leap, neuralrde-1/2/3, mtan, sand and
+     miam for 2 epochs and each family x flow option once for 1 epoch
+     (zoo_sweep_path: a record with an accuracy and no error, the CDE
+     pair's launches per layer call, no eager cdeint, mtan's GRU pair in
+     both directions, no kernel for sand, miam and neuralflow_*; the
+     trained ancde and neuralrde-3 layers through the kernels against
+     use_fused=False on 16 rows), the other 32 flow names one forward
+     each; the CDE pair's times and bounds on NeuralRDE-3's stream and
+     ANCDE's two solves (zoo_cde_times), the GRU pair's in each direction
+     at mTAN's shape (mtan_gru_times), both in the kernels line's CDE and
+     GRU entries, and one training step of ancde, leap, neuralrde-3, mtan,
+     sand, miam and neuralflowcde_z_c through the kernels and with
+     use_fused=False, with its profiler window.
 It prints one JSON line of the kernels (each SDE kernel with the `modes`
 it takes; the packed launches, the hybrids' and the time-aware LSTMs'
 instances, TLSTM's W_d gradient and the CDE pair's gruode instances and
 packed launches as their own entries, the recurrent
 modes with their H=256 times, the CDE pair's with its linear streams'
-times and launches), the card's name and
+and phase 12's streams' times and launches, the GRU pair's with mTAN's),
+the card's name and
 power limit, and last `{"ok": true, "device": {...}}`. It exits non-zero,
 printing no result, without a CUDA device or outside the repository.
 
@@ -4845,11 +4872,13 @@ def cde_linear_kernel_times():
     return ms, bounds
 
 
-def linear_step_fns(name="neuralcde-l"):
-    """One training step (cross-entropy, the 100x fc2 hook, the clip at
-    10, Adam) of ISTSClassifier(name) at the sweep cell (64 rows of
-    uea_b_noisy, 30% missing, hidden 16, rk4): {label: step()} through the
-    CDE kernels and with use_fused=False (the eager cdeint)."""
+def sweep_step_fns(name="neuralcde-l"):
+    """One training step (cross-entropy plus kl_weight x a LatentSDE's or
+    LEAP's term, the 100x fc2 hook, the clip at 10, Adam) of
+    ISTSClassifier(name) at the sweep cell (64 rows of uea_b_noisy, 30%
+    missing, hidden 16, the name's default method): {label: step()}
+    through the kernels and with use_fused=False (the eager solvers and
+    loops)."""
     from snsde_torch.harness.robustness import (ISTSClassifier,
                                                 coeff_family,
                                                 ists_train_step,
@@ -4897,6 +4926,455 @@ def linear_entry(part, launches, ms, bounds):
                     f"ms_{sfx}": ms[name][part],
                     f"plain_ms_{sfx}": ms[name][f"{part}_plain"],
                     f"bound_ms_{sfx}": bounds[name][part][0]})
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: the rest of the model zoo: NeuralRDE, ANCDE, EXIT, LEAP and
+# three flow families on the CDE kernels, mTAN's BiGRU on the GRU kernels,
+# SAnD, MIAM and the pointwise flows on no kernel
+# ---------------------------------------------------------------------------
+
+ZOO_MODELS = ("ancde", "exit", "leap", "neuralrde-1", "neuralrde-2",
+              "neuralrde-3", "mtan", "sand", "miam")
+FLOW_FAMILIES = ("neuralflow", "neuralflowcde", "neuralmixture",
+                 "neuralcontrolledflow")
+# each family with each flow option once, the input option rotating
+ZOO_FLOWS = tuple(f"{fam}_{'xyz'[(i + j) % 3]}_{fo}"
+                  for i, fam in enumerate(FLOW_FAMILIES)
+                  for j, fo in enumerate("nrgc"))
+# the CDE launches of one layer call (ANCDE: its bottom and top solves)
+ZOO_CDE_SOLVES = {"ancde": 2, "exit": 1, "leap": 1, "neuralrde-1": 1,
+                  "neuralrde-2": 1, "neuralrde-3": 1}
+ZOO_STEPS = ("ancde", "leap", "neuralrde-3", "mtan", "sand", "miam",
+             "neuralflowcde_z_c")
+
+
+def zoo_cde_solves(name):
+    """1 or 2 CDE solves a call of the registry layer `name`, 0 for
+    SAnD, MIAM, mTAN and the pointwise flows."""
+    if name in ZOO_CDE_SOLVES:
+        return ZOO_CDE_SOLVES[name]
+    return 0 if name.split("_")[0] in ("neuralflow", "mtan", "sand",
+                                       "miam") else 1
+
+
+def zoo_batch(name, rows=SWEEP["B"], seed=0):
+    """(seq, coeffs) on the card of `rows` rows of the sweep cell's data,
+    30% missing, in the name's coefficient family."""
+    from snsde_torch.harness.robustness import coeff_family, preprocess_ists
+
+    X, _, _ = uea_b_noisy()
+    data = preprocess_ists(X[:rows], missing_rate=0.3, seed=seed,
+                           interpolation=coeff_family(name))
+    return (torch.as_tensor(data["seq"], device=DEV),
+            torch.as_tensor(data["coeffs"], device=DEV))
+
+
+def zoo_layer(name, seed=0):
+    from snsde_torch.registry import make_seq_layer
+
+    return make_seq_layer(name, SWEEP["D"], SWEEP["L"], SWEEP["H"],
+                          generator=torch.Generator().manual_seed(seed)
+                          ).to(DEV)
+
+
+def zoo_solve_inputs(name, seed=0):
+    """The CDE pair's detached inputs of each solve the registry layer
+    `name` makes on the sweep cell's batch (its own fields, initial
+    states, grids and control streams: NeuralRDE's log-signature stream,
+    ANCDE's raw and re-fit gated streams), and a cotangent gys of a
+    batch-mean loss each: [(label, tensors in the forward's order, flags,
+    gys)]."""
+    from snsde_torch.kernels import fused_cde as fc
+    from snsde_torch.models import ancde
+    from snsde_torch.ops import make_grid
+
+    layer = zoo_layer(name, seed)
+    seq, coeffs = zoo_batch(name, seed=seed)
+    seen, real = [], ancde.cde_solve_dispatch
+
+    def record(path, func, z0, ts, **kw):
+        seen.append((path, func, z0, ts, kw))
+        return real(path, func, z0, ts, **kw)
+
+    ancde.cde_solve_dispatch = record
+    try:
+        with torch.no_grad():
+            layer(seq, coeffs)
+    finally:
+        ancde.cde_solve_dispatch = real
+    rng = np.random.default_rng(seed)
+    out = []
+    for k, (path, func, z0, ts, kw) in enumerate(seen):
+        grid, _ = make_grid(ts, kw["dt"])
+        with torch.no_grad():
+            inp = fc.fused_cde_inputs(func, path, grid, z0, kw["method"])
+        fwd = [None if inp[n] is None else inp[n].detach().contiguous()
+               for n in fc._ARG_ORDER]
+        M, (B, H) = len(grid) - 1, z0.shape
+        gys = torch.as_tensor(rng.normal(size=(M, B, H)).astype(np.float32)
+                              / B, device=DEV)
+        part = ("bottom" if k == 0 else "top") if name == "ancde" else name
+        out.append((f"{name}" + (f" {part}" if name == "ancde" else ""),
+                    fwd, dict(method=inp["method"], act=inp["act"]), gys))
+    return out
+
+
+def compare_zoo_cde():
+    """The CDE pair against its plain versions (check_pair_rows: the
+    trajectory and every cotangent, ddx included) on the streams of
+    NeuralRDE at depths 1-3 (C = 6, 21, 91 log-signature channels, 23 rk4
+    steps) and of ANCDE's two solves (the bottom field H = C = 6, the top
+    field on the re-fit gated stream). Returns the largest forward and
+    backward errors."""
+    from snsde_torch.kernels import fused_cde as fc
+
+    errs = []
+    for name in ("neuralrde-1", "neuralrde-2", "neuralrde-3", "ancde"):
+        for label, fwd, flags, gys in zoo_solve_inputs(name):
+            M, B, H, HH, C, n_inner = fc.check_kernel_inputs(*fwd, **flags)
+            cde_plans([(B, H, C, n_inner)])
+            errs.append(check_pair_rows(
+                f"CDE {label} stream B={B} (M={M}) C={C} H={H} HH={HH}",
+                "cde", fwd, flags, gys))
+    return tuple(max(e[i] for e in errs) for i in range(2))
+
+
+def _f64_rule(label, fused, eager, ref64):
+    """fused against eager, both float32, over max|ref64|: within the
+    larger of TOL_YS and YS_F64_FACTOR times eager's own largest error
+    from the float64 run. Returns the error."""
+    fused, eager, ref64 = fused.detach(), eager.detach(), ref64.detach()
+    scale = max(float(ref64.abs().max()), 1e-30)
+    rel = float((fused.double() - eager.double()).abs().max()) / scale
+    e32 = float((eager.double() - ref64).abs().max()) / scale
+    tol = max(TOL_YS, YS_F64_FACTOR * e32)
+    print(f"    {label}: largest err over max {rel:.3e} (tol {tol:.3e}; "
+          f"the float32 eager run from float64 {e32:.3e})")
+    if not (torch.isfinite(fused).all() and rel <= tol):
+        raise AssertionError(f"{label}: the kernels disagree with the "
+                             f"eager solve")
+    return rel
+
+
+def _layer_runs(layer, seq, coeffs, grads=False):
+    """The layer's (out, hn) through the kernels, through the eager
+    solvers and in float64 through the eager solvers (a copy), and with
+    `grads` the parameter gradients of mean(out²) + mean(hn) of each."""
+    import copy
+
+    runs = []
+    for fused, dtype in ((True, torch.float32), (False, torch.float32),
+                         (False, torch.float64)):
+        m = layer if dtype == torch.float32 else copy.deepcopy(
+            layer).double()
+        for p in m.parameters():
+            p.grad = None
+        with torch.set_grad_enabled(grads):
+            res = m(seq.to(dtype), coeffs.to(dtype), use_fused=fused)
+            if grads:
+                ((res[0] ** 2).mean() + res[1].mean()).backward()
+        runs.append((res, {n: p.grad for n, p in m.named_parameters()}))
+    return runs
+
+
+def check_ancde_gate_grad():
+    """ANCDE's gate gets its gradient through the top solve's re-fit
+    control stream, which here requires grad: a fresh `ancde` layer's
+    outputs and every parameter gradient (time_attention's through the
+    backward kernel's ddx) through the kernels against the eager solves
+    on the sweep cell's batch, by the float64 rule (_f64_rule)."""
+    layer = zoo_layer("ancde", seed=3)
+    seq, coeffs = zoo_batch("ancde", seed=3)
+    zero_counts()
+    (rf, gf), (re_, ge), (r64, g64) = _layer_runs(layer, seq, coeffs, True)
+    n = read_counts()
+    print(f"  ANCDE gate gradient through the top control stream (B="
+          f"{seq.shape[0]}), kernel launches {n['cde_fwd']} forward, "
+          f"{n['cde_bwd']} backward:")
+    if n["cde_fwd"] != 2 or n["cde_bwd"] != 2:
+        raise AssertionError(f"ancde launched {n}")
+    for i in range(2):
+        _f64_rule(("out", "hn")[i], rf[i], re_[i], r64[i])
+    worst = 0.0
+    for name, g in gf.items():
+        worst = max(worst, _f64_rule(f"d {name}", g, ge[name], g64[name]))
+    return worst
+
+
+def check_trained_zoo_layer(name, model, seq, coeffs):
+    """A trained classifier's layer output through the kernels against
+    use_fused=False on the same rows, by the float64 rule."""
+    model.eval()
+    (rf, _), (re_, _), (r64, _) = _layer_runs(model.layer, seq, coeffs)
+    print(f"trained {name}: layer output through the kernels vs the eager "
+          f"solves on {seq.shape[0]} rows:")
+    _f64_rule("out", rf[0], re_[0], r64[0])
+
+
+def mtan_bigru_inputs(seed=0):
+    """mTAN's BiGRU at the sweep cell: a registry `mtan` layer's two GRU
+    cells and its attention output xs [L, B, H] (detached) on the sweep
+    cell's batch."""
+    layer = zoo_layer("mtan", seed)
+    seq, _ = zoo_batch("mtan", seed=seed)
+    enc = layer.inner.enc
+    D = SWEEP["D"]
+    inp = torch.cat([seq[:, 0], seq[:, 1]], dim=-1)
+    ts = torch.linspace(0.0, 1.0, seq.shape[2], device=DEV).expand(
+        seq.shape[0], -1)
+    with torch.no_grad():
+        mk = inp[:, :, D:]
+        out = enc.att(enc.time_emb(enc.query), enc.time_emb(ts), inp,
+                      torch.cat([mk, mk], dim=2))
+    return enc.gru_f, enc.gru_b, out.movedim(1, 0).contiguous()
+
+
+def compare_mtan_bigru():
+    """fused_gru_scan on mTAN's two cells (forward, and reverse=True)
+    against the eager loop over the cell in that direction: hs and every
+    gradient (xs, the cell's parameters) within TOL_GRAD of its largest
+    entry. Returns the largest forward and backward errors."""
+    from snsde_torch.kernels import fused_rnn as fr
+    from snsde_torch.models.rnn import scan_cell
+
+    cell_f, cell_b, xs = mtan_bigru_inputs()
+    w = torch.randn(xs.shape[:2] + (cell_f.hidden_size,), device=DEV,
+                    generator=torch.Generator(device=DEV).manual_seed(1))
+    err_f = err_b = 0.0
+    for cell, reverse in ((cell_f, False), (cell_b, True)):
+        outs = []
+        for fused in (True, False):
+            for p in cell.parameters():
+                p.grad = None
+            x = xs.clone().requires_grad_(True)
+            hs = (fr.fused_gru_scan(cell, x, reverse=reverse) if fused
+                  else scan_cell(cell, x, reverse))
+            (hs * w).sum().backward()
+            outs.append([hs.detach(), x.grad]
+                        + [p.grad for p in cell.parameters()])
+        torch.cuda.synchronize()
+        errs = [float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                for a, b in zip(*outs)]
+        print(f"  mTAN BiGRU B={xs.shape[1]} L={xs.shape[0]} "
+              f"H={cell.hidden_size}{' reverse' if reverse else ''} vs the "
+              f"eager loop: hs {errs[0]:.3e}, dxs {errs[1]:.3e}, d params "
+              f"{max(errs[2:]):.3e} over max (tol {TOL_GRAD:g})")
+        if not max(errs) <= TOL_GRAD:
+            raise AssertionError("mTAN's fused GRU scan disagrees")
+        err_f = max(err_f, float((outs[0][0] - outs[1][0]).abs().max()))
+        err_b = max(err_b, max(float((a - b).abs().max())
+                               for a, b in zip(outs[0][1:], outs[1][1:])))
+    return err_f, err_b
+
+
+def mtan_gru_times():
+    """The GRU pair at mTAN's shape in each direction: the forward and
+    backward kernels (each wrapper's call; the backward's its recurrence,
+    weight gradient and sums) and their plain versions on mTAN's cells
+    (the reverse cell's projected stream flipped, as fused_gru_scan
+    launches it), from h0 = 0, and the bounds of rnn_kernel_times.
+    {direction: ms}, {direction: bounds}."""
+    fwd, bwd, fwd_p, bwd_p = rnn_fns("gru")
+    cell_f, cell_b, xs = mtan_bigru_inputs()
+    L, B, H = xs.shape[0], xs.shape[1], cell_f.hidden_size
+    ghs = torch.randn(L, B, H, device=DEV,
+                      generator=torch.Generator(device=DEV).manual_seed(2))
+    ms, bounds = {}, {}
+    for label, cell, reverse in (("forward", cell_f, False),
+                                 ("reverse", cell_b, True)):
+        with torch.no_grad():
+            gi = xs @ cell.w_ih + cell.b_ih
+            gi = (torch.flip(gi, (0,)) if reverse else gi).contiguous()
+            inp = {"gi": gi, "h0": xs.new_zeros((B, H)),
+                   "whh": cell.w_hh.detach().contiguous(),
+                   "bhh": cell.b_hh.detach().contiguous()}
+            hs = fwd(**inp)
+            bargs = dict(hs=hs, ghs=ghs, **inp)
+            ms[label] = {"fwd": timed(lambda: fwd(**inp)),
+                         "fwd_plain": timed(lambda: fwd_p(**inp), reps=5,
+                                            warmup=1),
+                         "bwd": timed(lambda: bwd(**bargs)),
+                         "bwd_plain": timed(lambda: bwd_p(**bargs), reps=5,
+                                            warmup=1)}
+            grads = [g for g in bwd(**bargs) if g is not None]
+        prod = 2 * L * B * H * 3 * H
+        n_in = sum(t.numel() for t in inp.values())
+        n_bwd = sum(t.numel() for t in bargs.values()) + sum(
+            g.numel() for g in grads)
+        bounds[label] = {"fwd": bound(4 * (n_in + L * B * H), prod),
+                         "bwd": bound(4 * n_bwd, 3 * prod)}
+        print(f"GRU pair at mTAN's shape ({label}) B={B} L={L} H={H}: "
+              + ", ".join(f"{k} {v:.4f} ms" for k, v in ms[label].items())
+              + f"; bounds {bounds[label]['fwd'][0]:.5f} / "
+                f"{bounds[label]['bwd'][0]:.5f} ms", flush=True)
+    return ms, bounds
+
+
+def zoo_cde_times():
+    """The CDE pair's times, plain versions and bounds (cde_times) on
+    NeuralRDE-3's log-signature stream and on ANCDE's two solves at the
+    sweep cell: {label: ms}, {label: bounds}."""
+    ms, bounds = {}, {}
+    for name in ("neuralrde-3", "ancde"):
+        for label, fwd, flags, gys in zoo_solve_inputs(name):
+            ms[label], bounds[label] = cde_times(fwd, flags, gys, label)
+    return ms, bounds
+
+
+class ZooWatch:
+    """While active: the eager cdeint's calls, the fused GRU scan's
+    directions, and the registry layer's calls."""
+
+    def __enter__(self):
+        from snsde_torch import registry
+        from snsde_torch.models import neuralcde, rnn
+
+        self.eager, self.directions, self.calls = 0, set(), 0
+        self.mods = ((neuralcde, "cdeint"), (rnn, "fused_gru_scan"),
+                     (registry.SeqLayer, "forward"))
+        self.real = [getattr(m, a) for m, a in self.mods]
+        cdeint, scan, fwd = self.real
+
+        def counted_cdeint(*a, **k):
+            self.eager += 1
+            return cdeint(*a, **k)
+
+        def counted_scan(*a, reverse=False, **k):
+            self.directions.add(reverse)
+            return scan(*a, reverse=reverse, **k)
+
+        def counted_forward(layer, *a, **k):
+            self.calls += 1
+            return fwd(layer, *a, **k)
+
+        for (m, a), f in zip(self.mods, (counted_cdeint, counted_scan,
+                                         counted_forward)):
+            setattr(m, a, f)
+        return self
+
+    def __exit__(self, *exc):
+        for (m, a), f in zip(self.mods, self.real):
+            setattr(m, a, f)
+
+
+def check_zoo_launches(name, launches, watch):
+    """The kernels of a run of registry layer `name`: the CDE pair (solves
+    x layer calls forward launches, backward launches in training) and no
+    eager cdeint for a CDE name; the GRU pair in both directions for mtan
+    (two forward launches a call); no kernel for the others."""
+    solves = zoo_cde_solves(name)
+    others = {k: v for k, v in launches.items()
+              if v and not (solves and k in ("cde_fwd", "cde_bwd"))
+              and not (name == "mtan" and k in ("gru_fwd", "gru_bwd",
+                                                "gru_wgrad"))}
+    if others:
+        raise AssertionError(f"{name} launched other kernels: {others}")
+    if solves:
+        if launches["cde_fwd"] != solves * watch.calls:
+            raise AssertionError(f"{name}: {launches['cde_fwd']} CDE "
+                                 f"forward launches in {watch.calls} layer "
+                                 f"calls of {solves} solves")
+        if watch.eager:
+            raise AssertionError(f"{name} took the eager cdeint "
+                                 f"{watch.eager} times")
+    if name == "mtan" and (watch.directions != {False, True}
+                           or launches["gru_fwd"] != 2 * watch.calls):
+        raise AssertionError(f"mtan: GRU directions {watch.directions}, "
+                             f"{launches['gru_fwd']} forward launches in "
+                             f"{watch.calls} calls")
+
+
+def zoo_sweep_path(out_dir):
+    """The sweep cell (uea_b_noisy, hidden 16) with the nine non-flow
+    names for 2 epochs each and ZOO_FLOWS for 1 epoch each, one model a
+    run, every count set to 0 just before the run and read just after:
+    each writes a record with a finite accuracy and no error, and launches
+    the kernels where the JAX package has them (check_zoo_launches; a
+    trained model's backward launches too, the CDE pair's). The trained
+    ancde and neuralrde-3 layers' outputs through the kernels must match
+    use_fused=False on 16 rows. Then each of the other 32 flow names runs
+    one forward pass on the card, 64 rows. Returns each run's launches."""
+    from snsde_torch.harness.robustness import (SweepConfig,
+                                                run_robustness_sweep)
+    from snsde_torch.registry import MODEL_NAMES
+
+    t_phase = time.perf_counter()
+    out = {}
+    for name in ZOO_MODELS + ZOO_FLOWS:
+        epochs = 2 if name in ZOO_MODELS else 1
+        cfg = SweepConfig(models=(name,), missing_rates=(0.3,), seeds=(0,),
+                          hidden_dim=SWEEP["H"], batch_size=SWEEP["B"],
+                          max_epochs=epochs, out_dir=out_dir)
+        trained = {}
+        with ZooWatch() as watch:
+            zero_counts()
+            t0 = time.perf_counter()
+            recs = run_robustness_sweep(cfg, n=SWEEP["n"],
+                                        data_fn=uea_b_noisy,
+                                        dataset_name="uea_b_noisy",
+                                        verbose=False, device=DEV,
+                                        models=trained)
+            torch.cuda.synchronize()
+            launches = out[name] = read_counts()
+        moved = {k: v for k, v in launches.items() if v}
+        print(f"main path 12 ({name}): run_robustness_sweep {epochs} "
+              f"epoch(s) in {time.perf_counter() - t0:.1f} s, records "
+              f"{recs}, {watch.calls} layer calls, launches {moved}",
+              flush=True)
+        if not recs or any("error" in r or "accuracy" not in r
+                           or not np.isfinite(r["accuracy"]) for r in recs):
+            raise AssertionError(f"the sweep wrote a failed record: {recs}")
+        check_zoo_launches(name, launches, watch)
+        if zoo_cde_solves(name) and launches["cde_bwd"] <= 0:
+            raise AssertionError(f"{name} ran no CDE backward")
+        if name == "mtan" and launches["gru_bwd"] <= 0:
+            raise AssertionError("mtan ran no GRU backward")
+        if name in ("ancde", "neuralrde-3"):
+            seq, coeffs = zoo_batch(name, rows=16)
+            check_trained_zoo_layer(name, trained[(0.3, name, 0)], seq,
+                                    coeffs)
+    rest = [n for n in MODEL_NAMES
+            if n.split("_")[0] in FLOW_FAMILIES and n not in ZOO_FLOWS]
+    for name in rest:
+        layer = zoo_layer(name)
+        seq, coeffs = zoo_batch(name)
+        with ZooWatch() as watch, torch.no_grad():
+            zero_counts()
+            res = layer(seq, coeffs)
+            torch.cuda.synchronize()
+            launches = read_counts()
+        if not all(torch.isfinite(r).all() for r in res):
+            raise AssertionError(f"{name}: non-finite streams")
+        check_zoo_launches(name, launches, watch)
+    print(f"main path 12: {len(rest)} more flow names one forward pass "
+          f"each; phase 12's runs in {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return out
+
+
+def zoo_entry(part, launches, ms, bounds):
+    """The CDE pair's entry's fields of phase 12: the CDE launches of its
+    sweep runs, and the pair's time, plain time and bound on NeuralRDE-3's
+    stream and on ANCDE's two solves."""
+    out = {"launches_zoo": sum(v[f"cde_{part}"] for v in launches.values())}
+    for label, ms_ in ms.items():
+        sfx = label.replace("-", "").replace(" ", "_")
+        out.update({f"ms_{sfx}": ms_[part],
+                    f"plain_ms_{sfx}": ms_[f"{part}_plain"],
+                    f"bound_ms_{sfx}": bounds[label][part][0]})
+    return out
+
+
+def mtan_entry(part, launches, ms, bounds):
+    """The GRU pair's entry's fields of phase 12: mTAN's sweep run's
+    launches, and the pair's reverse and forward times at mTAN's shape."""
+    out = {"launches_mtan": launches["mtan"][f"gru_{part}"]}
+    for label in ("reverse", "forward"):
+        out.update({f"ms_{label}_mtan": ms[label][part],
+                    f"plain_ms_{label}_mtan": ms[label][f"{part}_plain"],
+                    f"bound_ms_{label}_mtan": bounds[label][part][0]})
     return out
 
 
@@ -5006,6 +5484,13 @@ def main() -> int:
           "CPU:", flush=True)
     err["cde_paths"] = compare_linear_cde()
     compare_solvers_card_vs_cpu()
+    print("phase 12: the CDE pair on NeuralRDE's and ANCDE's streams and "
+          "the GRU pair on mTAN's BiGRU vs their plain versions:",
+          flush=True)
+    err["cde_paths"] = tuple(max(a, b) for a, b in zip(err["cde_paths"],
+                                                        compare_zoo_cde()))
+    check_ancde_gate_grad()
+    err["gru_paths"] = compare_mtan_bigru()
     with tempfile.TemporaryDirectory() as out_dir:
         launches = {"em": main_path(), "srk": mujoco_path(),
                     "cde": sweep_path(out_dir)}
@@ -5023,6 +5508,7 @@ def main() -> int:
         launches["lstm_time"] = rnn_sweep_path(out_dir, TIME_MODELS)["lstm"]
         baseline_sweep_path(out_dir)
         launches["cde_linear"] = linear_sweep_path(out_dir)
+        launches["zoo"] = zoo_sweep_path(out_dir)
     for method in SDE_METHODS:
         sde_method_mujoco_path(method)
     launches["em_speech"] = speech_path()
@@ -5076,7 +5562,7 @@ def main() -> int:
                                        gruode_step_fns(), eager_reps=3))
     linear_ms, linear_bounds = cde_linear_kernel_times()
     ms["cde_linear"] = step_times("neuralcde-l sweep-cell classifier",
-                                  linear_step_fns(), eager_reps=3)
+                                  sweep_step_fns(), eager_reps=3)
     ms["solvers"] = {"mujoco milstein train_step": sde_method_step_time()}
     for name, (solve_ms, _, trial_ms) in adaptive_solver_times().items():
         ms["solvers"][f"{name} solve"] = solve_ms
@@ -5084,6 +5570,13 @@ def main() -> int:
     for name in LINEAR_MODELS:
         for k, v in linear_ms[name].items():
             ms["cde_linear"][f"{name} {k}"] = v
+    zoo_ms, zoo_bounds = zoo_cde_times()
+    mtan_ms, mtan_bounds = mtan_gru_times()
+    ms["zoo"] = {}
+    for name in ZOO_STEPS:
+        for k, v in step_times(f"{name} sweep-cell classifier",
+                               sweep_step_fns(name), eager_reps=3).items():
+            ms["zoo"][f"{name} {k}"] = v
     for key in ms:
         for k, v in ms[key].items():
             print(f"time {key} {k}: {v:.4f} ms  [{smi}]")
@@ -5119,6 +5612,10 @@ def main() -> int:
                 **({"modes": SDE_MODES} if key in ("em", "srk") else {}),
                 **(linear_entry(part, launches["cde_linear"], linear_ms,
                                 linear_bounds) if key == "cde" else {}),
+                **(zoo_entry(part, launches["zoo"], zoo_ms, zoo_bounds)
+                   if key == "cde" else {}),
+                **(mtan_entry(part, launches["zoo"], mtan_ms, mtan_bounds)
+                   if key == "gru" else {}),
             })
     for key, line, src in (("em", "fused_em.py:888", "fused_em"),
                            ("srk", "fused_srk.py:527", "fused_srk"),

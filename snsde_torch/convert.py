@@ -21,6 +21,16 @@ Linears `W_all`, `U_all`, `W_d`, PLSTM's raw `W`, `U`, `bias`, `periods`,
 `layer.inner.kernels.0` (raw [k, c_in, c_out], a `ParameterList` here)
 and `biases.0`; SeqTransformer's `layer.inner.wq.0.weight` .. `ff2.1.bias`
 and `embed`;
+for the model zoo mTAN's reference grid `layer.inner.enc.query` (a raw
+leaf, a trained parameter on both sides), SAnD's tuple of blocks
+`layer.inner.blocks.0.attn.wq.weight` with its LayerNorms' raw `gamma`
+and `beta`, MIAM's `layer.inner.encoder.obs_block.layers.1.norm_q.alpha`
+(each encoding block's tuple of layers; the norms' raw `alpha`, `bias`),
+its `decoder.weight` (no bias), raw `decoder_bias` and head BatchNorm
+`clf_norm.scale`/`running_var`, the flows' `flow_layers.0.time_net.lin.
+weight` and `mlp_layers.0.bias` (tuples of modules or Linears), ANCDE's
+`func_g.linear_out.weight`, EXIT's `ode_f1.weight` and LEAP's
+`mapping2.bias`;
 for the seed ensembles the members' tuples, a
 `ModuleList` here too: InitialValueSeedEnsemble's
 `members.0.field.linear_in.weight` and `members.0.readout.norm.running_var`,

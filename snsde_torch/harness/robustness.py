@@ -2,13 +2,16 @@
 snsde/harness/robustness.py:48-720: the solo loop and the seed-packed
 ensembles).
 
-  * `ISTSClassifier`: seq layer (any name `registry.PORTED_NAMES` holds:
-    the Neural SDEs, the LatentSDE, the Neural CDEs and the plain recurrent
-    baselines) -> last step -> BatchNorm -> ReLU(fc1) -> fc2, nan_to_num on
-    the logits; the LatentSDE's layer also gives its KL term;
-  * `train_ists_model`: softmax cross-entropy (plus kl_weight x the KL term
-    for the LatentSDE names, in training and evaluation, as the JAX loss
-    :186-191), the 100x gradient hook on fc2
+  * `ISTSClassifier`: seq layer (any registry name: the Neural SDEs, the
+    LatentSDE, the Neural CDEs and RDEs, ANCDE, EXIT, LEAP, the neural
+    flows, the recurrent and ODE-RNN baselines, mTAN, SAnD, MIAM, the
+    convolutions and the transformer) -> last step -> BatchNorm ->
+    ReLU(fc1) -> fc2, nan_to_num on the logits; the LatentSDE's layer also
+    gives its KL term, and LEAP's its divergence term;
+  * `train_ists_model`: softmax cross-entropy (plus kl_weight x the
+    layer's auxiliary term for the LatentSDE names and `leap`, in training
+    and evaluation, as the JAX loss :186-191), the 100x gradient hook on
+    fc2
     before a global-norm clip at 10 (optax's rule), Adam without weight
     decay, StepLR(10, 0.5) stepped once per epoch, patience-10 early stop
     on val accuracy and a restore of the best model (weights and BatchNorm
@@ -143,7 +146,7 @@ class ISTSClassifier(nn.Module):
                 generator: Optional[torch.Generator] = None,
                 use_fused: bool = True, with_aux: bool = False):
         """logits [B, K]; with `with_aux`, (logits, the layer's aux: the
-        LatentSDE's KL term, else None)."""
+        LatentSDE's KL term or LEAP's divergence term, else None)."""
         res = self.layer(seq, coeffs, generator=generator,
                          use_fused=use_fused)
         h = torch.relu(self.fc1(self.norm(res[0][:, -1, :])))
@@ -176,7 +179,8 @@ class SweepConfig:
     max_epochs: int = 30
     patience: int = 10
     out_dir: str = "out"
-    # the KL term's weight in the LatentSDE names' loss
+    # the auxiliary term's weight in the loss of the LatentSDE names (their
+    # KL) and of leap (its divergence)
     kl_weight: float = 1e-4
     # None -> each model family's default (rk4 for the CDE names)
     method: object = None
@@ -187,8 +191,8 @@ class SweepConfig:
 
 def ists_loss(model: ISTSClassifier, batch, generator=None,
               use_fused: bool = True, kl_weight: float = 1e-4):
-    """(cross-entropy over the batch + kl_weight x the layer's KL term when
-    it has one, logits)."""
+    """(cross-entropy over the batch + kl_weight x the layer's auxiliary
+    term when it has one: the LatentSDE's KL, LEAP's divergence, logits)."""
     logits, aux = model(batch["seq"], batch["coeffs"], generator=generator,
                         use_fused=use_fused, with_aux=True)
     loss = softmax_cross_entropy(logits, batch["y"])
@@ -202,11 +206,11 @@ def ists_train_step(model: ISTSClassifier, optimizer, batch,
                     generator: Optional[torch.Generator] = None,
                     kl_weight: float = 1e-4) -> torch.Tensor:
     """One update: cross-entropy over the whole (padded) batch (plus the
-    weighted KL term of a LatentSDE), backward (the fc2 hook, when
-    registered, fires here), the global-norm clip at CLIP_NORM, Adam.
-    `generator` draws the model's training-time noise (an SDE's Brownian
-    paths, a stacked SeqRNN's inter-layer dropout). Returns the loss (no
-    host synchronisation)."""
+    weighted auxiliary term of a LatentSDE or LEAP), backward (the fc2
+    hook, when registered, fires here), the global-norm clip at
+    CLIP_NORM, Adam. `generator` draws the model's training-time noise (an
+    SDE's Brownian paths, dropout masks, the probes of EXIT and LEAP,
+    mTAN's sample). Returns the loss (no host synchronisation)."""
 
     def loss_fn(m, b, gen):
         return ists_loss(m, b, gen, use_fused, kl_weight)
@@ -227,7 +231,7 @@ def train_ists_model(model: ISTSClassifier, data: Dict, y: np.ndarray,
     """Train one classifier on its device; returns (the best-val model,
     its test metrics). `seed` seeds the batch order and the generator of
     the model's noise in training and evaluation; `kl_weight` weighs a
-    LatentSDE's KL term in the loss."""
+    LatentSDE's KL term or LEAP's divergence term in the loss."""
     device = next(model.parameters()).device
     arrays = {"seq": data["seq"], "coeffs": data["coeffs"],
               "y": y.astype(np.int64)}

@@ -25,7 +25,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-__all__ = ["Linear", "BatchNorm", "Dropout", "make_linear", "RNNCell",
+__all__ = ["Linear", "BatchNorm", "Dropout", "dropout", "make_linear", "RNNCell",
            "GRUCell", "LSTMCell"]
 
 Linear = nn.Linear
@@ -46,6 +46,17 @@ def make_linear(in_features: int, out_features: int, *,
     return lin
 
 
+def dropout(x, rate: float, generator: Optional[torch.Generator],
+            training: bool):
+    """Inverted dropout of x with its mask from `generator`: the identity
+    unless training, at rate 0, or without a generator."""
+    if not training or rate == 0.0 or generator is None:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
 class Dropout(nn.Module):
     """Inverted dropout drawn from an explicit generator (torch's
     `nn.Dropout` draws from the global RNG). Identity in eval mode, at
@@ -57,12 +68,7 @@ class Dropout(nn.Module):
         self.rate = float(rate)
 
     def forward(self, x, generator: Optional[torch.Generator] = None):
-        if not self.training or self.rate == 0.0 or generator is None:
-            return x
-        keep = 1.0 - self.rate
-        mask = torch.rand(x.shape, generator=generator,
-                          device=x.device) < keep
-        return torch.where(mask, x / keep, torch.zeros_like(x))
+        return dropout(x, self.rate, generator, self.training)
 
     def extra_repr(self) -> str:
         return f"rate={self.rate}"

@@ -1,30 +1,27 @@
-"""Unified model registry (counterpart of snsde/registry.py:58-446), for
-the Neural SDE, Neural CDE and plain recurrent names.
+"""Unified model registry (counterpart of snsde/registry.py:58-446): every
+name of `MODEL_NAMES`.
 
 `SeqLayer` normalises a model to (out_stream [N, L, H], hidden_stream)
 from the stacked seq [N, 3, L, D] (values, mask, delta) and packed spline
-coefficients over (time ‖ values), with times linspace(0, 1, L). The port
-builds the 140 `neuralsde_{i}_{jj}` names (a DiffusionField of
-input_option i and noise_option jj in a NeuralSDEStream, srk unless told
-otherwise: the fused SRK kernels on the card), `neuralsde-x/y/z` (the
-scalar-noise SDE, euler through the eager solver, as the JAX package
-solves it), `neuralcde` (natural cubic control), `neuralcde-c` (cubic),
-`neuralcde-h` (Hermite), `neuralcde-l` (linear control over the filled
-values) and `neuralcde-r` (rectilinear control, stepped on the knot
-index), `gru-ode`, `latentsde` and `latentsde-kl` (a
-LatentSDE, euler unless told otherwise: the latent mode of the fused EM
-kernels on the card; its layer also returns the KL term), and the
-recurrent baselines `rnn`, `gru`, `lstm`, `bilstm` (SeqRNN over the
-values), `gru-simple` (SeqRNN over values ‖ mask ‖ delta) and `grud`
-(GRUDFull over (values, mask, delta)), and the ODE-RNN hybrids `gru-dt`,
-`gru-d`, `ode-rnn` (the observation GRUs over the coefficients) and
-`ode-lstm` (ODELSTM over the projected values and the first channel's
-delta), the time-aware LSTMs `tlstm`, `tglstm` (over the projected values
-and the first channel's delta) and `plstm` (over the projected values and
-the grid's times), and the convolution and attention baselines `cnn`,
-`cnn-3/5/7` and `transformer` (over the values); every other registry
-name raises NotImplementedError naming its ROADMAP item. The SDE names
-draw their Brownian paths from the generator the caller passes.
+coefficients over (time ‖ values), with times linspace(0, 1, L); the
+LatentSDE names and `leap` add an auxiliary loss as a third output. The
+families: the 140 `neuralsde_{i}_{jj}` (a DiffusionField in a
+NeuralSDEStream, srk unless told otherwise: the fused SRK kernels on the
+card), `neuralsde-x/y/z` (the scalar-noise SDE, euler through the eager
+solver, as the JAX package solves it), `latentsde`/`latentsde-kl` (the
+latent mode of the fused EM kernels); the Neural CDEs `neuralcde`,
+`neuralcde-c/-h` (cubic controls), `neuralcde-l/-r` (linear and
+rectilinear), `gru-ode`, `neuralrde-1/2/3` (over log-signature windows),
+`ancde`, `exit` and `leap`, and the flow families `neuralflowcde`,
+`neuralmixture` and `neuralcontrolledflow` (the fused CDE kernels on the
+card); `neuralflow_*` (no solver); the recurrent baselines `rnn`, `gru`,
+`lstm`, `bilstm`, `gru-simple`, `grud`, the ODE-RNN hybrids `gru-dt`,
+`gru-d`, `ode-rnn`, `ode-lstm`, the time-aware LSTMs `tlstm`, `plstm`,
+`tglstm` and `mtan` (its bidirectional GRU) on the GRU and LSTM kernels;
+and `cnn`, `cnn-3/5/7`, `transformer`, `sand` and `miam` (no kernel, as in
+JAX). The SDE names draw their Brownian paths, `sand`, `miam` and the
+stacked SeqRNNs their dropout masks, and `exit`, `leap` and `mtan` their
+probe or sample noise from the generator the caller passes.
 """
 
 from __future__ import annotations
@@ -36,7 +33,12 @@ import torch
 from torch import nn
 
 from .fields import DiffusionField
+from .models.ancde import ANCDE, EXIT, LEAP, NeuralRDE, probe
+from .models.attn import MIAMLayer, SAnDLayer
+from .models.flows import (NeuralControlledFlow, NeuralFlow, NeuralFlowCDE,
+                           NeuralMixture)
 from .models.latent_sde import LatentSDE
+from .models.mtan import MTANEncoder
 from .models.neuralcde import FinalTanh, GRUODEField, NeuralCDEStream
 from .models.neuralsde import NeuralSDEStream, resolve_dt
 from .models.rnn import GRUD, ODERNN, GRUdt, SeqCNN, SeqRNN, SeqTransformer
@@ -81,19 +83,35 @@ _OBS_GRU = ("gru-dt", "gru-d", "ode-rnn")
 _TIME_LSTM = {"tlstm": TLSTM, "plstm": PLSTM, "tglstm": TGLSTM}
 _CONV_ATTN = ("cnn", "cnn-3", "cnn-5", "cnn-7", "transformer")
 _LINEAR_CDE = ("neuralcde-l", "neuralcde-r")
-PORTED_NAMES = ("neuralcde", "neuralcde-c", "neuralcde-h", *_LINEAR_CDE,
-                "gru-ode",
-                *_SEQ_RNN, "grud", *_OBS_GRU, "ode-lstm", *_TIME_LSTM,
-                *_CONV_ATTN, *_SCALAR_SDE, *_LATENT,
-                *(n for n in MODEL_NAMES if n.startswith("neuralsde_")))
+_FLOWS = {"neuralflowcde": NeuralFlowCDE, "neuralmixture": NeuralMixture,
+          "neuralcontrolledflow": NeuralControlledFlow}
+PORTED_NAMES = tuple(MODEL_NAMES)
 
 
-def _roadmap_item(name: str) -> str:
-    """The ROADMAP Queue 1 item of a registry name the port does not build
-    yet."""
-    if name.startswith("neuralrde") or name in ("ancde", "exit", "leap"):
-        return "item 18 (log-signature and attention CDEs)"
-    return "item 21 (attention and flows)"
+class _MTANStream(nn.Module):
+    """mTAN_layer: the encoder on the grid linspace(0, 1, seq_len) (embed
+    time 16, learned embedding) -> (mu, logvar) -> the reparameterised
+    sample z = mu + eps exp(logvar / 2) -> (head(z), z). eps comes from the
+    caller's generator (one seeded 0 without), or through `eps=`."""
+
+    def __init__(self, input_dim: int, hidden_dim: int, seq_len: int, *,
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        kw = dict(generator=generator, device=device)
+        self.enc = MTANEncoder(input_dim, torch.linspace(0.0, 1.0, seq_len),
+                               latent_dim=hidden_dim, nhidden=hidden_dim,
+                               embed_time=16, learn_emb=True, **kw)
+        self.head = make_linear(hidden_dim, hidden_dim, **kw)
+
+    def forward(self, x, mask, seq_ts, *, generator=None, eps=None,
+                use_fused: bool = True):
+        out = self.enc(torch.cat([x, mask], dim=-1), seq_ts,
+                       use_fused=use_fused)             # [B, L, 2 latent]
+        mu, logvar = out.chunk(2, dim=-1)
+        if eps is None:
+            eps = probe(mu.shape, mu, generator)
+        z = mu + eps * torch.exp(0.5 * logvar)
+        return self.head(z), z
 
 
 class _ScalarNoiseSDE(nn.Module):
@@ -148,7 +166,8 @@ class _ScalarNoiseSDE(nn.Module):
 class SeqLayer(nn.Module):
     """The dispatcher. forward(seq [N, 3, L, D], coeffs) -> (out [N, L, H],
     hidden [N, L, H]), and for the LatentSDE names (out, latent [N, L,
-    H-1], its KL term logqp) as the JAX layer's (out, hn, aux). `in_proj`
+    H-1], its KL term logqp) and `leap` (out, hn, its divergence term) as
+    the JAX layer's (out, hn, aux). `in_proj`
     (the values -> hidden Linear of ode-lstm and the time-aware LSTMs) is
     the JAX layer's, None for the other names."""
 
@@ -160,12 +179,32 @@ class SeqLayer(nn.Module):
 
     def forward(self, seq, coeffs, *,
                 generator: Optional[torch.Generator] = None,
-                use_fused: bool = True):
-        """`generator` draws SeqRNN's inter-layer dropout in training and
-        the SDE names' Brownian paths (those refuse to run without it)."""
+                use_fused: bool = True, eps=None):
+        """`generator` draws SeqRNN's, SAnD's and MIAM's dropout in
+        training, the SDE names' Brownian paths (those refuse to run
+        without it), and the probe of `exit` and `leap` and the sample
+        noise of `mtan`; `eps` passes that probe or noise in instead."""
         name = self.model_name
         x, mask, delta = seq[:, 0], seq[:, 1], seq[:, 2]
         times = np.linspace(0.0, 1.0, seq.shape[2]).astype(np.float32)
+        noise = dict(generator=generator, eps=eps)
+        if name == "mtan":
+            return self.inner(x, mask, self._seq_ts(x, times), **noise,
+                              use_fused=use_fused)
+        if name == "sand":
+            return self.inner(x, generator=generator)
+        if name == "miam":
+            return self.inner(x, mask, delta, self._seq_ts(x, times),
+                              generator=generator)
+        if name in ("exit", "leap"):
+            return self.inner(times, coeffs, **noise, use_fused=use_fused)
+        if name == "ancde":
+            return self.inner(times, coeffs, use_fused=use_fused)
+        if name.startswith("neuralrde"):
+            return self._neuralrde(x, times, use_fused)
+        if name.split("_")[0] in ("neuralflow", *_FLOWS):
+            return self.inner(x, self._seq_ts(x, times), mask, coeffs,
+                              times, use_fused=use_fused)
         if name.startswith("neuralsde_"):
             return self.inner(times, coeffs, generator=generator,
                               use_fused=use_fused)
@@ -204,6 +243,23 @@ class SeqLayer(nn.Module):
             return self._linear_cde(x, times, use_fused)
         # the CDE names: a NeuralCDEStream over the cubic coefficients
         return self.inner(times, coeffs, use_fused=use_fused)
+
+    @staticmethod
+    def _seq_ts(x, times):
+        """The grid's times for every row: [N, L]."""
+        return torch.as_tensor(times, device=x.device).expand(x.shape[0], -1)
+
+    def _neuralrde(self, x, times, use_fused):
+        """`neuralrde-*` over (time ‖ x); the log-signature windows shrink
+        the time axis, so each output step is repeated ceil(L / steps)
+        times and the streams cut to L (snsde/registry.py:255-265)."""
+        L = x.shape[1]
+        tcol = self._seq_ts(x, times)[..., None]
+        out, hn = self.inner(torch.cat([tcol, x], dim=-1), times,
+                             use_fused=use_fused)
+        reps = -(-L // out.shape[1])
+        return (out.repeat_interleave(reps, dim=1)[:, :L],
+                hn.repeat_interleave(reps, dim=1)[:, :L])
 
     def _linear_cde(self, x, times, use_fused):
         """`neuralcde-l`/`-r` (snsde/registry.py:216-233): knot values
@@ -251,13 +307,19 @@ def make_seq_layer(model_name: str, input_dim: int, seq_len: int,
     says otherwise (:389-402), `neuralsde-x/y/z` the
     scalar-noise SDE and `latentsde`/`latentsde-kl` LatentSDE(coeff_dim, H,
     hh, num_hidden_layers), euler unless `method` says otherwise
-    (snsde/registry.py:402-410, 429-440)."""
+    (snsde/registry.py:402-410, 429-440); `mtan` the mTAN encoder stream
+    (hidden latent and width, embed time 16, a learned embedding), `sand`
+    SAnDLayer(num_layers blocks) and `miam` MIAMLayer (:340-345); `ancde`,
+    `exit`, `leap` ANCDE, EXIT and LEAP(coeff_dim, H, H, hh,
+    num_hidden_layers) and `neuralrde-k` NeuralRDE of depth k over windows
+    of 4, rk4 unless `method` says otherwise (:346-367); `neuralflow_{io}_
+    {fo}` NeuralFlow(coeff_dim, H, num_hidden_layers, H) and the three
+    other flow families their class around one FinalTanh(coeff_dim, H, hh,
+    num_hidden_layers), with input option io and flow option fo (:410-428;
+    the JAX registry builds neuralflowcde's FinalTanh twice from one key,
+    the port once)."""
     if model_name not in MODEL_NAMES:
         raise NotImplementedError(f"unknown model name {model_name!r}")
-    if model_name not in PORTED_NAMES:
-        raise NotImplementedError(
-            f"{model_name}: not ported yet (ROADMAP Queue 1 "
-            f"{_roadmap_item(model_name)})")
     hh = hidden_hidden_dim or hidden_dim
     coeff_dim = input_dim + 1
     kw = dict(generator=generator, device=device)
@@ -312,6 +374,35 @@ def make_seq_layer(model_name: str, input_dim: int, seq_len: int,
         # otherwise (diff_module/NSDE/nsde_model.py:67)
         inner = NeuralSDEStream(field, coeff_dim, hidden_dim, hidden_dim,
                                 method=method or "srk", **kw)
+    elif model_name == "mtan":
+        inner = _MTANStream(input_dim, hidden_dim, seq_len, **kw)
+    elif model_name == "sand":
+        inner = SAnDLayer(input_dim, seq_len, hidden_dim,
+                          n_layers=num_layers, **kw)
+    elif model_name == "miam":
+        inner = MIAMLayer(input_dim, hidden_dim, seq_len,
+                          n_layers=num_layers, **kw)
+    elif model_name in ("ancde", "exit", "leap"):
+        inner = {"ancde": ANCDE, "exit": EXIT, "leap": LEAP}[model_name](
+            coeff_dim, hidden_dim, hidden_dim, hidden_hidden=hh,
+            num_hidden_layers=num_hidden_layers, method=method or "rk4",
+            **kw)
+    elif model_name.startswith("neuralrde"):
+        inner = NeuralRDE(coeff_dim, hidden_dim, hidden_dim,
+                          depth=int(model_name[-1]), window=4,
+                          hidden_hidden=hh,
+                          num_hidden_layers=num_hidden_layers,
+                          method=method or "rk4", **kw)
+    elif model_name.startswith("neuralflow_"):
+        _, io, fo = model_name.split("_")
+        inner = NeuralFlow(coeff_dim, hidden_dim, num_hidden_layers,
+                           hidden_dim, input_option=io, flow_option=fo, **kw)
+    elif model_name.split("_")[0] in _FLOWS:
+        fam, io, fo = model_name.split("_")
+        field = FinalTanh(coeff_dim, hidden_dim, hh, num_hidden_layers, **kw)
+        inner = _FLOWS[fam](field, coeff_dim, hidden_dim, num_hidden_layers,
+                            hidden_dim, input_option=io, flow_option=fo,
+                            **kw)
     elif model_name == "gru-ode":
         field = GRUODEField(coeff_dim, hidden_dim, **kw)
         inner = NeuralCDEStream(field, coeff_dim, hidden_dim, hidden_dim,

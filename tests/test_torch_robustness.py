@@ -96,13 +96,10 @@ def test_preprocess_ists_matches_jax(rate, family):
 
 def test_coeff_family_and_registry_names_match_jax():
     assert MODEL_NAMES == JAX_MODEL_NAMES
+    assert set(PORTED_NAMES) == set(MODEL_NAMES) and len(MODEL_NAMES) == 226
     for name in MODEL_NAMES:
         assert trob.coeff_family(name) == jrob.coeff_family(name), name
-    for name in MODEL_NAMES:
-        if name in PORTED_NAMES:
-            continue
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_seq_layer(name, D, L, HID)
+        assert make_seq_layer(name, D, L, HID).model_name == name
     with pytest.raises(NotImplementedError, match="unknown model name"):
         make_seq_layer("neuralcde-x", D, L, HID)
 
@@ -260,9 +257,17 @@ def _tiny_data(n):
 def test_run_robustness_sweep_writes_records_and_resumes(tmp_path,
                                                          monkeypatch):
     """A tiny sweep on the CPU: the Neural CDE trains and gets an accuracy,
-    an unported name becomes an error record (the reference sweep's
-    blanket skip), each record is a JSON file, and a second call reads
-    them back without training."""
+    a model whose construction raises (here `sand`, made to raise) becomes
+    an error record (the reference sweep's blanket skip), each record is a
+    JSON file, and a second call reads them back without training."""
+    real = trob.ISTSClassifier
+
+    def construct(model_name, *a, **k):
+        if model_name == "sand":
+            raise NotImplementedError("sand: construction refused")
+        return real(model_name, *a, **k)
+
+    monkeypatch.setattr(trob, "ISTSClassifier", construct)
     cfg = trob.SweepConfig(models=("neuralcde", "sand"),
                            missing_rates=(0.3,),
                            seeds=(0,), hidden_dim=6, batch_size=16,
