@@ -24,7 +24,11 @@ kernels on a LinearPath's stream) and `run_mujoco` with milstein and
 heun (the eager sdeint), phase 11; since the rest of the model zoo the
 sweep's `ancde`, `exit`, `leap`, `neuralrde-1/2/3` and the flow-CDE
 families (the CDE kernels), `mtan` (the GRU kernels in both directions),
-`sand`, `miam` and `neuralflow_*` (no kernel), phase 12.
+`sand`, `miam` and `neuralflow_*` (no kernel), phase 12; since the
+interpolation and activity harnesses `run_interpolation` (the SDE-encoder
+VAE: the EM kernels on a dense stream at H=128, the decoders' BiGRU on the
+GRU kernels) and `run_activity` (the mTAN encoder's BiGRU on the GRU
+kernels), phase 13.
 Phases, each of which raises on failure:
   1. card: name, and name and power limit from nvidia-smi;
   2. build: nvcc builds every kernel of the four paths from
@@ -251,13 +255,40 @@ Phases, each of which raises on failure:
      at mTAN's shape (mtan_gru_times), both in the kernels line's CDE and
      GRU entries, and one training step of ancde, leap, neuralrde-3, mtan,
      sand, miam and neuralflowcde_z_c through the kernels and with
-     use_fused=False, with its profiler window.
+     use_fused=False, with its profiler window;
+ 13. the interpolation and activity harnesses, in phases 3-5's places: the
+     EM pair against its plain versions at the interpolation encoder's
+     shape (INTERP: B=64, 69 steps on the encoder's grid, C=37, H=HH=128,
+     one hidden layer, a dense cotangent) for neuralsde_2_16, _4_17 and
+     _6_17, each plan printed (compare_interp_em); the GRU pair at the VAE
+     decoders' BiGRU (B=320, L=64, input 32, H=64) and the activity
+     encoder's (B=128, L=50, H=32) against its plain versions and, through
+     fused_gru_scan in both directions, against the eager loop, every
+     cotangent the input's included (compare_interp_gru); scatter_to_ref
+     on the card bit for bit its CPU result on records with a repeated
+     bucket (check_interp_scatter); run_interpolation at the flagship
+     width on n=8000 synthetic PhysioNet-shaped records (L=62, D=36;
+     latent 32, gen_hidden 64, k_iwae 5, batch 64) for 2 iterations with
+     neuralsde_2_16 and rnn3 and 1 each with _4_17, _6_17 and with
+     mtan_rnn (interp_path: finite ELBOs and test_mse, the EM kernels once
+     a batch and never the eager sdeint, the GRU kernels in both
+     directions, the trained encoder's stream through the kernels against
+     use_fused=False on 16 rows, a resume at n=256 against the straight
+     run to 1e-4); run_activity at its published settings for 2 epochs
+     (activity_path: finite losses, the GRU kernels in both directions,
+     155623 parameters); the EM pair's times and bounds at the encoder's
+     shape and the GRU pair's at both BiGRU shapes in each direction, in
+     the kernels line's EM and GRU entries (interp_em_times,
+     interp_gru_times), and one training step of interpolation (rnn3,
+     mtan_rnn) and activity through the kernels and with use_fused=False,
+     with its profiler window.
 It prints one JSON line of the kernels (each SDE kernel with the `modes`
 it takes; the packed launches, the hybrids' and the time-aware LSTMs'
 instances, TLSTM's W_d gradient and the CDE pair's gruode instances and
 packed launches as their own entries, the recurrent
 modes with their H=256 times, the CDE pair's with its linear streams'
-and phase 12's streams' times and launches, the GRU pair's with mTAN's),
+and phase 12's streams' times and launches, the GRU pair's with mTAN's
+and phase 13's BiGRUs', the EM pair's with the interpolation encoder's),
 the card's name and
 power limit, and last `{"ok": true, "device": {...}}`. It exits non-zero,
 printing no result, without a CUDA device or outside the repository.
@@ -271,6 +302,8 @@ printing no result, without a CUDA device or outside the repository.
     python3 chip_smoke.py --sweep-cd OUT [EPOCHS [SEEDS [PACK]]]
     python3 chip_smoke.py --sepsis-r5 [OUT]
     python3 chip_smoke.py --speech-r5 [OUT]
+    python3 chip_smoke.py --interp-flagship [OUT]
+    python3 chip_smoke.py --activity-r5 [OUT]
 
 run none of the phases: they time the SDE paths' training steps
 and the CDE classifier's (`ab_steps`), the LSTM or GRU kernels at the
@@ -287,7 +320,13 @@ with SWEEP_CD.json's keys); or train the sepsis flagship's five repeats
 for 40 epochs as one ensemble (`sepsis_r5`, RESULTS_sepsis_r5.json's
 layout, to OUT, by default RESULTS_torch_sepsis_r5.json), or the speech
 flagship's (`speech_r5`: n=8192, RESULTS_speech_r5.json's layout, by
-default RESULTS_torch_speech_r5.json).
+default RESULTS_torch_speech_r5.json); or train the interpolation flagship
+at rec_hidden 128 for 300 iterations (`interp_flagship`: its test_mse
+beside RESULTS_interpolation_h128.json's and held to the interpolation
+pin's ceiling, by default to RESULTS_torch_interpolation_h128.json), or
+the activity flagship's five seeds for 200 epochs with warmup_epochs 5
+(`activity_r5`: beside RESULTS_activity_k5.json, each seed held to the
+activity pin's floor, by default to RESULTS_torch_activity_k5.json).
 """
 
 from __future__ import annotations
@@ -2388,9 +2427,14 @@ def kernel_times(shape, srk=False):
     of the MLP products (one MLP evaluation per EM step, two per SRK step;
     the backward recomputes them and runs each evaluation's two products
     back: 3x)."""
-    fwd_k, fwd_p, bwd_k, bwd_p = kernel_fns("srk" if srk else "em")
     inp, gys = kernel_inputs(shape["model"], shape["B"], shape["L"],
                              shape["C"], shape["H"], shape["layers"], srk=srk)
+    return sde_pair_times(inp, gys, srk)
+
+
+def sde_pair_times(inp, gys, srk=False):
+    """kernel_times on given inputs of the EM or SRK pair."""
+    fwd_k, fwd_p, bwd_k, bwd_p = kernel_fns("srk" if srk else "em")
     fwd, flags = _split(inp, srk)
     ys, _ = fwd_k(*fwd, **flags)
     bwd_args = [fwd[0], ys, gys] + fwd[1:]
@@ -5176,8 +5220,12 @@ def mtan_gru_times():
     (the reverse cell's projected stream flipped, as fused_gru_scan
     launches it), from h0 = 0, and the bounds of rnn_kernel_times.
     {direction: ms}, {direction: bounds}."""
+    return bigru_times(*mtan_bigru_inputs(), "mTAN's shape")
+
+
+def bigru_times(cell_f, cell_b, xs, where):
+    """mtan_gru_times on a BiGRU's two cells and its input xs [L, B, C]."""
     fwd, bwd, fwd_p, bwd_p = rnn_fns("gru")
-    cell_f, cell_b, xs = mtan_bigru_inputs()
     L, B, H = xs.shape[0], xs.shape[1], cell_f.hidden_size
     ghs = torch.randn(L, B, H, device=DEV,
                       generator=torch.Generator(device=DEV).manual_seed(2))
@@ -5205,7 +5253,7 @@ def mtan_gru_times():
             g.numel() for g in grads)
         bounds[label] = {"fwd": bound(4 * (n_in + L * B * H), prod),
                          "bwd": bound(4 * n_bwd, 3 * prod)}
-        print(f"GRU pair at mTAN's shape ({label}) B={B} L={L} H={H}: "
+        print(f"GRU pair at {where} ({label}) B={B} L={L} H={H}: "
               + ", ".join(f"{k} {v:.4f} ms" for k, v in ms[label].items())
               + f"; bounds {bounds[label]['fwd'][0]:.5f} / "
                 f"{bounds[label]['bwd'][0]:.5f} ms", flush=True)
@@ -5224,24 +5272,31 @@ def zoo_cde_times():
 
 
 class ZooWatch:
-    """While active: the eager cdeint's calls, the fused GRU scan's
-    directions, and the registry layer's calls."""
+    """While active: the eager cdeint's calls (`eager`) and, through
+    models.neuralsde, the eager sdeint's (`eager_sde`), the fused GRU
+    scan's calls and directions, and the registry layer's calls."""
 
     def __enter__(self):
         from snsde_torch import registry
-        from snsde_torch.models import neuralcde, rnn
+        from snsde_torch.models import neuralcde, neuralsde, rnn
 
-        self.eager, self.directions, self.calls = 0, set(), 0
-        self.mods = ((neuralcde, "cdeint"), (rnn, "fused_gru_scan"),
-                     (registry.SeqLayer, "forward"))
+        self.eager = self.eager_sde = self.scans = self.calls = 0
+        self.directions = set()
+        self.mods = ((neuralcde, "cdeint"), (neuralsde, "sdeint"),
+                     (rnn, "fused_gru_scan"), (registry.SeqLayer, "forward"))
         self.real = [getattr(m, a) for m, a in self.mods]
-        cdeint, scan, fwd = self.real
+        cdeint, sdeint, scan, fwd = self.real
 
         def counted_cdeint(*a, **k):
             self.eager += 1
             return cdeint(*a, **k)
 
+        def counted_sdeint(*a, **k):
+            self.eager_sde += 1
+            return sdeint(*a, **k)
+
         def counted_scan(*a, reverse=False, **k):
+            self.scans += 1
             self.directions.add(reverse)
             return scan(*a, reverse=reverse, **k)
 
@@ -5249,8 +5304,8 @@ class ZooWatch:
             self.calls += 1
             return fwd(layer, *a, **k)
 
-        for (m, a), f in zip(self.mods, (counted_cdeint, counted_scan,
-                                         counted_forward)):
+        for (m, a), f in zip(self.mods, (counted_cdeint, counted_sdeint,
+                                         counted_scan, counted_forward)):
             setattr(m, a, f)
         return self
 
@@ -5378,6 +5433,536 @@ def mtan_entry(part, launches, ms, bounds):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the interpolation and activity harnesses: the SDE-encoder VAE
+# (the EM pair on a dense stream at H=HH=128, DecRNN3's and MTANDecoder's
+# BiGRU on the GRU pair) and the activity classifier (MTANEncoder's BiGRU
+# on the GRU pair)
+# ---------------------------------------------------------------------------
+
+# the interpolation flagship (tools/run_interpolation_flagship.py
+# --rec-hidden 128, RESULTS_interpolation_h128.json): n=8000 synthetic
+# PhysioNet-shaped records (L=62, D=36), the encoder neuralsde_2_16 at
+# rec_hidden 128 with one hidden layer (C = D + 1 = 37), rnn3, latent 32,
+# gen_hidden 64, k_iwae 5, batch 64, 64 reference points: 69 EM steps
+# (float32 rounding of linspace(0, 1, 64) splits six of its 63 gaps in
+# two, in the JAX package too), a decoder BiGRU over k_iwae x 64 = 320 rows
+INTERP = dict(n=8000, L=62, D=36, B=64, H=128, latent=32, gen=64, k=5,
+              ref=64)
+INTERP_ENCODERS = ("neuralsde_2_16", "neuralsde_4_17", "neuralsde_6_17")
+# phase 13's runs: (encoder, decoder, iterations)
+INTERP_RUNS = (("neuralsde_2_16", "rnn3", 2), ("neuralsde_4_17", "rnn3", 1),
+               ("neuralsde_6_17", "rnn3", 1),
+               ("neuralsde_2_16", "mtan_rnn", 1))
+INTERP_RESUME_N = 256
+INTERP_FLAGSHIP_ITERS = 300
+# the activity flagship (tools/run_activity.py): n=1024, batch 128, the
+# mTAN encoder at latent 32, rec_hidden 32, embed_time 128, L=50; its
+# trainable count (RESULTS_activity.json)
+ACTIVITY = dict(n=1024, epochs=2)
+ACTIVITY_PARAMS = 155623
+ACTIVITY_R5 = dict(seeds=(0, 1, 2, 3, 4), epochs=200, warmup=5)
+# the GRU pair's BiGRU shapes (B, L, C, H): the VAE decoders' over the
+# k_iwae x batch latent rows, and the activity encoder's
+INTERP_GRU = {"interp": (320, 64, 32, 64), "activity": (128, 50, 32, 32)}
+
+
+def interp_config(enc="neuralsde_2_16", dec="rnn3", niters=2,
+                  verbose=False, **kw):
+    from snsde_torch.harness.interpolation import InterpolationConfig
+
+    return InterpolationConfig(
+        enc=enc, dec=dec, latent_dim=INTERP["latent"],
+        rec_hidden=INTERP["H"], rec_num_hidden=1, gen_hidden=INTERP["gen"],
+        num_ref_points=INTERP["ref"], k_iwae=INTERP["k"], std=0.01,
+        niters=niters, lr=1e-3, batch_size=INTERP["B"], sample_tp=0.5,
+        verbose=verbose, **kw)
+
+
+def interp_data(n, seed):
+    """The flagship's synthetic records (tools/run_interpolation_flagship.py
+    without the archives)."""
+    from snsde_torch.harness.interpolation import synthetic_physionet
+
+    return synthetic_physionet(n=n, length=INTERP["L"], dim=INTERP["D"],
+                               observe_rate=0.35, seed=seed)
+
+
+def interp_control(rows, seed=0):
+    """The encoder's control on `rows` records on the card, their keep mask
+    from numpy: (times_ref, coeffs)."""
+    from snsde_torch.harness.interpolation import encoder_control
+
+    x, m, tp = (torch.as_tensor(a, device=DEV)
+                for a in interp_data(rows, seed))
+    keep = torch.as_tensor(
+        np.random.default_rng(seed).random(tuple(m.shape)) < 0.5, device=DEV)
+    return encoder_control(x, m, tp, INTERP["ref"], 0.5, keep=keep)
+
+
+def interp_grid(times):
+    from snsde_torch.models.neuralsde import resolve_dt
+    from snsde_torch.ops import make_grid
+
+    return make_grid(times, resolve_dt(times))[0]
+
+
+def interp_em_inputs(model_name, seed=0):
+    """The EM pair's detached inputs at the encoder's shape: a random field
+    (C=37, H=HH=128, one hidden layer) on the control of 64 flagship
+    records, on the encoder's 69-step grid, dW and y0 from numpy; and a
+    dense cotangent gys [M, B, H] (every step feeds the head)."""
+    from snsde_torch.fields import DiffusionField
+    from snsde_torch.harness.classification import parse_model_name
+    from snsde_torch.kernels.fused_em import fused_em_inputs
+    from snsde_torch.ops import CubicPath
+
+    B, C, H = INTERP["B"], INTERP["D"] + 1, INTERP["H"]
+    times, coeffs = interp_control(B, seed)
+    io, no = parse_model_name(model_name)
+    field = DiffusionField(C, H, H, 1, input_option=io, noise_option=no,
+                           generator=torch.Generator().manual_seed(seed))
+    field = field.to(DEV)
+    path = CubicPath(coeffs, times)
+    grid = interp_grid(times)
+    M = len(grid) - 1
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.as_tensor(a.astype(np.float32), device=DEV)
+    dW = t(rng.normal(size=(M, B, H)) * np.sqrt(np.diff(grid))[:, None, None])
+    y0 = t(rng.normal(size=(B, H)))
+    with torch.no_grad():
+        inp = fused_em_inputs(field.bind(path), path, grid, y0, dW)
+    inp = {k: (v.detach().contiguous() if torch.is_tensor(v) else v)
+           for k, v in inp.items()}
+    return inp, t(rng.normal(size=(M, B, H)) / B)
+
+
+def compare_interp_em():
+    """The EM pair against its plain versions at the encoder's shape for
+    each flagship encoder (check_pair_rows), its plans printed. Returns
+    the largest forward and backward errors."""
+    err = (0.0, 0.0)
+    for name in INTERP_ENCODERS:
+        inp, gys = interp_em_inputs(name)
+        fwd, flags = _split(inp)
+        sde_plans("em", [(INTERP["B"], INTERP["H"], 0)], flags["drift"],
+                  flags["noise"])
+        e = check_pair_rows(f"EM interpolation encoder {name} "
+                            f"({flags['drift']}, {flags['noise']}"
+                            f"{', mult_y' if flags['mult_y'] else ''}) "
+                            f"B={INTERP['B']} M={gys.shape[0]} "
+                            f"C={INTERP['D'] + 1} H=HH={INTERP['H']}", "em",
+                            fwd, flags, gys)
+        err = tuple(max(a, b) for a, b in zip(err, e))
+    return err
+
+
+def compare_interp_gru():
+    """The GRU pair at the VAE decoders' and the activity encoder's BiGRU
+    shapes: the kernels against their plain versions (compare_rnn: hs and
+    every cotangent, the input projection's included), and fused_gru_scan
+    in both directions against the eager loop (compare_gru_scan: the
+    input's cotangent dxs too), the plans printed. Returns the largest
+    forward and backward errors."""
+    err = (0.0, 0.0)
+    for B, L, C, H in INTERP_GRU.values():
+        _plans("gru", [(B, H)])
+        e = compare_rnn("gru", B, L, C, H)
+        err = tuple(max(a, b) for a, b in zip(err, e))
+        for reverse in (False, True):
+            compare_gru_scan(B, L, C, H, reverse, False)
+    return err
+
+
+def check_interp_scatter():
+    """scatter_to_ref on the card bit for bit its CPU result on 64 flagship
+    records (bucket 0 holds two sources in every record)."""
+    from snsde_torch.harness.interpolation import scatter_to_ref
+
+    x, m, tp = interp_data(INTERP["B"], 2)
+    keep = np.random.default_rng(2).random(m.shape) < 0.5
+    idx = np.clip(np.round(tp[0] * INTERP["ref"]).astype(int) - 1, 0,
+                  INTERP["ref"] - 1)
+    out = [scatter_to_ref(*(torch.as_tensor(a, device=d)
+                            for a in (x, m, tp)), INTERP["ref"], 0.5,
+                          keep=torch.as_tensor(keep, device=d))
+           for d in ("cpu", DEV)]
+    same = all(torch.equal(a, b.cpu()) for a, b in zip(*out))
+    print(f"  scatter_to_ref on the card vs the CPU, B={INTERP['B']} "
+          f"L={INTERP['L']} D={INTERP['D']}, "
+          f"{len(idx) - len(set(idx.tolist()))} repeated "
+          f"bucket(s) a record: {'bit for bit' if same else 'DIFFERENT'}")
+    if not same:
+        raise AssertionError("scatter_to_ref differs between card and CPU")
+
+
+def check_harness_launches(label, launches, watch, sde_fwd, sde_bwd,
+                           gru_bwd):
+    """The kernels of a harness run: sde_fwd EM forward and sde_bwd EM
+    backward and weight-gradient launches, no eager sdeint; one GRU forward
+    launch a fused scan, both directions, gru_bwd backward and
+    weight-gradient launches; no other kernel."""
+    want = {"em_fwd": sde_fwd, "em_bwd": sde_bwd, "em_wgrad": sde_bwd,
+            "gru_fwd": watch.scans, "gru_bwd": gru_bwd,
+            "gru_wgrad": gru_bwd}
+    got = {k: v for k, v in launches.items() if v}
+    if got != {k: v for k, v in want.items() if v} or watch.eager_sde \
+            or watch.directions != {False, True}:
+        raise AssertionError(f"{label}: launches {got}, wanted {want}; "
+                             f"{watch.eager_sde} eager sdeint calls, GRU "
+                             f"directions {watch.directions}")
+
+
+def check_trained_interp_encoder(model, rows=16):
+    """The trained encoder's stream through the EM kernels against the
+    eager sdeint (use_fused=False's solve) on the control of `rows` records
+    and injected increments: within the larger of TOL_YS and YS_F64_FACTOR
+    times the float32 eager solve's own error from float64 (a trained
+    field, as check_trained_solve's `amplifies`)."""
+    import copy
+
+    from snsde_torch.kernels.fused_em import fused_em_solve
+    from snsde_torch.ops import BrownianGrid, CubicPath, sdeint
+
+    times, coeffs = interp_control(rows, seed=1)
+    grid = interp_grid(times)
+    rng = np.random.default_rng(1)
+    dW = torch.as_tensor((rng.normal(size=(len(grid) - 1, rows, INTERP["H"]))
+                          * np.sqrt(np.diff(grid))[:, None, None]
+                          ).astype(np.float32), device=DEV)
+    runs = {}
+    with torch.no_grad():
+        for label, sde, c, dw in (
+                ("fused", model.rec.sde, coeffs, dW),
+                ("eager", model.rec.sde, coeffs, dW),
+                ("f64", copy.deepcopy(model.rec.sde).double(),
+                 coeffs.double(), dW.double())):
+            path = CubicPath(c, times)
+            field = sde.func.bind(path)
+            y0 = sde.initial_network(path.evaluate(path.times[0]))
+            runs[label] = (fused_em_solve(field, path, times, y0,
+                                          dW_override=dw)
+                           if label == "fused" else
+                           sdeint(field.f, field.g, y0, times,
+                                  bm=BrownianGrid(grid, dw)))
+    scale = float(runs["f64"].abs().max())
+    e32 = float((runs["eager"].double() - runs["f64"]).abs().max()) / scale
+    ek = float((runs["fused"].double() - runs["f64"]).abs().max()) / scale
+    rel = float((runs["fused"] - runs["eager"]).abs().max()) / max(
+        float(runs["eager"].abs().max()), 1e-30)
+    tol = max(TOL_YS, YS_F64_FACTOR * e32)
+    print(f"trained interpolation encoder: stream through the kernels vs "
+          f"use_fused=False, {rows} rows, {len(grid) - 1} steps: rel "
+          f"{rel:.3e} (tol {tol:.3e}; from float64: eager {e32:.3e}, "
+          f"fused {ek:.3e})")
+    if not (torch.isfinite(runs["fused"]).all() and rel <= tol):
+        raise AssertionError("the trained encoder's fused stream disagrees")
+
+
+def interp_path(out_dir):
+    """run_interpolation at the flagship width (INTERP_RUNS: every count
+    set to 0 just before each run and read just after): finite ELBOs and
+    test_mse, the EM kernels once a batch (forward in training and
+    evaluation, backward and weight gradient in training), never the eager
+    sdeint, and the GRU kernels in both directions (two forward launches a
+    decoder call, two backward a step); the trained (2,16) encoder against
+    use_fused=False; then a resume at n=INTERP_RESUME_N, 22 iterations
+    straight against 20 and a resume, to 1e-4. Returns each run's
+    launches."""
+    import os
+
+    from snsde_torch.harness.interpolation import run_interpolation
+
+    t_phase = time.perf_counter()
+    n_tr = int(0.8 * INTERP["n"])
+    nb_tr = -(-n_tr // INTERP["B"])
+    nb_te = -(-(INTERP["n"] - n_tr) // INTERP["B"])
+    out = {}
+    for enc, dec, iters in INTERP_RUNS:
+        with ZooWatch() as watch:
+            zero_counts()
+            t0 = time.perf_counter()
+            res = run_interpolation(interp_config(enc, dec, iters),
+                                    n=INTERP["n"], data_fn=interp_data,
+                                    device=DEV)
+            torch.cuda.synchronize()
+            launches = out[(enc, dec)] = read_counts()
+        elbos = [h["elbo"] for h in res["history"]]
+        print(f"main path 13 ({enc}, {dec}): run_interpolation {iters} "
+              f"iteration(s) at n={INTERP['n']} in "
+              f"{time.perf_counter() - t0:.1f} s, ELBO {elbos}, test_mse "
+              f"{res['test_mse']:.6f}, launches "
+              f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+        if not (np.isfinite(elbos).all() and np.isfinite(res["test_mse"])):
+            raise AssertionError(f"{enc}/{dec}: non-finite ELBO or MSE")
+        check_harness_launches(f"{enc}/{dec}", launches, watch,
+                               iters * nb_tr + nb_te, iters * nb_tr,
+                               2 * iters * nb_tr)
+        if watch.scans != 2 * (iters * nb_tr + nb_te):
+            raise AssertionError(f"{enc}/{dec}: {watch.scans} GRU scans")
+        if (enc, dec) == INTERP_RUNS[0][:2]:
+            check_trained_interp_encoder(res["model"])
+    runs = {}
+    for label, iters, resume in (("straight", 22, False), ("first", 20, False),
+                                 ("resumed", 22, True)):
+        runs[label] = run_interpolation(
+            interp_config(niters=iters, resume=resume,
+                          save_dir=(os.path.join(out_dir, "interp_ckpt")
+                                    if label != "straight" else None)),
+            n=INTERP_RESUME_N, data_fn=interp_data, device=DEV)
+    tail = [h["elbo"] for h in runs["straight"]["history"][-2:]]
+    got = [h["elbo"] for h in runs["resumed"]["history"]]
+    print(f"resume at n={INTERP_RESUME_N}: straight ELBO {tail}, test_mse "
+          f"{runs['straight']['test_mse']:.6f}; resumed {got}, "
+          f"{runs['resumed']['test_mse']:.6f}")
+    if not (len(got) == 2 and np.allclose(got, tail, rtol=1e-4, atol=0)
+            and np.isclose(runs["resumed"]["test_mse"],
+                           runs["straight"]["test_mse"], rtol=1e-4, atol=0)):
+        raise AssertionError("the resumed run does not reproduce the "
+                             "straight one")
+    print(f"main path 13: the interpolation runs in "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return out
+
+
+def activity_path():
+    """run_activity at its published settings for ACTIVITY["epochs"]
+    epochs, the counts set to 0 just before: finite losses, the GRU
+    kernels in both directions (a forward launch a fused scan, two
+    backward a step), no other kernel, and the trainable count of
+    RESULTS_activity.json. Returns its launches."""
+    from snsde_torch.harness.activity import (ActivityConfig,
+                                              activity_splits, run_activity)
+
+    cfg = ActivityConfig(max_epochs=ACTIVITY["epochs"], verbose=False)
+    with ZooWatch() as watch:
+        zero_counts()
+        t0 = time.perf_counter()
+        res = run_activity(cfg, n=ACTIVITY["n"], device=DEV)
+        torch.cuda.synchronize()
+        launches = read_counts()
+    losses = [h[k] for h in res.history for k in ("train_loss", "val_loss")]
+    losses.append(res.test_loss)
+    print(f"main path 13 (activity): run_activity {cfg.max_epochs} epochs at "
+          f"n={ACTIVITY['n']} in {time.perf_counter() - t0:.1f} s, losses "
+          f"{[round(v, 4) for v in losses]}, val / test accuracy "
+          f"{res.val_accuracy:.4f} / {res.test_accuracy:.4f}, "
+          f"{res.parameters} parameters, launches "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    if not np.isfinite(losses).all():
+        raise AssertionError("non-finite loss on the activity path")
+    if res.parameters != ACTIVITY_PARAMS:
+        raise AssertionError(f"activity: {res.parameters} parameters")
+    steps = cfg.max_epochs * -(-len(activity_splits(ACTIVITY["n"], 0)[0])
+                               // cfg.batch_size)
+    check_harness_launches("activity", launches, watch, 0, 0, 2 * steps)
+    return launches
+
+
+def interp_em_times():
+    """The EM pair's times, plain versions and bounds (sde_pair_times) at
+    the encoder's shape, neuralsde_2_16."""
+    inp, gys = interp_em_inputs(INTERP_ENCODERS[0])
+    return sde_pair_times(inp, gys)
+
+
+def interp_gru_times():
+    """The GRU pair's times in each direction at the VAE decoder's BiGRU
+    (a fresh DecRNN3's cells on N(0, 1) latent rows) and the activity
+    encoder's (a fresh MTANEncoder's cells on N(0, 1) attention outputs):
+    {shape: ({direction: ms}, {direction: bounds})}."""
+    from snsde_torch.nn.layers import GRUCell
+
+    out = {}
+    for label, (B, L, C, H) in INTERP_GRU.items():
+        gen = torch.Generator().manual_seed(0)
+        cells = [GRUCell(C, H, generator=gen).to(DEV) for _ in range(2)]
+        xs = torch.randn(L, B, C, device=DEV,
+                         generator=torch.Generator(device=DEV).manual_seed(0))
+        out[label] = bigru_times(*cells, xs, f"the {label} BiGRU")
+    return out
+
+
+def interp_step_fns(dec):
+    """One training step (elbo_loss at KL weight 1, Adam) of the flagship
+    VAE with decoder `dec` on one batch of 64 records: {label: step()}
+    through the kernels and with use_fused=False (the eager sdeint and
+    GRU loops)."""
+    from snsde_torch.harness.interpolation import (build_interpolation_model,
+                                                   elbo_loss)
+
+    cfg = interp_config(dec=dec)
+    batch = {k: torch.as_tensor(a, device=DEV) for k, a in
+             zip(("x", "m", "tp"), interp_data(INTERP["B"], 3))}
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    out = {}
+    for label, fused in (("train_step", True), ("train_step_eager", False)):
+        model = build_interpolation_model(cfg, INTERP["D"], DEV)
+        opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+
+        def step(model=model, opt=opt, fused=fused):
+            opt.zero_grad(set_to_none=True)
+            loss, _ = elbo_loss(model, batch, cfg, 1.0, generator=gen,
+                                use_fused=fused)
+            loss.backward()
+            opt.step()
+        out[label] = step
+    return out
+
+
+def activity_step_fns():
+    """One training step (loss_fn, Adam) of the activity classifier at its
+    published settings on one batch of 128: {label: step()} through the
+    kernels and with use_fused=False."""
+    from snsde_torch.data.person_activity import synthetic_person_activity
+    from snsde_torch.harness.activity import _ActivityModel, loss_fn
+
+    vals, mask, tp, labels = synthetic_person_activity(n=128)
+    batch = {"x": torch.as_tensor(np.concatenate([vals, mask], -1),
+                                  device=DEV),
+             "tp": torch.as_tensor(tp, device=DEV),
+             "y": torch.as_tensor(labels, device=DEV),
+             "_mask": torch.ones(128, device=DEV)}
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    query = np.linspace(0.0, 1.0, tp.shape[1], dtype=np.float32)
+    out = {}
+    for label, fused in (("train_step", True), ("train_step_eager", False)):
+        model = _ActivityModel(vals.shape[-1], query, 32, 32, 128, 1, 7, True,
+                               generator=torch.Generator().manual_seed(0))
+        model = model.to(DEV)
+        opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+
+        def step(model=model, opt=opt, fused=fused):
+            opt.zero_grad(set_to_none=True)
+            loss, _ = loss_fn(model, batch, 5, generator=gen,
+                              use_fused=fused)
+            loss.backward()
+            opt.step()
+        out[label] = step
+    return out
+
+
+def interp_entry(part, launches, ms, bounds):
+    """The EM pair's entry's fields of phase 13: the EM launches of the
+    interpolation runs, and the pair's time, plain time and bound at the
+    encoder's shape."""
+    return {"launches_interp": sum(v[f"em_{part}"]
+                                   for v in launches.values()),
+            "ms_interp": ms[part], "plain_ms_interp": ms[f"{part}_plain"],
+            "bound_ms_interp": bounds[part][0]}
+
+
+def interp_gru_entry(part, launches, times):
+    """The GRU pair's entry's fields of phase 13: the GRU launches of the
+    interpolation runs and of the activity run, and the pair's times,
+    plain times and bounds in each direction at both BiGRU shapes."""
+    out = {"launches_interp": sum(v[f"gru_{part}"]
+                                  for v in launches["interp"].values()),
+           "launches_activity": launches["activity"][f"gru_{part}"]}
+    for shape, (ms, bounds) in times.items():
+        for label in ("forward", "reverse"):
+            out.update({f"ms_{label}_{shape}": ms[label][part],
+                        f"plain_ms_{label}_{shape}":
+                            ms[label][f"{part}_plain"],
+                        f"bound_ms_{label}_{shape}": bounds[label][part][0]})
+    return out
+
+
+def interp_flagship(out: str = "RESULTS_torch_interpolation_h128.json") -> int:
+    """The interpolation flagship at rec_hidden 128 for 300 iterations
+    (INTERP, neuralsde_2_16, rnn3, seed 0), its test_mse beside the JAX
+    package's in RESULTS_interpolation_h128.json and held to the
+    interpolation pin's ceiling (read from test_mse itself: the pin's
+    min-mode check sees no MSE in the history, a known fault), written
+    to `out`:
+
+        python3 chip_smoke.py --interp-flagship [OUT]"""
+    import os
+
+    from snsde_torch.harness.interpolation import run_interpolation
+    from snsde_torch.train.pins import FLAGSHIP_PINS
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    smi = card()
+    jax_mse = None
+    if os.path.exists("RESULTS_interpolation_h128.json"):
+        with open("RESULTS_interpolation_h128.json") as f:
+            jax_mse = next((r["test_mse"] for r in json.load(f)
+                            if r["enc"] == INTERP_ENCODERS[0]), None)
+    cfg = interp_config(niters=INTERP_FLAGSHIP_ITERS, verbose=True)
+    t0 = time.time()
+    res = run_interpolation(cfg, n=INTERP["n"], data_fn=interp_data,
+                            device=DEV)
+    ceiling = FLAGSHIP_PINS["interpolation"].ceiling
+    last = res["history"][-1]
+    rec = {"enc": cfg.enc, "dec": cfg.dec,
+           "data": "synthetic-benchmark-shaped (L=62 q=0.016 grid, D=36)",
+           "n": INTERP["n"], "niters": cfg.niters,
+           "rec_hidden": cfg.rec_hidden, "rec_num_hidden": 1,
+           "gen_hidden": cfg.gen_hidden, "latent_dim": cfg.latent_dim,
+           "k_iwae": cfg.k_iwae, "sample_tp": cfg.sample_tp,
+           "test_mse": res["test_mse"], "final_elbo": last["elbo"],
+           "final_logpx": last["logpx"], "final_kl": last["kl"],
+           "wall_time_s": time.time() - t0, "jax_test_mse": jax_mse,
+           "ceiling": ceiling,
+           "ok": bool(np.isfinite(res["test_mse"])
+                      and res["test_mse"] <= ceiling),
+           "card": smi}
+    with open(out, "w") as f:
+        json.dump(rec, f, indent=1)
+    print(json.dumps(rec, indent=1), flush=True)
+    return 0 if rec["ok"] else 1
+
+
+def activity_r5(out: str = "RESULTS_torch_activity_k5.json") -> int:
+    """The activity flagship's five seeds (ACTIVITY_R5: 200 epochs, n=1024,
+    warmup_epochs 5) against RESULTS_activity_k5.json, each seed's test
+    accuracy held to the activity pin's floor, written to `out`:
+
+        python3 chip_smoke.py --activity-r5 [OUT]"""
+    from snsde_torch.harness.activity import ActivityConfig, run_activity
+    from snsde_torch.train.pins import FLAGSHIP_PINS
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    smi = card()
+    floor = FLAGSHIP_PINS["activity"].floor
+    t0 = time.time()
+    tests, vals = [], []
+    for seed in ACTIVITY_R5["seeds"]:
+        res = run_activity(ActivityConfig(
+            max_epochs=ACTIVITY_R5["epochs"], k_iwae=5,
+            warmup_epochs=ACTIVITY_R5["warmup"], seed=seed, verbose=False),
+            n=ACTIVITY["n"], device=DEV)
+        tests.append(res.test_accuracy)
+        vals.append(res.val_accuracy)
+        print(f"activity seed {seed}: test {res.test_accuracy:.4f}, val "
+              f"{res.val_accuracy:.4f}, {res.wall_time:.1f} s", flush=True)
+
+    def summary(v):
+        return {"per_seed": [round(x, 4) for x in v],
+                "mean": round(float(np.mean(v)), 4),
+                "std": round(float(np.std(v)), 4)}
+
+    rec = {"dataset": "person_activity(synthetic fallback)",
+           "enc": "mtan_rnn", "latent_dim": 32, "rec_hidden": 32,
+           "k_iwae": 5, "n": ACTIVITY["n"], "epochs": ACTIVITY_R5["epochs"],
+           "warmup_epochs": ACTIVITY_R5["warmup"],
+           "seeds": list(ACTIVITY_R5["seeds"]),
+           "test_accuracy_pertp": summary(tests),
+           "val_accuracy_pertp": summary(vals), "floor": floor,
+           "ok": bool(min(tests) >= floor),
+           "wall_time_min": round((time.time() - t0) / 60.0, 2),
+           "card": smi}
+    with open(out, "w") as f:
+        json.dump(rec, f, indent=1)
+    print(json.dumps(rec, indent=1), flush=True)
+    return 0 if rec["ok"] else 1
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5491,6 +6076,15 @@ def main() -> int:
                                                         compare_zoo_cde()))
     check_ancde_gate_grad()
     err["gru_paths"] = compare_mtan_bigru()
+    print("phase 13: the EM pair at the interpolation encoder's shape and "
+          "the GRU pair at the VAE decoders' and the activity encoder's "
+          "BiGRU shapes vs their plain versions, the scatter on the card vs "
+          "the CPU:", flush=True)
+    err["em_paths"] = tuple(max(a, b) for a, b in zip(err["em_paths"],
+                                                      compare_interp_em()))
+    err["gru_paths"] = tuple(max(a, b) for a, b in zip(err["gru_paths"],
+                                                       compare_interp_gru()))
+    check_interp_scatter()
     with tempfile.TemporaryDirectory() as out_dir:
         launches = {"em": main_path(), "srk": mujoco_path(),
                     "cde": sweep_path(out_dir)}
@@ -5509,6 +6103,8 @@ def main() -> int:
         baseline_sweep_path(out_dir)
         launches["cde_linear"] = linear_sweep_path(out_dir)
         launches["zoo"] = zoo_sweep_path(out_dir)
+        launches["interp"] = interp_path(out_dir)
+    launches["activity"] = activity_path()
     for method in SDE_METHODS:
         sde_method_mujoco_path(method)
     launches["em_speech"] = speech_path()
@@ -5577,6 +6173,15 @@ def main() -> int:
         for k, v in step_times(f"{name} sweep-cell classifier",
                                sweep_step_fns(name), eager_reps=3).items():
             ms["zoo"][f"{name} {k}"] = v
+    interp_ms, interp_bounds = interp_em_times()
+    igru_times = interp_gru_times()
+    ms["interp"] = {}
+    for label, steps in (("interpolation rnn3", interp_step_fns("rnn3")),
+                         ("interpolation mtan_rnn",
+                          interp_step_fns("mtan_rnn")),
+                         ("activity", activity_step_fns())):
+        for k, v in step_times(label, steps, eager_reps=3).items():
+            ms["interp"][f"{label} {k}"] = v
     for key in ms:
         for k, v in ms[key].items():
             print(f"time {key} {k}: {v:.4f} ms  [{smi}]")
@@ -5615,6 +6220,10 @@ def main() -> int:
                 **(zoo_entry(part, launches["zoo"], zoo_ms, zoo_bounds)
                    if key == "cde" else {}),
                 **(mtan_entry(part, launches["zoo"], mtan_ms, mtan_bounds)
+                   if key == "gru" else {}),
+                **(interp_entry(part, launches["interp"], interp_ms,
+                                interp_bounds) if key == "em" else {}),
+                **(interp_gru_entry(part, launches, igru_times)
                    if key == "gru" else {}),
             })
     for key, line, src in (("em", "fused_em.py:888", "fused_em"),
@@ -5822,4 +6431,8 @@ if __name__ == "__main__":
         sys.exit(sepsis_r5(*sys.argv[2:3]))
     if sys.argv[1:2] == ["--speech-r5"]:
         sys.exit(speech_r5(*sys.argv[2:3]))
+    if sys.argv[1:2] == ["--interp-flagship"]:
+        sys.exit(interp_flagship(*sys.argv[2:3]))
+    if sys.argv[1:2] == ["--activity-r5"]:
+        sys.exit(activity_r5(*sys.argv[2:3]))
     sys.exit(main())

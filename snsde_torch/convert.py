@@ -31,6 +31,13 @@ its `decoder.weight` (no bias), raw `decoder_bias` and head BatchNorm
 weight` and `mlp_layers.0.bias` (tuples of modules or Linears), ANCDE's
 `func_g.linear_out.weight`, EXIT's `ode_f1.weight` and LEAP's
 `mapping2.bias`;
+for the interpolation harness's VAE its recognition network
+`rec.sde.func.linear_in.weight`, `rec.sde.initial_network.bias`, the
+stream's unused `rec.sde.linear.weight` and `rec.head.weight`, and its
+decoder `dec.gru_f.w_ih`, `dec.query`, `dec.out1.weight` (DecRNN3), with
+MTANDecoder's `dec.att.wq.weight` and `dec.time_emb.periodic.weight`; for
+the activity harness's classifier `rec.att.wo.weight`, `rec.gru_b.b_hh`,
+`rec.query` and `fc1.weight`-`fc3.bias`;
 for the seed ensembles the members' tuples, a
 `ModuleList` here too: InitialValueSeedEnsemble's
 `members.0.field.linear_in.weight` and `members.0.readout.norm.running_var`,

@@ -46,7 +46,7 @@ __all__ = ["bce_with_logits", "bce_with_logits_per_sample",
            "clip_by_global_norm",
            "weight_regularization", "readout_grad_hook", "TrainConfig",
            "FitResult", "make_loss_fn", "make_optimizer", "train_step",
-           "fit_classifier"]
+           "fit_classifier", "padded_index_grid"]
 
 
 def bce_with_logits_per_sample(logits, labels, pos_weight: float = 1.0):
@@ -209,9 +209,12 @@ def iterate_batches(arrays: Dict[str, Any], batch_size: int,
         yield {k: v[sel] for k, v in arrays.items()}, n_valid
 
 
-def _padded_grid(idx: np.ndarray, batch_size: int):
-    """Pad an index vector by wrap-around to whole batches; (perm [nb, B],
-    mask [nb, B] with the padded tail zeroed)."""
+def padded_index_grid(idx, batch_size: int):
+    """Pad a 1-D index vector by wrap-around to a [nb, batch_size] grid
+    (np.resize covers a pad longer than the vector), the JAX package's
+    padded_index_grid (snsde/train/loop.py:117-135): (perm [nb, B] int32,
+    mask [nb, B] float32 with the padded tail zeroed, nb)."""
+    idx = np.asarray(idx)
     n = idx.shape[0]
     nb = max(1, -(-n // batch_size))
     pad = nb * batch_size - n
@@ -219,7 +222,13 @@ def _padded_grid(idx: np.ndarray, batch_size: int):
     if pad:
         idx = np.concatenate([idx, np.resize(idx, pad)])
         mask[-pad:] = 0.0
-    return idx.reshape(nb, batch_size), mask.reshape(nb, batch_size)
+    return (idx.reshape(nb, batch_size).astype(np.int32),
+            mask.reshape(nb, batch_size), nb)
+
+
+def _padded_grid(idx: np.ndarray, batch_size: int):
+    """(perm, mask) of padded_index_grid."""
+    return padded_index_grid(idx, batch_size)[:2]
 
 
 def _to_device(data: Dict[str, np.ndarray], device) -> Dict:

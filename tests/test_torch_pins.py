@@ -123,8 +123,9 @@ def test_known_fault_min_mode_sees_no_interpolation_mse(pins):
     not approved: the interpolation harness's history
     (snsde/harness/interpolation.py:309) carries its per-epoch elbo but no
     validation MSE, so the min-mode ceiling (pins.py:134) finds no value,
-    takes best = inf and fails a healthy run. A fix belongs with the
-    interpolation harness's port (ROADMAP Queue 1 item 22)."""
+    takes best = inf and fails a healthy run. The port's interpolation
+    harness (snsde_torch/harness/interpolation.py) writes JAX's history as
+    it is, so the fault stays, named here."""
     healthy = [{"iter": i, "elbo": -2.0 + 0.01 * i, "logpx": -1.9,
                 "kl": 0.1, "kl_coef": 1.0} for i in range(30)]
     res = pins.check_history(healthy, pins.FLAGSHIP_PINS["interpolation"])
