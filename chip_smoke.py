@@ -28,7 +28,13 @@ families (the CDE kernels), `mtan` (the GRU kernels in both directions),
 interpolation and activity harnesses `run_interpolation` (the SDE-encoder
 VAE: the EM kernels on a dense stream at H=128, the decoders' BiGRU on the
 GRU kernels) and `run_activity` (the mTAN encoder's BiGRU on the GRU
-kernels), phase 13.
+kernels), phase 13; since the entry points the README starts from the OU
+quick start (`NDEModel`, the eager sdeint), `snsde_torch.tutorial` (its
+`cde` on the CDE kernels, its `*-kld` on the EM kernels' latent
+instances), `python -m snsde_torch.configs` for each task, `make_model`'s
+baseline twins at the sepsis width (the CDE kernels; the GRU kernels'
+obs, decay-row and evolve modes) and the ASHA search (the SRK kernels'
+member axis for its packed groups), phase 14.
 Phases, each of which raises on failure:
   1. card: name, and name and power limit from nvidia-smi;
   2. build: nvcc builds every kernel of the four paths from
@@ -281,7 +287,30 @@ Phases, each of which raises on failure:
      the kernels line's EM and GRU entries (interp_em_times,
      interp_gru_times), and one training step of interpolation (rnn3,
      mtan_rnn) and activity through the kernels and with use_fused=False,
-     with its profiler window.
+     with its profiler window;
+ 14. the entry points the README starts from, in phases 3-5's places: the
+     CDE pair at the sepsis width (TWIN_CDE: B=1024, 71 rk4 steps, C=69,
+     H=HH=49; FinalTanh with one inner layer, and the GRU-ODE field), the
+     EM pair's latent instances at the tutorial's shape (TUTORIAL_LATENT:
+     B=800, 19 steps, C=2, H=HH=32) and the SRK pair at ASHA's rung 0 (the
+     member axis at K=2, B=64, 39 steps, C=4, H=HH=64, four hidden
+     layers; solo at H=128, three) against their plain versions
+     (phase14_kernel_checks); the README's quick start, 60 Adam steps of
+     NDEModel(NeuralLSDEFunc) on 256 OU paths, its loss falling under 0.8x
+     the first and no kernel launched (quick_start_path); the tutorial's
+     eight kinds with euler, gsde with srk and sde with milstein, 10
+     epochs each, every theory check holding, `cde` on the CDE pair and
+     the `*-kld` kinds with euler on the latent instances (tutorial_path);
+     `snsde_torch.configs.main` for each task at a small n_samples for one
+     epoch (configs_path); make_model's five twins at the sepsis width,
+     one training step each, the loss and every gradient through the
+     kernels against use_fused=False by the float64 rule, each twin's
+     instances once forward and once backward (twins_path); asha_search
+     at tools/run_asha_search.py's setting, its trial configs
+     ASHA_SEARCH.json's, each packed group one member-axis launch a step
+     (asha_path); the times and bounds at those shapes in the kernels
+     line's CDE, gruode, latent, SRK and packed SRK entries
+     (phase14_times), and cuDNN's time at phase 13's BiGRU shapes.
 It prints one JSON line of the kernels (each SDE kernel with the `modes`
 it takes; the packed launches, the hybrids' and the time-aware LSTMs'
 instances, TLSTM's W_d gradient and the CDE pair's gruode instances and
@@ -303,7 +332,7 @@ printing no result, without a CUDA device or outside the repository.
     python3 chip_smoke.py --sepsis-r5 [OUT]
     python3 chip_smoke.py --speech-r5 [OUT]
     python3 chip_smoke.py --interp-flagship [OUT]
-    python3 chip_smoke.py --activity-r5 [OUT]
+    python3 chip_smoke.py --activity-r5 [OUT [SEEDS]]
 
 run none of the phases: they time the SDE paths' training steps
 and the CDE classifier's (`ab_steps`), the LSTM or GRU kernels at the
@@ -434,6 +463,16 @@ SEPSIS_WIDE = dict(H=128, epochs=1)
 # floor, so it holds them alone.
 TOL_YS = 5e-6
 YS_F64_FACTOR = 8.0
+# The float64 rule bounds a comparison only while the float32 reference
+# keeps a digit. Where the reference's own largest error from float64
+# passes F64_NO_DIGIT of the largest entry, f64_tol raises (the
+# comparison says nothing); below it, no tolerance of the rule passes
+# F64_NO_DIGIT. (Uncapped, the rule passed a GRU-ODE backward 6.5e34 off
+# on a control whose state reached 5e11.) The largest references under
+# the rule with correct kernels, on an H100: the new SDE modes' cotangents
+# 5.2e-2 (phase 3: sqrt noise near y = 0), a trained GRU-ODE classifier's
+# stream 9.5e-2 (main path 10; PERF.md, section 7).
+F64_NO_DIGIT = 0.1
 # max abs error of a cotangent over its max (measured: EM 4.1e-7, SRK 4.6e-6)
 TOL_GRAD = 1e-5
 # every output against a float64 run of the plain version: the kernel's
@@ -573,6 +612,19 @@ def kernel_fns(key):
     return fwd(fns[0]), fwd(fns[1]), bwd(fns[2]), bwd(fns[3])
 
 
+def f64_tol(label, floor, ref_err, factor=YS_F64_FACTOR):
+    """The float64 rule's tolerance: the larger of `floor` and `factor`
+    times the float32 reference's own largest error from float64
+    (`ref_err`, over the largest entry), at most F64_NO_DIGIT. Raises when
+    the rule is in use (factor > 0) and ref_err passes F64_NO_DIGIT."""
+    if factor and not ref_err <= F64_NO_DIGIT:
+        raise AssertionError(
+            f"{label}: the float32 reference is {ref_err:.3e} of its scale "
+            f"from float64 (over {F64_NO_DIGIT:g}): the comparison has no "
+            f"digit left")
+    return min(max(floor, factor * ref_err), max(floor, F64_NO_DIGIT))
+
+
 def _errs64(a, ref):
     """(largest, root-mean-square) error of a float32 result from its
     float64 counterpart, each over the largest entry of the float64
@@ -623,7 +675,8 @@ def check_pair(label, fns, fwd, flags, gys, ys_f64_factor=0.0,
     err_f = float((ys_k - ys_p).abs().max())
     rel_f = err_f / max(float(ys_p.abs().max()), 1e-30)
     print(f"  {label}: ys max abs err {err_f:.3e} rel {rel_f:.3e}")
-    tol_f = max(TOL_YS, ys_f64_factor * check64("ys", ys_k, ys_p, ys_64))
+    tol_f = f64_tol(f"{label} ys", TOL_YS,
+                    check64("ys", ys_k, ys_p, ys_64), ys_f64_factor)
     print(f"      ys tol rel {tol_f:.3e}")
     if not rel_f <= tol_f:
         raise AssertionError(f"{label}: forward kernel disagrees: {rel_f}")
@@ -635,7 +688,8 @@ def check_pair(label, fns, fwd, flags, gys, ys_f64_factor=0.0,
             continue
         rel = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
         print(f"    {name:10s} max rel err {rel:.3e}")
-        tol = max(TOL_YS, ys_f64_factor * check64(name, a, b, ref))
+        tol = f64_tol(f"{label} {name}", TOL_YS,
+                      check64(name, a, b, ref), ys_f64_factor)
         if not rel <= tol:
             raise AssertionError(f"{label}: forward kernel disagrees on "
                                  f"{name}: {rel}")
@@ -647,7 +701,8 @@ def check_pair(label, fns, fwd, flags, gys, ys_f64_factor=0.0,
         rel = err / max(float(b.abs().max()), 1e-30)
         err_b = max(err_b, err)
         p_max = check64(name, a, b, ref)
-        tol_g = max(TOL_GRAD, grad_f64_factor * p_max)
+        tol_g = f64_tol(f"{label} {name}", TOL_GRAD, p_max,
+                        grad_f64_factor)
         print(f"    d{name[1:]:9s} max abs err {err:.3e} rel {rel:.3e} "
               f"(tol rel {tol_g:.3g})")
         if not rel <= tol_g:
@@ -666,11 +721,12 @@ def compare(model_name, B, L, C, H, layers, srk=False):
 
 
 def cde_kernel_inputs(B, L, C, H, n_inner, method="rk4", field="final_tanh",
-                      seed=0):
+                      seed=0, unit=False):
     """Detached inputs of the CDE pair: a random field (FinalTanh with
     n_inner inner layers, SingleHiddenLayer, or with field "gruode" the
     GRU-ODE field, whose tensors of the MLP are None) on the natural cubic path
-    of random series over linspace(0, 1, L), stepped with dt = the
+    of random series over linspace(0, 1, L) (with `unit`, over the
+    classification harnesses' 0, 1, ..., L-1), stepped with dt = the
     smallest knot gap (the NeuralCDE default), and a cotangent gys of a
     batch-mean loss; (tensors in the forward's order, flags, gys)."""
     from snsde_torch.kernels import fused_cde as fc
@@ -687,14 +743,20 @@ def cde_kernel_inputs(B, L, C, H, n_inner, method="rk4", field="final_tanh",
     else:
         func = SingleHiddenLayer(C, H, H, generator=gen)
     func = func.to(DEV)
-    times = np.linspace(0.0, 1.0, L).astype(np.float32)
+    times = (np.arange(L) if unit else np.linspace(0.0, 1.0, L)).astype(
+        np.float32)
     x = rng.normal(size=(B, L, C)).astype(np.float32)
     if field == "gruode":
         # a Brownian-like path (N(0, 1/L) steps): the GRU-ODE state feeds
         # back through its gates, and on independent N(0, 1) knots the
         # explicit solve itself diverges (past 1e11 in float64 at B=100,
-        # L=30), where no float32 digit is left to compare
-        x = np.cumsum(x / np.sqrt(L), axis=1, dtype=np.float32)
+        # L=30), where no float32 digit is left to compare. Past 6
+        # channels the steps shrink by sqrt(C / 6), so the sum over the
+        # channels keeps the C=6 shapes' scale (at C=69 with N(0, 1/L)
+        # steps the state reached 5e11 and the cotangents 3e30 in float64:
+        # PERF.md, section 6)
+        x = np.cumsum(x / np.sqrt(L * max(C, 6) / 6), axis=1,
+                      dtype=np.float32)
     x = torch.as_tensor(x)
     coeffs = natural_cubic_coeffs(torch.as_tensor(times), x, pack=True)
     path = CubicPath(coeffs.to(DEV), times)
@@ -709,12 +771,14 @@ def cde_kernel_inputs(B, L, C, H, n_inner, method="rk4", field="final_tanh",
     return fwd, dict(method=method, act=inp["act"]), gys.to(DEV)
 
 
-def compare_cde(B, L, C, H, n_inner, method="rk4", field="final_tanh"):
+def compare_cde(B, L, C, H, n_inner, method="rk4", field="final_tanh",
+                unit=False):
     """The CDE pair's plan at the shape, and the pair against its plain
     versions (check_pair_rows; the GRU-ODE field's cotangents too by the
     float64 rule: its z feedback through three gates amplifies float32
-    rounding)."""
-    fwd, flags, gys = cde_kernel_inputs(B, L, C, H, n_inner, method, field)
+    rounding); `unit` as cde_kernel_inputs'."""
+    fwd, flags, gys = cde_kernel_inputs(B, L, C, H, n_inner, method, field,
+                                        unit=unit)
     cde_plans([(B, H, C, n_inner)], method, flags["act"])
     return check_pair_rows(f"CDE {field} {method} n_inner={n_inner} B={B} "
                            f"L={L} (M={gys.shape[0]}) C={C} H={H}", "cde",
@@ -923,9 +987,11 @@ def check_near_rows(label, key, fwd, flags, gys, near, ys_f64_factor,
     outs = {"ys": ys_k, **{n: getattr(g_k, n) for n in rows}}
     ys64 = refs["as float64 rounds them"]["ys"][0]
     g_p = bwd_p(fwd[0], ys_p, gys, *fwd[1:], **flags, ns=ns_p)
-    tol = {"ys": max(TOL_YS, ys_f64_factor * _errs64(ys_p, ys64)[0]),
-           **{n: max(TOL_GRAD, grad_f64_factor * _errs64(
-               getattr(g_p, n), refs["as float64 rounds them"][n][0])[0])
+    tol = {"ys": f64_tol(f"{label} ys", TOL_YS, _errs64(ys_p, ys64)[0],
+                         ys_f64_factor),
+           **{n: f64_tol(f"{label} {n}", TOL_GRAD, _errs64(
+               getattr(g_p, n), refs["as float64 rounds them"][n][0])[0],
+               grad_f64_factor)
               for n in rows}}
     z32 = probe32.rows()
     for r, entries in sorted(near.rows().items()):
@@ -1425,7 +1491,7 @@ def check_trained_cde_solve(model, data):
     scale = float(z_64.abs().max())
     rel = float((z_f - z_e).abs().max()) / scale
     e_eager = float((z_e.double() - z_64).abs().max()) / scale
-    tol = max(TOL_YS, YS_F64_FACTOR * e_eager)
+    tol = f64_tol("trained CDE model", TOL_YS, e_eager)
     print(f"trained model: fused vs eager rk4 CDE solve, B={z_f.shape[0]}: "
           f"shape {tuple(z_f.shape)}, largest err over max|z| {rel:.3e} "
           f"(tol {tol:.3e}; the float32 eager solve from float64 "
@@ -1487,7 +1553,7 @@ def check_trained_solve(func, shape, srk=False, B=64, amplifies=False):
             scale = float(ys_64.abs().max())
             e32 = float((ys_e.double() - ys_64).abs().max()) / scale
             ek = float((ys_f.double() - ys_64).abs().max()) / scale
-            tol = max(TOL_YS, YS_F64_FACTOR * e32)
+            tol = f64_tol(f"trained model {label}", TOL_YS, e32)
             note = (f"; from float64: the float32 eager solve {e32:.3e}, the "
                     f"fused {ek:.3e}")
     err = float((ys_f - ys_e).abs().max())
@@ -1773,7 +1839,8 @@ def compare_rnn_cudnn(kind, B, L, C, H):
                               "dh0"), k, lib, ref):
         rel = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
         (k_max, k_rms), (l_max, l_rms) = _errs64(a, r), _errs64(b, r)
-        tol = max(TOL_YS if name == "hs" else TOL_GRAD, YS_F64_FACTOR * l_max)
+        tol = f64_tol(f"{kind} vs cuDNN {name}",
+                      TOL_YS if name == "hs" else TOL_GRAD, l_max)
         print(f"    {name:6s} rel {rel:.3e} (tol {tol:.3e}); from float64 "
               f"largest/rms: kernel {k_max:.3e}/{k_rms:.3e}, cuDNN "
               f"{l_max:.3e}/{l_rms:.3e}")
@@ -2577,20 +2644,21 @@ def cde_flops(flags, M, B, H, HH, C, n_inner):
     return stages * M * B * per_eval
 
 
-def cde_kernel_times(shape, method="rk4", field="final_tanh"):
+def cde_kernel_times(shape, method="rk4", field="final_tanh", reps=REPS,
+                     warmup=WARMUP):
     """Times of the CDE pair and its plain versions (fewer runs: the plain
     backward at 136 rk4 steps takes a large part of a second), and its
     bounds from the same inputs: the bytes of every input read once and
     every output written once, and the fp32 operations of the field
     (cde_flops; the backward recomputes each evaluation and runs its
-    products back: 3x)."""
+    products back: 3x); `reps` and `warmup` the kernels' timing's."""
     fwd, flags, gys = cde_kernel_inputs(shape["B"], shape["L"], shape["C"],
                                         shape["H"], shape["n_inner"], method,
-                                        field)
-    return cde_times(fwd, flags, gys, field)
+                                        field, unit=shape.get("unit", False))
+    return cde_times(fwd, flags, gys, field, reps, warmup)
 
 
-def cde_times(fwd, flags, gys, label):
+def cde_times(fwd, flags, gys, label, reps=REPS, warmup=WARMUP):
     """cde_kernel_times on given inputs of the pair (`label` names them in
     the printed bounds)."""
     from snsde_torch.kernels import fused_cde as fc
@@ -2598,9 +2666,9 @@ def cde_times(fwd, flags, gys, label):
     fwd_k, fwd_p, bwd_k, bwd_p = kernel_fns("cde")
     ys, _ = fwd_k(*fwd, **flags)
     bwd_args = [fwd[0], ys, gys] + fwd[1:]
-    ms = {"fwd": timed(lambda: fwd_k(*fwd, **flags)),
+    ms = {"fwd": timed(lambda: fwd_k(*fwd, **flags), reps, warmup),
           "fwd_plain": timed(lambda: fwd_p(*fwd, **flags), reps=5, warmup=1),
-          "bwd": timed(lambda: bwd_k(*bwd_args, **flags)),
+          "bwd": timed(lambda: bwd_k(*bwd_args, **flags), reps, warmup),
           "bwd_plain": timed(lambda: bwd_p(*bwd_args, **flags), reps=5,
                              warmup=1)}
     M, B, H, HH, C, n_inner = fc.check_kernel_inputs(*fwd, **flags)
@@ -3430,18 +3498,18 @@ def compare_members(key, model_name, B, L, C, H, layers, K):
     return err_f, err_b
 
 
-def packed_kernel_times(reps=10):
+def packed_kernel_times(reps=10, cases=(MEMBER_CASES[0], MEMBER_CASES[2])):
     """The packed launches against K solo launches: the EM pair with K=5
     at the sepsis shape, the SRK pair with K=3 at the sweep's shape, each
     member on its own weights and streams; each forward and backward (the
     wrapper: recurrence, weight gradient, sums) packed, as K solo launches
     in a row and as the plain versions member by member; the bounds from
     the packed launch's inputs (every input read once, every output
-    written once; K x a solo launch's MLP products, 3x in the backward).
+    written once; K x a solo launch's MLP products, 3x in the backward);
+    `cases` other MEMBER_CASES-shaped cases, one a pair.
     ({key: {name: ms}}, {key: {part: bound}})."""
     ms, bounds = {}, {}
-    for key, model, B, L, C, H, layers, K in (MEMBER_CASES[0],
-                                              MEMBER_CASES[2]):
+    for key, model, B, L, C, H, layers, K in cases:
         fwd_k, fwd_p, bwd_k, bwd_p = kernel_fns(key)
         fwd, flags, gys, members = member_inputs(key, model, B, L, C, H,
                                                  layers, K)
@@ -4025,7 +4093,7 @@ def check_trained_latent_solve(model, B=64):
                                                  1e-30)
     kl = (float((ys_f[..., -1] - ys_e[..., -1]).abs().max())
           / max(float(ys_e[..., -1].abs().max()), 1e-30))
-    tol = max(TOL_YS, YS_F64_FACTOR * e32)
+    tol = f64_tol("trained latent model", TOL_YS, e32)
     print(f"trained latent model: fused vs eager euler solve, B={B}: shape "
           f"{tuple(ys_f.shape)}, max rel err {rel:.3e} (KL lane {kl:.3e}; "
           f"tol {tol:.3e}; the float32 eager solve from float64 {e32:.3e})")
@@ -4033,15 +4101,14 @@ def check_trained_latent_solve(model, B=64):
         raise AssertionError("trained latent model's fused solve disagrees")
 
 
-def latent_kernel_times():
-    """The latent pair at the sweep's shape (LATENT): forward and backward
+def latent_kernel_times(sh=LATENT):
+    """The latent pair at a shape (the sweep's, LATENT): forward and backward
     (the wrapper), their plain versions, the recurrence and the weight
     gradient apart (sde_backward_times), and the bounds from its inputs:
     the bytes of every input and output once, the drift MLP's products
     (sde_products; the KL sum adds 2 B H a step) and 3x those for the
     backward."""
     fwd_k, fwd_p, bwd_k, bwd_p = kernel_fns("em")
-    sh = LATENT
     fwd, flags, gys = latent_kernel_inputs(sh["B"], sh["L"], sh["C"],
                                            sh["H"], sh["layers"])
     ys, _ = fwd_k(*fwd, **flags)
@@ -4060,7 +4127,7 @@ def latent_kernel_times():
               "bwd": bound(4 * (n_in + 2 * ys.numel() + n_g), 3 * flops)}
     ms_w, bounds["wgrad"] = sde_backward_times("em", fwd, ys, gys, flags)
     ms.update(ms_w)
-    print(f"latent pair at the sweep's shape (B={B}, M={M}, H={H}): fwd "
+    print(f"latent pair at B={B}, M={M}, H={H}: fwd "
           f"{ms['fwd']:.4f} ms, bwd {ms['bwd']:.4f} ms (recurrence "
           f"{ms['bwd_recurrence']:.4f} + weight gradient "
           f"{ms['bwd_wgrad']:.4f}); plain {ms['fwd_plain']:.2f} / "
@@ -4643,7 +4710,7 @@ def check_trained_linear_cde(name, model, data):
     scale = float(z_64.abs().max())
     rel = float((z_f - z_e).abs().max()) / scale
     e_eager = float((z_e.double() - z_64).abs().max()) / scale
-    tol = max(TOL_YS, YS_F64_FACTOR * e_eager)
+    tol = f64_tol(f"trained {name}", TOL_YS, e_eager)
     print(f"trained {name}: fused vs eager rk4 CDE solve, B={z_f.shape[1]}: "
           f"shape {tuple(z_f.shape)}, largest err over max|z| {rel:.3e} "
           f"(tol {tol:.3e}; the float32 eager solve from float64 "
@@ -4761,7 +4828,7 @@ def check_sde_card_vs_cpu(func, method, B=64):
     scale = float(ys_64.abs().max())
     rel = float((ys_card - ys_cpu).abs().max()) / scale
     e32 = float((ys_cpu.double() - ys_64).abs().max()) / scale
-    tol = max(TOL_YS, YS_F64_FACTOR * e32)
+    tol = f64_tol("trained field card vs CPU", TOL_YS, e32)
     print(f"trained field ({func.input_option},{func.noise_option}): "
           f"{method} solve on the card vs the CPU, B={B}: shape "
           f"{tuple(ys_card.shape)}, largest err over max|ys| {rel:.3e} (tol "
@@ -5093,7 +5160,7 @@ def _f64_rule(label, fused, eager, ref64):
     scale = max(float(ref64.abs().max()), 1e-30)
     rel = float((fused.double() - eager.double()).abs().max()) / scale
     e32 = float((eager.double() - ref64).abs().max()) / scale
-    tol = max(TOL_YS, YS_F64_FACTOR * e32)
+    tol = f64_tol(label, TOL_YS, e32)
     print(f"    {label}: largest err over max {rel:.3e} (tol {tol:.3e}; "
           f"the float32 eager run from float64 {e32:.3e})")
     if not (torch.isfinite(fused).all() and rel <= tol):
@@ -5257,6 +5324,21 @@ def bigru_times(cell_f, cell_b, xs, where):
               + ", ".join(f"{k} {v:.4f} ms" for k, v in ms[label].items())
               + f"; bounds {bounds[label]['fwd'][0]:.5f} / "
                 f"{bounds[label]['bwd'][0]:.5f} ms", flush=True)
+    # cuDNN (torch.nn.GRU, TF32 off) with the forward cell's weights: one
+    # call on xs (its input projection included) and its backward
+    # (autograd.grad of a retained graph, for xs, h0 and the weights)
+    torch.backends.cudnn.allow_tf32 = False
+    lib = cudnn_module("gru", cell_f)
+    x = xs.detach().clone().requires_grad_(True)
+    h0 = xs.new_zeros((1, B, H)).requires_grad_(True)
+    wrt = [x, h0] + list(lib.parameters())
+    ms["forward"]["lib_fwd"] = timed(lambda: lib(x, h0))
+    out, _ = lib(x, h0)
+    ms["forward"]["lib_bwd"] = timed(lambda: torch.autograd.grad(
+        out, wrt, ghs, retain_graph=True))
+    print(f"cuDNN GRU at {where} B={B} L={L} H={H}: forward "
+          f"{ms['forward']['lib_fwd']:.4f} ms, backward "
+          f"{ms['forward']['lib_bwd']:.4f} ms", flush=True)
     return ms, bounds
 
 
@@ -5462,6 +5544,10 @@ INTERP_FLAGSHIP_ITERS = 300
 ACTIVITY = dict(n=1024, epochs=2)
 ACTIVITY_PARAMS = 155623
 ACTIVITY_R5 = dict(seeds=(0, 1, 2, 3, 4), epochs=200, warmup=5)
+# a test accuracy under this sits on the majority-segment-label plateau
+# (0.31-0.35 on the synthetic activity data, the trained seeds 0.56-0.67:
+# the port's 15 seeds, PERF.md section 7)
+ACTIVITY_PLATEAU = 0.40
 # the GRU pair's BiGRU shapes (B, L, C, H): the VAE decoders' over the
 # k_iwae x batch latent rows, and the activity encoder's
 INTERP_GRU = {"interp": (320, 64, 32, 64), "activity": (128, 50, 32, 32)}
@@ -5650,7 +5736,7 @@ def check_trained_interp_encoder(model, rows=16):
     ek = float((runs["fused"].double() - runs["f64"]).abs().max()) / scale
     rel = float((runs["fused"] - runs["eager"]).abs().max()) / max(
         float(runs["eager"].abs().max()), 1e-30)
-    tol = max(TOL_YS, YS_F64_FACTOR * e32)
+    tol = f64_tol("trained interpolation encoder", TOL_YS, e32)
     print(f"trained interpolation encoder: stream through the kernels vs "
           f"use_fused=False, {rows} rows, {len(grid) - 1} steps: rel "
           f"{rel:.3e} (tol {tol:.3e}; from float64: eager {e32:.3e}, "
@@ -5855,7 +5941,8 @@ def interp_entry(part, launches, ms, bounds):
 def interp_gru_entry(part, launches, times):
     """The GRU pair's entry's fields of phase 13: the GRU launches of the
     interpolation runs and of the activity run, and the pair's times,
-    plain times and bounds in each direction at both BiGRU shapes."""
+    plain times and bounds in each direction at both BiGRU shapes, with
+    cuDNN's (one direction) beside."""
     out = {"launches_interp": sum(v[f"gru_{part}"]
                                   for v in launches["interp"].values()),
            "launches_activity": launches["activity"][f"gru_{part}"]}
@@ -5865,6 +5952,7 @@ def interp_gru_entry(part, launches, times):
                         f"plain_ms_{label}_{shape}":
                             ms[label][f"{part}_plain"],
                         f"bound_ms_{label}_{shape}": bounds[label][part][0]})
+        out[f"library_ms_{shape}"] = ms["forward"][f"lib_{part}"]
     return out
 
 
@@ -5916,12 +6004,15 @@ def interp_flagship(out: str = "RESULTS_torch_interpolation_h128.json") -> int:
     return 0 if rec["ok"] else 1
 
 
-def activity_r5(out: str = "RESULTS_torch_activity_k5.json") -> int:
-    """The activity flagship's five seeds (ACTIVITY_R5: 200 epochs, n=1024,
-    warmup_epochs 5) against RESULTS_activity_k5.json, each seed's test
-    accuracy held to the activity pin's floor, written to `out`:
+def activity_r5(out: str = "RESULTS_torch_activity_k5.json",
+                seeds=None) -> int:
+    """The activity flagship's seeds (ACTIVITY_R5: five, or seeds 0 ..
+    SEEDS - 1; 200 epochs, n=1024, warmup_epochs 5) against
+    RESULTS_activity_k5.json, each seed's test accuracy held to the
+    activity pin's floor, the seeds under ACTIVITY_PLATEAU (the
+    majority-label plateau) counted, written to `out`:
 
-        python3 chip_smoke.py --activity-r5 [OUT]"""
+        python3 chip_smoke.py --activity-r5 [OUT [SEEDS]]"""
     from snsde_torch.harness.activity import ActivityConfig, run_activity
     from snsde_torch.train.pins import FLAGSHIP_PINS
 
@@ -5932,7 +6023,9 @@ def activity_r5(out: str = "RESULTS_torch_activity_k5.json") -> int:
     floor = FLAGSHIP_PINS["activity"].floor
     t0 = time.time()
     tests, vals = [], []
-    for seed in ACTIVITY_R5["seeds"]:
+    seed_list = (list(ACTIVITY_R5["seeds"]) if seeds is None
+                 else list(range(seeds)))
+    for seed in seed_list:
         res = run_activity(ActivityConfig(
             max_epochs=ACTIVITY_R5["epochs"], k_iwae=5,
             warmup_epochs=ACTIVITY_R5["warmup"], seed=seed, verbose=False),
@@ -5951,8 +6044,11 @@ def activity_r5(out: str = "RESULTS_torch_activity_k5.json") -> int:
            "enc": "mtan_rnn", "latent_dim": 32, "rec_hidden": 32,
            "k_iwae": 5, "n": ACTIVITY["n"], "epochs": ACTIVITY_R5["epochs"],
            "warmup_epochs": ACTIVITY_R5["warmup"],
-           "seeds": list(ACTIVITY_R5["seeds"]),
+           "seeds": seed_list,
            "test_accuracy_pertp": summary(tests),
+           "plateau": ACTIVITY_PLATEAU,
+           "seeds_below_plateau": int(sum(t < ACTIVITY_PLATEAU
+                                          for t in tests)),
            "val_accuracy_pertp": summary(vals), "floor": floor,
            "ok": bool(min(tests) >= floor),
            "wall_time_min": round((time.time() - t0) / 60.0, 2),
@@ -5961,6 +6057,630 @@ def activity_r5(out: str = "RESULTS_torch_activity_k5.json") -> int:
         json.dump(rec, f, indent=1)
     print(json.dumps(rec, indent=1), flush=True)
     return 0 if rec["ok"] else 1
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the entry points the README starts from (the OU quick start,
+# snsde_torch.tutorial, snsde_torch.configs, make_model's baseline twins at
+# the sepsis width, the ASHA search at tools/run_asha_search.py's setting)
+# ---------------------------------------------------------------------------
+
+# the README's quick start and the verify skill's canonical drive: N OU
+# paths of n_steps points from generate_ou_paths, NDEModel(NeuralLSDEFunc)
+# at hidden 32, Adam 1e-3 for `steps` full-batch steps; the last loss must
+# be under `drop` x the first
+QUICK = dict(N=1000, n_steps=20, hidden=32, steps=60, drop=0.8)
+# examples/ou_tutorial.py's model kinds, and phase 14's tutorial runs:
+# every kind with euler, gsde with srk, sde with milstein, at the
+# tutorial's size (1000 paths, 800 a step, hidden 32)
+TUTORIAL_KINDS = ("ode", "cde", "sde", "lsde", "lnsde", "gsde", "sde-kld",
+                  "lsde-kld")
+TUTORIAL_RUNS = tuple((k, "euler") for k in TUTORIAL_KINDS) + (
+    ("gsde", "srk"), ("sde", "milstein"))
+TUTORIAL_EPOCHS = 10
+# the tutorial's LatentSDE on the EM pair's latent instances: 800 paths of
+# 20 points (19 steps), C=2, H=HH=32 (31 latent lanes and the KL lane),
+# one hidden layer
+TUTORIAL_LATENT = dict(B=800, L=20, C=2, H=32, layers=1)
+# python -m snsde_torch.configs, each task at a small n_samples for one
+# epoch (iteration); the sweep's out_dir is appended at run time
+CONFIG_RUNS = (
+    ("sepsis", ["--n_samples", "1024", "--classification.max_epochs", "1"],
+     ("em_fwd",)),
+    ("speech", ["--n_samples", "512", "--classification.max_epochs", "1"],
+     ("em_fwd",)),
+    ("mujoco", ["--n_samples", "512", "--forecasting.max_epochs", "1",
+                "--forecasting.verbose", "false"], ("em_fwd",)),
+    ("interpolation", ["--n_samples", "256", "--interpolation.niters", "1",
+                       "--interpolation.verbose", "false"],
+     ("em_fwd", "gru_fwd")),
+    ("sweep", ["--n_samples", "128", "--sweep.models",
+               '["neuralsde_4_17", "neuralcde", "gru"]',
+               "--sweep.missing_rates", "[0.3]", "--sweep.max_epochs", "1"],
+     ("srk_fwd", "cde_fwd", "gru_fwd")))
+# make_model's baseline twins at the sepsis width (MAIN: B=1024, L=72,
+# C=69 = time + 34 intensities + 34 values, H=HH=49, two hidden layers),
+# and the launch counters each must move once in a training step
+TWINS = {"ncde": ("cde_fwd", "cde_bwd"),
+         "gruode": ("cde_gru_fwd", "cde_gru_bwd"),
+         "dt": ("gru_obs_fwd", "gru_obs_bwd", "gru_wgrad"),
+         "decay": ("gru_dec1_fwd", "gru_dec1_bwd", "gru_wgrad"),
+         "odernn": ("gru_ode_fwd", "gru_ode_bwd", "gru_wgrad", "mlp_wgrad")}
+# the CDE pair at the twins' width: FinalTanh with one inner layer (ncde)
+# and the GRU-ODE field, 71 rk4 steps on the sepsis times 0..71
+TWIN_CDE = dict(B=MAIN["B"], L=MAIN["L"], C=MAIN["C"], H=MAIN["H"],
+                n_inner=MAIN["layers"] - 1, unit=True)
+# the gruode twin's loss and gradients read at the steps up to this one
+# for the float64 rule: on the sepsis control the GRU-ODE state reaches
+# 3.5e5 by step 16, and the float32 gradients read further on keep no
+# digit (the eager run's largest gradient error from float64, over the
+# gradient's largest entry, read at the steps up to 3, 4, 5 and 8: 2.2e-3,
+# 4.6e-3, 0.68 and 1.9 on an H100: PERF.md, section 7)
+GRUODE_TWIN_HORIZON = 3
+# the CDE twins' states over the whole control, held row by row against
+# the spread of float32 runs (twin_state_rows): the eager run on the
+# inputs and TWIN_NUDGES eager runs on inputs nudged by one unit in the
+# last place (up or down at random). On that control one such nudge moves
+# a GRU-ODE row by up to half its largest state where the unnudged eager
+# run sat 4e-3 from float64 (the kernels' 0.19 on that row: PERF.md,
+# section 7). A row is held where the float64 rule's tolerance,
+# YS_F64_FACTOR times the runs' largest error, stays within F64_NO_DIGIT,
+# and set aside where it would not (the rows whose float32 runs keep no
+# digit, and those on the edge of it: there the kernels' run, one more
+# draw from the same spread, read 0.14 beside the runs' 0.089); at least
+# TWIN_ROWS_HELD of the rows must be held
+TWIN_NUDGES = 6
+TWIN_ROWS_HELD = 0.85
+# tools/run_asha_search.py's setting: synthetic_uea(n=320, length=40,
+# channels=3, num_classes=4, seed=10), 8 samples, rungs (2, 5, 12), seed 0,
+# batch 64; neuralsde_4_17 packed, gru solo
+ASHA = dict(n=320, L=40, D=3, classes=4, data_seed=10, samples=8,
+            rungs=(2, 5, 12), seed=0, B=64)
+ASHA_MODELS = (("neuralsde_4_17", True), ("gru", False))
+# the new SRK shapes of its rung 0: the member axis at K=2 with H=64 and
+# four hidden layers (trials 2 and 4), and a solo solve at H=128 with
+# three (trial 3); C = D + 1 (the time channel)
+ASHA_MEMBERS = ("srk", "neuralsde_4_17", ASHA["B"], ASHA["L"], ASHA["D"] + 1,
+                64, 4, 2)
+ASHA_SOLO = dict(model="neuralsde_4_17", B=ASHA["B"], L=ASHA["L"],
+                 C=ASHA["D"] + 1, H=128, layers=3)
+
+
+def quick_start_path():
+    """The README's quick start on the card, through its entry points:
+    generate_ou_paths from a CUDA generator (data and times on the card)
+    -> hermite_cubic_coeffs -> NDEModel(NeuralLSDEFunc) (the eager sdeint,
+    as the JAX package's NDEModel: no kernel), the README's forward on 16
+    paths ([16, 20, 1]), then QUICK["steps"] full-batch Adam steps against
+    the paths' values, each with its own noise generator; the loss must
+    fall under QUICK["drop"] x its first value, and no kernel may launch.
+    Returns the seconds."""
+    from snsde_torch.data.ou import generate_ou_paths
+    from snsde_torch.fields import NeuralLSDEFunc
+    from snsde_torch.models import NDEModel
+    from snsde_torch.ops import hermite_cubic_coeffs
+
+    q = QUICK
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    data, times = generate_ou_paths(q["N"], generator=gen)
+    coeffs = hermite_cubic_coeffs(times, data)
+    model = NDEModel(input_dim=2, hidden_dim=q["hidden"], output_dim=1,
+                     num_layers=1, vector_field=NeuralLSDEFunc,
+                     generator=torch.Generator().manual_seed(1)).to(DEV)
+    pred = model(coeffs[:16], times,
+                 generator=torch.Generator(device=DEV).manual_seed(2))
+    if pred.shape != (16, q["n_steps"], 1) or pred.device != data.device \
+            or times.device != data.device or \
+            not bool(torch.isfinite(pred).all()):
+        raise AssertionError(f"the quick start's forward: {pred.shape} on "
+                             f"{pred.device}, times on {times.device}")
+    true_y = data[..., 1]
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+    zero_counts()
+    t0 = time.perf_counter()
+    losses = []
+    for i in range(q["steps"]):
+        g = torch.Generator(device=DEV).manual_seed(i)
+        loss = torch.mean((model(coeffs, times, generator=g)[..., 0]
+                           - true_y) ** 2)
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+        losses.append(float(loss.detach()))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launched = {k: v for k, v in read_counts().items() if v}
+    print(f"main path 14 (quick start): generate_ou_paths({q['N']}) on "
+          f"{data.device}, forward {tuple(pred.shape)}, {q['steps']} Adam "
+          f"steps of NDEModel(NeuralLSDEFunc) in {secs:.1f} s, loss "
+          f"{losses[0]:.5f} -> {losses[-1]:.5f} (must fall under "
+          f"{q['drop']}x), launches {launched}", flush=True)
+    if not (np.isfinite(losses).all() and losses[-1] < q["drop"] * losses[0]):
+        raise AssertionError("the quick start's loss did not fall")
+    if launched:
+        raise AssertionError("the quick start launched a kernel")
+    return secs
+
+
+def tutorial_path():
+    """snsde_torch.tutorial.train for each of TUTORIAL_RUNS at the
+    tutorial's size for TUTORIAL_EPOCHS epochs, the counts set to 0 just
+    before each and read just after: finite losses, the kind's theory check
+    holds; `cde` runs the CDE pair (a forward each epoch and test
+    evaluation, a backward each epoch) and never the eager cdeint, the
+    `*-kld` kinds with euler the EM pair's latent instances (also one
+    forward for the check), the NDEModel kinds no kernel. Returns
+    {(kind, solver): launches}."""
+    from snsde_torch import tutorial
+
+    E = TUTORIAL_EPOCHS
+    evals = E // 10
+    out = {}
+    for kind, solver in TUTORIAL_RUNS:
+        if kind == "cde":
+            want = {"cde_fwd": E + evals, "cde_bwd": E}
+        elif kind.endswith("-kld") and solver == "euler":
+            want = {"em_latent_fwd": E + evals + 1, "em_latent_bwd": E,
+                    "em_wgrad": E}
+        else:
+            want = {}
+        with ZooWatch() as watch:
+            zero_counts()
+            t0 = time.perf_counter()
+            res = tutorial.train(kind, solver, epochs=E, verbose=False,
+                                 device=DEV)
+            torch.cuda.synchronize()
+            launches = out[(kind, solver)] = read_counts()
+        got = {k: v for k, v in launches.items() if v}
+        chk = res["check"]
+        print(f"main path 14 (tutorial {kind}, {solver}): {E} epochs in "
+              f"{time.perf_counter() - t0:.1f} s, loss {res['losses'][0]:.5f}"
+              f" -> {res['losses'][-1]:.5f}, test {res['test_losses']}; "
+              f"check: {chk['name']} = {chk['value']:.4g} "
+              f"({'holds' if chk['ok'] else 'FAILS'}); launches {got}",
+              flush=True)
+        if not (np.isfinite(res["losses"]).all() and chk["ok"]):
+            raise AssertionError(f"tutorial {kind} ({solver}) failed")
+        if got != want or (kind == "cde" and watch.eager):
+            raise AssertionError(f"tutorial {kind} ({solver}): launches "
+                                 f"{got}, wanted {want}; {watch.eager} "
+                                 f"eager cdeint calls")
+    return out
+
+
+def configs_path(out_dir):
+    """python -m snsde_torch.configs's main for each task of CONFIG_RUNS,
+    the counts set to 0 just before each: it runs on the card (no device
+    argument), its losses are finite, a sweep record has no error, and
+    the named kernels launch. Returns {task: launches}."""
+    import math
+
+    from snsde_torch import configs
+
+    out = {}
+    for task, argv, kernels in CONFIG_RUNS:
+        argv = ["--task", task] + argv
+        if task == "sweep":
+            argv += ["--sweep.out_dir", f"{out_dir}/configs_sweep"]
+        zero_counts()
+        t0 = time.perf_counter()
+        res = configs.main(argv)
+        torch.cuda.synchronize()
+        launches = out[task] = read_counts()
+        if task in ("sepsis", "speech"):
+            value = res.train_metrics.loss
+        elif task == "sweep":
+            errs = [r for r in res if "error" in r]
+            if errs:
+                raise AssertionError(f"configs sweep: {errs}")
+            value = float(np.mean([r["accuracy"] for r in res]))
+        else:
+            value = res["test_mse"]
+        got = {k: v for k, v in launches.items() if v}
+        print(f"main path 14 (python -m snsde_torch.configs {' '.join(argv)})"
+              f": {time.perf_counter() - t0:.1f} s, "
+              f"{'accuracy' if task == 'sweep' else 'loss/MSE'} {value:.5f}, "
+              f"launches {got}", flush=True)
+        if not math.isfinite(value) or not all(got.get(k) for k in kernels):
+            raise AssertionError(f"configs {task}: value {value}, launches "
+                                 f"{got}, wanted {kernels}")
+    return out
+
+
+def twin_batch():
+    """One batch of MAIN["B"] sepsis records at the twins' width: the
+    intensity-augmented Hermite coefficients [B, 71, 4 x 69], the final
+    indices and the labels, on the card; the times 0..71."""
+    from snsde_torch.data.common import preprocess_classification
+    from snsde_torch.data.synthetic import synthetic_sepsis
+
+    X, _, y, lengths, _ = synthetic_sepsis(n=2 * MAIN["B"], seed=0)
+    data = preprocess_classification(X, y, lengths, use_intensity=True,
+                                     seed=0)
+    tr = data["train"]
+    B = MAIN["B"]
+    if data["input_channels"] != MAIN["C"]:
+        raise AssertionError(f"{data['input_channels']} channels")
+    return (data["times"],
+            torch.as_tensor(tr["coeffs"][:B], device=DEV),
+            torch.as_tensor(tr["final_index"][:B], device=DEV),
+            torch.as_tensor(tr["y"][:B], dtype=torch.float32, device=DEV))
+
+
+def _twin_loss(model, name, times, coeffs, fin, y, use_fused):
+    """The sepsis loss (BCE with pos_weight 10) of a twin's logits."""
+    out = model(times, coeffs, fin, use_fused=use_fused)
+    logits = out[0] if name in ("dt", "decay", "odernn") else out
+    return torch.nn.functional.binary_cross_entropy_with_logits(
+        logits[..., 0], y, pos_weight=torch.tensor(10.0, dtype=y.dtype,
+                                                   device=y.device))
+
+
+def _twin_grads(model, name, times, coeffs, fin, y, use_fused):
+    """(loss, every parameter's gradient (zeros where unused), seconds,
+    launches) of one forward and backward of a twin, the counts set to 0
+    just before."""
+    ps = [p for p in model.parameters() if p.requires_grad]
+    zero_counts()
+    t0 = time.perf_counter()
+    loss = _twin_loss(model, name, times, coeffs, fin, y, use_fused)
+    grads = torch.autograd.grad(loss, ps, allow_unused=True)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    return (loss.detach(), [torch.zeros_like(p) if g is None else g
+                            for p, g in zip(ps, grads)], secs,
+            {k: v for k, v in read_counts().items() if v})
+
+
+def _twin_states(model, times, coeffs, use_fused):
+    """A CDE twin's states over the whole control, [L, B, H], no grad."""
+    from snsde_torch.models.neuralcde import cde_solve_dispatch
+    from snsde_torch.models.neuralsde import resolve_dt
+    from snsde_torch.ops import CubicPath
+
+    path = CubicPath(coeffs, times)
+    with torch.no_grad():
+        z0 = model.initial_network(path.evaluate(path.times[0]))
+        return cde_solve_dispatch(path, model.func, z0, times,
+                                  dt=resolve_dt(times, floor=0.0),
+                                  method=model.method, use_fused=use_fused)
+
+
+def twin_state_rows(label, model, m64, times, coeffs):
+    """A CDE twin's states over the whole control, row by row: the
+    kernels' largest error from a float64 eager run over the row's largest
+    state, within f64_tol's tolerance of the largest such error of the
+    float32 eager runs (on the inputs, and on TWIN_NUDGES nudges of them
+    by one unit in the last place). Rows where that tolerance would pass
+    F64_NO_DIGIT are set aside; raises when fewer than TWIN_ROWS_HELD of
+    the rows are held or a held row is off. Returns (rows held, rows, and
+    the kernels' error, the runs' and the tolerance on the closest row)."""
+    z64 = _twin_states(m64, times, coeffs.double(), False)
+    scale = z64.abs().amax(dim=(0, 2)).clamp_min(1e-30)
+
+    def err(z):
+        return (z.double() - z64).abs().amax(dim=(0, 2)) / scale
+
+    ek = err(_twin_states(model, times, coeffs, True))
+    ee = err(_twin_states(model, times, coeffs, False))
+    gen = torch.Generator(device=coeffs.device).manual_seed(0)
+    inf = torch.tensor(float("inf"), device=coeffs.device)
+    for _ in range(TWIN_NUDGES):
+        up = torch.randint(0, 2, coeffs.shape, generator=gen,
+                           device=coeffs.device).bool()
+        nudged = torch.nextafter(coeffs, torch.where(up, inf, -inf))
+        ee = torch.maximum(ee, err(_twin_states(model, times, nudged,
+                                                False)))
+    tol = (YS_F64_FACTOR * ee).clamp(min=TOL_YS)
+    held = tol <= F64_NO_DIGIT
+    ratio = torch.where(held, ek / tol, torch.zeros_like(tol))
+    r = int(ratio.argmax())
+    out = (int(held.sum()), held.numel(), float(ek[r]), float(ee[r]),
+           float(tol[r]))
+    print(f"  twin {label} states over the whole control "
+          f"[{z64.shape[0]} steps], row by row: {out[0]} of {out[1]} rows "
+          f"held (the rest keep under a digit in float32 by the rule), the "
+          f"closest row {r}: "
+          f"kernels {out[2]:.3e} from float64, float32 eager runs up to "
+          f"{out[3]:.3e} (tol {out[4]:.3e})", flush=True)
+    if out[0] < TWIN_ROWS_HELD * out[1] or not float(ratio.max()) <= 1.0:
+        raise AssertionError(f"twin {label} states: {out}")
+    return out
+
+
+def twins_path():
+    """make_model's five baseline twins at the sepsis width (use_intensity,
+    weights from a generator seeded 0): one training step each (the loss's
+    gradient through the kernels, then Adam), the counts set to 0 just
+    before and read just after: the twin's instances once forward and once
+    backward (TWINS) and nothing else, a finite loss and gradients; the
+    same step with use_fused=False launches nothing. The loss and each
+    parameter's gradient through the kernels against use_fused=False's by
+    the float64 rule (f64_tol): the kernels' error from a float64 eager run
+    at most the larger of TOL_YS (the loss) or TOL_GRAD (a gradient) and
+    YS_F64_FACTOR times the float32 eager run's own, each over the
+    largest entry (a gradient's floored at 1e-3 of the model's largest).
+    The CDE twins' states over the whole control are held row by row
+    (twin_state_rows). The GRU-ODE field's gradients keep no digit read
+    past a few steps of this control, so its loss and gradients are held
+    read at the steps up to GRUODE_TWIN_HORIZON; the full step's loss and
+    gradients are printed beside the eager float32 run's distance from
+    float64, not held. A loss or gradient off its tolerance is raised
+    after every twin's readings are printed. The CDE plans at the width
+    are printed. Returns {name: launches}."""
+    import copy
+
+    from snsde_torch.harness.classification import make_model
+
+    times, coeffs, fin, y = twin_batch()
+    H, layers = MAIN["H"], MAIN["layers"]
+    cde_plans([(MAIN["B"], H, MAIN["C"], layers - 1)])
+    cde_plans([(MAIN["B"], H, MAIN["C"], 0)], act="gruode")
+    out, failed = {}, []
+    for name, want in TWINS.items():
+        model, _ = make_model(name, MAIN["C"], H, H, layers, 1,
+                              use_intensity=True,
+                              generator=torch.Generator().manual_seed(0))
+        model = model.to(DEV).train()
+        m64 = copy.deepcopy(model).double()
+        fin_chk = (fin.clamp(max=GRUODE_TWIN_HORIZON) if name == "gruode"
+                   else fin)
+
+        def grads_at(f, fused_too=True):
+            return {"eager": _twin_grads(model, name, times, coeffs, f, y,
+                                         False),
+                    "f64": _twin_grads(m64, name, times, coeffs.double(), f,
+                                       y.double(), False),
+                    **({"fused": _twin_grads(model, name, times, coeffs, f,
+                                             y, True)} if fused_too else {})}
+
+        runs = grads_at(fin_chk)
+        step = (runs["fused"] if name != "gruode" else
+                _twin_grads(model, name, times, coeffs, fin, y, True))
+        out[name] = step[3]
+        finite = bool(torch.isfinite(step[0])) and all(
+            bool(torch.isfinite(g).all()) for g in step[1])
+        if step[3] != {k: 1 for k in want} or runs["eager"][3] or \
+                not finite:
+            raise AssertionError(f"twin {name}: launches through the kernels"
+                                 f" {step[3]} (wanted "
+                                 f"{ {k: 1 for k in want} }), eager "
+                                 f"{runs['eager'][3]}, finite {finite}")
+        ref = [runs["f64"][0]] + runs["f64"][1]
+        top = max(float(g.abs().max()) for g in ref[1:])
+        readings = []       # (what, kernels, eager, tol, held)
+        for i, r in enumerate(ref):
+            scale = max(float(r.abs().max()), 1e-3 * top if i else 1e-30)
+            what = "loss" if i == 0 else f"grad {i - 1}"
+            ek = float((([runs["fused"][0]] + runs["fused"][1])[i].double()
+                        - r).abs().max()) / scale
+            ee = float((([runs["eager"][0]] + runs["eager"][1])[i].double()
+                        - r).abs().max()) / scale
+            readings.append((what, ek, ee, f64_tol(
+                f"twin {name} {what}", TOL_GRAD if i else TOL_YS, ee), True))
+        if name in ("ncde", "gruode"):
+            twin_state_rows(name, model, m64, times, coeffs)
+        if name == "gruode":
+            full = grads_at(fin, fused_too=False)
+            full["fused"] = step
+            ref = [full["f64"][0]] + full["f64"][1]
+            top = max(float(g.abs().max()) for g in ref[1:])
+            for i, r in enumerate(ref):
+                scale = max(float(r.abs().max()), 1e-3 * top if i else 1e-30)
+                k32 = ([full["fused"][0]] + full["fused"][1])[i]
+                e32 = ([full["eager"][0]] + full["eager"][1])[i]
+                what = ("loss" if i == 0 else f"grad {i - 1}") + " (whole)"
+                ek = float((k32.double() - r).abs().max()) / scale
+                ee = float((e32.double() - r).abs().max()) / scale
+                readings.append((what, ek, ee, float("nan"), False))
+        bad = [w for w, ek, _, tol, held in readings if held and
+               not ek <= tol]
+        if bad:
+            failed.append(f"{name}: {bad}")
+        worst = max((r for r in readings if r[4]), key=lambda r: r[1] / r[3])
+        # the training step: Adam on the kernels' gradients
+        params = [p for p in model.parameters() if p.requires_grad]
+        opt = torch.optim.Adam(params, lr=1e-3)
+        for p, g in zip(params, step[1]):
+            p.grad = g
+        opt.step()
+        print(f"main path 14 (make_model {name!r} at the sepsis width): loss "
+              f"{float(step[0]):.6f} through the kernels"
+              + (f" (read at the steps up to {GRUODE_TWIN_HORIZON}: "
+                 f"{float(runs['fused'][0]):.6f})" if name == "gruode"
+                 else "")
+              + f", {float(runs['eager'][0]):.6f} eager; the closest call "
+              f"{worst[0]}: {worst[1]:.3e} from float64 (tol {worst[3]:.3e})"
+              f"; forward + backward {step[2] * 1e3:.1f} ms through the "
+              f"kernels, {runs['eager'][2] * 1e3:.1f} ms eager; launches "
+              f"{step[3]}", flush=True)
+        print(f"  twin {name} from float64, kernels / float32 eager / tol "
+              f"(- where not held): " + ", ".join(
+                  f"{w} {ek:.3e}/{ee:.3e}/" + (f"{tol:.3e}" if held else "-")
+                  for w, ek, ee, tol, held in readings), flush=True)
+    if failed:
+        raise AssertionError(f"twins off float64 past the rule: {failed}")
+    return out
+
+
+def asha_data():
+    from snsde_torch.data.synthetic import synthetic_uea
+
+    X, y, _ = synthetic_uea(n=ASHA["n"], length=ASHA["L"],
+                            channels=ASHA["D"], num_classes=ASHA["classes"],
+                            seed=ASHA["data_seed"])
+    return X, y
+
+
+def asha_path():
+    """asha_search at tools/run_asha_search.py's setting for each of
+    ASHA_MODELS, the counts set to 0 just before each and read just after:
+    the sampled trial configs are ASHA_SEARCH.json's; every packed group's
+    training takes one member-axis forward and backward launch a step (and
+    one forward a validation and test batch) and no solo launch, every
+    solo SRK run one solo launch a step; every score an accuracy. Prints
+    the best config, the scores beside ASHA_SEARCH.json's and the wall
+    time. Returns {name: launches}."""
+    import os
+
+    from snsde_torch.data.common import stratified_split
+    from snsde_torch.harness import param_search as ps
+
+    X, y = asha_data()
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "ASHA_SEARCH.json")) as f:
+        jax_rec = json.load(f)
+    tr, va, te = (len(ix) for ix in stratified_split(y, seed=ASHA["seed"]))
+    nb = {k: -(-v // ASHA["B"]) for k, v in (("tr", tr), ("va", va),
+                                            ("te", te))}
+    real_solo, real_pack = ps.train_ists_model, ps.train_ists_ensemble
+    calls = []
+
+    def per_run(budget):
+        return {"fwd": budget * (nb["tr"] + nb["va"]) + nb["te"],
+                "bwd": budget * nb["tr"]}
+
+    def watched(kind, real):
+        def run(model, *a, **kw):
+            before = read_counts()
+            res = real(model, *a, **kw)
+            torch.cuda.synchronize()
+            after = read_counts()
+            calls.append((kind, kw["max_epochs"],
+                          getattr(model, "n_members", 1),
+                          {k: after[k] - before[k] for k in after
+                           if after[k] != before[k]}))
+            return res
+        return run
+
+    out = {}
+    ps.train_ists_model = watched("solo", real_solo)
+    ps.train_ists_ensemble = watched("packed", real_pack)
+    try:
+        for name, pack in ASHA_MODELS:
+            calls.clear()
+            zero_counts()
+            t0 = time.perf_counter()
+            res = ps.asha_search(name, X, y, num_samples=ASHA["samples"],
+                                 rungs=ASHA["rungs"], seed=ASHA["seed"],
+                                 batch_size=ASHA["B"], pack=pack, device=DEV)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = out[name] = read_counts()
+            ref = jax_rec[name]
+            if [t["config"] for t in res["trials"]] != [
+                    t["config"] for t in ref["trials"]]:
+                raise AssertionError(f"asha {name}: trial configs are not "
+                                     f"ASHA_SEARCH.json's")
+            for kind, budget, K, delta in calls:
+                want = per_run(budget)
+                if name.startswith("neuralsde"):
+                    pre = "srk_packed" if kind == "packed" else "srk"
+                    exp = {f"{pre}_fwd": want["fwd"],
+                           f"{pre}_bwd": want["bwd"]}
+                    got = {k: delta.get(k, 0) for k in exp}
+                    other = {k for k in delta
+                             if k.startswith("srk") and k not in exp
+                             and not k.endswith("wgrad")}
+                    if got != exp or other:
+                        raise AssertionError(
+                            f"asha {name} {kind} K={K} budget {budget}: "
+                            f"launches {delta}, wanted {exp}")
+                elif delta.get("gru_fwd", 0) != want["fwd"]:
+                    raise AssertionError(f"asha {name} budget {budget}: "
+                                         f"launches {delta}")
+            scores = [t["score"] for t in res["trials"]]
+            if not all(0.0 <= s <= 1.0 for s in scores):
+                raise AssertionError(f"asha {name}: scores {scores}")
+            groups = sorted((b, K) for kind, b, K, _ in calls
+                            if kind == "packed")
+            print(f"main path 14 (asha {name}, pack={pack}): "
+                  f"{ASHA['samples']} trials, rungs {ASHA['rungs']} in "
+                  f"{wall:.1f} s; best {res['best_config']} score "
+                  f"{res['best_score']:.4f} (ASHA_SEARCH.json: "
+                  f"{ref['best_config']} {ref['best_score']:.4f}); scores "
+                  f"{[round(s, 4) for s in scores]} (JAX "
+                  f"{[round(t['score'], 4) for t in ref['trials']]}); "
+                  f"packed (budget, K) {groups}; launches "
+                  f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    finally:
+        ps.train_ists_model, ps.train_ists_ensemble = real_solo, real_pack
+    return out
+
+
+def phase14_kernel_checks():
+    """The kernel pairs at phase 14's new shapes against their plain
+    versions: the CDE pair at the twins' width (FinalTanh with one inner
+    layer, and the GRU-ODE field on Brownian-like controls), the EM pair's
+    latent instances at the tutorial's shape, and the SRK pair at ASHA's
+    rung 0 (the member axis at K=2, H=64, four hidden layers; solo at
+    H=128, three). Returns {key: (forward error, backward error)}."""
+    sh = TWIN_CDE
+    err = {"cde": compare_cde(sh["B"], sh["L"], sh["C"], sh["H"],
+                              sh["n_inner"], unit=True),
+           "cde_gruode": compare_cde(sh["B"], sh["L"], sh["C"], sh["H"], 0,
+                                     field="gruode", unit=True),
+           "em_latent": compare_latent(**TUTORIAL_LATENT),
+           "srk_packed": compare_members(*ASHA_MEMBERS)}
+    a = ASHA_SOLO
+    err["srk"] = compare(a["model"], a["B"], a["L"], a["C"], a["H"],
+                         a["layers"], srk=True)
+    return err
+
+
+def phase14_times():
+    """Times, plain times and bounds at phase 14's new shapes: the CDE
+    pair at the twins' width (FinalTanh and GRU-ODE), the latent pair at
+    the tutorial's shape, the SRK member axis at ASHA's K=2 against two
+    solo launches, and the solo SRK pair at ASHA's H=128.
+    {label: (ms, bounds)}."""
+    sh = TWIN_CDE
+    # 10 runs: the GRU-ODE backward there takes ~0.44 s
+    out = {"cde": cde_kernel_times(sh, reps=10, warmup=2),
+           "cde_gruode": cde_kernel_times(dict(sh, n_inner=0),
+                                          field="gruode", reps=10, warmup=2),
+           "em_latent": latent_kernel_times(TUTORIAL_LATENT)}
+    ms, bounds = packed_kernel_times(cases=(ASHA_MEMBERS,))
+    out["srk_packed"] = (ms["srk"], bounds["srk"])
+    out["srk"] = kernel_times(ASHA_SOLO, srk=True)
+    return out
+
+
+def phase14_entry(key, part, launches, times):
+    """The fields phase 14 adds to the kernels line's entry `key` ("cde",
+    "cde_gruode", "em_latent", "srk", "srk_packed", "gru", or a GRU mode
+    "gru_obs", "gru_dec1", "gru_ode"): its launches on phase 14's runs and
+    its time, plain time and bound at phase 14's shape."""
+    runs = launches["p14"]
+    out = {}
+    if key in ("cde", "cde_gruode"):
+        counter = "cde" if key == "cde" else "cde_gru"
+        out["launches_twins"] = sum(v.get(f"{counter}_{part}", 0)
+                                    for v in runs["twins"].values())
+    if key == "cde":
+        out["launches_tutorial"] = runs["tutorial"][("cde", "euler")][
+            f"cde_{part}"]
+    if key == "em_latent":
+        out["launches_tutorial"] = sum(v[f"em_latent_{part}"]
+                                       for v in runs["tutorial"].values())
+    if key in ("srk", "srk_packed", "gru"):
+        counter = {"srk": "srk", "srk_packed": "srk_packed",
+                   "gru": "gru"}[key]
+        out["launches_asha"] = sum(v[f"{counter}_{part}"]
+                                   for v in runs["asha"].values())
+    if key in ("gru_obs", "gru_dec1", "gru_ode"):
+        out["launches_twins"] = sum(v.get(f"{key}_{part}", 0)
+                                    for v in runs["twins"].values())
+    if key in times:
+        ms, bounds = times[key]
+        tag = {"cde": "c69", "cde_gruode": "c69", "em_latent": "tutorial",
+               "srk": "asha_h128", "srk_packed": "asha_k2"}[key]
+        out.update({f"ms_{tag}": ms[part],
+                    f"plain_ms_{tag}": ms[f"{part}_plain"],
+                    f"bound_ms_{tag}": bounds[part][0]})
+        if key == "srk_packed":
+            out[f"solo_launches_ms_{tag}"] = ms[f"{part}_solo_k"]
+    return out
 
 
 def main() -> int:
@@ -6085,6 +6805,14 @@ def main() -> int:
     err["gru_paths"] = tuple(max(a, b) for a, b in zip(err["gru_paths"],
                                                        compare_interp_gru()))
     check_interp_scatter()
+    print("phase 14: the CDE pair at the sepsis width (make_model's ncde and "
+          "gruode), the latent pair at the tutorial's shape and the SRK "
+          "pair at ASHA's rung 0 vs their plain versions:", flush=True)
+    for key, e in phase14_kernel_checks().items():
+        paths = {"cde": "cde_paths", "srk": "srk_paths",
+                 "em_latent": "em_latent", "srk_packed": "srk_packed",
+                 "cde_gruode": "cde_gruode"}[key]
+        err[paths] = tuple(max(a, b) for a, b in zip(err.get(paths, e), e))
     with tempfile.TemporaryDirectory() as out_dir:
         launches = {"em": main_path(), "srk": mujoco_path(),
                     "cde": sweep_path(out_dir)}
@@ -6104,6 +6832,13 @@ def main() -> int:
         launches["cde_linear"] = linear_sweep_path(out_dir)
         launches["zoo"] = zoo_sweep_path(out_dir)
         launches["interp"] = interp_path(out_dir)
+        t_phase = time.perf_counter()
+        launches["p14"] = {"quick": quick_start_path(),
+                           "tutorial": tutorial_path(),
+                           "configs": configs_path(out_dir),
+                           "twins": twins_path(), "asha": asha_path()}
+        print(f"main path 14: the entry points in "
+              f"{time.perf_counter() - t_phase:.1f} s", flush=True)
     launches["activity"] = activity_path()
     for method in SDE_METHODS:
         sde_method_mujoco_path(method)
@@ -6182,6 +6917,10 @@ def main() -> int:
                          ("activity", activity_step_fns())):
         for k, v in step_times(label, steps, eager_reps=3).items():
             ms["interp"][f"{label} {k}"] = v
+    times14 = phase14_times()
+    for label, (t14, _) in times14.items():
+        for k, v in t14.items():
+            ms.setdefault("p14", {})[f"{label} {k}"] = v
     for key in ms:
         for k, v in ms[key].items():
             print(f"time {key} {k}: {v:.4f} ms  [{smi}]")
@@ -6225,6 +6964,8 @@ def main() -> int:
                                 interp_bounds) if key == "em" else {}),
                 **(interp_gru_entry(part, launches, igru_times)
                    if key == "gru" else {}),
+                **(phase14_entry(key, part, launches, times14)
+                   if key in ("cde", "srk", "gru") else {}),
             })
     for key, line, src in (("em", "fused_em.py:888", "fused_em"),
                            ("srk", "fused_srk.py:527", "fused_srk"),
@@ -6268,7 +7009,9 @@ def main() -> int:
                 "bound_ms": bounds[f"{key}_packed"][part][0],
                 "bound_by": bounds[f"{key}_packed"][part][1],
                 "library_ms": None, "members": K, "shape": shape,
-                "solo_launches_ms": ms[f"{key}_packed"][f"{part}_solo_k"]})
+                "solo_launches_ms": ms[f"{key}_packed"][f"{part}_solo_k"],
+                **(phase14_entry("srk_packed", part, launches, times14)
+                   if key == "srk" else {})})
     # the EM pair at the speech shape (its launches the speech path's), and
     # the latent instances at the sweep's shape (their launches the latent
     # sweep runs'; the weight-gradient kernel is the one the other modes
@@ -6288,7 +7031,9 @@ def main() -> int:
                 "ms": ms[key][part], "plain_ms": ms[key][f"{part}_plain"],
                 "bound_ms": bounds[key][part][0],
                 "bound_by": bounds[key][part][1], "library_ms": None,
-                "shape": shape, "modes": modes})
+                "shape": shape, "modes": modes,
+                **(phase14_entry("em_latent", part, launches, times14)
+                   if key == "em_latent" else {})})
     kernels.append({
         "name": "fused_em_weight_grads_latent", "route": "cuda",
         "source": "snsde_torch/csrc/fused_em.cu",
@@ -6325,7 +7070,9 @@ def main() -> int:
                 "shape": "sweep", "mode": mode,
                 "ms_h256": ms[key][f"{part} h256"],
                 "plain_ms_h256": ms[key][f"{part}_plain h256"],
-                "bound_ms_h256": bounds[key][f"{part} h256"][0]})
+                "bound_ms_h256": bounds[key][f"{part} h256"][0],
+                **(phase14_entry(key, part, launches, times14)
+                   if kind == "gru" else {})})
         if sfx == "ode":
             kernels.append({
                 "name": f"fused_mlp_weight_grads_{kind}", "route": "cuda",
@@ -6387,7 +7134,8 @@ def main() -> int:
             "bound_ms_gruode_rk4":
                 bounds["cde_gruode"][f"{part} gruode_rk4"][0],
             "finaltanh_ms": ms["cde"][part],
-            "finaltanh_ms_uea_rk4": ms["cde"][f"uea_rk4 {part}"]})
+            "finaltanh_ms_uea_rk4": ms["cde"][f"uea_rk4 {part}"],
+            **phase14_entry("cde_gruode", part, launches, times14)})
         kernels.append({
             "name": f"fused_cde_{name}_packed", "route": "cuda",
             "source": "snsde_torch/csrc/fused_cde.cu",
@@ -6434,5 +7182,5 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--interp-flagship"]:
         sys.exit(interp_flagship(*sys.argv[2:3]))
     if sys.argv[1:2] == ["--activity-r5"]:
-        sys.exit(activity_r5(*sys.argv[2:3]))
+        sys.exit(activity_r5(*sys.argv[2:3], *map(int, sys.argv[3:4])))
     sys.exit(main())

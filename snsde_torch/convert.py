@@ -42,7 +42,15 @@ for the seed ensembles the members' tuples, a
 `ModuleList` here too: InitialValueSeedEnsemble's
 `members.0.field.linear_in.weight` and `members.0.readout.norm.running_var`,
 SeedEnsemble's `fields.0...`, `initial_networks.0...` and `readouts.0...`,
-ISTSSeedEnsembleSDE's `members.0.layer.inner.func...`). A cell's or GRUDFull's raw arrays (`w_ih`, `w_hh`,
+ISTSSeedEnsembleSDE's `members.0.layer.inner.func...`);
+for the tutorial path the `MLP`'s tuple of Linears, a `ModuleList` here
+(`layers.0.weight`), the tutorial fields' `linear_X`, `emb`,
+`f_net.layers.1.bias`, `noise_in` and `g_net`, and `NDEModel`'s
+`func.g_net.layers.2.weight`, `initial.bias` and `decoder.weight`; for
+`make_model`'s baseline twins NeuralCDE's `func.linear_out.weight`
+(`func.W_r.weight` for `gruode`), `initial_network.bias` and
+`readout.norm.scale`, and GRUdt's, GRUD's and ODERNN's `gru.w_ih`,
+`decay.weight` and `f_layers.0.bias` at the top level. A cell's or GRUDFull's raw arrays (`w_ih`, `w_hh`,
 `b_ih`, `b_hh`, `x_mean`) have one layout on both sides and are copied as
 they are; only a `Linear`'s weight is transposed.
 `load_jax_arrays` fills a port model from such a dict;

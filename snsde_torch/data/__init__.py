@@ -1,14 +1,18 @@
-from .common import (append_time_intensity, inject_missingness,
-                     normalize_with_train_stats, preprocess_classification,
+from .common import (append_time_intensity, cache_path, inject_missingness,
+                     load_cached, normalize_with_train_stats,
+                     preprocess_classification, save_cached,
                      stratified_split)
-from . import person_activity, physionet2012
+from . import (mujoco, person_activity, physionet2012, sepsis,
+               speech_commands, uea)
 from .mujoco import drop_timestep_rows, get_data, load_windows
+from .ou import generate_ou_paths, ou_dataset
 from .synthetic import (synthetic_mujoco, synthetic_sepsis,
                         synthetic_speech, synthetic_uea)
 
-__all__ = ["person_activity", "physionet2012", "append_time_intensity",
-           "inject_missingness",
-           "normalize_with_train_stats", "preprocess_classification",
-           "stratified_split", "drop_timestep_rows", "get_data",
-           "load_windows", "synthetic_mujoco", "synthetic_sepsis",
-           "synthetic_speech", "synthetic_uea"]
+__all__ = ["mujoco", "person_activity", "physionet2012", "sepsis",
+           "speech_commands", "uea", "append_time_intensity", "cache_path",
+           "inject_missingness", "load_cached", "normalize_with_train_stats",
+           "preprocess_classification", "save_cached", "stratified_split",
+           "drop_timestep_rows", "get_data", "load_windows",
+           "generate_ou_paths", "ou_dataset", "synthetic_mujoco",
+           "synthetic_sepsis", "synthetic_speech", "synthetic_uea"]

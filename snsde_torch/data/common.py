@@ -1,13 +1,21 @@
-"""Classification preprocessing (counterpart of snsde/data/common.py:42-155).
+"""Classification preprocessing (counterpart of snsde/data/common.py).
 
 Train-stats normalisation, the time and cumulative-intensity channels, the
 stratified 70/15/15 split, Hermite or natural cubic spline coefficients,
 and the seeded per-channel missingness of the robustness runs, on the
 host. The coefficients come from the port's own `ops.interp` (on the CPU).
+
+The loaders' cache (`cache_path`, `load_cached`, `save_cached`; JAX's
+:163-179) keeps a tuple of arrays as `.npz`, loaded without pickles, in a
+directory the caller names (the loaders use their data directory): a
+`<name>_<hash>.npz` beside the JAX package's `<name>_<hash>.pkl` never
+collides with it.
 """
 
 from __future__ import annotations
 
+import hashlib
+import os
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -17,7 +25,8 @@ from ..ops.interp import hermite_cubic_coeffs, natural_cubic_coeffs
 
 __all__ = ["normalize_with_train_stats", "append_time_intensity",
            "stratified_split", "inject_missingness",
-           "preprocess_classification"]
+           "preprocess_classification", "cache_path", "load_cached",
+           "save_cached"]
 
 
 def normalize_with_train_stats(X: np.ndarray, train_idx) -> np.ndarray:
@@ -118,3 +127,25 @@ def preprocess_classification(X: np.ndarray, y: np.ndarray,
         "val": subset(va),
         "test": subset(te),
     }
+
+
+def cache_path(name: str, directory: str, **params) -> str:
+    """<directory>/<name>_<hash>.npz, the hash JAX's: the first 12 hex
+    digits of the SHA-1 of repr(sorted(params.items()))."""
+    blob = repr(sorted(params.items())).encode()
+    return os.path.join(directory,
+                        f"{name}_{hashlib.sha1(blob).hexdigest()[:12]}.npz")
+
+
+def load_cached(path: str) -> Optional[Tuple[np.ndarray, ...]]:
+    """The tuple of arrays `save_cached` wrote to `path`, or None."""
+    if not os.path.exists(path):
+        return None
+    with np.load(path, allow_pickle=False) as z:
+        return tuple(z[f"a{i}"] for i in range(len(z.files)))
+
+
+def save_cached(path: str, arrays) -> None:
+    """Write a tuple of arrays to `path` (.npz, no pickles)."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    np.savez(path, **{f"a{i}": np.asarray(a) for i, a in enumerate(arrays)})

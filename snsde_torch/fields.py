@@ -1,4 +1,4 @@
-"""Drift/diffusion vector field (counterpart of snsde/fields.py:77-325).
+"""Drift/diffusion vector fields (counterpart of snsde/fields.py).
 
 `DiffusionField` realises the whole input_option (0-6) x noise_option
 (0-19) grid of the reference `Diffusion_model`, eagerly. Its submodule and
@@ -8,6 +8,13 @@ tests/goldens/reference_{fg,em}.npz — load into it directly.
 
 Canonical bindings: staticsde=(1,0) naivesde=(1,18) neuralsde=(3,18)
 neurallsde=(2,16) neurallnsde=(4,17) neuralgsde=(6,17).
+
+The tutorial ("pure") formulations of snsde/fields.py:335-504 are here too:
+`NeuralSDEFunc`, `NeuralLSDEFunc`, `NeuralLNSDEFunc` and `NeuralGSDEFunc`,
+LipSwish MLPs without the grid's tanh clipping. Their parameter names are
+the JAX package's (`f_net.layers.0.weight`, ...), so its leaves carry
+across through `snsde_torch.convert`. As in JAX, `NeuralSDEFunc`'s
+`linear_out` lies on no path.
 """
 
 from __future__ import annotations
@@ -17,10 +24,12 @@ from typing import Optional
 import torch
 from torch import nn
 
-from .nn.layers import make_linear
+from .nn.layers import MLP, make_linear
 from .ops.interp import CubicPath
 
-__all__ = ["DiffusionField", "PROPOSAL_METHOD_CONTRACT", "MODEL_NAME_GRID"]
+__all__ = ["DiffusionField", "NeuralSDEFunc", "NeuralLSDEFunc",
+           "NeuralLNSDEFunc", "NeuralGSDEFunc", "PROPOSAL_METHOD_CONTRACT",
+           "MODEL_NAME_GRID"]
 
 PROPOSAL_METHOD_CONTRACT = {
     "lsde": (2, 16),
@@ -43,6 +52,15 @@ def time_features(t, y):
     tcol = torch.as_tensor(t, dtype=y.dtype, device=y.device)
     tcol = tcol.reshape(-1)[:1].expand(y.shape[:-1] + (1,))
     return tcol, torch.cat([torch.sin(tcol), torch.cos(tcol)], dim=-1)
+
+
+def time_column(t, y):
+    """t as a [..., 1] column of y's dtype: a scalar broadcast to y's batch
+    dims, a per-row t kept (a trailing axis of 1 added when missing)."""
+    t = torch.as_tensor(t, dtype=y.dtype, device=y.device)
+    if t.ndim == 0:
+        return t.expand(y.shape[:-1] + (1,))
+    return t if t.shape[-1:] == (1,) else t[..., None]
 
 
 class DiffusionField(nn.Module):
@@ -171,3 +189,136 @@ class DiffusionField(nn.Module):
     def g(self, t, y):
         noise = torch.nan_to_num(self._raw_diffusion(t, y))
         return torch.tanh(torch.sigmoid(self.theta[0, 0]) * noise)
+
+
+# ---------------------------------------------------------------------------
+# The tutorial formulations: LipSwish MLPs, no tanh clipping
+# ---------------------------------------------------------------------------
+
+
+class _TutorialField(nn.Module):
+    """The layers the four tutorial fields share, drawn from `generator`
+    in the JAX package's order: linear_X (input_dim -> H), emb (emb_in ->
+    H), f_net, linear_out, noise_in (1 -> H), g_net. `emb_in` of 2H + 1
+    when the drift reads the time column, 2H when it does not."""
+
+    def __init__(self, input_dim: int, hidden_dim: int,
+                 hidden_hidden_dim: int, num_layers: int, activation: str,
+                 emb_in: int, *, generator=None, device=None):
+        super().__init__()
+        H = hidden_dim
+        lin = lambda i, o: make_linear(i, o, generator=generator,
+                                       device=device)
+        mlp = lambda: MLP(H, H, hidden_hidden_dim, num_layers, activation,
+                          generator=generator, device=device)
+        self.linear_X = lin(input_dim, H)
+        self.emb = lin(emb_in, H)
+        self.f_net = mlp()
+        self.linear_out = lin(H, H)
+        self.noise_in = lin(1, H)
+        self.g_net = mlp()
+        self.path: Optional[CubicPath] = None
+
+    def bind(self, path) -> "_TutorialField":
+        """Set the control path and return self."""
+        self.path = path
+        return self
+
+    def _drift(self, t, y, with_time: bool):
+        Xt = self.linear_X(self.path.evaluate(t))
+        parts = [time_column(t, y)] if with_time else []
+        z = self.emb(torch.cat(parts + [y, Xt], dim=-1))
+        return self.linear_out(self.f_net(z))
+
+    def _time_noise(self, t, y):
+        return self.g_net(self.noise_in(time_column(t, y)))
+
+
+class NeuralSDEFunc(nn.Module):
+    """Generic Neural SDE: f = MLP(linear_in([t, y])); g =
+    MLP(noise_in([t, y])). `input_dim` is unused (no control path read)."""
+
+    def __init__(self, input_dim: int, hidden_dim: int,
+                 hidden_hidden_dim: int, num_layers: int,
+                 activation: str = "lipswish", *, generator=None,
+                 device=None):
+        super().__init__()
+        H = hidden_dim
+        lin = lambda i, o: make_linear(i, o, generator=generator,
+                                       device=device)
+        mlp = lambda: MLP(H, H, hidden_hidden_dim, num_layers, activation,
+                          generator=generator, device=device)
+        self.linear_in = lin(H + 1, H)
+        self.f_net = mlp()
+        self.linear_out = lin(H, H)
+        self.noise_in = lin(H + 1, H)
+        self.g_net = mlp()
+        self.path: Optional[CubicPath] = None
+
+    def bind(self, path) -> "NeuralSDEFunc":
+        self.path = path
+        return self
+
+    def f(self, t, y):
+        return self.f_net(self.linear_in(
+            torch.cat([time_column(t, y), y], dim=-1)))
+
+    def g(self, t, y):
+        return self.g_net(self.noise_in(
+            torch.cat([time_column(t, y), y], dim=-1)))
+
+
+class NeuralLSDEFunc(_TutorialField):
+    """Langevin-type SDE: f = MLP(emb([y, X(t)])); g = MLP(NN(t)), the
+    diffusion independent of the state (additive)."""
+
+    def __init__(self, input_dim: int, hidden_dim: int,
+                 hidden_hidden_dim: int, num_layers: int,
+                 activation: str = "lipswish", *, generator=None,
+                 device=None):
+        super().__init__(input_dim, hidden_dim, hidden_hidden_dim,
+                         num_layers, activation, 2 * hidden_dim,
+                         generator=generator, device=device)
+
+    def f(self, t, y):
+        return self._drift(t, y, with_time=False)
+
+    def g(self, t, y):
+        return self._time_noise(t, y)
+
+
+class NeuralLNSDEFunc(_TutorialField):
+    """Linear-noise SDE: f = MLP(emb([t, y, X(t)])); g = NN(t) * y."""
+
+    def __init__(self, input_dim: int, hidden_dim: int,
+                 hidden_hidden_dim: int, num_layers: int,
+                 activation: str = "lipswish", *, generator=None,
+                 device=None):
+        super().__init__(input_dim, hidden_dim, hidden_hidden_dim,
+                         num_layers, activation, 2 * hidden_dim + 1,
+                         generator=generator, device=device)
+
+    def f(self, t, y):
+        return self._drift(t, y, with_time=True)
+
+    def g(self, t, y):
+        return self._time_noise(t, y) * y
+
+
+class NeuralGSDEFunc(_TutorialField):
+    """Geometric SDE: f = MLP(emb([t, y, X(t)])) * y; g = NN(t) * y, both
+    vanishing at y = 0."""
+
+    def __init__(self, input_dim: int, hidden_dim: int,
+                 hidden_hidden_dim: int, num_layers: int,
+                 activation: str = "lipswish", *, generator=None,
+                 device=None):
+        super().__init__(input_dim, hidden_dim, hidden_hidden_dim,
+                         num_layers, activation, 2 * hidden_dim + 1,
+                         generator=generator, device=device)
+
+    def f(self, t, y):
+        return self._drift(t, y, with_time=True) * y
+
+    def g(self, t, y):
+        return self._time_noise(t, y) * y

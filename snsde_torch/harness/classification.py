@@ -2,7 +2,9 @@
 snsde/harness/classification.py:44-56, 110-475).
 
 The model name resolves to an (input_option, noise_option) pair of the
-7x20 grid. The sepsis model maps the static features to z0 through a
+7x20 grid; `make_model` also builds the baseline twins of the JAX
+registry (`ncde`, `gruode`: the CDE kernels on the card; `dt`, `decay`,
+`odernn`: the GRU kernels' obs, decay-row and evolve modes). The sepsis model maps the static features to z0 through a
 two-layer encoder and reads the NeuralSDE's terminal state out through a
 BatchNorm head; training is binary BCE with pos_weight 10, selected on val
 AUROC, with the 100x gradient hook on the readout's last linear. The
@@ -43,7 +45,7 @@ from ..train.ensemble_loop import fit_classifier_ensemble
 from ..train.loop import (FitResult, TrainConfig, fit_classifier,
                           readout_grad_hook)
 
-__all__ = ["parse_model_name", "make_sde_model", "InitialValueModel",
+__all__ = ["parse_model_name", "make_model", "make_sde_model", "InitialValueModel",
            "HarnessConfig", "run_sepsis", "run_sepsis_ensemble",
            "run_speech", "run_speech_ensemble", "run_all"]
 
@@ -62,6 +64,52 @@ def parse_model_name(name: str) -> Tuple[int, int]:
             raise ValueError(f"{name}: options out of range (0-6 × 0-19)")
         return i, j
     raise ValueError(f"unknown SDE model name {name!r}")
+
+
+def make_model(name: str, input_channels: int, hidden_channels: int,
+               hidden_hidden_channels: int, num_hidden_layers: int,
+               output_channels: int, use_intensity: bool = False,
+               initial: bool = True, method: str = "euler", *,
+               generator: Optional[torch.Generator] = None, device=None):
+    """(model, reg_subtree_fn) of the classification registry
+    (snsde/harness/classification.py:58-107): the SDE grid's names, and
+    the baseline twins `ncde` (FinalTanh) and `gruode` (the GRU-ODE field)
+    in a NeuralCDE, `dt` (GRUdt), `decay` (GRUD) and `odernn` (ODERNN).
+    The last three read the intensity-augmented stream [time ‖ K
+    intensities ‖ K values] and raise ValueError on an even channel
+    count. The weights are drawn from `generator` in construction order."""
+    kw = dict(generator=generator, device=device)
+    if name in ("ncde", "gruode"):
+        from ..models.neuralcde import FinalTanh, GRUODEField, NeuralCDE
+
+        field = (FinalTanh(input_channels, hidden_channels,
+                           hidden_hidden_channels, num_hidden_layers, **kw)
+                 if name == "ncde" else
+                 GRUODEField(input_channels, hidden_channels, **kw))
+        model = NeuralCDE(field, input_channels, hidden_channels,
+                          output_channels, initial=initial, **kw)
+        return model, (lambda m: m.func)
+    if name in ("dt", "decay", "odernn"):
+        from ..models.rnn import GRUD, ODERNN, GRUdt
+
+        if input_channels % 2 != 1:
+            raise ValueError(
+                f"{name} requires the intensity-augmented channel layout "
+                f"[time ‖ K intensity ‖ K values] (odd channel count; got "
+                f"{input_channels}): preprocess with use_intensity=True")
+        if name == "odernn":
+            model = ODERNN(input_channels, hidden_channels, output_channels,
+                           hidden_hidden_channels, num_hidden_layers,
+                           use_intensity=use_intensity, **kw)
+        else:
+            model = (GRUdt if name == "dt" else GRUD)(
+                input_channels, hidden_channels, output_channels,
+                use_intensity=use_intensity, **kw)
+        return model, (lambda m: m)
+    return make_sde_model(name, input_channels, hidden_channels,
+                          hidden_hidden_channels, num_hidden_layers,
+                          output_channels, initial=initial, method=method,
+                          **kw)
 
 
 def make_sde_model(name: str, input_channels: int, hidden_channels: int,

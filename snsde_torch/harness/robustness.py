@@ -411,7 +411,7 @@ def _packed_cell(cfg, X, y, data_of, model_name, rate, pending,
     try:
         datas = [data_of(rate, s, coeff_family(model_name)) for s in seeds]
         splits_list = [stratified_split(y, seed=s) for s in seeds]
-        model = ISTSSeedEnsembleSDE(
+        model = ISTSSeedEnsembleSDE.create(
             model_name, X.shape[-1], X.shape[1], cfg.hidden_dim,
             int(y.max()) + 1, len(seeds), method=cfg.method,
             generator=torch.Generator().manual_seed(seeds[0])).to(dev)
@@ -457,20 +457,27 @@ class ISTSSeedEnsembleSDE(nn.Module):
     forward(seqs [K, B, 3, L, D], coeffs [K, B, L-1, 4C], *, generators)
     -> logits [K, B, classes]."""
 
-    def __init__(self, model_name: str, input_dim: int, seq_len: int,
-                 hidden_dim: int, num_classes: int, n_members: int,
-                 hidden_hidden_dim: Optional[int] = None, num_layers: int = 1,
-                 num_hidden_layers: int = 1, method: Optional[str] = None, *,
-                 generator: Optional[torch.Generator] = None, device=None):
+    def __init__(self, members):
         super().__init__()
-        self.members = nn.ModuleList(
-            ISTSClassifier(model_name, input_dim, seq_len, hidden_dim,
-                           num_classes, hidden_hidden_dim, num_layers,
-                           num_hidden_layers, method=method,
-                           generator=generator, device=device)
-            for _ in range(n_members))
+        self.members = nn.ModuleList(members)
         # the members' stream solver (srk for the SDE names by default)
         self.method = self.members[0].layer.inner.method
+
+    @classmethod
+    def create(cls, model_name: str, input_dim: int, seq_len: int,
+               hidden_dim: int, num_classes: int, n_members: int,
+               hidden_hidden_dim: Optional[int] = None, num_layers: int = 1,
+               num_hidden_layers: int = 1, method: Optional[str] = None, *,
+               generator: Optional[torch.Generator] = None, device=None
+               ) -> "ISTSSeedEnsembleSDE":
+        """K members of one name and width, drawn one after another from
+        `generator` (the sweep's packed cell)."""
+        return cls([ISTSClassifier(model_name, input_dim, seq_len,
+                                   hidden_dim, num_classes, hidden_hidden_dim,
+                                   num_layers, num_hidden_layers,
+                                   method=method, generator=generator,
+                                   device=device)
+                    for _ in range(n_members)])
 
     @property
     def n_members(self) -> int:

@@ -8,7 +8,7 @@ from .mtan import (DecRNN3, LatentClassifier, MTANClassifier, MTANDecoder,
                    MTANEncoder, MultiTimeAttention, TimeEmbedding)
 from .neuralcde import (FinalTanh, GRUODEField, NeuralCDE, NeuralCDEStream,
                         SingleHiddenLayer, cde_solve_dispatch)
-from .neuralsde import (NeuralSDE, NeuralSDEForecasting, NeuralSDEStream,
+from .neuralsde import (NDEModel, NeuralSDE, NeuralSDEForecasting, NeuralSDEStream,
                         ReadoutHead, resolve_dt, solve_dispatch)
 from .rnn import (GRUD, ODERNN, GRUdt, SeqCNN, SeqRNN, SeqTransformer,
                   last_observation_excl)
@@ -22,7 +22,7 @@ __all__ = ["ANCDE", "EXIT", "LEAP", "NeuralRDE", "hard_sigmoid_ste",
            "MTANDecoder", "MTANEncoder", "MultiTimeAttention",
            "TimeEmbedding", "LatentSDE", "FinalTanh", "GRUODEField", "NeuralCDE",
            "NeuralCDEStream", "SingleHiddenLayer", "cde_solve_dispatch",
-           "NeuralSDE", "NeuralSDEForecasting", "NeuralSDEStream",
+           "NDEModel", "NeuralSDE", "NeuralSDEForecasting", "NeuralSDEStream",
            "ReadoutHead", "resolve_dt", "solve_dispatch", "SeqRNN",
            "SeqCNN", "SeqTransformer", "last_observation_excl", "GRUDFull",
            "GRUdt", "GRUD", "ODERNN", "ODELSTM", "TLSTM", "PLSTM", "TGLSTM"]

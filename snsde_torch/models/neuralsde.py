@@ -1,7 +1,8 @@
-"""NeuralSDE models (counterpart of snsde/models/neuralsde.py:44-256): the
+"""NeuralSDE models (counterpart of snsde/models/neuralsde.py:44-292): the
 terminal-readout head for classification, the stream head of the
-registry's `neuralsde_{i}_{j}` names and the forecasting head. The
-tutorial head is not ported yet.
+registry's `neuralsde_{i}_{j}` names, the forecasting head and the
+tutorial's `NDEModel`, which solves with the eager `sdeint` (as JAX's
+calls `sdeint`, not the dispatch: no kernel on either side).
 
 Train/eval mode is torch's (`model.train()` / `model.eval()`): BatchNorm
 uses batch statistics and dropout is live only in train mode. The solve is
@@ -25,7 +26,7 @@ from ..ops.interp import CubicPath
 from ..ops.solve import sdeint
 
 __all__ = ["resolve_dt", "solve_dispatch", "ReadoutHead", "NeuralSDE",
-           "NeuralSDEStream", "NeuralSDEForecasting"]
+           "NeuralSDEStream", "NeuralSDEForecasting", "NDEModel"]
 
 
 def resolve_dt(times, floor: float = 1e-3) -> float:
@@ -192,3 +193,37 @@ class NeuralSDEForecasting(nn.Module):
                             use_fused=use_fused)
         z = zs.movedim(0, 1)[:, -self.output_time:, :]       # [B, T, H]
         return self.linear2(torch.relu(self.linear1(z)))
+
+
+class NDEModel(nn.Module):
+    """The tutorial wrapper: initial linear on X(t0) -> the eager
+    sdeint(f, g, dt=0.05) -> a per-step linear decoder.
+    `vector_field(input_dim, hidden_dim, hidden_dim, num_layers,
+    activation)` builds the field (a tutorial field of `snsde_torch.fields`).
+
+    forward(coeffs [B, L-1, 4C], times [L]) -> [B, L, output_dim]."""
+
+    def __init__(self, input_dim: int, hidden_dim: int, output_dim: int,
+                 num_layers: int, vector_field=None,
+                 activation: str = "lipswish", dt: float = 0.05,
+                 method: str = "euler", *,
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        self.func = vector_field(input_dim, hidden_dim, hidden_dim,
+                                 num_layers, activation, generator=generator,
+                                 device=device)
+        self.initial = make_linear(input_dim, hidden_dim, generator=generator,
+                                   device=device)
+        self.decoder = make_linear(hidden_dim, output_dim,
+                                   generator=generator, device=device)
+        self.dt, self.method = dt, method
+
+    def forward(self, coeffs, times, *,
+                generator: Optional[torch.Generator] = None,
+                bm: Optional[BrownianGrid] = None):
+        path = CubicPath(coeffs, times)
+        func = self.func.bind(path)
+        y0 = self.initial(path.evaluate(path.times[0]))
+        zs = sdeint(func.f, func.g, y0, times, generator=generator, bm=bm,
+                    dt=self.dt, method=self.method)
+        return self.decoder(zs.movedim(0, 1))

@@ -130,7 +130,7 @@ class _ObservationGRUBase(nn.Module):
         # gru-dt/gru-d/ode-rnn contract, as in JAX)
         X = X[..., :self.input_channels]
         K = (self.input_channels - 1) // 2
-        tt = torch.as_tensor(times_np, device=X.device)
+        tt = torch.as_tensor(times_np, dtype=X.dtype, device=X.device)
         intens = X[:, :, 1:1 + K]
         intens = torch.cat([intens[:, :1], intens[:, 1:] - intens[:, :-1]],
                            dim=1)
@@ -148,7 +148,7 @@ class _ObservationGRUBase(nn.Module):
         if stream:
             final = out
         else:
-            idx = torch.as_tensor(np.asarray(final_index), device=X.device)
+            idx = torch.as_tensor(final_index, device=X.device).long()
             final = out[torch.arange(B, device=X.device), idx]
         return self.linear(final), out
 

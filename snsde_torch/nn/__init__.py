@@ -1,5 +1,5 @@
-from .layers import (BatchNorm, Dropout, GRUCell, Linear, LSTMCell, RNNCell,
-                     make_linear)
+from .layers import (ACTIVATIONS, MLP, BatchNorm, Dropout, GRUCell, Linear,
+                     LSTMCell, RNNCell, lipswish, make_linear)
 
-__all__ = ["BatchNorm", "Dropout", "GRUCell", "Linear", "LSTMCell", "RNNCell",
-           "make_linear"]
+__all__ = ["ACTIVATIONS", "MLP", "BatchNorm", "Dropout", "GRUCell", "Linear",
+           "LSTMCell", "RNNCell", "lipswish", "make_linear"]

@@ -15,6 +15,11 @@ names and layout, `w_ih` [in, kH], `w_hh` [H, kH], `b_ih`, `b_hh` [kH],
 with the gates in torch's order, so weights carry across with no
 transpose: `GRUCell` (r, z, n), `LSTMCell` (i, f, g, o) and the tanh
 Elman `RNNCell`. Each draws every parameter from U(-1/sqrt(H), 1/sqrt(H)).
+
+`lipswish` (0.909 silu), the activation table `ACTIVATIONS` under the JAX
+package's names, and the tutorial `MLP` (`snsde/nn/layers.py:67-116`):
+its Linears are a `ModuleList` named `layers`, so `layers.0.weight` is the
+JAX leaf `layers.0.weight`.
 """
 
 from __future__ import annotations
@@ -26,7 +31,7 @@ import torch
 from torch import nn
 
 __all__ = ["Linear", "BatchNorm", "Dropout", "dropout", "make_linear", "RNNCell",
-           "GRUCell", "LSTMCell"]
+           "GRUCell", "LSTMCell", "lipswish", "ACTIVATIONS", "MLP"]
 
 Linear = nn.Linear
 BatchNorm = nn.BatchNorm1d
@@ -44,6 +49,50 @@ def make_linear(in_features: int, out_features: int, *,
         if bias:
             nn.init.uniform_(lin.bias, -k, k, generator=generator)
     return lin
+
+
+def lipswish(x):
+    """0.909 * silu(x): the Lipschitz-constrained swish of the tutorial
+    fields."""
+    return 0.909 * torch.nn.functional.silu(x)
+
+
+ACTIVATIONS = {
+    "relu": torch.relu,
+    "lipswish": lipswish,
+    "tanh": torch.tanh,
+    "silu": torch.nn.functional.silu,
+    # jax.nn.gelu's default is the tanh approximation
+    "gelu": lambda x: torch.nn.functional.gelu(x, approximate="tanh"),
+    "identity": lambda x: x,
+}
+
+
+class MLP(nn.Module):
+    """in -> hidden -> ... -> out: Linear, act, [Linear, act] x
+    (num_layers - 1), Linear, then tanh when final_tanh (the tutorial MLP).
+    The Linears are drawn from `generator` in order."""
+
+    def __init__(self, in_size: int, out_size: int, hidden_dim: int,
+                 num_layers: int, activation: str = "lipswish",
+                 final_tanh: bool = False, *,
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        if activation not in ACTIVATIONS:
+            raise ValueError(f"unknown activation {activation!r}")
+        widths = [in_size] + [hidden_dim] * num_layers + [out_size]
+        self.layers = nn.ModuleList(
+            make_linear(i, o, generator=generator, device=device)
+            for i, o in zip(widths[:-1], widths[1:]))
+        self.activation = activation
+        self.final_tanh = final_tanh
+
+    def forward(self, x):
+        act = ACTIVATIONS[self.activation]
+        for layer in self.layers[:-1]:
+            x = act(layer(x))
+        x = self.layers[-1](x)
+        return torch.tanh(x) if self.final_tanh else x
 
 
 def dropout(x, rate: float, generator: Optional[torch.Generator],

@@ -440,8 +440,8 @@ def test_ists_seed_ensemble_loss_and_every_grad_match_jax(monkeypatch,
 
     (loss_j, logits_j), g_j = filter_value_and_grad(jax_loss,
                                                     has_aux=True)(jm)
-    model = trob.ISTSSeedEnsembleSDE(model_name, X.shape[-1], X.shape[1], H,
-                                     classes, 2)
+    model = trob.ISTSSeedEnsembleSDE.create(model_name, X.shape[-1],
+                                            X.shape[1], H, classes, 2)
     load_jax_arrays(model, jax_arrays(jm))
     model.train()
     logits = model(torch.as_tensor(seqs), torch.as_tensor(coeffs),
@@ -522,10 +522,9 @@ def test_packed_sweep_members_see_their_own_data():
              for s in (0, 1)]
     assert not np.allclose(datas[0]["seq"], datas[1]["seq"])
     splits = [stratified_split(y, seed=s) for s in (0, 1)]
-    model = trob.ISTSSeedEnsembleSDE("neuralsde_2_16", X.shape[-1],
-                                     X.shape[1], 6, int(y.max()) + 1, 2,
-                                     generator=torch.Generator()
-                                     .manual_seed(0))
+    model = trob.ISTSSeedEnsembleSDE.create(
+        "neuralsde_2_16", X.shape[-1], X.shape[1], 6, int(y.max()) + 1, 2,
+        generator=torch.Generator().manual_seed(0))
     model, test_ms = trob.train_ists_ensemble(model, datas, y, splits,
                                               batch_size=16, max_epochs=2)
     assert len(test_ms) == 2 and all(np.isfinite(m.loss) for m in test_ms)
