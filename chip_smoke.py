@@ -34,7 +34,10 @@ quick start (`NDEModel`, the eager sdeint), `snsde_torch.tutorial` (its
 instances), `python -m snsde_torch.configs` for each task, `make_model`'s
 baseline twins at the sepsis width (the CDE kernels; the GRU kernels'
 obs, decay-row and evolve modes) and the ASHA search (the SRK kernels'
-member axis for its packed groups), phase 14.
+member axis for its packed groups), phase 14; since multi-device training
+the data-parallel sepsis fit (`run_sepsis(mesh=)`, the EM kernels) and
+the sharded sweep (`run_robustness_sweep_sharded`: the SRK, CDE and GRU
+kernels) in two ranks spawned on the one card over gloo, phase 15.
 Phases, each of which raises on failure:
   1. card: name, and name and power limit from nvidia-smi;
   2. build: nvcc builds every kernel of the four paths from
@@ -310,7 +313,26 @@ Phases, each of which raises on failure:
      ASHA_SEARCH.json's, each packed group one member-axis launch a step
      (asha_path); the times and bounds at those shapes in the kernels
      line's CDE, gruode, latent, SRK and packed SRK entries
-     (phase14_times), and cuDNN's time at phase 13's BiGRU shapes.
+     (phase14_times), and cuDNN's time at phase 13's BiGRU shapes;
+ 15. multi-device training and the infrastructure modules, in phase 4's
+     place (phase15_path): two ranks spawned with torch.multiprocessing
+     (init_multihost over a file:// store; both on cuda:0 over gloo, as
+     NCCL refuses two ranks on one GPU), each the same calls; one
+     training step of the sepsis flagship (main_config, n=2048) at W=2
+     against the single process (the ranks' summed loss within 1e-6
+     relative, every gradient within 1e-5 of its scale), then
+     `run_sepsis(mesh=)` for 2 epochs against the single-process fit
+     (every epoch's train loss within 1e-4 relative, the test AUROC within
+     1e-3; the ranks' weights identical; the EM kernels launched), the one
+     step's time in each (512 rows a rank on the one card: overhead, not
+     scaling) and each rank's device_memory_stats; then
+     `run_robustness_sweep_sharded` on uea_b_noisy for neuralsde_4_17,
+     neuralcde and gru (missing rate 0.3, seeds 0-1, 2 epochs), every
+     record's accuracy and F1 bit for bit the sequential sweep's and the
+     SRK, CDE and GRU kernels launched; then the native data library built
+     and its PSV parser equal to the Python one on a written fixture. A
+     failure on either rank fails the spawn. The kernels line's launches
+     of the EM, SRK, CDE and GRU entries include the ranks' runs.
 It prints one JSON line of the kernels (each SDE kernel with the `modes`
 it takes; the packed launches, the hybrids' and the time-aware LSTMs'
 instances, TLSTM's W_d gradient and the CDE pair's gruode instances and
@@ -333,6 +355,7 @@ printing no result, without a CUDA device or outside the repository.
     python3 chip_smoke.py --speech-r5 [OUT]
     python3 chip_smoke.py --interp-flagship [OUT]
     python3 chip_smoke.py --activity-r5 [OUT [SEEDS]]
+    python3 chip_smoke.py --phase15 [WORLD]
 
 run none of the phases: they time the SDE paths' training steps
 and the CDE classifier's (`ab_steps`), the LSTM or GRU kernels at the
@@ -355,12 +378,16 @@ beside RESULTS_interpolation_h128.json's and held to the interpolation
 pin's ceiling, by default to RESULTS_torch_interpolation_h128.json), or
 the activity flagship's five seeds for 200 epochs with warmup_epochs 5
 (`activity_r5`: beside RESULTS_activity_k5.json, each seed held to the
-activity pin's floor, by default to RESULTS_torch_activity_k5.json).
+activity pin's floor, by default to RESULTS_torch_activity_k5.json); or
+run phase 15 alone after the build with WORLD ranks (`phase15_only`, 2 by
+default; on a host with WORLD cards one rank a card over nccl, the sweep
+with seeds 0 .. WORLD-1).
 """
 
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -499,6 +526,15 @@ SDE_SWEEP_MODELS = ("neuralsde_2_16", "neuralsde_4_17", "neuralsde_6_17",
 NAIVE = dict(model="naivesde", epochs=1)
 # phase 5's new modes (each drift mode, each new noise mode) and shapes
 MODE_TIMES = ((0, 7), (3, 15), (1, 18))
+# phase 15: the data-parallel sepsis fit at the flagship width (two ranks
+# on the one card over gloo: NCCL refuses two ranks on one GPU), its bars
+# against the single process, and the sharded sweep's models (each with
+# the pair it must launch)
+DP_RUN = dict(n=2048, epochs=2, world=2, reps=10)
+DP_TOL = dict(step_loss=1e-6, step_grad=1e-5, epoch_loss=1e-4, auroc=1e-3)
+SHARDED = (("neuralsde_4_17", "srk"), ("neuralcde", "cde"), ("gru", "gru"))
+PSV_FIXTURE = (b"HR|O2Sat|Temp|ICULOS|SepsisLabel\n80|97|36.5|1|0\n"
+               b"|96||2|1\nNaN|95|37.25|3|1\n81.5|1e2|-0.5e1|4\n")
 
 
 def card() -> str:
@@ -6683,6 +6719,306 @@ def phase14_entry(key, part, launches, times):
     return out
 
 
+def dp_sepsis_step(mesh=None, reps=DP_RUN["reps"]):
+    """One training step of the sepsis flagship (main_config: B=1024, H=49,
+    two hidden layers, (4,17), euler) on synthetic_sepsis(n=DP_RUN["n"]),
+    on the first batch of the fit's epoch-0 order, with the fit's loss,
+    100x readout hook, optimizer and generator; data-parallel over `mesh`
+    when given (this rank's 512 rows). Returns (this rank's loss, {name:
+    gradient on the CPU}, median ms of `reps` further steps by CUDA
+    events)."""
+    from snsde_torch.data.synthetic import synthetic_sepsis
+    from snsde_torch.harness.classification import (_sepsis_config,
+                                                    _sepsis_data,
+                                                    build_sepsis_model)
+    from snsde_torch.parallel import replicate, shard_rows, sharded
+    from snsde_torch.train.loop import (_to_device, make_loss_fn,
+                                        make_optimizer, padded_index_grid,
+                                        rank_batch, readout_grad_hook,
+                                        train_step)
+
+    cfg = main_config()
+    dev = mesh.device if mesh is not None else torch.device(DEV)
+    data, static_dim = _sepsis_data(cfg, DP_RUN["n"], synthetic_sepsis)
+    model = build_sepsis_model(cfg, data["input_channels"], static_dim, dev)
+    if mesh is not None:
+        replicate(model, mesh)
+    times = data["times"]
+
+    def apply_fn(m, b, generator):
+        return m(times, b["coeffs"], b["static"], b["final_index"],
+                 generator=generator)[..., 0]
+
+    tc = _sepsis_config(cfg, 1)
+    loss_fn = make_loss_fn(apply_fn, lambda m: m.sde.func, tc)
+    opt = make_optimizer(model, tc)
+    readout_grad_hook("sde.readout.linear2")(model)
+    gen = torch.Generator(device=dev).manual_seed(tc.seed)
+    rng = np.random.default_rng(tc.seed)
+    dtrain = _to_device(data["train"], dev)
+    n_train = next(iter(data["train"].values())).shape[0]
+    perm, masks, _ = padded_index_grid(rng.permutation(n_train),
+                                       cfg.batch_size)
+    group = mesh.group if sharded(mesh, cfg.batch_size) else None
+
+    def step():
+        with shard_rows(mesh, cfg.batch_size):
+            return train_step(model, opt, loss_fn,
+                              rank_batch(dtrain, perm[0], masks[0], mesh),
+                              gen, grad_group=group)
+
+    loss = float(step())
+    grads = {k: p.grad.detach().cpu().clone()
+             for k, p in model.named_parameters()}
+    return loss, grads, (timed(step, reps=reps, warmup=2) if reps else None)
+
+
+def sharded_sweep_config(out_dir, world):
+    """The sharded sweep's cell: SHARDED's models at missing rate 0.3,
+    seeds 0 .. world-1 (a chunk of `world` cells a model)."""
+    from snsde_torch.harness.robustness import SweepConfig
+
+    return SweepConfig(models=tuple(m for m, _ in SHARDED),
+                       missing_rates=(0.3,), seeds=tuple(range(world)),
+                       hidden_dim=SWEEP["H"], batch_size=SWEEP["B"],
+                       max_epochs=2, out_dir=out_dir)
+
+
+def phase15_rank(rank, world, store, tmp, out_dir):
+    """One rank of `world` in phase 15 (cuda:rank over nccl where each
+    rank has a card of its own, else every rank on cuda:0 over gloo): the
+    one step
+    and its times, the data-parallel fit (its launches counted from 0),
+    then the sharded sweep (its launches counted from 0); saves what it saw
+    to tmp/rank<r>.pt. Any exception fails the spawn, and so the run."""
+    from snsde_torch.harness.classification import run_sepsis
+    from snsde_torch.harness.sweep_sharded import \
+        run_robustness_sweep_sharded
+    from snsde_torch.parallel import init_multihost, make_mesh
+    from snsde_torch.utils import device_memory_stats
+
+    # a rank's share of the host's cores for torch's CPU work (the data
+    # preprocessing), as torchrun limits each of its processes
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    backend = init_multihost(f"file://{store}", world, rank)
+    mesh = make_mesh(("data",))
+    rec = {"backend": backend, "device": str(mesh.device),
+           "step": dp_sepsis_step(mesh)}
+    zero_counts()
+    t0 = time.perf_counter()
+    res = run_sepsis(main_config(), n=DP_RUN["n"],
+                     max_epochs=DP_RUN["epochs"], mesh=mesh)
+    torch.cuda.synchronize()
+    rec["fit_launches"] = read_counts()
+    rec["fit"] = {"seconds": time.perf_counter() - t0,
+                  "history": res.history, "test": res.test_metrics.as_dict(),
+                  "steps_per_sec": res.steps_per_sec,
+                  "memory_usage": res.memory_usage,
+                  "memory": device_memory_stats(mesh.device),
+                  "state": {k: v.detach().cpu()
+                            for k, v in res.model.state_dict().items()}}
+    zero_counts()
+    t0 = time.perf_counter()
+    rec["sweep"] = run_robustness_sweep_sharded(
+        sharded_sweep_config(os.path.join(out_dir, "p15_sharded"), world),
+        n=SWEEP["n"], data_fn=uea_b_noisy, dataset_name="uea_b_noisy",
+        mesh=make_mesh(("cells",)), verbose=False)
+    torch.cuda.synchronize()
+    rec["sweep_launches"] = read_counts()
+    rec["sweep_seconds"] = time.perf_counter() - t0
+    torch.save(rec, os.path.join(tmp, f"rank{rank}.pt"))
+    torch.distributed.destroy_process_group()
+
+
+def _summed(counts):
+    out = {}
+    for c in counts:
+        for k, v in c.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def check_dp_step(ranks, single):
+    """The ranks' summed loss within DP_TOL["step_loss"] relative of the
+    single process's, each gradient within DP_TOL["step_grad"] of its
+    scale (its largest entry, floored at 1e-3 of the model's largest: the
+    BatchNorm-cancelled readout bias is rounding noise on both sides), the
+    ranks' gradients identical. Returns (loss error, gradient error)."""
+    loss = sum(r["step"][0] for r in ranks)
+    rel = abs(loss - single[0]) / abs(single[0])
+    top = max(float(g.abs().max()) for g in single[1].values())
+    errs = {k: float((ranks[0]["step"][1][k] - g).abs().max())
+            / max(float(g.abs().max()), 1e-3 * top)
+            for k, g in single[1].items()}
+    worst = max(errs, key=errs.get)
+    print(f"  one step at W={len(ranks)}: loss {loss:.9g} vs {single[0]:.9g} "
+          f"(rel {rel:.2e}), largest gradient error {errs[worst]:.2e} of "
+          f"scale ({worst})", flush=True)
+    if rel > DP_TOL["step_loss"] or errs[worst] > DP_TOL["step_grad"]:
+        raise AssertionError(f"the data-parallel step leaves the single "
+                             f"process's: loss {rel:.3e}, {worst} "
+                             f"{errs[worst]:.3e}")
+    for k in single[1]:
+        if not all(torch.equal(r["step"][1][k], ranks[0]["step"][1][k])
+                   for r in ranks):
+            raise AssertionError(f"the ranks' gradients of {k} differ")
+    return rel, errs[worst]
+
+
+def check_dp_fit(ranks, single):
+    """Every epoch's train loss within DP_TOL["epoch_loss"] relative of the
+    single-process fit's and the test AUROC within DP_TOL["auroc"]; every
+    rank ends with the same weights and history."""
+    fit = ranks[0]["fit"]
+    for h, s in zip(fit["history"], single.history, strict=True):
+        a, b = h["train"]["loss"], s["train"]["loss"]
+        if abs(a - b) > DP_TOL["epoch_loss"] * abs(b):
+            raise AssertionError(f"epoch {h['epoch']}: data-parallel train "
+                                 f"loss {a} vs {b}")
+    auroc, ref = fit["test"]["auroc"], single.test_metrics.auroc
+    if abs(auroc - ref) > DP_TOL["auroc"]:
+        raise AssertionError(f"data-parallel test AUROC {auroc} vs {ref}")
+    for r in ranks[1:]:
+        if r["fit"]["history"] != fit["history"] or any(
+                not torch.equal(v, r["fit"]["state"][k])
+                for k, v in fit["state"].items()):
+            raise AssertionError("the ranks ended the fit apart")
+    return auroc, ref
+
+
+def check_sharded_sweep(ranks, seq):
+    """Every sharded record (rank 0's, returned by every rank) without an
+    error, its accuracy and F1 bit for bit its sequential record's, and
+    every pair of SHARDED launched."""
+    recs = ranks[0]["sweep"]
+    if any(r["sweep"] != recs for r in ranks):
+        raise AssertionError("the ranks returned different records")
+    ref = {(r["model"], r["missing_rate"], r["seed"]): r for r in seq}
+    if len(recs) != len(ref) or len(recs) != len(SHARDED) * len(ranks):
+        raise AssertionError(f"sharded records {recs} vs sequential {seq}")
+    for r in recs:
+        s = ref[(r["model"], r["missing_rate"], r["seed"])]
+        if "error" in r or "error" in s:
+            raise AssertionError(f"a failed sweep record: {r} / {s}")
+        if (r["accuracy"], r["f1_weighted"]) != (s["accuracy"],
+                                                 s["f1_weighted"]):
+            raise AssertionError(f"sharded {r} vs sequential {s}")
+        if r["cells_sharded"] != len(ranks):
+            raise AssertionError(f"cells_sharded {r}")
+    launches = _summed(r["sweep_launches"] for r in ranks)
+    for _, pair in SHARDED:
+        parts = ("fwd", "bwd") + (("wgrad",) if pair != "cde" else ())
+        if min(launches[f"{pair}_{p}"] for p in parts) <= 0:
+            raise AssertionError(f"the sharded sweep did not run the {pair} "
+                                 f"kernels: {launches}")
+    return launches
+
+
+def check_native(out_dir):
+    """The native data library builds here, and its PSV parser reads a
+    written fixture as the Python parser does."""
+    from snsde_torch.data import native_lib, sepsis
+
+    if native_lib() is None:
+        raise AssertionError("the native data library did not build")
+    path = os.path.join(out_dir, "p15_fixture.psv")
+    with open(path, "wb") as f:
+        f.write(PSV_FIXTURE)
+    with open(path, "rb") as f:
+        text = f.read()
+    got, header = sepsis.parse_psv(text)
+    native = sepsis.parse_psv_native
+    sepsis.parse_psv_native = lambda *a, **k: None
+    try:
+        ref, ref_header = sepsis.parse_psv(text)
+    finally:
+        sepsis.parse_psv_native = native
+    if header != ref_header or not np.array_equal(got, ref, equal_nan=True):
+        raise AssertionError(f"native PSV parse {got} vs Python {ref}")
+    print(f"  native library: parse_psv of {len(text)} bytes -> "
+          f"{got.shape} equal to the Python parser", flush=True)
+
+
+def phase15_path(out_dir, smi, world=DP_RUN["world"]):
+    """Phase 15: data-parallel training and the sharded sweep on the card
+    through torch.distributed (`world` ranks, a file:// store), held
+    against the single process; then the native data library. Prints the
+    one step's time in each; returns {"em": the DP fit's launches,
+    "sweep": the sharded sweep's}, summed over the ranks."""
+    import torch.multiprocessing as mp
+
+    from snsde_torch.harness.classification import run_sepsis
+    from snsde_torch.harness.robustness import run_robustness_sweep
+
+    t_phase = time.perf_counter()
+    single_step = dp_sepsis_step()
+    single = run_sepsis(main_config(), n=DP_RUN["n"],
+                        max_epochs=DP_RUN["epochs"], device=DEV)
+    t_seq = time.perf_counter()
+    seq = run_robustness_sweep(
+        sharded_sweep_config(os.path.join(out_dir, "p15_seq"), world),
+        n=SWEEP["n"], data_fn=uea_b_noisy, dataset_name="uea_b_noisy",
+        verbose=False, device=DEV)
+    t_seq = time.perf_counter() - t_seq
+    t_spawn = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.spawn(phase15_rank, args=(world, os.path.join(tmp, "store"),
+                                     tmp, out_dir), nprocs=world)
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                            weights_only=False) for r in range(world)]
+    t_ranks = time.perf_counter() - t_spawn
+    print(f"phase 15: {world} ranks on "
+          f"{sorted({r['device'] for r in ranks})} over "
+          f"{ranks[0]['backend']} [{smi}]", flush=True)
+    check_dp_step(ranks, single_step)
+    auroc, ref_auroc = check_dp_fit(ranks, single)
+    fit_launches = _summed(r["fit_launches"] for r in ranks)
+    if min(fit_launches[f"em_{k}"] for k in ("fwd", "bwd", "wgrad")) <= 0:
+        raise AssertionError(f"the data-parallel fit did not run the EM "
+                             f"kernels: {fit_launches}")
+    print(f"  data-parallel run_sepsis {DP_RUN['epochs']} epochs: train "
+          f"losses {[h['train']['loss'] for h in ranks[0]['fit']['history']]}"
+          f" vs {[h['train']['loss'] for h in single.history]}, test AUROC "
+          f"{auroc:.6f} vs {ref_auroc:.6f}; "
+          f"{ranks[0]['fit']['seconds']:.1f} s, EM launches "
+          f"{[fit_launches[f'em_{k}'] for k in ('fwd', 'bwd', 'wgrad')]}",
+          flush=True)
+    for r, rec in enumerate(ranks):
+        print(f"  rank {r} device_memory_stats {rec['fit']['memory']}, "
+              f"memory_usage {rec['fit']['memory_usage']}", flush=True)
+    print(f"time p15 sepsis train_step single process: "
+          f"{single_step[2]:.4f} ms  [{smi}]")
+    for r, rec in enumerate(ranks):
+        print(f"time p15 sepsis train_step W={world} rank {r} "
+              f"({MAIN['B'] // world} rows on {rec['device']}, "
+              f"{rec['backend']}): {rec['step'][2]:.4f} ms  [{smi}]")
+    sweep_launches = check_sharded_sweep(ranks, seq)
+    print(f"  run_robustness_sweep_sharded {[m for m, _ in SHARDED]} x "
+          f"seeds 0-{world - 1}: every record bit for bit the sequential "
+          f"one's; {ranks[0]['sweep_seconds']:.1f} s (the sequential sweep "
+          f"{t_seq:.1f} s); launches "
+          f"{ {k: v for k, v in sweep_launches.items() if v} }", flush=True)
+    check_native(out_dir)
+    print(f"main path 15: data-parallel fit and sharded sweep in "
+          f"{time.perf_counter() - t_phase:.1f} s (ranks "
+          f"{t_ranks:.1f} s)", flush=True)
+    return {"em": fit_launches, "sweep": sweep_launches}
+
+
+def phase15_only(world: int = DP_RUN["world"]) -> int:
+    """Phase 15 alone after the build, with `world` ranks: one a card over
+    nccl where the host has `world` cards (`python3 chip_smoke.py
+    --phase15 4` on four), else every rank on cuda:0 over gloo."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    smi = card()
+    build()
+    with tempfile.TemporaryDirectory() as out_dir:
+        phase15_path(out_dir, smi, world)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6839,6 +7175,7 @@ def main() -> int:
                            "twins": twins_path(), "asha": asha_path()}
         print(f"main path 14: the entry points in "
               f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+        p15 = phase15_path(out_dir, smi)
     launches["activity"] = activity_path()
     for method in SDE_METHODS:
         sde_method_mujoco_path(method)
@@ -6921,6 +7258,13 @@ def main() -> int:
     for label, (t14, _) in times14.items():
         for k, v in t14.items():
             ms.setdefault("p14", {})[f"{label} {k}"] = v
+    # phase 15's main-path launches (the data-parallel fit's EM kernels, the
+    # sharded sweep's SRK, CDE and GRU kernels) join each pair's count
+    for fam, counts in (("em", p15["em"]), ("srk", p15["sweep"]),
+                        ("cde", p15["sweep"]), ("gru", p15["sweep"])):
+        for k, v in counts.items():
+            if k.startswith(f"{fam}_"):
+                launches[fam][k] = launches[fam].get(k, 0) + v
     for key in ms:
         for k, v in ms[key].items():
             print(f"time {key} {k}: {v:.4f} ms  [{smi}]")
@@ -7181,6 +7525,8 @@ if __name__ == "__main__":
         sys.exit(speech_r5(*sys.argv[2:3]))
     if sys.argv[1:2] == ["--interp-flagship"]:
         sys.exit(interp_flagship(*sys.argv[2:3]))
+    if sys.argv[1:2] == ["--phase15"]:
+        sys.exit(phase15_only(*map(int, sys.argv[2:3])))
     if sys.argv[1:2] == ["--activity-r5"]:
         sys.exit(activity_r5(*sys.argv[2:3], *map(int, sys.argv[3:4])))
     sys.exit(main())

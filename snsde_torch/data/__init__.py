@@ -5,6 +5,7 @@ from .common import (append_time_intensity, cache_path, inject_missingness,
 from . import (mujoco, person_activity, physionet2012, sepsis,
                speech_commands, uea)
 from .mujoco import drop_timestep_rows, get_data, load_windows
+from .native import get_lib as native_lib
 from .ou import generate_ou_paths, ou_dataset
 from .synthetic import (synthetic_mujoco, synthetic_sepsis,
                         synthetic_speech, synthetic_uea)
@@ -15,4 +16,5 @@ __all__ = ["mujoco", "person_activity", "physionet2012", "sepsis",
            "preprocess_classification", "save_cached", "stratified_split",
            "drop_timestep_rows", "get_data", "load_windows",
            "generate_ou_paths", "ou_dataset", "synthetic_mujoco",
-           "synthetic_sepsis", "synthetic_speech", "synthetic_uea"]
+           "synthetic_sepsis", "synthetic_speech", "synthetic_uea",
+           "native_lib"]

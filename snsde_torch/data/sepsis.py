@@ -4,10 +4,12 @@ the 34 vital and lab columns, NaN where unobserved), five static features
 (age, gender, unit 1, unit 2, hospital admission time) and the label
 max(SepsisLabel).
 
-`parse_psv` follows the JAX package's native parser
-(`snsde/_native/snsde_data.cc:snsde_parse_psv`): columns counted on the
-header line (at most 64), at most 512 rows, an empty field or `NaN` NaN, a
-short row padded with NaN, each value read as float32.
+`parse_psv` tries the native parser first (`data/native.py`, the port's
+copy of `snsde/_native/snsde_data.cc:snsde_parse_psv`), as
+`snsde/data/sepsis.py:37` does, and otherwise parses in Python by the same
+rules: columns counted on the header line (at most 64), at most 512 rows,
+an empty field or `NaN` NaN, a short row padded with NaN, each value read
+as float32.
 
 Nothing downloads the archives: `get_data` reads `training_setA.zip` and
 `training_setB.zip` only from an explicit `data_dir`, caches the parsed
@@ -26,6 +28,7 @@ from typing import Optional, Tuple
 import numpy as np
 
 from .common import cache_path, load_cached, save_cached
+from .native import parse_psv_native
 from .synthetic import synthetic_sepsis
 
 __all__ = ["ARCHIVES", "MAX_HOURS", "TS_COLUMNS", "parse_psv",
@@ -53,8 +56,12 @@ def _field(s: str) -> float:
 
 def parse_psv(text: bytes):
     """One PSV record -> (values [rows, cols] float32, header list)."""
+    native = parse_psv_native(text, max_rows=MAX_ROWS, max_cols=MAX_COLS)
     lines = text.decode(errors="replace").split("\n")
     header = lines[0].split("|")
+    if native is not None:
+        arr, _ = native
+        return arr[:, :len(header)], header
     cols = min(len(header), MAX_COLS)
     body = lines[1:]
     if body and body[-1] == "" and text.endswith(b"\n"):

@@ -229,10 +229,13 @@ def _save_results(results_dir: str, name: str, result: FitResult) -> None:
 def run_sepsis(cfg: HarnessConfig = HarnessConfig(), n: int = 4096,
                data_fn: Callable = synthetic_sepsis,
                max_epochs: Optional[int] = None,
-               device=None) -> FitResult:
+               device=None, mesh=None) -> FitResult:
     """Sepsis classification: binary, AUROC-selected, static -> z0. Runs on
-    CUDA unless `device` says otherwise."""
-    dev = resolve_device(device)
+    CUDA unless `device` says otherwise; with a `parallel.Mesh`, on the
+    mesh's device, data-parallel over its ranks (fit_classifier(mesh=):
+    the result is the single process's, every rank calling run_sepsis
+    alike)."""
+    dev = mesh.device if mesh is not None else resolve_device(device)
     data, static_dim = _sepsis_data(cfg, n, data_fn)
     tr, va, te = data["train"], data["val"], data["test"]
     model = build_sepsis_model(cfg, data["input_channels"], static_dim, dev)
@@ -245,9 +248,9 @@ def run_sepsis(cfg: HarnessConfig = HarnessConfig(), n: int = 4096,
 
     result = fit_classifier(
         model, apply_fn, lambda m: m.sde.func, tr, va, te,
-        _sepsis_config(cfg, max_epochs),
+        _sepsis_config(cfg, max_epochs), mesh=mesh,
         grad_hook=readout_grad_hook("sde.readout.linear2"))
-    if cfg.results_dir:
+    if cfg.results_dir and (mesh is None or mesh.rank == 0):
         _save_results(cfg.results_dir, f"sepsis-{cfg.model_name}", result)
     return result
 

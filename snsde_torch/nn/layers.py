@@ -9,6 +9,10 @@ U(-1/sqrt(fan_in), 1/sqrt(fan_in)); here the draw comes from an explicit
 `BatchNorm` is `torch.nn.BatchNorm1d` (momentum 0.1, eps 1e-5): it keeps
 the unbiased variance in its running statistics and normalises with the
 biased batch variance, the semantics of `snsde/nn/layers.py:148-171`.
+Inside a data-parallel row shard (`parallel/data_parallel.py`) it takes
+its training-mode statistics over the rows of every rank, as the JAX
+package's sharded jit does; `dropout` then draws the global batch's mask
+and keeps this rank's rows.
 
 The recurrent cells (`snsde/nn/layers.py:186-290`) keep the JAX parameter
 names and layout, `w_ih` [in, kH], `w_hh` [H, kH], `b_ih`, `b_hh` [kH],
@@ -30,11 +34,23 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..parallel.data_parallel import active_shard, draw_rows, global_batch_norm
+
 __all__ = ["Linear", "BatchNorm", "Dropout", "dropout", "make_linear", "RNNCell",
            "GRUCell", "LSTMCell", "lipswish", "ACTIVATIONS", "MLP"]
 
 Linear = nn.Linear
-BatchNorm = nn.BatchNorm1d
+
+
+class BatchNorm(nn.BatchNorm1d):
+    """torch.nn.BatchNorm1d, whose training-mode statistics are those of
+    the global batch inside a data-parallel row shard."""
+
+    def forward(self, x):
+        shard = active_shard()
+        if shard is None or not self.training:
+            return super().forward(x)
+        return global_batch_norm(x, self, shard)
 
 
 def make_linear(in_features: int, out_features: int, *,
@@ -102,7 +118,8 @@ def dropout(x, rate: float, generator: Optional[torch.Generator],
     if not training or rate == 0.0 or generator is None:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    mask = draw_rows(lambda shape: torch.rand(shape, generator=generator,
+                                              device=x.device), x.shape) < keep
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 

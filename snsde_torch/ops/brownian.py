@@ -7,6 +7,10 @@ Parity tests therefore draw dW (and the Lévy area) with numpy and inject
 them on both sides through `BrownianGrid` (`sdeint(bm=...)`),
 `fused_em_solve(dW_override=)` or `fused_srk_solve(brownian_override=)`.
 
+Inside a data-parallel row shard (`parallel/data_parallel.py`) the
+increments and the Lévy area are drawn for the global batch and this
+rank's rows kept, so every row gets the draw one process would give it.
+
 The Virtual Brownian Tree keys each node's draw by (seed, node, element)
 through a counter-based hash written in torch integer ops, so W(t) is a
 pure function of (seed, t), the same on the CPU and on the card; its
@@ -23,6 +27,8 @@ from typing import Callable, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..parallel.data_parallel import draw_rows
+
 __all__ = ["brownian_increments", "space_time_levy_area", "BrownianGrid",
            "VirtualBrownianTree", "counter_normals"]
 
@@ -34,8 +40,9 @@ def brownian_increments(generator: Optional[torch.Generator], grid,
     dW_k ~ N(0, grid[k+1] - grid[k]). The generator must live on `device`."""
     dts = np.diff(np.asarray(grid, np.float64))
     m = dts.shape[0]
-    eps = torch.randn((m,) + tuple(shape), generator=generator, dtype=dtype,
-                      device=device)
+    eps = draw_rows(lambda s: torch.randn(s, generator=generator,
+                                          dtype=dtype, device=device),
+                    (m,) + tuple(shape), dim=1)
     scale = torch.as_tensor(np.sqrt(dts), dtype=dtype, device=device)
     return eps * scale.reshape((m,) + (1,) * len(shape))
 
@@ -49,8 +56,9 @@ def space_time_levy_area(generator: Optional[torch.Generator], grid,
     Var U = dt^3/3 and E[U dW] = dt^2/2."""
     dts = np.diff(np.asarray(grid, np.float64))
     m = dts.shape[0]
-    dZ = torch.randn((m,) + tuple(shape), generator=generator, dtype=dW.dtype,
-                     device=dW.device)
+    dZ = draw_rows(lambda s: torch.randn(s, generator=generator,
+                                         dtype=dW.dtype, device=dW.device),
+                   (m,) + tuple(shape), dim=1)
     bshape = (m,) + (1,) * len(shape)
     sd = torch.as_tensor(np.sqrt(dts), dtype=dW.dtype,
                          device=dW.device).reshape(bshape)

@@ -25,6 +25,17 @@ Two choices follow the JAX package, not torch habit:
   * the last partial batch is padded by wrap-around to the full batch and
     the padded rows are masked out of the loss; BatchNorm's batch
     statistics still see the duplicates.
+
+`fit_classifier(mesh=)` trains data-parallel, one process a device (the
+JAX package's mesh path, snsde/train/loop.py:247-369): every rank holds
+the datasets, takes its rows of each global batch (`shard_batch`), and
+takes the step one process takes on the whole batch: BatchNorm's
+statistics, the noise, the loss's count of valid rows and the gradients
+are global (`parallel/data_parallel.py`), the L2 term enters on rank 0
+alone, and evaluation gathers the logits in rank order. Every rank ends
+with the same weights and metrics. A batch size that does not divide by
+the world size is not split: every rank takes the whole batch (the JAX
+package replicates it, `snsde/parallel/mesh.py:68`).
 """
 
 from __future__ import annotations
@@ -38,6 +49,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..parallel import data_parallel as dp
+from ..parallel.mesh import replicate, shard_batch
+from ..utils.observability import memory_delta
 from .metrics import ClassificationMetrics, classification_metrics
 from .schedule import ReduceLROnPlateau
 
@@ -46,7 +60,7 @@ __all__ = ["bce_with_logits", "bce_with_logits_per_sample",
            "clip_by_global_norm",
            "weight_regularization", "readout_grad_hook", "TrainConfig",
            "FitResult", "make_loss_fn", "make_optimizer", "train_step",
-           "fit_classifier", "padded_index_grid"]
+           "fit_classifier", "padded_index_grid", "rank_batch"]
 
 
 def bce_with_logits_per_sample(logits, labels, pos_weight: float = 1.0):
@@ -140,7 +154,10 @@ def make_loss_fn(apply_fn: Callable, reg_subtree_fn: Callable,
     generator) -> logits: [B] for the binary head (BCE with pos_weight),
     [B, num_classes] otherwise (softmax cross-entropy), as the JAX loop's
     per-sample loss (snsde/train/loop.py:276-291); batch["_mask"] marks
-    the valid rows of either."""
+    the valid rows of either. Under data parallelism batch["_count"] is the
+    global batch's count of valid rows (the divisor of the masked mean)
+    and batch["_reg"] is False on every rank but rank 0, so the L2 term
+    enters the summed loss and gradients once."""
     if config.num_classes == 2:
         per_sample = lambda lo, y: bce_with_logits_per_sample(
             lo, y, config.pos_weight)
@@ -151,10 +168,15 @@ def make_loss_fn(apply_fn: Callable, reg_subtree_fn: Callable,
         logits = apply_fn(model, batch, generator)
         per = per_sample(logits, batch["y"])
         mask = batch.get("_mask")
+        count = batch.get("_count")
         if mask is None:
             loss = per.mean()
-        else:
+        elif count is None:
             loss = (per * mask).sum() / mask.sum().clamp_min(1.0)
+        else:
+            loss = (per * mask).sum() / count
+        if not batch.get("_reg", True):
+            return loss, logits
         reg = weight_regularization(reg_subtree_fn(model),
                                     config.reg_scaling)
         return loss + reg, logits
@@ -169,10 +191,13 @@ def make_optimizer(model: torch.nn.Module,
 
 
 def train_step(model, optimizer, loss_fn, batch, generator,
-               clip_norm: Optional[float] = None) -> torch.Tensor:
+               clip_norm: Optional[float] = None,
+               grad_group=None) -> torch.Tensor:
     """One optimizer update in train mode, the gradients clipped to a
     global norm of `clip_norm` (optax's rule) when it is given; returns the
-    loss (no host synchronisation)."""
+    loss (no host synchronisation). With `grad_group` (a process group),
+    the gradients are summed over its ranks before the clip and the
+    update."""
     model.train()
     optimizer.zero_grad(set_to_none=True)
     loss, _ = loss_fn(model, batch, generator)
@@ -181,6 +206,8 @@ def train_step(model, optimizer, loss_fn, batch, generator,
     for p in params:
         if p.grad is None:
             p.grad = torch.zeros_like(p)
+    if grad_group is not None:
+        dp.all_reduce_grads(params, grad_group)
     if clip_norm is not None:
         clip_by_global_norm(params, clip_norm)
     optimizer.step()
@@ -231,6 +258,28 @@ def _padded_grid(idx: np.ndarray, batch_size: int):
     return padded_index_grid(idx, batch_size)[:2]
 
 
+def rank_batch(ddata: Dict[str, torch.Tensor], idx: np.ndarray,
+               mask: np.ndarray, mesh=None) -> Dict[str, torch.Tensor]:
+    """The rows of one padded global batch (`idx`, `mask`: [B]) that this
+    rank takes, gathered from the device-resident `ddata`, with its
+    "_mask". Where the mesh splits the batch (`data_parallel.sharded`) the
+    batch also carries "_count", the global count of valid rows, and
+    "_reg", True on rank 0 alone (make_loss_fn); run the step inside
+    `data_parallel.shard_rows(mesh, len(idx))`."""
+    device = next(iter(ddata.values())).device
+    split = dp.sharded(mesh, len(idx))
+    rows, part = (shard_batch((idx, mask), mesh, mesh.axis_names[0])
+                  if split else (idx, mask))
+    batch = {k: v[torch.as_tensor(rows, device=device)]
+             for k, v in ddata.items()}
+    batch["_mask"] = torch.as_tensor(part, device=device)
+    if split:
+        batch["_count"] = torch.as_tensor(max(float(mask.sum()), 1.0),
+                                          dtype=torch.float32, device=device)
+        batch["_reg"] = mesh.rank == 0
+    return batch
+
+
 def _to_device(data: Dict[str, np.ndarray], device) -> Dict:
     """Integer arrays as int64, the rest as float32, on `device`."""
     return {k: torch.as_tensor(
@@ -244,7 +293,7 @@ def fit_classifier(model: torch.nn.Module, apply_fn: Callable,
                    train_data: Dict[str, np.ndarray],
                    val_data: Dict[str, np.ndarray],
                    test_data: Optional[Dict[str, np.ndarray]],
-                   config: TrainConfig,
+                   config: TrainConfig, mesh=None,
                    grad_hook: Optional[Callable] = None) -> FitResult:
     """Classification fit on the model's device (binary or multiclass by
     config.num_classes).
@@ -255,9 +304,17 @@ def fit_classifier(model: torch.nn.Module, apply_fn: Callable,
     hooks (see readout_grad_hook). The datasets are numpy dicts uploaded to
     the device once; the Brownian increments and dropout masks come from a
     torch.Generator seeded with config.seed, the batch order from a numpy
-    generator with the same seed (the JAX package's order)."""
+    generator with the same seed (the JAX package's order).
+
+    mesh: a `parallel.Mesh` to train data-parallel over its ranks (every
+    rank calls fit_classifier with the same arguments, the model on the
+    mesh's device; rank 0's weights are broadcast first), or None for one
+    process."""
     cfg = config
     device = next(model.parameters()).device
+    dp_group = mesh.group if mesh is not None and mesh.size > 1 else None
+    if dp_group is not None:
+        replicate(model, mesh)
     loss_fn = make_loss_fn(apply_fn, reg_subtree_fn, cfg)
     optimizer = make_optimizer(model, cfg)
     hooks = grad_hook(model) if grad_hook is not None else []
@@ -266,27 +323,33 @@ def fit_classifier(model: torch.nn.Module, apply_fn: Callable,
     rng = np.random.default_rng(cfg.seed)
     dtrain = _to_device(train_data, device)
     resident = {id(train_data): dtrain}
+    ebs = cfg.eval_batch_size or cfg.batch_size
+    split_train = dp.sharded(mesh, cfg.batch_size)
+    split_eval = dp.sharded(mesh, ebs)
+    verbose = cfg.verbose and (mesh is None or mesh.rank == 0)
 
     def evaluate(data) -> ClassificationMetrics:
         ddata = resident.setdefault(id(data), _to_device(data, device))
         n = next(iter(data.values())).shape[0]
-        perm, masks = _padded_grid(np.arange(n), cfg.eval_batch_size
-                                   or cfg.batch_size)
+        perm, masks = _padded_grid(np.arange(n), ebs)
         model.eval()
         logits, losses = [], []
         with torch.no_grad():
             for idx, mask in zip(perm, masks):
-                it = torch.as_tensor(idx, device=device)
-                batch = {k: v[it] for k, v in ddata.items()}
-                batch["_mask"] = torch.as_tensor(mask, device=device)
-                loss, lo = loss_fn(model, batch, generator)
+                with dp.shard_rows(mesh, ebs):
+                    loss, lo = loss_fn(model, rank_batch(ddata, idx, mask,
+                                                         mesh), generator)
                 logits.append(lo)
                 losses.append(loss)
         model.train()
-        logits = torch.cat(logits).cpu().numpy()
+        logits = torch.stack(logits).cpu().numpy()
+        losses = torch.stack(losses).cpu().numpy()
+        if split_eval:
+            logits = dp.gather_rows(logits, dp_group, axis=1)
+            losses = dp.sum_over_ranks(losses, dp_group)
+        logits = logits.reshape((-1,) + logits.shape[2:])
         n_valid = masks.sum(axis=1)
-        loss = float((torch.stack(losses).cpu().numpy() * n_valid).sum()
-                     / n_valid.sum())
+        loss = float((losses * n_valid).sum() / n_valid.sum())
         valid = masks.reshape(-1) > 0
         return classification_metrics(
             np.asarray(data["y"])[perm.reshape(-1)[valid]], logits[valid],
@@ -299,10 +362,7 @@ def fit_classifier(model: torch.nn.Module, apply_fn: Callable,
     )
     n_params = sum(p.numel() for p in model.parameters() if p.requires_grad)
     on_cuda = device.type == "cuda"
-    if on_cuda:
-        torch.cuda.synchronize(device)
-        mem0 = torch.cuda.memory_allocated(device)
-        torch.cuda.reset_peak_memory_stats(device)
+    mem = memory_delta(device).__enter__()
     lr = cfg.lr
     n_train = next(iter(train_data.values())).shape[0]
     best_val_acc = -np.inf
@@ -317,10 +377,10 @@ def fit_classifier(model: torch.nn.Module, apply_fn: Callable,
     for epoch in range(cfg.max_epochs):
         perm, masks = _padded_grid(rng.permutation(n_train), cfg.batch_size)
         for idx, mask in zip(perm, masks):
-            it = torch.as_tensor(idx, device=device)
-            batch = {k: v[it] for k, v in dtrain.items()}
-            batch["_mask"] = torch.as_tensor(mask, device=device)
-            train_step(model, optimizer, loss_fn, batch, generator)
+            with dp.shard_rows(mesh, cfg.batch_size):
+                train_step(model, optimizer, loss_fn,
+                           rank_batch(dtrain, idx, mask, mesh), generator,
+                           grad_group=dp_group if split_train else None)
             n_steps += 1
 
         train_m = evaluate(train_data)
@@ -349,7 +409,7 @@ def fit_classifier(model: torch.nn.Module, apply_fn: Callable,
 
         history.append({"epoch": epoch, "lr": lr,
                         "train": train_m.as_dict(), "val": val_m.as_dict()})
-        if cfg.verbose:
+        if verbose:
             auc = (f" train_auc {train_m.auroc:.3f} val_auc "
                    f"{val_m.auroc:.3f}" if train_m.auroc is not None else "")
             print(f"epoch {epoch}: train_loss {train_m.loss:.3f} "
@@ -358,14 +418,12 @@ def fit_classifier(model: torch.nn.Module, apply_fn: Callable,
                   f"lr {lr:.2e}", flush=True)
         if (epoch > best_train_loss_epoch + cfg.plateau_terminate
                 or epoch > best_train_acc_epoch + cfg.plateau_terminate):
-            if cfg.verbose:
+            if verbose:
                 print("early stop: training plateau", flush=True)
             break
 
     wall = time.time() - t_start
-    memory = None
-    if on_cuda:
-        memory = int(torch.cuda.max_memory_allocated(device) - mem0)
+    mem.__exit__(None, None, None)
     for h in hooks:
         h.remove()
     model.load_state_dict(best_state)
@@ -375,4 +433,5 @@ def fit_classifier(model: torch.nn.Module, apply_fn: Callable,
     return FitResult(model=model, history=history, train_metrics=train_m,
                      val_metrics=val_m, test_metrics=test_m, wall_time=wall,
                      steps_per_sec=n_steps / max(wall, 1e-9),
-                     memory_usage=memory, parameters=n_params)
+                     memory_usage=mem.delta if on_cuda else None,
+                     parameters=n_params)

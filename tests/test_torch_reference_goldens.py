@@ -23,6 +23,9 @@ import snsde_torch
 from snsde_torch.fields import DiffusionField
 from snsde_torch.harness.classification import HarnessConfig, run_sepsis
 from snsde_torch.harness.forecasting import ForecastConfig, run_mujoco
+from snsde_torch.harness.robustness import SweepConfig
+from snsde_torch.harness.sweep_sharded import (run_robustness_sweep_sharded,
+                                               train_ists_cells_sharded)
 from snsde_torch.kernels.fused_em import fused_em_solve, supports_fused
 from snsde_torch.ops import BrownianGrid, CubicPath, make_grid, sdeint
 
@@ -163,6 +166,11 @@ def test_entry_points_need_cuda_unless_told_cpu(monkeypatch):
         run_sepsis(HarnessConfig(), n=64)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         run_mujoco(ForecastConfig(method="srk"), n=64)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_robustness_sweep_sharded(SweepConfig(max_epochs=1), n=48)
+    X = np.zeros((8, 4, 2), np.float32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_ists_cells_sharded("gru", X, np.zeros(8, np.int64), [(0.0, 0)])
     with pytest.raises(RuntimeError, match="CUDA"):
         snsde_torch.resolve_device()
     assert snsde_torch.resolve_device("cpu") == torch.device("cpu")
