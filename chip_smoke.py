@@ -333,6 +333,28 @@ Phases, each of which raises on failure:
      and its PSV parser equal to the Python one on a written fixture. A
      failure on either rank fails the spawn. The kernels line's launches
      of the EM, SRK, CDE and GRU entries include the ranks' runs.
+ 16. the EM pair's reduced precisions (the JAX package's
+     SNSDE_FUSED_STREAM and SNSDE_FUSED_MATMUL: bf16 streams, bf16x3 and
+     bf16 operands, PREC_COMBOS): (a) every combination of the forward,
+     the backward recurrence and the weight gradient against their plain
+     versions at the sepsis width ((4,17), B=1024, 71 steps, H=HH=49), at
+     the sweep's width for one case of each other drift and noise mode,
+     the latent instances at the tutorial's shape and the member axis at
+     K=5 (each member bit for bit its solo launch), by the CPU tests'
+     bars (a trajectory entry within one bf16 ulp, plus the fp32 bar
+     TOL_YS of max|ys|; every other output within 2e-3 of its largest
+     entry), and a checksum of the fp32
+     forward's and recurrence's outputs at the sepsis shape against the
+     parent commit's (precision_kernel_checks); (b) bench.py's
+     configuration trained 20 steps in exact fp32 and in each combination
+     set through the environment for its run alone, each loss falling,
+     the first within 1e-3 of fp32's, the kernels launched in the
+     combination (bench_training_path; the step's time and, for
+     bench.py's own combination, its device-busy share); (c) run_sepsis 2
+     epochs in bf16x3 operands with bf16 streams beside main path 1's fp32
+     run (precision_sepsis_path); each combination's ms a launch beside
+     the fp32 instances' (precision_times), the kernels line's
+     `fused_em_*_<matmul>_<stream>s` entries.
 It prints one JSON line of the kernels (each SDE kernel with the `modes`
 it takes; the packed launches, the hybrids' and the time-aware LSTMs'
 instances, TLSTM's W_d gradient and the CDE pair's gruode instances and
@@ -355,9 +377,15 @@ printing no result, without a CUDA device or outside the repository.
     python3 chip_smoke.py --speech-r5 [OUT]
     python3 chip_smoke.py --interp-flagship [OUT]
     python3 chip_smoke.py --activity-r5 [OUT [SEEDS]]
+    python3 chip_smoke.py --activity-jax-init [OUT]
     python3 chip_smoke.py --phase15 [WORLD]
+    python3 chip_smoke.py --phase16
+    python3 chip_smoke.py --em-checksum TREE
 
-run none of the phases: they time the SDE paths' training steps
+run none of the phases, but for `--phase15` and `--phase16`, which run
+that phase alone after its sources' build, and `--em-checksum`, which
+prints phase 16's fp32 EM checksum with TREE's package (a parent commit
+unpacked by `git archive`). The others time the SDE paths' training steps
 and the CDE classifier's (`ab_steps`), the LSTM or GRU kernels at the
 sweep's and the bench shapes
 (`ab_rnn`), the EM, SRK and CDE kernels at the main paths' shapes and the
@@ -386,6 +414,7 @@ with seeds 0 .. WORLD-1).
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -547,11 +576,11 @@ def card() -> str:
     return smi
 
 
-def build():
+def build(names=SOURCES):
     from snsde_torch.kernels import _build
 
     t0 = time.perf_counter()
-    _build.build(SOURCES)
+    _build.build(names)
     print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
     for name, rec in _build.BUILD_LOG.items():
         for line in rec["log"].splitlines():
@@ -1286,6 +1315,7 @@ def main_path():
     res = run_sepsis(cfg, n=N_SEPSIS, max_epochs=2, device=DEV)
     torch.cuda.synchronize()
     launches = read_counts()
+    MAIN_RUN["fp32"] = res
     wall = time.perf_counter() - t0
     losses = [h[s]["loss"] for h in res.history for s in ("train", "val")]
     losses += [res.train_metrics.loss, res.val_metrics.loss,
@@ -6041,14 +6071,18 @@ def interp_flagship(out: str = "RESULTS_torch_interpolation_h128.json") -> int:
 
 
 def activity_r5(out: str = "RESULTS_torch_activity_k5.json",
-                seeds=None) -> int:
+                seeds=None, init: str = "") -> int:
     """The activity flagship's seeds (ACTIVITY_R5: five, or seeds 0 ..
     SEEDS - 1; 200 epochs, n=1024, warmup_epochs 5) against
     RESULTS_activity_k5.json, each seed's test accuracy held to the
     activity pin's floor, the seeds under ACTIVITY_PLATEAU (the
-    majority-label plateau) counted, written to `out`:
+    majority-label plateau) counted, written to `out`; with `init` (an
+    .npz of JAX's initial leaves, "seed<k>/<leaf>"), each seed trained
+    from JAX's own initial weights:
 
-        python3 chip_smoke.py --activity-r5 [OUT [SEEDS]]"""
+        python3 chip_smoke.py --activity-r5 [OUT [SEEDS]]
+        python3 chip_smoke.py --activity-jax-init [OUT]   (seeds 0-4 from
+            tests/goldens/activity_jax_init.npz)"""
     from snsde_torch.harness.activity import ActivityConfig, run_activity
     from snsde_torch.train.pins import FLAGSHIP_PINS
 
@@ -6061,11 +6095,15 @@ def activity_r5(out: str = "RESULTS_torch_activity_k5.json",
     tests, vals = [], []
     seed_list = (list(ACTIVITY_R5["seeds"]) if seeds is None
                  else list(range(seeds)))
+    leaves = np.load(init) if init else None
     for seed in seed_list:
         res = run_activity(ActivityConfig(
             max_epochs=ACTIVITY_R5["epochs"], k_iwae=5,
             warmup_epochs=ACTIVITY_R5["warmup"], seed=seed, verbose=False),
-            n=ACTIVITY["n"], device=DEV)
+            n=ACTIVITY["n"], device=DEV,
+            init=None if leaves is None else {
+                k.split("/", 1)[1]: leaves[k] for k in leaves.files
+                if k.startswith(f"seed{seed}/")})
         tests.append(res.test_accuracy)
         vals.append(res.val_accuracy)
         print(f"activity seed {seed}: test {res.test_accuracy:.4f}, val "
@@ -6081,6 +6119,9 @@ def activity_r5(out: str = "RESULTS_torch_activity_k5.json",
            "k_iwae": 5, "n": ACTIVITY["n"], "epochs": ACTIVITY_R5["epochs"],
            "warmup_epochs": ACTIVITY_R5["warmup"],
            "seeds": seed_list,
+           "init": ("JAX's initial leaves, " + os.path.relpath(
+               init, os.path.dirname(os.path.abspath(__file__))))
+                   if init else "the port's own draw",
            "test_accuracy_pertp": summary(tests),
            "plateau": ACTIVITY_PLATEAU,
            "seeds_below_plateau": int(sum(t < ACTIVITY_PLATEAU
@@ -7019,12 +7060,627 @@ def phase15_only(world: int = DP_RUN["world"]) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the EM pair's reduced-precision modes
+# ---------------------------------------------------------------------------
+
+# (operand mode, stream dtype) of every reduced-precision combination of
+# the EM pair (the JAX package's SNSDE_FUSED_MATMUL, SNSDE_FUSED_STREAM),
+# bench.py's own first (bf16x3 operands, bf16 streams: bench.py:24-39)
+PREC_COMBOS = (("bf16x3", "bf16"), ("bf16", "bf16"), ("f32", "bf16"),
+               ("bf16x3", "f32"), ("bf16", "f32"))
+# the bars of tests/test_torch_fused_em_precision.py: a trajectory entry
+# within one bf16 ulp of |ys| (a 1-ulp fp32 difference between the
+# kernel's and the plain version's sums can flip one bf16 rounding) plus,
+# in place of the CPU tests' 1e-6 (their fp32 floor at 5 steps), the fp32
+# instances' own bar at the shape, TOL_YS of max|ys| (over 71 steps the
+# two fp32 carries part by up to 3.4e-7 of max|ys|, 2.4e-5 at the sepsis
+# shape: more than an ulp of the smallest entries); every other output
+# within 2e-3 of its largest entry
+PREC_ULP, PREC_TOL = 2.0 ** -7, 2e-3
+# where the plain version itself moves further when every pre-activation
+# moves one ulp (check_precision), the kernel may move this many times as
+# far
+PREC_SPREAD = 4.0
+# one case of each drift and noise mode beside the sepsis flagship's (4,17)
+# at the sweep's width: yy + net2, xt + elem, embm + net1
+PREC_SWEEP_MODES = ((1, 18), (0, 7), (2, 14))
+PREC_K = 5
+# bench.py's training configuration (bench.py:44-48, :86-104): LNSDE (4,17)
+# with the initial network, B=1024 on 72 hourly times, a time channel and
+# 34 N(0,1) channels from default_rng(0), ~10% positive labels, BCE with
+# pos_weight 10 and the field's weight regularisation, AdamW(1e-3, 0.01)
+BENCH = dict(B=1024, L=72, C=35, H=49, layers=2, model="neurallnsde",
+             steps=20, lr=1e-3, weight_decay=0.01)
+# a precision's first training step (the same weights and batch as the
+# fp32 run's) may move the loss by at most this, relative: the mode's own
+# effect on a loss before any update (measured on the CPU at the sepsis
+# path: 1.2e-4 with bf16 streams)
+PREC_FIRST_LOSS = 1e-3
+# the bf16 tensor-core peak of an H100 SXM (dense), for the reduced modes'
+# bound: their products are bf16 passes (bf16x3 three a term)
+PEAK_BF16 = 989e12
+# the parent commit's checksum of the fp32 forward's and recurrence's
+# outputs at the sepsis shape (em_checksum; chip_smoke.py --em-checksum
+# TREE on the parent's tree, H100 80GB HBM3)
+PARENT_EM_CHECKSUM = ("db79bd4ef2f7f289cbdd12cf556a9c884f3053367d505353eb9"
+                      "33bb96a4deb20")
+# the fp32 run_sepsis of main path 1, which phase 16 (c) holds its run to
+MAIN_RUN = {}
+
+
+class precision_env:
+    """SNSDE_FUSED_MATMUL and SNSDE_FUSED_STREAM set for a block and
+    restored after it, so that no later phase (and no SRK, CDE or RNN
+    entry, which would raise) sees them."""
+
+    def __init__(self, matmul, stream):
+        self.set = {"SNSDE_FUSED_MATMUL": matmul,
+                    "SNSDE_FUSED_STREAM": stream}
+
+    def __enter__(self):
+        self.old = {k: os.environ.get(k) for k in self.set}
+        os.environ.update(self.set)
+
+    def __exit__(self, *exc):
+        for k, v in self.old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def prec_label(matmul, stream):
+    return f"{matmul} operands, {stream} streams"
+
+
+def prec_args(fwd, flags, gys, matmul, stream):
+    """An EM launch's inputs in a precision: xh and dW (and gys) in bf16
+    with bf16 streams, the modes `stream` and `matmul` in the flags."""
+    bf = (lambda t: None if t is None else t.to(torch.bfloat16)) \
+        if stream == "bf16" else (lambda t: t)
+    return ([fwd[0], bf(fwd[1]), bf(fwd[2])] + list(fwd[3:]),
+            dict(flags, stream=stream, matmul=matmul), bf(gys))
+
+
+def _rel(a, b):
+    a, b = a.float(), b.float()
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+
+def nudged_relu(z):
+    """relu of z moved one float32 ulp up: handed to the plain versions'
+    `relu`, every pre-activation of the drift MLP and the noise net moves
+    as far as a different fp32 summation order moves it (the kernel's)."""
+    return torch.relu(torch.nextafter(z, torch.full_like(z, float("inf"))))
+
+
+def check_precision(label, fwd, flags, gys):
+    """An EM launch in a reduced precision against its plain versions on
+    the same inputs. The forward's trajectory within one bf16 ulp plus
+    TOL_YS of max|ys| or, where the plain version moves further when every
+    pre-activation moves one fp32 ulp (nudged_relu: a 1-ulp difference can
+    flip an operand's bf16 rounding, and 71 steps amplify the flips, the
+    more with single-pass bf16 operands), PREC_SPREAD times that move
+    (largest entry and root-mean-square); its noise-net streams, and the
+    backward (recurrence and weight gradient, on the plain forward's
+    trajectory and streams), by PREC_TOL of each output's largest entry or
+    PREC_SPREAD times the nudged plain version's move. The weight-gradient
+    kernel alone (on the plain recurrence's streams: the same operands, no
+    flips) by PREC_TOL, and in a reduced operand mode each weight within a
+    tenth of the gap from this mode's plain product to the other modes'
+    (bf16x3's to one bf16 pass, bf16's to fp32 and bf16x3: so bf16x3 is
+    split and bf16 a single pass). Returns the largest
+    errors of the forward, the backward and the weight gradient."""
+    from snsde_torch.kernels import fused_em as fe
+
+    ys_k, ns_k = fe.fused_em_forward(*fwd, **flags)
+    ys_p, ns_p = fe.fused_em_forward_reference(*fwd, **flags)
+    ys_n, ns_n = fe.fused_em_forward_reference(*fwd, **flags,
+                                               relu=nudged_relu)
+    p = ys_p.float()
+    d, dn = (ys_k.float() - p).abs(), (ys_n.float() - p).abs()
+    rms = lambda t: float(t.square().mean().sqrt())
+    floor = max(TOL_YS * float(p.abs().max()), PREC_SPREAD * float(dn.max()))
+    over = float((d - (PREC_ULP * p.abs() + floor)).max())
+    err_f = float(d.max())
+    print(f"  {label}: ys max abs err {err_f:.3e}, rms {rms(d):.3e}; the "
+          f"nudged plain version's {float(dn.max()):.3e}, rms {rms(dn):.3e} "
+          f"(past one ulp + {floor:.2e} by {max(over, 0.0):.3e})")
+    if over > 0 or rms(d) > PREC_SPREAD * rms(dn) + floor:
+        raise AssertionError(f"{label}: forward kernel off by more than one "
+                             f"bf16 ulp and the plain version's spread: "
+                             f"{over:.3e}")
+    for name, a, b, c in zip(ns_k._fields if ns_k else (), ns_k or (),
+                             ns_p or (), ns_n or ()):
+        if b is not None and _rel(a, b) > max(PREC_TOL,
+                                              PREC_SPREAD * _rel(c, b)):
+            raise AssertionError(f"{label}: the nets' {name}: {_rel(a, b)}")
+    args = [fwd[0], ys_p, gys] + fwd[1:]
+    g_k = fe.fused_em_backward(*args, **flags, ns=ns_p)
+    g_p = fe.fused_em_backward_reference(*args, **flags, ns=ns_p)
+    g_n = fe.fused_em_backward_reference(*args, **flags, ns=ns_p,
+                                         relu=nudged_relu)
+    err_b, worst = 0.0, ""
+    for name, a, b, c in zip(g_k._fields, g_k, g_p, g_n):
+        if b is None or not b.numel() or not float(b.abs().max()):
+            continue
+        rel, tol = _rel(a, b), max(PREC_TOL, PREC_SPREAD * _rel(c, b))
+        err_b = max(err_b, float((a.float() - b.float()).abs().max()))
+        worst = max(worst, f"{rel / tol:.3f} {name} {rel:.2e}/{tol:.2e}")
+        if rel > tol:
+            raise AssertionError(f"{label}: backward kernel disagrees on "
+                                 f"{name}: {rel:.3e} (tol {tol:.3e})")
+    prec = {k: flags[k] for k in ("stream", "matmul")}
+    modes = {k: v for k, v in flags.items() if k not in prec}
+    st = fe.fused_em_backward_recurrence_reference(*args, **modes, **prec,
+                                                   ns=ns_p)
+    nh = None if ns_p is None else ns_p.nh
+    y0s = fwd[0].to(ys_p.dtype)
+    w_k = fe.fused_em_weight_grads(y0s, ys_p, st, nh, drift=flags["drift"],
+                                   noise=flags["noise"],
+                                   matmul=flags["matmul"])
+    w_p = fe.fused_em_weight_grads_reference(
+        y0s, ys_p, st.dxh, st.hs, st.es, st.dz3, st.q, st.dn, st.dz2, nh,
+        drift=flags["drift"], noise=flags["noise"], matmul=flags["matmul"])
+    # the modes this one must be told from over K = M B rows: bf16x3 from
+    # one bf16 pass (from exact fp32 it is ~2^-17 a term, below the fp32
+    # sums' own order: the CPU product test holds that), bf16 from both
+    others = [fe.fused_em_weight_grads_reference(
+        y0s, ys_p, st.dxh, st.hs, st.es, st.dz3, st.q, st.dn, st.dz2, nh,
+        drift=flags["drift"], noise=flags["noise"], matmul=m)
+        for m in {"f32": (), "bf16x3": ("bf16",),
+                  "bf16": ("f32", "bf16x3")}[flags["matmul"]]]
+    err_w, split = 0.0, ""
+    for i, (name, a, b) in enumerate(zip(w_k._fields, w_k, w_p)):
+        if b is None or not b.numel() or not float(b.abs().max()):
+            continue
+        err = float((a - b).abs().max())
+        err_w = max(err_w, err)
+        if _rel(a, b) > PREC_TOL:
+            raise AssertionError(f"{label}: weight-gradient kernel disagrees "
+                                 f"on {name}: {_rel(a, b):.3e}")
+        gap = min((float((o[i] - b).abs().max()) for o in others),
+                  default=0.0)
+        if gap > 0:         # a product's output (not a column or bias sum)
+            split = max(split, f"{err / gap:.3f} {name}")
+            if err > 0.1 * gap:
+                raise AssertionError(f"{label}: the weight gradient's {name} "
+                                     f"is {err:.3e} from the plain "
+                                     f"version's, not a tenth of the gap to "
+                                     f"another operand mode ({gap:.3e})")
+    torch.cuda.synchronize()
+    print(f"    backward max abs err {err_b:.3e} (closest to its tol: "
+          f"ratio, output, rel err / tol: {worst}), weight gradient alone "
+          f"{err_w:.3e} (tol {PREC_TOL:g} of each output's largest entry; "
+          f"largest share of the gap to another operand mode: "
+          f"{split or 'none'})")
+    return err_f, err_b, err_w
+
+
+def em_checksum():
+    """sha256 of the fp32 EM forward's trajectory and the backward
+    recurrence's outputs at the sepsis shape (kernel_inputs of MAIN, seed
+    0): the fp32 instances' bits, to hold against the parent commit's."""
+    import hashlib
+
+    from snsde_torch.kernels import fused_em as fe
+
+    inp, gys = kernel_inputs(MAIN["model"], MAIN["B"], MAIN["L"], MAIN["C"],
+                             MAIN["H"], MAIN["layers"])
+    fwd, flags = _split(inp)
+    ys, _ = fe.fused_em_forward(*fwd, **flags)
+    st = fe.fused_em_backward_recurrence(fwd[0], ys, gys, *fwd[1:], **flags)
+    h = hashlib.sha256()
+    for t in (ys,) + tuple(t for t in st if t is not None):
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def em_checksum_only(tree: str) -> int:
+    """`--em-checksum TREE`: em_checksum with TREE's snsde_torch (its
+    fused_em.cu built first), printed as one line."""
+    sys.path.insert(0, os.path.abspath(tree))
+    from snsde_torch.kernels import _build
+
+    _build.build(["fused_em"])
+    import snsde_torch
+
+    print(f"em checksum of {os.path.dirname(snsde_torch.__file__)}: "
+          f"{em_checksum()}", flush=True)
+    return 0
+
+
+def precision_kernel_checks():
+    """Phase 16 (a): every reduced precision of the EM forward, recurrence
+    and weight-gradient kernels against their plain versions
+    (check_precision) at the sepsis width (B=1024, 71 steps, H=HH=49, one
+    inner layer, (4,17)), at the sweep's width for PREC_SWEEP_MODES, the
+    latent instances at the tutorial's shape, and the member axis at K=5
+    (each member bit for bit its solo launch, member 0 against the plain
+    versions); and the fp32 instances' checksum against the parent's.
+    Returns {combo: (forward, backward, weight-gradient) largest errors}."""
+    from snsde_torch.kernels import fused_em as fe
+
+    t0 = time.perf_counter()
+    sums = em_checksum()
+    print(f"phase 16: the fp32 EM checksum at the sepsis shape {sums} "
+          f"(parent {PARENT_EM_CHECKSUM})", flush=True)
+    if PARENT_EM_CHECKSUM is not None and sums != PARENT_EM_CHECKSUM:
+        raise AssertionError("the fp32 EM instances' outputs are not the "
+                             "parent commit's")
+    cases = [("sepsis (4,17)",) + kernel_inputs(MAIN["model"], MAIN["B"],
+                                                 MAIN["L"], MAIN["C"],
+                                                 MAIN["H"], MAIN["layers"])]
+    for io, no in PREC_SWEEP_MODES:
+        cases.append((f"sweep ({io},{no})",) + kernel_inputs(
+            mode_name(io, no), SWEEP["B"], SWEEP["L"], SWEEP["D"] + 1,
+            SWEEP["H"], 2))
+    worst = {}
+    for combo in PREC_COMBOS:
+        e = [0.0, 0.0, 0.0]
+        for name, inp, gys in cases:
+            fwd, flags = _split(inp)
+            r = check_precision(f"EM {name} {prec_label(*combo)}",
+                                *prec_args(fwd, flags, gys, *combo))
+            e = [max(a, b) for a, b in zip(e, r)]
+        fwd, flags, gys = latent_kernel_inputs(**TUTORIAL_LATENT)
+        r = check_precision(f"EM latent (tutorial) {prec_label(*combo)}",
+                            *prec_args(fwd, flags, gys, *combo))
+        worst[combo] = [max(a, b) for a, b in zip(e, r)]
+    for combo in PREC_COMBOS[:2]:
+        stacked, flags, gys, members = member_inputs(
+            "em", MAIN["model"], MAIN["B"], MAIN["L"], MAIN["C"], MAIN["H"],
+            MAIN["layers"], PREC_K)
+        fwd_p, flags_p, gys_p = prec_args(stacked, flags, gys, *combo)
+        label = f"EM packed K={PREC_K} {prec_label(*combo)}"
+        # one plan for both (the back products' lanes follow the rows)
+        fe._LIB.force_placement(0)
+        fe.force_em_plan(*MEMBER_PLANS[0])
+        try:
+            packed = _run("em", fwd_p, flags_p, gys_p)
+            solo = [_run("em", *prec_args(f, flags, g, *combo))
+                    for f, g in members]
+        finally:
+            fe.force_em_plan(0, 0)
+        _same_as_solo(f"{label} plan {MEMBER_PLANS[0]}", "em", packed, solo)
+        m0 = prec_args(members[0][0], flags, members[0][1], *combo)
+        r = check_precision(f"{label} member 0", *m0)
+        worst[combo] = [max(a, b) for a, b in zip(worst[combo], r)]
+        print(f"  {label}: every member bit for bit its solo launch",
+              flush=True)
+    print(f"phase 16 (a) in {time.perf_counter() - t0:.1f} s", flush=True)
+    return worst
+
+
+def bench_batch():
+    """bench.py's batch on the card: (times, coeffs, final_index, y)."""
+    from snsde_torch.ops import hermite_cubic_coeffs
+
+    rng = np.random.default_rng(0)
+    B, L, C = BENCH["B"], BENCH["L"], BENCH["C"]
+    times = np.arange(L, dtype=np.float32)
+    X = rng.normal(size=(B, L, C - 1)).astype(np.float32)
+    tchan = np.broadcast_to(times[None, :, None], (B, L, 1))
+    Xa = np.concatenate([tchan, X], axis=-1)
+    coeffs = hermite_cubic_coeffs(torch.as_tensor(times),
+                                  torch.as_tensor(Xa)).to(DEV)
+    y = torch.as_tensor((rng.random(B) < 0.1).astype(np.float32), device=DEV)
+    return times, coeffs, torch.full((B,), L - 1, dtype=torch.long,
+                                     device=DEV), y
+
+
+def bench_training(matmul, stream, batch, steps=BENCH["steps"],
+                   profile=False):
+    """bench.py's configuration trained `steps` steps in a precision set
+    through the environment (precision_env), as a user sets it: (losses,
+    the EM launch counts of the run, the median step ms after 3, the
+    profiled (wall, device) ms a step or None)."""
+    from snsde_torch.harness.classification import make_sde_model
+    from snsde_torch.kernels import fused_em as fe
+    from snsde_torch.train.loop import bce_with_logits, weight_regularization
+
+    times, coeffs, final_index, y = batch
+    env = (precision_env(matmul, stream) if (matmul, stream) != ("f32", "f32")
+           else contextlib.nullcontext())
+    with env:
+        model, reg = make_sde_model(
+            BENCH["model"], BENCH["C"], BENCH["H"], BENCH["H"],
+            BENCH["layers"], 1, method="euler",
+            generator=torch.Generator().manual_seed(0))
+        model = model.to(DEV)
+        opt = torch.optim.AdamW(model.parameters(), lr=BENCH["lr"],
+                                weight_decay=BENCH["weight_decay"],
+                                fused=DEV == "cuda")
+
+        def step(i):
+            gen = torch.Generator(device=DEV).manual_seed(i)
+            logits = model(times, coeffs, final_index, generator=gen)
+            loss = (bce_with_logits(logits[..., 0], y, pos_weight=10.0)
+                    + weight_regularization(reg(model)))
+            opt.zero_grad()
+            loss.backward()
+            opt.step()
+            return loss
+
+        zero_counts()
+        for k in fe.PRECISION_LAUNCHES:
+            fe.PRECISION_LAUNCHES[k] = 0
+        losses, ms = [], []
+        for i in range(steps):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            loss = step(i)
+            b.record()
+            losses.append(float(loss.detach()))
+            ms.append(a.elapsed_time(b))
+        torch.cuda.synchronize()
+        counts = dict(fe.PRECISION_LAUNCHES)
+        counts.update({k: v for k, v in read_counts().items()
+                       if k.startswith("em_")})
+        prof = (profile_step(f"bench.py configuration, "
+                             f"{prec_label(matmul, stream)}",
+                             lambda: step(steps)) if profile else None)
+    return losses, counts, statistics.median(ms[3:]), prof
+
+
+def bench_training_path():
+    """Phase 16 (b): bench.py's configuration trained BENCH["steps"] steps
+    in exact fp32, then in each reduced precision (bench.py's own, bf16x3
+    operands with bf16 streams, first; then bf16 operands), each set
+    through the environment for its run alone; each run must end with a
+    finite loss under its first, its first loss within PREC_FIRST_LOSS of
+    the fp32 run's, and launch the EM forward, recurrence and
+    weight-gradient kernels in its precision (counted). Returns {combo:
+    launches}."""
+    t0 = time.perf_counter()
+    batch = bench_batch()
+    ref, _, ref_ms, _ = bench_training("f32", "f32", batch)
+    print(f"main path 16 (b): bench.py's configuration, exact fp32: losses "
+          f"{ref[0]:.6f} -> {ref[-1]:.6f}, step {ref_ms:.3f} ms", flush=True)
+    launches = {}
+    for i, combo in enumerate(PREC_COMBOS):
+        losses, counts, step_ms, prof = bench_training(*combo, batch,
+                                                       profile=i == 0)
+        mm, st = combo
+        got = {k: counts[f"{k} {mm} {st}"] for k in ("fwd", "bwd", "wgrad")}
+        print(f"main path 16 (b): bench.py's configuration, "
+              f"{prec_label(*combo)}: losses {losses[0]:.6f} -> "
+              f"{losses[-1]:.6f}, step {step_ms:.3f} ms (median of "
+              f"{len(losses) - 3})"
+              + (f", profiled {prof[0]:.3f} ms wall, device busy "
+                 f"{prof[1]:.3f} ms ({100 * prof[1] / prof[0]:.1f}%)"
+                 if prof else "")
+              + f", launches in the precision {got}", flush=True)
+        if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+            raise AssertionError(f"bench.py configuration in "
+                                 f"{prec_label(*combo)}: the loss did not "
+                                 f"fall: {losses}")
+        first = abs(losses[0] - ref[0]) / abs(ref[0])
+        print(f"    first loss {first:.2e} from the fp32 run's (tol "
+              f"{PREC_FIRST_LOSS:g}); last {losses[-1]:.6f} against "
+              f"{ref[-1]:.6f}", flush=True)
+        if not first <= PREC_FIRST_LOSS:
+            raise AssertionError(f"bench.py configuration in "
+                                 f"{prec_label(*combo)}: the first loss is "
+                                 f"{first:.2e} from the fp32 run's")
+        if min(got.values()) < 1:
+            raise AssertionError(f"bench.py configuration in "
+                                 f"{prec_label(*combo)} did not launch the "
+                                 f"kernels in its precision: {counts}")
+        launches[combo] = got
+    for var in ("SNSDE_FUSED_MATMUL", "SNSDE_FUSED_STREAM"):
+        if var in os.environ:
+            raise AssertionError(f"{var} left set after phase 16 (b)")
+    print(f"phase 16 (b) in {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
+def latent_precision_path():
+    """Phase 16 (b'): the tutorial's `lsde-kld` (the LatentSDE on the EM
+    pair's latent instances, B=800, 19 steps, H=HH=32) trained
+    TUTORIAL_EPOCHS epochs in bench.py's precision set through the
+    environment: finite losses, its theory check holding, the latent
+    instances launched in the precision. Returns those launches."""
+    from snsde_torch import tutorial
+    from snsde_torch.kernels import fused_em as fe
+
+    combo = PREC_COMBOS[0]
+    with precision_env(*combo):
+        zero_counts()
+        for k in fe.PRECISION_LAUNCHES:
+            fe.PRECISION_LAUNCHES[k] = 0
+        res = tutorial.train("lsde-kld", epochs=TUTORIAL_EPOCHS,
+                             verbose=False, device=DEV)
+        torch.cuda.synchronize()
+        got = {k: fe.PRECISION_LAUNCHES[f"{k} {combo[0]} {combo[1]}"]
+               for k in ("fwd", "bwd", "wgrad")}
+        latent = {k: v for k, v in read_counts().items() if "latent" in k}
+    losses = res["losses"]
+    chk = res["check"]
+    print(f"main path 16 (b'): tutorial lsde-kld in {prec_label(*combo)}: "
+          f"loss {losses[0]:.5f} -> {losses[-1]:.5f}, check {chk['name']} = "
+          f"{chk['value']:.4g} ({'holds' if chk['ok'] else 'FAILS'}), "
+          f"launches in the precision {got}, latent instances {latent}",
+          flush=True)
+    if not (np.isfinite(losses).all() and res["check"]["ok"]):
+        raise AssertionError(f"tutorial lsde-kld in {prec_label(*combo)}: "
+                             f"{res['check']}")
+    if min(list(got.values()) + list(latent.values())) < 1:
+        raise AssertionError(f"tutorial lsde-kld in {prec_label(*combo)} did "
+                             f"not launch the latent instances in it")
+    return got
+
+
+def precision_sepsis_path():
+    """Phase 16 (c): run_sepsis 2 epochs with bf16x3 operands and bf16
+    streams at main path 1's seed: finite losses, the kernels launched in
+    the precision; each epoch's train loss printed beside main path 1's
+    fp32 run's with their relative gap, and both runs' val AUROC. The gap
+    is not held to a bar: the harness's training amplifies any change of
+    the gradients (bf16 streams move the sepsis gradient by ~1e-3 of its
+    norm, in the JAX kernel too) to 8-19% in the epochs' train loss
+    (PERF.md section 6, PR 21; bf16x3 operands with fp32 streams, ~1e-7,
+    stay within 0.25%). Returns the run's launches in the precision."""
+    from snsde_torch.harness.classification import run_sepsis
+    from snsde_torch.kernels import fused_em as fe
+
+    t0 = time.perf_counter()
+    if "fp32" not in MAIN_RUN:
+        MAIN_RUN["fp32"] = run_sepsis(main_config(), n=N_SEPSIS,
+                                      max_epochs=2, device=DEV)
+    ref = MAIN_RUN["fp32"]
+    combo = PREC_COMBOS[0]
+    with precision_env(*combo):
+        for k in fe.PRECISION_LAUNCHES:
+            fe.PRECISION_LAUNCHES[k] = 0
+        res = run_sepsis(main_config(), n=N_SEPSIS, max_epochs=2, device=DEV)
+        torch.cuda.synchronize()
+        got = {k: fe.PRECISION_LAUNCHES[f"{k} {combo[0]} {combo[1]}"]
+               for k in ("fwd", "bwd", "wgrad")}
+    for e, (h, h32) in enumerate(zip(res.history, ref.history)):
+        a, b = h["train"]["loss"], h32["train"]["loss"]
+        print(f"main path 16 (c): run_sepsis epoch {e + 1} train loss "
+              f"{a:.6f} ({prec_label(*combo)}) against {b:.6f} (fp32), "
+              f"rel {abs(a - b) / abs(b):.2e}", flush=True)
+        if not all(np.isfinite([h[s]["loss"] for s in ("train", "val")])):
+            raise AssertionError(f"run_sepsis in {prec_label(*combo)}: a "
+                                 f"non-finite loss in epoch {e + 1}")
+    print(f"main path 16 (c): val AUROC {res.val_metrics.auroc:.4f} "
+          f"({prec_label(*combo)}) beside {ref.val_metrics.auroc:.4f} (fp32); "
+          f"launches in the precision {got}; {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    if min(got.values()) < 1:
+        raise AssertionError(f"run_sepsis in {prec_label(*combo)} did not "
+                             f"launch the kernels in its precision: {got}")
+    return got
+
+
+def precision_times(reps=10):
+    """Each reduced precision's ms a launch of the EM forward, recurrence
+    and weight gradient at the sepsis shape beside the fp32 instances',
+    their plain versions' (3 runs), and the bounds from the inputs: bytes
+    of every input read once and output written once (bf16 streams 2
+    bytes), the products' operations at the bf16 tensor-core peak (bf16x3
+    three passes; fp32 operands at the fp32 peak). {combo: {part: ms}},
+    {combo: {part: (bound ms, by)}}."""
+    from snsde_torch.kernels import fused_em as fe
+
+    inp, gys = kernel_inputs(MAIN["model"], MAIN["B"], MAIN["L"], MAIN["C"],
+                             MAIN["H"], MAIN["layers"])
+    fwd0, flags0 = _split(inp)
+    ms, bounds = {}, {}
+    for combo in (("f32", "f32"),) + PREC_COMBOS:
+        fwd, flags, g = prec_args(fwd0, flags0, gys, *combo)
+        prec = {k: flags[k] for k in ("stream", "matmul")}
+        ys, ns = fe.fused_em_forward(*fwd, **flags)
+        args = [fwd[0], ys, g] + fwd[1:]
+        st = fe.fused_em_backward_recurrence(*args, **flags)
+        y0s = fwd[0].to(ys.dtype)
+        wk = lambda: fe.fused_em_weight_grads(y0s, ys, st,
+                                              matmul=prec["matmul"])
+        wp = lambda: fe.fused_em_weight_grads_reference(
+            y0s, ys, st.dxh, st.hs, st.es, st.dz3, st.q,
+            matmul=prec["matmul"])
+        t = {"fwd": timed(lambda: fe.fused_em_forward(*fwd, **flags),
+                          reps=reps, warmup=2),
+             "bwd_recurrence": timed(lambda: fe.fused_em_backward_recurrence(
+                 *args, **flags), reps=reps, warmup=2),
+             "wgrad": timed(wk, reps=reps, warmup=2),
+             "fwd_plain": timed(lambda: fe.fused_em_forward_reference(
+                 *fwd, **flags), reps=3, warmup=1),
+             "bwd_plain": timed(lambda: fe.fused_em_backward_reference(
+                 *args, **flags), reps=3, warmup=1),
+             "wgrad_plain": timed(wp, reps=3, warmup=1)}
+        t["bwd"] = t["bwd_recurrence"] + t["wgrad"]
+        M, B, H = ys.shape
+        flops = sde_products("em", flags, M, B, H, H, MAIN["layers"] - 1)
+        passes, peak = ((3, PEAK_BF16) if combo[0] == "bf16x3" else
+                        (1, PEAK_BF16) if combo[0] == "bf16" else
+                        (1, PEAK_FP32))
+        nbytes = lambda ts: sum(x.numel() * x.element_size() for x in ts
+                                if x is not None)
+        n_in = nbytes(fwd)
+        n_st = nbytes([st.dxh, st.hs, st.es, st.dz3, st.q])
+        grads = fe.fused_em_backward(*args, **flags)
+        b = lambda nb, fl: (max(nb / PEAK_BYTES, fl / peak) * 1e3,
+                            "bytes" if nb / PEAK_BYTES >= fl / peak
+                            else "operations")
+        bounds[combo] = {
+            "fwd": b(n_in + nbytes([ys]), passes * flops),
+            "bwd": b(n_in + nbytes([ys, g]) + nbytes(grads),
+                     3 * passes * flops),
+            "wgrad": b(nbytes([fwd[0], ys]) + n_st, passes * flops)}
+        ms[combo] = t
+        print(f"phase 16 times {prec_label(*combo)} at the sepsis shape: " +
+              ", ".join(f"{k} {v:.4f} ms" for k, v in t.items()) +
+              f"; bounds {bounds[combo]}", flush=True)
+    return ms, bounds
+
+
+def phase16_entries(launches, errs, ms, bounds):
+    """The kernels line's entries of the reduced precisions: the EM
+    forward, backward (recurrence + weight gradient) and weight gradient
+    in each combination, its launches those of phase 16's main-path runs
+    (the bench.py configuration's, and run_sepsis's in bench.py's own)."""
+    out = []
+    for combo in PREC_COMBOS:
+        mm, st = combo
+        for part, name, line in (("fwd", "forward", 688),
+                                 ("bwd", "backward", 888),
+                                 ("wgrad", "weight_grads", 888)):
+            i = {"fwd": 0, "bwd": 1, "wgrad": 2}[part]
+            out.append({
+                "name": f"fused_em_{name}_{mm}_{st}s",
+                "route": "cuda", "source": "snsde_torch/csrc/fused_em.cu",
+                "replaces": f"snsde/kernels/fused_em.py:{line}",
+                "launches": sum(l[combo][part] for l in launches
+                                if combo in l),
+                "max_abs_err": errs[combo][i],
+                "ms": ms[combo][part],
+                "plain_ms": ms[combo][f"{part}_plain"],
+                "bound_ms": bounds[combo][part][0],
+                "bound_by": bounds[combo][part][1], "library_ms": None,
+                "shape": "sepsis", "precision": {"matmul": mm,
+                                                 "stream": st},
+                "fp32_ms": ms[("f32", "f32")][part]})
+    return out
+
+
+def phase16_only() -> int:
+    """`--phase16`: phase 16 alone after fused_em.cu's build (with main
+    path 1's fp32 run_sepsis, which (c) is held to)."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    import snsde_torch  # noqa: F401  (fails outside the repository)
+
+    t0 = time.perf_counter()
+    smi = card()
+    build(["fused_em"])
+    errs = precision_kernel_checks()
+    launches = [bench_training_path(),
+                {PREC_COMBOS[0]: latent_precision_path()},
+                {PREC_COMBOS[0]: precision_sepsis_path()}]
+    ms, bounds = precision_times()
+    print(f"phase 16 alone: {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"kernels": phase16_entries(launches, errs, ms,
+                                                 bounds)}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     import snsde_torch  # noqa: F401  (fails outside the repository)
 
+    t_start = time.perf_counter()
     smi = card()
     build()
     print("kernels vs plain versions:", flush=True)
@@ -7149,6 +7805,13 @@ def main() -> int:
                  "em_latent": "em_latent", "srk_packed": "srk_packed",
                  "cde_gruode": "cde_gruode"}[key]
         err[paths] = tuple(max(a, b) for a, b in zip(err.get(paths, e), e))
+    print("phase 16: the EM pair's reduced precisions (bf16 streams, bf16x3 "
+          "and bf16 operands) vs their plain versions:", flush=True)
+    t16 = time.perf_counter()
+    prec_errs = precision_kernel_checks()
+    t16 = time.perf_counter() - t16
+    print(f"chip_smoke: the kernel checks done at "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
     with tempfile.TemporaryDirectory() as out_dir:
         launches = {"em": main_path(), "srk": mujoco_path(),
                     "cde": sweep_path(out_dir)}
@@ -7176,6 +7839,11 @@ def main() -> int:
         print(f"main path 14: the entry points in "
               f"{time.perf_counter() - t_phase:.1f} s", flush=True)
         p15 = phase15_path(out_dir, smi)
+        t_phase = time.perf_counter()
+        prec_launches = [bench_training_path(),
+                         {PREC_COMBOS[0]: latent_precision_path()},
+                         {PREC_COMBOS[0]: precision_sepsis_path()}]
+        t16 += time.perf_counter() - t_phase
     launches["activity"] = activity_path()
     for method in SDE_METHODS:
         sde_method_mujoco_path(method)
@@ -7185,6 +7853,8 @@ def main() -> int:
     wide_sepsis_path()
     naive_sepsis_path()
     spline_times()
+    print(f"chip_smoke: the main paths done at "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
     ms, bounds = {}, {}
     for key, shape, srk in (("em", MAIN, False), ("srk", SRK, True)):
         ms[key], bounds[key] = kernel_times(shape, srk=srk)
@@ -7254,6 +7924,10 @@ def main() -> int:
                          ("activity", activity_step_fns())):
         for k, v in step_times(label, steps, eager_reps=3).items():
             ms["interp"][f"{label} {k}"] = v
+    t_phase = time.perf_counter()
+    prec_ms, prec_bounds = precision_times()
+    t16 += time.perf_counter() - t_phase
+    print(f"phase 16 in {t16:.1f} s", flush=True)
     times14 = phase14_times()
     for label, (t14, _) in times14.items():
         for k, v in t14.items():
@@ -7497,6 +8171,9 @@ def main() -> int:
                 ms["cde_packed_gruode"][f"{part}_solo_k"],
             "plain_ms_gruode": ms["cde_packed_gruode"][f"{part}_plain"],
             "bound_ms_gruode": bounds["cde_packed_gruode"][part][0]})
+    kernels += phase16_entries(prec_launches, prec_errs, prec_ms, prec_bounds)
+    print(f"chip_smoke: the whole script in "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -7506,6 +8183,10 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--phase16"]:
+        sys.exit(phase16_only())
+    if sys.argv[1:2] == ["--em-checksum"]:
+        sys.exit(em_checksum_only(sys.argv[2]))
     if sys.argv[1:2] == ["--ab-steps"]:
         sys.exit(ab_steps(sys.argv[2], *map(int, sys.argv[3:5])))
     if sys.argv[1:2] in (["--ab-lstm"], ["--ab-gru"]):
@@ -7527,6 +8208,11 @@ if __name__ == "__main__":
         sys.exit(interp_flagship(*sys.argv[2:3]))
     if sys.argv[1:2] == ["--phase15"]:
         sys.exit(phase15_only(*map(int, sys.argv[2:3])))
+    if sys.argv[1:2] == ["--activity-jax-init"]:
+        sys.exit(activity_r5(
+            *(sys.argv[2:3] or ["RESULTS_torch_activity_jax_init.json"]),
+            init=os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              "tests", "goldens", "activity_jax_init.npz")))
     if sys.argv[1:2] == ["--activity-r5"]:
         sys.exit(activity_r5(*sys.argv[2:3], *map(int, sys.argv[3:4])))
     sys.exit(main())

@@ -99,7 +99,27 @@
 // products); the steps' phases still cost 2-5 K cycles each for a few
 // hundred cycles of FMA work: instruction issue, shared-memory reads and
 // barrier latency, not the FMA chains, bound them.
-// Exact fp32 FMA on the CUDA cores (TF32 off).
+// Exact fp32 FMA on the CUDA cores (TF32 off) by default.
+//
+// The JAX kernels' reduced-precision modes (_dot :67-107, _mm_mode
+// :110-115; traj_bf16, fused_em.py:1108-1118) are runtime arguments of
+// every instance (SdeDims.mm, .bs), not instances of their own:
+// * operands (mm): every in-kernel product, the weight gradient's and the
+//   latent KL rate's (0.5 u^2 through klm, :352; its cotangent :472) too,
+//   rounds its operands to bf16 (MM_BF16) or splits them into hi + lo
+//   (MM_X3, xh wh + xh wl + xl wh), accumulating in fp32 (sde_hopper.cuh:
+//   mm_mode, mm_t_mode, wgrad_kernel<.., true>); the fp32 instances' code
+//   is the parent's, behind one branch a call site;
+// * streams (bs): xh, dW, the trajectory, gys are bf16 in device memory,
+//   copied a step ahead in 4-byte pairs and widened into the fp32 tiles
+//   (copy_bf16, widen_bf16). The forward's carry stays fp32 and only the
+//   written trajectory is rounded (:617); the backward recomputes step k
+//   from the rounded state (the trajectory, y0 rounded by the wrapper,
+//   :830-836), so the noise nets' streams nb and nh, which it reads
+//   instead of recomputing, are those of the rounded state: the forward
+//   evaluates the nets a second time there (yr, hnr). The recurrence's
+//   streams for the weight gradient stay fp32 (dz1 too: the wrapper
+//   rounds the dxh it hands back).
 
 #include "sde_hopper.cuh"
 
@@ -127,11 +147,33 @@ __host__ __device__ constexpr bool lat_noise(int nz) { return nz == NZ_LAT; }
 // [3][U] (theta, mu, mask / sigma: own columns); the forward the row of u
 // [R4][sH] (every CTA's columns), the backward the KL lane's cotangent
 // [R4] and its gys column [2][R4].
+// With bf16 streams (bs), the staging area of the bf16 rows (copy_bf16)
+// from `stage` on, in pairs (em_stage): dW [R4][bf_pairs(U)], xh
+// [R4][bf_pairs(UH)], and in the backward gys [R4][bf_pairs(U)], the
+// state [R4][bf_pairs(H)] and the latent KL lane's gys column [R4]; the
+// forward of the noise nets also the rounded state yr [R4][sH] and (net2)
+// the hidden row at it, hnr [R4][sH].
 struct EmLayout {
   WtsAt w;
   long long y, h, e, z3, dz, gbar, pd, gn, hn, tq, tq1, tdy, xh, a, dw, gy,
-      gk, red, lat, ut, gkl, gkb, total;
+      gk, red, lat, ut, gkl, gkb, stage, yr, hnr, total;
 };
+
+// the staging areas' offsets (in pairs) from the layout's `stage`, one
+// pointer kept through the loops: dW 0, xh, gys, the state, the KL column
+struct EmStage {
+  int x, g, y, k, total;
+};
+
+__host__ __device__ inline EmStage em_stage(int R4, int U, int UH, int H) {
+  EmStage st;
+  st.x = R4 * bf_pairs(U);
+  st.g = st.x + R4 * bf_pairs(UH);
+  st.y = st.g + R4 * bf_pairs(U);
+  st.k = st.y + R4 * bf_pairs(H);
+  st.total = st.k + R4;
+  return st;
+}
 
 __host__ __device__ inline EmLayout em_layout(const SdeDims& d,
                                               const SdePlan& p, int bwd) {
@@ -143,6 +185,7 @@ __host__ __device__ inline EmLayout em_layout(const SdeDims& d,
   L.e = L.z3 = L.dz = L.gbar = L.pd = L.gy = L.red = -1;
   L.gn = L.hn = L.tq = L.tq1 = L.tdy = -1;
   L.lat = L.ut = L.gkl = L.gkb = -1;
+  L.stage = L.yr = L.hnr = -1;
   const bool net = net_noise(d.noise), net2 = d.noise == NZ_NET2;
   const bool lat = lat_noise(d.noise);
   if (lat) L.lat = take(3 * (long long)g.U);
@@ -176,6 +219,14 @@ __host__ __device__ inline EmLayout em_layout(const SdeDims& d,
   L.a = take(2 * (long long)g.UH);
   L.dw = take(2 * R4 * g.U);
   L.gk = take(2 * (long long)g.U);
+  if (d.bs) {
+    const EmStage st = em_stage(g.R4, g.U, g.UH, d.H);
+    L.stage = take(bwd ? st.total : st.g);
+    if (!bwd && net) {
+      L.yr = take(R4 * g.sH);
+      if (net2) L.hnr = take(R4 * g.sH);
+    }
+  }
   L.total = take(0);
   return L;
 }
@@ -194,8 +245,11 @@ __device__ __forceinline__ void load_lat(float* sl, const float* lat,
 // The forward kernel
 // ---------------------------------------------------------------------------
 
+// (__launch_bounds__(ET, 1): with the reduced products' code ptxas took
+// the main paths' instances from the parent's 128 registers to 64 and
+// spills; one CTA of 512 threads an SM lets it keep 128)
 template <bool GW, int DR, int NZ>
-__global__ void __launch_bounds__(ET)
+__global__ void __launch_bounds__(ET, 1)
 em_fwd_kernel(SdeDims dd, SdePlan pp, const float* __restrict__ y0,
               const float* __restrict__ xh, const float* __restrict__ dw,
               const float* __restrict__ a, const float* __restrict__ gk,
@@ -227,6 +281,13 @@ em_fwd_kernel(SdeDims dd, SdePlan pp, const float* __restrict__ y0,
   // 64 registers and spills)
   const int km = c.km, kb = member_row(d);
   const int htile = R4 * sHH, xtile = R4 * UH, wtile = R4 * U;
+  // the precision: the products' operand mode, and bf16 streams (xh, dW
+  // and ys as bf16 in device memory)
+  const int mode = d.mm;
+  const bool bs = d.bs;
+  const __nv_bfloat16* xh16 = reinterpret_cast<const __nv_bfloat16*>(xh);
+  const __nv_bfloat16* dw16 = reinterpret_cast<const __nv_bfloat16*>(dw);
+  __nv_bfloat16* ys16 = reinterpret_cast<__nv_bfloat16*>(ys);
   float* y = s + L.y;
   float* h = s + L.h;
   float* xb = s + L.xh;
@@ -237,26 +298,59 @@ em_fwd_kernel(SdeDims dd, SdePlan pp, const float* __restrict__ y0,
   float* hn = s + L.hn;
   float* sl = s + L.lat;
   float* ut = s + L.ut;
+  unsigned* sw = reinterpret_cast<unsigned*>(s + L.stage);
+  float* yr = s + L.yr;
+  float* hnr = s + L.hnr;
   const Grp all{0, ET};
-  for (int i = threadIdx.x; i < nr * H; i += ET)
-    y[(i / H) * sH + i % H] = y0[(size_t)(kb + row0) * H + i];
+  for (int i = threadIdx.x; i < nr * H; i += ET) {
+    const float v = y0[(size_t)(kb + row0) * H + i];
+    y[(i / H) * sH + i % H] = v;
+    if (net_noise(NZ) && bs) yr[(i / H) * sH + i % H] = bf16r(v);
+  }
   if constexpr (lat_noise(NZ)) load_lat(sl, lat, d, c, U);
-  // step u's streams into slot u & 1 (those of the instance's modes)
+  // step u's first rows in xh and dW
+  auto xrow = [&](int u) { return ((size_t)(km + u) * d.B + row0) * HH + h0; };
+  auto wrow = [&](int u) { return ((size_t)(km + u) * d.B + row0) * H + u0; };
+  // step u's streams into slot u & 1 (those of the instance's modes; bf16
+  // ones into their staging areas)
   auto prefetch = [&](int u) {
     const int b = u & 1;
-    if (DR != DR_YY)
-      copy_rows(xb + b * xtile, nh,
-                xh + ((size_t)(km + u) * d.B + row0) * HH + h0, HH, nh, nr);
+    if (DR != DR_YY) {
+      if (bs)
+        copy_bf16(sw + em_stage(R4, U, UH, H).x, xh16 + xrow(u), HH, nh, nr);
+      else
+        copy_rows(xb + b * xtile, nh, xh + xrow(u), HH, nh, nr);
+    }
     if (DR != DR_XT)
       copy_rows(ab + b * UH, nh, a + (size_t)(km + u) * HH + h0, nh, nh, 1);
-    copy_rows(wb + b * wtile, nu,
-              dw + ((size_t)(km + u) * d.B + row0) * H + u0, H, nu, nr);
+    if (bs)
+      copy_bf16(sw, dw16 + wrow(u), H, nu, nr);
+    else
+      copy_rows(wb + b * wtile, nu, dw + wrow(u), H, nu, nr);
     if (NZ != NZ_ELEM)
       copy_rows(gb + b * U, nu, gk + (size_t)(km + u) * H + u0, nu, nu, 1);
     cp_async_commit();
   };
+  // step u's bf16 streams widened into slot u & 1 (after this thread's
+  // wait, before the barrier that ends the step)
+  auto widen = [&](int u) {
+    if (!bs || u >= d.M) return;
+    const int b = u & 1;
+    if (DR != DR_YY)
+      widen_bf16(xb + b * xtile, nh, sw + em_stage(R4, U, UH, H).x,
+                 xh16 + xrow(u), HH, nh, nr);
+    widen_bf16(wb + b * wtile, nu, sw, dw16 + wrow(u), H, nu, nr);
+  };
+  // the trajectory's entry o (rounded with bf16 streams)
+  auto put_y = [&](size_t o, float v) {
+    if (bs)
+      ys16[o] = __float2bfloat16_rn(v);
+    else
+      ys[o] = v;
+  };
   if (d.M > 0) prefetch(0);
   cp_async_wait_all();
+  widen(0);
   // every CTA of the cluster is zeroed before a peer pushes into it
   cluster_or_block_sync(cs);
   const float sth = sigmoid(theta[blockIdx.y]);
@@ -277,38 +371,61 @@ em_fwd_kernel(SdeDims dd, SdePlan pp, const float* __restrict__ y0,
         push(cs, h, r * sHH + h0 + n, v);
       });
     } else {
-      mm(all, y, sH, H, w.wy, w.lwy, GW, nr, c.nh,
-         [&](int r, int n, float acc) {
-           float v;
-           if constexpr (DR == DR_EMBM)
-             v = acc + au[n] + xu[r * nh + n];
-           else
-             v = acc + au[n];
-           push(cs, h, r * sHH + h0 + n, fmaxf(v, 0.f));
-         });
+      mm_mode<true>(mode, all, y, sH, H, w.wy, w.lwy, GW, nr, c.nh,
+              [&](int r, int n, float acc) {
+                float v;
+                if constexpr (DR == DR_EMBM)
+                  v = acc + au[n] + xu[r * nh + n];
+                else
+                  v = acc + au[n];
+                push(cs, h, r * sHH + h0 + n, fmaxf(v, 0.f));
+              });
     }
     // the noise net's first layer on y (a cluster of one CTA: its own
-    // columns are all)
+    // columns are all); with bf16 streams also on the rounded state, whose
+    // outputs are the streams the backward reads
     if constexpr (net_noise(NZ)) {
-      mm(all, y, sH, H, w.wn1, w.lwn, GW, nr, nu,
-         [&](int r, int n, float acc) {
-           const float v = acc + gu[n];
-           if constexpr (NZ == NZ_NET1) {
-             gn[r * U + n] = v;
-           } else {
-             const float hv = fmaxf(v, 0.f);
-             hn[r * sH + u0 + n] = hv;
-             nhs[((size_t)(km + u) * d.B + row0 + r) * H + u0 + n] = hv;
-           }
-         });
+      mm_mode<true>(mode, all, y, sH, H, w.wn1, w.lwn, GW, nr, nu,
+              [&](int r, int n, float acc) {
+                const float v = acc + gu[n];
+                if constexpr (NZ == NZ_NET1) {
+                  gn[r * U + n] = v;
+                } else {
+                  const float hv = fmaxf(v, 0.f);
+                  hn[r * sH + u0 + n] = hv;
+                  if (!bs)
+                    nhs[((size_t)(km + u) * d.B + row0 + r) * H + u0 + n] =
+                        hv;
+                }
+              });
+      if (bs)
+        mm_mode<true>(mode, all, yr, sH, H, w.wn1, w.lwn, GW, nr, nu,
+                [&](int r, int n, float acc) {
+                  const float v = acc + gu[n];
+                  const size_t o = ((size_t)(km + u) * d.B + row0 + r) * H +
+                                   u0 + n;
+                  if constexpr (NZ == NZ_NET1) {
+                    nbs[o] = v;
+                  } else {
+                    const float hv = fmaxf(v, 0.f);
+                    hnr[r * sH + u0 + n] = hv;
+                    nhs[o] = hv;
+                  }
+                });
     }
     cluster_or_block_sync(cs);
     // net2's second layer, beside the first inner layer (or alone)
     if constexpr (NZ == NZ_NET2) {
-      mm(all, hn, sH, H, w.wn2, w.lwn, GW, nr, nu,
-         [&](int r, int n, float acc) {
-           gn[r * U + n] = fmaxf(acc + w.bn2[n], 0.f);
-         });
+      mm_mode<true>(mode, all, hn, sH, H, w.wn2, w.lwn, GW, nr, nu,
+              [&](int r, int n, float acc) {
+                gn[r * U + n] = fmaxf(acc + w.bn2[n], 0.f);
+              });
+      if (bs)
+        mm_mode<true>(mode, all, hnr, sH, H, w.wn2, w.lwn, GW, nr, nu,
+                [&](int r, int n, float acc) {
+                  nbs[((size_t)(km + u) * d.B + row0 + r) * H + u0 + n] =
+                      fmaxf(acc + w.bn2[n], 0.f);
+                });
       if (NI == 0) __syncthreads();
     }
     for (int l = 0; l < NI; ++l) {
@@ -316,67 +433,88 @@ em_fwd_kernel(SdeDims dd, SdePlan pp, const float* __restrict__ y0,
       const float* hin = h + (l & 1) * htile;
       float* hout = h + ((l + 1) & 1) * htile;
       const float* bl = w.bi + l * UH;
-      mm(all, hin, sHH, HH, w.wi + (size_t)l * w.swi, w.lwi, GW, nr, c.nh,
-         [&](int r, int n, float acc) {
-           push(cs, hout, r * sHH + h0 + n, fmaxf(acc + bl[n], 0.f));
-         });
+      mm_mode<true>(mode, all, hin, sHH, HH, w.wi + (size_t)l * w.swi, w.lwi, GW,
+              nr, c.nh, [&](int r, int n, float acc) {
+                push(cs, hout, r * sHH + h0 + n, fmaxf(acc + bl[n], 0.f));
+              });
       cluster_or_block_sync(cs);
     }
     // z3, own columns, and the step's update of y there, into every CTA
     const float* hl = h + (NI & 1) * htile;
     if constexpr (lat_noise(NZ)) {
       // the latent lanes: linear drift, raw diffusion; u_q into every CTA
-      mm(all, hl, sHH, HH, w.wo, w.lwo, GW, nr, c.nu,
-         [&](int r, int n, float acc) {
-           const int col = u0 + n;
-           if (col == H - 1) return;
-           const float yv = y[r * sH + col];
-           const float z3 = acc + w.bo[n];
-           push(cs, ut, r * sH + col,
-                (z3 - sl[n] * (sl[U + n] - yv)) * sl[2 * U + n]);
-           const float yn = yv + z3 * dt + gu[n] * wu[r * nu + n];
-           push(cs, y, r * sH + col, yn);
-           ys[((size_t)(km + u) * d.B + row0 + r) * H + col] = yn;
-         });
+      mm_mode<true>(mode, all, hl, sHH, HH, w.wo, w.lwo, GW, nr, c.nu,
+              [&](int r, int n, float acc) {
+                const int col = u0 + n;
+                if (col == H - 1) return;
+                const float yv = y[r * sH + col];
+                const float z3 = acc + w.bo[n];
+                push(cs, ut, r * sH + col,
+                     (z3 - sl[n] * (sl[U + n] - yv)) * sl[2 * U + n]);
+                const float yn = yv + z3 * dt + gu[n] * wu[r * nu + n];
+                push(cs, y, r * sH + col, yn);
+                put_y(((size_t)(km + u) * d.B + row0 + r) * H + col, yn);
+              });
       cluster_or_block_sync(cs);
-      // the KL lane: its CTA sums the row of u in ascending q
+      // the KL lane: its CTA sums the row of u in ascending q (in a
+      // reduced mode JAX's product (0.5 u^2) klm: the hi parts summed,
+      // then the lo parts)
       const int nk = H - 1 - u0;
       if (nk >= 0 && nk < nu)
         for (int r = threadIdx.x; r < nr; r += ET) {
           const float* ur = ut + r * sH;
-          float acc = 0.f;
-          for (int q = 0; q < H - 1; ++q) acc = fmaf(ur[q], ur[q], acc);
+          float rate;
+          if (mode == MM_F32) {
+            float acc = 0.f;
+            for (int q = 0; q < H - 1; ++q) acc = fmaf(ur[q], ur[q], acc);
+            rate = 0.5f * acc;
+          } else {
+            float ah = 0.f, al = 0.f;
+            for (int q = 0; q < H - 1; ++q) {
+              const Parts v = parts(0.5f * ur[q] * ur[q], mode == MM_X3);
+              ah += v.h;
+              al += v.l;
+            }
+            rate = ah + al;
+          }
           const float yv = y[r * sH + H - 1];
-          const float yn = yv + (0.5f * acc) * dt + gu[nk] * wu[r * nu + nk];
+          const float yn = yv + rate * dt + gu[nk] * wu[r * nu + nk];
           push(cs, y, r * sH + H - 1, yn);
-          ys[((size_t)(km + u) * d.B + row0 + r) * H + H - 1] = yn;
+          put_y(((size_t)(km + u) * d.B + row0 + r) * H + H - 1, yn);
         }
     } else {
-      mm(all, hl, sHH, HH, w.wo, w.lwo, GW, nr, c.nu,
-         [&](int r, int n, float acc) {
-           const int col = u0 + n;
-           const float yv = y[r * sH + col];
-           float z3 = acc + w.bo[n];
-           if (geometric) z3 *= tanhf(yv);
-           const float f = tanhf(z3);
-           float base;
-           if constexpr (NZ == NZ_PRE)
-             base = gu[n];
-           else if constexpr (NZ == NZ_ELEM)
-             base = elem_base(d.elem, yv);
-           else
-             base = gn[r * U + n];
-           float graw = base;
-           if (mult_y) graw *= yv;
-           const float gg = tanhf(sth * graw);
-           const float yn = yv + f * dt + gg * wu[r * nu + n];
-           push(cs, y, r * sH + col, yn);
-           const size_t o = ((size_t)(km + u) * d.B + row0 + r) * H + col;
-           ys[o] = yn;
-           if constexpr (net_noise(NZ)) nbs[o] = base;
-         });
+      mm_mode<true>(mode, all, hl, sHH, HH, w.wo, w.lwo, GW, nr, c.nu,
+              [&](int r, int n, float acc) {
+                const int col = u0 + n;
+                const float yv = y[r * sH + col];
+                float z3 = acc + w.bo[n];
+                if (geometric) z3 *= tanhf(yv);
+                const float f = tanhf(z3);
+                float base;
+                if constexpr (NZ == NZ_PRE)
+                  base = gu[n];
+                else if constexpr (NZ == NZ_ELEM)
+                  base = elem_base(d.elem, yv);
+                else
+                  base = gn[r * U + n];
+                float graw = base;
+                if (mult_y) graw *= yv;
+                const float gg = tanhf(sth * graw);
+                const float yn = yv + f * dt + gg * wu[r * nu + n];
+                push(cs, y, r * sH + col, yn);
+                const size_t o =
+                    ((size_t)(km + u) * d.B + row0 + r) * H + col;
+                put_y(o, yn);
+                if constexpr (net_noise(NZ)) {
+                  if (bs)
+                    yr[r * sH + col] = bf16r(yn);
+                  else
+                    nbs[o] = base;
+                }
+              });
     }
     cp_async_wait_all();
+    widen(u + 1);
     cluster_or_block_sync(cs);
   }
 }
@@ -454,37 +592,86 @@ em_bwd_kernel(SdeDims dd, SdePlan pp, const float* __restrict__ y0,
   float* sl = s + L.lat;
   float* gkl = s + L.gkl;
   float* gkb = s + L.gkb;
+  // the precision: the products' operand mode, and bf16 streams (xh, dW,
+  // gys and the states, y0 (rounded by the wrapper) and ys, as bf16 in
+  // device memory, staged a step ahead and widened)
+  const int mode = d.mm;
+  const bool bs = d.bs;
+  const __nv_bfloat16* y016 = reinterpret_cast<const __nv_bfloat16*>(y0);
+  const __nv_bfloat16* ys16 = reinterpret_cast<const __nv_bfloat16*>(ys);
+  const __nv_bfloat16* gys16 = reinterpret_cast<const __nv_bfloat16*>(gys);
+  const __nv_bfloat16* xh16 = reinterpret_cast<const __nv_bfloat16*>(xh);
+  const __nv_bfloat16* dw16 = reinterpret_cast<const __nv_bfloat16*>(dw);
+  // the staging areas (em_stage: dW at 0)
+  unsigned* sw = reinterpret_cast<unsigned*>(s + L.stage);
+  auto stg = [&](int which) {
+    const EmStage st = em_stage(R4, U, UH, H);
+    return sw + (which == 0 ? st.x : which == 1 ? st.g : which == 2 ? st.y
+                                                                   : st.k);
+  };
   if constexpr (lat_noise(NZ)) load_lat(sl, lat, d, c, U);
   // y_s (s >= -1, y_{-1} = y0) lives in slot (s + 2) & 1
   auto yslot = [&](int t) { return yb + ((t + 2) & 1) * ytile; };
-  auto prefetch_y = [&](int t) {
-    copy_rows(yslot(t), sH,
-              (t < 0 ? y0 + (size_t)kb * H : ys + (size_t)(km + t) * BH) +
-                  (size_t)row0 * H,
-              H, H, nr);
+  // the state before step t + 1's first row (an offset in y0 or ys)
+  auto yrow = [&](int t) {
+    return (t < 0 ? (size_t)kb * H : (size_t)(km + t) * BH) +
+           (size_t)row0 * H;
   };
-  // step t's streams into slot t & 1 (those of the instance's modes)
+  auto prefetch_y = [&](int t) {
+    if (bs)
+      copy_bf16(stg(2), (t < 0 ? y016 : ys16) + yrow(t), H, H, nr);
+    else
+      copy_rows(yslot(t), sH, (t < 0 ? y0 : ys) + yrow(t), H, H, nr);
+  };
+  // step t's first rows in xh, and in dW and gys
+  auto xrow = [&](int t) { return ((size_t)(km + t) * B + row0) * HH + h0; };
+  auto wrow = [&](int t) { return ((size_t)(km + t) * B + row0) * H + u0; };
+  auto krow = [&](int t) { return ((size_t)(km + t) * B + row0) * H + H - 1; };
+  // step t's streams into slot t & 1 (those of the instance's modes; bf16
+  // ones into their staging areas)
   auto prefetch = [&](int t) {
     const int b = t & 1;
-    if (DR != DR_YY)
-      copy_rows(xb + b * xtile, nh,
-                xh + ((size_t)(km + t) * B + row0) * HH + h0, HH, nh, nr,
-                true);
+    if (DR != DR_YY) {
+      if (bs)
+        copy_bf16(stg(0), xh16 + xrow(t), HH, nh, nr);
+      else
+        copy_rows(xb + b * xtile, nh, xh + xrow(t), HH, nh, nr, true);
+    }
     if (DR != DR_XT)
       copy_rows(ab + b * UH, nh, a + (size_t)(km + t) * HH + h0, nh, nh, 1,
                 true);
-    copy_rows(wb + b * wtile, nu,
-              dw + ((size_t)(km + t) * B + row0) * H + u0, H, nu, nr, true);
-    copy_rows(gyb + b * wtile, nu,
-              gys + ((size_t)(km + t) * B + row0) * H + u0, H, nu, nr,
-              true);
+    if (bs) {
+      copy_bf16(sw, dw16 + wrow(t), H, nu, nr);
+      copy_bf16(stg(1), gys16 + wrow(t), H, nu, nr);
+    } else {
+      copy_rows(wb + b * wtile, nu, dw + wrow(t), H, nu, nr, true);
+      copy_rows(gyb + b * wtile, nu, gys + wrow(t), H, nu, nr, true);
+    }
     if (NZ == NZ_PRE || lat_noise(NZ))
       copy_rows(gb + b * U, nu, gk + (size_t)(km + t) * H + u0, nu, nu, 1,
                 true);
     // the KL lane's gys column
+    if (lat_noise(NZ)) {
+      if (bs)
+        copy_bf16(stg(3), gys16 + krow(t), H, 1, nr);
+      else
+        copy_rows(gkb + b * R4, 1, gys + krow(t), H, 1, nr);
+    }
+  };
+  // step t's bf16 streams and the state before step t's (t - 1's row)
+  // widened into their slots (after this thread's wait, before the
+  // barrier that ends the iteration)
+  auto widen = [&](int t) {
+    if (!bs) return;
+    const int b = t & 1;
+    if (DR != DR_YY)
+      widen_bf16(xb + b * xtile, nh, stg(0), xh16 + xrow(t), HH, nh, nr);
+    widen_bf16(wb + b * wtile, nu, sw, dw16 + wrow(t), H, nu, nr);
+    widen_bf16(gyb + b * wtile, nu, stg(1), gys16 + wrow(t), H, nu, nr);
     if (lat_noise(NZ))
-      copy_rows(gkb + b * R4, 1,
-                gys + ((size_t)(km + t) * B + row0) * H + H - 1, H, 1, nr);
+      widen_bf16(gkb + b * R4, 1, stg(3), gys16 + krow(t), H, 1, nr);
+    widen_bf16(yslot(t - 1), sH, stg(2),
+               (t - 1 < 0 ? y016 : ys16) + yrow(t - 1), H, H, nr);
   };
   if (M > 0) {
     prefetch(M - 1);
@@ -492,6 +679,7 @@ em_bwd_kernel(SdeDims dd, SdePlan pp, const float* __restrict__ y0,
     cp_async_commit();
   }
   cp_async_wait_all();
+  if (M > 0) widen(M - 1);
   cluster_or_block_sync(cs);
   const float sth = sigmoid(theta[blockIdx.y]);
   const bool mult_y = d.mult_y, geometric = d.geometric;
@@ -550,7 +738,7 @@ em_bwd_kernel(SdeDims dd, SdePlan pp, const float* __restrict__ y0,
           if (cs == 1) {
             const float* hm = hu + l * htile;
             float* eo = e + (ph & 1) * htile;
-            mm_t(gc, E, lde, Nc, W, ldw, GW, nr, HH,
+            mm_t_mode<false>(mode, gc, E, lde, Nc, W, ldw, GW, nr, HH,
                  [&](int r, int k, float acc) {
                    const int ix = r * sHH + k;
                    const float ev = hm[ix] > 0.f ? acc : 0.f;
@@ -562,29 +750,37 @@ em_bwd_kernel(SdeDims dd, SdePlan pp, const float* __restrict__ y0,
                  });
           } else {
             float* part = pd + ph * ptile;
-            mm_t(gc, E, lde, Nc, W, ldw, GW, nr, HH,
-                 [&](int r, int k, float acc) { part[r * sW + k] = acc; });
+            mm_t_mode<false>(mode, gc, E, lde, Nc, W, ldw, GW, nr, HH,
+                      [&](int r, int k, float acc) {
+                        part[r * sW + k] = acc;
+                      });
           }
         } else if (DR != DR_XT) {
           // dz1 Wy'^T into the state's cotangent (own columns)
           const float* E = e + (NI & 1) * htile + h0;
           if (cs == 1) {
-            mm_t(gc, E, sHH, nh, w.wy, w.lwy, GW, nr, H,
-                 [&](int r, int k, float acc) { gbar[r * U + k] += acc; });
+            mm_t_mode<false>(mode, gc, E, sHH, nh, w.wy, w.lwy, GW, nr, H,
+                      [&](int r, int k, float acc) {
+                        gbar[r * U + k] += acc;
+                      });
           } else {
             float* part = pd + ph * ptile;
-            mm_t(gc, E, sHH, nh, w.wy, w.lwy, GW, nr, H,
-                 [&](int r, int k, float acc) { part[r * sW + k] = acc; });
+            mm_t_mode<false>(mode, gc, E, sHH, nh, w.wy, w.lwy, GW, nr, H,
+                      [&](int r, int k, float acc) {
+                        part[r * sW + k] = acc;
+                      });
           }
         }
         // the noise net's back products of step u (a cluster of one CTA)
         if constexpr (NZ == NZ_NET1) {
           if (ph == 0)
-            mm_t(gc, tq, U, nu, w.wn1, w.lwn, GW, nr, H,
-                 [&](int r, int k, float acc) { tdy[r * U + k] = acc; });
+            mm_t_mode<false>(mode, gc, tq, U, nu, w.wn1, w.lwn, GW, nr, H,
+                      [&](int r, int k, float acc) {
+                        tdy[r * U + k] = acc;
+                      });
         } else if constexpr (NZ == NZ_NET2) {
           if (ph == 0)
-            mm_t(gc, tq, U, nu, w.wn2, w.lwn, GW, nr, H,
+            mm_t_mode<false>(mode, gc, tq, U, nu, w.wn2, w.lwn, GW, nr, H,
                  [&](int r, int k, float acc) {
                    const size_t o = (oc + r) * H + k;
                    const float v = nhs[o] > 0.f ? acc : 0.f;
@@ -592,8 +788,10 @@ em_bwd_kernel(SdeDims dd, SdePlan pp, const float* __restrict__ y0,
                    dn[o] = v;
                  });
           else if (ph == 1)
-            mm_t(gc, tq1, U, nu, w.wn1, w.lwn, GW, nr, H,
-                 [&](int r, int k, float acc) { tdy[r * U + k] = acc; });
+            mm_t_mode<false>(mode, gc, tq1, U, nu, w.wn1, w.lwn, GW, nr, H,
+                      [&](int r, int k, float acc) {
+                        tdy[r * U + k] = acc;
+                      });
         }
       }
       if (rec) {
@@ -607,7 +805,7 @@ em_bwd_kernel(SdeDims dd, SdePlan pp, const float* __restrict__ y0,
               hs[(ov + r) * HH + h0 + n] = v;
             });
           } else {
-            mm(gr, yv, sH, H, w.wy, w.lwy, GW, nr, nh,
+            mm_mode<false>(mode, gr, yv, sH, H, w.wy, w.lwy, GW, nr, nh,
                [&](int r, int n, float acc) {
                  float v;
                  if constexpr (DR == DR_EMBM)
@@ -622,7 +820,7 @@ em_bwd_kernel(SdeDims dd, SdePlan pp, const float* __restrict__ y0,
           const float* bl = w.bi + (ph - 1) * UH;
           float* ho = hv + ph * htile;
           float* hso = hs + (size_t)ph * MK * BHH;
-          mm(gr, hv + (ph - 1) * htile, sHH, HH,
+          mm_mode<false>(mode, gr, hv + (ph - 1) * htile, sHH, HH,
              w.wi + (size_t)(ph - 1) * w.swi, w.lwi, GW, nr, nh,
              [&](int r, int n, float acc) {
                const float v = fmaxf(acc + bl[n], 0.f);
@@ -630,8 +828,10 @@ em_bwd_kernel(SdeDims dd, SdePlan pp, const float* __restrict__ y0,
                hso[(ov + r) * HH + h0 + n] = v;
              });
         } else {
-          mm(gr, hv + NI * htile, sHH, HH, w.wo, w.lwo, GW, nr, nu,
-             [&](int r, int n, float acc) { z3[r * U + n] = acc + w.bo[n]; });
+          mm_mode<false>(mode, gr, hv + NI * htile, sHH, HH, w.wo, w.lwo, GW, nr,
+                  nu, [&](int r, int n, float acc) {
+                    z3[r * U + n] = acc + w.bo[n];
+                  });
         }
       }
       cluster_or_block_sync(cs);
@@ -657,7 +857,8 @@ em_bwd_kernel(SdeDims dd, SdePlan pp, const float* __restrict__ y0,
           const float y = yv[r * sH + u0 + k];
           const float uq = (z3[ix] - sl[k] * (sl[U + k] - y)) * sl[2 * U + k];
           const float df = gv * dt;
-          const float du = (gkl[r] * dt) * uq;
+          // the KL lane's cotangent through klm^T in the operand mode
+          const float du = one_hot(gkl[r] * dt, mode) * uq;
           const float dz3l = (u0 + k < H - 1 ? df : 0.f) + du * sl[2 * U + k];
           const size_t o = (ov + r) * H + u0 + k;
           dz[ix] = dz3l;
@@ -714,6 +915,7 @@ em_bwd_kernel(SdeDims dd, SdePlan pp, const float* __restrict__ y0,
       gbar[ix] = gv;
     }
     cp_async_wait_all();
+    if (u >= 2) widen(u - 2);
     __syncthreads();
   }
 
@@ -875,7 +1077,7 @@ int run_wgrad(const SdeDims& d, const float* y0, const float* ys,
   if (d.noise == NZ_PRE) sums[ns++] = WgSum{q, dgk, d.H, d.M, KH, MH, 0, 0};
   if (net_noise(d.noise))
     sums[ns++] = WgSum{dn, dgk, d.H, d.M, KH, MH, 0, 0};
-  const int err = run_wgrad_jobs(jobs, sums, ns, K, d.B, wp, d.K, s);
+  const int err = run_wgrad_jobs(jobs, sums, ns, K, d.B, wp, d.K, s, d.mm);
   if (err) return err;
   long long wm = 0;
   for (const WgJob& J : jobs) wm += (long long)(J.rows + 1) * J.N;
@@ -887,23 +1089,26 @@ int run_wgrad(const SdeDims& d, const float* y0, const float* ys,
 extern "C" {
 
 // Dynamic shared memory of one CTA of a launch, in bytes, at its plan
-// (above the device's limit when no plan fits).
+// (above the device's limit when no plan fits); bf16: 1 for bf16 streams.
 long long fused_em_smem_bytes(int B, int H, int HH, int n_inner, int drift,
-                              int noise, int members, int backward) {
+                              int noise, int members, int bf16,
+                              int backward) {
   if (!em_modes_valid(drift, noise, 7) || members < 1) return -1;
-  const SdeDims d{1, B, H, HH, n_inner, 0, 0, drift, noise, 0, members};
+  const SdeDims d{1,     B,     H,       HH, n_inner, 0, 0,
+                  drift, noise, 0, members, 0,       bf16 != 0};
   return em_plan(d, backward).bytes;
 }
 
-// One field of a launch's plan over `members` members: 0 the level, 1
-// batch rows a cluster, 2 CTAs a cluster, 3 cudaOccupancyMaxActiveClusters
-// (minus the CUDA error when the plan cannot be scheduled), 4 shared bytes
-// a CTA.
+// One field of a launch's plan over `members` members (bf16: 1 for bf16
+// streams): 0 the level, 1 batch rows a cluster, 2 CTAs a cluster, 3
+// cudaOccupancyMaxActiveClusters (minus the CUDA error when the plan
+// cannot be scheduled), 4 shared bytes a CTA.
 int fused_em_plan(int B, int H, int HH, int n_inner, int drift, int noise,
-                  int members, int backward, int field) {
+                  int members, int bf16, int backward, int field) {
   if (!em_modes_valid(drift, noise, 7) || members < 1)
     return -(int)cudaErrorInvalidValue;
-  const SdeDims d{1, B, H, HH, n_inner, 0, 0, drift, noise, 9, members};
+  const SdeDims d{1,     B,     H,       HH, n_inner, 0, 0,
+                  drift, noise, 9, members, 0,       bf16 != 0};
   const SdePlan p = em_plan(d, backward);
   switch (field) {
     case 0: return p.level;
@@ -948,7 +1153,9 @@ const char* fused_em_error_string(int err) {
 // and gk at k times a member's size). A tensor a mode does not take is null: xh in 'yy'; a and wy in 'xt'; gk in 'elem'
 // (the an1 rows in the nets); wn1 (wn2, bn2) outside the nets (net1); lat
 // ([K][3][H]: theta, mu, mask / sigma) outside the latent mode (noise
-// NZ_LAT, whose H includes the KL lane).
+// NZ_LAT, whose H includes the KL lane). mm: the products' operand mode
+// (MM_*); bf16: xh, dW and ys in bf16 (nb and nh then those of the
+// rounded state before each step).
 int fused_em_fwd(const float* y0, const float* xh, const float* dw,
                  const float* a, const float* gk, const float* dts,
                  const float* theta, const float* wy, const float* wi,
@@ -957,9 +1164,9 @@ int fused_em_fwd(const float* y0, const float* xh, const float* dw,
                  const float* lat, float* ys, float* nb, float* nh, int M,
                  int B, int H, int HH,
                  int n_inner, int mult_y, int geometric, int drift, int noise,
-                 int elem, int members, void* stream) {
-  const SdeDims d{M,     B,    H,    HH,      n_inner, mult_y,
-                  geometric, drift, noise, elem, members};
+                 int elem, int members, int mm, int bf16, void* stream) {
+  const SdeDims d{M,     B,     H,    HH,      n_inner, mult_y, geometric,
+                  drift, noise, elem, members, mm,      bf16};
   const FwdArgs A{y0, xh, dw,  a,   gk,  dts, theta, wy, wi, bi,
                   wo, bo, wn1, wn2, bn2, lat, ys,    nb, nh};
   return run_fwd(d, A, (cudaStream_t)stream, nullptr, true);
@@ -973,7 +1180,9 @@ int fused_em_fwd(const float* y0, const float* xh, const float* dw,
 // cotangent by row, 'precomp'), dn [M][B][H] (the cotangent of the noise
 // net's first layer's output, the nets) and dz2 [M][B][H] (of its second
 // layer's output, net2), each of those [K][...] as dy0 and dxh; the nets
-// read the forward's nb and nh, the latent mode its rows lat.
+// read the forward's nb and nh, the latent mode its rows lat. mm: the
+// products' operand mode; bf16: y0 (rounded), ys, gys, xh and dW in bf16
+// (every output fp32).
 int fused_em_bwd(const float* y0, const float* ys, const float* gys,
                  const float* xh, const float* dw, const float* a,
                  const float* gk, const float* dts, const float* theta,
@@ -985,9 +1194,9 @@ int fused_em_bwd(const float* y0, const float* ys, const float* gys,
                  float* q, float* dn, float* dz2, float* p_th, float* dtheta,
                  int M, int B, int H, int HH, int n_inner, int mult_y,
                  int geometric, int drift, int noise, int elem, int members,
-                 void* stream) {
-  const SdeDims d{M,     B,    H,    HH,      n_inner, mult_y,
-                  geometric, drift, noise, elem, members};
+                 int mm, int bf16, void* stream) {
+  const SdeDims d{M,     B,     H,    HH,      n_inner, mult_y, geometric,
+                  drift, noise, elem, members, mm,      bf16};
   const BwdArgs A{y0,  ys,  gys, xh,  dw,  a,   gk, dts, theta, wy,
                   wi,  bi,  wo,  bo,  wn1, wn2, lat, nb, nh,  dxh,
                   dy0, hs,  es,  dz3, q,   dn,  dz2, p_th, dtheta};
@@ -999,16 +1208,18 @@ int fused_em_bwd(const float* y0, const float* ys, const float* gys,
 // each W_l [S][HH+1][HH], Wout [S][HH+1][H], then Wn1 and (net2) Wn2
 // [S][H+1][H], one after another), their sums w [K][...] (the same without
 // S; the last row of each the bias sum, zero for Wy' and Wn1), and the
-// per-step column sums da [K][M][HH] of dxh and dgk [K][M][H] of q or dn.
+// per-step column sums da [K][M][HH] of dxh and dgk [K][M][H] of q or dn;
+// the products in operand mode mm (every tensor fp32: bf16 is unused).
 int fused_em_wgrad(const float* y0, const float* ys, const float* dxh,
                    const float* hs, const float* es, const float* dz3,
                    const float* q, const float* dn, const float* dz2,
                    const float* nh, float* p, float* w, float* da,
                    float* dgk, int M, int B, int H, int HH, int n_inner,
                    int mult_y, int geometric, int drift, int noise, int elem,
-                   int members, void* stream) {
-  const SdeDims d{M,     B,    H,    HH,      n_inner, mult_y,
-                  geometric, drift, noise, elem, members};
+                   int members, int mm, int bf16, void* stream) {
+  (void)bf16;
+  const SdeDims d{M,     B,     H,    HH,      n_inner, mult_y, geometric,
+                  drift, noise, elem, members, mm,      0};
   return run_wgrad(d, y0, ys, dxh, hs, es, dz3, q, dn, dz2, nh, p, w, da,
                    dgk, (cudaStream_t)stream);
 }

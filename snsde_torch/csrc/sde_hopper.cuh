@@ -11,6 +11,7 @@
 #pragma once
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
@@ -41,6 +42,49 @@ __host__ __device__ inline int ld4(int n) {
 
 __device__ __forceinline__ float sigmoid(float x) {
   return 1.f / (1.f + expf(-x));
+}
+
+// ---------------------------------------------------------------------------
+// Reduced precision: the products' operand modes and bf16 streams
+// ---------------------------------------------------------------------------
+
+// The operand modes of the in-kernel products (the JAX package's
+// SNSDE_FUSED_MATMUL, snsde/kernels/fused_em.py:_dot): exact fp32; bf16x3,
+// each operand split into hi = bf16(v) and lo = bf16(v - hi), the product
+// xh wh + xh wl + xl wh; bf16, one pass over operands rounded to bf16. All
+// accumulate in fp32. A product of two bf16 values is exact in fp32, so an
+// fp32 FMA chain over the rounded or split operands computes what a bf16
+// mma with fp32 accumulation computes, up to the order of the sums.
+enum { MM_F32 = 0, MM_X3 = 1, MM_BF16 = 2 };
+
+__device__ __forceinline__ float bf16r(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// an operand's parts in a reduced mode: hi, and lo (0 unless bf16x3)
+struct Parts {
+  float h, l;
+};
+
+__device__ __forceinline__ Parts parts(float v, bool x3) {
+  const float h = bf16r(v);
+  return Parts{h, x3 ? bf16r(v - h) : 0.f};
+}
+
+// acc + a b in a reduced mode: ah bh, then ah bl, then al bh (the bf16
+// mode's two lo terms add exact zeros)
+__device__ __forceinline__ float fma3(Parts a, Parts b, float acc) {
+  acc = fmaf(a.h, b.h, acc);
+  acc = fmaf(a.h, b.l, acc);
+  return fmaf(a.l, b.h, acc);
+}
+
+// v through a product with a one-hot factor (the latent KL lane's klm):
+// v exact, else hi + lo
+__device__ __forceinline__ float one_hot(float v, int mode) {
+  if (mode == MM_F32) return v;
+  const Parts q = parts(v, mode == MM_X3);
+  return q.h + q.l;
 }
 
 // ---------------------------------------------------------------------------
@@ -75,6 +119,64 @@ __device__ __forceinline__ void cp_async_wait_all() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// A stream held in bf16 (the JAX package's SNSDE_FUSED_STREAM): rows of a
+// bf16 tensor are copied a step ahead with cp.async in 4-byte pairs into a
+// staging area [nr][bf_pairs(n)] (a row may start at an odd element; the
+// pair holding its first element then starts one element before it, inside
+// the same tensor), and widened into the fp32 tile after the copy by the
+// thread that issued it: its own cp.async wait suffices, and the barrier
+// that ends the step publishes the tile.
+__host__ __device__ inline int bf_pairs(int n) { return (n + 2) / 2; }
+
+__device__ __forceinline__ void cp_async4b(unsigned* dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+// row r's pair p: its first element's column c0 (-1: the element before
+// the row) and where it starts
+__device__ __forceinline__ const char* bf_pair(const __nv_bfloat16* src,
+                                               size_t sr, int r, int p,
+                                               int* c0) {
+  const __nv_bfloat16* row = src + (size_t)r * sr;
+  const int sh = (int)((reinterpret_cast<size_t>(row) >> 1) & 1);
+  *c0 = 2 * p - sh;
+  return reinterpret_cast<const char*>(row - sh) + 4 * p;
+}
+
+// stage <- the rows src[r * sr + c], c < n, r < nr (bf16), asynchronously
+__device__ __forceinline__ void copy_bf16(unsigned* stage,
+                                          const __nv_bfloat16* src, size_t sr,
+                                          int n, int nr) {
+  const int np = bf_pairs(n);
+  for (int i = threadIdx.x; i < nr * np; i += ET) {
+    const int r = i / np;
+    int c0;
+    const char* at = bf_pair(src, sr, r, i - r * np, &c0);
+    cp_async4b(stage + i, at, c0 + 1 < n ? 4 : c0 < n ? 2 : 0);
+  }
+}
+
+// dst[r][c] (row stride ld) <- the staged rows widened, by the threads
+// that copied them (after their cp.async wait)
+__device__ __forceinline__ void widen_bf16(float* dst, int ld,
+                                           const unsigned* stage,
+                                           const __nv_bfloat16* src,
+                                           size_t sr, int n, int nr) {
+  const int np = bf_pairs(n);
+  for (int i = threadIdx.x; i < nr * np; i += ET) {
+    const int r = i / np;
+    int c0;
+    bf_pair(src, sr, r, i - r * np, &c0);
+    const unsigned v = stage[i];
+    if (c0 >= 0 && c0 < n) dst[r * ld + c0] = __uint_as_float(v << 16);
+    if (c0 + 1 < n) dst[r * ld + c0 + 1] = __uint_as_float(v & 0xffff0000u);
+  }
 }
 
 // dst[r][c] <- src[r * sr + c] for r < nr, c < n, asynchronously; with
@@ -241,6 +343,103 @@ __device__ __forceinline__ void mm(Grp g, const float* X, int ldx, int K,
     mm_tile<4, 2>(g, X, ldx, K, W, ldw, gw, nr, N, epi);
 }
 
+// The reduced modes' products (each term fma3's three FMAs, in the fp32
+// products' order; a simple design, not yet made fast), as a core over a
+// thread's items, inlined at a call site (the backward: a call there made
+// ptxas save the loop's state around it, +27% on the fp32 recurrence at
+// the sepsis shape), or out of line (the forward: one copy in a source,
+// whatever the call sites, for the build time) forming up to RED_ITEMS of
+// a thread's items into a small local array that an inlined loop hands to
+// the call site's epilogue.
+constexpr int RED_ITEMS = 8;
+
+// Y = X W's items i0, i0 + step, ... below i1 (mm_tile's 2 x 2 layout, NC
+// column pairs; X rows readable up to round4(nr), W's columns up to
+// 2 ceil(N / 2)) with the operands in a reduced mode (bf16x3 with x3, else
+// bf16): epi(item, i, j, sum)
+template <class Epi>
+__device__ __forceinline__ void mm_red_core(const float* X, int ldx, int K,
+                                            const float* W, int ldw, bool gw,
+                                            int N, int NC, int i0, int i1,
+                                            int step, bool x3, Epi epi) {
+  for (int item = i0; item < i1; item += step) {
+    const int n0 = (item % NC) * 2, r0 = (item / NC) * 2;
+    float acc[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+#pragma unroll 1
+    for (int k = 0; k < K; ++k) {
+      Parts xp[2], wp[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) xp[i] = parts(X[(r0 + i) * ldx + k], x3);
+      const float* wr = W + (size_t)k * ldw + n0;
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        wp[j] = parts(gw ? (n0 + j < N ? __ldg(wr + j) : 0.f) : wr[j], x3);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) acc[i][j] = fma3(xp[i], wp[j], acc[i][j]);
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) epi(item, i, j, acc[i][j]);
+  }
+}
+
+// mm_red_core out of line: up to RED_ITEMS items into out[4 q + 2 i + j]
+__device__ __noinline__ void mm_red_items(const float* X, int ldx, int K,
+                                          const float* W, int ldw, bool gw,
+                                          int N, int NC, int i0, int i1,
+                                          int step, bool x3, float* out) {
+  mm_red_core(X, ldx, K, W, ldw, gw, N, NC, i0, i1, step, x3,
+              [&](int item, int i, int j, float v) {
+                out[4 * ((item - i0) / step) + 2 * i + j] = v;
+              });
+}
+
+// Y = X W (mm_tile's contract) with the operands in a reduced mode,
+// inlined (OUT false) or out of line
+template <bool OUT, class Epi>
+__device__ __forceinline__ void mm_red(Grp g, const float* X, int ldx,
+                                       int K, const float* W, int ldw,
+                                       bool gw, int nr, int N, Epi epi,
+                                       bool x3) {
+  const int t = (int)threadIdx.x - g.t0;
+  if (t < 0 || t >= g.n) return;
+  const int NC = (N + 1) >> 1, items = ((nr + 1) >> 1) * NC;
+  auto put = [&](int item, int i, int j, float v) {
+    const int r = (item / NC) * 2 + i, n = (item % NC) * 2 + j;
+    if (r < nr && n < N) epi(r, n, v);
+  };
+  if constexpr (!OUT) {
+    mm_red_core(X, ldx, K, W, ldw, gw, N, NC, t, items, g.n, x3, put);
+  } else {
+    for (int i0 = t; i0 < items; i0 += RED_ITEMS * g.n) {
+      const int i1 = min(items, i0 + RED_ITEMS * g.n);
+      float out[4 * RED_ITEMS];
+      mm_red_items(X, ldx, K, W, ldw, gw, N, NC, i0, i1, g.n, x3, out);
+      for (int item = i0; item < i1; item += g.n)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+            put(item, i, j, out[4 * ((item - i0) / g.n) + 2 * i + j]);
+    }
+  }
+}
+
+// Y = X W in operand mode `mode` (MM_*): mm, or mm_red (OUT: out of line)
+template <bool OUT, class Epi>
+__device__ __forceinline__ void mm_mode(int mode, Grp g, const float* X,
+                                        int ldx, int K, const float* W,
+                                        int ldw, bool gw, int nr, int N,
+                                        Epi epi) {
+  if (mode == MM_F32)
+    mm(g, X, ldx, K, W, ldw, gw, nr, N, epi);
+  else
+    mm_red<OUT>(g, X, ldx, K, W, ldw, gw, nr, N, epi, mode == MM_X3);
+}
+
 // Y = E W^T: epi(r, k, sum_{c<Nc} E[r][c] W[k][c]) for r < nr, k < N (a
 // back product: rows of W walked contiguously). E rows of stride lde,
 // 16-byte aligned, with finite columns up to round4(Nc) and rows up to
@@ -314,6 +513,105 @@ __device__ __forceinline__ void mm_t(Grp g, const float* E, int lde, int Nc,
   }
 }
 
+// Y = E W^T's item t (mm_t's layout: 4 rows x 2 outputs, the c loop over
+// KS adjacent lanes, their sums by the same shuffle tree; every lane of
+// the group takes part) with the operands in a reduced mode: out[2 i + j],
+// the item's sums on its lane 0
+__device__ __forceinline__ void mm_t_red_one(const float* E, int lde, int Nc,
+                                             const float* W, int ldw,
+                                             bool gw, int N, int NC, int KS,
+                                             int t, int total, bool x3,
+                                             float* out) {
+  const int item = t / KS, ks = t & (KS - 1);
+  const int k0 = (item % NC) * 2, r0 = (item / NC) * 4, C4 = round4(Nc);
+  float acc[4][2];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) acc[i][0] = acc[i][1] = 0.f;
+  if (t < total) {
+#pragma unroll 1
+    for (int c = ks * 4; c < C4; c += KS * 4) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        Parts ep[4], wp[2];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          ep[i] = parts(E[(r0 + i) * lde + c + q], x3);
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const float* wr = W + (size_t)(k0 + j) * ldw + c + q;
+          wp[j] = parts(gw ? (k0 + j < N && c + q < Nc ? __ldg(wr) : 0.f)
+                           : *wr,
+                        x3);
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+            acc[i][j] = fma3(ep[i], wp[j], acc[i][j]);
+      }
+    }
+  }
+  for (int o = KS >> 1; o > 0; o >>= 1)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        acc[i][j] += __shfl_down_sync(FULL, acc[i][j], o);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) out[2 * i + j] = acc[i][j];
+}
+
+__device__ __noinline__ void mm_t_red_item(const float* E, int lde, int Nc,
+                                           const float* W, int ldw, bool gw,
+                                           int N, int NC, int KS, int t,
+                                           int total, bool x3, float* out) {
+  mm_t_red_one(E, lde, Nc, W, ldw, gw, N, NC, KS, t, total, x3, out);
+}
+
+// Y = E W^T (mm_t's contract) with the operands in a reduced mode,
+// inlined (OUT false) or out of line
+template <bool OUT, class Epi>
+__device__ __forceinline__ void mm_t_red(Grp g, const float* E, int lde,
+                                         int Nc, const float* W, int ldw,
+                                         bool gw, int nr, int N, Epi epi,
+                                         bool x3) {
+  const int tl = (int)threadIdx.x - g.t0;
+  if (tl < 0 || tl >= g.n) return;
+  const int NC = (N + 1) >> 1, items = ((nr + 3) >> 2) * NC;
+  const int KS = k_lanes(items, round4(Nc) >> 2, g.n), total = items * KS;
+  for (int base = 0; base < total; base += g.n) {
+    const int t = base + tl;
+    float out[8];
+    if constexpr (OUT)
+      mm_t_red_item(E, lde, Nc, W, ldw, gw, N, NC, KS, t, total, x3, out);
+    else
+      mm_t_red_one(E, lde, Nc, W, ldw, gw, N, NC, KS, t, total, x3, out);
+    if (t < total && (t & (KS - 1)) == 0) {
+      const int item = t / KS, k0 = (item % NC) * 2, r0 = (item / NC) * 4;
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          if (r0 + i < nr && k0 + j < N) epi(r0 + i, k0 + j, out[2 * i + j]);
+    }
+  }
+}
+
+// Y = E W^T in operand mode `mode` (MM_*): mm_t, or mm_t_red (OUT: out of
+// line)
+template <bool OUT, class Epi>
+__device__ __forceinline__ void mm_t_mode(int mode, Grp g, const float* E,
+                                          int lde, int Nc, const float* W,
+                                          int ldw, bool gw, int nr, int N,
+                                          Epi epi) {
+  if (mode == MM_F32)
+    mm_t(g, E, lde, Nc, W, ldw, gw, nr, N, epi);
+  else
+    mm_t_red<OUT>(g, E, lde, Nc, W, ldw, gw, nr, N, epi, mode == MM_X3);
+}
+
 // sum over the CTA of one float per thread (all threads must call it;
 // red holds ET / 32 floats)
 __device__ __forceinline__ float cta_sum(float v, float* red) {
@@ -371,9 +669,12 @@ __host__ __device__ constexpr bool net_noise(int nz) {
 // A launch's shapes and modes, and its members: K same-configuration
 // solves (each with its own weights, y0, control and Brownian streams) in
 // one launch, member k on blockIdx.y, each of its tensors lying at k times
-// a member's size (csrc/fused_em.cu, fused_srk.cu: the layouts).
+// a member's size (csrc/fused_em.cu, fused_srk.cu: the layouts); and its
+// precision (the EM pair's; 0 elsewhere): mm the products' operand mode
+// (MM_*), bs 1 when the control, noise, trajectory and cotangent streams
+// are bf16.
 struct SdeDims {
-  int M, B, H, HH, NI, mult_y, geometric, drift, noise, elem, K;
+  int M, B, H, HH, NI, mult_y, geometric, drift, noise, elem, K, mm, bs;
 };
 
 // d with its modes the instance's compile-time ones, so that every branch
@@ -755,7 +1056,7 @@ SdePlan sde_plan(const SdeDims& d, int backward, StepShape st, Bytes bytes,
                  Active active) {
   static std::mutex mu;
   static std::map<std::tuple<int, int, int, int, int, int, int, int, int,
-                             int, int, int>,
+                             int, int, int, int>,
                   SdePlan>
       seen;
   int dev = 0;
@@ -763,7 +1064,7 @@ SdePlan sde_plan(const SdeDims& d, int backward, StepShape st, Bytes bytes,
   const int K = std::max(d.K, 1);
   const auto key =
       std::make_tuple(dev, d.B, d.H, d.HH, d.NI, backward, g_first_level,
-                      g_force_cs, g_force_rows, d.drift, d.noise, K);
+                      g_force_cs, g_force_rows, d.drift, d.noise, K, d.bs);
   std::lock_guard<std::mutex> lock(mu);
   const auto it = seen.find(key);
   if (it != seen.end()) return it->second;
@@ -817,7 +1118,8 @@ SdePlan sde_plan(const SdeDims& d, int backward, StepShape st, Bytes bytes,
 
 inline bool sde_valid(const SdeDims& d) {
   return d.M >= 0 && d.B > 0 && d.H > 0 && d.HH > 0 && d.NI >= 0 &&
-         d.K >= 1 && d.K <= 65535;
+         d.K >= 1 && d.K <= 65535 && d.mm >= MM_F32 && d.mm <= MM_BF16 &&
+         (d.bs == 0 || d.bs == 1);
 }
 
 inline int sde_ctas(const SdeDims& d, const SdePlan& p) {
@@ -888,7 +1190,7 @@ constexpr int WG_MIN_K = 8 * WG_BK;
 struct WgArgs {
   WgJob job[WG_MAX_JOBS];
   WgSum sum[WG_MAX_SUMS];
-  int njobs, nsums, K, B, kper;
+  int njobs, nsums, K, B, kper, x3;
   int tiles[WG_MAX_JOBS + 1];  // prefix sums of the jobs' output tiles
 };
 
@@ -903,8 +1205,10 @@ __device__ __forceinline__ bool aligned16(const void* p) {
 // runs over the jobs' tiles, then over the column sums (one block a step
 // and stream); blockIdx.y is the split of K, blockIdx.z the member. A
 // fixed order everywhere, no atomics: runs are bit-reproducible, and a
-// member's sums are those of a launch of that member alone.
-template <int BM>
+// member's sums are those of a launch of that member alone. RED: the
+// products' operands in a reduced mode (bf16x3 when A.x3, else bf16), as
+// mm_tile's; the bias and column sums stay exact.
+template <int BM, bool RED = false>
 __global__ void __launch_bounds__(WG_THREADS) wgrad_kernel(WgArgs A) {
   constexpr int TM = BM / 16;
   __shared__ __align__(16) float xs[2][WG_BK][BM];
@@ -1027,11 +1331,24 @@ __global__ void __launch_bounds__(WG_THREADS) wgrad_kernel(WgArgs A) {
         av[i + 3] = a.w;
       }
       const float4 y = ld_f4(&es[bf][kk][tc * 4]);
+      if constexpr (RED) {
+        Parts ap[TM], yp[4];
 #pragma unroll
-      for (int i = 0; i < TM; ++i)
+        for (int i = 0; i < TM; ++i) ap[i] = parts(av[i], A.x3);
 #pragma unroll
-        for (int jj = 0; jj < 4; ++jj)
-          acc[i][jj] = fmaf(av[i], lane4(y, jj), acc[i][jj]);
+        for (int jj = 0; jj < 4; ++jj) yp[jj] = parts(lane4(y, jj), A.x3);
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj)
+            acc[i][jj] = fma3(ap[i], yp[jj], acc[i][jj]);
+      } else {
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj)
+            acc[i][jj] = fmaf(av[i], lane4(y, jj), acc[i][jj]);
+      }
       if (own_b)
 #pragma unroll
         for (int jj = 0; jj < 4; ++jj) bsum[jj] += lane4(y, jj);
@@ -1167,10 +1484,10 @@ inline void set_member_partials(std::vector<WgJob>& jobs, long long per) {
 
 // Launch the jobs, in launches of at most WG_MAX_JOBS, with the column sums
 // (at most WG_MAX_SUMS) in the first; B rows a step of the summed streams;
-// `members` members (gridDim.z).
+// `members` members (gridDim.z); the products in operand mode mm (MM_*).
 inline int run_wgrad_jobs(const std::vector<WgJob>& jobs, const WgSum* sums,
                           int nsums, long long K, int B, const WgPlan& wp,
-                          int members, cudaStream_t s) {
+                          int members, cudaStream_t s, int mm = MM_F32) {
   const int kper = (int)(((K + wp.S - 1) / wp.S + WG_BK - 1) / WG_BK * WG_BK);
   for (size_t j0 = 0; j0 < jobs.size(); j0 += WG_MAX_JOBS) {
     WgArgs A{};
@@ -1178,6 +1495,7 @@ inline int run_wgrad_jobs(const std::vector<WgJob>& jobs, const WgSum* sums,
     A.K = (int)K;
     A.B = B;
     A.kper = kper;
+    A.x3 = mm == MM_X3;
     A.tiles[0] = 0;
     for (int j = 0; j < A.njobs; ++j) {
       A.job[j] = jobs[j0 + j];
@@ -1193,7 +1511,11 @@ inline int run_wgrad_jobs(const std::vector<WgJob>& jobs, const WgSum* sums,
     }
     const dim3 grid((unsigned)(A.tiles[A.njobs] + steps), (unsigned)wp.S,
                     (unsigned)members);
-    if (wp.bm == 128)
+    if (mm != MM_F32 && wp.bm == 128)
+      wgrad_kernel<128, true><<<grid, WG_THREADS, 0, s>>>(A);
+    else if (mm != MM_F32)
+      wgrad_kernel<64, true><<<grid, WG_THREADS, 0, s>>>(A);
+    else if (wp.bm == 128)
       wgrad_kernel<128><<<grid, WG_THREADS, 0, s>>>(A);
     else
       wgrad_kernel<64><<<grid, WG_THREADS, 0, s>>>(A);

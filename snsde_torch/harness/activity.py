@@ -31,6 +31,7 @@ import torch
 from torch import nn
 
 from .. import resolve_device
+from ..convert import load_jax_arrays
 from ..data.person_activity import NUM_CLASSES, synthetic_person_activity
 from ..models.mtan import MTANEncoder
 from ..nn.layers import make_linear
@@ -139,11 +140,16 @@ def warmup_lr(lr: float, total: int, step: int) -> float:
 
 
 def run_activity(cfg: ActivityConfig = ActivityConfig(), n: int = 512,
-                 data: Optional[Dict] = None, device=None) -> ActivityResult:
+                 data: Optional[Dict] = None, device=None,
+                 init: Optional[Dict[str, np.ndarray]] = None
+                 ) -> ActivityResult:
     """Train the activity classifier for cfg.max_epochs epochs on
     synthetic_person_activity(n, data_seed), or on `data` (vals, mask, tp,
     labels); returns the metrics at the best-val-loss epoch. Runs on CUDA
-    unless `device` says otherwise."""
+    unless `device` says otherwise. `init`: initial weights as the JAX
+    model's leaves (keyed and laid out as snsde_torch.convert takes them,
+    e.g. those JAX's run_activity draws at cfg.seed) in place of the
+    port's own draw."""
     dev = resolve_device(device)
     if data is None:
         vals, mask, tp, labels = synthetic_person_activity(
@@ -166,7 +172,10 @@ def run_activity(cfg: ActivityConfig = ActivityConfig(), n: int = 512,
     model = _ActivityModel(
         D, query, cfg.latent_dim, cfg.rec_hidden, cfg.embed_time,
         cfg.num_heads, num_classes, cfg.learn_emb,
-        generator=torch.Generator().manual_seed(cfg.seed)).to(dev)
+        generator=torch.Generator().manual_seed(cfg.seed))
+    if init is not None:
+        load_jax_arrays(model, init)
+    model = model.to(dev)
     params = [p for p in model.parameters() if p.requires_grad]
     n_params = sum(p.numel() for p in params)
     optimizer = torch.optim.Adam(params, lr=cfg.lr)

@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import os
 from typing import NamedTuple
 
 import numpy as np
@@ -41,7 +42,8 @@ __all__ = ["PRECOMP_NO", "ELEM_NO", "MULT_Y_NO", "DRIFT_BY_IO",
            "drift_input", "noise_base", "noise_back",
            "member_count", "member_shapes", "member_args",
            "stack_members", "select_member", "per_member",
-           "split_weight_grads"]
+           "split_weight_grads", "MATMUL_CODE", "resolve_precision",
+           "unported", "require_fp32", "bf16_round", "mm_op", "one_hot_op"]
 
 PRECOMP_NO = {0, 1, 2, 3, 4, 5, 6, 11, 12, 13, 16, 17}
 ELEM_NO = {7, 8, 9, 10}
@@ -93,20 +95,25 @@ def check_supported(field, label: str) -> None:
 
 
 def check_tensors(label: str, want: dict, got: dict, device,
-                  modes=None) -> None:
+                  modes=None, bf16=()) -> None:
     """Raise ValueError unless every tensor of `got` that is not None is
-    float32, on `device`, contiguous and of the shape `want` names; with
-    `modes` (SdeModes), also unless each tensor they decide is given
-    exactly when they take it (check_mode, in the same pass)."""
+    float32 (bfloat16 for the names in `bf16`), on `device`, contiguous and
+    of the shape `want` names; with `modes` (SdeModes), also unless each
+    tensor they decide is given exactly when they take it (check_mode, in
+    the same pass)."""
     need = modes.need if modes is not None else {}
     for name, t in got.items():
         if name in need and need[name] != (t is not None):
             check_mode(label, modes, **{name: t})
         if t is None:
             continue
-        if t.dtype != torch.float32:
-            raise ValueError(f"{label} kernel takes float32 only: {name} "
-                             f"is {t.dtype}")
+        dtype = torch.bfloat16 if name in bf16 else torch.float32
+        if t.dtype != dtype:
+            raise ValueError(
+                f"{label} kernel takes float32 only: {name} is {t.dtype}"
+                if name not in bf16 else
+                f"{label} kernel takes {name} in bfloat16 with bf16 "
+                f"streams: it is {t.dtype}")
         if t.device != device:
             raise ValueError(f"{label} kernel: {name} is on {t.device}, "
                              f"y0 on {device}")
@@ -584,6 +591,88 @@ def sde_mode(mult_y, geometric, drift, noise, elem,
                      int(elem)), codes, need, bool(latent))
 
 
+# ---------------------------------------------------------------------------
+# Precision: the stream dtype and the operand mode of the in-kernel products
+# ---------------------------------------------------------------------------
+
+# the operand modes of the in-kernel products (the JAX package's
+# SNSDE_FUSED_MATMUL, snsde/kernels/fused_em.py:_dot :67-107) and their codes
+# in the EM library (csrc/sde_hopper.cuh: MM_F32, MM_X3, MM_BF16)
+MATMUL_CODE = {"f32": 0, "bf16x3": 1, "bf16": 2}
+
+
+def resolve_precision(stream_dtype=None, matmul=None):
+    """(stream dtype, operand mode) of a fused solve. None resolves from the
+    environment as the JAX entries resolve it (fused_em.py:1113-1118 and
+    _mm_mode :110-115): SNSDE_FUSED_STREAM=bf16 gives torch.bfloat16,
+    anything else float32; SNSDE_FUSED_MATMUL=bf16 gives 'bf16', bf16x3
+    'bf16x3', anything else 'f32' (exact). ValueError on another explicit
+    value."""
+    if stream_dtype is None:
+        stream_dtype = (torch.bfloat16
+                        if os.environ.get("SNSDE_FUSED_STREAM", "f32")
+                        == "bf16" else torch.float32)
+    if stream_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"fused solve: stream_dtype {stream_dtype} is not "
+                         f"torch.float32 or torch.bfloat16")
+    if matmul is None:
+        v = os.environ.get("SNSDE_FUSED_MATMUL", "f32")
+        matmul = v if v in ("bf16", "bf16x3") else "f32"
+    if matmul not in MATMUL_CODE:
+        raise ValueError(f"fused solve: matmul {matmul!r} is not one of "
+                         f"{sorted(MATMUL_CODE)}")
+    return stream_dtype, matmul
+
+
+def unported(what: str, item: str):
+    raise NotImplementedError(
+        f"{what} is not ported to the CUDA kernels yet (ROADMAP Queue 2 "
+        f"{item})")
+
+
+def require_fp32(label: str, item: str, stream_dtype=None, matmul=None, *,
+                 operands: bool = True) -> None:
+    """For the kernel pairs without reduced-precision modes yet: raise
+    NotImplementedError naming the ROADMAP item where the caller or the
+    environment (resolve_precision) asks for bf16 streams, or, with
+    `operands`, bf16 or bf16x3 operands; never compute fp32 in their
+    place."""
+    sd, mm = resolve_precision(stream_dtype, matmul)
+    if sd != torch.float32:
+        unported(f"{label} with bf16 streams", item)
+    if operands and mm != "f32":
+        unported(f"{label} with {mm} operands", item)
+
+
+def bf16_round(t: torch.Tensor) -> torch.Tensor:
+    """t rounded to bfloat16 (to nearest, ties to even) in t's dtype."""
+    return t.to(torch.bfloat16).to(t.dtype)
+
+
+def mm_op(x: torch.Tensor, w: torch.Tensor, matmul: str = "f32"):
+    """x @ w as the kernels form an in-kernel product in operand mode
+    `matmul` (JAX's _dot, fused_em.py:67-107), accumulating in x's dtype:
+    'f32' exact; 'bf16' both operands rounded to bf16 once; 'bf16x3' both
+    split into hi = bf16(v) and lo = bf16(v - hi), xh wh + xh wl + xl wh."""
+    if matmul == "f32":
+        return x @ w
+    xh, wh = bf16_round(x), bf16_round(w)
+    if matmul == "bf16":
+        return xh @ wh
+    xl, wl = bf16_round(x - xh), bf16_round(w - wh)
+    return xh @ wh + xh @ wl + xl @ wh
+
+
+def one_hot_op(v: torch.Tensor, matmul: str = "f32"):
+    """v through a product with a one-hot factor in operand mode `matmul`
+    (the latent KL lane's klm, fused_em.py:352, :472): v; bf16(v); or
+    bf16(v) + bf16(v - bf16(v))."""
+    if matmul == "f32":
+        return v
+    h = bf16_round(v)
+    return h if matmul == "bf16" else h + bf16_round(v - h)
+
+
 def check_mode(label: str, modes: SdeModes, **tensors) -> None:
     """Raise ValueError when a tensor the modes decide (by name) is not
     theirs: one they need is None, or one they do not take is given."""
@@ -596,29 +685,30 @@ def check_mode(label: str, modes: SdeModes, **tensors) -> None:
                 f"{name} {'missing' if need[name] else 'not taken'}")
 
 
-def drift_input(y, u, xh, a, wy, drift):
-    """h_0's input at step u by drift mode."""
+def drift_input(y, u, xh, a, wy, drift, matmul="f32"):
+    """h_0's input at step u by drift mode (its product in operand mode
+    `matmul`)."""
     if drift == "xt":
         return xh[u]
-    z = y @ wy + a[u]
+    z = mm_op(y, wy, matmul) + a[u]
     return z + xh[u] if drift == "embm" else z
 
 
-def noise_base(y, row, noise, elem, wn1, wn2, bn2, relu):
+def noise_base(y, row, noise, elem, wn1, wn2, bn2, relu, matmul="f32"):
     """The diffusion's base at state y (row: the step's gk or an1 row) and,
     for net2, the net's hidden activations."""
     if noise == "precomp":
         return row.expand_as(y), None
     if noise == "elem":
         return elem_base(elem, y), None
-    zn1 = y @ wn1 + row
+    zn1 = mm_op(y, wn1, matmul) + row
     if noise == "net1":
         return zn1, None
     hn = relu(zn1)
-    return relu(hn @ wn2 + bn2), hn
+    return relu(mm_op(hn, wn2, matmul) + bn2), hn
 
 
-def noise_back(dbase, y, base, hn, noise, elem, wn1, wn2):
+def noise_back(dbase, y, base, hn, noise, elem, wn1, wn2, matmul="f32"):
     """Back through the base given its cotangent: (y's cotangent through
     the base, dn: the cotangent of the net's first layer's output, dz2: of
     net2's second layer's output)."""
@@ -627,7 +717,7 @@ def noise_back(dbase, y, base, hn, noise, elem, wn1, wn2):
     if noise == "elem":
         return dbase * elem_deriv(elem, y), None, None
     if noise == "net1":
-        return dbase @ wn1.T, dbase, None
+        return mm_op(dbase, wn1.T, matmul), dbase, None
     dz2 = dbase * (base > 0)
-    dn = (dz2 @ wn2.T) * (hn > 0)
-    return dn @ wn1.T, dn, dz2
+    dn = mm_op(dz2, wn2.T, matmul) * (hn > 0)
+    return mm_op(dn, wn1.T, matmul), dn, dz2

@@ -44,7 +44,7 @@ import torch
 
 from ..ops.solve import make_grid
 from ._solver import (SolverLib, check_tensors, member_count, member_shapes,
-                      per_member)
+                      per_member, require_fp32)
 
 __all__ = ["fused_cde_solve", "fused_cde_inputs", "supports_fused_cde",
            "FusedCDE", "fused_cde_forward", "fused_cde_backward",
@@ -610,13 +610,22 @@ def fused_cde_inputs(func, path, grid: np.ndarray, z0: torch.Tensor,
 
 def fused_cde_solve(func, path, times, z0: torch.Tensor,
                     dt: Optional[float] = None,
-                    method: str = "rk4") -> torch.Tensor:
+                    method: str = "rk4",
+                    stream_dtype: Optional[torch.dtype] = None
+                    ) -> torch.Tensor:
     """Fused solve of dz = f(z) dX(t) on make_grid(times, dt); zs [T, B, H]
     on the output times (cdeint's layout). Matches cdeint(method=...) on the
     same grid up to float32 summation order; gradients reach the field's
-    weights, z0 and the control path's coefficients."""
+    weights, z0 and the control path's coefficients. Exact fp32 only: bf16
+    streams (`stream_dtype` or SNSDE_FUSED_STREAM), or bf16 / bf16x3
+    operands for the MLP fields (SNSDE_FUSED_MATMUL; the GRU-ODE field's
+    are exact fp32 whatever is asked, as JAX pins them,
+    fused_cde.py:691-697), raise NotImplementedError (ROADMAP Queue 2
+    K5)."""
     grid, out_idx = make_grid(times, dt)
     inp = fused_cde_inputs(func, path, grid, z0, method)
+    require_fp32("the fused CDE solve", "K5", stream_dtype,
+                 operands=inp["act"] != "gruode")
     ys = FusedCDE.apply(*(inp[k] for k in _ARG_ORDER), inp["method"],
                         inp["act"])
     full = torch.cat([z0[None], ys], dim=0)

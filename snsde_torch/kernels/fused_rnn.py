@@ -16,7 +16,9 @@ evolve before the cell (ODE-RNN; `Evolve`), and the LSTM's evolve of h
 after the cell with a per-row step (ODE-LSTM); and in the modes of the
 time-aware LSTMs: PLSTM's phased openness `sel` [L, B, H], TGLSTM's gate
 modifiers `tg` [L, B, 3H] and TLSTM's memory decomposition (`Decomp`: W_d,
-b_d and the elapsed times tel [L, B]). bf16 streams, and mode
+b_d and the elapsed times tel [L, B]). bf16 streams or bf16 / bf16x3
+operands (asked by the caller or by SNSDE_FUSED_STREAM and
+SNSDE_FUSED_MATMUL, `_solver.resolve_precision`), and mode
 combinations no JAX caller reaches, raise NotImplementedError naming
 ROADMAP Queue 2 K6/K7; they never fall back to an eager loop.
 
@@ -40,7 +42,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ._solver import SolverLib, check_tensors
+from ._solver import SolverLib, check_tensors, require_fp32, unported
 
 __all__ = ["fused_gru_scan", "fused_lstm_scan", "supports_fused_gru",
            "supports_fused_lstm", "FusedGRU", "FusedLSTM", "Evolve", "Decomp",
@@ -695,7 +697,7 @@ def _gru_mode(hdec, obs, hrow, ode) -> int:
     if obs is None and hrow is None and ode is None:
         return 0
     if hdec is not None or (hrow is not None and ode is not None):
-        _unported("the GRU's per-sample decay with obs, a row decay or the "
+        unported("the GRU's per-sample decay with obs, a row decay or the "
                   "evolve, or a row decay with the evolve", "K6")
     return 3 if ode is not None else 2 if hrow is not None else 1
 
@@ -909,7 +911,7 @@ def _lstm_mode(ode, sel, tg, dec) -> int:
     given = [m for m, x in ((1, ode), (2, sel), (3, tg), (4, dec))
              if x is not None]
     if len(given) > 1:
-        _unported("a combination of the LSTM's evolve, sel, tg and TLSTM "
+        unported("a combination of the LSTM's evolve, sel, tg and TLSTM "
                   "modes", "K7")
     return given[0] if given else 0
 
@@ -1155,17 +1157,6 @@ class FusedLSTM(torch.autograd.Function):
 # Public entries: a recurrence over a sequence through the kernels
 # ---------------------------------------------------------------------------
 
-def _unported(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported to the CUDA kernels yet (ROADMAP Queue 2 "
-        f"{item})")
-
-
-def _check_stream_dtype(stream_dtype, item):
-    if stream_dtype not in (None, torch.float32):
-        _unported(f"stream_dtype={stream_dtype}", item)
-
-
 def _projection(cell, xs, reverse):
     """gi = xs @ w_ih + b_ih over the (flipped, for reverse) sequence."""
     if reverse:
@@ -1210,9 +1201,10 @@ def fused_gru_scan(cell, xs, h0=None, reverse: bool = False,
                    ode_steps Euler substeps of tdif[t] / ode_steps of the
                    MLP of the `nn.Linear`s ode_layers (tanh inner
                    layers, linear output); not with hdec.
-    bf16 streams, and the per-sample decay with any of the others, raise
-    NotImplementedError on the card (ROADMAP Queue 2 K6)."""
-    _check_stream_dtype(stream_dtype, "K6")
+    bf16 streams or operands (`stream_dtype`, SNSDE_FUSED_STREAM,
+    SNSDE_FUSED_MATMUL), and the per-sample decay with any of the others,
+    raise NotImplementedError (ROADMAP Queue 2 K6)."""
+    require_fp32("the fused GRU recurrence", "K6", stream_dtype)
     if not supports_fused_gru(cell):
         raise ValueError(f"fused GRU kernels take GRUCell-shaped cells with "
                          f"H <= {MAX_H}; got {type(cell).__name__}")
@@ -1263,11 +1255,12 @@ def fused_lstm_scan(cell, xs, reverse: bool = False, stream_dtype=None,
                    (f, i, o, sigmoid candidate).
     sel, tg and W_d take gradients (through autograd to whatever made
     them); odt and tel are data. A reverse run flips every stream. Two
-    modes at once and bf16 streams raise NotImplementedError (ROADMAP
-    Queue 2 K7)."""
+    modes at once and bf16 streams or operands (`stream_dtype`,
+    SNSDE_FUSED_STREAM, SNSDE_FUSED_MATMUL) raise NotImplementedError
+    (ROADMAP Queue 2 K7)."""
     _lstm_mode(ode_layers if ode_layers is not None else odt, sel, tg,
                tlstm if tlstm is not None else tel)
-    _check_stream_dtype(stream_dtype, "K7")
+    require_fp32("the fused LSTM recurrence", "K7", stream_dtype)
     if not supports_fused_lstm(cell):
         raise ValueError(f"fused LSTM kernels take LSTMCell-shaped cells "
                          f"with H <= {MAX_H}; got {type(cell).__name__}")

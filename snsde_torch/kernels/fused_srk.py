@@ -62,6 +62,7 @@ from ._solver import (SDE_INT_NAMES, SDE_SHAPE_NAMES, SdeModes, SolverLib,
                       drift_input, drift_rows, drift_weights, is_net,
                       kernel_dims, member_count, member_shapes, mode_codes,
                       noise_back, noise_base, noise_rows, noise_weights,
+                      require_fp32,
                       per_member, sde_mode, sde_modes, select_member,
                       split_weight_grads, stack_members,
                       stage_times, supports_fused, wgrad_partial_sizes)
@@ -1001,16 +1002,21 @@ def fused_srk_inputs(field, path, grid: np.ndarray, y0: torch.Tensor,
 def fused_srk_solve(field, path, times, y0: torch.Tensor, *,
                     generator: Optional[torch.Generator] = None,
                     dt: Optional[float] = None,
-                    brownian_override=None) -> torch.Tensor:
+                    brownian_override=None,
+                    stream_dtype: Optional[torch.dtype] = None
+                    ) -> torch.Tensor:
     """SRIW1 solve of a DiffusionField through the fused kernels. Returns
     ys [T, B, H] on the output times (time-major). (dW, I10), each
     [M, B, H], come from `brownian_override` when given, else from
     `generator`, dW first and then the Lévy area, as `sdeint(method="srk")`
     draws them. Matches DiffusionField.f/g except for float32
     reassociation of the merged drift input and sqrt's nan_to_num taken
-    as 0 where y <= 0."""
+    as 0 where y <= 0. Exact fp32 only: bf16 streams (`stream_dtype` or
+    SNSDE_FUSED_STREAM) or bf16 / bf16x3 operands (SNSDE_FUSED_MATMUL)
+    raise NotImplementedError (ROADMAP Queue 2 K4)."""
     from ..models.neuralsde import resolve_dt
 
+    require_fp32("the fused SRK solve", "K4", stream_dtype)
     dt = resolve_dt(times) if dt is None else dt
     grid, out_idx = make_grid(times, dt)
     if brownian_override is None:

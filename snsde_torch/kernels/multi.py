@@ -31,9 +31,11 @@ import torch
 
 from ..ops.brownian import brownian_increments, space_time_levy_area
 from ..ops.solve import make_grid
+from ._solver import require_fp32
 from .fused_cde import FusedCDE, fused_cde_inputs
 from .fused_cde import _ARG_ORDER as _CDE_ARGS
-from .fused_em import FusedEM, fused_em_inputs, latent_inputs
+from .fused_em import (FusedEM, fused_em_inputs, latent_inputs,
+                       precision_inputs, solve_modes)
 from .fused_em import _ARG_ORDER as _EM_ARGS
 from .fused_em import _MODE_KEYS
 from .fused_srk import FusedSRK, fused_srk_inputs
@@ -102,18 +104,22 @@ def _setup(fields, times, y0s, dt, K_arg):
 
 
 def _out(y0s, ys, out_idx):
-    full = torch.cat([y0s[:, None], ys], dim=1)
+    """[y0, ys] of each member in y0s's dtype (a bf16 trajectory widened,
+    y0 rounded as it is) on the output times."""
+    full = torch.cat([y0s[:, None].to(ys.dtype), ys], dim=1).to(y0s.dtype)
     return full[:, torch.as_tensor(out_idx, device=y0s.device)]
 
 
 def fused_em_solve_packed(fields: Sequence, path, times, y0s: torch.Tensor,
                           dWs_or_generators, dt: Optional[float] = None,
-                          paths=None) -> torch.Tensor:
+                          paths=None, stream_dtype=None,
+                          matmul=None) -> torch.Tensor:
     """Solve K identically-configured DiffusionFields in one launch of the
     EM kernels (multi.py:240-285). y0s [K, B, H]; dWs_or_generators: K
     torch.Generators (member i draws the dW fused_em_solve(fields[i], ...,
     generator=generators[i]) would) or the increments [K, M, B, H];
-    `paths` one control path per member. Returns ys [K, T, B, H]."""
+    `paths` one control path per member; `stream_dtype` and `matmul` as
+    fused_em_solve's. Returns ys [K, T, B, H]."""
     K, (grid, out_idx) = _setup(fields, times, y0s, dt, dWs_or_generators)
     B, H = y0s.shape[1], fields[0].hidden_channels
     member_paths = _member_paths(path, paths, K)
@@ -123,20 +129,24 @@ def fused_em_solve_packed(fields: Sequence, path, times, y0s: torch.Tensor,
         if not isinstance(dW, torch.Tensor):
             dW = brownian_increments(dW, grid, (B, H), torch.float32,
                                      y0s.device)
-        inputs.append(fused_em_inputs(fields[k].bind(member_paths[k]),
-                                      member_paths[k], grid, y0s[k], dW))
-    ys = FusedEM.apply({k: inputs[0][k] for k in _MODE_KEYS},
+        inputs.append(precision_inputs(
+            fused_em_inputs(fields[k].bind(member_paths[k]),
+                            member_paths[k], grid, y0s[k], dW),
+            stream_dtype, matmul))
+    ys = FusedEM.apply(solve_modes(inputs[0]),
                        *_stack_inputs(inputs, _EM_ARGS))
     return _out(y0s, ys, out_idx)
 
 
 def fused_srk_solve_packed(fields: Sequence, path, times, y0s: torch.Tensor,
                            dWs_or_generators, dt: Optional[float] = None,
-                           paths=None) -> torch.Tensor:
+                           paths=None, stream_dtype=None) -> torch.Tensor:
     """The SRIW1 counterpart of fused_em_solve_packed (multi.py:394-444):
     member i's (dW, I10) drawn from its generator as fused_srk_solve
     draws them (dW, then the Lévy area), or given as a pair of [K, M, B, H]
-    tensors. Returns ys [K, T, B, H]."""
+    tensors. Returns ys [K, T, B, H]. Exact fp32 only, as fused_srk_solve
+    (bf16 asked here or by the environment raises, K4)."""
+    require_fp32("the fused SRK solve", "K4", stream_dtype)
     noise = dWs_or_generators
     if isinstance(noise, tuple) and len(noise) == 2 and isinstance(
             noise[0], torch.Tensor):
@@ -162,13 +172,15 @@ def fused_srk_solve_packed(fields: Sequence, path, times, y0s: torch.Tensor,
 
 def fused_cde_solve_packed(funcs: Sequence, path, times, z0s: torch.Tensor,
                            dt: Optional[float] = None, method: str = "rk4",
-                           paths=None) -> torch.Tensor:
+                           paths=None, stream_dtype=None) -> torch.Tensor:
     """Solve K identically-configured CDE fields (FinalTanh,
     SingleHiddenLayer or GRUODEField) in one launch of the CDE kernels
     (multi.py:505-553): z0s [K, B, H]; `paths` one control path per member
     (the robustness sweep's seeds each carry their own missingness), else
     every member reads `path`. Member i is fused_cde_solve(funcs[i], ...)
-    bit for bit under the same plan. Returns zs [K, T, B, H]."""
+    bit for bit under the same plan. Returns zs [K, T, B, H]. Exact fp32
+    only, as fused_cde_solve (bf16 asked here or by the environment raises,
+    K5)."""
     from ..models.neuralsde import resolve_dt
 
     K = len(funcs)
@@ -180,6 +192,8 @@ def fused_cde_solve_packed(funcs: Sequence, path, times, z0s: torch.Tensor,
     grid, out_idx = make_grid(times, dt)
     inputs = [fused_cde_inputs(funcs[k], member_paths[k], grid, z0s[k],
                                method) for k in range(K)]
+    require_fp32("the fused CDE solve", "K5", stream_dtype,
+                 operands=inputs[0]["act"] != "gruode")
     ys = FusedCDE.apply(*_stack_inputs(inputs, _CDE_ARGS), method,
                         inputs[0]["act"])
     return _out(z0s, ys, out_idx)
@@ -187,14 +201,17 @@ def fused_cde_solve_packed(funcs: Sequence, path, times, z0s: torch.Tensor,
 
 def fused_latent_em_solve_packed(models: Sequence, times,
                                  aug0s: torch.Tensor, dWs_or_generators,
-                                 dt: Optional[float] = None) -> torch.Tensor:
+                                 dt: Optional[float] = None,
+                                 stream_dtype=None,
+                                 matmul=None) -> torch.Tensor:
     """Solve K identically-configured LatentSDE augmented systems in one
     launch of the EM kernels' latent instances (multi.py:715-748, which
     lane-packs them): aug0s [K, B, H] (each member's latent state and a zero
     KL lane); dWs_or_generators: K torch.Generators (member i draws the
     increments fused_latent_em_solve(models[i], ..., generator=
-    generators[i]) draws) or the increments [K, M, B, H]. Returns ys
-    [K, T, B, H] (member i's KL total at ys[i, -1, :, H-1])."""
+    generators[i]) draws) or the increments [K, M, B, H]; `stream_dtype`
+    and `matmul` as fused_latent_em_solve's. Returns ys [K, T, B, H]
+    (member i's KL total at ys[i, -1, :, H-1])."""
     from ..models.neuralsde import resolve_dt
 
     K = len(models)
@@ -210,7 +227,9 @@ def fused_latent_em_solve_packed(models: Sequence, times,
         if not isinstance(dW, torch.Tensor):
             dW = brownian_increments(dW, grid, tuple(aug0s.shape[1:]),
                                      aug0s.dtype, aug0s.device)
-        inputs.append(latent_inputs(models[k], grid, aug0s[k], dW))
-    ys = FusedEM.apply({k: inputs[0][k] for k in _MODE_KEYS + ("latent",)},
+        inputs.append(precision_inputs(
+            latent_inputs(models[k], grid, aug0s[k], dW), stream_dtype,
+            matmul))
+    ys = FusedEM.apply(solve_modes(inputs[0], latent=True),
                        *_stack_inputs(inputs, _EM_ARGS))
     return _out(aug0s, ys, out_idx)

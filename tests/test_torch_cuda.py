@@ -714,7 +714,8 @@ def _wide_check(kind, H, n_inner, placement):
     else:
         inputs, flags, gys = _inputs(kind == "srk", 4, 17, n_inner, "init",
                                      B=13, M=5, H=H)
-        shape = (13, H, H, n_inner, 0, 0, 1)  # 'embm', 'precomp', 1 member
+        # 'embm', 'precomp', 1 member (and, for the EM pair, fp32 streams)
+        shape = (13, H, H, n_inner, 0, 0, 1) + ((0,) if kind == "em" else ())
     if kind in SDE:
         level, cs, rows = EM_FORCED[placement]
         _sde_force(kind, level, cs, rows)

@@ -172,17 +172,22 @@ def test_backward_reference_is_autograd_of_forward(io, no, n_inner):
 def _split_backward(y0, ys, gys, xh, dw, a, gk, dts, theta, wy, w_inner,
                     b_inner, wout, bo, wn1=None, wn2=None, bn2=None, lat=None,
                     *, mult_y, geometric, drift="embm", noise="precomp",
-                    elem=0, latent=False, ns=None):
+                    elem=0, latent=False, ns=None, stream="f32",
+                    matmul="f32"):
     """The card's backward in plain form: the recurrence's plain version,
-    then the weight-gradient kernel's plain version on its streams."""
+    then the weight-gradient kernel's plain version on its streams (with
+    bf16 streams over the rounded states, dxh handed back in bf16)."""
     st = fe.fused_em_backward_recurrence_reference(
         y0, ys, gys, xh, dw, a, gk, dts, theta, wy, w_inner, b_inner, wout,
         bo, wn1, wn2, bn2, lat, mult_y=mult_y, geometric=geometric,
-        drift=drift, noise=noise, elem=elem, latent=latent, ns=ns)
+        drift=drift, noise=noise, elem=elem, latent=latent, ns=ns,
+        stream=stream, matmul=matmul)
     w = fe.fused_em_weight_grads_reference(
-        y0, ys, st.dxh, st.hs, st.es, st.dz3, st.q, st.dn, st.dz2,
-        None if ns is None else ns.nh, drift=drift, noise=noise)
-    out = (st.dy0, None if drift == "yy" else st.dxh, w.da, w.dgk,
+        y0.to(ys.dtype), ys, st.dxh, st.hs, st.es, st.dz3, st.q, st.dn,
+        st.dz2, None if ns is None else ns.nh, drift=drift, noise=noise,
+        matmul=matmul)
+    dxh = st.dxh if xh is None else st.dxh.to(xh.dtype)
+    out = (st.dy0, None if drift == "yy" else dxh, w.da, w.dgk,
            st.dtheta, w.dwy, w.dw_inner, w.db_inner, w.dwout, w.dbo)
     if noise in ("net1", "net2"):
         return fe.FusedEMNetGrads(*out, w.dwn1, w.dwn2, w.dbn2)
