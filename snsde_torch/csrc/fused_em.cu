@@ -102,14 +102,20 @@
 // Exact fp32 FMA on the CUDA cores (TF32 off) by default.
 //
 // The JAX kernels' reduced-precision modes (_dot :67-107, _mm_mode
-// :110-115; traj_bf16, fused_em.py:1108-1118) are runtime arguments of
-// every instance (SdeDims.mm, .bs), not instances of their own:
+// :110-115; traj_bf16, fused_em.py:1108-1118) are runtime arguments
+// (SdeDims.mm, .bs) of every forward instance and of the backward's
+// reduced instances (em_bwd_kernel<.., RED = true>, launched when either
+// is set): the fp32 recurrence's instances hold none of their code, so
+// that its registers and spills are those of an fp32-only kernel. The
+// reduced products are out of line (mm_mode<true>, mm_t_mode<true>) in
+// both kernels (inlined into every reduced backward they cost a fifth
+// more build time; the reduced recurrence spills around the calls).
 // * operands (mm): every in-kernel product, the weight gradient's and the
 //   latent KL rate's (0.5 u^2 through klm, :352; its cotangent :472) too,
 //   rounds its operands to bf16 (MM_BF16) or splits them into hi + lo
 //   (MM_X3, xh wh + xh wl + xl wh), accumulating in fp32 (sde_hopper.cuh:
-//   mm_mode, mm_t_mode, wgrad_kernel<.., true>); the fp32 instances' code
-//   is the parent's, behind one branch a call site;
+//   mm_mode, mm_t_mode, wgrad_kernel<.., true>); in the forward the fp32
+//   products sit behind one branch a call site;
 // * streams (bs): xh, dW, the trajectory, gys are bf16 in device memory,
 //   copied a step ahead in 4-byte pairs and widened into the fp32 tiles
 //   (copy_bf16, widen_bf16). The forward's carry stays fp32 and only the
@@ -534,8 +540,11 @@ em_fwd_kernel(SdeDims dd, SdePlan pp, const float* __restrict__ y0,
 // phase 0, then Wn1 in phase 1) run on the chain's threads beside its own,
 // into the state's cotangent, from the cotangent of the net's output that
 // step u's pointwise part left; the forward values come from the forward's
-// streams nb and nh.
-template <bool GW, int DR, int NZ>
+// streams nb and nh. RED: the reduced precisions' instance (the operand
+// mode and the stream flag read from d; the reduced products out of
+// line); without it exact fp32 streams and products, every reduced branch
+// compiled away.
+template <bool GW, int DR, int NZ, bool RED = false>
 __global__ void __launch_bounds__(ET)
 em_bwd_kernel(SdeDims dd, SdePlan pp, const float* __restrict__ y0,
               const float* __restrict__ ys, const float* __restrict__ gys,
@@ -595,8 +604,8 @@ em_bwd_kernel(SdeDims dd, SdePlan pp, const float* __restrict__ y0,
   // the precision: the products' operand mode, and bf16 streams (xh, dW,
   // gys and the states, y0 (rounded by the wrapper) and ys, as bf16 in
   // device memory, staged a step ahead and widened)
-  const int mode = d.mm;
-  const bool bs = d.bs;
+  const int mode = RED ? d.mm : MM_F32;
+  const bool bs = RED && d.bs;
   const __nv_bfloat16* y016 = reinterpret_cast<const __nv_bfloat16*>(y0);
   const __nv_bfloat16* ys16 = reinterpret_cast<const __nv_bfloat16*>(ys);
   const __nv_bfloat16* gys16 = reinterpret_cast<const __nv_bfloat16*>(gys);
@@ -738,7 +747,7 @@ em_bwd_kernel(SdeDims dd, SdePlan pp, const float* __restrict__ y0,
           if (cs == 1) {
             const float* hm = hu + l * htile;
             float* eo = e + (ph & 1) * htile;
-            mm_t_mode<false>(mode, gc, E, lde, Nc, W, ldw, GW, nr, HH,
+            mm_t_mode<RED>(mode, gc, E, lde, Nc, W, ldw, GW, nr, HH,
                  [&](int r, int k, float acc) {
                    const int ix = r * sHH + k;
                    const float ev = hm[ix] > 0.f ? acc : 0.f;
@@ -750,7 +759,7 @@ em_bwd_kernel(SdeDims dd, SdePlan pp, const float* __restrict__ y0,
                  });
           } else {
             float* part = pd + ph * ptile;
-            mm_t_mode<false>(mode, gc, E, lde, Nc, W, ldw, GW, nr, HH,
+            mm_t_mode<RED>(mode, gc, E, lde, Nc, W, ldw, GW, nr, HH,
                       [&](int r, int k, float acc) {
                         part[r * sW + k] = acc;
                       });
@@ -759,13 +768,13 @@ em_bwd_kernel(SdeDims dd, SdePlan pp, const float* __restrict__ y0,
           // dz1 Wy'^T into the state's cotangent (own columns)
           const float* E = e + (NI & 1) * htile + h0;
           if (cs == 1) {
-            mm_t_mode<false>(mode, gc, E, sHH, nh, w.wy, w.lwy, GW, nr, H,
+            mm_t_mode<RED>(mode, gc, E, sHH, nh, w.wy, w.lwy, GW, nr, H,
                       [&](int r, int k, float acc) {
                         gbar[r * U + k] += acc;
                       });
           } else {
             float* part = pd + ph * ptile;
-            mm_t_mode<false>(mode, gc, E, sHH, nh, w.wy, w.lwy, GW, nr, H,
+            mm_t_mode<RED>(mode, gc, E, sHH, nh, w.wy, w.lwy, GW, nr, H,
                       [&](int r, int k, float acc) {
                         part[r * sW + k] = acc;
                       });
@@ -774,13 +783,13 @@ em_bwd_kernel(SdeDims dd, SdePlan pp, const float* __restrict__ y0,
         // the noise net's back products of step u (a cluster of one CTA)
         if constexpr (NZ == NZ_NET1) {
           if (ph == 0)
-            mm_t_mode<false>(mode, gc, tq, U, nu, w.wn1, w.lwn, GW, nr, H,
+            mm_t_mode<RED>(mode, gc, tq, U, nu, w.wn1, w.lwn, GW, nr, H,
                       [&](int r, int k, float acc) {
                         tdy[r * U + k] = acc;
                       });
         } else if constexpr (NZ == NZ_NET2) {
           if (ph == 0)
-            mm_t_mode<false>(mode, gc, tq, U, nu, w.wn2, w.lwn, GW, nr, H,
+            mm_t_mode<RED>(mode, gc, tq, U, nu, w.wn2, w.lwn, GW, nr, H,
                  [&](int r, int k, float acc) {
                    const size_t o = (oc + r) * H + k;
                    const float v = nhs[o] > 0.f ? acc : 0.f;
@@ -788,7 +797,7 @@ em_bwd_kernel(SdeDims dd, SdePlan pp, const float* __restrict__ y0,
                    dn[o] = v;
                  });
           else if (ph == 1)
-            mm_t_mode<false>(mode, gc, tq1, U, nu, w.wn1, w.lwn, GW, nr, H,
+            mm_t_mode<RED>(mode, gc, tq1, U, nu, w.wn1, w.lwn, GW, nr, H,
                       [&](int r, int k, float acc) {
                         tdy[r * U + k] = acc;
                       });
@@ -805,7 +814,7 @@ em_bwd_kernel(SdeDims dd, SdePlan pp, const float* __restrict__ y0,
               hs[(ov + r) * HH + h0 + n] = v;
             });
           } else {
-            mm_mode<false>(mode, gr, yv, sH, H, w.wy, w.lwy, GW, nr, nh,
+            mm_mode<RED>(mode, gr, yv, sH, H, w.wy, w.lwy, GW, nr, nh,
                [&](int r, int n, float acc) {
                  float v;
                  if constexpr (DR == DR_EMBM)
@@ -820,7 +829,7 @@ em_bwd_kernel(SdeDims dd, SdePlan pp, const float* __restrict__ y0,
           const float* bl = w.bi + (ph - 1) * UH;
           float* ho = hv + ph * htile;
           float* hso = hs + (size_t)ph * MK * BHH;
-          mm_mode<false>(mode, gr, hv + (ph - 1) * htile, sHH, HH,
+          mm_mode<RED>(mode, gr, hv + (ph - 1) * htile, sHH, HH,
              w.wi + (size_t)(ph - 1) * w.swi, w.lwi, GW, nr, nh,
              [&](int r, int n, float acc) {
                const float v = fmaxf(acc + bl[n], 0.f);
@@ -828,7 +837,7 @@ em_bwd_kernel(SdeDims dd, SdePlan pp, const float* __restrict__ y0,
                hso[(ov + r) * HH + h0 + n] = v;
              });
         } else {
-          mm_mode<false>(mode, gr, hv + NI * htile, sHH, HH, w.wo, w.lwo, GW, nr,
+          mm_mode<RED>(mode, gr, hv + NI * htile, sHH, HH, w.wo, w.lwo, GW, nr,
                   nu, [&](int r, int n, float acc) {
                     z3[r * U + n] = acc + w.bo[n];
                   });
@@ -938,9 +947,19 @@ em_bwd_kernel(SdeDims dd, SdePlan pp, const float* __restrict__ y0,
 // The instance of a launch: the level's (a compile-time fact: the main
 // paths' level 0 reads the weight slices from shared memory) and the drift
 // and noise modes'
-// (and the latent instances', drift 'yy' only)
+// (and the latent instances', drift 'yy' only); the backward's also its
+// precision class'
 using FwdKernel = decltype(&em_fwd_kernel<false, DR_EMBM, NZ_PRE>);
 using BwdKernel = decltype(&em_bwd_kernel<false, DR_EMBM, NZ_PRE>);
+
+// SDE_INSTANCES of the backward's reduced instances
+#define EM_RED_ROW(GW, DR)                   \
+  {em_bwd_kernel<GW, DR, NZ_PRE, true>,      \
+   em_bwd_kernel<GW, DR, NZ_ELEM, true>,     \
+   em_bwd_kernel<GW, DR, NZ_NET1, true>,     \
+   em_bwd_kernel<GW, DR, NZ_NET2, true>}
+#define EM_RED_ROWS(GW) \
+  {EM_RED_ROW(GW, DR_EMBM), EM_RED_ROW(GW, DR_YY), EM_RED_ROW(GW, DR_XT)}
 
 inline FwdKernel fwd_kernel(const SdeDims& d, int level) {
   static const FwdKernel k[2][SDE_DRIFTS][SDE_NOISES] =
@@ -952,12 +971,16 @@ inline FwdKernel fwd_kernel(const SdeDims& d, int level) {
 }
 
 inline BwdKernel bwd_kernel(const SdeDims& d, int level) {
-  static const BwdKernel k[2][SDE_DRIFTS][SDE_NOISES] =
-      SDE_INSTANCES(em_bwd_kernel);
-  static const BwdKernel kl[2] = {em_bwd_kernel<false, DR_YY, NZ_LAT>,
-                                  em_bwd_kernel<true, DR_YY, NZ_LAT>};
-  if (lat_noise(d.noise)) return kl[level ? 1 : 0];
-  return k[level ? 1 : 0][d.drift][d.noise];
+  static const BwdKernel k[2][2][SDE_DRIFTS][SDE_NOISES] = {
+      SDE_INSTANCES(em_bwd_kernel), {EM_RED_ROWS(false), EM_RED_ROWS(true)}};
+  static const BwdKernel kl[2][2] = {
+      {em_bwd_kernel<false, DR_YY, NZ_LAT>,
+       em_bwd_kernel<true, DR_YY, NZ_LAT>},
+      {em_bwd_kernel<false, DR_YY, NZ_LAT, true>,
+       em_bwd_kernel<true, DR_YY, NZ_LAT, true>}};
+  const int red = d.mm != MM_F32 || d.bs;
+  if (lat_noise(d.noise)) return kl[red][level ? 1 : 0];
+  return k[red][level ? 1 : 0][d.drift][d.noise];
 }
 
 // cudaOccupancyMaxActiveClusters of plan q's kernel (0 when it cannot be

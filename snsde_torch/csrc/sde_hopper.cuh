@@ -1056,7 +1056,7 @@ SdePlan sde_plan(const SdeDims& d, int backward, StepShape st, Bytes bytes,
                  Active active) {
   static std::mutex mu;
   static std::map<std::tuple<int, int, int, int, int, int, int, int, int,
-                             int, int, int, int>,
+                             int, int, int, int, int>,
                   SdePlan>
       seen;
   int dev = 0;
@@ -1064,7 +1064,8 @@ SdePlan sde_plan(const SdeDims& d, int backward, StepShape st, Bytes bytes,
   const int K = std::max(d.K, 1);
   const auto key =
       std::make_tuple(dev, d.B, d.H, d.HH, d.NI, backward, g_first_level,
-                      g_force_cs, g_force_rows, d.drift, d.noise, K, d.bs);
+                      g_force_cs, g_force_rows, d.drift, d.noise, K, d.bs,
+                      (int)(d.mm != MM_F32));
   std::lock_guard<std::mutex> lock(mu);
   const auto it = seen.find(key);
   if (it != seen.end()) return it->second;

@@ -465,3 +465,74 @@ def test_recurrences_raise_naming_k6_and_k7(monkeypatch, kind, item):
                 scan(cell, xs)
     with torch.no_grad():
         assert torch.isfinite(scan(cell, xs)).all()
+
+
+@pytest.mark.parametrize("matmul,stream", COMBOS)
+def test_chip_forward_bar_fails_another_operand_mode(monkeypatch, matmul,
+                                                     stream):
+    """chip_smoke.py's bar for the reduced forward kernel (forward_bar: one
+    bf16 ulp plus the larger of TOL_YS of max|ys| and PREC_SPREAD times a
+    nudged plain run's move an entry, PREC_SPREAD times the nudged move's
+    rms plus TOL_YS of the trajectory's in rms) tells the operand modes
+    apart at the sepsis width over 71 steps (B=128): the plain version in
+    the mode's control (PREC_CONTROL) fails it against this mode's plain
+    version, as the kernel in that mode must on the card, and by at least
+    twice the rms bar."""
+    import chip_smoke
+
+    monkeypatch.setattr(chip_smoke, "DEV", "cpu")
+    main = chip_smoke.MAIN
+    inp, gys = chip_smoke.kernel_inputs(main["model"], 128, main["L"],
+                                        main["C"], main["H"], main["layers"])
+    fwd, flags, _ = chip_smoke.prec_args(*chip_smoke._split(inp), gys,
+                                         matmul, stream)
+    p = fe.fused_em_forward_reference(*fwd, **flags)[0].float()
+    dn = (fe.fused_em_forward_reference(*fwd, **flags,
+                                        relu=chip_smoke.nudged_relu)[0]
+          .float() - p).abs()
+    wrong = chip_smoke.PREC_CONTROL[matmul]
+    assert wrong != matmul
+    control = fe.fused_em_forward_reference(*fwd,
+                                            **dict(flags, matmul=wrong))[0]
+    _, rms, bar, over = chip_smoke.forward_bar(control, p, dn)
+    assert over > 0 or rms > 2 * bar, (rms, bar, over)
+    # the nudged run itself is inside the bar
+    _, rms_n, bar_n, over_n = chip_smoke.forward_bar(p + dn, p, dn)
+    assert over_n <= 0 and rms_n <= bar_n
+
+
+def test_chip_split_shape_tells_bf16x3_from_fp32(monkeypatch):
+    """At chip_smoke.py's PREC_SPLIT shape (the sepsis width, 2 steps of 16
+    rows) the plain weight gradient in bf16x3 parts from exact fp32 by more
+    than 20 times fp32's own rounding (float32 against float64 sums) on
+    every product's output, so that the card's bar (the kernel within a
+    tenth of that gap of the plain bf16x3 product, split_check) holds a
+    kernel whose sums differ from the plain version's only in their order,
+    and fails one that computes exact fp32."""
+    import chip_smoke
+
+    monkeypatch.setattr(chip_smoke, "DEV", "cpu")
+    main, sh = chip_smoke.MAIN, chip_smoke.PREC_SPLIT
+    inp, gys = chip_smoke.kernel_inputs(main["model"], sh["B"], sh["L"],
+                                        main["C"], main["H"], main["layers"])
+    fwd, flags = chip_smoke._split(inp)
+    ys, ns = fe.fused_em_forward_reference(*fwd, **flags)
+    st = fe.fused_em_backward_recurrence_reference(fwd[0], ys, gys, *fwd[1:],
+                                                   **flags, ns=ns)
+    modes = dict(drift=flags["drift"], noise=flags["noise"])
+    streams = (fwd[0], ys, st.dxh, st.hs, st.es, st.dz3, st.q)
+    w = {m: fe.fused_em_weight_grads_reference(*streams, **modes, matmul=m)
+         for m in ("f32", "bf16x3")}
+    w64 = fe.fused_em_weight_grads_reference(*(t.double() for t in streams),
+                                             **modes)
+    products = 0
+    for i, name in enumerate(w["f32"]._fields):
+        if w["f32"][i] is None:
+            continue
+        gap = float((w["bf16x3"][i] - w["f32"][i]).abs().max())
+        if not gap:
+            continue            # a column or bias sum: no operand split
+        products += 1
+        err = float((w["f32"][i].double() - w64[i]).abs().max())
+        assert gap > 20 * err, (name, gap, err)
+    assert products >= 3
