@@ -383,6 +383,7 @@ printing no result, without a CUDA device or outside the repository.
     python3 chip_smoke.py --interp-flagship [OUT]
     python3 chip_smoke.py --activity-r5 [OUT [SEEDS]]
     python3 chip_smoke.py --activity-jax-init [OUT]
+    python3 chip_smoke.py --activity-bisect [SEED [EPOCHS [OUT]]]
     python3 chip_smoke.py --phase15 [WORLD]
 
 run none of the phases, but for `--phase15`, which runs that phase alone
@@ -541,17 +542,19 @@ F64_FLOOR = 1e-5
 # timed()'s runs: the kernels and steps, the eager steps (~10^4 kernel
 # launches each) and the plain versions (10-800 ms each); cut from 30 + 5,
 # 5 + 1 and 3-30 + 1 when the whole script came within 12 s of its 1200 s
-# on a slow host
+# on a slow host, and the eager steps' and plain versions' to one run
+# after one when phase 17 was added (the script's budget: 950 s)
 REPS, WARMUP = 12, 3
-EAGER_REPS = 3
-PLAIN_REPS = 2
+EAGER_REPS = 1
+PLAIN_REPS = 1
 N_SEPSIS = 4096     # samples of synthetic_sepsis on the main path
 N_MUJOCO = 4000     # windows: 100 trajectories x 40, as the bank gives
 DEV = "cuda"
 
 
 # every kernel source
-SOURCES = ["fused_em", "fused_srk", "fused_cde", "fused_rnn"]
+SOURCES = ["fused_em", "fused_srk", "fused_cde", "fused_rnn", "fused_srk_red",
+           "fused_cde_red"]
 # every mode the SDE pairs' kernels take
 SDE_MODES = ["embm", "yy", "xt", "precomp", "elem", "net1", "net2"]
 # phase 4's new paths: the sweep's SDE stream names (srk), and the sepsis
@@ -587,7 +590,10 @@ def build(names=SOURCES):
 
     t0 = time.perf_counter()
     _build.build(names)
-    print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"build: {time.perf_counter() - t0:.1f} s; each source's nvcc "
+          f"seconds (all started together): "
+          + ", ".join(f"{n} {r['seconds']:.1f}"
+                      for n, r in _build.BUILD_LOG.items()), flush=True)
     for name, rec in _build.BUILD_LOG.items():
         for line in rec["log"].splitlines():
             if "registers" in line or "spill" in line or "error" in line:
@@ -2761,26 +2767,35 @@ def cde_times(fwd, flags, gys, label, reps=REPS, warmup=WARMUP):
     return ms, bounds
 
 
-def cde_step_fns():
-    """One training step (cross-entropy, the 100x fc2 hook, the clip at
-    10, Adam) of ISTSClassifier("neuralcde") at the uea_rk4 width (B=1024,
-    L=72, 5 channels + time, H=32, FinalTanh with one inner layer, 4
-    classes): {label: step()} through the CDE kernels and through the
-    eager cdeint."""
+def uea_rk4_batch():
+    """One batch of the uea_rk4 width (B=1024, L=72, 5 channels + time, 4
+    classes; synthetic_uea, natural cubic) on the card."""
     from snsde_torch.data import synthetic_uea
-    from snsde_torch.harness.robustness import (ISTSClassifier,
-                                                ists_train_step,
-                                                preprocess_ists)
-    from snsde_torch.train.loop import readout_grad_hook
+    from snsde_torch.harness.robustness import preprocess_ists
 
     sh = CDE["uea_rk4"]
     X, y, _ = synthetic_uea(n=sh["B"], length=sh["L"], channels=sh["C"] - 1,
                             num_classes=4, seed=0)
     data = preprocess_ists(X, interpolation="natural")
     dev = torch.device(DEV)
-    batch = {"seq": torch.as_tensor(data["seq"], device=dev),
-             "coeffs": torch.as_tensor(data["coeffs"], device=dev),
-             "y": torch.as_tensor(y, device=dev)}
+    return {"seq": torch.as_tensor(data["seq"], device=dev),
+            "coeffs": torch.as_tensor(data["coeffs"], device=dev),
+            "y": torch.as_tensor(y, device=dev)}
+
+
+def cde_step_fns():
+    """One training step (cross-entropy, the 100x fc2 hook, the clip at
+    10, Adam) of ISTSClassifier("neuralcde") at the uea_rk4 width (B=1024,
+    L=72, 5 channels + time, H=32, FinalTanh with one inner layer, 4
+    classes): {label: step()} through the CDE kernels and through the
+    eager cdeint."""
+    from snsde_torch.harness.robustness import (ISTSClassifier,
+                                                ists_train_step)
+    from snsde_torch.train.loop import readout_grad_hook
+
+    sh = CDE["uea_rk4"]
+    dev = torch.device(DEV)
+    batch = uea_rk4_batch()
     out = {}
     for label, fused in (("train_step", True), ("train_step_eager", False)):
         model = ISTSClassifier("neuralcde", sh["C"] - 1, sh["L"], sh["H"], 4,
@@ -6150,6 +6165,111 @@ def activity_r5(out: str = "RESULTS_torch_activity_k5.json",
     return 0 if rec["ok"] else 1
 
 
+# the first epoch whose train loss parts by more than this, relative, names
+# where two runs of the activity flagship part (the port's seed-0 first
+# epoch holds JAX's to it on the CPU: tests/test_torch_activity_jax_init.py)
+ACTIVITY_PART = 1e-4
+
+
+class _SharedNoise:
+    """One sample-noise source for two runs of run_activity (its loss_fn's
+    `eps=`): each batch's noise [k_iwae, B, L, latent] drawn on the CPU
+    from a generator seeded by (seed, epoch, batch of the epoch) and moved
+    to `device`. A batch with autograd on after the epoch's training
+    batches starts the next epoch, so the two runs draw the same noise for
+    the same batch even where one evaluates its test batches and the other
+    does not."""
+
+    def __init__(self, seed, n_train_batches, latent, device):
+        self.seed, self.nb, self.latent = seed, n_train_batches, latent
+        self.device, self.epoch, self.i = device, -1, n_train_batches
+
+    def __call__(self, k_iwae, batch):
+        if torch.is_grad_enabled() and self.i >= self.nb:
+            self.epoch, self.i = self.epoch + 1, 0
+        gen = torch.Generator().manual_seed(
+            (self.seed * 100_003 + self.epoch) * 1009 + self.i)
+        self.i += 1
+        B, L = batch["x"].shape[:2]
+        return torch.randn((k_iwae, B, L, self.latent),
+                           generator=gen).to(self.device)
+
+
+def activity_bisect(seed: int = 2, epochs: int = ACTIVITY_R5["epochs"],
+                    out: str = "RESULTS_torch_activity_bisect.json") -> int:
+    """The activity flagship at one seed from JAX's initial leaves
+    (tests/goldens/activity_jax_init.npz), n=1024, warmup 5, on the card
+    (the kernels) and on the CPU (the plain versions), both with one
+    sample-noise source (_SharedNoise): both runs epoch by epoch, the first
+    epoch whose train loss parts by more than ACTIVITY_PART, and each
+    run's test accuracy, written to `out`:
+
+        python3 chip_smoke.py --activity-bisect [SEED [EPOCHS [OUT]]]
+
+    Exits 1 when the first epoch already parts (a fault of a kernel or a
+    module, not rounding compounded over epochs)."""
+    from snsde_torch.harness import activity as act
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    smi = card()
+    torch.set_num_threads(os.cpu_count() or 1)
+    leaves = np.load(os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tests", "goldens", "activity_jax_init.npz"))
+    init = {k.split("/", 1)[1]: leaves[k] for k in leaves.files
+            if k.startswith(f"seed{seed}/")}
+    cfg = act.ActivityConfig(max_epochs=epochs, k_iwae=5,
+                             warmup_epochs=ACTIVITY_R5["warmup"], seed=seed,
+                             verbose=False)
+    n_train = len(act.activity_splits(ACTIVITY["n"], cfg.data_seed)[0])
+    real = act.loss_fn
+    runs = {}
+    try:
+        for dev in ("cuda", "cpu"):
+            noise = _SharedNoise(seed, -(-n_train // cfg.batch_size),
+                                 cfg.latent_dim, dev)
+
+            def with_noise(model, batch, k_iwae, noise=noise, **kw):
+                kw.pop("generator", None)
+                return real(model, batch, k_iwae, eps=noise(k_iwae, batch),
+                            **kw)
+
+            act.loss_fn = with_noise
+            runs[dev] = act.run_activity(cfg, n=ACTIVITY["n"], device=dev,
+                                         init=init)
+            print(f"activity seed {seed} on {dev}: test "
+                  f"{runs[dev].test_accuracy:.4f}, "
+                  f"{runs[dev].wall_time:.1f} s", flush=True)
+    finally:
+        act.loss_fn = real
+    hc, hp = runs["cuda"].history, runs["cpu"].history
+    keys = ("train_loss", "val_loss", "val_acc")
+    print("epoch | card train_loss val_loss val_acc | CPU train_loss "
+          "val_loss val_acc | rel train_loss")
+    first = None
+    for a, b in zip(hc, hp):
+        d = abs(a["train_loss"] - b["train_loss"]) / abs(b["train_loss"])
+        if first is None and d > ACTIVITY_PART:
+            first = a["epoch"]
+        print(f"{a['epoch']:4d} | " + " ".join(f"{a[k]:.6f}" for k in keys)
+              + " | " + " ".join(f"{b[k]:.6f}" for k in keys)
+              + f" | {d:.2e}")
+    rec = {"seed": seed, "epochs": epochs, "n": ACTIVITY["n"],
+           "noise": "torch, drawn on the CPU, one source for both runs",
+           "init": "tests/goldens/activity_jax_init.npz",
+           "first_parting_epoch": first, "part": ACTIVITY_PART,
+           "test_accuracy": {d: r.test_accuracy for d, r in runs.items()},
+           "history": {"cuda": hc, "cpu": hp}, "card": smi}
+    with open(out, "w") as f:
+        json.dump(rec, f, default=float)
+    print(f"activity seed {seed}: first epoch whose train loss parts by more "
+          f"than {ACTIVITY_PART:g}: {first}; test accuracy card "
+          f"{runs['cuda'].test_accuracy:.4f}, CPU "
+          f"{runs['cpu'].test_accuracy:.4f}", flush=True)
+    return 1 if first == 0 else 0
+
+
 # ---------------------------------------------------------------------------
 # phase 14: the entry points the README starts from (the OU quick start,
 # snsde_torch.tutorial, snsde_torch.configs, make_model's baseline twins at
@@ -7460,22 +7580,25 @@ def bench_batch():
 
 
 def bench_training(matmul, stream, batch, steps=BENCH["steps"],
-                   profile=False):
+                   profile=False, method="euler"):
     """bench.py's configuration trained `steps` steps in a precision set
-    through the environment (precision_env), as a user sets it: (losses,
-    the EM launch counts of the run, the median step ms after 3, the
+    through the environment (precision_env), as a user sets it, on its
+    solver (`method`: euler on the EM pair, or SNSDE_BENCH_METHOD=srk's on
+    the SRK pair): (losses, the pair's launch counts of the run (its
+    reduced kernels' by precision), the median step ms after 3, the
     profiled (wall, device) ms a step or None)."""
     from snsde_torch.harness.classification import make_sde_model
-    from snsde_torch.kernels import fused_em as fe
     from snsde_torch.train.loop import bce_with_logits, weight_regularization
 
+    key = "em" if method == "euler" else "srk"
+    fe = _kernel_modules()[key]
     times, coeffs, final_index, y = batch
     env = (precision_env(matmul, stream) if (matmul, stream) != ("f32", "f32")
            else contextlib.nullcontext())
     with env:
         model, reg = make_sde_model(
             BENCH["model"], BENCH["C"], BENCH["H"], BENCH["H"],
-            BENCH["layers"], 1, method="euler",
+            BENCH["layers"], 1, method=method,
             generator=torch.Generator().manual_seed(0))
         model = model.to(DEV)
         opt = torch.optim.AdamW(model.parameters(), lr=BENCH["lr"],
@@ -7507,8 +7630,8 @@ def bench_training(matmul, stream, batch, steps=BENCH["steps"],
         torch.cuda.synchronize()
         counts = dict(fe.PRECISION_LAUNCHES)
         counts.update({k: v for k, v in read_counts().items()
-                       if k.startswith("em_")})
-        prof = (profile_step(f"bench.py configuration, "
+                       if k.startswith(f"{key}_")})
+        prof = (profile_step(f"bench.py configuration ({method}), "
                              f"{prec_label(matmul, stream)}",
                              lambda: step(steps)) if profile else None)
     return losses, counts, statistics.median(ms[3:]), prof
@@ -7776,39 +7899,973 @@ def phase16_entries(launches, errs, ms, bounds):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: the SRK and CDE pairs' reduced-precision modes
+# ---------------------------------------------------------------------------
+
+# the SRK pair's cases (label, model, B, L, C, H, layers): MuJoCo's shape
+# and bench.py's (bench.py:44-48 with SNSDE_BENCH_METHOD=srk, :56-59), both
+# LNSDE (4,17), then one case of each other drift and noise mode at the
+# sweep's width
+PREC_SRK_CASES = (
+    ("mujoco (4,17)", SRK["model"], SRK["B"], SRK["L"], SRK["C"], SRK["H"],
+     SRK["layers"]),
+    ("bench (4,17)", BENCH["model"], BENCH["B"], BENCH["L"], BENCH["C"],
+     BENCH["H"], BENCH["layers"]))
+# the CDE pair's cases (label, field, shape): tools/bench_cde.py's uea_rk4
+# (FinalTanh, one inner layer), the sweep cell's FinalTanh and
+# SingleHiddenLayer, and the GRU-ODE field at gruode_rk4 on Brownian-like
+# controls (cde_kernel_inputs), in bf16 streams only: its operands stay
+# fp32 whatever is asked (fused_cde.py:691-697)
+PREC_CDE_CASES = (("uea_rk4 FinalTanh", "final_tanh", CDE["uea_rk4"]),
+                  ("sweep FinalTanh", "final_tanh", GRU_SHAPES["sweep"]),
+                  ("sweep SingleHiddenLayer", "single", GRU_SHAPES["sweep"]),
+                  ("gruode_rk4 GRU-ODE", "gruode",
+                   GRU_SHAPES["gruode_rk4"]))
+# members of the packed checks (the sweep's three seeds)
+PREC_K17 = 3
+# bench.py's configuration with srk: the first loss in bench.py's
+# precision within this of the fp32 run's, relative (the same weights and
+# batch: the mode's own effect before any update)
+PREC_FIRST_LOSS_SRK = 2e-4
+# the fp32 SRK and CDE kernels' checksums (fp32_checksums) with the
+# package as it was before their reduced precisions (H100 80GB HBM3)
+PARENT_SRK_CHECKSUM = ("c9b0f04b97d0a32fa18726aa72eae373bedeeb48d3e398a57fa1"
+                       "08d5930894f0")
+PARENT_CDE_CHECKSUM = ("efb68f14f3c9d6be5a39892a0492498c948925d756f67296d13b"
+                       "5595b23043d3")
+# the steps of the control's solve (check_reduced): few enough that the
+# reduced modes' rounding flips have not piled up
+CONTROL_STEPS = 2
+# check_reduced's relu flips: at most this share of the batch's rows may
+# be set aside, the SRK pair's where the kernel's recompute puts a relu on
+# the other side of 0 than the plain version's, the CDE pair's where a
+# pre-activation lies within FLIP_MARGIN of its evaluation's largest, by
+# operand mode (an operand's lo part flips with a 1-ulp difference and
+# moves it by ~2^-16 in bf16x3)
+FLIP_MARGIN = {"f32": 1e-6, "bf16x3": 3e-5, "bf16": 1e-3}
+FLIP_ROWS = 0.02
+# the noise_option of sqrt noise (elem_base: sqrt(y) for y > 0), whose
+# derivative is unbounded near y = 0: there the float64 rule holds the
+# rms alone
+SQRT_NOISE = 7
+# check_reduced's one-flip rows (_flip_rows): a row's candidates are its
+# FLIP_TRIES product operands nearest a bf16 rounding midpoint, each within
+# FLIP_ULPS fp32 ulps of it (the kernel's fp32 values part from the plain
+# version's by a few ulps: the order of the sums, contracted FMAs)
+FLIP_TRIES, FLIP_ULPS = 4, 16
+# a batch that leaves a partial block of the reduced kernels' R = 8 rows
+# (sde_reduced.cuh: RED_ROWS), with (3,15) (yy drift, net1 noise times y)
+# at the sweep's width and its (L, C): 5 steps on 4 channels, and phase
+# 3's 12 steps (MODE_SHAPE) on the sweep's 6 (at the sweep's 60 steps this
+# field's state grows to 64 and the float32 plain version is 0.27-0.62 of
+# it from float64, past F64_NO_DIGIT: no comparison keeps a digit there)
+PREC_PARTIAL_B = 37
+PREC_PARTIAL_SRK = ((5, 4), (MODE_SHAPE["L"], SWEEP["D"] + 1))
+# the streams each pair holds in bf16 with bf16 streams
+RED_STREAMS = {"srk": ("xh0", "xh1", "dw", "i10"), "cde": ("dx",)}
+
+
+def red_prec_args(key, fwd, flags, gys, matmul, stream):
+    """An SRK or CDE launch's inputs in a precision: its streams (and gys)
+    in bf16 with bf16 streams, the modes `stream` and `matmul` in the
+    flags."""
+    order = _kernel_modules()[key]._ARG_ORDER
+    bf = ((lambda t: None if t is None else t.to(torch.bfloat16))
+          if stream == "bf16" else (lambda t: t))
+    return ([bf(t) if n in RED_STREAMS[key] else t
+             for n, t in zip(order, fwd)],
+            dict(flags, stream=stream, matmul=matmul), bf(gys))
+
+
+@contextlib.contextmanager
+def nudged_operands(key):
+    """The plain versions of the SRK or CDE pair with the first operand of
+    every product (and, in the CDE pair, of every one-hot contraction) one
+    fp32 ulp up before its rounding or split: every place where the
+    kernel's sums, in another order, can part from the plain version's by
+    an ulp and flip a bf16 rounding (bf16x3's lo part moves ~128x a fp32
+    ulp when it flips) or a relu."""
+    from snsde_torch.kernels import _solver
+
+    mod = _kernel_modules()[key]
+    up = lambda x: torch.nextafter(x, torch.full_like(x, float("inf")))
+    real = _solver.mm_op, _solver.one_hot_op
+    mm = lambda x, w, matmul="f32": real[0](up(x), w, matmul)
+    oh = lambda v, matmul="f32": real[1](up(v), matmul)
+    kept = [(_solver, "mm_op", real[0]), (mod, "mm_op", mod.mm_op)]
+    if key == "cde":
+        kept.append((mod, "one_hot_op", mod.one_hot_op))
+    _solver.mm_op = mod.mm_op = mm
+    if key == "cde":
+        mod.one_hot_op = oh
+    try:
+        yield
+    finally:
+        for m, name, f in kept:
+            setattr(m, name, f)
+
+
+def _seq_mm(x, w, matmul="f32"):
+    """x @ w as the reduced kernels' red_prod forms it (sde_reduced.cuh):
+    each output one chain over k ascending, fma3's terms (xh wh, then
+    xh wl, then xl wh) each added with one rounding. The terms of the
+    reduced modes are products of bf16 values, exact in float32, so there
+    this is the kernel's sum bit for bit; in fp32 the product is exact in
+    float64 and the sum rounded from there (fmaf's one rounding, but for
+    a double rounding where the float64 sum itself rounds)."""
+    from snsde_torch.kernels._solver import bf16_round
+
+    acc = torch.zeros(x.shape[:-1] + w.shape[-1:], dtype=x.dtype,
+                      device=x.device)
+    if matmul == "f32":
+        for k in range(x.shape[-1]):
+            acc = (acc.double() + x[..., k:k + 1].double()
+                   * w[..., k:k + 1, :].double()).to(x.dtype)
+        return acc
+    xh, wh = bf16_round(x), bf16_round(w)
+    xl, wl = bf16_round(x - xh), bf16_round(w - wh)
+    for k in range(x.shape[-1]):
+        a, b = xh[..., k:k + 1], wh[..., k:k + 1, :]
+        acc = acc + a * b
+        if matmul == "bf16x3":
+            acc = acc + a * wl[..., k:k + 1, :]
+            acc = acc + xl[..., k:k + 1] * b
+    return acc
+
+
+@contextlib.contextmanager
+def kernel_order_sums(key):
+    """The plain versions of the SRK or CDE pair with every product summed
+    in the reduced kernels' order (_seq_mm): the same function in another
+    order of summation, which takes away the 1-ulp differences of the
+    sums through which a bf16 rounding or a relu flips between the kernel
+    and the plain version. What stays apart is the elementwise code
+    (nvcc contracts a * b + c to one FMA) and, in the CDE pair, the
+    one-hot contractions' sums over the channels."""
+    with _patched_mm(key, _seq_mm):
+        yield
+
+
+@contextlib.contextmanager
+def _patched_mm(key, mm):
+    """The plain versions of the SRK or CDE pair with `mm` as mm_op."""
+    from snsde_torch.kernels import _solver
+
+    mod = _kernel_modules()[key]
+    kept = [(_solver, "mm_op", _solver.mm_op), (mod, "mm_op", mod.mm_op)]
+    _solver.mm_op = mod.mm_op = mm
+    try:
+        yield
+    finally:
+        for m, name, f in kept:
+            setattr(m, name, f)
+
+
+def _parting(ys, p, dn):
+    """Where a trajectory `ys` parts from the plain version's `p` past
+    forward_bar's entries' bar: the rows, and for the first eight their
+    first step past it."""
+    d = (ys.float() - p).abs()
+    floor = max(TOL_YS * float(p.abs().max()), PREC_SPREAD * float(dn.max()))
+    past = d > PREC_ULP * p.abs() + floor            # [M, B, H]
+    rows = past.any(2).any(0).nonzero().flatten().tolist()
+    first = {r: int(past[:, r].any(1).nonzero()[0]) for r in rows[:8]}
+    return (f"{len(rows)} of {ys.shape[1]} rows past the entries' bar "
+            f"(row: its first step past it {first})")
+
+
+class _Bf16Flip:
+    """An mm_op for the plain versions in bf16 operands that records how
+    near each product's first operand lies to a bf16 rounding midpoint
+    (`near`: (distance in fp32 ulps, call, row, the operand's fp32 bits),
+    each product's nearest for each row in `rows`), or, given `flip` =
+    (row, bits), rounds every first operand of that row with those bits
+    to its other bf16 neighbour (a value the kernel computes an ulp away
+    feeds each product that takes it: the drift's and the noise net's of
+    one state)."""
+
+    def __init__(self, real, rows=(), flip=None):
+        self.real, self.rows, self.flip = real, list(rows), flip
+        self.calls, self.near = 0, []
+
+    def __call__(self, x, w, matmul="f32"):
+        from snsde_torch.kernels._solver import bf16_round
+
+        c, self.calls = self.calls, self.calls + 1
+        if matmul != "bf16" or x.dim() != 2:
+            return self.real(x, w, matmul)
+        bits = x.contiguous().view(torch.int32)
+        if self.flip is None:
+            if self.rows:
+                sub = bits[self.rows]
+                dist = ((sub & 0xFFFF) - 0x8000).abs()
+                for i, r in enumerate(self.rows):
+                    d, k = dist[i].min(0)
+                    self.near.append((int(d), c, r, int(sub[i, k])))
+            return self.real(x, w, matmul)
+        r, b = self.flip
+        xh = bf16_round(x).contiguous()
+        hit = bits[r] == b
+        if bool(hit.any()):
+            lo = bits[r] & ~0xFFFF
+            hb = xh.view(torch.int32)[r]
+            other = torch.where(hb == lo, lo + 0x10000, lo)
+            xh = xh.clone()
+            xh[r] = torch.where(hit, other.view(torch.float32), xh[r])
+        return xh @ bf16_round(w)
+
+
+def _flip_rows(key, fwd, flags, ys_k, p, dn):
+    """The rows where the kernel's trajectory in bf16 operands parts from
+    the plain version's past forward_bar's floor (with bf16 streams, past
+    one bf16 ulp of the entry more), each reproduced within that bar by
+    the plain version with one product operand of that row, among the
+    FLIP_TRIES of that row nearest a bf16 rounding midpoint (within
+    FLIP_ULPS fp32 ulps), rounded to its other bf16 neighbour: one bf16
+    flip. (the rows reproduced, the rows not, a reading)"""
+    from snsde_torch.kernels._solver import mm_op
+
+    fwd_p = kernel_fns(key)[1]
+    floor = max(TOL_YS * float(p.abs().max()), PREC_SPREAD * float(dn.max()))
+    ulp = PREC_ULP if flags["stream"] == "bf16" else 0.0
+    parts = lambda y, q: (y - q).abs() > ulp * q.abs() + floor
+    rows = parts(ys_k.float(), p).any(2).any(0).nonzero().flatten().tolist()
+    if flags["matmul"] != "bf16" or not rows:
+        return [], rows, ""
+    probe = _Bf16Flip(mm_op, rows)
+    with _patched_mm(key, probe):
+        fwd_p(*fwd, **flags)
+    done, left, notes = [], [], []
+    for r in rows:
+        tries = {}
+        for dist, c, rr, b in sorted(probe.near):
+            if rr == r and dist <= FLIP_ULPS and b not in tries:
+                tries[b] = (dist, c)
+        for b, (dist, c) in list(tries.items())[:FLIP_TRIES]:
+            with _patched_mm(key, _Bf16Flip(mm_op, flip=(r, b))):
+                pf = fwd_p(*fwd, **flags)[0].float()[:, r]
+            e = (ys_k.float()[:, r] - pf).abs()
+            if not bool(parts(ys_k.float()[:, r], pf).any()):
+                done.append(r)
+                notes.append(f"row {r}: the operand of product {c} "
+                             f"{dist} fp32 ulps from a bf16 midpoint, then "
+                             f"{float(e.max()):.2e} from the kernel")
+                break
+        else:
+            left.append(r)
+    return done, left, "; ".join(notes)
+
+
+def _f64_holds(flags, name, k, p, ref):
+    """The float64 rule (_red_f64_rule) on an output: its rms and its
+    largest entry, the largest entry not held only with sqrt noise
+    (noise_option SQRT_NOISE), where a flip near y = 0 moves an entry by
+    its full size. (holds, reading)"""
+    rms_ok, max_ok, reading = _red_f64_rule(name, k, p, ref)
+    if not max_ok and flags.get("elem") == SQRT_NOISE:
+        reading += " (largest entry not held: sqrt noise)"
+        max_ok = True
+    return rms_ok and max_ok, reading
+
+
+def _prefix(key, fwd, gys, steps):
+    """An SRK or CDE launch's inputs cut to its first `steps` steps."""
+    order = _kernel_modules()[key]._ARG_ORDER
+    stepped = {"srk": ("xh0", "xh1", "dw", "i10", "a0", "a1", "gk0", "gk1",
+                       "gk2", "dts"), "cde": ("dx", "dts")}[key]
+    return ([t[:steps].contiguous() if n in stepped and t is not None else t
+             for n, t in zip(order, fwd)], gys[:steps].contiguous())
+
+
+def _red_f64_rule(name, k, p, ref):
+    """The float64 rule for a reduced precision's output: the kernel's and
+    the float32 plain version's errors from the plain version run in
+    float64 in the same mode (its operands rounded or split from float64
+    values), over the largest entry. (the rms rule: the kernel's rms at
+    most F64_FACTOR times the plain version's plus F64_FLOOR; the largest
+    entry's: at most YS_F64_FACTOR times the plain version's, capped at
+    F64_NO_DIGIT; a printable reading)."""
+    (k_max, k_rms), (p_max, p_rms) = _errs64(k, ref), _errs64(p, ref)
+    return (k_rms <= F64_FACTOR * p_rms + F64_FLOOR,
+            k_max <= min(max(YS_F64_FACTOR * p_max, TOL_YS), F64_NO_DIGIT),
+            f"{name} from float64, largest/rms: kernel {k_max:.2e}/"
+            f"{k_rms:.2e}, float32 plain {p_max:.2e}/{p_rms:.2e}")
+
+
+def _flipped_rows(key, args, flags):
+    """The batch rows to set aside for a relu flip: those where the plain
+    backward's recompute has a pre-activation within FLIP_MARGIN of its
+    evaluation's scale from 0 (NearRelu), and in the SRK pair only those
+    of them where the kernel's recompute (its activation streams hs, and
+    net2's hidden rows) puts a relu on the other side of 0 than the plain
+    version's. (the rows, and the SRK rows with a relu on the other side
+    but no pre-activation near 0: a fault, not a flip)"""
+    near = NearRelu(margin=FLIP_MARGIN[flags["matmul"]])
+    if key == "cde":
+        kernel_fns(key)[3](*args, **flags, relu=near)
+        return sorted(near.rows()), []
+    from snsde_torch.kernels import fused_srk as fs
+
+    st_k = fs.fused_srk_backward_recurrence(*args, **flags)
+    st_p = fs.fused_srk_backward_recurrence_reference(*args, **flags,
+                                                      relu=near)
+    rows = set()
+    for name, axis in (("hs", 3), ("nh", 2)):
+        a, b = getattr(st_k, name), getattr(st_p, name)
+        if a is None:
+            continue
+        diff = ((a > 0) != (b > 0)).movedim(axis, 0).flatten(1).any(1)
+        rows.update(diff.nonzero().flatten().tolist())
+    close = set(near.rows())
+    return sorted(rows & close), sorted(rows - close)
+
+
+def _red_backward(key, label, args, flags):
+    """check_reduced's backward on `args`: each cotangent of the kernel
+    within PREC_TOL of its largest entry or PREC_SPREAD times the move of
+    the nudged plain run, against the plain version or against it with
+    its sums in the kernel's order, else by the float64 rule (_f64_holds).
+    (the outputs
+    failing both, the largest error, the output closest to its bar, the
+    float64 readings taken)."""
+    fwd_k, fwd_p, bwd_k, bwd_p = kernel_fns(key)
+    g_k = bwd_k(*args, **flags)
+    g_p = bwd_p(*args, **flags)
+    g_n = g_ko = g_64 = None
+    failed, err_b, worst, by64 = [], 0.0, "", []
+    for i, (name, a, b) in enumerate(zip(g_k._fields, g_k, g_p)):
+        if b is None or not b.numel() or not float(b.abs().max()):
+            continue
+        rel, tol = _rel(a, b), PREC_TOL
+        if rel > tol:       # the nudged run's spread, taken where needed
+            if g_n is None:
+                with nudged_operands(key):
+                    g_n = bwd_p(*args, **flags)
+            tol = max(tol, PREC_SPREAD * _rel(g_n[i], b))
+        err_b = max(err_b, float((a.float() - b.float()).abs().max()))
+        worst = max(worst, f"{rel / tol:.3f} {name} {rel:.2e}/{tol:.2e}")
+        if rel > tol:       # the plain version in the kernel's order
+            if g_ko is None:
+                with kernel_order_sums(key):
+                    g_ko = bwd_p(*args, **flags)
+            rel_ko = _rel(a, g_ko[i])
+            by64.append(f"{name} {rel_ko:.2e} from the plain version in "
+                        f"the kernel's order of sums")
+            if rel_ko <= tol:
+                continue
+            if g_64 is None:
+                g_64 = bwd_p(_dbl(args[0]), args[1], args[2],
+                             *(_dbl(t) for t in args[3:]), **flags)
+            ok, reading = _f64_holds(flags, name, a, b, g_64[i].double())
+            by64.append(reading)
+            if not ok:
+                failed.append(name)
+    torch.cuda.synchronize()
+    print(f"    backward max abs err {err_b:.3e} (closest to its tol: ratio, "
+          f"output, rel err / tol: {worst}"
+          + (f"; by the float64 rule: {'; '.join(by64)}" if by64 else "")
+          + ")", flush=True)
+    return failed, err_b, worst, by64
+
+
+def check_reduced(key, label, fwd, flags, gys, control=False):
+    """An SRK or CDE launch in a reduced precision against its plain
+    versions on the same inputs. Single-pass bf16 and bf16x3 flip a
+    rounding wherever two fp32 sums part by an ulp at a bf16 boundary, so
+    each output holds if either bar does: phase 16's (the trajectory by
+    forward_bar against the plain forward and the move of its run with
+    every product's first operand one ulp up, nudged_operands; a cotangent
+    within PREC_TOL of its largest entry or PREC_SPREAD times that run's
+    move), the same bar against the plain version with its sums in the
+    kernel's order (kernel_order_sums), or the float64 rule (_f64_holds:
+    the kernel no further from the mode's float64 arithmetic than the
+    float32 plain version, which flips too, in rms and in its largest
+    entry; with sqrt noise in rms alone). Where the forward parts, the
+    rows and the steps where it does are printed. With `control`, on the
+    first CONTROL_STEPS steps (before flips pile up) the kernel in
+    PREC_CONTROL's operand mode fails forward_bar.
+    The SRK weight-gradient kernel alone on the plain recurrence's streams
+    (no flips: the same operands) within PREC_TOL, each product's output
+    within a tenth of the gap to another operand mode. Returns the largest
+    errors of the forward, the backward and (SRK) the weight gradient."""
+    from snsde_torch.kernels import fused_srk as fs
+    from snsde_torch.kernels._solver import bf16_round
+
+    t0 = time.perf_counter()
+    B = gys.shape[1]
+    fwd_k, fwd_p, bwd_k, bwd_p = kernel_fns(key)
+    ys_k = fwd_k(*fwd, **flags)[0]
+    ys_p = fwd_p(*fwd, **flags)[0]
+    p = ys_p.float()
+    dn = torch.zeros_like(p)
+    err_f, rms_d, rms_bar, over = forward_bar(ys_k, p, dn)
+    if over > 0 or rms_d > rms_bar:     # the nudged run, where needed
+        with nudged_operands(key):
+            dn = (fwd_p(*fwd, **flags)[0].float() - p).abs()
+        err_f, rms_d, rms_bar, over = forward_bar(ys_k, p, dn)
+    in64 = [_dbl(t) for t in fwd]
+    f64_ok, reading = True, "within the bar"
+    if over > 0 or rms_d > rms_bar:
+        # the same bar against the plain version with its sums in the
+        # kernel's order, else the float64 rule
+        with kernel_order_sums(key):
+            p_ko = fwd_p(*fwd, **flags)[0].float()
+        k_max, k_rms, k_bar, k_over = forward_bar(ys_k, p_ko, dn)
+        f64_ok = k_over <= 0 and k_rms <= k_bar
+        reading = (f"{_parting(ys_k, p, dn)}; against the plain version "
+                   f"with its sums in the kernel's order: max abs err "
+                   f"{k_max:.3e}, rms {k_rms:.3e} (bar {k_bar:.3e}; past "
+                   f"the entries' bar by {max(k_over, 0.0):.3e}), "
+                   f"{_parting(ys_k, p_ko, dn)}")
+        if not f64_ok:
+            # rows that one bf16 flip explains set aside, the rest held
+            done, left, notes = _flip_rows(key, fwd, flags, ys_k, p, dn)
+            if done and not left and len(done) <= max(1, FLIP_ROWS * B):
+                keep = [r for r in range(B) if r not in done]
+                k2, r2, bar2, over2 = forward_bar(ys_k[:, keep], p[:, keep],
+                                                  dn[:, keep])
+                f64_ok = over2 <= 0 and r2 <= bar2
+                reading += (f"; {len(done)} rows one bf16 flip reproduces "
+                            f"({notes}); the other {len(keep)} rows: max "
+                            f"abs err {k2:.3e}, rms {r2:.3e} (bar "
+                            f"{bar2:.3e})")
+            elif done or left:
+                reading += (f"; one bf16 flip reproduces rows {done} "
+                            f"({notes}), not rows {left[:8]}")
+        if not f64_ok:
+            ys_64 = fwd_p(*in64, **flags)[0].double()
+            f64_ok, by64 = _f64_holds(flags, "ys", ys_k, ys_p, ys_64)
+            reading += "; " + by64
+    print(f"  {label}: ys max abs err {err_f:.3e}, rms {rms_d:.3e} (bar "
+          f"{rms_bar:.3e}); the nudged plain version's {float(dn.max()):.3e}"
+          f", rms {_rms(dn):.3e} (past the entries' bar by "
+          f"{max(over, 0.0):.3e}); {reading}", flush=True)
+    if not f64_ok:
+        raise AssertionError(f"{label}: forward kernel off by more than one "
+                             f"bf16 ulp and the plain version's spread "
+                             f"({over:.3e}, rms {rms_d:.3e}, bar "
+                             f"{rms_bar:.3e}), in either order of the plain "
+                             f"version's sums, and than the float64 rule "
+                             f"allows ({reading})")
+    if control:
+        wrong = PREC_CONTROL[flags["matmul"]]
+        f2, g2 = _prefix(key, fwd, gys, CONTROL_STEPS)
+        p2 = fwd_p(*f2, **flags)[0].float()
+        with nudged_operands(key):
+            dn2 = (fwd_p(*f2, **flags)[0].float() - p2).abs()
+        ys_c = fwd_k(*f2, **dict(flags, matmul=wrong))[0]
+        c_max, c_rms, bar2, c_over = forward_bar(ys_c, p2, dn2)
+        print(f"    control: the kernel in {wrong} operands against this "
+              f"plain version over the first {CONTROL_STEPS} steps: max abs "
+              f"err {c_max:.3e}, rms {c_rms:.3e} ({c_rms / bar2:.2f}x the rms "
+              f"bar; past the entries' bar by {max(c_over, 0.0):.3e})",
+              flush=True)
+        if c_over <= 0 and c_rms <= bar2:
+            raise AssertionError(f"{label}: the forward's bar does not tell "
+                                 f"the kernel in {wrong} operands from this "
+                                 f"mode")
+    args = [fwd[0], ys_p, gys] + fwd[1:]
+    failed, err_b, worst, by64 = _red_backward(key, label, args, flags)
+    if failed:
+        # a relu of the recompute within the mode's rounding of 0 lands on
+        # either side in the two runs, and moves its row's cotangents (and
+        # every per-step sum over the rows) by their full size: the rows
+        # with such a relu set aside (_flipped_rows), the rest must hold
+        # every bar
+        aside, fault = _flipped_rows(key, args, flags)
+        print(f"    {failed} past their bars on the whole batch; {len(aside)} "
+              f"rows of {B} set aside (a pre-activation of the plain "
+              f"version within {FLIP_MARGIN[flags['matmul']]:g} of its scale "
+              f"from 0{', its relu flipped in the kernel' * (key == 'srk')}; "
+              f"the first {aside[:8]}); rows with a relu flipped far from 0: "
+              f"{fault[:8]}", flush=True)
+        if fault or not aside or len(aside) > FLIP_ROWS * B:
+            raise AssertionError(f"{label}: backward kernel disagrees on "
+                                 f"{failed}; {len(aside)} rows have a relu "
+                                 f"near 0 flipped, {len(fault)} one far "
+                                 f"from 0")
+        keep = torch.tensor([r for r in range(B) if r not in aside],
+                            dtype=torch.long, device=gys.device)
+        ins = dict(BATCH_AXES[key])
+        sub = [t.index_select(ins[i], keep).contiguous()
+               if i in ins and t is not None else t
+               for i, t in enumerate(fwd)]
+        args = [sub[0], ys_p.index_select(1, keep).contiguous(),
+                gys.index_select(1, keep).contiguous()] + sub[1:]
+        failed, err_b, worst, by64 = _red_backward(key, label, args, flags)
+        if failed:
+            raise AssertionError(f"{label}: backward kernel disagrees on "
+                                 f"{failed} on the rows without a relu near "
+                                 f"0")
+    err_w, split = 0.0, ""
+    if key == "srk":
+        st = fs.fused_srk_backward_recurrence_reference(*args, **flags)
+        y0 = (bf16_round(args[0]) if flags["stream"] == "bf16" else args[0])
+        modes = dict(drift=flags["drift"], noise=flags["noise"])
+        streams = (y0, args[1].float(), st.h01, st.dxh, st.hs, st.es, st.dz3,
+                   st.q, st.nst, st.dn, st.dz2, st.nh)
+        w_k = fs.fused_srk_weight_grads(y0, args[1], st, **modes,
+                                        matmul=flags["matmul"])
+        w_p = fs.fused_srk_weight_grads_reference(*streams, **modes,
+                                                  matmul=flags["matmul"])
+        others = [fs.fused_srk_weight_grads_reference(*streams, **modes,
+                                                      matmul=m)
+                  for m in {"f32": (), "bf16x3": ("bf16",),
+                            "bf16": ("f32", "bf16x3")}[flags["matmul"]]]
+        for i, (name, a, b) in enumerate(zip(w_k._fields, w_k, w_p)):
+            if b is None or not b.numel() or not float(b.abs().max()):
+                continue
+            err = float((a - b).abs().max())
+            err_w = max(err_w, err)
+            if _rel(a, b) > PREC_TOL:
+                raise AssertionError(f"{label}: weight-gradient kernel "
+                                     f"disagrees on {name}: "
+                                     f"{_rel(a, b):.3e}")
+            gap = min((float((o[i] - b).abs().max()) for o in others),
+                      default=0.0)
+            if gap > 0:
+                split = max(split, f"{err / gap:.3f} {name}")
+                if err > 0.1 * gap:
+                    raise AssertionError(
+                        f"{label}: the weight gradient's {name} is "
+                        f"{err:.3e} from the plain version's, not a tenth "
+                        f"of the gap to another operand mode ({gap:.3e})")
+    torch.cuda.synchronize()
+    if key == "srk":
+        print(f"    weight gradient alone {err_w:.3e} (largest share of the "
+              f"gap to another operand mode: {split or 'none'})", flush=True)
+    print(f"    ({time.perf_counter() - t0:.1f} s)", flush=True)
+    return err_f, err_b, err_w
+
+
+def fp32_checksums():
+    """sha256 of the fp32 SRK forward's trajectory and backward
+    recurrence's outputs at MuJoCo's shape, and of the fp32 CDE forward's
+    and backward's outputs at uea_rk4 (seed 0): the fp32 instances' bits,
+    to hold against PARENT_SRK_CHECKSUM and PARENT_CDE_CHECKSUM. Uses only
+    entries the package had before the reduced precisions."""
+    import hashlib
+
+    from snsde_torch.kernels import fused_cde as fc
+    from snsde_torch.kernels import fused_srk as fs
+
+    def digest(ts):
+        h = hashlib.sha256()
+        for t in ts:
+            if t is not None:
+                h.update(t.detach().contiguous().cpu().numpy().tobytes())
+        return h.hexdigest()
+
+    inp, gys = kernel_inputs(SRK["model"], SRK["B"], SRK["L"], SRK["C"],
+                             SRK["H"], SRK["layers"], srk=True)
+    fwd, flags = _split(inp, True)
+    ys, ns = fs.fused_srk_forward(*fwd, **flags)
+    st = fs.fused_srk_backward_recurrence(fwd[0], ys, gys, *fwd[1:], **flags,
+                                          ns=ns)
+    srk = digest((ys,) + tuple(st))
+    sh = CDE["uea_rk4"]
+    fwd, flags, gys = cde_kernel_inputs(sh["B"], sh["L"], sh["C"], sh["H"],
+                                        sh["n_inner"])
+    ys = fc.fused_cde_forward(*fwd, **flags)
+    g = fc.fused_cde_backward(fwd[0], ys, gys, *fwd[1:], **flags)
+    return srk, digest((ys,) + tuple(g))
+
+
+def phase17_cases():
+    """Phase 17 (a)'s checks, in order: (pair, label, combo, check_reduced's
+    arguments, control), every combination at PREC_SRK_CASES, at the
+    sweep's width for PREC_SWEEP_MODES and for (3,15) at PREC_PARTIAL_B
+    rows (PREC_PARTIAL_SRK), and at PREC_CDE_CASES and the sweep's FinalTanh at PREC_PARTIAL_B
+    rows (the GRU-ODE field's in fp32 operands only), the control at each
+    pair's first case."""
+    cases = [("srk", f"SRK {name}") + kernel_inputs(model, B, L, C, H,
+                                                    layers, srk=True)
+             for name, model, B, L, C, H, layers in PREC_SRK_CASES]
+    for io, no in PREC_SWEEP_MODES:
+        cases.append(("srk", f"SRK sweep ({io},{no})") + kernel_inputs(
+            mode_name(io, no), SWEEP["B"], SWEEP["L"], SWEEP["D"] + 1,
+            SWEEP["H"], 2, srk=True))
+    for L, C in PREC_PARTIAL_SRK:
+        cases.append(("srk", f"SRK (3,15) B={PREC_PARTIAL_B} L={L} C={C}")
+                     + kernel_inputs(mode_name(3, 15), PREC_PARTIAL_B, L, C,
+                                     SWEEP["H"], 2, srk=True))
+    sweep = GRU_SHAPES["sweep"]
+    for name, field, sh in PREC_CDE_CASES + (
+            (f"sweep FinalTanh B={PREC_PARTIAL_B}", "final_tanh",
+             dict(sweep, B=PREC_PARTIAL_B)),):
+        fwd, flags, gys = cde_kernel_inputs(sh["B"], sh["L"], sh["C"],
+                                            sh["H"], sh["n_inner"],
+                                            field=field)
+        cases.append(("cde", f"CDE {name}", (fwd, flags), gys))
+    out, first = [], {"srk": True, "cde": True}
+    for key, label, inp, gys in cases:
+        fwd, flags = _split(inp, True) if key == "srk" else inp
+        for combo in PREC_COMBOS:
+            if key == "cde" and flags["act"] == "gruode" and combo[0] != "f32":
+                continue
+            out.append((key, f"{label} {prec_label(*combo)}", combo,
+                        red_prec_args(key, fwd, flags, gys, *combo),
+                        first[key]))
+        first[key] = False
+    # the CDE pair's first, then the SRK pair's with fp32 operands last:
+    # only those (their weight gradient) and the checksum need fused_srk's
+    # library, which builds beside them
+    return sorted(out, key=lambda c: (c[0] == "srk", c[2][0] == "f32"))
+
+
+def phase17_kernel_checks():
+    """Phase 17 (a) and (b): every reduced precision of the SRK pair
+    (forward, recurrence, weight gradient) at PREC_SRK_CASES and of the
+    CDE pair at PREC_CDE_CASES against their plain versions (check_reduced,
+    in phase17_cases' order; the control at each pair's first case), the
+    packed launches of
+    PREC_K17 members (SRK (4,17) and (1,18) at the sweep's width, CDE
+    FinalTanh and GRU-ODE at the sweep cell) each bit for bit its solo
+    launch, member 0 against the plain versions; then the fp32 SRK and CDE
+    checksums against the parent's. Returns {(pair, combo): largest
+    errors}."""
+    t0 = time.perf_counter()
+    worst = {}
+    for key, label, combo, args, control in phase17_cases():
+        r = check_reduced(key, label, *args, control=control)
+        worst[(key, combo)] = [max(a, b) for a, b in
+                               zip(worst.get((key, combo), r), r)]
+    packed = [("srk", "neuralsde_4_17"), ("srk", "neuralsde_1_18"),
+              ("cde", "final_tanh"), ("cde", "gruode")]
+    for key, what in packed:
+        if key == "srk":
+            stacked, flags, gys, members = member_inputs(
+                "srk", what, SWEEP["B"], SWEEP["L"], SWEEP["D"] + 1,
+                SWEEP["H"], 1, PREC_K17)
+        else:
+            stacked, flags, gys, members = cde_member_inputs(
+                what, PREC_K17, **GRU_SHAPES["sweep"])
+        combos = ((("f32", "bf16"),) if what == "gruode"
+                  else PREC_COMBOS[:2])
+        for combo in combos:
+            label = (f"{key.upper()} {what} packed K={PREC_K17} "
+                     f"{prec_label(*combo)}")
+            out = _run(key, *red_prec_args(key, stacked, flags, gys, *combo))
+            solo = [_run(key, *red_prec_args(key, f, flags, g, *combo))
+                    for f, g in members]
+            _same_as_solo(label, key, out, solo)
+            r = check_reduced(key, f"{label} member 0",
+                              *red_prec_args(key, members[0][0], flags,
+                                             members[0][1], *combo))
+            worst[(key, combo)] = [max(a, b) for a, b in
+                                   zip(worst.get((key, combo), r), r)]
+            print(f"  {label}: every member bit for bit its solo launch",
+                  flush=True)
+    srk_sum, cde_sum = fp32_checksums()
+    print(f"phase 17: the fp32 SRK checksum at MuJoCo's shape {srk_sum} "
+          f"(the parent's {PARENT_SRK_CHECKSUM}); the fp32 CDE checksum at "
+          f"uea_rk4 {cde_sum} (the parent's {PARENT_CDE_CHECKSUM})",
+          flush=True)
+    if (PARENT_SRK_CHECKSUM, PARENT_CDE_CHECKSUM) != (srk_sum, cde_sum):
+        raise AssertionError("the fp32 SRK or CDE instances' outputs are "
+                             "not the parent's")
+    print(f"phase 17 (a), (b) in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return worst
+
+
+def _red_counts(key):
+    """The reduced kernels' launch counts of pair `key`, set to 0 by
+    zero_red_counts."""
+    return dict(_kernel_modules()[key].PRECISION_LAUNCHES)
+
+
+def zero_red_counts():
+    for key in ("srk", "cde"):
+        counts = _kernel_modules()[key].PRECISION_LAUNCHES
+        for k in counts:
+            counts[k] = 0
+
+
+def _launched(counts, combo, parts):
+    mm, st = combo
+    return {p: counts[f"{p} {mm} {st}"] for p in parts}
+
+
+def srk_bench_training_path():
+    """Phase 17 (c): bench.py's configuration with SNSDE_BENCH_METHOD=srk
+    (LNSDE (4,17), B=1024, 72 hourly times, C=35, H=HH=49, AdamW) trained
+    BENCH["steps"] steps in exact fp32, then in bench.py's precision (bf16
+    streams, bf16x3 operands) set through the environment: finite losses,
+    the loss falling, the first losses within PREC_FIRST_LOSS_SRK, the
+    reduced SRK kernels launched in the precision. Returns their
+    launches."""
+    t0 = time.perf_counter()
+    batch = bench_batch()
+    ref, _, ref_ms, _ = bench_training("f32", "f32", batch, method="srk")
+    combo = PREC_COMBOS[0]
+    zero_red_counts()
+    losses, counts, step_ms, prof = bench_training(*combo, batch,
+                                                   method="srk",
+                                                   profile=True)
+    got = _launched(counts, combo, ("fwd", "bwd", "wgrad"))
+    first = abs(losses[0] - ref[0]) / abs(ref[0])
+    print(f"main path 17 (c): bench.py's configuration with srk, exact fp32:"
+          f" losses {ref[0]:.6f} -> {ref[-1]:.6f}, step {ref_ms:.3f} ms; "
+          f"{prec_label(*combo)}: losses {losses[0]:.6f} -> "
+          f"{losses[-1]:.6f}, step {step_ms:.3f} ms, profiled "
+          f"{prof[0]:.3f} ms wall, device busy {prof[1]:.3f} ms "
+          f"({100 * prof[1] / prof[0]:.1f}%); first loss {first:.2e} from "
+          f"the fp32 run's (tol {PREC_FIRST_LOSS_SRK:g}); launches in the "
+          f"precision {got}; {time.perf_counter() - t0:.1f} s", flush=True)
+    for run, ls in (("fp32", ref), (prec_label(*combo), losses)):
+        if not (np.isfinite(ls).all() and ls[-1] < ls[0]):
+            raise AssertionError(f"bench.py configuration with srk in "
+                                 f"{run}: the loss did not fall: {ls}")
+    if not first <= PREC_FIRST_LOSS_SRK:
+        raise AssertionError(f"bench.py configuration with srk in "
+                             f"{prec_label(*combo)}: the first loss is "
+                             f"{first:.2e} from the fp32 run's")
+    if min(got.values()) < 1:
+        raise AssertionError(f"bench.py configuration with srk did not "
+                             f"launch the reduced SRK kernels: {counts}")
+    return got
+
+
+def cde_precision_training_path(steps=BENCH["steps"]):
+    """Phase 17 (c): the neuralcde classifier at uea_rk4's width (B=1024,
+    72 times, 5 channels + time, H=32, FinalTanh with one inner layer)
+    trained `steps` steps in bf16x3 operands and bf16 streams set through
+    the environment: finite losses, the reduced CDE kernels launched in
+    the precision. Returns their launches."""
+    from snsde_torch.harness.robustness import ISTSClassifier, ists_train_step
+
+    t0 = time.perf_counter()
+    combo = PREC_COMBOS[0]
+    batch = uea_rk4_batch()
+    sh = CDE["uea_rk4"]
+    with precision_env(*combo):
+        model = ISTSClassifier("neuralcde", sh["C"] - 1, sh["L"], sh["H"], 4,
+                               num_hidden_layers=sh["n_inner"] + 1,
+                               generator=torch.Generator().manual_seed(0))
+        model = model.to(DEV)
+        opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+        zero_red_counts()
+        losses = [float(ists_train_step(model, opt, batch))
+                  for _ in range(steps)]
+        torch.cuda.synchronize()
+        got = _launched(_red_counts("cde"), combo, ("fwd", "bwd"))
+    print(f"main path 17 (c): neuralcde at uea_rk4, {prec_label(*combo)}: "
+          f"{steps} steps, losses {losses[0]:.5f} -> {losses[-1]:.5f}, "
+          f"launches in the precision {got}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"neuralcde at uea_rk4 in {prec_label(*combo)}"
+                             f": a non-finite loss {losses}")
+    if min(got.values()) < 1:
+        raise AssertionError(f"neuralcde at uea_rk4 did not launch the "
+                             f"reduced CDE kernels: {got}")
+    return got
+
+
+def mujoco_precision_path():
+    """Phase 17 (c): run_mujoco (B=1024, C=14, H=32, srk) one epoch in
+    bench.py's precision set through the environment: finite MSEs, the
+    reduced SRK kernels launched. Returns their launches."""
+    from snsde_torch.harness.forecasting import run_mujoco
+
+    t0 = time.perf_counter()
+    combo = PREC_COMBOS[0]
+    with precision_env(*combo):
+        zero_red_counts()
+        res = run_mujoco(mujoco_config(), n=N_MUJOCO, max_epochs=1,
+                         device=DEV)
+        torch.cuda.synchronize()
+        got = _launched(_red_counts("srk"), combo, ("fwd", "bwd", "wgrad"))
+    mses = [h[s] for h in res["history"] for s in ("train", "val", "test")]
+    mses.append(res["test_mse"])
+    print(f"main path 17 (c): run_mujoco (srk) 1 epoch in "
+          f"{prec_label(*combo)}: MSEs {[round(v, 4) for v in mses]}, "
+          f"launches in the precision {got}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if not all(np.isfinite(mses)):
+        raise AssertionError(f"run_mujoco in {prec_label(*combo)}: a "
+                             f"non-finite MSE")
+    if min(got.values()) < 1:
+        raise AssertionError(f"run_mujoco in {prec_label(*combo)} did not "
+                             f"launch the reduced SRK kernels: {got}")
+    return got
+
+
+def _red_bound(nbytes, flops, matmul):
+    """The least time of a reduced launch: bytes over the memory rate, the
+    products' operations at the bf16 tensor-core peak (bf16x3 three
+    passes; fp32 operands at the fp32 peak)."""
+    passes, peak = {"bf16x3": (3, PEAK_BF16), "bf16": (1, PEAK_BF16),
+                    "f32": (1, PEAK_FP32)}[matmul]
+    t_b, t_f = nbytes / PEAK_BYTES * 1e3, passes * flops / peak * 1e3
+    return (max(t_b, t_f), "bytes" if t_b >= t_f else "operations")
+
+
+def _nbytes(ts):
+    return sum(t.numel() * t.element_size() for t in ts
+               if t is not None and torch.is_tensor(t))
+
+
+def phase17_times(reps=10):
+    """Each precision's ms a launch at each pair's main path's shape: the
+    SRK forward, recurrence and weight gradient at MuJoCo's (the fp32
+    instances' first), the CDE forward and backward at the sweep cell
+    (FinalTanh) and at uea_rk4; the plain versions' (timed_plain) at the
+    main shapes; the bounds from the inputs (_red_bound). {(pair, combo):
+    {part: ms}}, {(pair, combo): {part: bound}}."""
+    from snsde_torch.kernels import fused_srk as fs
+    from snsde_torch.kernels._solver import bf16_round
+
+    ms, bounds = {}, {}
+    inp, gys0 = kernel_inputs(SRK["model"], SRK["B"], SRK["L"], SRK["C"],
+                              SRK["H"], SRK["layers"], srk=True)
+    fwd0, flags0 = _split(inp, True)
+    for combo in (("f32", "f32"),) + PREC_COMBOS:
+        fwd, flags, g = red_prec_args("srk", fwd0, flags0, gys0, *combo)
+        ys, ns = fs.fused_srk_forward(*fwd, **flags)
+        args = [fwd[0], ys, g] + fwd[1:]
+        st = fs.fused_srk_backward_recurrence(*args, **flags, ns=ns)
+        y0 = bf16_round(fwd[0]) if combo[1] == "bf16" else fwd[0]
+        modes = dict(drift=flags["drift"], noise=flags["noise"])
+        t = {"fwd": timed(lambda: fs.fused_srk_forward(*fwd, **flags),
+                          reps=reps, warmup=2),
+             "bwd_recurrence": timed(
+                 lambda: fs.fused_srk_backward_recurrence(*args, **flags,
+                                                          ns=ns),
+                 reps=reps, warmup=2),
+             "wgrad": timed(lambda: fs.fused_srk_weight_grads(
+                 y0, ys, st, ns, **modes, matmul=combo[0]), reps=reps,
+                 warmup=2),
+             "fwd_plain": timed_plain(
+                 lambda: fs.fused_srk_forward_reference(*fwd, **flags)),
+             "bwd_plain": timed_plain(
+                 lambda: fs.fused_srk_backward_reference(*args, **flags,
+                                                         ns=ns)),
+             "wgrad_plain": timed_plain(
+                 lambda: fs.fused_srk_weight_grads_reference(
+                     y0, ys.float(), st.h01, st.dxh, st.hs, st.es, st.dz3,
+                     st.q, *(ns.nst if ns else st.nst, st.dn, st.dz2,
+                             ns.nh if ns else st.nh), **modes,
+                     matmul=combo[0]))}
+        t["bwd"] = t["bwd_recurrence"] + t["wgrad"]
+        M, B, H = ys.shape
+        flops = sde_products("srk", flags, M, B, H, H, SRK["layers"] - 1)
+        grads = fs.fused_srk_backward(*args, **flags, ns=ns)
+        n_in = _nbytes(fwd)
+        n_st = _nbytes([st.dxh, st.hs, st.es, st.dz3, st.q, st.h01])
+        bounds[("srk", combo)] = {
+            "fwd": _red_bound(n_in + _nbytes([ys]), flops, combo[0]),
+            "bwd": _red_bound(n_in + _nbytes([ys, g]) + _nbytes(grads),
+                              3 * flops, combo[0]),
+            "wgrad": _red_bound(_nbytes([fwd[0], ys]) + n_st, flops,
+                                combo[0])}
+        ms[("srk", combo)] = t
+        print(f"phase 17 times SRK {prec_label(*combo)} at MuJoCo's shape: "
+              + ", ".join(f"{k} {v:.4f} ms" for k, v in t.items())
+              + f"; bounds {bounds[('srk', combo)]}", flush=True)
+    from snsde_torch.kernels import fused_cde as fc
+
+    for sname, sh in (("sweep", GRU_SHAPES["sweep"]),
+                      ("uea_rk4", CDE["uea_rk4"])):
+        fwd0, flags0, gys0 = cde_kernel_inputs(sh["B"], sh["L"], sh["C"],
+                                               sh["H"], sh["n_inner"])
+        for combo in (("f32", "f32"),) + PREC_COMBOS:
+            fwd, flags, g = red_prec_args("cde", fwd0, flags0, gys0, *combo)
+            ys = fc.fused_cde_forward(*fwd, **flags)
+            args = [fwd[0], ys, g] + fwd[1:]
+            tag = ("cde", combo) if sname == "sweep" else (
+                "cde uea_rk4", combo)
+            t = {"fwd": timed(lambda: fc.fused_cde_forward(*fwd, **flags),
+                              reps=reps, warmup=2),
+                 "bwd": timed(lambda: fc.fused_cde_backward(*args, **flags),
+                              reps=reps, warmup=2)}
+            if sname == "sweep":
+                t["fwd_plain"] = timed_plain(
+                    lambda: fc.fused_cde_forward_reference(*fwd, **flags))
+                t["bwd_plain"] = timed_plain(
+                    lambda: fc.fused_cde_backward_reference(*args, **flags))
+            M, B, H = ys.shape
+            C, NI, ns_ = sh["C"], sh["n_inner"], 4
+            flops = 2 * M * ns_ * B * (H * H + NI * H * H + H * H * C
+                                       + H * C)
+            grads = fc.fused_cde_backward(*args, **flags)
+            n_in = _nbytes(fwd)
+            bounds[tag] = {
+                "fwd": _red_bound(n_in + _nbytes([ys]), flops, combo[0]),
+                "bwd": _red_bound(n_in + _nbytes([ys, g]) + _nbytes(grads),
+                                  3 * flops, combo[0])}
+            ms[tag] = t
+            print(f"phase 17 times CDE {prec_label(*combo)} at {sname}: "
+                  + ", ".join(f"{k} {v:.4f} ms" for k, v in t.items())
+                  + f"; bounds {bounds[tag]}", flush=True)
+    return ms, bounds
+
+
+def phase17_entries(launches, errs, ms, bounds):
+    """The kernels line's entries of the SRK and CDE pairs' reduced
+    precisions: one a kernel (csrc/fused_srk_red.cu, fused_cde_red.cu; the
+    precision its runtime arguments), its launches phase 17 (c)'s main-path
+    runs' in bench.py's precision, its ms and bounds at its main path's
+    shape in that precision, and every precision's ms beside the fp32
+    instances'."""
+    combo = PREC_COMBOS[0]
+    out = []
+    for key, part, name, line, src in (
+            ("srk", "fwd", "forward", 295, "fused_srk"),
+            ("srk", "bwd", "backward", 527, "fused_srk"),
+            ("srk", "wgrad", "weight_grads", 527, "fused_srk"),
+            ("cde", "fwd", "forward", 364, "fused_cde"),
+            ("cde", "bwd", "backward", 505, "fused_cde")):
+        i = {"fwd": 0, "bwd": 1, "wgrad": 2}[part]
+        out.append({
+            "name": f"{src}_{name}_reduced", "route": "cuda",
+            "source": f"snsde_torch/csrc/{src}_red.cu",
+            "replaces": f"snsde/kernels/{src}.py:{line}",
+            "launches": launches[key][part],
+            "max_abs_err": max(e[i] for (k, _), e in errs.items()
+                               if k == key),
+            "ms": ms[(key, combo)][part],
+            "plain_ms": ms[(key, combo)][f"{part}_plain"],
+            "bound_ms": bounds[(key, combo)][part][0],
+            "bound_by": bounds[(key, combo)][part][1], "library_ms": None,
+            "shape": "mujoco" if key == "srk" else "sweep",
+            "precision": {"matmul": combo[0], "stream": combo[1]},
+            "ms_by_precision": {f"{m} {s}": ms[(key, (m, s))][part]
+                                for m, s in (("f32", "f32"),) + PREC_COMBOS},
+            **({"ms_uea_rk4_by_precision": {
+                f"{m} {s}": ms[("cde uea_rk4", (m, s))][part]
+                for m, s in (("f32", "f32"),) + PREC_COMBOS}}
+               if key == "cde" else {})})
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     import snsde_torch  # noqa: F401  (fails outside the repository)
+    from snsde_torch.kernels import _build
 
     t_start = time.perf_counter()
     smi = card()
-    build()
-    print("kernels vs plain versions:", flush=True)
-    err = {"em": compare(MAIN["model"], MAIN["B"], MAIN["L"], MAIN["C"],
-                         MAIN["H"], MAIN["layers"])}
-    for name in ("neurallsde", "neuralgsde"):
-        compare(name, 128, MAIN["L"], MAIN["C"], MAIN["H"], MAIN["layers"])
-    err["srk"] = compare(SRK["model"], SRK["B"], SRK["L"], SRK["C"],
-                         SRK["H"], SRK["layers"], srk=True)
-    for name in ("neurallsde", "neuralgsde"):
-        compare(name, 128, SRK["L"], SRK["C"], SRK["H"], SRK["layers"],
-                srk=True)
-    compare(MAIN["model"], MAIN["B"], MAIN["L"], MAIN["C"], MAIN["H"],
-            MAIN["layers"], srk=True)
-    sde_plans("em", [(MAIN["B"], MAIN["H"], MAIN["layers"] - 1)])
-    sde_plans("srk", [(SRK["B"], SRK["H"], SRK["layers"] - 1)])
-    for key, sh in (("em", MAIN), ("srk", SRK)):
-        err[f"{key}_wgrad"] = compare_sde_wgrad(key, sh["model"], sh["B"],
-                                                sh["L"], sh["C"], sh["H"],
-                                                sh["layers"])
-        for H in WIDE_H:
-            compare_sde_wgrad(key, sh["model"], WIDE["B"], WIDE["L"],
-                              sh["C"], H, 2)
+    # every source's nvcc started at once, below this process's priority:
+    # the checks of the pairs whose libraries are built first run beside
+    # the build (each waits for its own library), the EM pair's last
+    _build.start(SOURCES)
+    try:
+        return _main(t_start, smi)
+    finally:
+        _build.stop()
+
+
+def _main(t_start, smi) -> int:
+    print("kernels vs plain versions (the CDE, GRU and LSTM pairs first, "
+          "beside the build):", flush=True)
     sweep_shape = dict(B=SWEEP["B"], L=SWEEP["L"], C=SWEEP["D"] + 1,
                        H=SWEEP["H"], n_inner=0)
-    err["cde"] = compare_cde(**sweep_shape)
+    err = {"cde": compare_cde(**sweep_shape)}
     for shape in CDE.values():
         compare_cde(**shape)
     sh = CDE["uea_rk4"]
@@ -7817,26 +8874,6 @@ def main() -> int:
     compare_cde(128, sh["L"], sh["C"], sh["H"], 0, field="single")
     for n_inner in (0, 2):
         compare_cde(128, sh["L"], sh["C"], sh["H"], n_inner)
-    compare_wide()
-    print("the SDE pairs' new modes vs their plain versions:", flush=True)
-    err.update(compare_modes())
-    print("the new paths' configurations at their own shapes:", flush=True)
-    err.update(compare_path_modes())
-    print("the EM pair at the speech shape, and the latent pair:", flush=True)
-    sp = SPEECH
-    err["em_speech"] = compare(sp["model"], sp["B"], sp["L"], sp["C"],
-                               sp["H"], sp["layers"])
-    err["em_latent"] = tuple(max(a, b) for a, b in zip(
-        compare_latent(**LATENT), compare_latent(**LATENT_WIDE)))
-    err["em_latent_wgrad"] = max(compare_latent_wgrad(**LATENT),
-                                 compare_latent_wgrad(**LATENT_WIDE))
-    print("the member axis (K members a launch) against the solo launches "
-          "and the plain versions:", flush=True)
-    for case in MEMBER_CASES:
-        e = compare_members(*case)
-        key = f"{case[0]}_packed"
-        err[key] = tuple(max(a, b) for a, b in zip(err.get(key, (0, 0)), e))
-    whole_model_check()
     rs = RNN_SWEEP
     err["gru"] = compare_rnn("gru", **rs)
     compare_rnn("gru", **rs, dec=True)
@@ -7872,12 +8909,10 @@ def main() -> int:
     for shape in RNN_BENCH.values():
         compare_rnn_cudnn(**shape)
     print("phase 10: the GRU-ODE instances vs their plain versions, the CDE "
-          "pair's member axis and the packed latent solve vs the solo "
-          "launches:", flush=True)
+          "pair's member axis vs the solo launches:", flush=True)
     err["cde_gruode"] = compare_gruode()
     err["cde_packed"] = tuple(max(a, b) for a, b in zip(
         compare_cde_members("final_tanh"), compare_cde_members("gruode")))
-    compare_latent_members()
     print("phase 11: the CDE pair on the linear streams vs its plain "
           "versions, and the solvers without a kernel on the card vs the "
           "CPU:", flush=True)
@@ -7890,6 +8925,64 @@ def main() -> int:
                                                         compare_zoo_cde()))
     check_ancde_gate_grad()
     err["gru_paths"] = compare_mtan_bigru()
+    print("phase 17: the SRK and CDE pairs' reduced precisions (bf16 "
+          "streams, bf16x3 and bf16 operands) vs their plain versions "
+          "(beside the SRK and EM builds):", flush=True)
+    t17 = time.perf_counter()
+    red_errs = phase17_kernel_checks()
+    t17 = time.perf_counter() - t17
+    print("the SRK pair:", flush=True)
+    err["srk"] = compare(SRK["model"], SRK["B"], SRK["L"], SRK["C"],
+                         SRK["H"], SRK["layers"], srk=True)
+    for name in ("neurallsde", "neuralgsde"):
+        compare(name, 128, SRK["L"], SRK["C"], SRK["H"], SRK["layers"],
+                srk=True)
+    compare(MAIN["model"], MAIN["B"], MAIN["L"], MAIN["C"], MAIN["H"],
+            MAIN["layers"], srk=True)
+    sde_plans("srk", [(SRK["B"], SRK["H"], SRK["layers"] - 1)])
+    err["srk_wgrad"] = compare_sde_wgrad("srk", SRK["model"], SRK["B"],
+                                         SRK["L"], SRK["C"], SRK["H"],
+                                         SRK["layers"])
+    for H in WIDE_H:
+        compare_sde_wgrad("srk", SRK["model"], WIDE["B"], WIDE["L"],
+                          SRK["C"], H, 2)
+    # every source built: each one's nvcc seconds and ptxas report
+    build()
+    print(f"chip_smoke: the build done and the CDE, GRU, LSTM and SRK pairs "
+          f"checked at {time.perf_counter() - t_start:.1f} s", flush=True)
+    print("the EM pair:", flush=True)
+    err["em"] = compare(MAIN["model"], MAIN["B"], MAIN["L"], MAIN["C"],
+                        MAIN["H"], MAIN["layers"])
+    for name in ("neurallsde", "neuralgsde"):
+        compare(name, 128, MAIN["L"], MAIN["C"], MAIN["H"], MAIN["layers"])
+    sde_plans("em", [(MAIN["B"], MAIN["H"], MAIN["layers"] - 1)])
+    err["em_wgrad"] = compare_sde_wgrad("em", MAIN["model"], MAIN["B"],
+                                        MAIN["L"], MAIN["C"], MAIN["H"],
+                                        MAIN["layers"])
+    for H in WIDE_H:
+        compare_sde_wgrad("em", MAIN["model"], WIDE["B"], WIDE["L"],
+                          MAIN["C"], H, 2)
+    compare_wide()
+    print("the SDE pairs' new modes vs their plain versions:", flush=True)
+    err.update(compare_modes())
+    print("the new paths' configurations at their own shapes:", flush=True)
+    err.update(compare_path_modes())
+    print("the EM pair at the speech shape, and the latent pair:", flush=True)
+    sp = SPEECH
+    err["em_speech"] = compare(sp["model"], sp["B"], sp["L"], sp["C"],
+                               sp["H"], sp["layers"])
+    err["em_latent"] = tuple(max(a, b) for a, b in zip(
+        compare_latent(**LATENT), compare_latent(**LATENT_WIDE)))
+    err["em_latent_wgrad"] = max(compare_latent_wgrad(**LATENT),
+                                 compare_latent_wgrad(**LATENT_WIDE))
+    print("the member axis (K members a launch) against the solo launches "
+          "and the plain versions, and the packed latent solve:", flush=True)
+    for case in MEMBER_CASES:
+        e = compare_members(*case)
+        key = f"{case[0]}_packed"
+        err[key] = tuple(max(a, b) for a, b in zip(err.get(key, (0, 0)), e))
+    compare_latent_members()
+    whole_model_check()
     print("phase 13: the EM pair at the interpolation encoder's shape and "
           "the GRU pair at the VAE decoders' and the activity encoder's "
           "BiGRU shapes vs their plain versions, the scatter on the card vs "
@@ -7946,6 +9039,11 @@ def main() -> int:
                          {PREC_COMBOS[0]: latent_precision_path()},
                          {PREC_COMBOS[0]: precision_sepsis_path()}]
         t16 += time.perf_counter() - t_phase
+        t_phase = time.perf_counter()
+        srk_b, srk_m = srk_bench_training_path(), mujoco_precision_path()
+        red_launches = {"srk": {k: srk_b[k] + srk_m[k] for k in srk_b},
+                        "cde": cde_precision_training_path()}
+        t17 += time.perf_counter() - t_phase
     launches["activity"] = activity_path()
     for method in SDE_METHODS:
         sde_method_mujoco_path(method)
@@ -8030,6 +9128,10 @@ def main() -> int:
     prec_ms, prec_bounds = precision_times()
     t16 += time.perf_counter() - t_phase
     print(f"phase 16 in {t16:.1f} s", flush=True)
+    t_phase = time.perf_counter()
+    red_ms, red_bounds = phase17_times()
+    t17 += time.perf_counter() - t_phase
+    print(f"phase 17 in {t17:.1f} s", flush=True)
     times14 = phase14_times()
     for label, (t14, _) in times14.items():
         for k, v in t14.items():
@@ -8274,6 +9376,7 @@ def main() -> int:
             "plain_ms_gruode": ms["cde_packed_gruode"][f"{part}_plain"],
             "bound_ms_gruode": bounds["cde_packed_gruode"][part][0]})
     kernels += phase16_entries(prec_launches, prec_errs, prec_ms, prec_bounds)
+    kernels += phase17_entries(red_launches, red_errs, red_ms, red_bounds)
     print(f"chip_smoke: the whole script in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
@@ -8311,6 +9414,8 @@ if __name__ == "__main__":
             *(sys.argv[2:3] or ["RESULTS_torch_activity_jax_init.json"]),
             init=os.path.join(os.path.dirname(os.path.abspath(__file__)),
                               "tests", "goldens", "activity_jax_init.npz")))
+    if sys.argv[1:2] == ["--activity-bisect"]:
+        sys.exit(activity_bisect(*map(int, sys.argv[2:4]), *sys.argv[4:5]))
     if sys.argv[1:2] == ["--activity-r5"]:
         sys.exit(activity_r5(*sys.argv[2:3], *map(int, sys.argv[3:4])))
     sys.exit(main())

@@ -19,7 +19,8 @@ import subprocess
 import time
 from typing import Dict, Iterable
 
-__all__ = ["build", "load", "BUILD_LOG", "CSRC", "BUILD_DIR"]
+__all__ = ["build", "start", "stop", "load", "BUILD_LOG", "CSRC",
+           "BUILD_DIR"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -33,8 +34,15 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "-split-compile=0", "-Xptxas", "-split-compile=0"]
 
-# name -> nvcc's output (ptxas register/shared-memory report) and seconds
+# the niceness of every nvcc process: a caller that goes on working while
+# they run keeps its core
+BUILD_NICE = 10
+# name -> nvcc's output (ptxas register/shared-memory report) and its own
+# seconds from its start
 BUILD_LOG: Dict[str, dict] = {}
+# name -> a started nvcc process (proc, its log file, tmp output, library,
+# start time) that build() has not waited for yet
+_RUNNING: Dict[str, tuple] = {}
 
 
 def _nvcc() -> str:
@@ -61,33 +69,65 @@ def _target(name: str, csrc: str = CSRC) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}.so")
 
 
-def build(names: Iterable[str]) -> None:
-    """Compile every named source that has no up-to-date library, all
-    nvcc processes started together. Raises with nvcc's output on a
-    failed build."""
+def start(names: Iterable[str]) -> None:
+    """Start nvcc, all processes together and at niceness BUILD_NICE, for
+    every named source that has no up-to-date library and is not being
+    built already; return at once. build() (load() for one source) waits
+    for them."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    procs = {}
-    t0 = time.perf_counter()
     for name in names:
         out = _target(name)
-        if os.path.exists(out):
+        if os.path.exists(out) or name in _RUNNING:
             continue
         tmp = f"{out}.{os.getpid()}.tmp"
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
                os.path.join(CSRC, f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, out)
+        log = open(f"{tmp}.log", "w+")
+        proc = subprocess.Popen(
+            cmd, stdout=log, stderr=subprocess.STDOUT, text=True,
+            preexec_fn=lambda: os.nice(BUILD_NICE))
+        _RUNNING[name] = (proc, log, tmp, out, time.perf_counter())
+
+
+def build(names: Iterable[str]) -> None:
+    """Compile every named source that has no up-to-date library (start's
+    processes, and any started before), each one's seconds from its start
+    to its own end in BUILD_LOG. Raises with nvcc's output on a failed
+    build."""
+    names = list(names)
+    start(names)
     failed = []
-    for name, (proc, tmp, out) in procs.items():
-        log, _ = proc.communicate()
-        BUILD_LOG[name] = {"seconds": time.perf_counter() - t0, "log": log}
-        if proc.returncode != 0:
-            failed.append(f"nvcc failed for {name}.cu:\n{log}")
-        else:
-            os.replace(tmp, out)       # atomic: a reader never sees half
+    while any(n in _RUNNING for n in names):
+        for name in [n for n in names if n in _RUNNING
+                     and _RUNNING[n][0].poll() is not None]:
+            proc, log, tmp, out, t0 = _RUNNING.pop(name)
+            with log:
+                log.seek(0)
+                text = log.read()
+            os.remove(log.name)
+            BUILD_LOG[name] = {"seconds": time.perf_counter() - t0,
+                               "log": text}
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed for {name}.cu:\n{text}")
+            else:
+                os.replace(tmp, out)   # atomic: a reader never sees half
+        if any(n in _RUNNING for n in names):
+            time.sleep(0.1)
     if failed:
         raise RuntimeError("\n".join(failed))
+
+
+def stop() -> None:
+    """End every started nvcc process that build() has not waited for
+    (a caller that fails before its build ends leaves none running)."""
+    while _RUNNING:
+        proc, log, tmp, _, _ = _RUNNING.popitem()[1]
+        proc.kill()
+        proc.wait()
+        log.close()
+        for path in (tmp, log.name):
+            if os.path.exists(path):
+                os.remove(path)
 
 
 def load(name: str) -> ctypes.CDLL:

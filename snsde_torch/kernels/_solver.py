@@ -43,7 +43,9 @@ __all__ = ["PRECOMP_NO", "ELEM_NO", "MULT_Y_NO", "DRIFT_BY_IO",
            "member_count", "member_shapes", "member_args",
            "stack_members", "select_member", "per_member",
            "split_weight_grads", "MATMUL_CODE", "resolve_precision",
-           "unported", "require_fp32", "bf16_round", "mm_op", "one_hot_op"]
+           "unported", "require_fp32", "bf16_round", "mm_op", "one_hot_op",
+           "precision_ints", "widen", "widen_output", "precision_counts",
+           "count_precision"]
 
 PRECOMP_NO = {0, 1, 2, 3, 4, 5, 6, 11, 12, 13, 16, 17}
 ELEM_NO = {7, 8, 9, 10}
@@ -624,23 +626,60 @@ def resolve_precision(stream_dtype=None, matmul=None):
     return stream_dtype, matmul
 
 
+def precision_ints(label: str, stream: str, matmul: str) -> tuple:
+    """A launch's ints of its precision: (operand mode, stream flag: 1 for
+    bf16 streams); ValueError on an unknown one."""
+    if stream not in ("f32", "bf16") or matmul not in MATMUL_CODE:
+        raise ValueError(f"{label}: no precision (stream {stream!r}, "
+                         f"matmul {matmul!r})")
+    return MATMUL_CODE[matmul], int(stream == "bf16")
+
+
+def widen(t, like):
+    """A stream (bf16 when the stream dtype is) in like's dtype."""
+    return None if t is None else t.to(like.dtype)
+
+
+def widen_output(y0: torch.Tensor, ys: torch.Tensor) -> torch.Tensor:
+    """[y0, ys] in y0's dtype: with bf16 streams y0 rounded as the
+    trajectory is (snsde/kernels/fused_em.py:1338, fused_srk.py:841,
+    fused_cde.py:753)."""
+    return torch.cat([y0[None].to(ys.dtype), ys], dim=0).to(y0.dtype)
+
+
+def precision_counts(kernels) -> dict:
+    """A launch count for each of `kernels` in each reduced precision,
+    keyed "<kernel> <operand mode> <stream dtype>"."""
+    return {f"{k} {m} {st}": 0 for k in kernels for m in MATMUL_CODE
+            for st in ("f32", "bf16") if (m, st) != ("f32", "f32")}
+
+
+def count_precision(counts: dict, kernel: str, stream: str,
+                    matmul: str) -> None:
+    """One more launch of `kernel` in a reduced precision (none counted in
+    exact fp32)."""
+    key = f"{kernel} {matmul} {stream}"
+    if key in counts:
+        counts[key] += 1
+
+
 def unported(what: str, item: str):
     raise NotImplementedError(
         f"{what} is not ported to the CUDA kernels yet (ROADMAP Queue 2 "
         f"{item})")
 
 
-def require_fp32(label: str, item: str, stream_dtype=None, matmul=None, *,
-                 operands: bool = True) -> None:
-    """For the kernel pairs without reduced-precision modes yet: raise
-    NotImplementedError naming the ROADMAP item where the caller or the
-    environment (resolve_precision) asks for bf16 streams, or, with
-    `operands`, bf16 or bf16x3 operands; never compute fp32 in their
+def require_fp32(label: str, item: str, stream_dtype=None,
+                 matmul=None) -> None:
+    """For the kernel pairs without reduced-precision modes yet (the GRU
+    and LSTM recurrences): raise NotImplementedError naming the ROADMAP
+    item where the caller or the environment (resolve_precision) asks for
+    bf16 streams or bf16 / bf16x3 operands; never compute fp32 in their
     place."""
     sd, mm = resolve_precision(stream_dtype, matmul)
     if sd != torch.float32:
         unported(f"{label} with bf16 streams", item)
-    if operands and mm != "f32":
+    if mm != "f32":
         unported(f"{label} with {mm} operands", item)
 
 

@@ -27,8 +27,18 @@ has a leading K axis (z0 [K, B, H], ...): each member on its own weights,
 initial state and control stream, and member k bit for bit its solo
 launch under one plan (kernels/multi.py's `fused_cde_solve_packed`).
 
+The JAX kernels' reduced precisions (K5) are kernels of their own
+(csrc/fused_cde_red.cu), so the fp32 instances compile as they did: bf16
+streams (dx, ys, gys, and ddx handed back, in bf16; the carry fp32 and only
+the trajectory rounded, `fused_cde.py:343`; the backward from the rounded
+state, z0 rounded too, `:464`) and bf16x3 or bf16 operands of the MLP
+fields' in-kernel products and one-hot contractions (`_field`,
+`_field_bwd`); the GRU-ODE field's operands stay exact fp32 (`:691-697`).
+The entries take `stream_dtype=` and `matmul=`, None resolving from
+SNSDE_FUSED_STREAM and SNSDE_FUSED_MATMUL as the JAX entry does.
+
 What bounds the kernels on the H100, and the design, are described in the
-CUDA source. Each kernel has a plain PyTorch version beside it with the
+CUDA sources. Each kernel has a plain PyTorch version beside it with the
 same inputs and outputs. `fused_cde_forward`/`fused_cde_backward` take the
 plain versions only for tensors on the CPU; for CUDA tensors they launch
 the kernel or raise.
@@ -43,8 +53,10 @@ import numpy as np
 import torch
 
 from ..ops.solve import make_grid
-from ._solver import (SolverLib, check_tensors, member_count, member_shapes,
-                      per_member, require_fp32)
+from ._solver import (SolverLib, bf16_round, check_tensors, count_precision,
+                      member_count, member_shapes, mm_op, one_hot_op,
+                      per_member, precision_counts, precision_ints,
+                      resolve_precision, widen, widen_output)
 
 __all__ = ["fused_cde_solve", "fused_cde_inputs", "supports_fused_cde",
            "FusedCDE", "fused_cde_forward", "fused_cde_backward",
@@ -161,11 +173,15 @@ def _act_d(act, h):
     return (h > 0).to(h.dtype) if act == "relu" else 1.0 - h * h
 
 
-def _field(y, d, w: _Weights):
+def _field(y, d, w: _Weights, matmul: str = "f32"):
     """One field evaluation at stage state y [B, H] against the stage's
     control derivative d [B, C]: (k [B, H], what the backward reads (the
     hidden activations, or the gates r, u, zh and tanh(r zh)), O
-    [B, H*C])."""
+    [B, H*C]). The MLP's products take operand mode `matmul`, and so do
+    the JAX kernel's two one-hot contractions (fused_cde.py:200-201): d
+    through E (each d_c rounded or split) and O Dx through S (each term
+    rounded or split before the sum over c); the GRU-ODE field's are
+    exact fp32 (its operands pinned, :691-697)."""
     B, H, C = y.shape[0], y.shape[1], d.shape[1]
     if w.act == "gruode":
         r = torch.sigmoid(y @ w.wg[0] + w.bg[0])
@@ -175,11 +191,13 @@ def _field(y, d, w: _Weights):
         o = (1.0 - u) * (g - y.repeat_interleave(C, dim=1))
         aux = (r, u, zh, g)
     else:
-        aux = [w.fn(y @ w.win + w.bin)]
+        aux = [w.fn(mm_op(y, w.win, matmul) + w.bin)]
         for l in range(w.w_inner.shape[0]):
-            aux.append(w.fn(aux[-1] @ w.w_inner[l] + w.b_inner[l]))
-        o = torch.tanh(aux[-1] @ w.wout + w.bout)
-    k = (o.reshape(B, H, C) * d[:, None, :]).sum(-1)
+            aux.append(w.fn(mm_op(aux[-1], w.w_inner[l], matmul)
+                            + w.b_inner[l]))
+        o = torch.tanh(mm_op(aux[-1], w.wout, matmul) + w.bout)
+    dr = one_hot_op(d, matmul)
+    k = one_hot_op(o.reshape(B, H, C) * dr[:, None, :], matmul).sum(-1)
     return k, aux, o
 
 
@@ -188,7 +206,7 @@ def _stage_rows(dx_u, NT):
     return dx_u.reshape(dx_u.shape[0], NT, -1).unbind(1)
 
 
-def _stage_states(z, h, ds, tidx, A, w):
+def _stage_states(z, h, ds, tidx, A, w, matmul="f32"):
     """Stage states and increments of one step from the state z."""
     states, ks = [], []
     for i in range(len(tidx)):
@@ -197,7 +215,7 @@ def _stage_states(z, h, ds, tidx, A, w):
             if aij:
                 y = y + (aij * h) * ks[j]
         states.append(y)
-        ks.append(_field(y, ds[tidx[i]], w)[0])
+        ks.append(_field(y, ds[tidx[i]], w, matmul)[0])
     return states, ks
 
 
@@ -210,39 +228,51 @@ def _weights(act, win, bin, w_inner, b_inner, wout, bout, wg, bg, relu):
 
 def fused_cde_forward_reference(z0, dx, dts, win, bin, w_inner, b_inner,
                                 wout, bout, wg=None, bg=None, *,
-                                method: str, act: str,
+                                method: str, act: str, stream: str = "f32",
+                                matmul: str = "f32",
                                 relu=torch.relu) -> torch.Tensor:
     """Eager explicit-RK loop: ys [M, B, H] (z after each step). Weights in
     [in, out] layout (the GRU-ODE field's gates wg [3, H, H*C], bg
     [3, H*C], the MLP's None); dx [M, B, NT*C]. With act "relu" every
     hidden activation is `relu` (a stand-in may probe the
-    pre-activations)."""
+    pre-activations). The MLP fields' products and one-hot contractions
+    take operand mode `matmul` (_field). With `stream` 'bf16' (the JAX
+    kernel's traj_bf16) dx arrives in bf16, the carry stays in z0's dtype
+    and only the written trajectory is rounded (fused_cde.py:343)."""
     _, A, btab = _TABLEAUS[method]
     _, tidx = _stage_times(method)
     NT = max(tidx) + 1
     w = _weights(act, win, bin, w_inner, b_inner, wout, bout, wg, bg, relu)
+    dx = widen(dx, z0)
     z = z0
     ys = []
     for u in range(dts.shape[0]):
         h = dts[u]
-        _, ks = _stage_states(z, h, _stage_rows(dx[u], NT), tidx, A, w)
+        _, ks = _stage_states(z, h, _stage_rows(dx[u], NT), tidx, A, w,
+                              matmul)
         for i, bi in enumerate(btab):
             if bi:
                 z = z + (bi * h) * ks[i]
         ys.append(z)
-    return torch.stack(ys)
+    ys = torch.stack(ys)
+    return ys.to(torch.bfloat16) if stream == "bf16" else ys
 
 
-def _field_bwd(y, aux, o, d, dk, w: _Weights, acc):
+def _field_bwd(y, aux, o, d, dk, w: _Weights, acc, matmul="f32"):
     """Back through one field evaluation given dk = dL/dk: adds the weight
     gradients into acc; returns (dy, the stage's control cotangent
     [B, C]). The GRU-ODE field's as the JAX kernel's (fused_cde.py:
-    223-248)."""
+    223-248). In operand mode `matmul` every product rounds or splits its
+    operands, and so do the one-hot contractions' transposes (:227-229,
+    :445): dk through S^T (each dk_h), the control's cotangent through
+    E^T (each term before the sum over h), and the forward's Dx is the
+    rounded or split d."""
     B, H, C = y.shape[0], y.shape[1], d.shape[1]
+    mm = lambda p, q: mm_op(p, q, matmul)
     oc = o.reshape(B, H, C)
-    dp = dk[:, :, None]
-    dd = (dp * oc).sum(1)
-    do = (dp * d[:, None, :]).reshape(B, H * C)
+    dp = one_hot_op(dk, matmul)[:, :, None]
+    dd = one_hot_op(dp * oc, matmul).sum(1)
+    do = (dp * one_hot_op(d, matmul)[:, None, :]).reshape(B, H * C)
     if w.act == "gruode":
         r, u, zh, g = aux
         dgg = do * (1.0 - u)
@@ -258,18 +288,18 @@ def _field_bwd(y, aux, o, d, dk, w: _Weights, acc):
         return dy - dgg.reshape(B, H, C).sum(-1), dd
     hs = aux
     dzout = do * (1.0 - o * o)
-    acc["wout"] += hs[-1].T @ dzout
+    acc["wout"] += mm(hs[-1].T, dzout)
     acc["bout"] += dzout.sum(0)
-    dh = dzout @ w.wout.T
+    dh = mm(dzout, w.wout.T)
     for l in range(w.w_inner.shape[0] - 1, -1, -1):
         dz = dh * _act_d(w.act, hs[l + 1])
-        acc["w_inner"][l] += hs[l].T @ dz
+        acc["w_inner"][l] += mm(hs[l].T, dz)
         acc["b_inner"][l] += dz.sum(0)
-        dh = dz @ w.w_inner[l].T
+        dh = mm(dz, w.w_inner[l].T)
     dz1 = dh * _act_d(w.act, hs[0])
-    acc["win"] += y.T @ dz1
+    acc["win"] += mm(y.T, dz1)
     acc["bin"] += dz1.sum(0)
-    return dz1 @ w.win.T, dd
+    return mm(dz1, w.win.T), dd
 
 
 _GRAD_NAMES = ("win", "bin", "w_inner", "b_inner", "wout", "bout", "wg", "bg")
@@ -277,13 +307,17 @@ _GRAD_NAMES = ("win", "bin", "w_inner", "b_inner", "wout", "bout", "wg", "bg")
 
 def fused_cde_backward_reference(z0, ys, gys, dx, dts, win, bin, w_inner,
                                  b_inner, wout, bout, wg=None, bg=None, *,
-                                 method: str, act: str,
+                                 method: str, act: str, stream: str = "f32",
+                                 matmul: str = "f32",
                                  relu=torch.relu) -> FusedCDEGrads:
     """Eager reverse loop mirroring the backward kernel (and the JAX
     `_bwd_kernel`): recompute the stage states from the state before the
     step, then reverse the tableau from the last stage to the first.
     `relu` as in the forward; its derivative is read from its output
-    (> 0)."""
+    (> 0). Operand mode `matmul` as the forward's (_field_bwd); with
+    `stream` 'bf16' the states are the rounded trajectory's (z0 rounded
+    too, fused_cde.py:464), gys and dx arrive in bf16 and ddx leaves in
+    bf16 (:486), every other cotangent in z0's dtype."""
     _, A, btab = _TABLEAUS[method]
     _, tidx = _stage_times(method)
     NT = max(tidx) + 1
@@ -291,6 +325,9 @@ def fused_cde_backward_reference(z0, ys, gys, dx, dts, win, bin, w_inner,
     acc = {n: None if t is None else torch.zeros_like(t)
            for n, t in zip(_GRAD_NAMES, (win, bin, w_inner, b_inner, wout,
                                          bout, wg, bg))}
+    ddx_dtype = dx.dtype
+    z0 = bf16_round(z0) if stream == "bf16" else z0
+    ys, gys, dx = widen(ys, z0), widen(gys, z0), widen(dx, z0)
     ddx = torch.empty_like(dx)
     gbar = torch.zeros_like(z0)
     for u in range(dts.shape[0] - 1, -1, -1):
@@ -298,21 +335,22 @@ def fused_cde_backward_reference(z0, ys, gys, dx, dts, win, bin, w_inner,
         z = z0 if u == 0 else ys[u - 1]
         h = dts[u]
         ds = _stage_rows(dx[u], NT)
-        states, _ = _stage_states(z, h, ds, tidx, A, w)
+        states, _ = _stage_states(z, h, ds, tidx, A, w, matmul)
         dks = [(bi * h) * gbar if bi else torch.zeros_like(gbar)
                for bi in btab]
         dd = [torch.zeros_like(d) for d in ds]
         for i in range(len(btab) - 1, -1, -1):
-            _, aux, o = _field(states[i], ds[tidx[i]], w)
+            _, aux, o = _field(states[i], ds[tidx[i]], w, matmul)
             dy, dd_i = _field_bwd(states[i], aux, o, ds[tidx[i]], dks[i], w,
-                                  acc)
+                                  acc, matmul)
             dd[tidx[i]] = dd[tidx[i]] + dd_i
             gbar = gbar + dy
             for j, aij in enumerate(A[i]):
                 if aij:
                     dks[j] = dks[j] + (aij * h) * dy
         ddx[u] = torch.cat(dd, dim=-1)
-    return FusedCDEGrads(gbar, ddx, *(acc[n] for n in _GRAD_NAMES))
+    return FusedCDEGrads(gbar, ddx.to(ddx_dtype),
+                         *(acc[n] for n in _GRAD_NAMES))
 
 
 # ---------------------------------------------------------------------------
@@ -326,6 +364,17 @@ _LIB = SolverLib("fused_cde", "fused CDE", 10, 15,
                  shape_names=("B", "H", "HH", "C", "n_inner", "method",
                               "act", "members"),
                  int_fns={"plan": 10, "force_placement": 1, "force_plan": 2})
+
+# the reduced precisions' library (csrc/fused_cde_red.cu): kernels of
+# their own, so that the fp32 instances above compile as they did; its
+# launches take the operand mode (MATMUL_CODE) and the stream flag (1: bf16
+# streams) after the members
+_RED = SolverLib("fused_cde_red", "fused CDE (reduced precision)", 10, 15,
+                 int_names=_LIB.int_names + ("matmul", "stream"),
+                 shape_names=_LIB.shape_names, int_fns={"plan": 10})
+# launches of the reduced precisions' kernels (solo or packed), keyed
+# "<kernel> <operand mode> <stream dtype>"
+PRECISION_LAUNCHES = precision_counts(("fwd", "bwd"))
 
 _PLAN_FIELDS = ("level", "rows", "cluster", "keep", "active_clusters",
                 "smem_bytes")
@@ -358,7 +407,7 @@ def force_cde_plan(cluster: int = 0, rows: int = 0) -> None:
 
 
 def _checked(z0, dx, dts, win, bin, w_inner, b_inner, wout, bout, wg, bg,
-             method, act, ys, gys):
+             method, act, ys, gys, stream="f32"):
     """check_kernel_inputs's checks; (dims, K: 0 for a solo launch)."""
     if method not in _METHOD_CODE or act not in _ACT_CODE:
         raise ValueError(f"fused CDE kernels take methods "
@@ -396,21 +445,23 @@ def _checked(z0, dx, dts, win, bin, w_inner, b_inner, wout, bout, wg, bg,
     got = {"z0": z0, "dx": dx, "dts": dts, "win": win, "bin": bin,
            "w_inner": w_inner, "b_inner": b_inner, "wout": wout,
            "bout": bout, "wg": wg, "bg": bg, "ys": ys, "gys": gys}
-    check_tensors("fused CDE", want, got, z0.device)
+    check_tensors("fused CDE", want, got, z0.device,
+                  bf16=("dx", "ys", "gys") if stream == "bf16" else ())
     return (M, B, H, HH, C, n_inner), K
 
 
 def check_kernel_inputs(z0, dx, dts, win, bin, w_inner, b_inner, wout, bout,
                         wg=None, bg=None, *, method: str, act: str, ys=None,
-                        gys=None):
+                        gys=None, stream: str = "f32"):
     """Raise ValueError on what the kernels do not take: an unknown method
     or field kind, the weights of another kind, a dtype other than
-    float32, tensors on different devices, a non-contiguous tensor, or a
+    float32 (bfloat16 for dx, ys and gys with `stream` 'bf16'), tensors on
+    different devices, a non-contiguous tensor, or a
     shape that disagrees with z0/win/w_inner/dts/dx (each but dts with a
     leading member axis in a packed launch). Returns (M, B, H, HH, C,
     n_inner) (HH = H, n_inner = 0 for the GRU-ODE field)."""
     return _checked(z0, dx, dts, win, bin, w_inner, b_inner, wout, bout, wg,
-                    bg, method, act, ys, gys)[0]
+                    bg, method, act, ys, gys, stream)[0]
 
 
 def _grad_shapes(H, HH, C, n_inner, act):
@@ -429,45 +480,55 @@ def _shape(dims, method, act, K):
             max(K, 1))
 
 
-def _empty(*shape, device):
-    return torch.empty(shape, dtype=torch.float32, device=device)
+def _empty(*shape, device, dtype=torch.float32):
+    return torch.empty(shape, dtype=dtype, device=device)
 
 
-def _launch_forward(dims, method, act, tensors, stream, K: int):
+def _launch_forward(dims, method, act, tensors, stream, K: int,
+                    prec=(0, 0)):
     """ys of K members (0: a solo launch, without the member axis) from the
     forward's tensors (z0, dx, dts, win, bin, w_inner, b_inner, wout, bout,
-    wg, bg; on any device: the library is called with their pointers)."""
+    wg, bg; on any device: the library is called with their pointers);
+    prec: the (operand mode, stream flag) of a reduced precision, launched
+    on its own kernels."""
     M, B, H = dims[:3]
     z0, dx, dts, win, bin, wi, bi, wout, bout, wg, bg = tensors
     gru = act == "gruode"
-    ys = _empty(*((K,) if K else ()), M, B, H, device=z0.device)
-    _LIB.launch("fwd", (z0, dx, dts, win, bin, wi, bi,
-                        wg if gru else wout, bg if gru else bout, ys),
-                dims + (_METHOD_CODE[method], _ACT_CODE[act], max(K, 1)),
-                stream)
+    ys = _empty(*((K,) if K else ()), M, B, H, device=z0.device,
+                dtype=torch.bfloat16 if prec[1] else torch.float32)
+    red = prec != (0, 0)
+    (_RED if red else _LIB).launch(
+        "fwd", (z0, dx, dts, win, bin, wi, bi, wg if gru else wout,
+                bg if gru else bout, ys),
+        dims + (_METHOD_CODE[method], _ACT_CODE[act], max(K, 1))
+        + (tuple(prec) if red else ()), stream)
     return ys
 
 
 def _launch_backward(dims, method, act, tensors, stream,
-                     K: int) -> FusedCDEGrads:
+                     K: int, prec=(0, 0)) -> FusedCDEGrads:
     """The backward's outputs from (z0, ys, gys, dx, dts, win, bin,
-    w_inner, b_inner, wout, bout, wg, bg), as _launch_forward: ddx, dz0 and
-    the weight gradients, which the library sums from its per-cluster
-    partials in a fixed order."""
+    w_inner, b_inner, wout, bout, wg, bg), as _launch_forward: ddx (in dx's
+    dtype), dz0 and the weight gradients, which the library sums from its
+    per-cluster partials in a fixed order. With bf16 streams z0 is the
+    rounded state, in bf16 as ys."""
     M, B, H, HH, C, n_inner = dims
     z0, ys, gys, dx, dts, win, bin, wi, bi, wout, bout, wg, bg = tensors
     gru, m, dev = act == "gruode", (K,) if K else (), z0.device
-    nb = -(-B // _LIB.rows(_shape(dims, method, act, K), backward=True))
+    red = prec != (0, 0)
+    lib = _RED if red else _LIB
+    nb = -(-B // lib.rows(_shape(dims, method, act, K), backward=True))
     shapes = _grad_shapes(H, HH, C, n_inner, act)
     sizes = [math.prod(s) for s in shapes.values()]
     part = _empty(max(K, 1), nb, sum(sizes), device=dev)
     w = _empty(*m, sum(sizes), device=dev)
-    ddx, dz0 = _empty(*dx.shape, device=dev), _empty(*z0.shape, device=dev)
-    _LIB.launch("bwd", (z0, ys, gys, dx, dts, win, bin, wi, bi,
-                        wg if gru else wout, bg if gru else bout, ddx, dz0,
-                        part, w),
-                dims + (_METHOD_CODE[method], _ACT_CODE[act], max(K, 1)),
-                stream)
+    ddx = _empty(*dx.shape, device=dev, dtype=dx.dtype)
+    dz0 = _empty(*z0.shape, device=dev)
+    lib.launch("bwd", (z0, ys, gys, dx, dts, win, bin, wi, bi,
+                       wg if gru else wout, bg if gru else bout, ddx, dz0,
+                       part, w),
+               dims + (_METHOD_CODE[method], _ACT_CODE[act], max(K, 1))
+               + (tuple(prec) if red else ()), stream)
     grads = {n: t.reshape(*m, *s) for (n, s), t in
              zip(shapes.items(), torch.split(w, sizes, dim=-1))}
     return FusedCDEGrads(dz0, ddx, *(grads.get(n) for n in _GRAD_NAMES))
@@ -484,47 +545,77 @@ def _count(act, K, part):
     globals()[f"{key}_LAUNCHES"] += 1
 
 
+def _precision(act: str, stream: str, matmul: str) -> tuple:
+    """A launch's precision ints (_solver.precision_ints); ValueError on
+    reduced operands of the GRU-ODE field, which are exact fp32 (the
+    entries pin them, fused_cde.py:691-697)."""
+    if act == "gruode" and matmul != "f32":
+        raise ValueError(f"fused CDE: the GRU-ODE field's operands are "
+                         f"exact fp32; got {matmul!r}")
+    return precision_ints("fused CDE", stream, matmul)
+
+
 def fused_cde_forward(z0, dx, dts, win, bin, w_inner, b_inner, wout, bout,
-                      wg=None, bg=None, *, method: str,
-                      act: str) -> torch.Tensor:
+                      wg=None, bg=None, *, method: str, act: str,
+                      stream: str = "f32",
+                      matmul: str = "f32") -> torch.Tensor:
     """ys [M, B, H] (with a leading member axis in a packed launch, z0
     [K, B, H]): the CUDA forward kernel for CUDA tensors, the plain version
-    for CPU tensors (member by member in a packed launch)."""
+    for CPU tensors (member by member in a packed launch). `matmul` is the
+    MLP fields' operand mode ('f32', 'bf16x3', 'bf16'; the GRU-ODE field's
+    is 'f32'); with `stream` 'bf16', dx comes and ys goes in bf16. A
+    reduced precision runs on kernels of its own."""
     args = (z0, dx, dts, win, bin, w_inner, b_inner, wout, bout, wg, bg)
+    prec = _precision(act, stream, matmul)
+    kw = dict(method=method, act=act, stream=stream, matmul=matmul)
     if z0.device.type == "cpu":
         K = member_count(z0)
         if K:
             return per_member(fused_cde_forward_reference, _FWD_NAMES, args,
-                              K, method=method, act=act)
-        return fused_cde_forward_reference(*args, method=method, act=act)
-    dims, K = _checked(*args, method, act, None, None)
-    stream = _LIB.stream(z0, _shape(dims, method, act, K), backward=False)
-    ys = _launch_forward(dims, method, act, args, stream, K)
-    _count(act, K, "FWD")
+                              K, **kw)
+        return fused_cde_forward_reference(*args, **kw)
+    dims, K = _checked(*args, method, act, None, None, stream)
+    red = prec != (0, 0)
+    stream_h = (_RED if red else _LIB).stream(
+        z0, _shape(dims, method, act, K), backward=False)
+    ys = _launch_forward(dims, method, act, args, stream_h, K, prec)
+    if red:
+        count_precision(PRECISION_LAUNCHES, "fwd", stream, matmul)
+    else:
+        _count(act, K, "FWD")
     return ys
 
 
 def fused_cde_backward(z0, ys, gys, dx, dts, win, bin, w_inner, b_inner,
                        wout, bout, wg=None, bg=None, *, method: str,
-                       act: str) -> FusedCDEGrads:
+                       act: str, stream: str = "f32",
+                       matmul: str = "f32") -> FusedCDEGrads:
     """Cotangents of the solve's inputs given gys = dL/dys: the CUDA
     backward kernel for CUDA tensors (its per-cluster partials summed in
     the library), the plain version for CPU tensors (member by member in a
-    packed launch)."""
+    packed launch). The precision as fused_cde_forward's; with bf16 streams
+    ys, gys and dx come and ddx goes in bf16, z0 float32 (the kernel reads
+    it rounded)."""
     args = (dx, dts, win, bin, w_inner, b_inner, wout, bout, wg, bg)
+    prec = _precision(act, stream, matmul)
+    kw = dict(method=method, act=act, stream=stream, matmul=matmul)
     if z0.device.type == "cpu":
         K = member_count(z0)
         if K:
             return per_member(fused_cde_backward_reference, _BWD_NAMES,
-                              (z0, ys, gys) + args, K, method=method,
-                              act=act)
-        return fused_cde_backward_reference(z0, ys, gys, *args,
-                                            method=method, act=act)
-    dims, K = _checked(z0, *args, method, act, ys, gys)
-    stream = _LIB.stream(z0, _shape(dims, method, act, K), backward=True)
-    grads = _launch_backward(dims, method, act, (z0, ys, gys) + args, stream,
-                             K)
-    _count(act, K, "BWD")
+                              (z0, ys, gys) + args, K, **kw)
+        return fused_cde_backward_reference(z0, ys, gys, *args, **kw)
+    dims, K = _checked(z0, *args, method, act, ys, gys, stream)
+    red = prec != (0, 0)
+    stream_h = (_RED if red else _LIB).stream(
+        z0, _shape(dims, method, act, K), backward=True)
+    z0k = z0.to(torch.bfloat16) if prec[1] else z0
+    grads = _launch_backward(dims, method, act, (z0k, ys, gys) + args,
+                             stream_h, K, prec)
+    if red:
+        count_precision(PRECISION_LAUNCHES, "bwd", stream, matmul)
+    else:
+        _count(act, K, "BWD")
     return grads
 
 
@@ -533,29 +624,33 @@ _ARG_ORDER = _FWD_NAMES
 
 class FusedCDE(torch.autograd.Function):
     """ys = explicit-RK CDE solve; backward by the backward kernel. Inputs
-    in _ARG_ORDER, then method and act: z0 [B,H], dx [M,B,NT*C], dts [M]
-    (not differentiated), win [H,HH], bin [HH], w_inner [n_inner,HH,HH],
-    b_inner [n_inner,HH], wout [HH,H*C], bout [H*C] (an MLP field; else
-    None), wg [3,H,H*C], bg [3,H*C] (the GRU-ODE field; else None); in a
-    packed solve of K members each but dts with a leading K axis, and ys
-    [K, M, B, H]."""
+    in _ARG_ORDER, then method and act, and optionally the precision (a
+    dict of `stream` and `matmul`, exact fp32 without it): z0 [B,H], dx
+    [M,B,NT*C], dts [M] (not differentiated), win [H,HH], bin [HH],
+    w_inner [n_inner,HH,HH], b_inner [n_inner,HH], wout [HH,H*C], bout
+    [H*C] (an MLP field; else None), wg [3,H,H*C], bg [3,H*C] (the GRU-ODE
+    field; else None); in a packed solve of K members each but dts with a
+    leading K axis, and ys [K, M, B, H]. With `stream` 'bf16', dx is bf16
+    and so is ys (and the cotangent autograd hands back)."""
 
     @staticmethod
     def forward(ctx, *args):
-        *tensors, method, act = args
-        ys = fused_cde_forward(*tensors, method=method, act=act)
+        prec = args[-1] if isinstance(args[-1], dict) else {}
+        *tensors, method, act = args[:len(args) - bool(prec)]
+        ys = fused_cde_forward(*tensors, method=method, act=act, **prec)
         ctx.save_for_backward(*tensors, ys)
-        ctx.flags = (method, act)
+        ctx.flags = (method, act, prec)
         return ys
 
     @staticmethod
     def backward(ctx, gys):
         z0, *rest, ys = ctx.saved_tensors
-        method, act = ctx.flags
+        method, act, prec = ctx.flags
         gr = fused_cde_backward(z0, ys, gys.contiguous(), *rest,
-                                method=method, act=act)
+                                method=method, act=act, **prec)
         return (gr.dz0, gr.ddx, None, gr.dwin, gr.dbin, gr.dw_inner,
-                gr.db_inner, gr.dwout, gr.dbout, gr.dwg, gr.dbg, None, None)
+                gr.db_inner, gr.dwout, gr.dbout, gr.dwg, gr.dbg, None,
+                None) + (None,) * bool(prec)
 
 
 # ---------------------------------------------------------------------------
@@ -608,25 +703,39 @@ def fused_cde_inputs(func, path, grid: np.ndarray, z0: torch.Tensor,
     return out
 
 
+def precision_inputs(inputs: dict, stream_dtype=None, matmul=None) -> dict:
+    """The kernels' inputs in a precision (resolve_precision: None from
+    SNSDE_FUSED_STREAM and SNSDE_FUSED_MATMUL, as fused_cde.py:650-655 and
+    :697-698 resolve them): the derivative stream dx in the stream dtype
+    (:710, :719-720) and `prec`, FusedCDE's precision ({'stream', 'matmul'};
+    the GRU-ODE field's operands exact fp32 whatever is asked, :691-697)."""
+    sd, mm = resolve_precision(stream_dtype, matmul)
+    out = dict(inputs, dx=inputs["dx"].to(sd))
+    out["prec"] = {"stream": "bf16" if sd == torch.bfloat16 else "f32",
+                   "matmul": "f32" if inputs["act"] == "gruode" else mm}
+    return out
+
+
 def fused_cde_solve(func, path, times, z0: torch.Tensor,
                     dt: Optional[float] = None,
                     method: str = "rk4",
-                    stream_dtype: Optional[torch.dtype] = None
-                    ) -> torch.Tensor:
+                    stream_dtype: Optional[torch.dtype] = None,
+                    matmul: Optional[str] = None) -> torch.Tensor:
     """Fused solve of dz = f(z) dX(t) on make_grid(times, dt); zs [T, B, H]
     on the output times (cdeint's layout). Matches cdeint(method=...) on the
     same grid up to float32 summation order; gradients reach the field's
-    weights, z0 and the control path's coefficients. Exact fp32 only: bf16
-    streams (`stream_dtype` or SNSDE_FUSED_STREAM), or bf16 / bf16x3
-    operands for the MLP fields (SNSDE_FUSED_MATMUL; the GRU-ODE field's
-    are exact fp32 whatever is asked, as JAX pins them,
-    fused_cde.py:691-697), raise NotImplementedError (ROADMAP Queue 2
-    K5)."""
+    weights, z0 and the control path's coefficients. `stream_dtype`
+    (torch.float32 or torch.bfloat16) holds the derivative, trajectory and
+    cotangent streams, `matmul` ('f32', 'bf16x3' or 'bf16') the MLP
+    fields' in-kernel products' operands, as in the JAX entry
+    (fused_cde.py:634-754; the GRU-ODE field's operands are exact fp32
+    whatever is asked, as JAX pins them, :691-697); None takes
+    SNSDE_FUSED_STREAM and SNSDE_FUSED_MATMUL, exact fp32 when unset. The
+    result is float32 (a bf16 trajectory widened, its first row the
+    rounded z0)."""
     grid, out_idx = make_grid(times, dt)
-    inp = fused_cde_inputs(func, path, grid, z0, method)
-    require_fp32("the fused CDE solve", "K5", stream_dtype,
-                 operands=inp["act"] != "gruode")
+    inp = precision_inputs(fused_cde_inputs(func, path, grid, z0, method),
+                           stream_dtype, matmul)
     ys = FusedCDE.apply(*(inp[k] for k in _ARG_ORDER), inp["method"],
-                        inp["act"])
-    full = torch.cat([z0[None], ys], dim=0)
-    return full[torch.as_tensor(out_idx, device=z0.device)]
+                        inp["act"], inp["prec"])
+    return widen_output(z0, ys)[torch.as_tensor(out_idx, device=z0.device)]

@@ -74,15 +74,16 @@ import torch
 
 from ..ops.brownian import brownian_increments
 from ..ops.solve import make_grid
-from ._solver import (MATMUL_CODE, SDE_INT_NAMES, SDE_SHAPE_NAMES, SdeModes,
-                      SolverLib, bf16_round, check_mode, check_supported,
-                      check_tensors, drift_input, drift_rows, drift_weights,
+from ._solver import (SDE_INT_NAMES, SDE_SHAPE_NAMES, SdeModes, SolverLib,
+                      bf16_round, check_mode, check_supported, check_tensors,
+                      count_precision, drift_input, drift_rows, drift_weights,
                       is_net, kernel_dims, member_count, member_shapes,
                       mm_op, mode_codes, noise_back, noise_base, noise_rows,
-                      noise_weights, one_hot_op, per_member,
-                      resolve_precision, sde_mode, sde_modes, select_member,
-                      split_weight_grads, stack_members, stage_times,
-                      supports_fused, wgrad_partial_sizes)
+                      noise_weights, one_hot_op, per_member, precision_counts,
+                      precision_ints, resolve_precision, sde_mode, sde_modes,
+                      select_member, split_weight_grads, stack_members,
+                      stage_times, supports_fused, wgrad_partial_sizes,
+                      widen, widen_output)
 
 __all__ = ["fused_em_solve", "fused_em_inputs", "supports_fused", "FusedEM",
            "fused_em_forward", "fused_em_backward",
@@ -227,10 +228,6 @@ def _latent_back(gbar, y, z3, dt, dw, lat, matmul="f32"):
             du * (th * isg), gbar * dw)
 
 
-def _widen(t, like):
-    """A stream (bf16 when the stream dtype is) in the compute dtype."""
-    return None if t is None else t.to(like.dtype)
-
 
 def fused_em_forward_reference(y0, xh, dw, a, gk, dts, theta, wy, w_inner,
                                b_inner, wout, bo, wn1=None, wn2=None,
@@ -252,7 +249,7 @@ def fused_em_forward_reference(y0, xh, dw, a, gk, dts, theta, wy, w_inner,
     those of the rounded state before each step, which the backward
     differentiates (:772-777)."""
     sth = torch.sigmoid(theta.reshape(()))
-    xh, dw = _widen(xh, y0), _widen(dw, y0)
+    xh, dw = widen(xh, y0), widen(dw, y0)
     rounded = stream == "bf16"
     y = y0
     ys, nbs, nhs = [], [], []
@@ -307,8 +304,8 @@ def _backward_states(y0, ys, gys, xh, dw, stream):
     step (y0 then ys; with bf16 streams y0 rounded as the trajectory is,
     :830-836), gys, xh and dw widened."""
     y0r = bf16_round(y0) if stream == "bf16" else y0
-    return (y0r, _widen(ys, y0), _widen(gys, y0), _widen(xh, y0),
-            _widen(dw, y0))
+    return (y0r, widen(ys, y0), widen(gys, y0), widen(xh, y0),
+            widen(dw, y0))
 
 
 def fused_em_backward_reference(y0, ys, gys, xh, dw, a, gk, dts, theta, wy,
@@ -559,12 +556,6 @@ _STREAM_AXES = {"hs": 1, "es": 1}
 _BF16_STREAMS = ("xh", "dw", "ys", "gys")
 
 
-def _precision(stream: str, matmul: str) -> tuple:
-    """The library's ints of the precision: (operand mode, stream flag)."""
-    if stream not in ("f32", "bf16") or matmul not in MATMUL_CODE:
-        raise ValueError(f"fused EM: no precision (stream {stream!r}, "
-                         f"matmul {matmul!r})")
-    return MATMUL_CODE[matmul], int(stream == "bf16")
 
 
 def fused_em_plan(B: int, H: int, HH: int, n_inner: int, backward: bool,
@@ -580,8 +571,8 @@ def fused_em_plan(B: int, H: int, HH: int, n_inner: int, backward: bool,
     codes = mode_codes(drift, noise)
     if latent:
         codes = sde_mode(False, False, drift, noise, 0, True).codes
-    shape = (B, H, HH, n_inner, *codes, members, _precision(stream, "f32")[1],
-             int(backward))
+    shape = (B, H, HH, n_inner, *codes, members,
+             precision_ints("fused EM", stream, "f32")[1], int(backward))
     return {name: _LIB.call("plan", *shape, i)
             for i, name in enumerate(_PLAN_FIELDS)}
 
@@ -725,7 +716,7 @@ def fused_em_forward(y0, xh, dw, a, gk, dts, theta, wy, w_inner, b_inner,
     bf16 (the nets' streams stay float32)."""
     global FWD_LAUNCHES, PACKED_FWD_LAUNCHES, LATENT_FWD_LAUNCHES
     modes = sde_mode(mult_y, geometric, drift, noise, elem, latent)
-    prec = _precision(stream, matmul)
+    prec = precision_ints("fused EM", stream, matmul)
     args = (y0, xh, dw, a, gk, dts, theta, wy, w_inner, b_inner, wout, bo,
             wn1, wn2, bn2, lat)
     if y0.device.type == "cpu":
@@ -748,7 +739,7 @@ def fused_em_forward(y0, xh, dw, a, gk, dts, theta, wy, w_inner, b_inner,
         LATENT_FWD_LAUNCHES += 1
     else:
         FWD_LAUNCHES += 1
-    _count_precision("fwd", prec)
+    count_precision(PRECISION_LAUNCHES, "fwd", stream, matmul)
     return out
 
 
@@ -769,7 +760,7 @@ def fused_em_backward_recurrence(y0, ys, gys, xh, dw, a, gk, dts, theta, wy,
     streams the kernel reads it rounded, as it reads ys)."""
     global BWD_LAUNCHES, PACKED_BWD_LAUNCHES, LATENT_BWD_LAUNCHES
     modes = sde_mode(mult_y, geometric, drift, noise, elem, latent)
-    prec = _precision(stream, matmul)
+    prec = precision_ints("fused EM", stream, matmul)
     args = (y0, ys, gys, xh, dw, a, gk, dts, theta, wy, w_inner, b_inner,
             wout, bo, wn1, wn2, bn2, lat)
     if y0.device.type == "cpu":
@@ -802,7 +793,7 @@ def fused_em_backward_recurrence(y0, ys, gys, xh, dw, a, gk, dts, theta, wy,
         LATENT_BWD_LAUNCHES += 1
     else:
         BWD_LAUNCHES += 1
-    _count_precision("bwd", prec)
+    count_precision(PRECISION_LAUNCHES, "bwd", stream, matmul)
     return st
 
 
@@ -820,7 +811,7 @@ def fused_em_weight_grads(y0, ys, st: EMStreams, nh=None, *,
     global WGRAD_LAUNCHES, PACKED_WGRAD_LAUNCHES
     # the weight gradient reads no flag but the modes (any elem option)
     modes = sde_mode(False, False, drift, noise, 7)
-    prec = _precision("f32", matmul)
+    prec = precision_ints("fused EM", "f32", matmul)
     stream_of = "bf16" if ys.dtype == torch.bfloat16 else "f32"
     K = member_count(y0)
     wide = lambda t: t.float() if t.dtype == torch.bfloat16 else t
@@ -857,7 +848,7 @@ def fused_em_weight_grads(y0, ys, st: EMStreams, nh=None, *,
         PACKED_WGRAD_LAUNCHES += 1
     else:
         WGRAD_LAUNCHES += 1
-    _count_precision("wgrad", _precision(stream_of, matmul))
+    count_precision(PRECISION_LAUNCHES, "wgrad", stream_of, matmul)
     return out
 
 
@@ -902,16 +893,7 @@ def fused_em_backward(y0, ys, gys, xh, dw, a, gk, dts, theta, wy, w_inner,
 # launches of each kernel ('fwd', 'bwd', 'wgrad') in each reduced
 # precision (operand mode, stream) since the count was last set to 0, keyed
 # '<kernel> <matmul> <stream>' (also counted in the counts above)
-PRECISION_LAUNCHES = {f"{k} {m} {st}": 0 for k in ("fwd", "bwd", "wgrad")
-                      for m in MATMUL_CODE for st in ("f32", "bf16")
-                      if (m, st) != ("f32", "f32")}
-
-
-def _count_precision(kernel: str, prec) -> None:
-    mm = {v: k for k, v in MATMUL_CODE.items()}[prec[0]]
-    key = f"{kernel} {mm} {'bf16' if prec[1] else 'f32'}"
-    if key in PRECISION_LAUNCHES:
-        PRECISION_LAUNCHES[key] += 1
+PRECISION_LAUNCHES = precision_counts(("fwd", "bwd", "wgrad"))
 
 
 _ARG_ORDER = _FWD_NAMES
@@ -999,11 +981,6 @@ def solve_modes(inputs: dict, latent: bool = False) -> dict:
     keys = _MODE_KEYS + _PRECISION_KEYS + (("latent",) if latent else ())
     return {k: inputs[k] for k in keys}
 
-
-def widen_output(y0: torch.Tensor, ys: torch.Tensor) -> torch.Tensor:
-    """[y0, ys] in y0's dtype: with bf16 streams y0 rounded as the
-    trajectory is (fused_em.py:1338)."""
-    return torch.cat([y0[None].to(ys.dtype), ys], dim=0).to(y0.dtype)
 
 
 def fused_em_solve(field, path, times, y0: torch.Tensor, *,

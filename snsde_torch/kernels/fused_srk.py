@@ -38,8 +38,19 @@ ahead; the backward runs only the dependent chain in its loop (f1, the
 diffusion stages in reverse, f0), rebuilding each step beside the previous
 step's chain, and writes the streams from which one weight-gradient kernel
 forms the weight, bias and per-step gradients after the loop. Exact fp32 on
-the CUDA cores; every partial summed here in a fixed order, so runs are
-reproducible.
+the CUDA cores by default; every partial summed here in a fixed order, so
+runs are reproducible.
+
+The JAX kernels' reduced precisions (K4) are kernels of their own
+(csrc/fused_srk_red.cu), so the fp32 instances above compile as they did:
+bf16 streams (xh0, xh1, dw, i10, ys, gys, and dxh0/dxh1 handed back, in
+bf16; the forward's carry and stage states fp32 and only the trajectory
+rounded, `fused_srk.py:230`; the backward recomputing each step, the noise
+nets too, from the rounded state, y0 rounded too, `:473`) and bf16x3 or
+bf16 operands of every in-kernel product (`fused_em.py:_dot`, the weight
+gradient's too), accumulating in fp32. The entries take `stream_dtype=` and
+`matmul=`, None resolving from SNSDE_FUSED_STREAM and SNSDE_FUSED_MATMUL as
+the JAX entry does (`_solver.resolve_precision`).
 
 Each kernel has a plain PyTorch version beside it with the same inputs and
 outputs. `fused_srk_forward`/`fused_srk_backward` take the plain versions
@@ -58,14 +69,15 @@ import torch
 from ..ops.brownian import brownian_increments, space_time_levy_area
 from ..ops.solve import make_grid
 from ._solver import (SDE_INT_NAMES, SDE_SHAPE_NAMES, SdeModes, SolverLib,
-                      check_mode, check_supported, check_tensors,
-                      drift_input, drift_rows, drift_weights, is_net,
-                      kernel_dims, member_count, member_shapes, mode_codes,
-                      noise_back, noise_base, noise_rows, noise_weights,
-                      require_fp32,
-                      per_member, sde_mode, sde_modes, select_member,
-                      split_weight_grads, stack_members,
-                      stage_times, supports_fused, wgrad_partial_sizes)
+                      bf16_round, check_mode, check_supported, check_tensors,
+                      count_precision, drift_input, drift_rows,
+                      drift_weights, is_net, kernel_dims, member_count,
+                      member_shapes, mm_op, mode_codes, noise_back,
+                      noise_base, noise_rows, noise_weights, per_member,
+                      precision_counts, precision_ints, resolve_precision,
+                      sde_mode, sde_modes, select_member, split_weight_grads,
+                      stack_members, stage_times, supports_fused,
+                      wgrad_partial_sizes, widen, widen_output)
 
 __all__ = ["fused_srk_solve", "fused_srk_inputs", "supports_fused_srk",
            "FusedSRK", "fused_srk_forward", "fused_srk_backward",
@@ -160,6 +172,11 @@ class SRKStreams(NamedTuple):
     q: torch.Tensor          # [3, M, B, H]: of the gk0, gk1, gk2 rows, by row
     dn: Optional[torch.Tensor] = None   # [4, M, B, H]: of a net's 1st layer
     dz2: Optional[torch.Tensor] = None  # [4, M, B, H]: of net2's 2nd layer
+    # a reduced precision's recomputed noise nets (else the forward's
+    # SRKNoise holds them): the states of stages 1-3 and net2's hidden
+    # activations
+    nst: Optional[torch.Tensor] = None  # [3, M, B, H]
+    nh: Optional[torch.Tensor] = None   # [4, M, B, H]
 
 
 class SRKWeightGrads(NamedTuple):
@@ -179,6 +196,20 @@ class SRKWeightGrads(NamedTuple):
 # ---------------------------------------------------------------------------
 # Plain PyTorch versions (the CPU path, and the kernels' yardstick on the card)
 # ---------------------------------------------------------------------------
+
+def _reduced(stream: str, matmul: str) -> bool:
+    """A reduced precision: bf16 streams or bf16 / bf16x3 operands."""
+    return stream == "bf16" or matmul != "f32"
+
+
+def _backward_states(y0, ys, gys, xh0, xh1, dw, i10, stream):
+    """What a reverse loop reads, in y0's dtype: the initial state (with
+    bf16 streams rounded as the trajectory is, fused_srk.py:473), ys,
+    gys and the streams widened."""
+    y0r = bf16_round(y0) if stream == "bf16" else y0
+    return (y0r,) + tuple(widen(t, y0) for t in (ys, gys, xh0, xh1, dw,
+                                                  i10))
+
 
 def _step_consts(dt):
     """sqrt(dt) and the guarded 1/dt, 1/sqrt(dt): a dt = 0 step is an
@@ -200,13 +231,13 @@ def _coeffs(dw, i10, dt, rdt, rsq):
 
 
 def _drift(y, u, xh, a, wy, w_inner, b_inner, wout, bo, geometric, relu,
-           drift):
-    """One drift MLP evaluation at step u: (f, hidden activations, z3
-    before the geometric factor)."""
-    hs = [relu(drift_input(y, u, xh, a, wy, drift))]
+           drift, matmul="f32"):
+    """One drift MLP evaluation at step u, its products in operand mode
+    `matmul`: (f, hidden activations, z3 before the geometric factor)."""
+    hs = [relu(drift_input(y, u, xh, a, wy, drift, matmul))]
     for l in range(w_inner.shape[0]):
-        hs.append(relu(hs[-1] @ w_inner[l] + b_inner[l]))
-    z3l = hs[-1] @ wout + bo
+        hs.append(relu(mm_op(hs[-1], w_inner[l], matmul) + b_inner[l]))
+    z3l = mm_op(hs[-1], wout, matmul) + bo
     return torch.tanh(z3l * torch.tanh(y) if geometric else z3l), hs, z3l
 
 
@@ -220,19 +251,20 @@ class _Stages(NamedTuple):
 
 
 def _stages(y, f0, rows, i10, sth, dt, sq, rdt, mult_y, noise, elem, nw,
-            relu, saved=None):
+            relu, saved=None, matmul="f32"):
     """The four diffusion stages (snsde/kernels/fused_srk.py:173-190):
     states, bases, net2's hidden activations, raw diffusions, bounded g's
     and H0_1. rows = the step's three rows (gk or an1; None for 'elem');
     stages 0-3 evaluate at rows (0, 1, 2, 1). `saved` (the nets: (stage
     states 1-3, bases, hidden activations) of the step from the forward)
-    replaces the recompute of the nets."""
+    replaces the recompute of the nets, whose products take operand mode
+    `matmul`."""
     st, bs, hn, graws, gs = [], [], [], [], []
 
     def ev(i, state):
         if saved is None:
             row = None if rows is None else rows[_STAGE_ROW[i]]
-            base, h = noise_base(state, row, noise, elem, *nw, relu)
+            base, h = noise_base(state, row, noise, elem, *nw, relu, matmul)
         else:
             state = y if i == 0 else saved[0][i - 1]
             base, h = saved[1][i], None if saved[2] is None else saved[2][i]
@@ -261,15 +293,23 @@ def fused_srk_forward_reference(y0, xh0, xh1, dw, i10, a0, a1, gk0, gk1, gk2,
                                 wn1=None, wn2=None, bn2=None, *,
                                 mult_y: bool, geometric: bool,
                                 drift: str = "embm", noise: str = "precomp",
-                                elem: int = 0, relu=torch.relu):
+                                elem: int = 0, stream: str = "f32",
+                                matmul: str = "f32", relu=torch.relu):
     """Eager SRIW1 loop over the field's drift and diffusion: ys [M, B, H]
     (y after each step), and in the nets' modes (ys, SRKNoise). Weights in
     [in, out] layout; theta [1]; the gk rows hold the an1 rows in the nets'
     modes. Every relu of the drift MLP and the noise net is `relu` (a
-    stand-in may probe the pre-activations)."""
+    stand-in may probe the pre-activations). Every product takes operand
+    mode `matmul` (mm_op). With `stream` 'bf16' (the JAX kernel's
+    traj_bf16), xh0, xh1, dw and i10 arrive in bf16, the carry and the
+    stage states stay in y0's dtype and only the written trajectory is
+    rounded (snsde/kernels/fused_srk.py:230). In a reduced precision the
+    backward recomputes the noise nets from the rounded state, as the JAX
+    kernel does, so no SRKNoise is kept (None)."""
     sth = torch.sigmoid(theta.reshape(()))
-    w = (wy, w_inner, b_inner, wout, bo, geometric, relu, drift)
+    w = (wy, w_inner, b_inner, wout, bo, geometric, relu, drift, matmul)
     nw = (wn1, wn2, bn2)
+    xh0, xh1, dw, i10 = (widen(t, y0) for t in (xh0, xh1, dw, i10))
     y = y0
     ys, nst, nb, nh = [], [], [], []
     for u in range(dts.shape[0]):
@@ -277,7 +317,7 @@ def fused_srk_forward_reference(y0, xh0, xh1, dw, i10, a0, a1, gk0, gk1, gk2,
         sq, rdt, rsq = _step_consts(dt)
         f0 = _drift(y, u, xh0, a0, *w)[0]
         s = _stages(y, f0, _rows(gk0, gk1, gk2, u), i10[u], sth, dt, sq, rdt,
-                    mult_y, noise, elem, nw, relu)
+                    mult_y, noise, elem, nw, relu, matmul=matmul)
         f1 = _drift(s.h01, u, xh1, a1, *w)[0]
         y1 = y + dt * (_ALPHA0 * f0 + _ALPHA1 * f1)
         for c, g in zip(_coeffs(dw[u], i10[u], dt, rdt, rsq), s.gs):
@@ -289,7 +329,9 @@ def fused_srk_forward_reference(y0, xh0, xh1, dw, i10, a0, a1, gk0, gk1, gk2,
         y = y1
         ys.append(y)
     ys = torch.stack(ys)
-    if not is_net(noise):
+    if stream == "bf16":
+        ys = ys.to(torch.bfloat16)
+    if not is_net(noise) or _reduced(stream, matmul):
         return ys, None
     return ys, SRKNoise(torch.stack(nst, 1), torch.stack(nb, 1),
                         torch.stack(nh, 1) if nh else None)
@@ -306,32 +348,34 @@ def _dz3(df, state, z3l, geometric):
     return torch.zeros_like(state), dz3
 
 
-def _mlp_back(dz3l, hs, w_inner, wout):
-    """Back through one evaluation's MLP from dz3: (dz1, the cotangents of
-    h_1..h_NI's inputs)."""
-    dz = (dz3l @ wout.T) * (hs[-1] > 0)
+def _mlp_back(dz3l, hs, w_inner, wout, matmul="f32"):
+    """Back through one evaluation's MLP from dz3, its products in operand
+    mode `matmul`: (dz1, the cotangents of h_1..h_NI's inputs)."""
+    dz = mm_op(dz3l, wout.T, matmul) * (hs[-1] > 0)
     es = [None] * w_inner.shape[0]
     for l in range(w_inner.shape[0] - 1, -1, -1):
         es[l] = dz
-        dz = (dz @ w_inner[l].T) * (hs[l] > 0)
+        dz = mm_op(dz, w_inner[l].T, matmul) * (hs[l] > 0)
     return dz, es
 
 
 def _drift_bwd(df, state, hs, z3l, wy, w_inner, wout, geometric, acc,
-               drift):
+               drift, matmul="f32"):
     """Back through one drift evaluation given df = dL/df: adds the weight
-    gradients into acc and returns (d state, dz1)."""
+    gradients into acc and returns (d state, dz1); every product in
+    operand mode `matmul`."""
+    mm = lambda p, q: mm_op(p, q, matmul)
     dstate, dz3 = _dz3(df, state, z3l, geometric)
-    dz, es = _mlp_back(dz3, hs, w_inner, wout)
-    acc["wout"] += hs[-1].T @ dz3
+    dz, es = _mlp_back(dz3, hs, w_inner, wout, matmul)
+    acc["wout"] += mm(hs[-1].T, dz3)
     acc["bo"] += dz3.sum(0)
     for l in range(w_inner.shape[0] - 1, -1, -1):
-        acc["w_inner"][l] += hs[l].T @ es[l]
+        acc["w_inner"][l] += mm(hs[l].T, es[l])
         acc["b_inner"][l] += es[l].sum(0)
     if drift == "xt":
         return dstate, dz
-    acc["wy"] += state.T @ dz
-    return dstate + dz @ wy.T, dz
+    acc["wy"] += mm(state.T, dz)
+    return dstate + mm(dz, wy.T), dz
 
 
 def _saved(ns, u, noise):
@@ -345,7 +389,7 @@ def _saved(ns, u, noise):
 
 
 def _reverse_stages(s, gbar, dh01, dt, sq, rdt, i10, coeffs, sth, mult_y,
-                    noise, elem, nw, on_stage):
+                    noise, elem, nw, on_stage, matmul="f32"):
     """Reverse the diffusion stages of a step, g3, g2, g1, g0, given the
     state's cotangent gbar and H0_1's dh01: (y's cotangent, f0's, theta's
     sum). on_stage(i, dbase, dn, dz2) sees each stage's cotangents."""
@@ -365,7 +409,7 @@ def _reverse_stages(s, gbar, dh01, dt, sq, rdt, i10, coeffs, sth, mult_y,
         else:
             dbase, ds = dgraw, torch.zeros_like(dg)
         dyn, dn, dz2 = noise_back(dbase, s.states[i], s.bases[i], s.hns[i],
-                                   noise, elem, nw[0], nw[1])
+                                   noise, elem, nw[0], nw[1], matmul)
         on_stage(i, dbase, dn, dz2)
         return ds + dyn
 
@@ -398,15 +442,26 @@ def fused_srk_backward_reference(y0, ys, gys, xh0, xh1, dw, i10, a0, a1, gk0,
                                  drift: str = "embm", noise: str = "precomp",
                                  elem: int = 0,
                                  ns: Optional[SRKNoise] = None,
+                                 stream: str = "f32", matmul: str = "f32",
                                  relu=torch.relu):
     """Eager reverse loop mirroring the JAX `_bwd_kernel`: recompute every
     stage from the state before the step (the nets' stage values read from
-    the forward's `ns`), then reverse the tableau in the order f1, g3, g2,
-    g1, g0, f0. `relu` as in the forward; its derivative is read from its
-    output (> 0). FusedSRKGrads, FusedSRKNetGrads in the nets' modes."""
+    the forward's `ns` in exact fp32; recomputed in a reduced precision),
+    then reverse the tableau in the order f1, g3, g2, g1, g0, f0. `relu`
+    as in the forward; its derivative is read from its output (> 0). Every
+    product, the weight gradients' too, takes operand mode `matmul`; with
+    `stream` 'bf16' the states are the rounded trajectory's (y0 rounded
+    too), xh0, xh1, dw, i10 and gys arrive in bf16 and dxh0 and dxh1 leave
+    in bf16 (fused_srk.py:480-481), every other cotangent in y0's dtype.
+    FusedSRKGrads, FusedSRKNetGrads in the nets' modes."""
     sth = torch.sigmoid(theta.reshape(()))
-    w = (wy, w_inner, b_inner, wout, bo, geometric, relu, drift)
+    w = (wy, w_inner, b_inner, wout, bo, geometric, relu, drift, matmul)
     nw = (wn1, wn2, bn2)
+    red = _reduced(stream, matmul)
+    dxh_dtype = None if xh0 is None else xh0.dtype
+    y0, ys, gys, xh0, xh1, dw, i10 = _backward_states(y0, ys, gys, xh0, xh1,
+                                                      dw, i10, stream)
+    mm = lambda p, q: mm_op(p, q, matmul)
     z = lambda t: None if t is None else torch.zeros_like(t)
     e = lambda t: None if t is None else torch.empty_like(t)
     acc = {"wy": z(wy), "w_inner": torch.zeros_like(w_inner),
@@ -424,7 +479,8 @@ def fused_srk_backward_reference(y0, ys, gys, xh0, xh1, dw, i10, a0, a1, gk0,
         sq, rdt, rsq = _step_consts(dt)
         f0, hs0, z3l0 = _drift(y, u, xh0, a0, *w)
         s = _stages(y, f0, _rows(gk0, gk1, gk2, u), i10[u], sth, dt, sq, rdt,
-                    mult_y, noise, elem, nw, relu, _saved(ns, u, noise))
+                    mult_y, noise, elem, nw, relu,
+                    None if red else _saved(ns, u, noise), matmul)
         _, hs1, z3l1 = _drift(s.h01, u, xh1, a1, *w)
         coeffs = _coeffs(dw[u], i10[u], dt, rdt, rsq)
         dq = [0.0, 0.0, 0.0]
@@ -435,25 +491,25 @@ def fused_srk_backward_reference(y0, ys, gys, xh0, xh1, dw, i10, a0, a1, gk0,
                 dq[r] = dq[r] + dbase.sum(0)
             elif is_net(noise):
                 dq[r] = dq[r] + dn.sum(0)
-                acc["wn1"] += s.states[i].T @ dn
+                acc["wn1"] += mm(s.states[i].T, dn)
                 if noise == "net2":
-                    acc["wn2"] += s.hns[i].T @ dz2
+                    acc["wn2"] += mm(s.hns[i].T, dz2)
                     acc["bn2"] += dz2.sum(0)
 
         # stage f1 (state H0_1 = y + 3/4 dt f0 + 3/2 (I10/dt) g0)
         dh01, dz1 = _drift_bwd(gbar * (_ALPHA1 * dt), s.h01, hs1, z3l1, wy,
-                               w_inner, wout, geometric, acc, drift)
+                               w_inner, wout, geometric, acc, drift, matmul)
         if da1 is not None:
             da1[u] = dz1.sum(0)
         if dxh1 is not None:
             dxh1[u] = dz1
         dy, df0, dth_u = _reverse_stages(s, gbar, dh01, dt, sq, rdt, i10[u],
                                          coeffs, sth, mult_y, noise, elem,
-                                         nw, on_stage)
+                                         nw, on_stage, matmul)
         dth = dth + dth_u
         # stage f0 (state y)
         dyf0, dz0 = _drift_bwd(df0, y, hs0, z3l0, wy, w_inner, wout,
-                               geometric, acc, drift)
+                               geometric, acc, drift, matmul)
         if da0 is not None:
             da0[u] = dz0.sum(0)
         if dxh0 is not None:
@@ -463,6 +519,8 @@ def fused_srk_backward_reference(y0, ys, gys, xh0, xh1, dw, i10, a0, a1, gk0,
                 dgk[k][u] = dq[k]
         gbar = dy + dyf0
     dtheta = (dth * sth * (1.0 - sth)).reshape(theta.shape)
+    if dxh0 is not None:
+        dxh0, dxh1 = dxh0.to(dxh_dtype), dxh1.to(dxh_dtype)
     out = (gbar, dxh0, dxh1, da0, da1, *dgk, dtheta, acc["wy"],
            acc["w_inner"], acc["b_inner"], acc["wout"], acc["bo"])
     if is_net(noise):
@@ -479,15 +537,24 @@ def fused_srk_backward_recurrence_reference(y0, ys, gys, xh0, xh1, dw, i10,
                                             noise: str = "precomp",
                                             elem: int = 0,
                                             ns: Optional[SRKNoise] = None,
+                                            stream: str = "f32",
+                                            matmul: str = "f32",
                                             relu=torch.relu) -> SRKStreams:
     """The backward recurrence kernel's plain version: the reverse loop of
     fused_srk_backward_reference (the same tableau order f1, g3, g2, g1,
     g0, f0) without the weight gradients, recording instead the streams
     they are formed from (SRKStreams: q in mode 'precomp', dn in the nets'
-    modes, dz2 in net2's; None otherwise)."""
+    modes, dz2 in net2's; None otherwise), each in y0's dtype whatever the
+    stream dtype (dxh too: the weight gradient reads dz1 unrounded). In a
+    reduced precision the nets are recomputed, and their stage states and
+    hidden activations recorded as nst and nh."""
     sth = torch.sigmoid(theta.reshape(()))
-    w = (wy, w_inner, b_inner, wout, bo, geometric, relu, drift)
+    w = (wy, w_inner, b_inner, wout, bo, geometric, relu, drift, matmul)
     nw = (wn1, wn2, bn2)
+    red = _reduced(stream, matmul)
+    y0, ys, gys, xh0, xh1, dw, i10 = _backward_states(y0, ys, gys, xh0, xh1,
+                                                      dw, i10, stream)
+    mm = lambda p, q: mm_op(p, q, matmul)
     M, n_inner = dts.shape[0], w_inner.shape[0]
     B, HH = y0.shape[0], wout.shape[0]
     ev2 = (2, M, B, HH)
@@ -498,6 +565,9 @@ def fused_srk_backward_recurrence_reference(y0, ys, gys, xh0, xh1, dw, i10,
     qs = gys.new_empty((3,) + tuple(gys.shape)) if noise == "precomp" else None
     dns = gys.new_empty((4,) + tuple(gys.shape)) if is_net(noise) else None
     dz2s = gys.new_empty((4,) + tuple(gys.shape)) if noise == "net2" else None
+    nsts = (gys.new_empty((3,) + tuple(gys.shape))
+            if red and is_net(noise) else None)
+    nhs = dz2s.new_empty(dz2s.shape) if red and dz2s is not None else None
     h01s = torch.empty_like(gys)
     dth = torch.zeros((), dtype=y0.dtype, device=y0.device)
     gbar = torch.zeros_like(y0)
@@ -508,10 +578,15 @@ def fused_srk_backward_recurrence_reference(y0, ys, gys, xh0, xh1, dw, i10,
         sq, rdt, rsq = _step_consts(dt)
         f0, hs0, z3l0 = _drift(y, u, xh0, a0, *w)
         s = _stages(y, f0, _rows(gk0, gk1, gk2, u), i10[u], sth, dt, sq, rdt,
-                    mult_y, noise, elem, nw, relu, _saved(ns, u, noise))
+                    mult_y, noise, elem, nw, relu,
+                    None if red else _saved(ns, u, noise), matmul)
         _, hs1, z3l1 = _drift(s.h01, u, xh1, a1, *w)
         coeffs = _coeffs(dw[u], i10[u], dt, rdt, rsq)
         dq = [None] * 4
+        if nsts is not None:
+            nsts[:, u] = torch.stack(s.states[1:])
+        if nhs is not None:
+            nhs[:, u] = torch.stack(s.hns)
 
         def on_stage(i, dbase, dn, dz2):
             dq[i] = dbase
@@ -522,15 +597,15 @@ def fused_srk_backward_recurrence_reference(y0, ys, gys, xh0, xh1, dw, i10,
 
         # stage f1 (state H0_1)
         dh01, dz3_1 = _dz3(gbar * (_ALPHA1 * dt), s.h01, z3l1, geometric)
-        dz1_1, es1 = _mlp_back(dz3_1, hs1, w_inner, wout)
+        dz1_1, es1 = _mlp_back(dz3_1, hs1, w_inner, wout, matmul)
         if drift != "xt":
-            dh01 = dh01 + dz1_1 @ wy.T
+            dh01 = dh01 + mm(dz1_1, wy.T)
         dy, df0, dth_u = _reverse_stages(s, gbar, dh01, dt, sq, rdt, i10[u],
                                          coeffs, sth, mult_y, noise, elem,
-                                         nw, on_stage)
+                                         nw, on_stage, matmul)
         dth = dth + dth_u
         dyf0, dz3_0 = _dz3(df0, y, z3l0, geometric)
-        dz1_0, es0 = _mlp_back(dz3_0, hs0, w_inner, wout)
+        dz1_0, es0 = _mlp_back(dz3_0, hs0, w_inner, wout, matmul)
         for ev, (hs_e, es_e, dz1, dz3) in enumerate(
                 ((hs0, es0, dz1_0, dz3_0), (hs1, es1, dz1_1, dz3_1))):
             for l in range(n_inner + 1):
@@ -543,17 +618,17 @@ def fused_srk_backward_recurrence_reference(y0, ys, gys, xh0, xh1, dw, i10,
             qs[0, u], qs[1, u], qs[2, u] = dq[0], dq[3] + dq[1], dq[2]
         gbar = dy + dyf0
         if drift != "xt":
-            gbar = gbar + dz1_0 @ wy.T
+            gbar = gbar + mm(dz1_0, wy.T)
     dtheta = (dth * sth * (1.0 - sth)).reshape(theta.shape)
     return SRKStreams(gbar, dtheta, dxh, hs_out, es_out, dz3s, h01s, qs, dns,
-                      dz2s)
+                      dz2s, nsts, nhs)
 
 
 def fused_srk_weight_grads_reference(y0, ys, h01, dxh, hs, es, dz3, q,
                                      nst=None, dn=None, dz2=None, nh=None, *,
                                      drift: str = "embm",
-                                     noise: str = "precomp"
-                                     ) -> SRKWeightGrads:
+                                     noise: str = "precomp",
+                                     matmul: str = "f32") -> SRKWeightGrads:
     """The weight-gradient kernel's plain version: over K = 2 M B rows of
     the recurrence's streams (both evaluations), dWy' = sum x^T dz1 with x
     the state each first layer read (y_{u-1}, then H0_1; not in drift mode
@@ -562,13 +637,16 @@ def fused_srk_weight_grads_reference(y0, ys, h01, dxh, hs, es, dz3, q,
     those of q ('precomp') or of dn (the nets, by stage time: stages 1 and
     3 summed). A net's over K = 4 M B rows (the stages): dWn1 = sum st^T dn
     over the stage states st (y_{u-1}, then nst), and net2's dWn2 = sum
-    nh^T dz2 and dbn2."""
+    nh^T dz2 and dbn2. The products take operand mode `matmul`, the sums
+    stay exact; y0 and ys are the states the recurrence read (bf16 ones
+    widened to dxh's dtype)."""
     _, M, B, H = dz3.shape
     HH, n_inner = dxh.shape[3], es.shape[0]
     xt = drift == "xt"
-    y_prev = torch.cat([y0[None], ys[:M - 1]])
+    mm = lambda p, q_: mm_op(p, q_, matmul)
+    y_prev = torch.cat([y0[None], ys[:M - 1]]).to(dxh.dtype)
     x = torch.cat([y_prev, h01]).reshape(-1, H)
-    dwi = torch.stack([hs[l].reshape(-1, HH).T @ es[l].reshape(-1, HH)
+    dwi = torch.stack([mm(hs[l].reshape(-1, HH).T, es[l].reshape(-1, HH))
                        for l in range(n_inner)]) if n_inner else \
         dxh.new_zeros((0, HH, HH))
     if noise == "precomp":
@@ -578,17 +656,18 @@ def fused_srk_weight_grads_reference(y0, ys, h01, dxh, hs, es, dz3, q,
         dgk = torch.stack([d4[0], d4[1] + d4[3], d4[2]])
     else:
         dgk = None
-    out = (None if xt else x.T @ dxh.reshape(-1, HH), dwi, es.sum((1, 2, 3)),
-           hs[n_inner].reshape(-1, HH).T @ dz3.reshape(-1, H),
+    out = (None if xt else mm(x.T, dxh.reshape(-1, HH)), dwi,
+           es.sum((1, 2, 3)),
+           mm(hs[n_inner].reshape(-1, HH).T, dz3.reshape(-1, H)),
            dz3.sum((0, 1, 2)), None if xt else dxh.sum(2), dgk)
     if not is_net(noise):
         return SRKWeightGrads(*out)
     st = torch.cat([y_prev[None], nst]).reshape(-1, H)
-    dwn1 = st.T @ dn.reshape(-1, H)
+    dwn1 = mm(st.T, dn.reshape(-1, H))
     if noise == "net1":
         return SRKWeightGrads(*out, dwn1)
     return SRKWeightGrads(*out, dwn1,
-                          nh.reshape(-1, H).T @ dz2.reshape(-1, H),
+                          mm(nh.reshape(-1, H).T, dz2.reshape(-1, H)),
                           dz2.sum((0, 1, 2)))
 
 
@@ -601,12 +680,25 @@ _LIB = SolverLib("fused_srk", "fused SRK", 24, 35, int_names=SDE_INT_NAMES,
                  shape_names=SDE_SHAPE_NAMES, launches={"wgrad": 16},
                  int_fns={"plan": 9, "force_placement": 1, "force_plan": 2,
                           "wgrad_splits": 7})
+# the reduced precisions' library (csrc/fused_srk_red.cu): kernels of
+# their own, so that the fp32 instances above compile as they did; its
+# launches take the operand mode (MATMUL_CODE) and the stream flag (1: bf16
+# streams) after the members
+_RED = SolverLib("fused_srk_red", "fused SRK (reduced precision)", 21, 35,
+                 int_names=SDE_INT_NAMES + ("matmul", "stream"),
+                 shape_names=SDE_SHAPE_NAMES, launches={"wgrad": 16},
+                 int_fns={"plan": 9, "wgrad_splits": 7})
 _PLAN_FIELDS = ("level", "rows", "cluster", "active_clusters", "smem_bytes")
 # the member axis of a packed launch's streams (SRKStreams, SRKNoise; 0
 # where not named): an evaluation's or stage's stream holds every member's
 # steps ([E, K, M, B, ...])
 _STREAM_AXES = {"dxh": 1, "hs": 2, "es": 2, "dz3": 1, "q": 1, "dn": 1,
                 "dz2": 1, "nst": 1, "nb": 1, "nh": 1}
+# the streams held in the stream dtype (bf16 with bf16 streams)
+_BF16_STREAMS = ("xh0", "xh1", "dw", "i10", "ys", "gys")
+# launches of the reduced precisions' kernels (their own kernels, solo or
+# packed), keyed "<kernel> <operand mode> <stream dtype>"
+PRECISION_LAUNCHES = precision_counts(("fwd", "bwd", "wgrad"))
 
 
 def fused_srk_plan(B: int, H: int, HH: int, n_inner: int, backward: bool,
@@ -646,7 +738,8 @@ def _want(M, B, H, HH, n_inner) -> dict:
 
 
 def _checked(y0, xh0, xh1, dw, i10, a0, a1, gk0, gk1, gk2, dts, theta, wy,
-             w_inner, b_inner, wout, bo, wn1, wn2, bn2, ys, gys, modes):
+             w_inner, b_inner, wout, bo, wn1, wn2, bn2, ys, gys, modes,
+             stream="f32"):
     """check_kernel_inputs's checks; (dims, K: 0 for a solo launch)."""
     dims = kernel_dims("fused SRK", y0, wout, w_inner, dts)
     got = {"y0": y0, "xh0": xh0, "xh1": xh1, "dw": dw, "i10": i10, "a0": a0,
@@ -658,16 +751,19 @@ def _checked(y0, xh0, xh1, dw, i10, a0, a1, gk0, gk1, gk2, dts, theta, wy,
     K = member_count(y0)
     if K:
         want = member_shapes(want, K)
-    check_tensors("fused SRK", want, got, y0.device, modes)
+    check_tensors("fused SRK", want, got, y0.device, modes,
+                  bf16=_BF16_STREAMS if stream == "bf16" else ())
     return dims, K
 
 
 def check_kernel_inputs(y0, xh0, xh1, dw, i10, a0, a1, gk0, gk1, gk2, dts,
                         theta, wy, w_inner, b_inner, wout, bo, wn1=None,
                         wn2=None, bn2=None, ys=None, gys=None,
-                        modes: Optional[SdeModes] = None):
+                        modes: Optional[SdeModes] = None,
+                        stream: str = "f32"):
     """Raise ValueError on what the kernels do not take: a dtype other
-    than float32, tensors on different devices, a non-contiguous tensor,
+    than float32 (bfloat16 for xh0, xh1, dw, i10, ys and gys with `stream`
+    'bf16'), tensors on different devices, a non-contiguous tensor,
     or a shape that disagrees with y0/w_inner/wout/dts (each but dts with a
     leading member axis in a packed launch); with `modes`, a tensor given
     that they do not take or missing where they need it (a tensor the modes do not
@@ -676,7 +772,7 @@ def check_kernel_inputs(y0, xh0, xh1, dw, i10, a0, a1, gk0, gk1, gk2, dts,
     n_inner)."""
     return _checked(y0, xh0, xh1, dw, i10, a0, a1, gk0, gk1, gk2, dts, theta,
                     wy, w_inner, b_inner, wout, bo, wn1, wn2, bn2, ys, gys,
-                    modes)[0]
+                    modes, stream)[0]
 
 
 def _check_srk_mode(modes, xh0, xh1, a0, a1, gks, wy, wn1, wn2, bn2):
@@ -685,16 +781,24 @@ def _check_srk_mode(modes, xh0, xh1, a0, a1, gks, wy, wn1, wn2, bn2):
                bn2=bn2)
 
 
-def _empty(*shape, device):
-    return torch.empty(shape, dtype=torch.float32, device=device)
+def _empty(*shape, device, dtype=torch.float32):
+    return torch.empty(shape, dtype=dtype, device=device)
 
 
-def _launch_forward(dims, modes: SdeModes, tensors, stream, K: int):
-    """K members (0: a solo launch, its outputs without the member axis)."""
+def _launch_forward(dims, modes: SdeModes, tensors, stream, K: int,
+                    prec=(0, 0)):
+    """K members (0: a solo launch, its outputs without the member axis);
+    prec: the (operand mode, stream flag) of a reduced precision, launched
+    on its own kernels (no SRKNoise: its backward recomputes the nets)."""
     M, B, H, _, _ = dims
     noise, m = modes.flags["noise"], (K,) if K else ()
     dev = tensors[0].device
-    ys = _empty(*m, M, B, H, device=dev)
+    ys = _empty(*m, M, B, H, device=dev,
+                dtype=torch.bfloat16 if prec[1] else torch.float32)
+    if prec != (0, 0):
+        _RED.launch("fwd", tuple(tensors) + (ys,),
+                    dims + modes.ints + (max(K, 1),) + tuple(prec), stream)
+        return ys, None
     ns = None
     if is_net(noise):
         ns = SRKNoise(_empty(3, *m, M, B, H, device=dev),
@@ -708,13 +812,19 @@ def _launch_forward(dims, modes: SdeModes, tensors, stream, K: int):
 
 
 def _launch_recurrence(dims, modes: SdeModes, tensors, ns, stream,
-                       K: int) -> SRKStreams:
+                       K: int, prec=(0, 0)) -> SRKStreams:
+    """With a reduced precision (prec) the reduced kernel, which recomputes
+    the nets (their stage states and hidden activations its streams nst
+    and nh); with bf16 streams tensors' y0 is the rounded state, in bf16 as
+    ys."""
     M, B, H, HH, n_inner = dims
     noise, m, Kn = modes.flags["noise"], (K,) if K else (), max(K, 1)
     dev = tensors[0].device
+    red = prec != (0, 0)
     shape = (B, H, HH, n_inner, *modes.codes, Kn)
-    ctas = -(-B // _LIB.rows(shape, backward=True)) * _LIB.kept(
-        "plan", *shape, 1, 2)
+    lib = _RED if red else _LIB
+    ctas = -(-B // lib.rows(shape, backward=True)) * (
+        1 if red else _LIB.kept("plan", *shape, 1, 2))
     dxh, dy0 = (_empty(2, *m, M, B, HH, device=dev),
                 _empty(*m, B, H, device=dev))
     hs, es = (_empty(n_inner + 1, 2, *m, M, B, HH, device=dev),
@@ -725,30 +835,41 @@ def _launch_recurrence(dims, modes: SdeModes, tensors, ns, stream,
     dz2 = _empty(4, *m, M, B, H, device=dev) if noise == "net2" else None
     h01 = _empty(*m, M, B, H, device=dev)
     p_th, dth = _empty(Kn * ctas, device=dev), _empty(*m, 1, device=dev)
+    outs = (dxh, dy0, hs, es, dz3, q, h01, dn, dz2)
+    if red:
+        nst = _empty(3, *m, M, B, H, device=dev) if dn is not None else None
+        nh = _empty(4, *m, M, B, H, device=dev) if dz2 is not None else None
+        _RED.launch("bwd", tuple(tensors) + outs + (nst, nh, p_th, dth),
+                    dims + modes.ints + (Kn,) + tuple(prec), stream)
+        return SRKStreams(dy0, dth, dxh, hs, es, dz3, h01, q, dn, dz2, nst,
+                          nh)
     saved = tuple(ns) if ns is not None else (None, None, None)
-    _LIB.launch("bwd", tuple(tensors) + saved + (dxh, dy0, hs, es, dz3, q,
-                                                 h01, dn, dz2, p_th, dth),
+    _LIB.launch("bwd", tuple(tensors) + saved + outs + (p_th, dth),
                 dims + modes.ints + (Kn,), stream)
     return SRKStreams(dy0, dth, dxh, hs, es, dz3, h01, q, dn, dz2)
 
 
-def _launch_weight_grads(y0, ys, st: SRKStreams, ns, modes: SdeModes,
-                         stream, K: int) -> SRKWeightGrads:
-    """From a packed launch's streams (K members), or a solo one's (K 0)."""
+def _launch_weight_grads(y0, ys, st: SRKStreams, nst, nh, modes: SdeModes,
+                         stream, K: int, matmul: int = 0) -> SRKWeightGrads:
+    """From a packed launch's streams (K members), or a solo one's (K 0);
+    y0 and ys float32 (the states the recurrence read); matmul the operand
+    mode's code (a reduced one on the reduced library's kernel)."""
     M, B, HH = st.dxh.shape[-3:]
     H, n_inner, m = y0.shape[-1], st.es.shape[0], (K,) if K else ()
     drift, noise = modes.flags["drift"], modes.flags["noise"]
-    S = _LIB.kept("wgrad_splits", M, B, H, HH, n_inner, *modes.codes)
+    lib = _RED if matmul else _LIB
+    S = lib.kept("wgrad_splits", M, B, H, HH, n_inner, *modes.codes)
     size = lambda s: sum(wgrad_partial_sizes(s, H, HH, n_inner, drift, noise))
     p = _empty(max(K, 1), size(S), device=y0.device)
     w = _empty(*m, size(1), device=y0.device)
     da = _empty(*m, 2, M, HH, device=y0.device) if drift != "xt" else None
     dgk = (_empty(*m, 3, M, H, device=y0.device) if noise == "precomp" else
            _empty(*m, 4, M, H, device=y0.device) if is_net(noise) else None)
-    nst, nh = (ns.nst, ns.nh) if ns is not None else (None, None)
-    _LIB.launch("wgrad", (y0, ys, st.h01, st.dxh, st.hs, st.es, st.dz3,
-                          st.q, nst, st.dn, nh, st.dz2, p, w, da, dgk),
-                (M, B, H, HH, n_inner) + modes.ints + (max(K, 1),), stream)
+    tensors = (y0, ys, st.h01, st.dxh, st.hs, st.es, st.dz3, st.q, nst,
+               st.dn, nh, st.dz2, p, w, da, dgk)
+    ints = (M, B, H, HH, n_inner) + modes.ints + (max(K, 1),)
+    lib.launch("wgrad", tensors, ints + ((matmul, 0) if matmul else ()),
+               stream)
     if is_net(noise):     # the an1 rows' cotangents: stages 1 and 3 summed
         e = len(m)
         dgk = torch.stack([dgk.select(e, 0),
@@ -768,28 +889,37 @@ def fused_srk_forward(y0, xh0, xh1, dw, i10, a0, a1, gk0, gk1, gk2, dts,
                       theta, wy, w_inner, b_inner, wout, bo, wn1=None,
                       wn2=None, bn2=None, *, mult_y: bool, geometric: bool,
                       drift: str = "embm", noise: str = "precomp",
-                      elem: int = 0):
-    """(ys [M, B, H], SRKNoise in the nets' modes else None), with a member
-    axis in a packed launch (y0 [K, B, H]; ys [K, M, B, H], SRKNoise's
-    second axis): the CUDA forward kernel for CUDA tensors, the plain
-    version for CPU tensors (member by member in a packed launch)."""
+                      elem: int = 0, stream: str = "f32",
+                      matmul: str = "f32"):
+    """(ys [M, B, H], SRKNoise in the nets' modes in exact fp32 else None),
+    with a member axis in a packed launch (y0 [K, B, H]; ys [K, M, B, H],
+    SRKNoise's second axis): the CUDA forward kernel for CUDA tensors, the
+    plain version for CPU tensors (member by member in a packed launch).
+    `matmul` is the products' operand mode ('f32', 'bf16x3', 'bf16'); with
+    `stream` 'bf16', xh0, xh1, dw and i10 come and ys goes in bf16. A
+    reduced precision runs on kernels of its own."""
     global FWD_LAUNCHES, PACKED_FWD_LAUNCHES
     modes = sde_mode(mult_y, geometric, drift, noise, elem)
+    prec = precision_ints("fused SRK", stream, matmul)
     args = (y0, xh0, xh1, dw, i10, a0, a1, gk0, gk1, gk2, dts, theta, wy,
             w_inner, b_inner, wout, bo, wn1, wn2, bn2)
     if y0.device.type == "cpu":
         _check_srk_mode(modes, xh0, xh1, a0, a1, (gk0, gk1, gk2), wy, wn1,
                         wn2, bn2)
+        kw = dict(**modes.flags, stream=stream, matmul=matmul)
         K = member_count(y0)
         if K:
             return per_member(fused_srk_forward_reference, _FWD_NAMES, args,
-                              K, _STREAM_AXES, **modes.flags)
-        return fused_srk_forward_reference(*args, **modes.flags)
-    dims, K = _checked(*args, None, None, modes)
-    stream = _LIB.stream(y0, dims[1:] + modes.codes + (max(K, 1),),
-                         backward=False)
-    out = _launch_forward(dims, modes, args, stream, K)
-    if K:
+                              K, _STREAM_AXES, **kw)
+        return fused_srk_forward_reference(*args, **kw)
+    dims, K = _checked(*args, None, None, modes, stream)
+    lib = _RED if prec != (0, 0) else _LIB
+    stream_h = lib.stream(y0, dims[1:] + modes.codes + (max(K, 1),),
+                          backward=False)
+    out = _launch_forward(dims, modes, args, stream_h, K, prec)
+    if prec != (0, 0):
+        count_precision(PRECISION_LAUNCHES, "fwd", stream, matmul)
+    elif K:
         PACKED_FWD_LAUNCHES += 1
     else:
         FWD_LAUNCHES += 1
@@ -814,32 +944,43 @@ def fused_srk_backward_recurrence(y0, ys, gys, xh0, xh1, dw, i10, a0, a1,
                                   bn2=None, *, mult_y: bool, geometric: bool,
                                   drift: str = "embm",
                                   noise: str = "precomp", elem: int = 0,
-                                  ns: Optional[SRKNoise] = None
+                                  ns: Optional[SRKNoise] = None,
+                                  stream: str = "f32", matmul: str = "f32"
                                   ) -> SRKStreams:
-    """The reverse loop given gys = dL/dys (SRKStreams; in a packed launch
-    with a member axis, _STREAM_AXES): the CUDA backward recurrence kernel
-    for CUDA tensors (d theta's per-CTA partials summed in the library),
-    the plain version for CPU tensors."""
+    """The reverse loop given gys = dL/dys (SRKStreams, float32 whatever
+    the stream dtype; in a packed launch with a member axis, _STREAM_AXES):
+    the CUDA backward recurrence kernel for CUDA tensors (d theta's per-CTA
+    partials summed in the library), the plain version for CPU tensors. In
+    a reduced precision the reduced kernel, which recomputes the noise nets
+    (ns unused); y0 is the float32 initial state (with bf16 streams the
+    kernel reads it rounded, as it reads ys)."""
     global BWD_LAUNCHES, PACKED_BWD_LAUNCHES
     modes = sde_mode(mult_y, geometric, drift, noise, elem)
+    prec = precision_ints("fused SRK", stream, matmul)
     args = (y0, ys, gys, xh0, xh1, dw, i10, a0, a1, gk0, gk1, gk2, dts,
             theta, wy, w_inner, b_inner, wout, bo, wn1, wn2, bn2)
     if y0.device.type == "cpu":
         _check_srk_mode(modes, xh0, xh1, a0, a1, (gk0, gk1, gk2), wy, wn1,
                         wn2, bn2)
+        kw = dict(**modes.flags, ns=ns, stream=stream, matmul=matmul)
         K = member_count(y0)
         if K:
             return per_member(fused_srk_backward_recurrence_reference,
-                              _BWD_NAMES, args, K, _STREAM_AXES, ns=ns,
-                              **modes.flags)
-        return fused_srk_backward_recurrence_reference(*args, **modes.flags,
-                                                       ns=ns)
-    dims, K = _checked(y0, *args[3:], ys, gys, modes)
-    _check_ns(ns, ys, noise, y0.device)
-    stream = _LIB.stream(y0, dims[1:] + modes.codes + (max(K, 1),),
-                         backward=True)
-    st = _launch_recurrence(dims, modes, args[:21], ns, stream, K)
-    if K:
+                              _BWD_NAMES, args, K, _STREAM_AXES, **kw)
+        return fused_srk_backward_recurrence_reference(*args, **kw)
+    dims, K = _checked(y0, *args[3:], ys, gys, modes, stream)
+    red = prec != (0, 0)
+    if not red:
+        _check_ns(ns, ys, noise, y0.device)
+    stream_h = (_RED if red else _LIB).stream(
+        y0, dims[1:] + modes.codes + (max(K, 1),), backward=True)
+    y0k = y0.to(torch.bfloat16) if prec[1] else y0
+    # the reduced kernel recomputes net2, so it takes bn2 too
+    st = _launch_recurrence(dims, modes, (y0k,) + args[1:22 if red else 21],
+                            ns, stream_h, K, prec)
+    if red:
+        count_precision(PRECISION_LAUNCHES, "bwd", stream, matmul)
+    elif K:
         PACKED_BWD_LAUNCHES += 1
     else:
         BWD_LAUNCHES += 1
@@ -849,27 +990,35 @@ def fused_srk_backward_recurrence(y0, ys, gys, xh0, xh1, dw, i10, a0, a1,
 def fused_srk_weight_grads(y0, ys, st: SRKStreams,
                            ns: Optional[SRKNoise] = None, *,
                            drift: str = "embm",
-                           noise: str = "precomp") -> SRKWeightGrads:
+                           noise: str = "precomp",
+                           matmul: str = "f32") -> SRKWeightGrads:
     """The weight, bias and per-step gradients from the recurrence's
     streams (SRKWeightGrads, each with a leading member axis in a packed
-    launch; ns: the forward's stage states and hidden activations in the
-    nets' modes): the CUDA weight-gradient kernel for CUDA tensors (its
-    split partials summed in the library, in a fixed order), the plain
-    version for CPU tensors."""
+    launch; the nets' stage states and hidden activations from the
+    forward's `ns`, or in a reduced precision from the recurrence's nst
+    and nh), the products in operand mode `matmul`: the CUDA
+    weight-gradient kernel for CUDA tensors (its split partials summed in
+    the library, in a fixed order), the plain version for CPU tensors. y0
+    and ys are the states the recurrence read (with bf16 streams the
+    rounded y0 and ys; a bf16 ys is widened here)."""
     global WGRAD_LAUNCHES, PACKED_WGRAD_LAUNCHES
     # the weight gradient reads no flag but the modes (any elem option)
     modes = sde_mode(False, False, drift, noise, 7)
-    nst, nh = (ns.nst, ns.nh) if ns is not None else (None, None)
+    prec = precision_ints("fused SRK", "f32", matmul)
+    stream_of = "bf16" if ys.dtype == torch.bfloat16 else "f32"
+    ys = ys.float()
+    nst, nh = ((ns.nst, ns.nh) if ns is not None else (st.nst, st.nh))
     K = member_count(y0)
     if y0.device.type == "cpu":
         if K:
+            nsk = SRKNoise(nst, None, nh) if nst is not None else None
             return stack_members([fused_srk_weight_grads(
                 y0[k], ys[k], select_member(st, k, _STREAM_AXES),
-                select_member(ns, k, _STREAM_AXES), drift=drift,
-                noise=noise) for k in range(K)])
+                select_member(nsk, k, _STREAM_AXES), drift=drift,
+                noise=noise, matmul=matmul) for k in range(K)])
         return fused_srk_weight_grads_reference(
             y0, ys, st.h01, st.dxh, st.hs, st.es, st.dz3, st.q, nst, st.dn,
-            st.dz2, nh, drift=drift, noise=noise)
+            st.dz2, nh, drift=drift, noise=noise, matmul=matmul)
     M, B, H = st.dz3.shape[-3:]
     HH, n_inner = st.dxh.shape[-1], st.es.shape[0]
     m = (K,) if K else ()
@@ -890,10 +1039,14 @@ def fused_srk_weight_grads(y0, ys, st: SRKStreams,
             or (noise == "net2") != (st.dz2 is not None and nh is not None)):
         raise ValueError(f"fused SRK weight gradient ({noise}): the streams "
                          f"are not the mode's")
-    stream = _LIB.stream(y0, (B, H, HH, n_inner) + modes.codes + (max(K, 1),),
-                         backward=True)
-    out = _launch_weight_grads(y0, ys, st, ns, modes, stream, K)
-    if K:
+    lib = _RED if prec[0] else _LIB
+    stream = lib.stream(y0, (B, H, HH, n_inner) + modes.codes + (max(K, 1),),
+                        backward=True)
+    out = _launch_weight_grads(y0, ys, st, nst, nh, modes, stream, K,
+                               prec[0])
+    if prec[0]:
+        count_precision(PRECISION_LAUNCHES, "wgrad", stream_of, matmul)
+    elif K:
         PACKED_WGRAD_LAUNCHES += 1
     else:
         WGRAD_LAUNCHES += 1
@@ -904,13 +1057,16 @@ def fused_srk_backward(y0, ys, gys, xh0, xh1, dw, i10, a0, a1, gk0, gk1, gk2,
                        dts, theta, wy, w_inner, b_inner, wout, bo, wn1=None,
                        wn2=None, bn2=None, *, mult_y: bool, geometric: bool,
                        drift: str = "embm", noise: str = "precomp",
-                       elem: int = 0, ns: Optional[SRKNoise] = None):
+                       elem: int = 0, ns: Optional[SRKNoise] = None,
+                       stream: str = "f32", matmul: str = "f32"):
     """Cotangents of the solve's inputs given gys = dL/dys (FusedSRKGrads,
     FusedSRKNetGrads in the nets' modes; in a packed launch each member's
     along a leading axis): for CUDA tensors the backward recurrence kernel, then the
-    weight-gradient kernel; for CPU tensors the plain reverse loop."""
+    weight-gradient kernel; for CPU tensors the plain reverse loop. With
+    bf16 streams dxh0 and dxh1 leave in bf16."""
     modes = dict(mult_y=mult_y, geometric=geometric, drift=drift,
                  noise=noise, elem=elem)
+    prec = dict(stream=stream, matmul=matmul)
     args = (y0, ys, gys, xh0, xh1, dw, i10, a0, a1, gk0, gk1, gk2, dts,
             theta, wy, w_inner, b_inner, wout, bo, wn1, wn2, bn2)
     K = member_count(y0)
@@ -918,15 +1074,18 @@ def fused_srk_backward(y0, ys, gys, xh0, xh1, dw, i10, a0, a1, gk0, gk1, gk2,
         _check_srk_mode(sde_mode(**modes), xh0, xh1, a0, a1, (gk0, gk1, gk2),
                         wy, wn1, wn2, bn2)
         if not K:
-            return fused_srk_backward_reference(*args, **modes, ns=ns)
+            return fused_srk_backward_reference(*args, **modes, ns=ns,
+                                                **prec)
         return per_member(fused_srk_backward_reference, _BWD_NAMES, args, K,
-                          _STREAM_AXES, ns=ns, **modes)
-    st = fused_srk_backward_recurrence(*args, **modes, ns=ns)
-    w = fused_srk_weight_grads(y0, ys, st, ns, drift=drift, noise=noise)
+                          _STREAM_AXES, ns=ns, **modes, **prec)
+    st = fused_srk_backward_recurrence(*args, **modes, ns=ns, **prec)
+    y0r = bf16_round(y0) if stream == "bf16" else y0
+    w = fused_srk_weight_grads(y0r, ys, st, None if _reduced(**prec) else ns,
+                               drift=drift, noise=noise, matmul=matmul)
     yy, e = drift == "yy", int(K > 0)   # the evaluations' axis
     da = (None, None) if w.da is None else w.da.unbind(e)
     dgk = (None,) * 3 if w.dgk is None else w.dgk.unbind(e)
-    dxh = (None, None) if yy else st.dxh.unbind(0)
+    dxh = (None, None) if yy else st.dxh.to(xh0.dtype).unbind(0)
     out = (st.dy0, *dxh, *da, *dgk, st.dtheta, w.dwy, w.dw_inner,
            w.db_inner, w.dwout, w.dbo)
     return (FusedSRKNetGrads(*out, w.dwn1, w.dwn2, w.dbn2) if is_net(noise)
@@ -934,19 +1093,24 @@ def fused_srk_backward(y0, ys, gys, xh0, xh1, dw, i10, a0, a1, gk0, gk1, gk2,
 
 
 _ARG_ORDER = _FWD_NAMES
+# the modes FusedSRK takes (and the precision `stream` and `matmul`, 'f32'
+# when not given)
 _MODE_KEYS = ("mult_y", "geometric", "drift", "noise", "elem")
+_PRECISION_KEYS = ("stream", "matmul")
 
 
 class FusedSRK(torch.autograd.Function):
     """ys = SRIW1 solve of a DiffusionField; backward by the backward
     recurrence and weight-gradient kernels. Inputs: the modes (a dict of
-    _MODE_KEYS), then _ARG_ORDER (None where the mode takes none): y0
-    [B,H], xh0/xh1 [M,B,HH], dw/i10 [M,B,H] (not differentiated), a0/a1
-    [M,HH], gk0/gk1/gk2 [M,H] (the an1 rows in the nets' modes), dts [M]
-    (not differentiated), theta [1], wy [H,HH], w_inner [n_inner,HH,HH],
-    b_inner [n_inner,HH], wout [HH,H], bo [H], wn1, wn2 [H,H], bn2 [H]; in a
-    packed solve of K members each but dts with a leading K axis, and ys
-    [K, M, B, H]."""
+    _MODE_KEYS and optionally `stream` and `matmul`), then _ARG_ORDER (None
+    where the mode takes none): y0 [B,H], xh0/xh1 [M,B,HH], dw/i10 [M,B,H]
+    (not differentiated), a0/a1 [M,HH], gk0/gk1/gk2 [M,H] (the an1 rows in
+    the nets' modes), dts [M] (not differentiated), theta [1], wy [H,HH],
+    w_inner [n_inner,HH,HH], b_inner [n_inner,HH], wout [HH,H], bo [H],
+    wn1, wn2 [H,H], bn2 [H]; in a packed solve of K members each but dts
+    with a leading K axis, and ys [K, M, B, H]. With `stream` 'bf16', xh0,
+    xh1, dw and i10 are bf16 and so is ys (and the cotangent autograd hands
+    back)."""
 
     @staticmethod
     def forward(ctx, modes, *tensors):
@@ -961,7 +1125,7 @@ class FusedSRK(torch.autograd.Function):
         *tensors, ys, nst, nb, nh = ctx.saved_tensors
         modes = ctx.modes
         net = is_net(modes["noise"])
-        ns = SRKNoise(nst, nb, nh) if net else None
+        ns = SRKNoise(nst, nb, nh) if nb is not None else None
         gr = fused_srk_backward(tensors[0], ys, gys.contiguous(),
                                 *tensors[1:], **modes, ns=ns)
         return (None, gr.dy0, gr.dxh0, gr.dxh1, None, None, gr.da0, gr.da1,
@@ -999,24 +1163,47 @@ def fused_srk_inputs(field, path, grid: np.ndarray, y0: torch.Tensor,
             **sde_modes(field)}
 
 
+def precision_inputs(inputs: dict, stream_dtype=None, matmul=None) -> dict:
+    """The kernels' inputs in a precision (resolve_precision: None from
+    SNSDE_FUSED_STREAM and SNSDE_FUSED_MATMUL, as fused_srk.py:661-666 and
+    :703-704 resolve them): the control and noise streams xh0, xh1, dw and
+    i10 in the stream dtype (:776-787), and the modes `stream` ('f32' or
+    'bf16') and `matmul` ('f32', 'bf16x3', 'bf16')."""
+    sd, mm = resolve_precision(stream_dtype, matmul)
+    out = dict(inputs, stream="bf16" if sd == torch.bfloat16 else "f32",
+               matmul=mm)
+    for k in ("xh0", "xh1", "dw", "i10"):
+        if out[k] is not None:
+            out[k] = out[k].to(sd)
+    return out
+
+
+def solve_modes(inputs: dict) -> dict:
+    """FusedSRK's modes from a solve's inputs (precision_inputs')."""
+    return {k: inputs[k] for k in _MODE_KEYS + _PRECISION_KEYS}
+
+
 def fused_srk_solve(field, path, times, y0: torch.Tensor, *,
                     generator: Optional[torch.Generator] = None,
                     dt: Optional[float] = None,
                     brownian_override=None,
-                    stream_dtype: Optional[torch.dtype] = None
-                    ) -> torch.Tensor:
+                    stream_dtype: Optional[torch.dtype] = None,
+                    matmul: Optional[str] = None) -> torch.Tensor:
     """SRIW1 solve of a DiffusionField through the fused kernels. Returns
     ys [T, B, H] on the output times (time-major). (dW, I10), each
     [M, B, H], come from `brownian_override` when given, else from
     `generator`, dW first and then the Lévy area, as `sdeint(method="srk")`
     draws them. Matches DiffusionField.f/g except for float32
     reassociation of the merged drift input and sqrt's nan_to_num taken
-    as 0 where y <= 0. Exact fp32 only: bf16 streams (`stream_dtype` or
-    SNSDE_FUSED_STREAM) or bf16 / bf16x3 operands (SNSDE_FUSED_MATMUL)
-    raise NotImplementedError (ROADMAP Queue 2 K4)."""
+    as 0 where y <= 0. `stream_dtype` (torch.float32 or torch.bfloat16)
+    holds the control, noise, trajectory and cotangent streams, `matmul`
+    ('f32', 'bf16x3' or 'bf16') the in-kernel products' operands, as in
+    the JAX entry (snsde/kernels/fused_srk.py:655-842); None takes
+    SNSDE_FUSED_STREAM and SNSDE_FUSED_MATMUL, exact fp32 when unset. The
+    result is float32 (a bf16 trajectory widened, its first row the
+    rounded y0)."""
     from ..models.neuralsde import resolve_dt
 
-    require_fp32("the fused SRK solve", "K4", stream_dtype)
     dt = resolve_dt(times) if dt is None else dt
     grid, out_idx = make_grid(times, dt)
     if brownian_override is None:
@@ -1026,8 +1213,8 @@ def fused_srk_solve(field, path, times, y0: torch.Tensor, *,
         I10 = space_time_levy_area(generator, grid, shape, dW)
     else:
         dW, I10 = brownian_override
-    inputs = fused_srk_inputs(field, path, grid, y0, dW, I10)
-    ys = FusedSRK.apply({k: inputs[k] for k in _MODE_KEYS},
+    inputs = precision_inputs(fused_srk_inputs(field, path, grid, y0, dW,
+                                               I10), stream_dtype, matmul)
+    ys = FusedSRK.apply(solve_modes(inputs),
                         *(inputs[k] for k in _ARG_ORDER))
-    full = torch.cat([y0[None], ys], dim=0)
-    return full[torch.as_tensor(out_idx, device=y0.device)]
+    return widen_output(y0, ys)[torch.as_tensor(out_idx, device=y0.device)]

@@ -31,15 +31,16 @@ import torch
 
 from ..ops.brownian import brownian_increments, space_time_levy_area
 from ..ops.solve import make_grid
-from ._solver import require_fp32
 from .fused_cde import FusedCDE, fused_cde_inputs
+from .fused_cde import precision_inputs as cde_precision_inputs
 from .fused_cde import _ARG_ORDER as _CDE_ARGS
 from .fused_em import (FusedEM, fused_em_inputs, latent_inputs,
                        precision_inputs, solve_modes)
 from .fused_em import _ARG_ORDER as _EM_ARGS
-from .fused_em import _MODE_KEYS
 from .fused_srk import FusedSRK, fused_srk_inputs
 from .fused_srk import _ARG_ORDER as _SRK_ARGS
+from .fused_srk import precision_inputs as srk_precision_inputs
+from .fused_srk import solve_modes as srk_solve_modes
 
 __all__ = ["fused_em_solve_packed", "fused_srk_solve_packed",
            "fused_cde_solve_packed", "fused_latent_em_solve_packed",
@@ -140,13 +141,14 @@ def fused_em_solve_packed(fields: Sequence, path, times, y0s: torch.Tensor,
 
 def fused_srk_solve_packed(fields: Sequence, path, times, y0s: torch.Tensor,
                            dWs_or_generators, dt: Optional[float] = None,
-                           paths=None, stream_dtype=None) -> torch.Tensor:
+                           paths=None, stream_dtype=None,
+                           matmul=None) -> torch.Tensor:
     """The SRIW1 counterpart of fused_em_solve_packed (multi.py:394-444):
     member i's (dW, I10) drawn from its generator as fused_srk_solve
     draws them (dW, then the Lévy area), or given as a pair of [K, M, B, H]
-    tensors. Returns ys [K, T, B, H]. Exact fp32 only, as fused_srk_solve
-    (bf16 asked here or by the environment raises, K4)."""
-    require_fp32("the fused SRK solve", "K4", stream_dtype)
+    tensors; `stream_dtype` and `matmul` as fused_srk_solve's. Returns ys
+    [K, T, B, H]; member i is fused_srk_solve(fields[i], ...) bit for bit
+    under the same plan, in every precision."""
     noise = dWs_or_generators
     if isinstance(noise, tuple) and len(noise) == 2 and isinstance(
             noise[0], torch.Tensor):
@@ -162,25 +164,26 @@ def fused_srk_solve_packed(fields: Sequence, path, times, y0s: torch.Tensor,
             I10 = space_time_levy_area(noise[k], grid, (B, H), dW)
         else:
             dW, I10 = noise[k]
-        inputs.append(fused_srk_inputs(fields[k].bind(member_paths[k]),
-                                       member_paths[k], grid, y0s[k], dW,
-                                       I10))
-    ys = FusedSRK.apply({k: inputs[0][k] for k in _MODE_KEYS},
+        inputs.append(srk_precision_inputs(
+            fused_srk_inputs(fields[k].bind(member_paths[k]),
+                             member_paths[k], grid, y0s[k], dW, I10),
+            stream_dtype, matmul))
+    ys = FusedSRK.apply(srk_solve_modes(inputs[0]),
                         *_stack_inputs(inputs, _SRK_ARGS))
     return _out(y0s, ys, out_idx)
 
 
 def fused_cde_solve_packed(funcs: Sequence, path, times, z0s: torch.Tensor,
                            dt: Optional[float] = None, method: str = "rk4",
-                           paths=None, stream_dtype=None) -> torch.Tensor:
+                           paths=None, stream_dtype=None,
+                           matmul=None) -> torch.Tensor:
     """Solve K identically-configured CDE fields (FinalTanh,
     SingleHiddenLayer or GRUODEField) in one launch of the CDE kernels
     (multi.py:505-553): z0s [K, B, H]; `paths` one control path per member
     (the robustness sweep's seeds each carry their own missingness), else
-    every member reads `path`. Member i is fused_cde_solve(funcs[i], ...)
-    bit for bit under the same plan. Returns zs [K, T, B, H]. Exact fp32
-    only, as fused_cde_solve (bf16 asked here or by the environment raises,
-    K5)."""
+    every member reads `path`; `stream_dtype` and `matmul` as
+    fused_cde_solve's. Member i is fused_cde_solve(funcs[i], ...) bit for
+    bit under the same plan, in every precision. Returns zs [K, T, B, H]."""
     from ..models.neuralsde import resolve_dt
 
     K = len(funcs)
@@ -190,12 +193,11 @@ def fused_cde_solve_packed(funcs: Sequence, path, times, z0s: torch.Tensor,
     member_paths = _member_paths(path, paths, K)
     dt = resolve_dt(times, floor=0.0) if dt is None else dt
     grid, out_idx = make_grid(times, dt)
-    inputs = [fused_cde_inputs(funcs[k], member_paths[k], grid, z0s[k],
-                               method) for k in range(K)]
-    require_fp32("the fused CDE solve", "K5", stream_dtype,
-                 operands=inputs[0]["act"] != "gruode")
+    inputs = [cde_precision_inputs(
+        fused_cde_inputs(funcs[k], member_paths[k], grid, z0s[k], method),
+        stream_dtype, matmul) for k in range(K)]
     ys = FusedCDE.apply(*_stack_inputs(inputs, _CDE_ARGS), method,
-                        inputs[0]["act"])
+                        inputs[0]["act"], inputs[0]["prec"])
     return _out(z0s, ys, out_idx)
 
 

@@ -9,8 +9,10 @@ CPU tensors, and what chip_smoke.py holds the CUDA kernels against) with the
 same weights (snsde_torch.convert), control path and Brownian increments,
 drawn with numpy. Under bf16x3 a solve moves from exact fp32 by ~1e-5 of a
 gradient's scale, below any bar a solve can hold, so the split is also held
-at the level of one product. The SRK, CDE, GRU and LSTM entries have no
-reduced modes yet and must raise where one is asked for.
+at the level of one product. The SRK and CDE entries resolve a request as
+JAX's do (their modes: tests/test_torch_fused_{srk,cde}_precision.py); the
+GRU and LSTM entries have no reduced modes yet and must raise where one is
+asked for.
 """
 
 import torch_threads  # noqa: F401  (one intra-op thread)
@@ -393,57 +395,88 @@ def test_plain_versions_keep_the_forward_carry_and_round_the_trajectory():
     assert not torch.equal(ns16.nb, ns32.nb)
 
 
+def _asked(monkeypatch, how):
+    """A reduced precision asked as a user asks it, and the mode JAX's
+    entry resolves from the same request (fused_srk.py:661-666, :703;
+    fused_cde.py:650-655, :697): by the environment, SNSDE_FUSED_STREAM=
+    bf16 and SNSDE_FUSED_MATMUL=bf16x3; by argument, stream_dtype=bf16 over
+    SNSDE_FUSED_STREAM=f32 (the argument wins), the operands from
+    SNSDE_FUSED_MATMUL=bf16 (JAX's entries take no operand argument).
+    (keyword arguments of the port's call, (stream, matmul) resolved)."""
+    from snsde.kernels.fused_em import _mm_mode
+
+    if how == "argument":
+        _jax_modes(monkeypatch, "bf16", "f32")
+        kw, stream = dict(stream_dtype=torch.bfloat16), "bf16"
+    else:
+        _jax_modes(monkeypatch, "bf16x3", "bf16")
+        kw, stream = {}, "bf16"
+    return kw, (stream, {False: "f32", "x3": "bf16x3",
+                         True: "bf16"}[_mm_mode()])
+
+
 @pytest.mark.parametrize("how", ["argument", "environment"])
-def test_srk_solve_raises_naming_k4(monkeypatch, how):
-    """fused_srk_solve has no reduced modes yet: bf16 streams asked by the
-    caller, or bf16x3 operands by SNSDE_FUSED_MATMUL, raise naming K4
-    instead of computing exact fp32."""
+def test_srk_solve_selects_the_mode_as_jax(monkeypatch, how):
+    """fused_srk_solve and its packed form take a reduced precision asked
+    by argument or by the environment as JAX's entry resolves it: the
+    result is the explicit solve in that mode bit for bit (and parts from
+    exact fp32)."""
     times, x, y0, _ = _setting(Bn=3, width=4)
-    field = DiffusionField(C, 4, 4, 1, input_option=4, noise_option=17)
+    field = DiffusionField(C, 4, 4, 1, input_option=4, noise_option=17,
+                           generator=torch.Generator().manual_seed(0))
     path = CubicPath(hermite_cubic_coeffs(torch.as_tensor(times),
                                           torch.as_tensor(x)), times)
-    kw = {}
-    if how == "argument":
-        kw["stream_dtype"] = torch.bfloat16
-    else:
-        monkeypatch.setenv("SNSDE_FUSED_MATMUL", "bf16x3")
-    with pytest.raises(NotImplementedError, match="K4"):
-        fused_srk_solve(field.bind(path), path, times, torch.as_tensor(y0),
-                        generator=torch.Generator().manual_seed(0), **kw)
-    with pytest.raises(NotImplementedError, match="K4"):
-        multi.fused_srk_solve_packed(
+
+    def run(**kw):
+        return fused_srk_solve(field.bind(path), path, times,
+                               torch.as_tensor(y0),
+                               generator=torch.Generator().manual_seed(0),
+                               **kw)
+
+    def packed(**kw):
+        return multi.fused_srk_solve_packed(
             [field], path, times, torch.as_tensor(y0)[None],
-            [torch.Generator().manual_seed(0)], **kw)
+            [torch.Generator().manual_seed(0)], **kw)[0]
+
+    with torch.no_grad():
+        kw, (stream, matmul) = _asked(monkeypatch, how)
+        asked = run(**kw), packed(**kw)
+        monkeypatch.delenv("SNSDE_FUSED_STREAM")
+        monkeypatch.delenv("SNSDE_FUSED_MATMUL")
+        want = run(stream_dtype=_dtype(stream), matmul=matmul)
+        exact = run()
+    assert torch.equal(asked[0], want) and torch.equal(asked[1], want)
+    assert not torch.equal(want, exact)
 
 
 @pytest.mark.parametrize("how", ["argument", "environment"])
-def test_cde_solve_raises_naming_k5(monkeypatch, how):
-    """fused_cde_solve likewise raises naming K5 for bf16 streams of any
-    field (the argument or the environment) and bf16 operands of an MLP
-    field (the environment); the GRU-ODE field's operands stay exact fp32
-    whatever is asked, as JAX pins them (fused_cde.py:691-697), so bf16
-    operands alone run it."""
+def test_cde_solve_selects_the_mode_as_jax(monkeypatch, how):
+    """fused_cde_solve and its packed form likewise, for an MLP field (the
+    mode as JAX resolves it) and for the GRU-ODE field, whose operands stay
+    exact fp32 whatever is asked (fused_cde.py:691-697): its result is the
+    solve with the asked streams and fp32 operands bit for bit."""
     times, x, _, _ = _setting(Bn=3, width=4)
     path = CubicPath(hermite_cubic_coeffs(torch.as_tensor(times),
                                           torch.as_tensor(x)), times)
-    z0 = torch.zeros(3, 4)
+    z0 = torch.linspace(-1.0, 1.0, 12).reshape(3, 4)
     mlp = FinalTanh(C, 4, 4, 1, generator=torch.Generator().manual_seed(0))
     gru = GRUODEField(C, 4, generator=torch.Generator().manual_seed(0))
-    monkeypatch.setenv("SNSDE_FUSED_MATMUL", "bf16")
-    with pytest.raises(NotImplementedError, match="K5"):
-        fused_cde_solve(mlp, path, times, z0)
     with torch.no_grad():
-        zs = fused_cde_solve(gru, path, times, z0)
-    assert torch.isfinite(zs).all()
-    streams = {}
-    if how == "argument":
-        streams = dict(stream_dtype=torch.bfloat16)
-    else:
-        monkeypatch.setenv("SNSDE_FUSED_STREAM", "bf16")
-    with pytest.raises(NotImplementedError, match="K5"):
-        fused_cde_solve(gru, path, times, z0, **streams)
-    with pytest.raises(NotImplementedError, match="K5"):
-        multi.fused_cde_solve_packed([gru], path, times, z0[None], **streams)
+        kw, (stream, matmul) = _asked(monkeypatch, how)
+        kw["dt"] = 0.1
+        asked = {f: (fused_cde_solve(f, path, times, z0, **kw),
+                     multi.fused_cde_solve_packed([f], path, times, z0[None],
+                                                  **kw)[0])
+                 for f in (mlp, gru)}
+        monkeypatch.delenv("SNSDE_FUSED_STREAM")
+        monkeypatch.delenv("SNSDE_FUSED_MATMUL")
+        for f, mm in ((mlp, matmul), (gru, "f32")):
+            want = fused_cde_solve(f, path, times, z0, dt=0.1,
+                                   stream_dtype=_dtype(stream), matmul=mm)
+            assert torch.equal(asked[f][0], want)
+            assert torch.equal(asked[f][1], want)
+            assert not torch.equal(want, fused_cde_solve(f, path, times, z0,
+                                                         dt=0.1))
 
 
 @pytest.mark.parametrize("kind,item", [("gru", "K6"), ("lstm", "K7")])

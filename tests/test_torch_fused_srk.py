@@ -216,21 +216,28 @@ def test_backward_reference_is_autograd_of_forward(io, no, n_inner):
 def _split_backward(y0, ys, gys, xh0, xh1, dw, i10, a0, a1, gk0, gk1, gk2,
                     dts, theta, wy, w_inner, b_inner, wout, bo, wn1=None,
                     wn2=None, bn2=None, *, mult_y, geometric, drift="embm",
-                    noise="precomp", elem=0, ns=None):
+                    noise="precomp", elem=0, ns=None, stream="f32",
+                    matmul="f32"):
     """The card's backward in plain form: the recurrence's plain version,
-    then the weight-gradient kernel's plain version on its streams."""
+    then the weight-gradient kernel's plain version on its streams (with
+    bf16 streams over the rounded states, dxh handed back in bf16; in a
+    reduced precision the nets' streams the recurrence's own)."""
     st = fs.fused_srk_backward_recurrence_reference(
         y0, ys, gys, xh0, xh1, dw, i10, a0, a1, gk0, gk1, gk2, dts, theta,
         wy, w_inner, b_inner, wout, bo, wn1, wn2, bn2, mult_y=mult_y,
-        geometric=geometric, drift=drift, noise=noise, elem=elem, ns=ns)
-    nst, nh = (None, None) if ns is None else (ns.nst, ns.nh)
+        geometric=geometric, drift=drift, noise=noise, elem=elem, ns=ns,
+        stream=stream, matmul=matmul)
+    reduced = stream == "bf16" or matmul != "f32"
+    nst, nh = (st.nst, st.nh) if reduced or ns is None else (ns.nst, ns.nh)
+    y0r = y0.to(ys.dtype).to(y0.dtype)
     w = fs.fused_srk_weight_grads_reference(
-        y0, ys, st.h01, st.dxh, st.hs, st.es, st.dz3, st.q, nst, st.dn,
-        st.dz2, nh, drift=drift, noise=noise)
+        y0r, ys, st.h01, st.dxh, st.hs, st.es, st.dz3, st.q, nst, st.dn,
+        st.dz2, nh, drift=drift, noise=noise, matmul=matmul)
     yy = drift == "yy"
     da = (None, None) if w.da is None else (w.da[0], w.da[1])
     dgk = (None,) * 3 if w.dgk is None else (w.dgk[0], w.dgk[1], w.dgk[2])
-    out = (st.dy0, None if yy else st.dxh[0], None if yy else st.dxh[1],
+    dxh = st.dxh if yy else st.dxh.to(xh0.dtype)
+    out = (st.dy0, None if yy else dxh[0], None if yy else dxh[1],
            *da, *dgk, st.dtheta, w.dwy, w.dw_inner, w.db_inner, w.dwout,
            w.dbo)
     if noise in ("net1", "net2"):
