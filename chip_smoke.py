@@ -360,6 +360,41 @@ Phases, each of which raises on failure:
      through the plain versions on the card (precision_sepsis_path); each combination's ms a launch beside
      the fp32 instances' (precision_times), the kernels line's
      `fused_em_*_<matmul>_<stream>s` entries.
+ 17. the SRK and CDE pairs' reduced precisions (their kernels of their
+     own, csrc/fused_srk_red.cu and fused_cde_red.cu): (a) every
+     combination of each pair against its plain versions at MuJoCo's and
+     bench.py's shapes, the sweep's width and the CDE cases
+     (check_reduced: phase 16's bars, then the plain version in the
+     kernel's order of sums, one-flip rows, the float64 rule; a control
+     in another operand mode failing the forward's bar), (b) the packed
+     launches bit for bit their solo ones and the fp32 SRK and CDE
+     checksums against the parent's, (c) bench.py's srk configuration,
+     run_mujoco and neuralcde at uea_rk4 in bench.py's precision; their
+     times and the kernels line's `*_reduced` entries.
+ 18. the GRU and LSTM pairs' reduced precisions (the reduced instances of
+     csrc/fused_rnn.cu's templates): (a) every configuration of both
+     pairs (RED_RNN_MODES: the GRU plain, with the per-sample decay, obs,
+     the decay row and the evolve; the LSTM plain, evolve, sel, tg and
+     TLSTM) at the sweep's shape in every combination, the plain pairs at
+     RNN_BENCH's H=128 in every combination, every configuration at
+     RNN_MODE_WIDE (a cluster of 8) and the GRU at INTERP_GRU's two BiGRU
+     shapes in bench.py's combination, forward, backward recurrence and
+     weight-gradient kernels against their plain versions
+     (check_rnn_reduced: phase 16's bars, the plain version in the
+     kernel's order of sums, the float64 rule; the controls in another
+     operand mode: the forward failing its bar, the backward's
+     cotangents PREC_SPREAD times further from the plain version in rms),
+     and the fp32 instances' checksum against PARENT_RNN_CHECKSUM, beside
+     the SRK and EM builds;
+     (c) every recurrent sweep name (RNN_MODELS, TIME_MODELS) on the sweep
+     cell for one epoch and run_activity for 2 epochs in bench.py's
+     precision set through the environment (finite results, the reduced
+     instances launched, activity's train loss each epoch beside main path
+     13's fp32 run); the plain instances' times in every combination at
+     the sweep's shape and at H=128 (phase18_times), the kernels line's
+     `fused_{gru,lstm}_*_reduced` entries.
+Phases 16, 17 and 18 hold their kernels by one comparison ladder
+(hold_forward, hold_control, hold_grads, hold_wgrads, hold_modes_apart).
 It prints one JSON line of the kernels (each SDE kernel with the `modes`
 it takes; the packed launches, the hybrids' and the time-aware LSTMs'
 instances, TLSTM's W_d gradient and the CDE pair's gruode instances and
@@ -664,9 +699,10 @@ def _dbl(t):
 
 
 def _kernel_modules():
-    from snsde_torch.kernels import fused_cde, fused_em, fused_srk
+    from snsde_torch.kernels import fused_cde, fused_em, fused_rnn, fused_srk
 
-    return {"em": fused_em, "srk": fused_srk, "cde": fused_cde}
+    return {"em": fused_em, "srk": fused_srk, "cde": fused_cde,
+            "rnn": fused_rnn}
 
 
 def kernel_fns(key):
@@ -5932,6 +5968,7 @@ def activity_path():
           f"{ {k: v for k, v in launches.items() if v} }", flush=True)
     if not np.isfinite(losses).all():
         raise AssertionError("non-finite loss on the activity path")
+    ACTIVITY_RUN["history"] = res.history
     if res.parameters != ACTIVITY_PARAMS:
         raise AssertionError(f"activity: {res.parameters} parameters")
     steps = cfg.max_epochs * -(-len(activity_splits(ACTIVITY["n"], 0)[0])
@@ -7322,75 +7359,307 @@ def forward_bar(ys, p, dn):
     return float(d.max()), _rms(d), bar, over
 
 
+# ---------------------------------------------------------------------------
+# The comparison ladder of the reduced precisions (phases 16, 17 and 18)
+# ---------------------------------------------------------------------------
+
+# the operand modes whose products a mode's are told from (hold_wgrads: a
+# tenth of their gap): bf16x3 from one bf16 pass (from exact fp32 it is
+# ~2^-17 a term, below the fp32 sums' own order: the CPU product test
+# holds that), bf16 from both
+OTHER_MODES = {"f32": (), "bf16x3": ("bf16",), "bf16": ("f32", "bf16x3")}
+
+
+def _once(fn):
+    """A callable giving fn()'s result, computed at its first call."""
+    kept = []
+
+    def get():
+        if not kept:
+            kept.append(fn())
+        return kept[0]
+    return get
+
+
+def _named(g):
+    """{field: tensor} of a NamedTuple of outputs (None where absent)."""
+    return dict(zip(g._fields, g)) if g is not None else {}
+
+
+def rounding_bar(k, pc, dn):
+    """A bf16 trajectory k against the plain version's unrounded one pc
+    (the fp32 carry it rounds), whose nudged run moved by dn: every entry's
+    excess of |k - pc| over half a bf16 ulp of pc (the most rounding pc
+    itself moves it: a carry an fp32 ulp from pc's that flips a rounding
+    costs no more) within the larger of TOL_YS of max|pc| and PREC_SPREAD
+    times the nudged move's largest entry, and the excess's rms within
+    PREC_SPREAD times the nudged move's rms plus TOL_YS of pc's. (the
+    largest |k - pc|, the excess's rms, the rms bar, the excess over the
+    entries' bar (> 0: failed)), as forward_bar's."""
+    pc = pc.float()
+    half = torch.ldexp(torch.ones_like(pc), torch.frexp(pc)[1] - 9) * (pc != 0)
+    d = (k.float() - pc).abs()
+    ex = (d - half).clamp_min(0.0)
+    floor = max(TOL_YS * float(pc.abs().max()), PREC_SPREAD * float(dn.max()))
+    bar = PREC_SPREAD * _rms(dn) + TOL_YS * _rms(pc)
+    return float(d.max()), _rms(ex), bar, float((ex - floor).max())
+
+
+def _parting(ys, p, dn):
+    """Where a trajectory `ys` parts from the plain version's `p` past
+    forward_bar's entries' bar: the rows, and for the first eight their
+    first step past it."""
+    d = (ys.float() - p).abs()
+    floor = max(TOL_YS * float(p.abs().max()), PREC_SPREAD * float(dn.max()))
+    past = d > PREC_ULP * p.abs() + floor            # [M, B, H]
+    rows = past.any(2).any(0).nonzero().flatten().tolist()
+    first = {r: int(past[:, r].any(1).nonzero()[0]) for r in rows[:8]}
+    return (f"{len(rows)} of {ys.shape[1]} rows past the entries' bar "
+            f"(row: its first step past it {first})")
+
+
+def _red_f64_rule(name, k, p, ref):
+    """The float64 rule for a reduced precision's output: the kernel's and
+    the float32 plain version's errors from the plain version run in
+    float64 in the same mode (its operands rounded or split from float64
+    values), over the largest entry. (the rms rule: the kernel's rms at
+    most F64_FACTOR times the plain version's plus F64_FLOOR; the largest
+    entry's: at most YS_F64_FACTOR times the plain version's, capped at
+    F64_NO_DIGIT; a printable reading)."""
+    (k_max, k_rms), (p_max, p_rms) = _errs64(k, ref), _errs64(p, ref)
+    return (k_rms <= F64_FACTOR * p_rms + F64_FLOOR,
+            k_max <= min(max(YS_F64_FACTOR * p_max, TOL_YS), F64_NO_DIGIT),
+            f"{name} from float64, largest/rms: kernel {k_max:.2e}/"
+            f"{k_rms:.2e}, float32 plain {p_max:.2e}/{p_rms:.2e}")
+
+
+def _f64_holds(flags, name, k, p, ref):
+    """The float64 rule (_red_f64_rule) on an output: its rms and its
+    largest entry, the largest entry not held only with sqrt noise
+    (noise_option SQRT_NOISE), where a flip near y = 0 moves an entry by
+    its full size. (holds, reading)"""
+    rms_ok, max_ok, reading = _red_f64_rule(name, k, p, ref)
+    if not max_ok and flags.get("elem") == SQRT_NOISE:
+        reading += " (largest entry not held: sqrt noise)"
+        max_ok = True
+    return rms_ok and max_ok, reading
+
+
+def hold_forward(label, name, k, p, nudged, ordered=None, flips=None,
+                 f64=None, bar=forward_bar, flags=None):
+    """One forward output `k` of a reduced launch against the plain
+    version's `p`, held by the first rung of the ladder that holds:
+    `bar` (forward_bar; rounding_bar for a bf16 trajectory against the
+    plain version's unrounded carry) with no spread; the same bar with the
+    move of the nudged plain run `nudged()` (every pre-activation or
+    product operand one fp32 ulp up: where a 1-ulp difference of two sums
+    flips a bf16 rounding, the kernel may move PREC_SPREAD times as far);
+    `bar` against the plain version with its sums in the kernel's order
+    `ordered()`; `flips(dn)` -> (holds, reading) (rows that one bf16 flip
+    reproduces set aside); the float64 rule (_f64_holds) on `f64()` ->
+    (the float32 plain output, its float64 run). A rung given as None is
+    skipped, and each callable is called only when its rung is reached.
+    Returns (largest error, rms error, rms bar, a reading); raises naming
+    `label` when no rung holds."""
+    pf = p.float()
+    dn = torch.zeros_like(pf)
+    e_max, e_rms, rms_bar, over = bar(k, pf, dn)
+    if over > 0 or e_rms > rms_bar:
+        dn = (nudged().float() - pf).abs()
+        e_max, e_rms, rms_bar, over = bar(k, pf, dn)
+    reading = (f"{name} max abs err {e_max:.3e}, rms {e_rms:.3e} (bar "
+               f"{rms_bar:.3e}); the nudged plain version's "
+               f"{float(dn.max()):.3e}, rms {_rms(dn):.3e} (past the "
+               f"entries' bar by {max(over, 0.0):.3e})")
+    ok = over <= 0 and e_rms <= rms_bar
+    if not ok and bar is forward_bar:
+        reading += "; " + _parting(k, pf, dn)
+    if not ok and ordered is not None:
+        po = ordered().float()
+        o_max, o_rms, o_bar, o_over = bar(k, po, dn)
+        ok = o_over <= 0 and o_rms <= o_bar
+        reading += (f"; against the plain version with its sums in the "
+                    f"kernel's order: max abs err {o_max:.3e}, rms "
+                    f"{o_rms:.3e} (bar {o_bar:.3e}; past the entries' bar "
+                    f"by {max(o_over, 0.0):.3e})")
+        if not ok and bar is forward_bar:
+            reading += ", " + _parting(k, po, dn)
+    if not ok and flips is not None:
+        ok, r = flips(dn)
+        reading += r and "; " + r
+    if not ok and f64 is not None:
+        p32, ref = f64()
+        ok, r = _f64_holds(flags or {}, name, k, p32, ref.double())
+        reading += "; " + r
+    if not ok:
+        raise AssertionError(f"{label}: forward kernel's {name} off by more "
+                             f"than one bf16 ulp and the plain version's "
+                             f"spread, in either order of the plain "
+                             f"version's sums, and than the float64 rule "
+                             f"allows ({reading})")
+    return e_max, e_rms, rms_bar, reading
+
+
+def hold_control(label, wrong, k_wrong, p, nudged, bar=forward_bar,
+                 over=""):
+    """A forward bar's control: the kernel run in the operand mode `wrong`
+    (PREC_CONTROL) must fail `bar` against this mode's plain version `p`
+    with the nudged plain run's move (`nudged()`), or the bar could not
+    tell the modes apart."""
+    pf = p.float()
+    dn = (nudged().float() - pf).abs()
+    c_max, c_rms, c_bar, c_over = bar(k_wrong, pf, dn)
+    print(f"    control: the kernel in {wrong} operands against this plain "
+          f"version{over}: max abs err {c_max:.3e}, rms {c_rms:.3e} "
+          f"({c_rms / c_bar:.2f}x the rms bar; past the entries' bar by "
+          f"{max(c_over, 0.0):.3e})", flush=True)
+    if c_over <= 0 and c_rms <= c_bar:
+        raise AssertionError(f"{label}: the forward's bar does not tell the "
+                             f"kernel in {wrong} operands from this mode")
+
+
+def hold_grads(g_k, g_p, nudged, ordered=None, f64=None, flags=None):
+    """Each cotangent of a reduced backward (dicts by name; None, empty
+    and all-zero plain outputs skipped) against the plain version's:
+    within PREC_TOL of its largest entry or PREC_SPREAD times the move of
+    the nudged plain run `nudged()`; else against the plain version with
+    its sums in the kernel's order (`ordered()`); else by the float64 rule
+    (`f64()`: the plain version in float64). A rung given as None is
+    skipped, and each callable is called once, when first needed. (the
+    outputs failing every rung, the largest abs error, the output closest
+    to its bar, notes of the later rungs)"""
+    nudged, ordered = _once(nudged), ordered and _once(ordered)
+    f64 = f64 and _once(f64)
+    failed, err_b, worst, notes = [], 0.0, "", []
+    for name, b in g_p.items():
+        a = g_k.get(name)
+        if b is None or a is None or not b.numel() or \
+                not float(b.abs().max()):
+            continue
+        rel, tol = _rel(a, b), PREC_TOL
+        if rel > tol:
+            tol = max(tol, PREC_SPREAD * _rel(nudged()[name], b))
+        err_b = max(err_b, float((a.float() - b.float()).abs().max()))
+        worst = max(worst, f"{rel / tol:.3f} {name} {rel:.2e}/{tol:.2e}")
+        if rel <= tol:
+            continue
+        if ordered:
+            rel_o = _rel(a, ordered()[name])
+            notes.append(f"{name} {rel_o:.2e} from the plain version in the "
+                         f"kernel's order of sums")
+            if rel_o <= tol:
+                continue
+        if f64:
+            ok, r = _f64_holds(flags or {}, name, a, b, f64()[name].double())
+            notes.append(r)
+            if ok:
+                continue
+        failed.append(name)
+    return failed, err_b, worst, notes
+
+
+def hold_wgrads(label, w_k, w_p, others):
+    """Weight-gradient kernels alone, on the plain recurrence's streams
+    (the same operands: no flips), against their plain versions (dicts by
+    name; None and all-zero plain outputs skipped): each within PREC_TOL
+    of its largest entry, and each product's output (one whose plain
+    versions in this mode's OTHER_MODES differ: not a bias's sum) within a
+    tenth of the gap from this mode's plain output to the nearest other
+    mode's (`others`: the plain outputs a mode). (the largest abs error,
+    the largest share of a gap and its output)"""
+    err_w, split = 0.0, ""
+    for name, b in w_p.items():
+        a = w_k[name]
+        if b is None or not b.numel() or not float(b.abs().max()):
+            continue
+        err = float((a.float() - b.float()).abs().max())
+        err_w = max(err_w, err)
+        if _rel(a, b) > PREC_TOL:
+            raise AssertionError(f"{label}: weight-gradient kernel disagrees "
+                                 f"on {name}: {_rel(a, b):.3e}")
+        gap = min((float((o[name].float() - b.float()).abs().max())
+                   for o in others), default=0.0)
+        if gap > 0:
+            split = max(split, f"{err / gap:.3f} {name}")
+            if err > 0.1 * gap:
+                raise AssertionError(f"{label}: the weight gradient's {name} "
+                                     f"is {err:.3e} from the plain version's,"
+                                     f" not a tenth of the gap to another "
+                                     f"operand mode ({gap:.3e})")
+    return err_w, split
+
+
+def hold_modes_apart(label, wrong, g_k, g_w, g_p):
+    """A backward's control: each cotangent of the kernel in this operand
+    mode (`g_k`) lies at least PREC_SPREAD times nearer, in root-mean-square,
+    to this mode's plain version (`g_p`) than the kernel's in PREC_CONTROL's
+    mode `wrong` (`g_w`) does. The cotangents' PREC_TOL bar alone cannot
+    tell the modes apart at narrow widths (bf16 from fp32 operands moves
+    W_hh's gradient by ~2e-3 of its largest entry at H=16, h0's by less).
+    Returns the largest ratio and its output."""
+    worst = ""
+    for name, b in g_p.items():
+        if b is None or not b.numel() or not float(b.abs().max()):
+            continue
+        e_k = _rms(g_k[name].float() - b.float())
+        e_w = _rms(g_w[name].float() - b.float())
+        worst = max(worst, f"{e_k / e_w if e_w else float('inf'):.3f} "
+                           f"{name}")
+        if PREC_SPREAD * e_k >= e_w:
+            raise AssertionError(f"{label}: the backward kernel's {name} is "
+                                 f"{e_k:.3e} (rms) from this mode's plain "
+                                 f"version, the kernel's in {wrong} operands "
+                                 f"{e_w:.3e}: not {PREC_SPREAD:g} times "
+                                 f"nearer")
+    return worst
+
+
 def check_precision(label, fwd, flags, gys, control=False):
     """An EM launch in a reduced precision against its plain versions on
-    the same inputs. The forward's trajectory by forward_bar: within one
-    bf16 ulp plus TOL_YS of max|ys| or, where the plain version moves
-    further when every pre-activation moves one fp32 ulp (nudged_relu: a
-    1-ulp difference can flip an operand's bf16 rounding, and 71 steps
-    amplify the flips, the more with single-pass bf16 operands),
-    PREC_SPREAD times that move, and in root-mean-square PREC_SPREAD times
-    the nudged move's plus TOL_YS of the trajectory's. With `control`, the
-    kernel run in PREC_CONTROL's operand mode must fail that bar. Its
-    noise-net streams, and the backward (recurrence and weight gradient, on
-    the plain forward's trajectory and streams), by PREC_TOL of each
-    output's largest entry or PREC_SPREAD times the nudged plain version's
-    move. The weight-gradient kernel alone (on the plain recurrence's
-    streams: the same operands, no flips) by PREC_TOL, and in a reduced
-    operand mode each weight within a tenth of the gap from this mode's
-    plain product to the other modes' (bf16x3's to one bf16 pass, bf16's to
-    fp32 and bf16x3: so bf16 is a single pass). Returns the largest errors
-    of the forward, the backward and the weight gradient."""
+    the same inputs, by the ladder's first rungs: the forward's trajectory
+    by forward_bar (hold_forward: within one bf16 ulp plus TOL_YS of
+    max|ys| or, where the plain version moves further when every
+    pre-activation moves one fp32 ulp (nudged_relu: a 1-ulp difference can
+    flip an operand's bf16 rounding, and 71 steps amplify the flips, the
+    more with single-pass bf16 operands), PREC_SPREAD times that move, and
+    in root-mean-square PREC_SPREAD times the nudged move's plus TOL_YS of
+    the trajectory's). With `control`, the kernel run in PREC_CONTROL's
+    operand mode must fail that bar (hold_control). Its noise-net streams,
+    and the backward (recurrence and weight gradient, on the plain
+    forward's trajectory and streams), by PREC_TOL of each output's
+    largest entry or PREC_SPREAD times the nudged plain version's move
+    (hold_grads). The weight-gradient kernel alone (on the plain
+    recurrence's streams: the same operands, no flips) by hold_wgrads
+    (PREC_TOL, and in a reduced operand mode each weight within a tenth of
+    the gap from this mode's plain product to the other modes': so bf16 is
+    a single pass). Returns the largest errors of the forward, the
+    backward and the weight gradient."""
     from snsde_torch.kernels import fused_em as fe
 
     ys_k, ns_k = fe.fused_em_forward(*fwd, **flags)
     ys_p, ns_p = fe.fused_em_forward_reference(*fwd, **flags)
-    ys_n, ns_n = fe.fused_em_forward_reference(*fwd, **flags,
-                                               relu=nudged_relu)
-    p = ys_p.float()
-    dn = (ys_n.float() - p).abs()
-    err_f, rms_d, rms_bar, over = forward_bar(ys_k, p, dn)
-    print(f"  {label}: ys max abs err {err_f:.3e}, rms {rms_d:.3e} (bar "
-          f"{rms_bar:.3e}); the nudged plain version's {float(dn.max()):.3e}, "
-          f"rms {_rms(dn):.3e} (past the entries' bar by "
-          f"{max(over, 0.0):.3e})")
-    if over > 0 or rms_d > rms_bar:
-        raise AssertionError(f"{label}: forward kernel off by more than one "
-                             f"bf16 ulp and the plain version's spread: "
-                             f"{over:.3e}, rms {rms_d:.3e} (bar "
-                             f"{rms_bar:.3e})")
+    nudged = _once(lambda: fe.fused_em_forward_reference(*fwd, **flags,
+                                                         relu=nudged_relu))
+    err_f, _, _, reading = hold_forward(label, "ys", ys_k, ys_p,
+                                        lambda: nudged()[0])
+    print(f"  {label}: {reading}")
     if control:
         wrong = PREC_CONTROL[flags["matmul"]]
         ys_c, _ = fe.fused_em_forward(*fwd, **dict(flags, matmul=wrong))
-        c_max, c_rms, _, c_over = forward_bar(ys_c, p, dn)
-        print(f"    control: the kernel in {wrong} operands against this "
-              f"plain version: max abs err {c_max:.3e}, rms {c_rms:.3e} "
-              f"({c_rms / rms_bar:.2f}x the rms bar; past the entries' bar "
-              f"by {max(c_over, 0.0):.3e})", flush=True)
-        if c_over <= 0 and c_rms <= rms_bar:
-            raise AssertionError(f"{label}: the forward's bar does not tell "
-                                 f"the kernel in {wrong} operands from this "
-                                 f"mode")
-    for name, a, b, c in zip(ns_k._fields if ns_k else (), ns_k or (),
-                             ns_p or (), ns_n or ()):
-        if b is not None and _rel(a, b) > max(PREC_TOL,
-                                              PREC_SPREAD * _rel(c, b)):
-            raise AssertionError(f"{label}: the nets' {name}: {_rel(a, b)}")
+        hold_control(label, wrong, ys_c, ys_p, lambda: nudged()[0])
+    failed, _, worst, _ = hold_grads(_named(ns_k), _named(ns_p),
+                                     lambda: _named(nudged()[1]))
+    if failed:
+        raise AssertionError(f"{label}: the nets' {failed} ({worst})")
     args = [fwd[0], ys_p, gys] + fwd[1:]
-    g_k = fe.fused_em_backward(*args, **flags, ns=ns_p)
-    g_p = fe.fused_em_backward_reference(*args, **flags, ns=ns_p)
-    g_n = fe.fused_em_backward_reference(*args, **flags, ns=ns_p,
-                                         relu=nudged_relu)
-    err_b, worst = 0.0, ""
-    for name, a, b, c in zip(g_k._fields, g_k, g_p, g_n):
-        if b is None or not b.numel() or not float(b.abs().max()):
-            continue
-        rel, tol = _rel(a, b), max(PREC_TOL, PREC_SPREAD * _rel(c, b))
-        err_b = max(err_b, float((a.float() - b.float()).abs().max()))
-        worst = max(worst, f"{rel / tol:.3f} {name} {rel:.2e}/{tol:.2e}")
-        if rel > tol:
-            raise AssertionError(f"{label}: backward kernel disagrees on "
-                                 f"{name}: {rel:.3e} (tol {tol:.3e})")
+    failed, err_b, worst, _ = hold_grads(
+        _named(fe.fused_em_backward(*args, **flags, ns=ns_p)),
+        _named(fe.fused_em_backward_reference(*args, **flags, ns=ns_p)),
+        lambda: _named(fe.fused_em_backward_reference(
+            *args, **flags, ns=ns_p, relu=nudged_relu)))
+    if failed:
+        raise AssertionError(f"{label}: backward kernel disagrees on "
+                             f"{failed} (closest to its tol: {worst})")
     prec = {k: flags[k] for k in ("stream", "matmul")}
     modes = {k: v for k, v in flags.items() if k not in prec}
     st = fe.fused_em_backward_recurrence_reference(*args, **modes, **prec,
@@ -7400,35 +7669,11 @@ def check_precision(label, fwd, flags, gys, control=False):
     w_k = fe.fused_em_weight_grads(y0s, ys_p, st, nh, drift=flags["drift"],
                                    noise=flags["noise"],
                                    matmul=flags["matmul"])
-    w_p = fe.fused_em_weight_grads_reference(
+    w_p = [_named(fe.fused_em_weight_grads_reference(
         y0s, ys_p, st.dxh, st.hs, st.es, st.dz3, st.q, st.dn, st.dz2, nh,
-        drift=flags["drift"], noise=flags["noise"], matmul=flags["matmul"])
-    # the modes this one must be told from over K = M B rows: bf16x3 from
-    # one bf16 pass (from exact fp32 it is ~2^-17 a term, below the fp32
-    # sums' own order: the CPU product test holds that), bf16 from both
-    others = [fe.fused_em_weight_grads_reference(
-        y0s, ys_p, st.dxh, st.hs, st.es, st.dz3, st.q, st.dn, st.dz2, nh,
-        drift=flags["drift"], noise=flags["noise"], matmul=m)
-        for m in {"f32": (), "bf16x3": ("bf16",),
-                  "bf16": ("f32", "bf16x3")}[flags["matmul"]]]
-    err_w, split = 0.0, ""
-    for i, (name, a, b) in enumerate(zip(w_k._fields, w_k, w_p)):
-        if b is None or not b.numel() or not float(b.abs().max()):
-            continue
-        err = float((a - b).abs().max())
-        err_w = max(err_w, err)
-        if _rel(a, b) > PREC_TOL:
-            raise AssertionError(f"{label}: weight-gradient kernel disagrees "
-                                 f"on {name}: {_rel(a, b):.3e}")
-        gap = min((float((o[i] - b).abs().max()) for o in others),
-                  default=0.0)
-        if gap > 0:         # a product's output (not a column or bias sum)
-            split = max(split, f"{err / gap:.3f} {name}")
-            if err > 0.1 * gap:
-                raise AssertionError(f"{label}: the weight gradient's {name} "
-                                     f"is {err:.3e} from the plain "
-                                     f"version's, not a tenth of the gap to "
-                                     f"another operand mode ({gap:.3e})")
+        drift=flags["drift"], noise=flags["noise"], matmul=m))
+        for m in (flags["matmul"],) + OTHER_MODES[flags["matmul"]]]
+    err_w, split = hold_wgrads(label, _named(w_k), w_p[0], w_p[1:])
     torch.cuda.synchronize()
     print(f"    backward max abs err {err_b:.3e} (closest to its tol: "
           f"ratio, output, rel err / tol: {worst}), weight gradient alone "
@@ -8062,19 +8307,6 @@ def _patched_mm(key, mm):
             setattr(m, name, f)
 
 
-def _parting(ys, p, dn):
-    """Where a trajectory `ys` parts from the plain version's `p` past
-    forward_bar's entries' bar: the rows, and for the first eight their
-    first step past it."""
-    d = (ys.float() - p).abs()
-    floor = max(TOL_YS * float(p.abs().max()), PREC_SPREAD * float(dn.max()))
-    past = d > PREC_ULP * p.abs() + floor            # [M, B, H]
-    rows = past.any(2).any(0).nonzero().flatten().tolist()
-    first = {r: int(past[:, r].any(1).nonzero()[0]) for r in rows[:8]}
-    return (f"{len(rows)} of {ys.shape[1]} rows past the entries' bar "
-            f"(row: its first step past it {first})")
-
-
 class _Bf16Flip:
     """An mm_op for the plain versions in bf16 operands that records how
     near each product's first operand lies to a bf16 rounding midpoint
@@ -8157,18 +8389,6 @@ def _flip_rows(key, fwd, flags, ys_k, p, dn):
     return done, left, "; ".join(notes)
 
 
-def _f64_holds(flags, name, k, p, ref):
-    """The float64 rule (_red_f64_rule) on an output: its rms and its
-    largest entry, the largest entry not held only with sqrt noise
-    (noise_option SQRT_NOISE), where a flip near y = 0 moves an entry by
-    its full size. (holds, reading)"""
-    rms_ok, max_ok, reading = _red_f64_rule(name, k, p, ref)
-    if not max_ok and flags.get("elem") == SQRT_NOISE:
-        reading += " (largest entry not held: sqrt noise)"
-        max_ok = True
-    return rms_ok and max_ok, reading
-
-
 def _prefix(key, fwd, gys, steps):
     """An SRK or CDE launch's inputs cut to its first `steps` steps."""
     order = _kernel_modules()[key]._ARG_ORDER
@@ -8176,21 +8396,6 @@ def _prefix(key, fwd, gys, steps):
                        "gk2", "dts"), "cde": ("dx", "dts")}[key]
     return ([t[:steps].contiguous() if n in stepped and t is not None else t
              for n, t in zip(order, fwd)], gys[:steps].contiguous())
-
-
-def _red_f64_rule(name, k, p, ref):
-    """The float64 rule for a reduced precision's output: the kernel's and
-    the float32 plain version's errors from the plain version run in
-    float64 in the same mode (its operands rounded or split from float64
-    values), over the largest entry. (the rms rule: the kernel's rms at
-    most F64_FACTOR times the plain version's plus F64_FLOOR; the largest
-    entry's: at most YS_F64_FACTOR times the plain version's, capped at
-    F64_NO_DIGIT; a printable reading)."""
-    (k_max, k_rms), (p_max, p_rms) = _errs64(k, ref), _errs64(p, ref)
-    return (k_rms <= F64_FACTOR * p_rms + F64_FLOOR,
-            k_max <= min(max(YS_F64_FACTOR * p_max, TOL_YS), F64_NO_DIGIT),
-            f"{name} from float64, largest/rms: kernel {k_max:.2e}/"
-            f"{k_rms:.2e}, float32 plain {p_max:.2e}/{p_rms:.2e}")
 
 
 def _flipped_rows(key, args, flags):
@@ -8221,152 +8426,105 @@ def _flipped_rows(key, args, flags):
     return sorted(rows & close), sorted(rows - close)
 
 
-def _red_backward(key, label, args, flags):
-    """check_reduced's backward on `args`: each cotangent of the kernel
-    within PREC_TOL of its largest entry or PREC_SPREAD times the move of
-    the nudged plain run, against the plain version or against it with
-    its sums in the kernel's order, else by the float64 rule (_f64_holds).
-    (the outputs
-    failing both, the largest error, the output closest to its bar, the
-    float64 readings taken)."""
-    fwd_k, fwd_p, bwd_k, bwd_p = kernel_fns(key)
-    g_k = bwd_k(*args, **flags)
-    g_p = bwd_p(*args, **flags)
-    g_n = g_ko = g_64 = None
-    failed, err_b, worst, by64 = [], 0.0, "", []
-    for i, (name, a, b) in enumerate(zip(g_k._fields, g_k, g_p)):
-        if b is None or not b.numel() or not float(b.abs().max()):
-            continue
-        rel, tol = _rel(a, b), PREC_TOL
-        if rel > tol:       # the nudged run's spread, taken where needed
-            if g_n is None:
-                with nudged_operands(key):
-                    g_n = bwd_p(*args, **flags)
-            tol = max(tol, PREC_SPREAD * _rel(g_n[i], b))
-        err_b = max(err_b, float((a.float() - b.float()).abs().max()))
-        worst = max(worst, f"{rel / tol:.3f} {name} {rel:.2e}/{tol:.2e}")
-        if rel > tol:       # the plain version in the kernel's order
-            if g_ko is None:
-                with kernel_order_sums(key):
-                    g_ko = bwd_p(*args, **flags)
-            rel_ko = _rel(a, g_ko[i])
-            by64.append(f"{name} {rel_ko:.2e} from the plain version in "
-                        f"the kernel's order of sums")
-            if rel_ko <= tol:
-                continue
-            if g_64 is None:
-                g_64 = bwd_p(_dbl(args[0]), args[1], args[2],
-                             *(_dbl(t) for t in args[3:]), **flags)
-            ok, reading = _f64_holds(flags, name, a, b, g_64[i].double())
-            by64.append(reading)
-            if not ok:
-                failed.append(name)
+def _red_backward(key, args, flags):
+    """check_reduced's backward on `args` (hold_grads): each cotangent of
+    the kernel within PREC_TOL of its largest entry or PREC_SPREAD times
+    the move of the nudged plain run (nudged_operands), against the plain
+    version or against it with its sums in the kernel's order, else by
+    the float64 rule (_f64_holds). (the outputs failing every rung, the
+    largest error, the output closest to its bar, the later rungs'
+    readings)"""
+    bwd_k, bwd_p = kernel_fns(key)[2:]
+
+    def plain(order=None):
+        with order or contextlib.nullcontext():
+            return _named(bwd_p(*args, **flags))
+
+    failed, err_b, worst, notes = hold_grads(
+        _named(bwd_k(*args, **flags)), plain(),
+        lambda: plain(nudged_operands(key)),
+        lambda: plain(kernel_order_sums(key)),
+        lambda: _named(bwd_p(_dbl(args[0]), args[1], args[2],
+                             *(_dbl(t) for t in args[3:]), **flags)),
+        flags)
     torch.cuda.synchronize()
     print(f"    backward max abs err {err_b:.3e} (closest to its tol: ratio, "
           f"output, rel err / tol: {worst}"
-          + (f"; by the float64 rule: {'; '.join(by64)}" if by64 else "")
+          + (f"; by the float64 rule: {'; '.join(notes)}" if notes else "")
           + ")", flush=True)
-    return failed, err_b, worst, by64
+    return failed, err_b, worst, notes
 
 
 def check_reduced(key, label, fwd, flags, gys, control=False):
     """An SRK or CDE launch in a reduced precision against its plain
-    versions on the same inputs. Single-pass bf16 and bf16x3 flip a
-    rounding wherever two fp32 sums part by an ulp at a bf16 boundary, so
-    each output holds if either bar does: phase 16's (the trajectory by
+    versions on the same inputs, by the whole ladder. Single-pass bf16 and
+    bf16x3 flip a rounding wherever two fp32 sums part by an ulp at a bf16
+    boundary, so the trajectory holds if any rung of hold_forward does:
     forward_bar against the plain forward and the move of its run with
-    every product's first operand one ulp up, nudged_operands; a cotangent
-    within PREC_TOL of its largest entry or PREC_SPREAD times that run's
-    move), the same bar against the plain version with its sums in the
-    kernel's order (kernel_order_sums), or the float64 rule (_f64_holds:
-    the kernel no further from the mode's float64 arithmetic than the
-    float32 plain version, which flips too, in rms and in its largest
-    entry; with sqrt noise in rms alone). Where the forward parts, the
-    rows and the steps where it does are printed. With `control`, on the
-    first CONTROL_STEPS steps (before flips pile up) the kernel in
-    PREC_CONTROL's operand mode fails forward_bar.
-    The SRK weight-gradient kernel alone on the plain recurrence's streams
-    (no flips: the same operands) within PREC_TOL, each product's output
-    within a tenth of the gap to another operand mode. Returns the largest
-    errors of the forward, the backward and (SRK) the weight gradient."""
+    every product's first operand one ulp up (nudged_operands), the same
+    bar against the plain version with its sums in the kernel's order
+    (kernel_order_sums), the rows that one bf16 flip reproduces set aside
+    (_flip_rows), or the float64 rule (_f64_holds: the kernel no further
+    from the mode's float64 arithmetic than the float32 plain version,
+    which flips too, in rms and in its largest entry; with sqrt noise in
+    rms alone). Where the forward parts, the rows and the steps where it
+    does are printed. With `control`, on the first CONTROL_STEPS steps
+    (before flips pile up) the kernel in PREC_CONTROL's operand mode fails
+    forward_bar (hold_control). The cotangents by hold_grads, with the
+    rows whose relu flips set aside where they fail (_flipped_rows). The
+    SRK weight-gradient kernel alone on the plain recurrence's streams by
+    hold_wgrads. Returns the largest errors of the forward, the backward
+    and (SRK) the weight gradient."""
     from snsde_torch.kernels import fused_srk as fs
     from snsde_torch.kernels._solver import bf16_round
 
     t0 = time.perf_counter()
     B = gys.shape[1]
-    fwd_k, fwd_p, bwd_k, bwd_p = kernel_fns(key)
+    fwd_k, fwd_p = kernel_fns(key)[:2]
     ys_k = fwd_k(*fwd, **flags)[0]
     ys_p = fwd_p(*fwd, **flags)[0]
     p = ys_p.float()
-    dn = torch.zeros_like(p)
-    err_f, rms_d, rms_bar, over = forward_bar(ys_k, p, dn)
-    if over > 0 or rms_d > rms_bar:     # the nudged run, where needed
+
+    def nudged():
         with nudged_operands(key):
-            dn = (fwd_p(*fwd, **flags)[0].float() - p).abs()
-        err_f, rms_d, rms_bar, over = forward_bar(ys_k, p, dn)
-    in64 = [_dbl(t) for t in fwd]
-    f64_ok, reading = True, "within the bar"
-    if over > 0 or rms_d > rms_bar:
-        # the same bar against the plain version with its sums in the
-        # kernel's order, else the float64 rule
+            return fwd_p(*fwd, **flags)[0]
+
+    def ordered():
         with kernel_order_sums(key):
-            p_ko = fwd_p(*fwd, **flags)[0].float()
-        k_max, k_rms, k_bar, k_over = forward_bar(ys_k, p_ko, dn)
-        f64_ok = k_over <= 0 and k_rms <= k_bar
-        reading = (f"{_parting(ys_k, p, dn)}; against the plain version "
-                   f"with its sums in the kernel's order: max abs err "
-                   f"{k_max:.3e}, rms {k_rms:.3e} (bar {k_bar:.3e}; past "
-                   f"the entries' bar by {max(k_over, 0.0):.3e}), "
-                   f"{_parting(ys_k, p_ko, dn)}")
-        if not f64_ok:
-            # rows that one bf16 flip explains set aside, the rest held
-            done, left, notes = _flip_rows(key, fwd, flags, ys_k, p, dn)
-            if done and not left and len(done) <= max(1, FLIP_ROWS * B):
-                keep = [r for r in range(B) if r not in done]
-                k2, r2, bar2, over2 = forward_bar(ys_k[:, keep], p[:, keep],
-                                                  dn[:, keep])
-                f64_ok = over2 <= 0 and r2 <= bar2
-                reading += (f"; {len(done)} rows one bf16 flip reproduces "
-                            f"({notes}); the other {len(keep)} rows: max "
-                            f"abs err {k2:.3e}, rms {r2:.3e} (bar "
-                            f"{bar2:.3e})")
-            elif done or left:
-                reading += (f"; one bf16 flip reproduces rows {done} "
-                            f"({notes}), not rows {left[:8]}")
-        if not f64_ok:
-            ys_64 = fwd_p(*in64, **flags)[0].double()
-            f64_ok, by64 = _f64_holds(flags, "ys", ys_k, ys_p, ys_64)
-            reading += "; " + by64
-    print(f"  {label}: ys max abs err {err_f:.3e}, rms {rms_d:.3e} (bar "
-          f"{rms_bar:.3e}); the nudged plain version's {float(dn.max()):.3e}"
-          f", rms {_rms(dn):.3e} (past the entries' bar by "
-          f"{max(over, 0.0):.3e}); {reading}", flush=True)
-    if not f64_ok:
-        raise AssertionError(f"{label}: forward kernel off by more than one "
-                             f"bf16 ulp and the plain version's spread "
-                             f"({over:.3e}, rms {rms_d:.3e}, bar "
-                             f"{rms_bar:.3e}), in either order of the plain "
-                             f"version's sums, and than the float64 rule "
-                             f"allows ({reading})")
+            return fwd_p(*fwd, **flags)[0]
+
+    def flips(dn):
+        # rows that one bf16 flip explains set aside, the rest held
+        done, left, notes = _flip_rows(key, fwd, flags, ys_k, p, dn)
+        if done and not left and len(done) <= max(1, FLIP_ROWS * B):
+            keep = [r for r in range(B) if r not in done]
+            k2, r2, bar2, over2 = forward_bar(ys_k[:, keep], p[:, keep],
+                                              dn[:, keep])
+            return (over2 <= 0 and r2 <= bar2,
+                    f"{len(done)} rows one bf16 flip reproduces ({notes}); "
+                    f"the other {len(keep)} rows: max abs err {k2:.3e}, rms "
+                    f"{r2:.3e} (bar {bar2:.3e})")
+        return False, (f"one bf16 flip reproduces rows {done} ({notes}), "
+                       f"not rows {left[:8]}" if done or left else "")
+
+    err_f, _, _, reading = hold_forward(
+        label, "ys", ys_k, ys_p, nudged, ordered, flips,
+        lambda: (ys_p, fwd_p(*(_dbl(t) for t in fwd), **flags)[0]),
+        flags=flags)
+    print(f"  {label}: {reading}", flush=True)
     if control:
         wrong = PREC_CONTROL[flags["matmul"]]
         f2, g2 = _prefix(key, fwd, gys, CONTROL_STEPS)
-        p2 = fwd_p(*f2, **flags)[0].float()
-        with nudged_operands(key):
-            dn2 = (fwd_p(*f2, **flags)[0].float() - p2).abs()
-        ys_c = fwd_k(*f2, **dict(flags, matmul=wrong))[0]
-        c_max, c_rms, bar2, c_over = forward_bar(ys_c, p2, dn2)
-        print(f"    control: the kernel in {wrong} operands against this "
-              f"plain version over the first {CONTROL_STEPS} steps: max abs "
-              f"err {c_max:.3e}, rms {c_rms:.3e} ({c_rms / bar2:.2f}x the rms "
-              f"bar; past the entries' bar by {max(c_over, 0.0):.3e})",
-              flush=True)
-        if c_over <= 0 and c_rms <= bar2:
-            raise AssertionError(f"{label}: the forward's bar does not tell "
-                                 f"the kernel in {wrong} operands from this "
-                                 f"mode")
+
+        def nudged2():
+            with nudged_operands(key):
+                return fwd_p(*f2, **flags)[0]
+
+        hold_control(label, wrong, fwd_k(*f2, **dict(flags, matmul=wrong))[0],
+                     fwd_p(*f2, **flags)[0], nudged2,
+                     over=f" over the first {CONTROL_STEPS} steps")
     args = [fwd[0], ys_p, gys] + fwd[1:]
-    failed, err_b, worst, by64 = _red_backward(key, label, args, flags)
+    failed, err_b, _, _ = _red_backward(key, args, flags)
     if failed:
         # a relu of the recompute within the mode's rounding of 0 lands on
         # either side in the two runs, and moves its row's cotangents (and
@@ -8393,12 +8551,12 @@ def check_reduced(key, label, fwd, flags, gys, control=False):
                for i, t in enumerate(fwd)]
         args = [sub[0], ys_p.index_select(1, keep).contiguous(),
                 gys.index_select(1, keep).contiguous()] + sub[1:]
-        failed, err_b, worst, by64 = _red_backward(key, label, args, flags)
+        failed, err_b, _, _ = _red_backward(key, args, flags)
         if failed:
             raise AssertionError(f"{label}: backward kernel disagrees on "
                                  f"{failed} on the rows without a relu near "
                                  f"0")
-    err_w, split = 0.0, ""
+    err_w = 0.0
     if key == "srk":
         st = fs.fused_srk_backward_recurrence_reference(*args, **flags)
         y0 = (bf16_round(args[0]) if flags["stream"] == "bf16" else args[0])
@@ -8407,32 +8565,11 @@ def check_reduced(key, label, fwd, flags, gys, control=False):
                    st.q, st.nst, st.dn, st.dz2, st.nh)
         w_k = fs.fused_srk_weight_grads(y0, args[1], st, **modes,
                                         matmul=flags["matmul"])
-        w_p = fs.fused_srk_weight_grads_reference(*streams, **modes,
-                                                  matmul=flags["matmul"])
-        others = [fs.fused_srk_weight_grads_reference(*streams, **modes,
-                                                      matmul=m)
-                  for m in {"f32": (), "bf16x3": ("bf16",),
-                            "bf16": ("f32", "bf16x3")}[flags["matmul"]]]
-        for i, (name, a, b) in enumerate(zip(w_k._fields, w_k, w_p)):
-            if b is None or not b.numel() or not float(b.abs().max()):
-                continue
-            err = float((a - b).abs().max())
-            err_w = max(err_w, err)
-            if _rel(a, b) > PREC_TOL:
-                raise AssertionError(f"{label}: weight-gradient kernel "
-                                     f"disagrees on {name}: "
-                                     f"{_rel(a, b):.3e}")
-            gap = min((float((o[i] - b).abs().max()) for o in others),
-                      default=0.0)
-            if gap > 0:
-                split = max(split, f"{err / gap:.3f} {name}")
-                if err > 0.1 * gap:
-                    raise AssertionError(
-                        f"{label}: the weight gradient's {name} is "
-                        f"{err:.3e} from the plain version's, not a tenth "
-                        f"of the gap to another operand mode ({gap:.3e})")
-    torch.cuda.synchronize()
-    if key == "srk":
+        w_p = [_named(fs.fused_srk_weight_grads_reference(*streams, **modes,
+                                                          matmul=m))
+               for m in (flags["matmul"],) + OTHER_MODES[flags["matmul"]]]
+        err_w, split = hold_wgrads(label, _named(w_k), w_p[0], w_p[1:])
+        torch.cuda.synchronize()
         print(f"    weight gradient alone {err_w:.3e} (largest share of the "
               f"gap to another operand mode: {split or 'none'})", flush=True)
     print(f"    ({time.perf_counter() - t0:.1f} s)", flush=True)
@@ -8841,6 +8978,550 @@ def phase17_entries(launches, errs, ms, bounds):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: the GRU and LSTM pairs' reduced-precision modes
+# ---------------------------------------------------------------------------
+
+# the configurations of each pair's reduced instances in phase 18 (a):
+# (pair, mode, label; mode 0 with the per-sample decay "0d")
+RED_RNN_MODES = (("gru", 0, "plain"), ("gru", "0d", "hdec"),
+                 ("gru", 1, "obs"), ("gru", 2, "dec1"), ("gru", 3, "ode"),
+                 ("lstm", 0, "plain"), ("lstm", 1, "ode"), ("lstm", 2, "sel"),
+                 ("lstm", 3, "tg"), ("lstm", 4, "tlstm"))
+# the checksum of the fp32 GRU and LSTM kernels' outputs (rnn_checksum)
+# with the package as it was before the reduced precisions (H100 80GB
+# HBM3)
+PARENT_RNN_CHECKSUM = ("1fb3a0d197f4a55aefe7e1573aee9726b074053159a3d1245b3"
+                       "47b82736beef2")
+# the fp32 activity run of main path 13, which phase 18 (c) sets its run
+# beside
+ACTIVITY_RUN = {}
+
+
+def rnn_red_args(kind, inp, kw, ghs, combo):
+    """A reduced GRU or LSTM launch's inputs in a precision: with bf16
+    streams gi, ghs and the LSTM's sel, tg, tel and evolve steps in bf16
+    (the GRU's h0, decays, mask and evolve steps stay fp32); and the
+    precision's keyword arguments."""
+    matmul, stream = combo
+    prec = dict(stream=stream, matmul=matmul)
+    if stream != "bf16":
+        return inp, kw, ghs, prec
+    bf = lambda t: t.to(torch.bfloat16)
+    kw = dict(kw)
+    if kind == "lstm":
+        for n in ("sel", "tg"):
+            if n in kw:
+                kw[n] = bf(kw[n])
+        if "dec" in kw:
+            kw["dec"] = kw["dec"]._replace(tel=bf(kw["dec"].tel))
+        if "ode" in kw:
+            kw["ode"] = kw["ode"]._replace(dts=bf(kw["ode"].dts))
+    return dict(inp, gi=bf(inp["gi"])), kw, bf(ghs), prec
+
+
+def _rnn_fwd(kind, plain, inp, kw, prec):
+    """{hs; the LSTM's cs and hcell} of a pair's forward kernel, or with
+    plain its plain version."""
+    from snsde_torch.kernels import fused_rnn as fr
+
+    f = getattr(fr, f"fused_{kind}_forward{'_reference' * plain}")
+    if kind == "gru":
+        return {"hs": f(**inp, **kw, **prec)}
+    out = zip(("hs", "cs", "hcell"), f(**inp, save_cs=True, **kw, **prec))
+    return {n: v for n, v in out if v is not None}
+
+
+def _rnn_bwd(kind, plain, inp, kw, ghs, out, prec):
+    """{cotangent name: tensor} of a pair's backward (kernels, or with
+    plain the plain version) on the forward outputs `out`."""
+    from snsde_torch.kernels import fused_rnn as fr
+
+    f = getattr(fr, f"fused_{kind}_backward{'_reference' * plain}")
+    if kind == "gru":
+        g = f(hs=out["hs"], ghs=ghs, **inp, **kw, **prec)
+    else:
+        g = f(hs=out["hs"], cs=out["cs"], ghs=ghs, hcell=out.get("hcell"),
+              **inp, **kw, **prec)
+    return {n: v for n, v in zip(g._fields, g) if v is not None}
+
+
+def _rnn_wgrads(kind, inp, kw, ghs, out, prec, modes):
+    """The weight-gradient kernels alone, in prec's operand mode, and
+    their plain versions in each operand mode of `modes`, on the plain
+    recurrence's streams: ({name: kernel output}, [{name: plain output} a
+    mode]) for dW_hh, db_hh, TLSTM's dW_d, db_d and the evolve's packed
+    dmlp."""
+    from snsde_torch.kernels import fused_rnn as fr
+
+    L, B, H = out["hs"].shape
+    ode = kw.get("ode")
+    if kind == "gru":
+        rec = fr._gru_reverse(hs=out["hs"], ghs=ghs, **inp, **kw, **prec)
+        args = (inp["h0"].to(out["hs"].dtype), out["hs"], rec.dgh,
+                inp.get("hdec"), rec.xin)
+    else:
+        rec = fr._lstm_reverse(hs=out["hs"], cs=out["cs"], ghs=ghs,
+                               hcell=out.get("hcell"), **inp, **kw, **prec)
+        args = (out["hs"], rec.dgw if rec.dgw is not None else rec.dgi)
+
+    def grads(kernel, matmul):
+        ref = "" if kernel else "_reference"
+        res = {}
+        if kind == "gru":
+            w = getattr(fr, f"fused_gru_weight_grads{ref}")(*args,
+                                                           matmul=matmul)
+        else:
+            w = getattr(fr, f"fused_lstm_weight_grads{ref}")(*args,
+                                                            matmul=matmul)
+            if rec.dzd is not None:
+                wd = (fr.fused_lstm_wd_grads if kernel else
+                      fr.fused_lstm_weight_grads_reference)(
+                    out["cs"], rec.dzd, matmul=matmul)
+                res.update(dwd=wd[0], dbd=wd[1])
+        res.update(dwhh=w[0], dbhh=w[1])
+        if ode is not None:
+            res["dmlp"] = getattr(fr, f"fused_mlp_weight_grads{ref}")(
+                rec.acts, rec.dzs, L, B, H, ode, matmul=matmul)
+        return res
+
+    return grads(True, prec["matmul"]), [grads(False, m) for m in modes]
+
+
+def _dbl_inputs(inp, kw, ghs):
+    """float64 copies (bf16 streams' values kept) of a launch's inputs."""
+    return ({n: v.double() for n, v in inp.items()}, _dbl_mode(kw),
+            ghs.double())
+
+
+def check_rnn_reduced(label, kind, inp, kw, ghs, combo, control=()):
+    """A reduced GRU or LSTM launch against its plain versions on the same
+    inputs, by the ladder of phases 16-17: each forward output (hs; the
+    LSTM's cs and, with the evolve, hcell) by hold_forward (with bf16
+    streams hs and cs by rounding_bar against the plain version's
+    unrounded carries: a carry an ulp from the plain version's flips a
+    rounding, by one bf16 ulp, where it lies on a midpoint); the backward
+    kernels (recurrence and weight gradients, on the plain forward's
+    outputs) by hold_grads; the weight-gradient kernels alone on the plain
+    recurrence's streams (the same operands: no flips) by hold_wgrads.
+    The controls, in PREC_CONTROL's operand mode: with "fwd" in `control`
+    the forward kernel fails the forward's bar against this mode's plain
+    version (hold_control); with "bwd" the backward kernels' cotangents
+    lie PREC_SPREAD times further from it than this mode's
+    (hold_modes_apart). Returns the largest errors of the forward, the
+    backward and the weight gradients."""
+    t0 = time.perf_counter()
+    inp, kw, ghs, prec = rnn_red_args(kind, inp, kw, ghs, combo)
+    matmul, rounded = combo[0], combo[1] == "bf16"
+    wrong = PREC_CONTROL[matmul]
+    dbl = _once(lambda: _dbl_inputs(inp, kw, ghs))
+
+    def plain(pr, order=None):
+        with order or contextlib.nullcontext():
+            return _rnn_fwd(kind, True, inp, kw, pr)
+
+    def runs(pr):
+        # the plain forward in precision pr: as it is, nudged, in the
+        # kernel's order of sums, in float64
+        return (_once(lambda: plain(pr)),
+                _once(lambda: plain(pr, nudged_operands("rnn"))),
+                _once(lambda: plain(pr, kernel_order_sums("rnn"))),
+                _once(lambda: _rnn_fwd(kind, True, *dbl()[:2], pr)))
+
+    # with bf16 streams hs and cs are held against the plain version's
+    # unrounded carries
+    own = runs(prec)
+    carry = runs(dict(prec, stream="f32")) if rounded else own
+    k = _rnn_fwd(kind, False, inp, kw, prec)
+    err_f, readings = 0.0, []
+    for name in k:
+        is_carry = rounded and name in ("hs", "cs")
+        p, nudged, ordered, f64 = carry if is_carry else own
+        e, _, _, reading = hold_forward(
+            label, name, k[name], p()[name], lambda: nudged()[name],
+            lambda: ordered()[name], None,
+            lambda: (own[0]()[name], own[3]()[name]),
+            rounding_bar if is_carry else forward_bar)
+        err_f = max(err_f, e)
+        readings.append(reading)
+    print(f"  {label}: {'; '.join(readings)}", flush=True)
+    if "fwd" in control:
+        p, nudged = (carry if rounded else own)[:2]
+        hold_control(label, wrong, _rnn_fwd(kind, False, inp, kw,
+                                            dict(prec, matmul=wrong))["hs"],
+                     p()["hs"], lambda: nudged()["hs"],
+                     rounding_bar if rounded else forward_bar)
+    p = own[0]()
+
+    def plain_bwd(order=None, ins=(inp, kw, ghs), out=p):
+        with order or contextlib.nullcontext():
+            return _rnn_bwd(kind, True, *ins, out, prec)
+
+    g_k = _rnn_bwd(kind, False, inp, kw, ghs, p, prec)
+    g_p = plain_bwd()
+    failed, err_b, worst, notes = hold_grads(
+        g_k, g_p, lambda: plain_bwd(nudged_operands("rnn")),
+        lambda: plain_bwd(kernel_order_sums("rnn")),
+        lambda: plain_bwd(ins=dbl(),
+                          out={n: v.double() for n, v in p.items()}))
+    if failed:
+        raise AssertionError(f"{label}: backward kernel disagrees on "
+                             f"{failed} (closest to its tol: {worst}; "
+                             f"{'; '.join(notes)})")
+    apart = ""
+    if "bwd" in control:
+        apart = hold_modes_apart(label, wrong, g_k, _rnn_bwd(
+            kind, False, inp, kw, ghs, p, dict(prec, matmul=wrong)), g_p)
+    w_k, (w_p, *others) = _rnn_wgrads(kind, inp, kw, ghs, p, prec,
+                                      (matmul,) + OTHER_MODES[matmul])
+    err_w, split = hold_wgrads(label, w_k, w_p, others)
+    torch.cuda.synchronize()
+    print(f"    backward max abs err {err_b:.3e} (closest to its tol: ratio, "
+          f"output, rel err / tol: {worst}"
+          + (f"; {'; '.join(notes)}" if notes else "")
+          + (f"; rms from this mode's plain version over the kernel's in "
+             f"{wrong} operands, largest: {apart}" if apart else "")
+          + f"), weight gradients alone {err_w:.3e} (largest share of the "
+          f"gap to another operand mode: {split or 'none'}); "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return err_f, err_b, err_w
+
+
+def rnn_red_inputs(kind, mode, B, L, H, seed=0):
+    """(inputs, mode kwargs, ghs) of a configuration of RED_RNN_MODES: the
+    plain pairs as phase 3 draws them (rnn_kernel_inputs, C = H; "0d" the
+    GRU with the per-sample decay), a mode as phase 8 does
+    (rnn_mode_inputs)."""
+    if mode in (0, "0d"):
+        _, _, inp, ghs = rnn_kernel_inputs(kind, B, L, H, H,
+                                           dec=mode == "0d", seed=seed)
+        return inp, {}, ghs
+    return rnn_mode_inputs(kind, mode, B, L, H, seed=seed)
+
+
+def phase18_cases():
+    """Phase 18 (a)'s checks, in order: (label, pair, inputs, mode kwargs,
+    ghs, combo, control): every configuration of RED_RNN_MODES at the
+    sweep's shape in every combination (the backward's control in each,
+    the forward's at each pair's first in the bf16-stream combinations:
+    with fp32 streams one bf16 ulp of hs is wider than the gap between
+    two operand modes), the plain pairs at RNN_BENCH's H=128 in every
+    combination (the backward's control), every configuration at
+    RNN_MODE_WIDE (a cluster of 8) and the GRU at INTERP_GRU's two BiGRU
+    shapes in bench.py's combination."""
+    rs, wide = RNN_SWEEP, RNN_MODE_WIDE
+    out = []
+    for kind, mode, name in RED_RNN_MODES:
+        inp, kw, ghs = rnn_red_inputs(kind, mode, rs["B"], rs["L"], rs["H"])
+        for i, combo in enumerate(PREC_COMBOS):
+            out.append((f"{kind.upper()} {name} sweep {prec_label(*combo)}",
+                        kind, inp, kw, ghs, combo,
+                        ("fwd", "bwd") if mode == 0 and i < 3
+                        else ("bwd",)))
+    for kind in ("gru", "lstm"):
+        sh = RNN_BENCH[f"{kind}_h128"]
+        _, _, inp, ghs = rnn_kernel_inputs(kind, sh["B"], sh["L"], sh["C"],
+                                           sh["H"])
+        for combo in PREC_COMBOS:
+            out.append((f"{kind.upper()} plain B=1024 L=72 H=128 "
+                        f"{prec_label(*combo)}", kind, inp, {}, ghs, combo,
+                        ("bwd",)))
+    for kind, mode, name in RED_RNN_MODES:
+        inp, kw, ghs = rnn_red_inputs(kind, mode, wide["B"], wide["L"],
+                                      wide["H"])
+        out.append((f"{kind.upper()} {name} B={wide['B']} L={wide['L']} "
+                    f"H={wide['H']} {prec_label(*PREC_COMBOS[0])}", kind,
+                    inp, kw, ghs, PREC_COMBOS[0], ()))
+    for where, (B, L, C, H) in INTERP_GRU.items():
+        _, _, inp, ghs = rnn_kernel_inputs("gru", B, L, C, H)
+        out.append((f"GRU {where} BiGRU B={B} L={L} H={H} "
+                    f"{prec_label(*PREC_COMBOS[0])}", "gru", inp, {}, ghs,
+                    PREC_COMBOS[0], ()))
+    return out
+
+
+def rnn_checksum():
+    """sha256 of the fp32 GRU and LSTM kernels' outputs, forward and
+    backward (recurrence and weight gradients), at the sweep's shape in
+    every configuration of RED_RNN_MODES and at RNN_BENCH's H=128 (seed 0):
+    the fp32 instances' bits, to hold against PARENT_RNN_CHECKSUM. Uses
+    only entries the package had before the reduced precisions."""
+    import hashlib
+
+    h = hashlib.sha256()
+    rs = RNN_SWEEP
+    cases = [(kind,) + rnn_red_inputs(kind, mode, rs["B"], rs["L"], rs["H"])
+             for kind, mode, _ in RED_RNN_MODES]
+    for kind in ("gru", "lstm"):
+        sh = RNN_BENCH[f"{kind}_h128"]
+        _, _, inp, ghs = rnn_kernel_inputs(kind, sh["B"], sh["L"], sh["C"],
+                                           sh["H"])
+        cases.append((kind, inp, {}, ghs))
+    for kind, inp, kw, ghs in cases:
+        for t in rnn_mode_run(kind, inp, kw, ghs).values():
+            h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def phase18_kernel_checks():
+    """Phase 18 (a): every reduced GRU and LSTM instance (forward, backward
+    recurrence, weight gradients) against its plain version
+    (check_rnn_reduced, phase18_cases), then the fp32 checksum against the
+    parent's. Returns {(pair, combo): largest errors}."""
+    t0 = time.perf_counter()
+    worst = {}
+    for label, kind, inp, kw, ghs, combo, control in phase18_cases():
+        r = check_rnn_reduced(label, kind, inp, kw, ghs, combo, control)
+        worst[(kind, combo)] = [max(a, b) for a, b in
+                                zip(worst.get((kind, combo), r), r)]
+    got = rnn_checksum()
+    print(f"phase 18: the fp32 GRU and LSTM checksum {got} (the parent's "
+          f"{PARENT_RNN_CHECKSUM})", flush=True)
+    if got != PARENT_RNN_CHECKSUM:
+        raise AssertionError("the fp32 GRU or LSTM instances' outputs are "
+                             "not the parent's")
+    print(f"phase 18 (a) in {time.perf_counter() - t0:.1f} s", flush=True)
+    return worst
+
+
+def zero_rnn_red_counts():
+    from snsde_torch.kernels import fused_rnn as fr
+
+    for k in fr.PRECISION_LAUNCHES:
+        fr.PRECISION_LAUNCHES[k] = 0
+
+
+def _rnn_red_launched(combo):
+    """The reduced GRU and LSTM launches in `combo` since the counts were
+    set to 0, by kernel instance (PRECISION_LAUNCHES' kernel names); a
+    weight gradient's in combo's operand mode whatever the dtype of the
+    states it read (the input states of the GRU's modes 2 and 3 and the
+    evolve's streams are fp32 in every precision)."""
+    from snsde_torch.kernels import fused_rnn as fr
+
+    out = {}
+    for key, v in fr.PRECISION_LAUNCHES.items():
+        kernel, mm, st = key.rsplit(" ", 2)
+        if v and mm == combo[0] and (st == combo[1]
+                                     or kernel.endswith("wgrad")):
+            out[kernel] = out.get(kernel, 0) + v
+    return out
+
+
+def rnn_precision_sweep_path(out_dir):
+    """Phase 18 (c): every recurrent sweep name (RNN_MODELS, TIME_MODELS) on
+    the sweep cell for one epoch in bench.py's precision set through the
+    environment, one name a run (records under their own directory): a
+    record with a finite accuracy, no eager cell step, and the name's
+    reduced instances (RNN_PAIRS: its pair's mode, the weight gradients)
+    launched in the precision. Returns the launches summed over the runs,
+    by kernel instance."""
+    from snsde_torch.harness.robustness import SweepConfig, run_robustness_sweep
+
+    combo = PREC_COMBOS[0]
+    total = {}
+    t0 = time.perf_counter()
+    for name in RNN_MODELS + TIME_MODELS:
+        cfg = SweepConfig(models=(name,), missing_rates=(0.3,), seeds=(0,),
+                          hidden_dim=SWEEP["H"], batch_size=SWEEP["B"],
+                          max_epochs=1, out_dir=os.path.join(out_dir, "p18"))
+        with precision_env(*combo), EagerSteps() as eager:
+            zero_rnn_red_counts()
+            recs = run_robustness_sweep(cfg, n=SWEEP["n"],
+                                        data_fn=uea_b_noisy,
+                                        dataset_name="uea_b_noisy",
+                                        verbose=False, device=DEV)
+            torch.cuda.synchronize()
+            got = _rnn_red_launched(combo)
+        pair, *grads = RNN_PAIRS[name]
+        want = [f"{pair}_fwd", f"{pair}_bwd"] + grads
+        print(f"main path 18 (c) ({name}): 1 epoch in {prec_label(*combo)}, "
+              f"records {recs}, reduced launches {got}", flush=True)
+        if (not recs or any("error" in r or "accuracy" not in r
+                            or not np.isfinite(r["accuracy"]) for r in recs)):
+            raise AssertionError(f"{name} in {prec_label(*combo)}: {recs}")
+        if eager.n or min(got.get(k, 0) for k in want) < 1:
+            raise AssertionError(f"{name} in {prec_label(*combo)} did not "
+                                 f"launch its reduced instances {want}: "
+                                 f"{got}; {eager.n} eager cell steps")
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+    print(f"main path 18 (c): the recurrent sweep names in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return total
+
+
+def activity_precision_path():
+    """Phase 18 (c): run_activity at its published settings for
+    ACTIVITY["epochs"] epochs in bench.py's precision set through the
+    environment: finite losses, the reduced GRU instances launched in both
+    directions, and each epoch's train loss beside main path 13's fp32
+    run's (the gap printed, not held). Returns the reduced launches."""
+    from snsde_torch.harness.activity import ActivityConfig, run_activity
+
+    combo = PREC_COMBOS[0]
+    cfg = ActivityConfig(max_epochs=ACTIVITY["epochs"], verbose=False)
+    t0 = time.perf_counter()
+    with precision_env(*combo), ZooWatch() as watch:
+        zero_rnn_red_counts()
+        res = run_activity(cfg, n=ACTIVITY["n"], device=DEV)
+        torch.cuda.synchronize()
+        got = _rnn_red_launched(combo)
+    losses = [h[k] for h in res.history for k in ("train_loss", "val_loss")]
+    losses.append(res.test_loss)
+    ref = ACTIVITY_RUN.get("history", [])
+    gaps = [abs(a["train_loss"] - b["train_loss"]) / abs(b["train_loss"])
+            for a, b in zip(res.history, ref)]
+    print(f"main path 18 (c) (activity): run_activity {cfg.max_epochs} epochs"
+          f" in {prec_label(*combo)} in {time.perf_counter() - t0:.1f} s, "
+          f"losses {[round(v, 4) for v in losses]}, val / test accuracy "
+          f"{res.val_accuracy:.4f} / {res.test_accuracy:.4f}; each epoch's "
+          f"train loss from the fp32 run's, relative: "
+          f"{[f'{g:.3e}' for g in gaps]}; reduced launches {got}",
+          flush=True)
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"activity in {prec_label(*combo)}: a "
+                             f"non-finite loss")
+    if (min(got.get(k, 0) for k in ("gru_fwd", "gru_bwd", "gru_wgrad")) < 1
+            or watch.directions != {False, True}):
+        raise AssertionError(f"activity in {prec_label(*combo)} did not "
+                             f"launch the reduced GRU instances in both "
+                             f"directions: {got}, {watch.directions}")
+    return got
+
+
+def phase18_times(reps=10):
+    """Each precision's ms a launch of the plain GRU and LSTM instances
+    (forward, backward recurrence, weight gradient) at the sweep's shape
+    and at RNN_BENCH's H=128, the fp32 instances' first; the plain
+    versions' (the forward, the reverse loop, the weight-gradient product)
+    at the sweep's shape in bench.py's precision (timed_plain);
+    the bounds from the inputs (_red_bound: the products 2 L B H G H a
+    pass, the recurrence's two passes, at the precision's peak), each of
+    the JAX function's own traffic alone: the forward's inputs and hs (and
+    cs); the backward recurrence's inputs, hs, cs, ghs and its dgi (the
+    GRU's dh0 too); the weight gradient's dW_hh and db_hh. The traffic the
+    split into two kernels adds (W_hh's fp32 cotangent, the GRU's dgh or
+    the LSTM's dgw, written and read once, and the states read a second
+    time: the JAX kernel forms dW_hh in place) is apart, as the
+    weight gradient's "split" ms at the memory rate. {(pair, shape,
+    combo): {part: ms}}, {(pair, shape, combo): {part: bound}}."""
+    from snsde_torch.kernels import fused_rnn as fr
+
+    ms, bounds = {}, {}
+    rs, wide = RNN_SWEEP, RNN_BENCH
+    for kind in ("gru", "lstm"):
+        G = 3 if kind == "gru" else 4
+        for shape, (B, L, C, H) in (("sweep", (rs["B"], rs["L"], rs["C"],
+                                               rs["H"])),
+                                    ("h128", tuple(wide[f"{kind}_h128"][k]
+                                                   for k in "BLCH"))):
+            _, _, inp0, ghs0 = rnn_kernel_inputs(kind, B, L, C, H)
+            for combo in (("f32", "f32"),) + PREC_COMBOS:
+                inp, kw, ghs, prec = rnn_red_args(kind, inp0, {}, ghs0,
+                                                  combo)
+                out = _rnn_fwd(kind, False, inp, kw, prec)
+                if kind == "gru":
+                    rec_fn = lambda: fr.fused_gru_backward_recurrence(
+                        hs=out["hs"], ghs=ghs, **inp, **prec)
+                    rec = rec_fn()
+                    h0k = inp["h0"].to(out["hs"].dtype)
+                    wg_fn = lambda: fr.fused_gru_weight_grads(
+                        h0k, out["hs"], rec.dgh, matmul=combo[0])
+                    wg_in = (h0k, out["hs"], rec.dgh)
+                    bwd_out = (rec.dgi, rec.dh0)
+                else:
+                    rec_fn = lambda: fr.fused_lstm_backward_recurrence(
+                        hs=out["hs"], cs=out["cs"], ghs=ghs, **inp, **prec)
+                    rec = rec_fn()
+                    dg = rec.dgw if rec.dgw is not None else rec.dgi
+                    wg_fn = lambda: fr.fused_lstm_weight_grads(
+                        out["hs"], dg, matmul=combo[0])
+                    wg_in = (out["hs"], dg)
+                    bwd_out = (rec.dgi,)
+                t = {"fwd": timed(lambda: _rnn_fwd(kind, False, inp, kw,
+                                                   prec), reps=reps,
+                                  warmup=2),
+                     "bwd_recurrence": timed(rec_fn, reps=reps, warmup=2),
+                     "wgrad": timed(wg_fn, reps=reps, warmup=2)}
+                t["bwd"] = t["bwd_recurrence"] + t["wgrad"]
+                if shape == "sweep" and combo == PREC_COMBOS[0]:
+                    t["fwd_plain"] = timed_plain(
+                        lambda: _rnn_fwd(kind, True, inp, kw, prec))
+                    rev = fr._gru_reverse if kind == "gru" else (
+                        lambda **a: fr._lstm_reverse(cs=out["cs"], **a))
+                    t["bwd_plain"] = timed_plain(
+                        lambda: rev(hs=out["hs"], ghs=ghs, **inp, **prec))
+                    t["wgrad_plain"] = timed_plain(
+                        lambda: (fr.fused_gru_weight_grads_reference
+                                 if kind == "gru" else
+                                 fr.fused_lstm_weight_grads_reference)(
+                            *wg_in, matmul=combo[0]))
+                prod = 2.0 * L * B * H * G * H
+                wk = tuple(wg_fn())
+                bounds[(kind, shape, combo)] = {
+                    "fwd": _red_bound(_nbytes(tuple(inp.values())
+                                              + tuple(out.values())), prod,
+                                      combo[0]),
+                    "bwd_recurrence": _red_bound(
+                        _nbytes(tuple(inp.values()) + (out["hs"], ghs,
+                                                       out.get("cs"))
+                                + bwd_out), 2 * prod, combo[0]),
+                    "wgrad": _red_bound(_nbytes(wk), prod, combo[0]),
+                    "split": _nbytes(wg_in + wg_in[-1:]) / PEAK_BYTES * 1e3}
+                ms[(kind, shape, combo)] = t
+                print(f"time phase 18 {kind} {shape} {prec_label(*combo)}: "
+                      + ", ".join(f"{n} {v:.4f} ms" for n, v in t.items()),
+                      flush=True)
+    return ms, bounds
+
+
+def phase18_entries(launches, errs, ms, bounds):
+    """The kernels line's entries of the GRU and LSTM pairs' reduced
+    instances (csrc/fused_rnn.cu's instances with RED): one a kernel and
+    pair, its launches phase 18 (c)'s runs' in bench.py's precision (the
+    pair's modes summed), its ms and bounds at the sweep's shape in that
+    precision, and every precision's ms at the sweep's shape and at H=128
+    beside the fp32 instances'; the weight gradient's also the split's own
+    traffic at the memory rate (split_overhead_ms: W_hh's fp32 cotangent
+    written and read, the states read again), which its bound and the
+    recurrence's leave out."""
+    combo = PREC_COMBOS[0]
+    out = []
+    for kind, part, name, line in (
+            ("gru", "fwd", "forward", 312), ("gru", "bwd", "backward", 396),
+            ("gru", "wgrad", "weight_grads", 396),
+            ("lstm", "fwd", "forward", 837), ("lstm", "bwd", "backward", 934),
+            ("lstm", "wgrad", "weight_grads", 934)):
+        i = {"fwd": 0, "bwd": 1, "wgrad": 2}[part]
+        t = "bwd_recurrence" if part == "bwd" else part   # the recurrence
+        count = sum(v for k, v in launches.items()
+                    if k.startswith(kind) and (k.endswith(f"_{part}")
+                                               if part != "wgrad" else
+                                               k == f"{kind}_wgrad"))
+        out.append({
+            "name": f"fused_{kind}_{name}_reduced", "route": "cuda",
+            "source": "snsde_torch/csrc/fused_rnn.cu",
+            "replaces": f"snsde/kernels/fused_rnn.py:{line}",
+            "launches": count,
+            "max_abs_err": max(e[i] for (k, _), e in errs.items()
+                               if k == kind),
+            "ms": ms[(kind, "sweep", combo)][t],
+            "plain_ms": ms[(kind, "sweep", combo)][f"{part}_plain"],
+            "bound_ms": bounds[(kind, "sweep", combo)][t][0],
+            "bound_by": bounds[(kind, "sweep", combo)][t][1],
+            "library_ms": None, "shape": "sweep",
+            "precision": {"matmul": combo[0], "stream": combo[1]},
+            **{f"ms_{shape}_by_precision": {
+                f"{m} {s}": ms[(kind, shape, (m, s))][t]
+                for m, s in (("f32", "f32"),) + PREC_COMBOS}
+               for shape in ("sweep", "h128")},
+            "bound_ms_h128": bounds[(kind, "h128", combo)][t][0],
+            **({"split_overhead_ms": bounds[(kind, "sweep", combo)]["split"]}
+               if part == "wgrad" else {})})
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -8925,6 +9606,12 @@ def _main(t_start, smi) -> int:
                                                         compare_zoo_cde()))
     check_ancde_gate_grad()
     err["gru_paths"] = compare_mtan_bigru()
+    print("phase 18: the GRU and LSTM pairs' reduced precisions (bf16 "
+          "streams, bf16x3 and bf16 operands) vs their plain versions "
+          "(beside the SRK and EM builds):", flush=True)
+    t18 = time.perf_counter()
+    rnn_red_errs = phase18_kernel_checks()
+    t18 = time.perf_counter() - t18
     print("phase 17: the SRK and CDE pairs' reduced precisions (bf16 "
           "streams, bf16x3 and bf16 operands) vs their plain versions "
           "(beside the SRK and EM builds):", flush=True)
@@ -9044,7 +9731,14 @@ def _main(t_start, smi) -> int:
         red_launches = {"srk": {k: srk_b[k] + srk_m[k] for k in srk_b},
                         "cde": cde_precision_training_path()}
         t17 += time.perf_counter() - t_phase
+        t_phase = time.perf_counter()
+        rnn_red_launches = rnn_precision_sweep_path(out_dir)
+        t18 += time.perf_counter() - t_phase
     launches["activity"] = activity_path()
+    t_phase = time.perf_counter()
+    for k, v in activity_precision_path().items():
+        rnn_red_launches[k] = rnn_red_launches.get(k, 0) + v
+    t18 += time.perf_counter() - t_phase
     for method in SDE_METHODS:
         sde_method_mujoco_path(method)
     launches["em_speech"] = speech_path()
@@ -9132,6 +9826,10 @@ def _main(t_start, smi) -> int:
     red_ms, red_bounds = phase17_times()
     t17 += time.perf_counter() - t_phase
     print(f"phase 17 in {t17:.1f} s", flush=True)
+    t_phase = time.perf_counter()
+    rnn_red_ms, rnn_red_bounds = phase18_times()
+    t18 += time.perf_counter() - t_phase
+    print(f"phase 18 in {t18:.1f} s", flush=True)
     times14 = phase14_times()
     for label, (t14, _) in times14.items():
         for k, v in t14.items():
@@ -9377,6 +10075,8 @@ def _main(t_start, smi) -> int:
             "bound_ms_gruode": bounds["cde_packed_gruode"][part][0]})
     kernels += phase16_entries(prec_launches, prec_errs, prec_ms, prec_bounds)
     kernels += phase17_entries(red_launches, red_errs, red_ms, red_bounds)
+    kernels += phase18_entries(rnn_red_launches, rnn_red_errs, rnn_red_ms,
+                               rnn_red_bounds)
     print(f"chip_smoke: the whole script in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))

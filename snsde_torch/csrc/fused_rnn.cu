@@ -115,6 +115,28 @@
 // hs (the evolved h, the next cell's input), and its forward writes the
 // cell's own output h' as a stream hcell for the backward.
 //
+// The reduced precisions (the JAX kernels' traj_bf16 and mm_bf16,
+// fused_rnn.py:452-521, :991-1057) are instances of the same templates
+// with RED = true, the precision a runtime argument (Prec: the operand
+// mode and the stream flag). With bf16 streams the streams named at each
+// entry are bf16 in device memory, copied synchronously and widened as
+// they are staged (copy_rows), and hs, cs, dgi, dsel and dtg are stored
+// rounded (st); the carries stay fp32, the backward reads the rounded
+// trajectory back (the GRU's h0 handed over rounded), the LSTM backward
+// writes its gate cotangents once more in fp32 (dgw) for W_hh's gradient,
+// and the LSTM evolve's forward writes hcell at the rounded state (the
+// gates a second time), which is what the backward goes back through. In
+// the bf16 and bf16x3 operand modes every product, the weight gradients'
+// too, rounds or splits its operands (mad: three FMAs a term on the CUDA
+// cores). A reduced instance takes one row a thread, so that a quarter
+// as many instances build (this source took 137 s in nvcc alone on an
+// 8-core H100 host, 91 s with the fp32 instances alone). The fp32
+// instances hold none of this code (their loads and stores keep their own
+// lines where a shared form changed ptxas's register allocation): their
+// outputs are those of the fp32-only source bit for bit, and each of the
+// 148 reports the same registers, stack and spills
+// (tests/torch_ptxas_compare.py on the two builds' ptxas reports).
+//
 // What bounds it on the H100: at the bench shapes (B = 1024, L = 72) the
 // work is small. At H = 32 the GRU forward moves 38 MB (gi in, hs out) and
 // does 0.45 GFLOP: ~11 us, bytes; at H = 128 it does 7.2 GFLOP: ~108 us,
@@ -130,6 +152,7 @@
 #include <mutex>
 #include <tuple>
 
+#include "operand_modes.cuh"
 #include "sde_common.cuh"
 
 namespace {
@@ -139,6 +162,39 @@ namespace cg = cooperative_groups;
 struct RnnDims {
   int L, B, H;
 };
+
+// A launch's precision: the products' operand mode (MM_*) and the stream
+// flag sb (1: the streams in bf16). The fp32 instances (RED false) read
+// neither.
+struct Prec {
+  int mm, sb;
+};
+
+// acc + x w: an fp32 FMA, or in a reduced instance the operands rounded
+// or split in operand mode mm (fma3)
+template <bool RED>
+__device__ __forceinline__ float mad(float x, float w, float acc, int mm) {
+  if constexpr (RED) {
+    if (mm != MM_F32) return fma3(parts(x, mm == MM_X3), parts(w, mm == MM_X3),
+                                  acc);
+  }
+  return fmaf(x, w, acc);
+}
+
+// entry i of a stream (bf16 with bs in a reduced instance), widened; an
+// entry written to one
+template <bool RED>
+__device__ __forceinline__ float ld(const float* p, size_t i, bool bs) {
+  if constexpr (RED) return ld_stream(p, i, bs);
+  return p[i];
+}
+template <bool RED>
+__device__ __forceinline__ void st(float* p, size_t i, float v, bool bs) {
+  if constexpr (RED)
+    st_stream(p, i, v, bs);
+  else
+    p[i] = v;
+}
 
 __device__ __forceinline__ void zero_smem(float* s, size_t n) {
   for (size_t i = threadIdx.x; i < n; i += THREADS) s[i] = 0.f;
@@ -365,6 +421,30 @@ __device__ __forceinline__ bool aligned16(const void* p) {
   return ((size_t)p & 15) == 0;
 }
 
+// A step's rows of a stream, src entry (off + r sr + j sj + i) to dst[r][j]
+// [i], as copy_rows_async lays them out: in an fp32 instance by it, in a
+// reduced one synchronously, each entry widened from bf16 (bs) or copied
+// from fp32 (a copy's order among the step's work is no matter: every
+// buffer it fills is behind the same barriers either way).
+template <bool RED>
+__device__ __forceinline__ void copy_rows(float* dst, int dr, int dj,
+                                          const float* src, size_t off,
+                                          size_t sr, int sj, int nr, int m,
+                                          int n, bool v4, bool bs,
+                                          int first = 0) {
+  if constexpr (!RED) {
+    copy_rows_async(dst, dr, dj, src + off, sr, sj, nr, m, n, v4, first);
+  } else {
+    const int per = m * n, total = nr * per;
+    for (int i = (threadIdx.x + THREADS - first) % THREADS; i < total;
+         i += THREADS) {
+      const int r = i / per, j = (i - r * per) / n, c = i - r * per - j * n;
+      dst[r * dr + j * dj + c] =
+          ld_stream(src, off + r * sr + (size_t)j * sj + c, bs);
+    }
+  }
+}
+
 // The CTA's units [u0, u0 + nu) and its cluster's rows [row0, row0 + nr)
 struct Geom {
   Split s;
@@ -419,12 +499,14 @@ __device__ __forceinline__ float lane(const float4& v, int i) {
 // unit ul for the RPT rows r0.. of the tile x [R][sH]; x read four k at a
 // time (a warp reads one or two rows: broadcasts), each W load feeds RPT
 // FMAs. x = h, or with DEC h times dec (the same layout), formed as it is
-// read.
-template <int G, int RPT, bool DEC = false>
+// read. A reduced instance (RED) takes the operands in operand mode mm,
+// and with rnd x rounded to bf16 first.
+template <int G, int RPT, bool DEC = false, bool RED = false>
 __device__ __forceinline__ void gate_sums(const float* h, int sH, int H,
                                           const WSlice w, int ul, int r0,
                                           float (&acc)[G][RPT],
-                                          const float* dec = nullptr) {
+                                          const float* dec = nullptr,
+                                          int mm = MM_F32, bool rnd = false) {
 #pragma unroll
   for (int g = 0; g < G; ++g)
 #pragma unroll
@@ -452,9 +534,11 @@ __device__ __forceinline__ void gate_sums(const float* h, int sH, int H,
       for (int g = 0; g < G; ++g) wv[g] = wk[g * w.gs];
 #pragma unroll
       for (int q = 0; q < RPT; ++q) {
-        const float xv = lane(x[q], kk);
+        float xv = lane(x[q], kk);
+        if (RED && rnd) xv = bf16r(xv);
 #pragma unroll
-        for (int g = 0; g < G; ++g) acc[g][q] = fmaf(xv, wv[g], acc[g][q]);
+        for (int g = 0; g < G; ++g)
+          acc[g][q] = mad<RED>(xv, wv[g], acc[g][q], mm);
       }
     }
   }
@@ -466,9 +550,11 @@ __device__ __forceinline__ void gate_sums(const float* h, int sH, int H,
 #pragma unroll
     for (int q = 0; q < RPT; ++q) {
       const int o = (r0 + q) * sH + k;
-      const float xv = DEC ? h[o] * dec[o] : h[o];
+      float xv = DEC ? h[o] * dec[o] : h[o];
+      if (RED && rnd) xv = bf16r(xv);
 #pragma unroll
-      for (int g = 0; g < G; ++g) acc[g][q] = fmaf(xv, wv[g], acc[g][q]);
+      for (int g = 0; g < G; ++g)
+        acc[g][q] = mad<RED>(xv, wv[g], acc[g][q], mm);
     }
   }
 }
@@ -476,11 +562,13 @@ __device__ __forceinline__ void gate_sums(const float* h, int sH, int H,
 // acc[q] = sum over own columns (gt, ul) of dg[r0 + q][gt, ul] W[k][gt, ul]:
 // the CTA's part of dh for unit k and the RPT rows r0.. (dg [R][G sU],
 // read four columns at a time; a thread walks row k of the slice, whose
-// odd stride keeps neighbouring threads on distinct banks)
-template <int G, int RPT>
+// odd stride keeps neighbouring threads on distinct banks). A reduced
+// instance (RED) takes the operands in operand mode mm.
+template <int G, int RPT, bool RED = false>
 __device__ __forceinline__ void back_sums(const float* dg, int sU, int nu,
                                           const WSlice w, int k, int r0,
-                                          float (&acc)[RPT]) {
+                                          float (&acc)[RPT],
+                                          int mm = MM_F32) {
   const int sD = G * sU, nu4 = nu & ~3;
 #pragma unroll
   for (int q = 0; q < RPT; ++q) acc[q] = 0.f;
@@ -496,17 +584,17 @@ __device__ __forceinline__ void back_sums(const float* dg, int sU, int nu,
       for (int q = 0; q < RPT; ++q) {
         const float4 x =
             *reinterpret_cast<const float4*>(dgt + (r0 + q) * sD + ul);
-        float a = fmaf(x.x, w0, acc[q]);
-        a = fmaf(x.y, w1, a);
-        a = fmaf(x.z, w2, a);
-        acc[q] = fmaf(x.w, w3, a);
+        float a = mad<RED>(x.x, w0, acc[q], mm);
+        a = mad<RED>(x.y, w1, a, mm);
+        a = mad<RED>(x.z, w2, a, mm);
+        acc[q] = mad<RED>(x.w, w3, a, mm);
       }
     }
     for (int ul = nu4; ul < nu; ++ul) {
       const float wv = wg[ul];
 #pragma unroll
       for (int q = 0; q < RPT; ++q)
-        acc[q] = fmaf(dgt[(r0 + q) * sD + ul], wv, acc[q]);
+        acc[q] = mad<RED>(dgt[(r0 + q) * sD + ul], wv, acc[q], mm);
     }
   }
 }
@@ -539,12 +627,13 @@ __host__ __device__ inline size_t mlp_off(int i, int n, int H, int HH) {
 // nr, c < nc, m < nm, where M is W [nm][ld] or, with TRANS, W^T (W [nc][ld]).
 // A thread takes column c for a group of rg rows (RG: at most), so each
 // weight it loads (from L1/L2) feeds every row of the group. Each output's
-// sum runs over m in ascending order, whatever the grouping.
-template <bool TRANS, int RG>
+// sum runs over m in ascending order, whatever the grouping. A reduced
+// instance (RED) takes the operands in operand mode mm.
+template <bool TRANS, int RG, bool RED = false>
 __device__ __forceinline__ void mlp_product_rows(
     const float* a, int as, int nm, float* y, int ys, int nc,
     const float* __restrict__ W, int ld, const float* bias, int nr,
-    bool inner, int rg) {
+    bool inner, int rg, int mm = MM_F32) {
   const int groups = (nr + rg - 1) / rg;
   for (int i = threadIdx.x; i < nc * groups; i += THREADS) {
     const int c = i % nc, r0 = (i / nc) * rg;
@@ -557,7 +646,8 @@ __device__ __forceinline__ void mlp_product_rows(
           __ldg(W + (TRANS ? (size_t)c * ld + m : (size_t)m * ld + c));
 #pragma unroll
       for (int q = 0; q < RG; ++q)
-        if (RG == 1 || q < nq) acc[q] = fmaf(a[(r0 + q) * as + m], w, acc[q]);
+        if (RG == 1 || q < nq)
+          acc[q] = mad<RED>(a[(r0 + q) * as + m], w, acc[q], mm);
     }
     const float b = bias ? __ldg(bias + c) : 0.f;
 #pragma unroll
@@ -575,44 +665,52 @@ __device__ __forceinline__ void mlp_product_rows(
 // an H100), 8 at H = 256, where every CTA of a cluster reads the whole MLP
 // from L2 (a loop over up to 8 rows, the row count at run time: with 2-4
 // instantiations more, the H = 256 forward took 12% longer)
-template <bool TRANS>
+template <bool TRANS, bool RED = false>
 __device__ __forceinline__ void mlp_product(const float* a, int as, int nm,
                                             float* y, int ys, int nc,
                                             const float* __restrict__ W,
                                             int ld, const float* bias,
-                                            int nr, bool inner) {
+                                            int nr, bool inner,
+                                            int mm = MM_F32) {
   int rg = 8;
   while (rg > 1 && nc * ((nr + rg - 1) / rg) < THREADS) rg /= 2;
   if (rg == 1)
-    mlp_product_rows<TRANS, 1>(a, as, nm, y, ys, nc, W, ld, bias, nr, inner,
-                               1);
+    mlp_product_rows<TRANS, 1, RED>(a, as, nm, y, ys, nc, W, ld, bias, nr,
+                                    inner, 1, mm);
   else
-    mlp_product_rows<TRANS, 8>(a, as, nm, y, ys, nc, W, ld, bias, nr, inner,
-                               rg);
+    mlp_product_rows<TRANS, 8, RED>(a, as, nm, y, ys, nc, W, ld, bias, nr,
+                                    inner, rg, mm);
 }
 
 // out[r][j] = act(x[r] W[:, j] + b[j]) for r < nr, j < ow (act: tanh on
 // the inner layers); b is stored after W
+template <bool RED = false>
 __device__ __forceinline__ void mlp_layer(const float* x, int xs, int iw,
                                           float* out, int os, int ow,
                                           const float* __restrict__ W,
-                                          int nr, bool inner) {
-  mlp_product<false>(x, xs, iw, out, os, ow, W, ow, W + (size_t)iw * ow, nr,
-                     inner);
+                                          int nr, bool inner,
+                                          int mm = MM_F32) {
+  mlp_product<false, RED>(x, xs, iw, out, os, ow, W, ow, W + (size_t)iw * ow,
+                          nr, inner, mm);
 }
 
-// y = x + dt f(x), one Euler substep (y may be x); t0, t1 scratch [R][sM]
+// y = x + dt f(x), one Euler substep (y may be x); t0, t1 scratch [R][sM];
+// dt of row r is the stream entry dts[doff + r dstride] (bf16 with dtb in
+// a reduced instance)
+template <bool RED = false>
 __device__ __forceinline__ void mlp_substep(const float* x, float* y, int xs,
                                             float* t0, float* t1, int sM,
                                             const ModeArgs& m, int H, int nr,
-                                            const float* dt, int dstride) {
+                                            size_t doff, int dstride,
+                                            int mm = MM_F32,
+                                            bool dtb = false) {
   const float* in = x;
   int is = xs, iw = H;
   for (int i = 0; i < m.n; ++i) {
     const int ow = mlp_out(i, m.n, H, m.HH);
     float* out = (i & 1) ? t1 : t0;
-    mlp_layer(in, is, iw, out, sM, ow, m.mlp + mlp_off(i, m.n, H, m.HH), nr,
-              i < m.n - 1);
+    mlp_layer<RED>(in, is, iw, out, sM, ow, m.mlp + mlp_off(i, m.n, H, m.HH),
+                   nr, i < m.n - 1, mm);
     __syncthreads();
     in = out;
     is = sM;
@@ -620,7 +718,8 @@ __device__ __forceinline__ void mlp_substep(const float* x, float* y, int xs,
   }
   for (int i = threadIdx.x; i < nr * H; i += THREADS) {
     const int r = i / H, k = i - r * H;
-    y[r * xs + k] = x[r * xs + k] + dt[r * dstride] * in[r * sM + k];
+    y[r * xs + k] = x[r * xs + k] +
+                    ld<RED>(m.dts, doff + r * dstride, dtb) * in[r * sM + k];
   }
   __syncthreads();
 }
@@ -638,26 +737,28 @@ __device__ __forceinline__ void own_cols(int width, int cs, int rank, int& c0,
 // activations (recomputed from x0), dz and dx [R][sM] the layers'
 // cotangents. Each layer's input and output cotangent rows go to the
 // streams acts/dzs (layer i's blocks [K][in_i] and [K][out_i], K = L S B,
-// at row krow + r), this CTA's share of the columns.
+// at row krow + r), this CTA's share of the columns. dt as mlp_substep's.
+template <bool RED = false>
 __device__ __forceinline__ void mlp_back(float* dh, int sH, const float* x0,
                                          float* A, int tA, int sHH,
                                          float* dz, float* dx, int sM,
                                          const ModeArgs& m, int H, int nr,
-                                         const float* dt, int dstride,
+                                         size_t doff, int dstride,
                                          float* __restrict__ acts,
                                          float* __restrict__ dzs,
                                          size_t krow, size_t K, int cs,
-                                         int rank) {
+                                         int rank, int mm = MM_F32,
+                                         bool dtb = false) {
   const int n = m.n, HH = m.HH;
   for (int i = 0; i + 1 < n; ++i) {
-    mlp_layer(i == 0 ? x0 : A + (i - 1) * tA, i == 0 ? sH : sHH,
-              mlp_in(i, H, HH), A + i * tA, sHH, HH,
-              m.mlp + mlp_off(i, n, H, HH), nr, true);
+    mlp_layer<RED>(i == 0 ? x0 : A + (i - 1) * tA, i == 0 ? sH : sHH,
+                   mlp_in(i, H, HH), A + i * tA, sHH, HH,
+                   m.mlp + mlp_off(i, n, H, HH), nr, true, mm);
     __syncthreads();
   }
   for (int i = threadIdx.x; i < nr * H; i += THREADS) {
     const int r = i / H, k = i - r * H;
-    dz[r * sM + k] = dh[r * sH + k] * dt[r * dstride];
+    dz[r * sM + k] = dh[r * sH + k] * ld<RED>(m.dts, doff + r * dstride, dtb);
   }
   __syncthreads();
   size_t aoff = 0, zoff = 0;
@@ -684,7 +785,8 @@ __device__ __forceinline__ void mlp_back(float* dh, int sH, const float* x0,
       dzs[zoff + (krow + r) * ow + j] = dz[r * sM + j];
     }
     // dx = dz W^T
-    mlp_product<true>(dz, sM, ow, dx, sM, iw, W, ow, nullptr, nr, false);
+    mlp_product<true, RED>(dz, sM, ow, dx, sM, iw, W, ow, nullptr, nr, false,
+                           mm);
     __syncthreads();
     for (int q = threadIdx.x; q < nr * iw; q += THREADS) {
       const int r = q / iw, k = q - r * iw;
@@ -703,12 +805,12 @@ __device__ __forceinline__ void mlp_back(float* dh, int sH, const float* x0,
 // GRU
 // ---------------------------------------------------------------------------
 
-template <int RPT, int WS, int MODE>
+template <int RPT, int WS, int MODE, bool RED>
 __global__ void __launch_bounds__(THREADS)
 gru_fwd_kernel(RnnDims d, int cs, int R, const float* __restrict__ gi,
                const float* __restrict__ h0, const float* __restrict__ whh,
                const float* __restrict__ bhh, const float* __restrict__ hdec,
-               float* __restrict__ hs, ModeArgs m) {
+               float* __restrict__ hs, ModeArgs m, Prec pr) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   cg::cluster_group cluster = cg::this_cluster();
@@ -747,13 +849,13 @@ gru_fwd_kernel(RnnDims d, int cs, int R, const float* __restrict__ gi,
   // from thread `first` on
   auto prefetch = [&](int t, int first) {
     const int slot = t % 3;
-    copy_rows_async(gbuf + slot * tileG, 3 * sU, sU,
-                    gi + ((size_t)t * d.B + g.row0) * GH + g.u0, GH, H, g.nr,
-                    3, g.nu, v4, first);
+    copy_rows<RED>(gbuf + slot * tileG, 3 * sU, sU, gi,
+                   ((size_t)t * d.B + g.row0) * GH + g.u0, GH, H, g.nr, 3,
+                   g.nu, v4, pr.sb, first);
     if (MODE == 0 && hdec && t + 1 < d.L)
-      copy_rows_async(dbuf + slot * tileU, sU, 0,
-                      hdec + ((size_t)(t + 1) * d.B + g.row0) * H + g.u0, H,
-                      0, g.nr, 1, g.nu, v4, first);
+      copy_rows<RED>(dbuf + slot * tileU, sU, 0, hdec,
+                     ((size_t)(t + 1) * d.B + g.row0) * H + g.u0, H, 0, g.nr,
+                     1, g.nu, v4, false, first);
   };
   // one copy group a step, empty or not, two steps in flight
   prefetch(0, 0);
@@ -776,12 +878,13 @@ gru_fwd_kernel(RnnDims d, int cs, int R, const float* __restrict__ gi,
     // the evolve, in place: peers write only the next step's buffer
     if (MODE == 3)
       for (int sub = 0; sub < m.S; ++sub)
-        mlp_substep(hc, hc, sH, evt, evt + R * sM, sM, m, H, g.nr,
-                    m.dts + t, 0);
+        mlp_substep<RED>(hc, hc, sH, evt, evt + R * sM, sM, m, H, g.nr, t, 0,
+                         pr.mm);
     for (int item = tid; item < items; item += THREADS) {
       const int ul = item % g.nu, r0 = (item / g.nu) * RPT;
       float acc[3][RPT];
-      gate_sums<3, RPT>(hc, sH, H, w, ul, r0, acc);
+      gate_sums<3, RPT, false, RED>(hc, sH, H, w, ul, r0, acc, nullptr,
+                                    pr.mm);
 #pragma unroll
       for (int q = 0; q < RPT; ++q) {
         const int r = r0 + q;
@@ -798,7 +901,7 @@ gru_fwd_kernel(RnnDims d, int cs, int R, const float* __restrict__ gi,
             const float sel = m.obs[(size_t)t * d.B + g.row0 + r];
             h = sel * h + (1.f - sel) * hc[r * sH + u];
           }
-          hs[t * BH + (size_t)(g.row0 + r) * H + u] = h;
+          st<RED>(hs, t * BH + (size_t)(g.row0 + r) * H + u, h, pr.sb);
           if (MODE == 0 && hdec && t + 1 < d.L)
             h *= dec[r * sU + ul];  // next step's
           if (MODE == 2 && t + 1 < d.L) h *= m.hrow[(size_t)(t + 1) * H + u];
@@ -815,14 +918,14 @@ gru_fwd_kernel(RnnDims d, int cs, int R, const float* __restrict__ gi,
   }
 }
 
-template <int RPT, int WS>
+template <int RPT, int WS, bool RED>
 __global__ void __launch_bounds__(THREADS)
 gru_bwd_kernel(RnnDims d, int cs, int R, const float* __restrict__ gi,
                const float* __restrict__ h0, const float* __restrict__ hs,
                const float* __restrict__ ghs, const float* __restrict__ whh,
                const float* __restrict__ bhh, const float* __restrict__ hdec,
                float* __restrict__ dgi, float* __restrict__ dgh,
-               float* __restrict__ dh0, float* __restrict__ dhdec) {
+               float* __restrict__ dh0, float* __restrict__ dhdec, Prec pr) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   cg::cluster_group cluster = cg::this_cluster();
@@ -856,18 +959,20 @@ gru_bwd_kernel(RnnDims d, int cs, int R, const float* __restrict__ gi,
   const bool v4 = ((H | g.s.U) & 3) == 0 && aligned16(gi) && aligned16(h0) &&
                   aligned16(hs) && aligned16(ghs) &&
                   (!hdec || aligned16(hdec));
+  // (a reduced instance's h0, hs and ghs in the stream dtype: with bf16
+  // streams the state is the rounded trajectory, h0 rounded too)
   auto prefetch = [&](int t, int first) {
     const size_t row = (size_t)t * d.B + g.row0;
-    copy_rows_async(gbuf, sD, sU, gi + row * GH + g.u0, GH, H, g.nr, 3, g.nu,
-                    v4, first);
-    copy_rows_async(gsel, sU, 0, ghs + row * H + g.u0, H, 0, g.nr, 1, g.nu,
-                    v4, first);
-    copy_rows_async(
-        hprev, sH, 0, t > 0 ? hs + (row - d.B) * H : h0 + (size_t)g.row0 * H,
-        H, 0, g.nr, 1, H, v4, first);
+    copy_rows<RED>(gbuf, sD, sU, gi, row * GH + g.u0, GH, H, g.nr, 3, g.nu,
+                   v4, pr.sb, first);
+    copy_rows<RED>(gsel, sU, 0, ghs, row * H + g.u0, H, 0, g.nr, 1, g.nu, v4,
+                   pr.sb, first);
+    copy_rows<RED>(hprev, sH, 0, t > 0 ? hs : h0,
+                   t > 0 ? (row - d.B) * H : (size_t)g.row0 * H, H, 0, g.nr,
+                   1, H, v4, pr.sb, first);
     if (hdec)
-      copy_rows_async(decb, sH, 0, hdec + row * H, H, 0, g.nr, 1, H, v4,
-                      first);
+      copy_rows<RED>(decb, sH, 0, hdec, row * H, H, 0, g.nr, 1, H, v4, false,
+                     first);
   };
   prefetch(d.L - 1, 0);
   cp_async_wait_all();
@@ -884,9 +989,11 @@ gru_bwd_kernel(RnnDims d, int cs, int R, const float* __restrict__ gi,
       const int ul = item % g.nu, r0 = (item / g.nu) * RPT;
       float acc[3][RPT];
       if (hdec)
-        gate_sums<3, RPT, true>(hprev, sH, H, w, ul, r0, acc, decb);
+        gate_sums<3, RPT, true, RED>(hprev, sH, H, w, ul, r0, acc, decb,
+                                     pr.mm);
       else
-        gate_sums<3, RPT>(hprev, sH, H, w, ul, r0, acc);
+        gate_sums<3, RPT, false, RED>(hprev, sH, H, w, ul, r0, acc, nullptr,
+                                      pr.mm);
 #pragma unroll
       for (int q = 0; q < RPT; ++q) {
         const int r = r0 + q;
@@ -925,11 +1032,11 @@ gru_bwd_kernel(RnnDims d, int cs, int R, const float* __restrict__ gi,
           dgs[0] = dr;
           dgs[sU] = dz;
           dgs[2 * sU] = dn * rg;
-          float* dgr = dgi + ob + (size_t)r * GH + ul;
-          dgr[0] = dr;
-          dgr[H] = dz;
-          dgr[2 * H] = dn;
-          float* dwr = dgh + ob + (size_t)r * GH + ul;
+          const size_t og = ob + (size_t)r * GH + ul;
+          st<RED>(dgi, og, dr, pr.sb);
+          st<RED>(dgi, og + H, dz, pr.sb);
+          st<RED>(dgi, og + 2 * H, dn, pr.sb);
+          float* dwr = dgh + og;
           dwr[0] = dr;
           dwr[H] = dz;
           dwr[2 * H] = dn * rg;
@@ -948,7 +1055,7 @@ gru_bwd_kernel(RnnDims d, int cs, int R, const float* __restrict__ gi,
     for (int item = tid; item < back_items; item += THREADS) {
       const int k = item % H, r0 = (item / H) * RPT;
       float acc[RPT];
-      back_sums<3, RPT>(dg, sU, g.nu, w, k, r0, acc);
+      back_sums<3, RPT, RED>(dg, sU, g.nu, w, k, r0, acc, pr.mm);
 #pragma unroll
       for (int q = 0; q < RPT; ++q)
         if (r0 + q < g.nr) pd[(r0 + q) * sH + k] = acc[q];
@@ -1016,7 +1123,7 @@ gru_bwd_kernel(RnnDims d, int cs, int R, const float* __restrict__ gi,
 // Writes dgi, dgh, dh0, the cell's input states xin (modes 2, 3; W_hh's
 // weight gradient reads them), dhrow's partials (mode 2) and the MLP's
 // streams (mode 3).
-template <int RPT, int WS, int MODE>
+template <int RPT, int WS, int MODE, bool RED>
 __global__ void __launch_bounds__(THREADS)
 gru_bwd_mode_kernel(RnnDims d, int cs, int R, const float* __restrict__ gi,
                     const float* __restrict__ h0, const float* __restrict__ hs,
@@ -1026,7 +1133,7 @@ gru_bwd_mode_kernel(RnnDims d, int cs, int R, const float* __restrict__ gi,
                     float* __restrict__ dgi, float* __restrict__ dgh,
                     float* __restrict__ dh0, float* __restrict__ dhrow,
                     float* __restrict__ xin, float* __restrict__ acts,
-                    float* __restrict__ dzs) {
+                    float* __restrict__ dzs, Prec pr) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   cg::cluster_group cluster = cg::this_cluster();
@@ -1068,16 +1175,28 @@ gru_bwd_mode_kernel(RnnDims d, int cs, int R, const float* __restrict__ gi,
   const bool v4 = ((H | g.s.U) & 3) == 0 && aligned16(gi) && aligned16(h0) &&
                   aligned16(hs) && aligned16(ghs);
   // what step t reads: its gi and ghs rows, h before it (h0 before the
-  // first), issued from thread `first` on
+  // first), issued from thread `first` on (in the stream dtype, as the
+  // plain backward's)
   auto prefetch = [&](int t, int first) {
     const size_t row = (size_t)t * d.B + g.row0;
-    copy_rows_async(gbuf, sD, sU, gi + row * GH + g.u0, GH, H, g.nr, 3, g.nu,
-                    v4, first);
-    copy_rows_async(gsel, sU, 0, ghs + row * H + g.u0, H, 0, g.nr, 1, g.nu,
-                    v4, first);
-    copy_rows_async(
-        hprev, sH, 0, t > 0 ? hs + (row - d.B) * H : h0 + (size_t)g.row0 * H,
-        H, 0, g.nr, 1, H, v4, first);
+    if constexpr (RED) {
+      copy_rows<RED>(gbuf, sD, sU, gi, row * GH + g.u0, GH, H, g.nr, 3, g.nu,
+                     v4, pr.sb, first);
+      copy_rows<RED>(gsel, sU, 0, ghs, row * H + g.u0, H, 0, g.nr, 1, g.nu,
+                     v4, pr.sb, first);
+      copy_rows<RED>(hprev, sH, 0, t > 0 ? hs : h0,
+                     t > 0 ? (row - d.B) * H : (size_t)g.row0 * H, H, 0,
+                     g.nr, 1, H, v4, pr.sb, first);
+    } else {
+      copy_rows_async(gbuf, sD, sU, gi + row * GH + g.u0, GH, H, g.nr, 3,
+                      g.nu, v4, first);
+      copy_rows_async(gsel, sU, 0, ghs + row * H + g.u0, H, 0, g.nr, 1, g.nu,
+                      v4, first);
+      copy_rows_async(hprev, sH, 0,
+                      t > 0 ? hs + (row - d.B) * H
+                            : h0 + (size_t)g.row0 * H,
+                      H, 0, g.nr, 1, H, v4, first);
+    }
   };
   prefetch(d.L - 1, 0);
   cp_async_wait_all();
@@ -1100,15 +1219,16 @@ gru_bwd_mode_kernel(RnnDims d, int cs, int R, const float* __restrict__ gi,
       }
       __syncthreads();
       for (int sub = 0; sub < m.S; ++sub)
-        mlp_substep(subs + sub * tileH, subs + (sub + 1) * tileH, sH, dzt,
-                    dxt, sM, m, H, g.nr, m.dts + t, 0);
+        mlp_substep<RED>(subs + sub * tileH, subs + (sub + 1) * tileH, sH,
+                         dzt, dxt, sM, m, H, g.nr, t, 0, pr.mm);
     }
     // the own units' gates and their cotangents
     const size_t ob = ((size_t)t * d.B + g.row0) * GH + g.u0;
     for (int item = tid; item < items; item += THREADS) {
       const int ul = item % g.nu, r0 = (item / g.nu) * RPT;
       float acc[3][RPT];
-      gate_sums<3, RPT>(xt, sH, H, w, ul, r0, acc);
+      gate_sums<3, RPT, false, RED>(xt, sH, H, w, ul, r0, acc, nullptr,
+                                    pr.mm);
 #pragma unroll
       for (int q = 0; q < RPT; ++q) {
         const int r = r0 + q;
@@ -1134,10 +1254,17 @@ gru_bwd_mode_kernel(RnnDims d, int cs, int R, const float* __restrict__ gi,
           dgs[0] = dr;
           dgs[sU] = dz;
           dgs[2 * sU] = dn * rg;
-          float* dgr = dgi + ob + (size_t)r * GH + ul;
-          dgr[0] = dr;
-          dgr[H] = dz;
-          dgr[2 * H] = dn;
+          if constexpr (RED) {
+            const size_t og = ob + (size_t)r * GH + ul;
+            st_stream(dgi, og, dr, pr.sb);
+            st_stream(dgi, og + H, dz, pr.sb);
+            st_stream(dgi, og + 2 * H, dn, pr.sb);
+          } else {
+            float* dgr = dgi + ob + (size_t)r * GH + ul;
+            dgr[0] = dr;
+            dgr[H] = dz;
+            dgr[2 * H] = dn;
+          }
           float* dwr = dgh + ob + (size_t)r * GH + ul;
           dwr[0] = dr;
           dwr[H] = dz;
@@ -1156,7 +1283,7 @@ gru_bwd_mode_kernel(RnnDims d, int cs, int R, const float* __restrict__ gi,
     for (int item = tid; item < back_items; item += THREADS) {
       const int k = item % H, r0 = (item / H) * RPT;
       float acc[RPT];
-      back_sums<3, RPT>(dg, sU, g.nu, w, k, r0, acc);
+      back_sums<3, RPT, RED>(dg, sU, g.nu, w, k, r0, acc, pr.mm);
       const bool own = MODE == 3 && k >= g.u0 && k < g.u0 + g.nu;
 #pragma unroll
       for (int q = 0; q < RPT; ++q)
@@ -1205,9 +1332,10 @@ gru_bwd_mode_kernel(RnnDims d, int cs, int R, const float* __restrict__ gi,
       }
       __syncthreads();
       for (int sub = m.S - 1; sub >= 0; --sub)
-        mlp_back(dhin, sH, subs + sub * tileH, A, tA, sHH, dzt, dxt, sM, m,
-                 H, g.nr, m.dts + t, 0, acts, dzs,
-                 ((size_t)t * m.S + sub) * d.B + g.row0, K, cs, rank);
+        mlp_back<RED>(dhin, sH, subs + sub * tileH, A, tA, sHH, dzt, dxt, sM,
+                      m, H, g.nr, t, 0, acts, dzs,
+                      ((size_t)t * m.S + sub) * d.B + g.row0, K, cs, rank,
+                      pr.mm);
       for (int i = tid; i < g.nr * g.nu; i += THREADS) {
         const int r = i / g.nu, ul = i - r * g.nu, u = g.u0 + ul;
         const float v = dhin[r * sH + u];
@@ -1235,13 +1363,17 @@ gru_bwd_mode_kernel(RnnDims d, int cs, int R, const float* __restrict__ gi,
 // blended h is what goes to the peers. Mode 4 keeps c like h, every unit
 // in every CTA (double-buffered, each CTA storing its units' c' into every
 // peer), for the product c W_d over the CTA's own columns of W_d, held
-// beside its W_hh slice by the same plan.
-template <int RPT, int WS, int MODE>
+// beside its W_hh slice by the same plan. A reduced instance with bf16
+// streams writes to hcell the cell's output at the rounded state before the
+// step (the h and c that the backward reads back from hs and cs), which is
+// what the backward recomputes: the forward evaluates the gates a second
+// time, on h rounded, and the cell on c rounded.
+template <int RPT, int WS, int MODE, bool RED>
 __global__ void __launch_bounds__(THREADS)
 lstm_fwd_kernel(RnnDims d, int cs, int R, const float* __restrict__ gi,
                 const float* __restrict__ whh, const float* __restrict__ bhh,
                 float* __restrict__ hs, float* __restrict__ cs_out,
-                ModeArgs m, float* __restrict__ hcell) {
+                ModeArgs m, float* __restrict__ hcell, Prec pr) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   cg::cluster_group cluster = cg::this_cluster();
@@ -1281,15 +1413,15 @@ lstm_fwd_kernel(RnnDims d, int cs, int R, const float* __restrict__ gi,
   auto prefetch = [&](int t, int first) {
     const int slot = t % 3;
     const size_t row = (size_t)t * d.B + g.row0;
-    copy_rows_async(gbuf + slot * tileG, 4 * sU, sU, gi + row * GH + g.u0,
-                    GH, H, g.nr, 4, g.nu, v4, first);
+    copy_rows<RED>(gbuf + slot * tileG, 4 * sU, sU, gi, row * GH + g.u0, GH,
+                   H, g.nr, 4, g.nu, v4, pr.sb, first);
     if (MODE == 2)
-      copy_rows_async(xbuf + slot * tileX, sU, 0, m.aux + row * H + g.u0, H,
-                      0, g.nr, 1, g.nu, v4, first);
+      copy_rows<RED>(xbuf + slot * tileX, sU, 0, m.aux, row * H + g.u0, H, 0,
+                     g.nr, 1, g.nu, v4, pr.sb, first);
     if (MODE == 3)
-      copy_rows_async(xbuf + slot * tileX, 3 * sU, sU,
-                      m.aux + row * 3 * H + g.u0, 3 * H, H, g.nr, 3, g.nu,
-                      v4, first);
+      copy_rows<RED>(xbuf + slot * tileX, 3 * sU, sU, m.aux,
+                     row * 3 * H + g.u0, 3 * H, H, g.nr, 3, g.nu, v4, pr.sb,
+                     first);
   };
   // one copy group a step, empty or not, two steps in flight
   prefetch(0, 0);
@@ -1313,9 +1445,16 @@ lstm_fwd_kernel(RnnDims d, int cs, int R, const float* __restrict__ gi,
     cp_async_commit();
     for (int item = tid; item < items; item += THREADS) {
       const int ul = item % g.nu, r0 = (item / g.nu) * RPT;
-      float acc[4][RPT], accd[1][RPT];
-      gate_sums<4, RPT>(hc, sH, H, w, ul, r0, acc);
-      if (MODE == 4) gate_sums<1, RPT>(cc, sH, H, wdl, ul, r0, accd);
+      float acc[4][RPT], accd[1][RPT], accr[4][RPT];
+      gate_sums<4, RPT, false, RED>(hc, sH, H, w, ul, r0, acc, nullptr,
+                                    pr.mm);
+      if (MODE == 4)
+        gate_sums<1, RPT, false, RED>(cc, sH, H, wdl, ul, r0, accd, nullptr,
+                                      pr.mm);
+      const bool rounded = RED && MODE == 1 && hcell && pr.sb;
+      if (rounded)
+        gate_sums<4, RPT, false, RED>(hc, sH, H, w, ul, r0, accr, nullptr,
+                                      pr.mm, true);
 #pragma unroll
       for (int q = 0; q < RPT; ++q) {
         const int r = r0 + q;
@@ -1323,11 +1462,12 @@ lstm_fwd_kernel(RnnDims d, int cs, int R, const float* __restrict__ gi,
           const float* gr = git + r * 4 * sU + ul;
           const float* bs = bias + ul;
           const int e = r * sU + ul, u = g.u0 + ul;
-          float c, h;
+          float c, h, hr = 0.f;
           if (MODE == 4) {  // gates (f, i, o, candidate) on c_adj
             const float cold = cc[r * sH + u];
             const float csh = tanhf(accd[0][q] + bdo[ul]);
-            const float tel = m.aux[(size_t)t * d.B + g.row0 + r];
+            const float tel =
+                ld<RED>(m.aux, (size_t)t * d.B + g.row0 + r, pr.sb);
             const float cadj = cold - csh + csh * tel;
             const float fg = sigmoid(gr[0] + acc[0][q] + bs[0]);
             const float ig = sigmoid(gr[sU] + acc[1][q] + bs[sU]);
@@ -1349,6 +1489,13 @@ lstm_fwd_kernel(RnnDims d, int cs, int R, const float* __restrict__ gi,
             const float cold = cst[e];
             c = fg * cold + ig * gg;
             h = og * tanhf(c);
+            if (rounded) {  // hcell's: the cell at the rounded state
+              const float ir = sigmoid(gr[0] + accr[0][q] + bs[0]);
+              const float fr = sigmoid(gr[sU] + accr[1][q] + bs[sU]);
+              const float gq = tanhf(gr[2 * sU] + accr[2][q] + bs[2 * sU]);
+              const float orr = sigmoid(gr[3 * sU] + accr[3][q] + bs[3 * sU]);
+              hr = orr * tanhf(fr * bf16r(cold) + ir * gq);
+            }
             if (MODE == 2) {  // the blend with the state before the step
               const float sel = xc[e];
               h = sel * h + (1.f - sel) * hc[r * sH + u];
@@ -1367,21 +1514,23 @@ lstm_fwd_kernel(RnnDims d, int cs, int R, const float* __restrict__ gi,
           }
           const size_t o = t * BH + (size_t)(g.row0 + r) * H + u;
           if (MODE != 1)
-            hs[o] = h;
+            st<RED>(hs, o, h, pr.sb);
           else if (hcell)
-            hcell[o] = h;
-          if (cs_out) cs_out[o] = c;  // only when a backward will need it
+            hcell[o] = rounded ? hr : h;
+          // only when a backward will need it
+          if (cs_out) st<RED>(cs_out, o, c, pr.sb);
         }
       }
     }
     if (MODE == 1) {  // every unit's h', then its evolve
       cluster_or_block_sync(cluster, cs);
       for (int sub = 0; sub < m.S; ++sub)
-        mlp_substep(hn, hn, sH, evt, evt + R * sM, sM, m, H, g.nr,
-                    m.dts + (size_t)t * d.B + g.row0, 1);
+        mlp_substep<RED>(hn, hn, sH, evt, evt + R * sM, sM, m, H, g.nr,
+                         (size_t)t * d.B + g.row0, 1, pr.mm, pr.sb);
       for (int i = tid; i < g.nr * g.nu; i += THREADS) {
         const int r = i / g.nu, u = g.u0 + i - r * g.nu;
-        hs[t * BH + (size_t)(g.row0 + r) * H + u] = hn[r * sH + u];
+        st<RED>(hs, t * BH + (size_t)(g.row0 + r) * H + u, hn[r * sH + u],
+                pr.sb);
       }
     }
     cp_async_wait<1>();  // step t + 1's rows are in
@@ -1401,8 +1550,12 @@ lstm_fwd_kernel(RnnDims d, int cs, int R, const float* __restrict__ gi,
 // before the step, writes dzd (the cotangent of c W_d + b_d) and sums the
 // partials of dzd W_d^T over the cluster in rank order, as dh's; the
 // weight gradients (W_hh's from hs and dgi, W_d's from cs and dzd) are the
-// product kernel's after the loop.
-template <int RPT, int WS, int MODE>
+// product kernel's after the loop. A reduced instance reads gi, hs, cs,
+// ghs and the mode's stream in the stream dtype (the state before a step
+// the rounded trajectory with bf16 streams), writes dgi, dsel and dtg in
+// it and, where dgw is not null (bf16 streams), the gate cotangents once
+// more in fp32 for W_hh's gradient.
+template <int RPT, int WS, int MODE, bool RED>
 __global__ void __launch_bounds__(THREADS)
 lstm_bwd_kernel(RnnDims d, int cs, int R, const float* __restrict__ gi,
                 const float* __restrict__ hs, const float* __restrict__ cs_in,
@@ -1410,7 +1563,8 @@ lstm_bwd_kernel(RnnDims d, int cs, int R, const float* __restrict__ gi,
                 const float* __restrict__ bhh, float* __restrict__ dgi,
                 ModeArgs m, const float* __restrict__ hcell,
                 float* __restrict__ acts, float* __restrict__ dzs,
-                float* __restrict__ dmode) {
+                float* __restrict__ dmode, float* __restrict__ dgw,
+                Prec pr) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   cg::cluster_group cluster = cg::this_cluster();
@@ -1473,32 +1627,33 @@ lstm_bwd_kernel(RnnDims d, int cs, int R, const float* __restrict__ gi,
                   ((MODE != 2 && MODE != 3) || aligned16(m.aux));
   auto prefetch = [&](int t, int first) {
     const size_t row = (size_t)t * d.B + g.row0;
-    copy_rows_async(gbuf, sD, sU, gi + row * GH + g.u0, GH, H, g.nr, 4, g.nu,
-                    v4, first);
+    const bool sb = pr.sb;
+    copy_rows<RED>(gbuf, sD, sU, gi, row * GH + g.u0, GH, H, g.nr, 4, g.nu,
+                   v4, sb, first);
     if (MODE != 1) {
-      copy_rows_async(gsel, sU, 0, ghs + row * H + g.u0, H, 0, g.nr, 1, g.nu,
-                      v4, first);
+      copy_rows<RED>(gsel, sU, 0, ghs, row * H + g.u0, H, 0, g.nr, 1, g.nu,
+                     v4, sb, first);
     } else {
-      copy_rows_async(gfull, sH, 0, ghs + row * H, H, 0, g.nr, 1, H, v4,
-                      first);
-      copy_rows_async(subs, sH, 0, hcell + row * H, H, 0, g.nr, 1, H, v4,
-                      first);
+      copy_rows<RED>(gfull, sH, 0, ghs, row * H, H, 0, g.nr, 1, H, v4, sb,
+                     first);
+      copy_rows<RED>(subs, sH, 0, hcell, row * H, H, 0, g.nr, 1, H, v4,
+                     false, first);
     }
     if (MODE == 2)
-      copy_rows_async(xb, sU, 0, m.aux + row * H + g.u0, H, 0, g.nr, 1, g.nu,
-                      v4, first);
+      copy_rows<RED>(xb, sU, 0, m.aux, row * H + g.u0, H, 0, g.nr, 1, g.nu,
+                     v4, sb, first);
     if (MODE == 3)
-      copy_rows_async(xb, 3 * sU, sU, m.aux + row * 3 * H + g.u0, 3 * H, H,
-                      g.nr, 3, g.nu, v4, first);
+      copy_rows<RED>(xb, 3 * sU, sU, m.aux, row * 3 * H + g.u0, 3 * H, H,
+                     g.nr, 3, g.nu, v4, sb, first);
     if (t > 0) {
-      copy_rows_async(hprev, sH, 0, hs + (row - d.B) * H, H, 0, g.nr, 1, H,
-                      v4, first);
+      copy_rows<RED>(hprev, sH, 0, hs, (row - d.B) * H, H, 0, g.nr, 1, H, v4,
+                     sb, first);
       if (MODE == 4)
-        copy_rows_async(cfull, sH, 0, cs_in + (row - d.B) * H, H, 0, g.nr, 1,
-                        H, v4, first);
+        copy_rows<RED>(cfull, sH, 0, cs_in, (row - d.B) * H, H, 0, g.nr, 1,
+                       H, v4, sb, first);
       else
-        copy_rows_async(cprev, sU, 0, cs_in + (row - d.B) * H + g.u0, H, 0,
-                        g.nr, 1, g.nu, v4, first);
+        copy_rows<RED>(cprev, sU, 0, cs_in, (row - d.B) * H + g.u0, H, 0,
+                       g.nr, 1, g.nu, v4, sb, first);
     } else {
       for (int i = tid; i < g.nr * sH; i += THREADS) hprev[i] = 0.f;
       for (int i = tid; i < g.nr * sU; i += THREADS) cprev[i] = 0.f;
@@ -1529,22 +1684,26 @@ lstm_bwd_kernel(RnnDims d, int cs, int R, const float* __restrict__ gi,
         dho[p] = s + gfull[p];
       }
       __syncthreads();
-      const float* dt = m.dts + (size_t)t * d.B + g.row0;
+      const size_t dt = (size_t)t * d.B + g.row0;
       for (int sub = 0; sub + 1 < m.S; ++sub)
-        mlp_substep(subs + sub * tileH, subs + (sub + 1) * tileH, sH, dzt,
-                    dxt, sM, m, H, g.nr, dt, 1);
+        mlp_substep<RED>(subs + sub * tileH, subs + (sub + 1) * tileH, sH,
+                         dzt, dxt, sM, m, H, g.nr, dt, 1, pr.mm, pr.sb);
       for (int sub = m.S - 1; sub >= 0; --sub)
-        mlp_back(dho, sH, subs + sub * tileH, A, tA, sHH, dzt, dxt, sM, m, H,
-                 g.nr, dt, 1, acts, dzs,
-                 ((size_t)t * m.S + sub) * d.B + g.row0, K, cs, rank);
+        mlp_back<RED>(dho, sH, subs + sub * tileH, A, tA, sHH, dzt, dxt, sM,
+                      m, H, g.nr, dt, 1, acts, dzs,
+                      ((size_t)t * m.S + sub) * d.B + g.row0, K, cs, rank,
+                      pr.mm, pr.sb);
     }
     // recompute the own units' gates from (h, c) before the step; their
     // cotangents
     for (int item = tid; item < items; item += THREADS) {
       const int ul = item % g.nu, r0 = (item / g.nu) * RPT;
       float acc[4][RPT], accd[1][RPT];
-      gate_sums<4, RPT>(hprev, sH, H, w, ul, r0, acc);
-      if (MODE == 4) gate_sums<1, RPT>(cfull, sH, H, wdl, ul, r0, accd);
+      gate_sums<4, RPT, false, RED>(hprev, sH, H, w, ul, r0, acc, nullptr,
+                                    pr.mm);
+      if (MODE == 4)
+        gate_sums<1, RPT, false, RED>(cfull, sH, H, wdl, ul, r0, accd,
+                                      nullptr, pr.mm);
 #pragma unroll
       for (int q = 0; q < RPT; ++q) {
         const int r = r0 + q;
@@ -1564,7 +1723,7 @@ lstm_bwd_kernel(RnnDims d, int cs, int R, const float* __restrict__ gi,
           if (MODE == 4) {
             const float c = cfull[r * sH + g.u0 + ul];
             const float csh = tanhf(accd[0][q] + bdo[ul]);
-            const float tel = m.aux[orow];
+            const float tel = ld<RED>(m.aux, orow, pr.sb);
             const float cadj = c - csh + csh * tel;
             const float fg = sigmoid(gr[0] + acc[0][q] + bs[0]);
             const float ig = sigmoid(gr[sU] + acc[1][q] + bs[sU]);
@@ -1596,9 +1755,10 @@ lstm_bwd_kernel(RnnDims d, int cs, int R, const float* __restrict__ gi,
             float dcc = 0.f;
             if (MODE == 2) {  // back through the blend
               const float sel = xb[e];
-              dmode[orow * H + g.u0 + ul] =
-                  ghv * (og * tc - hprev[r * sH + g.u0 + ul]) +
-                  gcv * (c2 - c);
+              st<RED>(dmode, orow * H + g.u0 + ul,
+                      ghv * (og * tc - hprev[r * sH + g.u0 + ul]) +
+                          gcv * (c2 - c),
+                      pr.sb);
               dhc[e] = ghv * (1.f - sel);
               dcc = gcv * (1.f - sel);
               ghv *= sel;
@@ -1607,10 +1767,10 @@ lstm_bwd_kernel(RnnDims d, int cs, int R, const float* __restrict__ gi,
             const float dc = gcv + ghv * og * (1.f - tc * tc);
             if (MODE == 3) {  // the modifiers' cotangents, then the gates'
               const float di = dc * gg, df = dc * c, dov = ghv * tc;
-              float* dt = dmode + orow * 3 * H + g.u0 + ul;
-              dt[0] = di * si;
-              dt[H] = df * sf;
-              dt[2 * H] = dov * so;
+              const size_t ot = orow * 3 * H + g.u0 + ul;
+              st<RED>(dmode, ot, di * si, pr.sb);
+              st<RED>(dmode, ot + H, df * sf, pr.sb);
+              st<RED>(dmode, ot + 2 * H, dov * so, pr.sb);
               d0 = di * tr[0] * si * (1.f - si);
               d1 = df * tr[sU] * sf * (1.f - sf);
               d2 = dc * ig * (1.f - gg * gg);
@@ -1628,11 +1788,17 @@ lstm_bwd_kernel(RnnDims d, int cs, int R, const float* __restrict__ gi,
           dgs[sU] = d1;
           dgs[2 * sU] = d2;
           dgs[3 * sU] = d3;
-          float* dgr = dgi + ob + (size_t)r * GH + ul;
-          dgr[0] = d0;
-          dgr[H] = d1;
-          dgr[2 * H] = d2;
-          dgr[3 * H] = d3;
+          const size_t og = ob + (size_t)r * GH + ul;
+          st<RED>(dgi, og, d0, pr.sb);
+          st<RED>(dgi, og + H, d1, pr.sb);
+          st<RED>(dgi, og + 2 * H, d2, pr.sb);
+          st<RED>(dgi, og + 3 * H, d3, pr.sb);
+          if (RED && dgw) {
+            dgw[og] = d0;
+            dgw[og + H] = d1;
+            dgw[og + 2 * H] = d2;
+            dgw[og + 3 * H] = d3;
+          }
         }
       }
     }
@@ -1646,12 +1812,12 @@ lstm_bwd_kernel(RnnDims d, int cs, int R, const float* __restrict__ gi,
     for (int item = tid; item < back_items; item += THREADS) {
       const int k = item % H, r0 = (item / H) * RPT;
       float acc[RPT];
-      back_sums<4, RPT>(dg, sU, g.nu, w, k, r0, acc);
+      back_sums<4, RPT, RED>(dg, sU, g.nu, w, k, r0, acc, pr.mm);
 #pragma unroll
       for (int q = 0; q < RPT; ++q)
         if (r0 + q < g.nr) pd[(r0 + q) * sH + k] = acc[q];
       if (MODE == 4) {
-        back_sums<1, RPT>(dzd, sU, g.nu, wdl, k, r0, acc);
+        back_sums<1, RPT, RED>(dzd, sU, g.nu, wdl, k, r0, acc, pr.mm);
 #pragma unroll
         for (int q = 0; q < RPT; ++q)
           if (r0 + q < g.nr) pc[(r0 + q) * sH + k] = acc[q];
@@ -1717,13 +1883,16 @@ inline int wgrad_splits(int L, int B, int H, int G) {
 // the rows of dg [K][N] (W_hh's gradient: K = L B over (step, row), N = G
 // H). x[n] [H] is the cell's input state of the step: hs[n - B] for n >=
 // B, h0[n] (zero without h0) for n < B, times hdec[n] with DEC (B = K and
-// x = h0: any stream [K][H], as the evolve's layers give them).
-template <int BM, bool DEC>
+// x = h0: any stream [K][H], as the evolve's layers give them). A reduced
+// instance (RED) reads hs and h0 in the stream dtype (bf16 with pr.sb,
+// widened as they are staged) and takes the product's operands, x (after
+// the decay) and dg, in operand mode pr.mm; the bias sums stay exact.
+template <int BM, bool DEC, bool RED>
 __global__ void __launch_bounds__(THREADS)
 rnn_wgrad_kernel(int K, int B, int H, int N, int kper,
                  const float* __restrict__ h0, const float* __restrict__ hs,
                  const float* __restrict__ hdec, const float* __restrict__ dg,
-                 float* __restrict__ p) {
+                 float* __restrict__ p, Prec pr) {
   constexpr int TM = BM / 16;  // rows of the thread's outputs
   __shared__ __align__(16) float xs[2][WG_BK][BM];
   __shared__ __align__(16) float ds[DEC ? 2 : 1][DEC ? WG_BK : 1][BM];
@@ -1738,6 +1907,18 @@ rnn_wgrad_kernel(int K, int B, int H, int N, int kper,
     for (int q = tid; q < WG_BK * BM / 4; q += THREADS) {
       const int lr = q / (BM / 4), lc = (q % (BM / 4)) * 4;
       const int n = nb + lr, m = m0 + lc;
+      if constexpr (RED) {  // synchronous, widened, zero past the ends
+        const float* xb = n >= B ? hs : h0;
+        const size_t xo = (size_t)(n >= B ? n - B : n) * H + m;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const bool ok = n < n1 && m + j < H && xb;
+          xs[buf][lr][lc + j] = ok ? ld_stream(xb, xo + j, pr.sb) : 0.f;
+          if (DEC)
+            ds[buf][lr][lc + j] = ok ? hdec[(size_t)n * H + m + j] : 0.f;
+        }
+        continue;
+      }
       const float* x = nullptr;
       if (n < n1)
         x = n >= B ? hs + (size_t)(n - B) * H + m
@@ -1821,7 +2002,7 @@ rnn_wgrad_kernel(int K, int B, int H, int N, int kper,
       for (int i = 0; i < TM; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j)
-          acc[i][j] = fmaf(av[i], lane(y, j), acc[i][j]);
+          acc[i][j] = mad<RED>(av[i], lane(y, j), acc[i][j], pr.mm);
       if (own_b)
 #pragma unroll
         for (int j = 0; j < 4; ++j) bsum[j] += lane(y, j);
@@ -1847,42 +2028,49 @@ rnn_wgrad_kernel(int K, int B, int H, int N, int kper,
 }
 
 // The product over K rows of x [H] and dg [N] into the split partials p
-// [splits][H + 1][N] (x as rnn_wgrad_kernel reads it)
+// [splits][H + 1][N] (x as rnn_wgrad_kernel reads it), by the fp32
+// instances or, in a reduced precision (pr not (0, 0)), the reduced ones
 int rnn_wgrad_k(const float* h0, const float* hs, const float* hdec,
                 const float* dg, float* p, int K, int B, int H, int N,
-                cudaStream_t s) {
+                cudaStream_t s, Prec pr = Prec{0, 0}) {
   if (K <= 0 || B <= 0 || H <= 0 || N <= 0) return (int)cudaErrorInvalidValue;
   const int S = wgrad_splits_k(K, H, N);
   const int kper = ((K + S - 1) / S + WG_BK - 1) / WG_BK * WG_BK;
   const int bm = wgrad_rows(H);
   const dim3 grid((N + WG_BN - 1) / WG_BN, (H + bm - 1) / bm, S);
-  auto k = bm == 128 ? (hdec ? rnn_wgrad_kernel<128, true>
-                             : rnn_wgrad_kernel<128, false>)
-                      : (hdec ? rnn_wgrad_kernel<64, true>
-                              : rnn_wgrad_kernel<64, false>);
-  k<<<grid, THREADS, 0, s>>>(K, B, H, N, kper, h0, hs, hdec, dg, p);
+  const bool red = pr.mm != MM_F32 || pr.sb;
+  auto k = bm == 128 ? (hdec ? (red ? rnn_wgrad_kernel<128, true, true>
+                                    : rnn_wgrad_kernel<128, true, false>)
+                             : (red ? rnn_wgrad_kernel<128, false, true>
+                                    : rnn_wgrad_kernel<128, false, false>))
+                      : (hdec ? (red ? rnn_wgrad_kernel<64, true, true>
+                                     : rnn_wgrad_kernel<64, true, false>)
+                              : (red ? rnn_wgrad_kernel<64, false, true>
+                                     : rnn_wgrad_kernel<64, false, false>));
+  k<<<grid, THREADS, 0, s>>>(K, B, H, N, kper, h0, hs, hdec, dg, p, pr);
   return (int)cudaGetLastError();
 }
 
 int rnn_wgrad(const float* h0, const float* hs, const float* hdec,
               const float* dg, float* p, int L, int B, int H, int G,
-              cudaStream_t s) {
+              cudaStream_t s, Prec pr = Prec{0, 0}) {
   if (L <= 0) return (int)cudaErrorInvalidValue;
-  return rnn_wgrad_k(h0, hs, hdec, dg, p, L * B, B, H, G * H, s);
+  return rnn_wgrad_k(h0, hs, hdec, dg, p, L * B, B, H, G * H, s, pr);
 }
 
 // The evolve's weight gradients: layer i's product over the K = L S B rows
 // of its input stream [K][in_i] and output cotangent [K][out_i] (blocks of
-// acts and dzs in layer order) into its split partials, each layer's block
-// of p after the one before ([splits_i][in_i + 1][out_i])
+// acts and dzs in layer order, fp32) into its split partials, each layer's
+// block of p after the one before ([splits_i][in_i + 1][out_i]); products
+// in operand mode mm
 int mlp_wgrad(const float* acts, const float* dzs, float* p, int L, int B,
-              int H, int HH, int n, int S, cudaStream_t s) {
+              int H, int HH, int n, int S, cudaStream_t s, int mm = MM_F32) {
   const long long K = (long long)L * S * B;
   if (K <= 0 || n <= 0) return (int)cudaErrorInvalidValue;
   for (int i = 0; i < n; ++i) {
     const int iw = mlp_in(i, H, HH), ow = mlp_out(i, n, H, HH);
     const int err = rnn_wgrad_k(acts, acts, nullptr, dzs, p, (int)K, (int)K,
-                                iw, ow, s);
+                                iw, ow, s, Prec{mm, 0});
     if (err) return err;
     p += (size_t)wgrad_splits_k(K, iw, ow) * (iw + 1) * ow;
     acts += K * iw;
@@ -1900,6 +2088,7 @@ struct GruFwdArgs {
   const float *gi, *h0, *whh, *bhh, *hdec;
   float* hs;
   ModeArgs m;
+  Prec pr;
 };
 
 struct GruBwdArgs {
@@ -1909,6 +2098,7 @@ struct GruBwdArgs {
   // modes 1-3 (gru_bwd_mode_kernel): null where the mode has none
   float *dhrow, *xin, *acts, *dzs;
   ModeArgs m;
+  Prec pr;
 };
 
 struct LstmFwdArgs {
@@ -1916,6 +2106,7 @@ struct LstmFwdArgs {
   const float *gi, *whh, *bhh;
   float *hs, *cs, *hcell;
   ModeArgs m;
+  Prec pr;
 };
 
 struct LstmBwdArgs {
@@ -1924,6 +2115,8 @@ struct LstmBwdArgs {
   float *dgi, *acts, *dzs;
   ModeArgs m;
   float* dmode;  // dsel (mode 2), dtg (3) or dzd (4)
+  float* dgw;    // a reduced precision's fp32 gate cotangents, or null
+  Prec pr;
 };
 
 // Launch kernel k over clusters of p.cs CTAs, or, without `run`, only
@@ -1977,92 +2170,102 @@ int launch_clusters(void (*k)(Exp...), const RnnPlan& p, int B,
   return (int)cudaGetLastError();
 }
 
-// Each launcher is a member template of its mode: Fn<MODE>::template
-// At<RPT, WS>::run
-template <int MODE>
+// Each launcher is a member template of its mode and precision (RED: the
+// reduced instances): Fn<MODE, RED>::template At<RPT, WS>::run
+template <int MODE, bool RED>
 struct GruFwd {
   template <int RPT, int WS>
   struct At {
     static int run(const GruFwdArgs& a, const RnnPlan& p, cudaStream_t s,
                    int* active, bool go) {
-      return launch_clusters(gru_fwd_kernel<RPT, WS, MODE>, p, a.d.B, s,
+      return launch_clusters(gru_fwd_kernel<RPT, WS, MODE, RED>, p, a.d.B, s,
                              active, go, a.d, p.cs, p.rows, a.gi, a.h0,
-                             a.whh, a.bhh, a.hdec, a.hs, a.m);
+                             a.whh, a.bhh, a.hdec, a.hs, a.m, a.pr);
     }
   };
 };
 
+template <bool RED>
 struct GruBwd {
   template <int RPT, int WS>
   struct At {
     static int run(const GruBwdArgs& a, const RnnPlan& p, cudaStream_t s,
                    int* active, bool go) {
-      return launch_clusters(gru_bwd_kernel<RPT, WS>, p, a.d.B, s, active,
-                             go, a.d, p.cs, p.rows, a.gi, a.h0, a.hs, a.ghs,
-                             a.whh, a.bhh, a.hdec, a.dgi, a.dgh, a.dh0,
-                             a.dhdec);
+      return launch_clusters(gru_bwd_kernel<RPT, WS, RED>, p, a.d.B, s,
+                             active, go, a.d, p.cs, p.rows, a.gi, a.h0, a.hs,
+                             a.ghs, a.whh, a.bhh, a.hdec, a.dgi, a.dgh, a.dh0,
+                             a.dhdec, a.pr);
     }
   };
 };
 
-template <int MODE>
+template <int MODE, bool RED>
 struct GruBwdMode {
   template <int RPT, int WS>
   struct At {
     static int run(const GruBwdArgs& a, const RnnPlan& p, cudaStream_t s,
                    int* active, bool go) {
-      return launch_clusters(gru_bwd_mode_kernel<RPT, WS, MODE>, p, a.d.B, s,
-                             active, go, a.d, p.cs, p.rows, a.gi, a.h0, a.hs,
-                             a.ghs, a.whh, a.bhh, a.m, a.dgi, a.dgh, a.dh0,
-                             a.dhrow, a.xin, a.acts, a.dzs);
+      return launch_clusters(gru_bwd_mode_kernel<RPT, WS, MODE, RED>, p,
+                             a.d.B, s, active, go, a.d, p.cs, p.rows, a.gi,
+                             a.h0, a.hs, a.ghs, a.whh, a.bhh, a.m, a.dgi,
+                             a.dgh, a.dh0, a.dhrow, a.xin, a.acts, a.dzs,
+                             a.pr);
     }
   };
 };
 
-template <int MODE>
+template <int MODE, bool RED>
 struct LstmFwd {
   template <int RPT, int WS>
   struct At {
     static int run(const LstmFwdArgs& a, const RnnPlan& p, cudaStream_t s,
                    int* active, bool go) {
-      return launch_clusters(lstm_fwd_kernel<RPT, WS, MODE>, p, a.d.B, s,
+      return launch_clusters(lstm_fwd_kernel<RPT, WS, MODE, RED>, p, a.d.B, s,
                              active, go, a.d, p.cs, p.rows, a.gi, a.whh,
-                             a.bhh, a.hs, a.cs, a.m, a.hcell);
+                             a.bhh, a.hs, a.cs, a.m, a.hcell, a.pr);
     }
   };
 };
 
-template <int MODE>
+template <int MODE, bool RED>
 struct LstmBwd {
   template <int RPT, int WS>
   struct At {
     static int run(const LstmBwdArgs& a, const RnnPlan& p, cudaStream_t s,
                    int* active, bool go) {
-      return launch_clusters(lstm_bwd_kernel<RPT, WS, MODE>, p, a.d.B, s,
+      return launch_clusters(lstm_bwd_kernel<RPT, WS, MODE, RED>, p, a.d.B, s,
                              active, go, a.d, p.cs, p.rows, a.gi, a.hs, a.cs,
                              a.ghs, a.whh, a.bhh, a.dgi, a.m, a.hcell,
-                             a.acts, a.dzs, a.dmode);
+                             a.acts, a.dzs, a.dmode, a.dgw, a.pr);
     }
   };
 };
 
 // The plan of one launch of G gates in mode ms, then its kernel instance
-// (rows per thread, and the slices in shared or device memory).
-template <template <int, int> class Fn, class Args>
+// (rows per thread, and the slices in shared or device memory). A reduced
+// instance takes one row a thread whatever the plan's rows per thread
+// (the plan's work split, one item a row: a quarter of the instances to
+// build; its products are not tuned yet).
+template <template <int, int> class Fn, bool RED, class Args>
 int rnn_launch(const Args& a, int G, int backward, const ModeShape& ms,
                cudaStream_t s, int* active, bool go) {
   if (a.d.L <= 0 || a.d.B <= 0 || a.d.H <= 0) return (int)cudaErrorInvalidValue;
   const RnnPlan p = rnn_plan(G, a.d.H, a.d.B, backward, ms);
   if (p.bytes == 0) return (int)cudaErrorInvalidValue;
-  switch (p.rpt * 2 + p.w_smem) {
-    case 2: return Fn<1, 0>::run(a, p, s, active, go);
-    case 3: return Fn<1, 1>::run(a, p, s, active, go);
-    case 4: return Fn<2, 0>::run(a, p, s, active, go);
-    case 5: return Fn<2, 1>::run(a, p, s, active, go);
-    case 8: return Fn<4, 0>::run(a, p, s, active, go);
-    case 9: return Fn<4, 1>::run(a, p, s, active, go);
-    case 16: return Fn<8, 0>::run(a, p, s, active, go);
-    case 17: return Fn<8, 1>::run(a, p, s, active, go);
+  if constexpr (RED) {
+    return p.w_smem ? Fn<1, 1>::run(a, p, s, active, go)
+                    : Fn<1, 0>::run(a, p, s, active, go);
+  } else {
+    switch (p.rpt * 2 + p.w_smem) {
+      case 2: return Fn<1, 0>::run(a, p, s, active, go);
+      case 3: return Fn<1, 1>::run(a, p, s, active, go);
+      case 4: return Fn<2, 0>::run(a, p, s, active, go);
+      case 5: return Fn<2, 1>::run(a, p, s, active, go);
+      case 8: return Fn<4, 0>::run(a, p, s, active, go);
+      case 9: return Fn<4, 1>::run(a, p, s, active, go);
+      case 16: return Fn<8, 0>::run(a, p, s, active, go);
+      case 17: return Fn<8, 1>::run(a, p, s, active, go);
+    }
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -2075,54 +2278,67 @@ inline bool valid_mode(int G, const ModeShape& ms) {
   return !ode || (ms.n >= 1 && ms.S >= 1 && (ms.n == 1 || ms.HH >= 1));
 }
 
-template <template <int> class Fn, class Args>
+template <template <int, bool> class Fn, bool RED, class Args>
 int gru_launch(const Args& a, int backward, const ModeShape& ms,
                cudaStream_t s, int* active, bool go) {
   if (!valid_mode(3, ms)) return (int)cudaErrorInvalidValue;
   switch (ms.mode) {
-    case 0: return rnn_launch<Fn<0>::template At>(a, 3, backward, ms, s,
-                                                   active, go);
-    case 1: return rnn_launch<Fn<1>::template At>(a, 3, backward, ms, s,
-                                                   active, go);
-    case 2: return rnn_launch<Fn<2>::template At>(a, 3, backward, ms, s,
-                                                   active, go);
-    case 3: return rnn_launch<Fn<3>::template At>(a, 3, backward, ms, s,
-                                                   active, go);
+    case 0: return rnn_launch<Fn<0, RED>::template At, RED>(
+        a, 3, backward, ms, s, active, go);
+    case 1: return rnn_launch<Fn<1, RED>::template At, RED>(
+        a, 3, backward, ms, s, active, go);
+    case 2: return rnn_launch<Fn<2, RED>::template At, RED>(
+        a, 3, backward, ms, s, active, go);
+    case 3: return rnn_launch<Fn<3, RED>::template At, RED>(
+        a, 3, backward, ms, s, active, go);
   }
   return (int)cudaErrorInvalidValue;
 }
 
-template <template <int> class Fn, class Args>
+template <template <int, bool> class Fn, bool RED, class Args>
 int lstm_launch(const Args& a, int backward, const ModeShape& ms,
                 cudaStream_t s, int* active, bool go) {
   if (!valid_mode(4, ms)) return (int)cudaErrorInvalidValue;
   switch (ms.mode) {
-    case 0: return rnn_launch<Fn<0>::template At>(a, 4, backward, ms, s,
-                                                   active, go);
-    case 1: return rnn_launch<Fn<1>::template At>(a, 4, backward, ms, s,
-                                                   active, go);
-    case 2: return rnn_launch<Fn<2>::template At>(a, 4, backward, ms, s,
-                                                   active, go);
-    case 3: return rnn_launch<Fn<3>::template At>(a, 4, backward, ms, s,
-                                                   active, go);
-    case 4: return rnn_launch<Fn<4>::template At>(a, 4, backward, ms, s,
-                                                   active, go);
+    case 0: return rnn_launch<Fn<0, RED>::template At, RED>(
+        a, 4, backward, ms, s, active, go);
+    case 1: return rnn_launch<Fn<1, RED>::template At, RED>(
+        a, 4, backward, ms, s, active, go);
+    case 2: return rnn_launch<Fn<2, RED>::template At, RED>(
+        a, 4, backward, ms, s, active, go);
+    case 3: return rnn_launch<Fn<3, RED>::template At, RED>(
+        a, 4, backward, ms, s, active, go);
+    case 4: return rnn_launch<Fn<4, RED>::template At, RED>(
+        a, 4, backward, ms, s, active, go);
   }
   return (int)cudaErrorInvalidValue;
 }
 
 // The GRU backward by mode: the plain kernel in mode 0, the mode kernel in
 // 1-3
+template <bool RED>
 int gru_bwd_launch(const GruBwdArgs& a, const ModeShape& ms, cudaStream_t s,
                    int* active, bool go) {
   if (!valid_mode(3, ms)) return (int)cudaErrorInvalidValue;
   switch (ms.mode) {
-    case 0: return rnn_launch<GruBwd::At>(a, 3, 1, ms, s, active, go);
-    case 1: return rnn_launch<GruBwdMode<1>::At>(a, 3, 1, ms, s, active, go);
-    case 2: return rnn_launch<GruBwdMode<2>::At>(a, 3, 1, ms, s, active, go);
-    case 3: return rnn_launch<GruBwdMode<3>::At>(a, 3, 1, ms, s, active, go);
+    case 0: return rnn_launch<GruBwd<RED>::template At, RED>(a, 3, 1, ms, s,
+                                                             active, go);
+    case 1: return rnn_launch<GruBwdMode<1, RED>::template At, RED>(
+        a, 3, 1, ms, s, active, go);
+    case 2: return rnn_launch<GruBwdMode<2, RED>::template At, RED>(
+        a, 3, 1, ms, s, active, go);
+    case 3: return rnn_launch<GruBwdMode<3, RED>::template At, RED>(
+        a, 3, 1, ms, s, active, go);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// A launch's precision: 0 for exact fp32 (the fp32 instances), 1 for a
+// reduced one (the reduced instances), -1 for none the kernels take
+inline int precision_of(const Prec& pr) {
+  if (pr.mm < MM_F32 || pr.mm > MM_BF16 || (pr.sb != 0 && pr.sb != 1))
+    return -1;
+  return pr.mm != MM_F32 || pr.sb;
 }
 
 // One field of the plan of a launch with G gates at (H, B) in mode ms: 0
@@ -2148,22 +2364,22 @@ int plan_field(int G, int H, int B, int backward, const ModeShape& ms,
     GruBwdArgs a = {};
     a.d = d;
     a.m = m;
-    err = gru_bwd_launch(a, ms, 0, &active, false);
+    err = gru_bwd_launch<false>(a, ms, 0, &active, false);
   } else if (G == 3) {
     GruFwdArgs a = {};
     a.d = d;
     a.m = m;
-    err = gru_launch<GruFwd>(a, 0, ms, 0, &active, false);
+    err = gru_launch<GruFwd, false>(a, 0, ms, 0, &active, false);
   } else if (backward) {
     LstmBwdArgs a = {};
     a.d = d;
     a.m = m;
-    err = lstm_launch<LstmBwd>(a, 1, ms, 0, &active, false);
+    err = lstm_launch<LstmBwd, false>(a, 1, ms, 0, &active, false);
   } else {
     LstmFwdArgs a = {};
     a.d = d;
     a.m = m;
-    err = lstm_launch<LstmFwd>(a, 0, ms, 0, &active, false);
+    err = lstm_launch<LstmFwd, false>(a, 0, ms, 0, &active, false);
   }
   return err ? -err : active;
 }
@@ -2175,7 +2391,10 @@ extern "C" {
 // Every entry of a pair takes the launch's mode after its dimensions: the
 // mode (0 the plain modes; GRU 1 obs, 2 obs + row decay, 3 obs + evolve;
 // LSTM 1 evolve, 2 sel, 3 tg, 4 TLSTM) and the evolve's shape (HH, n
-// layers, S substeps; 0 without it).
+// layers, S substeps; 0 without it). The launches then take the precision
+// (mm: the products' operand mode, MM_F32, MM_X3 or MM_BF16; sb: 1 for bf16
+// streams): (0, 0) runs the fp32 instances, any other the reduced ones, in
+// which the streams named at each entry are bf16 with sb.
 
 int fused_gru_max_smem() { return max_optin_smem(); }
 int fused_lstm_max_smem() { return max_optin_smem(); }
@@ -2242,16 +2461,23 @@ int fused_lstm_wdgrad_splits(int L, int B, int H) {
 // The GRU forward. hdec [L][B][H] (mode 0) may be null (no decay); obs
 // [L][B] (modes 1-3; null in modes 2 and 3: every step observed), the
 // decay row hrow [L][H] (mode 2), the evolve's packed mlp (ModeArgs) and
-// substep sizes dts [L] (mode 3) are null where the mode has none.
+// substep sizes dts [L] (mode 3) are null where the mode has none. Streams
+// in the stream dtype: gi and hs.
 int fused_gru_fwd(const float* gi, const float* h0, const float* whh,
                   const float* bhh, const float* hdec, const float* obs,
                   const float* hrow, const float* mlp, const float* dts,
                   float* hs, int L, int B, int H, int mode, int HH, int n,
-                  int S, void* stream) {
+                  int S, int mm, int sb, void* stream) {
   const GruFwdArgs a{RnnDims{L, B, H}, gi, h0, whh, bhh, hdec, hs,
-                     ModeArgs{obs, hrow, mlp, dts, HH, n, S}};
-  return gru_launch<GruFwd>(a, 0, ModeShape{mode, HH, n, S},
-                            (cudaStream_t)stream, nullptr, true);
+                     ModeArgs{obs, hrow, mlp, dts, HH, n, S}, Prec{mm, sb}};
+  const ModeShape ms{mode, HH, n, S};
+  switch (precision_of(a.pr)) {
+    case 0: return gru_launch<GruFwd, false>(a, 0, ms, (cudaStream_t)stream,
+                                             nullptr, true);
+    case 1: return gru_launch<GruFwd, true>(a, 0, ms, (cudaStream_t)stream,
+                                            nullptr, true);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 // The reverse recurrence: dgi, W_hh's cotangent dgh, dh0 (the weight
@@ -2259,34 +2485,47 @@ int fused_gru_fwd(const float* gi, const float* h0, const float* whh,
 // dhdec; the cell's input states xin [L][B][H] (modes 2, 3), dhrow's
 // per-cluster partials [clusters][L][H] (mode 2) and the evolve layers'
 // input and cotangent streams acts, dzs (mode 3). Null where the mode has
-// none.
+// none. Streams in the stream dtype: gi, h0, hs, ghs and dgi.
 int fused_gru_bwd(const float* gi, const float* h0, const float* hs,
                   const float* ghs, const float* whh, const float* bhh,
                   const float* hdec, const float* obs, const float* hrow,
                   const float* mlp, const float* dts, float* dgi, float* dgh,
                   float* dh0, float* dhdec, float* dhrow, float* xin,
                   float* acts, float* dzs, int L, int B, int H, int mode,
-                  int HH, int n, int S, void* stream) {
+                  int HH, int n, int S, int mm, int sb, void* stream) {
   const GruBwdArgs a{RnnDims{L, B, H}, gi, h0, hs, ghs, whh, bhh, hdec,
                      dgi, dgh, dh0, dhdec, dhrow, xin, acts, dzs,
-                     ModeArgs{obs, hrow, mlp, dts, HH, n, S}};
-  return gru_bwd_launch(a, ModeShape{mode, HH, n, S}, (cudaStream_t)stream,
-                        nullptr, true);
+                     ModeArgs{obs, hrow, mlp, dts, HH, n, S}, Prec{mm, sb}};
+  const ModeShape ms{mode, HH, n, S};
+  switch (precision_of(a.pr)) {
+    case 0: return gru_bwd_launch<false>(a, ms, (cudaStream_t)stream,
+                                         nullptr, true);
+    case 1: return gru_bwd_launch<true>(a, ms, (cudaStream_t)stream, nullptr,
+                                        true);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 // Partials of (dW_hh, db_hh) [splits][H + 1][3H] from the cell's input
-// states (h0, hs, hdec: null for no decay) and dgh
+// states (h0, hs, hdec: null for no decay; h0 and hs in the stream dtype)
+// and dgh (fp32)
 int fused_gru_wgrad(const float* h0, const float* hs, const float* hdec,
-                    const float* dgh, float* p, int L, int B, int H,
-                    void* stream) {
-  return rnn_wgrad(h0, hs, hdec, dgh, p, L, B, H, 3, (cudaStream_t)stream);
+                    const float* dgh, float* p, int L, int B, int H, int mm,
+                    int sb, void* stream) {
+  if (precision_of(Prec{mm, sb}) < 0) return (int)cudaErrorInvalidValue;
+  return rnn_wgrad(h0, hs, hdec, dgh, p, L, B, H, 3, (cudaStream_t)stream,
+                   Prec{mm, sb});
 }
 
 // The evolve's weight gradients from either pair's backward streams
-// (mlp_wgrad): one product kernel, whose entries sit beside the GRU's
+// (mlp_wgrad, fp32): one product kernel, whose entries sit beside the
+// GRU's; its products in operand mode mm
 int fused_gru_mlpgrad(const float* acts, const float* dzs, float* p, int L,
-                      int B, int H, int HH, int n, int S, void* stream) {
-  return mlp_wgrad(acts, dzs, p, L, B, H, HH, n, S, (cudaStream_t)stream);
+                      int B, int H, int HH, int n, int S, int mm,
+                      void* stream) {
+  if (precision_of(Prec{mm, 0}) < 0) return (int)cudaErrorInvalidValue;
+  return mlp_wgrad(acts, dzs, p, L, B, H, HH, n, S, (cudaStream_t)stream,
+                   mm);
 }
 // Splits of one evolve layer's product over K rows, in_w -> out_w: its
 // partials [splits][in_w + 1][out_w]
@@ -2298,54 +2537,75 @@ int fused_gru_mlp_splits(int K, int in_w, int out_w) {
 // [L][B]; the mode's stream aux: sel [L][B][H] (mode 2), tg [L][B][3H]
 // (3), tel [L][B] (4); TLSTM's W_d [H][H] and b_d [H] (4). Null where the
 // mode has none. cs and hcell may be null (no backward will run); hcell,
-// the cells' own h', is written in mode 1 only.
+// the cells' own h', is written in mode 1 only (in a reduced precision with
+// bf16 streams, the cell's output at the rounded state). Streams in the
+// stream dtype: gi, dts (mode 1), aux, hs and cs.
 int fused_lstm_fwd(const float* gi, const float* whh, const float* bhh,
                    const float* mlp, const float* dts, const float* aux,
                    const float* wd, const float* bd, float* hs, float* cs,
                    float* hcell, int L, int B, int H, int mode, int HH, int n,
-                   int S, void* stream) {
+                   int S, int mm, int sb, void* stream) {
   const LstmFwdArgs a{RnnDims{L, B, H}, gi, whh, bhh, hs, cs, hcell,
                       ModeArgs{nullptr, nullptr, mlp, dts, HH, n, S, aux, wd,
-                               bd}};
-  return lstm_launch<LstmFwd>(a, 0, ModeShape{mode, HH, n, S},
-                              (cudaStream_t)stream, nullptr, true);
+                               bd},
+                      Prec{mm, sb}};
+  const ModeShape ms{mode, HH, n, S};
+  switch (precision_of(a.pr)) {
+    case 0: return lstm_launch<LstmFwd, false>(a, 0, ms, (cudaStream_t)stream,
+                                               nullptr, true);
+    case 1: return lstm_launch<LstmFwd, true>(a, 0, ms, (cudaStream_t)stream,
+                                              nullptr, true);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 // The reverse recurrence: dgi (the weight gradients are fused_lstm_wgrad,
 // fused_lstm_wdgrad and fused_gru_mlpgrad), in mode 1 the evolve layers'
 // streams, in modes 2-4 dmode: dsel [L][B][H], dtg [L][B][3H] or dzd
-// [L][B][H]. The mode's inputs as the forward's.
+// [L][B][H]. The mode's inputs as the forward's. Streams in the stream
+// dtype: gi, hs, cs, ghs, dts, aux, dgi, dsel and dtg (hcell, dzd fp32);
+// dgw [L][B][4H], the gate cotangents in fp32 for W_hh's gradient, is
+// written where it is not null (a reduced precision's).
 int fused_lstm_bwd(const float* gi, const float* hs, const float* cs,
                    const float* hcell, const float* ghs, const float* whh,
                    const float* bhh, const float* mlp, const float* dts,
                    const float* aux, const float* wd, const float* bd,
-                   float* dgi, float* acts, float* dzs, float* dmode, int L,
-                   int B, int H, int mode, int HH, int n, int S,
-                   void* stream) {
+                   float* dgi, float* acts, float* dzs, float* dmode,
+                   float* dgw, int L, int B, int H, int mode, int HH, int n,
+                   int S, int mm, int sb, void* stream) {
   const LstmBwdArgs a{RnnDims{L, B, H}, gi, hs, cs, ghs, whh, bhh, hcell,
                       dgi, acts, dzs,
                       ModeArgs{nullptr, nullptr, mlp, dts, HH, n, S, aux, wd,
                                bd},
-                      dmode};
-  return lstm_launch<LstmBwd>(a, 1, ModeShape{mode, HH, n, S},
-                              (cudaStream_t)stream, nullptr, true);
+                      dmode, dgw, Prec{mm, sb}};
+  const ModeShape ms{mode, HH, n, S};
+  switch (precision_of(a.pr)) {
+    case 0: return lstm_launch<LstmBwd, false>(a, 1, ms, (cudaStream_t)stream,
+                                               nullptr, true);
+    case 1: return lstm_launch<LstmBwd, true>(a, 1, ms, (cudaStream_t)stream,
+                                              nullptr, true);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
-// Partials of (dW_hh, db_hh) [splits][H + 1][4H] from hs and dgi (the
-// state before the first step is zero)
+// Partials of (dW_hh, db_hh) [splits][H + 1][4H] from hs (in the stream
+// dtype) and the fp32 gate cotangents (the state before the first step is
+// zero)
 int fused_lstm_wgrad(const float* hs, const float* dgi, float* p, int L,
-                     int B, int H, void* stream) {
+                     int B, int H, int mm, int sb, void* stream) {
+  if (precision_of(Prec{mm, sb}) < 0) return (int)cudaErrorInvalidValue;
   return rnn_wgrad(nullptr, hs, nullptr, dgi, p, L, B, H, 4,
-                   (cudaStream_t)stream);
+                   (cudaStream_t)stream, Prec{mm, sb});
 }
 
 // Partials of TLSTM's (dW_d, db_d) [splits][H + 1][H] from the cell states
-// cs and dzd (the product kernel with x_t = c_{t-1}, zero before the first
-// step)
+// cs (in the stream dtype) and dzd (the product kernel with x_t = c_{t-1},
+// zero before the first step)
 int fused_lstm_wdgrad(const float* cs, const float* dzd, float* p, int L,
-                      int B, int H, void* stream) {
+                      int B, int H, int mm, int sb, void* stream) {
+  if (precision_of(Prec{mm, sb}) < 0) return (int)cudaErrorInvalidValue;
   return rnn_wgrad(nullptr, cs, nullptr, dzd, p, L, B, H, 1,
-                   (cudaStream_t)stream);
+                   (cudaStream_t)stream, Prec{mm, sb});
 }
 
 }  // extern "C"

@@ -24,6 +24,8 @@
 #include <tuple>
 #include <vector>
 
+#include "operand_modes.cuh"
+
 namespace {
 
 namespace cg = cooperative_groups;
@@ -45,39 +47,8 @@ __device__ __forceinline__ float sigmoid(float x) {
 }
 
 // ---------------------------------------------------------------------------
-// Reduced precision: the products' operand modes and bf16 streams
+// Reduced precision (the operand modes and the split: operand_modes.cuh)
 // ---------------------------------------------------------------------------
-
-// The operand modes of the in-kernel products (the JAX package's
-// SNSDE_FUSED_MATMUL, snsde/kernels/fused_em.py:_dot): exact fp32; bf16x3,
-// each operand split into hi = bf16(v) and lo = bf16(v - hi), the product
-// xh wh + xh wl + xl wh; bf16, one pass over operands rounded to bf16. All
-// accumulate in fp32. A product of two bf16 values is exact in fp32, so an
-// fp32 FMA chain over the rounded or split operands computes what a bf16
-// mma with fp32 accumulation computes, up to the order of the sums.
-enum { MM_F32 = 0, MM_X3 = 1, MM_BF16 = 2 };
-
-__device__ __forceinline__ float bf16r(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-// an operand's parts in a reduced mode: hi, and lo (0 unless bf16x3)
-struct Parts {
-  float h, l;
-};
-
-__device__ __forceinline__ Parts parts(float v, bool x3) {
-  const float h = bf16r(v);
-  return Parts{h, x3 ? bf16r(v - h) : 0.f};
-}
-
-// acc + a b in a reduced mode: ah bh, then ah bl, then al bh (the bf16
-// mode's two lo terms add exact zeros)
-__device__ __forceinline__ float fma3(Parts a, Parts b, float acc) {
-  acc = fmaf(a.h, b.h, acc);
-  acc = fmaf(a.h, b.l, acc);
-  return fmaf(a.l, b.h, acc);
-}
 
 // v through a product with a one-hot factor (the latent KL lane's klm):
 // v exact, else hi + lo

@@ -1,6 +1,7 @@
 // What the reduced-precision kernels of the SRK and CDE pairs
-// (fused_srk_red.cu, fused_cde_red.cu) share, on sde_hopper.cuh's operand
-// modes (MM_*, parts, fma3, one_hot): a block of RT threads runs the whole
+// (fused_srk_red.cu, fused_cde_red.cu) share, on the operand modes of
+// operand_modes.cuh (MM_*, parts, fma3, ld_stream, st_stream) and
+// sde_hopper.cuh's one_hot: a block of RT threads runs the whole
 // time loop for R batch rows of one member (blockIdx.x the rows,
 // blockIdx.y the member), with every tile in shared memory and the weights
 // read from device memory; the products are one output a thread, each an
@@ -19,22 +20,6 @@ namespace {
 
 constexpr int RT = 256;     // threads a block
 constexpr int RED_ROWS = 8;  // the most batch rows a block
-
-// entry i of a stream in device memory: bf16 (bs) or fp32, widened
-__device__ __forceinline__ float ld_stream(const void* p, size_t i,
-                                           bool bs) {
-  return bs ? __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(p)[i])
-            : reinterpret_cast<const float*>(p)[i];
-}
-
-// entry i of a stream written in bf16 (bs, rounded to nearest) or fp32
-__device__ __forceinline__ void st_stream(void* p, size_t i, float v,
-                                          bool bs) {
-  if (bs)
-    reinterpret_cast<__nv_bfloat16*>(p)[i] = __float2bfloat16_rn(v);
-  else
-    reinterpret_cast<float*>(p)[i] = v;
-}
 
 // out[r * ldo + n] = sum_k X[r * ldx + k] W(k, n) for r < nr, n < N, in
 // operand mode `mode`: W(k, n) = W[k N + n] (a [Kd][N] weight), or with wt

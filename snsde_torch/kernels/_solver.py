@@ -43,7 +43,7 @@ __all__ = ["PRECOMP_NO", "ELEM_NO", "MULT_Y_NO", "DRIFT_BY_IO",
            "member_count", "member_shapes", "member_args",
            "stack_members", "select_member", "per_member",
            "split_weight_grads", "MATMUL_CODE", "resolve_precision",
-           "unported", "require_fp32", "bf16_round", "mm_op", "one_hot_op",
+           "bf16_round", "mm_op", "one_hot_op",
            "precision_ints", "widen", "widen_output", "precision_counts",
            "count_precision"]
 
@@ -599,7 +599,8 @@ def sde_mode(mult_y, geometric, drift, noise, elem,
 
 # the operand modes of the in-kernel products (the JAX package's
 # SNSDE_FUSED_MATMUL, snsde/kernels/fused_em.py:_dot :67-107) and their codes
-# in the EM library (csrc/sde_hopper.cuh: MM_F32, MM_X3, MM_BF16)
+# in the kernels' libraries (csrc/operand_modes.cuh: MM_F32, MM_X3,
+# MM_BF16)
 MATMUL_CODE = {"f32": 0, "bf16x3": 1, "bf16": 2}
 
 
@@ -661,26 +662,6 @@ def count_precision(counts: dict, kernel: str, stream: str,
     key = f"{kernel} {matmul} {stream}"
     if key in counts:
         counts[key] += 1
-
-
-def unported(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported to the CUDA kernels yet (ROADMAP Queue 2 "
-        f"{item})")
-
-
-def require_fp32(label: str, item: str, stream_dtype=None,
-                 matmul=None) -> None:
-    """For the kernel pairs without reduced-precision modes yet (the GRU
-    and LSTM recurrences): raise NotImplementedError naming the ROADMAP
-    item where the caller or the environment (resolve_precision) asks for
-    bf16 streams or bf16 / bf16x3 operands; never compute fp32 in their
-    place."""
-    sd, mm = resolve_precision(stream_dtype, matmul)
-    if sd != torch.float32:
-        unported(f"{label} with bf16 streams", item)
-    if mm != "f32":
-        unported(f"{label} with {mm} operands", item)
 
 
 def bf16_round(t: torch.Tensor) -> torch.Tensor:

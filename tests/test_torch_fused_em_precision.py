@@ -9,10 +9,9 @@ CPU tensors, and what chip_smoke.py holds the CUDA kernels against) with the
 same weights (snsde_torch.convert), control path and Brownian increments,
 drawn with numpy. Under bf16x3 a solve moves from exact fp32 by ~1e-5 of a
 gradient's scale, below any bar a solve can hold, so the split is also held
-at the level of one product. The SRK and CDE entries resolve a request as
-JAX's do (their modes: tests/test_torch_fused_{srk,cde}_precision.py); the
-GRU and LSTM entries have no reduced modes yet and must raise where one is
-asked for.
+at the level of one product. The SRK, CDE, GRU and LSTM entries resolve a
+request as JAX's do (their modes: tests/test_torch_fused_{srk,cde,rnn}_
+precision.py).
 """
 
 import torch_threads  # noqa: F401  (one intra-op thread)
@@ -481,23 +480,36 @@ def test_cde_solve_selects_the_mode_as_jax(monkeypatch, how):
 
 @pytest.mark.parametrize("kind,item", [("gru", "K6"), ("lstm", "K7")])
 def test_recurrences_raise_naming_k6_and_k7(monkeypatch, kind, item):
-    """The GRU and LSTM scans raise naming K6 / K7 for bf16 streams (the
-    argument or SNSDE_FUSED_STREAM) and for bf16 or bf16x3 operands
-    (SNSDE_FUSED_MATMUL), as the JAX scans read both."""
+    """The GRU and LSTM scans, whose reduced precisions (ROADMAP Queue 2 K6
+    and K7) once raised, run in bf16 streams (the argument or
+    SNSDE_FUSED_STREAM) and in bf16 or bf16x3 operands (SNSDE_FUSED_MATMUL),
+    as the JAX scans read both: finite hs and gradients, each apart from
+    exact fp32's (their values against the JAX kernels:
+    tests/test_torch_fused_rnn_precision.py)."""
     cell = (GRUCell if kind == "gru" else LSTMCell)(
         3, 4, generator=torch.Generator().manual_seed(0))
     scan = fused_gru_scan if kind == "gru" else fused_lstm_scan
-    xs = torch.zeros(5, 2, 3)
-    with pytest.raises(NotImplementedError, match=item):
-        scan(cell, xs, stream_dtype=torch.bfloat16)
+    xs = torch.as_tensor(np.random.default_rng(1).normal(size=(5, 2, 3)),
+                         dtype=torch.float32)
+
+    def run(**kw):
+        cell.w_hh.grad = None
+        hs = scan(cell, xs, **kw)
+        hs.square().sum().backward()
+        assert torch.isfinite(hs).all() and torch.isfinite(cell.w_hh.grad).all()
+        return hs.detach(), cell.w_hh.grad.clone()
+
+    exact = run()
+    asked = [run(stream_dtype=torch.bfloat16)]
     for var, value in (("SNSDE_FUSED_STREAM", "bf16"),
                        ("SNSDE_FUSED_MATMUL", "bf16x3")):
         with monkeypatch.context() as m:
             m.setenv(var, value)
-            with pytest.raises(NotImplementedError, match=item):
-                scan(cell, xs)
-    with torch.no_grad():
-        assert torch.isfinite(scan(cell, xs)).all()
+            asked.append(run())
+    assert torch.equal(asked[0][0], asked[1][0])
+    for hs, grad in asked:
+        assert not torch.equal(hs, exact[0])
+        assert not torch.equal(grad, exact[1])
 
 
 @pytest.mark.parametrize("matmul,stream", COMBOS)

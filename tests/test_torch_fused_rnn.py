@@ -335,9 +335,14 @@ def test_supports_fused_is_the_cell_layout_and_width():
 
 @pytest.mark.parametrize("kw", [{"stream_dtype": torch.bfloat16}])
 def test_unported_gru_modes_raise(kw):
+    """bf16 streams, which once raised here (ROADMAP Queue 2 K6, done), run
+    on the CPU's plain versions: finite hs and gradients."""
     cell = GRUCell(C, H, generator=torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="K6"):
-        fr.fused_gru_scan(cell, torch.zeros(4, B, C), **kw)
+    xs = torch.ones(4, B, C)
+    hs = fr.fused_gru_scan(cell, xs, **kw)
+    hs.sum().backward()
+    assert hs.dtype == torch.float32 and torch.isfinite(hs).all()
+    assert torch.isfinite(cell.w_hh.grad).all()
 
 
 @pytest.mark.parametrize("kw", [
@@ -348,11 +353,18 @@ def test_unported_gru_modes_raise(kw):
      "ode_layers": [torch.nn.Linear(H, H)]},
     {"stream_dtype": torch.bfloat16}])
 def test_unported_lstm_modes_raise(kw):
-    """Two of the LSTM's modes at once (no JAX caller does that) and bf16
-    streams raise on every device."""
+    """Two of the LSTM's modes at once (no JAX caller does that) raise on
+    every device; bf16 streams, which once raised too (ROADMAP Queue 2 K7,
+    done), run on the CPU's plain versions with finite hs and gradients."""
     cell = LSTMCell(C, H, generator=torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="K7"):
-        fr.fused_lstm_scan(cell, torch.zeros(4, B, C), **kw)
+    if "stream_dtype" not in kw:
+        with pytest.raises(NotImplementedError, match="no JAX caller"):
+            fr.fused_lstm_scan(cell, torch.zeros(4, B, C), **kw)
+        return
+    hs = fr.fused_lstm_scan(cell, torch.ones(4, B, C), **kw)
+    hs.sum().backward()
+    assert hs.dtype == torch.float32 and torch.isfinite(hs).all()
+    assert torch.isfinite(cell.w_hh.grad).all()
 
 
 def test_kernel_input_checks():

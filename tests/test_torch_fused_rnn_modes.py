@@ -311,7 +311,7 @@ def test_mlp_weight_grads_reference_equals_per_step_sums():
 
 def test_gru_mode_combinations_and_inputs_are_checked():
     """The GRU's modes on a tensor that is not on the CPU: the combinations
-    no JAX caller reaches raise NotImplementedError naming K6; a mode's
+    no JAX caller reaches raise NotImplementedError saying so; a mode's
     inputs of the wrong shape raise ValueError; CPU tensors take the plain
     version in every combination."""
     inp, data, ghs, steps = _inputs("gru", 5, obs=0.5, row=True, n=2,
@@ -325,7 +325,7 @@ def test_gru_mode_combinations_and_inputs_are_checked():
     hdec = torch.ones(5, B, H)
     for kw in ({"hdec": hdec, "obs": obs}, {"hrow": t["hrow"], "ode": ode},
                {"hdec": hdec, "ode": ode}):
-        with pytest.raises(NotImplementedError, match="K6"):
+        with pytest.raises(NotImplementedError, match="no JAX caller"):
             fr.fused_gru_forward(**meta, **{k: v.to("meta")
                                             for k, v in kw.items()
                                             if torch.is_tensor(v)},

@@ -182,8 +182,9 @@ def test_lstm_mode_backward_reference_is_autograd_of_forward(mode):
 
 def test_lstm_modes_are_checked():
     """The modes' inputs of the wrong shape raise ValueError; a tensor not
-    on the CPU with two modes at once raises NotImplementedError naming K7
-    before anything is built; CPU tensors take the plain versions."""
+    on the CPU with two modes at once raises NotImplementedError (no JAX
+    caller reaches it) before anything is built; CPU tensors take the plain
+    versions."""
     inp, data, _ = _inputs("tlstm", 5, seed=3)
     t = {k: torch.as_tensor(v) for k, v in inp.items()}
     base = {k: t[k] for k in ("gi", "whh", "bhh")}
@@ -196,7 +197,7 @@ def test_lstm_modes_are_checked():
         with pytest.raises(ValueError, match="expected"):
             fr.check_lstm_inputs(**base, **bad)
     meta = {k: v.to("meta") for k, v in base.items()}
-    with pytest.raises(NotImplementedError, match="K7"):
+    with pytest.raises(NotImplementedError, match="no JAX caller"):
         fr.fused_lstm_forward(**meta, sel=torch.zeros(5, B, H, device="meta"),
                               tg=torch.zeros(5, B, 3 * H, device="meta"))
     with pytest.raises(ValueError, match="CUDA tensors"):
